@@ -1,0 +1,317 @@
+"""Batched NDT scan registration: score / gradient / Hessian + LM iteration.
+
+Port of ``ndtpu/ndt/match.py`` (the shared-table ``[R, L]`` path). The
+objective ``f(T) = -sum_i exp(-d2/2 * d_i^T Lambda_i d_i)`` over ``T = (tx,
+ty, phi)`` is evaluated by :func:`ndt_terms` — the K1 CUDA kernel on the
+card, its plain twin :func:`ndt_terms_ref` on the CPU — and minimized by a
+batched Levenberg-Marquardt loop.
+
+JAX's ``lax.while_loop`` in ``_lm_run`` becomes a Python loop over masked
+iterations: a lane that is done is frozen (``it + active``, every carry
+field through ``where(active...)``), so the loop may run past the last
+active lane without changing any result. It checks ``any(active)`` on the
+host only every ``_SYNC_EVERY`` iterations, so the device is not stalled by
+a sync per iteration. The two-phase compaction replaces ``lax.top_k`` over
+0/1 pending flags by a stable descending sort, which orders ties by lane
+index exactly as ``top_k`` does.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ndtpu_torch import kernels
+from ndtpu_torch.config import GridConfig, MatchConfig
+from ndtpu_torch.ndt import grid as ndt_grid
+
+__all__ = ["MatchResult", "transform_terms", "point_terms_quad", "solve3",
+           "lm_loop_batch", "match", "match_batch", "match_batch_packed",
+           "ndt_terms", "ndt_terms_ref"]
+
+_SYNC_EVERY = 4
+
+
+class MatchResult(NamedTuple):
+    pose: torch.Tensor       # [..., 3] optimized world-from-scan transform
+    hessian: torch.Tensor    # [..., 3, 3] objective Hessian at the optimum
+    score: torch.Tensor      # [...] mean per-point NDT score in [0, 1]
+    n_iter: torch.Tensor     # [...] LM iterations executed (int32)
+    converged: torch.Tensor  # [...] bool
+
+
+def transform_terms(pose, points):
+    """World points ``[N, 2]`` and their phi-derivative for a pose ``[3]``."""
+    c, s = torch.cos(pose[2]), torch.sin(pose[2])
+    px, py = points[..., 0], points[..., 1]
+    xw = torch.stack([c * px - s * py + pose[0], s * px + c * py + pose[1]],
+                     -1)
+    dxdphi = torch.stack([-s * px - c * py, c * px - s * py], -1)
+    return xw, dxdphi
+
+
+def _quad_sums(poses, x, y, dpx, dpy, rows, w_mask, d2: float, exp_clip: float,
+               overlap: int, compact: bool = False):
+    """The 11 per-lane sums ``[B, 11]`` of ``point_terms_quad`` (wsum, w0sum,
+    g0..g2, h00, h01, h02, h11, h12, h22), before the ``d2`` scaling."""
+    dt = x.dtype
+    tx, ty = poses[:, 0, None], poses[:, 1, None]
+    rx, ry = x - tx, y - ty
+    acc = None
+    for g in range(overlap):
+        if compact:
+            mx, my = rows[..., g * 4 + 0], rows[..., g * 4 + 1]
+            i00, i01 = ndt_grid.unpack_bf16_pair(rows[..., g * 4 + 2], dt)
+            i11, vld = ndt_grid.unpack_bf16_pair(rows[..., g * 4 + 3], dt)
+            w0 = vld * w_mask
+        else:
+            mx, my = rows[..., g * 8 + 0], rows[..., g * 8 + 1]
+            i00, i01 = rows[..., g * 8 + 2], rows[..., g * 8 + 3]
+            i11 = rows[..., g * 8 + 4]
+            w0 = rows[..., g * 8 + 5] * w_mask
+        dx, dy = x - mx, y - my
+        qx = i00 * dx + i01 * dy
+        qy = i01 * dx + i11 * dy
+        l2 = torch.clamp(dx * qx + dy * qy, min=0.0)
+        e = torch.exp(-0.5 * d2 * torch.clamp(l2, max=exp_clip))
+        w = w0 * e
+        a3 = qx * dpx + qy * dpy
+        ldx = i00 * dpx + i01 * dpy
+        ldy = i01 * dpx + i11 * dpy
+        j33 = dpx * ldx + dpy * ldy
+        hpp = -(qx * rx + qy * ry)
+        terms = torch.stack([
+            w, w0, w * qx, w * qy, w * a3,
+            w * (i00 - d2 * qx * qx), w * (i01 - d2 * qx * qy),
+            w * (ldx - d2 * qx * a3), w * (i11 - d2 * qy * qy),
+            w * (ldy - d2 * qy * a3), w * (j33 + hpp - d2 * a3 * a3)],
+            -1).sum(-2)
+        acc = terms if acc is None else acc + terms
+    return acc
+
+
+def _assemble(sums, d2: float):
+    """``(f [B], g [B,3], H [B,3,3], wsum [B], w0sum [B])`` from the sums."""
+    wsum, w0sum = sums[:, 0], sums[:, 1]
+    g_vec = d2 * sums[:, 2:5]
+    h00, h01, h02, h11, h12, h22 = sums[:, 5:11].unbind(-1)
+    h = d2 * torch.stack([torch.stack([h00, h01, h02], -1),
+                          torch.stack([h01, h11, h12], -1),
+                          torch.stack([h02, h12, h22], -1)], -2)
+    return -wsum, g_vec, h, wsum, w0sum
+
+
+def point_terms_quad(poses, x, y, dpx, dpy, rows, w_mask, cfg: MatchConfig,
+                     overlap: int):
+    """Batched NDT objective terms from gathered quad rows ``[B, N, G*8]``:
+    ``(f [B], g [B,3], h [B,3,3], wsum [B], w0sum [B])``."""
+    sums = _quad_sums(poses, x, y, dpx, dpy, rows, w_mask, cfg.d2,
+                      cfg.exp_clip, overlap, cfg.compact_table)
+    return _assemble(sums, cfg.d2)
+
+
+def _lane_transform(poses, px, py):
+    c = torch.cos(poses[:, 2])[:, None]
+    s = torch.sin(poses[:, 2])[:, None]
+    x = c * px - s * py + poses[:, 0, None]
+    y = s * px + c * py + poses[:, 1, None]
+    dpx = -s * px - c * py
+    dpy = c * px - s * py
+    return x, y, dpx, dpy
+
+
+def ndt_terms_ref(poses, px, py, mask_f, table, grid: GridConfig, d2: float,
+                  exp_clip: float, compact: bool = False):
+    """Plain twin of K1: lane transform + ``lookup_quad`` + the 11 sums of
+    ``point_terms_quad``, ``[B, 11]``."""
+    x, y, dpx, dpy = _lane_transform(poses, px, py)
+    rows, inb = ndt_grid.lookup_quad(table, x, y, grid)
+    w_mask = mask_f * inb.to(px.dtype)
+    return _quad_sums(poses, x, y, dpx, dpy, rows, w_mask, d2, exp_clip,
+                      grid.overlap, compact)
+
+
+def ndt_terms(poses, px, py, mask_f, table, grid: GridConfig, d2: float,
+              exp_clip: float, compact: bool = False):
+    """K1 wrapper: the 11 NDT sums ``[B, 11]`` of every lane. CUDA tensors go
+    to the kernel (f32, full-width overlap-4 table), CPU tensors to
+    :func:`ndt_terms_ref`."""
+    if not px.is_cuda:
+        return ndt_terms_ref(poses, px, py, mask_f, table, grid, d2, exp_clip,
+                             compact)
+    if compact:
+        raise NotImplementedError(
+            "compact_table on the card is ROADMAP Queue B (K1 bf16-pair "
+            "rows)")
+    return kernels.ndt_terms(poses.contiguous(), px.contiguous(),
+                             py.contiguous(), mask_f.contiguous(), table, grid,
+                             d2, exp_clip)
+
+
+def solve3(a, b):
+    """Closed-form 3x3 linear solve (Cramer's rule), batched."""
+    c00 = a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1]
+    c01 = a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2]
+    c02 = a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]
+    det = a[..., 0, 0] * c00 + a[..., 0, 1] * c01 + a[..., 0, 2] * c02
+    det = torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30),
+                      det)
+    c10 = a[..., 0, 2] * a[..., 2, 1] - a[..., 0, 1] * a[..., 2, 2]
+    c11 = a[..., 0, 0] * a[..., 2, 2] - a[..., 0, 2] * a[..., 2, 0]
+    c12 = a[..., 0, 1] * a[..., 2, 0] - a[..., 0, 0] * a[..., 2, 1]
+    c20 = a[..., 0, 1] * a[..., 1, 2] - a[..., 0, 2] * a[..., 1, 1]
+    c21 = a[..., 0, 2] * a[..., 1, 0] - a[..., 0, 0] * a[..., 1, 2]
+    c22 = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
+    x0 = (c00 * b[..., 0] + c10 * b[..., 1] + c20 * b[..., 2]) / det
+    x1 = (c01 * b[..., 0] + c11 * b[..., 1] + c21 * b[..., 2]) / det
+    x2 = (c02 * b[..., 0] + c12 * b[..., 1] + c22 * b[..., 2]) / det
+    return torch.stack([x0, x1, x2], -1)
+
+
+def _solve_damped(h, g, lam):
+    """Batched LM step: ``(H + lam |diag(H)|) delta = -g``."""
+    diag = torch.clamp(torch.abs(torch.diagonal(h, dim1=-2, dim2=-1)),
+                       min=1e-6)
+    a = h + torch.diag_embed(lam[..., None] * diag)
+    return solve3(a, -g)
+
+
+class _Carry(NamedTuple):
+    pose: torch.Tensor
+    f: torch.Tensor
+    g: torch.Tensor
+    h: torch.Tensor
+    score: torch.Tensor
+    lam: torch.Tensor
+    it: torch.Tensor
+    done: torch.Tensor
+    conv: torch.Tensor
+
+
+def _lm_carry_init(sgh, init_poses, cfg: MatchConfig) -> _Carry:
+    f0, g0, h0, s0 = sgh(init_poses)
+    b = init_poses.shape[0]
+    dev = init_poses.device
+    lam0 = torch.full((b,), cfg.init_lambda, dtype=init_poses.dtype,
+                      device=dev)
+    zero_grad = torch.sum(torch.abs(g0), -1) == 0.0
+    return _Carry(init_poses, f0, g0, h0, s0, lam0,
+                  torch.zeros((b,), dtype=torch.int32, device=dev), zero_grad,
+                  torch.zeros((b,), dtype=torch.bool, device=dev))
+
+
+def _lm_body(sgh, c: _Carry, cfg: MatchConfig, max_iter: int) -> _Carry:
+    active = (c.it < max_iter) & ~c.done
+    delta = _solve_damped(c.h, c.g, c.lam)
+    tn = torch.sqrt(delta[:, 0] ** 2 + delta[:, 1] ** 2)
+    scale = torch.where(tn > cfg.step_clip, cfg.step_clip / tn,
+                        torch.ones_like(tn))
+    delta = delta * scale[:, None]
+    pose_try = torch.where(active[:, None], c.pose + delta, c.pose)
+    f2, g2, h2, s2 = sgh(pose_try)
+    accept = active & (f2 < c.f)
+    acc = accept[:, None]
+    lam_n = torch.where(accept, torch.clamp(c.lam / cfg.lambda_down, min=1e-9),
+                        torch.where(active, c.lam * cfg.lambda_up, c.lam))
+    dnorm = torch.sqrt(torch.sum(delta * delta, -1))
+    small = active & ((dnorm < cfg.tol) | (~accept & (dnorm < cfg.reject_tol)))
+    stuck = active & (lam_n > cfg.max_lambda)
+    return _Carry(torch.where(acc, pose_try, c.pose),
+                  torch.where(accept, f2, c.f),
+                  torch.where(acc, g2, c.g),
+                  torch.where(accept[:, None, None], h2, c.h),
+                  torch.where(accept, s2, c.score), lam_n,
+                  c.it + active.to(torch.int32), c.done | small | stuck,
+                  c.conv | small)
+
+
+def _lm_run(sgh, carry: _Carry, cfg: MatchConfig, max_iter: int) -> _Carry:
+    """Advance a batched LM carry until every lane is done or has spent
+    ``max_iter`` TOTAL iterations (the per-lane counter persists across
+    calls). Frozen lanes make extra iterations no-ops, so the host checks
+    for activity only every ``_SYNC_EVERY`` iterations."""
+    # No lane can run more than max_iter - min(it) further iterations.
+    budget = max_iter - int(carry.it.min()) if carry.it.numel() else 0
+    for k in range(max(0, budget)):
+        if k % _SYNC_EVERY == 0 and not bool(
+                ((carry.it < max_iter) & ~carry.done).any()):
+            break
+        carry = _lm_body(sgh, carry, cfg, max_iter)
+    return carry
+
+
+def _lm_result(c: _Carry) -> MatchResult:
+    return MatchResult(pose=c.pose, hessian=c.h, score=c.score, n_iter=c.it,
+                       converged=c.conv & (c.f < 0.0))
+
+
+def lm_loop_batch(sgh, init_poses, cfg: MatchConfig) -> MatchResult:
+    """Batched damped-Newton iteration with per-lane masked accept and
+    convergence; ``sgh(poses [B,3]) -> (f, g, H, score)``."""
+    carry = _lm_carry_init(sgh, init_poses, cfg)
+    return _lm_result(_lm_run(sgh, carry, cfg, cfg.max_iter))
+
+
+def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
+                       cfg: MatchConfig) -> MatchResult:
+    """B concurrent registrations against one prebuilt quad table ``[R, L]``.
+
+    points ``[B, N, 2]``, mask ``[B, N]``, init_poses ``[B, 3]``. With
+    ``cfg.phase2_width > 0`` the lanes still pending after
+    ``cfg.phase1_iters`` are compacted into ``phase2_width``-wide rounds;
+    per-lane results equal the one-phase loop's.
+    """
+    if table.dim() != 2:
+        raise NotImplementedError(
+            "per-lane [B,R,L] and grouped [S,R,L] tables are ROADMAP A6/A9 "
+            "(lookup_quad_multi / lookup_quad_grouped)")
+    dt = points.dtype
+    mask_f = mask.to(dt)
+    px, py = points[..., 0].contiguous(), points[..., 1].contiguous()
+    b = init_poses.shape[0]
+
+    def make_sgh(spx, spy, smask_f):
+        def sgh(poses):
+            sums = ndt_terms(poses, spx, spy, smask_f, table, grid, cfg.d2,
+                             cfg.exp_clip, cfg.compact_table)
+            f, g, h, wsum, w0sum = _assemble(sums, cfg.d2)
+            return f, g, h, wsum / torch.clamp(w0sum, min=1.0)
+        return sgh
+
+    sgh = make_sgh(px, py, mask_f)
+    init_poses = init_poses.to(dt)
+    c2 = cfg.phase2_width
+    if c2 <= 0 or b <= c2:
+        return lm_loop_batch(sgh, init_poses, cfg)
+
+    carry = _lm_carry_init(sgh, init_poses, cfg)
+    carry = _lm_run(sgh, carry, cfg, min(cfg.phase1_iters, cfg.max_iter))
+    while bool((~carry.done & (carry.it < cfg.max_iter)).any()):
+        pending = (~carry.done).to(torch.int32)
+        idx = torch.sort(pending, descending=True, stable=True).indices[:c2]
+        sub = _Carry(*(x[idx] for x in carry))
+        sub = _lm_run(make_sgh(px[idx], py[idx], mask_f[idx]), sub, cfg,
+                      cfg.max_iter)
+        fields = []
+        for x, sx in zip(carry, sub):
+            x = x.clone()
+            x[idx] = sx
+            fields.append(x)
+        carry = _Carry(*fields)
+    return _lm_result(carry)
+
+
+def match_batch(points, mask, ndt_map: ndt_grid.NDTMap, init_poses,
+                grid: GridConfig, cfg: MatchConfig) -> MatchResult:
+    """B concurrent registrations against one shared map."""
+    table = ndt_grid.pack_quad(ndt_map, grid, compact=cfg.compact_table)
+    return match_batch_packed(points, mask, table, init_poses, grid, cfg)
+
+
+def match(points, mask, ndt_map: ndt_grid.NDTMap, init_pose, grid: GridConfig,
+          cfg: MatchConfig) -> MatchResult:
+    """Register one scan ``[N, 2]`` from ``init_pose [3]``."""
+    res = match_batch(points[None], mask[None], ndt_map, init_pose[None],
+                      grid, cfg)
+    return MatchResult(*(a[0] for a in res))
