@@ -18,9 +18,21 @@
 //   5. warp-shuffle + shared-memory reduction to out[b, 0..10] =
 //      (wsum, w0sum, g0, g1, g2, h00, h01, h02, h11, h12, h22).
 //
-// What bounds it on Hopper: one dependent 128-byte row gather per beam from
-// a 5.2 MB table (config 2), which stays resident in the 50 MB L2 across the
-// LM iterations; the arithmetic (~120 flops per beam) is small. One block per
+// Grouped form (loop verification): with group != nullptr, lane b reads
+// table group[b] of a stack of n_tables tables of rows_per_table rows each,
+// i.e. row group[b] * rows_per_table + hy * wh + hx of the flat [S*R, 32]
+// cache; this is ndtpu/ndt/grid.py::lookup_quad_grouped (:450), which
+// match_batch_packed also uses for per-lane [B, R, L] tables (:419-431).
+// The verifier passes the whole keyframe cache with group = candidate
+// index, so no per-lane copy of the tables is gathered. group[b] is
+// clamped into [0, n_tables), as XLA clamps an out-of-range gather.
+//
+// What bounds it on Hopper: one dependent 128-byte row gather per beam. The
+// shared config-2 table (5.2 MB) stays resident in the 50 MB L2 across the
+// LM iterations. The config-3 keyframe cache (315 MB at 1,024 slots) does
+// not; each lane touches one 307 KB local table, so the 64 verify lanes'
+// working set (~20 MB) still fits in L2. The arithmetic (~120 flops per
+// beam) is small. One block per
 // lane keeps the reduction inside the block (no atomics, deterministic).
 // Points that miss the lattice or are masked contribute exactly zero in the
 // twin (every sum carries the factor w or w0), so they are skipped.
@@ -35,10 +47,15 @@ constexpr int kSums = 11;
 __global__ void __launch_bounds__(kThreads)
 ndt_terms_kernel(const float* __restrict__ poses, const float* __restrict__ px,
                  const float* __restrict__ py, const float* __restrict__ mask,
-                 const float4* __restrict__ table, float* __restrict__ out,
-                 int n, int wh, int hh, float x0, float y0, float inv,
-                 float d2, float exp_clip) {
+                 const float4* __restrict__ table,
+                 const int* __restrict__ group, float* __restrict__ out,
+                 int n, int wh, int hh, int rows_per_table, int n_tables,
+                 float x0, float y0, float inv, float d2, float exp_clip) {
   const int b = blockIdx.x;
+  if (group != nullptr) {
+    const int g = min(max(group[b], 0), n_tables - 1);
+    table += (size_t)g * rows_per_table * 8;
+  }
   const float tx = poses[3 * b + 0];
   const float ty = poses[3 * b + 1];
   const float c = cosf(poses[3 * b + 2]);
@@ -121,13 +138,16 @@ ndt_terms_kernel(const float* __restrict__ poses, const float* __restrict__ px,
 
 extern "C" int ndt_terms_launch(const void* poses, const void* px,
                                 const void* py, const void* mask,
-                                const void* table, void* out, int b, int n,
-                                int wh, int hh, float x0, float y0, float inv,
-                                float d2, float exp_clip, void* stream) {
+                                const void* table, const void* group,
+                                void* out, int b, int n, int wh, int hh,
+                                int rows_per_table, int n_tables, float x0,
+                                float y0, float inv, float d2, float exp_clip,
+                                void* stream) {
   ndt_terms_kernel<<<b, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)poses, (const float*)px, (const float*)py,
-      (const float*)mask, (const float4*)table, (float*)out, n, wh, hh, x0,
-      y0, inv, d2, exp_clip);
+      (const float*)mask, (const float4*)table, (const int*)group,
+      (float*)out, n, wh, hh, rows_per_table, n_tables, x0, y0, inv, d2,
+      exp_clip);
   return (int)cudaGetLastError();
 }
 

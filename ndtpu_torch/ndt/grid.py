@@ -31,8 +31,9 @@ from ndtpu_torch.config import GridConfig, NDTMapConfig
 
 __all__ = ["NDTStats", "NDTMap", "cell_ids", "empty_stats", "add_points",
            "build_stats", "finalize", "pack_quad", "lookup_quad",
-           "unpack_bf16_pair", "halfcell_add", "halfcell_add_ref",
-           "finalize_pack", "finalize_pack_ref"]
+           "lookup_quad_multi", "lookup_quad_grouped", "unpack_bf16_pair",
+           "halfcell_add", "halfcell_add_ref", "finalize_pack",
+           "finalize_pack_ref"]
 
 
 class NDTStats(NamedTuple):
@@ -262,16 +263,39 @@ def pack_quad(ndt_map: NDTMap, grid: GridConfig, compact: bool = False):
     return torch.cat(blocks, -1).reshape(hh * wh, width * g_dim)
 
 
-def lookup_quad(table, x, y, grid: GridConfig):
-    """Gather quad-table rows for world points given as ``x``/``y`` planes:
-    ``(rows [..., L], inb [...])``."""
+def _quad_index(x, y, grid: GridConfig):
+    """Clipped quad-table row ``[...]`` and in-bounds mask of each point."""
     wh, hh = _quad_lattice(grid)
     inv = (2.0 if grid.overlap == 4 else 1.0) / grid.cell
     hx = torch.floor((x - grid.x0) * inv)
     hy = torch.floor((y - grid.y0) * inv)
     inb = (hx >= 0) & (hx < wh) & (hy >= 0) & (hy < hh)
-    idx = (hy * wh + hx).long().clamp(0, wh * hh - 1)
+    return (hy * wh + hx).long().clamp(0, wh * hh - 1), inb
+
+
+def lookup_quad(table, x, y, grid: GridConfig):
+    """Gather quad-table rows for world points given as ``x``/``y`` planes:
+    ``(rows [..., L], inb [...])``."""
+    idx, inb = _quad_index(x, y, grid)
     return table[idx], inb
+
+
+def lookup_quad_multi(tables, x, y, grid: GridConfig):
+    """Per-lane tables: lane ``b`` gathers from ``tables[b]`` —
+    ``tables [B, R, L]``, ``x``/``y`` ``[B, N]`` -> ``(rows [B, N, L],
+    inb [B, N])``."""
+    b, r, l = tables.shape
+    group = torch.arange(b, device=x.device)
+    return lookup_quad_grouped(tables.reshape(b * r, l), r, group, x, y, grid)
+
+
+def lookup_quad_grouped(tables_flat, r: int, group, x, y, grid: GridConfig):
+    """Shared-per-group tables: lane ``b`` gathers from table ``group[b]``
+    of ``tables_flat [S*R, L]`` (``r`` rows per table) -> ``(rows [B, N,
+    L], inb [B, N])``. The plain twin of K1's grouped row offset."""
+    idx, inb = _quad_index(x, y, grid)
+    g = group.long().reshape(group.shape + (1,) * (idx.dim() - group.dim()))
+    return tables_flat[idx + g * r], inb
 
 
 def finalize_pack_ref(stats: NDTStats, ndt_cfg: NDTMapConfig,

@@ -1,10 +1,11 @@
 """Batched NDT scan registration: score / gradient / Hessian + LM iteration.
 
-Port of ``ndtpu/ndt/match.py`` (the shared-table ``[R, L]`` path). The
-objective ``f(T) = -sum_i exp(-d2/2 * d_i^T Lambda_i d_i)`` over ``T = (tx,
-ty, phi)`` is evaluated by :func:`ndt_terms` — the K1 CUDA kernel on the
-card, its plain twin :func:`ndt_terms_ref` on the CPU — and minimized by a
-batched Levenberg-Marquardt loop.
+Port of ``ndtpu/ndt/match.py`` (shared ``[R, L]``, per-lane ``[B, R, L]``
+and grouped ``[S, R, L]`` tables). The objective ``f(T) = -sum_i
+exp(-d2/2 * d_i^T Lambda_i d_i)`` over ``T = (tx, ty, phi)`` is evaluated
+by :func:`ndt_terms` — the K1 CUDA kernel on the card, its plain twin
+:func:`ndt_terms_ref` on the CPU — and minimized by a batched
+Levenberg-Marquardt loop.
 
 JAX's ``lax.while_loop`` in ``_lm_run`` becomes a Python loop over masked
 iterations: a lane that is done is frozen (``it + active``, every carry
@@ -13,7 +14,9 @@ active lane without changing any result. It checks ``any(active)`` on the
 host only every ``_SYNC_EVERY`` iterations, so the device is not stalled by
 a sync per iteration. The two-phase compaction replaces ``lax.top_k`` over
 0/1 pending flags by a stable descending sort, which orders ties by lane
-index exactly as ``top_k`` does.
+index exactly as ``top_k`` does; a lane counts as pending only while it
+is under the iteration cap (JAX's form never ends when more than
+``phase2_width`` lanes stop at the cap unconverged).
 """
 
 from __future__ import annotations
@@ -122,31 +125,38 @@ def _lane_transform(poses, px, py):
 
 
 def ndt_terms_ref(poses, px, py, mask_f, table, grid: GridConfig, d2: float,
-                  exp_clip: float, compact: bool = False):
-    """Plain twin of K1: lane transform + ``lookup_quad`` + the 11 sums of
-    ``point_terms_quad``, ``[B, 11]``."""
+                  exp_clip: float, compact: bool = False, group=None):
+    """Plain twin of K1: lane transform + quad-row gather + the 11 sums of
+    ``point_terms_quad``, ``[B, 11]``. ``table`` is one shared ``[R, L]``
+    table (``group=None``) or ``[S, R, L]`` with lane ``b`` reading table
+    ``group[b]`` (``lookup_quad_grouped``)."""
     x, y, dpx, dpy = _lane_transform(poses, px, py)
-    rows, inb = ndt_grid.lookup_quad(table, x, y, grid)
+    if group is None:
+        rows, inb = ndt_grid.lookup_quad(table, x, y, grid)
+    else:
+        s, r, l = table.shape
+        rows, inb = ndt_grid.lookup_quad_grouped(table.reshape(s * r, l), r,
+                                                 group, x, y, grid)
     w_mask = mask_f * inb.to(px.dtype)
     return _quad_sums(poses, x, y, dpx, dpy, rows, w_mask, d2, exp_clip,
                       grid.overlap, compact)
 
 
 def ndt_terms(poses, px, py, mask_f, table, grid: GridConfig, d2: float,
-              exp_clip: float, compact: bool = False):
+              exp_clip: float, compact: bool = False, group=None):
     """K1 wrapper: the 11 NDT sums ``[B, 11]`` of every lane. CUDA tensors go
-    to the kernel (f32, full-width overlap-4 table), CPU tensors to
-    :func:`ndt_terms_ref`."""
+    to the kernel (f32, full-width overlap-4 tables; ``group`` int32), CPU
+    tensors to :func:`ndt_terms_ref`."""
     if not px.is_cuda:
         return ndt_terms_ref(poses, px, py, mask_f, table, grid, d2, exp_clip,
-                             compact)
+                             compact, group)
     if compact:
         raise NotImplementedError(
             "compact_table on the card is ROADMAP Queue B (K1 bf16-pair "
             "rows)")
     return kernels.ndt_terms(poses.contiguous(), px.contiguous(),
                              py.contiguous(), mask_f.contiguous(), table, grid,
-                             d2, exp_clip)
+                             d2, exp_clip, group)
 
 
 def solve3(a, b):
@@ -254,32 +264,38 @@ def lm_loop_batch(sgh, init_poses, cfg: MatchConfig) -> MatchResult:
 
 
 def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
-                       cfg: MatchConfig) -> MatchResult:
-    """B concurrent registrations against one prebuilt quad table ``[R, L]``.
+                       cfg: MatchConfig, group=None) -> MatchResult:
+    """B concurrent registrations against a prebuilt quad table.
 
-    points ``[B, N, 2]``, mask ``[B, N]``, init_poses ``[B, 3]``. With
-    ``cfg.phase2_width > 0`` the lanes still pending after
+    points ``[B, N, 2]``, mask ``[B, N]``, init_poses ``[B, 3]``. ``table``
+    is ``[R, L]`` (one map for every lane), ``[B, R, L]`` (lane ``b``
+    registers against its own table) or, with ``group [B]``, ``[S, R, L]``
+    (lane ``b`` registers against table ``group[b]``; the loop verifier
+    passes the whole keyframe cache this way instead of gathering a copy).
+    With ``cfg.phase2_width > 0`` the lanes still pending after
     ``cfg.phase1_iters`` are compacted into ``phase2_width``-wide rounds;
     per-lane results equal the one-phase loop's.
     """
-    if table.dim() != 2:
-        raise NotImplementedError(
-            "per-lane [B,R,L] and grouped [S,R,L] tables are ROADMAP A6/A9 "
-            "(lookup_quad_multi / lookup_quad_grouped)")
     dt = points.dtype
     mask_f = mask.to(dt)
     px, py = points[..., 0].contiguous(), points[..., 1].contiguous()
     b = init_poses.shape[0]
+    if table.dim() == 3:
+        if group is None:
+            group = torch.arange(b, device=px.device)
+        group = group.to(torch.int32).contiguous()
+    elif group is not None:
+        raise ValueError("group= requires an [S, R, L] table")
 
-    def make_sgh(spx, spy, smask_f):
+    def make_sgh(spx, spy, smask_f, sgrp):
         def sgh(poses):
             sums = ndt_terms(poses, spx, spy, smask_f, table, grid, cfg.d2,
-                             cfg.exp_clip, cfg.compact_table)
+                             cfg.exp_clip, cfg.compact_table, sgrp)
             f, g, h, wsum, w0sum = _assemble(sums, cfg.d2)
             return f, g, h, wsum / torch.clamp(w0sum, min=1.0)
         return sgh
 
-    sgh = make_sgh(px, py, mask_f)
+    sgh = make_sgh(px, py, mask_f, group)
     init_poses = init_poses.to(dt)
     c2 = cfg.phase2_width
     if c2 <= 0 or b <= c2:
@@ -288,11 +304,17 @@ def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
     carry = _lm_carry_init(sgh, init_poses, cfg)
     carry = _lm_run(sgh, carry, cfg, min(cfg.phase1_iters, cfg.max_iter))
     while bool((~carry.done & (carry.it < cfg.max_iter)).any()):
-        pending = (~carry.done).to(torch.int32)
+        # Pending = not done AND under the cap. JAX's ``top_k(~done)`` also
+        # ranks capped lanes as pending, so once more than ``c2`` lanes sit
+        # at the cap undone, every round picks them and the loop never ends
+        # (ROADMAP C-r1). Frozen lanes are no-ops, so per-lane results are
+        # the same either way.
+        pending = (~carry.done & (carry.it < cfg.max_iter)).to(torch.int32)
         idx = torch.sort(pending, descending=True, stable=True).indices[:c2]
         sub = _Carry(*(x[idx] for x in carry))
-        sub = _lm_run(make_sgh(px[idx], py[idx], mask_f[idx]), sub, cfg,
-                      cfg.max_iter)
+        sub = _lm_run(make_sgh(px[idx], py[idx], mask_f[idx],
+                               None if group is None else group[idx]),
+                      sub, cfg, cfg.max_iter)
         fields = []
         for x, sx in zip(carry, sub):
             x = x.clone()

@@ -13,9 +13,11 @@ rows and per-window JSONL metrics. ``--device cuda`` (the default) runs the
 map build, the quad table and registration through the CUDA kernels and
 fails if there is no card; ``--device cpu`` runs the plain twins.
 
-Not in this port yet (each raises ``NotImplementedError``): ``--dataset``
-(CARMEN input, ROADMAP A7), ``--mode scan`` (per-scan path, A8),
-``--checkpoint-dir`` (A7), loop closure (A6).
+Configs 1-3 run (``use_loop_closure`` in the config turns on loop
+closure; the stderr summary line counts the loops closed). Not in this
+port yet (each raises ``NotImplementedError``): ``--dataset`` (CARMEN
+input, ROADMAP A7), ``--mode scan`` (per-scan path, A8),
+``--checkpoint-dir`` (A7).
 """
 
 from __future__ import annotations
@@ -149,7 +151,8 @@ def main(argv=None):
     m = ndt_grid.finalize(state.stats, cfg.ndt)
     v = m.valid[0].reshape(cfg.grid.ny, cfg.grid.nx).cpu().numpy()
     print(metrics.map_to_ascii(v), file=sys.stderr)
-    return dict(traj=traj_np, n_keyframes=int(state.kf.n), ate=ate,
+    return dict(traj=traj_np, n_keyframes=int(state.kf.n),
+                n_loops=int(state.n_loops), ate=ate,
                 scans_per_s=scans_per_s, seconds=dt)
 
 

@@ -1,17 +1,21 @@
 """Windowed SLAM pipeline: NDT odometry + keyframing + smoothing + map.
 
-Port of the windowed path of ``ndtpu/slam/pipeline.py`` (configs 1-2; loop
-closure is ROADMAP A6 and raises). One window of W scans runs:
+Port of the windowed path of ``ndtpu/slam/pipeline.py`` (configs 1-3).
+One window of W scans runs:
 
 1. ``_window_frontend``: K4 finalize+pack of the map, W-lane LM
    registration through K1, K3 insert of the window's provisional
    keyframes into a temporary map, K4 again, and a second registration
    pass; then ``kf_select``.
 2. ``_wb_appends``: all of the window's keyframes and odometry factors are
-   appended with one masked write per graph array.
+   appended with one masked write per graph array. With loop closure on,
+   K8a writes the new keyframes' local tables into the cache, and one flat
+   detection over the window's first ``max_detect_per_window`` keyframes
+   (``K*C`` lanes through grouped K1, then the K8b gate) appends the
+   accepted loop factors.
 3. ``_wb_smooth``: ``incremental_update`` when a keyframe landed.
 4. ``_wb_maps``: the K3 insert of the window's keyframes (or the rebuild /
-   top-M refresh the config selects).
+   top-M refresh the config selects; a landed loop factor triggers it).
 
 JAX's ``.at[idx].set(..., mode="drop")`` with the ``1 << 30`` sentinel
 becomes a write of only the rows its mask keeps (torch raises on
@@ -30,6 +34,7 @@ from ndtpu_torch.config import PipelineConfig
 from ndtpu_torch.graph import factors as fct
 from ndtpu_torch.graph import incremental as inc
 from ndtpu_torch.lie import se2
+from ndtpu_torch.loop import closure
 from ndtpu_torch.ndt import grid as ndt_grid
 from ndtpu_torch.ndt import match as ndt_match
 from ndtpu_torch.slam import keyframes as kfs
@@ -66,10 +71,6 @@ class SlamStepOut(NamedTuple):
 
 
 def _check_slice(cfg: PipelineConfig, device) -> None:
-    if cfg.use_loop_closure:
-        raise NotImplementedError(
-            "use_loop_closure=True is ROADMAP A6 (config 3: loop tables K8 "
-            "and per-lane table registration); this port runs configs 1-2")
     if cfg.match.compact_table and torch.device(device).type == "cuda":
         raise NotImplementedError(
             "compact_table=True on the card is ROADMAP Queue B (K1/K4 "
@@ -88,9 +89,17 @@ def init_slam(cfg: PipelineConfig, first_points, first_mask,
     stats = ndt_grid.add_points(ndt_grid.empty_stats(cfg.grid, dt, dev),
                                 se2.transform(t0, first_points), first_mask,
                                 cfg.grid)
+    tshape = (closure.local_table_shape(cfg.loop, cfg.match.compact_table)
+              if cfg.use_loop_closure else None)
     kf = kfs.add_keyframe(
-        kfs.empty_store(cap, first_points.shape[0], dt, dev), t0,
+        kfs.empty_store(cap, first_points.shape[0], dt, dev, tshape), t0,
         first_points, first_mask)
+    if cfg.use_loop_closure:
+        # Keyframe 0's local table, built in place into cache slot 0.
+        closure.write_local_tables(
+            kf.tables, torch.zeros(1, dtype=torch.long, device=dev),
+            torch.ones(1, dtype=torch.bool, device=dev), first_points[None],
+            first_mask[None], cfg.loop, cfg.ndt, cfg.match.compact_table)
     graph = fct.empty_graph(cap, 4, 2 * cap, dt, dev)
     graph = fct.add_pose(graph, t0)
     prior_sq = 100.0 * torch.eye(3, dtype=dt, device=dev)
@@ -243,17 +252,74 @@ def _wb_appends(state: SlamState, last_kf_reg, poses, hessians, pts, msk,
     lkr = anchor_reg[-1]
 
     zeros_w = torch.zeros(w, dtype=torch.int32, device=dev)
-    nd_out = ((is_kf & ~ok).to(torch.int32) + (ok & ~fok).to(torch.int32))
+    nl_out, ld_out, ni_out = zeros_w, zeros_w, zeros_w
+    if cfg.use_loop_closure:
+        # The new keyframes' local tables, written into the cache in place
+        # (the cache is ~315 MB at config 3; a copy per window would move
+        # it twice).
+        closure.write_local_tables(kf.tables, kslot, ok, pts, msk, cfg.loop,
+                                   cfg.ndt, cfg.match.compact_table)
+        graph, nl_out, ld_out, ni_out = _wb_loops(graph, kf, pts, msk,
+                                                  node_vals, slot, cum, ok,
+                                                  cfg)
+
+    nd_out = ((is_kf & ~ok).to(torch.int32) + (ok & ~fok).to(torch.int32)
+              + ld_out)
     cum_ok = torch.cumsum(ok.to(torch.long), 0)
     kf_idx_out = torch.where(cum_ok > 0, state.graph.n_poses + cum_ok - 1,
                              state.last_kf_idx)
     rel_out = se2.between(anchor_reg, poses)
     aux = dict(kslot=kslot, kslot_ok=ok, last_idx=last_idx, lkr=lkr,
-               any_kf=is_kf.any(),
-               n_loops_new=torch.zeros((), dtype=torch.long, device=dev),
-               kf_idx_out=kf_idx_out, rel_out=rel_out, nl_out=zeros_w,
-               nd_out=nd_out, ni_out=zeros_w)
+               any_kf=is_kf.any(), n_loops_new=nl_out.sum(),
+               kf_idx_out=kf_idx_out, rel_out=rel_out, nl_out=nl_out,
+               nd_out=nd_out, ni_out=ni_out)
     return graph, kf, aux
+
+
+def _wb_loops(graph, kf, pts, msk, node_vals, slot, cum, ok,
+              cfg: PipelineConfig):
+    """Loop detection for the window's first ``max_detect_per_window``
+    keyframes as ONE flat ``K*C``-lane verification, and the masked append
+    of the accepted loop factors. Returns ``(graph, nl [W], ld [W], ni
+    [W])``: loops appended, loops dropped at factor capacity, and
+    innovation-budget rejections, at each query's scan."""
+    w = pts.shape[0]
+    dev = pts.device
+    cap_f = graph.bet_mask.shape[0]
+    kmax = min(cfg.loop.max_detect_per_window or w, w)
+    ranks = torch.arange(kmax, device=dev)
+    # sel[r] = scan index of the window's r-th keyframe (0 if absent).
+    hit = (cum[None, :] - 1 == ranks[:, None]) & ok[None, :]      # [K, W]
+    sel = torch.argmax(hit.to(torch.uint8), 1)
+    has = hit.any(1)
+    slot_k = slot[sel]
+    do = has & (slot_k % cfg.loop.detect_every == 0)
+    loops = closure.detect_loops_cached_flat(kf, pts[sel], msk[sel],
+                                             node_vals[sel], slot_k,
+                                             cfg.loop, cfg.match)
+    accept = loops.accept & do[:, None]                           # [K, C]
+    acc_flat = accept.reshape(-1)
+    lslot = graph.n_between + torch.cumsum(acc_flat.to(torch.long), 0) - 1
+    lok = acc_flat & (lslot < cap_f)
+    iflat = slot_k[:, None].expand(accept.shape).reshape(-1)
+    graph = graph._replace(
+        bet_i=_set_rows(graph.bet_i, lslot, lok, loops.j.reshape(-1)),
+        bet_j=_set_rows(graph.bet_j, lslot, lok, iflat),
+        bet_z=_set_rows(graph.bet_z, lslot, lok, loops.z.reshape(-1, 3)),
+        bet_sqrt_info=_set_rows(graph.bet_sqrt_info, lslot, lok,
+                                loops.sqrt_info.reshape(-1, 3, 3)),
+        bet_mask=_set_rows(graph.bet_mask, lslot, lok, True),
+        n_between=graph.n_between + lok.sum())
+
+    def per_scan(flags):                 # [K, C] -> count at each scan [W]
+        n = torch.where(has, flags.sum(1), torch.zeros_like(has,
+                                                            dtype=torch.long))
+        return torch.zeros(w, dtype=torch.int32, device=dev).index_add_(
+            0, sel, n.to(torch.int32))
+
+    return (graph, per_scan(lok.reshape(accept.shape)),
+            per_scan((acc_flat & ~lok).reshape(accept.shape)),
+            per_scan(loops.innov_rej & do[:, None]))
 
 
 def _wb_smooth(state: SlamState, graph, any_kf, cfg: PipelineConfig):
@@ -332,7 +398,12 @@ def _window_backend(state: SlamState, last_kf_reg, poses, hessians, pts, msk,
 def slam_window_step(state: SlamState, last_kf_reg, pts, msk, deltas,
                      cfg: PipelineConfig):
     """Process one window of W scans (registration + backend).
-    Returns ``((state, last_kf_reg), SlamStepOut over W scans)``."""
+    Returns ``((state, last_kf_reg), SlamStepOut over W scans)``.
+
+    With loop closure on, the step takes ownership of the input state's
+    keyframe table cache (``state.kf.tables``): it writes the window's new
+    tables into that tensor in place and hands it on in the new state. A
+    caller that needs the input state afterwards clones its cache first."""
     _check_slice(cfg, pts.device)
     poses, res, is_kf = _window_frontend(state, last_kf_reg, pts, msk, deltas,
                                          cfg, cfg.window_passes)
@@ -362,7 +433,7 @@ def stack_outs(outs, t_steps: int) -> SlamStepOut:
 
 def run_slam_windowed(points, mask, odom, cfg: PipelineConfig,
                       init_pose=None):
-    """Window-batched full SLAM (config 2 without loop closure).
+    """Window-batched full SLAM (configs 1-3).
 
     points ``[T, N, 2]``, mask ``[T, N]``, odom ``[T, 3]`` on the device the
     run should use. Returns ``(final SlamState, SlamStepOut over T-1

@@ -145,6 +145,35 @@ def test_lookup_quad(grid):
     _close(rt.numpy(), rj)
 
 
+@pytest.mark.parametrize("grid", [G4, G1], ids=["overlap4", "overlap1"])
+def test_lookup_quad_grouped_and_multi(grid):
+    """Lane ``b`` gathers from table ``group[b]`` of a stack (grouped) or
+    from its own table (multi), as in the JAX package."""
+    tabs = []
+    for seed in (11, 12, 13):
+        j, _ = _stats_pair(grid, seed=seed)
+        tabs.append(jgrid.pack_quad(jgrid.finalize(j, NDT), grid))
+    stack = jnp.stack(tabs)                              # [S, R, L]
+    s, r, l = stack.shape
+    rng = np.random.default_rng(14)
+    pts = np.stack([_points(15 + b, 200, grid)[0] for b in range(5)])
+    x, y = pts[..., 0], pts[..., 1]
+    group = rng.integers(0, s, 5)
+    rj, ij = jgrid.lookup_quad_grouped(stack.reshape(s * r, l), r,
+                                       jnp.asarray(group, jnp.int32),
+                                       jnp.asarray(x), jnp.asarray(y), grid)
+    rt, it = tgrid.lookup_quad_grouped(_t(stack).reshape(s * r, l), r,
+                                       _t(group), _t(x), _t(y), grid)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    _close(rt.numpy(), rj)
+    mj, mij = jgrid.lookup_quad_multi(stack[group], jnp.asarray(x),
+                                      jnp.asarray(y), grid)
+    mt, mit = tgrid.lookup_quad_multi(_t(stack[group]), _t(x), _t(y), grid)
+    np.testing.assert_array_equal(mit.numpy(), np.asarray(mij))
+    _close(mt.numpy(), mj)
+    _close(mt.numpy(), rt.numpy())
+
+
 @pytest.mark.parametrize("compact", [False, True])
 def test_finalize_pack_ref_matches_jax(compact):
     j, t = _stats_pair(G4, seed=8)
@@ -181,8 +210,9 @@ def test_wrappers_take_the_twin_on_cpu_and_kernels_refuse_cpu():
     st = tgrid.halfcell_add(tgrid.empty_stats(G4, torch.float32),
                             _t(pts).float(), _t(mask), 1.0, G4)
     tgrid.finalize_pack(st, NDT, G4)
-    assert kernels.LAUNCHES == {"ndt_terms": 0, "halfcell_add": 0,
-                                "finalize_pack": 0}
+    assert set(kernels.LAUNCHES) >= {"ndt_terms", "halfcell_add",
+                                     "finalize_pack"}
+    assert not any(kernels.LAUNCHES.values())
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.finalize_pack(st.n, st.s, st.ss, NDT, G4)
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -193,3 +193,85 @@ def test_ndt_terms_wrapper_uses_twin_on_cpu(scene):
     assert kernels.LAUNCHES["ndt_terms"] == 0
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.ndt_terms(*args)
+
+
+@pytest.fixture(scope="module")
+def stacked(scene):
+    """Three maps (scans 0-19, 6-25, 12-31 of the lap) as a stack of quad
+    tables [3, R, L], and a random table per lane."""
+    world = jsynth.box_world(11.0)
+    traj = jsynth.rectangle_trajectory(48, half=7.0, step=0.2,
+                                       dtype=jnp.float64)
+    seq = jsynth.make_sequence(world, traj, n_beams=90, max_range=20.0,
+                               min_range=0.1, seed=0)
+    pts = np.asarray(seq.points, np.float64)
+    gt = np.asarray(traj)
+    tables = []
+    for lo in (0, 6, 12):
+        w = np.asarray(jse2.transform(jnp.asarray(gt[lo:lo + 20]),
+                                      jnp.asarray(pts[lo:lo + 20])))
+        st = jgrid.build_stats(jnp.asarray(w.reshape(-1, 2)), jnp.asarray(
+            np.asarray(seq.mask)[lo:lo + 20].reshape(-1)), GRID)
+        tables.append(jgrid.pack_quad(jgrid.finalize(st, NDT), GRID))
+    group = np.random.default_rng(8).integers(0, 3, 24)
+    return jnp.stack(tables), group
+
+
+@pytest.mark.parametrize("phase2_width", [0, 8], ids=["one_phase",
+                                                      "two_phase"])
+@pytest.mark.parametrize("layout", ["per_lane", "grouped"])
+def test_match_batch_packed_stacked_tables(scene, stacked, layout,
+                                           phase2_width):
+    """Per-lane [B, R, L] tables and grouped [S, R, L] tables with
+    ``group [B]`` against JAX, lane by lane."""
+    qj, group = stacked
+    cfg = MatchConfig(phase2_width=phase2_width, phase1_iters=4)
+    args = (scene["pts"], scene["mask"])
+    if layout == "per_lane":
+        tj, gj, tt, gt = qj[group], None, _t(qj[group]), None
+    else:
+        tj, gj, tt, gt = qj, jnp.asarray(group, jnp.int32), _t(qj), _t(group)
+    rj = jmatch.match_batch_packed(*map(jnp.asarray, args), tj,
+                                   jnp.asarray(scene["init"]), GRID, cfg,
+                                   group=gj)
+    rt = tmatch.match_batch_packed(*map(_t, args), tt, _t(scene["init"]),
+                                   GRID, cfg, group=gt)
+    _check_result(rt, rj)
+    # The grouped/per-lane twin is a shared-table lookup per lane.
+    lane = 7
+    one = tmatch.match_batch_packed(_t(scene["pts"][lane:lane + 1]),
+                                    _t(scene["mask"][lane:lane + 1]),
+                                    _t(qj[group[lane]]),
+                                    _t(scene["init"][lane:lane + 1]), GRID,
+                                    MatchConfig())
+    np.testing.assert_allclose(one.pose[0].numpy(), rt.pose[lane].numpy(),
+                               rtol=0, atol=1e-12)
+
+
+def test_two_phase_terminates_with_capped_lanes(scene):
+    """Repair (ROADMAP C-r1): with more than ``phase2_width`` lanes stopped
+    at the iteration cap unconverged, the two-phase loop kept picking those
+    lanes and never ended. It now ends with the one-phase loop's results."""
+    import signal
+
+    _, qt = _tables(scene)
+    rng = np.random.default_rng(9)
+    init = scene["init"] + rng.normal(0, [0.5, 0.5, 0.1], (24, 3))
+    args = (_t(scene["pts"]), _t(scene["mask"]), qt, _t(init), GRID)
+    r1 = tmatch.match_batch_packed(*args, MatchConfig(max_iter=3))
+    capped = int(((r1.n_iter == 3) & ~r1.converged).sum())
+    assert capped > 2
+
+    def stuck(*_):
+        raise TimeoutError("the two-phase loop did not end")
+
+    old = signal.signal(signal.SIGALRM, stuck)
+    signal.alarm(60)
+    try:
+        r2 = tmatch.match_batch_packed(*args, MatchConfig(
+            max_iter=3, phase2_width=2, phase1_iters=1))
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    for a, b in zip(r1, r2):
+        assert torch.equal(a, b)

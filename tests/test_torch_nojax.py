@@ -14,6 +14,7 @@ sys.modules["jax"] = None          # any "import jax" now raises ImportError
 sys.path.insert(0, {root!r})
 import ndtpu_torch, ndtpu_torch.run, ndtpu_torch.kernels, ndtpu_torch.convert
 import ndtpu_torch.slam.pipeline, ndtpu_torch.utils.metrics
+import ndtpu_torch.loop, ndtpu_torch.loop.closure
 import chip_smoke
 from chip_smoke import box_sequence, sequence_hashes, dead_reckoning
 from ndtpu_torch import kernels
