@@ -13,6 +13,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``nvcc`` per source, in parallel; seconds and the register report);
 3. each kernel against its plain twin at real size, on inputs made from
    ``--seed``, with medians of 20 synchronized runs of kernel and twin:
+   ``lm_ndt`` (the whole LM registration, one launch) at the config-2
+   window shape (8 lanes x 360 beams, the 100 x 100 table) and the config-3
+   verify shape (64 lanes grouped over the 1,024-slot cache), against the
+   composite route (the LM step in torch around K1, the old path, timed
+   beside it) and its f32 twin ``lm_ndt_ref``;
    K1 ``ndt_terms`` (512 lanes, then the window's 8 lanes, x 360 beams
    against a config-2 table built from a 300-scan map), K3
    ``halfcell_add`` (1,024, then 8, scans of 360 points, against the twin in
@@ -23,7 +28,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    (a real 4 x 16 verification at the end of the box-world lap);
 4. config 2 through its entry point: ``ndtpu_torch.run.main`` on
    ``configs/config2_full_sequence.json``, 300 scans, ``--device cuda``,
-   with every launch counter reset just before and read just after;
+   with every launch counter (and the count of ``match_batch_packed``
+   calls) reset just before and read just after;
 5. the config-2 ATE gate: box-world draws 0-2 through
    ``run_slam_windowed``, against the JAX reference's ATE on the same
    sequences (``tests/data/torch_config2_box300_ref.json``) and dead
@@ -32,11 +38,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    corridor's 120 m lap takes 480), counters reset and read as in phase 4;
 7. the config-3 ATE gate against ``tests/data/torch_config3_box300_ref.json``
    (also: the port closes a loop on every draw where JAX does);
-8. every kernel launched in its entry-point phase (K1, K3, K4 in phase 4;
-   all six in phase 6).
+8. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
+   phase 4; also ``lm_ndt_grouped``, K8a and K8b in phase 6), and exactly
+   one ``lm_ndt*`` launch per ``match_batch_packed`` call. K1's own
+   launches are not required there: on the main path its code runs inside
+   ``lm_ndt``, and K1 is held to its twin in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches
-(phases 4 and 6 together), errors and times; the last line is
+(phases 4 and 6 together), errors, times and bounds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -57,16 +66,32 @@ CONFIG3 = ROOT / "configs" / "config3_loop_closure.json"
 REF_FILE = ROOT / "tests" / "data" / "torch_config2_box300_ref.json"
 REF3_FILE = ROOT / "tests" / "data" / "torch_config3_box300_ref.json"
 
+#: One H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
+#: bytes/s and f32 FLOP/s outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+#: f32 operations per in-bounds beam per evaluation of the 11 sums, counted
+#: from ``csrc/ndt_sums.cuh``: 20 for the transform, binning and
+#: derivatives, 71 for each of the 4 overlap grids.
+BEAM_FLOPS = 20 + 4 * 71
+#: f32 operations of one LM step of a lane (damped Cramer solve, clip,
+#: accept and stop tests), counted from ``csrc/lm_ndt.cu``.
+STEP_FLOPS = 80
+
 #: The box-world scenario of bench.py's end-to-end section.
 BOX = dict(half=11.0, n_scans=300, traj_half=7.0, step=0.2, max_range=20.0,
            min_range=0.1, odom_trans_std=0.04, odom_rot_std=0.01)
 
 _CSRC = "ndtpu_torch/kernels/csrc/"
 KERNELS = [
+    dict(name="lm_ndt", source=_CSRC + "lm_ndt.cu",
+         replaces="ndtpu/ndt/match.py:308", config2=True),
+    dict(name="lm_ndt_grouped", source=_CSRC + "lm_ndt.cu",
+         replaces="ndtpu/ndt/match.py:308", config2=False),
     dict(name="ndt_terms", source=_CSRC + "ndt_terms.cu",
-         replaces="ndtpu/ndt/match.py:237", config2=True),
+         replaces="ndtpu/ndt/match.py:237", inside="lm_ndt"),
     dict(name="ndt_terms_grouped", source=_CSRC + "ndt_terms.cu",
-         replaces="ndtpu/ndt/grid.py:450", config2=False),
+         replaces="ndtpu/ndt/grid.py:450", inside="lm_ndt_grouped"),
     dict(name="halfcell_add", source=_CSRC + "halfcell_add.cu",
          replaces="ndtpu/ndt/grid.py:161", config2=True),
     dict(name="finalize_pack", source=_CSRC + "finalize_pack.cu",
@@ -178,6 +203,51 @@ def _table_check(name, out, ref):
     return float(err.max())
 
 
+def bound(n_bytes: float, n_flops: float) -> dict:
+    """The least time the card could take for work that must move
+    ``n_bytes`` (each input read once, each output written once) and do
+    ``n_flops`` f32 operations: the larger of the two times at the H100's
+    peaks. No single PyTorch call computes any of these kernels' functions,
+    so ``library_ms`` is null for every row."""
+    tb = n_bytes / HBM_BYTES_S * 1e3
+    tf = n_flops / F32_FLOP_S * 1e3
+    return dict(bound_ms=max(tb, tf),
+                bound_by="bytes" if tb >= tf else "operations",
+                library_ms=None)
+
+
+def lane_rows(poses, px, py, mask_f, grid, group=None):
+    """Keys of the quad rows the lanes gather at ``poses`` (table index x R
+    + row, one per masked in-bounds beam) and each lane's count of such
+    beams, by the kernels' binning."""
+    import torch
+
+    from ndtpu_torch.ndt import match
+
+    x, y, _, _ = match._lane_transform(poses, px, py)
+    wh, hh = 2 * grid.nx + 1, 2 * grid.ny + 1
+    inv = 2.0 / grid.cell
+    hx = torch.floor((x - grid.x0) * inv)
+    hy = torch.floor((y - grid.y0) * inv)
+    ok = (mask_f > 0) & (hx >= 0) & (hx < wh) & (hy >= 0) & (hy < hh)
+    key = hy.long() * wh + hx.long()
+    if group is not None:
+        key = key + group[:, None].long() * (wh * hh)
+    return key[ok], ok.sum(-1)
+
+
+def k1_bound(args, group=None):
+    """K1's bound: poses, beams (and ``group``) read, each distinct row
+    gathered once (128 B), 11 sums written; BEAM_FLOPS per in-bounds
+    beam."""
+    poses, px, py, mask_f, _, grid = args[:6]
+    keys, beams = lane_rows(poses, px, py, mask_f, grid, group)
+    b, n = px.shape
+    n_bytes = (b * 12 + b * n * 12 + keys.unique().numel() * 128 + b * 44
+               + (0 if group is None else b * 4))
+    return bound(n_bytes, float(beams.sum()) * BEAM_FLOPS)
+
+
 def check_k1(cfg, seq, table, seed, dev, b):
     """K1 vs ndt_terms_ref on the card: ``b`` lanes x 360 beams."""
     import numpy as np
@@ -206,10 +276,12 @@ def check_k1(cfg, seq, table, seed, dev, b):
     rel = float((err / torch.clamp(ref.abs(), min=1.0)).max())
     ms = time_ms(lambda: kernels.ndt_terms(*args))
     plain = time_ms(lambda: match.ndt_terms_ref(*args))
+    bd = k1_bound(args)
     print(f"[smoke] K1 ndt_terms B={b} N={seq.points.shape[1]}: max abs err "
           f"{float(err.max()):.3e}, max rel err {rel:.3e} (tol 1e-3 x "
-          f"max(1,|ref|)); kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain)
+          f"max(1,|ref|)); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain, **bd)
 
 
 def _k3_case(cfg, base, pts, msk, weight, exact_counts):
@@ -272,11 +344,17 @@ def check_k3(cfg, seq, base, seed, dev, k):
     sign = np.where(rng.random(pts.shape[0]) < 0.5, -1.0, 1.0)
     wts = torch.as_tensor(sign, dtype=torch.float32, device=dev)
     e2, w2, ms2, pl2 = _k3_case(cfg, base, pts, msk, wts, False)
-    print(f"[smoke] K3 halfcell_add M={pts.shape[0]}: +1 weights max abs err "
+    # Unit weights: points (8 B) and mask (1 B) read, the 28 floats of
+    # (n, s, ss) per cell read and written; ~10 operations per point to bin
+    # and weigh it, 140 per cell to pool 4 grids x 7 moments and add them.
+    m, c = pts.shape[0], cfg.grid.n_cells
+    bd = bound(m * 9 + 2 * 28 * 4 * c, 10.0 * m + 140.0 * c)
+    print(f"[smoke] K3 halfcell_add M={m}: +1 weights max abs err "
           f"{e1:.3e} ({w1:.3f} x tol, counts exact), +-1 weights max abs err "
           f"{e2:.3e} ({w2:.3f} x tol; tol 1e-5 x per-cell magnitude); "
-          f"kernel {ms1:.4f} / {ms2:.4f} ms, plain {pl1:.4f} / {pl2:.4f} ms")
-    return dict(max_abs_err=max(e1, e2), ms=ms1, plain_ms=pl1)
+          f"kernel {ms1:.4f} / {ms2:.4f} ms, plain {pl1:.4f} / {pl2:.4f} ms, "
+          f"bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    return dict(max_abs_err=max(e1, e2), ms=ms1, plain_ms=pl1, **bd)
 
 
 def check_k4(cfg, stats):
@@ -294,10 +372,14 @@ def check_k4(cfg, stats):
                                                cfg.ndt, cfg.grid))
     plain = time_ms(lambda: ndt_grid.finalize_pack_ref(stats, cfg.ndt,
                                                        cfg.grid))
+    # (n, s, ss) read (28 floats per cell), the [R, 32] table written;
+    # ~40 operations to finalize each of the 4 x C cells.
+    c = cfg.grid.n_cells
+    bd = bound(28 * 4 * c + out.numel() * 4, 160.0 * c)
     print(f"[smoke] K4 finalize_pack R={out.shape[0]}: valid exact, max abs "
           f"err {err:.3e} (rtol 1e-5); kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain)
+          f"{plain:.4f} ms, bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, **bd)
 
 
 def box_store(cfg3, seq, dev):
@@ -380,14 +462,20 @@ def check_k8a(cfg3, seq, seed, dev, w):
     require(bool(torch.isfinite(out16).all()), "K8a: non-finite table")
     ms = time_ms(lambda: kernel(p4))
     plain = time_ms(twin)
+    # Points (8 B), mask (1 B), slot and ok read, W tables written; ~10
+    # operations per point and 40 per finalized cell slot.
+    n = seq.points.shape[1]
+    bd = bound(w * (n * 9 + 5) + w * shape[1] * 128,
+               10.0 * w * n + 40.0 * w * shape[1] * 4)
     print(f"[smoke] K8a local_tables W={w} N={seq.points.shape[1]} "
           f"({shape[1]} rows, {shape[1] * 24} B of shared memory): vs f32 "
           f"twin (2^-4 m points) max abs err "
           f"{err4:.3e} (K4 rtol 1e-5), valid exact; vs f64 twin (2^-16 m) "
           f"valid exact, means within rtol 1e-5, icov max err "
           f"{float(ierr.max()):.3e} = {irel:.3e} of its max; kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms")
-    return dict(max_abs_err=err4, ms=ms, plain_ms=plain)
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
+          f"({bd['bound_by']})")
+    return dict(max_abs_err=err4, ms=ms, plain_ms=plain, **bd)
 
 
 def check_k1_grouped(cfg3, seq, kf, seed, dev, b):
@@ -428,11 +516,13 @@ def check_k1_grouped(cfg3, seq, kf, seed, dev, b):
     hit = float((ref[:, 1] > 0).float().mean())
     ms = time_ms(lambda: kernels.ndt_terms(*args, group=g32))
     plain = time_ms(lambda: match.ndt_terms_ref(*args, group=g32))
+    bd = k1_bound(args, g32)
     print(f"[smoke] K1 ndt_terms grouped B={b} N={seq.points.shape[1]} "
           f"S={kf.capacity}: max abs err {float(err.max()):.3e} (tol 1e-3 x "
           f"max(1,|ref|)), {hit:.2f} of lanes see valid cells; kernel "
-          f"{ms:.4f} ms, plain {plain:.4f} ms")
-    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain)
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
+          f"({bd['bound_by']})")
+    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain, **bd)
 
 
 def check_k8b(cfg3, seq, kf, seed, dev):
@@ -482,13 +572,215 @@ def check_k8b(cfg3, seq, kf, seed, dev):
     ms = time_ms(lambda: closure.gate_and_pack(res, cands, loop, init, qidx))
     plain = time_ms(lambda: closure._gate_and_pack(res, cands, loop, init,
                                                    qidx))
+    # Per lane: mask, converged, score, pose, init, hessian, index read (70
+    # B), accept, innov_rej, sqrt_info written (38 B); ~800 operations (8
+    # Jacobi sweeps on the 3 x 3, the Cholesky, the gates).
+    lanes = res.score.numel()
+    bd = bound(lanes * 108 + 4 * 4, 800.0 * lanes)
     print(f"[smoke] K8b loop_gate K=4 C={loop.max_candidates}: "
           f"{int(cands.mask.sum())} live lanes ({int((~clear).sum())} "
           f"masked near a gate), {int(ref.accept.sum())} accepted, "
           f"{int((r64.converged & cands.mask.cpu()).sum())} converged; flags "
           f"exact, sqrt_info max abs err {float(err.max()):.3e} (tol 1e-4 x "
-          f"lane max); kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain)
+          f"lane max); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain, **bd)
+
+
+def lm_window_args(cfg, seq, table, seed, dev, b):
+    """``b`` lanes of the config-2 window shape: scan ``t`` from its true
+    pose + noise (0.1 m, 0.1 m, 0.02 rad) against the config-2 table, as
+    ``(init, px, py, mask_f, table, grid, group)``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 5)
+    lane = torch.as_tensor(rng.integers(0, seq.points.shape[0], b))
+    noise = rng.normal(0.0, [0.1, 0.1, 0.02], (b, 3))
+    init = (seq.gt_poses[lane].double() + torch.as_tensor(noise)).float()
+    return (init.to(dev).contiguous(),
+            seq.points[lane, :, 0].to(dev).contiguous(),
+            seq.points[lane, :, 1].to(dev).contiguous(),
+            seq.mask[lane].float().to(dev).contiguous(), table, cfg.grid,
+            None)
+
+
+def lm_verify_args(cfg3, seq, kf, seed, dev, b):
+    """``b`` verify lanes over the whole keyframe cache: lane ``b``
+    registers the scan after its table's scan from the true relative pose +
+    noise (0.1 m, 0.1 m, 0.02 rad), ``group`` = table slot."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch.lie import se2
+    from ndtpu_torch.loop import closure
+
+    rng = np.random.default_rng(seed + 6)
+    t = seq.points.shape[0]
+    group = torch.as_tensor(rng.integers(0, kf.capacity, b))
+    src, q = group % t, (group + 1) % t
+    rel = se2.between(seq.gt_poses[src].double(), seq.gt_poses[q].double())
+    init = (rel + torch.as_tensor(rng.normal(0.0, [0.1, 0.1, 0.02],
+                                             (b, 3)))).float()
+    return (init.to(dev).contiguous(),
+            seq.points[q, :, 0].to(dev).contiguous(),
+            seq.points[q, :, 1].to(dev).contiguous(),
+            seq.mask[q].float().to(dev).contiguous(), kf.tables,
+            closure.local_grid_config(cfg3.loop),
+            group.to(dev, torch.int32))
+
+
+def lm_composite(init_poses, px, py, mask_f, table, grid, cfg, group=None):
+    """The composite route, with ``ndt.match.lm_ndt``'s signature: the
+    batched LM loop in torch around K1 launches (the card path before
+    ``lm_ndt``)."""
+    from ndtpu_torch.ndt import match
+
+    sgh = match.terms_sgh(px, py, mask_f, table, grid, cfg, group,
+                          terms=match.ndt_terms)
+    return match.lm_loop_batch(sgh, init_poses, cfg)
+
+
+def accept_tie(args, cfg, lane: int):
+    """Replay ``lane`` one iteration at a time on the composite route and
+    on ``lm_ndt`` (run with ``max_iter = k``). At the first iteration where
+    one accepts its trial pose and the other rejects it, return ``(k, f,
+    f2, |f2 - f| / |f|)`` from the composite route; None when the two part
+    in another way (a stop test) or never."""
+    import dataclasses
+
+    import torch
+
+    from ndtpu_torch.ndt import match
+
+    init, px, py, mask_f, table, grid, group = args
+    sl = slice(lane, lane + 1)
+    one = (init[sl], px[sl], py[sl], mask_f[sl], table, grid,
+           None if group is None else group[sl])
+    sgh = match.terms_sgh(*one[1:6], cfg, one[6], terms=match.ndt_terms)
+    c = match._lm_carry_init(sgh, one[0], cfg)
+    prev = one[0]
+    for k in range(1, cfg.max_iter + 1):
+        active = (c.it < cfg.max_iter) & ~c.done
+        if not bool(active[0]):
+            return None
+        _, pose_try = match._lm_trial(c, cfg, active)
+        f2 = float(sgh(pose_try)[0][0])
+        f = float(c.f[0])
+        kres = match.lm_ndt(*one[:6], dataclasses.replace(cfg, max_iter=k),
+                            one[6])
+        if int(kres.n_iter[0]) < k:
+            return None
+        if (not torch.equal(kres.pose, prev)) != (f2 < f):
+            return k, f, f2, abs(f2 - f) / max(abs(f), 1e-30)
+        prev = kres.pose
+        c = match._lm_body(sgh, c, cfg, cfg.max_iter)
+    return None
+
+
+def check_lm(label, args, cfg):
+    """``lm_ndt`` against the composite route (n_iter and converged equal
+    on every lane, pose and score within 1e-5 x max(|ref|, 1), H within
+    1e-5 x the lane's largest entry, or the lane shown to be an accept tie,
+    |f2 - f| <= 1e-6 |f|) and against its f32 twin ``lm_ndt_ref`` (sums in
+    another order: poses within 1e-3 m / rad on lanes converged in both;
+    the converged flags are pooled over both shapes by the caller). Returns
+    the result row and ``(lanes with equal converged flags, lanes)``."""
+    import torch
+
+    from ndtpu_torch.ndt import match
+
+    init, px, py, mask_f, table, grid, group = args
+    run = lambda: match.lm_ndt(*args[:6], cfg, group)
+    twin = lambda: match.lm_ndt_ref(*args[:6], cfg, group)
+    composite = lambda: lm_composite(*args[:6], cfg, group)
+    kres, cres, tres = run(), composite(), twin()
+    torch.cuda.synchronize()
+    for name in ("pose", "hessian", "score"):
+        require(bool(torch.isfinite(getattr(kres, name)).all()),
+                f"lm_ndt {label}: non-finite {name}")
+    tol = lambda ref: 1e-5 * ref.abs().clamp(min=1.0)
+    hmax = cres.hessian.abs().amax((-2, -1), keepdim=True)
+    same = ((kres.n_iter == cres.n_iter)
+            & (kres.converged == cres.converged)
+            & ((kres.pose - cres.pose).abs() <= tol(cres.pose)).all(-1)
+            & ((kres.score - cres.score).abs() <= tol(cres.score))
+            & ((kres.hessian - cres.hessian).abs()
+               <= 1e-5 * hmax).all(-1).all(-1))
+    ties = 0
+    for lane in (~same).nonzero().flatten().tolist():
+        tie = accept_tie(args, cfg, lane)
+        require(tie is not None and tie[3] <= 1e-6,
+                f"lm_ndt {label}: lane {lane} differs from the composite "
+                f"route (n_iter {int(kres.n_iter[lane])} vs "
+                f"{int(cres.n_iter[lane])}, converged "
+                f"{bool(kres.converged[lane])} vs "
+                f"{bool(cres.converged[lane])}) and is no accept tie: {tie}")
+        print(f"[smoke] lm_ndt {label}: lane {lane} parts from the composite "
+              f"route at an accept tie: iteration {tie[0]}, f {tie[1]!r}, "
+              f"f2 {tie[2]!r}, |f2 - f| / |f| = {tie[3]:.3e}")
+        ties += 1
+    cerr = float((kres.pose - cres.pose)[same].abs().max()) \
+        if bool(same.any()) else 0.0
+    conv_eq = int((kres.converged == tres.converged).sum())
+    both = kres.converged & tres.converged
+    terr = float((kres.pose - tres.pose)[both].abs().max()) \
+        if bool(both.any()) else 0.0
+    require(terr <= 1e-3, f"lm_ndt {label}: poses {terr:.3e} off the f32 "
+            f"twin on lanes converged in both (tol 1e-3)")
+    ms = time_ms(run)
+    comp_ms = time_ms(composite)
+    plain = time_ms(twin)
+    # Bytes: init, beams (and group) read, each distinct row gathered at
+    # the initial or final poses once, pose/H/score/n_iter/converged
+    # written. Operations: (n_iter + 1) evaluations of each lane's
+    # in-bounds beams, and n_iter LM steps.
+    keys0, _ = lane_rows(init, px, py, mask_f, grid, group)
+    keys1, beams = lane_rows(kres.pose, px, py, mask_f, grid, group)
+    b, n = px.shape
+    rows = torch.cat([keys0, keys1]).unique().numel()
+    its = kres.n_iter.long()
+    bd = bound(b * 12 + b * n * 12 + rows * 128 + b * 57
+               + (0 if group is None else b * 4),
+               float(((its + 1) * beams).sum()) * BEAM_FLOPS
+               + float(its.sum()) * STEP_FLOPS)
+    print(f"[smoke] lm_ndt {label} B={b} N={n}: n_iter mean "
+          f"{float(its.float().mean()):.2f} max {int(its.max())}, "
+          f"{int(kres.converged.sum())}/{b} converged; vs composite route "
+          f"{int(same.sum())}/{b} lanes equal (n_iter, converged; pose rtol "
+          f"1e-5, max abs err {cerr:.3e}), {ties} accept ties; vs f32 twin "
+          f"converged equal on {conv_eq}/{b}, pose max abs err {terr:.3e} "
+          f"(tol 1e-3); kernel {ms:.4f} ms, composite route {comp_ms:.4f} "
+          f"ms, plain twin {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
+          f"({bd['bound_by']}), {ms * 1e3 / max(int(its.max()), 1):.2f} us "
+          f"per iteration of the longest lane")
+    return (dict(max_abs_err=terr, ms=ms, plain_ms=plain, **bd,
+                 composite_ms=comp_ms, composite_max_abs_err=cerr,
+                 accept_ties=ties), (conv_eq, b))
+
+
+def check_no_sync(args, cfg):
+    """One ``match_batch_packed`` call on the card under
+    ``set_sync_debug_mode("error")``: any host sync raises."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.ndt import match
+
+    init, px, py, mask_f, table, grid, _ = args
+    points, mask = torch.stack([px, py], -1), mask_f > 0
+    before = kernels.LAUNCHES["lm_ndt"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        match.match_batch_packed(points, mask, table, init, grid, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES["lm_ndt"] == before + 1,
+            "match_batch_packed: not one lm_ndt launch")
+    print("[smoke] match_batch_packed on the card: one lm_ndt launch, no "
+          "host sync (set_sync_debug_mode('error'))")
 
 
 def run_entry_point(dev, config, n_scans: int):
@@ -496,19 +788,29 @@ def run_entry_point(dev, config, n_scans: int):
     import numpy as np
 
     from ndtpu_torch import kernels, run
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.ndt import match
 
+    windows = -(-n_scans // PipelineConfig.from_json(str(config)).window)
     kernels.reset_launches()
+    match.CALLS["match_batch_packed"] = 0
     res = run.main(["--config", str(config), "--max-scans", str(n_scans),
                     "--device", str(dev)])
     launches = dict(kernels.LAUNCHES)
+    calls = match.CALLS["match_batch_packed"]
     traj = res["traj"]
     require(traj.shape == (n_scans, 3) and bool(np.isfinite(traj).all()),
             "entry point: trajectory not finite or of the wrong shape")
     require(res["n_keyframes"] > 0, "entry point: no keyframes")
+    lm = launches["lm_ndt"] + launches["lm_ndt_grouped"]
+    require(lm == calls, f"entry point {config.name}: {lm} lm_ndt launches "
+            f"for {calls} match_batch_packed calls (one each expected)")
     print(f"[smoke] entry point {config.name}: {n_scans} scans, "
           f"{res['scans_per_s']:.1f} scans/s ({res['seconds']:.2f} s), "
           f"keyframes={res['n_keyframes']}, loops={res['n_loops']}, ATE "
-          f"{res['ate']:.4f} m, launches {launches}")
+          f"{res['ate']:.4f} m, {calls} match_batch_packed calls, "
+          f"{lm / windows:.2f} lm_ndt launches per window ({windows} "
+          f"windows), launches {launches}")
     return launches
 
 
@@ -607,9 +909,14 @@ def main(argv=None) -> int:
     # window of the main path gives it (W lanes; W scans), which is the row
     # the result line reports.
     w = cfg.window
+    lm2 = lm_window_args(cfg, seq, table, args.seed, dev, w)
+    check_no_sync(lm2, cfg.match)
+    lm_rows = {}
+    lm_rows["lm_ndt"], conv2 = check_lm("window", lm2, cfg.match)
     check_k1(cfg, seq, table, args.seed, dev, 512)
     check_k3(cfg, seq, stats, args.seed, dev, 1024)
-    results = {"ndt_terms": check_k1(cfg, seq, table, args.seed, dev, w),
+    results = {**lm_rows,
+               "ndt_terms": check_k1(cfg, seq, table, args.seed, dev, w),
                "halfcell_add": check_k3(cfg, seq, stats, args.seed, dev, w),
                "finalize_pack": check_k4(cfg, stats)}
 
@@ -625,6 +932,13 @@ def main(argv=None) -> int:
         cfg3, seq, kf, args.seed, dev,
         cfg3.loop.max_detect_per_window * cfg3.loop.max_candidates)
     results["loop_gate"] = check_k8b(cfg3, seq, kf, args.seed, dev)
+    results["lm_ndt_grouped"], conv3 = check_lm(
+        "verify", lm_verify_args(cfg3, seq, kf, args.seed, dev,
+                                 cfg3.loop.max_detect_per_window
+                                 * cfg3.loop.max_candidates), cfg3.match)
+    eq, lanes = conv2[0] + conv3[0], conv2[1] + conv3[1]
+    require(eq >= 0.98 * lanes, f"lm_ndt: converged flags equal to the f32 "
+            f"twin's on {eq}/{lanes} lanes (>= 98% required)")
     del kf
 
     launches2 = run_entry_point(dev, CONFIG2, 300)
@@ -632,6 +946,8 @@ def main(argv=None) -> int:
     launches3 = run_entry_point(dev, CONFIG3, 600)
     ate_gate(dev, CONFIG3, REF3_FILE)
     for k in KERNELS:
+        if "inside" in k:    # K1: its code runs inside lm_ndt there
+            continue
         require(not k["config2"] or launches2[k["name"]] > 0,
                 f"{k['name']}: the config-2 path launched it no time")
         require(launches3[k["name"]] > 0,
@@ -640,7 +956,9 @@ def main(argv=None) -> int:
 
     rows = [dict(name=k["name"], route="cuda", source=k["source"],
                  replaces=k["replaces"], launches=launches[k["name"]],
-                 **results[k["name"]]) for k in KERNELS]
+                 **results[k["name"]],
+                 **({"runs_inside": k["inside"]} if "inside" in k else {}))
+            for k in KERNELS]
     print(f"[smoke] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -7,8 +7,9 @@ the same numpy inputs.
 
 Rules of the port:
 
-- It imports ``torch``, ``numpy`` and ``ndtpu.config`` (pure dataclasses),
-  never ``jax``.
+- It imports ``torch`` and ``numpy``, never ``jax`` and nothing of the JAX
+  package ``ndtpu`` (``ndtpu_torch.config`` is its own copy of the
+  configuration dataclasses).
 - No learned parameters and no gradients: plain functions on tensors, state
   as ``NamedTuple``s with the JAX package's field names.
 - Plain functions follow their input dtype (f64 in the CPU tests, f32 on the

@@ -1,11 +1,15 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Five kernels carry the windowed pipeline with loop closure (ROADMAP
+Six kernels carry the windowed pipeline with loop closure (ROADMAP
 Queue B):
 
 ============ =============================== =================================
 name         source                          replaces (JAX, lowered by XLA)
 ============ =============================== =================================
+lm_ndt       ``csrc/lm_ndt.cu`` (K2 around   ``match._lm_run`` /
+             K1)                             ``lm_loop_batch`` /
+                                             ``match_batch_packed``: the
+                                             whole LM loop, one launch
 ndt_terms    ``csrc/ndt_terms.cu`` (K1)      ``grid.lookup_quad`` (or
                                              ``lookup_quad_grouped``) +
                                              ``match.point_terms_quad``
@@ -16,9 +20,12 @@ local_tables ``csrc/local_tables.cu`` (K8a)  ``closure.build_local_table``
 loop_gate    ``csrc/loop_gate.cu`` (K8b)     ``closure._gate_and_pack``
 ============ =============================== =================================
 
-K1 counts its shared-table launches as ``ndt_terms`` and its grouped
-(per-lane table) launches as ``ndt_terms_grouped``. The public wrappers
-(``ndt.match.ndt_terms``, ``ndt.grid.halfcell_add``,
+K1's per-beam body and block reduction live in ``csrc/ndt_sums.cuh``;
+``lm_ndt`` runs them once per LM iteration, so on the registration path K1
+is not launched on its own. Shared-table launches count as ``lm_ndt`` /
+``ndt_terms``, grouped (per-lane table) launches as ``lm_ndt_grouped`` /
+``ndt_terms_grouped``. The public wrappers (``ndt.match.lm_ndt``,
+``ndt.match.ndt_terms``, ``ndt.grid.halfcell_add``,
 ``ndt.grid.finalize_pack``, ``loop.closure.write_local_tables``,
 ``loop.closure.gate_and_pack``) send CPU tensors to their plain twins and
 CUDA tensors here; nothing here falls back to a twin.
@@ -51,12 +58,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "ndt_terms",
+__all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "ndt_terms",
            "halfcell_add", "finalize_pack", "local_tables", "loop_gate"]
 
 #: Launch counts per kernel since the last :func:`reset_launches`.
-LAUNCHES = {"ndt_terms": 0, "ndt_terms_grouped": 0, "halfcell_add": 0,
-            "finalize_pack": 0, "local_tables": 0, "loop_gate": 0}
+LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
+            "ndt_terms_grouped": 0, "halfcell_add": 0, "finalize_pack": 0,
+            "local_tables": 0, "loop_gate": 0}
 
 #: Shared memory one block can have on Hopper (227 KB).
 SMEM_MAX = 232448
@@ -70,6 +78,7 @@ _lib = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    "lm_ndt_launch": [_P] * 11 + [_I] * 7 + [_F] * 12 + [_I, _P],
     "ndt_terms_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _P],
     "halfcell_scatter_launch": [_P, _P, _P, _F, _P, _I, _I, _I, _F, _F, _F,
@@ -206,14 +215,8 @@ def ndt_terms(poses, px, py, mask_f, table, grid, d2: float,
     _check(px, "px")
     _check(py, "py", shape=(b, n))
     _check(mask_f, "mask", shape=(b, n))
-    if group is None:
-        _check(table, "table", shape=(wh * hh, 32), align=16)
-        n_tables, g_ptr, counter = 1, None, "ndt_terms"
-    else:
-        _check(group, "group", dtype=torch.int32, shape=(b,))
-        _check(table, "tables", shape=(table.shape[0], wh * hh, 32), align=16)
-        n_tables, g_ptr, counter = table.shape[0], group.data_ptr(), \
-            "ndt_terms_grouped"
+    n_tables, g_ptr, grouped = _table_args(table, group, b, wh, hh)
+    counter = "ndt_terms_grouped" if grouped else "ndt_terms"
     out = torch.empty((b, 11), dtype=torch.float32, device=px.device)
     if b == 0:
         return out.zero_()
@@ -222,6 +225,55 @@ def ndt_terms(poses, px, py, mask_f, table, grid, d2: float,
           out.data_ptr(), b, n, wh, hh, wh * hh, n_tables, grid.x0, grid.y0,
           2.0 / grid.cell, d2, exp_clip, _stream(px))
     return out
+
+
+def _table_args(table, group, b: int, wh: int, hh: int):
+    """Check a shared ``[R, 32]`` table, or a stack ``[S, R, 32]`` with an
+    int32 ``group [B]``; returns ``(n_tables, group pointer, grouped)``."""
+    if group is None:
+        _check(table, "table", shape=(wh * hh, 32), align=16)
+        return 1, None, False
+    _check(group, "group", dtype=torch.int32, shape=(b,))
+    _check(table, "tables", shape=(table.shape[0], wh * hh, 32), align=16)
+    return table.shape[0], group.data_ptr(), True
+
+
+def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None):
+    """K2 around K1: every lane's whole LM registration in one launch (see
+    ``csrc/lm_ndt.cu``). Returns ``(pose [B,3], hessian [B,3,3], score [B],
+    n_iter [B] int32, converged [B] bool)``.
+
+    ``cfg`` is a ``MatchConfig`` (read by attribute; ``max_iter`` is the
+    cap); ``table`` and ``group`` are as for :func:`ndt_terms`. Nothing is
+    read back to the host."""
+    wh, hh = _lattice(grid)
+    b, n = px.shape
+    _check(init_poses, "init_poses", shape=(b, 3))
+    _check(px, "px")
+    _check(py, "py", shape=(b, n))
+    _check(mask_f, "mask", shape=(b, n))
+    n_tables, g_ptr, grouped = _table_args(table, group, b, wh, hh)
+    smem = 3 * n * 4
+    if smem > SMEM_MAX - 1024:
+        raise ValueError(f"lm_ndt: {n} beams need {smem} B of shared memory, "
+                         f"over what a block can have")
+    dev = px.device
+    pose = torch.empty((b, 3), dtype=torch.float32, device=dev)
+    hess = torch.empty((b, 3, 3), dtype=torch.float32, device=dev)
+    score = torch.empty((b,), dtype=torch.float32, device=dev)
+    n_iter = torch.empty((b,), dtype=torch.int32, device=dev)
+    conv = torch.empty((b,), dtype=torch.bool, device=dev)
+    if b > 0:
+        _call("lm_ndt_launch", "lm_ndt_grouped" if grouped else "lm_ndt",
+              init_poses.data_ptr(), px.data_ptr(), py.data_ptr(),
+              mask_f.data_ptr(), table.data_ptr(), g_ptr, pose.data_ptr(),
+              hess.data_ptr(), score.data_ptr(), n_iter.data_ptr(),
+              conv.data_ptr(), b, n, wh, hh, wh * hh, n_tables,
+              int(cfg.max_iter), grid.x0, grid.y0, 2.0 / grid.cell, cfg.d2,
+              cfg.exp_clip, cfg.tol, cfg.reject_tol, cfg.init_lambda,
+              cfg.lambda_up, cfg.lambda_down, cfg.max_lambda, cfg.step_clip,
+              smem, _stream(px))
+    return pose, hess, score, n_iter, conv
 
 
 def halfcell_add(n, s, ss, points, mask, weight, grid):

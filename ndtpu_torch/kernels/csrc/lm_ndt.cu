@@ -1,0 +1,234 @@
+// lm_ndt (Queue B K2, built around K1): one NDT registration per lane, the
+// whole Levenberg-Marquardt loop in one launch.
+//
+// Replaces what XLA lowered for the TPU from ndtpu/ndt/match.py::_lm_run
+// (:308-345, with _lm_carry_init :298 and _lm_result :348), as driven by
+// lm_loop_batch (:354) and the one- and two-phase branches of
+// match_batch_packed (:385-475), with the objective of make_sgh
+// (:433-450). JAX runs all lanes in lockstep in one lax.while_loop (and
+// compacts the stragglers in two-phase mode); each lane's trajectory
+// depends only on its own carry, because every sum reduces over that lane's
+// beams alone. So here each lane (one block) runs to its own stop, and the
+// per-lane results are those of the lockstep loop.
+//
+// Per lane b, with the 11 sums S(pose) of ndtpu::ndt_lane_sums (K1's body,
+// ndt_sums.cuh), f = -S0, g = d2 * S2..4, H = d2 * S5..10 and
+// score = S0 / max(S1, 1):
+//   init  pose = init_poses[b]; (f, g, H, score) at it; lam = init_lambda;
+//         it = 0; done = (|g0| + |g1| + |g2| == 0); conv = false
+//   while it < max_iter && !done:
+//     diag_k = max(|H_kk|, 1e-6); A = H + lam * diag(diag)
+//     delta = A^-1 (-g) by Cramer's rule in solve3's op order (det = 1e-30
+//       when |det| < 1e-30); scale delta to step_clip when its translation
+//       norm exceeds it; pose_try = pose + delta (no angle wrap)
+//     (f2, g2, H2, s2) at pose_try; accept = f2 < f
+//     lam' = accept ? max(lam * (1 / lambda_down), 1e-9) : lam * lambda_up
+//     small = |delta| < tol || (!accept && |delta| < reject_tol)
+//     stuck = lam' > max_lambda
+//     it += 1; done |= small || stuck; conv |= small
+//     on accept: pose, f, g, H, score = those of pose_try
+//   out: pose, H (symmetric 3 x 3), score, n_iter = it,
+//        converged = conv && f < 0
+// lam / lambda_down is computed as lam * (1 / lambda_down): that is how
+// PyTorch's CUDA division by a Python scalar rounds it, so the kernel and
+// the composite route (the same LM step in torch around K1) agree bit for
+// bit; JAX divides, which is one f32 rounding away.
+//
+// Layout: blockDim = K1's 128 threads over beams, so the sums at a pose are
+// bit-identical to K1's. The lane's px, py and mask are read from device
+// memory once into dynamic shared memory (12 B per beam) and reused by
+// every iteration. The table is [R, 32] shared by all lanes, or with group
+// (int32 [B], clamped into [0, S)) a stack [S, R, 32]. After each block
+// reduction threads 0-10 put the sums in shared memory; every thread then
+// computes the LM step from them redundantly (identical inputs, identical
+// result), so the loop condition is uniform and needs no broadcast. f32,
+// built with --fmad=false and no fast math; no atomics, deterministic.
+//
+// What bounds it on Hopper: by its roofline, nothing (B = 8, N = 360: about
+// 0.4 MB and 10 MFLOP, under 0.2 us); by its dependent chain, every
+// iteration is one round of 128-byte L2 gathers (3 beams per thread, in
+// series) plus a block reduction and two barriers, so a lane's time is
+// iterations x (gather latency + reduction). The design answers the real
+// cost it replaces: the composite route spent ~80 small torch launches and
+// a host sync every 4 iterations per LM iteration; this is one launch per
+// registration call and no host sync.
+
+#include <cuda_runtime.h>
+
+#include "ndt_sums.cuh"
+
+namespace {
+
+using ndtpu::kNdtSums;
+using ndtpu::kNdtThreads;
+
+struct LmParams {
+  int n, wh, hh, rows_per_table, n_tables, max_iter;
+  float x0, y0, inv, d2, exp_clip;
+  float tol, reject_tol, init_lambda, lambda_up, lambda_down, max_lambda,
+      step_clip;
+};
+
+__global__ void __launch_bounds__(kNdtThreads)
+lm_ndt_kernel(const float* __restrict__ init_poses,
+              const float* __restrict__ px, const float* __restrict__ py,
+              const float* __restrict__ mask,
+              const float4* __restrict__ table,
+              const int* __restrict__ group, float* __restrict__ pose_out,
+              float* __restrict__ hess_out, float* __restrict__ score_out,
+              int* __restrict__ iter_out, unsigned char* __restrict__ conv_out,
+              LmParams p) {
+  extern __shared__ float beams[];           // sx[n], sy[n], m[n]
+  __shared__ float part[kNdtThreads / 32][kNdtSums];
+  __shared__ float sums[kNdtSums];
+
+  const int b = blockIdx.x;
+  const int n = p.n;
+  if (group != nullptr) {
+    const int g = min(max(group[b], 0), p.n_tables - 1);
+    table += (size_t)g * p.rows_per_table * 8;
+  }
+  float* sx = beams;
+  float* sy = beams + n;
+  float* sm = beams + 2 * n;
+  const size_t base = (size_t)b * n;
+  for (int i = threadIdx.x; i < n; i += kNdtThreads) {
+    sx[i] = px[base + i];
+    sy[i] = py[base + i];
+    sm[i] = mask[base + i];
+  }
+  __syncthreads();
+
+  // Sums at (tx, ty, phi) into sums[], visible to every thread on return.
+  auto evaluate = [&](float tx, float ty, float phi) {
+    const float v = ndtpu::ndt_lane_sums(tx, ty, phi, sx, sy, sm, n, table,
+                                         p.wh, p.hh, p.x0, p.y0, p.inv, p.d2,
+                                         p.exp_clip, part);
+    if (threadIdx.x < kNdtSums) sums[threadIdx.x] = v;
+    __syncthreads();
+  };
+
+  const float d2 = p.d2;
+  float t0 = init_poses[3 * b + 0];
+  float t1 = init_poses[3 * b + 1];
+  float t2 = init_poses[3 * b + 2];
+  evaluate(t0, t1, t2);
+  float f = -sums[0];
+  float g0 = d2 * sums[2], g1 = d2 * sums[3], g2 = d2 * sums[4];
+  float h00 = d2 * sums[5], h01 = d2 * sums[6], h02 = d2 * sums[7];
+  float h11 = d2 * sums[8], h12 = d2 * sums[9], h22 = d2 * sums[10];
+  float score = sums[0] / fmaxf(sums[1], 1.f);
+  float lam = p.init_lambda;
+  const float inv_down = 1.f / p.lambda_down;
+  int it = 0;
+  bool done = (fabsf(g0) + fabsf(g1)) + fabsf(g2) == 0.f;
+  bool conv = false;
+
+  while (it < p.max_iter && !done) {
+    // _solve_damped: (H + lam |diag H|) delta = -g, solve3's op order.
+    const float a00 = h00 + lam * fmaxf(fabsf(h00), 1e-6f);
+    const float a11 = h11 + lam * fmaxf(fabsf(h11), 1e-6f);
+    const float a22 = h22 + lam * fmaxf(fabsf(h22), 1e-6f);
+    const float a01 = h01, a02 = h02, a12 = h12;
+    const float a10 = h01, a20 = h02, a21 = h12;
+    const float b0 = -g0, b1 = -g1, b2 = -g2;
+    const float c00 = a11 * a22 - a12 * a21;
+    const float c01 = a12 * a20 - a10 * a22;
+    const float c02 = a10 * a21 - a11 * a20;
+    float det = a00 * c00 + a01 * c01 + a02 * c02;
+    det = fabsf(det) < 1e-30f ? 1e-30f : det;
+    const float c10 = a02 * a21 - a01 * a22;
+    const float c11 = a00 * a22 - a02 * a20;
+    const float c12 = a01 * a20 - a00 * a21;
+    const float c20 = a01 * a12 - a02 * a11;
+    const float c21 = a02 * a10 - a00 * a12;
+    const float c22 = a00 * a11 - a01 * a10;
+    float d0 = (c00 * b0 + c10 * b1 + c20 * b2) / det;
+    float d1 = (c01 * b0 + c11 * b1 + c21 * b2) / det;
+    float dp = (c02 * b0 + c12 * b1 + c22 * b2) / det;
+    // Step control: clip the translation norm.
+    const float tn = sqrtf(d0 * d0 + d1 * d1);
+    const float scale = tn > p.step_clip ? p.step_clip / tn : 1.f;
+    d0 = d0 * scale;
+    d1 = d1 * scale;
+    dp = dp * scale;
+    const float u0 = t0 + d0, u1 = t1 + d1, u2 = t2 + dp;
+
+    evaluate(u0, u1, u2);
+    const float f2 = -sums[0];
+    const bool accept = f2 < f;
+    const float lam_n =
+        accept ? fmaxf(lam * inv_down, 1e-9f) : lam * p.lambda_up;
+    const float dnorm = sqrtf(d0 * d0 + d1 * d1 + dp * dp);
+    const bool small =
+        dnorm < p.tol || (!accept && dnorm < p.reject_tol);
+    const bool stuck = lam_n > p.max_lambda;
+    if (accept) {
+      t0 = u0;
+      t1 = u1;
+      t2 = u2;
+      f = f2;
+      g0 = d2 * sums[2];
+      g1 = d2 * sums[3];
+      g2 = d2 * sums[4];
+      h00 = d2 * sums[5];
+      h01 = d2 * sums[6];
+      h02 = d2 * sums[7];
+      h11 = d2 * sums[8];
+      h12 = d2 * sums[9];
+      h22 = d2 * sums[10];
+      score = sums[0] / fmaxf(sums[1], 1.f);
+    }
+    lam = lam_n;
+    it += 1;
+    done = done || small || stuck;
+    conv = conv || small;
+  }
+
+  if (threadIdx.x == 0) {
+    pose_out[3 * b + 0] = t0;
+    pose_out[3 * b + 1] = t1;
+    pose_out[3 * b + 2] = t2;
+    float* h = hess_out + 9 * (size_t)b;
+    h[0] = h00; h[1] = h01; h[2] = h02;
+    h[3] = h01; h[4] = h11; h[5] = h12;
+    h[6] = h02; h[7] = h12; h[8] = h22;
+    score_out[b] = score;
+    iter_out[b] = it;
+    conv_out[b] = (conv && f < 0.f) ? 1 : 0;
+  }
+}
+
+}  // namespace
+
+extern "C" int lm_ndt_launch(const void* init_poses, const void* px,
+                             const void* py, const void* mask,
+                             const void* table, const void* group,
+                             void* pose_out, void* hess_out, void* score_out,
+                             void* iter_out, void* conv_out, int b, int n,
+                             int wh, int hh, int rows_per_table, int n_tables,
+                             int max_iter, float x0, float y0, float inv,
+                             float d2, float exp_clip, float tol,
+                             float reject_tol, float init_lambda,
+                             float lambda_up, float lambda_down,
+                             float max_lambda, float step_clip,
+                             int smem_bytes, void* stream) {
+  if (smem_bytes > 48 * 1024) {   // beyond the default: opt in (> 4,096 beams)
+    cudaError_t err = cudaFuncSetAttribute(
+        lm_ndt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();   // clear it, so the next launch's check is clean
+      return (int)err;
+    }
+  }
+  LmParams p{n, wh, hh, rows_per_table, n_tables, max_iter, x0, y0, inv, d2,
+             exp_clip, tol, reject_tol, init_lambda, lambda_up, lambda_down,
+             max_lambda, step_clip};
+  lm_ndt_kernel<<<b, kNdtThreads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)init_poses, (const float*)px, (const float*)py,
+      (const float*)mask, (const float4*)table, (const int*)group,
+      (float*)pose_out, (float*)hess_out, (float*)score_out, (int*)iter_out,
+      (unsigned char*)conv_out, p);
+  return (int)cudaGetLastError();
+}

@@ -2,21 +2,29 @@
 
 Port of ``ndtpu/ndt/match.py`` (shared ``[R, L]``, per-lane ``[B, R, L]``
 and grouped ``[S, R, L]`` tables). The objective ``f(T) = -sum_i
-exp(-d2/2 * d_i^T Lambda_i d_i)`` over ``T = (tx, ty, phi)`` is evaluated
-by :func:`ndt_terms` — the K1 CUDA kernel on the card, its plain twin
-:func:`ndt_terms_ref` on the CPU — and minimized by a batched
-Levenberg-Marquardt loop.
+exp(-d2/2 * d_i^T Lambda_i d_i)`` over ``T = (tx, ty, phi)`` is built from
+the 11 per-lane sums of :func:`ndt_terms` and minimized by a batched
+Levenberg-Marquardt loop, per lane.
 
-JAX's ``lax.while_loop`` in ``_lm_run`` becomes a Python loop over masked
-iterations: a lane that is done is frozen (``it + active``, every carry
-field through ``where(active...)``), so the loop may run past the last
-active lane without changing any result. It checks ``any(active)`` on the
-host only every ``_SYNC_EVERY`` iterations, so the device is not stalled by
-a sync per iteration. The two-phase compaction replaces ``lax.top_k`` over
-0/1 pending flags by a stable descending sort, which orders ties by lane
-index exactly as ``top_k`` does; a lane counts as pending only while it
-is under the iteration cap (JAX's form never ends when more than
-``phase2_width`` lanes stop at the cap unconverged).
+On the card the whole LM loop is one kernel: :func:`match_batch_packed`
+sends CUDA tensors to :func:`lm_ndt`, one launch of ``csrc/lm_ndt.cu`` per
+call, in which each lane iterates to its own stop with K1's body as a
+device function and nothing is read back to the host. Each lane's
+trajectory depends only on its own carry, so that gives the per-lane
+results of JAX's lockstep ``lax.while_loop`` and of its two-phase
+compaction, whatever ``phase2_width`` is.
+
+CPU tensors go to the plain twin :func:`lm_ndt_ref`: JAX's
+``lax.while_loop`` in ``_lm_run`` as a Python loop over masked iterations.
+A lane that is done is frozen (``it + active``, every carry field through
+``where(active...)``), so the loop may run past the last active lane
+without changing any result; it checks ``any(active)`` on the host only
+every ``_SYNC_EVERY`` iterations. The twin's two-phase compaction replaces
+``lax.top_k`` over 0/1 pending flags by a stable descending sort, which
+orders ties by lane index exactly as ``top_k`` does; a lane counts as
+pending only while it is under the iteration cap (JAX's form never ends
+when more than ``phase2_width`` lanes stop at the cap unconverged).
+``_SYNC_EVERY`` and the compaction are the twin's alone.
 """
 
 from __future__ import annotations
@@ -31,9 +39,14 @@ from ndtpu_torch.ndt import grid as ndt_grid
 
 __all__ = ["MatchResult", "transform_terms", "point_terms_quad", "solve3",
            "lm_loop_batch", "match", "match_batch", "match_batch_packed",
-           "ndt_terms", "ndt_terms_ref"]
+           "ndt_terms", "ndt_terms_ref", "terms_sgh", "lm_ndt", "lm_ndt_ref",
+           "CALLS"]
 
 _SYNC_EVERY = 4
+
+#: Calls of :func:`match_batch_packed` (CPU and card) since the caller last
+#: zeroed it; on the card each call with lanes launches ``lm_ndt`` once.
+CALLS = {"match_batch_packed": 0}
 
 
 class MatchResult(NamedTuple):
@@ -211,14 +224,20 @@ def _lm_carry_init(sgh, init_poses, cfg: MatchConfig) -> _Carry:
                   torch.zeros((b,), dtype=torch.bool, device=dev))
 
 
-def _lm_body(sgh, c: _Carry, cfg: MatchConfig, max_iter: int) -> _Carry:
-    active = (c.it < max_iter) & ~c.done
+def _lm_trial(c: _Carry, cfg: MatchConfig, active):
+    """The clipped damped step ``delta [B,3]`` and the trial pose of every
+    active lane (the others keep their pose)."""
     delta = _solve_damped(c.h, c.g, c.lam)
     tn = torch.sqrt(delta[:, 0] ** 2 + delta[:, 1] ** 2)
     scale = torch.where(tn > cfg.step_clip, cfg.step_clip / tn,
                         torch.ones_like(tn))
     delta = delta * scale[:, None]
-    pose_try = torch.where(active[:, None], c.pose + delta, c.pose)
+    return delta, torch.where(active[:, None], c.pose + delta, c.pose)
+
+
+def _lm_body(sgh, c: _Carry, cfg: MatchConfig, max_iter: int) -> _Carry:
+    active = (c.it < max_iter) & ~c.done
+    delta, pose_try = _lm_trial(c, cfg, active)
     f2, g2, h2, s2 = sgh(pose_try)
     accept = active & (f2 < c.f)
     acc = accept[:, None]
@@ -263,40 +282,29 @@ def lm_loop_batch(sgh, init_poses, cfg: MatchConfig) -> MatchResult:
     return _lm_result(_lm_run(sgh, carry, cfg, cfg.max_iter))
 
 
-def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
-                       cfg: MatchConfig, group=None) -> MatchResult:
-    """B concurrent registrations against a prebuilt quad table.
+def terms_sgh(px, py, mask_f, table, grid: GridConfig, cfg: MatchConfig,
+              group=None, terms=None):
+    """``sgh(poses [B,3]) -> (f, g, H, score)`` from the 11 sums of
+    ``terms`` (:func:`ndt_terms_ref` by default; :func:`ndt_terms` gives the
+    composite route, K1 on the card with the LM step in torch)."""
+    terms = ndt_terms_ref if terms is None else terms
 
-    points ``[B, N, 2]``, mask ``[B, N]``, init_poses ``[B, 3]``. ``table``
-    is ``[R, L]`` (one map for every lane), ``[B, R, L]`` (lane ``b``
-    registers against its own table) or, with ``group [B]``, ``[S, R, L]``
-    (lane ``b`` registers against table ``group[b]``; the loop verifier
-    passes the whole keyframe cache this way instead of gathering a copy).
-    With ``cfg.phase2_width > 0`` the lanes still pending after
-    ``cfg.phase1_iters`` are compacted into ``phase2_width``-wide rounds;
-    per-lane results equal the one-phase loop's.
-    """
-    dt = points.dtype
-    mask_f = mask.to(dt)
-    px, py = points[..., 0].contiguous(), points[..., 1].contiguous()
+    def sgh(poses):
+        sums = terms(poses, px, py, mask_f, table, grid, cfg.d2, cfg.exp_clip,
+                     cfg.compact_table, group)
+        f, g, h, wsum, w0sum = _assemble(sums, cfg.d2)
+        return f, g, h, wsum / torch.clamp(w0sum, min=1.0)
+    return sgh
+
+
+def lm_ndt_ref(init_poses, px, py, mask_f, table, grid: GridConfig,
+               cfg: MatchConfig, group=None) -> MatchResult:
+    """Plain twin of :func:`lm_ndt`: the batched masked LM loop over
+    :func:`ndt_terms_ref`, with JAX's two-phase compaction when
+    ``cfg.phase2_width > 0``. ``table`` is ``[R, L]`` (``group=None``) or
+    ``[S, R, L]`` with lane ``b`` reading table ``group[b]``."""
+    sgh = terms_sgh(px, py, mask_f, table, grid, cfg, group)
     b = init_poses.shape[0]
-    if table.dim() == 3:
-        if group is None:
-            group = torch.arange(b, device=px.device)
-        group = group.to(torch.int32).contiguous()
-    elif group is not None:
-        raise ValueError("group= requires an [S, R, L] table")
-
-    def make_sgh(spx, spy, smask_f, sgrp):
-        def sgh(poses):
-            sums = ndt_terms(poses, spx, spy, smask_f, table, grid, cfg.d2,
-                             cfg.exp_clip, cfg.compact_table, sgrp)
-            f, g, h, wsum, w0sum = _assemble(sums, cfg.d2)
-            return f, g, h, wsum / torch.clamp(w0sum, min=1.0)
-        return sgh
-
-    sgh = make_sgh(px, py, mask_f, group)
-    init_poses = init_poses.to(dt)
     c2 = cfg.phase2_width
     if c2 <= 0 or b <= c2:
         return lm_loop_batch(sgh, init_poses, cfg)
@@ -312,8 +320,8 @@ def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
         pending = (~carry.done & (carry.it < cfg.max_iter)).to(torch.int32)
         idx = torch.sort(pending, descending=True, stable=True).indices[:c2]
         sub = _Carry(*(x[idx] for x in carry))
-        sub = _lm_run(make_sgh(px[idx], py[idx], mask_f[idx],
-                               None if group is None else group[idx]),
+        sub = _lm_run(terms_sgh(px[idx], py[idx], mask_f[idx], table, grid,
+                                cfg, None if group is None else group[idx]),
                       sub, cfg, cfg.max_iter)
         fields = []
         for x, sx in zip(carry, sub):
@@ -322,6 +330,51 @@ def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
             fields.append(x)
         carry = _Carry(*fields)
     return _lm_result(carry)
+
+
+def lm_ndt(init_poses, px, py, mask_f, table, grid: GridConfig,
+           cfg: MatchConfig, group=None) -> MatchResult:
+    """Every lane's whole LM registration: one launch of the ``lm_ndt``
+    CUDA kernel for CUDA tensors (f32, full-width overlap-4 tables;
+    ``group`` int32), :func:`lm_ndt_ref` for CPU tensors. ``cfg.max_iter``
+    caps the iterations; ``phase2_width`` changes nothing on the card."""
+    if not px.is_cuda:
+        return lm_ndt_ref(init_poses, px, py, mask_f, table, grid, cfg, group)
+    if cfg.compact_table:
+        raise NotImplementedError(
+            "compact_table on the card is ROADMAP Queue B (K1 bf16-pair "
+            "rows)")
+    return MatchResult(*kernels.lm_ndt(
+        init_poses.contiguous(), px.contiguous(), py.contiguous(),
+        mask_f.contiguous(), table, grid, cfg, group))
+
+
+def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
+                       cfg: MatchConfig, group=None) -> MatchResult:
+    """B concurrent registrations against a prebuilt quad table.
+
+    points ``[B, N, 2]``, mask ``[B, N]``, init_poses ``[B, 3]``. ``table``
+    is ``[R, L]`` (one map for every lane), ``[B, R, L]`` (lane ``b``
+    registers against its own table) or, with ``group [B]``, ``[S, R, L]``
+    (lane ``b`` registers against table ``group[b]``; the loop verifier
+    passes the whole keyframe cache this way instead of gathering a copy).
+    On the card: one ``lm_ndt`` launch, no host sync. On the CPU, with
+    ``cfg.phase2_width > 0`` the lanes still pending after
+    ``cfg.phase1_iters`` are compacted into ``phase2_width``-wide rounds;
+    per-lane results equal the one-phase loop's.
+    """
+    CALLS["match_batch_packed"] += 1
+    dt = points.dtype
+    mask_f = mask.to(dt)
+    px, py = points[..., 0].contiguous(), points[..., 1].contiguous()
+    b = init_poses.shape[0]
+    if table.dim() == 3:
+        if group is None:
+            group = torch.arange(b, device=px.device)
+        group = group.to(torch.int32).contiguous()
+    elif group is not None:
+        raise ValueError("group= requires an [S, R, L] table")
+    return lm_ndt(init_poses.to(dt), px, py, mask_f, table, grid, cfg, group)
 
 
 def match_batch(points, mask, ndt_map: ndt_grid.NDTMap, init_poses,

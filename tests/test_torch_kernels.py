@@ -1,6 +1,6 @@
-"""The CUDA kernels (K1 ndt_terms shared and grouped, K3 halfcell_add, K4
-finalize_pack, K8a local_tables, K8b loop_gate) against their plain twins,
-on the card.
+"""The CUDA kernels (lm_ndt shared and grouped, K1 ndt_terms shared and
+grouped, K3 halfcell_add, K4 finalize_pack, K8a local_tables, K8b
+loop_gate) against their plain twins, on the card.
 
 Every test here needs a CUDA card and skips without one (the kernels have
 no CPU mode; their twins are covered by test_torch_grid / test_torch_match).
@@ -232,3 +232,101 @@ def test_loop_gate_matches_f64_twin(dev):
     err = (out.sqrt_info.cpu().double() - ref.sqrt_info).abs()
     lane_max = ref.sqrt_info.abs().amax((-2, -1), keepdim=True)
     assert bool((err <= 1e-4 * lane_max).all())
+
+
+@pytest.fixture(scope="module")
+def lm_shapes():
+    """The two shapes the main path gives ``lm_ndt``, on the box world: the
+    config-2 window (8 lanes x 360 beams, the 100 x 100 table of a 300-scan
+    map) and the config-3 verify (64 lanes grouped over the 1,024-slot
+    table cache), as ``chip_smoke`` draws them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke as cs
+    from ndtpu_torch.config import PipelineConfig
+
+    dev = torch.device("cuda")
+    cfg2 = PipelineConfig.from_json(str(cs.CONFIG2))
+    cfg3 = PipelineConfig.from_json(str(cs.CONFIG3))
+    seq = cs.box_sequence(0, cfg2.n_beams)
+    table = tgrid.finalize_pack(cs.map_stats(seq, cfg2.grid, dev), cfg2.ndt,
+                                cfg2.grid)
+    kf = cs.box_store(cfg3, seq, dev)
+    k = cfg3.loop.max_detect_per_window * cfg3.loop.max_candidates
+    return dict(
+        window=(cs.lm_window_args(cfg2, seq, table, 0, dev, cfg2.window),
+                cfg2.match),
+        verify=(cs.lm_verify_args(cfg3, seq, kf, 0, dev, k), cfg3.match))
+
+
+def test_lm_ndt_matches_composite_route_and_twin(lm_shapes):
+    """lm_ndt against the composite route (the LM step in torch around K1:
+    n_iter and converged equal on every lane, pose / H / score at rtol
+    1e-5, or the lane shown to be an accept tie) and against its f32 twin
+    (converged equal on >= 98% of the lanes of both shapes, poses within
+    1e-3 on lanes converged in both); see chip_smoke.check_lm."""
+    import chip_smoke as cs
+
+    eq = lanes = 0
+    for label, (args, cfg) in lm_shapes.items():
+        kernels.reset_launches()
+        row, (e, b) = cs.check_lm(label, args, cfg)
+        counter = "lm_ndt" if args[6] is None else "lm_ndt_grouped"
+        assert kernels.LAUNCHES[counter] >= 1
+        assert row["max_abs_err"] <= 1e-3
+        eq, lanes = eq + e, lanes + b
+    assert eq >= 0.98 * lanes
+
+
+@pytest.mark.parametrize("layout", ["shared", "per_lane", "grouped"])
+def test_lm_ndt_one_launch_per_call_and_two_phases_bit_equal(lm_shapes,
+                                                              layout):
+    """match_batch_packed on the card: one lm_ndt launch per call for every
+    table shape and phase2_width, and phase2_width 0 and 8 give bit-equal
+    results."""
+    if layout == "grouped":
+        (init, px, py, mask_f, table, grid, group), cfg = lm_shapes["verify"]
+    else:
+        (init, px, py, mask_f, table, grid, group), cfg = lm_shapes["window"]
+        if layout == "per_lane":
+            table = table[None].expand(init.shape[0], *table.shape)
+            table = table.contiguous()
+    points = torch.stack([px, py], -1)
+    out = []
+    for width in (0, 8):
+        kernels.reset_launches()
+        mcfg = dataclasses.replace(cfg, phase2_width=width, phase1_iters=3)
+        out.append(tmatch.match_batch_packed(points, mask_f > 0, table, init,
+                                             grid, mcfg, group=group))
+        torch.cuda.synchronize()
+        counter = "lm_ndt" if layout == "shared" else "lm_ndt_grouped"
+        assert kernels.LAUNCHES[counter] == 1
+        assert sum(kernels.LAUNCHES.values()) == 1
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    if layout == "per_lane":     # the same table in every lane
+        shared = tmatch.match_batch_packed(points, mask_f > 0, table[0], init,
+                                           grid, cfg)
+        for a, b in zip(shared, out[0]):
+            assert torch.equal(a, b)
+
+
+def test_lm_ndt_refuses_f64_and_compact(lm_shapes):
+    (init, px, py, mask_f, table, grid, _), cfg = lm_shapes["window"]
+    points = torch.stack([px, py], -1)
+    with pytest.raises(TypeError, match="float32"):
+        tmatch.match_batch_packed(points.double(), mask_f > 0,
+                                  table.double(), init.double(), grid, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmatch.match_batch_packed(points, mask_f > 0, table, init, grid,
+                                  dataclasses.replace(cfg,
+                                                      compact_table=True))
+
+
+def test_match_batch_packed_makes_no_host_sync(lm_shapes):
+    """torch.cuda.set_sync_debug_mode("error") around one call."""
+    import chip_smoke as cs
+
+    for args, cfg in lm_shapes.values():
+        if args[6] is None:
+            cs.check_no_sync(args, cfg)

@@ -1,5 +1,7 @@
-"""The port never imports JAX (the machine with the card has none)."""
+"""The port never imports JAX (the machine with the card has none), nor
+anything of the JAX package ``ndtpu``."""
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -11,6 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 _PROBE = """
 import sys
 sys.modules["jax"] = None          # any "import jax" now raises ImportError
+sys.modules["ndtpu"] = None        # ... and any "import ndtpu[.x]"
 sys.path.insert(0, {root!r})
 import ndtpu_torch, ndtpu_torch.run, ndtpu_torch.kernels, ndtpu_torch.convert
 import ndtpu_torch.slam.pipeline, ndtpu_torch.utils.metrics
@@ -21,8 +24,8 @@ from ndtpu_torch import kernels
 assert kernels._lib is None        # importing built nothing
 seq = box_sequence(0, 36)
 assert seq.points.shape == (300, 36, 2)
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
+assert not any(m in ("jax", "ndtpu") or m.startswith(("jax.", "ndtpu."))
+               for m in sys.modules if sys.modules[m] is not None)
 print("ok")
 """
 
@@ -35,13 +38,20 @@ def test_port_imports_without_jax():
     assert proc.stdout.strip().endswith("ok")
 
 
+_IMPORT = re.compile(r"^\s*(import|from) (jax|ndtpu)(\.|\s|$)")
+
+
 def test_no_jax_import_lines_in_port():
+    """No line of the port or the smoke imports ``jax`` or ``ndtpu``
+    (``ndtpu_torch`` is not ``ndtpu``)."""
+    assert _IMPORT.match("from ndtpu.config import X")
+    assert _IMPORT.match("import ndtpu")
+    assert not _IMPORT.match("from ndtpu_torch import kernels")
     offenders = []
     for path in [*sorted((ROOT / "ndtpu_torch").rglob("*.py")),
                  ROOT / "chip_smoke.py"]:
         for i, line in enumerate(path.read_text().splitlines(), 1):
-            s = line.strip()
-            if s.startswith(("import jax", "from jax")):
+            if _IMPORT.match(line):
                 offenders.append(f"{path}:{i}")
     assert not offenders, offenders
 
