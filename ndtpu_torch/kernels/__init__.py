@@ -22,10 +22,13 @@ loop_gate    ``csrc/loop_gate.cu`` (K8b)     ``closure._gate_and_pack``
 
 K1's per-beam body and block reduction live in ``csrc/ndt_sums.cuh``;
 ``lm_ndt`` runs them once per LM iteration, so on the registration path K1
-is not launched on its own. Shared-table launches count as ``lm_ndt`` /
-``ndt_terms``, grouped (per-lane table) launches as ``lm_ndt_grouped`` /
-``ndt_terms_grouped``. The public wrappers (``ndt.match.lm_ndt``,
-``ndt.match.ndt_terms``, ``ndt.grid.halfcell_add``,
+is not launched on its own. K3 and K8a share the map build's arithmetic,
+``csrc/halfcell_fixed.cuh``: moments summed in 64-bit fixed point, so the
+map statistics and the local tables are the same on every run (their plain
+model is ``ndt.grid.halfcell_add_fixed_ref``). Shared-table launches count
+as ``lm_ndt`` / ``ndt_terms``, grouped (per-lane table) launches as
+``lm_ndt_grouped`` / ``ndt_terms_grouped``. The public wrappers
+(``ndt.match.lm_ndt``, ``ndt.match.ndt_terms``, ``ndt.grid.halfcell_add``,
 ``ndt.grid.finalize_pack``, ``loop.closure.write_local_tables``,
 ``loop.closure.gate_and_pack``) send CPU tensors to their plain twins and
 CUDA tensors here; nothing here falls back to a twin.
@@ -59,15 +62,18 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "ndt_terms",
-           "halfcell_add", "finalize_pack", "local_tables", "loop_gate"]
+           "halfcell_add", "finalize_pack", "local_bands", "local_tables",
+           "loop_gate"]
 
 #: Launch counts per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "ndt_terms_grouped": 0, "halfcell_add": 0, "finalize_pack": 0,
             "local_tables": 0, "loop_gate": 0}
 
-#: Shared memory one block can have on Hopper (227 KB).
+#: Shared memory one block can have on Hopper (227 KB), and what it gets
+#: without ``cudaFuncSetAttribute`` (48 KB).
 SMEM_MAX = 232448
+SMEM_BLOCK = 49152
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ndtpu_torch_ext"
@@ -75,18 +81,20 @@ _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _FLAGS = ["-O3", _ARCH, "-std=c++17", "--fmad=false", "-Xptxas=-v",
           "-Xcompiler", "-fPIC"]
 _lib = None
+_HALFCELL_SCRATCH: dict = {}     # (device index, wh, hh) -> int64 lattice
+_SM_COUNT: dict = {}             # device index -> multiprocessors
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_double)
 _SIGNATURES = {
     "lm_ndt_launch": [_P] * 11 + [_I] * 7 + [_F] * 12 + [_I, _P],
     "ndt_terms_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _P],
-    "halfcell_scatter_launch": [_P, _P, _P, _F, _P, _I, _I, _I, _F, _F, _F,
-                                _P],
-    "halfcell_pool_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "halfcell_add_launch": [_P, _P, _P, _F] + [_P] * 7 + [_I] * 3 + [_D] * 4
+                           + [_P],
     "finalize_pack_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
-    "local_tables_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                            _F, _F, _F, _F, _I, _P],
+    "local_tables_launch": [_P] * 5 + [_I] * 7 + [_D] * 4 + [_F] * 3
+                           + [_I, _P],
     "loop_gate_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _F, _F, _F, _I, _P],
 }
@@ -276,13 +284,27 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None):
     return pose, hess, score, n_iter, conv
 
 
+def _halfcell_scratch(dev: torch.device, wh: int, hh: int) -> torch.Tensor:
+    """K3's int64 ``[hh * wh * 6]`` lattice, allocated once per (device,
+    lattice shape) and kept: every call zeroes it on its own stream first.
+    The port runs on one stream, so two calls never use it at once."""
+    key = (dev.index, wh, hh)
+    buf = _HALFCELL_SCRATCH.get(key)
+    if buf is None:
+        buf = torch.empty(hh * wh * 6, dtype=torch.int64, device=dev)
+        _HALFCELL_SCRATCH[key] = buf
+    return buf
+
+
 def halfcell_add(n, s, ss, points, mask, weight, grid):
     """K3: ``(n, s, ss) + half-cell moments of points``, as new tensors.
 
-    ``weight`` is a Python float or an f32 ``[M]`` tensor. The scatter uses
-    float ``atomicAdd``, so the order of the adds, and with it the last bits
-    of the moments, varies from run to run; counts of unit weights are
-    exact.
+    ``weight`` is a Python float or an f32 ``[M]`` tensor. The moments are
+    summed in 64-bit fixed point (``csrc/halfcell_fixed.cuh``), so the
+    result is the same on every run and under any order of the points, and
+    equals ``ndt.grid.halfcell_add_fixed_ref`` bit for bit. Each call is one
+    ctypes call, which zeroes the kept lattice scratch, scatters and pools
+    on the current stream, and one ``LAUNCHES["halfcell_add"]``.
     """
     wh, hh = _lattice(grid)
     c = grid.n_cells
@@ -298,16 +320,16 @@ def halfcell_add(n, s, ss, points, mask, weight, grid):
     else:
         w_ptr, w_scalar = None, float(weight)
     dev = points.device
-    lattice = torch.zeros((hh * wh, 6), dtype=torch.float32, device=dev)
-    if m > 0:
-        _call("halfcell_scatter_launch", "halfcell_add", points.data_ptr(),
-              mask.data_ptr(), w_ptr, w_scalar, lattice.data_ptr(), m, wh, hh,
-              grid.x0, grid.y0, 2.0 / grid.cell, _stream(points))
-    n2, s2, ss2 = torch.empty_like(n), torch.empty_like(s), torch.empty_like(ss)
-    _call("halfcell_pool_launch", "halfcell_add", lattice.data_ptr(),
-          n.data_ptr(), s.data_ptr(), ss.data_ptr(), n2.data_ptr(),
-          s2.data_ptr(), ss2.data_ptr(), grid.nx, grid.ny, wh,
-          _stream(points))
+    out = torch.empty(28 * c, dtype=torch.float32, device=dev)
+    n2 = out[:4 * c].view(4, c)
+    s2 = out[4 * c:12 * c].view(4, c, 2)
+    ss2 = out[12 * c:].view(4, c, 2, 2)
+    _call("halfcell_add_launch", "halfcell_add", points.data_ptr(),
+          mask.data_ptr(), w_ptr, w_scalar,
+          _halfcell_scratch(dev, wh, hh).data_ptr(), n.data_ptr(),
+          s.data_ptr(), ss.data_ptr(), n2.data_ptr(), s2.data_ptr(),
+          ss2.data_ptr(), m, grid.nx, grid.ny, grid.x0, grid.y0,
+          2.0 / grid.cell, grid.cell / 2.0, _stream(points))
     return n2, s2, ss2
 
 
@@ -326,18 +348,44 @@ def finalize_pack(n, s, ss, ndt_cfg, grid) -> torch.Tensor:
     return table
 
 
+def local_bands(w: int, grid, device) -> tuple:
+    """K8a's launch shape for ``w`` keyframes on ``grid``: ``(band_rows,
+    bands, shared bytes)``. Bands as thin as the card can hold at once
+    (``w x bands`` blocks of 256 threads within 8 per SM; one table row
+    each at a window's ``w``), each band's ``band_rows + 2`` lattice rows
+    of int64 sums (48 B per half-cell) within ``SMEM_BLOCK``; raises where
+    even one row does not fit. ``device=None`` checks the size only."""
+    wh, hh = _lattice(grid)
+    row_bytes = wh * 6 * 8
+    max_rows = SMEM_BLOCK // row_bytes - 2
+    if max_rows < 1:
+        raise ValueError(
+            f"local_tables: a band of a {wh}-wide lattice needs at least "
+            f"{3 * row_bytes} B of shared memory, over the {SMEM_BLOCK} B a "
+            f"block gets without an opt-in; use a smaller "
+            f"LoopConfig.local_half_extent or a larger local_cell")
+    resident = 1 if device is None else 8 * _sm_count(device)
+    rows = min(max(1, -(-w * hh // resident)), max_rows)
+    return rows, -(-hh // rows), (rows + 2) * row_bytes
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SM_COUNT:
+        _SM_COUNT[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SM_COUNT[idx]
+
+
 def local_tables(tables, slot, ok, points, mask, grid, ndt_cfg):
     """K8a: for every keyframe ``w`` with ``ok[w]``, build its local quad
     table from ``points[w]`` (sensor frame) on ``grid`` and write it into
     ``tables[slot[w]]`` in place (see ``csrc/local_tables.cu``). Returns
-    ``tables``. ``slot`` is int32; slots outside the cache are skipped."""
+    ``tables``. ``slot`` is int32; slots outside the cache are skipped.
+    Each table equals :func:`finalize_pack` of :func:`halfcell_add` of its
+    scan on empty statistics, bit for bit, on every run."""
     wh, hh = _lattice(grid)
-    smem = wh * hh * 6 * 4
-    if smem > SMEM_MAX:
-        raise ValueError(
-            f"local_tables: a {wh} x {hh} lattice needs {smem} B of shared "
-            f"memory, over the {SMEM_MAX} B a block can have; use a smaller "
-            f"LoopConfig.local_half_extent or a larger local_cell")
+    local_bands(0, grid, None)       # an oversized lattice raises first
     w, n = mask.shape
     _check(points, "points", shape=(w, n, 2), align=8)
     _check(mask, "mask", dtype=torch.bool, shape=(w, n), align=1)
@@ -345,11 +393,13 @@ def local_tables(tables, slot, ok, points, mask, grid, ndt_cfg):
     _check(ok, "ok", dtype=torch.bool, shape=(w,), align=1)
     _check(tables, "tables", shape=(tables.shape[0], wh * hh, 32), align=16)
     if w > 0:
+        rows, bands, smem = local_bands(w, grid, points.device)
         _call("local_tables_launch", "local_tables", points.data_ptr(),
               mask.data_ptr(), slot.data_ptr(), ok.data_ptr(),
               tables.data_ptr(), w, n, grid.nx, grid.ny, tables.shape[0],
-              grid.x0, grid.y0, 2.0 / grid.cell, float(ndt_cfg.min_pts),
-              ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min, smem, _stream(points))
+              rows, bands, grid.x0, grid.y0, 2.0 / grid.cell,
+              grid.cell / 2.0, float(ndt_cfg.min_pts), ndt_cfg.eig_ratio,
+              ndt_cfg.eig_abs_min, smem, _stream(points))
     return tables
 
 

@@ -1,110 +1,166 @@
-// K3: half-cell moment scatter + 2x2 pooling into the 4 overlap grids.
+// K3: half-cell moment scatter + 2x2 pooling into the 4 overlap grids, in
+// 64-bit fixed point (halfcell_fixed.cuh): the same statistics on every run.
 //
 // Replaces what XLA lowered for the TPU from
 // ndtpu/ndt/grid.py::_add_points_halfcell (:161-203): one segment_sum of six
 // moments onto the (2ny+1) x (2nx+1) half-cell lattice, then a dense 2x2
 // sum-pool per shifted grid, added to the running statistics.
 //
-// Launch 1 (scatter): one thread per point. fx = floor((x - x0) * inv) and
-// fy likewise, in the twin's op order (multiply, no division; the file is
-// built with --fmad=false), then atomicAdd of w, w*x, w*y, w*x*x, w*x*y,
-// w*y*y into a zeroed lattice. Points with zero weight (masked, outside the
-// lattice, or weight 0) add nothing in the twin and are skipped.
-// Launch 2 (pool): one thread per (grid, cell) sums its 2x2 lattice block
-// and writes stats + pooled into NEW output tensors (the input statistics
-// stay valid: the pipeline registers against a temporary map built on top
-// of the window's committed one).
+// One C call (halfcell_add_launch) enqueues three things on the caller's
+// stream:
+//   1. cudaMemsetAsync of the int64 [hh * wh, 6] lattice scratch, which the
+//      wrapper allocates once per lattice shape and keeps;
+//   2. the scatter, one thread per point: binning and the six fixed-point
+//      terms; lanes of a warp in one half-cell (neighbouring beams) sum
+//      theirs with shuffles, and the run's last lane does six 64-bit
+//      atomicAdds into the lattice (in L2). Points with zero weight
+//      (masked, outside the lattice, or weight 0) add nothing;
+//   3. the pool, tiled: a block owns 8 x 8 cells of all 4 grids; its 289
+//      first threads load the 17 x 17 half-cells under them (the tile plus
+//      a one-half-cell halo) in one pass and reconstruct each one's f64
+//      moments once into shared memory, then 256 threads each pool one
+//      (grid, cell) from shared memory, add it to the input statistics in
+//      f64 and write the f32 result into NEW output tensors (the input
+//      statistics stay valid: the pipeline registers against a temporary
+//      map built on top of the window's committed one).
 //
-// What bounds it on Hopper: the scatter is atomic-rate bound (six float
-// atomics per point into a ~1 MB lattice that lives in L2); the pool is a
-// streaming pass over ~1 MB in and ~1.3 MB out. Float atomics make the order
-// of the adds, and so the last bits of the moments, vary from run to run
-// (ROADMAP C-w1); unit-weight counts stay exact.
+// What bounds it on Hopper: at the main path's shapes (2,880 points, a
+// 100 x 100 grid) the card work is a few microseconds against a bound under
+// one: the memset (~2 MB), the atomics (six per point, spread over the
+// lattice) and the pool's stats traffic (28 floats per cell in and out).
+// Each lattice half-cell is read from L2 about once (the halo adds 1/8),
+// where the former pool read it up to 16 times. The host's part of a call
+// (one ctypes call, one output allocation) is the larger share.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "halfcell_fixed.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTile = 8;                 // cells per tile side
+constexpr int kSpan = 2 * kTile + 1;     // half-cells per tile side (halo)
+constexpr int kCells = 4 * kTile * kTile;   // (grid, cell) outputs per tile
+constexpr int kPoolThreads = 320;        // one thread per tile half-cell
+static_assert(kPoolThreads >= kSpan * kSpan && kPoolThreads >= kCells,
+              "the pool reads its tile in one pass");
 
 __global__ void __launch_bounds__(kThreads)
 halfcell_scatter_kernel(const float2* __restrict__ pts,
                         const uint8_t* __restrict__ mask,
                         const float* __restrict__ weight, float wscalar,
-                        float* __restrict__ lattice, int m, int wh, int hh,
-                        float x0, float y0, float inv) {
+                        unsigned long long* __restrict__ lattice, int m,
+                        ndtpu::HalfcellGrid g) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= m || !mask[i]) return;
-  const float2 p = pts[i];
-  const float fx = floorf((p.x - x0) * inv);
-  const float fy = floorf((p.y - y0) * inv);
-  if (!(fx >= 0.f && fx < (float)wh && fy >= 0.f && fy < (float)hh)) return;
-  const float w = weight != nullptr ? weight[i] : wscalar;
-  if (w == 0.f) return;
-  float* cell = lattice + ((size_t)((int)fy * wh + (int)fx)) * 6;
-  const float wx = w * p.x;
-  const float wy = w * p.y;
-  atomicAdd(cell + 0, w);
-  atomicAdd(cell + 1, wx);
-  atomicAdd(cell + 2, wy);
-  atomicAdd(cell + 3, wx * p.x);
-  atomicAdd(cell + 4, wx * p.y);
-  atomicAdd(cell + 5, wy * p.y);
+  long long q[6] = {0, 0, 0, 0, 0, 0};
+  int cell = -1;                           // no half-cell: adds nothing
+  if (i < m && mask[i]) {
+    const float2 p = pts[i];
+    const float w = weight != nullptr ? weight[i] : wscalar;
+    int hx, hy;
+    if (w != 0.f && ndtpu::halfcell_bin(p.x, p.y, g, &hx, &hy)) {
+      ndtpu::halfcell_quantize(p.x, p.y, w, hx, hy, g, q);
+      cell = hy * g.wh + hx;
+    }
+  }
+  // Neighbouring beams of a scan fall in one half-cell in runs of a few
+  // lanes: a segmented inclusive scan over each run (integer adds, so the
+  // sums stay independent of the order), then one set of atomics per run,
+  // from its last lane.
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int prev = __shfl_up_sync(all, cell, 1);
+  const int next = __shfl_down_sync(all, cell, 1);
+  const unsigned heads = __ballot_sync(all, lane == 0 || prev != cell);
+  const int first = 31 - __clz(heads & (all >> (31 - lane)));
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const long long v = __shfl_up_sync(all, q[k], off);
+      if (lane - off >= first) q[k] += v;
+    }
+  }
+  if (cell < 0 || (lane != 31 && next == cell)) return;
+  unsigned long long* dst = lattice + (size_t)cell * 6;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) atomicAdd(dst + k, (unsigned long long)q[k]);
 }
 
-__global__ void __launch_bounds__(kThreads)
-halfcell_pool_kernel(const float* __restrict__ lattice,
+__global__ void __launch_bounds__(kPoolThreads)
+halfcell_pool_kernel(const long long* __restrict__ lattice,
                      const float* __restrict__ n_in,
                      const float* __restrict__ s_in,
-                     const float* __restrict__ ss_in, float* __restrict__ n_out,
-                     float* __restrict__ s_out, float* __restrict__ ss_out,
-                     int nx, int ny, int wh) {
-  const int c_total = nx * ny;
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= 4 * c_total) return;
-  const int g = t / c_total;
-  const int c = t - g * c_total;
-  const int j = c / nx;
-  const int i = c - j * nx;
-  const int gx = g & 1, gy = g >> 1;   // shifts (0,0), (1,0), (0,1), (1,1)
-  const float* r0 = lattice + ((size_t)(gy + 2 * j) * wh + gx + 2 * i) * 6;
-  const float* r1 = r0 + (size_t)wh * 6;
-  float p[6];
+                     const float* __restrict__ ss_in,
+                     float* __restrict__ n_out, float* __restrict__ s_out,
+                     float* __restrict__ ss_out,
+                     int nx, int ny, ndtpu::HalfcellGrid g) {
+  __shared__ double tile[kSpan * kSpan][6];
+  const int i0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
+  if (threadIdx.x < kSpan * kSpan) {
+    const int ly = threadIdx.x / kSpan;
+    const int hx = 2 * i0 + (threadIdx.x - ly * kSpan), hy = 2 * j0 + ly;
+    if (hx < g.wh && hy < g.hh) {             // past the edge: never read
+      const longlong2* src = reinterpret_cast<const longlong2*>(
+          lattice + ((size_t)hy * g.wh + hx) * 6);
+      const longlong2 a01 = src[0], a23 = src[1], a45 = src[2];
+      const long long a[6] = {a01.x, a01.y, a23.x, a23.y, a45.x, a45.y};
+      ndtpu::halfcell_moments(a, hx, hy, g, tile[threadIdx.x]);
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kCells) return;
+  const int grid = threadIdx.x / (kTile * kTile);
+  const int li = threadIdx.x % kTile, lj = (threadIdx.x / kTile) % kTile;
+  const int i = i0 + li, j = j0 + lj;
+  if (i >= nx || j >= ny) return;
+  const int gx = grid & 1, gy = grid >> 1;   // shifts (0,0) (1,0) (0,1) (1,1)
+  const double* r0 = tile[(2 * lj + gy) * kSpan + 2 * li + gx];
+  const double* r1 = r0 + kSpan * 6;
+  double p[6];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) p[k] = ((r0[k] + r0[6 + k]) + r1[k]) + r1[6 + k];
-  n_out[t] = n_in[t] + p[0];
-  s_out[2 * t + 0] = s_in[2 * t + 0] + p[1];
-  s_out[2 * t + 1] = s_in[2 * t + 1] + p[2];
-  ss_out[4 * t + 0] = ss_in[4 * t + 0] + p[3];
-  ss_out[4 * t + 1] = ss_in[4 * t + 1] + p[4];
-  ss_out[4 * t + 2] = ss_in[4 * t + 2] + p[4];
-  ss_out[4 * t + 3] = ss_in[4 * t + 3] + p[5];
+  for (int k = 0; k < 6; ++k)
+    p[k] = ndtpu::halfcell_pool4(r0[k], r0[6 + k], r1[k], r1[6 + k]);
+  const int t = grid * nx * ny + j * nx + i;
+  n_out[t] = ndtpu::halfcell_out(n_in[t], p[0]);
+  s_out[2 * t + 0] = ndtpu::halfcell_out(s_in[2 * t + 0], p[1]);
+  s_out[2 * t + 1] = ndtpu::halfcell_out(s_in[2 * t + 1], p[2]);
+  ss_out[4 * t + 0] = ndtpu::halfcell_out(ss_in[4 * t + 0], p[3]);
+  ss_out[4 * t + 1] = ndtpu::halfcell_out(ss_in[4 * t + 1], p[4]);
+  ss_out[4 * t + 2] = ndtpu::halfcell_out(ss_in[4 * t + 2], p[4]);
+  ss_out[4 * t + 3] = ndtpu::halfcell_out(ss_in[4 * t + 3], p[5]);
 }
 
 }  // namespace
 
-extern "C" int halfcell_scatter_launch(const void* pts, const void* mask,
-                                       const void* weight, float wscalar,
-                                       void* lattice, int m, int wh, int hh,
-                                       float x0, float y0, float inv,
-                                       void* stream) {
-  const int blocks = (m + kThreads - 1) / kThreads;
-  halfcell_scatter_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float2*)pts, (const uint8_t*)mask, (const float*)weight, wscalar,
-      (float*)lattice, m, wh, hh, x0, y0, inv);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int halfcell_pool_launch(const void* lattice, const void* n_in,
-                                    const void* s_in, const void* ss_in,
-                                    void* n_out, void* s_out, void* ss_out,
-                                    int nx, int ny, int wh, void* stream) {
-  const int total = 4 * nx * ny;
-  const int blocks = (total + kThreads - 1) / kThreads;
-  halfcell_pool_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)lattice, (const float*)n_in, (const float*)s_in,
+extern "C" int halfcell_add_launch(const void* pts, const void* mask,
+                                   const void* weight, float wscalar,
+                                   void* lattice, const void* n_in,
+                                   const void* s_in, const void* ss_in,
+                                   void* n_out, void* s_out, void* ss_out,
+                                   int m, int nx, int ny, double x0, double y0,
+                                   double inv, double h, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const ndtpu::HalfcellGrid g =
+      ndtpu::make_halfcell_grid(x0, y0, inv, h, 2 * nx + 1, 2 * ny + 1);
+  cudaError_t err = cudaMemsetAsync(
+      lattice, 0, (size_t)g.wh * g.hh * 6 * sizeof(long long), st);
+  if (err != cudaSuccess) return (int)err;
+  if (m > 0) {
+    halfcell_scatter_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0,
+                              st>>>(
+        (const float2*)pts, (const uint8_t*)mask, (const float*)weight,
+        wscalar, (unsigned long long*)lattice, m, g);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 tiles((nx + kTile - 1) / kTile, (ny + kTile - 1) / kTile);
+  halfcell_pool_kernel<<<tiles, kPoolThreads, 0, st>>>(
+      (const long long*)lattice, (const float*)n_in, (const float*)s_in,
       (const float*)ss_in, (float*)n_out, (float*)s_out, (float*)ss_out, nx,
-      ny, wh);
+      ny, g);
   return (int)cudaGetLastError();
 }

@@ -11,34 +11,42 @@
 // table depends on its scan alone, so it is built once and never
 // invalidated.
 //
-// One CTA per keyframe w; nothing is written unless ok[w], and then the
-// rows go to tables[slot[w]]:
-//   1. zero the (2n+1)^2 x 6 f32 moment lattice in dynamic shared memory;
-//   2. threads stride over the scan's points: fx = floor((x - x0) * inv),
-//      fy likewise (K3's op order; built with --fmad=false), then six
-//      shared-memory atomicAdds (1, x, y, x*x, x*y, y*y);
-//   3. threads stride over the table's 4 * (2n+1)^2 (row, grid) slots: the
-//      slot's cell sums its 2x2 lattice block in K3's pooling order and is
-//      finalized and packed by K4's device code (ndt_cell.cuh).
-// The statistics never leave shared memory.
+// Grid: (keyframe w) x (band of `band_rows` table rows). Nothing is written
+// unless ok[w], and then the rows go to tables[slot[w]]; blocks of skipped
+// keyframes exit at once. A band's table row hy reads lattice rows
+// hy-1 .. hy+1 (ndt_cell.cuh: quad_slot_cell), so each block
+//   1. zeroes its (band_rows + 2) lattice rows of int64 sums in dynamic
+//      shared memory (the wrapper keeps this within the 48 KB a block gets
+//      without an opt-in);
+//   2. bins all N points of its keyframe and adds those that fall in its
+//      rows with K3's fixed-point arithmetic (halfcell_fixed.cuh) as
+//      shared-memory 64-bit atomics: the sums do not depend on the order
+//      of the adds, so the table is the same on every run and under any
+//      permutation of the points;
+//   3. reconstructs each half-cell's f64 moments in place;
+//   4. for each of its band's 4 x band_rows x wh (row, grid) slots, pools
+//      the slot's cell in K3's order, rounds the moments to f32 as K3 does
+//      on empty statistics, and finalizes and packs them with K4's device
+//      code (ndt_cell.cuh), four threads per 128-byte row as float4 stores.
+// So a keyframe's table equals K4 applied to K3's statistics of its scan
+// on empty statistics, bit for bit.
 //
 // Sizes: a 24 x 24 local grid (config 3, 12 m half extent at 1 m) gives a
-// 49 x 49 lattice: 57,624 B of shared memory, over the 48 KB default, so
-// the launcher opts the kernel in with cudaFuncSetAttribute first; the
-// wrapper refuses a lattice above the 227 KB a block can have (61 x 61 =
-// 89,304 B for LoopConfig's default 15 m). The table is 2,401 rows x 128 B
-// = 307 KB per keyframe.
+// 49 x 49 lattice and 2,401 table rows x 128 B = 307 KB per keyframe. The
+// wrapper cuts bands as thin as the card holds at once: at W = 8, 49 bands
+// of one row (392 blocks on 132 SMs), each holding 3 x 49 half-cells x
+// 48 B = 7,056 B of shared memory.
 //
-// What bounds it on Hopper: the table writes (307 KB per keyframe, float4
-// stores, four threads per 128-byte row) and the 9,604 finalizes, each
-// with two IEEE divides and sqrts; the 360-point scatter is small. Shared-
-// memory atomics add in a varying order (as K3's global ones do), so the
-// moments' last bits vary from run to run; counts of unit weights are
-// exact.
+// What bounds it on Hopper: the table writes (307 KB per keyframe) for the
+// bound; in practice each block's chain of dependent steps (point loads,
+// shared atomics, three barriers, the finalizes' IEEE divides and square
+// roots without fast math), which thin bands keep short. Each block
+// re-reads its keyframe's 360 points (3.2 KB, from L2).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "halfcell_fixed.cuh"
 #include "ndt_cell.cuh"
 
 namespace {
@@ -51,14 +59,18 @@ local_tables_kernel(const float2* __restrict__ pts,
                     const int* __restrict__ slot,
                     const uint8_t* __restrict__ ok,
                     float4* __restrict__ tables, int n, int nx, int ny,
-                    int capacity, float x0, float y0, float inv,
+                    int capacity, int band_rows, ndtpu::HalfcellGrid g,
                     float min_pts, float eig_ratio, float eig_abs_min) {
-  extern __shared__ float lattice[];
+  extern __shared__ unsigned long long lattice[];
   const int w = blockIdx.x;
   const int s = slot[w];
   if (!ok[w] || s < 0 || s >= capacity) return;
-  const int wh = 2 * nx + 1, hh = 2 * ny + 1;
-  for (int i = threadIdx.x; i < wh * hh * 6; i += kThreads) lattice[i] = 0.f;
+  const int wh = g.wh;
+  const int r0 = blockIdx.y * band_rows;        // the band's table rows
+  const int r1 = min(r0 + band_rows, g.hh);     // [r0, r1)
+  const int l0 = r0 - 1;                        // lattice row of smem row 0
+  const int cells = (band_rows + 2) * wh;
+  for (int i = threadIdx.x; i < cells * 6; i += kThreads) lattice[i] = 0ull;
   __syncthreads();
 
   const float2* p = pts + (size_t)w * n;
@@ -66,38 +78,51 @@ local_tables_kernel(const float2* __restrict__ pts,
   for (int i = threadIdx.x; i < n; i += kThreads) {
     if (!m[i]) continue;
     const float2 q = p[i];
-    const float fx = floorf((q.x - x0) * inv);
-    const float fy = floorf((q.y - y0) * inv);
-    if (!(fx >= 0.f && fx < (float)wh && fy >= 0.f && fy < (float)hh))
-      continue;
-    float* cell = lattice + ((int)fy * wh + (int)fx) * 6;
-    atomicAdd(cell + 0, 1.f);
-    atomicAdd(cell + 1, q.x);
-    atomicAdd(cell + 2, q.y);
-    atomicAdd(cell + 3, q.x * q.x);
-    atomicAdd(cell + 4, q.x * q.y);
-    atomicAdd(cell + 5, q.y * q.y);
+    int hx, hy;
+    if (!ndtpu::halfcell_bin(q.x, q.y, g, &hx, &hy)) continue;
+    if (hy < l0 || hy > r1) continue;             // outside the band's rows
+    long long v[6];
+    ndtpu::halfcell_quantize(q.x, q.y, 1.f, hx, hy, g, v);
+    unsigned long long* cell = lattice + ((hy - l0) * wh + hx) * 6;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) atomicAdd(cell + k, (unsigned long long)v[k]);
   }
   __syncthreads();
 
-  float4* table = tables + (size_t)s * wh * hh * 8;
-  for (int t = threadIdx.x; t < 4 * wh * hh; t += kThreads) {
+  // Reconstruct in place: each half-cell's six int64 sums become its six
+  // f64 moments in the same 48 bytes (one thread per half-cell).
+  double* mom = reinterpret_cast<double*>(lattice);
+  for (int c = threadIdx.x; c < cells; c += kThreads) {
+    const int ly = c / wh;
+    long long a[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) a[k] = (long long)lattice[c * 6 + k];
+    double v[6];
+    ndtpu::halfcell_moments(a, c - ly * wh, l0 + ly, g, v);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) mom[c * 6 + k] = v[k];
+  }
+  __syncthreads();
+
+  float4* table = tables + (size_t)s * wh * g.hh * 8;
+  for (int t = 4 * r0 * wh + threadIdx.x; t < 4 * r1 * wh; t += kThreads) {
     float4* out = table + (size_t)t * 2;
     const int c = ndtpu::quad_slot_cell(t, nx, ny);
     if (c < 0) {
       ndtpu::store_zero_slot(out);
       continue;
     }
-    const int g = t & 3;
+    const int grid = t & 3;
     const int j = c / nx;
     const int i = c - j * nx;
-    const float* r0 = lattice + ((g >> 1) + 2 * j) * wh * 6 +
-                      ((g & 1) + 2 * i) * 6;
-    const float* r1 = r0 + wh * 6;
+    const double* a = mom + ((2 * j + (grid >> 1) - l0) * wh
+                             + 2 * i + (grid & 1)) * 6;
+    const double* b = a + wh * 6;
     float v[6];
 #pragma unroll
     for (int k = 0; k < 6; ++k)
-      v[k] = ((r0[k] + r0[6 + k]) + r1[k]) + r1[6 + k];
+      v[k] = ndtpu::halfcell_out(
+          0.f, ndtpu::halfcell_pool4(a[k], a[6 + k], b[k], b[6 + k]));
     ndtpu::finalize_pack_cell(v[0], v[1], v[2], v[3], v[4], v[5], min_pts,
                               eig_ratio, eig_abs_min, out);
   }
@@ -108,20 +133,17 @@ local_tables_kernel(const float2* __restrict__ pts,
 extern "C" int local_tables_launch(const void* pts, const void* mask,
                                    const void* slot, const void* ok,
                                    void* tables, int w, int n, int nx, int ny,
-                                   int capacity, float x0, float y0,
-                                   float inv, float min_pts, float eig_ratio,
+                                   int capacity, int band_rows, int bands,
+                                   double x0, double y0, double inv, double h,
+                                   float min_pts, float eig_ratio,
                                    float eig_abs_min, int smem_bytes,
                                    void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      local_tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
-  if (err != cudaSuccess) {
-    cudaGetLastError();   // clear it, so the next launch's check is clean
-    return (int)err;
-  }
-  local_tables_kernel<<<w, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+  const ndtpu::HalfcellGrid g =
+      ndtpu::make_halfcell_grid(x0, y0, inv, h, 2 * nx + 1, 2 * ny + 1);
+  local_tables_kernel<<<dim3(w, bands), kThreads, smem_bytes,
+                        (cudaStream_t)stream>>>(
       (const float2*)pts, (const uint8_t*)mask, (const int*)slot,
-      (const uint8_t*)ok, (float4*)tables, n, nx, ny, capacity, x0, y0, inv,
+      (const uint8_t*)ok, (float4*)tables, n, nx, ny, capacity, band_rows, g,
       min_pts, eig_ratio, eig_abs_min);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,9 @@ Two hot ops have hand-written CUDA kernels (``ndtpu_torch.kernels``), each
 with a plain twin of the same signature here:
 
 - :func:`halfcell_add` (K3) / :func:`halfcell_add_ref`: the overlap-4
-  half-cell moment scatter + 2x2 pooling (``_add_points_halfcell``);
+  half-cell moment scatter + 2x2 pooling (``_add_points_halfcell``); the
+  kernel sums in 64-bit fixed point, and :func:`halfcell_add_fixed_ref` is
+  the plain model of that arithmetic, which it equals bit for bit;
 - :func:`finalize_pack` (K4) / :func:`finalize_pack_ref`: ``finalize`` +
   ``pack_quad`` in one pass.
 
@@ -32,8 +34,8 @@ from ndtpu_torch.config import GridConfig, NDTMapConfig
 __all__ = ["NDTStats", "NDTMap", "cell_ids", "empty_stats", "add_points",
            "build_stats", "finalize", "pack_quad", "lookup_quad",
            "lookup_quad_multi", "lookup_quad_grouped", "unpack_bf16_pair",
-           "halfcell_add", "halfcell_add_ref", "finalize_pack",
-           "finalize_pack_ref"]
+           "halfcell_add", "halfcell_add_ref", "halfcell_add_fixed_ref",
+           "finalize_pack", "finalize_pack_ref"]
 
 
 class NDTStats(NamedTuple):
@@ -149,10 +151,72 @@ def halfcell_add_ref(stats: NDTStats, points, mask, weight,
                     ss=stats.ss + dss)
 
 
+_FIX = 2.0 ** 32
+
+
+def halfcell_add_fixed_ref(stats: NDTStats, points, mask, weight,
+                           grid: GridConfig) -> NDTStats:
+    """Plain model of K3's fixed-point arithmetic
+    (``kernels/csrc/halfcell_fixed.cuh``), op for op, so that the kernel
+    equals it bit for bit.
+
+    Each point of weight ``w`` in half-cell ``(hx, hy)`` (the twin's
+    binning, in the points' dtype) adds ``round(w * q * 2^32)`` as int64 for
+    ``q`` in ``(1, a, b, a*a, a*b, b*b)``, where ``(a, b)`` is its offset
+    from the half-cell's lower corner ``(x0 + hx*h, y0 + hy*h)`` over
+    ``h = cell/2``, in f64. Each half-cell's moments are then reconstructed
+    in f64, pooled 2x2 in K3's order, added to the statistics in f64 and
+    returned in the statistics' dtype. The int64 sums do not depend on the
+    order of the points, and a ``-1`` copy of a point cancels its ``+1``
+    copy exactly. Nothing on the main path calls this."""
+    f64, dev = torch.float64, points.device
+    wh, hh = 2 * grid.nx + 1, 2 * grid.ny + 1
+    inv, h = 2.0 / grid.cell, grid.cell / 2.0
+    fx = torch.floor((points[:, 0] - grid.x0) * inv)
+    fy = torch.floor((points[:, 1] - grid.y0) * inv)
+    inb = (fx >= 0) & (fx < wh) & (fy >= 0) & (fy < hh)
+    w = torch.as_tensor(weight, dtype=points.dtype, device=dev).to(f64)
+    w = torch.broadcast_to(w, mask.shape)
+    live = mask & inb & (w != 0)
+    a = (points[:, 0].to(f64) - (grid.x0 + fx.to(f64) * h)) * inv
+    b = (points[:, 1].to(f64) - (grid.y0 + fy.to(f64) * h)) * inv
+    q = torch.stack([torch.ones_like(a), a, b, a * a, a * b, b * b], -1)
+    vals = torch.round((w[:, None] * q) * _FIX)
+    vals = torch.where(live[:, None], vals, torch.zeros_like(vals))
+    fid = (fy * wh + fx).long().clamp(0, wh * hh - 1)
+    acc = torch.zeros((wh * hh, 6), dtype=torch.int64, device=dev).index_add_(
+        0, fid, vals.to(torch.int64))
+    s_ = acc.to(f64).reshape(hh, wh, 6) * 2.0 ** -32
+    n, au, av, auu, auv, avv = s_.unbind(-1)
+    xc = (grid.x0 + torch.arange(wh, dtype=f64, device=dev) * h)[None, :]
+    yc = (grid.y0 + torch.arange(hh, dtype=f64, device=dev) * h)[:, None]
+    h2 = h * h
+    fine = torch.stack([
+        n,
+        h * au + xc * n,
+        h * av + yc * n,
+        (h2 * auu + ((2.0 * xc) * h) * au) + (xc * xc) * n,
+        ((h2 * auv + (xc * h) * av) + (yc * h) * au) + (xc * yc) * n,
+        (h2 * avv + ((2.0 * yc) * h) * av) + (yc * yc) * n], -1)
+    pooled = []
+    for gx, gy in _SHIFTS:
+        blk = fine[gy: gy + 2 * grid.ny, gx: gx + 2 * grid.nx]
+        r0, r1 = blk[0::2], blk[1::2]
+        pooled.append((((r0[:, 0::2] + r0[:, 1::2]) + r1[:, 0::2])
+                       + r1[:, 1::2]).reshape(grid.n_cells, 6))
+    p = torch.stack(pooled)                                  # [4, C, 6]
+    dss = torch.stack([p[..., 3], p[..., 4], p[..., 4], p[..., 5]],
+                      -1).reshape(4, grid.n_cells, 2, 2)
+    out = lambda base, d: (base.to(f64) + d).to(base.dtype)
+    return NDTStats(n=out(stats.n, p[..., 0]), s=out(stats.s, p[..., 1:3]),
+                    ss=out(stats.ss, dss))
+
+
 def halfcell_add(stats: NDTStats, points, mask, weight,
                  grid: GridConfig) -> NDTStats:
-    """K3 wrapper: CUDA tensors go to the kernel (f32 only; float atomics,
-    so the order of the adds varies from run to run), CPU tensors to
+    """K3 wrapper: CUDA tensors go to the kernel (f32 only; 64-bit
+    fixed-point sums, so the result is the same on every run and equals
+    :func:`halfcell_add_fixed_ref` bit for bit), CPU tensors to
     :func:`halfcell_add_ref`."""
     if not points.is_cuda:
         return halfcell_add_ref(stats, points, mask, weight, grid)

@@ -21,7 +21,10 @@ On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
    smoother (``_wb_smooth``) and the map maintenance (``_wb_maps``);
 3. one run of the kernel route under ``torch.profiler``: device kernels
    per scan, the union of their busy intervals over the profiled span,
-   the largest kernels by device time, ``lm_ndt``'s device time per launch;
+   the largest kernels by device time, ``lm_ndt``'s device time per launch,
+   and the card time per call of K3 ``halfcell_add`` (memset, scatter and
+   pool) and K8a ``local_tables``, by call shape (K3: the window's scans,
+   the rebuild of every keyframe slot, others by point count);
 4. with ``--shadow``, one more run in which every ``lm_ndt`` call is also
    made on the composite route and compared bit for bit.
 
@@ -124,25 +127,84 @@ def phase_run(inputs, cfg):
     return wall, dict(spent)
 
 
+def map_build_calls(events, k3_calls, k8a_calls, cfg):
+    """Card-only ms per call of K3 and K8a, by call shape, from the device
+    events in stream order. A K3 call zeroes its lattice (a memset, or a
+    fill kernel), scatters (when it has points) and pools, back to back on
+    the one stream; its i-th pool event is its i-th call. K3 shapes:
+    ``window`` (W scans), ``rebuild`` (every keyframe slot), else
+    ``M=<points>``; K8a shapes: ``W=<keyframes>``."""
+    window_m = cfg.window * cfg.n_beams
+    rebuild_m = cfg.keyframe.capacity * cfg.n_beams
+    label = {window_m: "window", rebuild_m: "rebuild"}
+    k3, k8a = defaultdict(list), defaultdict(list)
+    parts = defaultdict(lambda: defaultdict(float))   # shape -> op -> us
+    pools = [i for i, e in enumerate(events) if "halfcell_pool" in e[2]]
+    for call, i in zip(k3_calls, pools):
+        shape = label.get(call, f"M={call}")
+        ops, j = {"pool": events[i][1] - events[i][0]}, i - 1
+        if call > 0 and j >= 0 and "halfcell_scatter" in events[j][2]:
+            ops["scatter"], j = events[j][1] - events[j][0], j - 1
+        if j >= 0 and ("Memset" in events[j][2]
+                       or "FillFunctor" in events[j][2]):
+            ops["zero"] = events[j][1] - events[j][0]
+        for op, us in ops.items():
+            parts[shape][op] += us
+        k3[shape].append(sum(ops.values()) / 1e3)
+    tables = [e for e in events if "local_tables_kernel" in e[2]]
+    for call, e in zip(k8a_calls, tables):
+        k8a[f"W={call}"].append((e[1] - e[0]) / 1e3)
+    summary = lambda d: {k: dict(calls=len(v), ms_per_call=sum(v) / len(v),
+                                 ms_max=max(v)) for k, v in d.items()}
+    out = summary(k3)
+    for shape, ops in parts.items():
+        out[shape]["ms_per_call_by_op"] = {
+            op: us / 1e3 / out[shape]["calls"] for op, us in ops.items()}
+    return dict(halfcell_add=out, local_tables=summary(k8a),
+                halfcell_add_calls=len(k3_calls), halfcell_pool_events=len(
+                    pools), local_tables_calls=len(k8a_calls),
+                local_tables_events=len(tables))
+
+
 def profiled_run(inputs, cfg, n_scans: int):
     """Device kernels per scan, device busy share of the profiled span,
-    top kernels, lm_ndt's device time per launch."""
+    top kernels, lm_ndt's device time per launch, and K3's and K8a's card
+    time per call by call shape."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall, _, _ = run_once(inputs, cfg)
-    spans, by_name = [], defaultdict(lambda: [0, 0.0])
+    from ndtpu_torch import kernels
+
+    k3_calls, k8a_calls = [], []
+    k3, k8a = kernels.halfcell_add, kernels.local_tables
+
+    def k3_logged(n, s, ss, points, *a):
+        k3_calls.append(points.shape[0])
+        return k3(n, s, ss, points, *a)
+
+    def k8a_logged(tables, slot, *a):
+        k8a_calls.append(slot.shape[0])
+        return k8a(tables, slot, *a)
+
+    kernels.halfcell_add, kernels.local_tables = k3_logged, k8a_logged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall, _, _ = run_once(inputs, cfg)
+    finally:
+        kernels.halfcell_add, kernels.local_tables = k3, k8a
+    spans, by_name, events = [], defaultdict(lambda: [0, 0.0]), []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         a, b = e.time_range.start, e.time_range.end
         spans.append((a, b))
+        events.append((a, b, e.name))
         by_name[e.name][0] += 1
         by_name[e.name][1] += (b - a) / 1e3
     spans.sort()
+    events.sort()
     busy, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -162,6 +224,7 @@ def profiled_run(inputs, cfg, n_scans: int):
         lm_ndt_launches=lm_n,
         lm_ndt_device_ms_per_launch=(sum(v[1] for v in lm) / lm_n
                                      if lm_n else None),
+        map_build=map_build_calls(events, k3_calls, k8a_calls, cfg),
         top=[dict(name=k[:80], count=v[0], ms=v[1]) for k, v in top])
 
 
@@ -240,6 +303,14 @@ def main(argv=None) -> int:
           f"{prof['lm_ndt_device_ms_per_launch']} ms each on the card")
     for t in prof["top"]:
         print(f"[profile]   {t['ms']:9.3f} ms {t['count']:6d} x {t['name']}")
+    mb = prof["map_build"]
+    for name in ("halfcell_add", "local_tables"):
+        print(f"[profile] {name} on the card per call: " + ", ".join(
+            f"{shape} {v['ms_per_call']:.4f} ms (max {v['ms_max']:.4f}, "
+            f"{v['calls']} calls" + "".join(
+                f", {op} {ms:.4f}" for op, ms in
+                v.get("ms_per_call_by_op", {}).items()) + ")"
+            for shape, v in mb[name].items()))
     result = dict(card=smi, config=Path(args.config).name, seed=args.seed,
                   scans=n, wall_s=walls,
                   scans_per_s={k: [(n - 1) / w for w in v]

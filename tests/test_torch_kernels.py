@@ -1,6 +1,8 @@
 """The CUDA kernels (lm_ndt shared and grouped, K1 ndt_terms shared and
 grouped, K3 halfcell_add, K4 finalize_pack, K8a local_tables, K8b
-loop_gate) against their plain twins, on the card.
+loop_gate) against their plain twins, on the card; K3 also against the
+plain model of its fixed-point arithmetic, bit for bit, and K3 and K8a
+for the same result on every launch and under any order of the points.
 
 Every test here needs a CUDA card and skips without one (the kernels have
 no CPU mode; their twins are covered by test_torch_grid / test_torch_match).
@@ -64,7 +66,7 @@ def test_halfcell_add_matches_f64_twin(dev, weights):
     kernels.reset_launches()
     out = tgrid.halfcell_add(base, pts, mask, w, GRID)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["halfcell_add"] == 2     # scatter + pool
+    assert kernels.LAUNCHES["halfcell_add"] == 1     # one call
     w64 = w if isinstance(w, float) else w.cpu().double()
     ref = tgrid.halfcell_add_ref(
         tgrid.NDTStats(*(t.cpu().double() for t in base)), pts.cpu().double(),
@@ -75,6 +77,55 @@ def test_halfcell_add_matches_f64_twin(dev, weights):
         scale = r.abs().max().item()
         torch.testing.assert_close(o.cpu().double(), r, rtol=0,
                                    atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("weights", ["ones", "signed"])
+def test_halfcell_add_equals_fixed_model_bit_for_bit(dev, weights):
+    """K3 equals halfcell_add_fixed_ref (run on the card) bit for bit, on
+    two launches and under a permutation of the points; +1 counts are
+    exact against the f64 twin."""
+    base = _stats(dev, 3)
+    m = 50000
+    pts, mask = _points(4, m, dev)
+    w = 1.0 if weights == "ones" else torch.as_tensor(
+        np.where(np.arange(m) % 3 == 0, -1.0, 1.0), dtype=torch.float32,
+        device=dev)
+    perm = torch.as_tensor(np.random.default_rng(5).permutation(m),
+                           device=dev)
+    wp = w if isinstance(w, float) else w[perm]
+    bits = lambda st: [t.view(torch.int32) for t in st]
+    kernels.reset_launches()
+    runs = [tgrid.halfcell_add(base, pts, mask, w, GRID),
+            tgrid.halfcell_add(base, pts, mask, w, GRID),
+            tgrid.halfcell_add(base, pts[perm].contiguous(),
+                               mask[perm].contiguous(), wp, GRID)]
+    assert kernels.LAUNCHES["halfcell_add"] == 3
+    model = tgrid.halfcell_add_fixed_ref(base, pts, mask, w, GRID)
+    torch.cuda.synchronize()
+    for out in runs:
+        for a, b in zip(bits(out), bits(model)):
+            assert torch.equal(a, b)
+    if weights == "ones":
+        ref = tgrid.halfcell_add_ref(
+            tgrid.NDTStats(*(t.cpu().double() for t in base)),
+            pts.cpu().double(), mask.cpu(), 1.0, GRID)
+        assert torch.equal(runs[0].n.cpu().double(), ref.n)
+
+
+def test_halfcell_add_empty_and_cancelling_calls(dev):
+    """No points: the statistics come back unchanged. A +1 and a -1 copy of
+    the same points in one call: unchanged bit for bit."""
+    base = _stats(dev, 6)
+    pts, mask = _points(7, 20000, dev)
+    none = tgrid.halfcell_add(base, pts[:0], mask[:0], 1.0, GRID)
+    both = torch.cat([pts, pts.flip(0)]).contiguous()
+    msk = torch.cat([mask, mask.flip(0)]).contiguous()
+    w = torch.cat([torch.ones(20000), -torch.ones(20000)]).to(dev)
+    zero = tgrid.halfcell_add(base, both, msk, w, GRID)
+    torch.cuda.synchronize()
+    for out in (none, zero):
+        for a, b in zip(out, base):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_finalize_pack_matches_twin(dev):
@@ -181,6 +232,89 @@ def test_local_tables_matches_twin(dev, half):
     untouched = torch.ones(20, dtype=torch.bool, device=dev)
     untouched[slot[ok]] = False
     assert torch.equal(out[untouched], base[untouched])
+
+
+def _keyframe_scans(seed, w, n, dev, half=12.0):
+    """``w`` room-like scans of ``n`` beams (sensor frame) and masks."""
+    rng = np.random.default_rng(seed)
+    ang = np.linspace(-np.pi, np.pi, n, endpoint=False)
+    rad = rng.uniform(2.0, half, (w, 1)) * (1 + 0.3 * np.sin(3 * ang))
+    pts = np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1)
+    pts += rng.normal(0, 0.02, pts.shape)
+    return (torch.as_tensor(pts, dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.random((w, n)) > 0.05, device=dev))
+
+
+def test_local_tables_deterministic_and_equal_to_k3_then_k4(dev):
+    """K8a at config 3's window shape (W=8 keyframes x 360 beams, a 49 x 49
+    lattice): enough blocks for the card's SMs; the same tables on two
+    launches and under a permutation of each scan's points; each table
+    equal to K4 of K3's statistics of its scan, bit for bit; valid flags
+    exact and means within rtol 1e-5 against the f64 twin."""
+    loop = LoopConfig(local_half_extent=12.0)
+    lgrid = closure.local_grid_config(loop)
+    w, n = 8, 360
+    pts, mask = _keyframe_scans(8, w, n, dev)
+    rows, bands, smem = kernels.local_bands(w, lgrid, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert w * bands >= sms and smem <= kernels.SMEM_BLOCK
+    shape = (w,) + closure.local_table_shape(loop, False)
+    slot = torch.arange(w, device=dev)
+    ok = torch.ones(w, dtype=torch.bool, device=dev)
+    perm = torch.as_tensor(np.random.default_rng(9).permutation(n),
+                           device=dev)
+    kernels.reset_launches()
+    runs = [closure.write_local_tables(torch.zeros(shape, device=dev), slot,
+                                       ok, p, m, loop, NDT)
+            for p, m in ((pts, mask), (pts, mask),
+                         (pts[:, perm].contiguous(),
+                          mask[:, perm].contiguous()))]
+    assert kernels.LAUNCHES["local_tables"] == 3
+    torch.cuda.synchronize()
+    for out in runs[1:]:
+        assert torch.equal(out.view(torch.int32), runs[0].view(torch.int32))
+    for k in range(w):
+        st = tgrid.halfcell_add(tgrid.empty_stats(lgrid, torch.float32, dev),
+                                pts[k], mask[k], 1.0, lgrid)
+        one = tgrid.finalize_pack(st, NDT, lgrid)
+        assert torch.equal(runs[0][k].view(torch.int32),
+                           one.view(torch.int32))
+    ref = closure.write_local_tables_ref(
+        torch.zeros(shape, dtype=torch.float64), slot.cpu(), ok.cpu(),
+        pts.cpu().double(), mask.cpu(), loop, NDT)
+    out = runs[0].cpu().double()
+    valid = [8 * g + 5 for g in range(4)]
+    assert torch.equal(out[..., valid], ref[..., valid])
+    assert float(ref[..., valid].sum()) > 0
+    means = [8 * g + k for g in range(4) for k in (0, 1)]
+    mtol = 1e-5 * torch.clamp(ref[..., means].abs(),
+                              min=1e-3 * float(ref[..., means].abs().max()))
+    assert bool(((out[..., means] - ref[..., means]).abs() <= mtol).all())
+
+
+def test_local_tables_unchanged_when_ok_masks_keyframes(dev):
+    """Masking keyframes with ``ok`` leaves their slots untouched and the
+    other keyframes' tables bit-identical to an all-ok launch."""
+    loop = LoopConfig(local_half_extent=12.0)
+    w, n = 8, 360
+    pts, mask = _keyframe_scans(10, w, n, dev)
+    shape = (12,) + closure.local_table_shape(loop, False)
+    base = torch.randn(shape, device=dev)
+    slot = torch.as_tensor([3, 0, 11, 5, 7, 1, 9, 4], device=dev)
+    ok = torch.as_tensor([1, 0, 1, 1, 0, 1, 0, 1], dtype=torch.bool,
+                         device=dev)
+    full = closure.write_local_tables(base.clone(), slot, torch.ones_like(ok),
+                                      pts, mask, loop, NDT)
+    part = closure.write_local_tables(base.clone(), slot, ok, pts, mask,
+                                      loop, NDT)
+    torch.cuda.synchronize()
+    kept = slot[ok]
+    assert torch.equal(part[kept].view(torch.int32),
+                       full[kept].view(torch.int32))
+    untouched = torch.ones(12, dtype=torch.bool, device=dev)
+    untouched[kept] = False
+    assert torch.equal(part[untouched].view(torch.int32),
+                       base[untouched].view(torch.int32))
 
 
 def test_loop_gate_matches_f64_twin(dev):

@@ -276,8 +276,10 @@ def test_kernel_entry_points_refuse_cpu_and_oversized_lattices(stores):
     lgrid = tclosure.local_grid_config(LOOP)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.local_tables(tstore.tables.float(), *args, lgrid, NDT)
+    # K8a holds one band of 3 lattice rows in 48 KB: a 361-wide lattice
+    # (180 x 180 cells) needs 51,984 B.
     big = tclosure.local_grid_config(dataclasses.replace(
-        LOOP, local_half_extent=40.0))
+        LOOP, local_half_extent=90.0))
     with pytest.raises(ValueError, match="shared memory"):
         kernels.local_tables(tstore.tables.float(), *args, big, NDT)
 
