@@ -12,31 +12,39 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. the build of the CUDA kernels from ``ndtpu_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel; seconds and the register report);
 3. each kernel against its plain twin at real size, on inputs made from
-   ``--seed``, with medians of 20 synchronized runs of kernel and twin:
-   ``lm_ndt`` (the whole LM registration, one launch) at the config-2
-   window shape (8 lanes x 360 beams, the 100 x 100 table) and the config-3
-   verify shape (64 lanes grouped over the 1,024-slot cache), against the
-   composite route (the LM step in torch around K1, the old path, timed
-   beside it) and its f32 twin ``lm_ndt_ref``;
+   ``--seed``, with medians of 20 synchronized runs of kernel and twin
+   (events) and, where noted, the kernel's own card time (``torch.profiler``,
+   mean of 20): ``lm_ndt`` (the whole LM registration, one launch) at the
+   config-2 window shape (8 lanes x 360 beams, the 100 x 100 table) and
+   the config-3 verify shape (64 lanes grouped over the 1,024-slot cache),
+   against the composite route (the LM step in torch around K1, the old
+   path, timed beside it) and its f32 twin ``lm_ndt_ref``;
    K1 ``ndt_terms`` (512 lanes, then the window's 8 lanes, x 360 beams
    against a config-2 table built from a 300-scan map), K3
    ``halfcell_add`` (1,024, then 8, scans of 360 points, against the twin in
    f64 on the CPU, all-+1 and mixed +-1 weights; bit for bit against the
    plain model of its fixed-point arithmetic, on a second launch and under
    a permutation of the points; also at the rebuild shape, the 1,024 x 360
-   points of a keyframe store), K4 ``finalize_pack`` (the config-2 grid);
+   points of a keyframe store), K4 ``finalize_pack`` by bands of table rows
+   (the config-2 and config-3 map tables and config 5's 513 x 513 lattice
+   on statistics from ``--seed``; also bit-identical on a second launch);
    then on config 3's shapes K8a ``local_tables`` (256, then the window's
    8, keyframes; also bit-identical on a second launch, under permutation
    and to K4 of K3), K1 grouped (64 verify lanes x 360 beams against a
-   1,024-slot table cache, random tables) and K8b ``loop_gate`` (a real
-   4 x 16 verification at the end of the box-world lap); then
+   1,024-slot table cache, random tables), the standalone K8b
+   ``loop_gate`` (a real verification of 4 queries at the end of the
+   box-world lap x 16, then x 64, candidates, against the gate's f64 twin)
+   and the gated verify (one ``lm_ndt`` launch that registers and gates
+   the same lanes: bit-equal to ``lm_ndt_grouped`` followed by the
+   standalone K8b, and on a second call; no host sync; timed against the
+   unfused route); then
    ``_window_frontend`` twice from one state (bit-equal poses and map
    tables), and box-world config-3 draw 2 and config-2 draw 0 three times
    each (their ATEs, and the first window and stage where runs part);
 4. config 2 through its entry point: ``ndtpu_torch.run.main`` on
    ``configs/config2_full_sequence.json``, 300 scans, ``--device cuda``,
-   with every launch counter (and the count of ``match_batch_packed``
-   calls) reset just before and read just after;
+   with every launch counter (and the counts of ``match_batch_packed``
+   and loop-detection calls) reset just before and read just after;
 5. the config-2 ATE gate: box-world draws 0-2 through
    ``run_slam_windowed``, against the JAX reference's ATE on the same
    sequences (``tests/data/torch_config2_box300_ref.json``) and dead
@@ -46,10 +54,12 @@ Phases (any failure exits non-zero, and no result line is printed):
 7. the config-3 ATE gate against ``tests/data/torch_config3_box300_ref.json``
    (also: the port closes a loop on every draw where JAX does);
 8. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
-   phase 4; also ``lm_ndt_grouped``, K8a and K8b in phase 6), and exactly
-   one ``lm_ndt*`` launch per ``match_batch_packed`` call. K1's own
-   launches are not required there: on the main path its code runs inside
-   ``lm_ndt``, and K1 is held to its twin in phase 3.
+   phase 4; also ``lm_ndt_grouped``, K8a and the gated verify
+   ``loop_gate_fused`` in phase 6), exactly one ``lm_ndt*`` launch per
+   ``match_batch_packed`` call, and in phase 6 one gated verify per
+   loop-detection call and no standalone K8b launch. K1's and K8b's own
+   launches are not required there: on the main path their code runs
+   inside ``lm_ndt``, and they are held to their twins in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches
 (phases 4 and 6 together), errors, times and bounds, and the repeated
@@ -71,6 +81,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CONFIG2 = ROOT / "configs" / "config2_full_sequence.json"
 CONFIG3 = ROOT / "configs" / "config3_loop_closure.json"
+CONFIG5 = ROOT / "configs" / "config5_multisession.json"
 REF_FILE = ROOT / "tests" / "data" / "torch_config2_box300_ref.json"
 REF3_FILE = ROOT / "tests" / "data" / "torch_config3_box300_ref.json"
 
@@ -107,6 +118,8 @@ KERNELS = [
     dict(name="local_tables", source=_CSRC + "local_tables.cu",
          replaces="ndtpu/loop/closure.py:84", config2=False),
     dict(name="loop_gate", source=_CSRC + "loop_gate.cu",
+         replaces="ndtpu/loop/closure.py:171", inside="loop_gate_fused"),
+    dict(name="loop_gate_fused", source=_CSRC + "lm_ndt.cu",
          replaces="ndtpu/loop/closure.py:171", config2=False),
 ]
 
@@ -256,7 +269,7 @@ def k1_bound(args, group=None):
     return bound(n_bytes, float(beams.sum()) * BEAM_FLOPS)
 
 
-def check_k1(cfg, seq, table, seed, dev, b):
+def check_k1(cfg, seq, table, seed, dev, b, jobs=None):
     """K1 vs ndt_terms_ref on the card: ``b`` lanes x 360 beams."""
     import numpy as np
     import torch
@@ -289,7 +302,38 @@ def check_k1(cfg, seq, table, seed, dev, b):
           f"{float(err.max()):.3e}, max rel err {rel:.3e} (tol 1e-3 x "
           f"max(1,|ref|)); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
           f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
-    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain, **bd)
+    row = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain, **bd)
+    card_time(jobs, f"K1 ndt_terms B={b}", row, "card_ms",
+              lambda: kernels.ndt_terms(*args), ["ndt_terms_kernel"])
+    return row
+
+
+def card_time(jobs, label, row, key, fn, names=None):
+    """``fn``'s card time (``profile_port.card_ms``) into ``row[key]``: at
+    once when ``jobs`` is None, else queued in ``jobs`` for
+    :func:`read_card_times`. A ``torch.profiler`` session leaves the later
+    CUDA launches of the process slower, so the smoke reads card times after
+    its event-timed and entry-point phases."""
+    if jobs is None:
+        from profile_port import card_ms
+
+        row[key] = card_ms(fn, names)
+    else:
+        jobs.append((label, row, key, fn, names))
+
+
+def read_card_times(jobs):
+    """Run the queued card timings, one line each."""
+    from profile_port import card_ms
+
+    for label, row, key, fn, names in jobs:
+        row[key] = card_ms(fn, names)
+        print(f"[smoke] card time {label}: {_fmt(row[key])} per call "
+              f"(torch.profiler, mean of 20)")
+
+
+def _fmt(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def bits_equal(a, b) -> bool:
@@ -448,29 +492,63 @@ def check_k3_rebuild(cfg3, kf, dev):
                 rebuild_bound_ms=bd["bound_ms"])
 
 
-def check_k4(cfg, stats):
-    """K4 vs finalize_pack_ref on the card, config-2 grid."""
+def k4_bound(grid) -> dict:
+    """K4's bound: (n, s, ss) read (28 floats per cell), the [R, 32] table
+    written; ~40 operations to finalize each of the 4 x C cells."""
+    c = grid.n_cells
+    rows = (2 * grid.nx + 1) * (2 * grid.ny + 1)
+    return bound(28 * 4 * c + rows * 128, 160.0 * c)
+
+
+def check_k4(label, ndt_cfg, grid, stats, jobs=None):
+    """K4 vs finalize_pack_ref on the card at ``grid`` (valid flags exact,
+    the rest within K4's rtol 1e-5), bit-identical on a second launch;
+    event, card and plain times, and the bound."""
     import torch
 
     from ndtpu_torch import kernels
     from ndtpu_torch.ndt import grid as ndt_grid
 
-    out = kernels.finalize_pack(stats.n, stats.s, stats.ss, cfg.ndt, cfg.grid)
-    ref = ndt_grid.finalize_pack_ref(stats, cfg.ndt, cfg.grid)
+    run = lambda: kernels.finalize_pack(stats.n, stats.s, stats.ss, ndt_cfg,
+                                        grid)
+    out, again = run(), run()
+    ref = ndt_grid.finalize_pack_ref(stats, ndt_cfg, grid)
     torch.cuda.synchronize()
-    err = _table_check("K4", out, ref)
-    ms = time_ms(lambda: kernels.finalize_pack(stats.n, stats.s, stats.ss,
-                                               cfg.ndt, cfg.grid))
-    plain = time_ms(lambda: ndt_grid.finalize_pack_ref(stats, cfg.ndt,
-                                                       cfg.grid))
-    # (n, s, ss) read (28 floats per cell), the [R, 32] table written;
-    # ~40 operations to finalize each of the 4 x C cells.
-    c = cfg.grid.n_cells
-    bd = bound(28 * 4 * c + out.numel() * 4, 160.0 * c)
-    print(f"[smoke] K4 finalize_pack R={out.shape[0]}: valid exact, max abs "
+    require(bits_equal(out, again), f"K4 {label}: two launches differ")
+    err = _table_check(f"K4 {label}", out, ref)
+    valid = int(ref[:, [8 * g + 5 for g in range(4)]].sum())
+    ms = time_ms(run)
+    plain = time_ms(lambda: ndt_grid.finalize_pack_ref(stats, ndt_cfg, grid))
+    rows, bands, threads, smem = kernels.finalize_bands(grid, out.device)
+    bd = k4_bound(grid)
+    print(f"[smoke] K4 finalize_pack {label} R={out.shape[0]} ({bands} bands "
+          f"of {rows} rows, {threads} threads and {smem} B of shared memory "
+          f"each; {valid} valid "
+          f"slots): bit-identical on a second launch, valid exact, max abs "
           f"err {err:.3e} (rtol 1e-5); kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, **bd)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, rows=out.shape[0],
+               **bd)
+    card_time(jobs, f"K4 finalize_pack {label}", row, "card_ms", run,
+              ["finalize_pack_kernel"])
+    return row
+
+
+def check_k4_shapes(cfg, cfg3, seq, stats, seed, dev, jobs=None):
+    """K4 at the config-2 and config-3 map tables (300-scan box-world maps)
+    and at config 5's 513 x 513 lattice (statistics from ``seed``); the
+    config-2 row is the result line's, the others ride along in it."""
+    from ndtpu_torch.config import PipelineConfig
+    from profile_port import seeded_stats
+
+    cfg5 = PipelineConfig.from_json(str(CONFIG5))
+    row = check_k4("config 2", cfg.ndt, cfg.grid, stats, jobs)
+    row["shapes"] = {
+        "config3": check_k4("config 3", cfg3.ndt, cfg3.grid,
+                            map_stats(seq, cfg3.grid, dev), jobs),
+        "config5": check_k4("config 5", cfg5.ndt, cfg5.grid,
+                            seeded_stats(cfg5.grid, seed, dev), jobs)}
+    return row
 
 
 def box_store(cfg3, seq, dev):
@@ -639,66 +717,240 @@ def check_k1_grouped(cfg3, seq, kf, seed, dev, b):
     return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain, **bd)
 
 
-def check_k8b(cfg3, seq, kf, seed, dev):
-    """K8b vs ``_gate_and_pack`` (f64, CPU) on a real verification: 4
-    queries at the end of the box-world lap x 16 candidates. Lanes within
-    1e-4 of the score gate or of the innovation budget are masked out, so
-    the flags can be held exact."""
-    import numpy as np
+def loop_queries(cfg3, seq, kf, seed, dev, c: int):
+    """``profile_port.loop_queries`` (4 queries at the end of the box-world
+    lap x ``c`` candidates) and its lanes as ``closure._verify_lanes`` gives
+    them: ``(loop, query, query indices, candidates, lanes)``."""
+    from ndtpu_torch.loop import closure
+    from profile_port import loop_queries as queries
+
+    loop, query, qidx, cands = queries(cfg3, seq, kf, seed, dev, c)
+    lanes = closure._verify_lanes(kf, *query, cands, loop, cfg3.match)
+    return loop, query, qidx, cands, lanes
+
+
+def clear_of_gates(loop, res, init, cands, qidx):
+    """``cands`` with the lanes within 1e-4 of the score gate or of the
+    innovation budget masked out (f32 and f64 may fall on either side of
+    those), and the count masked."""
     import torch
 
+    r64 = res.score.cpu().double()
+    innov = torch.linalg.norm(res.pose[..., :2].cpu().double()
+                              - init[..., :2].cpu().double(), dim=-1)
+    budget = (loop.max_innovation_base + loop.max_innovation_per_kf
+              * (qidx.cpu()[:, None] - cands.idx.cpu()).abs().double())
+    clear = (((r64 - loop.score_gate).abs() >= 1e-4)
+             & ((innov - budget).abs() >= 1e-4))
+    return (cands._replace(mask=cands.mask & clear.to(cands.mask.device)),
+            int((~clear).sum()))
+
+
+def gate_vs_f64(name, out, res, cands, loop, init, qidx):
+    """Gate outputs against ``_gate_and_pack`` in f64 on the CPU, on the
+    same registrations: flags exact, sqrt_info within 1e-4 x the lane's
+    largest entry. Returns ``(max abs err, f64 result)``."""
     from ndtpu_torch.loop import closure
     from ndtpu_torch.ndt.match import MatchResult
 
-    loop = cfg3.loop
-    rng = np.random.default_rng(seed + 3)
-    q = torch.tensor([284, 288, 292, 296])
-    qpose = (seq.gt_poses[q].double() + torch.as_tensor(
-        rng.normal(0.0, [0.1, 0.1, 0.02], (4, 3)))).float().to(dev)
-    qidx = q.to(dev)
-    cands = closure.find_candidates(kf, qpose, qidx, loop)
-    res, init = closure.verify_registrations(
-        kf, seq.points[q].to(dev), seq.mask[q].to(dev), qpose, cands, loop,
-        cfg3.match)
     r64 = MatchResult(*(a.cpu().double() if a.is_floating_point()
                         else a.cpu() for a in res))
-    i64 = init.cpu().double()
-    innov = torch.linalg.norm(r64.pose[..., :2] - i64[..., :2], dim=-1)
-    budget = (loop.max_innovation_base + loop.max_innovation_per_kf
-              * (q[:, None] - cands.idx.cpu()).abs().double())
-    clear = (((r64.score - loop.score_gate).abs() >= 1e-4)
-             & ((innov - budget).abs() >= 1e-4))
-    cands = cands._replace(mask=cands.mask & clear.to(dev))
     c_cpu = closure.LoopCandidates(*(a.cpu() for a in cands))
-    out = closure.gate_and_pack(res, cands, loop, init, qidx)
-    ref = closure._gate_and_pack(r64, c_cpu, loop, i64, q)
-    torch.cuda.synchronize()
-    require(bool((out.accept.cpu() == ref.accept).all()),
-            "K8b: accept flags differ")
-    require(bool((out.innov_rej.cpu() == ref.innov_rej).all()),
-            "K8b: innovation flags differ")
-    require(bool(ref.accept.any()), "K8b: no lane accepted; weak check")
-    err = (out.sqrt_info.cpu().double() - ref.sqrt_info).abs()
+    ref = closure._gate_and_pack(r64, c_cpu, loop, init.cpu().double(),
+                                 qidx.cpu())
+    accept, innov_rej, sqrt_info = out
+    require(bool((accept.cpu() == ref.accept).all()),
+            f"{name}: accept flags differ from the f64 twin")
+    require(bool((innov_rej.cpu() == ref.innov_rej).all()),
+            f"{name}: innovation flags differ from the f64 twin")
+    require(bool(ref.accept.any()), f"{name}: no lane accepted; weak check")
+    err = (sqrt_info.cpu().double() - ref.sqrt_info).abs()
     lane_max = ref.sqrt_info.abs().amax((-2, -1), keepdim=True)
     require(bool((err <= 1e-4 * lane_max).all()),
-            f"K8b: sqrt_info off by "
+            f"{name}: sqrt_info off by "
             f"{float((err / (1e-4 * lane_max)).max()):.3g} x tol")
-    ms = time_ms(lambda: closure.gate_and_pack(res, cands, loop, init, qidx))
+    return float(err.max()), ref
+
+
+def check_k8b(cfg3, seq, kf, seed, dev, c: int, jobs=None):
+    """The standalone K8b vs ``_gate_and_pack`` (f64, CPU) on a real
+    verification of 4 queries x ``c`` candidates (:func:`loop_queries`);
+    lanes near a gate masked (:func:`clear_of_gates`)."""
+    from ndtpu_torch.loop import closure
+
+    loop, (qpts, qmsk, qpose), qidx, cands, _ = loop_queries(
+        cfg3, seq, kf, seed, dev, c)
+    res, init = closure.verify_registrations(kf, qpts, qmsk, qpose, cands,
+                                             loop, cfg3.match)
+    cands, near = clear_of_gates(loop, res, init, cands, qidx)
+    run = lambda: closure.gate_and_pack(res, cands, loop, init, qidx)
+    out = run()
+    err, ref = gate_vs_f64(f"K8b C={c}", (out.accept, out.innov_rej,
+                                          out.sqrt_info), res, cands, loop,
+                           init, qidx)
+    ms = time_ms(run)
     plain = time_ms(lambda: closure._gate_and_pack(res, cands, loop, init,
                                                    qidx))
-    # Per lane: mask, converged, score, pose, init, hessian, index read (70
+    # Per lane: mask, converged, score, pose, init, hessian, index read (74
     # B), accept, innov_rej, sqrt_info written (38 B); ~800 operations (8
     # Jacobi sweeps on the 3 x 3, the Cholesky, the gates).
     lanes = res.score.numel()
-    bd = bound(lanes * 108 + 4 * 4, 800.0 * lanes)
-    print(f"[smoke] K8b loop_gate K=4 C={loop.max_candidates}: "
-          f"{int(cands.mask.sum())} live lanes ({int((~clear).sum())} "
-          f"masked near a gate), {int(ref.accept.sum())} accepted, "
-          f"{int((r64.converged & cands.mask.cpu()).sum())} converged; flags "
-          f"exact, sqrt_info max abs err {float(err.max()):.3e} (tol 1e-4 x "
-          f"lane max); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+    bd = bound(lanes * 112 + 4 * 8, 800.0 * lanes)
+    print(f"[smoke] K8b loop_gate K=4 C={c}: {int(cands.mask.sum())} live "
+          f"lanes ({near} masked near a gate), {int(ref.accept.sum())} "
+          f"accepted, {int((res.converged & cands.mask).sum())} converged; "
+          f"flags exact, sqrt_info max abs err {err:.3e} (tol 1e-4 x lane "
+          f"max); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
           f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
-    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain, **bd)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, **bd)
+    card_time(jobs, f"K8b loop_gate C={c}", row, "card_ms", run,
+              ["loop_gate_kernel"])
+    return row
+
+
+def gated_verify_identity(cfg3, seq, kf, seed, dev, c: int):
+    """The gated verify (one ``lm_ndt`` launch that registers and gates 4
+    queries x ``c`` candidates, :func:`loop_queries`) on a real
+    verification: (a) bit-equal to ungated ``lm_ndt_grouped`` followed by
+    the standalone K8b on the same inputs (the five registration outputs
+    and the three gate outputs), and on a second gated call (the arrival
+    counters reset); one ``lm_ndt_grouped`` launch, one
+    ``loop_gate_fused``, no standalone K8b; (b)
+    ``verify_candidates_cached_flat`` on the card makes no host sync; (c)
+    its gate against ``_gate_and_pack`` in f64 on its own registrations
+    (lanes near a gate masked). Returns what :func:`check_gated_verify`
+    times."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.loop import closure
+    from ndtpu_torch.ndt import match
+
+    loop, (qpts, qmsk, qpose), qidx, cands, lanes = loop_queries(
+        cfg3, seq, kf, seed, dev, c)
+    pts, msk, init, lgrid, mcfg, flat = lanes
+    k = qidx.shape[0]
+    res_u, init_u = closure.verify_registrations(kf, qpts, qmsk, qpose,
+                                                 cands, loop, cfg3.match)
+    cands, near = clear_of_gates(loop, res_u, init_u, cands, qidx)
+    gate = kernels.LoopGate(cands.mask.contiguous(), qidx.contiguous(),
+                            loop.score_gate, loop.max_innovation_base,
+                            loop.max_innovation_per_kf,
+                            closure._k_budget(loop))
+    fused = lambda: match.match_batch_packed_gated(
+        pts, msk, kf.tables, init, lgrid, mcfg, flat, gate)
+    kernels.reset_launches()
+    one = fused()
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES["lm_ndt_grouped"] == 1
+            and kernels.LAUNCHES["loop_gate_fused"] == 1
+            and sum(kernels.LAUNCHES.values()) == 2,
+            f"gated verify: launches {kernels.LAUNCHES}, expected one "
+            f"lm_ndt_grouped counted as loop_gate_fused")
+    two = fused()
+    reg = match.match_batch_packed(pts, msk, kf.tables, init, lgrid, mcfg,
+                                   group=flat)
+    split = lambda t: t.reshape((k, c) + t.shape[1:]).contiguous()
+    standalone = kernels.loop_gate(
+        gate.cand_mask, split(reg.converged), split(reg.score),
+        split(reg.pose), split(init), split(reg.hessian),
+        cands.idx.contiguous(), gate.query_idx, gate.score_gate,
+        gate.innov_base, gate.innov_per_kf, gate.k_budget)
+    torch.cuda.synchronize()
+    require(bits_equal(tuple(one[0]), tuple(reg)),
+            f"gated verify C={c}: registrations differ from lm_ndt_grouped")
+    require(bits_equal(tuple(one[1]), tuple(standalone)),
+            f"gated verify C={c}: gate outputs differ from the standalone "
+            f"K8b")
+    require(bits_equal(one, two), f"gated verify C={c}: two calls differ")
+
+    verify = lambda: closure.verify_candidates_cached_flat(
+        kf, qpts, qmsk, qpose, cands, loop, cfg3.match, qidx)
+    verify()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = verify()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    res = match.MatchResult(*(split(t) for t in one[0]))
+    err, ref = gate_vs_f64(f"gated verify C={c}",
+                           (out.accept, out.innov_rej, out.sqrt_info), res,
+                           cands, loop, split(init), qidx)
+    return dict(loop=loop, query=(qpts, qmsk, qpose), qidx=qidx, cands=cands,
+                lanes=lanes, reg=reg, near=near, err=err, ref=ref)
+
+
+def check_gated_verify(cfg3, seq, kf, seed, dev, c: int, jobs=None):
+    """:func:`gated_verify_identity`, then the times of the gated launch on
+    the prepared lanes (``match_batch_packed_gated``: the row's ``ms`` and
+    ``card_ms``), of its plain route (``lm_ndt_ref`` and ``_gate_and_pack``
+    on the card), and of the whole verify as the pipeline calls it
+    (``verify_candidates_cached_flat``, lanes prepared in the call) against
+    the unfused route (``verify_registrations`` and ``gate_and_pack``: the
+    registration launch, then the standalone gate)."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.loop import closure
+    from ndtpu_torch.ndt import match
+
+    g = gated_verify_identity(cfg3, seq, kf, seed, dev, c)
+    loop, cands, qidx, reg = g["loop"], g["cands"], g["qidx"], g["reg"]
+    qpts, qmsk, qpose = g["query"]
+    pts, msk, init, lgrid, mcfg, flat = g["lanes"]
+    k = qidx.shape[0]
+    split = lambda t: t.reshape((k, c) + t.shape[1:]).contiguous()
+    gate = kernels.LoopGate(cands.mask.contiguous(), qidx.contiguous(),
+                            loop.score_gate, loop.max_innovation_base,
+                            loop.max_innovation_per_kf,
+                            closure._k_budget(loop))
+    fused = lambda: match.match_batch_packed_gated(
+        pts, msk, kf.tables, init, lgrid, mcfg, flat, gate)
+    verify = lambda: closure.verify_candidates_cached_flat(
+        kf, qpts, qmsk, qpose, cands, loop, cfg3.match, qidx)
+
+    def unfused():
+        r, i = closure.verify_registrations(kf, qpts, qmsk, qpose, cands,
+                                            loop, cfg3.match)
+        return closure.gate_and_pack(r, cands, loop, i, qidx)
+
+    def plain():
+        group = flat.to(torch.int32)
+        r = match.lm_ndt_ref(init, pts[..., 0].contiguous(),
+                             pts[..., 1].contiguous(), msk.float(),
+                             kf.tables, lgrid, mcfg, group)
+        return closure._gate_and_pack(
+            match.MatchResult(*(split(t) for t in r)), cands, loop,
+            split(init), qidx)
+
+    ms, plain_ms = time_ms(fused), time_ms(plain, reps=5)
+    verify_ms, unfused_ms = time_ms(verify), time_ms(unfused)
+    args = (init, pts[..., 0].contiguous(), pts[..., 1].contiguous(),
+            msk.float(), kf.tables, lgrid, flat.to(torch.int32))
+    lb = lm_bound(args, reg)
+    lanes_n = k * c
+    bd = bound(lb["n_bytes"] + lanes_n * 39 + k * 8,
+               lb["n_flops"] + 800.0 * lanes_n)
+    print(f"[smoke] gated verify K=4 C={c}: one lm_ndt_grouped launch "
+          f"counted as loop_gate_fused; registrations and gate bit-equal to "
+          f"lm_ndt_grouped + standalone K8b and on a second call; no host "
+          f"sync; {int(cands.mask.sum())} live lanes ({g['near']} masked "
+          f"near a gate), {int(g['ref'].accept.sum())} accepted; vs f64 gate "
+          f"twin flags exact, sqrt_info max abs err {g['err']:.3e}; gated "
+          f"launch {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}); the whole verify "
+          f"{verify_ms:.4f} ms against {unfused_ms:.4f} ms unfused")
+    row = dict(max_abs_err=g["err"], ms=ms, plain_ms=plain_ms, **bd,
+               verify_ms=verify_ms, unfused_verify_ms=unfused_ms)
+    card_time(jobs, f"gated verify C={c}, the gated lm_ndt launch", row,
+              "card_ms", fused, ["lm_ndt_kernel"])
+    card_time(jobs, f"gated verify C={c}, every kernel of the verify", row,
+              "verify_card_ms", verify)
+    card_time(jobs, f"unfused verify C={c}, every kernel of the verify", row,
+              "unfused_verify_card_ms", unfused)
+    return row
 
 
 def clone_tree(x):
@@ -937,7 +1189,7 @@ def accept_tie(args, cfg, lane: int):
     return None
 
 
-def check_lm(label, args, cfg):
+def check_lm(label, args, cfg, jobs=None):
     """``lm_ndt`` against the composite route (n_iter and converged equal
     on every lane, pose and score within 1e-5 x max(|ref|, 1), H within
     1e-5 x the lane's largest entry, or the lane shown to be an accept tie,
@@ -990,19 +1242,10 @@ def check_lm(label, args, cfg):
     ms = time_ms(run)
     comp_ms = time_ms(composite)
     plain = time_ms(twin)
-    # Bytes: init, beams (and group) read, each distinct row gathered at
-    # the initial or final poses once, pose/H/score/n_iter/converged
-    # written. Operations: (n_iter + 1) evaluations of each lane's
-    # in-bounds beams, and n_iter LM steps.
-    keys0, _ = lane_rows(init, px, py, mask_f, grid, group)
-    keys1, beams = lane_rows(kres.pose, px, py, mask_f, grid, group)
+    lb = lm_bound(args, kres)
+    bd = bound(lb["n_bytes"], lb["n_flops"])
     b, n = px.shape
-    rows = torch.cat([keys0, keys1]).unique().numel()
     its = kres.n_iter.long()
-    bd = bound(b * 12 + b * n * 12 + rows * 128 + b * 57
-               + (0 if group is None else b * 4),
-               float(((its + 1) * beams).sum()) * BEAM_FLOPS
-               + float(its.sum()) * STEP_FLOPS)
     print(f"[smoke] lm_ndt {label} B={b} N={n}: n_iter mean "
           f"{float(its.float().mean()):.2f} max {int(its.max())}, "
           f"{int(kres.converged.sum())}/{b} converged; vs composite route "
@@ -1013,9 +1256,31 @@ def check_lm(label, args, cfg):
           f"ms, plain twin {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
           f"({bd['bound_by']}), {ms * 1e3 / max(int(its.max()), 1):.2f} us "
           f"per iteration of the longest lane")
-    return (dict(max_abs_err=terr, ms=ms, plain_ms=plain, **bd,
-                 composite_ms=comp_ms, composite_max_abs_err=cerr,
-                 accept_ties=ties), (conv_eq, b))
+    row = dict(max_abs_err=terr, ms=ms, plain_ms=plain, **bd,
+               composite_ms=comp_ms, composite_max_abs_err=cerr,
+               accept_ties=ties)
+    card_time(jobs, f"lm_ndt {label}", row, "card_ms", run, ["lm_ndt_kernel"])
+    return row, (conv_eq, b)
+
+
+def lm_bound(args, kres) -> dict:
+    """``lm_ndt``'s work on ``args`` as run to ``kres``: bytes (init, beams
+    and group read, each distinct row gathered at the initial or final
+    poses once, pose/H/score/n_iter/converged written) and operations
+    ((n_iter + 1) evaluations of each lane's in-bounds beams, n_iter LM
+    steps)."""
+    import torch
+
+    init, px, py, mask_f, _, grid, group = args
+    keys0, _ = lane_rows(init, px, py, mask_f, grid, group)
+    keys1, beams = lane_rows(kres.pose, px, py, mask_f, grid, group)
+    b, n = px.shape
+    rows = torch.cat([keys0, keys1]).unique().numel()
+    its = kres.n_iter.long()
+    return dict(n_bytes=b * 12 + b * n * 12 + rows * 128 + b * 57
+                + (0 if group is None else b * 4),
+                n_flops=float(((its + 1) * beams).sum()) * BEAM_FLOPS
+                + float(its.sum()) * STEP_FLOPS)
 
 
 def check_no_sync(args, cfg):
@@ -1043,20 +1308,33 @@ def check_no_sync(args, cfg):
 
 
 def run_entry_point(dev, config, n_scans: int):
-    """The CLI main path on ``config``, with fresh launch counters."""
+    """The CLI main path on ``config``, with fresh launch counters and a
+    count of the loop-detection calls (``verify_candidates_cached_flat``).
+    Returns ``(launches, detection calls)``."""
     import numpy as np
 
     from ndtpu_torch import kernels, run
     from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.loop import closure
     from ndtpu_torch.ndt import match
 
     windows = -(-n_scans // PipelineConfig.from_json(str(config)).window)
-    kernels.reset_launches()
-    match.CALLS["match_batch_packed"] = 0
-    res = run.main(["--config", str(config), "--max-scans", str(n_scans),
-                    "--device", str(dev)])
-    launches = dict(kernels.LAUNCHES)
-    calls = match.CALLS["match_batch_packed"]
+    verify, detections = closure.verify_candidates_cached_flat, [0]
+
+    def counted(*a, **k):
+        detections[0] += 1
+        return verify(*a, **k)
+
+    closure.verify_candidates_cached_flat = counted
+    try:
+        kernels.reset_launches()
+        match.CALLS["match_batch_packed"] = 0
+        res = run.main(["--config", str(config), "--max-scans", str(n_scans),
+                        "--device", str(dev)])
+        launches = dict(kernels.LAUNCHES)
+        calls = match.CALLS["match_batch_packed"]
+    finally:
+        closure.verify_candidates_cached_flat = verify
     traj = res["traj"]
     require(traj.shape == (n_scans, 3) and bool(np.isfinite(traj).all()),
             "entry point: trajectory not finite or of the wrong shape")
@@ -1069,8 +1347,9 @@ def run_entry_point(dev, config, n_scans: int):
           f"keyframes={res['n_keyframes']}, loops={res['n_loops']}, ATE "
           f"{res['ate']:.4f} m, {calls} match_batch_packed calls, "
           f"{lm / windows:.2f} lm_ndt launches per window ({windows} "
-          f"windows), launches {launches}")
-    return launches
+          f"windows), {detections[0]} loop-detection calls, launches "
+          f"{launches}")
+    return launches, detections[0]
 
 
 def ate_gate(dev, config, ref_file):
@@ -1170,19 +1449,24 @@ def main(argv=None) -> int:
     w = cfg.window
     lm2 = lm_window_args(cfg, seq, table, args.seed, dev, w)
     check_no_sync(lm2, cfg.match)
+    jobs = []     # card times, read after the entry-point phases
     lm_rows = {}
-    lm_rows["lm_ndt"], conv2 = check_lm("window", lm2, cfg.match)
-    check_k1(cfg, seq, table, args.seed, dev, 512)
+    lm_rows["lm_ndt"], conv2 = check_lm("window", lm2, cfg.match, jobs)
+    check_k1(cfg, seq, table, args.seed, dev, 512, jobs)
     check_k3(cfg, seq, stats, args.seed, dev, 1024)
+    cfg3 = PipelineConfig.from_json(str(CONFIG3))
     results = {**lm_rows,
-               "ndt_terms": check_k1(cfg, seq, table, args.seed, dev, w),
+               "ndt_terms": check_k1(cfg, seq, table, args.seed, dev, w,
+                                     jobs),
                "halfcell_add": check_k3(cfg, seq, stats, args.seed, dev, w),
-               "finalize_pack": check_k4(cfg, stats)}
+               "finalize_pack": check_k4_shapes(cfg, cfg3, seq, stats,
+                                                args.seed, dev, jobs)}
 
     # Config 3's kernels: K8a at 256 keyframes, then at one window; K1
-    # grouped and K8b at the verify shape (max_detect_per_window x
-    # max_candidates lanes) against a full 1,024-slot table cache.
-    cfg3 = PipelineConfig.from_json(str(CONFIG3))
+    # grouped, K8b and the gated verify at the verify shape
+    # (max_detect_per_window x max_candidates lanes) against a full
+    # 1,024-slot table cache; K8b and the gated verify also at config 5's
+    # 64 candidates.
     kf = box_store(cfg3, seq, dev)
     results["halfcell_add"].update(check_k3_rebuild(cfg3, kf, dev))
     check_k8a(cfg3, seq, args.seed, dev, 256)
@@ -1191,33 +1475,49 @@ def main(argv=None) -> int:
     results["ndt_terms_grouped"] = check_k1_grouped(
         cfg3, seq, kf, args.seed, dev,
         cfg3.loop.max_detect_per_window * cfg3.loop.max_candidates)
-    results["loop_gate"] = check_k8b(cfg3, seq, kf, args.seed, dev)
+    c3 = cfg3.loop.max_candidates
+    results["loop_gate"] = check_k8b(cfg3, seq, kf, args.seed, dev, c3, jobs)
+    results["loop_gate"]["c64"] = check_k8b(cfg3, seq, kf, args.seed, dev, 64,
+                                            jobs)
+    results["loop_gate_fused"] = check_gated_verify(cfg3, seq, kf, args.seed,
+                                                    dev, c3, jobs)
+    results["loop_gate_fused"]["c64"] = check_gated_verify(
+        cfg3, seq, kf, args.seed, dev, 64, jobs)
     results["lm_ndt_grouped"], conv3 = check_lm(
         "verify", lm_verify_args(cfg3, seq, kf, args.seed, dev,
                                  cfg3.loop.max_detect_per_window
-                                 * cfg3.loop.max_candidates), cfg3.match)
+                                 * cfg3.loop.max_candidates), cfg3.match,
+        jobs)
     eq, lanes = conv2[0] + conv3[0], conv2[1] + conv3[1]
     require(eq >= 0.98 * lanes, f"lm_ndt: converged flags equal to the f32 "
             f"twin's on {eq}/{lanes} lanes (>= 98% required)")
-    del kf
     # The map build is the same on every run; what the whole pipeline does
     # run to run on the draws whose ATE flipped under float atomics.
     check_frontend_twice(cfg3, box_sequence(2, cfg3.n_beams), dev)
     repeats = {"config3_draw2": check_repeat_runs(dev, CONFIG3, 2),
                "config2_draw0": check_repeat_runs(dev, CONFIG2, 0)}
 
-    launches2 = run_entry_point(dev, CONFIG2, 300)
+    launches2, _ = run_entry_point(dev, CONFIG2, 300)
     ate_gate(dev, CONFIG2, REF_FILE)
-    launches3 = run_entry_point(dev, CONFIG3, 600)
+    launches3, detections = run_entry_point(dev, CONFIG3, 600)
     ate_gate(dev, CONFIG3, REF3_FILE)
+    require(launches3["loop_gate_fused"] == detections > 0
+            and launches3["loop_gate"] == 0
+            and launches2["loop_gate_fused"] == 0,
+            f"config 3: {launches3['loop_gate_fused']} gated verify and "
+            f"{launches3['loop_gate']} standalone gate launches for "
+            f"{detections} loop-detection calls (one gated launch each, no "
+            f"standalone gate, expected)")
     for k in KERNELS:
-        if "inside" in k:    # K1: its code runs inside lm_ndt there
+        if "inside" in k:    # K1, K8b: their code runs inside lm_ndt there
             continue
         require(not k["config2"] or launches2[k["name"]] > 0,
                 f"{k['name']}: the config-2 path launched it no time")
         require(launches3[k["name"]] > 0,
                 f"{k['name']}: the config-3 path launched it no time")
     launches = {k: launches2[k] + launches3[k] for k in launches2}
+    read_card_times(jobs)
+    del kf, jobs
 
     rows = [dict(name=k["name"], route="cuda", source=k["source"],
                  replaces=k["replaces"], launches=launches[k["name"]],

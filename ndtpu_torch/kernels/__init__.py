@@ -20,6 +20,12 @@ local_tables ``csrc/local_tables.cu`` (K8a)  ``closure.build_local_table``
 loop_gate    ``csrc/loop_gate.cu`` (K8b)     ``closure._gate_and_pack``
 ============ =============================== =================================
 
+K8b's steps live in ``csrc/loop_gate.cuh``, which ``lm_ndt`` also runs:
+with ``gate=`` one ``lm_ndt`` launch verifies a loop window's ``K x C``
+lanes and gates them (the gated verify, counted as ``lm_ndt_grouped`` and
+as ``loop_gate_fused``); ``loop_gate`` alone gates registrations made
+elsewhere.
+
 K1's per-beam body and block reduction live in ``csrc/ndt_sums.cuh``;
 ``lm_ndt`` runs them once per LM iteration, so on the registration path K1
 is not launched on its own. K3 and K8a share the map build's arithmetic,
@@ -58,17 +64,18 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "ndt_terms",
-           "halfcell_add", "finalize_pack", "local_bands", "local_tables",
-           "loop_gate"]
+__all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
+           "GATE_MAX_LANES", "ndt_terms", "halfcell_add", "finalize_bands",
+           "finalize_pack", "local_bands", "local_tables", "loop_gate"]
 
 #: Launch counts per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "ndt_terms_grouped": 0, "halfcell_add": 0, "finalize_pack": 0,
-            "local_tables": 0, "loop_gate": 0}
+            "local_tables": 0, "loop_gate": 0, "loop_gate_fused": 0}
 
 #: Shared memory one block can have on Hopper (227 KB), and what it gets
 #: without ``cudaFuncSetAttribute`` (48 KB).
@@ -82,17 +89,20 @@ _FLAGS = ["-O3", _ARCH, "-std=c++17", "--fmad=false", "-Xptxas=-v",
           "-Xcompiler", "-fPIC"]
 _lib = None
 _HALFCELL_SCRATCH: dict = {}     # (device index, wh, hh) -> int64 lattice
+_GATE_ARRIVE: dict = {}          # (device index, K) -> int32 counters
+_FINALIZE_BANDS: dict = {}       # (grid, device index) -> K4 launch shape
 _SM_COUNT: dict = {}             # device index -> multiprocessors
 
 _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
 _SIGNATURES = {
-    "lm_ndt_launch": [_P] * 11 + [_I] * 7 + [_F] * 12 + [_I, _P],
+    "lm_ndt_launch": [_P] * 11 + [_I] * 7 + [_F] * 12 + [_P] * 6 + [_I]
+                     + [_F] * 3 + [_I, _I, _P],
     "ndt_terms_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _P],
     "halfcell_add_launch": [_P, _P, _P, _F] + [_P] * 7 + [_I] * 3 + [_D] * 4
                            + [_P],
-    "finalize_pack_launch": [_P, _P, _P, _P, _I, _I, _F, _F, _F, _P],
+    "finalize_pack_launch": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_I, _P],
     "local_tables_launch": [_P] * 5 + [_I] * 7 + [_D] * 4 + [_F] * 3
                            + [_I, _P],
     "loop_gate_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -246,14 +256,62 @@ def _table_args(table, group, b: int, wh: int, hh: int):
     return table.shape[0], group.data_ptr(), True
 
 
-def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None):
+class LoopGate(NamedTuple):
+    """The loop gate's inputs beside a verify's registrations, for the
+    gated :func:`lm_ndt`: ``cand_mask`` bool ``[K, C]`` (candidate slot is
+    real), ``query_idx`` int64 ``[K]``; ``innov_per_kf <= 0`` and
+    ``k_budget = 0`` switch those gates off (see ``csrc/loop_gate.cuh``)."""
+
+    cand_mask: torch.Tensor
+    query_idx: torch.Tensor
+    score_gate: float
+    innov_base: float
+    innov_per_kf: float
+    k_budget: int
+
+
+#: The most candidates per query the gate takes: one thread per candidate
+#: within a block of ``lm_ndt`` (and of the standalone gate).
+GATE_MAX_LANES = 128
+
+
+def _gate_width(c: int) -> int:
+    if c > GATE_MAX_LANES:
+        raise ValueError(
+            f"loop gate: {c} candidates per query; the gate runs one thread "
+            f"per candidate within one block of {GATE_MAX_LANES} threads "
+            f"(LoopConfig.max_candidates <= {GATE_MAX_LANES})")
+    return c
+
+
+def _gate_arrive(dev: torch.device, k: int) -> torch.Tensor:
+    """The gated verify's int32 ``[K]`` arrival counters, allocated (and
+    zeroed) once per (device, K) and kept: every launch leaves them at 0
+    (``csrc/lm_ndt.cu``). The port launches on one stream, so two launches
+    never use them at once."""
+    key = (dev.index, k)
+    buf = _GATE_ARRIVE.get(key)
+    if buf is None:
+        buf = torch.zeros(k, dtype=torch.int32, device=dev)
+        _GATE_ARRIVE[key] = buf
+    return buf
+
+
+def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None,
+           gate: LoopGate | None = None):
     """K2 around K1: every lane's whole LM registration in one launch (see
     ``csrc/lm_ndt.cu``). Returns ``(pose [B,3], hessian [B,3,3], score [B],
     n_iter [B] int32, converged [B] bool)``.
 
     ``cfg`` is a ``MatchConfig`` (read by attribute; ``max_iter`` is the
-    cap); ``table`` and ``group`` are as for :func:`ndt_terms`. Nothing is
-    read back to the host."""
+    cap); ``table`` and ``group`` are as for :func:`ndt_terms`. With
+    ``gate`` (``K`` queries x ``C <= 128`` candidates, ``B = K * C``,
+    ``group`` = the candidates' indices) the same launch also gates the
+    lanes as :func:`loop_gate` does, bit for bit, and three more outputs
+    follow: ``accept [K, C]``, ``innov_rej [K, C]`` bool and ``sqrt_info
+    [K, C, 3, 3]``. Nothing is read back to the host."""
+    if gate is not None:
+        _gate_width(gate.cand_mask.shape[-1])
     wh, hh = _lattice(grid)
     b, n = px.shape
     _check(init_poses, "init_poses", shape=(b, 3))
@@ -271,6 +329,26 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None):
     score = torch.empty((b,), dtype=torch.float32, device=dev)
     n_iter = torch.empty((b,), dtype=torch.int32, device=dev)
     conv = torch.empty((b,), dtype=torch.bool, device=dev)
+    outs = (pose, hess, score, n_iter, conv)
+    gate_args = [None] * 6 + [0, 0.0, 0.0, 0.0, 0]
+    if gate is not None:
+        k, c = gate.cand_mask.shape
+        if not grouped or k * c != b:
+            raise ValueError(f"lm_ndt: the gate takes K x C = {k} x {c} "
+                             f"lanes of a grouped launch, got {b} lanes"
+                             + ("" if grouped else " and no group"))
+        _check(gate.cand_mask, "cand_mask", dtype=torch.bool, shape=(k, c),
+               align=1)
+        _check(gate.query_idx, "query_idx", dtype=torch.int64, shape=(k,))
+        accept = torch.empty((k, c), dtype=torch.bool, device=dev)
+        innov_rej = torch.empty((k, c), dtype=torch.bool, device=dev)
+        sqrt_info = torch.empty((k, c, 3, 3), dtype=torch.float32, device=dev)
+        outs += (accept, innov_rej, sqrt_info)
+        gate_args = [gate.cand_mask.data_ptr(), gate.query_idx.data_ptr(),
+                     accept.data_ptr(), innov_rej.data_ptr(),
+                     sqrt_info.data_ptr(), _gate_arrive(dev, k).data_ptr(), c,
+                     gate.score_gate, gate.innov_base, gate.innov_per_kf,
+                     gate.k_budget]
     if b > 0:
         _call("lm_ndt_launch", "lm_ndt_grouped" if grouped else "lm_ndt",
               init_poses.data_ptr(), px.data_ptr(), py.data_ptr(),
@@ -280,8 +358,10 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None):
               int(cfg.max_iter), grid.x0, grid.y0, 2.0 / grid.cell, cfg.d2,
               cfg.exp_clip, cfg.tol, cfg.reject_tol, cfg.init_lambda,
               cfg.lambda_up, cfg.lambda_down, cfg.max_lambda, cfg.step_clip,
-              smem, _stream(px))
-    return pose, hess, score, n_iter, conv
+              *gate_args, smem, _stream(px))
+        if gate is not None:
+            LAUNCHES["loop_gate_fused"] += 1
+    return outs
 
 
 def _halfcell_scratch(dev: torch.device, wh: int, hh: int) -> torch.Tensor:
@@ -333,18 +413,60 @@ def halfcell_add(n, s, ss, points, mask, weight, grid):
     return n2, s2, ss2
 
 
+def _finalize_smem(rows: int, nx: int) -> int:
+    """K4's shared memory for a band of ``rows`` table rows: 4 grids x
+    ``grid_stride`` cells x 32 B (``csrc/finalize_pack.cu``)."""
+    cells = (rows // 2 + 1) * nx
+    return 4 * (((cells + 2) & ~3) + 1) * 32
+
+
+def finalize_bands(grid, device=None) -> tuple:
+    """K4's launch shape on ``grid``: ``(band_rows, bands, threads, shared
+    bytes)``. Bands as thin as the card holds at once (``bands`` within 8
+    blocks per SM: one-row bands on an H100 at every published grid), each
+    band's ``band_rows // 2 + 1`` cell rows of each of the 4 grids (32 B
+    per cell) within the ``SMEM_BLOCK`` a block gets without an opt-in; one
+    thread per such cell (whole warps, at most 512). A lattice so wide
+    that one row needs more gets one-row bands and the opt-in (set once per
+    process), up to ``SMEM_MAX``; past that it raises. ``device=None``
+    checks the size only. Kept per (grid, device)."""
+    key = (grid, None if device is None else device.index)
+    shape = _FINALIZE_BANDS.get(key)
+    if shape is not None:
+        return shape
+    wh, hh = _lattice(grid)
+    one = _finalize_smem(1, grid.nx)
+    if one > SMEM_MAX:
+        raise ValueError(
+            f"finalize_pack: a band of a {wh}-wide lattice needs {one} B of "
+            f"shared memory, over the {SMEM_MAX} B a block can have")
+    max_rows = 1
+    while max_rows < hh and _finalize_smem(max_rows + 1, grid.nx) \
+            <= SMEM_BLOCK:
+        max_rows += 1
+    resident = 1 if device is None else 8 * _sm_count(device)
+    rows = min(max(1, -(-hh // resident)), max_rows)
+    cells = 4 * (rows // 2 + 1) * grid.nx
+    shape = (rows, -(-hh // rows), min(512, -(-cells // 32) * 32),
+             _finalize_smem(rows, grid.nx))
+    _FINALIZE_BANDS[key] = shape
+    return shape
+
+
 def finalize_pack(n, s, ss, ndt_cfg, grid) -> torch.Tensor:
-    """K4: finalize every cell and write the quad table ``[R, 32]``."""
+    """K4: finalize every cell and write the quad table ``[R, 32]``, one
+    block per band of table rows (:func:`finalize_bands`)."""
     wh, hh = _lattice(grid)
     c = grid.n_cells
     _check(n, "stats.n", shape=(4, c))
-    _check(s, "stats.s", shape=(4, c, 2))
-    _check(ss, "stats.ss", shape=(4, c, 2, 2))
+    _check(s, "stats.s", shape=(4, c, 2), align=8)
+    _check(ss, "stats.ss", shape=(4, c, 2, 2), align=16)
+    rows, bands, threads, smem = finalize_bands(grid, n.device)
     table = torch.empty((hh * wh, 32), dtype=torch.float32, device=n.device)
     _call("finalize_pack_launch", "finalize_pack", n.data_ptr(), s.data_ptr(),
-          ss.data_ptr(), table.data_ptr(), grid.nx, grid.ny,
-          float(ndt_cfg.min_pts), ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min,
-          _stream(n))
+          ss.data_ptr(), table.data_ptr(), grid.nx, grid.ny, rows, bands,
+          threads, float(ndt_cfg.min_pts), ndt_cfg.eig_ratio,
+          ndt_cfg.eig_abs_min, smem, _stream(n))
     return table
 
 
@@ -406,24 +528,23 @@ def local_tables(tables, slot, ok, points, mask, grid, ndt_cfg):
 def loop_gate(cand_mask, converged, score, pose, init, hessian, cand_idx,
               query_idx, score_gate: float, innov_base: float,
               innov_per_kf: float, k_budget: int):
-    """K8b: the loop gate of ``K`` queries x ``C <= 32`` candidates (see
-    ``csrc/loop_gate.cu``). ``cand_mask``/``converged`` bool ``[K, C]``,
-    ``score [K, C]``, ``pose``/``init [K, C, 3]``, ``hessian [K, C, 3, 3]``
-    f32, ``cand_idx`` int32 ``[K, C]``, ``query_idx`` int32 ``[K]``;
-    ``innov_per_kf <= 0`` and ``k_budget = 0`` switch those gates off.
-    Returns ``(accept, innov_rej, sqrt_info [K, C, 3, 3])``."""
+    """K8b: the loop gate of ``K`` queries x ``C <= 128`` candidates over
+    registrations made elsewhere (see ``csrc/loop_gate.cu``).
+    ``cand_mask``/``converged`` bool ``[K, C]``, ``score [K, C]``,
+    ``pose``/``init [K, C, 3]``, ``hessian [K, C, 3, 3]`` f32, ``cand_idx``
+    int64 ``[K, C]``, ``query_idx`` int64 ``[K]``; ``innov_per_kf <= 0`` and
+    ``k_budget = 0`` switch those gates off. Returns ``(accept, innov_rej,
+    sqrt_info [K, C, 3, 3])``."""
     k, c = score.shape
-    if c > 32:
-        raise ValueError(f"loop_gate: {c} candidates per query; the kernel "
-                         f"runs one warp per query (C <= 32)")
+    _gate_width(c)
     _check(cand_mask, "cand_mask", dtype=torch.bool, shape=(k, c), align=1)
     _check(converged, "converged", dtype=torch.bool, shape=(k, c), align=1)
     _check(score, "score")
     _check(pose, "pose", shape=(k, c, 3))
     _check(init, "init", shape=(k, c, 3))
     _check(hessian, "hessian", shape=(k, c, 3, 3))
-    _check(cand_idx, "cand_idx", dtype=torch.int32, shape=(k, c))
-    _check(query_idx, "query_idx", dtype=torch.int32, shape=(k,))
+    _check(cand_idx, "cand_idx", dtype=torch.int64, shape=(k, c))
+    _check(query_idx, "query_idx", dtype=torch.int64, shape=(k,))
     dev = score.device
     accept = torch.empty((k, c), dtype=torch.bool, device=dev)
     innov_rej = torch.empty((k, c), dtype=torch.bool, device=dev)

@@ -8,17 +8,40 @@
 // shift with zero rows outside grid g (pack_quad's jnp.pad), and the
 // concatenation of the 4 grids into one 32-float row per half-cell.
 //
-// One thread per (half-cell r, grid g) writes its 8 floats
-// [mu_x, mu_y, i00, i01, i11, valid, 0, 0] at table[r, 8g .. 8g+7]; four
-// neighbouring threads fill one 128-byte row, so the stores coalesce. Each
-// cell is finalized by the 4 threads of its 2x2 block (recomputing ~40
-// flops is cheaper than a second pass). No NDTMap is materialized on the
-// card path. The per-cell code lives in ndt_cell.cuh, shared with K8a.
+// One block per band of `band_rows` whole lattice rows [h0, h1), whose
+// table rows are one contiguous span of the [R, 32] table. Table row hy of
+// grid g = (gx, gy) reads cell row (hy - gy) >> 1 (ndt_cell.cuh), so a band
+// needs at most band_rows / 2 + 1 cell rows of each grid. The block (as
+// many threads as those cells, up to 512)
+//   1. finalizes each (grid, cell) of those rows once, one thread per cell,
+//      reading n, (sx, sy) and (sxx, sxy, syx, syy) as one 4-, 8- and
+//      16-byte load that coalesce along nx, one grid plane at a time, with
+//      ndtpu::finalize_pack_cell unchanged, into a shared-memory buffer of
+//      [4][grid_stride][8] floats (32 B per cell; grid_stride pads each
+//      grid's region so that the 4 grids of one row sit in distinct banks);
+//   2. writes the band's rows x wh x 32 floats as consecutive 16-byte
+//      stores, thread q taking float4 q of the span: the upsample and the
+//      shift are an index into the buffer, and slots outside grid g are
+//      zero rows, as before.
+// The wrapper (kernels.finalize_bands) cuts bands as thin as the card
+// holds at once: one-row bands on an H100 at every published grid, so each
+// cell is finalized twice (by the two bands whose rows read it) where the
+// one-thread-per-slot kernel this replaces finalized it four times; a
+// block has one thread per cell of its band, up to 512 (416 threads at
+// config 2, 320 at config 3, 512 for config 5's 1,024 cells). On the H100
+// 256-thread blocks were slower at configs 2 and 3 (two rounds of loads
+// and finalizes in series) and 1,024-thread blocks at config 5; issuing a
+// thread's loads of several cells before their finalizes was slower too.
 //
-// What bounds it on Hopper: the writes (5.2 MB at config 2) and the stats
-// reads (~1.4 MB); the arithmetic, including two IEEE divides and sqrts per
-// cell (no fast math), is minor. The op order and the 1e-20 / 1e-30 guards
-// of _eig2x2_sym are kept as written.
+// What bounds it on Hopper: the table writes (5.2 MB at config 2, 33.7 MB
+// at config 5's 513 x 513 lattice) and the statistics reads (1.4 / 7.3
+// MB); the arithmetic, two IEEE divides and square roots per cell (no fast
+// math) on half the cells, is minor. At configs 2 and 3 a band's chain of
+// loads, finalizes, one barrier and stores sets the time, over ~1.5 blocks
+// per SM; at config 5 the band's finalizes and its stores do not overlap
+// within a block. The op order and the 1e-20 / 1e-30 guards of
+// _eig2x2_sym are kept as written, so the table is bit-identical to the
+// per-slot kernel's.
 
 #include <cuda_runtime.h>
 
@@ -26,39 +49,96 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 512;
 
-__global__ void __launch_bounds__(kThreads)
-finalize_pack_kernel(const float* __restrict__ n_in,
-                     const float* __restrict__ s_in,
-                     const float* __restrict__ ss_in,
-                     float4* __restrict__ table, int nx, int ny,
-                     float min_pts, float eig_ratio, float eig_abs_min) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= 4 * (2 * nx + 1) * (2 * ny + 1)) return;
-  float4* out = table + (size_t)t * 2;
-  const int c = ndtpu::quad_slot_cell(t, nx, ny);
-  if (c < 0) {
-    ndtpu::store_zero_slot(out);
-    return;
-  }
-  const int cell = (t & 3) * nx * ny + c;
-  ndtpu::finalize_pack_cell(n_in[cell], s_in[2 * cell + 0],
-                            s_in[2 * cell + 1], ss_in[4 * cell + 0],
-                            ss_in[4 * cell + 1], ss_in[4 * cell + 3], min_pts,
-                            eig_ratio, eig_abs_min, out);
+// Cells of one grid's region in the buffer: at least `cells`, = 1 mod 4.
+__host__ __device__ inline int grid_stride(int band_rows, int nx) {
+  const int cells = (band_rows / 2 + 1) * nx;
+  return ((cells + 2) & ~3) + 1;
 }
+
+// First cell row of grid g that table rows >= h0 read.
+__device__ __forceinline__ int first_cell_row(int h0, int g) {
+  return max(h0 - (g >> 1), 0) >> 1;
+}
+
+__global__ void __launch_bounds__(kMaxThreads)
+finalize_pack_kernel(const float* __restrict__ n_in,
+                     const float2* __restrict__ s_in,
+                     const float4* __restrict__ ss_in,
+                     float4* __restrict__ table, int nx, int ny,
+                     int band_rows, float min_pts, float eig_ratio,
+                     float eig_abs_min) {
+  extern __shared__ float4 cells[];   // [4][gs] cells x 2 float4
+  const int wh = 2 * nx + 1;
+  const int h0 = blockIdx.x * band_rows;
+  const int h1 = min(h0 + band_rows, 2 * ny + 1);
+  const int rows = band_rows / 2 + 1;
+  const int gs = grid_stride(band_rows, nx);
+
+  // 1. Finalize the band's cells of each grid.
+  for (int t = threadIdx.x; t < 4 * rows * nx; t += blockDim.x) {
+    const int g = t / (rows * nx);
+    const int rem = t - g * rows * nx;
+    const int lr = rem / nx;
+    const int i = rem - lr * nx;
+    const int j = first_cell_row(h0, g) + lr;
+    const int last = min(h1 - 1 - (g >> 1), 2 * ny - 1);   // last uy read
+    if (last < 0 || j > (last >> 1)) continue;
+    const int cell = (g * ny + j) * nx + i;
+    const float2 s = s_in[cell];
+    const float4 q = ss_in[cell];
+    ndtpu::finalize_pack_cell(n_in[cell], s.x, s.y, q.x, q.y, q.w, min_pts,
+                              eig_ratio, eig_abs_min,
+                              cells + 2 * (g * gs + lr * nx + i));
+  }
+  __syncthreads();
+
+  // 2. The band's contiguous span of table rows, 16 bytes per thread.
+  float4* out = table + (size_t)h0 * wh * 8;
+  const int n4 = (h1 - h0) * wh * 8;
+  for (int q = threadIdx.x; q < n4; q += blockDim.x) {
+    const int r = q >> 3;                  // row of the span
+    const int k = q & 7;                   // float4 k of the row: grid k / 2
+    const int g = k >> 1;
+    const int ry = r / wh;
+    const int uy = h0 + ry - (g >> 1);     // row of grid g's x2 block
+    const int ux = r - ry * wh - (g & 1);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (uy >= 0 && uy < 2 * ny && ux >= 0 && ux < 2 * nx) {
+      const int lr = (uy >> 1) - first_cell_row(h0, g);
+      v = cells[2 * (g * gs + lr * nx + (ux >> 1)) + (k & 1)];
+    }
+    out[q] = v;
+  }
+}
+
+// The shared-memory opt-in above 48 KB, set once per process (per size).
+int g_smem_opt_in = 48 * 1024;
 
 }  // namespace
 
 extern "C" int finalize_pack_launch(const void* n_in, const void* s_in,
                                     const void* ss_in, void* table, int nx,
-                                    int ny, float min_pts, float eig_ratio,
-                                    float eig_abs_min, void* stream) {
-  const int total = 4 * (2 * nx + 1) * (2 * ny + 1);
-  const int blocks = (total + kThreads - 1) / kThreads;
-  finalize_pack_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)n_in, (const float*)s_in, (const float*)ss_in,
-      (float4*)table, nx, ny, min_pts, eig_ratio, eig_abs_min);
+                                    int ny, int band_rows, int bands,
+                                    int threads, float min_pts,
+                                    float eig_ratio, float eig_abs_min,
+                                    int smem_bytes, void* stream) {
+  if (band_rows < 1 || bands * band_rows < 2 * ny + 1 || threads < 32 ||
+      threads > kMaxThreads || smem_bytes < 4 * grid_stride(band_rows, nx) * 32)
+    return (int)cudaErrorInvalidValue;
+  if (smem_bytes > g_smem_opt_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        finalize_pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();   // clear it, so the next launch's check is clean
+      return (int)err;
+    }
+    g_smem_opt_in = smem_bytes;
+  }
+  finalize_pack_kernel<<<bands, threads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)n_in, (const float2*)s_in, (const float4*)ss_in,
+      (float4*)table, nx, ny, band_rows, min_pts, eig_ratio, eig_abs_min);
   return (int)cudaGetLastError();
 }

@@ -52,9 +52,35 @@
 // cost it replaces: the composite route spent ~80 small torch launches and
 // a host sync every 4 iterations per LM iteration; this is one launch per
 // registration call and no host sync.
+//
+// The gated verify (kGate = true) also runs K8b's loop gate
+// (loop_gate.cuh) in the same launch, for the loop verify's K queries x C
+// candidates (lane b = query b / C, candidate b % C): after thread 0 has
+// written lane b's results it makes them visible device-wide
+// (__threadfence) and counts the lane in arrive[q] (atomicAdd); the block
+// that brings the count to C, the last of its query, gates the query's C
+// lanes, C <= 128 threads of it taking one lane each, and sets arrive[q]
+// back to 0 for the next launch. The traps of this last-block pattern:
+// - the fence on both sides: the writer's fence sits between its stores
+//   and its atomicAdd; the last block's thread 0 fences again after its
+//   atomicAdd, before the barrier that tells its other threads;
+// - stale L1 lines: the last block reads the other lanes' results with
+//   __ldcg (cached in L2 only, where the writers' stores are), never
+//   through L1, which is not coherent across SMs;
+// - counters left non-zero: every block of a launch counts its lane
+//   exactly once (no block leaves the kernel early), so a launch that runs
+//   to its end leaves every arrive[q] at 0. A launch that is refused never
+//   touches them; one that faults leaves the context unusable, and with
+//   it the scratch. The wrapper keeps one scratch per (device, K) and the
+//   port launches on one stream, so two launches never share the counters
+//   at once.
+// The ungated instantiation (front end, ungated verify) compiles to the
+// kernel without the gate: the gate is an `if constexpr` block.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
+#include "loop_gate.cuh"
 #include "ndt_sums.cuh"
 
 namespace {
@@ -69,6 +95,18 @@ struct LmParams {
       step_clip;
 };
 
+// The gated verify's extra inputs and outputs (kGate only).
+struct GateArgs {
+  const uint8_t* cand_mask;      // [K * C] bool
+  const long long* query_idx;    // [K]
+  uint8_t* accept;               // [K * C]
+  uint8_t* innov_rej;            // [K * C]
+  float* sqrt_info;              // [K * C, 3, 3]
+  int* arrive;                   // [K], 0 between launches
+  ndtpu::GateParams p;
+};
+
+template <bool kGate>
 __global__ void __launch_bounds__(kNdtThreads)
 lm_ndt_kernel(const float* __restrict__ init_poses,
               const float* __restrict__ px, const float* __restrict__ py,
@@ -77,7 +115,7 @@ lm_ndt_kernel(const float* __restrict__ init_poses,
               const int* __restrict__ group, float* __restrict__ pose_out,
               float* __restrict__ hess_out, float* __restrict__ score_out,
               int* __restrict__ iter_out, unsigned char* __restrict__ conv_out,
-              LmParams p) {
+              LmParams p, GateArgs gate) {
   extern __shared__ float beams[];           // sx[n], sy[n], m[n]
   __shared__ float part[kNdtThreads / 32][kNdtSums];
   __shared__ float sums[kNdtSums];
@@ -197,6 +235,47 @@ lm_ndt_kernel(const float* __restrict__ init_poses,
     iter_out[b] = it;
     conv_out[b] = (conv && f < 0.f) ? 1 : 0;
   }
+
+  if constexpr (kGate) {
+    __shared__ int last;
+    __shared__ float ranked[ndtpu::kGateMaxLanes];
+    const int c_count = gate.p.c_count;
+    const int q = b / c_count;
+    if (threadIdx.x == 0) {
+      __threadfence();             // lane b's results, then the count
+      last = atomicAdd(gate.arrive + q, 1) == c_count - 1;
+      if (last) __threadfence();   // the count, then the other lanes' reads
+    }
+    __syncthreads();
+    if (!last) return;
+    ndtpu::GateLane in{};
+    const int lane = q * c_count + threadIdx.x;
+    if (threadIdx.x < c_count) {
+      in.cand = gate.cand_mask[lane] != 0;
+      in.conv = __ldcg(conv_out + lane) != 0;
+      in.score = __ldcg(score_out + lane);
+      in.px = __ldcg(pose_out + 3 * lane + 0);
+      in.py = __ldcg(pose_out + 3 * lane + 1);
+      in.ix = init_poses[3 * lane + 0];
+      in.iy = init_poses[3 * lane + 1];
+      in.cand_idx = group[lane];   // the candidate's index, not clamped
+      in.query_idx = gate.query_idx[q];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) in.h[k] = __ldcg(hess_out + 9 * lane + k);
+    }
+    const size_t base = (size_t)q * c_count;
+    ndtpu::gate_query(in, gate.p, ranked, gate.accept + base,
+                      gate.innov_rej + base, gate.sqrt_info + 9 * base);
+    if (threadIdx.x == 0) gate.arrive[q] = 0;
+  }
+}
+
+// Raise the dynamic shared-memory limit of one instantiation (> 48 KB).
+template <bool kGate>
+cudaError_t opt_in(int smem_bytes) {
+  return cudaFuncSetAttribute(lm_ndt_kernel<kGate>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes);
 }
 
 }  // namespace
@@ -212,11 +291,20 @@ extern "C" int lm_ndt_launch(const void* init_poses, const void* px,
                              float reject_tol, float init_lambda,
                              float lambda_up, float lambda_down,
                              float max_lambda, float step_clip,
-                             int smem_bytes, void* stream) {
+                             const void* cand_mask, const void* query_idx,
+                             void* accept, void* innov_rej, void* sqrt_info,
+                             void* arrive, int c_count, float score_gate,
+                             float innov_base, float innov_per_kf,
+                             int k_budget, int smem_bytes, void* stream) {
+  // arrive != null: the gated verify, b = K * c_count lanes in a grouped
+  // launch (group holds the candidate indices).
+  const bool gated = arrive != nullptr;
+  if (gated && (c_count < 1 || c_count > ndtpu::kGateMaxLanes ||
+                b % c_count != 0 || group == nullptr))
+    return (int)cudaErrorInvalidValue;
   if (smem_bytes > 48 * 1024) {   // beyond the default: opt in (> 4,096 beams)
-    cudaError_t err = cudaFuncSetAttribute(
-        lm_ndt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+    const cudaError_t err = gated ? opt_in<true>(smem_bytes)
+                                  : opt_in<false>(smem_bytes);
     if (err != cudaSuccess) {
       cudaGetLastError();   // clear it, so the next launch's check is clean
       return (int)err;
@@ -225,10 +313,15 @@ extern "C" int lm_ndt_launch(const void* init_poses, const void* px,
   LmParams p{n, wh, hh, rows_per_table, n_tables, max_iter, x0, y0, inv, d2,
              exp_clip, tol, reject_tol, init_lambda, lambda_up, lambda_down,
              max_lambda, step_clip};
-  lm_ndt_kernel<<<b, kNdtThreads, smem_bytes, (cudaStream_t)stream>>>(
+  const GateArgs g{(const uint8_t*)cand_mask, (const long long*)query_idx,
+                   (uint8_t*)accept, (uint8_t*)innov_rej, (float*)sqrt_info,
+                   (int*)arrive,
+                   {c_count, score_gate, innov_base, innov_per_kf, k_budget}};
+  auto* kernel = gated ? lm_ndt_kernel<true> : lm_ndt_kernel<false>;
+  kernel<<<b, kNdtThreads, smem_bytes, (cudaStream_t)stream>>>(
       (const float*)init_poses, (const float*)px, (const float*)py,
       (const float*)mask, (const float4*)table, (const int*)group,
       (float*)pose_out, (float*)hess_out, (float*)score_out, (int*)iter_out,
-      (unsigned char*)conv_out, p);
+      (unsigned char*)conv_out, p, g);
   return (int)cudaGetLastError();
 }

@@ -14,10 +14,13 @@ Two kernels carry it, each with a plain twin of the same signature here:
 - :func:`gate_and_pack` (K8b) / :func:`_gate_and_pack`: the acceptance
   gate and the factors' sqrt information.
 
-The verification itself is ``match_batch_packed`` with the whole cache and
-``group`` = candidate index (K1's grouped row offset). ``lax.top_k`` over
-masked distances becomes a stable ascending sort, which orders equal
-distances by index as ``top_k`` does.
+The verification itself registers against the whole cache with ``group`` =
+candidate index (K1's grouped row offset). On the card it is one launch
+that also gates the lanes (``ndt.match.match_batch_packed_gated``, K8b's
+device code inside ``lm_ndt``); on the CPU it is ``match_batch_packed``
+followed by :func:`_gate_and_pack`. ``lax.top_k`` over masked distances
+becomes a stable ascending sort, which orders equal distances by index as
+``top_k`` does.
 """
 
 from __future__ import annotations
@@ -194,31 +197,37 @@ def _gate_and_pack(res: ndt_match.MatchResult, cands: LoopCandidates,
                       innov_rej=innov_rej)
 
 
+def _k_budget(loop_cfg: LoopConfig) -> int:
+    """The top-K accept budget the kernels take (0: none)."""
+    k = loop_cfg.max_accept_per_query
+    return k if k and k < loop_cfg.max_candidates else 0
+
+
 def gate_and_pack(res: ndt_match.MatchResult, cands: LoopCandidates,
                   loop_cfg: LoopConfig, init, query_index) -> LoopResult:
-    """K8b wrapper over ``[K, C]`` lanes: CUDA tensors go to the kernel
-    (f32, C <= 32), CPU tensors to :func:`_gate_and_pack`."""
+    """K8b wrapper over ``[K, C]`` lanes of registrations made elsewhere:
+    CUDA tensors go to the standalone kernel (f32, C <= 128), CPU tensors
+    to :func:`_gate_and_pack`."""
     if not res.pose.is_cuda:
         return _gate_and_pack(res, cands, loop_cfg, init, query_index)
-    k = loop_cfg.max_accept_per_query
     acc, rej, sqrt_info = kernels.loop_gate(
         cands.mask.contiguous(), res.converged.contiguous(),
         res.score.contiguous(), res.pose.contiguous(), init.contiguous(),
-        res.hessian.contiguous(), cands.idx.to(torch.int32).contiguous(),
-        torch.as_tensor(query_index, device=res.pose.device)
-        .to(torch.int32).contiguous(),
+        res.hessian.contiguous(), cands.idx.contiguous(),
+        torch.as_tensor(query_index, dtype=torch.int64,
+                        device=res.pose.device).contiguous(),
         loop_cfg.score_gate, loop_cfg.max_innovation_base,
-        loop_cfg.max_innovation_per_kf,
-        k if k and k < loop_cfg.max_candidates else 0)
+        loop_cfg.max_innovation_per_kf, _k_budget(loop_cfg))
     return LoopResult(j=cands.idx, z=res.pose, sqrt_info=sqrt_info,
                       score=res.score, accept=acc, innov_rej=rej)
 
 
-def verify_registrations(kf: KeyframeStore, query_points, query_mask,
-                         query_poses, cands: LoopCandidates,
-                         loop_cfg: LoopConfig, match_cfg: MatchConfig):
-    """The registrations of :func:`verify_candidates_cached_flat`, before
-    the gate: ``(MatchResult [K, C], init [K, C, 3])``."""
+def _verify_lanes(kf: KeyframeStore, query_points, query_mask,
+                  query_poses, cands: LoopCandidates, loop_cfg: LoopConfig,
+                  match_cfg: MatchConfig):
+    """The verify's ``K*C`` flat lanes: ``(points, mask, init, grid,
+    match_cfg, group)`` for a grouped call over the whole cache, with
+    ``verify_max_iter`` and ``verify_beam_stride`` applied."""
     if kf.tables is None:
         raise ValueError("KeyframeStore built without tables")
     lgrid = local_grid_config(loop_cfg)
@@ -236,8 +245,20 @@ def verify_registrations(kf: KeyframeStore, query_points, query_mask,
     init = se2.between(kf.poses[flat_idx], qp)                    # [K*C, 3]
     pts = query_points[:, None].expand(k, c, n, 2).reshape(k * c, n, 2)
     msk = query_mask[:, None].expand(k, c, n).reshape(k * c, n)
+    return pts, msk, init, lgrid, match_cfg, flat_idx
+
+
+def verify_registrations(kf: KeyframeStore, query_points, query_mask,
+                         query_poses, cands: LoopCandidates,
+                         loop_cfg: LoopConfig, match_cfg: MatchConfig):
+    """The registrations of :func:`verify_candidates_cached_flat`, before
+    the gate: ``(MatchResult [K, C], init [K, C, 3])``."""
+    pts, msk, init, lgrid, mcfg, flat_idx = _verify_lanes(
+        kf, query_points, query_mask, query_poses, cands, loop_cfg,
+        match_cfg)
     res = ndt_match.match_batch_packed(pts, msk, kf.tables, init, lgrid,
-                                       match_cfg, group=flat_idx)
+                                       mcfg, group=flat_idx)
+    k, c = cands.idx.shape
     return (ndt_match.MatchResult(*(a.reshape((k, c) + a.shape[1:])
                                     for a in res)),
             init.reshape(k, c, 3))
@@ -252,13 +273,33 @@ def verify_candidates_cached_flat(kf: KeyframeStore, query_points,
     """Verify ``K`` queries x ``C`` candidates (``cands [K, C]``) as ONE
     ``K*C``-lane registration against the cached tables: lane ``(k, c)``
     registers ``query_points[k] [N, 2]`` against ``kf.tables[idx[k, c]]``
-    (the whole cache goes to K1 with ``group`` = candidate index) from the
+    (the whole cache with ``group`` = candidate index) from the
     estimate-predicted relative pose, then the gate. ``verify_max_iter``
     and ``verify_beam_stride`` apply. Every lane runs, masked ones
-    included."""
-    res, init = verify_registrations(kf, query_points, query_mask,
-                                     query_poses, cands, loop_cfg, match_cfg)
-    return gate_and_pack(res, cands, loop_cfg, init, query_index)
+    included. On the card registration and gate are one launch
+    (``match_batch_packed_gated``), bit-equal to ``match_batch_packed``
+    followed by :func:`gate_and_pack`, with no host sync; on the CPU,
+    :func:`verify_registrations` and :func:`_gate_and_pack`."""
+    if not query_points.is_cuda:
+        res, init = verify_registrations(kf, query_points, query_mask,
+                                         query_poses, cands, loop_cfg,
+                                         match_cfg)
+        return _gate_and_pack(res, cands, loop_cfg, init, query_index)
+    pts, msk, init, lgrid, mcfg, flat_idx = _verify_lanes(
+        kf, query_points, query_mask, query_poses, cands, loop_cfg,
+        match_cfg)
+    gate = kernels.LoopGate(
+        cands.mask.contiguous(),
+        torch.as_tensor(query_index, dtype=torch.int64,
+                        device=query_points.device).contiguous(),
+        loop_cfg.score_gate, loop_cfg.max_innovation_base,
+        loop_cfg.max_innovation_per_kf, _k_budget(loop_cfg))
+    res, (acc, rej, sqrt_info) = ndt_match.match_batch_packed_gated(
+        pts, msk, kf.tables, init, lgrid, mcfg, flat_idx, gate)
+    k, c = cands.idx.shape
+    return LoopResult(j=cands.idx, z=res.pose.reshape(k, c, 3),
+                      sqrt_info=sqrt_info, score=res.score.reshape(k, c),
+                      accept=acc, innov_rej=rej)
 
 
 def detect_loops_cached_flat(kf: KeyframeStore, query_points, query_mask,

@@ -39,13 +39,14 @@ from ndtpu_torch.ndt import grid as ndt_grid
 
 __all__ = ["MatchResult", "transform_terms", "point_terms_quad", "solve3",
            "lm_loop_batch", "match", "match_batch", "match_batch_packed",
-           "ndt_terms", "ndt_terms_ref", "terms_sgh", "lm_ndt", "lm_ndt_ref",
-           "CALLS"]
+           "match_batch_packed_gated", "ndt_terms", "ndt_terms_ref",
+           "terms_sgh", "lm_ndt", "lm_ndt_ref", "CALLS"]
 
 _SYNC_EVERY = 4
 
-#: Calls of :func:`match_batch_packed` (CPU and card) since the caller last
-#: zeroed it; on the card each call with lanes launches ``lm_ndt`` once.
+#: Calls of :func:`match_batch_packed` (CPU and card) and of
+#: :func:`match_batch_packed_gated` since the caller last zeroed it; on the
+#: card each call with lanes launches ``lm_ndt`` once.
 CALLS = {"match_batch_packed": 0}
 
 
@@ -364,6 +365,14 @@ def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
     per-lane results equal the one-phase loop's.
     """
     CALLS["match_batch_packed"] += 1
+    init, px, py, mask_f, group = _packed_args(points, mask, table,
+                                               init_poses, group)
+    return lm_ndt(init, px, py, mask_f, table, grid, cfg, group)
+
+
+def _packed_args(points, mask, table, init_poses, group):
+    """``(init, px, py, mask_f, group)`` of a packed call as ``lm_ndt``
+    takes them (``group`` int32, or None for a shared table)."""
     dt = points.dtype
     mask_f = mask.to(dt)
     px, py = points[..., 0].contiguous(), points[..., 1].contiguous()
@@ -374,7 +383,34 @@ def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
         group = group.to(torch.int32).contiguous()
     elif group is not None:
         raise ValueError("group= requires an [S, R, L] table")
-    return lm_ndt(init_poses.to(dt), px, py, mask_f, table, grid, cfg, group)
+    return init_poses.to(dt), px, py, mask_f, group
+
+
+def match_batch_packed_gated(points, mask, tables, init_poses,
+                             grid: GridConfig, cfg: MatchConfig, group,
+                             gate: kernels.LoopGate):
+    """:func:`match_batch_packed` over grouped tables ``[S, R, L]`` with
+    the loop gate in the same launch: CUDA tensors only, one gated
+    ``lm_ndt`` launch (``kernels.lm_ndt(gate=...)``), counted as a
+    ``match_batch_packed`` call; no host sync. Lanes are ``K`` queries x
+    ``C`` candidates, ``group [K*C]`` the candidates' indices. Returns
+    ``(MatchResult [K*C], (accept, innov_rej [K, C] bool, sqrt_info [K, C,
+    3, 3]))``. On the CPU the loop verify runs :func:`match_batch_packed`
+    and the gate's twin instead."""
+    CALLS["match_batch_packed"] += 1
+    if not points.is_cuda:
+        raise ValueError("match_batch_packed_gated: expected CUDA tensors; "
+                         "on the CPU use match_batch_packed and "
+                         "loop.closure._gate_and_pack")
+    if cfg.compact_table:
+        raise NotImplementedError(
+            "compact_table on the card is ROADMAP Queue B (K1 bf16-pair "
+            "rows)")
+    init, px, py, mask_f, group = _packed_args(points, mask, tables,
+                                               init_poses, group)
+    out = kernels.lm_ndt(init.contiguous(), px, py, mask_f.contiguous(),
+                         tables, grid, cfg, group, gate)
+    return MatchResult(*out[:5]), out[5:]
 
 
 def match_batch(points, mask, ndt_map: ndt_grid.NDTMap, init_poses,

@@ -5,6 +5,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
     python3 profile_port.py [--config configs/config3_loop_closure.json]
                             [--seed 0] [--runs 3] [--out FILE.json]
+    python3 profile_port.py --kernels [--seed 0] [--out FILE.json]
 
 On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
 300 scans, 360 beams), after two warm-up runs of ``run_slam_windowed``:
@@ -19,14 +20,25 @@ On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
    (``_wb_appends``) and inside them the K8a table writes and the loop
    detection (``_wb_loops``, of it the ``K*C``-lane registrations), the
    smoother (``_wb_smooth``) and the map maintenance (``_wb_maps``);
-3. one run of the kernel route under ``torch.profiler``: device kernels
+3. one run of the kernel route under ``torch.profiler`` (and one more
+   without it after, ``wall_after_profiler_s``: a profiler session leaves
+   the later launches of the process slower): device kernels
    per scan, the union of their busy intervals over the profiled span,
-   the largest kernels by device time, ``lm_ndt``'s device time per launch,
-   and the card time per call of K3 ``halfcell_add`` (memset, scatter and
-   pool) and K8a ``local_tables``, by call shape (K3: the window's scans,
-   the rebuild of every keyframe slot, others by point count);
+   the largest kernels by device time, ``lm_ndt``'s device time per launch
+   (the gated verify's launches apart), and the card time per call of K3
+   ``halfcell_add`` (memset, scatter and pool) and K8a ``local_tables``, by
+   call shape (K3: the window's scans, the rebuild of every keyframe slot,
+   others by point count), and of K4 ``finalize_pack``, by role (the map
+   table of a window's first pass, the temporary map's of its second);
 4. with ``--shadow``, one more run in which every ``lm_ndt`` call is also
    made on the composite route and compared bit for bit.
+
+``--kernels`` runs only :func:`kernel_times` (event and card ms per call of
+K4 at three shapes, the standalone K8b at 4 x 16 and 4 x 64, and the
+config-3 loop verify as the pipeline calls it). It uses only entry points
+that older checkouts of the port also have, so a copy of this script run
+from such a checkout's root times that checkout's kernels (a route it
+lacks reads null).
 
 Prints one line per section and, last, one JSON object with every number
 (also written to ``--out``). Fails without a card: no number here comes
@@ -43,6 +55,135 @@ from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+
+def card_ms(fn, names=None, reps: int = 20):
+    """Card time per call of ``fn`` (ms): the device time of the kernels
+    (and memsets, copies) whose names contain one of ``names``, or of all of
+    them for None, summed over ``reps`` calls under ``torch.profiler`` after
+    a warm-up and divided by ``reps``; None when the profiler records no
+    such device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and (names is None or any(n in e.name for n in names)))
+    return us / 1e3 / reps if us > 0 else None
+
+
+def seeded_stats(grid, seed: int, dev, n_points: int = 400_000):
+    """Map statistics on ``grid`` from ``n_points`` clustered points made
+    from ``seed`` over the grid's whole extent (K3 on the card)."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    rng = np.random.default_rng(seed + 7)
+    lo = np.array([grid.x0, grid.y0])
+    span = np.array([grid.nx, grid.ny]) * grid.cell
+    centers = lo + rng.uniform(0.02, 0.98, (n_points // 200, 2)) * span
+    pts = (centers[rng.integers(0, len(centers), n_points)]
+           + rng.normal(0.0, 0.6, (n_points, 2)))
+    pts = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+    return ndt_grid.halfcell_add(
+        ndt_grid.empty_stats(grid, torch.float32, dev), pts.contiguous(),
+        torch.ones(n_points, dtype=torch.bool, device=dev), 1.0, grid)
+
+
+def loop_queries(cfg3, seq, kf, seed: int, dev, c: int):
+    """A real verification at the end of the box-world lap: 4 queries
+    (scans 284-296 at their true poses + noise) x ``c`` candidates of the
+    keyframe cache ``kf``, with config 3's loop settings and
+    ``max_candidates = c``. Returns ``(loop, (points, mask, poses), query
+    indices, candidates)``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ndtpu_torch.loop import closure
+
+    loop = dataclasses.replace(cfg3.loop, max_candidates=c)
+    rng = np.random.default_rng(seed + 3)
+    q = torch.tensor([284, 288, 292, 296])
+    qpose = (seq.gt_poses[q].double() + torch.as_tensor(
+        rng.normal(0.0, [0.1, 0.1, 0.02], (4, 3)))).float().to(dev)
+    qidx = q.to(dev)
+    cands = closure.find_candidates(kf, qpose, qidx, loop)
+    return (loop, (seq.points[q].to(dev), seq.mask[q].to(dev), qpose), qidx,
+            cands)
+
+
+def kernel_times(seed: int, dev) -> dict:
+    """Event ms (median of 20 synchronized calls) and card ms (profiler,
+    mean of 20) per call of: K4 on the config-2 and config-3 map tables of
+    box-world draw ``seed`` (300 scans at their true poses) and on config
+    5's 513 x 513 lattice (statistics from ``seed``); the standalone K8b
+    (``closure.gate_and_pack``) and the loop verify as the pipeline calls
+    it (``closure.verify_candidates_cached_flat``, every device kernel of
+    the call) on :func:`loop_queries` x 16 and x 64 candidates of a
+    config-3 keyframe cache. Every event time is read before the
+    first profiler session (which leaves later launches slower), and once
+    more after the last (``ms_after_profiler``). A route this checkout
+    refuses (the older gate took at most 32 candidates) reads None with the
+    reason."""
+    from chip_smoke import box_sequence, box_store, map_stats, time_ms
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.loop import closure
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    calls = {}     # key -> (fn, kernel names for the card time)
+    out = {}
+    cfg3 = PipelineConfig.from_json(str(ROOT / "configs"
+                                        / "config3_loop_closure.json"))
+    seq = box_sequence(seed, cfg3.n_beams)
+    for name in ("config2_full_sequence", "config3_loop_closure",
+                 "config5_multisession"):
+        cfg = PipelineConfig.from_json(str(ROOT / "configs"
+                                           / f"{name}.json"))
+        st = (seeded_stats(cfg.grid, seed, dev) if name.startswith("config5")
+              else map_stats(seq, cfg.grid, dev))
+        key = f"finalize_pack {name.split('_')[0]}"
+        calls[key] = (lambda st=st, cfg=cfg: ndt_grid.finalize_pack(
+            st, cfg.ndt, cfg.grid), ["finalize_pack_kernel"])
+        out[key] = dict(rows=int(calls[key][0]().shape[0]))
+    kf = box_store(cfg3, seq, dev)
+    for c in (16, 64):
+        loop, (qpts, qmsk, qpose), qidx, cands = loop_queries(
+            cfg3, seq, kf, seed, dev, c)
+        res, init = closure.verify_registrations(kf, qpts, qmsk, qpose,
+                                                 cands, loop, cfg3.match)
+        gate = (lambda res=res, cands=cands, loop=loop, init=init,
+                qidx=qidx: closure.gate_and_pack(res, cands, loop, init, qidx))
+        verify = (lambda cands=cands, loop=loop, q=(qpts, qmsk, qpose),
+                  qidx=qidx: closure.verify_candidates_cached_flat(
+                      kf, *q, cands, loop, cfg3.match, qidx))
+        for key, fn, names in ((f"loop_gate K=4 C={c}", gate,
+                                ["loop_gate_kernel"]),
+                               (f"verify K=4 C={c}", verify, None)):
+            try:
+                fn()
+            except ValueError as exc:
+                out[key] = dict(ms=None, card_ms=None, refused=str(exc))
+                continue
+            calls[key] = (fn, names)
+            out[key] = {}
+    for key, (fn, _) in calls.items():
+        out[key]["ms"] = time_ms(fn)
+    for key, (fn, names) in calls.items():
+        out[key]["card_ms"] = card_ms(fn, names)
+    for key, (fn, _) in calls.items():
+        out[key]["ms_after_profiler"] = time_ms(fn)
+    return out
 
 
 def shadow_run(inputs, cfg):
@@ -127,6 +268,19 @@ def phase_run(inputs, cfg):
     return wall, dict(spent)
 
 
+def finalize_calls(events, k4_roles) -> dict:
+    """Card-only ms per call of K4, by role (``map``: a window's first
+    table, of the map; ``pass2``: the temporary map's), from its device
+    events in stream order."""
+    k4 = defaultdict(list)
+    tables = [e for e in events if "finalize_pack_kernel" in e[2]]
+    for role, e in zip(k4_roles, tables):
+        k4[role].append((e[1] - e[0]) / 1e3)
+    return dict(calls=len(k4_roles), events=len(tables), **{
+        role: dict(calls=len(v), ms_per_call=sum(v) / len(v), ms_max=max(v))
+        for role, v in k4.items()})
+
+
 def map_build_calls(events, k3_calls, k8a_calls, cfg):
     """Card-only ms per call of K3 and K8a, by call shape, from the device
     events in stream order. A K3 call zeroes its lattice (a memset, or a
@@ -168,16 +322,19 @@ def map_build_calls(events, k3_calls, k8a_calls, cfg):
 
 def profiled_run(inputs, cfg, n_scans: int):
     """Device kernels per scan, device busy share of the profiled span,
-    top kernels, lm_ndt's device time per launch, and K3's and K8a's card
-    time per call by call shape."""
+    top kernels, lm_ndt's and the gated verify's device time per launch,
+    K3's and K8a's card time per call by call shape, and K4's by role."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ndtpu_torch import kernels
+    from ndtpu_torch.slam import pipeline
 
-    k3_calls, k8a_calls = [], []
-    k3, k8a = kernels.halfcell_add, kernels.local_tables
+    k3_calls, k8a_calls, k4_roles = [], [], []
+    k3, k8a, k4 = kernels.halfcell_add, kernels.local_tables, \
+        kernels.finalize_pack
+    frontend = pipeline._window_frontend
 
     def k3_logged(n, s, ss, points, *a):
         k3_calls.append(points.shape[0])
@@ -187,13 +344,26 @@ def profiled_run(inputs, cfg, n_scans: int):
         k8a_calls.append(slot.shape[0])
         return k8a(tables, slot, *a)
 
+    def k4_logged(*a):
+        k4_roles.append("pass2" if k4_roles and k4_roles[-1] != "window"
+                        else "map")
+        return k4(*a)
+
+    def frontend_logged(*a, **k):
+        k4_roles.append("window")       # dropped below
+        return frontend(*a, **k)
+
     kernels.halfcell_add, kernels.local_tables = k3_logged, k8a_logged
+    kernels.finalize_pack, pipeline._window_frontend = k4_logged, \
+        frontend_logged
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             wall, _, _ = run_once(inputs, cfg)
     finally:
         kernels.halfcell_add, kernels.local_tables = k3, k8a
+        kernels.finalize_pack, pipeline._window_frontend = k4, frontend
+    k4_roles = [r for r in k4_roles if r != "window"]
     spans, by_name, events = [], defaultdict(lambda: [0, 0.0]), []
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
@@ -214,8 +384,11 @@ def profiled_run(inputs, cfg, n_scans: int):
             busy += b - end
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    lm = [v for k, v in by_name.items() if "lm_ndt_kernel" in k]
+    lm = [v for k, v in by_name.items()
+          if "lm_ndt_kernel" in k and "lm_ndt_kernel<true>" not in k]
     lm_n = sum(v[0] for v in lm)
+    gated = [v for k, v in by_name.items() if "lm_ndt_kernel<true>" in k]
+    gated_n = sum(v[0] for v in gated)
     return dict(
         profiled_wall_s=wall, device_events=len(spans),
         device_events_per_scan=len(spans) / n_scans,
@@ -224,6 +397,10 @@ def profiled_run(inputs, cfg, n_scans: int):
         lm_ndt_launches=lm_n,
         lm_ndt_device_ms_per_launch=(sum(v[1] for v in lm) / lm_n
                                      if lm_n else None),
+        gated_verify_launches=gated_n,
+        gated_verify_device_ms_per_launch=(sum(v[1] for v in gated)
+                                           / gated_n if gated_n else None),
+        finalize_pack=finalize_calls(events, k4_roles),
         map_build=map_build_calls(events, k3_calls, k8a_calls, cfg),
         top=[dict(name=k[:80], count=v[0], ms=v[1]) for k, v in top])
 
@@ -238,6 +415,9 @@ def main(argv=None) -> int:
     parser.add_argument("--shadow", action="store_true",
                         help="also check every lm_ndt call of one run "
                         "against the composite route, bit for bit")
+    parser.add_argument("--kernels", action="store_true",
+                        help="time K4, K8b and the loop verify alone "
+                        "(kernel_times) and nothing else")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import subprocess
@@ -256,9 +436,15 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda", 0)
+    if args.kernels:
+        kernels.build()
+        result = dict(card=smi, kernels=kernel_times(args.seed, dev))
+        for key, row in result["kernels"].items():
+            print(f"[profile] {key}: {row}")
+        return _emit(result, smi, args.out)
     cfg = PipelineConfig.from_json(args.config)
     seq = box_sequence(args.seed, cfg.n_beams)
-    dev = torch.device("cuda", 0)
     inputs = tuple(t.to(dev) for t in (seq.points, seq.mask, seq.odom))
     n = seq.points.shape[0]
     kernels.build()
@@ -295,12 +481,17 @@ def main(argv=None) -> int:
     print(f"[profile] phases ({wall_p:.4f} s): " + ", ".join(
         f"{k} {v:.4f} s ({shares[k]:.1%})" for k, v in spent.items()))
     prof = profiled_run(inputs, cfg, n)
+    wall_after, _, _ = run_once(inputs, cfg)
+    print(f"[profile] one more run after the profiler: {wall_after:.4f} s "
+          f"(the profiler leaves later launches slower)")
     print(f"[profile] torch.profiler: {prof['device_events']} device events "
           f"({prof['device_events_per_scan']:.1f} per scan), busy "
           f"{prof['device_busy_ms']:.2f} ms of {prof['profiled_wall_s']:.4f}"
           f" s ({prof['device_busy_share']:.1%}); lm_ndt "
           f"{prof['lm_ndt_launches']} launches, "
-          f"{prof['lm_ndt_device_ms_per_launch']} ms each on the card")
+          f"{prof['lm_ndt_device_ms_per_launch']} ms each on the card; gated "
+          f"verify {prof['gated_verify_launches']} launches, "
+          f"{prof['gated_verify_device_ms_per_launch']} ms each")
     for t in prof["top"]:
         print(f"[profile]   {t['ms']:9.3f} ms {t['count']:6d} x {t['name']}")
     mb = prof["map_build"]
@@ -311,17 +502,26 @@ def main(argv=None) -> int:
                 f", {op} {ms:.4f}" for op, ms in
                 v.get("ms_per_call_by_op", {}).items()) + ")"
             for shape, v in mb[name].items()))
+    k4 = prof["finalize_pack"]
+    print(f"[profile] finalize_pack on the card per call: " + ", ".join(
+        f"{role} {v['ms_per_call']:.4f} ms (max {v['ms_max']:.4f}, "
+        f"{v['calls']} calls)" for role, v in k4.items()
+        if isinstance(v, dict)))
     result = dict(card=smi, config=Path(args.config).name, seed=args.seed,
                   scans=n, wall_s=walls,
                   scans_per_s={k: [(n - 1) / w for w in v]
                                for k, v in walls.items()},
                   phase_wall_s=wall_p, phase_s=spent, profiler=prof,
-                  shadow=shadow)
+                  wall_after_profiler_s=wall_after, shadow=shadow)
+    return _emit(result, smi, args.out)
+
+
+def _emit(result: dict, smi: str, out) -> int:
     print(smi)
     line = json.dumps(result)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        Path(out).write_text(line + "\n")
     print(line)
     return 0
 

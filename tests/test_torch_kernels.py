@@ -1,8 +1,11 @@
 """The CUDA kernels (lm_ndt shared and grouped, K1 ndt_terms shared and
 grouped, K3 halfcell_add, K4 finalize_pack, K8a local_tables, K8b
-loop_gate) against their plain twins, on the card; K3 also against the
-plain model of its fixed-point arithmetic, bit for bit, and K3 and K8a
-for the same result on every launch and under any order of the points.
+loop_gate, and the gated verify that runs K8b inside lm_ndt) against their
+plain twins, on the card; K3 also against the plain model of its
+fixed-point arithmetic, bit for bit, K3, K4 and K8a for the same result on
+every launch (K3 and K8a also under any order of the points), and the
+gated verify bit for bit against lm_ndt_grouped followed by the
+standalone K8b.
 
 Every test here needs a CUDA card and skips without one (the kernels have
 no CPU mode; their twins are covered by test_torch_grid / test_torch_match).
@@ -17,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from ndtpu.config import GridConfig, LoopConfig, NDTMapConfig
 from ndtpu_torch import kernels
+from ndtpu_torch.config import GridConfig, LoopConfig, NDTMapConfig
 from ndtpu_torch.loop import closure
 from ndtpu_torch.ndt import grid as tgrid
 from ndtpu_torch.ndt import match as tmatch
@@ -136,6 +139,31 @@ def test_finalize_pack_matches_twin(dev):
     valid = [8 * g + 5 for g in range(4)]
     assert torch.equal(out[:, valid], ref[:, valid])
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("config", ["config2_full_sequence",
+                                    "config3_loop_closure",
+                                    "config5_multisession"])
+def test_finalize_pack_bands_match_twin_and_repeat(dev, config):
+    """K4 by bands of table rows at the published grids (R = 40,401,
+    25,921 and 263,169 rows) on statistics from a seed: valid flags exact,
+    the rest within rtol 1e-5 of the twin (chip_smoke's table rule), and
+    bit-identical on a second launch; one launch per call."""
+    import chip_smoke as cs
+    from ndtpu_torch.config import PipelineConfig
+    from profile_port import seeded_stats
+
+    cfg = PipelineConfig.from_json(str(cs.ROOT / "configs" / f"{config}.json"))
+    st = seeded_stats(cfg.grid, 1, dev)
+    kernels.reset_launches()
+    out = tgrid.finalize_pack(st, cfg.ndt, cfg.grid)
+    again = tgrid.finalize_pack(st, cfg.ndt, cfg.grid)
+    assert kernels.LAUNCHES["finalize_pack"] == 2
+    ref = tgrid.finalize_pack_ref(st, cfg.ndt, cfg.grid)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    cs._table_check(config, out, ref)
+    assert float(ref[:, [8 * g + 5 for g in range(4)]].sum()) > 0
 
 
 def test_ndt_terms_matches_twin(dev):
@@ -318,11 +346,21 @@ def test_local_tables_unchanged_when_ok_masks_keyframes(dev):
 
 
 def test_loop_gate_matches_f64_twin(dev):
-    """K8b against _gate_and_pack in f64: score ties under the top-K
-    budget, fewer than K accepted, innovation rejections and an accepted
-    indefinite Hessian (its information floored, finite)."""
+    """K8b against _gate_and_pack in f64 at 16 candidates: score ties under
+    the top-K budget, fewer than K accepted, innovation rejections and an
+    accepted indefinite Hessian (its information floored, finite)."""
+    _loop_gate_case(dev, 16)
+
+
+def test_loop_gate_64_candidates_matches_f64_twin(dev):
+    """As above at config 5's 64 candidates (two warps per query, the rank
+    over shared memory)."""
+    _loop_gate_case(dev, 64)
+
+
+def _loop_gate_case(dev, c):
     rng = np.random.default_rng(6)
-    k, c = 3, 16
+    k = 3
     a = rng.normal(size=(k, c, 3, 3))
     hess = np.einsum("kcij,kclj->kcil", a, a) + 50.0 * np.eye(3)
     hess[2, 1] = [[40.0, 0.0, 3.0], [0.0, -5.0, 0.0], [3.0, 0.0, 2.0]]
@@ -457,10 +495,42 @@ def test_lm_ndt_refuses_f64_and_compact(lm_shapes):
                                                       compact_table=True))
 
 
-def test_match_batch_packed_makes_no_host_sync(lm_shapes):
-    """torch.cuda.set_sync_debug_mode("error") around one call."""
+def test_match_batch_packed_makes_no_host_sync(lm_shapes, loop_store):
+    """torch.cuda.set_sync_debug_mode("error") around one call, and around
+    one gated loop verify (``verify_candidates_cached_flat``)."""
     import chip_smoke as cs
 
     for args, cfg in lm_shapes.values():
         if args[6] is None:
             cs.check_no_sync(args, cfg)
+    cfg3, seq, kf = loop_store
+    cs.gated_verify_identity(cfg3, seq, kf, 0, torch.device("cuda"), 16)
+
+
+@pytest.fixture(scope="module")
+def loop_store():
+    """Config 3 and box-world draw 0 with its 1,024-slot keyframe cache (as
+    ``chip_smoke`` builds it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke as cs
+    from ndtpu_torch.config import PipelineConfig
+
+    cfg3 = PipelineConfig.from_json(str(cs.CONFIG3))
+    seq = cs.box_sequence(0, cfg3.n_beams)
+    return cfg3, seq, cs.box_store(cfg3, seq, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("c", [16, 64])
+def test_gated_verify_bit_equal_to_lm_ndt_then_loop_gate(loop_store, c):
+    """One gated lm_ndt launch per verify: the five registration outputs
+    and the three gate outputs bit-equal to lm_ndt_grouped followed by the
+    standalone K8b on the same inputs, two gated calls in a row equal (the
+    arrival counters reset), no host sync, and its gate against the f64
+    twin on its own registrations (see chip_smoke.gated_verify_identity);
+    config 3's 16 candidates and config 5's 64."""
+    import chip_smoke as cs
+
+    cfg3, seq, kf = loop_store
+    g = cs.gated_verify_identity(cfg3, seq, kf, 0, torch.device("cuda"), c)
+    assert bool(g["ref"].accept.any())

@@ -42,18 +42,47 @@ _IMPORT = re.compile(r"^\s*(import|from) (jax|ndtpu)(\.|\s|$)")
 
 
 def test_no_jax_import_lines_in_port():
-    """No line of the port or the smoke imports ``jax`` or ``ndtpu``
-    (``ndtpu_torch`` is not ``ndtpu``)."""
+    """No line of the port, the smoke, the profiler or the card's kernel
+    tests (run there without the JAX conftest) imports ``jax`` or
+    ``ndtpu`` (``ndtpu_torch`` is not ``ndtpu``)."""
     assert _IMPORT.match("from ndtpu.config import X")
     assert _IMPORT.match("import ndtpu")
     assert not _IMPORT.match("from ndtpu_torch import kernels")
     offenders = []
     for path in [*sorted((ROOT / "ndtpu_torch").rglob("*.py")),
-                 ROOT / "chip_smoke.py"]:
+                 ROOT / "chip_smoke.py", ROOT / "profile_port.py",
+                 ROOT / "tests" / "test_torch_kernels.py"]:
         for i, line in enumerate(path.read_text().splitlines(), 1):
             if _IMPORT.match(line):
                 offenders.append(f"{path}:{i}")
     assert not offenders, offenders
+
+
+_KERNEL_TESTS_PROBE = """
+import importlib.util, sys
+sys.modules["jax"] = None
+sys.modules["ndtpu"] = None
+sys.path.insert(0, {root!r})
+spec = importlib.util.spec_from_file_location(
+    "card_tests", {path!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+import profile_port
+assert not any(m in ("jax", "ndtpu") or m.startswith(("jax.", "ndtpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("ok")
+"""
+
+
+def test_card_kernel_tests_import_without_jax_package():
+    """``tests/test_torch_kernels.py`` (and ``profile_port``, which the
+    smoke and those tests use) import with ``jax`` and ``ndtpu`` blocked,
+    as on the machine with the card."""
+    probe = _KERNEL_TESTS_PROBE.format(
+        root=str(ROOT), path=str(ROOT / "tests" / "test_torch_kernels.py"))
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                          text=True, timeout=300, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
 
 
 def test_chip_smoke_fails_without_card():
