@@ -41,10 +41,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``_window_frontend`` twice from one state (bit-equal poses and map
    tables), and box-world config-3 draw 2 and config-2 draw 0 three times
    each (their ATEs, and the first window and stage where runs part);
+   then the smoother's kernels on the graph of that config-3 run (1,024
+   pose and 2,048 factor slots, its newest poses moved): K5
+   ``factor_linearize`` (whole graph, gathered rows, chi^2, the fresh
+   window) and K7b ``local_assemble`` against their f32 plain versions at
+   rtol 1e-5, K6 ``pcg_solve`` against the f32 and f64 plain solves (also
+   its 0-iteration mode, one launch and no host sync per ``pcg`` call, and
+   the dense library solve timed beside it), K7a ``local_select`` bit for
+   bit, each bit-identical on a second launch; and ``incremental_update``
+   through the kernels (no plain version reached) against the plain route
+   in f32 and f64 for the local and global takes, the settled check and
+   the full solve, and ``local_update`` with a K7a probe without a host
+   sync;
 4. config 2 through its entry point: ``ndtpu_torch.run.main`` on
    ``configs/config2_full_sequence.json``, 300 scans, ``--device cuda``,
    with every launch counter (and the counts of ``match_batch_packed``
-   and loop-detection calls) reset just before and read just after;
+   and loop-detection calls, the smoother's takes, full solves and PCG
+   solves) reset just before and read just after;
 5. the config-2 ATE gate: box-world draws 0-2 through
    ``run_slam_windowed``, against the JAX reference's ATE on the same
    sequences (``tests/data/torch_config2_box300_ref.json``) and dead
@@ -57,19 +70,23 @@ Phases (any failure exits non-zero, and no result line is printed):
    phase 4; also ``lm_ndt_grouped``, K8a and the gated verify
    ``loop_gate_fused`` in phase 6), exactly one ``lm_ndt*`` launch per
    ``match_batch_packed`` call, and in phase 6 one gated verify per
-   loop-detection call and no standalone K8b launch. K1's and K8b's own
-   launches are not required there: on the main path their code runs
-   inside ``lm_ndt``, and they are held to their twins in phase 3.
+   loop-detection call and no standalone K8b launch; K5, K7a and K7b
+   launched in both phases, K6 in phase 6 (config 2 may never take the
+   global path), one ``pcg_solve`` launch per PCG solve, and a full solve
+   in phase 6. K1's and K8b's own launches are not required there: on the
+   main path their code runs inside ``lm_ndt``, and they are held to their
+   twins in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches
-(phases 4 and 6 together), errors, times and bounds, and the repeated
-runs' ATEs; the last line is
+(phases 4 and 6 together), errors, times and bounds, the repeated runs'
+ATEs and the smoother's counts; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import statistics
@@ -121,6 +138,16 @@ KERNELS = [
          replaces="ndtpu/loop/closure.py:171", inside="loop_gate_fused"),
     dict(name="loop_gate_fused", source=_CSRC + "lm_ndt.cu",
          replaces="ndtpu/loop/closure.py:171", config2=False),
+    dict(name="factor_linearize", source=_CSRC + "factor_linearize.cu",
+         replaces="ndtpu/graph/factors.py:225", config2=True),
+    # Config 2's runs may never take the global path nor reach the full
+    # solve (PERF.md), so K6 is required in the config-3 phase only.
+    dict(name="pcg_solve", source=_CSRC + "pcg_solve.cu",
+         replaces="ndtpu/graph/solve.py:167", config2=False),
+    dict(name="local_select", source=_CSRC + "local_system.cu",
+         replaces="ndtpu/graph/incremental.py:120", config2=True),
+    dict(name="local_assemble", source=_CSRC + "local_system.cu",
+         replaces="ndtpu/dist/schur.py:318", config2=True),
 ]
 
 
@@ -341,7 +368,7 @@ def bits_equal(a, b) -> bool:
     import torch
 
     if isinstance(a, torch.Tensor):
-        raw = lambda t: t.contiguous().view(torch.uint8)
+        raw = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
         return (a.shape == b.shape and a.dtype == b.dtype
                 and torch.equal(raw(a), raw(b)))
     return all(bits_equal(x, y) for x, y in zip(a, b))
@@ -1067,10 +1094,11 @@ def check_frontend_twice(cfg, seq, dev, n_windows: int = 20):
           f"bit-equal")
 
 
-def check_repeat_runs(dev, config, seed: int, runs: int = 3):
+def check_repeat_runs(dev, config, seed: int, runs: int = 3, keep=None):
     """Box-world draw ``seed`` through ``run_slam_windowed`` ``runs`` times:
     the ATEs, and where the runs first part (window and stage, from the
-    stages' fingerprints) if they do."""
+    stages' fingerprints) if they do. The first run's final state is
+    appended to ``keep`` (a list) when given."""
     import torch
 
     from ndtpu_torch.config import PipelineConfig
@@ -1090,6 +1118,8 @@ def check_repeat_runs(dev, config, seed: int, runs: int = 3):
                       in zip(log, results[0][2])
                       if not (f is None or torch.equal(f, f0))), None)
         parts.append(first)
+    if keep is not None:
+        keep.append(results[0][0])
     print(f"[smoke] {config.name} box-world draw {seed}, {runs} runs: ATE "
           + " / ".join(f"{a:.4f}" for a in ates) + " m, loops "
           + " / ".join(map(str, loops)) + "; trajectories bit-equal to run "
@@ -1307,25 +1337,477 @@ def check_no_sync(args, cfg):
           "host sync (set_sync_debug_mode('error'))")
 
 
+def smoother_state(state, seed: int):
+    """The smoother's state at the end of a run (``state``: a ``SlamState``)
+    with its 20 newest live poses moved by seeded noise (0.05 m, 0.01 rad),
+    so an update has work to do, and its last step set to inf."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch.graph import incremental as inc
+
+    g = state.graph
+    n = int(g.n_poses)
+    lo = max(n - 20, 0)
+    rng = np.random.default_rng(seed + 8)
+    poses = g.poses.clone()
+    noise = rng.normal(0.0, [0.05, 0.05, 0.01], (n - lo, 3))
+    poses[lo:n] += torch.as_tensor(noise, dtype=poses.dtype,
+                                   device=poses.device)
+    return inc.SmootherState(
+        graph=g._replace(poses=poses), lam=state.sm_lam,
+        last_max_delta=torch.full_like(state.sm_last_delta, float("inf")),
+        step=state.sm_step)
+
+
+def graph_on(g, device, dtype):
+    """A pose graph's copy on ``device``, float fields in ``dtype``."""
+    return type(g)(*(t.to(device, dtype) if t.is_floating_point()
+                     else t.to(device) for t in g))
+
+
+def _rel_check(name, out, ref, rtol=1e-5):
+    """``|out - ref| <= rtol * max|ref|`` per array, all finite; returns the
+    largest abs error."""
+    import torch
+
+    worst = 0.0
+    for k, (o, r) in enumerate(zip(out, ref)):
+        require(bool(torch.isfinite(o).all()),
+                f"{name}: output {k} not finite")
+        err = float((o - r).abs().max()) if o.numel() else 0.0
+        scale = float(r.abs().max()) if r.numel() else 0.0
+        require(err <= rtol * scale, f"{name}: output {k} off by {err:.3e} "
+                f"(tol {rtol:g} x max {scale:.3e})")
+        worst = max(worst, err)
+    return worst
+
+
+#: f32 operations per row of K5 (between error and Jacobians, two 3 x 3
+#: products, the whitened residual, the Huber weight, weight and mask, the
+#: chi^2 term), counted from csrc/pose_graph.cuh; ~30 per prior.
+K5_ROW_FLOPS = 180
+#: K6, counted from csrc/pcg_solve.cu: per live factor in the set-up (two
+#: sides' A^T A and A^T r) and per iteration (y_f, two sides' A^T y); per
+#: pose in the set-up (damping, _inv3, M^-1 r, dots) and per iteration
+#: (damp * p, the updates of x, r, z, p, three dots).
+K6_SETUP_FACTOR, K6_ITER_FACTOR = 120, 69
+K6_SETUP_POSE, K6_ITER_POSE = 80, 57
+
+
+def _flat(lin):
+    return [*lin[0], *lin[1]]
+
+
+def check_k5(sm, cfg3, jobs=None):
+    """K5 against ``factor_linearize_ref`` (f32, on the card) on a real
+    graph: the whole graph, the local path's gathered rows, chi^2 only and
+    the fresh window; each array within rtol 1e-5 of its max, chi^2 and
+    the window's max within rtol 1e-5; bit-identical on a second launch."""
+    import torch
+
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import incremental as inc
+
+    g, huber = sm.graph, cfg3.solver.huber_delta
+    args = fct._graph_args(g)
+    run = lambda: fct.linearize(g, huber)
+    out, again = run(), run()
+    ref = fct.factor_linearize_ref(*args, huber)
+    chi, chi2 = fct.chi2(g, huber), fct.chi2(g, huber)
+    chi_ref = torch.sum(ref[0][2] ** 2) + torch.sum(ref[1][1] ** 2)
+    torch.cuda.synchronize()
+    require(bits_equal(_flat(out), _flat(again)), "K5: two launches differ")
+    require(bits_equal(chi, chi2), "K5 chi2: two launches differ")
+    err = _rel_check("K5 linearize", _flat(out), _flat(ref))
+    _rel_check("K5 chi2", [chi[None]], [chi_ref[None]])
+    sel = inc.local_select(g, cfg3.solver, g.n_between - 1)
+    loc = inc._local_lin(g, g.poses, sel, huber)
+    loc_ref = fct.factor_linearize_ref(
+        g.poses, g.bet_i, g.bet_j, g.bet_z, g.bet_sqrt_info, sel["f_sel"],
+        g.prior_idx, g.prior_z, g.prior_sqrt_info, sel["p_act"], huber,
+        fid=sel["fid"])
+    require(bits_equal(_flat(loc), _flat(inc._local_lin(g, g.poses, sel,
+                                                        huber))),
+            "K5 gathered: two launches differ")
+    err = max(err, _rel_check("K5 gathered", _flat(loc), _flat(loc_ref)))
+    win, win_ref = inc.fresh_residual_max(g), inc.fresh_residual_max_ref(g)
+    _rel_check("K5 fresh window", [win[None]], [win_ref[None]])
+    ms = time_ms(run)
+    plain = time_ms(lambda: fct.factor_linearize_ref(*args, huber))
+    f, p = g.bet_i.shape[0], g.prior_idx.shape[0]
+    live = int(g.bet_mask.sum())
+    # Every row's mask read and Ai, Aj, r written (85 B); a live row's two
+    # poses (24 B), z, sqrt-info and two indices read (88 B); per prior
+    # 61 B read, 48 written. Only live rows need the arithmetic.
+    bd = bound(f * 85 + live * 88 + p * 109 + 16,
+               live * K5_ROW_FLOPS + p * 30)
+    print(f"[smoke] K5 factor_linearize F={f} ({live} live) "
+          f"P={p}: vs f32 plain max abs err {err:.3e} (rtol 1e-5 of each "
+          f"array's max; also the gathered K={sel['fid'].shape[0]} rows), "
+          f"chi2 {float(chi):.6e} vs {float(chi_ref):.6e}, fresh-window max "
+          f"{float(win):.6e} vs {float(win_ref):.6e}; bit-identical on a "
+          f"second launch; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, **bd)
+    card_time(jobs, "K5 factor_linearize", row, "card_ms", run,
+              ["linearize_"])
+    return row
+
+
+def check_k6(sm, cfg3, jobs=None):
+    """K6 against the f32 plain ``pcg_solve_ref`` (on the card) and the f64
+    plain version (CPU) on the same system. The kernel sums in another
+    order than either, so it is not bit-equal to them: it passes when its
+    error against f64 is <= 2 x the f32 plain version's + 1e-6 x max|x| and
+    its iteration count is within 1 of the f32 plain version's. Also:
+    bit-identical on a second launch, one launch per ``pcg`` call and no
+    host sync in it, the 0-iteration mode (the settled check's step)
+    within rtol 1e-5, and the dense library solve of the same damped
+    system timed beside it."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import solve as slv
+
+    g, cfg = sm.graph, cfg3.solver
+    lin = fct.factor_linearize_ref(*fct._graph_args(g), cfg.huber_delta)
+    lam = torch.tensor(cfg.init_lambda, dtype=torch.float32,
+                       device=g.poses.device)
+    run = lambda: slv.pcg_solve(g, lin, None, lam, cfg.pcg_max_iter,
+                                cfg.pcg_tol)
+    x, it, _ = run()
+    again = run()
+    xp, itp, _ = slv.pcg_solve_ref(g, lin, None, lam, cfg.pcg_max_iter,
+                                   cfg.pcg_tol)
+    lin64 = tuple(tuple(t.cpu().double() for t in part) for part in lin)
+    x64, it64, _ = slv.pcg_solve_ref(graph_on(g, "cpu", torch.float64), lin64,
+                                     None, lam.cpu().double(),
+                                     cfg.pcg_max_iter, cfg.pcg_tol)
+    torch.cuda.synchronize()
+    require(bits_equal((x, it), again[:2]), "K6: two launches differ")
+    require(bool(torch.isfinite(x).all()), "K6: x not finite")
+    ek = float((x.cpu().double() - x64).abs().max())
+    ep = float((xp.cpu().double() - x64).abs().max())
+    xmax = float(x64.abs().max())
+    require(ek <= 2.0 * ep + 1e-6 * xmax,
+            f"K6: {ek:.3e} off f64, over 2 x the f32 plain version's "
+            f"{ep:.3e} + 1e-6 x {xmax:.3e}")
+    require(abs(int(it) - int(itp)) <= 1,
+            f"K6: {int(it)} iterations, the f32 plain version {int(itp)}")
+    _, it0, z0 = slv.pcg_solve(g, lin, None, 0.0, 0, cfg.pcg_tol, 1e-8)
+    _, _, z0p = slv.pcg_solve_ref(g, lin, None, 0.0, 0, cfg.pcg_tol, 1e-8)
+    require(int(it0) == 0, "K6: iterations with max_iter 0")
+    _rel_check("K6 settled step", [z0[None]], [z0p[None]])
+    before = kernels.LAUNCHES["pcg_solve"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slv.pcg(g, lin, lam, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    require(kernels.LAUNCHES["pcg_solve"] == before + 1,
+            "K6: not one pcg_solve launch per pcg call")
+    ms = time_ms(run)
+    plain = time_ms(lambda: slv.pcg_solve_ref(g, lin, None, lam,
+                                              cfg.pcg_max_iter, cfg.pcg_tol),
+                    reps=5)
+    h, b = slv.normal_equations(g, lin)
+    damp = lam * torch.clamp(torch.abs(torch.diagonal(h)), min=1e-8)
+    dead = (1.0 - g.pose_mask.float()).repeat_interleave(3)
+    hd = h + torch.diag(damp + dead)
+
+    def library():
+        chol, _ = torch.linalg.cholesky_ex(hd)
+        return torch.cholesky_solve(-b[:, None], chol)
+
+    lib = time_ms(library)
+    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
+    live, n_it = int(g.bet_mask.sum()), int(it)
+    live_v = int(g.pose_mask.sum())
+    # Every factor's mask (1 B), a live factor's linearization and indices
+    # (100 B), the priors (57 B) and the pose mask read once; x [V, 3] and
+    # the two scalars written. A dead pose's rhs is 0, so its r, z, p and x
+    # stay 0: only live factors and poses need the arithmetic.
+    bd = bound(f + live * 100 + p * 57 + v + v * 12 + 8,
+               live * (K6_SETUP_FACTOR + n_it * K6_ITER_FACTOR)
+               + live_v * (K6_SETUP_POSE + n_it * K6_ITER_POSE))
+    print(f"[smoke] K6 pcg_solve V={v} ({live_v} live) F={f} ({live} live): "
+          f"{n_it} "
+          f"iterations (f32 plain {int(itp)}, f64 {int(it64)}); vs f64 max "
+          f"abs err {ek:.3e} (f32 plain {ep:.3e}; max|x| {xmax:.3e}); "
+          f"bit-identical on a second launch; one launch per pcg call, no "
+          f"host sync; settled step {float(z0):.6e} vs {float(z0p):.6e}; "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (dense "
+          f"cholesky_ex + cholesky_solve of the {3 * v} x {3 * v} damped "
+          f"system: a direct solve) {lib:.4f} ms, bound {bd['bound_ms']:.6f} "
+          f"ms ({bd['bound_by']})")
+    row = dict(max_abs_err=ek, ms=ms, plain_ms=plain, **bd, iterations=n_it,
+               plain_f32_err_vs_f64=ep)
+    row.update(library_ms=lib, library="torch.linalg.cholesky_ex + "
+               "torch.cholesky_solve of solve_dense's damped system: a "
+               "direct solve, not the same algorithm")
+    card_time(jobs, "K6 pcg_solve", row, "card_ms", run, ["pcg_solve"])
+    return row
+
+
+#: What K7a writes: the selection the local path reads.
+SELECT_KEYS = ("ok", "pid", "in_set", "fid", "f_sel", "ri", "rj", "li", "lj",
+               "rp", "lp", "p_act")
+
+
+def check_k7a(sm, cfg3, jobs=None):
+    """K7a bit-equal to ``local_select_ref`` (on the card) with ``since`` =
+    the newest factor, none, and 40 factors back, and on a second launch;
+    timed with the newest factor fresh."""
+    import torch
+
+    from ndtpu_torch.graph import incremental as inc
+
+    g, cfg = sm.graph, cfg3.solver
+    oks = []
+    for since in (g.n_between - 1, None, g.n_between - 40):
+        one, two = (inc.local_select(g, cfg, since) for _ in range(2))
+        ref = inc.local_select_ref(g, cfg, since)
+        torch.cuda.synchronize()
+        for key in SELECT_KEYS:
+            require(bits_equal(one[key], ref[key].to(one[key].dtype)),
+                    f"K7a: {key} differs from the plain selection")
+            require(bits_equal(one[key], two[key]),
+                    f"K7a: {key} differs on a second launch")
+        oks.append(bool(one["ok"]))
+    since = g.n_between - 1
+    run = lambda: inc.local_select(g, cfg, since)
+    ms = time_ms(run)
+    plain = time_ms(lambda: inc.local_select_ref(g, cfg, since))
+    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
+    sel = run()
+    p_loc, f_loc = sel["p_loc"], sel["fid"].shape[0]
+    # Indices and masks read (17 B per factor, 1 per pose, 9 per prior),
+    # the flags and int64 outputs written; ~8 integer operations per factor
+    # per pass (the sweeps and two more) and per pose, at the f32 rate.
+    bd = bound(f * 17 + v + p * 9 + 16 + (1 + p_loc + f_loc + p)
+               + 8 * (p_loc + 5 * f_loc + 2 * p),
+               8.0 * f * (cfg.local_hops + 2) + 8.0 * v)
+    print(f"[smoke] K7a local_select V={v} F={f}: bit-equal to the plain "
+          f"selection and on a second launch (since = the newest factor, "
+          f"none, 40 back: ok {oks}); {int(sel['in_set'].sum())} active "
+          f"poses and {int(sel['f_sel'].sum())} touched factors selected; "
+          f"kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
+          f"({bd['bound_by']})")
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, **bd)
+    card_time(jobs, "K7a local_select", row, "card_ms", run,
+              ["local_select"])
+    return row
+
+
+def check_k7b(sm, cfg3, jobs=None):
+    """K7b against ``assemble_local_ref`` (f32, on the card) on a real
+    local selection (the newest factor fresh): h_ii and b_i within rtol
+    1e-5 of their max, bit-identical on a second launch."""
+    import torch
+
+    from ndtpu_torch.dist import schur
+    from ndtpu_torch.graph import incremental as inc
+
+    g, cfg = sm.graph, cfg3.solver
+    sel = inc.local_select(g, cfg, g.n_between - 1)
+    (ai, aj, r), (ap, rp) = inc._local_lin(g, g.poses, sel, cfg.huber_delta)
+    args = (sel["p_loc"], ai, aj, r, ap, rp, sel["f_sel"], sel["ri"],
+            sel["li"], sel["rj"], sel["lj"], sel["p_act"], sel["rp"],
+            sel["lp"])
+    run = lambda: schur.assemble_local(*args)
+    out, again = run(), run()
+    ref = schur.assemble_local_ref(*args)
+    torch.cuda.synchronize()
+    require(bool(sel["ok"]), "K7b: the selection does not fit")
+    require(bits_equal(out, again), "K7b: two launches differ")
+    err = _rel_check("K7b", out, ref)
+    ms = time_ms(run)
+    plain = time_ms(lambda: schur.assemble_local_ref(*args))
+    n, k, p = sel["p_loc"], ai.shape[0], ap.shape[0]
+    fs = sel["f_sel"]
+    ii, jj = fs & (sel["ri"] == 0), fs & (sel["rj"] == 0)
+    own, both = int(ii.sum()) + int(jj.sum()), int((ii & jj).sum())
+    # Blocks and selection read (117 B per row, 65 per prior), h_ii and b_i
+    # written; 54 operations per 3 x 3 contribution (own and cross), 18 per
+    # A^T r.
+    bd = bound(k * 117 + p * 65 + 36 * n * n + 12 * n,
+               54.0 * (own + 2 * both) + 18.0 * own)
+    print(f"[smoke] K7b local_assemble n={n} K={k} ({int(fs.sum())} "
+          f"selected, {int(sel['in_set'].sum())} interior poses): vs f32 "
+          f"plain max abs err {err:.3e} (rtol 1e-5 of the max); "
+          f"bit-identical on a second launch; kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain, **bd)
+    card_time(jobs, "K7b local_assemble", row, "card_ms", run,
+              ["local_assemble"])
+    return row
+
+
+#: The plain versions the smoother must not reach with CUDA tensors.
+PLAIN_SMOOTHER = (("ndtpu_torch.graph.factors", "factor_linearize_ref"),
+                  ("ndtpu_torch.graph.solve", "pcg_solve_ref"),
+                  ("ndtpu_torch.graph.incremental", "local_select_ref"),
+                  ("ndtpu_torch.graph.incremental", "fresh_residual_max_ref"),
+                  ("ndtpu_torch.dist.schur", "assemble_local_ref"))
+
+
+@contextlib.contextmanager
+def no_plain_on_card():
+    """While open, a plain smoother version called on CUDA tensors raises."""
+    import importlib
+
+    import torch
+
+    def on_card(x):
+        if isinstance(x, torch.Tensor):
+            return x.is_cuda
+        return isinstance(x, tuple) and any(on_card(y) for y in x)
+
+    saved = []
+    for mod_name, name in PLAIN_SMOOTHER:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def refuse(*a, _fn=fn, _name=name, **k):
+            if any(on_card(x) for x in a):
+                raise SmokeFailure(f"{_name} ran on CUDA tensors")
+            return _fn(*a, **k)
+        setattr(mod, name, refuse)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+#: The routes an update is compared over: (name, device, float type).
+ROUTES = (("kernel", "cuda", "float32"), ("f32", "cpu", "float32"),
+          ("f64", "cpu", "float64"))
+#: name: (solver overrides, state edits) of each take the smoke drives.
+TAKE_CASES = {
+    "local": ({}, ()),
+    "global": (dict(local_poses=0), ()),
+    "settled_check": (dict(relin_threshold=1e-6), ("settled",)),
+    "full_solve": ({}, ("step",)),
+}
+
+
+def check_incremental_takes(sm, cfg3):
+    """``incremental_update`` through the kernels (no plain version
+    reached) against the plain route in f32 and f64 (CPU) on one state, for
+    the local take, the global take, the settled check and the periodic
+    full solve: take codes equal, poses within 2 x the f32 plain route's
+    error against f64 + 1e-6 x max|pose|. Then ``local_update`` with a K7a
+    probe under ``set_sync_debug_mode("error")``. Returns the takes."""
+    import dataclasses
+
+    import torch
+
+    from ndtpu_torch.graph import incremental as inc
+
+    cfg, huber = cfg3.solver, cfg3.solver.huber_delta
+    since = sm.graph.n_between - 1
+    lines, takes_seen = [], {}
+    for name, (over, edits) in TAKE_CASES.items():
+        c = dataclasses.replace(cfg, **over)
+        s = sm
+        if "settled" in edits:
+            s = s._replace(last_max_delta=torch.zeros_like(s.last_max_delta))
+        if "step" in edits:
+            s = s._replace(step=torch.full_like(s.step,
+                                                c.full_solve_every - 1))
+        res = {}
+        for route, dev, dt in ROUTES:
+            dt = getattr(torch, dt)
+            st = inc.SmootherState(graph_on(s.graph, dev, dt),
+                                   s.lam.to(dev, dt),
+                                   s.last_max_delta.to(dev, dt),
+                                   s.step.to(dev))
+            if route == "kernel":
+                with no_plain_on_card():
+                    out, take = inc.incremental_update(
+                        st, c, huber_delta=huber, fresh_since=since,
+                        return_take=True)
+                torch.cuda.synchronize()
+            else:
+                out, take = inc.incremental_update(
+                    st, c, huber_delta=huber, fresh_since=since.cpu(),
+                    return_take=True)
+            res[route] = (out.graph.poses.cpu().double(), int(take))
+        takes = {k: v[1] for k, v in res.items()}
+        require(len(set(takes.values())) == 1,
+                f"incremental {name}: take codes differ: {takes}")
+        p64, pk = res["f64"][0], res["kernel"][0]
+        ek = float((pk - p64).abs().max())
+        ep = float((res["f32"][0] - p64).abs().max())
+        pmax = float(p64.abs().max())
+        require(bool(torch.isfinite(pk).all()),
+                f"incremental {name}: poses not finite")
+        require(ek <= 2.0 * ep + 1e-6 * pmax,
+                f"incremental {name}: poses {ek:.3e} off f64, over 2 x the "
+                f"f32 plain route's {ep:.3e} + 1e-6 x {pmax:.3e}")
+        takes_seen[name] = takes["kernel"]
+        lines.append(f"{name} take {takes['kernel']}: {ek:.3e} (f32 plain "
+                     f"{ep:.3e})")
+    sel = inc.local_select(sm.graph, cfg, since)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        inc.local_update(sm.graph, sm.lam, cfg, huber, since, probe=sel)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("[smoke] incremental_update through the kernels (no plain "
+          "version reached) vs the f32 and f64 plain routes, max abs pose "
+          "err vs f64: " + "; ".join(lines) + "; local_update with a K7a "
+          "probe: no host sync")
+    return takes_seen
+
+
 def run_entry_point(dev, config, n_scans: int):
-    """The CLI main path on ``config``, with fresh launch counters and a
-    count of the loop-detection calls (``verify_candidates_cached_flat``).
-    Returns ``(launches, detection calls)``."""
+    """The CLI main path on ``config``, with fresh launch counters and
+    counts of the loop-detection calls (``verify_candidates_cached_flat``),
+    the smoother's takes (0 skip, 1 global, 2 local), its full solves and
+    its PCG solves (``graph.solve.pcg_solve`` calls, one ``pcg_solve``
+    launch each). Returns ``(launches, counts)``."""
     import numpy as np
 
     from ndtpu_torch import kernels, run
     from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.graph import incremental as inc
+    from ndtpu_torch.graph import solve as slv
     from ndtpu_torch.loop import closure
     from ndtpu_torch.ndt import match
 
     windows = -(-n_scans // PipelineConfig.from_json(str(config)).window)
-    verify, detections = closure.verify_candidates_cached_flat, [0]
+    saved = [(closure, "verify_candidates_cached_flat"),
+             (inc, "incremental_update"), (slv, "optimize"),
+             (slv, "pcg_solve")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    counts = dict(detections=0, full_solves=0, pcg_solves=0)
+    takes = []
 
-    def counted(*a, **k):
-        detections[0] += 1
-        return verify(*a, **k)
+    def counted(fn, key):
+        def inner(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+        return inner
 
-    closure.verify_candidates_cached_flat = counted
+    def recorded(*a, **k):
+        out = saved[1][2](*a, **k)
+        takes.append(out[1])
+        return out
+
+    closure.verify_candidates_cached_flat = counted(saved[0][2], "detections")
+    inc.incremental_update = recorded
+    slv.optimize = counted(saved[2][2], "full_solves")
+    slv.pcg_solve = counted(saved[3][2], "pcg_solves")
     try:
         kernels.reset_launches()
         match.CALLS["match_batch_packed"] = 0
@@ -1334,7 +1816,8 @@ def run_entry_point(dev, config, n_scans: int):
         launches = dict(kernels.LAUNCHES)
         calls = match.CALLS["match_batch_packed"]
     finally:
-        closure.verify_candidates_cached_flat = verify
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     traj = res["traj"]
     require(traj.shape == (n_scans, 3) and bool(np.isfinite(traj).all()),
             "entry point: trajectory not finite or of the wrong shape")
@@ -1342,14 +1825,22 @@ def run_entry_point(dev, config, n_scans: int):
     lm = launches["lm_ndt"] + launches["lm_ndt_grouped"]
     require(lm == calls, f"entry point {config.name}: {lm} lm_ndt launches "
             f"for {calls} match_batch_packed calls (one each expected)")
+    require(launches["pcg_solve"] == counts["pcg_solves"],
+            f"entry point {config.name}: {launches['pcg_solve']} pcg_solve "
+            f"launches for {counts['pcg_solves']} PCG solves (one each "
+            f"expected)")
+    codes = [int(t) for t in takes]
+    counts["takes"] = {c: codes.count(c) for c in (0, 1, 2)}
     print(f"[smoke] entry point {config.name}: {n_scans} scans, "
           f"{res['scans_per_s']:.1f} scans/s ({res['seconds']:.2f} s), "
           f"keyframes={res['n_keyframes']}, loops={res['n_loops']}, ATE "
           f"{res['ate']:.4f} m, {calls} match_batch_packed calls, "
           f"{lm / windows:.2f} lm_ndt launches per window ({windows} "
-          f"windows), {detections[0]} loop-detection calls, launches "
-          f"{launches}")
-    return launches, detections[0]
+          f"windows), {counts['detections']} loop-detection calls; smoother: "
+          f"{len(codes)} updates, takes (0 skip, 1 global, 2 local) "
+          f"{counts['takes']}, {counts['full_solves']} full solves, "
+          f"{counts['pcg_solves']} PCG solves; launches {launches}")
+    return launches, counts
 
 
 def ate_gate(dev, config, ref_file):
@@ -1494,13 +1985,25 @@ def main(argv=None) -> int:
     # The map build is the same on every run; what the whole pipeline does
     # run to run on the draws whose ATE flipped under float atomics.
     check_frontend_twice(cfg3, box_sequence(2, cfg3.n_beams), dev)
-    repeats = {"config3_draw2": check_repeat_runs(dev, CONFIG3, 2),
+    kept = []
+    repeats = {"config3_draw2": check_repeat_runs(dev, CONFIG3, 2, keep=kept),
                "config2_draw0": check_repeat_runs(dev, CONFIG2, 0)}
+    # The smoother's kernels on the graph of a real run with loops: the
+    # state after config-3 draw 2, its newest poses moved.
+    sm = smoother_state(kept[0], args.seed)
+    del kept
+    results["factor_linearize"] = check_k5(sm, cfg3, jobs)
+    results["pcg_solve"] = check_k6(sm, cfg3, jobs)
+    results["local_select"] = check_k7a(sm, cfg3, jobs)
+    results["local_assemble"] = check_k7b(sm, cfg3, jobs)
+    takes = check_incremental_takes(sm, cfg3)
 
-    launches2, _ = run_entry_point(dev, CONFIG2, 300)
+    launches2, counts2 = run_entry_point(dev, CONFIG2, 300)
     ate_gate(dev, CONFIG2, REF_FILE)
-    launches3, detections = run_entry_point(dev, CONFIG3, 600)
+    launches3, counts3 = run_entry_point(dev, CONFIG3, 600)
     ate_gate(dev, CONFIG3, REF3_FILE)
+    detections = counts3["detections"]
+    require(counts3["full_solves"] > 0, "config 3: no full solve ran")
     require(launches3["loop_gate_fused"] == detections > 0
             and launches3["loop_gate"] == 0
             and launches2["loop_gate_fused"] == 0,
@@ -1526,7 +2029,10 @@ def main(argv=None) -> int:
             for k in KERNELS]
     print(f"[smoke] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows, "repeat_runs": repeats}))
+    smoother = {"takes_checked": takes,
+                "config2": counts2, "config3": counts3}
+    print(json.dumps({"kernels": rows, "repeat_runs": repeats,
+                      "smoother": smoother}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,48 @@
+#!/bin/bash
+# Time an older checkout of the port against this one on the card, in turns
+# (older, this, this, older): profile_port.py on configs 3 and 2 (the
+# box-world scenario, two kernel-route runs each after two warm-ups), and
+# the CLI main path (ndtpu_torch.run's main on each config's own scene,
+# config 3 at 600 scans and config 2 at 300: one warm-up run and two timed
+# runs in one process).
+#
+#   bash compare_port.sh OLDER_CHECKOUT OUT_DIR
+#
+# OLDER_CHECKOUT holds `git archive` of the older commit with this
+# checkout's profile_port.py copied in (it uses only entry points that
+# older ports have). Run from the root of this checkout; each result goes
+# to OUT_DIR (profile JSON and logs, one line "CLI [scans/s] [ATE]
+# [loops]" per CLI run).
+set -u
+older=$(cd "$1" && pwd)
+out=$(mkdir -p "$2" && cd "$2" && pwd)
+here=$(pwd)
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \
+  | tee "$out/card.txt"
+i=0
+for who in p c c p; do
+  i=$((i + 1))
+  if [ "$who" = p ]; then dir=$older; else dir=$here; fi
+  for cfg in config3_loop_closure config2_full_sequence; do
+    (cd "$dir" && timeout 240 python3 profile_port.py \
+      --config "configs/$cfg.json" --runs 2 \
+      --out "$out/prof_${i}_${who}_${cfg}.json" \
+      > "$out/prof_${i}_${who}_${cfg}.log" 2>&1)
+    echo "profile $i $who $cfg rc=$?"
+  done
+  for spec in "config3_loop_closure 600" "config2_full_sequence 300"; do
+    set -- $spec
+    (cd "$dir" && timeout 150 python3 -c "
+import sys
+sys.path.insert(0, '.')
+from ndtpu_torch import run
+a = ['--config', 'configs/$1.json', '--max-scans', '$2', '--device', 'cuda']
+run.main(a)
+r = [run.main(a) for _ in range(2)]
+print('CLI', [x['scans_per_s'] for x in r], [x['ate'] for x in r],
+      [x['n_loops'] for x in r])
+" > "$out/cli_${i}_${who}_$1.log" 2>&1)
+    echo "cli $i $who $1 rc=$?"
+    grep CLI "$out/cli_${i}_${who}_$1.log"
+  done
+done

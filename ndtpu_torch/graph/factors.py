@@ -3,9 +3,10 @@
 Port of ``ndtpu/graph/factors.py``: fixed-capacity SoA arrays ``(i, j, z,
 sqrt_info, mask)`` for priors and between factors, masked appends, the
 between error ``e = [R_i^T (t_j - t_i) - t_z ; wrap(th_j - th_i - th_z)]``
-with analytic Jacobians, robust (IRLS) weights, and batched linearization.
-Index fields are int64 (torch's index type); ``ndtpu_torch.convert`` maps
-them to and from the JAX package's int32.
+with analytic Jacobians, robust (IRLS) weights, and batched linearization
+(K5 ``csrc/factor_linearize.cu`` on the card, :func:`factor_linearize_ref`
+on the CPU). Index fields are int64 (torch's index type);
+``ndtpu_torch.convert`` maps them to and from the JAX package's int32.
 """
 
 from __future__ import annotations
@@ -14,11 +15,13 @@ from typing import NamedTuple
 
 import torch
 
+from ndtpu_torch import kernels
 from ndtpu_torch.lie import se2
 
 __all__ = ["PoseGraph", "empty_graph", "add_pose", "add_prior",
            "add_between", "prior_error", "between_error", "linearize",
-           "chi2", "info_to_sqrt_info", "robust_weight"]
+           "chi2", "info_to_sqrt_info", "robust_weight", "factor_linearize",
+           "factor_linearize_ref"]
 
 
 class PoseGraph(NamedTuple):
@@ -186,27 +189,73 @@ def _mv(m, v):
     return (m * v[..., None, :]).sum(-1)
 
 
-def linearize(g: PoseGraph, huber_delta: float = 0.0, robust: str = "huber"):
-    """Whitened Jacobian blocks and residuals of every factor:
-    ``((Ai [F,3,3], Aj [F,3,3], r [F,3]), (Ap [P,3,3], rp [P,3]))``, dead
-    rows zero; the linear system is ``min || A delta + r ||^2``."""
-    pi, pj = g.poses[g.bet_i], g.poses[g.bet_j]
-    e = between_error(pi, pj, g.bet_z)
+def factor_linearize_ref(poses, bet_i, bet_j, bet_z, bet_sqrt_info,
+                         row_mask, prior_idx, prior_z, prior_sqrt_info,
+                         prior_mask, huber_delta: float = 0.0,
+                         robust: str = "huber", fid=None):
+    """The plain version of K5 (CPU path and oracle): whitened Jacobian
+    blocks and residuals of every between slot (or of the gathered slots
+    ``fid``, rows masked by ``row_mask``) and of the priors (masked by
+    ``prior_mask``): ``((Ai, Aj, r), (Ap, rp))``, dead rows zero."""
+    if fid is not None:
+        bet_i, bet_j = bet_i[fid], bet_j[fid]
+        bet_z, bet_sqrt_info = bet_z[fid], bet_sqrt_info[fid]
+    pi, pj = poses[bet_i], poses[bet_j]
+    e = between_error(pi, pj, bet_z)
     ji, jj = _between_jacobians(pi, pj)
-    sqi = g.bet_sqrt_info
+    sqi = bet_sqrt_info
     ai, aj, r = sqi @ ji, sqi @ jj, _mv(sqi, e)
     if huber_delta > 0.0:
         w = robust_weight(torch.linalg.norm(r, dim=-1), huber_delta, robust)
         ai, aj, r = ai * w[:, None, None], aj * w[:, None, None], r * w[:, None]
-    m = g.bet_mask.to(r.dtype)
+    m = row_mask.to(r.dtype)
     ai, aj, r = ai * m[:, None, None], aj * m[:, None, None], r * m[:, None]
-    ap = g.prior_sqrt_info
-    rp = _mv(ap, prior_error(g.poses[g.prior_idx], g.prior_z))
-    mp = g.prior_mask.to(rp.dtype)
+    ap = prior_sqrt_info
+    rp = _mv(ap, prior_error(poses[prior_idx], prior_z))
+    mp = prior_mask.to(rp.dtype)
     return (ai, aj, r), (ap * mp[:, None, None], rp * mp[:, None])
 
 
+def factor_linearize(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask,
+                     prior_idx, prior_z, prior_sqrt_info, prior_mask,
+                     huber_delta: float = 0.0, robust: str = "huber",
+                     fid=None, chi_only: bool = False):
+    """K5 wrapper: CUDA tensors go to the kernel (f32, Huber only), CPU
+    tensors to :func:`factor_linearize_ref`. Returns ``((Ai, Aj, r), (Ap,
+    rp))``, or with ``chi_only`` the total weighted squared error ``[]``."""
+    if not poses.is_cuda:
+        lin = factor_linearize_ref(poses, bet_i, bet_j, bet_z, bet_sqrt_info,
+                                   row_mask, prior_idx, prior_z,
+                                   prior_sqrt_info, prior_mask, huber_delta,
+                                   robust, fid)
+        if not chi_only:
+            return lin
+        (_, _, r), (_, rp) = lin
+        return torch.sum(r * r) + torch.sum(rp * rp)
+    if huber_delta > 0.0 and robust != "huber":
+        raise NotImplementedError(
+            f"factor_linearize on the card: robust kernel {robust!r}; the "
+            f"kernel weighs by Huber only")
+    return kernels.factor_linearize(
+        poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask, prior_idx,
+        prior_z, prior_sqrt_info, prior_mask, huber_delta, fid=fid,
+        chi_only=chi_only)
+
+
+def _graph_args(g: PoseGraph):
+    return (g.poses, g.bet_i, g.bet_j, g.bet_z, g.bet_sqrt_info, g.bet_mask,
+            g.prior_idx, g.prior_z, g.prior_sqrt_info, g.prior_mask)
+
+
+def linearize(g: PoseGraph, huber_delta: float = 0.0, robust: str = "huber"):
+    """Whitened Jacobian blocks and residuals of every factor:
+    ``((Ai [F,3,3], Aj [F,3,3], r [F,3]), (Ap [P,3,3], rp [P,3]))``, dead
+    rows zero; the linear system is ``min || A delta + r ||^2``. K5 on the
+    card (:func:`factor_linearize`)."""
+    return factor_linearize(*_graph_args(g), huber_delta, robust)
+
+
 def chi2(g: PoseGraph, huber_delta: float = 0.0, robust: str = "huber"):
-    """Total weighted squared error."""
-    (_, _, r), (_, rp) = linearize(g, huber_delta, robust)
-    return torch.sum(r * r) + torch.sum(rp * rp)
+    """Total weighted squared error (K5's chi^2-only mode on the card)."""
+    return factor_linearize(*_graph_args(g), huber_delta, robust,
+                            chi_only=True)

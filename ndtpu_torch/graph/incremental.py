@@ -5,9 +5,12 @@ warm-started LM-PCG updates, the settled-estimate skip, the k-hop local
 update with its static capacities, and the periodic full solve.
 
 Each ``lax.cond`` of the JAX version is a Python ``if`` on a 0-d tensor:
-one host sync, and only the taken branch runs, as in ``cond``. ``lax.top_k``
-over 0/1 flags becomes a stable descending sort, so ties keep the lower
-index first exactly as ``top_k`` orders them.
+one host sync, and only the taken branch runs, as in ``cond``. On the card
+the factors are linearized by K5, the PCG solves run in K6, and the local
+path selects (K7a: ``lax.top_k`` over 0/1 flags as stable compactions, ties
+in index order as ``top_k`` orders them) and assembles (K7b) without host
+syncs; the dense local Cholesky is ``cholesky_ex``. On the CPU the plain
+versions run (``lax.top_k`` as a stable descending sort).
 """
 
 from __future__ import annotations
@@ -16,12 +19,14 @@ from typing import NamedTuple
 
 import torch
 
+from ndtpu_torch import kernels
 from ndtpu_torch.config import SolverConfig
 from ndtpu_torch.graph import factors as fct
 from ndtpu_torch.graph import solve as slv
 
 __all__ = ["SmootherState", "init_smoother", "incremental_update",
-           "local_update", "fresh_residual_max", "full_solve"]
+           "local_update", "local_select", "local_select_ref",
+           "fresh_residual_max", "fresh_residual_max_ref", "full_solve"]
 
 
 class SmootherState(NamedTuple):
@@ -71,7 +76,16 @@ def _fresh_start(g: fct.PoseGraph, k: int):
 
 
 def fresh_residual_max(g: fct.PoseGraph, k: int = 64):
-    """Max |whitened residual| over the K newest between-factor slots."""
+    """Max |whitened residual| over the K newest between-factor slots. CUDA
+    tensors go to K5's fresh-window mode (``n_between`` read on the card),
+    CPU tensors to :func:`fresh_residual_max_ref`."""
+    if not g.poses.is_cuda:
+        return fresh_residual_max_ref(g, k)
+    return kernels.fresh_residual_max(*fct._graph_args(g), g.n_between, k)
+
+
+def fresh_residual_max_ref(g: fct.PoseGraph, k: int = 64):
+    """The plain version of K5's fresh-window mode."""
     k, start = _fresh_start(g, k)
     sl = start + torch.arange(k, device=start.device)
     r = fct.between_error(g.poses[g.bet_i[sl]], g.poses[g.bet_j[sl]],
@@ -92,7 +106,7 @@ def _fresh_slice(g: fct.PoseGraph, k: int, since=None):
     return g.bet_i[slots], g.bet_j[slots], g.bet_mask[slots] & fresh_live
 
 
-def _active_probe(g: fct.PoseGraph, cfg: SolverConfig, since=None):
+def _active_probe_ref(g: fct.PoseGraph, cfg: SolverConfig, since=None):
     """k-hop active set around the newest factors (a fresh loop factor seeds
     its whole index interval) and whether it fits the local capacities.
     Returns ``(act [V] bool, touch [F] bool, ok [] bool)``."""
@@ -127,106 +141,97 @@ def _active_probe(g: fct.PoseGraph, cfg: SolverConfig, since=None):
     return act, touch, ok
 
 
-def _local_select(g: fct.PoseGraph, cfg: SolverConfig, since=None,
-                  probe=None):
-    """Topology-only selection for the k-hop local system: pose slots, the
-    local index map, gathered-factor ids and endpoint roles."""
+def local_select_ref(g: fct.PoseGraph, cfg: SolverConfig, since=None):
+    """The plain version of K7a (CPU path and oracle): the probe
+    (:func:`_active_probe_ref`), then the pose slots, gathered-factor ids,
+    endpoint roles and local slots."""
     from ndtpu_torch.dist.schur import INTERIOR, SEPARATOR
 
+    act, touch, ok = _active_probe_ref(g, cfg, since)
     v = g.poses.shape[0]
     dev = g.poses.device
     p_loc = min(cfg.local_poses, v)
     f_loc = min(cfg.local_factors, g.bet_mask.shape[0])
-    act, touch, ok = (probe if probe is not None
-                      else _active_probe(g, cfg, since))
     pid = _top_flags(act, p_loc)
-    in_set = act[pid]
     loc_of = torch.zeros(v, dtype=torch.long, device=dev)
     loc_of[pid] = torch.arange(p_loc, device=dev)
     fid = _top_flags(touch, f_loc)
-    f_sel = touch[fid]
     bi, bj = g.bet_i[fid], g.bet_j[fid]
     role = lambda ids: torch.where(act[ids], INTERIOR, SEPARATOR)
-    p_act = act[g.prior_idx] & g.prior_mask
-    return dict(p_loc=p_loc, pid=pid, in_set=in_set, loc_of=loc_of,
-                fid=fid, f_sel=f_sel, bi=bi, bj=bj, ri=role(bi), rj=role(bj),
-                rp=role(g.prior_idx), p_act=p_act, ok=ok)
+    return dict(p_loc=p_loc, ok=ok, pid=pid, in_set=act[pid], fid=fid,
+                f_sel=touch[fid], ri=role(bi), rj=role(bj), li=loc_of[bi],
+                lj=loc_of[bj], rp=role(g.prior_idx), lp=loc_of[g.prior_idx],
+                p_act=act[g.prior_idx] & g.prior_mask)
 
 
-def _local_system(g: fct.PoseGraph, cfg: SolverConfig, huber_delta: float,
-                  sel):
-    """The k-hop active subproblem (inactive endpoints held fixed).
-    Returns ``(solve(lam) -> delta [V, 3], chi_local(poses))``."""
-    from ndtpu_torch.dist.schur import assemble_local_parts
+def local_select(g: fct.PoseGraph, cfg: SolverConfig, since=None) -> dict:
+    """K7a wrapper: the fits test ``ok`` of the k-hop active set and the
+    local selection the local path reads (``pid``, ``in_set``, ``fid``,
+    ``f_sel``, the endpoints' roles ``ri``/``rj`` and local slots
+    ``li``/``lj``, the priors' ``rp``/``lp``/``p_act``, and the static
+    ``p_loc``). CUDA tensors go to the kernel (one launch, no host sync),
+    CPU tensors to :func:`local_select_ref`."""
+    if not g.poses.is_cuda:
+        return local_select_ref(g, cfg, since)
+    if since is not None:
+        since = torch.as_tensor(since, dtype=torch.long,
+                                device=g.poses.device)
+    return kernels.local_select(g.bet_i, g.bet_j, g.bet_mask, g.pose_mask,
+                                g.prior_idx, g.prior_mask, g.n_between,
+                                since, cfg)
 
-    v = g.poses.shape[0]
-    p_loc = sel["p_loc"]
-    pid, in_set, loc_of = sel["pid"], sel["in_set"], sel["loc_of"]
-    fid, f_sel, bi, bj = sel["fid"], sel["f_sel"], sel["bi"], sel["bj"]
-    p_act = sel["p_act"]
-    sqi_f, z_f = g.bet_sqrt_info[fid], g.bet_z[fid]
 
-    pi, pj = g.poses[bi], g.poses[bj]
-    e = fct.between_error(pi, pj, z_f)
-    ji, jj = fct._between_jacobians(pi, pj)
-    ai, aj, r = sqi_f @ ji, sqi_f @ jj, (sqi_f * e[:, None, :]).sum(-1)
-    if huber_delta > 0.0:
-        w = fct.robust_weight(torch.linalg.norm(r, dim=-1), huber_delta)
-        ai, aj, r = ai * w[:, None, None], aj * w[:, None, None], r * w[:, None]
-    mf = f_sel.to(r.dtype)
-    ai, aj, r = ai * mf[:, None, None], aj * mf[:, None, None], r * mf[:, None]
+def _local_lin(g: fct.PoseGraph, poses, sel, huber_delta: float,
+               chi_only: bool = False):
+    """K5 on the gathered factors (masked by ``f_sel``) and the active
+    priors at ``poses``: the local linearization, or ``chi_local``."""
+    return fct.factor_linearize(
+        poses, g.bet_i, g.bet_j, g.bet_z, g.bet_sqrt_info, sel["f_sel"],
+        g.prior_idx, g.prior_z, g.prior_sqrt_info, sel["p_act"], huber_delta,
+        fid=sel["fid"], chi_only=chi_only)
 
-    ep0 = fct.prior_error(g.poses[g.prior_idx], g.prior_z)
-    ap = g.prior_sqrt_info
-    rp = (ap * ep0[:, None, :]).sum(-1)
-    mp = p_act.to(rp.dtype)
-    ap, rp = ap * mp[:, None, None], rp * mp[:, None]
 
-    h_ii, _, _, b_i, _ = assemble_local_parts(
-        p_loc, 1, ai, aj, r, ap, rp, f_sel, sel["ri"], loc_of[bi], sel["rj"],
-        loc_of[bj], p_act, sel["rp"], loc_of[g.prior_idx], r.dtype)
+def _local_step(g: fct.PoseGraph, poses, lam, sel, huber_delta: float):
+    """One damped GN step of the k-hop active subproblem at ``poses``
+    (inactive endpoints held fixed): ``delta [V, 3]``. K5 and K7b, then
+    the dense Cholesky; where it fails (``info != 0``) the step is NaN, as
+    JAX's ``cholesky`` gives, so the accept test rejects it."""
+    from ndtpu_torch.dist.schur import assemble_local
 
-    def solve(lam):
-        live = in_set.to(r.dtype).repeat_interleave(3)
-        damp = lam * torch.clamp(torch.abs(torch.diagonal(h_ii)), min=1e-8)
-        h = h_ii + torch.diag(damp + (1.0 - live))
-        l = torch.linalg.cholesky(h)
-        x = torch.cholesky_solve(-b_i[:, None], l)[:, 0]
-        delta = torch.zeros((v, 3), dtype=r.dtype, device=r.device)
-        return delta.index_add_(0, pid, x.reshape(p_loc, 3)
-                                * in_set[:, None].to(r.dtype))
-
-    def chi_local(poses):
-        e = fct.between_error(poses[bi], poses[bj], z_f)
-        rr = (sqi_f * e[:, None, :]).sum(-1)
-        if huber_delta > 0.0:
-            rr = rr * fct.robust_weight(torch.linalg.norm(rr, dim=-1),
-                                        huber_delta)[:, None]
-        rr = rr * mf[:, None]
-        ep = fct.prior_error(poses[g.prior_idx], g.prior_z)
-        rrp = (g.prior_sqrt_info * ep[:, None, :]).sum(-1) * mp[:, None]
-        return torch.sum(rr * rr) + torch.sum(rrp * rrp)
-
-    return solve, chi_local
+    (ai, aj, r), (ap, rp) = _local_lin(g, poses, sel, huber_delta)
+    p_loc, in_set = sel["p_loc"], sel["in_set"]
+    h_ii, b_i = assemble_local(p_loc, ai, aj, r, ap, rp, sel["f_sel"],
+                               sel["ri"], sel["li"], sel["rj"], sel["lj"],
+                               sel["p_act"], sel["rp"], sel["lp"])
+    live = in_set.to(r.dtype).repeat_interleave(3)
+    damp = lam * torch.clamp(torch.abs(torch.diagonal(h_ii)), min=1e-8)
+    l, info = torch.linalg.cholesky_ex(h_ii + torch.diag(damp + (1.0 - live)))
+    x = torch.cholesky_solve(-b_i[:, None], l)[:, 0]
+    x = torch.where(info == 0, x, torch.full_like(x, float("nan")))
+    delta = torch.zeros((poses.shape[0], 3), dtype=r.dtype,
+                        device=r.device)
+    return delta.index_add_(0, sel["pid"], x.reshape(p_loc, 3)
+                            * in_set[:, None].to(r.dtype))
 
 
 def local_update(g: fct.PoseGraph, lam, cfg: SolverConfig,
                  huber_delta: float = 0.0, since=None, probe=None):
     """``cfg.inc_iters`` damped-GN iterations on the k-hop local system;
-    ``(graph, lam, max_delta)``. A failed probe zeroes the step and leaves
-    ``(graph, lam)`` unchanged."""
+    ``(graph, lam, max_delta)``. ``probe`` is a selection from
+    :func:`local_select` (the JAX version's ``(act, touch, ok)`` probe
+    with the selection made from it). A failed probe zeroes the step and
+    leaves ``(graph, lam)`` unchanged. On the card no step reads back to
+    the host."""
     dt = g.poses.dtype
-    sel = _local_select(g, cfg, since, probe)
+    sel = probe if probe is not None else local_select(g, cfg, since)
     okf = sel["ok"].to(dt)
-    _, chi_local = _local_system(g, cfg, huber_delta, sel)
-    poses, chi, lam0 = g.poses, chi_local(g.poses), lam
+    poses, lam0 = g.poses, lam
+    chi = _local_lin(g, poses, sel, huber_delta, chi_only=True)
     md = torch.zeros((), dtype=dt, device=g.poses.device)
     for _ in range(cfg.inc_iters):
-        solve, _ = _local_system(g._replace(poses=poses), cfg, huber_delta,
-                                 sel)
-        delta = solve(lam) * okf
+        delta = _local_step(g, poses, lam, sel, huber_delta) * okf
         trial = slv._apply_delta(poses, delta, g.pose_mask)
-        chi_t = chi_local(trial)
+        chi_t = _local_lin(g, trial, sel, huber_delta, chi_only=True)
         accept = chi_t < chi
         poses = torch.where(accept, trial, poses)
         chi = torch.where(accept, chi_t, chi)
@@ -252,7 +257,9 @@ def incremental_update(state: SmootherState, cfg: SolverConfig,
     """
     g = state.graph
     dt, dev = g.poses.dtype, g.poses.device
-    code = lambda c: torch.tensor(c, dtype=torch.int32, device=dev)
+    # torch.full fills on the device; torch.tensor would copy from the host
+    # and wait for the card.
+    code = lambda c: torch.full((), c, dtype=torch.int32, device=dev)
 
     def do_global(g, lam):
         chi = fct.chi2(g, huber_delta)
@@ -265,8 +272,8 @@ def incremental_update(state: SmootherState, cfg: SolverConfig,
     def do_update(g, lam):
         if cfg.local_poses <= 0:
             return do_global(g, lam)
-        probe = _active_probe(g, cfg, fresh_since)
-        if bool(probe[2]):
+        probe = local_select(g, cfg, fresh_since)
+        if bool(probe["ok"]):
             g2, lam2, md2 = local_update(g, lam, cfg, huber_delta,
                                          fresh_since, probe=probe)
             return g2, lam2, md2, code(2)
@@ -276,14 +283,11 @@ def incremental_update(state: SmootherState, cfg: SolverConfig,
         return g, lam, torch.zeros((), dtype=dt, device=dev), code(0)
 
     def slow_check(g, lam):
-        lin = fct.linearize(g, huber_delta)
-        grad = slv.gradient(g, lin)
-        dblocks = slv.block_diag_hessian(g, lin)
-        live = g.pose_mask.to(dt)
-        eye = torch.eye(3, dtype=dt, device=dev)
-        dblocks = dblocks + (1e-8 + (1.0 - live))[:, None, None] * eye
-        step = (slv._inv3(dblocks) * grad[:, None, :]).sum(-1)
-        if bool(torch.max(torch.abs(step)) < cfg.relin_threshold):
+        # The block-Jacobi preconditioned gradient's max |entry| is K6's
+        # set-up with lam = 0, damping 1e-8 and no iteration.
+        _, _, step = slv.pcg_solve(g, fct.linearize(g, huber_delta), None,
+                                   0.0, 0, cfg.pcg_tol, damp_abs=1e-8)
+        if bool(step < cfg.relin_threshold):
             return skip(g, lam)
         return do_update(g, lam)
 
@@ -299,7 +303,7 @@ def incremental_update(state: SmootherState, cfg: SolverConfig,
     if cfg.full_solve_every > 0 and int(step) % cfg.full_solve_every == 0:
         graph = slv.optimize(graph, cfg, method="pcg",
                              huber_delta=huber_delta).graph
-        lam = torch.tensor(cfg.init_lambda, dtype=dt, device=dev)
+        lam = torch.full((), cfg.init_lambda, dtype=dt, device=dev)
     out = SmootherState(graph=graph, lam=lam, last_max_delta=md, step=step)
     return (out, take) if return_take else out
 

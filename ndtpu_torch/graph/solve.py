@@ -1,10 +1,12 @@
 """Pose-graph solvers: dense Gauss-Newton/LM and block-Jacobi PCG.
 
 Port of ``ndtpu/graph/solve.py`` (all but the multi-session
-``pcg_rhs_blocked``, ROADMAP A9). JAX's ``lax.while_loop`` in ``pcg_rhs``
-and ``optimize`` becomes a loop of masked iterations: once a run's stop
-test fires its carry is frozen, so extra iterations change nothing, and
-the host checks for an early exit only every ``_SYNC_EVERY`` iterations.
+``pcg_rhs_blocked``, ROADMAP A9). On the card the whole PCG solve is one
+launch of K6 (``csrc/pcg_solve.cu``: set-up, loop and stop test on the
+device). On the CPU, and in ``optimize``, JAX's ``lax.while_loop`` becomes
+a loop of masked iterations: once a run's stop test fires its carry is
+frozen, so extra iterations change nothing, and the host checks for an
+early exit only every ``_SYNC_EVERY`` iterations.
 """
 
 from __future__ import annotations
@@ -13,12 +15,14 @@ from typing import NamedTuple
 
 import torch
 
+from ndtpu_torch import kernels
 from ndtpu_torch.config import SolverConfig
 from ndtpu_torch.graph import factors as fct
 from ndtpu_torch.lie import se2
 
 __all__ = ["SolveResult", "normal_equations", "hessian_matvec", "gradient",
-           "block_diag_hessian", "solve_dense", "pcg", "pcg_rhs", "optimize"]
+           "block_diag_hessian", "solve_dense", "pcg", "pcg_rhs", "pcg_solve",
+           "pcg_solve_ref", "optimize"]
 
 _SYNC_EVERY = 10
 
@@ -134,22 +138,49 @@ def solve_dense(g: fct.PoseGraph, lin, lam):
 
 def pcg(g: fct.PoseGraph, lin, lam, cfg: SolverConfig):
     """Damped-GN step by block-Jacobi preconditioned CG."""
-    return pcg_rhs(g, lin, -gradient(g, lin), lam, cfg)
+    x, it, _ = pcg_solve(g, lin, None, lam, cfg.pcg_max_iter, cfg.pcg_tol)
+    return x, it
 
 
 def pcg_rhs(g: fct.PoseGraph, lin, rhs, lam, cfg: SolverConfig):
     """Solve ``(H + damping) x = rhs`` matrix-free; returns ``(x, iters)``.
 
     Stops at ``cfg.pcg_max_iter`` iterations or when ``|r|^2 <= (pcg_tol *
-    |rhs|)^2``, exactly as the JAX ``while_loop``: after the stop test fires
-    the carry stays frozen.
+    |rhs|)^2``, exactly as the JAX ``while_loop``.
     """
+    x, it, _ = pcg_solve(g, lin, rhs, lam, cfg.pcg_max_iter, cfg.pcg_tol)
+    return x, it
+
+
+def pcg_solve(g: fct.PoseGraph, lin, rhs, lam, max_iter: int, tol: float,
+              damp_abs: float = 0.0):
+    """K6 wrapper: the whole PCG solve. CUDA tensors go to the kernel (one
+    launch, no host sync), CPU tensors to :func:`pcg_solve_ref`. ``rhs``
+    None means ``-gradient``. Returns ``(x [V, 3], iterations [] int32,
+    max |M^-1 rhs| [])``; the last, with ``lam = 0``, ``damp_abs = 1e-8``
+    and ``max_iter = 0``, is the settled check's preconditioned step."""
+    if not g.poses.is_cuda:
+        return pcg_solve_ref(g, lin, rhs, lam, max_iter, tol, damp_abs)
+    return kernels.pcg_solve(g.bet_i, g.bet_j, g.bet_mask, g.prior_idx,
+                             g.prior_mask, g.pose_mask, lin, rhs, lam,
+                             max_iter, tol, damp_abs)
+
+
+def pcg_solve_ref(g: fct.PoseGraph, lin, rhs, lam, max_iter: int,
+                  tol: float, damp_abs: float = 0.0):
+    """The plain version of K6 (CPU path and oracle): a loop of masked
+    iterations; once the stop test fires the carry stays frozen, as in the
+    JAX ``while_loop``, and the host checks for an early exit every
+    ``_SYNC_EVERY`` iterations. The damping is ``lam * max(|diag H|, 1e-8)
+    + damp_abs`` (+ 1 on dead poses)."""
+    if rhs is None:
+        rhs = -gradient(g, lin)
     dblocks = block_diag_hessian(g, lin)
     dt = rhs.dtype
     eye = torch.eye(3, dtype=dt, device=rhs.device)
     dd = torch.abs(torch.diagonal(dblocks, dim1=-2, dim2=-1))
     damp = (lam * torch.clamp(dd, min=1e-8)
-            + (1.0 - g.pose_mask.to(dt))[:, None])
+            + (damp_abs + (1.0 - g.pose_mask.to(dt)))[:, None])
     minv = _inv3(dblocks + damp[..., None] * eye)
 
     def amul(x):
@@ -158,12 +189,13 @@ def pcg_rhs(g: fct.PoseGraph, lin, rhs, lam, cfg: SolverConfig):
     x = torch.zeros_like(rhs)
     r = rhs
     z = _mv(minv, r)
+    zmax = torch.max(torch.abs(z))
     p = z
     rz = torch.sum(r * z)
     bnorm = torch.sqrt(torch.sum(rhs * rhs))
-    tol2 = (cfg.pcg_tol * torch.clamp(bnorm, min=1e-30)) ** 2
+    tol2 = (tol * torch.clamp(bnorm, min=1e-30)) ** 2
     it = torch.zeros((), dtype=torch.int32, device=rhs.device)
-    for k in range(cfg.pcg_max_iter):
+    for k in range(max_iter):
         active = torch.sum(r * r) > tol2
         if k % _SYNC_EVERY == 0 and not bool(active):
             break
@@ -181,7 +213,7 @@ def pcg_rhs(g: fct.PoseGraph, lin, rhs, lam, cfg: SolverConfig):
         p = torch.where(active, p_n, p)
         rz = torch.where(active, rz_new, rz)
         it = it + active.to(torch.int32)
-    return x, it
+    return x, it, zmax
 
 
 def optimize(g: fct.PoseGraph, cfg: SolverConfig, method: str = "dense",
@@ -190,7 +222,7 @@ def optimize(g: fct.PoseGraph, cfg: SolverConfig, method: str = "dense",
     dt = g.poses.dtype
     dev = g.poses.device
     chi = fct.chi2(g, huber_delta)
-    lam = torch.tensor(cfg.init_lambda, dtype=dt, device=dev)
+    lam = torch.full((), cfg.init_lambda, dtype=dt, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     graph = g

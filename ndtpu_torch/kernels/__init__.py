@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Six kernels carry the windowed pipeline with loop closure (ROADMAP
-Queue B):
+Ten kernels carry the windowed pipeline with loop closure and the
+pose-graph smoother (ROADMAP Queue B):
 
 ============ =============================== =================================
 name         source                          replaces (JAX, lowered by XLA)
@@ -18,7 +18,27 @@ finalize     ``csrc/finalize_pack.cu`` (K4)  ``grid.finalize`` + ``pack_quad``
 local_tables ``csrc/local_tables.cu`` (K8a)  ``closure.build_local_table``
                                              over a window's keyframes
 loop_gate    ``csrc/loop_gate.cu`` (K8b)     ``closure._gate_and_pack``
+factor_      ``csrc/factor_linearize.cu``    ``factors.linearize`` / ``chi2``,
+linearize    (K5)                            ``incremental.fresh_residual_max``
+                                             and the local path's gathered
+                                             linearization and ``chi_local``
+pcg_solve    ``csrc/pcg_solve.cu`` (K6)      ``solve.pcg_rhs`` (matvec,
+                                             gradient, block diagonal,
+                                             ``_inv3``, the loop): one launch
+local_select ``csrc/local_system.cu`` (K7a)  ``incremental._active_probe`` +
+                                             ``_local_select``
+local_       ``csrc/local_system.cu`` (K7b)  ``schur.assemble_local_parts``
+assemble                                     (``h_ii``, ``b_i`` only)
 ============ =============================== =================================
+
+K5, K6 and K7b share the pose graph's arithmetic, ``csrc/pose_graph.cuh``
+(``wrap``, the between error and Jacobians, whitening, the Huber weight,
+``_inv3``, and block reductions in a fixed order): no float atomics, so
+the smoother's results are the same on every launch. The graph wrappers
+(``graph.factors.linearize`` / ``chi2`` / ``factor_linearize``,
+``graph.solve.pcg_solve``, ``graph.incremental.local_select`` and
+``fresh_residual_max``, ``dist.schur.assemble_local``) send CPU tensors
+to their plain versions and CUDA tensors here.
 
 K8b's steps live in ``csrc/loop_gate.cuh``, which ``lm_ndt`` also runs:
 with ``gate=`` one ``lm_ndt`` launch verifies a loop window's ``K x C``
@@ -70,12 +90,16 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "GATE_MAX_LANES", "ndt_terms", "halfcell_add", "finalize_bands",
-           "finalize_pack", "local_bands", "local_tables", "loop_gate"]
+           "finalize_pack", "local_bands", "local_tables", "loop_gate",
+           "factor_linearize", "fresh_residual_max", "pcg_solve",
+           "local_select", "local_assemble"]
 
 #: Launch counts per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "ndt_terms_grouped": 0, "halfcell_add": 0, "finalize_pack": 0,
-            "local_tables": 0, "loop_gate": 0, "loop_gate_fused": 0}
+            "local_tables": 0, "loop_gate": 0, "loop_gate_fused": 0,
+            "factor_linearize": 0, "pcg_solve": 0, "local_select": 0,
+            "local_assemble": 0}
 
 #: Shared memory one block can have on Hopper (227 KB), and what it gets
 #: without ``cudaFuncSetAttribute`` (48 KB).
@@ -107,6 +131,14 @@ _SIGNATURES = {
                            + [_I, _P],
     "loop_gate_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _F, _F, _F, _I, _P],
+    "factor_linearize_launch": [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I, _F]
+                               + [_P] * 7,
+    "pcg_solve_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I] + [_P] * 7
+                        + [_F, _F, _I, _F] + [_P] * 3 + [_I, _P],
+    "local_select_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P]
+                           + [_I] * 7 + [_P] * 3,
+    "local_assemble_launch": [_P, _P, _P, _I, _P, _P, _I] + [_P] * 8
+                             + [_I, _P, _P, _P],
 }
 
 
@@ -182,10 +214,18 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
-def _call(name: str, counter: str, *args) -> None:
+#: What a one-block launcher (``csrc/pose_graph.cuh``) returns when its
+#: kernel's shared memory, which it computes itself, is over what a block
+#: can opt in to; ``_call`` raises ``ValueError(too_big)`` for it.
+_SMEM_OVER = -1
+
+
+def _call(name: str, counter: str, *args, too_big: str = "") -> None:
     if _lib is None:
         build()
     err = getattr(_lib, name)(*args)
+    if err == _SMEM_OVER:
+        raise ValueError(f"{name}: {too_big}")
     if err != 0:
         msg = _lib.ndtpu_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
@@ -557,3 +597,200 @@ def loop_gate(cand_mask, converged, score, pose, init, hessian, cand_idx,
               sqrt_info.data_ptr(), k, c, score_gate, innov_base,
               innov_per_kf, k_budget, _stream(score))
     return accept, innov_rej, sqrt_info
+
+
+def _check_graph(bet_i, bet_j, bet_mask, prior_idx, prior_mask):
+    """The pose graph's index and mask arrays (int64 / bool, contiguous)."""
+    f, p = bet_i.shape[0], prior_idx.shape[0]
+    _check(bet_i, "bet_i", dtype=torch.int64, shape=(f,))
+    _check(bet_j, "bet_j", dtype=torch.int64, shape=(f,))
+    _check(bet_mask, "bet_mask", dtype=torch.bool, shape=(f,), align=1)
+    _check(prior_idx, "prior_idx", dtype=torch.int64, shape=(p,))
+    _check(prior_mask, "prior_mask", dtype=torch.bool, shape=(p,), align=1)
+    return f, p
+
+
+def _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask, fid,
+              n_between, rows, window, prior_idx, prior_z, prior_sqrt_info,
+              prior_mask, huber_delta, jac):
+    """One K5 call: ``(scalars [2 + 2 * blocks], f32 outputs or None)``."""
+    v, f, p = poses.shape[0], bet_i.shape[0], prior_idx.shape[0]
+    _check(poses, "poses", shape=(v, 3))
+    _check(bet_i, "bet_i", dtype=torch.int64, shape=(f,))
+    _check(bet_j, "bet_j", dtype=torch.int64, shape=(f,))
+    _check(bet_z, "bet_z", shape=(f, 3))
+    _check(bet_sqrt_info, "bet_sqrt_info", shape=(f, 3, 3))
+    _check(prior_idx, "prior_idx", dtype=torch.int64, shape=(p,))
+    _check(prior_z, "prior_z", shape=(p, 3))
+    _check(prior_sqrt_info, "prior_sqrt_info", shape=(p, 3, 3))
+    _check(prior_mask, "prior_mask", dtype=torch.bool, shape=(p,), align=1)
+    dev = poses.device
+    blocks = -(-rows // 256)
+    scal = torch.empty(2 + 2 * blocks, dtype=torch.float32, device=dev)
+    out = ptrs = None
+    if jac:
+        out = torch.empty(21 * rows + 12 * p, dtype=torch.float32, device=dev)
+        ptrs = [out.data_ptr() + 4 * o for o in
+                (0, 9 * rows, 18 * rows, 21 * rows, 21 * rows + 9 * p)]
+    _call("factor_linearize_launch", "factor_linearize", poses.data_ptr(),
+          bet_i.data_ptr(), bet_j.data_ptr(), bet_z.data_ptr(),
+          bet_sqrt_info.data_ptr(), row_mask.data_ptr(),
+          None if fid is None else fid.data_ptr(),
+          None if n_between is None else n_between.data_ptr(), rows, window,
+          f, prior_idx.data_ptr(), prior_z.data_ptr(),
+          prior_sqrt_info.data_ptr(), prior_mask.data_ptr(), p,
+          float(huber_delta), *(ptrs or [None] * 5), scal.data_ptr(),
+          _stream(poses))
+    return scal, out
+
+
+def factor_linearize(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask,
+                     prior_idx, prior_z, prior_sqrt_info, prior_mask,
+                     huber_delta: float, fid=None, chi_only: bool = False):
+    """K5: the whitened, Huber-weighted (``huber_delta > 0``), masked
+    linearization of the between factors (every slot, or the gathered
+    slots ``fid`` int64 ``[K]``) and the priors (see
+    ``csrc/factor_linearize.cu``). ``row_mask`` is bool ``[F]`` (or ``[K]``
+    with ``fid``), ``prior_mask`` bool ``[P]``. Returns ``((ai [K,3,3], aj,
+    r [K,3]), (ap [P,3,3], rp [P,3]))``, or with ``chi_only`` only chi^2
+    ``[]``, summed in a fixed order."""
+    rows = bet_i.shape[0] if fid is None else fid.shape[0]
+    if fid is not None:
+        _check(fid, "fid", dtype=torch.int64, shape=(rows,))
+    _check(row_mask, "row_mask", dtype=torch.bool, shape=(rows,), align=1)
+    scal, out = _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info,
+                          row_mask, fid, None, rows, 0, prior_idx, prior_z,
+                          prior_sqrt_info, prior_mask, huber_delta,
+                          not chi_only)
+    if chi_only:
+        return scal[0]
+    p = prior_idx.shape[0]
+    ai = out[:9 * rows].view(rows, 3, 3)
+    aj = out[9 * rows:18 * rows].view(rows, 3, 3)
+    r = out[18 * rows:21 * rows].view(rows, 3)
+    ap = out[21 * rows:21 * rows + 9 * p].view(p, 3, 3)
+    rp = out[21 * rows + 9 * p:].view(p, 3)
+    return (ai, aj, r), (ap, rp)
+
+
+def fresh_residual_max(poses, bet_i, bet_j, bet_z, bet_sqrt_info, bet_mask,
+                       prior_idx, prior_z, prior_sqrt_info, prior_mask,
+                       n_between, k: int):
+    """K5 on the fresh window: max |whitened residual| (no Huber weight)
+    over the ``k`` slots from ``clamp(n_between - k, 0, F - k)`` with
+    ``bet_mask``; ``n_between`` is read on the card. Returns ``[]``."""
+    f = bet_i.shape[0]
+    k = min(k, f)
+    _check(bet_mask, "bet_mask", dtype=torch.bool, shape=(f,), align=1)
+    _check(n_between, "n_between", dtype=torch.int64, shape=())
+    scal, _ = _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info, bet_mask,
+                        None, n_between, k, k, prior_idx, prior_z,
+                        prior_sqrt_info, prior_mask, 0.0, False)
+    return scal[1]
+
+
+def pcg_solve(bet_i, bet_j, bet_mask, prior_idx, prior_mask, pose_mask, lin,
+              rhs, lam, max_iter: int, tol: float, damp_abs: float = 0.0):
+    """K6: the whole PCG solve of ``(H + damping) x = rhs`` in one launch
+    (see ``csrc/pcg_solve.cu``). ``lin`` is K5's ``((ai, aj, r), (ap,
+    rp))``; ``rhs`` f32 ``[V, 3]`` or None for ``-gradient``; ``lam`` an
+    f32 ``[]`` tensor (read on the card) or a Python float. Returns ``(x
+    [V, 3], iterations [] int32, max |M^-1 rhs| [])``. Raises above the
+    graph size one block's shared memory holds (the launcher sizes it)."""
+    (ai, aj, r), (ap, rp) = lin
+    f, p = _check_graph(bet_i, bet_j, bet_mask, prior_idx, prior_mask)
+    v = pose_mask.shape[0]
+    _check(pose_mask, "pose_mask", dtype=torch.bool, shape=(v,), align=1)
+    _check(ai, "ai", shape=(f, 3, 3))
+    _check(aj, "aj", shape=(f, 3, 3))
+    _check(r, "r", shape=(f, 3))
+    _check(ap, "ap", shape=(p, 3, 3))
+    _check(rp, "rp", shape=(p, 3))
+    if rhs is not None:
+        _check(rhs, "rhs", shape=(v, 3))
+    lam_ptr, lam_value = None, 0.0
+    if isinstance(lam, torch.Tensor):
+        _check(lam, "lam", shape=())
+        lam_ptr = lam.data_ptr()
+    else:
+        lam_value = float(lam)
+    dev = pose_mask.device
+    x = torch.empty((v, 3), dtype=torch.float32, device=dev)
+    ints = torch.empty((), dtype=torch.int32, device=dev)
+    zmax = torch.empty((), dtype=torch.float32, device=dev)
+    threads = min(1024, -(-v // 32) * 32)
+    _call("pcg_solve_launch", "pcg_solve", bet_i.data_ptr(), bet_j.data_ptr(),
+          bet_mask.data_ptr(), f, prior_idx.data_ptr(), prior_mask.data_ptr(),
+          p, pose_mask.data_ptr(), v, ai.data_ptr(), aj.data_ptr(),
+          r.data_ptr(), ap.data_ptr(), rp.data_ptr(),
+          None if rhs is None else rhs.data_ptr(), lam_ptr, lam_value,
+          float(damp_abs), int(max_iter), float(tol), x.data_ptr(),
+          ints.data_ptr(), zmax.data_ptr(), threads, _stream(x),
+          too_big=f"a graph of {v} poses and {f} factors is over the shared "
+                  f"memory one block can have; graphs this large (config 4) "
+                  f"are ROADMAP A10")
+    return x, ints, zmax
+
+
+def local_select(bet_i, bet_j, bet_mask, pose_mask, prior_idx, prior_mask,
+                 n_between, since, cfg) -> dict:
+    """K7a: the k-hop active set, the fits test and the local selection in
+    one launch (see ``csrc/local_system.cu``). ``cfg`` is a
+    ``SolverConfig``; ``n_between`` and ``since`` (or None) int64 ``[]``
+    are read on the card. Returns the selection dict of
+    ``graph.incremental.local_select``: only what the local path reads."""
+    f, p = _check_graph(bet_i, bet_j, bet_mask, prior_idx, prior_mask)
+    v = pose_mask.shape[0]
+    _check(pose_mask, "pose_mask", dtype=torch.bool, shape=(v,), align=1)
+    _check(n_between, "n_between", dtype=torch.int64, shape=())
+    if since is not None:
+        _check(since, "since", dtype=torch.int64, shape=())
+    p_loc, f_loc = min(cfg.local_poses, v), min(cfg.local_factors, f)
+    dev = pose_mask.device
+    flags = torch.empty(1 + p_loc + f_loc + p, dtype=torch.bool, device=dev)
+    ints = torch.empty(p_loc + 5 * f_loc + 2 * p, dtype=torch.int64,
+                       device=dev)
+    _call("local_select_launch", "local_select", bet_i.data_ptr(),
+          bet_j.data_ptr(), bet_mask.data_ptr(), f, pose_mask.data_ptr(), v,
+          prior_idx.data_ptr(), prior_mask.data_ptr(), p,
+          n_between.data_ptr(), None if since is None else since.data_ptr(),
+          min(cfg.local_fresh_k, f), cfg.local_span_gap, cfg.local_hops,
+          cfg.local_poses, cfg.local_factors, p_loc, f_loc, flags.data_ptr(),
+          ints.data_ptr(), _stream(flags),
+          too_big=f"a graph of {v} poses and {f} factors is over the shared "
+                  f"memory one block can have")
+    fl = torch.split(flags, [1, p_loc, f_loc, p])
+    it = torch.split(ints, [p_loc] + [f_loc] * 5 + [p, p])
+    return dict(p_loc=p_loc, ok=fl[0][0], in_set=fl[1], f_sel=fl[2],
+                p_act=fl[3], pid=it[0], fid=it[1], ri=it[2], rj=it[3],
+                li=it[4], lj=it[5], rp=it[6], lp=it[7])
+
+
+def local_assemble(n: int, ai, aj, r, ap, rp, f_sel, ri, li, rj, lj, p_act,
+                   p_role, lp):
+    """K7b: the local normal equations ``(h_ii [3n, 3n], b_i [3n])`` from
+    K5's gathered rows and the priors, routed by role (0 = interior) and
+    local slot (see ``csrc/local_system.cu``)."""
+    k, p = ai.shape[0], ap.shape[0]
+    _check(ai, "ai", shape=(k, 3, 3))
+    _check(aj, "aj", shape=(k, 3, 3))
+    _check(r, "r", shape=(k, 3))
+    _check(ap, "ap", shape=(p, 3, 3))
+    _check(rp, "rp", shape=(p, 3))
+    _check(f_sel, "f_sel", dtype=torch.bool, shape=(k,), align=1)
+    for name, t in (("ri", ri), ("li", li), ("rj", rj), ("lj", lj)):
+        _check(t, name, dtype=torch.int64, shape=(k,))
+    _check(p_act, "p_act", dtype=torch.bool, shape=(p,), align=1)
+    _check(p_role, "p_role", dtype=torch.int64, shape=(p,))
+    _check(lp, "lp", dtype=torch.int64, shape=(p,))
+    dev = ai.device
+    h = torch.empty((3 * n, 3 * n), dtype=torch.float32, device=dev)
+    b = torch.empty(3 * n, dtype=torch.float32, device=dev)
+    _call("local_assemble_launch", "local_assemble", ai.data_ptr(),
+          aj.data_ptr(), r.data_ptr(), k, ap.data_ptr(), rp.data_ptr(), p,
+          f_sel.data_ptr(), ri.data_ptr(), li.data_ptr(), rj.data_ptr(),
+          lj.data_ptr(), p_act.data_ptr(), p_role.data_ptr(), lp.data_ptr(),
+          n, h.data_ptr(), b.data_ptr(), _stream(h),
+          too_big=f"{k} gathered factors are over the shared memory one "
+                  f"block can have")
+    return h, b

@@ -19,7 +19,12 @@ On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
    edges: the front end (``_window_frontend``), the appends
    (``_wb_appends``) and inside them the K8a table writes and the loop
    detection (``_wb_loops``, of it the ``K*C``-lane registrations), the
-   smoother (``_wb_smooth``) and the map maintenance (``_wb_maps``);
+   smoother (``_wb_smooth``; and inside it, each exclusive of the others,
+   the probe and selection (K7a), the local assembly and Cholesky (K7b,
+   ``cholesky_ex``), the linearizations (K5) and the PCG solves (K6), the
+   rest being host glue) and the map maintenance (``_wb_maps``); then one
+   run with ``set_sync_debug_mode("warn")`` inside each ``_wb_smooth``
+   call: its host syncs per call, and where they are;
 3. one run of the kernel route under ``torch.profiler`` (and one more
    without it after, ``wall_after_profiler_s``: a profiler session leaves
    the later launches of the process slower): device kernels
@@ -29,7 +34,8 @@ On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
    ``halfcell_add`` (memset, scatter and pool) and K8a ``local_tables``, by
    call shape (K3: the window's scans, the rebuild of every keyframe slot,
    others by point count), and of K4 ``finalize_pack``, by role (the map
-   table of a window's first pass, the temporary map's of its second);
+   table of a window's first pass, the temporary map's of its second),
+   and of the smoother's K5, K6, K7a and K7b by role;
 4. with ``--shadow``, one more run in which every ``lm_ndt`` call is also
    made on the composite route and compared bit for bit.
 
@@ -233,20 +239,51 @@ def run_once(inputs, cfg):
     return time.perf_counter() - t0, state, traj
 
 
+#: The smoother's parts (``_wb_smooth``), each timed exclusive of the parts
+#: nested in it; what is left of ``_wb_smooth`` is the host glue. Functions
+#: an older checkout lacks are skipped, and its own names (the last four)
+#: are timed under the same labels.
+SMOOTHER_PARTS = (("ndtpu_torch.graph.incremental", "local_select",
+                   "probe/select"),
+                  ("ndtpu_torch.graph.incremental", "_local_step",
+                   "assembly + Cholesky"),
+                  ("ndtpu_torch.graph.factors", "factor_linearize",
+                   "linearize"),
+                  ("ndtpu_torch.graph.incremental", "fresh_residual_max",
+                   "linearize"),
+                  ("ndtpu_torch.graph.solve", "pcg_solve", "PCG"),
+                  ("ndtpu_torch.graph.incremental", "_active_probe",
+                   "probe/select"),
+                  ("ndtpu_torch.graph.incremental", "_local_system",
+                   "assembly + Cholesky"),
+                  ("ndtpu_torch.graph.factors", "linearize", "linearize"),
+                  ("ndtpu_torch.graph.solve", "pcg_rhs", "PCG"))
+
+
 def phase_run(inputs, cfg):
     """One run with the phases synchronized at their edges; seconds per
-    phase (nested phases are also inside their parents)."""
+    phase (nested phases are also inside their parents), and the
+    smoother's parts (:data:`SMOOTHER_PARTS`, exclusive) with its host glue
+    (the rest of ``_wb_smooth``)."""
+    import importlib
+
     import torch
 
     from ndtpu_torch.loop import closure
     from ndtpu_torch.slam import pipeline
 
     spent = defaultdict(float)
+    parts = defaultdict(float)
+    stack = []
     patched = [(pipeline, "_window_frontend"), (pipeline, "_wb_appends"),
                (pipeline, "_wb_loops"), (pipeline, "_wb_smooth"),
                (pipeline, "_wb_maps"), (closure, "write_local_tables"),
                (closure, "verify_registrations")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in patched]
+    part_saved = [(importlib.import_module(m), name, label)
+                  for m, name, label in SMOOTHER_PARTS]
+    part_saved = [(mod, name, label, getattr(mod, name))
+                  for mod, name, label in part_saved if hasattr(mod, name)]
 
     def timed(name, fn):
         def wrapper(*a, **k):
@@ -258,14 +295,77 @@ def phase_run(inputs, cfg):
             return out
         return wrapper
 
+    def part(label, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            stack.append(0.0)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            inner = stack.pop()
+            parts[label] += dt - inner
+            if stack:
+                stack[-1] += dt
+            return out
+        return wrapper
+
     for mod, name, fn in saved:
         setattr(mod, name, timed(name, fn))
+    for mod, name, label, fn in part_saved:
+        setattr(mod, name, part(label, fn))
     try:
         wall, _, _ = run_once(inputs, cfg)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    return wall, dict(spent)
+        for mod, name, _, fn in part_saved:
+            setattr(mod, name, fn)
+    parts["host glue"] = spent["_wb_smooth"] - sum(parts.values())
+    return wall, dict(spent), dict(parts)
+
+
+def sync_run(inputs, cfg):
+    """One run with ``torch.cuda.set_sync_debug_mode("warn")`` inside each
+    ``_wb_smooth`` call: the host syncs per smoother call (the calls with a
+    new keyframe run ``incremental_update``) and where they are."""
+    import warnings
+
+    import torch
+
+    from ndtpu_torch.slam import pipeline
+
+    smooth = pipeline._wb_smooth
+    calls = []
+
+    def counted(state, graph, any_kf, c):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = smooth(state, graph, any_kf, c)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        calls.append((len(syncs), [f"{Path(w.filename).name}:{w.lineno}"
+                                   for w in syncs]))
+        return out
+
+    pipeline._wb_smooth = counted
+    try:
+        run_once(inputs, cfg)
+    finally:
+        pipeline._wb_smooth = smooth
+    updates = [n for n, _ in calls if n > 1]     # bool(any_kf) + the update
+    where = defaultdict(int)
+    for _, lines in calls:
+        for line in lines:
+            where[line] += 1
+    return dict(smooth_calls=len(calls), updates=len(updates),
+                syncs=sum(n for n, _ in calls),
+                syncs_per_update=(sum(updates) / len(updates)
+                                  if updates else None),
+                sync_sites=dict(sorted(where.items(), key=lambda kv: -kv[1])))
 
 
 def finalize_calls(events, k4_roles) -> dict:
@@ -320,10 +420,38 @@ def map_build_calls(events, k3_calls, k8a_calls, cfg):
                 local_tables_events=len(tables))
 
 
+def smoother_calls(events, roles) -> dict:
+    """Card-only ms per call of the smoother's kernels by role, from their
+    device events in stream order: K5 (a rows kernel and a finish kernel
+    per call; roles ``full``, ``full_chi2``, ``gathered``,
+    ``gathered_chi2``, ``window``), K6 (``solve``, ``settled_step``), K7a
+    and K7b."""
+    out = {}
+    for name, ev_names in (("factor_linearize", ("linearize_finish",)),
+                           ("pcg_solve", ("pcg_solve_kernel",)),
+                           ("local_select", ("local_select_kernel",)),
+                           ("local_assemble", ("local_assemble_kernel",))):
+        evs = [e for e in events if any(n in e[2] for n in ev_names)]
+        rows = [e for e in events if "linearize_rows" in e[2]]
+        by_role = defaultdict(list)
+        for i, (role, e) in enumerate(zip(roles[name], evs)):
+            us = e[1] - e[0]
+            if name == "factor_linearize":
+                prior = [r for r in rows if r[1] <= e[0]]
+                if prior and (i == 0 or prior[-1][0] >= evs[i - 1][1]):
+                    us += prior[-1][1] - prior[-1][0]
+            by_role[role].append(us / 1e3)
+        out[name] = dict(calls=len(roles[name]), events=len(evs), **{
+            role: dict(calls=len(v), ms_per_call=sum(v) / len(v),
+                       ms_max=max(v)) for role, v in by_role.items()})
+    return out
+
+
 def profiled_run(inputs, cfg, n_scans: int):
     """Device kernels per scan, device busy share of the profiled span,
     top kernels, lm_ndt's and the gated verify's device time per launch,
-    K3's and K8a's card time per call by call shape, and K4's by role."""
+    K3's and K8a's card time per call by call shape, K4's by role, and the
+    smoother's kernels' by role (:func:`smoother_calls`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -353,9 +481,42 @@ def profiled_run(inputs, cfg, n_scans: int):
         k4_roles.append("window")       # dropped below
         return frontend(*a, **k)
 
+    sm_roles = defaultdict(list)
+    sm_saved = {name: getattr(kernels, name) for name in
+                ("factor_linearize", "fresh_residual_max", "pcg_solve",
+                 "local_select", "local_assemble") if hasattr(kernels, name)}
+
+    def lin_logged(*a, fid=None, chi_only=False):
+        sm_roles["factor_linearize"].append(
+            ("gathered" if fid is not None else "full")
+            + ("_chi2" if chi_only else ""))
+        return sm_saved["factor_linearize"](*a, fid=fid, chi_only=chi_only)
+
+    def window_logged(*a, **k):
+        sm_roles["factor_linearize"].append("window")
+        return sm_saved["fresh_residual_max"](*a, **k)
+
+    def pcg_logged(*a, **k):
+        max_iter = a[9] if len(a) > 9 else k["max_iter"]
+        sm_roles["pcg_solve"].append("solve" if max_iter > 0
+                                     else "settled_step")
+        return sm_saved["pcg_solve"](*a, **k)
+
+    def one_role(name):
+        def inner(*a, **k):
+            sm_roles[name].append("all")
+            return sm_saved[name](*a, **k)
+        return inner
+
     kernels.halfcell_add, kernels.local_tables = k3_logged, k8a_logged
     kernels.finalize_pack, pipeline._window_frontend = k4_logged, \
         frontend_logged
+    logged = dict(factor_linearize=lin_logged,
+                  fresh_residual_max=window_logged, pcg_solve=pcg_logged,
+                  local_select=one_role("local_select"),
+                  local_assemble=one_role("local_assemble"))
+    for name in sm_saved:
+        setattr(kernels, name, logged[name])
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -363,6 +524,8 @@ def profiled_run(inputs, cfg, n_scans: int):
     finally:
         kernels.halfcell_add, kernels.local_tables = k3, k8a
         kernels.finalize_pack, pipeline._window_frontend = k4, frontend
+        for name, fn in sm_saved.items():
+            setattr(kernels, name, fn)
     k4_roles = [r for r in k4_roles if r != "window"]
     spans, by_name, events = [], defaultdict(lambda: [0, 0.0]), []
     for e in prof.events():
@@ -402,6 +565,7 @@ def profiled_run(inputs, cfg, n_scans: int):
                                            / gated_n if gated_n else None),
         finalize_pack=finalize_calls(events, k4_roles),
         map_build=map_build_calls(events, k3_calls, k8a_calls, cfg),
+        smoother=smoother_calls(events, sm_roles),
         top=[dict(name=k[:80], count=v[0], ms=v[1]) for k, v in top])
 
 
@@ -476,10 +640,18 @@ def main(argv=None) -> int:
         shadow, traj = shadow_run(inputs, cfg)
         shadow["ate_m"] = float(ate_rmse(traj.cpu(), seq.gt_poses))
         print(f"[profile] shadow run: {shadow}")
-    wall_p, spent = phase_run(inputs, cfg)
+    wall_p, spent, parts = phase_run(inputs, cfg)
     shares = {k: v / wall_p for k, v in spent.items()}
     print(f"[profile] phases ({wall_p:.4f} s): " + ", ".join(
         f"{k} {v:.4f} s ({shares[k]:.1%})" for k, v in spent.items()))
+    print(f"[profile] _wb_smooth by part: " + ", ".join(
+        f"{k} {v:.4f} s ({v / wall_p:.1%} of the run)"
+        for k, v in parts.items()))
+    syncs = sync_run(inputs, cfg)
+    print(f"[profile] host syncs in _wb_smooth: {syncs['syncs']} over "
+          f"{syncs['smooth_calls']} calls; {syncs['updates']} calls with an "
+          f"update, {syncs['syncs_per_update']} syncs each (bool(any_kf) "
+          f"included); sites {syncs['sync_sites']}")
     prof = profiled_run(inputs, cfg, n)
     wall_after, _, _ = run_once(inputs, cfg)
     print(f"[profile] one more run after the profiler: {wall_after:.4f} s "
@@ -502,6 +674,12 @@ def main(argv=None) -> int:
                 f", {op} {ms:.4f}" for op, ms in
                 v.get("ms_per_call_by_op", {}).items()) + ")"
             for shape, v in mb[name].items()))
+    for name, v in prof["smoother"].items():
+        print(f"[profile] {name} on the card per call ({v['calls']} calls, "
+              f"{v['events']} events): " + ", ".join(
+                  f"{role} {r['ms_per_call']:.4f} ms (max {r['ms_max']:.4f},"
+                  f" {r['calls']} calls)" for role, r in v.items()
+                  if isinstance(r, dict)))
     k4 = prof["finalize_pack"]
     print(f"[profile] finalize_pack on the card per call: " + ", ".join(
         f"{role} {v['ms_per_call']:.4f} ms (max {v['ms_max']:.4f}, "
@@ -511,7 +689,8 @@ def main(argv=None) -> int:
                   scans=n, wall_s=walls,
                   scans_per_s={k: [(n - 1) / w for w in v]
                                for k, v in walls.items()},
-                  phase_wall_s=wall_p, phase_s=spent, profiler=prof,
+                  phase_wall_s=wall_p, phase_s=spent, smoother_parts_s=parts,
+                  smoother_syncs=syncs, profiler=prof,
                   wall_after_profiler_s=wall_after, shadow=shadow)
     return _emit(result, smi, args.out)
 

@@ -1,7 +1,9 @@
 """The CUDA kernels (lm_ndt shared and grouped, K1 ndt_terms shared and
 grouped, K3 halfcell_add, K4 finalize_pack, K8a local_tables, K8b
-loop_gate, and the gated verify that runs K8b inside lm_ndt) against their
-plain twins, on the card; K3 also against the plain model of its
+loop_gate, the gated verify that runs K8b inside lm_ndt, and the
+smoother's K5 factor_linearize, K6 pcg_solve, K7a local_select and K7b
+local_assemble, also through incremental_update) against their plain
+twins, on the card; K3 also against the plain model of its
 fixed-point arithmetic, bit for bit, K3, K4 and K8a for the same result on
 every launch (K3 and K8a also under any order of the points), and the
 gated verify bit for bit against lm_ndt_grouped followed by the
@@ -534,3 +536,129 @@ def test_gated_verify_bit_equal_to_lm_ndt_then_loop_gate(loop_store, c):
     cfg3, seq, kf = loop_store
     g = cs.gated_verify_identity(cfg3, seq, kf, 0, torch.device("cuda"), c)
     assert bool(g["ref"].accept.any())
+
+
+@pytest.fixture(scope="module")
+def smoother():
+    """The smoother's state at the end of box-world config-3 draw 2 (300
+    scans, loops closed; 1,024 pose and 2,048 factor slots), its newest
+    poses moved (``chip_smoke.smoother_state``), and config 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke as cs
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.slam import pipeline
+
+    cfg3 = PipelineConfig.from_json(str(cs.CONFIG3))
+    seq = cs.box_sequence(2, cfg3.n_beams)
+    dev = torch.device("cuda")
+    state, _ = pipeline.run_slam_windowed(seq.points.to(dev),
+                                          seq.mask.to(dev),
+                                          seq.odom.to(dev), cfg3)
+    assert int(state.n_loops) > 0
+    return cs.smoother_state(state, 0), cfg3
+
+
+def test_factor_linearize_matches_plain_and_repeats(smoother):
+    """K5 (whole graph, gathered rows, chi^2, fresh window) against its f32
+    plain version at rtol 1e-5, bit-identical on a second launch (see
+    chip_smoke.check_k5)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    cs.check_k5(*smoother, jobs=[])
+    assert kernels.LAUNCHES["factor_linearize"] >= 4
+
+
+def test_pcg_solve_matches_f32_and_f64_plain(smoother):
+    """K6 against the f32 and f64 plain solves (within 2 x the f32 error
+    against f64, iterations within 1), bit-identical on a second launch,
+    one launch and no host sync per pcg call, the 0-iteration mode (see
+    chip_smoke.check_k6)."""
+    import chip_smoke as cs
+
+    row = cs.check_k6(*smoother, jobs=[])
+    assert row["iterations"] > 0
+
+
+def test_local_select_bit_equal_to_plain(smoother):
+    """K7a equals the plain selection bit for bit and repeats (see
+    chip_smoke.check_k7a)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    cs.check_k7a(*smoother, jobs=[])
+    assert kernels.LAUNCHES["local_select"] >= 6
+
+
+def test_local_assemble_matches_plain_and_repeats(smoother):
+    """K7b against its f32 plain version at rtol 1e-5, bit-identical on a
+    second launch (see chip_smoke.check_k7b)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    cs.check_k7b(*smoother, jobs=[])
+    assert kernels.LAUNCHES["local_assemble"] >= 2
+
+
+def test_incremental_update_through_the_kernels(smoother):
+    """incremental_update on the card reaches no plain version and agrees
+    with the plain route (f32 and f64) for the local and global takes, the
+    settled check and the full solve; local_update with a K7a probe makes
+    no host sync (see chip_smoke.check_incremental_takes)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    takes = cs.check_incremental_takes(*smoother)
+    assert takes["global"] == 1 and takes["local"] == 2
+    for name in ("factor_linearize", "pcg_solve", "local_select",
+                 "local_assemble"):
+        assert kernels.LAUNCHES[name] > 0, name
+
+
+def _tiny_graph(dev, v, f, p=4):
+    from ndtpu_torch.graph import factors as tfct
+
+    g = tfct.empty_graph(v, p, f, torch.float32, dev)
+    return g._replace(pose_mask=torch.ones(v, dtype=torch.bool, device=dev))
+
+
+def test_pcg_solve_refuses_above_one_block(dev):
+    """Config 4's 10k-pose graphs do not fit K6's one block: it raises,
+    naming ROADMAP A10, before any launch."""
+    from ndtpu_torch.graph import factors as tfct
+    from ndtpu_torch.graph import solve as tslv
+
+    g = _tiny_graph(dev, 10240, 20480)
+    lin = tfct.linearize(g)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="A10"):
+        tslv.pcg_solve(g, lin, None, 1e-4, 10, 1e-5)
+    assert kernels.LAUNCHES["pcg_solve"] == 0
+
+
+def test_smoother_kernels_refuse_cpu_tensors():
+    """The raw entry points take CUDA tensors only (the graph wrappers send
+    CPU tensors to the plain versions before they get here)."""
+    from ndtpu_torch.config import SolverConfig
+    from ndtpu_torch.graph import factors as tfct
+
+    g = _tiny_graph("cpu", 8, 16)
+    args = tfct._graph_args(g)
+    lin = tfct.factor_linearize_ref(*args)
+    sel_args = (g.bet_i, g.bet_j, g.bet_mask, g.pose_mask, g.prior_idx,
+                g.prior_mask, g.n_between, None, SolverConfig())
+    calls = [
+        lambda: kernels.factor_linearize(*args, 0.0),
+        lambda: kernels.fresh_residual_max(*args, g.n_between, 4),
+        lambda: kernels.pcg_solve(g.bet_i, g.bet_j, g.bet_mask, g.prior_idx,
+                                  g.prior_mask, g.pose_mask, lin, None, 1e-4,
+                                  10, 1e-5),
+        lambda: kernels.local_select(*sel_args),
+        lambda: kernels.local_assemble(
+            2, *lin[0], *lin[1], g.bet_mask, g.bet_i, g.bet_i, g.bet_j,
+            g.bet_j, g.prior_mask, g.prior_idx, g.prior_idx),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            call()
