@@ -52,7 +52,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    through the kernels (no plain version reached) against the plain route
    in f32 and f64 for the local and global takes, the settled check and
    the full solve, and ``local_update`` with a K7a probe without a host
-   sync;
+   sync; then config 4's kernels on bench.py's 10k-pose Manhattan graph
+   (P = 64 shards): K5 at its 10,305 rows, K9a ``supernodal_assemble`` and
+   K9b ``schur_reduce`` against their plain versions in f32 on the card and
+   in f64 on the CPU (rtol 1e-5 of each target's max; bit-identical on a
+   second launch), one ``supernodal_delta`` on the card against the f64
+   plain route (within 2 x the f32 plain route's error), and the bench's
+   ``ba_solve_ms_per_iter_10k`` (one K5 linearize + ``supernodal_delta``,
+   the median of 10 host-fenced calls after a warm-up) with the step's
+   card-time split;
 4. config 2 through its entry point: ``ndtpu_torch.run.main`` on
    ``configs/config2_full_sequence.json``, 300 scans, ``--device cuda``,
    with every launch counter (and the counts of ``match_batch_packed``
@@ -66,20 +74,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    corridor's 120 m lap takes 480), counters reset and read as in phase 4;
 7. the config-3 ATE gate against ``tests/data/torch_config3_box300_ref.json``
    (also: the port closes a loop on every draw where JAX does);
-8. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
+8. config 4 through its entry point: ``ndtpu_torch.solve_g2o.main``
+   with ``--manhattan 10000 --shards 64`` on the card (supernodal by
+   ``auto``), counters reset just before and read just after: one K9a and
+   one K9b launch per LM iteration, K5 launched, chi^2 falling and the final
+   chi^2 within 1.02 x the JAX package's f32 final chi^2 on the same graph
+   (``tests/data/torch_config4_manhattan10k_ref.json``);
+9. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
    phase 4; also ``lm_ndt_grouped``, K8a and the gated verify
    ``loop_gate_fused`` in phase 6), exactly one ``lm_ndt*`` launch per
    ``match_batch_packed`` call, and in phase 6 one gated verify per
    loop-detection call and no standalone K8b launch; K5, K7a and K7b
    launched in both phases, K6 in phase 6 (config 2 may never take the
    global path), one ``pcg_solve`` launch per PCG solve, and a full solve
-   in phase 6. K1's and K8b's own launches are not required there: on the
-   main path their code runs inside ``lm_ndt``, and they are held to their
-   twins in phase 3.
+   in phase 6; K5, K9a and K9b in phase 8. K1's and K8b's own launches are
+   not required there: on the main path their code runs inside ``lm_ndt``,
+   and they are held to their twins in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches
-(phases 4 and 6 together), errors, times and bounds, the repeated runs'
-ATEs and the smoother's counts; the last line is
+(phases 4, 6 and 8 together), errors, times and bounds, the repeated runs'
+ATEs, the smoother's counts and config 4's run and step timing; the last
+line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -101,6 +116,11 @@ CONFIG3 = ROOT / "configs" / "config3_loop_closure.json"
 CONFIG5 = ROOT / "configs" / "config5_multisession.json"
 REF_FILE = ROOT / "tests" / "data" / "torch_config2_box300_ref.json"
 REF3_FILE = ROOT / "tests" / "data" / "torch_config3_box300_ref.json"
+#: Config 4 (BASELINE's 10k-pose Manhattan world; bench.py's BA cell and
+#: ``solve_g2o --manhattan 10000 --shards 64``): poses, shards, the step's
+#: damping, and the JAX package's final chi^2 on the same graph.
+CONFIG4 = dict(n_poses=10000, shards=64, lam=1e-3)
+REF4_FILE = ROOT / "tests" / "data" / "torch_config4_manhattan10k_ref.json"
 
 #: One H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
 #: bytes/s and f32 FLOP/s outside the tensor cores.
@@ -119,35 +139,45 @@ BOX = dict(half=11.0, n_scans=300, traj_half=7.0, step=0.2, max_range=20.0,
            min_range=0.1, odom_trans_std=0.04, odom_rot_std=0.01)
 
 _CSRC = "ndtpu_torch/kernels/csrc/"
+#: Every kernel, with the entry-point runs that must launch it (``paths``:
+#: config 2, 3 and 4 are phases 4, 6 and 8), or the kernel whose launch
+#: runs its code on the main path (``inside``).
 KERNELS = [
     dict(name="lm_ndt", source=_CSRC + "lm_ndt.cu",
-         replaces="ndtpu/ndt/match.py:308", config2=True),
+         replaces="ndtpu/ndt/match.py:308", paths=("config2", "config3")),
     dict(name="lm_ndt_grouped", source=_CSRC + "lm_ndt.cu",
-         replaces="ndtpu/ndt/match.py:308", config2=False),
+         replaces="ndtpu/ndt/match.py:308", paths=("config3",)),
     dict(name="ndt_terms", source=_CSRC + "ndt_terms.cu",
          replaces="ndtpu/ndt/match.py:237", inside="lm_ndt"),
     dict(name="ndt_terms_grouped", source=_CSRC + "ndt_terms.cu",
          replaces="ndtpu/ndt/grid.py:450", inside="lm_ndt_grouped"),
     dict(name="halfcell_add", source=_CSRC + "halfcell_add.cu",
-         replaces="ndtpu/ndt/grid.py:161", config2=True),
+         replaces="ndtpu/ndt/grid.py:161", paths=("config2", "config3")),
     dict(name="finalize_pack", source=_CSRC + "finalize_pack.cu",
-         replaces="ndtpu/ndt/grid.py:232", config2=True),
+         replaces="ndtpu/ndt/grid.py:232", paths=("config2", "config3")),
     dict(name="local_tables", source=_CSRC + "local_tables.cu",
-         replaces="ndtpu/loop/closure.py:84", config2=False),
+         replaces="ndtpu/loop/closure.py:84", paths=("config3",)),
     dict(name="loop_gate", source=_CSRC + "loop_gate.cu",
          replaces="ndtpu/loop/closure.py:171", inside="loop_gate_fused"),
     dict(name="loop_gate_fused", source=_CSRC + "lm_ndt.cu",
-         replaces="ndtpu/loop/closure.py:171", config2=False),
+         replaces="ndtpu/loop/closure.py:171", paths=("config3",)),
     dict(name="factor_linearize", source=_CSRC + "factor_linearize.cu",
-         replaces="ndtpu/graph/factors.py:225", config2=True),
+         replaces="ndtpu/graph/factors.py:225",
+         paths=("config2", "config3", "config4")),
     # Config 2's runs may never take the global path nor reach the full
     # solve (PERF.md), so K6 is required in the config-3 phase only.
     dict(name="pcg_solve", source=_CSRC + "pcg_solve.cu",
-         replaces="ndtpu/graph/solve.py:167", config2=False),
+         replaces="ndtpu/graph/solve.py:167", paths=("config3",)),
     dict(name="local_select", source=_CSRC + "local_system.cu",
-         replaces="ndtpu/graph/incremental.py:120", config2=True),
+         replaces="ndtpu/graph/incremental.py:120",
+         paths=("config2", "config3")),
     dict(name="local_assemble", source=_CSRC + "local_system.cu",
-         replaces="ndtpu/dist/schur.py:318", config2=True),
+         replaces="ndtpu/dist/schur.py:318", paths=("config2", "config3")),
+    # The supernodal step runs on config 4's path only.
+    dict(name="supernodal_assemble", source=_CSRC + "supernodal.cu",
+         replaces="ndtpu/graph/supernodal.py:158", paths=("config4",)),
+    dict(name="schur_reduce", source=_CSRC + "supernodal.cu",
+         replaces="ndtpu/graph/supernodal.py:338", paths=("config4",)),
 ]
 
 
@@ -1770,6 +1800,348 @@ def check_incremental_takes(sm, cfg3):
     return takes_seen
 
 
+def config4_graph(device, dtype, seed: int, n_poses: int):
+    """``solve_g2o --manhattan n_poses --seed seed``'s graph, a prior on
+    pose 0."""
+    from ndtpu_torch.data import g2o
+    from ndtpu_torch.solve_g2o import manhattan_data
+
+    return g2o.to_graph(manhattan_data(n_poses, seed), dtype=dtype,
+                        device=device)
+
+
+def config4_case(dev, seed: int, n_poses: int = CONFIG4["n_poses"],
+                 shards: int = CONFIG4["shards"]):
+    """The config-4 graph on the card (f32) and on the CPU (f64), its plan,
+    K5's linearization on the card and the plain one in f64."""
+    import torch
+
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import supernodal as sn
+
+    g = config4_graph(dev, torch.float32, seed, n_poses)
+    g64 = config4_graph("cpu", torch.float64, seed, n_poses)
+    t0 = time.perf_counter()
+    plan = sn.plan_supernodal(g, shards)
+    plan_s = time.perf_counter() - t0
+    return dict(g=g, g64=g64, plan=plan, plan_s=plan_s, lin=fct.linearize(g),
+                lin64=fct.linearize(g64), lam=CONFIG4["lam"])
+
+
+def _cpu64(ts):
+    return [t.cpu().double() for t in ts]
+
+
+def check_k5_config4(c4):
+    """K5 at config 4's F = 10,305 rows (41 row blocks and the one-warp
+    finish) against its f32 plain version at rtol 1e-5, chi^2 too, and
+    bit-identical on a second launch."""
+    import torch
+
+    from ndtpu_torch.graph import factors as fct
+
+    g = c4["g"]
+    args = fct._graph_args(g)
+    again = fct.linearize(g)
+    ref = fct.factor_linearize_ref(*args)
+    chi, chi_again = fct.chi2(g), fct.chi2(g)
+    chi_ref = torch.sum(ref[0][2] ** 2) + torch.sum(ref[1][1] ** 2)
+    torch.cuda.synchronize()
+    require(bits_equal(_flat(c4["lin"]), _flat(again)),
+            "K5 config 4: two launches differ")
+    require(bits_equal(chi, chi_again), "K5 config 4 chi2: two launches "
+            "differ")
+    err = _rel_check("K5 config 4", _flat(c4["lin"]), _flat(ref))
+    _rel_check("K5 config 4 chi2", [chi[None]], [chi_ref[None]])
+    ms = time_ms(lambda: fct.linearize(g))
+    plain = time_ms(lambda: fct.factor_linearize_ref(*args))
+    f, p = g.bet_i.shape[0], g.prior_idx.shape[0]
+    bd = bound(f * 85 + f * 88 + p * 109 + 16, f * K5_ROW_FLOPS + p * 30)
+    print(f"[smoke] K5 factor_linearize config 4 F={f}: vs f32 plain max abs "
+          f"err {err:.3e} (rtol 1e-5 of each array's max), chi2 "
+          f"{float(chi):.6e} vs {float(chi_ref):.6e}; bit-identical on a "
+          f"second launch; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, **bd)
+
+
+def k9a_bound(plan, lin) -> dict:
+    """Bytes: K5's blocks and the routing tables read once, the five
+    targets written; operations: 54 per routed 3x3 pair (A^T B and its
+    add), 18 per routed A^T r."""
+    t = plan.routes.host
+    (ai, _, _), (ap, _) = lin
+    sp = plan.schur
+    p, ni, nsl, ns = sp.fac_idx.shape[0], sp.ni, plan.ns_loc, sp.ns
+    out = 9 * p * ni * (ni + nsl) + 9 * ns * ns + 3 * (p * ni + ns)
+    tables = sum(t[k].size for k in ("row_ptr", "tgt_col", "tgt_ptr", "code",
+                                     "vec_ptr", "vcode"))
+    return bound(ai.shape[0] * 84 + ap.shape[0] * 48 + tables * 4 + out * 4,
+                 54.0 * t["code"].size + 18.0 * t["vcode"].size)
+
+
+def check_k9a(c4, jobs=None):
+    """K9a against ``supernodal_assemble_ref`` in f32 on the card and in
+    f64 on the CPU, each target within rtol 1e-5 of its max |.|;
+    bit-identical on a second launch. Returns the row and the outputs."""
+    import torch
+
+    from ndtpu_torch.graph import supernodal as sn
+
+    plan, lin = c4["plan"], c4["lin"]
+    run = lambda: sn.supernodal_assemble(plan, *_flat(lin))
+    out, again = run(), run()
+    ref = sn.supernodal_assemble_ref(plan, *_flat(lin))
+    ref64 = sn.supernodal_assemble_ref(plan, *_cpu64(_flat(lin)))
+    torch.cuda.synchronize()
+    require(bits_equal(out, again), "K9a: two launches differ")
+    err = _rel_check("K9a vs f32 plain", out, ref)
+    err64 = _rel_check("K9a vs f64 plain", _cpu64(out), ref64)
+    ms = time_ms(run)
+    plain = time_ms(lambda: sn.supernodal_assemble_ref(plan,
+                                                       *_flat(lin)))
+    bd = k9a_bound(plan, lin)
+    sp = plan.schur
+    t = plan.routes.host
+    print(f"[smoke] K9a supernodal_assemble P={sp.fac_idx.shape[0]} "
+          f"ni={sp.ni} ns={sp.ns} ns_loc={plan.ns_loc} "
+          f"({t['tgt_col'].size} target blocks, {t['code'].size} pairs): vs "
+          f"f32 plain max abs err {err:.3e}, vs f64 plain {err64:.3e} (rtol "
+          f"1e-5 of each target's max); bit-identical on a second launch; "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    row = dict(max_abs_err=err, max_abs_err_f64=err64, ms=ms, plain_ms=plain,
+               **bd)
+    card_time(jobs, "K9a supernodal_assemble", row, "card_ms", run,
+              ["supernodal_assemble"])
+    return row, out
+
+
+def k9b_bound(plan) -> dict:
+    """Bytes: the held part entries (a shard's parts are read only where
+    it holds both the row's and the column's separator, ``(3 m_p)^2 + 3
+    m_p`` of them for a shard holding ``m_p``), ``h_ss``, ``b_s`` and the
+    routing tables read once, ``s_tot`` and ``rhs_tot`` written;
+    operations: one add per held part entry, the subtraction per output
+    entry, 3 for each diagonal's damping."""
+    t = plan.routes.host
+    ns3 = 3 * plan.schur.ns
+    routed = sum((3 * int(m.sum())) ** 2 + 3 * int(m.sum())
+                 for m in plan.ls_mask)
+    tables = sum(t[k].size for k in ("hold_ptr", "hold_shard", "hold_loc",
+                                     "loc_of")) * 4 + plan.schur.ns
+    return bound(4 * (routed + 2 * (ns3 * ns3 + ns3)) + tables,
+                 routed + ns3 * ns3 + ns3 + 3 * ns3)
+
+
+def check_k9b(c4, k9a_out, jobs=None):
+    """K9b against ``schur_reduce_ref`` in f32 on the card and in f64 on
+    the CPU (inputs from the card's K9a and interior elimination), each
+    output within rtol 1e-5 of its max |.|; bit-identical on a second
+    launch; ``index_add_`` of the routed parts into a copy of ``h_ss``
+    (the same sum, without the damping) timed beside it."""
+    import torch
+
+    from ndtpu_torch.graph import supernodal as sn
+
+    plan, lam = c4["plan"], c4["lam"]
+    h_ii, h_is, h_ss, b_i, b_s = (x.clone() for x in k9a_out)
+    _, _, s_part, rhs_part = sn.interior_parts(plan, h_ii, h_is, b_i, lam)
+    args = (s_part, rhs_part, h_ss, b_s, lam)
+    run = lambda: sn.schur_reduce(plan, *args)
+    out, again = run(), run()
+    ref = sn.schur_reduce_ref(plan, *args)
+    ref64 = sn.schur_reduce_ref(plan, *_cpu64(args[:4]), lam)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(s_part).all()), "K9b: Schur parts not finite")
+    require(bits_equal(out, again), "K9b: two launches differ")
+    err = _rel_check("K9b vs f32 plain", out, ref)
+    err64 = _rel_check("K9b vs f64 plain", _cpu64(out), ref64)
+    ms = time_ms(run)
+    plain = time_ms(lambda: sn.schur_reduce_ref(plan, *args))
+    t = sn.tables_on(plan, s_part.device)
+    ns3 = h_ss.shape[0]
+    pair = torch.where(t.gvalid[:, :, None] & t.gvalid[:, None, :],
+                       t.gidx[:, :, None] * ns3 + t.gidx[:, None, :],
+                       torch.zeros_like(t.gidx[:, :, None])).reshape(-1)
+    keep = (t.gvalid[:, :, None] & t.gvalid[:, None, :]).reshape(-1)
+    idx, src = pair[keep], s_part.reshape(-1)[keep]
+    flat = h_ss.reshape(-1)
+    lib = time_ms(lambda: flat.clone().index_add_(0, idx, src, alpha=-1.0))
+    bd = k9b_bound(plan)
+    print(f"[smoke] K9b schur_reduce ns={plan.schur.ns} "
+          f"ns_loc={plan.ns_loc}: vs f32 plain max abs err {err:.3e}, vs f64 "
+          f"plain {err64:.3e} (rtol 1e-5 of each output's max); "
+          f"bit-identical on a second launch; kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library (index_add_ of the routed parts into a "
+          f"copy of h_ss, no damping) {lib:.4f} ms, bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    row = dict(max_abs_err=err, max_abs_err_f64=err64, ms=ms, plain_ms=plain,
+               **bd)
+    row.update(library_ms=lib, library="torch.Tensor.index_add_(alpha=-1) "
+               "of the routed Schur parts into a copy of h_ss: the same sum "
+               "without the damping")
+    card_time(jobs, "K9b schur_reduce", row, "card_ms", run,
+              ["schur_reduce"])
+    return row
+
+
+def check_supernodal_step(c4):
+    """One ``supernodal_delta`` on the card (K5's linearization, K9a, the
+    library factorizations, K9b) against the f64 plain route on the CPU:
+    its max error within 2 x the f32 plain route's (CPU) own error against
+    f64 + 1e-6 x max|delta|."""
+    import torch
+
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import supernodal as sn
+
+    plan, lam = c4["plan"], c4["lam"]
+    g32 = graph_on(c4["g64"], "cpu", torch.float32)
+    d_card = sn.supernodal_delta(c4["g"], c4["lin"], plan, lam)
+    d32 = sn.supernodal_delta(g32, fct.linearize(g32), plan, lam)
+    d64 = sn.supernodal_delta(c4["g64"], c4["lin64"], plan, lam)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(d_card).all()), "supernodal step: not finite")
+    ek = float((d_card.cpu().double() - d64).abs().max())
+    ep = float((d32.double() - d64).abs().max())
+    dmax = float(d64.abs().max())
+    require(ek <= 2.0 * ep + 1e-6 * dmax,
+            f"supernodal step: {ek:.3e} off f64, over 2 x the f32 plain "
+            f"route's {ep:.3e} + 1e-6 x {dmax:.3e}")
+    print(f"[smoke] supernodal_delta on the card vs the f64 plain route: "
+          f"max abs err {ek:.3e} (f32 plain route {ep:.3e}; max|delta| "
+          f"{dmax:.3e}; plan {c4['plan_s']:.2f} s on the host)")
+    return dict(max_abs_err=ek, plain_f32_err_vs_f64=ep, max_delta=dmax)
+
+
+def ba_step_timing(c4, card, jobs):
+    """bench.py's BA protocol at 10k poses: one step (K5 linearize +
+    ``supernodal_delta``), a warm-up, then the median of 10 calls, each
+    fenced by a host read. Queues the step's card-time split (K5, K9a, the
+    batched interior Cholesky and solves, K9b, the separator solve, the
+    rest) for after the event-timed phases."""
+    import torch
+
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import supernodal as sn
+
+    g, plan, lam = c4["g"], c4["plan"], c4["lam"]
+    step = lambda: sn.supernodal_delta(g, fct.linearize(g), plan, lam)
+    step()[0].cpu()
+    ts = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        out = step()
+        out[0].cpu()                       # host read: a real fence
+        ts.append(time.perf_counter() - t0)
+    ms = statistics.median(ts) * 1e3
+    print(f"[smoke] ba_solve_ms_per_iter_10k {ms:.3f} ms ({card}; median of "
+          f"10 steps, each fenced by a host read; spread "
+          f"{min(ts) * 1e3:.3f}-{max(ts) * 1e3:.3f} ms)")
+    lin = fct.linearize(g)
+    h_ii, h_is, h_ss, b_i, b_s = sn.supernodal_assemble(plan, *_flat(lin))
+    # interior_parts damps h_ii in place: each timed call damps it again,
+    # which keeps it definite and changes no shape or time.
+    parts = sn.interior_parts(plan, h_ii, h_is, b_i, lam)
+    s_tot, rhs_tot = sn.schur_reduce(plan, parts[2], parts[3], h_ss, b_s, lam)
+    split = dict(ms_per_iter=ms, times_ms=[t * 1e3 for t in ts])
+    stages = [
+        ("step", step, None),
+        ("K5 factor_linearize", lambda: fct.linearize(g), ["linearize_"]),
+        ("K9a supernodal_assemble",
+         lambda: sn.supernodal_assemble(plan, *_flat(lin)),
+         ["supernodal_assemble"]),
+        ("interior Cholesky and solves",
+         lambda: sn.interior_parts(plan, h_ii, h_is, b_i, lam), None),
+        ("K9b schur_reduce",
+         lambda: sn.schur_reduce(plan, parts[2], parts[3], h_ss, b_s, lam),
+         ["schur_reduce"]),
+        ("separator solve", lambda: sn.separator_solve(s_tot, rhs_tot), None),
+    ]
+    for label, fn, names in stages:
+        card_time(jobs, f"config-4 step: {label}", split, label, fn, names)
+    return split
+
+
+#: The config-4 step's card-time split, in the order it runs.
+SPLIT = ("K5 factor_linearize", "K9a supernodal_assemble",
+         "interior Cholesky and solves", "K9b schur_reduce",
+         "separator solve")
+
+
+def finish_split(split):
+    """The step's card time less its timed stages is the rest (K5's chi^2
+    is not in a step; the rest is the back substitution and the small
+    torch ops)."""
+    known = [split.get(k) for k in ("step",) + SPLIT]
+    split["rest"] = (None if None in known
+                     else known[0] - sum(known[1:]))
+    print("[smoke] config-4 step card time (torch.profiler, mean of 20): "
+          + ", ".join(f"{k} {_fmt(split[k])}"
+                      for k in ("step",) + SPLIT + ("rest",)))
+
+
+def run_config4(dev, card):
+    """Config 4 through its entry point: ``ndtpu_torch.solve_g2o.main
+    (["--manhattan", "10000", "--shards", "64"])`` on the card, with every
+    launch counter reset just before and read just after, and the LM
+    iterations counted (``supernodal_delta`` calls). Requires one K9a and
+    one K9b launch per iteration, K5 launched, chi^2 falling and the final
+    chi^2 within 1.02 x the JAX package's f32 final chi^2 on the same graph
+    (``tests/data/torch_config4_manhattan10k_ref.json``)."""
+    import numpy as np
+
+    from ndtpu_torch import kernels, solve_g2o
+    from ndtpu_torch.graph import supernodal as sn
+
+    ref = json.loads(REF4_FILE.read_text())
+    saved = sn.supernodal_delta
+    steps = 0
+
+    def counted(*a, **k):
+        nonlocal steps
+        steps += 1
+        return saved(*a, **k)
+
+    sn.supernodal_delta = counted
+    try:
+        kernels.reset_launches()
+        res = solve_g2o.main(["--manhattan", str(CONFIG4["n_poses"]),
+                              "--shards", str(CONFIG4["shards"])])
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        sn.supernodal_delta = saved
+    require(res["method"] == "supernodal",
+            f"config 4: method {res['method']}, not supernodal")
+    require(np.isfinite(res["poses"]).all(), "config 4: poses not finite")
+    require(steps == res["n_iter"] > 0
+            and launches["supernodal_assemble"] == steps
+            and launches["schur_reduce"] == steps,
+            f"config 4: {launches['supernodal_assemble']} K9a and "
+            f"{launches['schur_reduce']} K9b launches for {steps} steps "
+            f"({res['n_iter']} iterations; one each expected)")
+    require(launches["factor_linearize"] > 0, "config 4: K5 not launched")
+    chi0, chi1 = res["chi2_initial"], res["chi2_final"]
+    j32, j64 = ref["jax_f32"]["chi2_final"], ref["jax_f64"]["chi2_final"]
+    require(chi1 < chi0, f"config 4: chi2 {chi0:.6e} -> {chi1:.6e} did not "
+            f"fall")
+    require(chi1 <= 1.02 * j32, f"config 4: final chi2 {chi1:.6e} over 1.02 "
+            f"x the JAX package's f32 {j32:.6e}")
+    print(f"[smoke] config 4 entry point (solve_g2o --manhattan "
+          f"{CONFIG4['n_poses']} --shards {CONFIG4['shards']}, {card}): "
+          f"chi2 {chi0:.6e} -> {chi1:.6e} in {res['n_iter']} iterations "
+          f"(converged={res['converged']}), {res['seconds']:.3f} s; JAX f32 "
+          f"{j32:.6e} in {ref['jax_f32']['n_iter']} iterations (ratio "
+          f"{chi1 / j32:.6f}), JAX f64 {j64:.6e} in "
+          f"{ref['jax_f64']['n_iter']} (ratio {chi1 / j64:.6f}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches, dict(n_iter=res["n_iter"], chi2_initial=chi0,
+                          chi2_final=chi1, seconds=res["seconds"],
+                          converged=res["converged"],
+                          ratio_jax_f32=chi1 / j32, ratio_jax_f64=chi1 / j64)
+
+
 def run_entry_point(dev, config, n_scans: int):
     """The CLI main path on ``config``, with fresh launch counters and
     counts of the loop-detection calls (``verify_candidates_cached_flat``),
@@ -1902,7 +2274,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     require((ROOT / "ndtpu_torch").is_dir() and REF_FILE.is_file()
-            and REF3_FILE.is_file(),
+            and REF3_FILE.is_file() and REF4_FILE.is_file(),
             f"run from a checkout of the repository ({ROOT} lacks "
             f"ndtpu_torch/ or the reference files in tests/data)")
     import torch
@@ -1918,6 +2290,9 @@ def main(argv=None) -> int:
     print(card)
     print(f"[smoke] torch {torch.__version__} CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and torch.get_float32_matmul_precision() == "highest",
+            "TF32 matmuls are on: the supernodal step needs full f32 products")
 
     from ndtpu_torch import kernels
     from ndtpu_torch.config import PipelineConfig
@@ -1997,6 +2372,16 @@ def main(argv=None) -> int:
     results["local_select"] = check_k7a(sm, cfg3, jobs)
     results["local_assemble"] = check_k7b(sm, cfg3, jobs)
     takes = check_incremental_takes(sm, cfg3)
+    # Config 4's kernels on bench.py's 10k-pose graph (P = 64): K5 at its
+    # 10,305 rows, K9a, K9b, one supernodal step against f64, and the
+    # bench's BA step timing.
+    c4 = config4_case(dev, args.seed)
+    results["factor_linearize"]["config4"] = check_k5_config4(c4)
+    results["supernodal_assemble"], k9a_out = check_k9a(c4, jobs)
+    results["schur_reduce"] = check_k9b(c4, k9a_out, jobs)
+    del k9a_out
+    step4 = check_supernodal_step(c4)
+    ba_split = ba_step_timing(c4, card, jobs)
 
     launches2, counts2 = run_entry_point(dev, CONFIG2, 300)
     ate_gate(dev, CONFIG2, REF_FILE)
@@ -2011,15 +2396,16 @@ def main(argv=None) -> int:
             f"{launches3['loop_gate']} standalone gate launches for "
             f"{detections} loop-detection calls (one gated launch each, no "
             f"standalone gate, expected)")
+    launches4, config4 = run_config4(dev, card)
+    paths = {"config2": launches2, "config3": launches3, "config4": launches4}
     for k in KERNELS:
-        if "inside" in k:    # K1, K8b: their code runs inside lm_ndt there
-            continue
-        require(not k["config2"] or launches2[k["name"]] > 0,
-                f"{k['name']}: the config-2 path launched it no time")
-        require(launches3[k["name"]] > 0,
-                f"{k['name']}: the config-3 path launched it no time")
-    launches = {k: launches2[k] + launches3[k] for k in launches2}
+        for path in k.get("paths", ()):  # K1, K8b run inside lm_ndt there
+            require(paths[path][k["name"]] > 0,
+                    f"{k['name']}: the {path} path launched it no time")
+    launches = {k: launches2[k] + launches3[k] + launches4[k]
+                for k in launches2}
     read_card_times(jobs)
+    finish_split(ba_split)
     del kf, jobs
 
     rows = [dict(name=k["name"], route="cuda", source=k["source"],
@@ -2031,8 +2417,9 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t_start:.1f} s")
     smoother = {"takes_checked": takes,
                 "config2": counts2, "config3": counts3}
+    config4.update(step=step4, ba_solve_ms_per_iter_10k=ba_split)
     print(json.dumps({"kernels": rows, "repeat_runs": repeats,
-                      "smoother": smoother}))
+                      "smoother": smoother, "config4": config4}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

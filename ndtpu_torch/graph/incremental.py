@@ -1,8 +1,9 @@
 """Incremental pose-graph smoothing (the iSAM2-capability smoother).
 
-Port of ``ndtpu/graph/incremental.py`` without the marginals (ROADMAP A10):
-warm-started LM-PCG updates, the settled-estimate skip, the k-hop local
-update with its static capacities, and the periodic full solve.
+Port of ``ndtpu/graph/incremental.py``: warm-started LM-PCG updates, the
+settled-estimate skip, the k-hop local update with its static capacities,
+the periodic full solve, and the marginal covariances (three K6 solves
+against unit vectors, or the dense inverse).
 
 Each ``lax.cond`` of the JAX version is a Python ``if`` on a 0-d tensor:
 one host sync, and only the taken branch runs, as in ``cond``. On the card
@@ -26,7 +27,8 @@ from ndtpu_torch.graph import solve as slv
 
 __all__ = ["SmootherState", "init_smoother", "incremental_update",
            "local_update", "local_select", "local_select_ref",
-           "fresh_residual_max", "fresh_residual_max_ref", "full_solve"]
+           "fresh_residual_max", "fresh_residual_max_ref", "full_solve",
+           "marginal_covariance_pcg", "marginal_covariance"]
 
 
 class SmootherState(NamedTuple):
@@ -320,3 +322,34 @@ def full_solve(state: SmootherState, cfg: SolverConfig, method: str = "pcg",
                          last_max_delta=torch.tensor(float("inf"), dtype=dt,
                                                      device=dev),
                          step=state.step)
+
+
+def marginal_covariance_pcg(graph: fct.PoseGraph, idx: int,
+                            cfg: SolverConfig, huber_delta: float = 0.0,
+                            lam: float = 1e-8):
+    """3x3 marginal covariance of pose ``idx`` on large graphs: three
+    matrix-free PCG solves ``H x = e_k`` against the unit vectors of the
+    pose's block (one K6 launch each on the card; K6 takes one right-hand
+    side per launch), never forming the ``[3V, 3V]`` Hessian."""
+    lin = fct.linearize(graph, huber_delta)
+    v, dt, dev = graph.poses.shape[0], graph.poses.dtype, graph.poses.device
+    lam_t = torch.tensor(lam, dtype=dt, device=dev)
+    cols = []
+    for k in range(3):
+        rhs = torch.zeros((v, 3), dtype=dt, device=dev)
+        rhs[idx, k] = 1.0
+        x, _ = slv.pcg_rhs(graph, lin, rhs, lam_t, cfg)
+        cols.append(x[idx])
+    cols = torch.stack(cols)                       # [3, 3] rows = columns
+    return 0.5 * (cols + cols.T)
+
+
+def marginal_covariance(graph: fct.PoseGraph, idx: int,
+                        huber_delta: float = 0.0):
+    """3x3 marginal covariance of pose ``idx``: the diagonal block of
+    ``H^-1`` by the dense inverse (small and medium graphs)."""
+    lin = fct.linearize(graph, huber_delta)
+    h, _ = slv.normal_equations(graph, lin)
+    live = graph.pose_mask.to(h.dtype).repeat_interleave(3)
+    cov = torch.linalg.inv(h + torch.diag(1e-8 + (1.0 - live)))
+    return cov[3 * idx:3 * idx + 3, 3 * idx:3 * idx + 3]

@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Ten kernels carry the windowed pipeline with loop closure and the
-pose-graph smoother (ROADMAP Queue B):
+Twelve kernels carry the windowed pipeline with loop closure, the
+pose-graph smoother and the large-graph supernodal solve (ROADMAP Queue B):
 
 ============ =============================== =================================
 name         source                          replaces (JAX, lowered by XLA)
@@ -29,6 +29,11 @@ local_select ``csrc/local_system.cu`` (K7a)  ``incremental._active_probe`` +
                                              ``_local_select``
 local_       ``csrc/local_system.cu`` (K7b)  ``schur.assemble_local_parts``
 assemble                                     (``h_ii``, ``b_i`` only)
+supernodal_  ``csrc/supernodal.cu`` (K9a)    ``supernodal._assemble_parts``
+assemble
+schur_reduce ``csrc/supernodal.cu`` (K9b)    ``supernodal.supernodal_delta``'s
+                                             separator segment sums and
+                                             damping
 ============ =============================== =================================
 
 K5, K6 and K7b share the pose graph's arithmetic, ``csrc/pose_graph.cuh``
@@ -37,8 +42,11 @@ K5, K6 and K7b share the pose graph's arithmetic, ``csrc/pose_graph.cuh``
 the smoother's results are the same on every launch. The graph wrappers
 (``graph.factors.linearize`` / ``chi2`` / ``factor_linearize``,
 ``graph.solve.pcg_solve``, ``graph.incremental.local_select`` and
-``fresh_residual_max``, ``dist.schur.assemble_local``) send CPU tensors
-to their plain versions and CUDA tensors here.
+``fresh_residual_max``, ``dist.schur.assemble_local``,
+``graph.supernodal.supernodal_assemble`` and ``schur_reduce``) send CPU
+tensors to their plain versions and CUDA tensors here. K9a and K9b (and
+K5 at config 4's 10k poses) carry the supernodal step; they route by tables
+the host builds once per topology and sum each target in a fixed order.
 
 K8b's steps live in ``csrc/loop_gate.cuh``, which ``lm_ndt`` also runs:
 with ``gate=`` one ``lm_ndt`` launch verifies a loop window's ``K x C``
@@ -92,14 +100,16 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "GATE_MAX_LANES", "ndt_terms", "halfcell_add", "finalize_bands",
            "finalize_pack", "local_bands", "local_tables", "loop_gate",
            "factor_linearize", "fresh_residual_max", "pcg_solve",
-           "local_select", "local_assemble"]
+           "local_select", "local_assemble", "supernodal_assemble",
+           "schur_reduce"]
 
 #: Launch counts per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "ndt_terms_grouped": 0, "halfcell_add": 0, "finalize_pack": 0,
             "local_tables": 0, "loop_gate": 0, "loop_gate_fused": 0,
             "factor_linearize": 0, "pcg_solve": 0, "local_select": 0,
-            "local_assemble": 0}
+            "local_assemble": 0, "supernodal_assemble": 0,
+            "schur_reduce": 0}
 
 #: Shared memory one block can have on Hopper (227 KB), and what it gets
 #: without ``cudaFuncSetAttribute`` (48 KB).
@@ -139,6 +149,9 @@ _SIGNATURES = {
                            + [_I] * 7 + [_P] * 3,
     "local_assemble_launch": [_P, _P, _P, _I, _P, _P, _I] + [_P] * 8
                              + [_I, _P, _P, _P],
+    "supernodal_assemble_launch": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 4
+                                  + [_P] * 6,
+    "schur_reduce_launch": [_P] * 9 + [_F, _I, _I, _P, _P, _P],
 }
 
 
@@ -794,3 +807,68 @@ def local_assemble(n: int, ai, aj, r, ap, rp, f_sel, ri, li, rj, lj, p_act,
           too_big=f"{k} gathered factors are over the shared memory one "
                   f"block can have")
     return h, b
+
+
+def supernodal_assemble(ai, aj, r, ap, rp, row_ptr, tgt_col, tgt_ptr, code,
+                        vec_ptr, vcode, n_shards: int, ni: int, nsl: int,
+                        ns: int):
+    """K9a: the partitioned normal equations ``(h_ii [P, 3ni, 3ni], h_is
+    [P, 3ni, 3nsl], h_ss [3ns, 3ns], b_i [P, 3ni], b_s [3ns])`` from K5's
+    blocks, routed by the plan's int32 tables (see ``csrc/supernodal.cu``
+    and ``graph.supernodal.Routes``). One allocation holds all five."""
+    f, q = ai.shape[0], ap.shape[0]
+    rows = n_shards * ni + ns
+    _check(ai, "ai", shape=(f, 3, 3))
+    _check(aj, "aj", shape=(f, 3, 3))
+    _check(r, "r", shape=(f, 3))
+    _check(ap, "ap", shape=(q, 3, 3))
+    _check(rp, "rp", shape=(q, 3))
+    _check(row_ptr, "row_ptr", dtype=torch.int32, shape=(rows + 1,))
+    _check(vec_ptr, "vec_ptr", dtype=torch.int32, shape=(rows + 1,))
+    n_tgt = tgt_col.shape[0]
+    _check(tgt_col, "tgt_col", dtype=torch.int32, shape=(n_tgt,))
+    _check(tgt_ptr, "tgt_ptr", dtype=torch.int32, shape=(n_tgt + 1,))
+    _check(code, "code", dtype=torch.int32, shape=(code.shape[0],))
+    _check(vcode, "vcode", dtype=torch.int32, shape=(vcode.shape[0],))
+    sizes = [n_shards * 9 * ni * ni, n_shards * 9 * ni * nsl, 9 * ns * ns,
+             n_shards * 3 * ni, 3 * ns]
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=ai.device)
+    h_ii, h_is, h_ss, b_i, b_s = torch.split(out, sizes)
+    _call("supernodal_assemble_launch", "supernodal_assemble", ai.data_ptr(),
+          aj.data_ptr(), r.data_ptr(), ap.data_ptr(), rp.data_ptr(), f,
+          row_ptr.data_ptr(), tgt_col.data_ptr(), tgt_ptr.data_ptr(),
+          code.data_ptr(), vec_ptr.data_ptr(), vcode.data_ptr(), n_shards,
+          ni, nsl, ns, h_ii.data_ptr(), h_is.data_ptr(), h_ss.data_ptr(),
+          b_i.data_ptr(), b_s.data_ptr(), _stream(ai))
+    return (h_ii.view(n_shards, 3 * ni, 3 * ni),
+            h_is.view(n_shards, 3 * ni, 3 * nsl), h_ss.view(3 * ns, 3 * ns),
+            b_i.view(n_shards, 3 * ni), b_s)
+
+
+def schur_reduce(s_part, rhs_part, h_ss, b_s, hold_ptr, hold_shard, hold_loc,
+                 loc_of, sep_mask, lam, nsl: int):
+    """K9b: ``(s_tot [3ns, 3ns], rhs_tot [3ns])``, the shards' Schur parts
+    ``s_part [P, 3nsl, 3nsl]``, ``rhs_part [P, 3nsl]`` routed into the
+    separator system ``h_ss``, ``b_s`` and damped by ``lam`` (a Python
+    float; see ``csrc/supernodal.cu``)."""
+    p = s_part.shape[0]
+    ns = loc_of.shape[1]
+    _check(s_part, "s_part", shape=(p, 3 * nsl, 3 * nsl))
+    _check(rhs_part, "rhs_part", shape=(p, 3 * nsl))
+    _check(h_ss, "h_ss", shape=(3 * ns, 3 * ns))
+    _check(b_s, "b_s", shape=(3 * ns,))
+    _check(hold_ptr, "hold_ptr", dtype=torch.int32, shape=(ns + 1,))
+    n_hold = hold_shard.shape[0]
+    _check(hold_shard, "hold_shard", dtype=torch.int32, shape=(n_hold,))
+    _check(hold_loc, "hold_loc", dtype=torch.int32, shape=(n_hold,))
+    _check(loc_of, "loc_of", dtype=torch.int32, shape=(p, ns))
+    _check(sep_mask, "sep_mask", dtype=torch.bool, shape=(ns,), align=1)
+    s_tot = torch.empty((3 * ns, 3 * ns), dtype=torch.float32,
+                        device=s_part.device)
+    rhs_tot = torch.empty(3 * ns, dtype=torch.float32, device=s_part.device)
+    _call("schur_reduce_launch", "schur_reduce", s_part.data_ptr(),
+          rhs_part.data_ptr(), h_ss.data_ptr(), b_s.data_ptr(),
+          hold_ptr.data_ptr(), hold_shard.data_ptr(), hold_loc.data_ptr(),
+          loc_of.data_ptr(), sep_mask.data_ptr(), float(lam), nsl, ns,
+          s_tot.data_ptr(), rhs_tot.data_ptr(), _stream(s_part))
+    return s_tot, rhs_tot

@@ -2,8 +2,9 @@
 grouped, K3 halfcell_add, K4 finalize_pack, K8a local_tables, K8b
 loop_gate, the gated verify that runs K8b inside lm_ndt, and the
 smoother's K5 factor_linearize, K6 pcg_solve, K7a local_select and K7b
-local_assemble, also through incremental_update) against their plain
-twins, on the card; K3 also against the plain model of its
+local_assemble, also through incremental_update, and config 4's K9a
+supernodal_assemble and K9b schur_reduce, also through one supernodal
+step) against their plain twins, on the card; K3 also against the plain model of its
 fixed-point arithmetic, bit for bit, K3, K4 and K8a for the same result on
 every launch (K3 and K8a also under any order of the points), and the
 gated verify bit for bit against lm_ndt_grouped followed by the
@@ -658,6 +659,81 @@ def test_smoother_kernels_refuse_cpu_tensors():
         lambda: kernels.local_assemble(
             2, *lin[0], *lin[1], g.bet_mask, g.bet_i, g.bet_i, g.bet_j,
             g.bet_j, g.prior_mask, g.prior_idx, g.prior_idx),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            call()
+
+
+@pytest.fixture(scope="module", params=["small", "full"])
+def config4(request):
+    """Config 4's graph on the card: a 600-pose Manhattan world at P = 8
+    ("small") and bench.py's 10k poses at P = 64 ("full"), with its plan
+    and K5's linearization (``chip_smoke.config4_case``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke as cs
+
+    n, shards = (600, 8) if request.param == "small" else (10000, 64)
+    return cs.config4_case(torch.device("cuda"), 0, n, shards)
+
+
+def test_supernodal_assemble_matches_plain_and_repeats(config4):
+    """K9a against its plain version in f32 on the card and in f64 on the
+    CPU (rtol 1e-5 of each target's max), bit-identical on a second launch
+    (see chip_smoke.check_k9a)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    cs.check_k9a(config4, jobs=[])
+    assert kernels.LAUNCHES["supernodal_assemble"] >= 2
+
+
+def test_schur_reduce_matches_plain_and_repeats(config4):
+    """K9b against its plain version in f32 on the card and in f64 on the
+    CPU, bit-identical on a second launch (see chip_smoke.check_k9b)."""
+    import chip_smoke as cs
+
+    _, out = cs.check_k9a(config4, jobs=[])
+    kernels.reset_launches()
+    cs.check_k9b(config4, out, jobs=[])
+    assert kernels.LAUNCHES["schur_reduce"] >= 2
+
+
+def test_supernodal_step_on_the_card(config4):
+    """One supernodal_delta through K5, K9a and K9b against the f64 plain
+    route (within 2 x the f32 plain route's error + 1e-6 x max|delta|)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    cs.check_supernodal_step(config4)
+    assert kernels.LAUNCHES["supernodal_assemble"] == 1
+    assert kernels.LAUNCHES["schur_reduce"] == 1
+
+
+def test_supernodal_kernels_refuse_cpu_tensors():
+    """K9a's and K9b's raw entry points take CUDA tensors only (the graph
+    wrappers send CPU tensors to the plain versions first)."""
+    from ndtpu_torch.data import g2o
+    from ndtpu_torch.graph import factors as tfct
+    from ndtpu_torch.graph import supernodal as tsn
+
+    g = g2o.to_graph(g2o.manhattan_world(60, seed=1), torch.float32)
+    plan = tsn.plan_supernodal(g, 3)
+    t = tsn.tables_on(plan, "cpu")
+    (ai, aj, r), (ap, rp) = tfct.linearize(g)
+    sp = plan.schur
+    h = tsn.supernodal_assemble_ref(plan, ai, aj, r, ap, rp)
+    nsl3 = 3 * plan.ns_loc
+    calls = [
+        lambda: kernels.supernodal_assemble(
+            ai, aj, r, ap, rp, t.row_ptr, t.tgt_col, t.tgt_ptr, t.code,
+            t.vec_ptr, t.vcode, sp.fac_idx.shape[0], sp.ni, plan.ns_loc,
+            sp.ns),
+        lambda: kernels.schur_reduce(
+            torch.zeros(3, nsl3, nsl3), torch.zeros(3, nsl3), h[2], h[4],
+            t.hold_ptr, t.hold_shard, t.hold_loc, t.loc_of, t.sep_mask,
+            1e-3, plan.ns_loc),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):

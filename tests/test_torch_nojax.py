@@ -18,6 +18,8 @@ sys.path.insert(0, {root!r})
 import ndtpu_torch, ndtpu_torch.run, ndtpu_torch.kernels, ndtpu_torch.convert
 import ndtpu_torch.slam.pipeline, ndtpu_torch.utils.metrics
 import ndtpu_torch.loop, ndtpu_torch.loop.closure
+import ndtpu_torch.solve_g2o, ndtpu_torch.graph.supernodal
+import ndtpu_torch.data.g2o, ndtpu_torch.native
 import chip_smoke
 from chip_smoke import box_sequence, sequence_hashes, dead_reckoning
 from ndtpu_torch import kernels
