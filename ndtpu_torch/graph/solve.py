@@ -1,12 +1,12 @@
 """Pose-graph solvers: dense Gauss-Newton/LM and block-Jacobi PCG.
 
-Port of ``ndtpu/graph/solve.py`` (all but the multi-session
-``pcg_rhs_blocked``, ROADMAP A9). On the card the whole PCG solve is one
+Port of ``ndtpu/graph/solve.py``. On the card the whole PCG solve is one
 launch of K6 (``csrc/pcg_solve.cu``: set-up, loop and stop test on the
-device). On the CPU, and in ``optimize``, JAX's ``lax.while_loop`` becomes
-a loop of masked iterations: once a run's stop test fires its carry is
-frozen, so extra iterations change nothing, and the host checks for an
-early exit only every ``_SYNC_EVERY`` iterations.
+device), and the multi-session ``pcg_rhs_blocked`` one launch of K6b (one
+block per session). On the CPU, and in ``optimize``, JAX's
+``lax.while_loop`` becomes a loop of masked iterations: once a run's stop
+test fires its carry is frozen, so extra iterations change nothing, and
+the host checks for an early exit only every ``_SYNC_EVERY`` iterations.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from ndtpu_torch.lie import se2
 
 __all__ = ["SolveResult", "normal_equations", "hessian_matvec", "gradient",
            "block_diag_hessian", "solve_dense", "pcg", "pcg_rhs", "pcg_solve",
-           "pcg_solve_ref", "optimize"]
+           "pcg_solve_ref", "pcg_rhs_blocked", "pcg_solve_blocked",
+           "pcg_solve_blocked_ref", "optimize"]
 
 _SYNC_EVERY = 10
 
@@ -214,6 +215,81 @@ def pcg_solve_ref(g: fct.PoseGraph, lin, rhs, lam, max_iter: int,
         rz = torch.where(active, rz_new, rz)
         it = it + active.to(torch.int32)
     return x, it, zmax
+
+
+def pcg_rhs_blocked(g: fct.PoseGraph, lin, rhs, lam, cfg: SolverConfig,
+                    n_blocks: int):
+    """Like :func:`pcg_rhs`, with per-block Krylov scalars, for a graph of
+    ``n_blocks`` independent components laid out contiguously (the stacked
+    multi-session flat graph, ``dist.slam_dp._flat_graph``): exactly
+    ``n_blocks`` independent PCGs in lockstep. Global scalars would serve
+    the dominant component and starve the others. ``lam`` is per pose
+    ``[V, 1]``, each block's damping repeated over its poses as the JAX
+    package's caller builds it (the solve reads each block's first);
+    ``rhs`` None means ``-gradient``. Exactly ``cfg.pcg_max_iter``
+    iterations, no tolerance stop. Returns ``(x [V, 3], cfg.pcg_max_iter
+    as an int32 tensor)``."""
+    lam8 = lam.reshape(n_blocks, -1)[:, 0]
+    x = pcg_solve_blocked(g, lin, rhs, lam8, n_blocks, cfg.pcg_max_iter)
+    return x, torch.full((), cfg.pcg_max_iter, dtype=torch.int32,
+                         device=x.device)
+
+
+def pcg_solve_blocked(g: fct.PoseGraph, lin, rhs, lam8, n_blocks: int,
+                      max_iter: int):
+    """K6b wrapper: ``n_blocks`` PCG solves with per-block scalars and
+    ``lam8 [n_blocks]``. CUDA tensors go to the kernel (one launch, one
+    block per component, no host sync), CPU tensors to
+    :func:`pcg_solve_blocked_ref`. Returns ``x [V, 3]``."""
+    if not g.poses.is_cuda:
+        return pcg_solve_blocked_ref(g, lin, rhs, lam8, n_blocks, max_iter)
+    return kernels.pcg_solve_blocked(g.bet_i, g.bet_j, g.bet_mask,
+                                     g.prior_idx, g.prior_mask, g.pose_mask,
+                                     lin, rhs, lam8.contiguous(), n_blocks,
+                                     max_iter)
+
+
+def pcg_solve_blocked_ref(g: fct.PoseGraph, lin, rhs, lam8, n_blocks: int,
+                          max_iter: int):
+    """The plain version of K6b (CPU path and oracle), ``pcg_rhs_blocked``
+    as the JAX package writes it: ``damp = lam max(|diag|, 1e-8) + (1 -
+    pose_mask)``, ``alpha = rz / max(p.Ap, 1e-30)``, ``beta = rz_new /
+    max(rz, 1e-30)``, every dot product per block."""
+    if rhs is None:
+        rhs = -gradient(g, lin)
+    v = rhs.shape[0]
+    v_blk = v // n_blocks
+    dt = rhs.dtype
+
+    def bsum(a):                                   # [V, 3] -> [B, 1, 1]
+        return a.reshape(n_blocks, v_blk * 3).sum(1)[:, None, None]
+
+    def bexp(sc):                                  # [B, 1, 1] -> [V, 1]
+        return sc.expand(n_blocks, v_blk, 1).reshape(v, 1)
+
+    lam_v = lam8.to(dt).repeat_interleave(v_blk)[:, None]
+    dblocks = block_diag_hessian(g, lin)
+    eye = torch.eye(3, dtype=dt, device=rhs.device)
+    dd = torch.abs(torch.diagonal(dblocks, dim1=-2, dim2=-1))
+    damp = (lam_v * torch.clamp(dd, min=1e-8)
+            + (1.0 - g.pose_mask.to(dt))[:, None])
+    minv = _inv3(dblocks + damp[..., None] * eye)
+    x = torch.zeros_like(rhs)
+    r = rhs
+    z = _mv(minv, r)
+    p = z
+    rz = bsum(r * z)
+    for _ in range(max_iter):
+        ap = hessian_matvec(g, lin, p) + damp * p
+        alpha = rz / torch.clamp(bsum(p * ap), min=1e-30)
+        x = x + bexp(alpha) * p
+        r = r - bexp(alpha) * ap
+        z = _mv(minv, r)
+        rz_new = bsum(r * z)
+        beta = rz_new / torch.clamp(rz, min=1e-30)
+        p = z + bexp(beta) * p
+        rz = rz_new
+    return x
 
 
 def optimize(g: fct.PoseGraph, cfg: SolverConfig, method: str = "dense",

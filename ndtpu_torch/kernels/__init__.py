@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Twelve kernels carry the windowed pipeline with loop closure, the
-pose-graph smoother and the large-graph supernodal solve (ROADMAP Queue B):
+Fifteen kernels carry the windowed pipeline with loop closure, the
+pose-graph smoother, the large-graph supernodal solve and stacked
+multi-session serving (ROADMAP Queue B):
 
 ============ =============================== =================================
 name         source                          replaces (JAX, lowered by XLA)
@@ -14,7 +15,12 @@ ndt_terms    ``csrc/ndt_terms.cu`` (K1)      ``grid.lookup_quad`` (or
                                              ``lookup_quad_grouped``) +
                                              ``match.point_terms_quad``
 halfcell     ``csrc/halfcell_add.cu`` (K3)   ``grid._add_points_halfcell``
+halfcell_    ``csrc/halfcell_add.cu`` (K3s)  the same over S maps (the vmaps
+add_stacked                                  of ``add_points`` in
+                                             ``dist/slam_dp.py``)
 finalize     ``csrc/finalize_pack.cu`` (K4)  ``grid.finalize`` + ``pack_quad``
+finalize_    ``csrc/finalize_pack.cu`` (K4s) the same over S maps
+pack_stacked                                 (``slam_dp`` ``pack8``)
 local_tables ``csrc/local_tables.cu`` (K8a)  ``closure.build_local_table``
                                              over a window's keyframes
 loop_gate    ``csrc/loop_gate.cu`` (K8b)     ``closure._gate_and_pack``
@@ -25,6 +31,8 @@ linearize    (K5)                            ``incremental.fresh_residual_max``
 pcg_solve    ``csrc/pcg_solve.cu`` (K6)      ``solve.pcg_rhs`` (matvec,
                                              gradient, block diagonal,
                                              ``_inv3``, the loop): one launch
+pcg_solve_   ``csrc/pcg_solve.cu`` (K6b)     ``solve.pcg_rhs_blocked``: S
+blocked                                      sessions' PCGs, one block each
 local_select ``csrc/local_system.cu`` (K7a)  ``incremental._active_probe`` +
                                              ``_local_select``
 local_       ``csrc/local_system.cu`` (K7b)  ``schur.assemble_local_parts``
@@ -97,19 +105,21 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
-           "GATE_MAX_LANES", "ndt_terms", "halfcell_add", "finalize_bands",
-           "finalize_pack", "local_bands", "local_tables", "loop_gate",
-           "factor_linearize", "fresh_residual_max", "pcg_solve",
-           "local_select", "local_assemble", "supernodal_assemble",
-           "schur_reduce"]
+           "GATE_MAX_LANES", "ndt_terms", "halfcell_add",
+           "halfcell_add_stacked", "finalize_bands", "finalize_pack",
+           "finalize_pack_stacked", "local_bands", "local_tables",
+           "loop_gate", "factor_linearize", "fresh_residual_max",
+           "pcg_solve", "pcg_solve_blocked", "local_select",
+           "local_assemble", "supernodal_assemble", "schur_reduce"]
 
 #: Launch counts per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
-            "ndt_terms_grouped": 0, "halfcell_add": 0, "finalize_pack": 0,
-            "local_tables": 0, "loop_gate": 0, "loop_gate_fused": 0,
-            "factor_linearize": 0, "pcg_solve": 0, "local_select": 0,
-            "local_assemble": 0, "supernodal_assemble": 0,
-            "schur_reduce": 0}
+            "ndt_terms_grouped": 0, "halfcell_add": 0,
+            "halfcell_add_stacked": 0, "finalize_pack": 0,
+            "finalize_pack_stacked": 0, "local_tables": 0, "loop_gate": 0,
+            "loop_gate_fused": 0, "factor_linearize": 0, "pcg_solve": 0,
+            "pcg_solve_blocked": 0, "local_select": 0, "local_assemble": 0,
+            "supernodal_assemble": 0, "schur_reduce": 0}
 
 #: Shared memory one block can have on Hopper (227 KB), and what it gets
 #: without ``cudaFuncSetAttribute`` (48 KB).
@@ -122,7 +132,7 @@ _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 _FLAGS = ["-O3", _ARCH, "-std=c++17", "--fmad=false", "-Xptxas=-v",
           "-Xcompiler", "-fPIC"]
 _lib = None
-_HALFCELL_SCRATCH: dict = {}     # (device index, wh, hh) -> int64 lattice
+_HALFCELL_SCRATCH: dict = {}     # (device index, maps, wh, hh) -> lattices
 _GATE_ARRIVE: dict = {}          # (device index, K) -> int32 counters
 _FINALIZE_BANDS: dict = {}       # (grid, device index) -> K4 launch shape
 _SM_COUNT: dict = {}             # device index -> multiprocessors
@@ -134,9 +144,9 @@ _SIGNATURES = {
                      + [_F] * 3 + [_I, _I, _P],
     "ndt_terms_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _P],
-    "halfcell_add_launch": [_P, _P, _P, _F] + [_P] * 7 + [_I] * 3 + [_D] * 4
+    "halfcell_add_launch": [_P, _P, _P, _F] + [_P] * 7 + [_I] * 4 + [_D] * 4
                            + [_P],
-    "finalize_pack_launch": [_P] * 4 + [_I] * 5 + [_F] * 3 + [_I, _P],
+    "finalize_pack_launch": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_I, _P],
     "local_tables_launch": [_P] * 5 + [_I] * 7 + [_D] * 4 + [_F] * 3
                            + [_I, _P],
     "loop_gate_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -145,6 +155,8 @@ _SIGNATURES = {
                                + [_P] * 7,
     "pcg_solve_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I] + [_P] * 7
                         + [_F, _F, _I, _F] + [_P] * 3 + [_I, _P],
+    "pcg_solve_blocked_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I]
+                                + [_P] * 7 + [_I, _P, _I, _I, _P],
     "local_select_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P]
                            + [_I] * 7 + [_P] * 3,
     "local_assemble_launch": [_P, _P, _P, _I, _P, _P, _I] + [_P] * 8
@@ -417,14 +429,17 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None,
     return outs
 
 
-def _halfcell_scratch(dev: torch.device, wh: int, hh: int) -> torch.Tensor:
-    """K3's int64 ``[hh * wh * 6]`` lattice, allocated once per (device,
-    lattice shape) and kept: every call zeroes it on its own stream first.
-    The port runs on one stream, so two calls never use it at once."""
-    key = (dev.index, wh, hh)
+def _halfcell_scratch(dev: torch.device, wh: int, hh: int,
+                      maps: int = 1) -> torch.Tensor:
+    """K3's int64 ``[maps, hh * wh, 6]`` lattices, allocated once per
+    (device, map count, lattice shape) and kept: every call zeroes them on
+    its own stream first. The port runs on one stream, so two calls never
+    use them at once; sessions on streams of their own would need one per
+    stream (ROADMAP C-w6)."""
+    key = (dev.index, maps, wh, hh)
     buf = _HALFCELL_SCRATCH.get(key)
     if buf is None:
-        buf = torch.empty(hh * wh * 6, dtype=torch.int64, device=dev)
+        buf = torch.empty(maps * hh * wh * 6, dtype=torch.int64, device=dev)
         _HALFCELL_SCRATCH[key] = buf
     return buf
 
@@ -461,7 +476,43 @@ def halfcell_add(n, s, ss, points, mask, weight, grid):
           mask.data_ptr(), w_ptr, w_scalar,
           _halfcell_scratch(dev, wh, hh).data_ptr(), n.data_ptr(),
           s.data_ptr(), ss.data_ptr(), n2.data_ptr(), s2.data_ptr(),
-          ss2.data_ptr(), m, grid.nx, grid.ny, grid.x0, grid.y0,
+          ss2.data_ptr(), 1, m, grid.nx, grid.ny, grid.x0, grid.y0,
+          2.0 / grid.cell, grid.cell / 2.0, _stream(points))
+    return n2, s2, ss2
+
+
+def halfcell_add_stacked(n, s, ss, points, mask, weight, grid):
+    """K3s: :func:`halfcell_add` for S maps in one ctypes call: statistics
+    ``n [S, 4, C]``, ``s [S, 4, C, 2]``, ``ss [S, 4, C, 2, 2]``, points
+    ``[S, M, 2]``, mask bool ``[S, M]``, weight a Python float or an f32
+    ``[S, M]`` tensor. Map ``i`` gets exactly what :func:`halfcell_add` of
+    its own points gives, bit for bit. One ``LAUNCHES
+    ["halfcell_add_stacked"]`` per call."""
+    wh, hh = _lattice(grid)
+    c = grid.n_cells
+    maps, m = mask.shape
+    _check(points, "points", shape=(maps, m, 2), align=8)
+    _check(mask, "mask", dtype=torch.bool, shape=(maps, m), align=1)
+    _check(n, "stats.n", shape=(maps, 4, c))
+    _check(s, "stats.s", shape=(maps, 4, c, 2))
+    _check(ss, "stats.ss", shape=(maps, 4, c, 2, 2))
+    if isinstance(weight, torch.Tensor):
+        _check(weight, "weight", shape=(maps, m))
+        w_ptr, w_scalar = weight.data_ptr(), 0.0
+    else:
+        w_ptr, w_scalar = None, float(weight)
+    dev = points.device
+    out = torch.empty(maps * 28 * c, dtype=torch.float32, device=dev)
+    n2 = out[:maps * 4 * c].view(maps, 4, c)
+    s2 = out[maps * 4 * c:maps * 12 * c].view(maps, 4, c, 2)
+    ss2 = out[maps * 12 * c:].view(maps, 4, c, 2, 2)
+    if maps == 0:
+        return n2, s2, ss2
+    _call("halfcell_add_launch", "halfcell_add_stacked",
+          points.data_ptr(), mask.data_ptr(), w_ptr, w_scalar,
+          _halfcell_scratch(dev, wh, hh, maps).data_ptr(), n.data_ptr(),
+          s.data_ptr(), ss.data_ptr(), n2.data_ptr(), s2.data_ptr(),
+          ss2.data_ptr(), maps, m, grid.nx, grid.ny, grid.x0, grid.y0,
           2.0 / grid.cell, grid.cell / 2.0, _stream(points))
     return n2, s2, ss2
 
@@ -517,9 +568,32 @@ def finalize_pack(n, s, ss, ndt_cfg, grid) -> torch.Tensor:
     rows, bands, threads, smem = finalize_bands(grid, n.device)
     table = torch.empty((hh * wh, 32), dtype=torch.float32, device=n.device)
     _call("finalize_pack_launch", "finalize_pack", n.data_ptr(), s.data_ptr(),
-          ss.data_ptr(), table.data_ptr(), grid.nx, grid.ny, rows, bands,
+          ss.data_ptr(), table.data_ptr(), 1, grid.nx, grid.ny, rows, bands,
           threads, float(ndt_cfg.min_pts), ndt_cfg.eig_ratio,
           ndt_cfg.eig_abs_min, smem, _stream(n))
+    return table
+
+
+def finalize_pack_stacked(n, s, ss, ndt_cfg, grid) -> torch.Tensor:
+    """K4s: :func:`finalize_pack` of S maps in one launch (statistics with a
+    leading ``S`` axis), each map cut into K4's bands; returns the tables
+    ``[S, R, 32]``, table ``i`` bit-equal to :func:`finalize_pack` of map
+    ``i``."""
+    wh, hh = _lattice(grid)
+    c = grid.n_cells
+    maps = n.shape[0]
+    _check(n, "stats.n", shape=(maps, 4, c))
+    _check(s, "stats.s", shape=(maps, 4, c, 2), align=8)
+    _check(ss, "stats.ss", shape=(maps, 4, c, 2, 2), align=16)
+    table = torch.empty((maps, hh * wh, 32), dtype=torch.float32,
+                        device=n.device)
+    if maps == 0:
+        return table
+    rows, bands, threads, smem = finalize_bands(grid, n.device)
+    _call("finalize_pack_launch", "finalize_pack_stacked",
+          n.data_ptr(), s.data_ptr(), ss.data_ptr(), table.data_ptr(), maps,
+          grid.nx, grid.ny, rows, bands, threads, float(ndt_cfg.min_pts),
+          ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min, smem, _stream(n))
     return table
 
 
@@ -743,6 +817,48 @@ def pcg_solve(bet_i, bet_j, bet_mask, prior_idx, prior_mask, pose_mask, lin,
                   f"memory one block can have; graphs this large (config 4) "
                   f"are ROADMAP A10")
     return x, ints, zmax
+
+
+def pcg_solve_blocked(bet_i, bet_j, bet_mask, prior_idx, prior_mask,
+                      pose_mask, lin, rhs, lam, n_blocks: int,
+                      max_iter: int) -> torch.Tensor:
+    """K6b: ``n_blocks`` independent PCG solves of a flat graph in one
+    launch, one block each (see ``csrc/pcg_solve.cu``): block ``s`` owns
+    poses ``[s V, (s + 1) V)``, factor slots ``[s F, (s + 1) F)`` and prior
+    slots ``[s P, (s + 1) P)``, and every index of its slots must lie in its
+    own poses (``dist.slam_dp._flat_graph`` lays them out so). ``lin`` is
+    K5's linearization of the flat graph, ``rhs`` f32 ``[S V, 3]`` or None
+    for ``-gradient``, ``lam`` f32 ``[S]`` (read on the card). Exactly
+    ``max_iter`` iterations, Krylov scalars per block. Returns ``x [S V,
+    3]``. Raises if one session's solve is over the shared memory one block
+    can have."""
+    (ai, aj, r), (ap, rp) = lin
+    f, p = _check_graph(bet_i, bet_j, bet_mask, prior_idx, prior_mask)
+    v = pose_mask.shape[0]
+    if n_blocks < 1 or v % n_blocks or f % n_blocks or p % n_blocks:
+        raise ValueError(f"pcg_solve_blocked: {v} poses, {f} factors and {p} "
+                         f"priors do not split into {n_blocks} equal blocks")
+    _check(pose_mask, "pose_mask", dtype=torch.bool, shape=(v,), align=1)
+    _check(ai, "ai", shape=(f, 3, 3))
+    _check(aj, "aj", shape=(f, 3, 3))
+    _check(r, "r", shape=(f, 3))
+    _check(ap, "ap", shape=(p, 3, 3))
+    _check(rp, "rp", shape=(p, 3))
+    _check(lam, "lam", shape=(n_blocks,))
+    if rhs is not None:
+        _check(rhs, "rhs", shape=(v, 3))
+    vb, fb, pb = v // n_blocks, f // n_blocks, p // n_blocks
+    x = torch.empty((v, 3), dtype=torch.float32, device=pose_mask.device)
+    _call("pcg_solve_blocked_launch", "pcg_solve_blocked", bet_i.data_ptr(),
+          bet_j.data_ptr(), bet_mask.data_ptr(), fb, prior_idx.data_ptr(),
+          prior_mask.data_ptr(), pb, pose_mask.data_ptr(), vb, ai.data_ptr(),
+          aj.data_ptr(), r.data_ptr(), ap.data_ptr(), rp.data_ptr(),
+          None if rhs is None else rhs.data_ptr(), lam.data_ptr(),
+          int(max_iter), x.data_ptr(), n_blocks,
+          min(1024, -(-vb // 32) * 32), _stream(x),
+          too_big=f"a session of {vb} poses and {fb} factors is over the "
+                  f"shared memory one block can have")
+    return x
 
 
 def local_select(bet_i, bet_j, bet_mask, pose_mask, prior_idx, prior_mask,

@@ -1,4 +1,5 @@
 // K4: finalize every NDT cell and write the half-cell quad table directly.
+// K4s: the same for S maps in one launch (the stacked multi-session path).
 //
 // Replaces what XLA lowered for the TPU from ndtpu/ndt/grid.py::finalize
 // (:232-254, with _eig2x2_sym :211-229) followed by pack_quad (:336-391,
@@ -6,7 +7,9 @@
 // with the max(eig_abs_min, eig_ratio * lambda_max) floor, the inverse
 // covariance, valid = n >= min_pts; then the x2 upsample, the (gx, gy)
 // shift with zero rows outside grid g (pack_quad's jnp.pad), and the
-// concatenation of the 4 grids into one 32-float row per half-cell.
+// concatenation of the 4 grids into one 32-float row per half-cell. K4s
+// replaces the vmap of both over the S sessions' statistics in
+// ndtpu/dist/slam_dp.py::_frontend_stacked (pack8, :300-303).
 //
 // One block per band of `band_rows` whole lattice rows [h0, h1), whose
 // table rows are one contiguous span of the [R, 32] table. Table row hy of
@@ -32,6 +35,10 @@
 // 256-thread blocks were slower at configs 2 and 3 (two rounds of loads
 // and finalizes in series) and 1,024-thread blocks at config 5; issuing a
 // thread's loads of several cells before their finalizes was slower too.
+//
+// K4s: blockIdx.y is the map (session) s, whose statistics and table are
+// shifted by s whole maps; each map's bands are K4's, so K4s equals S
+// single K4 launches bit for bit.
 //
 // What bounds it on Hopper: the table writes (5.2 MB at config 2, 33.7 MB
 // at config 5's 513 x 513 lattice) and the statistics reads (1.4 / 7.3
@@ -71,6 +78,11 @@ finalize_pack_kernel(const float* __restrict__ n_in,
                      float eig_abs_min) {
   extern __shared__ float4 cells[];   // [4][gs] cells x 2 float4
   const int wh = 2 * nx + 1;
+  const size_t map = blockIdx.y, c4 = 4 * (size_t)nx * ny;   // K4s
+  n_in += map * c4;
+  s_in += map * c4;
+  ss_in += map * c4;
+  table += map * (size_t)(2 * ny + 1) * wh * 8;
   const int h0 = blockIdx.x * band_rows;
   const int h1 = min(h0 + band_rows, 2 * ny + 1);
   const int rows = band_rows / 2 + 1;
@@ -118,14 +130,17 @@ int g_smem_opt_in = 48 * 1024;
 
 }  // namespace
 
+// `maps` maps (1 for K4, S for K4s): statistics [maps, 4, C, ...], tables
+// [maps, R, 32].
 extern "C" int finalize_pack_launch(const void* n_in, const void* s_in,
-                                    const void* ss_in, void* table, int nx,
-                                    int ny, int band_rows, int bands,
+                                    const void* ss_in, void* table, int maps,
+                                    int nx, int ny, int band_rows, int bands,
                                     int threads, float min_pts,
                                     float eig_ratio, float eig_abs_min,
                                     int smem_bytes, void* stream) {
-  if (band_rows < 1 || bands * band_rows < 2 * ny + 1 || threads < 32 ||
-      threads > kMaxThreads || smem_bytes < 4 * grid_stride(band_rows, nx) * 32)
+  if (maps < 1 || band_rows < 1 || bands * band_rows < 2 * ny + 1 ||
+      threads < 32 || threads > kMaxThreads ||
+      smem_bytes < 4 * grid_stride(band_rows, nx) * 32)
     return (int)cudaErrorInvalidValue;
   if (smem_bytes > g_smem_opt_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -137,7 +152,8 @@ extern "C" int finalize_pack_launch(const void* n_in, const void* s_in,
     }
     g_smem_opt_in = smem_bytes;
   }
-  finalize_pack_kernel<<<bands, threads, smem_bytes, (cudaStream_t)stream>>>(
+  finalize_pack_kernel<<<dim3(bands, maps), threads, smem_bytes,
+                         (cudaStream_t)stream>>>(
       (const float*)n_in, (const float2*)s_in, (const float4*)ss_in,
       (float4*)table, nx, ny, band_rows, min_pts, eig_ratio, eig_abs_min);
   return (int)cudaGetLastError();

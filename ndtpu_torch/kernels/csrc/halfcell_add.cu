@@ -1,10 +1,14 @@
 // K3: half-cell moment scatter + 2x2 pooling into the 4 overlap grids, in
 // 64-bit fixed point (halfcell_fixed.cuh): the same statistics on every run.
+// K3s: the same over S maps in one call (the stacked multi-session path).
 //
 // Replaces what XLA lowered for the TPU from
 // ndtpu/ndt/grid.py::_add_points_halfcell (:161-203): one segment_sum of six
 // moments onto the (2ny+1) x (2nx+1) half-cell lattice, then a dense 2x2
-// sum-pool per shifted grid, added to the running statistics.
+// sum-pool per shifted grid, added to the running statistics. K3s replaces
+// the vmaps of add_points over the S sessions' statistics in
+// ndtpu/dist/slam_dp.py (the pass-2 temporary maps :317, _wb_extend :397
+// and _refresh_map :405): one call adds points [S, M, 2] into S maps.
 //
 // One C call (halfcell_add_launch) enqueues three things on the caller's
 // stream:
@@ -23,6 +27,12 @@
 //      f64 and write the f32 result into NEW output tensors (the input
 //      statistics stay valid: the pipeline registers against a temporary
 //      map built on top of the window's committed one).
+//
+// K3s: the grid's y axis of the scatter and z axis of the pool is the map
+// (session) s, whose points, mask, weights, lattice slice [hh * wh, 6] and
+// statistics are each shifted by s whole maps; one memset zeroes all S
+// lattices. A session's sums are the same integers as its own K3 call's,
+// so K3s equals S single K3 calls bit for bit.
 //
 // What bounds it on Hopper: at the main path's shapes (2,880 points, a
 // 100 x 100 grid) the card work is a few microseconds against a bound under
@@ -53,6 +63,11 @@ halfcell_scatter_kernel(const float2* __restrict__ pts,
                         const float* __restrict__ weight, float wscalar,
                         unsigned long long* __restrict__ lattice, int m,
                         ndtpu::HalfcellGrid g) {
+  const size_t map = blockIdx.y;             // K3s: the session
+  pts += map * m;
+  mask += map * m;
+  if (weight != nullptr) weight += map * m;
+  lattice += map * g.wh * g.hh * 6;
   const int i = blockIdx.x * kThreads + threadIdx.x;
   long long q[6] = {0, 0, 0, 0, 0, 0};
   int cell = -1;                           // no half-cell: adds nothing
@@ -98,6 +113,14 @@ halfcell_pool_kernel(const long long* __restrict__ lattice,
                      float* __restrict__ ss_out,
                      int nx, int ny, ndtpu::HalfcellGrid g) {
   __shared__ double tile[kSpan * kSpan][6];
+  const size_t map = blockIdx.z, c4 = 4 * (size_t)nx * ny;   // K3s
+  lattice += map * g.wh * g.hh * 6;
+  n_in += map * c4;
+  n_out += map * c4;
+  s_in += 2 * map * c4;
+  s_out += 2 * map * c4;
+  ss_in += 4 * map * c4;
+  ss_out += 4 * map * c4;
   const int i0 = blockIdx.x * kTile, j0 = blockIdx.y * kTile;
   if (threadIdx.x < kSpan * kSpan) {
     const int ly = threadIdx.x / kSpan;
@@ -136,28 +159,32 @@ halfcell_pool_kernel(const long long* __restrict__ lattice,
 
 }  // namespace
 
+// `maps` maps (1 for K3, S for K3s) of `m` points each; every array is
+// [maps, ...].
 extern "C" int halfcell_add_launch(const void* pts, const void* mask,
                                    const void* weight, float wscalar,
                                    void* lattice, const void* n_in,
                                    const void* s_in, const void* ss_in,
                                    void* n_out, void* s_out, void* ss_out,
-                                   int m, int nx, int ny, double x0, double y0,
-                                   double inv, double h, void* stream) {
+                                   int maps, int m, int nx, int ny, double x0,
+                                   double y0, double inv, double h,
+                                   void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const ndtpu::HalfcellGrid g =
       ndtpu::make_halfcell_grid(x0, y0, inv, h, 2 * nx + 1, 2 * ny + 1);
+  if (maps < 1) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(
-      lattice, 0, (size_t)g.wh * g.hh * 6 * sizeof(long long), st);
+      lattice, 0, (size_t)maps * g.wh * g.hh * 6 * sizeof(long long), st);
   if (err != cudaSuccess) return (int)err;
   if (m > 0) {
-    halfcell_scatter_kernel<<<(m + kThreads - 1) / kThreads, kThreads, 0,
-                              st>>>(
+    const dim3 blocks((m + kThreads - 1) / kThreads, maps);
+    halfcell_scatter_kernel<<<blocks, kThreads, 0, st>>>(
         (const float2*)pts, (const uint8_t*)mask, (const float*)weight,
         wscalar, (unsigned long long*)lattice, m, g);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 tiles((nx + kTile - 1) / kTile, (ny + kTile - 1) / kTile);
+  const dim3 tiles((nx + kTile - 1) / kTile, (ny + kTile - 1) / kTile, maps);
   halfcell_pool_kernel<<<tiles, kPoolThreads, 0, st>>>(
       (const long long*)lattice, (const float*)n_in, (const float*)s_in,
       (const float*)ss_in, (float*)n_out, (float*)s_out, (float*)ss_out, nx,

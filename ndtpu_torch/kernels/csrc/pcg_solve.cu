@@ -1,18 +1,33 @@
 // K6: the whole block-Jacobi PCG solve of (H + damping) x = rhs, matrix
-// free, in one launch.
+// free, in one launch; and K6b, S such solves in lockstep, one block each.
 //
-// Replaces what XLA lowered for the TPU from ndtpu/graph/solve.py::pcg_rhs
+// K6 replaces what XLA lowered for the TPU from ndtpu/graph/solve.py::pcg_rhs
 // (:167, its lax.while_loop :194-211) with hessian_matvec (:79), gradient
 // (:99), block_diag_hessian (:110) and _inv3 (:121), as pcg (:158) and
 // optimize (:279) call it; and the preconditioned gradient of the
 // smoother's settled check (ndtpu/graph/incremental.py:399-414), which is
 // the same set-up run with 0 iterations: its max |z_0| is written beside x.
 //
-// One block of up to 1,024 threads holds the whole solve in shared memory
+// K6b replaces ndtpu/graph/solve.py::pcg_rhs_blocked (:215-271) as the
+// stacked multi-session smoother calls it (ndtpu/dist/slam_dp.py:233): the
+// flat graph of S sessions, whose session s owns poses [s V, (s + 1) V),
+// factor slots [s F, (s + 1) F) and prior slots [s P, (s + 1) P). Its
+// Krylov scalars (alpha, beta, the dot products) are per session, so the
+// lockstep iteration is exactly S independent PCGs, and it runs exactly
+// max_iter iterations with no tolerance stop. So the grid is S blocks,
+// block s solving session s with the same code as K6: pointers shifted to
+// its slices, flat indices less s V, its damping lam[s] read through a
+// pointer (no host read). A session whose right-hand side is 0 takes
+// guarded steps (alpha = 0 / max(0, 1e-30) = 0, beta likewise) and its x
+// stays 0. No reduction crosses a session: that is the fault (one session
+// per batch drifting 2-7 m) that global scalars cause.
+//
+// One block of up to 1,024 threads holds a whole solve in shared memory
 // (x, r, z, p, A p, the damping and the 3 x 3 inverses per pose, the
 // per-factor products y_f = Ai p_i + Aj p_j, and an incidence list per
-// pose: ~158 KB at V = 1,024, F = 2,048). Thread t owns poses t, t + T,
-// ...; every per-pose quantity but p is read only by its owner.
+// pose: ~158 KB at V = 1,024, F = 2,048; ~26 KB for a serving session,
+// V = 160, F = 320). Thread t owns poses t, t + T, ...; every per-pose
+// quantity but p is read only by its owner.
 //   1. Set-up. The incidence lists (CSR over bet_i, bet_j and prior_idx,
 //      live factors and priors only; dead rows of the linearization are 0)
 //      are built by a counting pass, a scan and a fill with shared-memory
@@ -21,22 +36,25 @@
 //      owner walks its list for its diagonal block and gradient, damps the
 //      block (lam read through a pointer: no host read), inverts it
 //      (_inv3), and starts r = rhs (or -gradient), z = M^-1 r, p = z.
-//   2. The loop, to max_iter, with JAX's stop test |r|^2 > (tol |rhs|)^2
-//      evaluated on the device: y_f for each live factor; each owner sums
-//      A_f^T y_f over its list in order (no float atomics: two factors
-//      between one pair add in list order), adds the priors and damp * p;
-//      two block reductions per iteration (p.Ap, then r.z and r.r together)
-//      in a fixed order (pose_graph.cuh). So x and the iteration count are
-//      the same on every launch.
-// It refuses (the launcher computes the size and returns kSmemOver; the
-// wrapper raises, naming ROADMAP A10) a graph whose state does not fit one
-// block's shared memory; config 4's 10k-pose graphs are a later slice.
+//   2. The loop, to max_iter; K6 also stops on JAX's test |r|^2 >
+//      (tol |rhs|)^2, evaluated on the device: y_f for each live factor;
+//      each owner sums A_f^T y_f over its list in order (no float atomics:
+//      two factors between one pair add in list order), adds the priors and
+//      damp * p; two block reductions per iteration (p.Ap, then r.z and r.r
+//      together) in a fixed order (pose_graph.cuh). So x and the iteration
+//      count are the same on every launch.
+// Each launcher refuses (it computes the size and returns kSmemOver; the
+// wrapper raises, naming ROADMAP A10) a graph, or for K6b a session, whose
+// state does not fit one block's shared memory; config 4's 10k-pose graphs
+// are a later slice.
 //
 // What bounds it on Hopper: for the bound, the bytes of one pass (the
 // linearization, ~300 KB at capacity) and ~60 f32 operations per live
 // factor and 30 per pose per iteration; in practice the chain of four
 // barriers per iteration on one SM (the reductions need the whole block),
 // which is why the whole loop is one block rather than a launch per op.
+// K6b's S blocks run on S SMs side by side, so S sessions take about the
+// time of one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,15 +81,37 @@ struct PcgArgs {
   const float* ap;     // [P, 9]
   const float* rp;     // [P, 3]
   const float* rhs;    // [V, 3], or null: -gradient
-  const float* lam;    // [] or null: lam_value
+  const float* lam;    // [] ([S] for K6b), or null: lam_value
   float lam_value;
   float damp_abs;
   int max_iter;
   float tol;
   float* x;            // [V, 3]
-  int* iters;          // []
-  float* zmax;         // []
+  int* iters;          // [] (null for K6b: always max_iter)
+  float* zmax;         // [] (null for K6b)
 };
+
+// K6b: session blockIdx.x's slices of the flat graph. Sizes are per
+// session; the flat pose index of its pose v is the returned pose0 + v.
+__device__ __forceinline__ long long session_slices(PcgArgs* a) {
+  const size_t s = blockIdx.x;
+  const size_t v = a->n_pose, f = a->n_fac, p = a->n_pri;
+  a->bet_i += s * f;
+  a->bet_j += s * f;
+  a->bet_mask += s * f;
+  a->prior_idx += s * p;
+  a->prior_mask += s * p;
+  a->pose_mask += s * v;
+  a->ai += 9 * s * f;
+  a->aj += 9 * s * f;
+  a->r += 3 * s * f;
+  a->ap += 9 * s * p;
+  a->rp += 3 * s * p;
+  if (a->rhs != nullptr) a->rhs += 3 * s * v;
+  if (a->lam != nullptr) a->lam += s;
+  a->x += 3 * s * v;
+  return (long long)(s * v);
+}
 
 // Shared-memory bytes of one solve.
 inline size_t pcg_smem(int v, int f, int p) {
@@ -92,8 +132,12 @@ __device__ __forceinline__ const float* entry_a(const PcgArgs& a, int e,
   return a.ap + 9 * (size_t)(e - two_f);
 }
 
-__global__ void __launch_bounds__(kMaxThreads) pcg_solve_kernel(PcgArgs a) {
+template <bool kBlocked>
+__global__ void __launch_bounds__(kMaxThreads)
+pcg_solve_kernel(const PcgArgs args) {
   extern __shared__ float4 smem4[];
+  PcgArgs a = args;
+  const long long pose0 = kBlocked ? session_slices(&a) : 0;
   const int V = a.n_pose, F = a.n_fac, P = a.n_pri;
   const int T = blockDim.x, tid = threadIdx.x;
   float* x = reinterpret_cast<float*>(smem4);
@@ -117,11 +161,11 @@ __global__ void __launch_bounds__(kMaxThreads) pcg_solve_kernel(PcgArgs a) {
   __syncthreads();
   for (int f = tid; f < F; f += T) {
     if (!fm[f]) continue;
-    atomicAdd(cnt + a.bet_i[f], 1);
-    atomicAdd(cnt + a.bet_j[f], 1);
+    atomicAdd(cnt + (a.bet_i[f] - pose0), 1);
+    atomicAdd(cnt + (a.bet_j[f] - pose0), 1);
   }
   for (int k = tid; k < P; k += T)
-    if (a.prior_mask[k]) atomicAdd(cnt + a.prior_idx[k], 1);
+    if (a.prior_mask[k]) atomicAdd(cnt + (a.prior_idx[k] - pose0), 1);
   __syncthreads();
 
   // 1b. Offsets: each thread scans a contiguous chunk of poses.
@@ -142,13 +186,13 @@ __global__ void __launch_bounds__(kMaxThreads) pcg_solve_kernel(PcgArgs a) {
   // 1c. Fill, then sort each list by (factor, side), priors last.
   for (int f = tid; f < F; f += T) {
     if (!fm[f]) continue;
-    const int i = (int)a.bet_i[f], j = (int)a.bet_j[f];
+    const int i = (int)(a.bet_i[f] - pose0), j = (int)(a.bet_j[f] - pose0);
     ent[off[i] + atomicAdd(cnt + i, 1)] = 2 * f;
     ent[off[j] + atomicAdd(cnt + j, 1)] = 2 * f + 1;
   }
   for (int k = tid; k < P; k += T) {
     if (!a.prior_mask[k]) continue;
-    const int i = (int)a.prior_idx[k];
+    const int i = (int)(a.prior_idx[k] - pose0);
     ent[off[i] + atomicAdd(cnt + i, 1)] = 2 * F + k;
   }
   __syncthreads();
@@ -215,13 +259,13 @@ __global__ void __launch_bounds__(kMaxThreads) pcg_solve_kernel(PcgArgs a) {
   const float tol2 = (a.tol * bn) * (a.tol * bn);
   float rr = bb;
 
-  // 2. The loop.
+  // 2. The loop (K6b: no tolerance stop).
   int it = 0;
-  while (it < a.max_iter && rr > tol2) {
+  while (it < a.max_iter && (kBlocked || rr > tol2)) {
     for (int f = tid; f < F; f += T) {
       if (!fm[f]) continue;
-      const float* pi = p + 3 * a.bet_i[f];
-      const float* pj = p + 3 * a.bet_j[f];
+      const float* pi = p + 3 * (a.bet_i[f] - pose0);
+      const float* pj = p + 3 * (a.bet_j[f] - pose0);
       float u[3], w[3];
       ndtpu::pg::mv3(a.ai + 9 * (size_t)f, pi, u);
       ndtpu::pg::mv3(a.aj + 9 * (size_t)f, pj, w);
@@ -286,14 +330,20 @@ __global__ void __launch_bounds__(kMaxThreads) pcg_solve_kernel(PcgArgs a) {
   }
 
   for (int i = tid; i < 3 * V; i += T) a.x[i] = x[i];
-  if (tid == 0) {
+  if (tid == 0 && !kBlocked) {
     a.iters[0] = it;
     a.zmax[0] = zm;
   }
 }
 
-// The kernel's shared-memory limit, raised once per larger size.
+// Each kernel's shared-memory limit, raised once per larger size.
 size_t g_smem_opt_in = 48 * 1024;
+size_t g_smem_opt_in_blocked = 48 * 1024;
+
+bool bad_shape(int n_pose, int n_fac, int n_pri, int threads) {
+  return n_pose < 1 || n_fac < 0 || n_pri < 0 || threads < 32 ||
+         threads > kMaxThreads || threads % 32 != 0;
+}
 
 }  // namespace
 
@@ -304,11 +354,10 @@ extern "C" int pcg_solve_launch(
     const void* r, const void* ap, const void* rp, const void* rhs,
     const void* lam, float lam_value, float damp_abs, int max_iter,
     float tol, void* x, void* iters, void* zmax, int threads, void* stream) {
-  if (n_pose < 1 || n_fac < 0 || n_pri < 0 || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0)
+  if (bad_shape(n_pose, n_fac, n_pri, threads))
     return (int)cudaErrorInvalidValue;
   const size_t smem = pcg_smem(n_pose, n_fac, n_pri);
-  const int err = ndtpu::pg::smem_opt_in(pcg_solve_kernel, smem,
+  const int err = ndtpu::pg::smem_opt_in(pcg_solve_kernel<false>, smem,
                                          &g_smem_opt_in);
   if (err != 0) return err;
   const PcgArgs a{(const long long*)bet_i, (const long long*)bet_j,
@@ -319,6 +368,34 @@ extern "C" int pcg_solve_launch(
                   (const float*)rp, (const float*)rhs, (const float*)lam,
                   lam_value, damp_abs, max_iter, tol, (float*)x, (int*)iters,
                   (float*)zmax};
-  pcg_solve_kernel<<<1, threads, smem, (cudaStream_t)stream>>>(a);
+  pcg_solve_kernel<false><<<1, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K6b: n_sessions blocks; n_pose, n_fac and n_pri are per session, lam is
+// [n_sessions], rhs null means -gradient.
+extern "C" int pcg_solve_blocked_launch(
+    const void* bet_i, const void* bet_j, const void* bet_mask, int n_fac,
+    const void* prior_idx, const void* prior_mask, int n_pri,
+    const void* pose_mask, int n_pose, const void* ai, const void* aj,
+    const void* r, const void* ap, const void* rp, const void* rhs,
+    const void* lam, int max_iter, void* x, int n_sessions, int threads,
+    void* stream) {
+  if (bad_shape(n_pose, n_fac, n_pri, threads) || n_sessions < 1 ||
+      lam == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = pcg_smem(n_pose, n_fac, n_pri);
+  const int err = ndtpu::pg::smem_opt_in(pcg_solve_kernel<true>, smem,
+                                         &g_smem_opt_in_blocked);
+  if (err != 0) return err;
+  const PcgArgs a{(const long long*)bet_i, (const long long*)bet_j,
+                  (const uint8_t*)bet_mask, n_fac,
+                  (const long long*)prior_idx, (const uint8_t*)prior_mask,
+                  n_pri, (const uint8_t*)pose_mask, n_pose, (const float*)ai,
+                  (const float*)aj, (const float*)r, (const float*)ap,
+                  (const float*)rp, (const float*)rhs, (const float*)lam,
+                  0.f, 0.f, max_iter, 0.f, (float*)x, nullptr, nullptr};
+  pcg_solve_kernel<true><<<n_sessions, threads, smem, (cudaStream_t)stream>>>(
+      a);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,11 @@ with a plain twin of the same signature here:
 - :func:`finalize_pack` (K4) / :func:`finalize_pack_ref`: ``finalize`` +
   ``pack_quad`` in one pass.
 
+The stacked multi-session path (``dist.slam_dp``) keeps S maps with a
+leading session axis and adds to them, and packs them, in one launch each:
+:func:`halfcell_add_stacked` (K3s) and :func:`finalize_pack_stacked` (K4s),
+whose twins are the per-map functions looped over the maps.
+
 The public function sends CUDA tensors to the kernel and CPU tensors to the
 twin; nothing else selects between them. The binning op order
 ``floor((x - x0) * inv)`` with ``inv = 2/cell`` (multiply, never divide) is
@@ -35,7 +40,9 @@ __all__ = ["NDTStats", "NDTMap", "cell_ids", "empty_stats", "add_points",
            "build_stats", "finalize", "pack_quad", "lookup_quad",
            "lookup_quad_multi", "lookup_quad_grouped", "unpack_bf16_pair",
            "halfcell_add", "halfcell_add_ref", "halfcell_add_fixed_ref",
-           "finalize_pack", "finalize_pack_ref"]
+           "finalize_pack", "finalize_pack_ref", "add_points_stacked",
+           "halfcell_add_stacked", "halfcell_add_stacked_ref",
+           "finalize_pack_stacked", "finalize_pack_stacked_ref"]
 
 
 class NDTStats(NamedTuple):
@@ -380,3 +387,73 @@ def finalize_pack(stats: NDTStats, ndt_cfg: NDTMapConfig, grid: GridConfig,
             "compact_table on the card is ROADMAP Queue B (K1/K4 bf16-pair "
             "rows)")
     return kernels.finalize_pack(stats.n, stats.s, stats.ss, ndt_cfg, grid)
+
+
+def _map(stats8: NDTStats, i: int) -> NDTStats:
+    return NDTStats(*(t[i] for t in stats8))
+
+
+def _stack_maps(maps) -> NDTStats:
+    return NDTStats(*(torch.stack(f) for f in zip(*maps)))
+
+
+def _weight_of(weight, i: int):
+    return weight[i] if isinstance(weight, torch.Tensor) else weight
+
+
+def add_points_stacked(stats8: NDTStats, points, mask, grid: GridConfig,
+                       weight=1.0) -> NDTStats:
+    """:func:`add_points` for S maps at once: statistics with a leading
+    session axis, points ``[S, M, 2]``, mask ``[S, M]``, ``weight`` a scalar
+    or ``[S, M]``. Overlap-4 grids go through :func:`halfcell_add_stacked`
+    (one K3s launch on the card)."""
+    if grid.overlap == 4:
+        return halfcell_add_stacked(stats8, points, mask, weight, grid)
+    return _stack_maps([add_points(_map(stats8, i), points[i], mask[i], grid,
+                                   _weight_of(weight, i))
+                        for i in range(points.shape[0])])
+
+
+def halfcell_add_stacked_ref(stats8: NDTStats, points, mask, weight,
+                             grid: GridConfig) -> NDTStats:
+    """Plain twin of K3s: :func:`halfcell_add_ref` per map."""
+    return _stack_maps([halfcell_add_ref(_map(stats8, i), points[i], mask[i],
+                                         _weight_of(weight, i), grid)
+                        for i in range(points.shape[0])])
+
+
+def halfcell_add_stacked(stats8: NDTStats, points, mask, weight,
+                         grid: GridConfig) -> NDTStats:
+    """K3s wrapper: CUDA tensors go to the kernel (one launch for the S
+    maps, each map bit-equal to its own K3 call), CPU tensors to
+    :func:`halfcell_add_stacked_ref`."""
+    if not points.is_cuda:
+        return halfcell_add_stacked_ref(stats8, points, mask, weight, grid)
+    if isinstance(weight, torch.Tensor):
+        weight = weight.contiguous()
+    return NDTStats(*kernels.halfcell_add_stacked(
+        stats8.n, stats8.s, stats8.ss, points.contiguous(), mask.contiguous(),
+        weight, grid))
+
+
+def finalize_pack_stacked_ref(stats8: NDTStats, ndt_cfg: NDTMapConfig,
+                              grid: GridConfig, compact: bool = False):
+    """Plain twin of K4s: :func:`finalize_pack_ref` per map, stacked."""
+    return torch.stack([finalize_pack_ref(_map(stats8, i), ndt_cfg, grid,
+                                          compact)
+                        for i in range(stats8.n.shape[0])])
+
+
+def finalize_pack_stacked(stats8: NDTStats, ndt_cfg: NDTMapConfig,
+                          grid: GridConfig, compact: bool = False):
+    """K4s wrapper: the S maps' quad tables ``[S, R, L]``. CUDA tensors go
+    to the kernel (one launch), CPU tensors to
+    :func:`finalize_pack_stacked_ref`."""
+    if not stats8.n.is_cuda:
+        return finalize_pack_stacked_ref(stats8, ndt_cfg, grid, compact)
+    if compact:
+        raise NotImplementedError(
+            "compact_table on the card is ROADMAP Queue B (K1/K4 bf16-pair "
+            "rows)")
+    return kernels.finalize_pack_stacked(stats8.n, stats8.s, stats8.ss,
+                                         ndt_cfg, grid)

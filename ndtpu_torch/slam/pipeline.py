@@ -137,10 +137,23 @@ def _map_table(stats, cfg: PipelineConfig):
                                   cfg.match.compact_table)
 
 
-def _refresh_map(stats, kf: kfs.KeyframeStore, mkp, cfg: PipelineConfig):
+def _refresh_map(stats, kf: kfs.KeyframeStore, mkp, cfg: PipelineConfig,
+                 enable=True):
     """Re-place the ``refresh_top_m`` stalest keyframes: subtract each at
     the pose the map saw it at, add it at its smoothed pose (one weighted
-    K3 call). Returns ``(stats, mkp)``."""
+    K3 call). ``enable`` (a bool or a 0-d bool tensor) masks the whole
+    refresh to a no-op, as the stacked multi-session path runs it for the
+    sessions whose trigger is false. Returns ``(stats, mkp)``."""
+    both, bmsk, wts, sel, do = _refresh_points(kf, mkp, cfg, enable)
+    stats = ndt_grid.add_points(stats, both, bmsk, cfg.grid, weight=wts)
+    return stats, _set_rows(mkp, sel, do, kf.poses[sel])
+
+
+def _refresh_points(kf: kfs.KeyframeStore, mkp, cfg: PipelineConfig,
+                    enable=True):
+    """The refresh's weighted points: ``(points [2 M N, 2], mask, weights,
+    sel [M], do [M])``, the M stalest keyframes at their old poses
+    (weight -1) then at their smoothed poses (+1)."""
     m_top = min(cfg.refresh_top_m, kf.capacity)
     d_xy = torch.linalg.norm(kf.poses[:, :2] - mkp[:, :2], dim=-1)
     d_th = torch.abs(se2.wrap(kf.poses[:, 2:] - mkp[:, 2:]))[:, 0]
@@ -148,6 +161,8 @@ def _refresh_map(stats, kf: kfs.KeyframeStore, mkp, cfg: PipelineConfig):
                         torch.zeros_like(d_xy))
     val, sel = torch.topk(stale, m_top)
     do = val > cfg.refresh_eps
+    if enable is not True:
+        do = do & enable
     smsk = (kf.masks[sel] & kf.live[sel][:, None] & do[:, None]).reshape(-1)
     spts = kf.points[sel]
     old_w = se2.transform(mkp[sel], spts).reshape(-1, 2)
@@ -157,9 +172,7 @@ def _refresh_map(stats, kf: kfs.KeyframeStore, mkp, cfg: PipelineConfig):
                                 device=both.device),
                      torch.ones(new_w.shape[0], dtype=both.dtype,
                                 device=both.device)])
-    stats = ndt_grid.add_points(stats, both, torch.cat([smsk, smsk]),
-                                cfg.grid, weight=wts)
-    return stats, _set_rows(mkp, sel, do, kf.poses[sel])
+    return both, torch.cat([smsk, smsk]), wts, sel, do
 
 
 def _window_frontend(state: SlamState, last_kf_reg, pts, msk, deltas,

@@ -6,6 +6,8 @@ Run from the root of a checkout, on a machine with one CUDA card::
     python3 profile_port.py [--config configs/config3_loop_closure.json]
                             [--seed 0] [--runs 3] [--out FILE.json]
     python3 profile_port.py --kernels [--seed 0] [--out FILE.json]
+    python3 profile_port.py --serving [--sessions 8] [--max-scans 300]
+                            [--runs 3] [--out FILE.json]
 
 On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
 300 scans, 360 beams), after two warm-up runs of ``run_slam_windowed``:
@@ -38,6 +40,11 @@ On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
    and of the smoother's K5, K6, K7a and K7b by role;
 4. with ``--shadow``, one more run in which every ``lm_ndt`` call is also
    made on the composite route and compared bit for bit.
+
+``--serving`` runs only :func:`serving_profile`: stacked multi-session
+serving (``configs/config_serving.json``, the sessions of ``python -m
+ndtpu_torch.serve``): wall time, the stacked window's stages, host syncs
+and launches per window, and the device's busy share.
 
 ``--kernels`` runs only :func:`kernel_times` (event and card ms per call of
 K4 at three shapes, the standalone K8b at 4 x 16 and 4 x 64, and the
@@ -224,6 +231,31 @@ def shadow_run(inputs, cfg):
     finally:
         match.lm_ndt = fused
     return dict(tally), traj
+
+
+def device_events(prof):
+    """A profile's device events ``[(start, end, name)]`` in time order,
+    ``{name: [count, ms]}``, and the union of their intervals (us)."""
+    from torch.autograd import DeviceType
+
+    events, by_name = [], defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        events.append((a, b, e.name))
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += (b - a) / 1e3
+    events.sort()
+    busy, end = 0.0, None
+    for a, b, _ in events:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return events, by_name, busy
 
 
 def run_once(inputs, cfg):
@@ -452,8 +484,6 @@ def profiled_run(inputs, cfg, n_scans: int):
     top kernels, lm_ndt's and the gated verify's device time per launch,
     K3's and K8a's card time per call by call shape, K4's by role, and the
     smoother's kernels' by role (:func:`smoother_calls`)."""
-    import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ndtpu_torch import kernels
@@ -527,25 +557,7 @@ def profiled_run(inputs, cfg, n_scans: int):
         for name, fn in sm_saved.items():
             setattr(kernels, name, fn)
     k4_roles = [r for r in k4_roles if r != "window"]
-    spans, by_name, events = [], defaultdict(lambda: [0, 0.0]), []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        a, b = e.time_range.start, e.time_range.end
-        spans.append((a, b))
-        events.append((a, b, e.name))
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += (b - a) / 1e3
-    spans.sort()
-    events.sort()
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
+    events, by_name, busy = device_events(prof)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     lm = [v for k, v in by_name.items()
           if "lm_ndt_kernel" in k and "lm_ndt_kernel<true>" not in k]
@@ -553,8 +565,8 @@ def profiled_run(inputs, cfg, n_scans: int):
     gated = [v for k, v in by_name.items() if "lm_ndt_kernel<true>" in k]
     gated_n = sum(v[0] for v in gated)
     return dict(
-        profiled_wall_s=wall, device_events=len(spans),
-        device_events_per_scan=len(spans) / n_scans,
+        profiled_wall_s=wall, device_events=len(events),
+        device_events_per_scan=len(events) / n_scans,
         device_busy_ms=busy / 1e3,
         device_busy_share=busy / 1e6 / wall,
         lm_ndt_launches=lm_n,
@@ -567,6 +579,163 @@ def profiled_run(inputs, cfg, n_scans: int):
         map_build=map_build_calls(events, k3_calls, k8a_calls, cfg),
         smoother=smoother_calls(events, sm_roles),
         top=[dict(name=k[:80], count=v[0], ms=v[1]) for k, v in top])
+
+
+#: The stacked window's stages (``dist/slam_dp.py``), each synchronized at
+#: its edges; ``_wb_loops`` and ``write_local_tables`` run inside the
+#: appends, ``fresh_residual_max`` is the smoother's need test.
+SERVING_STAGES = (("ndtpu_torch.dist.slam_dp", "_frontend_stacked"),
+                  ("ndtpu_torch.dist.slam_dp", "_appends_stacked"),
+                  ("ndtpu_torch.slam.pipeline", "_wb_loops"),
+                  ("ndtpu_torch.loop.closure", "write_local_tables"),
+                  ("ndtpu_torch.graph.incremental", "fresh_residual_max"),
+                  ("ndtpu_torch.dist.slam_dp", "_smooth_stacked"),
+                  ("ndtpu_torch.dist.slam_dp", "_extend_stacked"),
+                  ("ndtpu_torch.dist.slam_dp", "_refresh_stacked"))
+
+
+def serving_inputs(dev, sessions: int, n_scans: int):
+    """The serving workload of ``python -m ndtpu_torch.serve --config
+    configs/config_serving.json``: ``(inputs, cfg, sequences)``."""
+    import dataclasses
+
+    from ndtpu_torch import serve
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.dist import slam_dp
+
+    cfg = slam_dp.serving_config(PipelineConfig.from_json(
+        str(ROOT / "configs" / "config_serving.json")))
+    cfg = dataclasses.replace(cfg, keyframe=dataclasses.replace(
+        cfg.keyframe, capacity=serve.auto_capacity(cfg, n_scans)))
+    seqs = serve.synthetic_sessions(cfg, sessions, n_scans)
+    points, mask, odom, _ = serve.pad_sessions(seqs)
+    return tuple(t.to(dev) for t in (points, mask, odom)), cfg, seqs
+
+
+def serving_once(inputs, cfg):
+    import torch
+
+    from ndtpu_torch.dist import slam_dp
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = slam_dp.run_sessions_stacked(*inputs, cfg)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def serving_profile(dev, sessions: int, n_scans: int, runs: int) -> dict:
+    """Where a stacked serving run's time goes: wall time of ``runs`` runs
+    (after two warm-ups), one run with the stages of
+    :data:`SERVING_STAGES` synchronized at their edges, one with
+    ``set_sync_debug_mode("warn")`` around each window step (host syncs per
+    window and where), launches per window, and one under
+    ``torch.profiler`` (device busy share, device events per window, the
+    largest kernels)."""
+    import importlib
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.dist import slam_dp
+    from ndtpu_torch.eval.ate import ate_rmse
+    from ndtpu_torch.serve import trajectories
+
+    inputs, cfg, seqs = serving_inputs(dev, sessions, n_scans)
+    scans = sessions * n_scans
+    for _ in range(2):
+        serving_once(inputs, cfg)
+    walls = []
+    for _ in range(runs):
+        kernels.reset_launches()
+        wall, (state, outs) = serving_once(inputs, cfg)
+        walls.append(wall)
+    launches = dict(kernels.LAUNCHES)
+    windows = -(-(n_scans - 1) // cfg.window)
+    traj = trajectories(state, outs).cpu()
+    ates = [float(ate_rmse(traj[k], seqs[k].gt_poses))
+            for k in range(sessions)]
+    print(f"[profile] serving {sessions} x {n_scans} scans: "
+          + ", ".join(f"{w:.4f} s ({scans / w:.1f} scans/s)" for w in walls)
+          + f"; ATE per session " + " ".join(f"{a:.4f}" for a in ates))
+
+    spent = defaultdict(float)
+    saved = [(importlib.import_module(m), name) for m, name in
+             SERVING_STAGES]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return wrapper
+
+    for mod, name, fn in saved:
+        setattr(mod, name, timed(name, fn))
+    try:
+        wall_p, _ = serving_once(inputs, cfg)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    print(f"[profile] serving stages ({wall_p:.4f} s): " + ", ".join(
+        f"{k} {v:.4f} s ({v / wall_p:.1%})" for k, v in spent.items()))
+
+    step, per_window, sites = slam_dp._stacked_window_step, [], \
+        defaultdict(int)
+
+    def counted(*a, **k):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = step(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught if "synchroniz" in str(w.message)]
+        per_window.append(len(syncs))
+        for w in syncs:
+            sites[f"{Path(w.filename).name}:{w.lineno}"] += 1
+        return out
+
+    slam_dp._stacked_window_step = counted
+    try:
+        serving_once(inputs, cfg)
+    finally:
+        slam_dp._stacked_window_step = step
+    syncs = dict(per_window=sum(per_window) / len(per_window),
+                 max=max(per_window),
+                 sites=dict(sorted(sites.items(), key=lambda kv: -kv[1])[:12]))
+    print(f"[profile] serving host syncs per window: {syncs['per_window']:.1f}"
+          f" (max {syncs['max']}); sites {syncs['sites']}")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof, _ = serving_once(inputs, cfg)
+    events, by_name, busy = device_events(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    print(f"[profile] serving under torch.profiler: {len(events)} device "
+          f"events ({len(events) / windows:.1f} per window), busy "
+          f"{busy / 1e3:.2f} ms of {wall_prof:.4f} s "
+          f"({busy / 1e6 / wall_prof:.1%})")
+    for name, (n, ms) in top:
+        print(f"[profile]   {ms:9.3f} ms {n:6d} x {name[:80]}")
+    return dict(sessions=sessions, scans=scans, windows=windows,
+                wall_s=walls, aggregate_scans_per_s=[scans / w for w in walls],
+                ate_m=ates, stage_wall_s=wall_p, stage_s=dict(spent),
+                launches_per_window={k: v / windows
+                                     for k, v in launches.items() if v},
+                host_syncs=syncs, profiled_wall_s=wall_prof,
+                device_events_per_window=len(events) / windows,
+                device_busy_ms=busy / 1e3,
+                device_busy_share=busy / 1e6 / wall_prof,
+                top=[dict(name=k[:80], count=v[0], ms=v[1])
+                     for k, v in top])
 
 
 def main(argv=None) -> int:
@@ -582,6 +751,11 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels", action="store_true",
                         help="time K4, K8b and the loop verify alone "
                         "(kernel_times) and nothing else")
+    parser.add_argument("--serving", action="store_true",
+                        help="profile stacked serving (serving_profile) "
+                        "and nothing else")
+    parser.add_argument("--sessions", type=int, default=8)
+    parser.add_argument("--max-scans", type=int, default=300)
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import subprocess
@@ -606,6 +780,11 @@ def main(argv=None) -> int:
         result = dict(card=smi, kernels=kernel_times(args.seed, dev))
         for key, row in result["kernels"].items():
             print(f"[profile] {key}: {row}")
+        return _emit(result, smi, args.out)
+    if args.serving:
+        kernels.build()
+        result = dict(card=smi, serving=serving_profile(
+            dev, args.sessions, args.max_scans, args.runs))
         return _emit(result, smi, args.out)
     cfg = PipelineConfig.from_json(args.config)
     seq = box_sequence(args.seed, cfg.n_beams)

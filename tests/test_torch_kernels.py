@@ -4,7 +4,8 @@ loop_gate, the gated verify that runs K8b inside lm_ndt, and the
 smoother's K5 factor_linearize, K6 pcg_solve, K7a local_select and K7b
 local_assemble, also through incremental_update, and config 4's K9a
 supernodal_assemble and K9b schur_reduce, also through one supernodal
-step) against their plain twins, on the card; K3 also against the plain model of its
+step, and stacked serving's K6b pcg_solve_blocked, K3s halfcell_add_stacked
+and K4s finalize_pack_stacked) against their plain twins, on the card; K3 also against the plain model of its
 fixed-point arithmetic, bit for bit, K3, K4 and K8a for the same result on
 every launch (K3 and K8a also under any order of the points), and the
 gated verify bit for bit against lm_ndt_grouped followed by the
@@ -734,6 +735,92 @@ def test_supernodal_kernels_refuse_cpu_tensors():
             torch.zeros(3, nsl3, nsl3), torch.zeros(3, nsl3), h[2], h[4],
             t.hold_ptr, t.hold_shard, t.hold_loc, t.loc_of, t.sep_mask,
             1e-3, plan.ns_loc),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            call()
+
+
+@pytest.fixture(scope="module")
+def serving():
+    """The stacked serving state on the card: 8 sessions x 120 scans of
+    ``configs/config_serving.json`` under ``serving_config`` (the sessions
+    of ``python -m ndtpu_torch.serve``, cut in length), and the config."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke as cs
+    from ndtpu_torch import serve
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.dist import slam_dp
+
+    cfg = slam_dp.serving_config(PipelineConfig.from_json(str(cs.SERVING)))
+    cfg = dataclasses.replace(cfg, keyframe=dataclasses.replace(
+        cfg.keyframe, capacity=serve.auto_capacity(cfg, 120)))
+    points, mask, odom, _ = serve.pad_sessions(
+        serve.synthetic_sessions(cfg, 8, 120))
+    dev = torch.device("cuda")
+    with cs.no_plain_on_card(cs.PLAIN_SERVING):
+        state, outs = slam_dp.run_sessions_stacked(
+            points.to(dev), mask.to(dev), odom.to(dev), cfg)
+    assert int(outs.n_dropped.sum()) == 0
+    return state, cfg
+
+
+def test_pcg_solve_blocked_matches_plain_and_repeats(serving):
+    """K6b against its plain version in f32 on the card and f64 on the CPU
+    (rtol 1e-4 per session), bit-identical on a second launch, an idle
+    session at x = 0 (see chip_smoke.check_k6b)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    row = cs.check_k6b(*serving, 0, jobs=[])
+    assert row["sessions"] == 8 and kernels.LAUNCHES["pcg_solve_blocked"] > 2
+
+
+def test_halfcell_add_stacked_bit_equal_to_single_launches(serving):
+    """K3s at the window and refresh shapes equals 8 single K3 launches
+    bit for bit, and repeats (see chip_smoke.check_k3s)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    cs.check_k3s(*serving, jobs=[])
+    assert kernels.LAUNCHES["halfcell_add_stacked"] > 4
+
+
+def test_finalize_pack_stacked_bit_equal_to_single_launches(serving):
+    """K4s equals 8 single K4 launches bit for bit, repeats, and matches
+    the plain twin (see chip_smoke.check_k4s)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    cs.check_k4s(*serving, jobs=[])
+    assert kernels.LAUNCHES["finalize_pack_stacked"] > 2
+
+
+def test_padded_sessions_on_the_card(dev):
+    """Sessions of different lengths, padded as the serving CLI pads them:
+    all-masked lanes end at 0 iterations, K3s leaves an all-masked map as
+    it was, K4s packs an empty map finite, the gated verify takes empty
+    candidates, and a stacked run keeps its padded tail empty (see
+    chip_smoke.check_padded_sessions)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    cs.check_padded_sessions(dev)
+    assert kernels.LAUNCHES["halfcell_add_stacked"] > 0
+
+
+def test_stacked_kernels_refuse_cpu_tensors():
+    """K3s' and K4s' raw entry points take CUDA tensors only (the map
+    wrappers send CPU tensors to their twins first; K6b's refusal is in
+    test_torch_blocked_pcg)."""
+    stats8 = tgrid.NDTStats(*(torch.stack([t, t]) for t in
+                              tgrid.empty_stats(GRID)))
+    pts = torch.zeros(2, 10, 2)
+    msk = torch.ones(2, 10, dtype=torch.bool)
+    calls = [
+        lambda: kernels.halfcell_add_stacked(*stats8, pts, msk, 1.0, GRID),
+        lambda: kernels.finalize_pack_stacked(*stats8, NDT, GRID),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
