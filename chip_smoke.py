@@ -98,10 +98,27 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``finalize_pack_stacked`` (each bit-equal to 8 single K3 / K4
     launches), all bit-identical on a second launch, on the state the
     serving run left, each timed beside the single launches it replaces;
-12. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
+12. config 5's merge in process (:func:`run_merge`), at
+    ``configs/config5_multisession.json``: two corridor sessions
+    (:func:`config5_sessions`) through ``run_slam_windowed``, then, with the
+    counters reset just before and read just after, ``global_align``,
+    ``find_inter_session_loops`` at a perturbed transform, the merges and
+    ``merged_map_stats`` (two K12 and two ``lm_ndt`` launches, one gated
+    verify, one K3), gated against the JAX package's run of the same pair
+    (``tests/data/torch_config5_merge_ref.json``); K12 against its plain
+    version at the alignment's two shapes;
+13. the distributed solve (:func:`run_distributed`): ``python -m
+    ndtpu_torch.dist.launch`` as two ranks on the card over gloo
+    (``launch_local``), on phase 12's merged graph, gated on chi^2 and
+    against phase 12's in-process solve, each rank's counters reset in the
+    rank just before its solve (one K9c and two K5 launches and four
+    all-reduces per iteration); then K9c against its plain version on both
+    ranks' rows;
+14. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
     phase 4; also ``lm_ndt_grouped``, K8a and the gated verify
     ``loop_gate_fused`` in phase 6; K3s, K4s, K5, K6b, K8a and the gated
-    verify in phase 10), exactly one ``lm_ndt*`` launch per
+    verify in phase 10; ``lm_ndt``, K12, K3 and the gated verify in phase
+    12; K9c and K5 in phase 13's ranks), exactly one ``lm_ndt*`` launch per
     ``match_batch_packed`` call, and in phase 6 one gated verify per
     loop-detection call and no standalone K8b launch; K5, K7a and K7b
     launched in phases 4 and 6, K6 in phase 6 (config 2 may never take the
@@ -111,10 +128,11 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``lm_ndt``, and they are held to their twins in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches
-(phases 4, 6, 8 and 10 together), errors, times and bounds, the repeated
-runs' ATEs, the smoother's counts, config 4's run and step timing and the
-serving run's aggregate scans/s and per-session results; the last line is
-``{"ok": true, "device": {...}}``.
+(phases 4, 6, 8, 10, 12 and 13 together), errors, times and bounds, the
+repeated runs' ATEs, the smoother's counts, config 4's run and step
+timing, the serving run's aggregate scans/s and per-session results, and
+config 5's merge and distributed solve; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -126,6 +144,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -164,21 +183,35 @@ STEP_FLOPS = 80
 BOX = dict(half=11.0, n_scans=300, traj_half=7.0, step=0.2, max_range=20.0,
            min_range=0.1, odom_trans_std=0.04, odom_rot_std=0.01)
 
+#: Config 5's merge pair at ``configs/config5_multisession.json``: session
+#: A one lap of the corridor ring (``corridor_loop_world(outer=20,
+#: width=4)``, 480 scans at 0.3 m along its centre line, 144 m), session B
+#: 300 scans of the same ring starting 20 steps (6 m) along from A's start,
+#: each with its own noise seed; the JAX package's results on this pair are
+#: ``tests/data/torch_config5_merge_ref.json``.
+CONFIG5_PAIR = dict(outer=20.0, width=4.0, half=18.0, step=0.3, n_a=480,
+                    n_b=300, shift=20, seeds=(0, 1), odom_trans_std=0.03,
+                    odom_rot_std=0.008)
+REF5_FILE = ROOT / "tests" / "data" / "torch_config5_merge_ref.json"
+
 _CSRC = "ndtpu_torch/kernels/csrc/"
 #: Every kernel, with the entry-point runs that must launch it (``paths``:
 #: config 2, 3 and 4 are phases 4, 6 and 8), or the kernel whose launch
 #: runs its code on the main path (``inside``).
 KERNELS = [
     dict(name="lm_ndt", source=_CSRC + "lm_ndt.cu",
-         replaces="ndtpu/ndt/match.py:308", paths=("config2", "config3")),
+         replaces="ndtpu/ndt/match.py:308",
+         paths=("config2", "config3", "config5")),
     dict(name="lm_ndt_grouped", source=_CSRC + "lm_ndt.cu",
-         replaces="ndtpu/ndt/match.py:308", paths=("config3", "serving")),
+         replaces="ndtpu/ndt/match.py:308",
+         paths=("config3", "serving", "config5")),
     dict(name="ndt_terms", source=_CSRC + "ndt_terms.cu",
          replaces="ndtpu/ndt/match.py:237", inside="lm_ndt"),
     dict(name="ndt_terms_grouped", source=_CSRC + "ndt_terms.cu",
          replaces="ndtpu/ndt/grid.py:450", inside="lm_ndt_grouped"),
     dict(name="halfcell_add", source=_CSRC + "halfcell_add.cu",
-         replaces="ndtpu/ndt/grid.py:161", paths=("config2", "config3")),
+         replaces="ndtpu/ndt/grid.py:161",
+         paths=("config2", "config3", "config5")),
     # K3s and K4s: the serving path's map ops over all 8 sessions' maps.
     dict(name="halfcell_add_stacked", source=_CSRC + "halfcell_add.cu",
          replaces="ndtpu/dist/slam_dp.py:317", paths=("serving",)),
@@ -191,10 +224,11 @@ KERNELS = [
     dict(name="loop_gate", source=_CSRC + "loop_gate.cu",
          replaces="ndtpu/loop/closure.py:171", inside="loop_gate_fused"),
     dict(name="loop_gate_fused", source=_CSRC + "lm_ndt.cu",
-         replaces="ndtpu/loop/closure.py:171", paths=("config3", "serving")),
+         replaces="ndtpu/loop/closure.py:171",
+         paths=("config3", "serving", "config5")),
     dict(name="factor_linearize", source=_CSRC + "factor_linearize.cu",
          replaces="ndtpu/graph/factors.py:225",
-         paths=("config2", "config3", "config4", "serving")),
+         paths=("config2", "config3", "config4", "serving", "config5_dist")),
     # Config 2's runs may never take the global path nor reach the full
     # solve (PERF.md), so K6 is required in the config-3 phase only.
     dict(name="pcg_solve", source=_CSRC + "pcg_solve.cu",
@@ -212,6 +246,12 @@ KERNELS = [
          replaces="ndtpu/graph/supernodal.py:158", paths=("config4",)),
     dict(name="schur_reduce", source=_CSRC + "supernodal.cu",
          replaces="ndtpu/graph/supernodal.py:338", paths=("config4",)),
+    # Config 5: K12 ranks the merge's hypotheses (phase 12); K9c is each
+    # rank's step of the distributed solve (phase 13, counted in the ranks).
+    dict(name="ndt_sgh_unpacked", source=_CSRC + "ndt_unpacked.cu",
+         replaces="ndtpu/ndt/match.py:108", paths=("config5",)),
+    dict(name="schur_local_assemble", source=_CSRC + "supernodal.cu",
+         replaces="ndtpu/dist/schur.py:386", paths=("config5_dist",)),
 ]
 
 
@@ -237,6 +277,38 @@ def box_sequence(seed: int, n_beams: int, device="cpu",
                                min_range=BOX["min_range"], seed=seed,
                                odom_trans_std=BOX["odom_trans_std"],
                                odom_rot_std=BOX["odom_rot_std"], device=device)
+
+
+def config5_sessions(device="cpu"):
+    """Config 5's two sessions (:data:`CONFIG5_PAIR`, the port's synth, f32)
+    on ``device``: ``([seq_a, seq_b], t_true [3], scenario)``, ``t_true``
+    the pose of B's first scan in A's first scan's frame (each session
+    anchors its frame at its first scan)."""
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.data import synth
+    from ndtpu_torch.lie import se2
+
+    c = CONFIG5_PAIR
+    cfg = PipelineConfig.from_json(str(CONFIG5))
+    world = synth.corridor_loop_world(outer=c["outer"], width=c["width"])
+    traj_a = synth.rectangle_trajectory(c["n_a"], half=c["half"],
+                                        step=c["step"])
+    traj_b = synth.rectangle_trajectory(c["n_b"] + c["shift"],
+                                        half=c["half"],
+                                        step=c["step"])[c["shift"]:]
+    seqs = [synth.make_sequence(world, traj, cfg.n_beams, cfg.max_range,
+                                cfg.min_range, seed=seed,
+                                odom_trans_std=c["odom_trans_std"],
+                                odom_rot_std=c["odom_rot_std"], device=device)
+            for traj, seed in zip((traj_a, traj_b), c["seeds"])]
+    scenario = (f"corridor_loop_world(outer={c['outer']}, width={c['width']})"
+                f"; A rectangle_trajectory({c['n_a']}, half={c['half']}, "
+                f"step={c['step']}), B the next {c['n_b']} poses of that "
+                f"trajectory from step {c['shift']}; {cfg.n_beams} beams, "
+                f"odometry noise {c['odom_trans_std']} m / "
+                f"{c['odom_rot_std']} rad, seeds {c['seeds']}; sequences "
+                f"from ndtpu_torch.data.synth.make_sequence")
+    return seqs, se2.between(traj_a[0], traj_b[0]), scenario
 
 
 def sequence_hashes(seq) -> dict:
@@ -1730,6 +1802,13 @@ PLAIN_SERVING = PLAIN_SMOOTHER + (
     ("ndtpu_torch.ndt.grid", "finalize_pack_stacked_ref"),
     ("ndtpu_torch.ndt.match", "lm_ndt_ref"),
     ("ndtpu_torch.loop.closure", "write_local_tables_ref"))
+#: ... and every plain version config 5's merge and in-process solves could
+#: reach.
+PLAIN_CONFIG5 = PLAIN_SERVING + (
+    ("ndtpu_torch.ndt.match", "score_grad_hess_batch_ref"),
+    ("ndtpu_torch.dist.schur", "schur_local_assemble_ref"),
+    ("ndtpu_torch.graph.supernodal", "supernodal_assemble_ref"),
+    ("ndtpu_torch.graph.supernodal", "schur_reduce_ref"))
 
 
 @contextlib.contextmanager
@@ -2805,6 +2884,560 @@ def check_k4s(state8, cfg, jobs=None):
     return row
 
 
+
+# --------------------------------------------------------------------------
+# Config 5: the two-session merge (phase 12) and the distributed solve
+# (phase 13).
+
+#: f32 operations of K12 per masked beam (transform, phi-derivative,
+#: offsets) and per (beam, grid) (binning 6, counted from
+#: ``csrc/ndt_unpacked.cu``) and per (beam, grid) in a valid in-map cell
+#: (the 71 of ``csrc/ndt_sums.cuh``'s ``ndt_add_terms``).
+K12_BEAM_FLOPS, K12_BIN_FLOPS, K12_CELL_FLOPS = 14, 6, 71
+
+
+def k12_bound(poses, points, mask, ndt_map, grid) -> dict:
+    """Bytes: the poses, the scan and its mask, each distinct map cell the
+    run gathers (mean 8 B, inverse covariance 16 B, valid 4 B) read once,
+    the ``[B, 14]`` outputs written; operations: per masked beam and pose
+    the transform, per (beam, grid) the binning, per (beam, grid) in a valid
+    cell the 71 of the sums, as this run's data needs them."""
+    import torch
+
+    from ndtpu_torch.ndt import grid as ndt_grid
+    from ndtpu_torch.ndt import match as ndt_match
+
+    b, n = poses.shape[0], points.shape[0]
+    live = int(mask.sum())
+    touched = torch.zeros(grid.overlap * grid.n_cells, dtype=torch.bool,
+                          device=poses.device)
+    valid_terms = 0
+    for i in range(0, b, 512):
+        p = poses[i:i + 512]
+        xw = torch.stack(ndt_match._lane_transform(
+            p, points[:, 0][None], points[:, 1][None])[:2], -1)
+        ids, inb = ndt_grid.cell_ids(xw, grid)                # [b, G, N]
+        hit = inb & mask[None, None, :]
+        g = torch.arange(grid.overlap, device=ids.device)[:, None]
+        v = ndt_map.valid[g, ids] > 0
+        valid_terms += int((hit & v).sum())
+        touched[(ids + g * grid.n_cells)[hit]] = True
+    n_bytes = b * 12 + n * 12 + int(touched.sum()) * 28 + b * 14 * 4
+    flops = (b * live * (K12_BEAM_FLOPS + 4 * K12_BIN_FLOPS)
+             + valid_terms * K12_CELL_FLOPS)
+    return bound(n_bytes, flops)
+
+
+#: A world point's f32 position is off by a few roundings inside the 64 m
+#: map (one f32 ulp there is 3.8e-6 m): a (pose, grid, beam) whose cell
+#: differs between f32 and f64 must lie this close (m) to a cell edge.
+K12_EDGE_EPS = 2e-5
+#: K12 against its f64 plain version fed the f32 cells: each output within
+#: this fraction of its max |.|. The same f32 rounding of the world point
+#: (~1e-5 m) against inverse covariances up to 1e2 m^-2 (the 1e-2 m^2
+#: eigenvalue floor) moves each term's ``q = icov d`` by ~1e-3, and the
+#: gradient sums ~1,400 such terms to a max of a few hundred.
+K12_F64_RTOL = 1e-4
+
+
+def k12_f64_on_f32_cells(poses, points, mask, ndt_map, grid, mcfg):
+    """K12's f64 plain version fed the f32 binning: ``score_grad_hess`` in
+    f64 on the CPU, each (pose, grid, beam) gathering the cell that f32 on
+    the card gives it (the f32 plain version's binning, which K12 must
+    match). Also counts the (pose, grid, beam) triples of live beams whose
+    cell or in-bounds flag differs between f32 and f64, and the largest
+    f64 distance of one of them to a cell edge of its grid: ``((f, g, H,
+    score), n_flip, edge_max_m)``."""
+    import torch
+
+    from ndtpu_torch.ndt import grid as ndt_grid
+    from ndtpu_torch.ndt import match as ndt_match
+
+    pts64, mask64 = points.cpu().double(), mask.cpu()
+    map64 = ndt_grid.NDTMap(*(t.cpu().double() for t in ndt_map))
+    offs = ndt_grid._grid_offsets(grid, torch.float64, "cpu")
+    origin = torch.tensor([grid.x0, grid.y0], dtype=torch.float64)
+    g = torch.arange(grid.overlap)[:, None]
+    outs, n_flip, edge_max = [], 0, 0.0
+    for i in range(0, poses.shape[0], 512):
+        p32 = poses[i:i + 512]
+        x, y, _, _ = ndt_match._lane_transform(p32, points[:, 0][None],
+                                               points[:, 1][None])
+        ids32, inb32 = (t.cpu() for t in ndt_grid.cell_ids(
+            torch.stack([x, y], -1), grid))                 # [b, G, N]
+        p64 = p32.cpu().double()
+        x, y, dpx, dpy = ndt_match._lane_transform(p64, pts64[:, 0][None],
+                                                   pts64[:, 1][None])
+        xw = torch.stack([x, y], -1)
+        ids64, inb64 = ndt_grid.cell_ids(xw, grid)
+        flip = ((ids32 != ids64) | (inb32 != inb64)) & mask64[None, None]
+        rel = (xw[:, None] - origin - offs[:, None, :]) / grid.cell
+        edge = ((rel - torch.round(rel)).abs() * grid.cell).amin(-1)[flip]
+        n_flip += int(flip.sum())
+        edge_max = max([edge_max] + ([float(edge.max())] if n_flip else []))
+        w0 = (map64.valid[g, ids32] * inb32.double()
+              * mask64.double()[None, None])
+        f, gr, h, wsum, w0sum = ndt_match.point_terms(
+            p64, xw, torch.stack([dpx, dpy], -1), map64.mean[g, ids32],
+            map64.icov[g, ids32], w0, mcfg)
+        outs.append((f, gr, h, wsum / torch.clamp(w0sum, min=1.0)))
+    return tuple(torch.cat(x) for x in zip(*outs)), n_flip, edge_max
+
+
+def check_k12(label, poses, points, mask, ndt_map, grid, mcfg, jobs=None):
+    """K12 ``ndt_sgh_unpacked`` at ``poses`` against its plain version in
+    f32 on the card (each output within rtol 1e-5 of its max |.|: the same
+    cells, the same sums in another order), bit-identical on a second
+    launch, and against its f64 plain version on the CPU. A beam within an
+    f32 rounding of a cell edge falls in the other cell in f64, and one
+    such beam moves the gradient by up to d2 x |icov| x |d| (~25 at the
+    1e-2 m^2 eigenvalue floor), so the f64 gate requires each (pose, grid,
+    beam) whose cell differs between f32 and f64 to lie within
+    :data:`K12_EDGE_EPS` of a cell edge, and holds K12 to the f64 plain
+    version fed the f32 cells within :data:`K12_F64_RTOL`; the distance to
+    the f64 plain version on its own cells is reported. Returns the row."""
+    import torch
+
+    from ndtpu_torch.ndt import grid as ndt_grid
+    from ndtpu_torch.ndt import match as ndt_match
+
+    args = (poses, points, mask, ndt_map, grid, mcfg)
+    run = lambda: ndt_match.score_grad_hess_batch(*args)
+    out, again = run(), run()
+    ref = ndt_match.score_grad_hess_batch_ref(*args)
+    cpu = lambda x: x.cpu().double()
+    ref64 = ndt_match.score_grad_hess_batch_ref(
+        cpu(poses), cpu(points), mask.cpu(),
+        ndt_grid.NDTMap(*(cpu(t) for t in ndt_map)), grid, mcfg)
+    torch.cuda.synchronize()
+    require(bits_equal(out, again), f"K12 {label}: two launches differ")
+    err = _rel_check(f"K12 {label} vs f32 plain", out, ref)
+    err64_own = max(float((cpu(x) - r).abs().max())
+                    for x, r in zip(out, ref64))
+    ref64_f32, n_flip, edge_max = k12_f64_on_f32_cells(*args)
+    require(edge_max <= K12_EDGE_EPS,
+            f"K12 {label}: a beam's cell differs between f32 and f64 "
+            f"{edge_max:.3e} m from a cell edge (> {K12_EDGE_EPS:g} m)")
+    err64 = _rel_check(f"K12 {label} vs f64 plain on the f32 cells",
+                       [cpu(x) for x in out], ref64_f32, rtol=K12_F64_RTOL)
+    ms = time_ms(run)
+    plain = time_ms(lambda: ndt_match.score_grad_hess_batch_ref(*args))
+    bd = k12_bound(poses, points, mask, ndt_map, grid)
+    n_triples = poses.shape[0] * grid.overlap * int(mask.sum())
+    print(f"[smoke] K12 ndt_sgh_unpacked {label} B={poses.shape[0]} "
+          f"N={points.shape[0]} G=4 x {grid.n_cells} cells: vs f32 plain max "
+          f"abs err {err:.3e} (rtol 1e-5 of each output's max); bit-identical "
+          f"on a second launch; {n_flip} of {n_triples} live (pose, grid, "
+          f"beam) triples change cell between f32 and f64, each within "
+          f"{edge_max:.3e} m of a cell edge; vs f64 plain on the f32 cells "
+          f"{err64:.3e} (rtol {K12_F64_RTOL:g}), on its own cells "
+          f"{err64_own:.3e}; kernel {ms:.4f} "
+          f"ms, plain {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
+          f"({bd['bound_by']})")
+    row = dict(max_abs_err=err, max_abs_err_f64=err64,
+               max_abs_err_f64_own_cells=err64_own, flipped_triples=n_flip,
+               flip_edge_m=edge_max, ms=ms, plain_ms=plain, **bd)
+    card_time(jobs, f"K12 ndt_sgh_unpacked {label}", row, "card_ms", run,
+              ["ndt_sgh_unpacked"])
+    return row
+
+
+def k9c_bound(t, lin) -> dict:
+    """Bytes: the rank's K5 rows and routing tables read once, the five
+    parts written; operations: 54 per routed 3x3 pair, 18 per routed
+    ``A^T r``, 4 per damped diagonal entry."""
+    ai, ap = lin[0], lin[3]
+    ni, ns = t.ni, t.ns
+    out = 9 * ni * ni + 9 * ni * ns + 9 * ns * ns + 3 * ni + 3 * ns
+    tables = sum(getattr(t, k).numel() for k in ("row_ptr", "tgt_col",
+                                                 "tgt_ptr", "code",
+                                                 "vec_ptr", "vcode"))
+    return bound(ai.shape[0] * 84 + ap.shape[0] * 48 + tables * 4 + ni
+                 + out * 4, 54.0 * t.code.numel() + 18.0 * t.vcode.numel()
+                 + 4.0 * 3 * ni)
+
+
+def check_k9c(graph, n_ranks: int, lam: float, jobs=None):
+    """K9c ``schur_local_assemble`` on each rank's rows of ``graph`` split
+    into ``n_ranks`` shards (phase 13's layout), against its plain version
+    in f32 on the card and in f64 on the CPU (each part within rtol 1e-5 of
+    its max |.|), bit-identical on a second launch; the plain segment sums'
+    ``index_add_`` of the routed blocks (the library call, without the
+    damping) timed beside it. Returns the row of the rank with the most
+    interior slots (rank 0), with each rank's size and time."""
+    import torch
+
+    from ndtpu_torch.dist import schur
+
+    plan = schur.plan_partition(
+        graph.bet_i.cpu().numpy(), graph.bet_j.cpu().numpy(),
+        graph.bet_mask.cpu().numpy(), graph.prior_idx.cpu().numpy(),
+        graph.prior_mask.cpu().numpy(), graph.poses.shape[0], n_ranks)
+    rows = []
+    for rank in range(n_ranks):
+        t = schur.rank_tables(plan, rank, graph.poses.device)
+        t64 = schur.rank_tables(plan, rank, "cpu")
+        loc = tuple(x[0] for x in schur.shard_factor_data_local(graph, plan,
+                                                                rank))
+        lin = schur._linearize_shard(graph.poses, *loc)
+        masks = (loc[4], loc[8])
+        run = lambda: schur.schur_local_assemble(t, lam, *lin, *masks)
+        out, again = run(), run()
+        ref = schur.schur_local_assemble_ref(t, lam, *lin, *masks)
+        ref64 = schur.schur_local_assemble_ref(
+            t64, lam, *_cpu64(lin), *(m.cpu() for m in masks))
+        torch.cuda.synchronize()
+        require(bits_equal(out, again), f"K9c rank {rank}: two launches "
+                f"differ")
+        err = _rel_check(f"K9c rank {rank} vs f32 plain", out, ref)
+        err64 = _rel_check(f"K9c rank {rank} vs f64 plain", _cpu64(out),
+                           ref64)
+        ms = time_ms(run)
+        plain = time_ms(lambda: schur.schur_local_assemble_ref(t, lam, *lin,
+                                                               *masks))
+        # The library call: the plain version's segment sums as one
+        # index_add_ of the routed blocks into the three matrices, flat.
+        (ra, la, rb, lb, vals, valid), _ = schur._local_blocks(
+            *lin, masks[0], t.i_role, t.i_loc, t.j_role, t.j_loc, masks[1],
+            t.p_role, t.p_loc)
+        ni, ns = t.ni, t.ns
+        n_ii, n_is, n_ss = 9 * ni * ni, 9 * ni * ns, 9 * ns * ns
+        ii = (ra == 0) & (rb == 0) & valid
+        is_ = (ra == 0) & (rb == 1) & valid
+        ss = (ra == 1) & (rb == 1) & valid
+        ids = torch.cat([schur._block_ids(la, lb, ni, ii),
+                         schur._block_ids(la, lb, ns, is_) + n_ii,
+                         schur._block_ids(la, lb, ns, ss) + n_ii + n_is])
+        vv = torch.cat([vals, vals, vals])
+        keep = ids < n_ii + n_is + n_ss
+        ids, vv = ids[keep], vv[keep]
+        lib = time_ms(lambda: torch.zeros(n_ii + n_is + n_ss,
+                                          device=vv.device).index_add_(
+            0, ids, vv))
+        bd = k9c_bound(t, lin)
+        print(f"[smoke] K9c schur_local_assemble rank {rank}/{n_ranks} "
+              f"ni={ni} ns={ns} ({t.tgt_col.numel()} target blocks, "
+              f"{t.code.numel()} pairs): vs f32 plain max abs err {err:.3e}, "
+              f"vs f64 plain {err64:.3e} (rtol 1e-5 of each part's max); "
+              f"bit-identical on a second launch; kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, library (index_add_ of the routed blocks, no "
+              f"damping) {lib:.4f} ms, bound {bd['bound_ms']:.6f} ms "
+              f"({bd['bound_by']})")
+        row = dict(max_abs_err=err, max_abs_err_f64=err64, ms=ms,
+                   plain_ms=plain, ni=ni, ns=ns, **bd)
+        row.update(library_ms=lib, library="torch.Tensor.index_add_ of the "
+                   "routed 3x3 blocks into h_ii, h_is and h_ss (flat): the "
+                   "same sums without the damping")
+        card_time(jobs, f"K9c schur_local_assemble rank {rank}", row,
+                  "card_ms", run, ["supernodal_assemble_kernel<true>"])
+        rows.append(row)
+    rows[0]["ranks"] = [dict(ni=r["ni"], ms=r["ms"]) for r in rows]
+    return rows[0]
+
+
+def b_placement_err(graph_poses, sa, sb, t_true) -> float:
+    """Mean distance of session B's live keyframes in the merged graph from
+    their placement by the true transform (``test_multisession_e2e.py``'s
+    measure)."""
+    import torch
+
+    from ndtpu_torch.lie import se2
+
+    na = sa.graph.capacity
+    idx = torch.nonzero(sb.kf.live).squeeze(-1)
+    true_b = se2.compose(t_true.expand(idx.shape[0], 3),
+                         sb.graph.poses[idx])
+    d = graph_poses[na + idx, :2] - true_b[:, :2]
+    return float(torch.hypot(d[:, 0], d[:, 1]).mean())
+
+
+def run_merge(dev, card, npz_path, jobs):
+    """Phase 12: config 5's merge on the card at
+    ``configs/config5_multisession.json``. The two sessions
+    (:func:`config5_sessions`) run through ``run_slam_windowed``; then,
+    with every launch counter reset just before and read just after and
+    every plain version made to raise on CUDA tensors (``PLAIN_CONFIG5``,
+    also around the in-process solves), the merge itself: ``global_align`` (JAX's defaults: span 8, step 1, 16
+    headings, 5 coarse iterations, top 64) of B's first keyframe scan in
+    A's map, the perturbed transform ``t_bad = align o [0.25, -0.2, 0.06]``
+    (bench.py:622-623), ``find_inter_session_loops``, the anchor-only and
+    the auto merge (``merge_graphs``) and ``merged_map_stats``. Gates:
+    converged within 0.1 m / 0.02 rad of the truth and of JAX f32's
+    transform; two K12 and two ``lm_ndt`` launches (one per pass), one
+    gated verify, one K3; at least one inter-session loop and half JAX's
+    count; the map's counts equal K3's plain version's exactly; both
+    perturbed merges solved in process (``optimize_supernodal``, 15
+    iterations; K6 takes no 2,048-pose graph) with B's placement error at
+    most max(0.15 m, 2 x JAX f32's), and below 0.6 x the anchor-only one
+    where JAX f32's own run is (on this pair it is not: under the 0.06 rad
+    perturbation most accepted inter-session factors sit on an
+    along-corridor alias in the JAX package too, which the reference file
+    records as the factors' error against the truth; the smoke prints the
+    port's). Writes the graph the distributed solve takes (the sessions
+    merged at the aligned transform with the inter-session factors found
+    there) to ``npz_path`` and solves it in process at phase 13's 10
+    iterations. Returns ``(launches, summary, that graph, its chi2 at 10
+    iterations, K12's row)``."""
+    import dataclasses
+
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import MatchConfig, PipelineConfig, SolverConfig
+    from ndtpu_torch.dist import launch
+    from ndtpu_torch.graph import supernodal as sn
+    from ndtpu_torch.lie import se2
+    from ndtpu_torch.loop import closure
+    from ndtpu_torch.ndt import grid as ndt_grid
+    from ndtpu_torch.ndt import match
+    from ndtpu_torch.slam import merge, pipeline
+
+    ref = json.loads(REF5_FILE.read_text())
+    j32 = ref["f32"]
+    cfg = PipelineConfig.from_json(str(CONFIG5))
+    seqs, t_true, _ = config5_sessions(dev)
+    t_true = t_true.to(dev)
+    t0 = time.perf_counter()
+    sa, sb = (pipeline.run_slam_windowed(s.points, s.mask, s.odom, cfg)[0]
+              for s in seqs)
+    torch.cuda.synchronize()
+    sessions_s = time.perf_counter() - t0
+    map_a = ndt_grid.finalize(sa.stats, cfg.ndt)
+    probe, probe_mask = sb.kf.points[0], sb.kf.masks[0]
+
+    saved = closure.verify_candidates_cached_flat
+    verifies = 0
+
+    def counted(*a, **k):
+        nonlocal verifies
+        verifies += 1
+        return saved(*a, **k)
+
+    closure.verify_candidates_cached_flat = counted
+    stage = {}
+    try:
+        with no_plain_on_card(PLAIN_CONFIG5):
+            kernels.reset_launches()
+            match.CALLS["match_batch_packed"] = 0
+            t1 = time.perf_counter()
+            res = merge.global_align(map_a, cfg.grid, probe, probe_mask)
+            transform = res.transform.cpu()
+            stage["align_s"] = time.perf_counter() - t1
+            t_bad = se2.compose(res.transform, torch.tensor(
+                [0.25, -0.2, 0.06], device=dev))
+            t1 = time.perf_counter()
+            loops = merge.find_inter_session_loops(
+                sa.kf, sb.kf, t_bad, cfg.loop, cfg.match, ndt_cfg=cfg.ndt)
+            n_loops = int(loops[0].shape[0])
+            stage["loops_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            sq = torch.diag(torch.tensor([10.0, 10.0, 20.0], device=dev))
+            anchor = (torch.tensor([0], device=dev),
+                      torch.tensor([0], device=dev), t_bad[None], sq[None])
+            g_anchor = merge.merge_graphs(sa.graph, sb.graph, t_bad, anchor)
+            g_auto = merge.merge_graphs(sa.graph, sb.graph, t_bad, loops)
+            torch.cuda.synchronize()
+            stage["merge_graphs_s"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            stats = merge.merged_map_stats(sa.kf, sb.kf, t_bad, cfg.grid)
+            torch.cuda.synchronize()
+            stage["map_s"] = time.perf_counter() - t1
+            launches = dict(kernels.LAUNCHES)
+            calls = match.CALLS["match_batch_packed"]
+    finally:
+        closure.verify_candidates_cached_flat = saved
+
+    err = se2.between(transform, t_true.cpu())
+    err_j = se2.between(transform, torch.tensor(j32["transform"]))
+    require(bool(res.converged), "config 5: the alignment did not converge")
+    for name, e in (("the truth", err), ("JAX f32's transform", err_j)):
+        require(float(torch.hypot(e[0], e[1])) <= 0.1
+                and abs(float(e[2])) <= 0.02,
+                f"config 5: alignment {transform.tolist()} off {name} by "
+                f"{e.tolist()} (0.1 m / 0.02 rad allowed)")
+    require(launches["ndt_sgh_unpacked"] == 2 and launches["lm_ndt"] == 2
+            == calls - verifies,
+            f"config 5: {launches['ndt_sgh_unpacked']} K12 and "
+            f"{launches['lm_ndt']} lm_ndt launches in the alignment (two "
+            f"each expected: one per pass)")
+    require(verifies == 1 and launches["loop_gate_fused"] == 1
+            and launches["lm_ndt_grouped"] == 1
+            and launches["loop_gate"] == 0,
+            f"config 5: {launches['loop_gate_fused']} gated verifies for "
+            f"{verifies} loop searches (one expected)")
+    require(launches["halfcell_add"] == 1,
+            f"config 5: {launches['halfcell_add']} K3 launches in "
+            f"merged_map_stats (one expected)")
+    require(n_loops >= 1 and n_loops >= 0.5 * j32["inter_loops"],
+            f"config 5: {n_loops} inter-session loops, JAX f32 "
+            f"{j32['inter_loops']} (at least half and one expected)")
+    # The merged map: K3's counts equal its plain version's exactly.
+    wa = se2.transform(sa.kf.poses, sa.kf.points).reshape(-1, 2)
+    wb = se2.transform(se2.compose(t_bad.expand_as(sb.kf.poses),
+                                   sb.kf.poses), sb.kf.points).reshape(-1, 2)
+    pts = torch.cat([wa, wb])
+    msk = torch.cat([(sa.kf.masks & sa.kf.live[:, None]).reshape(-1),
+                     (sb.kf.masks & sb.kf.live[:, None]).reshape(-1)])
+    plain = ndt_grid.halfcell_add_ref(
+        ndt_grid.empty_stats(cfg.grid, torch.float32, dev), pts, msk, 1.0,
+        cfg.grid)
+    require(torch.equal(stats.n, plain.n),
+            "config 5: merged_map_stats' counts differ from K3's plain "
+            "version")
+    # Both merges solved in process; B's placement.
+    t1 = time.perf_counter()
+    with no_plain_on_card(PLAIN_CONFIG5):
+        errs = [b_placement_err(sn.optimize_supernodal(
+            g, SolverConfig(max_iter=15)).graph.poses, sa, sb, t_true)
+            for g in (g_anchor, g_auto)]
+    torch.cuda.synchronize()
+    stage["solves_s"] = time.perf_counter() - t1
+    jax_ratio = (j32["b_placement_err_auto_m"]
+                 < 0.6 * j32["b_placement_err_anchor_m"])
+    require(errs[1] <= max(0.15, 2 * j32["b_placement_err_auto_m"])
+            and (errs[1] < 0.6 * errs[0] or not jax_ratio),
+            f"config 5: B placement error {errs[1]:.4f} m (auto) vs "
+            f"{errs[0]:.4f} m (anchor only); needs <= max(0.15, 2 x JAX "
+            f"f32's {j32['b_placement_err_auto_m']:.4f})"
+            + (" and < 0.6 x anchor" if jax_ratio else ""))
+    # Each accepted factor against the sessions placed by the truth.
+    i_a, j_b, z = loops[:3]
+    zt = se2.between(sa.kf.poses[i_a], se2.compose(
+        t_true.expand(j_b.shape[0], 3), sb.kf.poses[j_b]))
+    loop_err = torch.hypot(*(zt[:, :2] - z[:, :2]).T).cpu()
+    with no_plain_on_card(PLAIN_CONFIG5):
+        loops_al = merge.find_inter_session_loops(
+            sa.kf, sb.kf, res.transform, cfg.loop, cfg.match,
+            ndt_cfg=cfg.ndt)
+        g_dist = merge.merge_graphs(sa.graph, sb.graph, res.transform,
+                                    loops_al)
+        launch.save_graph_npz(str(npz_path), g_dist)
+        sol = sn.optimize_supernodal(g_dist, SolverConfig(max_iter=10))
+    chi10 = float(sol.chi2)
+    summary = dict(
+        sessions_s=sessions_s, keyframes=[int(sa.kf.n), int(sb.kf.n)],
+        in_session_loops=[int(sa.n_loops), int(sb.n_loops)],
+        transform=transform.tolist(), transform_err=err.tolist(),
+        jax_f32_transform=j32["transform"], inter_loops=n_loops,
+        jax_f32_inter_loops=j32["inter_loops"],
+        inter_loop_err_m=dict(median=float(loop_err.median()),
+                              p90=float(loop_err.quantile(0.9)),
+                              over_0_3=int((loop_err > 0.3).sum())),
+        jax_f32_inter_loop_err_m=j32["inter_loop_err_m"],
+        b_placement_err_anchor_m=errs[0], b_placement_err_auto_m=errs[1],
+        jax_f32_b_placement_err_m=[j32["b_placement_err_anchor_m"],
+                                   j32["b_placement_err_auto_m"]],
+        merged_points=int(msk.sum()), merged_stats_n=float(stats.n.sum()),
+        aligned_inter_loops=int(loops_al[0].shape[0]),
+        jax_f32_aligned_inter_loops=j32["aligned_inter_loops"],
+        merged_poses=int(g_dist.poses.shape[0]),
+        merged_factor_slots=int(g_dist.bet_i.shape[0]),
+        supernodal_chi2_10=chi10, supernodal_iters_10=int(sol.n_iter),
+        **stage)
+    print(f"[smoke] config 5 merge ({card}): sessions {sessions_s:.2f} s "
+          f"(keyframes {summary['keyframes']}, loops "
+          f"{summary['in_session_loops']}); alignment {transform.tolist()} "
+          f"(truth {t_true.tolist()}, JAX f32 {j32['transform']}) in "
+          f"{stage['align_s']:.3f} s; {n_loops} inter-session loops (JAX f32 "
+          f"{j32['inter_loops']}) in {stage['loops_s']:.3f} s, their "
+          f"error against the truth median "
+          f"{summary['inter_loop_err_m']['median']:.3f} m, "
+          f"{summary['inter_loop_err_m']['over_0_3']} over 0.3 m (JAX f32 "
+          f"{j32['inter_loop_err_m']}); B placement "
+          f"{errs[0]:.4f} m anchor-only -> {errs[1]:.4f} m auto (JAX f32 "
+          f"{j32['b_placement_err_anchor_m']:.4f} -> "
+          f"{j32['b_placement_err_auto_m']:.4f}); merged map "
+          f"{summary['merged_points']} points in {stage['map_s']:.4f} s; "
+          f"graph {summary['merged_poses']} poses, "
+          f"{summary['merged_factor_slots']} factor slots; the aligned "
+          f"merge ({summary['aligned_inter_loops']} inter-session loops, JAX "
+          f"f32 {j32['aligned_inter_loops']}): chi2 after 10 supernodal "
+          f"iterations {chi10:.6e} (JAX f32 schur "
+          f"{j32['schur_chi2_after']:.6e}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    # K12 at the shapes the alignment gives it: the coarse results of all
+    # 4,624 hypotheses, then the 64 refined (global_align's passes, again).
+    mcfg = dataclasses.replace(cfg.match, reject_tol=1e-3)
+    coarse_cfg = MatchConfig(max_iter=5, tol=mcfg.tol, d2=mcfg.d2,
+                             reject_tol=1e-3, init_lambda=mcfg.init_lambda,
+                             step_clip=mcfg.step_clip)
+    hyp = merge._hypothesis_grid(8.0, 1.0, 16, torch.float32, dev)
+    h, n = hyp.shape[0], probe.shape[0]
+    coarse = match.match_batch(probe.expand(h, n, 2),
+                               probe_mask.expand(h, n), map_a, hyp,
+                               cfg.grid, coarse_cfg).pose
+    row = check_k12("coarse", coarse, probe, probe_mask, map_a, cfg.grid,
+                    mcfg, jobs)
+    top = merge._descending(res.grid_scores, 64)
+    refined = match.match_batch(probe.expand(64, n, 2),
+                                probe_mask.expand(64, n), map_a, coarse[top],
+                                cfg.grid, mcfg).pose
+    row["refine"] = check_k12("refine", refined, probe, probe_mask, map_a,
+                              cfg.grid, mcfg, jobs)
+    return launches, summary, g_dist, chi10, dict(ndt_sgh_unpacked=row)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_distributed(dev, card, npz_path, chi10: float):
+    """Phase 13: ``launch_local(2, graph_npz=..., device="cuda")``, two
+    ranks on the card over gloo solving phase 12's aligned merge by
+    ``optimize_schur`` (10 iterations, the reference worker's cap). Gates:
+    chi^2 not rising, below max(0.5 x before, 50) (the JAX package's
+    ``test_multisession_e2e.py:190``), within 2% of phase 12's in-process
+    ``optimize_supernodal`` chi^2 at the same cap (both eliminate the same
+    f32 normal equations exactly, in other partitions: past chi^2's noise
+    floor the last iterations move it by roundoff, as config 4's f32 runs
+    sit within 1.02 x JAX's); each rank one K9c and two K5 launches and
+    four all-reduces per iteration, its counters reset in the rank just
+    before the solve. Returns ``(launches, record)``."""
+    from ndtpu_torch.dist import launch
+
+    t0 = time.perf_counter()
+    rec = launch.launch_local(2, graph_npz=str(npz_path), port=free_port(),
+                              device="cuda", timeout_s=600.0)
+    wall = time.perf_counter() - t0
+    chi0, chi1, iters = rec["chi2_before"], rec["chi2_after"], rec["iters"]
+    require(rec["num_processes"] == 2 and rec["device"] != "cpu",
+            f"config 5 distributed: {rec['num_processes']} ranks on "
+            f"{rec['device']}")
+    require(chi1 <= chi0 and chi1 < max(0.5 * chi0, 50.0),
+            f"config 5 distributed: chi2 {chi0:.6e} -> {chi1:.6e}")
+    require(abs(chi1 - chi10) <= 0.02 * chi10,
+            f"config 5 distributed: chi2 {chi1:.6e} vs {chi10:.6e} in "
+            f"process (supernodal, same cap; 2% allowed)")
+    for r in rec["ranks"]:
+        require(r["iters"] == iters > 0 and r["k9c"] == iters
+                and r["k5"] == 2 * iters and r["all_reduce"] == 4 * iters,
+                f"config 5 distributed: rank launches {r} for {iters} "
+                f"iterations (one K9c, two K5, four all-reduces each)")
+    from ndtpu_torch import kernels
+
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    launches["schur_local_assemble"] = int(sum(r["k9c"]
+                                               for r in rec["ranks"]))
+    launches["factor_linearize"] = int(sum(r["k5"] for r in rec["ranks"]))
+    print(f"[smoke] config 5 distributed solve ({card}): 2 ranks on "
+          f"{rec['device']} over gloo, {rec['n_poses']} pose slots, chi2 "
+          f"{chi0:.6e} -> {chi1:.6e} in {iters} iterations (in process "
+          f"{chi10:.6e}); optimize {rec['optimize_s']:.3f} s = "
+          f"{rec['ms_per_iter']:.2f} ms/iter, all-reduce "
+          f"{rec['all_reduce_ms_per_iter']:.2f} ms/iter (warm: "
+          f"{rec['warm_ms_per_iter']:.2f} and "
+          f"{rec['warm_all_reduce_ms_per_iter']:.2f}); solve_s (one step, "
+          f"min of 9) {rec['solve_s']:.4f}, psum_s (8 floats, median of 5) "
+          f"{rec['psum_s']:.5f}; launch_local {wall:.1f} s; ranks "
+          f"{rec['ranks']}")
+    rec["launch_local_s"] = wall
+    return launches, rec
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2813,7 +3446,7 @@ def main(argv=None) -> int:
 
     require((ROOT / "ndtpu_torch").is_dir() and REF_FILE.is_file()
             and REF3_FILE.is_file() and REF4_FILE.is_file()
-            and REF_SERVING_FILE.is_file(),
+            and REF_SERVING_FILE.is_file() and REF5_FILE.is_file(),
             f"run from a checkout of the repository ({ROOT} lacks "
             f"ndtpu_torch/ or the reference files in tests/data)")
     import torch
@@ -2950,8 +3583,18 @@ def main(argv=None) -> int:
     results["halfcell_add_stacked"] = check_k3s(state8, cfg8, jobs)
     results["finalize_pack_stacked"] = check_k4s(state8, cfg8, jobs)
     del state8
+    # Config 5: the merge in process (phase 12), then the distributed solve
+    # of its merged graph in two ranks (phase 13), and K9c on their rows.
+    with tempfile.TemporaryDirectory(prefix="ndtpu_smoke_") as tmp:
+        npz = Path(tmp) / "config5_merged.npz"
+        launches5, merge5, g5, chi10, rows5 = run_merge(dev, card, npz, jobs)
+        results.update(rows5)
+        launches5d, dist5 = run_distributed(dev, card, npz, chi10)
+    results["schur_local_assemble"] = check_k9c(g5, 2, 1e-3, jobs)
+    del g5
     paths = {"config2": launches2, "config3": launches3, "config4": launches4,
-             "serving": launches8}
+             "serving": launches8, "config5": launches5,
+             "config5_dist": launches5d}
     for k in KERNELS:
         for path in k.get("paths", ()):  # K1, K8b run inside lm_ndt there
             require(paths[path][k["name"]] > 0,
@@ -2973,7 +3616,8 @@ def main(argv=None) -> int:
     config4.update(step=step4, ba_solve_ms_per_iter_10k=ba_split)
     print(json.dumps({"kernels": rows, "repeat_runs": repeats,
                       "smoother": smoother, "config4": config4,
-                      "serving": serving}))
+                      "serving": serving,
+                      "config5": {"merge": merge5, "distributed": dist5}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

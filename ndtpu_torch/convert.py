@@ -1,7 +1,8 @@
 """Move state between the JAX package and the port.
 
 ``from_numpy(tree, device)`` takes a JAX-package state (``NDTStats``,
-``KeyframeStore``, ``PoseGraph``, ``SmootherState`` or ``SlamState``, nested
+``NDTMap``, ``KeyframeStore``, ``PoseGraph``, ``SmootherState``,
+``SlamState`` or ``merge.AlignResult``, nested
 as it is there) whose leaves are numpy arrays (or anything ``np.asarray``
 takes) and returns the port's state of the same name on ``device``.
 ``to_numpy(tree)`` goes back: the port's state with numpy leaves, integers
@@ -19,12 +20,14 @@ from ndtpu_torch.graph.factors import PoseGraph
 from ndtpu_torch.graph.incremental import SmootherState
 from ndtpu_torch.ndt.grid import NDTMap, NDTStats
 from ndtpu_torch.slam.keyframes import KeyframeStore
+from ndtpu_torch.slam.merge import AlignResult
 from ndtpu_torch.slam.pipeline import SlamState
 
 __all__ = ["from_numpy", "to_numpy"]
 
 _TYPES = {cls.__name__: cls for cls in (NDTStats, NDTMap, KeyframeStore,
-                                        PoseGraph, SmootherState, SlamState)}
+                                        PoseGraph, SmootherState, SlamState,
+                                        AlignResult)}
 
 
 def _is_state(tree) -> bool:

@@ -16,7 +16,8 @@ step then
    ``schur_reduce``), solves it (``cholesky_ex``), and back-substitutes
    the interiors.
 
-The kernels route by tables the plan builds on the host (:class:`Routes`):
+The kernels route by tables the plan builds on the host
+(``dist.schur.build_routes``, which the distributed solve's K9c shares):
 for every target 3x3 block (and 3-vector) of step 1 the ordered endpoint
 pairs that land there, in pair order; for every separator row of step 3
 the shards whose local sets hold it. One owner sums each target in that
@@ -36,40 +37,16 @@ import torch
 
 from ndtpu_torch import kernels
 from ndtpu_torch.config import SolverConfig
-from ndtpu_torch.dist.schur import (INTERIOR, SEPARATOR, SchurPlan,
+from ndtpu_torch.dist.schur import (INTERIOR, SEPARATOR, Routes, SchurPlan,
                                     _block_ids, _local_blocks, _seg_sum,
-                                    _vec_ids, plan_partition)
+                                    _vec_ids, build_routes, plan_partition)
 from ndtpu_torch.graph import factors as fct
 from ndtpu_torch.graph import solve as slv
 
-__all__ = ["SupernodalPlan", "Routes", "tables_on", "plan_supernodal",
+__all__ = ["SupernodalPlan", "tables_on", "plan_supernodal",
            "supernodal_assemble", "supernodal_assemble_ref", "schur_reduce",
            "schur_reduce_ref", "interior_parts", "separator_solve",
            "back_substitute", "supernodal_delta", "optimize_supernodal"]
-
-
-class Routes:
-    """The kernels' routing tables, built on the host once per plan.
-
-    K9a (one owner per block row: ``P * ni`` interior rows, then ``ns``
-    separator rows): ``row_ptr [R+1]`` into the row's targets, ``tgt_col``
-    (interior rows: ``< ni`` a column of ``h_ii``, else ``ni +`` a local
-    separator column of ``h_is``; separator rows: a column of ``h_ss``),
-    ``tgt_ptr [T+1]`` into ``code`` (``4 f + kind`` for the pairs (i,i),
-    (i,j), (j,i), (j,j) of between factor ``f``, ``4 F + q`` for prior
-    ``q``), ``vec_ptr [R+1]`` into ``vcode`` (``2 f + side``, ``2 F +
-    q``). K9b: ``hold_ptr [ns+1]`` into ``hold_shard``/``hold_loc`` (the
-    shards holding each separator, with its local slot, in shard order) and
-    ``loc_of [P, ns]`` (a separator's local slot in a shard, -1 where not
-    held). The step's gathers: ``gidx``/``gvalid [P, 3nsl]`` (each local
-    separator row's global row) and the live interior and separator rows
-    with their poses. The plan's own arrays stay in the plan
-    (:func:`tables_on` converts both)."""
-
-    def __init__(self, host: dict, n_fac: int, n_pri: int):
-        self.host = host
-        self.n_fac, self.n_pri = n_fac, n_pri   # the graph's factor slots
-        self._on: dict = {}
 
 
 #: The SchurPlan arrays the plain versions and the step read.
@@ -109,93 +86,6 @@ class SupernodalPlan(NamedTuple):
     j_loc_l: np.ndarray    # [P, F]
     p_loc_l: np.ndarray    # [P, Q]
     routes: Routes         # the kernels' tables (the port's own)
-
-
-def _cat(*arrays):
-    return np.concatenate([np.asarray(a).reshape(-1) for a in arrays])
-
-
-def _csr(keys, n_rows):
-    """``(order, row_ptr)``: a stable sort of ``keys`` and each row's
-    start in it."""
-    order = np.argsort(keys, kind="stable")
-    ptr = np.zeros(n_rows + 1, np.int64)
-    np.cumsum(np.bincount(keys, minlength=n_rows), out=ptr[1:])
-    return order, ptr
-
-
-def _routes(sp: SchurPlan, ns_loc, ls_global, ls_mask, i_loc_l, j_loc_l,
-            p_loc_l, n_fac: int, n_pri: int) -> Routes:
-    p_dim, fmax = sp.fac_idx.shape
-    pmax = sp.pri_idx.shape[1]
-    ni, ns = sp.ni, sp.ns
-    n_int = p_dim * ni
-    shard_f = np.repeat(np.arange(p_dim), fmax)
-    shard_q = np.repeat(np.arange(p_dim), pmax)
-    f = sp.fac_idx.reshape(-1).astype(np.int64)
-    q = sp.pri_idx.reshape(-1).astype(np.int64)
-
-    # K9a: the ordered endpoint pairs in the reference's order (i,i), (i,j),
-    # (j,i), (j,j), (p,p), each class routed to its owner row and column.
-    ra = _cat(sp.i_role, sp.i_role, sp.j_role, sp.j_role, sp.p_role)
-    la = _cat(sp.i_loc, sp.i_loc, sp.j_loc, sp.j_loc, sp.p_loc)
-    rb = _cat(sp.i_role, sp.j_role, sp.i_role, sp.j_role, sp.p_role)
-    lb = _cat(sp.i_loc, sp.j_loc, sp.i_loc, sp.j_loc, sp.p_loc)
-    lb_l = _cat(i_loc_l, j_loc_l, i_loc_l, j_loc_l, p_loc_l)
-    shard = _cat(shard_f, shard_f, shard_f, shard_f, shard_q)
-    valid = _cat(sp.fac_mask, sp.fac_mask, sp.fac_mask, sp.fac_mask,
-                 sp.pri_mask)
-    code = _cat(4 * f, 4 * f + 1, 4 * f + 2, 4 * f + 3, 4 * n_fac + q)
-    ii = valid & (ra == INTERIOR) & (rb == INTERIOR)
-    is_ = valid & (ra == INTERIOR) & (rb == SEPARATOR)
-    ss = valid & (ra == SEPARATOR) & (rb == SEPARATOR)
-    keep = ii | is_ | ss
-    row = np.where(ss, n_int + la, shard * ni + la)[keep].astype(np.int64)
-    col = np.where(is_, ni + lb_l, lb)[keep].astype(np.int64)
-    key = row * (ni + ns_loc + ns) + col
-    order = np.argsort(key, kind="stable")
-    key = key[order]
-    first = np.ones(len(key), bool)
-    first[1:] = key[1:] != key[:-1]
-    starts = np.nonzero(first)[0]
-    tgt_row = row[order][starts]
-    _, row_ptr = _csr(tgt_row, n_int + ns)
-    tgt_ptr = np.append(starts, len(key))
-
-    # The right-hand side: one A^T r per factor endpoint (i, j, p).
-    rv = _cat(sp.i_role, sp.j_role, sp.p_role)
-    lv = _cat(sp.i_loc, sp.j_loc, sp.p_loc)
-    vshard = _cat(shard_f, shard_f, shard_q)
-    vvalid = _cat(sp.fac_mask, sp.fac_mask, sp.pri_mask)
-    vcode = _cat(2 * f, 2 * f + 1, 2 * n_fac + q)
-    vrow = np.where(rv == SEPARATOR, n_int + lv, vshard * ni + lv)[vvalid]
-    vorder, vec_ptr = _csr(vrow.astype(np.int64), n_int + ns)
-
-    # K9b: the shards holding each separator, in shard order.
-    hs, hk = np.nonzero(ls_mask)
-    hg = ls_global[hs, hk].astype(np.int64)
-    horder, hold_ptr = _csr(hg, ns)
-    loc_of = np.full((p_dim, ns), -1, np.int32)
-    loc_of[hs, hg] = hk
-
-    # The step's gathers.
-    nsl3 = 3 * ns_loc
-    gidx = (ls_global[:, :, None].astype(np.int64) * 3
-            + np.arange(3)).reshape(p_dim, nsl3)
-    int_rows = np.nonzero(sp.int_mask.reshape(-1))[0]
-    sep_rows = np.nonzero(sp.sep_mask)[0]
-    i32 = lambda a: np.ascontiguousarray(a, np.int32)
-    i64 = lambda a: np.ascontiguousarray(a, np.int64)
-    return Routes(dict(
-        row_ptr=i32(row_ptr), tgt_col=i32(col[order][starts]),
-        tgt_ptr=i32(tgt_ptr), code=i32(code[keep][order]),
-        vec_ptr=i32(vec_ptr), vcode=i32(vcode[vvalid][vorder]),
-        hold_ptr=i32(hold_ptr), hold_shard=i32(hs[horder]),
-        hold_loc=i32(hk[horder]), loc_of=loc_of, gidx=gidx,
-        gvalid=np.repeat(ls_mask, 3, axis=1),
-        int_rows=int_rows, int_pose=i64(sp.int_global.reshape(-1)[int_rows]),
-        sep_rows=sep_rows, sep_pose=i64(sp.sep_global[sep_rows])),
-        n_fac=n_fac, n_pri=n_pri)
 
 
 def plan_supernodal(graph: fct.PoseGraph, n_shards: int,
@@ -276,7 +166,7 @@ def plan_supernodal(graph: fct.PoseGraph, n_shards: int,
     # straight into the unpermuted delta.
     plan = plan._replace(int_global=perm[plan.int_global].astype(np.int32),
                          sep_global=perm[plan.sep_global].astype(np.int32))
-    routes = _routes(plan, ns_loc, ls_global, ls_mask, i_loc_l, j_loc_l,
+    routes = build_routes(plan, ns_loc, ls_global, ls_mask, i_loc_l, j_loc_l,
                      p_loc_l, bet_i.shape[0], graph.prior_idx.shape[0])
     return SupernodalPlan(schur=plan, perm=np.asarray(perm),
                           n_shards=n_shards, ns_loc=ns_loc,

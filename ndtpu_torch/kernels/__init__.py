@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Fifteen kernels carry the windowed pipeline with loop closure, the
-pose-graph smoother, the large-graph supernodal solve and stacked
-multi-session serving (ROADMAP Queue B):
+Seventeen kernels carry the windowed pipeline with loop closure, the
+pose-graph smoother, the large-graph supernodal solve, stacked
+multi-session serving and config 5's merge and distributed solve (ROADMAP
+Queue B):
 
 ============ =============================== =================================
 name         source                          replaces (JAX, lowered by XLA)
@@ -42,6 +43,15 @@ assemble
 schur_reduce ``csrc/supernodal.cu`` (K9b)    ``supernodal.supernodal_delta``'s
                                              separator segment sums and
                                              damping
+schur_local_ ``csrc/supernodal.cu`` (K9c)    ``dist/schur.py::
+assemble                                     _schur_delta_local``'s
+                                             ``assemble_local_parts`` and
+                                             interior damping, per rank
+ndt_sgh_     ``csrc/ndt_unpacked.cu`` (K12)  ``vmap(match.score_grad_hess)``
+unpacked                                     over poses (``grid.lookup`` +
+                                             ``match.point_terms``), as
+                                             ``merge.global_align`` ranks
+                                             its hypotheses
 ============ =============================== =================================
 
 K5, K6 and K7b share the pose graph's arithmetic, ``csrc/pose_graph.cuh``
@@ -110,7 +120,8 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "finalize_pack_stacked", "local_bands", "local_tables",
            "loop_gate", "factor_linearize", "fresh_residual_max",
            "pcg_solve", "pcg_solve_blocked", "local_select",
-           "local_assemble", "supernodal_assemble", "schur_reduce"]
+           "local_assemble", "supernodal_assemble", "schur_reduce",
+           "schur_local_assemble", "ndt_sgh_unpacked"]
 
 #: Launch counts per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
@@ -119,7 +130,8 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "finalize_pack_stacked": 0, "local_tables": 0, "loop_gate": 0,
             "loop_gate_fused": 0, "factor_linearize": 0, "pcg_solve": 0,
             "pcg_solve_blocked": 0, "local_select": 0, "local_assemble": 0,
-            "supernodal_assemble": 0, "schur_reduce": 0}
+            "supernodal_assemble": 0, "schur_reduce": 0,
+            "schur_local_assemble": 0, "ndt_sgh_unpacked": 0}
 
 #: Shared memory one block can have on Hopper (227 KB), and what it gets
 #: without ``cudaFuncSetAttribute`` (48 KB).
@@ -164,6 +176,9 @@ _SIGNATURES = {
     "supernodal_assemble_launch": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 4
                                   + [_P] * 6,
     "schur_reduce_launch": [_P] * 9 + [_F, _I, _I, _P, _P, _P],
+    "schur_local_assemble_launch": [_P] * 5 + [_I] + [_P] * 7
+                                   + [_F, _I, _I] + [_P] * 6,
+    "ndt_sgh_unpacked_launch": [_P] * 7 + [_I] * 4 + [_F] * 5 + [_P],
 }
 
 
@@ -931,7 +946,7 @@ def supernodal_assemble(ai, aj, r, ap, rp, row_ptr, tgt_col, tgt_ptr, code,
     """K9a: the partitioned normal equations ``(h_ii [P, 3ni, 3ni], h_is
     [P, 3ni, 3nsl], h_ss [3ns, 3ns], b_i [P, 3ni], b_s [3ns])`` from K5's
     blocks, routed by the plan's int32 tables (see ``csrc/supernodal.cu``
-    and ``graph.supernodal.Routes``). One allocation holds all five."""
+    and ``dist.schur.Routes``). One allocation holds all five."""
     f, q = ai.shape[0], ap.shape[0]
     rows = n_shards * ni + ns
     _check(ai, "ai", shape=(f, 3, 3))
@@ -988,3 +1003,68 @@ def schur_reduce(s_part, rhs_part, h_ss, b_s, hold_ptr, hold_shard, hold_loc,
           loc_of.data_ptr(), sep_mask.data_ptr(), float(lam), nsl, ns,
           s_tot.data_ptr(), rhs_tot.data_ptr(), _stream(s_part))
     return s_tot, rhs_tot
+
+
+def schur_local_assemble(ai, aj, r, ap, rp, row_ptr, tgt_col, tgt_ptr, code,
+                         vec_ptr, vcode, int_mask, lam: float, ni: int,
+                         ns: int):
+    """K9c: one rank's parts of the distributed Schur step, ``(h_ii [3ni,
+    3ni]`` damped by ``lam`` (dead slots get 1 on the diagonal), ``h_is
+    [3ni, 3ns], h_ss [3ns, 3ns], b_i [3ni], b_s [3ns])``, from the rank's
+    K5 rows, routed by its one-shard tables (see ``csrc/supernodal.cu`` and
+    ``dist.schur.rank_routes``). One allocation holds all five."""
+    f, q = ai.shape[0], ap.shape[0]
+    _check(ai, "ai", shape=(f, 3, 3))
+    _check(aj, "aj", shape=(f, 3, 3))
+    _check(r, "r", shape=(f, 3))
+    _check(ap, "ap", shape=(q, 3, 3))
+    _check(rp, "rp", shape=(q, 3))
+    _check(row_ptr, "row_ptr", dtype=torch.int32, shape=(ni + ns + 1,))
+    _check(vec_ptr, "vec_ptr", dtype=torch.int32, shape=(ni + ns + 1,))
+    n_tgt = tgt_col.shape[0]
+    _check(tgt_col, "tgt_col", dtype=torch.int32, shape=(n_tgt,))
+    _check(tgt_ptr, "tgt_ptr", dtype=torch.int32, shape=(n_tgt + 1,))
+    _check(code, "code", dtype=torch.int32, shape=(code.shape[0],))
+    _check(vcode, "vcode", dtype=torch.int32, shape=(vcode.shape[0],))
+    _check(int_mask, "int_mask", dtype=torch.bool, shape=(ni,), align=1)
+    sizes = [9 * ni * ni, 9 * ni * ns, 9 * ns * ns, 3 * ni, 3 * ns]
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=ai.device)
+    h_ii, h_is, h_ss, b_i, b_s = torch.split(out, sizes)
+    _call("schur_local_assemble_launch", "schur_local_assemble",
+          ai.data_ptr(), aj.data_ptr(), r.data_ptr(), ap.data_ptr(),
+          rp.data_ptr(), f, row_ptr.data_ptr(), tgt_col.data_ptr(),
+          tgt_ptr.data_ptr(), code.data_ptr(), vec_ptr.data_ptr(),
+          vcode.data_ptr(), int_mask.data_ptr(), float(lam), ni, ns,
+          h_ii.data_ptr(), h_is.data_ptr(), h_ss.data_ptr(), b_i.data_ptr(),
+          b_s.data_ptr(), _stream(ai))
+    return (h_ii.view(3 * ni, 3 * ni), h_is.view(3 * ni, 3 * ns),
+            h_ss.view(3 * ns, 3 * ns), b_i, b_s)
+
+
+def ndt_sgh_unpacked(poses, points, mask_f, mean, icov, valid, grid,
+                     d2: float, exp_clip: float):
+    """K12: the NDT terms of one scan ``points [N, 2]`` (``mask_f [N]``
+    f32) at every pose of ``poses [B, 3]`` on an unpacked overlap-4 map
+    (``mean [4, C, 2]``, ``icov [4, C, 2, 2]``, ``valid [4, C]``), one block
+    per pose (see ``csrc/ndt_unpacked.cu``). Returns ``(f [B], g [B, 3],
+    H [B, 3, 3], score [B])``, views of one ``[B, 14]`` allocation."""
+    if grid.overlap != 4:
+        raise NotImplementedError(
+            "K12 takes overlap=4 maps only; overlap=1 on the card is ROADMAP "
+            "Queue B (B8)")
+    c = grid.n_cells
+    b, n = poses.shape[0], points.shape[0]
+    _check(poses, "poses", shape=(b, 3))
+    _check(points, "points", shape=(n, 2), align=8)
+    _check(mask_f, "mask", shape=(n,))
+    _check(mean, "mean", shape=(4, c, 2), align=8)
+    _check(icov, "icov", shape=(4, c, 2, 2), align=16)
+    _check(valid, "valid", shape=(4, c))
+    out = torch.empty((b, 14), dtype=torch.float32, device=poses.device)
+    if b > 0:
+        _call("ndt_sgh_unpacked_launch", "ndt_sgh_unpacked",
+              poses.data_ptr(), points.data_ptr(), mask_f.data_ptr(),
+              mean.data_ptr(), icov.data_ptr(), valid.data_ptr(),
+              out.data_ptr(), b, n, grid.nx, grid.ny, grid.x0, grid.y0,
+              grid.cell, d2, exp_clip, _stream(poses))
+    return out[:, 0], out[:, 1:4], out[:, 4:13].view(b, 3, 3), out[:, 13]

@@ -1,6 +1,7 @@
 // Device code shared by K1 (ndt_terms.cu) and lm_ndt (lm_ndt.cu): one
 // lane's 11 NDT sums at one pose, over the lane's beams, reduced over the
-// block.
+// block. K12 (ndt_unpacked.cu) reuses the per-Gaussian body and the block
+// reduction on its own gather.
 //
 // Port of what ndtpu/ndt/match.py::match_batch_packed.make_sgh (:433-450)
 // evaluates for one lane: the lane transform, the quad-row gather of
@@ -32,6 +33,66 @@ namespace ndtpu {
 
 constexpr int kNdtThreads = 128;   // threads per lane (block)
 constexpr int kNdtSums = 11;
+
+// One Gaussian's contribution to the 11 sums at a transformed beam: the
+// beam (x, y) in the world, its phi-derivative (dpx, dpy) and offset (rx,
+// ry) from the pose's translation; the Gaussian's mean, its inverse
+// covariance's unique entries and weight w0 (valid x mask). nh = -d2 / 2.
+// Shared by the quad-row gather below and K12's unpacked-map gather
+// (ndt_unpacked.cu).
+__device__ __forceinline__ void ndt_add_terms(
+    float* acc, float x, float y, float dpx, float dpy, float rx, float ry,
+    float mx, float my, float i00, float i01, float i11, float w0, float d2,
+    float nh, float exp_clip) {
+  const float dx = x - mx;
+  const float dy = y - my;
+  const float qx = i00 * dx + i01 * dy;
+  const float qy = i01 * dx + i11 * dy;
+  const float l2 = fmaxf(dx * qx + dy * qy, 0.f);
+  const float e = expf(nh * fminf(l2, exp_clip));
+  const float w = w0 * e;
+  const float a3 = qx * dpx + qy * dpy;
+  const float ldx = i00 * dpx + i01 * dpy;
+  const float ldy = i01 * dpx + i11 * dpy;
+  const float j33 = dpx * ldx + dpy * ldy;
+  const float hpp = -(qx * rx + qy * ry);
+  acc[0] += w;
+  acc[1] += w0;
+  acc[2] += w * qx;
+  acc[3] += w * qy;
+  acc[4] += w * a3;
+  acc[5] += w * (i00 - d2 * qx * qx);
+  acc[6] += w * (i01 - d2 * qx * qy);
+  acc[7] += w * (ldx - d2 * qx * a3);
+  acc[8] += w * (i11 - d2 * qy * qy);
+  acc[9] += w * (ldy - d2 * qy * a3);
+  acc[10] += w * (j33 + hpp - d2 * a3 * a3);
+}
+
+// Each thread's 11 sums reduced over the block (kNdtThreads threads) in a
+// fixed order: warp shuffles, then the warps' partials in warp order. part
+// is kNdtThreads / 32 x kNdtSums floats of shared memory, free on entry.
+// Thread k < kNdtSums gets sum k back, the others 0.
+__device__ __forceinline__ float ndt_block_sums(const float* acc,
+                                                float (*part)[kNdtSums]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kNdtSums; ++k) {
+    float v = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) part[warp][k] = v;
+  }
+  __syncthreads();
+  float v = 0.f;
+  if (threadIdx.x < kNdtSums) {
+#pragma unroll
+    for (int w = 0; w < kNdtThreads / 32; ++w) v += part[w][threadIdx.x];
+  }
+  return v;
+}
 
 // The lane's 11 sums at pose (tx, ty, phi). px, py, mask hold the lane's n
 // sensor-frame beams (device or shared memory); table is the lane's
@@ -70,51 +131,11 @@ __device__ __forceinline__ float ndt_lane_sums(
     for (int g = 0; g < 4; ++g) {
       const float4 p = __ldg(row + 2 * g);      // mu_x, mu_y, i00, i01
       const float4 q = __ldg(row + 2 * g + 1);  // i11, valid, 0, 0
-      const float i00 = p.z, i01 = p.w, i11 = q.x;
-      const float dx = x - p.x;
-      const float dy = y - p.y;
-      const float qx = i00 * dx + i01 * dy;
-      const float qy = i01 * dx + i11 * dy;
-      const float l2 = fmaxf(dx * qx + dy * qy, 0.f);
-      const float e = expf(nh * fminf(l2, exp_clip));
-      const float w0 = q.y * m;
-      const float w = w0 * e;
-      const float a3 = qx * dpx + qy * dpy;
-      const float ldx = i00 * dpx + i01 * dpy;
-      const float ldy = i01 * dpx + i11 * dpy;
-      const float j33 = dpx * ldx + dpy * ldy;
-      const float hpp = -(qx * rx + qy * ry);
-      acc[0] += w;
-      acc[1] += w0;
-      acc[2] += w * qx;
-      acc[3] += w * qy;
-      acc[4] += w * a3;
-      acc[5] += w * (i00 - d2 * qx * qx);
-      acc[6] += w * (i01 - d2 * qx * qy);
-      acc[7] += w * (ldx - d2 * qx * a3);
-      acc[8] += w * (i11 - d2 * qy * qy);
-      acc[9] += w * (ldy - d2 * qy * a3);
-      acc[10] += w * (j33 + hpp - d2 * a3 * a3);
+      ndt_add_terms(acc, x, y, dpx, dpy, rx, ry, p.x, p.y, p.z, p.w, q.x,
+                    q.y * m, d2, nh, exp_clip);
     }
   }
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kNdtSums; ++k) {
-    float v = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) part[warp][k] = v;
-  }
-  __syncthreads();
-  float v = 0.f;
-  if (threadIdx.x < kNdtSums) {
-#pragma unroll
-    for (int w = 0; w < kNdtThreads / 32; ++w) v += part[w][threadIdx.x];
-  }
-  return v;
+  return ndt_block_sums(acc, part);
 }
 
 }  // namespace ndtpu

@@ -1,5 +1,5 @@
 // The supernodal solve's two routed sums (config 4), on tables that the
-// host builds once per topology (ndtpu_torch/graph/supernodal.py::Routes).
+// host builds once per topology (ndtpu_torch/dist/schur.py::Routes).
 //
 // K9a supernodal_assemble replaces ndtpu/graph/supernodal.py::
 // _assemble_parts (:158): every ordered endpoint pair (i,i), (i,j), (j,i),
@@ -25,6 +25,17 @@
 // row's holders in shard order, the column's local slot from a [P, ns]
 // map), then subtracts from h_ss. Bound: bytes (h_ss and the parts read,
 // s_tot written, ~28 MB at 10k poses).
+//
+// K9c schur_local_assemble is K9a's body for one rank of the distributed
+// Schur solve (ndtpu/dist/schur.py::_schur_delta_local, :386, with
+// assemble_local_parts, :318, and the interior damping after it, :397-400):
+// one shard (P = 1) whose h_is spans all ns separators (every rank holds
+// the whole separator set), the rank's own K5 rows in its local factor
+// slots, routed by the one-shard tables of ndtpu_torch/dist/schur.py::
+// rank_routes. Under kDamp each interior row's owner then adds lam *
+// max(|h_ii[d, d]|, 1e-8) + (1 - live) to its three diagonal entries, as
+// the reference damps h_ii before the interior Cholesky. Bound: bytes, the
+// zero fill of h_ii [3ni, 3ni] (37.7 MB at ni = 1,024) and h_is.
 //
 // Arithmetic as the plain versions write it (pose_graph.cuh's mtm3/mtv3;
 // --fmad=false), sums in a fixed order.
@@ -53,6 +64,8 @@ struct AssembleArgs {
   const int* vec_ptr;  // [R + 1] endpoints of each block row
   const int* vcode;    // [Kb] 2 f + side, or 2 F + q
   int n_shards, ni, nsl, ns;
+  const uint8_t* int_mask;  // [P * ni] live interior slots (K9c)
+  float lam;                // interior damping (K9c)
   float* h_ii;
   float* h_is;
   float* h_ss;
@@ -91,6 +104,7 @@ __device__ __forceinline__ void endpoint(const AssembleArgs& a, int c,
   *res = a.r + 3 * (size_t)f;
 }
 
+template <bool kDamp>
 __global__ void __launch_bounds__(kAsmThreads)
 supernodal_assemble_kernel(AssembleArgs a) {
   const int row = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
@@ -147,6 +161,15 @@ supernodal_assemble_kernel(AssembleArgs a) {
     for (int p = 0; p < 3; ++p)
 #pragma unroll
       for (int q = 0; q < 3; ++q) dst[(size_t)p * width + q] = acc[3 * p + q];
+  }
+  if (kDamp && interior) {
+    __syncthreads();   // the diagonal block's owner has written it
+    if (tid < 3) {
+      float* d = main_rows + (size_t)tid * w_main + 3 * (row % a.ni) + tid;
+      const float hv = *d;
+      const float dead = 1.f - (a.int_mask[row] ? 1.f : 0.f);
+      *d = hv + (a.lam * ndtpu::pg::nanmax(fabsf(hv), 1e-8f) + dead);
+    }
   }
 }
 
@@ -214,10 +237,30 @@ extern "C" int supernodal_assemble_launch(
                        (const int*)row_ptr, (const int*)tgt_col,
                        (const int*)tgt_ptr, (const int*)code,
                        (const int*)vec_ptr, (const int*)vcode, n_shards, ni,
-                       nsl, ns, (float*)h_ii, (float*)h_is, (float*)h_ss,
-                       (float*)b_i, (float*)b_s};
-  supernodal_assemble_kernel<<<n_shards * ni + ns, kAsmThreads, 0,
-                               (cudaStream_t)stream>>>(a);
+                       nsl, ns, nullptr, 0.f, (float*)h_ii, (float*)h_is,
+                       (float*)h_ss, (float*)b_i, (float*)b_s};
+  supernodal_assemble_kernel<false><<<n_shards * ni + ns, kAsmThreads, 0,
+                                      (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int schur_local_assemble_launch(
+    const void* ai, const void* aj, const void* r, const void* ap,
+    const void* rp, int n_fac, const void* row_ptr, const void* tgt_col,
+    const void* tgt_ptr, const void* code, const void* vec_ptr,
+    const void* vcode, const void* int_mask, float lam, int ni, int ns,
+    void* h_ii, void* h_is, void* h_ss, void* b_i, void* b_s,
+    void* stream) {
+  if (n_fac < 0 || ni < 1 || ns < 1) return (int)cudaErrorInvalidValue;
+  const AssembleArgs a{(const float*)ai, (const float*)aj, (const float*)r,
+                       (const float*)ap, (const float*)rp, n_fac,
+                       (const int*)row_ptr, (const int*)tgt_col,
+                       (const int*)tgt_ptr, (const int*)code,
+                       (const int*)vec_ptr, (const int*)vcode, 1, ni, ns, ns,
+                       (const uint8_t*)int_mask, lam, (float*)h_ii,
+                       (float*)h_is, (float*)h_ss, (float*)b_i, (float*)b_s};
+  supernodal_assemble_kernel<true><<<ni + ns, kAsmThreads, 0,
+                                     (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

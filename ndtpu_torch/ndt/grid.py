@@ -37,7 +37,7 @@ from ndtpu_torch import kernels
 from ndtpu_torch.config import GridConfig, NDTMapConfig
 
 __all__ = ["NDTStats", "NDTMap", "cell_ids", "empty_stats", "add_points",
-           "build_stats", "finalize", "pack_quad", "lookup_quad",
+           "build_stats", "finalize", "pack_quad", "lookup", "lookup_quad",
            "lookup_quad_multi", "lookup_quad_grouped", "unpack_bf16_pair",
            "halfcell_add", "halfcell_add_ref", "halfcell_add_fixed_ref",
            "finalize_pack", "finalize_pack_ref", "add_points_stacked",
@@ -273,6 +273,18 @@ def finalize(stats: NDTStats, cfg: NDTMapConfig) -> NDTMap:
             + v2[..., :, None] * v2[..., None, :] / lmin[..., None, None])
     valid = (n >= cfg.min_pts).to(mean.dtype)
     return NDTMap(mean=mean, icov=icov, valid=valid)
+
+
+def lookup(ndt_map: NDTMap, points, grid: GridConfig):
+    """Per-point Gaussians of every overlap grid for world points ``[..., N,
+    2]``: ``(mean [..., G, N, 2], icov [..., G, N, 2, 2], w [..., G, N])``,
+    ``w`` = valid x in-bounds. The plain gather of K12 (``ndt.match.
+    score_grad_hess_batch``), which reads the unpacked map the same way."""
+    ids, inb = cell_ids(points, grid)                       # [..., G, N]
+    g = torch.arange(grid.overlap, device=ids.device)[:, None]
+    mean = ndt_map.mean[g, ids]
+    icov = ndt_map.icov[g, ids]
+    return mean, icov, ndt_map.valid[g, ids] * inb.to(points.dtype)
 
 
 def _quad_lattice(grid: GridConfig):

@@ -25,6 +25,13 @@ orders ties by lane index exactly as ``top_k`` does; a lane counts as
 pending only while it is under the iteration cap (JAX's form never ends
 when more than ``phase2_width`` lanes stop at the cap unconverged).
 ``_SYNC_EVERY`` and the compaction are the twin's alone.
+
+The terms on an unpacked map (``point_terms``, ``score_grad_hess``, with
+``ndt.grid.lookup``) are the reference's per-pose objective; config 5's
+alignment evaluates one scan at thousands of poses through
+:func:`score_grad_hess_batch`, which sends CUDA tensors to K12
+(``csrc/ndt_unpacked.cu``, one launch) and CPU tensors to
+:func:`score_grad_hess_batch_ref`.
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ from ndtpu_torch import kernels
 from ndtpu_torch.config import GridConfig, MatchConfig
 from ndtpu_torch.ndt import grid as ndt_grid
 
-__all__ = ["MatchResult", "transform_terms", "point_terms_quad", "solve3",
+__all__ = ["MatchResult", "transform_terms", "point_terms", "score_grad_hess",
+           "score_grad_hess_batch", "score_grad_hess_batch_ref",
+           "point_terms_quad", "solve3",
            "lm_loop_batch", "match", "match_batch", "match_batch_packed",
            "match_batch_packed_gated", "ndt_terms", "ndt_terms_ref",
            "terms_sgh", "lm_ndt", "lm_ndt_ref", "CALLS"]
@@ -66,6 +75,89 @@ def transform_terms(pose, points):
                      -1)
     dxdphi = torch.stack([-s * px - c * py, c * px - s * py], -1)
     return xw, dxdphi
+
+
+def point_terms(pose, xw, dxdphi, mean, icov, w0, cfg: MatchConfig):
+    """Per-point NDT objective terms on gathered Gaussians, reduced over
+    grids and points: ``(f, g [3], H [3, 3], wsum, w0sum)``. ``pose [...,
+    3]``, ``xw``/``dxdphi [..., N, 2]``, ``mean [..., G, N, 2]``, ``icov
+    [..., G, N, 2, 2]``, ``w0 [..., G, N]``; leading axes batch poses."""
+    d2 = cfg.d2
+    d = xw[..., None, :, :] - mean                        # [..., G, N, 2]
+    q = torch.einsum("...gnij,...gnj->...gni", icov, d)
+    l2 = torch.sum(d * q, -1)
+    e = torch.exp(-0.5 * d2 * torch.clamp(l2, 0.0, cfg.exp_clip))
+    w = w0 * e
+    dp = dxdphi[..., None, :, :]
+    a3 = torch.sum(q * dp, -1)
+    a = torch.stack([q[..., 0], q[..., 1], a3], -1)       # [..., G, N, 3]
+    g = d2 * torch.einsum("...gn,...gnk->...k", w, a)
+    ld = torch.einsum("...gnij,...gnj->...gni", icov, dp.expand_as(d))
+    j33 = torch.sum(dp * ld, -1)
+    jlj = torch.stack([
+        torch.stack([icov[..., 0, 0], icov[..., 0, 1], ld[..., 0]], -1),
+        torch.stack([icov[..., 0, 1], icov[..., 1, 1], ld[..., 1]], -1),
+        torch.stack([ld[..., 0], ld[..., 1], j33], -1)], -2)
+    rel = xw - pose[..., None, :2]                        # [..., N, 2]
+    hpp = -torch.sum(q * rel[..., None, :, :], -1)
+    jlj[..., 2, 2] += hpp                                 # + hpp * e33
+    h_pt = jlj - d2 * a[..., :, None] * a[..., None, :]
+    h = d2 * torch.einsum("...gn,...gnkl->...kl", w, h_pt)
+    wsum = torch.sum(w, (-2, -1))
+    return -wsum, g, h, wsum, torch.sum(w0, (-2, -1))
+
+
+def score_grad_hess(pose, points, mask, ndt_map: ndt_grid.NDTMap,
+                    grid: GridConfig, cfg: MatchConfig):
+    """NDT objective, gradient, Hessian and mean score at ``pose [..., 3]``
+    of a scan ``points [N, 2]`` (sensor frame), ``mask [N]``, on an
+    unpacked map: ``(f, g [..., 3], H [..., 3, 3], score)``."""
+    dt = points.dtype
+    c = torch.cos(pose[..., 2])[..., None]
+    s = torch.sin(pose[..., 2])[..., None]
+    px, py = points[..., 0], points[..., 1]
+    xw = torch.stack([c * px - s * py + pose[..., 0, None],
+                      s * px + c * py + pose[..., 1, None]], -1)
+    dxdphi = torch.stack([-s * px - c * py, c * px - s * py], -1)
+    mean, icov, w0 = ndt_grid.lookup(ndt_map, xw, grid)
+    w0 = w0 * mask.to(dt)[..., None, :]
+    f, g, h, wsum, w0sum = point_terms(pose, xw, dxdphi, mean, icov, w0, cfg)
+    return f, g, h, wsum / torch.clamp(w0sum, min=1.0)
+
+
+#: Poses per chunk of :func:`score_grad_hess_batch_ref` (bounds its
+#: ``[B, G, N, 3, 3]`` intermediates).
+_SGH_CHUNK = 512
+
+
+def score_grad_hess_batch_ref(poses, points, mask, ndt_map: ndt_grid.NDTMap,
+                              grid: GridConfig, cfg: MatchConfig):
+    """Plain version of K12: :func:`score_grad_hess` at every pose of
+    ``poses [B, 3]`` for one shared scan ``points [N, 2]``, ``mask [N]``
+    (JAX's ``vmap(score_grad_hess)`` over poses, as ``merge.global_align``
+    calls it): ``(f [B], g [B, 3], H [B, 3, 3], score [B])``."""
+    outs = [score_grad_hess(poses[i:i + _SGH_CHUNK], points, mask, ndt_map,
+                            grid, cfg)
+            for i in range(0, poses.shape[0], _SGH_CHUNK)]
+    if not outs:
+        return score_grad_hess(poses, points, mask, ndt_map, grid, cfg)
+    return tuple(torch.cat(x) for x in zip(*outs))
+
+
+def score_grad_hess_batch(poses, points, mask, ndt_map: ndt_grid.NDTMap,
+                          grid: GridConfig, cfg: MatchConfig):
+    """K12 wrapper: the NDT terms of one scan at B poses on an unpacked map.
+    CUDA tensors go to the kernel (``csrc/ndt_unpacked.cu``: one block per
+    pose, the scan read once per block, sums in a fixed order; f32), CPU
+    tensors to :func:`score_grad_hess_batch_ref`."""
+    if not points.is_cuda:
+        return score_grad_hess_batch_ref(poses, points, mask, ndt_map, grid,
+                                         cfg)
+    return kernels.ndt_sgh_unpacked(
+        poses.contiguous(), points.contiguous(),
+        mask.to(points.dtype).contiguous(), ndt_map.mean.contiguous(),
+        ndt_map.icov.contiguous(), ndt_map.valid.contiguous(), grid, cfg.d2,
+        cfg.exp_clip)
 
 
 def _quad_sums(poses, x, y, dpx, dpy, rows, w_mask, d2: float, exp_clip: float,

@@ -5,7 +5,9 @@ smoother's K5 factor_linearize, K6 pcg_solve, K7a local_select and K7b
 local_assemble, also through incremental_update, and config 4's K9a
 supernodal_assemble and K9b schur_reduce, also through one supernodal
 step, and stacked serving's K6b pcg_solve_blocked, K3s halfcell_add_stacked
-and K4s finalize_pack_stacked) against their plain twins, on the card; K3 also against the plain model of its
+and K4s finalize_pack_stacked, and config 5's K12 ndt_sgh_unpacked and
+K9c schur_local_assemble, also through a one-rank optimize_schur) against
+their plain twins, on the card; K3 also against the plain model of its
 fixed-point arithmetic, bit for bit, K3, K4 and K8a for the same result on
 every launch (K3 and K8a also under any order of the points), and the
 gated verify bit for bit against lm_ndt_grouped followed by the
@@ -821,6 +823,110 @@ def test_stacked_kernels_refuse_cpu_tensors():
     calls = [
         lambda: kernels.halfcell_add_stacked(*stats8, pts, msk, 1.0, GRID),
         lambda: kernels.finalize_pack_stacked(*stats8, NDT, GRID),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            call()
+
+
+def test_ndt_sgh_unpacked_matches_plain_and_repeats(dev):
+    """K12 against its plain version in f32 on the card (rtol 1e-5 of each
+    output's max), bit-identical on a second launch, and against its f64
+    plain version on the CPU with the beams whose cell differs between f32
+    and f64 masked (each such beam within ``K12_EDGE_EPS`` of a cell edge,
+    rtol ``K12_F64_RTOL``; ``chip_smoke.check_k12``), at 1,024 poses over
+    a seeded map; a wholly masked scan and poses far off the map give zero
+    terms."""
+    import chip_smoke as cs
+    from ndtpu_torch.config import MatchConfig
+
+    ndt_map = tgrid.finalize(_stats(dev), NDT)
+    pts, mask = _points(3, 360, dev)
+    rng = np.random.default_rng(4)
+    poses = torch.as_tensor(np.stack([rng.uniform(-2, 2, 1024),
+                                      rng.uniform(-2, 2, 1024),
+                                      rng.uniform(-np.pi, np.pi, 1024)], -1),
+                            dtype=torch.float32, device=dev)
+    kernels.reset_launches()
+    cs.check_k12("test", poses, pts, mask, ndt_map, GRID, MatchConfig(),
+                 jobs=[])
+    assert kernels.LAUNCHES["ndt_sgh_unpacked"] >= 2
+    off = poses[:8] + torch.tensor([500.0, 0.0, 0.0], device=dev)
+    for p, m in ((off, mask), (poses[:8], torch.zeros_like(mask))):
+        f, g, h, score = tmatch.score_grad_hess_batch(p, pts, m, ndt_map,
+                                                      GRID, MatchConfig())
+        for x in (f, g, h, score):
+            assert bool((x == 0).all())
+
+
+def test_schur_local_assemble_matches_plain_and_repeats(dev):
+    """K9c on both ranks' rows of a 600-pose Manhattan graph split in two
+    against its plain version in f32 on the card and in f64 on the CPU,
+    bit-identical on a second launch (``chip_smoke.check_k9c``)."""
+    import chip_smoke as cs
+    from ndtpu_torch.data import g2o
+
+    g = g2o.to_graph(g2o.manhattan_world(600, seed=1, loop_prob=0.2),
+                     torch.float32, device=dev)
+    kernels.reset_launches()
+    cs.check_k9c(g, 2, 1e-3, jobs=[])
+    assert kernels.LAUNCHES["schur_local_assemble"] >= 4
+
+
+def test_optimize_schur_one_rank_on_the_card(dev):
+    """The distributed LM loop on one rank on the card (one K9c and two K5
+    launches per iteration) against the same loop in f64 on the CPU."""
+    from ndtpu_torch.config import SolverConfig
+    from ndtpu_torch.data import g2o
+    from ndtpu_torch.dist import mesh as tmesh
+    from ndtpu_torch.dist import schur as tschur
+
+    data = g2o.manhattan_world(300, seed=2, loop_prob=0.2)
+    out = {}
+    for name, d, dt in (("card", dev, torch.float32),
+                        ("cpu", "cpu", torch.float64)):
+        g = g2o.to_graph(data, dt, device=d)
+        g = g._replace(poses=g.poses + 0.02 * torch.sin(
+            torch.arange(g.poses.numel(), device=d, dtype=dt)).view(-1, 3))
+        plan = tschur.plan_partition(
+            g.bet_i.cpu().numpy(), g.bet_j.cpu().numpy(),
+            g.bet_mask.cpu().numpy(), g.prior_idx.cpu().numpy(),
+            g.prior_mask.cpu().numpy(), g.poses.shape[0], 1)
+        kernels.reset_launches()
+        out[name] = tschur.optimize_schur(tmesh.multihost_mesh(device=d), g,
+                                          plan, SolverConfig(max_iter=6))
+        if name == "card":
+            it = int(out[name].n_iter)
+            assert kernels.LAUNCHES["schur_local_assemble"] == it
+            assert kernels.LAUNCHES["factor_linearize"] == 2 * it
+    assert float(out["card"].chi2) == pytest.approx(float(out["cpu"].chi2),
+                                                    rel=1e-3, abs=1e-3)
+
+
+def test_config5_kernels_refuse_cpu_tensors():
+    """K12's and K9c's raw entry points take CUDA tensors only (the
+    wrappers send CPU tensors to the plain versions first)."""
+    from ndtpu_torch.data import g2o
+    from ndtpu_torch.dist import schur as tschur
+
+    ndt_map = tgrid.finalize(tgrid.empty_stats(GRID), NDT)
+    pts, mask = _points(3, 64, "cpu")
+    g = g2o.to_graph(g2o.manhattan_world(60, seed=1), torch.float32)
+    plan = tschur.plan_partition(
+        g.bet_i.numpy(), g.bet_j.numpy(), g.bet_mask.numpy(),
+        g.prior_idx.numpy(), g.prior_mask.numpy(), 60, 2)
+    t = tschur.rank_tables(plan, 0, "cpu")
+    routes = {k: torch.as_tensor(v) for k, v in
+              tschur.rank_routes(plan, 0).items()}
+    loc = tuple(x[0] for x in tschur.shard_factor_data_local(g, plan, 0))
+    lin = tschur._linearize_shard(g.poses, *loc)
+    calls = [
+        lambda: kernels.ndt_sgh_unpacked(
+            torch.zeros(4, 3), pts, mask.float(), *ndt_map, GRID, 0.5, 40.0),
+        lambda: kernels.schur_local_assemble(
+            *lin, routes["row_ptr"], routes["tgt_col"], routes["tgt_ptr"],
+            routes["code"], routes["vec_ptr"], routes["vcode"], t.int_mask,
+            1e-3, t.ni, t.ns),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
