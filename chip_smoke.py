@@ -114,11 +114,31 @@ Phases (any failure exits non-zero, and no result line is printed):
     rank just before its solve (one K9c and two K5 launches and four
     all-reduces per iteration); then K9c against its plain version on both
     ranks' rows;
-14. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
+14. the reference's multi-process SLAM rehearsal (:func:`run_slam_launch`):
+    ``launch_local(2, task="slam", device="cuda")``, two box-world
+    sessions of 120 scans, one per rank, every plain version raising on
+    CUDA tensors in the ranks; gated on keyframes and ATE
+    (test_launch.py:38) and each rank's state bit-equal to an in-process
+    ``run_slam_windowed`` of its session on the card;
+15. config 5's slab-sharded map (:func:`run_slab`) at its published widths
+    (256 x 256 at 0.5 m, two ranks of 128 columns): each rank runs its
+    session of phase 12's pair through ``run_sessions_sharded`` (bit-equal
+    to phase 12's), builds its slab of the merged map from its own
+    session's keyframe points (K10a ``slab_accumulate`` and the halo
+    exchange, the smallest halo that drops no point) and from both
+    sessions' (replicated), finalizes it (K10b ``finalize_cells``),
+    registers 16 of B's keyframe scans with ``match_slab`` (K10c
+    ``slab_sgh`` and one SUM per evaluation) and 64 with
+    ``match_batch_sharded``; gated against each other, phase 12's merged
+    map (K3) and f64 sums, the in-process ``lm_loop`` on K12 and
+    ``match_batch``; then K10a, K10b and K10c against their plain versions
+    at the ranks' shapes;
+16. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
     phase 4; also ``lm_ndt_grouped``, K8a and the gated verify
     ``loop_gate_fused`` in phase 6; K3s, K4s, K5, K6b, K8a and the gated
     verify in phase 10; ``lm_ndt``, K12, K3 and the gated verify in phase
-    12; K9c and K5 in phase 13's ranks), exactly one ``lm_ndt*`` launch per
+    12; K9c and K5 in phase 13's ranks; K10a, K10b and K10c in phase 15's
+    ranks), exactly one ``lm_ndt*`` launch per
     ``match_batch_packed`` call, and in phase 6 one gated verify per
     loop-detection call and no standalone K8b launch; K5, K7a and K7b
     launched in phases 4 and 6, K6 in phase 6 (config 2 may never take the
@@ -128,10 +148,11 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``lm_ndt``, and they are held to their twins in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches
-(phases 4, 6, 8, 10, 12 and 13 together), errors, times and bounds, the
+(phases 4, 6, 8, 10 and 12-15 together), errors, times and bounds, the
 repeated runs' ATEs, the smoother's counts, config 4's run and step
 timing, the serving run's aggregate scans/s and per-session results, and
-config 5's merge and distributed solve; the last line is ``{"ok": true,
+config 5's merge, distributed solve, SLAM rehearsal and slab map; the last
+line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -252,6 +273,15 @@ KERNELS = [
          replaces="ndtpu/ndt/match.py:108", paths=("config5",)),
     dict(name="schur_local_assemble", source=_CSRC + "supernodal.cu",
          replaces="ndtpu/dist/schur.py:386", paths=("config5_dist",)),
+    # Config 5's slab map (phase 15, counted in its two ranks): K10a builds
+    # each rank's slab, K10b finalizes it, K10c is match_slab's per-rank
+    # terms.
+    dict(name="slab_accumulate", source=_CSRC + "slab_accum.cu",
+         replaces="ndtpu/dist/gridmap.py:66", paths=("config5_slab",)),
+    dict(name="finalize_cells", source=_CSRC + "finalize_cells.cu",
+         replaces="ndtpu/ndt/grid.py:232", paths=("config5_slab",)),
+    dict(name="slab_sgh", source=_CSRC + "ndt_unpacked.cu",
+         replaces="ndtpu/dist/gridmap.py:189", paths=("config5_slab",)),
 ]
 
 
@@ -3151,7 +3181,7 @@ def b_placement_err(graph_poses, sa, sb, t_true) -> float:
     return float(torch.hypot(d[:, 0], d[:, 1]).mean())
 
 
-def run_merge(dev, card, npz_path, jobs):
+def run_merge(dev, card, npz_path, jobs, keep=None):
     """Phase 12: config 5's merge on the card at
     ``configs/config5_multisession.json``. The two sessions
     (:func:`config5_sessions`) run through ``run_slam_windowed``; then,
@@ -3177,7 +3207,9 @@ def run_merge(dev, card, npz_path, jobs):
     merged at the aligned transform with the inter-session factors found
     there) to ``npz_path`` and solves it in process at phase 13's 10
     iterations. Returns ``(launches, summary, that graph, its chi2 at 10
-    iterations, K12's row)``."""
+    iterations, K12's row)``; puts the sessions' inputs (``seqs``), final
+    states (``sa``, ``sb``), ``t_bad`` (``t_ab``) and the merged statistics
+    (``stats``) into ``keep``, for phase 15."""
     import dataclasses
 
     import torch
@@ -3374,6 +3406,8 @@ def run_merge(dev, card, npz_path, jobs):
                                 cfg.grid, mcfg).pose
     row["refine"] = check_k12("refine", refined, probe, probe_mask, map_a,
                               cfg.grid, mcfg, jobs)
+    if keep is not None:
+        keep.update(seqs=seqs, sa=sa, sb=sb, t_ab=t_bad, stats=stats)
     return launches, summary, g_dist, chi10, dict(ndt_sgh_unpacked=row)
 
 
@@ -3438,11 +3472,901 @@ def run_distributed(dev, card, npz_path, chi10: float):
     return launches, rec
 
 
+# Config 5's slab-sharded map: ``launch --task slam`` (phase 14) and the
+# sharded map, registration and sessions across two ranks (phase 15).
+
+#: The plain versions the slab path must not reach with CUDA tensors.
+PLAIN_SLAB = PLAIN_CONFIG5 + (
+    ("ndtpu_torch.ndt.grid", "finalize_ref"),
+    ("ndtpu_torch.dist.gridmap", "slab_accumulate_ref"),
+    ("ndtpu_torch.dist.gridmap", "slab_sgh_ref"))
+#: Set in the environment of phase 14's ranks to a directory: the
+#: ``sitecustomize.py`` the smoke writes for them makes every plain
+#: version of :data:`PLAIN_SLAB` raise on CUDA tensors there for the whole
+#: process, and each rank reports that in a file of that directory. Then
+#: it runs the ``sitecustomize`` it shadows, where there is one (a Python
+#: distribution's own).
+REFUSE_PLAIN_ENV = "NDTPU_SMOKE_REFUSE_PLAIN"
+_SITECUSTOMIZE = '''import importlib.machinery, importlib.util, os, sys
+if os.environ.get("{env}"):
+    sys.path.insert(0, {root!r})
+    import chip_smoke
+    chip_smoke.refuse_plain_for_good(os.environ["{env}"])
+    sys.path.remove({root!r})
+_s = importlib.machinery.PathFinder.find_spec("sitecustomize", [
+    p for p in sys.path if os.path.abspath(p or ".") != {site!r}])
+if _s is not None:
+    _s.loader.exec_module(importlib.util.module_from_spec(_s))
+'''
+#: Tolerances of s and ss against the f64 sums on the same cells, as
+#: fractions of the f64 sums of |terms| (|p| and |p p^T|): one f32
+#: rounding of a value summed exactly (K10a's moments: 2^-24, with a
+#: factor 2 to spare), and up to three (the halo exchange adds the
+#: neighbour's rounded halo to the rounded core, whose signs may differ in
+#: a cell across an axis: 2^-24 x (|A| + |B| + |A + B|)); plus, per point
+#: of the cell, the fixed point's rounding (2^-33 of a cell per term,
+#: times twice the map's largest |coordinate|, 64 m: under 1e-8).
+K10A_RTOL, SLAB_RTOL, SLAB_ATOL_PER_POINT = 2.0 ** -23, 2.0 ** -22, 1e-8
+#: ``match_slab`` against the in-process ``lm_loop`` on K12 over the same
+#: map (test_dist.py:98's tolerance, m and rad).
+SLAB_POSE_TOL = 5e-4
+#: Where the LM on the point-sharded build's map and the LM on the K3 map
+#: part ways, the K3 map's objective at the ``match_slab`` pose may exceed
+#: its value at the K3 LM's pose by this fraction: ten times the largest
+#: relative gap between the two maps' objectives at one pose that the
+#: halo-summed cells leave (``objective_gap_max`` in phase 15's record).
+SLAB_F_RTOL = 1e-3
+#: Phase 15's registrations: B's keyframe scans (every k-th live one) from
+#: their merged poses perturbed by N(0, SLAB_PERTURB) with ``--seed``.
+SLAB_SCANS, BATCH_SCANS, SLAB_PERTURB = 16, 64, (0.3, 0.3, 0.05)
+#: f32/f64 operations of K10a per (grid, point) (binning, the six
+#: fixed-point terms) and per slab cell (the moments), counted from
+#: ``csrc/slab_accum.cu``; of K10b per cell (``ndt_cell.cuh``).
+K10A_POINT_FLOPS, K10A_CELL_FLOPS, K10B_CELL_FLOPS = 20, 30, 45
+
+
+_REFUSING = []
+
+
+def refuse_plain_for_good(report_dir: str):
+    """Make :data:`PLAIN_SLAB` raise on CUDA tensors for the rest of this
+    process (phase 14's ranks, through their ``sitecustomize.py``), and
+    write ``<report_dir>/<pid>.json``: the plain versions now refusing."""
+    import importlib
+    import os
+
+    ctx = no_plain_on_card(PLAIN_SLAB)
+    ctx.__enter__()
+    _REFUSING.append(ctx)
+    on = [f"{m}.{n}" for m, n in PLAIN_SLAB
+          if getattr(importlib.import_module(m), n).__name__ == "refuse"]
+    Path(report_dir, f"{os.getpid()}.json").write_text(json.dumps(on))
+
+
+def k10a_bound(m: int, live: int, width: int, grid) -> dict:
+    """Bytes: the points (8 B) and mask (1 B) read once, the f32 slab (28 B
+    a cell) written once; operations: binning per (grid, point), the six
+    terms per live (grid, point), the moments per cell."""
+    cells = 4 * width * grid.ny
+    return bound(9 * m + 28 * cells, 4 * m * 8 + live * K10A_POINT_FLOPS
+                 + cells * K10A_CELL_FLOPS)
+
+
+def check_k10a(label, points, mask, grid, x_lo: int, width: int,
+               jobs=None):
+    """K10a ``slab_accumulate`` on the card at ``(x_lo, width)``: bit for bit
+    equal to its fixed-point model (``slab_accumulate_fixed_ref``, on the
+    card), on a second launch and with the points in a random order;
+    against its f32 plain version (rtol 1e-5 of each output's max) and the
+    f64 sums on the same cells (:data:`K10A_RTOL`); timed beside the plain
+    version and the library call, the plain version's three
+    ``index_add_``. Returns the row."""
+    import torch
+
+    from ndtpu_torch.dist import gridmap
+
+    run = lambda: gridmap.slab_accumulate(points, mask, grid, x_lo, width)
+    out, again = run(), run()
+    perm = torch.randperm(points.shape[0], device=points.device,
+                          generator=torch.Generator(points.device).manual_seed(
+                              11))
+    shuffled = gridmap.slab_accumulate(points[perm], mask[perm], grid, x_lo,
+                                       width)
+    model = gridmap.slab_accumulate_fixed_ref(points, mask, grid, x_lo,
+                                              width)
+    plain = gridmap.slab_accumulate_ref(points, mask, grid, x_lo, width)
+    torch.cuda.synchronize()
+    require(bits_equal(out, again) and bits_equal(out, shuffled),
+            f"K10a {label}: launches differ (again or permuted)")
+    require(bits_equal(out, model),
+            f"K10a {label}: differs from its fixed-point model")
+    err = _rel_check(f"K10a {label} vs f32 plain", out, plain)
+    ref64 = slab_f64(points, mask, grid, x_lo, width)
+    err64 = slab_close(f"K10a {label} vs f64", out, *ref64, K10A_RTOL)
+    ms = time_ms(run)
+    plain_ms = time_ms(lambda: gridmap.slab_accumulate_ref(
+        points, mask, grid, x_lo, width))
+    _, lx, iy, live = gridmap._slab_cells(points, mask, grid, x_lo, width)
+    w = live.float()
+    lib = time_ms(lambda: gridmap._accum_local(points, w, lx, iy, width,
+                                               grid))
+    bd = k10a_bound(points.shape[0], int(live.sum()), width, grid)
+    print(f"[smoke] K10a slab_accumulate {label} M={points.shape[0]} "
+          f"({int(live.sum())} live (grid, point) pairs) into 4 x {width} x "
+          f"{grid.ny} cells: bit-equal to its fixed-point model, on a second "
+          f"launch and permuted; vs f32 plain max abs err {err:.3e}; vs f64 "
+          f"sums on the same cells {err64:.3e} (rtol {K10A_RTOL:.3g}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (three "
+          f"index_add_) {lib:.4f} ms, bound {bd['bound_ms']:.6f} ms "
+          f"({bd['bound_by']})")
+    row = dict(max_abs_err=err, max_abs_err_f64=err64, ms=ms,
+               plain_ms=plain_ms, **bd)
+    row.update(library_ms=lib, library="three torch.Tensor.index_add_ "
+               "(n, w p, w p p^T) of the plain version, its bins and "
+               "weights made beforehand")
+    card_time(jobs, f"K10a slab_accumulate {label}", row, "card_ms", run,
+              ["slab_scatter", "slab_moments", "Memset"])
+    return row
+
+
+def slab_f64(points, mask, grid, x_lo: int, width: int):
+    """The f64 sums on K10a's cells, and the f64 sums of their terms'
+    magnitudes (``|p|``, ``|p p^T|``): the cells binned from the f32 points
+    (as the kernel bins them), the sums over the points in f64 on the
+    CPU."""
+    from ndtpu_torch.dist import gridmap
+
+    _, lx, iy, live = gridmap._slab_cells(points, mask, grid, x_lo, width)
+    p64, w = points.cpu().double(), live.cpu().double()
+    return (gridmap._accum_local(p64, w, lx.cpu(), iy.cpu(), width, grid),
+            gridmap._accum_local(p64.abs(), w, lx.cpu(), iy.cpu(), width,
+                                 grid))
+
+
+def slab_close(name, out, ref, mag, rtol: float) -> float:
+    """``n`` exactly, ``s`` and ``ss`` within ``rtol`` of ``mag`` (the sums
+    of the terms' magnitudes) plus :data:`SLAB_ATOL_PER_POINT` per point of
+    the cell, entry by entry; returns the largest abs error."""
+    import torch
+
+    out = [x.cpu().double() for x in out]
+    n = ref.n.double()
+    require(torch.equal(out[0], n), f"{name}: counts differ")
+    worst = 0.0
+    for k, (o, r, m) in enumerate(zip(out[1:], ref[1:], mag[1:]), 1):
+        err = (o - r).abs()
+        pts = n.reshape(n.shape + (1,) * (r.ndim - n.ndim))
+        bad = err > rtol * m + SLAB_ATOL_PER_POINT * pts
+        require(not bool(bad.any()), f"{name}: output {k} off by "
+                f"{float(err.max()):.3e} at {int(bad.sum())} entries")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def check_k10b(label, stats, ndt_cfg, jobs=None):
+    """K10b ``finalize_cells`` (``ndt.grid.finalize`` on CUDA tensors) on
+    ``stats`` in their layout: valid flags equal to its f32 plain version's,
+    mean and icov within rtol 1e-5 of each output's max, bit-identical on a
+    second launch. Returns the row."""
+    import torch
+
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    st = ndt_grid.NDTStats(*stats)
+    run = lambda: ndt_grid.finalize(st, ndt_cfg)
+    out, again = run(), run()
+    ref = ndt_grid.finalize_ref(st, ndt_cfg)
+    torch.cuda.synchronize()
+    require(bits_equal(out, again), f"K10b {label}: two launches differ")
+    require(torch.equal(out.valid, ref.valid),
+            f"K10b {label}: valid flags differ from the plain version's")
+    err = _rel_check(f"K10b {label} vs f32 plain", out, ref)
+    same = bits_equal(out, ref)
+    ms = time_ms(run)
+    plain_ms = time_ms(lambda: ndt_grid.finalize_ref(st, ndt_cfg))
+    cells = st.n.numel()
+    bd = bound(56 * cells, K10B_CELL_FLOPS * cells)
+    print(f"[smoke] K10b finalize_cells {label} {tuple(st.n.shape)} "
+          f"({int(out.valid.sum())} valid): vs f32 plain max abs err "
+          f"{err:.3e}{' (bit-equal)' if same else ''}, valid exact; "
+          f"bit-identical on a second launch; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.6f} ms "
+          f"({bd['bound_by']})")
+    row = dict(max_abs_err=err, bit_equal_to_plain=same, ms=ms,
+               plain_ms=plain_ms, **bd)
+    card_time(jobs, f"K10b finalize_cells {label}", row, "card_ms", run,
+              ["finalize_cells"])
+    return row
+
+
+def k10c_bound(poses, points, mask, slab_map, grid, x_lo: int) -> dict:
+    """K12's bound (:func:`k12_bound`) on the slab: the poses, the scan and
+    its mask read, each distinct slab cell the run gathers (28 B) read
+    once, ``[B, 15]`` written; per masked beam and pose the transform, per
+    (beam, grid) the binning, per (beam, grid) in a valid owned cell the
+    71 of the sums."""
+    import torch
+
+    from ndtpu_torch.dist import gridmap
+    from ndtpu_torch.ndt import match as ndt_match
+
+    b, n = poses.shape[0], points.shape[0]
+    nxl = slab_map.valid.shape[1]
+    x, y, _, _ = ndt_match._lane_transform(poses, points[:, 0][None],
+                                           points[:, 1][None])
+    ix, iy, inb = gridmap._cell_xy(torch.stack([x, y], -1), grid)
+    hit = inb & (ix >= x_lo) & (ix < x_lo + nxl) & mask[None, None, :]
+    g = torch.arange(grid.overlap, device=ix.device)[:, None]
+    lx = (ix - x_lo).clamp(0, nxl - 1)
+    v = slab_map.valid[g, lx, iy] > 0
+    cell = (g * nxl + lx) * grid.ny + iy
+    n_cells = int(cell[hit].unique().numel())
+    flops = (b * int(mask.sum()) * (K12_BEAM_FLOPS + 4 * K12_BIN_FLOPS)
+             + int((hit & v).sum()) * K12_CELL_FLOPS)
+    return bound(b * 12 + n * 12 + n_cells * 28 + b * 60, flops)
+
+
+def check_k10c(label, poses, points, mask, slab_map, grid, x_lo: int, mcfg,
+               jobs=None):
+    """K10c ``slab_sgh`` against its f32 plain version on the card (each
+    output within rtol 1e-5 of its max |.|: the same cells, the sums in
+    another order), bit-identical on a second launch. Returns the row."""
+    import torch
+
+    from ndtpu_torch.dist import gridmap
+
+    mask_f = mask.float()
+    run = lambda: gridmap.slab_sgh(poses, points, mask_f, slab_map, grid,
+                                   x_lo, mcfg)
+    out, again = run(), run()
+    ref = gridmap.slab_sgh_ref(poses, points, mask_f, slab_map, grid, x_lo,
+                               mcfg)
+    torch.cuda.synchronize()
+    require(bits_equal(out, again), f"K10c {label}: two launches differ")
+    err = _rel_check(f"K10c {label} vs f32 plain",
+                     [out[:, :3], out[:, 3:6], out[:, 6:]],
+                     [ref[:, :3], ref[:, 3:6], ref[:, 6:]])
+    ms = time_ms(run)
+    plain_ms = time_ms(lambda: gridmap.slab_sgh_ref(
+        poses, points, mask_f, slab_map, grid, x_lo, mcfg))
+    bd = k10c_bound(poses, points, mask, slab_map, grid, x_lo)
+    print(f"[smoke] K10c slab_sgh {label} B={poses.shape[0]} "
+          f"N={points.shape[0]} on 4 x {slab_map.valid.shape[1]} x {grid.ny} "
+          f"cells: vs f32 plain max abs err {err:.3e} (rtol 1e-5 of each "
+          f"output's max); bit-identical on a second launch; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bd)
+    card_time(jobs, f"K10c slab_sgh {label}", row, "card_ms", run,
+              ["slab_sgh"])
+    return row
+
+
+def run_slam_launch(dev, card):
+    """Phase 14: ``launch_local(2, task="slam", device="cuda")``, the
+    reference's own problem (two box-world sessions of 120 scans, one per
+    rank, ``dist.launch.slam_sessions``), every plain version of
+    :data:`PLAIN_SLAB` made to raise on CUDA tensors in the ranks (through
+    a ``sitecustomize.py``; each rank must report it). Gates: test_launch.py:38's (more than 5
+    keyframes, ATE under 0.3 m per session), and each rank's state
+    bit-equal (its sha256) to an in-process ``run_slam_windowed`` of the
+    same session on the card. Returns ``(launches, record)``."""
+    import os
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.dist import launch
+    from ndtpu_torch.slam import pipeline
+
+    old = os.environ.get("PYTHONPATH")
+    with tempfile.TemporaryDirectory(prefix="ndtpu_smoke_site_") as site:
+        Path(site, "sitecustomize.py").write_text(_SITECUSTOMIZE.format(
+            env=REFUSE_PLAIN_ENV, root=str(ROOT),
+            site=os.path.abspath(site)))
+        reports = Path(site, "refusing")
+        reports.mkdir()
+        os.environ["PYTHONPATH"] = os.pathsep.join(
+            [site] + ([old] if old else []))
+        os.environ[REFUSE_PLAIN_ENV] = str(reports)
+        try:
+            t0 = time.perf_counter()
+            rec = launch.launch_local(2, port=free_port(), task="slam",
+                                      device=dev.type, timeout_s=600.0)
+            wall = time.perf_counter() - t0
+        finally:
+            os.environ.pop(REFUSE_PLAIN_ENV)
+            if old is None:
+                os.environ.pop("PYTHONPATH")
+            else:
+                os.environ["PYTHONPATH"] = old
+        refusing = [json.loads(f.read_text()) for f in reports.iterdir()]
+    want = sorted(f"{m}.{n}" for m, n in PLAIN_SLAB)
+    require(len(refusing) == rec["num_processes"]
+            and all(sorted(r) == want for r in refusing),
+            f"slam rehearsal: {len(refusing)} of {rec['num_processes']} "
+            f"ranks report their plain versions refusing CUDA tensors "
+            f"({refusing})")
+    require(rec["task"] == "slam" and rec["num_processes"] == 2
+            and rec["device"] != "cpu",
+            f"slam rehearsal: {rec['num_processes']} ranks on {rec['device']}")
+    require(all(k > 5 for k in rec["keyframes"])
+            and all(a < 0.3 for a in rec["ates"]),
+            f"slam rehearsal: keyframes {rec['keyframes']}, ATE {rec['ates']} "
+            f"(> 5 and < 0.3 m each expected)")
+    cfg, seqs = launch.slam_sessions(2, rec["n_scans"])
+    with no_plain_on_card(PLAIN_SLAB):
+        for k, q in enumerate(seqs):
+            st, _ = pipeline.run_slam_windowed(q.points.to(dev),
+                                               q.mask.to(dev),
+                                               q.odom.to(dev), cfg)
+            require(launch.state_sha256(st) == rec["state_sha256"][k],
+                    f"slam rehearsal: session {k}'s state on its rank differs "
+                    f"from the in-process run on the card")
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    for row in rec["sessions"]:
+        for k, v in row["launches"].items():
+            launches[k] += v
+    print(f"[smoke] slam rehearsal ({card}): 2 ranks on {rec['device']}, "
+          f"{rec['n_scans']} scans each: keyframes {rec['keyframes']}, ATE "
+          f"{rec['ates']}; each rank's state bit-equal to the in-process run; "
+          f"sessions {[r['run_s'] for r in rec['sessions']]} s, launch_local "
+          f"{wall:.1f} s; launches {launches_nonzero(launches)}")
+    rec["launch_local_s"] = wall
+    return launches, rec
+
+
+def launches_nonzero(launches) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def slab_inputs(dev, seed: int, keep, cfg):
+    """What phase 15's ranks read: the two sessions' inputs, phase 12's
+    merge transform ``t_ab`` and final states' digests, both sessions' live
+    keyframe points in A's frame (the replicated build's input), phase 12's
+    merged statistics (K3; the dense map of ``match_batch_sharded``), the
+    halo (the smallest that drops no point of either rank), and the
+    registrations: :data:`SLAB_SCANS` and :data:`BATCH_SCANS` of B's live
+    keyframes (every k-th), their merged poses perturbed by
+    N(0, :data:`SLAB_PERTURB`) from ``seed``. Returns a dict of numpy
+    arrays."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch.dist import gridmap
+    from ndtpu_torch.dist import launch
+    from ndtpu_torch.lie import se2
+
+    sa, sb, t_ab = keep["sa"], keep["sb"], keep["t_ab"]
+    world = []
+    for st, t in ((sa, None), (sb, t_ab)):
+        poses = st.kf.poses if t is None else se2.compose(
+            t.expand_as(st.kf.poses), st.kf.poses)
+        world.append((se2.transform(poses, st.kf.points).reshape(-1, 2),
+                      (st.kf.masks & st.kf.live[:, None]).reshape(-1)))
+    d = 2
+    halo = max(gridmap.slab_halo(p, m, cfg.grid, d, r)
+               for r, (p, m) in enumerate(world))
+    live_b = torch.nonzero(sb.kf.live).squeeze(-1)
+    rng = np.random.default_rng(seed + 15)
+    pick = {}
+    for name, k in (("slab", SLAB_SCANS), ("batch", BATCH_SCANS)):
+        idx = live_b[torch.linspace(0, live_b.numel() - 1, k).long()]
+        truth = se2.compose(t_ab.expand(k, 3), sb.kf.poses[idx])
+        noise = torch.as_tensor(rng.normal(0.0, SLAB_PERTURB, (k, 3)),
+                                dtype=torch.float32, device=dev)
+        pick[name] = (idx, truth + noise)
+    seqs = keep["seqs"]
+    cpu = lambda t: t.detach().cpu().numpy()
+    out = dict(halo=halo, t_ab=cpu(t_ab),
+               digest_a=launch.state_sha256(sa),
+               digest_b=launch.state_sha256(sb),
+               all_pts=cpu(torch.cat([world[0][0], world[1][0]])),
+               all_msk=cpu(torch.cat([world[0][1], world[1][1]])),
+               **{f"stats_{k}": cpu(v) for k, v in
+                  zip(("n", "s", "ss"), keep["stats"])})
+    for k, q in zip("ab", seqs):
+        out.update({f"points_{k}": cpu(q.points), f"mask_{k}": cpu(q.mask),
+                    f"odom_{k}": cpu(q.odom)})
+    for name, (idx, init) in pick.items():
+        out[f"{name}_idx"] = cpu(idx)
+        out[f"{name}_init"] = cpu(init)
+    return out
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def slab_worker(rank: int, world: int, port: int, npz: str, out: str,
+                device: str = "cuda"):
+    """One rank of phase 15 (``chip_smoke.py --slab-worker``): joins the
+    gloo group, runs its session through ``run_sessions_sharded`` (one per
+    rank; A on rank 0, B on rank 1), builds the merged map's slab from its
+    own session's live keyframe points (B's moved by ``t_ab``) with
+    ``build_slab_stats_psharded`` and from both sessions' points with
+    ``build_slab_stats``, finalizes both, registers B's scans with
+    ``match_slab`` on each and with ``match_batch_sharded`` (against phase
+    12's merged map), every plain version of :data:`PLAIN_SLAB` raising on CUDA
+    tensors, each stage's launches counted from 0, and writes
+    ``<out>.<rank>.npz``."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.dist import gridmap, launch, registration, slam_dp
+    from ndtpu_torch.dist import mesh as dmesh
+    from ndtpu_torch.lie import se2
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    launch.initialize(f"localhost:{port}", world, rank)
+    cfg = PipelineConfig.from_json(str(CONFIG5))
+    bmesh, smesh = dmesh.batch_mesh(device), dmesh.space_mesh(device)
+    dev = bmesh.device
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    z = np.load(npz)
+    t = lambda k: torch.as_tensor(z[k]).to(dev)
+    res = {}
+
+    def stage(name, fn):
+        _sync(dev)
+        torch.distributed.barrier()     # no rank waits on the other's stage
+        kernels.reset_launches()
+        dmesh.reset_collectives()
+        t0 = time.perf_counter()
+        val = fn()
+        _sync(dev)
+        res[f"{name}_s"] = time.perf_counter() - t0
+        res[f"{name}_launches"] = json.dumps(kernels.LAUNCHES)
+        res[f"{name}_collectives"] = json.dumps(dmesh.COLLECTIVES)
+        return val
+
+    with no_plain_on_card(PLAIN_SLAB):
+        st, _ = stage("sessions", lambda: slam_dp.run_sessions_sharded(
+            bmesh, [t("points_a"), t("points_b")], [t("mask_a"), t("mask_b")],
+            [t("odom_a"), t("odom_b")], cfg))
+        mine = slam_dp._take(st, 0)
+        res["digest"] = launch.state_sha256(mine)
+        poses = mine.kf.poses
+        if rank == 1:
+            t_ab = t("t_ab")
+            poses = se2.compose(t_ab.expand_as(poses), poses)
+        pts = se2.transform(poses, mine.kf.points).reshape(-1, 2)
+        msk = (mine.kf.masks & mine.kf.live[:, None]).reshape(-1)
+        halo = int(z["halo"])
+        ps = stage("psharded", lambda: gridmap.build_slab_stats_psharded(
+            smesh, pts, msk, cfg.grid, halo=halo))
+        rep = stage("replicated", lambda: gridmap.build_slab_stats(
+            smesh, t("all_pts"), t("all_msk"), cfg.grid))
+        smap = stage("finalize", lambda: gridmap.finalize_slab(ps, cfg.ndt))
+        rmap = stage("finalize_replicated",
+                     lambda: gridmap.finalize_slab(rep, cfg.ndt))
+        # B's scans, as their keyframe slots hold them on rank 1 and in
+        # phase 12's state (the same bits).
+        sidx, bidx = t("slab_idx"), t("batch_idx")
+        kp, km = t("kf_points_b"), t("kf_masks_b")
+        sinit, binit = t("slab_init"), t("batch_init")
+        slab, slab_rep = [], []
+
+        def registrations(m, acc):
+            for i in range(sidx.numel()):
+                acc.append(gridmap.match_slab(
+                    smesh, kp[sidx[i]], km[sidx[i]], m, sinit[i], cfg.grid,
+                    cfg.match))
+        stage("match_slab", lambda: registrations(smap, slab))
+        stage("match_slab_replicated", lambda: registrations(rmap, slab_rep))
+        dense = ndt_grid.finalize(ndt_grid.NDTStats(
+            t("stats_n"), t("stats_s"), t("stats_ss")), cfg.ndt)
+        mb = stage("match_batch", lambda: registration.match_batch_sharded(
+            bmesh, kp[bidx], km[bidx], dense, binit, cfg.grid, cfg.match))
+    cpu = lambda x: x.detach().cpu().numpy()
+    np.savez(f"{out}.{rank}.npz", **res,
+             **{f"ps_{k}": cpu(v) for k, v in ps._asdict().items()},
+             **{f"rep_{k}": cpu(v) for k, v in rep._asdict().items()},
+             **{f"map_{k}": cpu(v) for k, v in smap._asdict().items()},
+             **{f"{name}_{k}": np.stack([cpu(getattr(r, f)) for r in rs])
+                for name, rs in (("slab", slab), ("slab_rep", slab_rep))
+                for k, f in (("pose", "pose"), ("hess", "hessian"),
+                             ("iter", "n_iter"), ("conv", "converged"))},
+             mb_pose=cpu(mb.pose), mb_iter=cpu(mb.n_iter),
+             mb_conv=cpu(mb.converged), halo=halo)
+    launch.shutdown()
+
+
+def traced_lm(ndt_map, points, mask, init, grid, mcfg) -> dict:
+    """The in-process ``lm_loop`` on K12 over ``ndt_map`` from ``init``,
+    traced: its result, the objective at each evaluation and the pose
+    evaluated, and the LM's accept decisions (evaluation k > 0 is taken iff
+    its objective is below the last taken one's, as ``lm_loop`` decides)."""
+    import torch
+
+    from ndtpu_torch.ndt import match as ndt_match
+
+    poses, fs = [], []
+
+    def sgh(p):
+        out = tuple(x[0] for x in ndt_match.score_grad_hess_batch(
+            p[None], points, mask, ndt_map, grid, mcfg))
+        poses.append(p.detach().cpu())
+        fs.append(float(out[0]))
+        return out
+    res = ndt_match.lm_loop(sgh, init, mcfg)
+    taken, cur = [], 0
+    for k in range(1, len(fs)):
+        taken.append(fs[k] < fs[cur])
+        cur = k if taken[-1] else cur
+    return dict(result=res, f=fs, poses=torch.stack(poses), taken=taken)
+
+
+def _objective(ndt_map, points, mask, pose, grid, mcfg) -> float:
+    from ndtpu_torch.ndt import match as ndt_match
+
+    return float(ndt_match.score_grad_hess_batch(
+        pose.to(points)[None], points, mask, ndt_map, grid, mcfg)[0][0])
+
+
+def slab_vs_k3(traces, got, scans, ps_stats, k3_stats, ps_map, k3_map,
+               grid, cfg) -> dict:
+    """``match_slab`` on the point-sharded build's map against the
+    in-process LM on phase 12's K3 map. The two maps hold the same points,
+    but a cell that both ranks' points reach sums two f32 partials (the
+    rank's own and the neighbour's halo, each rounded: the reference's
+    ``psum`` of f32 slabs) where K3 rounds one exact sum, and finalize's
+    ``ss/n - mean mean^T`` magnifies that rounding in the inverse
+    covariance. Where the two in-process LMs (``traces``, K12 on each map)
+    take the same accept decisions, the pose is held to
+    :data:`SLAB_POSE_TOL`. Where one decision differs, the smoke prints the
+    first such evaluation: both maps' margins, the K3 map's margin at the
+    slab run's poses, the beams there that land in cells whose statistics
+    differ and those cells' largest relative inverse-covariance gap, and
+    the LM of each map's statistics in f64 (plain versions on the CPU); and
+    it holds the objective on the K3 map at the ``match_slab`` pose to
+    within :data:`SLAB_F_RTOL` of its value at the K3 LM's pose."""
+    import torch
+
+    from ndtpu_torch.ndt import grid as ndt_grid
+    from ndtpu_torch.ndt import match as ndt_match
+    from ndtpu_torch.lie import se2
+
+    f64 = torch.float64
+    differ = (((ps_stats.s != k3_stats.s).flatten(2).any(-1))
+              | ((ps_stats.ss != k3_stats.ss).flatten(2).any(-1)))  # [G, C]
+    icov_a, icov_b = ps_map.icov.cpu(), k3_map.icov.cpu()
+    gap = ((icov_a - icov_b).abs().flatten(2).amax(-1)
+           / icov_b.abs().flatten(2).amax(-1).clamp(min=1e-30))
+    maps64 = None
+    same, flips, obj_gap = [], [], []
+    for i, (a, b) in enumerate(zip(traces["slab"], traces["k3"])):
+        pts, msk, x0 = scans[i]
+        err = float((got[i] - b["result"].pose.cpu()).abs().max())
+        f_ref = b["f"][_final(b)]
+        obj_gap.append(abs(_objective(ps_map, pts, msk, b["result"].pose,
+                                      grid, cfg.match) - f_ref) / abs(f_ref))
+        n = min(len(a["taken"]), len(b["taken"]))
+        k = next((j for j in range(n) if a["taken"][j] != b["taken"][j]),
+                 None)
+        if k is None:
+            require(err <= SLAB_POSE_TOL,
+                    f"config 5 slab: registration {i}: match_slab off the LM "
+                    f"on phase 12's K3 map by {err:.3e} (> {SLAB_POSE_TOL:g})"
+                    f" with the same decisions on both maps")
+            same.append(err)
+            continue
+        e = k + 1                  # the evaluation whose decision differs
+        last = lambda t: max(j for j in range(e) if j == 0
+                             or t["taken"][j - 1])
+        pa, pb = last(a), last(b)
+        try_a, cur_a = a["poses"][e], a["poses"][pa]
+        ids, inb = ndt_grid.cell_ids(se2.transform(try_a, pts.cpu()), grid)
+        hit = differ.gather(1, ids) & inb & msk.cpu()[None]
+        f_got = _objective(k3_map, pts, msk, got[i], grid, cfg.match)
+        require(f_got <= f_ref + SLAB_F_RTOL * abs(f_ref),
+                f"config 5 slab: registration {i}: the K3 map's objective "
+                f"at the match_slab pose {f_got:.6f}, at the K3 LM's "
+                f"{f_ref:.6f} (within {SLAB_F_RTOL:g} of it required)")
+        if maps64 is None:
+            maps64 = [ndt_grid.finalize(ndt_grid.NDTStats(
+                *(x.to(f64) for x in st)), cfg.ndt)
+                for st in (ps_stats, k3_stats)]
+        r64 = [ndt_match.lm_loop(
+            lambda p, m=m: tuple(x[0] for x in
+                                 ndt_match.score_grad_hess_batch(
+                                     p[None], pts.cpu().to(f64), msk.cpu(),
+                                     m, grid, cfg.match)),
+            x0.cpu().to(f64), cfg.match).pose for m in maps64]
+        flips.append(dict(
+            registration=i, err=err, evaluation=e,
+            margin_slab=a["f"][e] - a["f"][pa],
+            margin_k3=b["f"][e] - b["f"][pb],
+            margin_k3_at_slab_poses=(
+                _objective(k3_map, pts, msk, try_a, grid, cfg.match)
+                - _objective(k3_map, pts, msk, cur_a, grid, cfg.match)),
+            beams_in_differing_cells=int(hit.sum()),
+            icov_rel_gap=float(torch.where(hit, gap.gather(1, ids),
+                                           torch.zeros(())).max()),
+            k3_objective=[f_got, f_ref],
+            f64_slab_vs_k3=float((r64[0] - r64[1]).abs().max()),
+            f32_vs_f64=[float((got[i].double() - r64[0]).abs().max()),
+                        float((b["result"].pose.cpu().double()
+                               - r64[1]).abs().max())]))
+    return dict(objective_gap_max=max(obj_gap),
+                cells_differing=int(differ.sum()),
+                cells_icov_gap_max=float(gap[k3_map.valid.cpu() > 0].max()),
+                same_decisions=len(same),
+                same_max_err=max(same) if same else None, flips=flips)
+
+
+def _final(trace) -> int:
+    """The evaluation whose pose an LM trace ends at (the last taken)."""
+    return max([0] + [j + 1 for j, t in enumerate(trace["taken"]) if t])
+
+
+def run_slab(dev, card, keep, seed: int, jobs):
+    """Phase 15: config 5's sharded map at its published widths (256 x 256
+    at 0.5 m, overlap 4; two ranks, 128 columns each) over two gloo ranks
+    on the card (:func:`slab_worker`, started as ``chip_smoke.py
+    --slab-worker``). Gates: each rank's session state bit-equal to phase
+    12's in-process one; the point-sharded and the replicated slab builds
+    equal (counts exactly, ``s``/``ss`` within :data:`SLAB_RTOL`), and,
+    gathered, equal to phase 12's merged statistics (K3; counts exactly)
+    and to the f64 sums on the same cells; the gathered slab map's valid
+    flags equal to the merged map's; every ``match_slab`` result bit-equal
+    on both ranks; on the point-sharded build's map within
+    :data:`SLAB_POSE_TOL` of the in-process ``lm_loop`` on K12 over the
+    gathered map in the dense layout, and held against the LM on phase
+    12's K3 map as :func:`slab_vs_k3` sets out; on the replicated build's
+    map within :data:`SLAB_POSE_TOL` of the LM on the K3 map (an
+    independent dense build, as test_dist.py:98 compares);
+    ``match_batch_sharded`` bit-equal per lane to the in-process
+    ``match_batch``; K10a, K10b and K10c launched there. Then K10a, K10b
+    and K10c against their plain versions at the ranks' shapes. Returns
+    ``(launches, record, kernel rows)``."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.dist import gridmap
+    from ndtpu_torch.ndt import grid as ndt_grid
+    from ndtpu_torch.ndt import match as ndt_match
+
+    cfg = PipelineConfig.from_json(str(CONFIG5))
+    grid = cfg.grid
+    inputs = slab_inputs(dev, seed, keep, cfg)
+    kf_b = keep["sb"].kf
+    inputs.update(kf_points_b=kf_b.points.cpu().numpy(),
+                  kf_masks_b=kf_b.masks.cpu().numpy())
+    with tempfile.TemporaryDirectory(prefix="ndtpu_smoke_slab_") as tmp:
+        npz, out = str(Path(tmp) / "in.npz"), str(Path(tmp) / "out")
+        np.savez(npz, **inputs)
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--slab-worker",
+             str(r), "2", str(port), npz, out, dev.type], cwd=str(ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for p, (so, se) in zip(procs, outs):
+            require(p.returncode == 0, f"slab worker {p.args[3]} failed "
+                    f"rc={p.returncode}\n{so[-2000:]}\n{se[-4000:]}")
+        ranks = [dict(np.load(f"{out}.{r}.npz")) for r in range(2)]
+    halo, nxl = int(inputs["halo"]), grid.nx // 2
+    # Sessions: bit-equal to phase 12's.
+    for r, k in enumerate("ab"):
+        require(str(ranks[r]["digest"]) == inputs[f"digest_{k}"],
+                f"config 5 slab: rank {r}'s session {k.upper()} differs from "
+                f"phase 12's in-process run")
+    # The map: the two builds, the merged statistics, f64.
+    gather = lambda key: torch.cat([torch.as_tensor(x[key]) for x in ranks],
+                                   1)
+    ps = gridmap.SlabStats(*(gather(f"ps_{k}") for k in ("n", "s", "ss")))
+    rep = gridmap.SlabStats(*(gather(f"rep_{k}") for k in ("n", "s", "ss")))
+    all_pts = torch.as_tensor(inputs["all_pts"]).to(dev)
+    all_msk = torch.as_tensor(inputs["all_msk"]).to(dev)
+    ref64, mag64 = slab_f64(all_pts, all_msk, grid, 0, grid.nx)
+    build_err = slab_close("config 5 slab: point-sharded vs replicated", ps,
+                           gridmap.SlabStats(*(x.double() for x in rep)),
+                           mag64, SLAB_RTOL)
+    k3 = gridmap.dense_to_slab(ndt_grid.NDTStats(*(torch.as_tensor(
+        inputs[f"stats_{k}"]) for k in ("n", "s", "ss"))), grid)
+    require(torch.equal(ps.n, k3.n) and torch.equal(rep.n, k3.n),
+            "config 5 slab: counts differ from phase 12's merged map (K3)")
+    err64 = slab_close("config 5 slab: point-sharded vs f64", ps, ref64,
+                       mag64, SLAB_RTOL)
+    err64_rep = slab_close("config 5 slab: replicated vs f64", rep, ref64,
+                           mag64, K10A_RTOL)
+    smap = gridmap.SlabMap(*(gather(f"map_{k}") for k in
+                             ("mean", "icov", "valid")))
+    k3_dense = ndt_grid.NDTStats(*(torch.as_tensor(inputs[f"stats_{k}"])
+                                   for k in ("n", "s", "ss")))
+    k3_map = ndt_grid.finalize(ndt_grid.NDTStats(*(x.to(dev)
+                                                   for x in k3_dense)),
+                               cfg.ndt)
+    require(torch.equal(smap.valid,
+                        gridmap.dense_to_slab(k3_map, grid).valid.cpu()),
+            "config 5 slab: valid flags differ from the merged map's")
+    # match_slab on both builds' maps: the same bits on both ranks. On the
+    # replicated build's map against the in-process LM on K12 over phase
+    # 12's K3 map, an independent dense build (test_dist.py:98's check);
+    # on the point-sharded build's map against the same LM over that map
+    # gathered into the dense layout (K10c against K12), and against the K3
+    # map as :func:`slab_vs_k3` sets out.
+    for pre in ("slab", "slab_rep"):
+        for key in ("pose", "hess", "iter", "conv"):
+            require(ranks[0][f"{pre}_{key}"].tobytes()
+                    == ranks[1][f"{pre}_{key}"].tobytes(),
+                    f"config 5 slab: {pre}_{key} differs between the ranks")
+    ps_dense = gridmap.slab_to_dense(ps, grid)
+    dense_map = ndt_grid.NDTMap(*(x.to(dev) for x in
+                                  gridmap.slab_to_dense(smap, grid)))
+    kp, km = keep["sb"].kf.points, keep["sb"].kf.masks
+    sidx = torch.as_tensor(inputs["slab_idx"]).to(dev)
+    init = torch.as_tensor(inputs["slab_init"]).to(dev)
+    scans = [(kp[i], km[i], init[k]) for k, i in enumerate(sidx)]
+    with no_plain_on_card(PLAIN_SLAB):
+        traces = {name: [traced_lm(m, p, q, x0, grid, cfg.match)
+                         for p, q, x0 in scans]
+                  for name, m in (("slab", dense_map), ("k3", k3_map))}
+    ref_poses = torch.stack([t["result"].pose.cpu() for t in traces["slab"]])
+    ref_k3 = torch.stack([t["result"].pose.cpu() for t in traces["k3"]])
+    got = torch.as_tensor(ranks[0]["slab_pose"])
+    slab_err = float((got - ref_poses).abs().max())
+    require(slab_err <= SLAB_POSE_TOL,
+            f"config 5 slab: match_slab off the in-process lm_loop by "
+            f"{slab_err:.3e} (> {SLAB_POSE_TOL:g})")
+    rep_err = float((torch.as_tensor(ranks[0]["slab_rep_pose"])
+                     - ref_k3).abs().max())
+    require(rep_err <= SLAB_POSE_TOL,
+            f"config 5 slab: match_slab on the replicated build's map off "
+            f"the in-process lm_loop on phase 12's K3 map by {rep_err:.3e} "
+            f"(> {SLAB_POSE_TOL:g})")
+    with no_plain_on_card(PLAIN_SLAB):
+        vs_k3 = slab_vs_k3(traces, got, scans, ps_dense, k3_dense, dense_map,
+                           k3_map, grid, cfg)
+    moved = got - torch.as_tensor(inputs["slab_init"])
+    # match_batch_sharded: each rank's lanes bit-equal to match_batch.
+    bidx = torch.as_tensor(inputs["batch_idx"]).to(dev)
+    with no_plain_on_card(PLAIN_SLAB):
+        mb = ndt_match.match_batch(kp[bidx], km[bidx], k3_map, torch.as_tensor(
+            inputs["batch_init"]).to(dev), grid, cfg.match)
+    half = BATCH_SCANS // 2
+    for r in range(2):
+        lanes = slice(r * half, (r + 1) * half)
+        for key, ref in (("mb_pose", mb.pose), ("mb_iter", mb.n_iter),
+                         ("mb_conv", mb.converged)):
+            require(ranks[r][key].tobytes() == ref[lanes].cpu().numpy()
+                    .tobytes(), f"config 5 slab: rank {r}'s {key} differs "
+                    f"from the in-process match_batch")
+    # Launches: each rank's map and registration stages.
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    stages = ("psharded", "replicated", "finalize", "finalize_replicated",
+              "match_slab", "match_slab_replicated", "match_batch")
+    per_stage = {}
+    for s in stages:
+        per_stage[s] = [launches_nonzero(json.loads(str(x[f"{s}_launches"])))
+                        for x in ranks]
+        for row in per_stage[s]:
+            for k, v in row.items():
+                launches[k] += v
+    for pre, stage in (("slab", "match_slab"),
+                       ("slab_rep", "match_slab_replicated")):
+        n_it = int(ranks[0][f"{pre}_iter"].sum())
+        for r, x in enumerate(ranks):
+            n_sgh = per_stage[stage][r].get("slab_sgh", 0)
+            n_sum = json.loads(str(x[f"{stage}_collectives"]))["all_reduce"]
+            require(n_sgh == n_it + SLAB_SCANS == n_sum,
+                    f"config 5 slab: {stage} on rank {r}: {n_sgh} K10c "
+                    f"launches and {n_sum} sums for {n_it} iterations of "
+                    f"{SLAB_SCANS} registrations (one each per evaluation)")
+    iters = int(ranks[0]["slab_iter"].sum())
+    colls = [json.loads(str(x["match_slab_collectives"])) for x in ranks]
+    exch = [json.loads(str(x["psharded_collectives"])) for x in ranks]
+    record = dict(
+        halo=halo, nx_local=nxl, points=int(inputs["all_msk"].sum()),
+        sessions_s=[float(x["sessions_s"]) for x in ranks],
+        psharded_s=[float(x["psharded_s"]) for x in ranks],
+        replicated_s=[float(x["replicated_s"]) for x in ranks],
+        finalize_s=[float(x["finalize_s"]) for x in ranks],
+        halo_exchange_ms=[1e3 * c["exchange_s"] for c in exch],
+        halo_exchange_bytes=[c["exchange_bytes"] for c in exch],
+        match_slab_iters=iters,
+        match_slab_ms_per_eval=[1e3 * float(x["match_slab_s"])
+                                / (iters + SLAB_SCANS) for x in ranks],
+        match_slab_ms_per_iter=[1e3 * float(x["match_slab_s"]) / iters
+                                for x in ranks],
+        match_slab_sum_share=[c["all_reduce_s"] / float(x["match_slab_s"])
+                              for c, x in zip(colls, ranks)],
+        match_slab_err=slab_err, match_slab_replicated_err_vs_k3_map=rep_err,
+        match_slab_vs_k3_map=vs_k3,
+        match_slab_converged=int(ranks[0]["slab_conv"].sum()),
+        match_slab_in_process_iters=sum(int(t["result"].n_iter)
+                                        for t in traces["slab"]),
+        match_slab_move_m=float(moved[:, :2].norm(dim=1).max()),
+        match_batch_s=[float(x["match_batch_s"]) for x in ranks],
+        build_err=build_err, f64_err=err64, f64_err_replicated=err64_rep,
+        launches_per_stage=per_stage, workers_s=wall)
+    print(f"[smoke] config 5 slab ({card}): 2 ranks, 4 x {nxl} x {grid.ny} "
+          f"cells each, halo {halo} columns (the smallest that drops no "
+          f"point); sessions bit-equal to phase 12's "
+          f"({record['sessions_s']} s); point-sharded build "
+          f"{record['psharded_s']} s (halo exchange "
+          f"{record['halo_exchange_ms']} ms, "
+          f"{record['halo_exchange_bytes']} B) equal to the replicated one "
+          f"(s/ss max abs diff {build_err:.3e}); counts equal to phase 12's "
+          f"K3 map, s/ss vs f64 {err64:.3e} / {err64_rep:.3e}; valid flags "
+          f"equal; {SLAB_SCANS} match_slab: {iters} iterations, "
+          f"{record['match_slab_converged']} converged, bit-equal on both "
+          f"ranks, off the in-process lm_loop on K12 by {slab_err:.3e}; on "
+          f"the replicated build's map off the LM on phase 12's K3 map by "
+          f"{rep_err:.3e}; "
+          f"{record['match_slab_ms_per_iter']} ms per LM iteration, "
+          f"{record['match_slab_ms_per_eval']} per evaluation (the SUM "
+          f"{record['match_slab_sum_share']} of it); match_batch_sharded "
+          f"{BATCH_SCANS} lanes bit-equal; workers {wall:.1f} s; launches "
+          f"{per_stage}")
+    print(f"[smoke] config 5 slab vs phase 12's K3 map: "
+          f"{vs_k3['cells_differing']} cells whose s/ss differ (cells both "
+          f"ranks' points reach: two rounded partials summed), inverse "
+          f"covariances up to {vs_k3['cells_icov_gap_max']:.3e} apart, the "
+          f"objectives up to {vs_k3['objective_gap_max']:.3e} apart at one "
+          f"pose; {vs_k3['same_decisions']} of {SLAB_SCANS} registrations "
+          f"take the same LM decisions on both maps and end within "
+          f"{vs_k3['same_max_err']} of each other; where they part: "
+          f"{json.dumps(vs_k3['flips'])}")
+    # The kernels at the ranks' shapes: K10a at rank 0's halo-extended
+    # slab of A's points, K10b on its slab, K10c at B = 1.
+    na = keep["sa"].kf.masks.numel()      # A's points lead all_pts
+    rows = {"slab_accumulate": check_k10a(
+        "rank 0 halo-extended", all_pts[:na].contiguous(),
+        all_msk[:na].contiguous(), grid, -halo, nxl + 2 * halo, jobs)}
+    rows["slab_accumulate"]["replicated"] = check_k10a(
+        "rank 1 replicated", all_pts, all_msk, grid, nxl, nxl, jobs)
+    st0 = tuple(torch.as_tensor(ranks[0][f"ps_{k}"]).to(dev)
+                for k in ("n", "s", "ss"))
+    rows["finalize_cells"] = check_k10b("rank 0 slab", st0, cfg.ndt, jobs)
+    rows["finalize_cells"]["dense"] = check_k10b(
+        "dense merged map", tuple(torch.as_tensor(inputs[f"stats_{k}"]).to(
+            dev) for k in ("n", "s", "ss")), cfg.ndt, jobs)
+    # K10c at B = 1 (match_slab's shape) on each rank's slab, at the first
+    # registration's result.
+    for r in range(2):
+        smap_r = gridmap.SlabMap(*(torch.as_tensor(ranks[r][f"map_{k}"]).to(
+            dev) for k in ("mean", "icov", "valid")))
+        row = check_k10c(f"rank {r}", got[:1].to(dev), kp[sidx[0]],
+                         km[sidx[0]], smap_r, grid, r * nxl, cfg.match, jobs)
+        if r == 0:
+            rows["slab_sgh"] = row
+        else:
+            rows["slab_sgh"]["rank1"] = row
+    return launches, record, rows
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--slab-worker", nargs=6, default=None,
+                        metavar=("RANK", "WORLD", "PORT", "NPZ", "OUT",
+                                 "DEVICE"),
+                        help="run one rank of phase 15 (started by the "
+                             "smoke itself)")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
+    if args.slab_worker:
+        sys.path.insert(0, str(ROOT))
+        r, n, port, npz, out, device = args.slab_worker
+        slab_worker(int(r), int(n), int(port), npz, out, device)
+        return 0
 
     require((ROOT / "ndtpu_torch").is_dir() and REF_FILE.is_file()
             and REF3_FILE.is_file() and REF4_FILE.is_file()
@@ -3585,16 +4509,26 @@ def main(argv=None) -> int:
     del state8
     # Config 5: the merge in process (phase 12), then the distributed solve
     # of its merged graph in two ranks (phase 13), and K9c on their rows.
+    keep = {}
     with tempfile.TemporaryDirectory(prefix="ndtpu_smoke_") as tmp:
         npz = Path(tmp) / "config5_merged.npz"
-        launches5, merge5, g5, chi10, rows5 = run_merge(dev, card, npz, jobs)
+        launches5, merge5, g5, chi10, rows5 = run_merge(dev, card, npz, jobs,
+                                                        keep)
         results.update(rows5)
         launches5d, dist5 = run_distributed(dev, card, npz, chi10)
     results["schur_local_assemble"] = check_k9c(g5, 2, 1e-3, jobs)
     del g5
+    # The reference's multi-process SLAM rehearsal through ``launch --task
+    # slam`` (phase 14), then config 5's slab-sharded map, sessions and
+    # registrations across two ranks (phase 15) and K10a-c at its shapes.
+    launches14, slam14 = run_slam_launch(dev, card)
+    launches15, slab15, rows15 = run_slab(dev, card, keep, args.seed, jobs)
+    results.update(rows15)
+    del keep
     paths = {"config2": launches2, "config3": launches3, "config4": launches4,
              "serving": launches8, "config5": launches5,
-             "config5_dist": launches5d}
+             "config5_dist": launches5d, "slam_launch": launches14,
+             "config5_slab": launches15}
     for k in KERNELS:
         for path in k.get("paths", ()):  # K1, K8b run inside lm_ndt there
             require(paths[path][k["name"]] > 0,
@@ -3617,7 +4551,8 @@ def main(argv=None) -> int:
     print(json.dumps({"kernels": rows, "repeat_runs": repeats,
                       "smoother": smoother, "config4": config4,
                       "serving": serving,
-                      "config5": {"merge": merge5, "distributed": dist5}}))
+                      "config5": {"merge": merge5, "distributed": dist5,
+                                  "slam_launch": slam14, "slab": slab15}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,7 +2,8 @@
 
 ``from_numpy(tree, device)`` takes a JAX-package state (``NDTStats``,
 ``NDTMap``, ``KeyframeStore``, ``PoseGraph``, ``SmootherState``,
-``SlamState`` or ``merge.AlignResult``, nested
+``SlamState``, ``merge.AlignResult`` or the slab map's ``SlabStats`` /
+``SlabMap`` (kept in their slab layout ``[G, nx_local, ny, ...]``), nested
 as it is there) whose leaves are numpy arrays (or anything ``np.asarray``
 takes) and returns the port's state of the same name on ``device``.
 ``to_numpy(tree)`` goes back: the port's state with numpy leaves, integers
@@ -16,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ndtpu_torch.dist.gridmap import SlabMap, SlabStats
 from ndtpu_torch.graph.factors import PoseGraph
 from ndtpu_torch.graph.incremental import SmootherState
 from ndtpu_torch.ndt.grid import NDTMap, NDTStats
@@ -27,7 +29,7 @@ __all__ = ["from_numpy", "to_numpy"]
 
 _TYPES = {cls.__name__: cls for cls in (NDTStats, NDTMap, KeyframeStore,
                                         PoseGraph, SmootherState, SlamState,
-                                        AlignResult)}
+                                        AlignResult, SlabStats, SlabMap)}
 
 
 def _is_state(tree) -> bool:

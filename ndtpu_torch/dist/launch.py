@@ -1,6 +1,6 @@
-"""Multi-process bring-up of the distributed Schur solve, and a local launch.
+"""Multi-process bring-up of config 5's distributed paths, and a local launch.
 
-Port of ``ndtpu/dist/launch.py``'s ``--task schur``:
+Port of ``ndtpu/dist/launch.py``:
 
 - :func:`initialize` — one ``torch.distributed`` process group per run
   (gloo, TCP rendezvous at ``--coordinator``; env fallbacks
@@ -13,21 +13,27 @@ Port of ``ndtpu/dist/launch.py``'s ``--task schur``:
   the parent builds the CUDA kernels first, so the ranks load one built
   library and never race on the build directory.
 - ``python -m ndtpu_torch.dist.launch --num-processes N --process-id I
-  [--graph-npz G] [--device cuda|cpu]`` — one worker: join the group, solve
-  the pose graph by :func:`ndtpu_torch.dist.schur.optimize_schur` (each
-  rank holds only its shard's factor rows), time one step and one small
-  all-reduce, and have rank 0 print the report as one JSON line.
+  [--task schur|slam] [--graph-npz G] [--device cuda|cpu] [--out F]`` —
+  one worker. ``--task schur`` (the default): join the group, solve the
+  pose graph by :func:`ndtpu_torch.dist.schur.optimize_schur` (each rank
+  holds only its shard's factor rows), time one step and one small
+  all-reduce, and have rank 0 print the report as one JSON line. ``--task
+  slam``: one windowed SLAM session per process
+  (``dist.slam_dp.run_sessions_sharded`` over the ``"batch"`` axis), the
+  reference's sessions; each rank writes its sessions' keyframe counts,
+  ATE and state digest to ``F.p<rank>``, and rank 0 merges them into one
+  JSON line (and ``F``).
 
 ``--device cuda`` (the default) fails without a card, as
-``ndtpu_torch.run`` does. ``--task slam`` (one SLAM session per process on
-a sharded map) is ROADMAP A11b. The npz format is the JAX package's (the
-keys of ``PoseGraph._asdict()``, integers as int32), so a graph saved by
-either package loads in the other.
+``ndtpu_torch.run`` does. The npz format is the JAX package's (the keys of
+``PoseGraph._asdict()``, integers as int32), so a graph saved by either
+package loads in the other.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -40,7 +46,7 @@ import numpy as np
 import torch
 
 __all__ = ["initialize", "shutdown", "worker_main", "save_graph_npz",
-           "load_graph_npz", "launch_local"]
+           "load_graph_npz", "launch_local", "slam_sessions", "state_sha256"]
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -99,11 +105,12 @@ def worker_main(argv=None) -> None:
                          "robin) or cpu (plain versions)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
-    if args.task == "slam":
-        raise NotImplementedError(
-            "--task slam (sharded-map SLAM sessions across processes) is "
-            "ROADMAP A11b")
     device = _device(args.device)
+    if args.task == "slam":
+        initialize(args.coordinator, args.num_processes, args.process_id)
+        _slam_worker(args, device)
+        shutdown()
+        return
 
     from ndtpu_torch import kernels
     from ndtpu_torch.config import SolverConfig
@@ -223,6 +230,121 @@ def worker_main(argv=None) -> None:
     shutdown()
 
 
+def slam_sessions(n: int, n_scans: int):
+    """The ``--task slam`` rehearsal's sessions (the reference worker's):
+    session ``k`` of ``n`` drives a ``rectangle_trajectory`` of half-size
+    ``3.0 + 0.3 k`` m at 0.3 m steps through ``box_world(half=11)``, 120
+    beams, seed ``40 + k``; with its config (28 x 28 cells of 1 m,
+    keyframes every 0.5 m / 0.3 rad up to 48, loop closure, W = 8, two
+    passes). Returns ``(cfg, [Sequence2D] on the CPU)``."""
+    from ndtpu_torch.config import (GridConfig, KeyframeConfig, LoopConfig,
+                                    PipelineConfig)
+    from ndtpu_torch.data import synth
+
+    world = synth.box_world(half=11.0)
+    seqs = [synth.make_sequence(
+        world, synth.rectangle_trajectory(n_scans, half=3.0 + 0.3 * k,
+                                          step=0.3),
+        n_beams=120, max_range=20.0, min_range=0.1, seed=40 + k,
+        odom_trans_std=0.03, odom_rot_std=0.01) for k in range(n)]
+    cfg = PipelineConfig(
+        grid=GridConfig(x0=-14.0, y0=-14.0, cell=1.0, nx=28, ny=28,
+                        overlap=4),
+        keyframe=KeyframeConfig(dist_thresh=0.5, angle_thresh=0.3,
+                                capacity=48),
+        loop=LoopConfig(max_candidates=4, local_half_extent=6.0,
+                        min_index_gap=8),
+        n_beams=120, use_loop_closure=True, window=8, window_passes=2)
+    return cfg, seqs
+
+
+def state_sha256(tree) -> str:
+    """sha256 of a state's leaves in field order (each leaf's dtype, shape
+    and bytes; ``None`` as a marker): equal digests mean bit-equal
+    states."""
+    h = hashlib.sha256()
+
+    def walk(x):
+        if x is None:
+            h.update(b"None")
+        elif isinstance(x, tuple):
+            for y in x:
+                walk(y)
+        else:
+            t = x.detach().contiguous().cpu()
+            h.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+
+    walk(tree)
+    return h.hexdigest()
+
+
+def _slam_worker(args, device: str) -> None:
+    """``--task slam``: one full windowed SLAM session per process over the
+    process-spanning ``"batch"`` mesh (the reference's ``_slam_worker``:
+    the same sessions built on every process, each process running its
+    own; no collective). Each rank writes its rows to ``<out>.p<rank>``;
+    after a barrier rank 0 merges them into the report."""
+    from ndtpu_torch import kernels
+    from ndtpu_torch.dist import mesh as dmesh
+    from ndtpu_torch.dist import slam_dp
+    from ndtpu_torch.eval.ate import ate_rmse
+    from ndtpu_torch.slam import pipeline
+
+    mesh = dmesh.batch_mesh(device)
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    n_scans = max(24, args.n_poses)
+    cfg, seqs = slam_sessions(mesh.size, n_scans)
+    pts, msk, odo = (torch.stack([getattr(q, k) for q in seqs]).to(dev)
+                     for k in ("points", "mask", "odom"))
+    _sync(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    st, outs = slam_dp.run_sessions_sharded(mesh, pts, msk, odo, cfg)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+
+    mine = []
+    per = st.kf.n.shape[0]
+    for k in range(per):
+        sess = mesh.rank * per + k
+        st_k = slam_dp._take(st, k)
+        traj = pipeline.recover_trajectory(st_k, slam_dp._take(outs, k))
+        mine.append({"session": sess, "keyframes": int(st_k.kf.n),
+                     "ate": float(ate_rmse(traj.cpu(),
+                                           seqs[sess].gt_poses)),
+                     "state_sha256": state_sha256(st_k), "run_s": dt,
+                     "launches": launches})
+    base = args.out or os.path.join(tempfile.gettempdir(),
+                                    "ndtpu_torch_slam_rehearsal")
+    Path(f"{base}.p{mesh.rank}").write_text(json.dumps(mine))
+    if mesh.size > 1:
+        torch.distributed.barrier()
+    if mesh.rank == 0:
+        rows = []
+        for pid in range(mesh.size):
+            part = Path(f"{base}.p{pid}")
+            rows += json.loads(part.read_text())
+            part.unlink()
+        rows.sort(key=lambda r: r["session"])
+        rec = {"task": "slam", "num_processes": mesh.size,
+               "n_devices": mesh.size, "n_scans": n_scans,
+               "compile_and_run_s": dt,
+               "keyframes": [r["keyframes"] for r in rows],
+               "ates": [r["ate"] for r in rows],
+               "state_sha256": [r["state_sha256"] for r in rows],
+               "device": (torch.cuda.get_device_name(dev)
+                          if dev.type == "cuda" else "cpu"),
+               "sessions": rows}
+        line = json.dumps(rec)
+        print(line, flush=True)
+        if args.out:
+            Path(args.out).write_text(line)
+
+
 def save_graph_npz(path: str, graph) -> None:
     """Serialize a PoseGraph to npz (integers as int32, as the JAX package
     keeps them)."""
@@ -275,8 +397,7 @@ def launch_local(num_processes: int = 2, n_poses: int = 120,
                     "--task", task, "--device", device]
             if graph_npz:
                 cmd += ["--graph-npz", graph_npz]
-            if pid == 0:
-                cmd += ["--out", out_path]
+            cmd += ["--out", out_path]         # rank 0 writes the report
             procs.append(subprocess.Popen(cmd, env=env, cwd=str(ROOT),
                                           stdout=subprocess.PIPE,
                                           stderr=subprocess.PIPE, text=True))

@@ -1,7 +1,8 @@
 """Stacked multi-session SLAM: S sessions through one windowed program.
 
-Port of ``ndtpu/dist/slam_dp.py``'s single-card serving path
-(``run_sessions_sharded`` is ROADMAP A11). ``run_sessions_stacked`` steps
+Port of ``ndtpu/dist/slam_dp.py``: :func:`run_sessions_sharded` splits
+sessions over the ranks of a mesh axis, and the single-card serving path
+``run_sessions_stacked`` steps
 S independent sessions window by window with the same per-session
 semantics as ``pipeline.run_slam_windowed`` under a :func:`serving_config`:
 
@@ -37,6 +38,7 @@ import dataclasses
 import torch
 
 from ndtpu_torch.config import PipelineConfig
+from ndtpu_torch.dist import mesh as dmesh
 from ndtpu_torch.graph import factors as fct
 from ndtpu_torch.graph import incremental as inc
 from ndtpu_torch.graph import solve as slv
@@ -46,8 +48,8 @@ from ndtpu_torch.ndt import match as ndt_match
 from ndtpu_torch.slam import pipeline
 from ndtpu_torch.slam.odometry import chain_deltas, gate_poses
 
-__all__ = ["run_sessions", "run_sessions_stacked", "serving_config",
-           "vmap_cond_hazards"]
+__all__ = ["run_sessions", "run_sessions_sharded", "run_sessions_stacked",
+           "serving_config", "vmap_cond_hazards"]
 
 
 def vmap_cond_hazards(cfg: PipelineConfig) -> list[str]:
@@ -110,13 +112,33 @@ def _stack(trees):
 
 def run_sessions(points, mask, odom, cfg: PipelineConfig):
     """S sessions, each through ``pipeline.run_slam_windowed`` in turn.
-    points ``[S, T, N, 2]``, mask ``[S, T, N]``, odom ``[S, T, 3]``;
+    points ``[S, T, N, 2]``, mask ``[S, T, N]``, odom ``[S, T, 3]`` (or
+    sequences of S per-session tensors, whose lengths may then differ);
     returns the stacked ``(SlamState, SlamStepOut)``. (The JAX package
     vmaps the pipeline, which runs both branches of every ``lax.cond``; a
     loop keeps real branching, so no config is a hazard here.)"""
     runs = [pipeline.run_slam_windowed(points[i], mask[i], odom[i], cfg)
-            for i in range(points.shape[0])]
+            for i in range(len(points))]
     return _stack([r[0] for r in runs]), _stack([r[1] for r in runs])
+
+
+def run_sessions_sharded(mesh: dmesh.RankMesh, points, mask, odom,
+                         cfg: PipelineConfig):
+    """This rank's share of S sessions: rank ``r`` of ``d`` along
+    ``"batch"`` runs sessions ``[r * S/d, (r + 1) * S/d)`` through
+    :func:`run_sessions` (with one session per rank, ``run_slam_windowed``
+    unbatched, as the reference) and returns their stacked ``(SlamState,
+    SlamStepOut)`` with a leading axis of S/d. No collective: sessions are
+    independent. The inputs are :func:`run_sessions`', the same on every
+    rank."""
+    d = dmesh.axis_size(mesh, "batch")
+    s = len(points)
+    if s % d:
+        raise ValueError(f"{s} sessions do not split over the {d} ranks of "
+                         f"axis 'batch'")
+    r, k = dmesh.axis_index(mesh, "batch"), s // d
+    lo, hi = r * k, (r + 1) * k
+    return run_sessions(points[lo:hi], mask[lo:hi], odom[lo:hi], cfg)
 
 
 def _flat_graph(graph8: fct.PoseGraph) -> fct.PoseGraph:

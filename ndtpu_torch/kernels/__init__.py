@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Seventeen kernels carry the windowed pipeline with loop closure, the
+Twenty kernels carry the windowed pipeline with loop closure, the
 pose-graph smoother, the large-graph supernodal solve, stacked
-multi-session serving and config 5's merge and distributed solve (ROADMAP
-Queue B):
+multi-session serving, config 5's merge and distributed solve, and its
+slab-sharded map (ROADMAP Queue B):
 
 ============ =============================== =================================
 name         source                          replaces (JAX, lowered by XLA)
@@ -52,6 +52,13 @@ unpacked                                     over poses (``grid.lookup`` +
                                              ``match.point_terms``), as
                                              ``merge.global_align`` ranks
                                              its hypotheses
+slab_        ``csrc/slab_accum.cu`` (K10a)   ``dist/gridmap.py::_accum_local``
+accumulate                                   with ``_cell_xy`` and the slab
+                                             masks of its two callers
+finalize_    ``csrc/finalize_cells.cu``      ``grid.finalize`` on any layout
+cells        (K10b)                          (``finalize_slab``)
+slab_sgh     ``csrc/ndt_unpacked.cu`` (K10c) ``match_slab``'s per-rank terms
+                                             (the 15 sums before its psum)
 ============ =============================== =================================
 
 K5, K6 and K7b share the pose graph's arithmetic, ``csrc/pose_graph.cuh``
@@ -121,7 +128,8 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "loop_gate", "factor_linearize", "fresh_residual_max",
            "pcg_solve", "pcg_solve_blocked", "local_select",
            "local_assemble", "supernodal_assemble", "schur_reduce",
-           "schur_local_assemble", "ndt_sgh_unpacked"]
+           "schur_local_assemble", "ndt_sgh_unpacked", "slab_accumulate",
+           "finalize_cells", "slab_sgh"]
 
 #: Launch counts per kernel since the last :func:`reset_launches`.
 LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
@@ -131,7 +139,8 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "loop_gate_fused": 0, "factor_linearize": 0, "pcg_solve": 0,
             "pcg_solve_blocked": 0, "local_select": 0, "local_assemble": 0,
             "supernodal_assemble": 0, "schur_reduce": 0,
-            "schur_local_assemble": 0, "ndt_sgh_unpacked": 0}
+            "schur_local_assemble": 0, "ndt_sgh_unpacked": 0,
+            "slab_accumulate": 0, "finalize_cells": 0, "slab_sgh": 0}
 
 #: Shared memory one block can have on Hopper (227 KB), and what it gets
 #: without ``cudaFuncSetAttribute`` (48 KB).
@@ -148,6 +157,7 @@ _HALFCELL_SCRATCH: dict = {}     # (device index, maps, wh, hh) -> lattices
 _GATE_ARRIVE: dict = {}          # (device index, K) -> int32 counters
 _FINALIZE_BANDS: dict = {}       # (grid, device index) -> K4 launch shape
 _SM_COUNT: dict = {}             # device index -> multiprocessors
+_SLAB_SCRATCH: dict = {}         # (device index, width, ny) -> int64 sums
 
 _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
@@ -179,6 +189,10 @@ _SIGNATURES = {
     "schur_local_assemble_launch": [_P] * 5 + [_I] + [_P] * 7
                                    + [_F, _I, _I] + [_P] * 6,
     "ndt_sgh_unpacked_launch": [_P] * 7 + [_I] * 4 + [_F] * 5 + [_P],
+    "slab_accum_launch": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_P],
+    "finalize_cells_launch": [_P] * 6 + [ctypes.c_longlong] + [_F] * 3
+                             + [_P],
+    "slab_sgh_launch": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_P],
 }
 
 
@@ -1068,3 +1082,99 @@ def ndt_sgh_unpacked(poses, points, mask_f, mean, icov, valid, grid,
               out.data_ptr(), b, n, grid.nx, grid.ny, grid.x0, grid.y0,
               grid.cell, d2, exp_clip, _stream(poses))
     return out[:, 0], out[:, 1:4], out[:, 4:13].view(b, 3, 3), out[:, 13]
+
+
+def _slab_scratch(dev: torch.device, width: int, ny: int) -> torch.Tensor:
+    """K10a's int64 ``[4, width, ny, 6]`` sums, allocated once per (device,
+    slab shape) and kept: every call zeroes them on its own stream first,
+    so two calls on one stream never overlap on them (two streams would:
+    ROADMAP C-w6)."""
+    key = (dev.index, width, ny)
+    buf = _SLAB_SCRATCH.get(key)
+    if buf is None:
+        buf = torch.empty(4 * width * ny * 6, dtype=torch.int64, device=dev)
+        _SLAB_SCRATCH[key] = buf
+    return buf
+
+
+def slab_accumulate(points, mask, grid, x_lo: int, width: int):
+    """K10a: the slab statistics ``(n [4, width, ny], s [.., 2], ss [.., 2,
+    2])`` of grid columns ``[x_lo, x_lo + width)`` from ``points [M, 2]``
+    (f32) and ``mask [M]`` (bool), each point counted in the cell of each
+    overlap grid that ``ndt.grid.cell_ids`` gives it, if that cell is in
+    the map and in the slab (see ``csrc/slab_accum.cu``). Summed in 64-bit
+    fixed point: the same result on every run and under any order of the
+    points. One ctypes call (zero the kept scratch, scatter, moments), one
+    ``LAUNCHES["slab_accumulate"]``."""
+    if grid.overlap != 4:
+        raise NotImplementedError(
+            "K10a takes overlap=4 grids only; overlap=1 on the card is "
+            "ROADMAP Queue B (B8)")
+    if width < 1:
+        raise ValueError(f"slab_accumulate: width {width} < 1")
+    m = points.shape[0]
+    _check(points, "points", shape=(m, 2), align=8)
+    _check(mask, "mask", dtype=torch.bool, shape=(m,), align=1)
+    dev, ny = points.device, grid.ny
+    c = 4 * width * ny
+    out = torch.empty(7 * c, dtype=torch.float32, device=dev)
+    n = out[:c].view(4, width, ny)
+    s = out[c:3 * c].view(4, width, ny, 2)
+    ss = out[3 * c:].view(4, width, ny, 2, 2)
+    _call("slab_accum_launch", "slab_accumulate", points.data_ptr(),
+          mask.data_ptr(), _slab_scratch(dev, width, ny).data_ptr(),
+          n.data_ptr(), s.data_ptr(), ss.data_ptr(), m, grid.nx, ny, x_lo,
+          width, grid.x0, grid.y0, grid.cell, _stream(points))
+    return n, s, ss
+
+
+def finalize_cells(n, s, ss, ndt_cfg):
+    """K10b: ``ndt.grid.finalize`` of statistics of any leading shape
+    (``n [...]``, ``s [..., 2]``, ``ss [..., 2, 2]``, f32), one thread per
+    cell: ``(mean [..., 2], icov [..., 2, 2], valid [...])``, views of one
+    allocation. One ``LAUNCHES["finalize_cells"]`` per call with cells."""
+    lead = tuple(n.shape)
+    _check(n, "stats.n")
+    _check(s, "stats.s", shape=lead + (2,), align=8)
+    _check(ss, "stats.ss", shape=lead + (2, 2), align=16)
+    c = n.numel()
+    out = torch.empty(7 * c, dtype=torch.float32, device=n.device)
+    icov = out[:4 * c].view(lead + (2, 2))
+    mean = out[4 * c:6 * c].view(lead + (2,))
+    valid = out[6 * c:].view(lead)
+    if c > 0:
+        _call("finalize_cells_launch", "finalize_cells", n.data_ptr(),
+              s.data_ptr(), ss.data_ptr(), mean.data_ptr(), icov.data_ptr(),
+              valid.data_ptr(), c, float(ndt_cfg.min_pts),
+              ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min, _stream(n))
+    return mean, icov, valid
+
+
+def slab_sgh(poses, points, mask_f, mean, icov, valid, grid, x_lo: int,
+             d2: float, exp_clip: float) -> torch.Tensor:
+    """K10c: the 15 raw NDT sums ``(f, wsum, w0sum, g [3], H [9])`` of one
+    scan ``points [N, 2]`` (``mask_f [N]`` f32) at each pose of ``poses [B,
+    3]`` over one rank's slab of an overlap-4 map (``mean [4, nx_local, ny,
+    2]``, ``icov [.., 2, 2]``, ``valid [4, nx_local, ny]``, ix-major, grid
+    columns ``[x_lo, x_lo + nx_local)``), one block per pose (see
+    ``csrc/ndt_unpacked.cu``): ``[B, 15]``."""
+    if grid.overlap != 4:
+        raise NotImplementedError(
+            "K10c takes overlap=4 maps only; overlap=1 on the card is "
+            "ROADMAP Queue B (B8)")
+    nxl, ny = valid.shape[1], grid.ny
+    b, n = poses.shape[0], points.shape[0]
+    _check(poses, "poses", shape=(b, 3))
+    _check(points, "points", shape=(n, 2), align=8)
+    _check(mask_f, "mask", shape=(n,))
+    _check(valid, "valid", shape=(4, nxl, ny))
+    _check(mean, "mean", shape=(4, nxl, ny, 2), align=8)
+    _check(icov, "icov", shape=(4, nxl, ny, 2, 2), align=16)
+    out = torch.empty((b, 15), dtype=torch.float32, device=poses.device)
+    if b > 0:
+        _call("slab_sgh_launch", "slab_sgh", poses.data_ptr(),
+              points.data_ptr(), mask_f.data_ptr(), mean.data_ptr(),
+              icov.data_ptr(), valid.data_ptr(), out.data_ptr(), b, n,
+              grid.nx, ny, x_lo, nxl, grid.x0, grid.y0, grid.cell, d2,
+              exp_clip, _stream(poses))
+    return out

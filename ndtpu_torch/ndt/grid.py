@@ -6,7 +6,7 @@ SoA over all ``G x C`` cells (``G`` overlap grids, ``C = nx*ny``);
 the regularized Gaussians, and ``pack_quad`` lays them out as the half-cell
 quad table the matcher gathers one row per point from.
 
-Two hot ops have hand-written CUDA kernels (``ndtpu_torch.kernels``), each
+Three hot ops have hand-written CUDA kernels (``ndtpu_torch.kernels``), each
 with a plain twin of the same signature here:
 
 - :func:`halfcell_add` (K3) / :func:`halfcell_add_ref`: the overlap-4
@@ -14,7 +14,9 @@ with a plain twin of the same signature here:
   kernel sums in 64-bit fixed point, and :func:`halfcell_add_fixed_ref` is
   the plain model of that arithmetic, which it equals bit for bit;
 - :func:`finalize_pack` (K4) / :func:`finalize_pack_ref`: ``finalize`` +
-  ``pack_quad`` in one pass.
+  ``pack_quad`` in one pass;
+- :func:`finalize` (K10b) / :func:`finalize_ref`: ``finalize`` alone, in
+  the statistics' own layout (config 5's slab map, ``dist.gridmap``).
 
 The stacked multi-session path (``dist.slam_dp``) keeps S maps with a
 leading session axis and adds to them, and packs them, in one launch each:
@@ -37,8 +39,8 @@ from ndtpu_torch import kernels
 from ndtpu_torch.config import GridConfig, NDTMapConfig
 
 __all__ = ["NDTStats", "NDTMap", "cell_ids", "empty_stats", "add_points",
-           "build_stats", "finalize", "pack_quad", "lookup", "lookup_quad",
-           "lookup_quad_multi", "lookup_quad_grouped", "unpack_bf16_pair",
+           "build_stats", "finalize", "finalize_ref", "pack_quad", "lookup",
+           "lookup_quad", "lookup_quad_multi", "lookup_quad_grouped", "unpack_bf16_pair",
            "halfcell_add", "halfcell_add_ref", "halfcell_add_fixed_ref",
            "finalize_pack", "finalize_pack_ref", "add_points_stacked",
            "halfcell_add_stacked", "halfcell_add_stacked_ref",
@@ -257,7 +259,20 @@ def _eig2x2_sym(a, b, c):
 
 
 def finalize(stats: NDTStats, cfg: NDTMapConfig) -> NDTMap:
-    """Mean, eigenvalue-floored inverse covariance and validity per cell."""
+    """Mean, eigenvalue-floored inverse covariance and validity per cell,
+    elementwise over any leading shape (the dense ``[G, C]`` and the slab
+    ``[G, nx_local, ny]`` layouts alike). K10b wrapper: CUDA tensors go to
+    the kernel (``csrc/finalize_cells.cu``, f32, one thread per cell), CPU
+    tensors to :func:`finalize_ref`."""
+    if not stats.n.is_cuda:
+        return finalize_ref(stats, cfg)
+    return NDTMap(*kernels.finalize_cells(
+        stats.n.contiguous(), stats.s.contiguous(), stats.ss.contiguous(),
+        cfg))
+
+
+def finalize_ref(stats: NDTStats, cfg: NDTMapConfig) -> NDTMap:
+    """Plain version of K10b (``ndtpu/ndt/grid.py::finalize``)."""
     n = stats.n
     safe_n = torch.clamp(n, min=1.0)
     mean = stats.s / safe_n[..., None]
@@ -384,7 +399,7 @@ def lookup_quad_grouped(tables_flat, r: int, group, x, y, grid: GridConfig):
 def finalize_pack_ref(stats: NDTStats, ndt_cfg: NDTMapConfig,
                       grid: GridConfig, compact: bool = False):
     """Plain twin of K4: ``pack_quad(finalize(stats), compact)``."""
-    return pack_quad(finalize(stats, ndt_cfg), grid, compact=compact)
+    return pack_quad(finalize_ref(stats, ndt_cfg), grid, compact=compact)
 
 
 def finalize_pack(stats: NDTStats, ndt_cfg: NDTMapConfig, grid: GridConfig,

@@ -46,7 +46,7 @@ from ndtpu_torch.ndt import grid as ndt_grid
 
 __all__ = ["MatchResult", "transform_terms", "point_terms", "score_grad_hess",
            "score_grad_hess_batch", "score_grad_hess_batch_ref",
-           "point_terms_quad", "solve3",
+           "point_terms_quad", "solve3", "lm_loop",
            "lm_loop_batch", "match", "match_batch", "match_batch_packed",
            "match_batch_packed_gated", "ndt_terms", "ndt_terms_ref",
            "terms_sgh", "lm_ndt", "lm_ndt_ref", "CALLS"]
@@ -373,6 +373,48 @@ def lm_loop_batch(sgh, init_poses, cfg: MatchConfig) -> MatchResult:
     convergence; ``sgh(poses [B,3]) -> (f, g, H, score)``."""
     carry = _lm_carry_init(sgh, init_poses, cfg)
     return _lm_result(_lm_run(sgh, carry, cfg, cfg.max_iter))
+
+
+def lm_loop(sgh, init_pose, cfg: MatchConfig) -> MatchResult:
+    """Single-pose damped-Newton (LM) loop (``ndtpu/ndt/match.py::lm_loop``)
+    on an objective evaluator ``sgh(pose [3]) -> (f, g [3], H [3, 3],
+    score)``: one evaluation per iteration, at the trial pose; a step
+    accepted iff it lowers ``f``; the translation step clipped to
+    ``step_clip``; done on a proposed step under ``tol``, a REJECTED step
+    under ``reject_tol`` or the damping past ``max_lambda``; ``converged =
+    small & (f < 0)``. The decisions are read on the host (one read per
+    iteration, where JAX's ``while_loop`` branches on the device), so
+    replicated evaluators (``dist.gridmap.match_slab``) take the same ones
+    on every rank."""
+    dt = init_pose.dtype
+    f, g, h, score = sgh(init_pose)
+    pose = init_pose
+    lam = torch.tensor(cfg.init_lambda, dtype=dt, device=init_pose.device)
+    it, conv = 0, False
+    done = bool(torch.sum(torch.abs(g)) == 0.0)   # no valid cell: no work
+    while it < cfg.max_iter and not done:
+        delta = _solve_damped(h, g, lam)
+        tn = torch.sqrt(delta[0] ** 2 + delta[1] ** 2)
+        delta = delta * torch.where(tn > cfg.step_clip, cfg.step_clip / tn,
+                                    torch.ones_like(tn))
+        pose_try = pose + delta
+        f2, g2, h2, s2 = sgh(pose_try)
+        accept = bool(f2 < f)
+        if accept:
+            pose, f, g, h, score = pose_try, f2, g2, h2, s2
+            lam = torch.clamp(lam / cfg.lambda_down, min=1e-9)
+        else:
+            lam = lam * cfg.lambda_up
+        dnorm = torch.sqrt(torch.sum(delta * delta))   # tolerances in dt
+        small = bool(dnorm < cfg.tol) or (not accept
+                                           and bool(dnorm < cfg.reject_tol))
+        done = small or bool(lam > cfg.max_lambda)
+        conv = small
+        it += 1
+    dev = init_pose.device
+    return MatchResult(pose=pose, hessian=h, score=score,
+                       n_iter=torch.tensor(it, dtype=torch.int32, device=dev),
+                       converged=torch.tensor(conv, device=dev) & (f < 0.0))
 
 
 def terms_sgh(px, py, mask_f, table, grid: GridConfig, cfg: MatchConfig,

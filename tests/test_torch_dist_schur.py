@@ -382,19 +382,24 @@ def test_two_processes_over_gloo_solve_the_merged_graph(
 
 
 def test_launch_refuses_unported_task_and_missing_card(monkeypatch):
-    """``--task slam`` is A11b; the worker, ``launch_local`` and
-    ``multihost_mesh`` run on the card unless the CPU is asked for."""
-    with pytest.raises(NotImplementedError, match="A11b"):
-        tlaunch.worker_main(["--num-processes", "1", "--process-id", "0",
-                             "--task", "slam", "--device", "cpu"])
+    """The worker (``--task schur`` and ``--task slam``), ``launch_local``
+    and the meshes run on the card unless the CPU is asked for."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tlaunch.worker_main(["--num-processes", "1", "--process-id", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        tlaunch.worker_main(["--num-processes", "1", "--process-id", "0",
+                             "--task", "slam"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tlaunch.launch_local(2, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tmesh.multihost_mesh()                # the card unless asked
-    assert tmesh.multihost_mesh("cpu") == (0, 1, torch.device("cpu"))
+        tlaunch.launch_local(2, device="cuda", task="slam")
+    for make in (tmesh.multihost_mesh, tmesh.batch_mesh, tmesh.space_mesh,
+                 lambda: tmesh.grid_mesh(1, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()                            # the card unless asked
+    mesh = tmesh.multihost_mesh("cpu")
+    assert (mesh.rank, mesh.size, mesh.device) == (0, 1, torch.device("cpu"))
 
 
 def test_one_process_worker_reports_as_the_reference(tmp_path, capsys):

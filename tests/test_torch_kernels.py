@@ -6,8 +6,11 @@ local_assemble, also through incremental_update, and config 4's K9a
 supernodal_assemble and K9b schur_reduce, also through one supernodal
 step, and stacked serving's K6b pcg_solve_blocked, K3s halfcell_add_stacked
 and K4s finalize_pack_stacked, and config 5's K12 ndt_sgh_unpacked and
-K9c schur_local_assemble, also through a one-rank optimize_schur) against
-their plain twins, on the card; K3 also against the plain model of its
+K9c schur_local_assemble, also through a one-rank optimize_schur, and the
+slab map's K10a slab_accumulate, K10b finalize_cells and K10c slab_sgh,
+also through a one-rank match_slab) against their plain twins, on the
+card; K10a also against the plain model of its fixed-point arithmetic, bit
+for bit; K3 also against the plain model of its
 fixed-point arithmetic, bit for bit, K3, K4 and K8a for the same result on
 every launch (K3 and K8a also under any order of the points), and the
 gated verify bit for bit against lm_ndt_grouped followed by the
@@ -927,6 +930,107 @@ def test_config5_kernels_refuse_cpu_tensors():
             *lin, routes["row_ptr"], routes["tgt_col"], routes["tgt_ptr"],
             routes["code"], routes["vec_ptr"], routes["vcode"], t.int_mask,
             1e-3, t.ni, t.ns),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            call()
+
+
+@pytest.mark.parametrize("x_lo,width", [(0, 24), (21, 30), (-5, 34)])
+def test_slab_accumulate_matches_model_and_plain(dev, x_lo, width):
+    """K10a on an owned slab, a halo-extended one past the map's high edge
+    and one past its low edge: bit for bit its fixed-point model, on a
+    second launch and with the points permuted; against its f32 plain
+    version and the f64 sums on the same cells
+    (``chip_smoke.check_k10a``)."""
+    import chip_smoke as cs
+
+    pts, mask = _points(5, 30000, dev)
+    kernels.reset_launches()
+    cs.check_k10a("test", pts, mask, GRID, x_lo, width, jobs=[])
+    assert kernels.LAUNCHES["slab_accumulate"] >= 3
+
+
+def test_finalize_cells_matches_plain(dev):
+    """K10b (``ndt.grid.finalize`` on CUDA tensors) in the dense and the
+    slab layout against its f32 plain version: valid flags exact, the rest
+    within rtol 1e-5 (``chip_smoke.check_k10b``); the two layouts give the
+    same cells."""
+    import chip_smoke as cs
+    from ndtpu_torch.dist import gridmap
+
+    stats = _stats(dev)
+    slab = gridmap.dense_to_slab(stats, GRID)
+    kernels.reset_launches()
+    cs.check_k10b("test dense", stats, NDT, jobs=[])
+    cs.check_k10b("test slab", slab, NDT, jobs=[])
+    assert kernels.LAUNCHES["finalize_cells"] >= 4
+    a = gridmap.dense_to_slab(tgrid.finalize(stats, NDT), GRID)
+    b = gridmap.finalize_slab(slab, NDT)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_slab_sgh_matches_plain_and_match_slab_one_rank(dev):
+    """K10c on each half of a seeded map against its f32 plain version
+    (``chip_smoke.check_k10c``) at B = 1 and B = 64; the two halves' sums
+    add up to K12's terms on the whole map; and ``match_slab`` on one rank
+    (one K10c launch per evaluation, no collective) within 5e-4 of
+    ``lm_loop`` on K12 over the dense map."""
+    import chip_smoke as cs
+    from ndtpu_torch.config import MatchConfig
+    from ndtpu_torch.dist import gridmap
+    from ndtpu_torch.dist import mesh as tmesh
+
+    stats = _stats(dev)
+    ndt_map = tgrid.finalize(stats, NDT)
+    smap = gridmap.dense_to_slab(ndt_map, GRID)
+    halves = [gridmap.SlabMap(*(x[:, 24 * r:24 * r + 24].contiguous()
+                                for x in smap)) for r in range(2)]
+    pts, mask = _points(3, 360, dev)
+    rng = np.random.default_rng(6)
+    poses = torch.as_tensor(np.stack([rng.uniform(-1, 1, 64),
+                                      rng.uniform(-1, 1, 64),
+                                      rng.uniform(-0.5, 0.5, 64)], -1),
+                            dtype=torch.float32, device=dev)
+    kernels.reset_launches()
+    for r in range(2):
+        for b in (1, 64):
+            cs.check_k10c(f"test half {r}", poses[:b], pts, mask, halves[r],
+                          GRID, 24 * r, MatchConfig(), jobs=[])
+    assert kernels.LAUNCHES["slab_sgh"] >= 8
+    cfg = MatchConfig()
+    total = sum(gridmap.slab_sgh(poses, pts, mask, halves[r], GRID, 24 * r,
+                                 cfg) for r in range(2))
+    f, g, h, _ = tmatch.score_grad_hess_batch(poses, pts, mask, ndt_map,
+                                              GRID, cfg)
+    for got, ref in ((total[:, 0], f), (total[:, 3:6], g),
+                     (total[:, 6:], h.reshape(-1, 9))):
+        assert float((got - ref).abs().max()) <= 1e-4 * max(
+            float(ref.abs().max()), 1.0)
+    one = tmesh.RankMesh(0, 1, dev, ("space",))
+    kernels.reset_launches()
+    res = gridmap.match_slab(one, pts, mask, smap, poses[0], GRID, cfg)
+    assert kernels.LAUNCHES["slab_sgh"] == int(res.n_iter) + 1
+    ref = tmatch.lm_loop(lambda p: tuple(x[0] for x in
+                                         tmatch.score_grad_hess_batch(
+                                             p[None], pts, mask, ndt_map,
+                                             GRID, cfg)), poses[0], cfg)
+    assert float((res.pose - ref.pose).abs().max()) <= 5e-4
+
+
+def test_slab_kernels_refuse_cpu_tensors():
+    """K10a's, K10b's and K10c's raw entry points take CUDA tensors only
+    (the wrappers send CPU tensors to the plain versions first)."""
+    pts, mask = _points(3, 64, "cpu")
+    stats = tgrid.empty_stats(GRID)
+    m = tgrid.finalize(stats, NDT)
+    slab = [x.reshape((4, 48, 48) + x.shape[2:]) for x in m]
+    calls = [
+        lambda: kernels.slab_accumulate(pts, mask, GRID, 0, 24),
+        lambda: kernels.finalize_cells(*stats, NDT),
+        lambda: kernels.slab_sgh(torch.zeros(1, 3), pts, mask.float(),
+                                 *slab, GRID, 0, 0.5, 40.0),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):

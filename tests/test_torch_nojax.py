@@ -21,7 +21,9 @@ import ndtpu_torch.loop, ndtpu_torch.loop.closure
 import ndtpu_torch.solve_g2o, ndtpu_torch.graph.supernodal
 import ndtpu_torch.data.g2o, ndtpu_torch.native
 import ndtpu_torch.slam.merge, ndtpu_torch.dist.schur, ndtpu_torch.dist.mesh
-import ndtpu_torch.dist.launch
+import ndtpu_torch.dist.launch, ndtpu_torch.dist.gridmap
+import ndtpu_torch.dist.registration, ndtpu_torch.dist.slam_dp
+import ndtpu_torch.dist
 import chip_smoke
 from chip_smoke import box_sequence, sequence_hashes, dead_reckoning
 from ndtpu_torch import kernels
