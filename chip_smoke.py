@@ -48,12 +48,19 @@ Phases (any failure exits non-zero, and no result line is printed):
    rtol 1e-5, K6 ``pcg_solve`` against the f32 and f64 plain solves (also
    its 0-iteration mode, one launch and no host sync per ``pcg`` call, and
    the dense library solve timed beside it), K7a ``local_select`` bit for
-   bit, each bit-identical on a second launch; and ``incremental_update``
+   bit, each bit-identical on a second launch, and K6g ``pcg_solve_grid``
+   on the same graph beside K6 (the same gates); and ``incremental_update``
    through the kernels (no plain version reached) against the plain route
    in f32 and f64 for the local and global takes, the settled check and
    the full solve, and ``local_update`` with a K7a probe without a host
    sync; then config 4's kernels on bench.py's 10k-pose Manhattan graph
-   (P = 64 shards): K5 at its 10,305 rows, K9a ``supernodal_assemble`` and
+   (P = 64 shards): K5 at its 10,305 rows, K5r (K5 with each robust kind:
+   huber, cauchy, tukey, geman) against its f32 and f64 plain versions
+   there and through tests/test_robust.py's IRLS chain on the card, K6g
+   ``pcg_solve_grid`` (the PCG past one block, one cooperative launch)
+   against the f32 and f64 plain solves at lam 1e-3, 250 iterations (also
+   its 0-iteration mode, one launch and no host sync per ``pcg`` call, the
+   dense library solve timed beside it), K9a ``supernodal_assemble`` and
    K9b ``schur_reduce`` against their plain versions in f32 on the card and
    in f64 on the CPU (rtol 1e-5 of each target's max; bit-identical on a
    second launch), one ``supernodal_delta`` on the card against the f64
@@ -80,6 +87,20 @@ Phases (any failure exits non-zero, and no result line is printed):
    one K9b launch per LM iteration, K5 launched, chi^2 falling and the final
    chi^2 within 1.02 x the JAX package's f32 final chi^2 on the same graph
    (``tests/data/torch_config4_manhattan10k_ref.json``);
+8b. config 4 by PCG through its entry point (:func:`run_config4_pcg`):
+    ``solve_g2o.main`` with ``--manhattan 10000 --method pcg``, counters
+    reset just before and read just after, no plain version reached: one
+    K6g launch per ``pcg`` call, no K6, chi^2 falling and the final chi^2
+    within 1.02 x the JAX package's f32 ``--method pcg`` final chi^2
+    (``tests/data/torch_config4_pcg10k_ref.json``); then ``--manhattan
+    25000`` with ``auto``, which must take PCG;
+8c. bench.py §5 on the card under its protocol (:func:`run_incremental_10k`):
+    ``incremental_update_ms_10k`` (the active 10k update, the global take
+    through K6g), ``incremental_settled_ms_10k`` and
+    ``incremental_local_ms_10k`` (§5b's 10,064-slot graph through K7a /
+    K7b), each with its take code, its kernels and one call's poses
+    against the f64 plain route; ``marginal_covariance_pcg`` at 10k against
+    its f64 plain version;
 9. sessions of different lengths (:func:`check_padded_sessions`): the
    padding the serving CLI adds is inert on the card (all-masked
    ``lm_ndt`` lanes, K3s, K4s, the gated verify) and in a stacked run;
@@ -104,7 +125,9 @@ Phases (any failure exits non-zero, and no result line is printed):
     counters reset just before and read just after, ``global_align``,
     ``find_inter_session_loops`` at a perturbed transform, the merges and
     ``merged_map_stats`` (two K12 and two ``lm_ndt`` launches, one gated
-    verify, one K3), gated against the JAX package's run of the same pair
+    verify, one K3), and the two placement solves by PCG as the reference
+    runs them (``optimize(method="pcg")``, 15 iterations: K6g, one launch
+    per ``pcg`` call), gated against the JAX package's run of the same pair
     (``tests/data/torch_config5_merge_ref.json``); K12 against its plain
     version at the alignment's two shapes;
 13. the distributed solve (:func:`run_distributed`): ``python -m
@@ -138,7 +161,7 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``loop_gate_fused`` in phase 6; K3s, K4s, K5, K6b, K8a and the gated
     verify in phase 10; ``lm_ndt``, K12, K3 and the gated verify in phase
     12; K9c and K5 in phase 13's ranks; K10a, K10b and K10c in phase 15's
-    ranks), exactly one ``lm_ndt*`` launch per
+    ranks; K6g in phases 8b, 8c and 12), exactly one ``lm_ndt*`` launch per
     ``match_batch_packed`` call, and in phase 6 one gated verify per
     loop-detection call and no standalone K8b launch; K5, K7a and K7b
     launched in phases 4 and 6, K6 in phase 6 (config 2 may never take the
@@ -148,9 +171,10 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``lm_ndt``, and they are held to their twins in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches
-(phases 4, 6, 8, 10 and 12-15 together), errors, times and bounds, the
-repeated runs' ATEs, the smoother's counts, config 4's run and step
-timing, the serving run's aggregate scans/s and per-session results, and
+(phases 4, 6, 8, 8b, 8c, 10 and 12-15 together), errors, times and bounds,
+the repeated runs' ATEs, the smoother's counts and bench.py §5's three
+10k cells, config 4's runs (supernodal and PCG) and step timing, the
+serving run's aggregate scans/s and per-session results, and
 config 5's merge, distributed solve, SLAM rehearsal and slab map; the last
 line is ``{"ok": true,
 "device": {...}}``.
@@ -180,6 +204,8 @@ REF3_FILE = ROOT / "tests" / "data" / "torch_config3_box300_ref.json"
 #: damping, and the JAX package's final chi^2 on the same graph.
 CONFIG4 = dict(n_poses=10000, shards=64, lam=1e-3)
 REF4_FILE = ROOT / "tests" / "data" / "torch_config4_manhattan10k_ref.json"
+#: The JAX package's ``solve_g2o --manhattan 10000 --method pcg`` results.
+REF4_PCG_FILE = ROOT / "tests" / "data" / "torch_config4_pcg10k_ref.json"
 #: Stacked multi-session serving: ``python -m ndtpu_torch.serve --config
 #: configs/config_serving.json --sessions 8 --max-scans 300``, and the JAX
 #: package's per-session results on the same 8 sessions.
@@ -254,6 +280,11 @@ KERNELS = [
     # solve (PERF.md), so K6 is required in the config-3 phase only.
     dict(name="pcg_solve", source=_CSRC + "pcg_solve.cu",
          replaces="ndtpu/graph/solve.py:167", paths=("config3",)),
+    # K6g: K6 past one block; config 4 by PCG (phase 8b), bench.py §5's
+    # active 10k update (phase 8c) and config 5's merge solves (phase 12).
+    dict(name="pcg_solve_grid", source=_CSRC + "pcg_grid.cu",
+         replaces="ndtpu/graph/solve.py:167",
+         paths=("config4_pcg", "incremental_10k", "config5")),
     # K6b: the stacked smoother's per-session PCGs, serving only.
     dict(name="pcg_solve_blocked", source=_CSRC + "pcg_solve.cu",
          replaces="ndtpu/graph/solve.py:215", paths=("serving",)),
@@ -1624,16 +1655,109 @@ def check_k5(sm, cfg3, jobs=None):
     return row
 
 
+def k6_bound(g, n_it: int) -> dict:
+    """K6's and K6g's bound on a solve of ``n_it`` iterations: every
+    factor's mask (1 B), a live factor's linearization and indices (100 B),
+    the priors (57 B) and the pose mask read once; x [V, 3] and the two
+    scalars written. A dead pose's rhs is 0, so its r, z, p and x stay 0:
+    only live factors and poses need the arithmetic."""
+    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
+    live, live_v = int(g.bet_mask.sum()), int(g.pose_mask.sum())
+    return bound(f + live * 100 + p * 57 + v + v * 12 + 8,
+                 live * (K6_SETUP_FACTOR + n_it * K6_ITER_FACTOR)
+                 + live_v * (K6_SETUP_POSE + n_it * K6_ITER_POSE))
+
+
+def k6g_traffic_ms(g, n_it: int) -> float:
+    """What K6g's design moves through memory, at HBM rate: each iteration
+    the live factors' Ai, Aj (72 B) and y (12 B), the incidence entries (4
+    B), and each live pose's M^-1 (36 B), damping, x, r, z, p and q (12 B
+    each), beside the bound's one read of the inputs. Not the bound (the
+    state stays in L2); the cost of keeping the graph in global memory."""
+    live, live_v = int(g.bet_mask.sum()), int(g.pose_mask.sum())
+    ent = 2 * live + int(g.prior_mask.sum())
+    return n_it * (live * 84 + 4 * ent + live_v * 108) / HBM_BYTES_S * 1e3
+
+
+def pcg_vs_plain(name, run, g, lin, lam, max_iter: int, tol: float,
+                 it_slack: float):
+    """``run()`` (K6 or K6g) against the f32 plain ``pcg_solve_ref`` on the
+    card and the f64 plain version (CPU) on the same system: bit-identical
+    on a second launch, x finite, its error against f64 <= 2 x the f32
+    plain version's + 1e-6 x max|x|, its iterations within max(1, it_slack
+    x) the f32 plain version's. Returns ``(row fields, x, iterations)``."""
+    import torch
+
+    from ndtpu_torch.graph import solve as slv
+
+    x, it, _ = run()
+    again = run()
+    xp, itp, _ = slv.pcg_solve_ref(g, lin, None, lam, max_iter, tol)
+    lin64 = tuple(tuple(t.cpu().double() for t in part) for part in lin)
+    lam64 = lam.cpu().double() if isinstance(lam, torch.Tensor) else lam
+    x64, it64, _ = slv.pcg_solve_ref(graph_on(g, "cpu", torch.float64), lin64,
+                                     None, lam64, max_iter, tol)
+    torch.cuda.synchronize()
+    require(bits_equal((x, it), again[:2]), f"{name}: two launches differ")
+    require(bool(torch.isfinite(x).all()), f"{name}: x not finite")
+    ek = float((x.cpu().double() - x64).abs().max())
+    ep = float((xp.cpu().double() - x64).abs().max())
+    xmax = float(x64.abs().max())
+    require(ek <= 2.0 * ep + 1e-6 * xmax,
+            f"{name}: {ek:.3e} off f64, over 2 x the f32 plain version's "
+            f"{ep:.3e} + 1e-6 x {xmax:.3e}")
+    n_it, n_itp = int(it), int(itp)
+    require(abs(n_it - n_itp) <= max(1, it_slack * n_itp),
+            f"{name}: {n_it} iterations, the f32 plain version {n_itp}")
+    return (dict(max_abs_err=ek, plain_f32_err_vs_f64=ep, iterations=n_it,
+                 plain_f32_iterations=n_itp, f64_iterations=int(it64),
+                 max_abs_x=xmax), x, it)
+
+
+def check_settled_step(name, solve, g, lin, tol):
+    """The 0-iteration mode (the settled check's preconditioned step): no
+    iteration, max |M^-1 rhs| within rtol 1e-5 of the plain version's."""
+    from ndtpu_torch.graph import solve as slv
+
+    _, it0, z0 = solve(g, lin, None, 0.0, 0, tol, 1e-8)
+    _, _, z0p = slv.pcg_solve_ref(g, lin, None, 0.0, 0, tol, 1e-8)
+    require(int(it0) == 0, f"{name}: iterations with max_iter 0")
+    _rel_check(f"{name} settled step", [z0[None]], [z0p[None]])
+    return float(z0), float(z0p)
+
+
+def check_one_launch(name, counter, g, lin, lam, cfg):
+    """One ``counter`` launch, and no other PCG kernel's, per ``pcg`` call,
+    and no host sync in it."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.graph import solve as slv
+
+    pcgs = ("pcg_solve", "pcg_solve_grid")
+    before = {k: kernels.LAUNCHES[k] for k in pcgs}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slv.pcg(g, lin, lam, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    require(all(kernels.LAUNCHES[k] == before[k] + (k == counter)
+                for k in pcgs),
+            f"{name}: not one {counter} launch per pcg call")
+
+
 def check_k6(sm, cfg3, jobs=None):
     """K6 against the f32 plain ``pcg_solve_ref`` (on the card) and the f64
-    plain version (CPU) on the same system. The kernel sums in another
-    order than either, so it is not bit-equal to them: it passes when its
-    error against f64 is <= 2 x the f32 plain version's + 1e-6 x max|x| and
-    its iteration count is within 1 of the f32 plain version's. Also:
-    bit-identical on a second launch, one launch per ``pcg`` call and no
-    host sync in it, the 0-iteration mode (the settled check's step)
-    within rtol 1e-5, and the dense library solve of the same damped
-    system timed beside it."""
+    plain version (CPU) on the same system (:func:`pcg_vs_plain`; the
+    kernel sums in another order than either, so it is not bit-equal to
+    them; iterations within 1 of the f32 plain version's). Also: one
+    launch per ``pcg`` call and no host sync in it, the 0-iteration mode
+    (the settled check's step) within rtol 1e-5, and the dense library
+    solve of the same damped system timed beside it. Then K6g on the same
+    1,024-slot graph (where the route takes K6), held to the same gates
+    and timed beside K6: ``row["grid"]``."""
     import torch
 
     from ndtpu_torch import kernels
@@ -1644,41 +1768,15 @@ def check_k6(sm, cfg3, jobs=None):
     lin = fct.factor_linearize_ref(*fct._graph_args(g), cfg.huber_delta)
     lam = torch.tensor(cfg.init_lambda, dtype=torch.float32,
                        device=g.poses.device)
+    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
+    require(kernels.pcg_route(v, f, p) == "block",
+            f"K6: the route sends {v} poses, {f} factors to K6g")
     run = lambda: slv.pcg_solve(g, lin, None, lam, cfg.pcg_max_iter,
                                 cfg.pcg_tol)
-    x, it, _ = run()
-    again = run()
-    xp, itp, _ = slv.pcg_solve_ref(g, lin, None, lam, cfg.pcg_max_iter,
-                                   cfg.pcg_tol)
-    lin64 = tuple(tuple(t.cpu().double() for t in part) for part in lin)
-    x64, it64, _ = slv.pcg_solve_ref(graph_on(g, "cpu", torch.float64), lin64,
-                                     None, lam.cpu().double(),
-                                     cfg.pcg_max_iter, cfg.pcg_tol)
-    torch.cuda.synchronize()
-    require(bits_equal((x, it), again[:2]), "K6: two launches differ")
-    require(bool(torch.isfinite(x).all()), "K6: x not finite")
-    ek = float((x.cpu().double() - x64).abs().max())
-    ep = float((xp.cpu().double() - x64).abs().max())
-    xmax = float(x64.abs().max())
-    require(ek <= 2.0 * ep + 1e-6 * xmax,
-            f"K6: {ek:.3e} off f64, over 2 x the f32 plain version's "
-            f"{ep:.3e} + 1e-6 x {xmax:.3e}")
-    require(abs(int(it) - int(itp)) <= 1,
-            f"K6: {int(it)} iterations, the f32 plain version {int(itp)}")
-    _, it0, z0 = slv.pcg_solve(g, lin, None, 0.0, 0, cfg.pcg_tol, 1e-8)
-    _, _, z0p = slv.pcg_solve_ref(g, lin, None, 0.0, 0, cfg.pcg_tol, 1e-8)
-    require(int(it0) == 0, "K6: iterations with max_iter 0")
-    _rel_check("K6 settled step", [z0[None]], [z0p[None]])
-    before = kernels.LAUNCHES["pcg_solve"]
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        slv.pcg(g, lin, lam, cfg)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    require(kernels.LAUNCHES["pcg_solve"] == before + 1,
-            "K6: not one pcg_solve launch per pcg call")
+    row, _, it = pcg_vs_plain("K6", run, g, lin, lam, cfg.pcg_max_iter,
+                              cfg.pcg_tol, 0.0)
+    z0, z0p = check_settled_step("K6", slv.pcg_solve, g, lin, cfg.pcg_tol)
+    check_one_launch("K6", "pcg_solve", g, lin, lam, cfg)
     ms = time_ms(run)
     plain = time_ms(lambda: slv.pcg_solve_ref(g, lin, None, lam,
                                               cfg.pcg_max_iter, cfg.pcg_tol),
@@ -1693,32 +1791,119 @@ def check_k6(sm, cfg3, jobs=None):
         return torch.cholesky_solve(-b[:, None], chol)
 
     lib = time_ms(library)
-    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
     live, n_it = int(g.bet_mask.sum()), int(it)
     live_v = int(g.pose_mask.sum())
-    # Every factor's mask (1 B), a live factor's linearization and indices
-    # (100 B), the priors (57 B) and the pose mask read once; x [V, 3] and
-    # the two scalars written. A dead pose's rhs is 0, so its r, z, p and x
-    # stay 0: only live factors and poses need the arithmetic.
-    bd = bound(f + live * 100 + p * 57 + v + v * 12 + 8,
-               live * (K6_SETUP_FACTOR + n_it * K6_ITER_FACTOR)
-               + live_v * (K6_SETUP_POSE + n_it * K6_ITER_POSE))
+    bd = k6_bound(g, n_it)
     print(f"[smoke] K6 pcg_solve V={v} ({live_v} live) F={f} ({live} live): "
           f"{n_it} "
-          f"iterations (f32 plain {int(itp)}, f64 {int(it64)}); vs f64 max "
-          f"abs err {ek:.3e} (f32 plain {ep:.3e}; max|x| {xmax:.3e}); "
+          f"iterations (f32 plain {row['plain_f32_iterations']}, f64 "
+          f"{row['f64_iterations']}); vs f64 max "
+          f"abs err {row['max_abs_err']:.3e} (f32 plain "
+          f"{row['plain_f32_err_vs_f64']:.3e}; max|x| "
+          f"{row['max_abs_x']:.3e}); "
           f"bit-identical on a second launch; one launch per pcg call, no "
-          f"host sync; settled step {float(z0):.6e} vs {float(z0p):.6e}; "
+          f"host sync; settled step {z0:.6e} vs {z0p:.6e}; "
           f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (dense "
           f"cholesky_ex + cholesky_solve of the {3 * v} x {3 * v} damped "
           f"system: a direct solve) {lib:.4f} ms, bound {bd['bound_ms']:.6f} "
           f"ms ({bd['bound_by']})")
-    row = dict(max_abs_err=ek, ms=ms, plain_ms=plain, **bd, iterations=n_it,
-               plain_f32_err_vs_f64=ep)
+    row.update(ms=ms, plain_ms=plain, **bd)
     row.update(library_ms=lib, library="torch.linalg.cholesky_ex + "
                "torch.cholesky_solve of solve_dense's damped system: a "
                "direct solve, not the same algorithm")
     card_time(jobs, "K6 pcg_solve", row, "card_ms", run, ["pcg_solve"])
+    grid = lambda: kernels.pcg_solve_grid(
+        g.bet_i, g.bet_j, g.bet_mask, g.prior_idx, g.prior_mask, g.pose_mask,
+        lin, None, lam, cfg.pcg_max_iter, cfg.pcg_tol)
+    row_g, _, it_g = pcg_vs_plain("K6g on config 3's graph", grid, g, lin,
+                                  lam, cfg.pcg_max_iter, cfg.pcg_tol, 0.02)
+    ms_g = time_ms(grid)
+    blocks = kernels.pcg_grid_plan(v, f, p)[0]
+    row_g.update(ms=ms_g, grid_blocks=blocks, **k6_bound(g, int(it_g)))
+    print(f"[smoke] K6g pcg_solve_grid on the same graph ({blocks} blocks): "
+          f"{int(it_g)} iterations, vs f64 max abs err "
+          f"{row_g['max_abs_err']:.3e}; bit-identical on a second launch; "
+          f"kernel {ms_g:.4f} ms beside K6's {ms:.4f} ms")
+    card_time(jobs, "K6g pcg_solve_grid on config 3's graph", row_g,
+              "card_ms", grid, ["pcg_grid"])
+    row["grid"] = row_g
+    return row
+
+
+#: K6g on bench.py §4's 10k-pose graph: its damping, PCG cap and tolerance
+#: (bench.py's BA step and solve_g2o's PCG).
+K6G_10K = dict(lam=1e-3, max_iter=250, tol=1e-5)
+
+
+def check_k6g(c4, jobs=None):
+    """K6g on config 4's (bench.py §4's) 10k-pose graph, 10,305 factors,
+    K5-linearized, at lam 1e-3, 250 iterations, tol 1e-5: through
+    ``graph.solve.pcg_solve``'s route (it must say grid), against the f32
+    plain version on the card and the f64 one on the CPU
+    (:func:`pcg_vs_plain`, iterations within max(1, 2%)), bit-identical on
+    a second launch, the 0-iteration mode within rtol 1e-5, one launch and
+    no host sync per ``pcg`` call; event, card and plain times, the
+    library's dense Cholesky solve of the damped 30,000 x 30,000 system
+    (median of 5), the bound and K6g's own traffic."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import SolverConfig
+    from ndtpu_torch.graph import solve as slv
+
+    g, lin = c4["g"], c4["lin"]
+    dev = g.poses.device
+    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
+    require(kernels.pcg_route(v, f, p) == "grid",
+            f"K6g: the route keeps {v} poses, {f} factors on K6")
+    lam = torch.tensor(K6G_10K["lam"], dtype=torch.float32, device=dev)
+    mi, tol = K6G_10K["max_iter"], K6G_10K["tol"]
+    run = lambda: slv.pcg_solve(g, lin, None, lam, mi, tol)
+    row, _, it = pcg_vs_plain("K6g", run, g, lin, lam, mi, tol, 0.02)
+    z0, z0p = check_settled_step("K6g", slv.pcg_solve, g, lin, tol)
+    check_one_launch("K6g", "pcg_solve_grid", g, lin, lam,
+                     SolverConfig(pcg_max_iter=mi, pcg_tol=tol))
+    ms = time_ms(run)
+    plain = time_ms(lambda: slv.pcg_solve_ref(g, lin, None, lam, mi, tol),
+                    reps=5)
+    h, b = slv.normal_equations(g, lin)
+    damp = lam * torch.clamp(torch.abs(torch.diagonal(h)), min=1e-8)
+    hd = h + torch.diag(damp + (1.0 - g.pose_mask.float()).repeat_interleave(
+        3))
+    del h
+
+    def library():
+        chol, _ = torch.linalg.cholesky_ex(hd)
+        return torch.cholesky_solve(-b[:, None], chol)
+
+    lib = time_ms(library, reps=5)
+    del hd, b
+    torch.cuda.empty_cache()
+    n_it = int(it)
+    blocks = kernels.pcg_grid_plan(v, f, p)[0]
+    bd = k6_bound(g, n_it)
+    traffic = k6g_traffic_ms(g, n_it)
+    row.update(ms=ms, ms_per_iter=ms / max(n_it, 1), plain_ms=plain,
+               grid_blocks=blocks, traffic_ms=traffic, **bd)
+    row.update(library_ms=lib, library="torch.linalg.cholesky_ex + "
+               "torch.cholesky_solve of solve_dense's damped 30,000 x 30,000 "
+               "system (median of 5): a direct solve, not the same "
+               "algorithm")
+    print(f"[smoke] K6g pcg_solve_grid V={v} F={f} ({blocks} blocks): "
+          f"{n_it} iterations (f32 plain "
+          f"{row['plain_f32_iterations']}, f64 {row['f64_iterations']}); vs "
+          f"f64 max abs err {row['max_abs_err']:.3e} (f32 plain "
+          f"{row['plain_f32_err_vs_f64']:.3e}; max|x| "
+          f"{row['max_abs_x']:.3e}); bit-identical on a second launch; one "
+          f"launch per pcg call, no host sync; settled step {z0:.6e} vs "
+          f"{z0p:.6e}; kernel {ms:.4f} ms ({ms / max(n_it, 1) * 1e3:.2f} us "
+          f"per iteration), plain {plain:.4f} ms, library (dense "
+          f"cholesky_ex + cholesky_solve of the {3 * v} x {3 * v} damped "
+          f"system: a direct solve) {lib:.4f} ms, bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}), K6g's own traffic "
+          f"at HBM rate {traffic:.4f} ms")
+    card_time(jobs, "K6g pcg_solve_grid 10k", row, "card_ms", run,
+              ["pcg_grid"])
     return row
 
 
@@ -2021,6 +2206,139 @@ def check_k5_config4(c4):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, **bd)
 
 
+#: K5r's cases: the robust threshold (whitened units; about the median
+#: residual norm of config 4's 10k graph, 5.45, which reach ~1,650, so
+#: every kind weighs inliers and outliers alike) and the IRLS chain's
+#: bounds on the largest pose error (tests/test_robust.py).
+K5R_DELTA = 5.0
+IRLS_BOUND = {"cauchy": 0.2, "tukey": 0.1, "geman": 0.1}
+
+
+def check_k5r(c4):
+    """K5 with each robust kind (K5r) on config 4's 10k graph at
+    ``K5R_DELTA``: against its f32 plain version on the card, each array
+    and chi^2 within rtol 1e-5 of its max; against its f64 plain version on
+    the CPU, each array and chi^2 within 2 x the f32 plain version's own
+    error against f64 + 1e-6 x its max (rtol 1e-5 against f64 is past f32's
+    reach here: the f32 plain version itself is up to 2e-5 of the max off
+    f64 for tukey, whose weight 1 - u^2 cancels near u = 1); bit-identical
+    on a second launch. Returns the kinds' rows, and the IRLS chain's
+    (:func:`check_irls_chain`)."""
+    import torch
+
+    from ndtpu_torch.graph import factors as fct
+
+    g = c4["g"]
+    args = fct._graph_args(g)
+    args64 = fct._graph_args(graph_on(g, "cpu", torch.float64))
+    rows = {}
+    for kind in ("huber", "cauchy", "tukey", "geman"):
+        run = lambda: fct.linearize(g, K5R_DELTA, kind)
+        out, again = run(), run()
+        chi, chi_again = fct.chi2(g, K5R_DELTA, kind), fct.chi2(
+            g, K5R_DELTA, kind)
+        ref = fct.factor_linearize_ref(*args, K5R_DELTA, kind)
+        ref64 = fct.factor_linearize_ref(*args64, K5R_DELTA, kind)
+        torch.cuda.synchronize()
+        require(bits_equal(_flat(out), _flat(again))
+                and bits_equal(chi, chi_again),
+                f"K5r {kind}: two launches differ")
+        chi_ref = torch.sum(ref[0][2] ** 2) + torch.sum(ref[1][1] ** 2)
+        chi_64 = torch.sum(ref64[0][2] ** 2) + torch.sum(ref64[1][1] ** 2)
+        err = _rel_check(f"K5r {kind}", _flat(out) + [chi[None]],
+                         _flat(ref) + [chi_ref[None]])
+        err64 = 0.0
+        for k, (o, r, r64) in enumerate(zip(
+                _cpu64(_flat(out) + [chi[None]]),
+                _cpu64(_flat(ref) + [chi_ref[None]]),
+                _flat(ref64) + [chi_64[None]])):
+            ek = float((o - r64).abs().max())
+            ep = float((r - r64).abs().max())
+            scale = float(r64.abs().max())
+            require(ek <= 2.0 * ep + 1e-6 * scale,
+                    f"K5r {kind}: output {k} {ek:.3e} off f64, over 2 x the "
+                    f"f32 plain version's {ep:.3e} + 1e-6 x {scale:.3e}")
+            err64 = max(err64, ek)
+        ms = time_ms(run)
+        plain = time_ms(lambda: fct.factor_linearize_ref(*args, K5R_DELTA,
+                                                         kind))
+        rows[kind] = dict(max_abs_err=err, max_abs_err_vs_f64=err64, ms=ms,
+                          plain_ms=plain, chi2=float(chi))
+        print(f"[smoke] K5r factor_linearize {kind} (delta {K5R_DELTA:g}) "
+              f"on the 10k graph: vs f32 plain max abs err {err:.3e} (rtol "
+              f"1e-5 of each array's max), vs f64 {err64:.3e} (within 2 x "
+              f"the f32 plain version's), chi2 {float(chi):.6e} vs f64 "
+              f"{float(chi_64):.6e}; bit-identical on a second launch; "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    rows["irls"] = check_irls_chain(g.poses.device)
+    return rows
+
+
+def irls_chain(device, dtype):
+    """tests/test_robust.py's chain: 24 poses 1 m apart with noise, a prior
+    on pose 0, odometry factors and one wildly wrong loop factor (0 ->
+    23). Returns ``(graph, ground truth [24, 3])``."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.lie import se2
+
+    n = 24
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+    sq = t(np.diag([10.0, 10.0, 20.0]))
+    gt = np.zeros((n, 3))
+    for k in range(1, n):
+        gt[k] = gt[k - 1] + [1.0, 0.0, 0.0]
+    noisy = gt + np.random.default_rng(0).normal(0, 0.02, gt.shape)
+    noisy[0] = 0.0
+    g = fct.empty_graph(n, 2, 2 * n, dtype, device)
+    g = g._replace(poses=t(noisy),
+                   pose_mask=torch.ones(n, dtype=torch.bool, device=device),
+                   n_poses=torch.full((), n, dtype=torch.long,
+                                      device=device))
+    g = fct.add_prior(g, 0, t(np.zeros(3)), sq)
+    for k in range(1, n):
+        g = fct.add_between(g, k - 1, k, se2.between(t(gt[k - 1]), t(gt[k])),
+                            sq)
+    g = fct.add_between(g, 0, n - 1, t([2.0, 5.0, 1.5]), sq)
+    return g, gt
+
+
+def check_irls_chain(device):
+    """tests/test_robust.py's IRLS (30 damped Gauss-Newton steps of the
+    robustly weighted chain at delta 1, dense solve) on the card, K5r
+    linearizing, per redescending kind: the largest pose error within the
+    test's bound (0.2 m cauchy, 0.1 m tukey and geman), and beside it the
+    f64 plain run's."""
+    import torch
+
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import solve as slv
+
+    out = {}
+    for kind, lim in IRLS_BOUND.items():
+        errs = []
+        for dev, dt in ((device, torch.float32), ("cpu", torch.float64)):
+            graph, gt = irls_chain(dev, dt)
+            for _ in range(30):
+                d = slv.solve_dense(graph, fct.linearize(graph, 1.0, kind),
+                                    1e-6)
+                graph = graph._replace(poses=slv._apply_delta(
+                    graph.poses, d, graph.pose_mask))
+            errs.append(float((graph.poses[:, :2].cpu().double()
+                               - torch.as_tensor(gt[:, :2])).abs().max()))
+        require(errs[0] < lim, f"K5r IRLS {kind}: largest pose error "
+                f"{errs[0]:.4f} m, over {lim} m")
+        out[kind] = dict(err_m=errs[0], f64_plain_err_m=errs[1], bound_m=lim)
+    print("[smoke] K5r IRLS chain with a false loop on the card: largest "
+          "pose error " + ", ".join(f"{k} {v['err_m']:.4f} m (f64 plain "
+                                    f"{v['f64_plain_err_m']:.4f}; bound "
+                                    f"{v['bound_m']})"
+                                    for k, v in out.items()))
+    return out
+
+
 def k9a_bound(plan, lin) -> dict:
     """Bytes: K5's blocks and the routing tables read once, the five
     targets written; operations: 54 per routed 3x3 pair (A^T B and its
@@ -2238,6 +2556,20 @@ def finish_split(split):
                       for k in ("step",) + SPLIT + ("rest",)))
 
 
+def _counting(module, name):
+    """Replace ``module.name`` by a wrapper that counts its calls; returns
+    ``(counts, restore)``, ``counts["n"]`` the calls so far."""
+    saved = getattr(module, name)
+    counts = {"n": 0}
+
+    def counted(*a, **k):
+        counts["n"] += 1
+        return saved(*a, **k)
+
+    setattr(module, name, counted)
+    return counts, lambda: setattr(module, name, saved)
+
+
 def run_config4(dev, card):
     """Config 4 through its entry point: ``ndtpu_torch.solve_g2o.main
     (["--manhattan", "10000", "--shards", "64"])`` on the card, with every
@@ -2252,22 +2584,15 @@ def run_config4(dev, card):
     from ndtpu_torch.graph import supernodal as sn
 
     ref = json.loads(REF4_FILE.read_text())
-    saved = sn.supernodal_delta
-    steps = 0
-
-    def counted(*a, **k):
-        nonlocal steps
-        steps += 1
-        return saved(*a, **k)
-
-    sn.supernodal_delta = counted
+    counts, restore = _counting(sn, "supernodal_delta")
     try:
         kernels.reset_launches()
         res = solve_g2o.main(["--manhattan", str(CONFIG4["n_poses"]),
                               "--shards", str(CONFIG4["shards"])])
         launches = dict(kernels.LAUNCHES)
     finally:
-        sn.supernodal_delta = saved
+        restore()
+    steps = counts["n"]
     require(res["method"] == "supernodal",
             f"config 4: method {res['method']}, not supernodal")
     require(np.isfinite(res["poses"]).all(), "config 4: poses not finite")
@@ -2296,6 +2621,326 @@ def run_config4(dev, card):
                           chi2_final=chi1, seconds=res["seconds"],
                           converged=res["converged"],
                           ratio_jax_f32=chi1 / j32, ratio_jax_f64=chi1 / j64)
+
+
+def run_config4_pcg(dev, card):
+    """Config 4 by PCG through its entry point: ``solve_g2o.main([
+    "--manhattan", "10000", "--method", "pcg"])`` on the card, every launch
+    counter reset just before and read just after, every plain version
+    refusing CUDA tensors, and the LM iterations counted (``pcg`` calls).
+    Requires method pcg, one K6g launch per ``pcg`` call and at least one
+    call per executed iteration, no K6 launch, chi^2 falling and the final
+    chi^2 within 1.02 x the JAX package's f32 ``--method pcg`` final chi^2
+    on the same graph (``tests/data/torch_config4_pcg10k_ref.json``). Then
+    ``--manhattan 25000`` with ``auto``: it must take pcg (K6g, one launch
+    per ``pcg`` call), chi^2 must fall and the poses stay finite."""
+    import numpy as np
+
+    from ndtpu_torch import kernels, solve_g2o
+    from ndtpu_torch.graph import solve as slv
+
+    ref = json.loads(REF4_PCG_FILE.read_text())
+    runs = {}
+    for n, method in ((CONFIG4["n_poses"], "pcg"), (25000, "auto")):
+        argv = ["--manhattan", str(n)] + (["--method", method]
+                                          if method != "auto" else [])
+        counts, restore = _counting(slv, "pcg")
+        try:
+            with no_plain_on_card():
+                kernels.reset_launches()
+                res = solve_g2o.main(argv)
+                launches = dict(kernels.LAUNCHES)
+        finally:
+            restore()
+        calls = counts["n"]
+        chi0, chi1 = res["chi2_initial"], res["chi2_final"]
+        require(res["method"] == "pcg",
+                f"solve_g2o {argv}: method {res['method']}, not pcg")
+        require(np.isfinite(res["poses"]).all(),
+                f"solve_g2o {argv}: poses not finite")
+        require(launches["pcg_solve_grid"] == calls >= res["n_iter"] > 0
+                and launches["pcg_solve"] == 0
+                and launches["factor_linearize"] > 0,
+                f"solve_g2o {argv}: {launches['pcg_solve_grid']} K6g and "
+                f"{launches['pcg_solve']} K6 launches for {calls} pcg calls "
+                f"({res['n_iter']} iterations; one K6g launch per call, no "
+                f"K6, K5 launched expected)")
+        require(chi1 < chi0, f"solve_g2o {argv}: chi2 {chi0:.6e} -> "
+                f"{chi1:.6e} did not fall")
+        runs[n] = (launches, dict(method=res["method"], n_iter=res["n_iter"],
+                                  pcg_calls=calls, chi2_initial=chi0,
+                                  chi2_final=chi1, seconds=res["seconds"],
+                                  converged=res["converged"]))
+    launches, out = runs[CONFIG4["n_poses"]]
+    j32, j64 = ref["jax_f32"]["chi2_final"], ref["jax_f64"]["chi2_final"]
+    chi1 = out["chi2_final"]
+    require(chi1 <= 1.02 * j32, f"config 4 by PCG: final chi2 {chi1:.6e} "
+            f"over 1.02 x the JAX package's f32 {j32:.6e}")
+    out.update(ratio_jax_f32=chi1 / j32, ratio_jax_f64=chi1 / j64,
+               auto_25k=runs[25000][1])
+    a = out["auto_25k"]
+    print(f"[smoke] config 4 by PCG (solve_g2o --manhattan "
+          f"{CONFIG4['n_poses']} --method pcg, {card}): chi2 "
+          f"{out['chi2_initial']:.6e} -> {chi1:.6e} in {out['n_iter']} "
+          f"iterations (converged={out['converged']}), {out['seconds']:.3f} "
+          f"s; JAX f32 {j32:.6e} in {ref['jax_f32']['n_iter']} iterations "
+          f"(ratio {chi1 / j32:.6f}), JAX f64 {j64:.6e} (ratio "
+          f"{chi1 / j64:.6f}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }; --manhattan 25000 "
+          f"auto: method {a['method']}, chi2 {a['chi2_initial']:.6e} -> "
+          f"{a['chi2_final']:.6e} in {a['n_iter']} iterations, "
+          f"{a['seconds']:.3f} s")
+    return launches, out
+
+
+#: bench.py §5's incremental-update protocol at 10k poses: the solver, the
+#: damping, and the local cell's graph (10,064 pose slots, 64 more factor
+#: slots, four new poses chained by odometry) and its chaining.
+ICFG_10K = dict(inc_iters=2, pcg_max_iter=25, full_solve_every=0)
+INC_10K = dict(lam=1e-3, slots=10064, extra_factors=64, new_poses=4,
+               chain=8)
+
+
+def _fenced_median_ms(fn, reps: int, fence):
+    """bench.py's protocol: a warm-up, then the median of ``reps`` calls,
+    each fenced by a host read (``fence(out)``). Returns ``(median, all)``
+    in ms."""
+    fence(fn())
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fence(fn())
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts), ts
+
+
+def local_graph_10k(sg):
+    """bench.py §5b's graph: the settled 10k graph ``sg`` in a graph of
+    10,064 pose and F + 64 factor slots, then four new poses chained to the
+    last by 1 m odometry (sqrt-info 10 I). Returns ``(graph, since)``,
+    ``since`` the factor count before the new factors."""
+    import torch
+
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.lie import se2
+
+    dev, dt = sg.poses.device, sg.poses.dtype
+    f0 = sg.bet_mask.shape[0]
+    big = fct.empty_graph(INC_10K["slots"], 4, f0 + INC_10K["extra_factors"],
+                          dt, dev)
+
+    def put(dst, src):
+        out = dst.clone()
+        out[:src.shape[0]] = src
+        return out
+
+    big = big._replace(
+        poses=put(big.poses, sg.poses), pose_mask=put(big.pose_mask,
+                                                      sg.pose_mask),
+        prior_idx=sg.prior_idx, prior_z=sg.prior_z,
+        prior_sqrt_info=sg.prior_sqrt_info, prior_mask=sg.prior_mask,
+        bet_i=put(big.bet_i, sg.bet_i), bet_j=put(big.bet_j, sg.bet_j),
+        bet_z=put(big.bet_z, sg.bet_z),
+        bet_sqrt_info=put(big.bet_sqrt_info, sg.bet_sqrt_info),
+        bet_mask=put(big.bet_mask, sg.bet_mask), n_poses=sg.n_poses,
+        n_priors=sg.n_priors, n_between=sg.n_between)
+    since = big.n_between.clone()
+    last = int(big.n_poses) - 1
+    step = torch.tensor([1.0, 0.02, 0.01], dtype=dt, device=dev)
+    odo = torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=dev)
+    sq = torch.eye(3, dtype=dt, device=dev) * 10.0
+    for k in range(INC_10K["new_poses"]):
+        idx = int(big.n_poses)
+        big = fct.add_pose(big, se2.compose(big.poses[last + k], step))
+        big = fct.add_between(big, last + k, idx, odo, sq)
+    return big, since
+
+
+def update_vs_plain(name, state, icfg, since=None):
+    """One ``incremental_update`` through the kernels (no plain version
+    reached; launches counted) against the plain route in f32 and f64 on
+    the CPU from the same state: take codes equal, poses within 2 x the
+    f32 plain route's error against f64 + 1e-6 x max|pose| (the kernels
+    do the plain route's f32 arithmetic in other summation orders, so
+    their distance from f64 is of the f32 route's size). Returns ``(take,
+    launches, kernel error, f32 plain error)``."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.graph import incremental as inc
+
+    res = {}
+    for route, dev, dt in ROUTES:
+        dt = getattr(torch, dt)
+        st = inc.SmootherState(graph_on(state.graph, dev, dt),
+                               state.lam.to(dev, dt),
+                               state.last_max_delta.to(dev, dt),
+                               state.step.to(dev))
+        sn = None if since is None else since.to(dev)
+        if route == "kernel":
+            with no_plain_on_card():
+                kernels.reset_launches()
+                out, take = inc.incremental_update(st, icfg, fresh_since=sn,
+                                                   return_take=True)
+                torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)
+        else:
+            out, take = inc.incremental_update(st, icfg, fresh_since=sn,
+                                               return_take=True)
+        res[route] = (out.graph.poses.cpu().double(), int(take))
+    takes = {k: v[1] for k, v in res.items()}
+    require(len(set(takes.values())) == 1,
+            f"{name}: take codes differ: {takes}")
+    p64, pk = res["f64"][0], res["kernel"][0]
+    ek = float((pk - p64).abs().max())
+    ep = float((res["f32"][0] - p64).abs().max())
+    pmax = float(p64.abs().max())
+    require(bool(torch.isfinite(pk).all()), f"{name}: poses not finite")
+    require(ek <= 2.0 * ep + 1e-6 * pmax,
+            f"{name}: poses {ek:.3e} off f64, over 2 x the f32 plain "
+            f"route's {ep:.3e} + 1e-6 x {pmax:.3e}")
+    return takes["kernel"], launches, ek, ep
+
+
+def run_incremental_10k(c4, card, seed: int):
+    """bench.py §5 on the card under its own protocol (``ICFG_10K``, lam
+    1e-3, medians of 10 host-fenced calls, the local path's of 6 chains of
+    8, each call's poses jiggled by N(0, 1e-6) from ``seed``):
+    ``incremental_update_ms_10k`` (the active step on bench.py §4's graph:
+    the global take, K5 + K6g), ``incremental_settled_ms_10k`` (the graph
+    settled by ``optimize(SolverConfig(max_iter=30, pcg_max_iter=250),
+    method="pcg")`` on the card, last step 0) and
+    ``incremental_local_ms_10k`` (§5b's 10,064-slot graph: ``local_update``
+    chained x8 in a Python loop, per update). Per path: the take code (1
+    active, 2 local, settled as the plain route decides), the kernels
+    launched (K6g and no K6 for the active take; K7a and K7b and no PCG
+    kernel for the local one), and one call's poses against the plain
+    route (:func:`update_vs_plain`). Then ``marginal_covariance_pcg`` of
+    pose 5,000 of the settled graph against its f64 plain version, rtol
+    1e-3. Returns ``(the active take's launches, record)``."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch.config import SolverConfig
+    from ndtpu_torch.graph import incremental as inc
+    from ndtpu_torch.graph import solve as slv
+
+    icfg = SolverConfig(**ICFG_10K)
+    g = c4["g"]
+    dev = g.poses.device
+    lam = torch.tensor(INC_10K["lam"], dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(seed + 5)
+    state = lambda gr, last: inc.SmootherState(
+        gr, lam, torch.tensor(last, dtype=torch.float32, device=dev),
+        torch.zeros((), dtype=torch.long, device=dev))
+    jiggle_graph = lambda gr: gr._replace(
+        poses=gr.poses + float(rng.normal(0, 1e-6)))
+    jiggle = lambda s: s._replace(graph=jiggle_graph(s.graph))
+    fence = lambda out: out.graph.poses[0].cpu()
+    rec = {}
+    launches = {}
+    # The active step: the global take on the §4 graph.
+    st = state(g, float("inf"))
+    take, launches["active"], ek, ep = update_vs_plain(
+        "incremental active 10k", st, icfg)
+    la = launches["active"]
+    require(take == 1 and la["pcg_solve_grid"] == icfg.inc_iters
+            and la["pcg_solve"] == 0,
+            f"incremental active 10k: take {take}, {la['pcg_solve_grid']} "
+            f"K6g and {la['pcg_solve']} K6 launches (take 1, one K6g per "
+            f"LM step, no K6 expected)")
+    ms, ts = _fenced_median_ms(
+        lambda: inc.incremental_update(jiggle(st), icfg), 10, fence)
+    rec["incremental_update_ms_10k"] = ms
+    rec["active"] = dict(take=take, err_vs_f64=ek, plain_f32_err_vs_f64=ep,
+                         times_ms=ts, launches=launches_nonzero(la))
+    # The settled graph.
+    t0 = time.perf_counter()
+    sol = slv.optimize(g, SolverConfig(max_iter=30, pcg_max_iter=250),
+                       method="pcg")
+    sg = sol.graph
+    settle_s = time.perf_counter() - t0
+    st2 = state(sg, 0.0)
+    take2, launches["settled"], ek2, ep2 = update_vs_plain(
+        "incremental settled 10k", st2, icfg)
+    ls = launches["settled"]
+    require(ls["pcg_solve"] == 0, "incremental settled 10k: K6 launched")
+    ms2, ts2 = _fenced_median_ms(
+        lambda: inc.incremental_update(jiggle(st2), icfg), 10, fence)
+    rec["incremental_settled_ms_10k"] = ms2
+    rec["settled"] = dict(take=take2, err_vs_f64=ek2,
+                          plain_f32_err_vs_f64=ep2, times_ms=ts2,
+                          launches=launches_nonzero(ls), settle_s=settle_s,
+                          settle_iters=int(sol.n_iter),
+                          settle_chi2=float(sol.chi2))
+    # The local update on §5b's graph.
+    big, since = local_graph_10k(sg)
+    take3, launches["local"], ek3, ep3 = update_vs_plain(
+        "incremental local 10k", state(big, float("inf")), icfg, since)
+    ll = launches["local"]
+    require(take3 == 2 and ll["local_select"] > 0 and ll["local_assemble"]
+            > 0 and ll["pcg_solve"] == 0 and ll["pcg_solve_grid"] == 0,
+            f"incremental local 10k: take {take3}, launches "
+            f"{launches_nonzero(ll)} "
+            f"(take 2 through K7a and K7b, no PCG kernel expected)")
+
+    def chain():
+        gg, ll_ = jiggle_graph(big), lam
+        for _ in range(INC_10K["chain"]):
+            gg, ll_, _ = inc.local_update(
+                gg._replace(poses=gg.poses + 1e-9), ll_, icfg, since=since)
+        return gg
+
+    ms3, ts3 = _fenced_median_ms(chain, 6, lambda gg: gg.poses[0].cpu())
+    rec["incremental_local_ms_10k"] = ms3 / INC_10K["chain"]
+    rec["local"] = dict(take=take3, err_vs_f64=ek3, plain_f32_err_vs_f64=ep3,
+                        chain_times_ms=ts3, launches=launches_nonzero(ll),
+                        pose_slots=int(big.poses.shape[0]),
+                        factor_slots=int(big.bet_i.shape[0]))
+    rec["marginal_covariance_pcg"] = check_marginal_10k(sg)
+    print(f"[smoke] bench.py §5 on the card ({card}; inc_iters 2, "
+          f"pcg_max_iter 25, medians of 10 host-fenced calls): "
+          f"incremental_update_ms_10k {ms:.3f} (take 1, poses {ek:.3e} off "
+          f"f64, f32 plain {ep:.3e}; launches {rec['active']['launches']}), "
+          f"incremental_settled_ms_10k {ms2:.3f} (take {take2}, graph settled "
+          f"in {settle_s:.2f} s, {int(sol.n_iter)} iterations, chi2 "
+          f"{float(sol.chi2):.6e}; launches {rec['settled']['launches']}), "
+          f"incremental_local_ms_10k {rec['incremental_local_ms_10k']:.3f} "
+          f"(take 2 on {big.poses.shape[0]} pose slots, poses {ek3:.3e} off "
+          f"f64, f32 plain {ep3:.3e}; chained x{INC_10K['chain']}, median "
+          f"of 6; launches {rec['local']['launches']})")
+    return la, rec
+
+
+def check_marginal_10k(sg):
+    """``marginal_covariance_pcg`` of the middle pose (5,000) of the settled
+    10k graph
+    on the card (three K6g solves against unit vectors) against its f64
+    plain version on the CPU (the same linearization in f64): rtol 1e-3
+    of the covariance's largest entry."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import SolverConfig
+    from ndtpu_torch.graph import incremental as inc
+
+    cfg, idx = SolverConfig(), sg.poses.shape[0] // 2
+    before = kernels.LAUNCHES["pcg_solve_grid"]
+    with no_plain_on_card():
+        cov = inc.marginal_covariance_pcg(sg, idx, cfg)
+        torch.cuda.synchronize()
+    n = kernels.LAUNCHES["pcg_solve_grid"] - before
+    cov64 = inc.marginal_covariance_pcg(graph_on(sg, "cpu", torch.float64),
+                                        idx, cfg)
+    err = _rel_check("marginal_covariance_pcg 10k", [cov.cpu().double()],
+                     [cov64], rtol=1e-3)
+    require(n == 3, f"marginal_covariance_pcg 10k: {n} K6g launches (three "
+            f"expected)")
+    print(f"[smoke] marginal_covariance_pcg of pose {idx} at 10k on the card "
+          f"(three K6g launches): max abs err {err:.3e} vs f64 (rtol 1e-3 of "
+          f"the largest entry {float(cov64.abs().max()):.6e})")
+    return dict(pose=idx, max_abs_err=err, max_abs=float(cov64.abs().max()),
+                k6g_launches=n)
 
 
 def run_entry_point(dev, config, n_scans: int):
@@ -3196,9 +3841,11 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
     transform; two K12 and two ``lm_ndt`` launches (one per pass), one
     gated verify, one K3; at least one inter-session loop and half JAX's
     count; the map's counts equal K3's plain version's exactly; both
-    perturbed merges solved in process (``optimize_supernodal``, 15
-    iterations; K6 takes no 2,048-pose graph) with B's placement error at
-    most max(0.15 m, 2 x JAX f32's), and below 0.6 x the anchor-only one
+    perturbed merges solved in process by PCG as the reference solves them
+    (``optimize(method="pcg")``, 15 iterations, bench.py:642-649; K6g, one
+    launch per ``pcg`` call, counters reset just before) with B's
+    placement error at most max(0.15 m, 2 x JAX f32's), and below 0.6 x
+    the anchor-only one
     where JAX f32's own run is (on this pair it is not: under the 0.06 rad
     perturbation most accepted inter-session factors sit on an
     along-corridor alias in the JAX package too, which the reference file
@@ -3217,6 +3864,7 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
     from ndtpu_torch import kernels
     from ndtpu_torch.config import MatchConfig, PipelineConfig, SolverConfig
     from ndtpu_torch.dist import launch
+    from ndtpu_torch.graph import solve as slv
     from ndtpu_torch.graph import supernodal as sn
     from ndtpu_torch.lie import se2
     from ndtpu_torch.loop import closure
@@ -3237,15 +3885,8 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
     map_a = ndt_grid.finalize(sa.stats, cfg.ndt)
     probe, probe_mask = sb.kf.points[0], sb.kf.masks[0]
 
-    saved = closure.verify_candidates_cached_flat
-    verifies = 0
-
-    def counted(*a, **k):
-        nonlocal verifies
-        verifies += 1
-        return saved(*a, **k)
-
-    closure.verify_candidates_cached_flat = counted
+    verify_counts, restore = _counting(closure,
+                                       "verify_candidates_cached_flat")
     stage = {}
     try:
         with no_plain_on_card(PLAIN_CONFIG5):
@@ -3277,7 +3918,8 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
             launches = dict(kernels.LAUNCHES)
             calls = match.CALLS["match_batch_packed"]
     finally:
-        closure.verify_candidates_cached_flat = saved
+        restore()
+    verifies = verify_counts["n"]
 
     err = se2.between(transform, t_true.cpu())
     err_j = se2.between(transform, torch.tensor(j32["transform"]))
@@ -3316,14 +3958,32 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
     require(torch.equal(stats.n, plain.n),
             "config 5: merged_map_stats' counts differ from K3's plain "
             "version")
-    # Both merges solved in process; B's placement.
+    # Both merges solved in process by PCG, as the reference does
+    # (bench.py:642-649), with the launch counters reset just before and
+    # the pcg calls counted: one K6g launch each; B's placement.
+    require(kernels.pcg_route(g_auto.poses.shape[0], g_auto.bet_i.shape[0],
+                              g_auto.prior_idx.shape[0]) == "grid",
+            "config 5: the merged graph fits K6's one block")
+    counts, restore = _counting(slv, "pcg")
     t1 = time.perf_counter()
-    with no_plain_on_card(PLAIN_CONFIG5):
-        errs = [b_placement_err(sn.optimize_supernodal(
-            g, SolverConfig(max_iter=15)).graph.poses, sa, sb, t_true)
-            for g in (g_anchor, g_auto)]
-    torch.cuda.synchronize()
+    try:
+        with no_plain_on_card(PLAIN_CONFIG5):
+            kernels.reset_launches()
+            errs = [b_placement_err(slv.optimize(
+                g, SolverConfig(max_iter=15), method="pcg").graph.poses, sa,
+                sb, t_true) for g in (g_anchor, g_auto)]
+            torch.cuda.synchronize()
+            solve_launches = dict(kernels.LAUNCHES)
+    finally:
+        restore()
     stage["solves_s"] = time.perf_counter() - t1
+    require(solve_launches["pcg_solve_grid"] == counts["n"] > 0
+            and solve_launches["pcg_solve"] == 0,
+            f"config 5: {solve_launches['pcg_solve_grid']} K6g and "
+            f"{solve_launches['pcg_solve']} K6 launches for {counts['n']} "
+            f"pcg calls in the merge solves (one K6g each, no K6 expected)")
+    launches = {k: v + solve_launches[k] for k, v in launches.items()}
+    stage["solve_pcg_calls"] = counts["n"]
     jax_ratio = (j32["b_placement_err_auto_m"]
                  < 0.6 * j32["b_placement_err_anchor_m"])
     require(errs[1] <= max(0.15, 2 * j32["b_placement_err_auto_m"])
@@ -4473,6 +5133,9 @@ def main(argv=None) -> int:
     # bench's BA step timing.
     c4 = config4_case(dev, args.seed)
     results["factor_linearize"]["config4"] = check_k5_config4(c4)
+    results["factor_linearize"]["robust"] = check_k5r(c4)
+    results["pcg_solve_grid"] = check_k6g(c4, jobs)
+    results["pcg_solve_grid"]["config3"] = results["pcg_solve"].pop("grid")
     results["supernodal_assemble"], k9a_out = check_k9a(c4, jobs)
     results["schur_reduce"] = check_k9b(c4, k9a_out, jobs)
     del k9a_out
@@ -4493,6 +5156,8 @@ def main(argv=None) -> int:
             f"{detections} loop-detection calls (one gated launch each, no "
             f"standalone gate, expected)")
     launches4, config4 = run_config4(dev, card)
+    launches4p, config4["pcg"] = run_config4_pcg(dev, card)
+    launches10k, incremental10k = run_incremental_10k(c4, card, args.seed)
     # Stacked serving through its entry point, then K6b, K3s and K4s on the
     # state its last run left (8 sessions' graphs, maps and keyframes).
     check_padded_sessions(dev)
@@ -4526,6 +5191,7 @@ def main(argv=None) -> int:
     results.update(rows15)
     del keep
     paths = {"config2": launches2, "config3": launches3, "config4": launches4,
+             "config4_pcg": launches4p, "incremental_10k": launches10k,
              "serving": launches8, "config5": launches5,
              "config5_dist": launches5d, "slam_launch": launches14,
              "config5_slab": launches15}
@@ -4546,7 +5212,8 @@ def main(argv=None) -> int:
     print(f"[smoke] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     smoother = {"takes_checked": takes,
-                "config2": counts2, "config3": counts3}
+                "config2": counts2, "config3": counts3,
+                "incremental_10k": incremental10k}
     config4.update(step=step4, ba_solve_ms_per_iter_10k=ba_split)
     print(json.dumps({"kernels": rows, "repeat_runs": repeats,
                       "smoother": smoother, "config4": config4,

@@ -220,9 +220,10 @@ def factor_linearize(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask,
                      prior_idx, prior_z, prior_sqrt_info, prior_mask,
                      huber_delta: float = 0.0, robust: str = "huber",
                      fid=None, chi_only: bool = False):
-    """K5 wrapper: CUDA tensors go to the kernel (f32, Huber only), CPU
-    tensors to :func:`factor_linearize_ref`. Returns ``((Ai, Aj, r), (Ap,
-    rp))``, or with ``chi_only`` the total weighted squared error ``[]``."""
+    """K5 wrapper: CUDA tensors go to the kernel (f32, every ``robust``
+    kind of :func:`robust_weight`), CPU tensors to
+    :func:`factor_linearize_ref`. Returns ``((Ai, Aj, r), (Ap, rp))``, or
+    with ``chi_only`` the total weighted squared error ``[]``."""
     if not poses.is_cuda:
         lin = factor_linearize_ref(poses, bet_i, bet_j, bet_z, bet_sqrt_info,
                                    row_mask, prior_idx, prior_z,
@@ -232,14 +233,10 @@ def factor_linearize(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask,
             return lin
         (_, _, r), (_, rp) = lin
         return torch.sum(r * r) + torch.sum(rp * rp)
-    if huber_delta > 0.0 and robust != "huber":
-        raise NotImplementedError(
-            f"factor_linearize on the card: robust kernel {robust!r}; the "
-            f"kernel weighs by Huber only")
     return kernels.factor_linearize(
         poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask, prior_idx,
         prior_z, prior_sqrt_info, prior_mask, huber_delta, fid=fid,
-        chi_only=chi_only)
+        chi_only=chi_only, robust=robust)
 
 
 def _graph_args(g: PoseGraph):

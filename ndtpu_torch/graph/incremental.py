@@ -2,12 +2,13 @@
 
 Port of ``ndtpu/graph/incremental.py``: warm-started LM-PCG updates, the
 settled-estimate skip, the k-hop local update with its static capacities,
-the periodic full solve, and the marginal covariances (three K6 solves
+the periodic full solve, and the marginal covariances (three PCG solves
 against unit vectors, or the dense inverse).
 
 Each ``lax.cond`` of the JAX version is a Python ``if`` on a 0-d tensor:
 one host sync, and only the taken branch runs, as in ``cond``. On the card
-the factors are linearized by K5, the PCG solves run in K6, and the local
+the factors are linearized by K5, the PCG solves run in K6 (graphs that fit
+one block) or K6g (larger ones, such as bench.py's 10k poses), and the local
 path selects (K7a: ``lax.top_k`` over 0/1 flags as stable compactions, ties
 in index order as ``top_k`` orders them) and assembles (K7b) without host
 syncs; the dense local Cholesky is ``cholesky_ex``. On the CPU the plain
@@ -286,7 +287,7 @@ def incremental_update(state: SmootherState, cfg: SolverConfig,
 
     def slow_check(g, lam):
         # The block-Jacobi preconditioned gradient's max |entry| is K6's
-        # set-up with lam = 0, damping 1e-8 and no iteration.
+        # (or K6g's) set-up with lam = 0, damping 1e-8 and no iteration.
         _, _, step = slv.pcg_solve(g, fct.linearize(g, huber_delta), None,
                                    0.0, 0, cfg.pcg_tol, damp_abs=1e-8)
         if bool(step < cfg.relin_threshold):
@@ -329,8 +330,8 @@ def marginal_covariance_pcg(graph: fct.PoseGraph, idx: int,
                             lam: float = 1e-8):
     """3x3 marginal covariance of pose ``idx`` on large graphs: three
     matrix-free PCG solves ``H x = e_k`` against the unit vectors of the
-    pose's block (one K6 launch each on the card; K6 takes one right-hand
-    side per launch), never forming the ``[3V, 3V]`` Hessian."""
+    pose's block (one K6 or K6g launch each on the card; each takes one
+    right-hand side per launch), never forming the ``[3V, 3V]`` Hessian."""
     lin = fct.linearize(graph, huber_delta)
     v, dt, dev = graph.poses.shape[0], graph.poses.dtype, graph.poses.device
     lam_t = torch.tensor(lam, dtype=dt, device=dev)

@@ -1,9 +1,11 @@
 """Pose-graph solvers: dense Gauss-Newton/LM and block-Jacobi PCG.
 
 Port of ``ndtpu/graph/solve.py``. On the card the whole PCG solve is one
-launch of K6 (``csrc/pcg_solve.cu``: set-up, loop and stop test on the
-device), and the multi-session ``pcg_rhs_blocked`` one launch of K6b (one
-block per session). On the CPU, and in ``optimize``, JAX's
+launch: of K6 (``csrc/pcg_solve.cu``: set-up, loop and stop test on the
+device, in one block) where the graph fits one block's shared memory, of
+K6g (``csrc/pcg_grid.cu``: the same across many SMs, cooperative) past it
+(``kernels.pcg_route``); the multi-session ``pcg_rhs_blocked`` is one
+launch of K6b (one block per session). On the CPU, and in ``optimize``, JAX's
 ``lax.while_loop`` becomes a loop of masked iterations: once a run's stop
 test fires its carry is frozen, so extra iterations change nothing, and
 the host checks for an early exit only every ``_SYNC_EVERY`` iterations.
@@ -155,21 +157,25 @@ def pcg_rhs(g: fct.PoseGraph, lin, rhs, lam, cfg: SolverConfig):
 
 def pcg_solve(g: fct.PoseGraph, lin, rhs, lam, max_iter: int, tol: float,
               damp_abs: float = 0.0):
-    """K6 wrapper: the whole PCG solve. CUDA tensors go to the kernel (one
-    launch, no host sync), CPU tensors to :func:`pcg_solve_ref`. ``rhs``
-    None means ``-gradient``. Returns ``(x [V, 3], iterations [] int32,
-    max |M^-1 rhs| [])``; the last, with ``lam = 0``, ``damp_abs = 1e-8``
-    and ``max_iter = 0``, is the settled check's preconditioned step."""
+    """K6 / K6g wrapper: the whole PCG solve. CUDA tensors go to a kernel
+    (one launch, no host sync): K6 where ``kernels.pcg_route`` says the
+    graph fits one block, K6g otherwise; CPU tensors to
+    :func:`pcg_solve_ref`. ``rhs`` None means ``-gradient``. Returns ``(x
+    [V, 3], iterations [] int32, max |M^-1 rhs| [])``; the last, with
+    ``lam = 0``, ``damp_abs = 1e-8`` and ``max_iter = 0``, is the settled
+    check's preconditioned step."""
     if not g.poses.is_cuda:
         return pcg_solve_ref(g, lin, rhs, lam, max_iter, tol, damp_abs)
-    return kernels.pcg_solve(g.bet_i, g.bet_j, g.bet_mask, g.prior_idx,
-                             g.prior_mask, g.pose_mask, lin, rhs, lam,
-                             max_iter, tol, damp_abs)
+    route = kernels.pcg_route(g.poses.shape[0], g.bet_i.shape[0],
+                              g.prior_idx.shape[0])
+    solve = kernels.pcg_solve if route == "block" else kernels.pcg_solve_grid
+    return solve(g.bet_i, g.bet_j, g.bet_mask, g.prior_idx, g.prior_mask,
+                 g.pose_mask, lin, rhs, lam, max_iter, tol, damp_abs)
 
 
 def pcg_solve_ref(g: fct.PoseGraph, lin, rhs, lam, max_iter: int,
                   tol: float, damp_abs: float = 0.0):
-    """The plain version of K6 (CPU path and oracle): a loop of masked
+    """The plain version of K6 and K6g (CPU path and oracle): a loop of masked
     iterations; once the stop test fires the carry stays frozen, as in the
     JAX ``while_loop``, and the host checks for an early exit every
     ``_SYNC_EVERY`` iterations. The damping is ``lam * max(|diag H|, 1e-8)

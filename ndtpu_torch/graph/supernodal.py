@@ -160,7 +160,7 @@ def plan_supernodal(graph: fct.PoseGraph, n_shards: int,
             f"n_shards={n_shards}. Use fewer shards, "
             f"or the matrix-free PCG solver "
             f"(ndtpu_torch.graph.solve.optimize(method='pcg'); on the card "
-            f"its one-block kernel takes ~1,400 poses, ROADMAP A10).")
+            f"K6g takes graphs of any size device memory holds).")
 
     # The variable maps in ORIGINAL pose indices, so the step writes
     # straight into the unpermuted delta.

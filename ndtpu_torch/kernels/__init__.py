@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Twenty kernels carry the windowed pipeline with loop closure, the
-pose-graph smoother, the large-graph supernodal solve, stacked
+Twenty-one kernels carry the windowed pipeline with loop closure, the
+pose-graph smoother, the large-graph supernodal and PCG solves, stacked
 multi-session serving, config 5's merge and distributed solve, and its
 slab-sharded map (ROADMAP Queue B):
 
@@ -25,13 +25,20 @@ pack_stacked                                 (``slam_dp`` ``pack8``)
 local_tables ``csrc/local_tables.cu`` (K8a)  ``closure.build_local_table``
                                              over a window's keyframes
 loop_gate    ``csrc/loop_gate.cu`` (K8b)     ``closure._gate_and_pack``
-factor_      ``csrc/factor_linearize.cu``    ``factors.linearize`` / ``chi2``,
-linearize    (K5)                            ``incremental.fresh_residual_max``
+factor_      ``csrc/factor_linearize.cu``    ``factors.linearize`` / ``chi2``
+linearize    (K5, with the robust kinds      (``robust_weight``: huber,
+             K5r)                            cauchy, tukey, geman),
+                                             ``incremental.fresh_residual_max``
                                              and the local path's gathered
                                              linearization and ``chi_local``
 pcg_solve    ``csrc/pcg_solve.cu`` (K6)      ``solve.pcg_rhs`` (matvec,
                                              gradient, block diagonal,
                                              ``_inv3``, the loop): one launch
+                                             of one block, graphs that fit
+                                             its shared memory
+pcg_solve_   ``csrc/pcg_grid.cu`` (K6g)      the same past one block: one
+grid                                         cooperative launch across many
+                                             SMs, the graph in global memory
 pcg_solve_   ``csrc/pcg_solve.cu`` (K6b)     ``solve.pcg_rhs_blocked``: S
 blocked                                      sessions' PCGs, one block each
 local_select ``csrc/local_system.cu`` (K7a)  ``incremental._active_probe`` +
@@ -61,10 +68,12 @@ slab_sgh     ``csrc/ndt_unpacked.cu`` (K10c) ``match_slab``'s per-rank terms
                                              (the 15 sums before its psum)
 ============ =============================== =================================
 
-K5, K6 and K7b share the pose graph's arithmetic, ``csrc/pose_graph.cuh``
-(``wrap``, the between error and Jacobians, whitening, the Huber weight,
-``_inv3``, and block reductions in a fixed order): no float atomics, so
-the smoother's results are the same on every launch. The graph wrappers
+K5, K6, K6g and K7b share the pose graph's arithmetic,
+``csrc/pose_graph.cuh`` (``wrap``, the between error and Jacobians,
+whitening, the robust weights, ``_inv3``, and block reductions in a fixed
+order): no float atomics, so the smoother's results are the same on every
+launch. ``graph.solve.pcg_solve`` takes K6 where :func:`pcg_route` says
+the graph fits one block and K6g otherwise. The graph wrappers
 (``graph.factors.linearize`` / ``chi2`` / ``factor_linearize``,
 ``graph.solve.pcg_solve``, ``graph.incremental.local_select`` and
 ``fresh_residual_max``, ``dist.schur.assemble_local``,
@@ -125,8 +134,9 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "GATE_MAX_LANES", "ndt_terms", "halfcell_add",
            "halfcell_add_stacked", "finalize_bands", "finalize_pack",
            "finalize_pack_stacked", "local_bands", "local_tables",
-           "loop_gate", "factor_linearize", "fresh_residual_max",
-           "pcg_solve", "pcg_solve_blocked", "local_select",
+           "loop_gate", "ROBUST_KINDS", "robust_code", "factor_linearize",
+           "fresh_residual_max", "pcg_smem", "pcg_route", "pcg_grid_plan",
+           "pcg_solve", "pcg_solve_grid", "pcg_solve_blocked", "local_select",
            "local_assemble", "supernodal_assemble", "schur_reduce",
            "schur_local_assemble", "ndt_sgh_unpacked", "slab_accumulate",
            "finalize_cells", "slab_sgh"]
@@ -137,8 +147,8 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "halfcell_add_stacked": 0, "finalize_pack": 0,
             "finalize_pack_stacked": 0, "local_tables": 0, "loop_gate": 0,
             "loop_gate_fused": 0, "factor_linearize": 0, "pcg_solve": 0,
-            "pcg_solve_blocked": 0, "local_select": 0, "local_assemble": 0,
-            "supernodal_assemble": 0, "schur_reduce": 0,
+            "pcg_solve_grid": 0, "pcg_solve_blocked": 0, "local_select": 0,
+            "local_assemble": 0, "supernodal_assemble": 0, "schur_reduce": 0,
             "schur_local_assemble": 0, "ndt_sgh_unpacked": 0,
             "slab_accumulate": 0, "finalize_cells": 0, "slab_sgh": 0}
 
@@ -173,10 +183,13 @@ _SIGNATURES = {
                            + [_I, _P],
     "loop_gate_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _F, _F, _F, _I, _P],
-    "factor_linearize_launch": [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I, _F]
+    "factor_linearize_launch": [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I, _F, _I]
                                + [_P] * 7,
     "pcg_solve_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I] + [_P] * 7
                         + [_F, _F, _I, _F] + [_P] * 3 + [_I, _P],
+    "pcg_grid_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I] + [_P] * 7
+                       + [_F, _F, _I, _F] + [_P] * 5 + [_I, _P],
+    "pcg_grid_plan": [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
     "pcg_solve_blocked_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I]
                                 + [_P] * 7 + [_I, _P, _I, _I, _P],
     "local_select_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P]
@@ -726,9 +739,22 @@ def _check_graph(bet_i, bet_j, bet_mask, prior_idx, prior_mask):
     return f, p
 
 
+#: The robust kernels of ``graph.factors.robust_weight``, in the order of
+#: their codes in ``csrc/pose_graph.cuh``.
+ROBUST_KINDS = ("huber", "cauchy", "tukey", "geman")
+
+
+def robust_code(kind: str) -> int:
+    """K5's code of the robust kernel ``kind``; raises ``ValueError`` on an
+    unknown name, as ``graph.factors.robust_weight`` does."""
+    if kind not in ROBUST_KINDS:
+        raise ValueError(f"unknown robust kernel {kind!r}")
+    return ROBUST_KINDS.index(kind)
+
+
 def _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask, fid,
               n_between, rows, window, prior_idx, prior_z, prior_sqrt_info,
-              prior_mask, huber_delta, jac):
+              prior_mask, delta, kind, jac):
     """One K5 call: ``(scalars [2 + 2 * blocks], f32 outputs or None)``."""
     v, f, p = poses.shape[0], bet_i.shape[0], prior_idx.shape[0]
     _check(poses, "poses", shape=(v, 3))
@@ -755,28 +781,32 @@ def _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask, fid,
           None if n_between is None else n_between.data_ptr(), rows, window,
           f, prior_idx.data_ptr(), prior_z.data_ptr(),
           prior_sqrt_info.data_ptr(), prior_mask.data_ptr(), p,
-          float(huber_delta), *(ptrs or [None] * 5), scal.data_ptr(),
+          float(delta), kind, *(ptrs or [None] * 5), scal.data_ptr(),
           _stream(poses))
     return scal, out
 
 
 def factor_linearize(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask,
                      prior_idx, prior_z, prior_sqrt_info, prior_mask,
-                     huber_delta: float, fid=None, chi_only: bool = False):
-    """K5: the whitened, Huber-weighted (``huber_delta > 0``), masked
-    linearization of the between factors (every slot, or the gathered
-    slots ``fid`` int64 ``[K]``) and the priors (see
+                     huber_delta: float, fid=None, chi_only: bool = False,
+                     robust: str = "huber"):
+    """K5: the whitened, robustly weighted (``huber_delta > 0``: the
+    ``robust`` kernel of :data:`ROBUST_KINDS` at threshold ``huber_delta``),
+    masked linearization of the between factors (every slot, or the
+    gathered slots ``fid`` int64 ``[K]``) and the priors (see
     ``csrc/factor_linearize.cu``). ``row_mask`` is bool ``[F]`` (or ``[K]``
     with ``fid``), ``prior_mask`` bool ``[P]``. Returns ``((ai [K,3,3], aj,
     r [K,3]), (ap [P,3,3], rp [P,3]))``, or with ``chi_only`` only chi^2
-    ``[]``, summed in a fixed order."""
+    ``[]``, summed in a fixed order. An unknown ``robust`` raises
+    ``ValueError`` before any check or launch when it would be applied."""
+    kind = robust_code(robust) if huber_delta > 0.0 else 0
     rows = bet_i.shape[0] if fid is None else fid.shape[0]
     if fid is not None:
         _check(fid, "fid", dtype=torch.int64, shape=(rows,))
     _check(row_mask, "row_mask", dtype=torch.bool, shape=(rows,), align=1)
     scal, out = _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info,
                           row_mask, fid, None, rows, 0, prior_idx, prior_z,
-                          prior_sqrt_info, prior_mask, huber_delta,
+                          prior_sqrt_info, prior_mask, huber_delta, kind,
                           not chi_only)
     if chi_only:
         return scal[0]
@@ -801,18 +831,44 @@ def fresh_residual_max(poses, bet_i, bet_j, bet_z, bet_sqrt_info, bet_mask,
     _check(n_between, "n_between", dtype=torch.int64, shape=())
     scal, _ = _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info, bet_mask,
                         None, n_between, k, k, prior_idx, prior_z,
-                        prior_sqrt_info, prior_mask, 0.0, False)
+                        prior_sqrt_info, prior_mask, 0.0, 0, False)
     return scal[1]
 
 
-def pcg_solve(bet_i, bet_j, bet_mask, prior_idx, prior_mask, pose_mask, lin,
-              rhs, lam, max_iter: int, tol: float, damp_abs: float = 0.0):
-    """K6: the whole PCG solve of ``(H + damping) x = rhs`` in one launch
-    (see ``csrc/pcg_solve.cu``). ``lin`` is K5's ``((ai, aj, r), (ap,
-    rp))``; ``rhs`` f32 ``[V, 3]`` or None for ``-gradient``; ``lam`` an
-    f32 ``[]`` tensor (read on the card) or a Python float. Returns ``(x
-    [V, 3], iterations [] int32, max |M^-1 rhs| [])``. Raises above the
-    graph size one block's shared memory holds (the launcher sizes it)."""
+def pcg_smem(v: int, f: int, p: int) -> int:
+    """K6's shared memory for ``v`` poses, ``f`` factor and ``p`` prior
+    slots, in bytes: ``pcg_smem`` of ``csrc/pcg_solve.cu``."""
+    return 4 * (27 * v + 3 * f + 68) + 4 * (2 * v + 2 * f + p + 38) + f
+
+
+def pcg_route(v: int, f: int, p: int) -> str:
+    """Which kernel solves a graph of these slot counts: ``"block"`` (K6)
+    where its state fits the shared memory one block can opt in to on
+    Hopper (:data:`SMEM_MAX`, the test K6's launcher makes), else
+    ``"grid"`` (K6g). Shapes only, never a timing."""
+    return "block" if pcg_smem(v, f, p) <= SMEM_MAX else "grid"
+
+
+def pcg_grid_plan(v: int, f: int, p: int) -> tuple:
+    """K6g's launch on the current device for ``v`` poses, ``f`` factor
+    and ``p`` prior slots: ``(blocks, float scratch, int scratch)``, the
+    blocks one per 256 poses, capped by how many can be co-resident (a
+    cooperative launch's limit). The sums' order follows the blocks, so
+    they depend on ``v`` and the card only."""
+    if _lib is None:
+        build()
+    sizes = (ctypes.c_longlong * 3)()
+    err = _lib.pcg_grid_plan(v, f, p, sizes)
+    if err != 0:
+        msg = _lib.ndtpu_cuda_error_string(err).decode()
+        raise RuntimeError(f"pcg_grid_plan: CUDA error {err} ({msg})")
+    return tuple(sizes)
+
+
+def _pcg_args(bet_i, bet_j, bet_mask, prior_idx, prior_mask, pose_mask, lin,
+              rhs, lam, max_iter, tol, damp_abs):
+    """K6's and K6g's checked arguments, up to the outputs, and ``(x,
+    iterations, zmax)`` allocated."""
     (ai, aj, r), (ap, rp) = lin
     f, p = _check_graph(bet_i, bet_j, bet_mask, prior_idx, prior_mask)
     v = pose_mask.shape[0]
@@ -831,21 +887,57 @@ def pcg_solve(bet_i, bet_j, bet_mask, prior_idx, prior_mask, pose_mask, lin,
     else:
         lam_value = float(lam)
     dev = pose_mask.device
-    x = torch.empty((v, 3), dtype=torch.float32, device=dev)
-    ints = torch.empty((), dtype=torch.int32, device=dev)
-    zmax = torch.empty((), dtype=torch.float32, device=dev)
-    threads = min(1024, -(-v // 32) * 32)
-    _call("pcg_solve_launch", "pcg_solve", bet_i.data_ptr(), bet_j.data_ptr(),
-          bet_mask.data_ptr(), f, prior_idx.data_ptr(), prior_mask.data_ptr(),
-          p, pose_mask.data_ptr(), v, ai.data_ptr(), aj.data_ptr(),
-          r.data_ptr(), ap.data_ptr(), rp.data_ptr(),
-          None if rhs is None else rhs.data_ptr(), lam_ptr, lam_value,
-          float(damp_abs), int(max_iter), float(tol), x.data_ptr(),
-          ints.data_ptr(), zmax.data_ptr(), threads, _stream(x),
+    out = (torch.empty((v, 3), dtype=torch.float32, device=dev),
+           torch.empty((), dtype=torch.int32, device=dev),
+           torch.empty((), dtype=torch.float32, device=dev))
+    args = (bet_i.data_ptr(), bet_j.data_ptr(), bet_mask.data_ptr(), f,
+            prior_idx.data_ptr(), prior_mask.data_ptr(), p,
+            pose_mask.data_ptr(), v, ai.data_ptr(), aj.data_ptr(),
+            r.data_ptr(), ap.data_ptr(), rp.data_ptr(),
+            None if rhs is None else rhs.data_ptr(), lam_ptr, lam_value,
+            float(damp_abs), int(max_iter), float(tol),
+            *(t.data_ptr() for t in out))
+    return (v, f, p), args, out
+
+
+def pcg_solve(bet_i, bet_j, bet_mask, prior_idx, prior_mask, pose_mask, lin,
+              rhs, lam, max_iter: int, tol: float, damp_abs: float = 0.0):
+    """K6: the whole PCG solve of ``(H + damping) x = rhs`` in one launch
+    of one block (see ``csrc/pcg_solve.cu``). ``lin`` is K5's ``((ai, aj,
+    r), (ap, rp))``; ``rhs`` f32 ``[V, 3]`` or None for ``-gradient``;
+    ``lam`` an f32 ``[]`` tensor (read on the card) or a Python float.
+    Returns ``(x [V, 3], iterations [] int32, max |M^-1 rhs| [])``. Raises
+    above the graph size one block's shared memory holds (the launcher
+    sizes it; :func:`pcg_route` says ``"grid"`` there)."""
+    (v, f, _), args, out = _pcg_args(bet_i, bet_j, bet_mask, prior_idx,
+                                     prior_mask, pose_mask, lin, rhs, lam,
+                                     max_iter, tol, damp_abs)
+    _call("pcg_solve_launch", "pcg_solve", *args,
+          min(1024, -(-v // 32) * 32), _stream(out[0]),
           too_big=f"a graph of {v} poses and {f} factors is over the shared "
-                  f"memory one block can have; graphs this large (config 4) "
-                  f"are ROADMAP A10")
-    return x, ints, zmax
+                  f"memory one block can have; K6g (pcg_solve_grid) solves "
+                  f"it, and graph.solve.pcg_solve routes it there "
+                  f"(pcg_route)")
+    return out
+
+
+def pcg_solve_grid(bet_i, bet_j, bet_mask, prior_idx, prior_mask, pose_mask,
+                   lin, rhs, lam, max_iter: int, tol: float,
+                   damp_abs: float = 0.0):
+    """K6g: K6's solve, with K6's arguments and outputs, in one cooperative
+    launch (:func:`pcg_grid_plan`), the graph in global scratch allocated
+    here (see ``csrc/pcg_grid.cu``): any graph device memory holds. A
+    cooperative launch the card refuses raises ``RuntimeError``."""
+    (v, f, p), args, out = _pcg_args(bet_i, bet_j, bet_mask, prior_idx,
+                                     prior_mask, pose_mask, lin, rhs, lam,
+                                     max_iter, tol, damp_abs)
+    blocks, n_float, n_int = pcg_grid_plan(v, f, p)
+    dev = out[0].device
+    fs = torch.empty(n_float, dtype=torch.float32, device=dev)
+    ints = torch.empty(n_int, dtype=torch.int32, device=dev)
+    _call("pcg_grid_launch", "pcg_solve_grid", *args, fs.data_ptr(),
+          ints.data_ptr(), blocks, _stream(out[0]))
+    return out
 
 
 def pcg_solve_blocked(bet_i, bet_j, bet_mask, prior_idx, prior_mask,

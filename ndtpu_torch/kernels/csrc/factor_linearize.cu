@@ -2,12 +2,14 @@
 // window's largest residual.
 //
 // Replaces what XLA lowered for the TPU from ndtpu/graph/factors.py::
-// linearize (:225; one_bet :239, one_pri :251) and chi2 (:261), from
+// linearize (:225; one_bet :239, one_pri :251) with robust_weight
+// (:195-218), and chi2 (:261), from
 // ndtpu/graph/incremental.py::fresh_residual_max (:83), and from the
 // gathered linearization and chi_local of _local_system (:231, :269).
 // Per between factor: the error, its analytic Jacobians, whitening by the
-// sqrt-information, the Huber weight and the mask (pose_graph.cuh); per
-// prior the same with an identity Jacobian.
+// sqrt-information, the robust weight (robust_weight's four kinds: huber,
+// cauchy, tukey, geman, by code) and the mask (pose_graph.cuh); per prior
+// the same with an identity Jacobian and no weight.
 //
 // Rows: one thread per row, in blocks of 256. A row is factor slot t (the
 // whole graph), fid[t] (a gathered list, the local path, with its own
@@ -53,7 +55,8 @@ struct LinArgs {
   const float* prior_sqi;
   const uint8_t* prior_mask;
   int n_priors;
-  float huber;
+  float delta;               // robust threshold; 0: no weight
+  int kind;                  // robust kernel code (pose_graph.cuh)
   float* ai;                 // [rows, 9], or null (chi^2 only)
   float* aj;
   float* r;                  // [rows, 3]
@@ -84,7 +87,7 @@ linearize_rows_kernel(LinArgs a) {
     const float* pj = a.poses + 3 * a.bet_j[f];
     float ai[9], aj[9], r[3], raw;
     ndtpu::pg::linearize_between(pi, pj, a.bet_z + 3 * f, a.bet_sqi + 9 * f,
-                                 a.huber, m, ai, aj, r, &raw);
+                                 a.delta, a.kind, m, ai, aj, r, &raw);
     chi = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
     mx = m != 0.f ? raw : 0.f;
     if (a.ai != nullptr) {
@@ -155,10 +158,10 @@ extern "C" int factor_linearize_launch(
     const void* bet_z, const void* bet_sqi, const void* row_mask,
     const void* fid, const void* n_between, int rows, int window, int f_cap,
     const void* prior_idx, const void* prior_z, const void* prior_sqi,
-    const void* prior_mask, int n_priors, float huber, void* ai, void* aj,
-    void* r, void* ap, void* rp, void* out, void* stream) {
-  if (rows < 0 || n_priors < 0 || (window > 0 && (window > f_cap ||
-                                                  rows != window)))
+    const void* prior_mask, int n_priors, float delta, int kind, void* ai,
+    void* aj, void* r, void* ap, void* rp, void* out, void* stream) {
+  if (rows < 0 || n_priors < 0 || kind < 0 || kind > 3 ||
+      (window > 0 && (window > f_cap || rows != window)))
     return (int)cudaErrorInvalidValue;
   const LinArgs a{(const float*)poses, (const long long*)bet_i,
                   (const long long*)bet_j, (const float*)bet_z,
@@ -166,8 +169,9 @@ extern "C" int factor_linearize_launch(
                   (const long long*)fid, (const long long*)n_between, rows,
                   window, f_cap, (const long long*)prior_idx,
                   (const float*)prior_z, (const float*)prior_sqi,
-                  (const uint8_t*)prior_mask, n_priors, huber, (float*)ai,
-                  (float*)aj, (float*)r, (float*)ap, (float*)rp, (float*)out};
+                  (const uint8_t*)prior_mask, n_priors, delta, kind,
+                  (float*)ai, (float*)aj, (float*)r, (float*)ap, (float*)rp,
+                  (float*)out};
   const int blocks = (rows + kRowThreads - 1) / kRowThreads;
   cudaStream_t s = (cudaStream_t)stream;
   if (blocks > 0) {

@@ -44,9 +44,11 @@
 //      together) in a fixed order (pose_graph.cuh). So x and the iteration
 //      count are the same on every launch.
 // Each launcher refuses (it computes the size and returns kSmemOver; the
-// wrapper raises, naming ROADMAP A10) a graph, or for K6b a session, whose
-// state does not fit one block's shared memory; config 4's 10k-pose graphs
-// are a later slice.
+// wrapper raises) a graph, or for K6b a session, whose state does not fit
+// one block's shared memory. Larger graphs (config 4's 10k poses, config
+// 5's merged graph) go to K6g (pcg_grid.cu), the same solve across many
+// SMs: graph.solve.pcg_solve routes by kernels.pcg_route, which mirrors
+// pcg_smem below and the 227 KB opt-in.
 //
 // What bounds it on Hopper: for the bound, the bytes of one pass (the
 // linearization, ~300 KB at capacity) and ~60 f32 operations per live

@@ -4,7 +4,7 @@
 //
 // Every op is written in the order the plain versions write it
 // (ndtpu_torch/lie/se2.py::wrap, ndtpu_torch/graph/factors.py:
-// between_error, _between_jacobians, robust_weight "huber", prior_error;
+// between_error, _between_jacobians, robust_weight, prior_error;
 // ndtpu_torch/graph/solve.py::_inv3), and the sources are built with
 // --fmad=false, so each multiply and add rounds on its own as PyTorch's
 // elementwise kernels round them. Sums over factors and poses run in a
@@ -98,21 +98,36 @@ __device__ __forceinline__ void mtm3(const float* a, const float* b,
       out[3 * p + q] = a[p] * b[q] + a[3 + p] * b[3 + q] + a[6 + p] * b[6 + q];
 }
 
-// Huber IRLS sqrt-weight of a whitened residual's norm (factors.py
-// robust_weight, kind "huber").
-__device__ __forceinline__ float huber_weight(const float r[3], float delta) {
+// The robust kernels' codes (kernels.robust_code maps the names).
+constexpr int kHuber = 0, kCauchy = 1, kTukey = 2, kGeman = 3;
+
+// IRLS sqrt-weight of a whitened residual's norm (factors.py
+// robust_weight): n = max(|r|, 1e-12); huber 1 or sqrt(delta / n), cauchy
+// 1 / sqrt(1 + (n / delta)^2), tukey 1 - min(n / delta, 1)^2, geman
+// delta / (delta + n^2).
+__device__ __forceinline__ float robust_weight(const float r[3], float delta,
+                                               int kind) {
   const float n = fmaxf(sqrtf(r[0] * r[0] + r[1] * r[1] + r[2] * r[2]),
                         1e-12f);
+  if (kind == kCauchy) {
+    const float u = n / delta;
+    return 1.f / sqrtf(1.f + u * u);
+  }
+  if (kind == kTukey) {
+    const float u = fminf(n / delta, 1.f);
+    return 1.f - u * u;
+  }
+  if (kind == kGeman) return delta / (delta + n * n);
   return n <= delta ? 1.f : sqrtf(delta / n);
 }
 
-// A whitened, Huber-weighted, masked between factor: Ai, Aj, r as
-// factors.py::linearize writes them (weight and mask as two multiplies).
-// Also the unweighted whitened residual's largest |entry| (for the fresh
-// window's max), before the mask.
+// A whitened, robustly weighted (delta > 0), masked between factor: Ai, Aj,
+// r as factors.py::linearize writes them (weight and mask as two
+// multiplies). Also the unweighted whitened residual's largest |entry|
+// (for the fresh window's max), before the mask.
 __device__ __forceinline__ void linearize_between(
     const float* pi, const float* pj, const float* z, const float* sqi,
-    float huber, float m, float ai[9], float aj[9], float r[3],
+    float delta, int kind, float m, float ai[9], float aj[9], float r[3],
     float* raw_max) {
   float e[3], ji[9], jj[9];
   between(pi, pj, z, e, ji, jj);
@@ -120,8 +135,8 @@ __device__ __forceinline__ void linearize_between(
   mat3(sqi, jj, aj);
   mv3(sqi, e, r);
   *raw_max = nanmax(nanmax(fabsf(r[0]), fabsf(r[1])), fabsf(r[2]));
-  if (huber > 0.f) {
-    const float w = huber_weight(r, huber);
+  if (delta > 0.f) {
+    const float w = robust_weight(r, delta, kind);
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
       ai[k] = ai[k] * w;

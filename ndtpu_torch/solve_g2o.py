@@ -15,9 +15,10 @@ chosen solver (``auto``: dense up to 2,000 poses, supernodal up to 20,000,
 else PCG), prints chi^2 before and after and the time to stderr, and
 writes the optimized graph as g2o with ``-o``. ``--device cuda`` (the
 default) runs on the card and fails without one: K5 linearizes, the
-supernodal step runs K9a and K9b, PCG runs K6 (one block: graphs past
-~1,400 poses raise, ROADMAP A10). ``--device cpu`` runs the plain
-versions. ``main`` returns the run's numbers as a dict.
+supernodal step runs K9a and K9b, each PCG solve runs K6 (graphs that fit
+one block) or K6g (larger ones: ``--manhattan 10000 --method pcg``, and
+``auto`` above 20,000 poses). ``--device cpu`` runs the plain versions.
+``main`` returns the run's numbers as a dict.
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
 """The CUDA kernels (lm_ndt shared and grouped, K1 ndt_terms shared and
 grouped, K3 halfcell_add, K4 finalize_pack, K8a local_tables, K8b
 loop_gate, the gated verify that runs K8b inside lm_ndt, and the
-smoother's K5 factor_linearize, K6 pcg_solve, K7a local_select and K7b
-local_assemble, also through incremental_update, and config 4's K9a
+smoother's K5 factor_linearize (also with each robust kind, K5r), K6
+pcg_solve, K7a local_select and K7b local_assemble, also through
+incremental_update, K6g pcg_solve_grid (the PCG past one block) at config
+4's 10k poses, also through solve_g2o --method pcg and bench.py §5's
+incremental updates, and config 4's K9a
 supernodal_assemble and K9b schur_reduce, also through one supernodal
 step, and stacked serving's K6b pcg_solve_blocked, K3s halfcell_add_stacked
 and K4s finalize_pack_stacked, and config 5's K12 ndt_sgh_unpacked and
@@ -631,17 +634,44 @@ def _tiny_graph(dev, v, f, p=4):
 
 
 def test_pcg_solve_refuses_above_one_block(dev):
-    """Config 4's 10k-pose graphs do not fit K6's one block: it raises,
-    naming ROADMAP A10, before any launch."""
+    """Config 4's 10k-pose graphs do not fit K6's one block: the raw K6
+    entry point raises, naming K6g and graph.solve.pcg_solve's route,
+    before any launch; graph.solve.pcg_solve sends the graph to K6g."""
     from ndtpu_torch.graph import factors as tfct
     from ndtpu_torch.graph import solve as tslv
 
     g = _tiny_graph(dev, 10240, 20480)
     lin = tfct.linearize(g)
     kernels.reset_launches()
-    with pytest.raises(ValueError, match="A10"):
-        tslv.pcg_solve(g, lin, None, 1e-4, 10, 1e-5)
+    with pytest.raises(ValueError, match="K6g .*pcg_route"):
+        kernels.pcg_solve(g.bet_i, g.bet_j, g.bet_mask, g.prior_idx,
+                          g.prior_mask, g.pose_mask, lin, None, 1e-4, 10,
+                          1e-5)
     assert kernels.LAUNCHES["pcg_solve"] == 0
+    x, it, _ = tslv.pcg_solve(g, lin, None, 1e-4, 10, 1e-5)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["pcg_solve"] == 0
+    assert kernels.LAUNCHES["pcg_solve_grid"] == 1
+    assert bool(torch.isfinite(x).all()) and int(it) == 0
+
+
+@pytest.mark.parametrize("v,f,p", [(1024, 2048, 4), (2048, 4096, 8),
+                                   (10000, 10305, 1), (160, 320, 1)])
+def test_pcg_route_matches_the_launcher(dev, v, f, p):
+    """kernels.pcg_route says "block" exactly where K6's launcher takes the
+    graph: on the card, K6 launches there and refuses elsewhere."""
+    from ndtpu_torch.graph import factors as tfct
+
+    g = _tiny_graph(dev, v, f, p)
+    lin = tfct.linearize(g)
+    args = (g.bet_i, g.bet_j, g.bet_mask, g.prior_idx, g.prior_mask,
+            g.pose_mask, lin, None, 1e-4, 1, 1e-5)
+    if kernels.pcg_route(v, f, p) == "block":
+        kernels.pcg_solve(*args)
+        torch.cuda.synchronize()
+    else:
+        with pytest.raises(ValueError, match="K6g"):
+            kernels.pcg_solve(*args)
 
 
 def test_smoother_kernels_refuse_cpu_tensors():
@@ -669,6 +699,64 @@ def test_smoother_kernels_refuse_cpu_tensors():
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             call()
+
+
+@pytest.fixture(scope="module")
+def graph10k():
+    """Config 4's (bench.py §4's) 10k-pose graph on the card with its plan
+    and K5's linearization (``chip_smoke.config4_case``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke as cs
+
+    return cs.config4_case(torch.device("cuda"), 0)
+
+
+def test_factor_linearize_robust_kinds_match_plain(graph10k):
+    """K5r: each robust kind on the 10k graph against its f32 and f64 plain
+    versions (rtol 1e-5 of each array's max), bit-identical on a second
+    launch, and tests/test_robust.py's IRLS chain on the card within its
+    bounds (see chip_smoke.check_k5r)."""
+    import chip_smoke as cs
+
+    rows = cs.check_k5r(graph10k)
+    assert set(rows) == {"huber", "cauchy", "tukey", "geman", "irls"}
+    assert all(r["err_m"] < r["bound_m"] for r in rows["irls"].values())
+
+
+def test_pcg_solve_grid_at_10k_matches_f32_and_f64_plain(graph10k):
+    """K6g at 10k poses against the f32 and f64 plain solves (within 2 x
+    the f32 error against f64, iterations within max(1, 2%)), bit-identical
+    on a second launch, one launch and no host sync per pcg call, the
+    0-iteration mode (see chip_smoke.check_k6g)."""
+    import chip_smoke as cs
+
+    row = cs.check_k6g(graph10k, jobs=[])
+    assert row["iterations"] > 0 and row["grid_blocks"] >= 1
+
+
+def test_solve_g2o_pcg_through_k6g(dev):
+    """solve_g2o --manhattan 10000 --method pcg on the card: one K6g launch
+    per pcg call, no K6, no plain version, final chi^2 within 1.02 x the
+    JAX package's f32; auto at 25,000 poses takes pcg (see
+    chip_smoke.run_config4_pcg)."""
+    import chip_smoke as cs
+
+    launches, out = cs.run_config4_pcg(dev, "")
+    assert launches["pcg_solve_grid"] == out["pcg_calls"]
+    assert out["auto_25k"]["method"] == "pcg"
+
+
+def test_incremental_updates_at_10k_on_the_card(graph10k):
+    """bench.py §5's three 10k paths on the card: the active update's
+    global take through K6g, the settled graph's update, §5b's local take
+    through K7a/K7b, each against the f64 plain route, and
+    marginal_covariance_pcg at 10k (see chip_smoke.run_incremental_10k)."""
+    import chip_smoke as cs
+
+    launches, rec = cs.run_incremental_10k(graph10k, "", 0)
+    assert rec["active"]["take"] == 1 and rec["local"]["take"] == 2
+    assert launches["pcg_solve_grid"] == 2
 
 
 @pytest.fixture(scope="module", params=["small", "full"])
