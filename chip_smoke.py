@@ -37,7 +37,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    and the gated verify (one ``lm_ndt`` launch that registers and gates
    the same lanes: bit-equal to ``lm_ndt_grouped`` followed by the
    standalone K8b, and on a second call; no host sync; timed against the
-   unfused route); then
+   unfused route); then the same kernels in the other table layouts
+   (:func:`check_layouts`: overlap-1 grids, compact bf16-pair rows, and
+   both): K3 at overlap 1 (window and rebuild shapes, +1 and +-1
+   weights; bit-equal to its fixed-point model, on a second launch and
+   under permutation), and per layout K4 at the config-2 and config-3
+   maps and K8a at a window (compact lanes bit-equal as int32 to the
+   plain version on the same f32 statistics; K8a also to K4 of K3), K1
+   and ``lm_ndt`` at the config-2 window shape, K1 grouped, ``lm_ndt``
+   grouped and the gated verify at the config-3 verify shape over a
+   1,024-slot cache of the layout, each against its f32 plain version;
+   then
    ``_window_frontend`` twice from one state (bit-equal poses and map
    tables), and box-world config-3 draw 2 and config-2 draw 0 three times
    each (their ATEs, and the first window and stage where runs part);
@@ -81,6 +91,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    corridor's 120 m lap takes 480), counters reset and read as in phase 4;
 7. the config-3 ATE gate against ``tests/data/torch_config3_box300_ref.json``
    (also: the port closes a loop on every draw where JAX does);
+7b. config 1 (:func:`run_config1`): ``run_odometry_windowed`` at
+    ``configs/config1_odometry.json``'s widths on box-world draws 0-2,
+    counters reset just before and read just after, each draw's scans/s
+    and ATE beside the JAX package's f32 and f64 ATE
+    (``tests/data/torch_config1_box300_ref.json``), gated by config 2's
+    rule;
+7c. the windowed path in the other table layouts through its entry point
+    (:func:`run_layouts`, :data:`LAYOUT_RUNS`): ``ndtpu_torch.run.main`` on
+    config 2 with ``grid.overlap = 1`` (300 scans), config 3 with
+    ``match.compact_table`` (600), with ``grid.overlap = 1``,
+    ``loop.local_overlap = 1`` and ``compact_table`` (600), and with the
+    two overlaps at 1 (600), every plain version refusing CUDA tensors;
+    each run must launch its layout's variants; then the box-world ATE
+    gates of each against the JAX package under the same flags
+    (``tests/data/torch_layouts_box300_ref.json``);
 8. config 4 through its entry point: ``ndtpu_torch.solve_g2o.main``
    with ``--manhattan 10000 --shards 64`` on the card (supernodal by
    ``auto``), counters reset just before and read just after: one K9a and
@@ -157,26 +182,27 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``match_batch``; then K10a, K10b and K10c against their plain versions
     at the ranks' shapes;
 16. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
-    phase 4; also ``lm_ndt_grouped``, K8a and the gated verify
-    ``loop_gate_fused`` in phase 6; K3s, K4s, K5, K6b, K8a and the gated
-    verify in phase 10; ``lm_ndt``, K12, K3 and the gated verify in phase
-    12; K9c and K5 in phase 13's ranks; K10a, K10b and K10c in phase 15's
-    ranks; K6g in phases 8b, 8c and 12), exactly one ``lm_ndt*`` launch per
+    phases 4 and 7b; each layout variant, ``lm_ndt[g1l8]`` and the like, in the
+    phase-7c runs of its layout; also ``lm_ndt_grouped``, K8a and the gated
+    verify ``loop_gate_fused`` in phase 6; K3s, K4s, K5, K6b, K8a and the gated
+    verify in phase 10; ``lm_ndt``, K12, K3 and the gated verify in phase 12;
+    K9c and K5 in phase 13's ranks; K10a, K10b and K10c in phase 15's ranks;
+    K6g in phases 8b, 8c and 12), exactly one ``lm_ndt*`` launch per
     ``match_batch_packed`` call, and in phase 6 one gated verify per
-    loop-detection call and no standalone K8b launch; K5, K7a and K7b
-    launched in phases 4 and 6, K6 in phase 6 (config 2 may never take the
-    global path), one ``pcg_solve`` launch per PCG solve, and a full solve
-    in phase 6; K5, K9a and K9b in phase 8. K1's and K8b's own launches
-    are not required there: on the main path their code runs inside
-    ``lm_ndt``, and they are held to their twins in phase 3.
+    loop-detection call and no standalone K8b launch; K5, K7a and K7b launched
+    in phases 4 and 6, K6 in phase 6 (config 2 may never take the global path),
+    one ``pcg_solve`` launch per PCG solve, and a full solve in phase 6; K5,
+    K9a and K9b in phase 8. K1's and K8b's own launches are not required there:
+    on the main path their code runs inside ``lm_ndt``, and they are held to
+    their twins in phase 3.
 
-The second-to-last line is one JSON object with the kernels' launches
-(phases 4, 6, 8, 8b, 8c, 10 and 12-15 together), errors, times and bounds,
-the repeated runs' ATEs, the smoother's counts and bench.py §5's three
-10k cells, config 4's runs (supernodal and PCG) and step timing, the
-serving run's aggregate scans/s and per-session results, and
-config 5's merge, distributed solve, SLAM rehearsal and slab map; the last
-line is ``{"ok": true,
+The second-to-last line is one JSON object with the kernels' launches (phases
+4, 6, 7b, 7c, 8, 8b, 8c, 10 and 12-15 together), errors, times and bounds,
+config 1's and the layout runs' results (``config1``, ``layouts``), the
+repeated runs' ATEs, the smoother's counts and bench.py §5's three 10k cells,
+config 4's runs (supernodal and PCG) and step timing, the serving run's
+aggregate scans/s and per-session results, and config 5's merge, distributed
+solve, SLAM rehearsal and slab map; the last line is ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -213,15 +239,42 @@ SERVING = ROOT / "configs" / "config_serving.json"
 SERVING_ARGS = ["--config", str(SERVING), "--sessions", "8", "--max-scans",
                 "300"]
 REF_SERVING_FILE = ROOT / "tests" / "data" / "torch_serving8_box300_ref.json"
+#: Config 1, the windowed odometry front end, and the JAX package's results
+#: on box-world draws 0-2 at its widths.
+CONFIG1 = ROOT / "configs" / "config1_odometry.json"
+REF1_FILE = ROOT / "tests" / "data" / "torch_config1_box300_ref.json"
+#: The windowed path in the other table layouts (``kernels.LAYOUTS``):
+#: ``(name, published config, CLI scans, the fields changed)``, and the JAX
+#: package's box-world results under the same flags.
+LAYOUT_RUNS = (
+    ("config2_overlap1", "configs/config2_full_sequence.json", 300,
+     {"grid": {"overlap": 1}}),
+    ("config3_compact", "configs/config3_loop_closure.json", 600,
+     {"match": {"compact_table": True}}),
+    ("config3_overlap1_compact", "configs/config3_loop_closure.json", 600,
+     {"grid": {"overlap": 1}, "loop": {"local_overlap": 1},
+      "match": {"compact_table": True}}),
+    ("config3_overlap1", "configs/config3_loop_closure.json", 600,
+     {"grid": {"overlap": 1}, "loop": {"local_overlap": 1}}),
+)
+REF_LAYOUTS_FILE = ROOT / "tests" / "data" / "torch_layouts_box300_ref.json"
 
 #: One H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
 #: bytes/s and f32 FLOP/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
-#: f32 operations per in-bounds beam per evaluation of the 11 sums, counted
-#: from ``csrc/ndt_sums.cuh``: 20 for the transform, binning and
-#: derivatives, 71 for each of the 4 overlap grids.
-BEAM_FLOPS = 20 + 4 * 71
+def beam_flops(grids: int = 4, lanes: int = 8) -> int:
+    """Operations per in-bounds beam per evaluation of the 11 sums in a table
+    layout, counted from ``csrc/ndt_sums.cuh``: 20 f32 for the transform,
+    binning and derivatives, 71 for each overlap grid, and 4 integer
+    operations per grid to unpack a compact slot's two bf16 pairs (two
+    shifts, two masks)."""
+    return 20 + grids * 71 + (4 * grids if lanes == 4 else 0)
+
+
+def table_layout(table, grid) -> tuple:
+    """``(G, L)`` of a quad table (or stack of them) on ``grid``."""
+    return grid.overlap, table.shape[-1] // grid.overlap
 #: f32 operations of one LM step of a lane (damped Cramer solve, clip,
 #: accept and stop tests), counted from ``csrc/lm_ndt.cu``.
 STEP_FLOPS = 80
@@ -248,7 +301,7 @@ _CSRC = "ndtpu_torch/kernels/csrc/"
 KERNELS = [
     dict(name="lm_ndt", source=_CSRC + "lm_ndt.cu",
          replaces="ndtpu/ndt/match.py:308",
-         paths=("config2", "config3", "config5")),
+         paths=("config1", "config2", "config3", "config5")),
     dict(name="lm_ndt_grouped", source=_CSRC + "lm_ndt.cu",
          replaces="ndtpu/ndt/match.py:308",
          paths=("config3", "serving", "config5")),
@@ -258,12 +311,13 @@ KERNELS = [
          replaces="ndtpu/ndt/grid.py:450", inside="lm_ndt_grouped"),
     dict(name="halfcell_add", source=_CSRC + "halfcell_add.cu",
          replaces="ndtpu/ndt/grid.py:161",
-         paths=("config2", "config3", "config5")),
+         paths=("config1", "config2", "config3", "config5")),
     # K3s and K4s: the serving path's map ops over all 8 sessions' maps.
     dict(name="halfcell_add_stacked", source=_CSRC + "halfcell_add.cu",
          replaces="ndtpu/dist/slam_dp.py:317", paths=("serving",)),
     dict(name="finalize_pack", source=_CSRC + "finalize_pack.cu",
-         replaces="ndtpu/ndt/grid.py:232", paths=("config2", "config3")),
+         replaces="ndtpu/ndt/grid.py:232",
+         paths=("config1", "config2", "config3")),
     dict(name="finalize_pack_stacked", source=_CSRC + "finalize_pack.cu",
          replaces="ndtpu/dist/slam_dp.py:300", paths=("serving",)),
     dict(name="local_tables", source=_CSRC + "local_tables.cu",
@@ -313,7 +367,43 @@ KERNELS = [
          replaces="ndtpu/ndt/grid.py:232", paths=("config5_slab",)),
     dict(name="slab_sgh", source=_CSRC + "ndt_unpacked.cu",
          replaces="ndtpu/dist/gridmap.py:189", paths=("config5_slab",)),
+    # K3 at overlap 1, in the layout runs whose map has one grid.
+    dict(name="halfcell_add[g1]", source=_CSRC + "halfcell_add.cu",
+         replaces="ndtpu/ndt/grid.py:120",
+         paths=("config2_overlap1", "config3_overlap1",
+                "config3_overlap1_compact")),
 ]
+
+
+def _layout_variants(grids: int, lanes: int, map_runs, local_runs) -> list:
+    """KERNELS' rows of one table layout (``kernels.variant``'s names):
+    ``lm_ndt``, K4 in the runs whose map has the layout, the grouped
+    ``lm_ndt``, K8a and the gated verify in those whose local tables have
+    it; K1 runs inside ``lm_ndt`` there."""
+    v = lambda name: f"{name}[g{grids}l{lanes}]"
+    return [
+        dict(name=v("lm_ndt"), source=_CSRC + "lm_ndt.cu",
+             replaces="ndtpu/ndt/match.py:308", paths=map_runs),
+        dict(name=v("lm_ndt_grouped"), source=_CSRC + "lm_ndt.cu",
+             replaces="ndtpu/ndt/match.py:308", paths=local_runs),
+        dict(name=v("ndt_terms"), source=_CSRC + "ndt_terms.cu",
+             replaces="ndtpu/ndt/match.py:237", inside=v("lm_ndt")),
+        dict(name=v("ndt_terms_grouped"), source=_CSRC + "ndt_terms.cu",
+             replaces="ndtpu/ndt/grid.py:450", inside=v("lm_ndt_grouped")),
+        dict(name=v("finalize_pack"), source=_CSRC + "finalize_pack.cu",
+             replaces="ndtpu/ndt/grid.py:336", paths=map_runs),
+        dict(name=v("local_tables"), source=_CSRC + "local_tables.cu",
+             replaces="ndtpu/loop/closure.py:84", paths=local_runs),
+        dict(name=v("loop_gate_fused"), source=_CSRC + "lm_ndt.cu",
+             replaces="ndtpu/loop/closure.py:171", paths=local_runs)]
+
+
+KERNELS += (_layout_variants(1, 8, ("config2_overlap1", "config3_overlap1"),
+                             ("config3_overlap1",))
+            + _layout_variants(4, 4, ("config3_compact",),
+                               ("config3_compact",))
+            + _layout_variants(1, 4, ("config3_overlap1_compact",),
+                               ("config3_overlap1_compact",)))
 
 
 class SmokeFailure(RuntimeError):
@@ -430,15 +520,26 @@ def snap(t, bits: int):
     return torch.round(t * scale) / scale
 
 
-def _table_check(name, out, ref):
+def _table_check(name, out, ref, layout=(4, 8)):
     """K4's rule: valid flags exact, the rest within 1e-5 x max(|ref|,
-    1e-3 x the column's max |ref|). Returns the max abs error."""
+    1e-3 x the column's max |ref|). Compact rows (``layout`` ``(G, 4)``):
+    the bf16-pair lanes (i00|i01, i11|valid) bit-equal as int32, the means
+    by the rule. Returns the max abs error."""
     import torch
 
+    g_dim, lanes = layout
+    if lanes == 4:
+        packed = [4 * g + k for g in range(g_dim) for k in (2, 3)]
+        means = [4 * g + k for g in range(g_dim) for k in (0, 1)]
+        require(torch.equal(out[..., packed].contiguous().view(torch.int32),
+                            ref[..., packed].contiguous().view(torch.int32)),
+                f"{name}: bf16-pair lanes not bit-equal (int32)")
+        out, ref = out[..., means], ref[..., means]
+    else:
+        valid_cols = [8 * g + 5 for g in range(g_dim)]
+        require(bool((out[..., valid_cols] == ref[..., valid_cols]).all()),
+                f"{name}: valid flags differ")
     require(bool(torch.isfinite(out).all()), f"{name}: non-finite table")
-    valid_cols = [8 * g + 5 for g in range(4)]
-    require(bool((out[..., valid_cols] == ref[..., valid_cols]).all()),
-            f"{name}: valid flags differ")
     err = (out - ref).abs()
     col_max = ref.abs().reshape(-1, ref.shape[-1]).amax(0)
     tol = 1e-5 * torch.maximum(ref.abs(), 1e-3 * col_max)
@@ -446,6 +547,19 @@ def _table_check(name, out, ref):
             f"{name}: table off by {float((err / (tol + 1e-30)).max()):.3g} "
             f"x tol")
     return float(err.max())
+
+
+def valid_slots(table, layout=(4, 8)) -> int:
+    """Valid cell slots of a quad table (the valid lane, or the high half
+    of a compact slot's last lane)."""
+    import torch
+
+    g_dim, lanes = layout
+    if lanes == 8:
+        return int(table[..., [8 * g + 5 for g in range(g_dim)]].sum())
+    bits = table[..., [4 * g + 3 for g in range(g_dim)]].contiguous()
+    hi = bits.view(torch.int32) & -65536           # 0xFFFF0000
+    return int(hi.view(torch.float32).sum())
 
 
 def bound(n_bytes: float, n_flops: float) -> dict:
@@ -467,11 +581,12 @@ def lane_rows(poses, px, py, mask_f, grid, group=None):
     beams, by the kernels' binning."""
     import torch
 
+    from ndtpu_torch import kernels
     from ndtpu_torch.ndt import match
 
     x, y, _, _ = match._lane_transform(poses, px, py)
-    wh, hh = 2 * grid.nx + 1, 2 * grid.ny + 1
-    inv = 2.0 / grid.cell
+    wh, hh = kernels._lattice(grid)
+    inv = kernels._inv(grid)
     hx = torch.floor((x - grid.x0) * inv)
     hy = torch.floor((y - grid.y0) * inv)
     ok = (mask_f > 0) & (hx >= 0) & (hx < wh) & (hy >= 0) & (hy < hh)
@@ -483,24 +598,29 @@ def lane_rows(poses, px, py, mask_f, grid, group=None):
 
 def k1_bound(args, group=None):
     """K1's bound: poses, beams (and ``group``) read, each distinct row
-    gathered once (128 B), 11 sums written; BEAM_FLOPS per in-bounds
-    beam."""
-    poses, px, py, mask_f, _, grid = args[:6]
+    gathered once (G x L x 4 B: 128 B in the published layout), 11 sums
+    written; :func:`beam_flops` per in-bounds beam."""
+    poses, px, py, mask_f, table, grid = args[:6]
+    g, l = table_layout(table, grid)
     keys, beams = lane_rows(poses, px, py, mask_f, grid, group)
     b, n = px.shape
-    n_bytes = (b * 12 + b * n * 12 + keys.unique().numel() * 128 + b * 44
-               + (0 if group is None else b * 4))
-    return bound(n_bytes, float(beams.sum()) * BEAM_FLOPS)
+    n_bytes = (b * 12 + b * n * 12 + keys.unique().numel() * g * l * 4
+               + b * 44 + (0 if group is None else b * 4))
+    return bound(n_bytes, float(beams.sum()) * beam_flops(g, l))
 
 
 def check_k1(cfg, seq, table, seed, dev, b, jobs=None):
-    """K1 vs ndt_terms_ref on the card: ``b`` lanes x 360 beams."""
+    """K1 vs ndt_terms_ref on the card: ``b`` lanes x 360 beams, in the
+    layout of ``cfg`` (``grid.overlap``, ``match.compact_table``)."""
     import numpy as np
     import torch
 
     from ndtpu_torch import kernels
     from ndtpu_torch.ndt import match
 
+    compact = cfg.match.compact_table
+    name = kernels.variant("K1 ndt_terms", *kernels._layout(cfg.grid,
+                                                            compact))
     rng = np.random.default_rng(seed)
     lane = np.arange(b) % seq.points.shape[0]
     noise = rng.normal(0.0, [0.05, 0.05, 0.01], (b, 3))
@@ -510,25 +630,27 @@ def check_k1(cfg, seq, table, seed, dev, b, jobs=None):
             seq.points[lane, :, 1].to(dev).contiguous(),
             seq.mask[lane].float().to(dev).contiguous(), table, cfg.grid,
             cfg.match.d2, cfg.match.exp_clip)
-    out = kernels.ndt_terms(*args)
-    ref = match.ndt_terms_ref(*args)
+    kern = lambda: kernels.ndt_terms(*args, compact=compact)
+    twin = lambda: match.ndt_terms_ref(*args, compact)
+    out, ref = kern(), twin()
     torch.cuda.synchronize()
     err = (out - ref).abs()
     tol = 1e-3 * torch.clamp(ref.abs(), min=1.0)
-    require(bool(torch.isfinite(out).all()), "K1: non-finite sums")
+    require(bool(torch.isfinite(out).all()), f"{name}: non-finite sums")
     require(bool((err <= tol).all()),
-            f"K1: sums off by up to {float((err / tol).max()):.3g} x tolerance")
+            f"{name}: sums off by up to {float((err / tol).max()):.3g} x "
+            f"tolerance")
     rel = float((err / torch.clamp(ref.abs(), min=1.0)).max())
-    ms = time_ms(lambda: kernels.ndt_terms(*args))
-    plain = time_ms(lambda: match.ndt_terms_ref(*args))
+    ms = time_ms(kern)
+    plain = time_ms(twin)
     bd = k1_bound(args)
-    print(f"[smoke] K1 ndt_terms B={b} N={seq.points.shape[1]}: max abs err "
+    print(f"[smoke] {name} B={b} N={seq.points.shape[1]}: max abs err "
           f"{float(err.max()):.3e}, max rel err {rel:.3e} (tol 1e-3 x "
           f"max(1,|ref|)); kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
           f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
     row = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain, **bd)
-    card_time(jobs, f"K1 ndt_terms B={b}", row, "card_ms",
-              lambda: kernels.ndt_terms(*args), ["ndt_terms_kernel"])
+    card_time(jobs, f"{name} B={b}", row, "card_ms", kern,
+              ["ndt_terms_kernel"])
     return row
 
 
@@ -643,11 +765,13 @@ def _k3_case(cfg, base, pts, msk, weight, exact_counts):
     return max_err, worst, worst_f32, ms, plain
 
 
-def check_k3(cfg, seq, base, seed, dev, k):
-    """K3 vs the f64 CPU twin: ``k`` x 360 points, +1 and mixed +-1."""
+def check_k3(cfg, seq, base, seed, dev, k, jobs=None):
+    """K3 vs the f64 CPU twin: ``k`` x 360 points, +1 and mixed +-1, on
+    ``cfg.grid`` (overlap 4 or 1)."""
     import numpy as np
     import torch
 
+    from ndtpu_torch import kernels
     from ndtpu_torch.lie import se2
 
     rng = np.random.default_rng(seed + 1)
@@ -666,24 +790,31 @@ def check_k3(cfg, seq, base, seed, dev, k):
     e2, w2, f2, ms2, pl2 = _k3_case(cfg, base, pts, msk, wts, False)
     m = pts.shape[0]
     bd = k3_bound(m, cfg.grid)
-    print(f"[smoke] K3 halfcell_add M={m}: bit-equal to the fixed-point "
+    name = kernels.variant("K3 halfcell_add", cfg.grid.overlap)
+    print(f"[smoke] {name} M={m}: bit-equal to the fixed-point "
           f"model, on a second launch and under permutation; +1 weights max "
           f"abs err {e1:.3e} ({w1:.3f} x tol, counts exact; f32 twin "
           f"{f1:.3f} x tol), +-1 weights max abs err {e2:.3e} ({w2:.3f} x "
           f"tol; f32 twin {f2:.3f} x tol; tol 1e-5 x per-cell magnitude); "
           f"kernel {ms1:.4f} / {ms2:.4f} ms, plain {pl1:.4f} / {pl2:.4f} ms, "
           f"bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
-    return dict(max_abs_err=max(e1, e2), ms=ms1, plain_ms=pl1, **bd,
-                tol_units=max(w1, w2), f32_twin_tol_units=max(f1, f2))
+    row = dict(max_abs_err=max(e1, e2), ms=ms1, plain_ms=pl1, **bd,
+               tol_units=max(w1, w2), f32_twin_tol_units=max(f1, f2))
+    card_time(jobs, f"{name} M={m}", row, "card_ms",
+              lambda: kernels.halfcell_add(base.n, base.s, base.ss, pts, msk,
+                                           1.0, cfg.grid))
+    return row
 
 
 def k3_bound(m: int, grid) -> dict:
     """K3's bound with unit weights: points (8 B) and mask (1 B) read, the
-    28 floats of (n, s, ss) per cell read and written; ~10 operations per
-    point to bin and weigh it, 140 per cell to pool 4 grids x 7 moments
-    and add them. The lattice scratch is not the function's."""
-    c = grid.n_cells
-    return bound(m * 9 + 2 * 28 * 4 * c, 10.0 * m + 140.0 * c)
+    7 floats of (n, s, ss) per cell of each of the G grids read and
+    written; ~10 operations per point to bin and weigh it, 35 per (grid,
+    cell) to pool 7 moments (the overlap-4 pool; 7 at overlap 1) and add
+    them. The lattice scratch is not the function's."""
+    c, g = grid.n_cells, grid.overlap
+    per_cell = 35.0 if g == 4 else 7.0
+    return bound(m * 9 + 2 * 7 * 4 * g * c, 10.0 * m + per_cell * g * c)
 
 
 def check_k3_rebuild(cfg3, kf, dev):
@@ -708,7 +839,8 @@ def check_k3_rebuild(cfg3, kf, dev):
                                                       1.0, grid))
     m = world.shape[0]
     bd = k3_bound(m, grid)
-    print(f"[smoke] K3 halfcell_add rebuild M={m} ({int(live.sum())} live): "
+    name = kernels.variant("K3 halfcell_add", grid.overlap)
+    print(f"[smoke] {name} rebuild M={m} ({int(live.sum())} live): "
           f"bit-equal to the fixed-point model, on a second launch and under "
           f"permutation; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
           f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
@@ -716,45 +848,58 @@ def check_k3_rebuild(cfg3, kf, dev):
                 rebuild_bound_ms=bd["bound_ms"])
 
 
-def k4_bound(grid) -> dict:
-    """K4's bound: (n, s, ss) read (28 floats per cell), the [R, 32] table
-    written; ~40 operations to finalize each of the 4 x C cells."""
-    c = grid.n_cells
-    rows = (2 * grid.nx + 1) * (2 * grid.ny + 1)
-    return bound(28 * 4 * c + rows * 128, 160.0 * c)
+def k4_bound(grid, compact: bool = False) -> dict:
+    """K4's bound: (n, s, ss) read (7 floats per cell of each grid), the
+    [R, G*L] table written; ~40 operations to finalize each of the G x C
+    cells."""
+    from ndtpu_torch import kernels
+
+    c, g = grid.n_cells, grid.overlap
+    wh, hh = kernels._lattice(grid)
+    lanes = 4 if compact else 8
+    return bound(28 * g * c + wh * hh * g * lanes * 4, 40.0 * g * c)
 
 
-def check_k4(label, ndt_cfg, grid, stats, jobs=None):
-    """K4 vs finalize_pack_ref on the card at ``grid`` (valid flags exact,
-    the rest within K4's rtol 1e-5), bit-identical on a second launch;
-    event, card and plain times, and the bound."""
+def check_k4(label, ndt_cfg, grid, stats, jobs=None, compact: bool = False):
+    """K4 vs finalize_pack_ref on the card at ``grid`` in the layout
+    (``grid.overlap``, ``compact``) on the same f32 statistics (valid flags
+    exact, compact bf16-pair lanes bit-equal as int32, the rest within K4's
+    rtol 1e-5), bit-identical on a second launch; event, card and plain
+    times, and the bound."""
     import torch
 
     from ndtpu_torch import kernels
     from ndtpu_torch.ndt import grid as ndt_grid
 
+    layout = kernels._layout(grid, compact)
+    name = kernels.variant("K4 finalize_pack", *layout) + f" {label}"
     run = lambda: kernels.finalize_pack(stats.n, stats.s, stats.ss, ndt_cfg,
-                                        grid)
+                                        grid, compact)
+    plain_fn = lambda: ndt_grid.finalize_pack_ref(stats, ndt_cfg, grid,
+                                                  compact)
     out, again = run(), run()
-    ref = ndt_grid.finalize_pack_ref(stats, ndt_cfg, grid)
+    ref = plain_fn()
     torch.cuda.synchronize()
-    require(bits_equal(out, again), f"K4 {label}: two launches differ")
-    err = _table_check(f"K4 {label}", out, ref)
-    valid = int(ref[:, [8 * g + 5 for g in range(4)]].sum())
+    require(bits_equal(out, again), f"{name}: two launches differ")
+    err = _table_check(name, out, ref, layout)
+    whole = bits_equal(out, ref)
+    valid = valid_slots(ref, layout)
     ms = time_ms(run)
-    plain = time_ms(lambda: ndt_grid.finalize_pack_ref(stats, ndt_cfg, grid))
-    rows, bands, threads, smem = kernels.finalize_bands(grid, out.device)
-    bd = k4_bound(grid)
-    print(f"[smoke] K4 finalize_pack {label} R={out.shape[0]} ({bands} bands "
-          f"of {rows} rows, {threads} threads and {smem} B of shared memory "
-          f"each; {valid} valid "
-          f"slots): bit-identical on a second launch, valid exact, max abs "
-          f"err {err:.3e} (rtol 1e-5); kernel {ms:.4f} ms, plain "
+    plain = time_ms(plain_fn)
+    shape = ("one thread per cell" if grid.overlap == 1 else
+             "{1} bands of {0} rows, {2} threads and {3} B of shared memory "
+             "each".format(*kernels.finalize_bands(grid, out.device,
+                                                   compact)))
+    bd = k4_bound(grid, compact)
+    print(f"[smoke] {name} R={out.shape[0]} ({shape}; {valid} valid "
+          f"slots): bit-identical on a second launch, valid exact"
+          f"{', bf16-pair lanes bit-equal' if compact else ''}, max abs "
+          f"err {err:.3e} (rtol 1e-5), whole table bit-equal to the plain "
+          f"version: {whole}; kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain, rows=out.shape[0],
-               **bd)
-    card_time(jobs, f"K4 finalize_pack {label}", row, "card_ms", run,
-              ["finalize_pack_kernel"])
+               bit_equal_to_plain=whole, **bd)
+    card_time(jobs, name, row, "card_ms", run, ["finalize_pack"])
     return row
 
 
@@ -778,7 +923,8 @@ def check_k4_shapes(cfg, cfg3, seq, stats, seed, dev, jobs=None):
 def box_store(cfg3, seq, dev):
     """A keyframe store at config-3 capacity: slot s holds scan s % T of
     ``seq`` at its true pose, live for s < T, its local table built by
-    K8a."""
+    K8a in ``cfg3``'s layout (``loop.local_overlap``,
+    ``match.compact_table``)."""
     import torch
 
     from ndtpu_torch.loop import closure
@@ -788,27 +934,56 @@ def box_store(cfg3, seq, dev):
     src = torch.arange(cap) % t
     pts = seq.points[src].to(dev).contiguous()
     msk = seq.mask[src].to(dev).contiguous()
-    tables = torch.zeros((cap,) + closure.local_table_shape(cfg3.loop, False),
+    compact = cfg3.match.compact_table
+    tables = torch.zeros((cap,) + closure.local_table_shape(cfg3.loop,
+                                                            compact),
                          dtype=torch.float32, device=dev)
     closure.write_local_tables(tables, torch.arange(cap, device=dev),
                                torch.ones(cap, dtype=torch.bool, device=dev),
-                               pts, msk, cfg3.loop, cfg3.ndt)
+                               pts, msk, cfg3.loop, cfg3.ndt, compact)
     return KeyframeStore(poses=seq.gt_poses[src].to(dev), points=pts,
                          masks=msk, live=torch.arange(cap, device=dev) < t,
                          n=torch.tensor(t, device=dev), tables=tables)
 
 
-def check_k8a(cfg3, seq, seed, dev, w):
+def _unpacked(table, layout):
+    """A quad table's ``(valid, means, icov)`` lanes as f64 columns, compact
+    slots unpacked (``ndt.grid.unpack_bf16_pair``)."""
+    import torch
+
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    g_dim, lanes = layout
+    valid, means, icov = [], [], []
+    for g in range(g_dim):
+        row = table[..., lanes * g: lanes * (g + 1)]
+        means += [row[..., 0], row[..., 1]]
+        if lanes == 8:
+            icov += [row[..., 2], row[..., 3], row[..., 4]]
+            valid.append(row[..., 5])
+        else:
+            i00, i01 = ndt_grid.unpack_bf16_pair(row[..., 2], torch.float64)
+            i11, v = ndt_grid.unpack_bf16_pair(row[..., 3], torch.float64)
+            icov += [i00, i01, i11]
+            valid.append(v)
+    cols = lambda xs: torch.stack([x.double() for x in xs], -1)
+    return cols(valid), cols(means), cols(icov)
+
+
+def check_k8a(cfg3, seq, seed, dev, w, jobs=None):
     """K8a vs its twin: ``w`` keyframes into random slots of a ``w``-slot
-    cache. (a) Points snapped to 2^-4 m, so every moment sum is exact in
-    f32 and kernel and twin see the same statistics: against the twin on
-    the card at K4's rtol 1e-5. (b) Points snapped to 2^-16 m (f32 and f64
-    bin them alike): against the f64 twin on the CPU, valid flags exact,
-    means at rtol 1e-5, and the inverse covariances' error reported (f32
-    cancellation in ss/n - mean^2 on thin wall cells bounds it). (c) The
-    scans as they are: bit-identical on a second launch, with each scan's
-    points in a random order, and to K4 of K3's statistics of each scan.
-    Timed writing into a cache allocated once, as the main path does."""
+    cache, in ``cfg3``'s layout (``loop.local_overlap``,
+    ``match.compact_table``). (a) Points snapped to 2^-4 m, so every
+    moment sum is exact in f32 and kernel and twin see the same
+    statistics: against the twin on the card at K4's rule (compact
+    bf16-pair lanes bit-equal as int32). (b) Points snapped to 2^-16 m (f32
+    and f64 bin them alike): against the f64 twin on the CPU, valid flags
+    exact, means at rtol 1e-5, and the inverse covariances' error reported
+    (f32 cancellation in ss/n - mean^2 on thin wall cells bounds it; bf16
+    rounding in compact rows). (c) The scans as they are: bit-identical on
+    a second launch, with each scan's points in a random order, and to K4
+    of K3's statistics of each scan. Timed writing into a cache allocated
+    once, as the main path does."""
     import numpy as np
     import torch
 
@@ -816,19 +991,22 @@ def check_k8a(cfg3, seq, seed, dev, w):
     from ndtpu_torch.loop import closure
     from ndtpu_torch.ndt import grid as ndt_grid
 
+    compact = cfg3.match.compact_table
     rng = np.random.default_rng(seed + 4)
     lane = torch.as_tensor(rng.integers(0, seq.points.shape[0], w))
     slots = torch.as_tensor(rng.permutation(w))
     ok = torch.ones(w, dtype=torch.bool)
-    shape = (w,) + closure.local_table_shape(cfg3.loop, False)
+    shape = (w,) + closure.local_table_shape(cfg3.loop, compact)
     msk = seq.mask[lane]
     lgrid = closure.local_grid_config(cfg3.loop)
+    layout = kernels._layout(lgrid, compact)
+    name = kernels.variant("K8a local_tables", *layout)
     cache = torch.zeros(shape, dtype=torch.float32, device=dev)
     slot_d, ok_d, msk_d = slots.to(dev, torch.int32), ok.to(dev), msk.to(dev)
 
     def kernel(pts, m=msk_d):
         return kernels.local_tables(cache, slot_d, ok_d, pts, m, lgrid,
-                                    cfg3.ndt)
+                                    cfg3.ndt, compact)
 
     raw = seq.points[lane].to(dev).contiguous()
     one = kernel(raw).clone()
@@ -836,62 +1014,67 @@ def check_k8a(cfg3, seq, seed, dev, w):
     perm = torch.as_tensor(rng.permutation(raw.shape[1]), device=dev)
     shuf = kernel(raw[:, perm].contiguous(), msk_d[:, perm].contiguous())
     torch.cuda.synchronize()
-    require(bits_equal(one, two), "K8a: two launches differ")
-    require(bits_equal(one, shuf), "K8a: permuted points differ")
+    require(bits_equal(one, two), f"{name}: two launches differ")
+    require(bits_equal(one, shuf), f"{name}: permuted points differ")
     for k in range(w):
         st = ndt_grid.halfcell_add(
             ndt_grid.empty_stats(lgrid, torch.float32, dev), raw[k],
             msk_d[k], 1.0, lgrid)
         require(bits_equal(one[int(slots[k])],
-                           ndt_grid.finalize_pack(st, cfg3.ndt, lgrid)),
-                f"K8a: keyframe {k}'s table differs from K4 of K3")
+                           ndt_grid.finalize_pack(st, cfg3.ndt, lgrid,
+                                                  compact)),
+                f"{name}: keyframe {k}'s table differs from K4 of K3")
     rows, bands, smem = kernels.local_bands(w, lgrid, dev)
 
     p4 = snap(seq.points[lane], 4).to(dev).contiguous()
     twin = lambda: closure.write_local_tables_ref(
         torch.zeros(shape, dtype=torch.float32, device=dev), slots.to(dev),
-        ok.to(dev), p4, msk.to(dev), cfg3.loop, cfg3.ndt)
+        ok.to(dev), p4, msk.to(dev), cfg3.loop, cfg3.ndt, compact)
     out, ref = kernel(p4).clone(), twin()
     torch.cuda.synchronize()
-    err4 = _table_check("K8a", out, ref)
+    err4 = _table_check(name, out, ref, layout)
 
     p16 = snap(seq.points[lane].double(), 16)
-    out16 = kernel(p16.float().to(dev).contiguous()).cpu().double()
+    out16 = kernel(p16.float().to(dev).contiguous()).cpu()
     ref64 = closure.write_local_tables_ref(
         torch.zeros(shape, dtype=torch.float64), slots, ok, p16, msk,
-        cfg3.loop, cfg3.ndt)
-    valid_cols = [8 * g + 5 for g in range(4)]
-    require(bool((out16[..., valid_cols] == ref64[..., valid_cols]).all()),
-            "K8a: valid flags differ from the f64 twin")
-    mean_cols = [8 * g + k for g in range(4) for k in (0, 1)]
-    icov_cols = [8 * g + k for g in range(4) for k in (2, 3, 4)]
-    merr = (out16[..., mean_cols] - ref64[..., mean_cols]).abs()
-    mtol = 1e-5 * torch.clamp(ref64[..., mean_cols].abs(), min=1e-3 * float(
-        ref64[..., mean_cols].abs().max()))
+        cfg3.loop, cfg3.ndt, compact)
+    (v_o, m_o, i_o), (v_r, m_r, i_r) = (_unpacked(out16, layout),
+                                        _unpacked(ref64, layout))
+    require(bool((v_o == v_r).all()),
+            f"{name}: valid flags differ from the f64 twin")
+    merr = (m_o - m_r).abs()
+    mtol = 1e-5 * torch.clamp(m_r.abs(), min=1e-3 * float(m_r.abs().max()))
     require(bool((merr <= mtol).all()),
-            f"K8a: means off the f64 twin by {float((merr / mtol).max()):.3g}"
-            f" x tol")
-    ierr = (out16[..., icov_cols] - ref64[..., icov_cols]).abs()
-    irel = float(ierr.max() / ref64[..., icov_cols].abs().max())
-    require(bool(torch.isfinite(out16).all()), "K8a: non-finite table")
+            f"{name}: means off the f64 twin by "
+            f"{float((merr / mtol).max()):.3g} x tol")
+    ierr = (i_o - i_r).abs()
+    irel = float(ierr.max() / i_r.abs().max())
+    require(bool(torch.isfinite(m_o).all() and torch.isfinite(i_o).all()),
+            f"{name}: non-finite table")
     ms = time_ms(lambda: kernel(p4))
     plain = time_ms(twin)
     # Points (8 B), mask (1 B), slot and ok read, W tables written; ~10
     # operations per point and 40 per finalized cell slot.
     n = seq.points.shape[1]
-    bd = bound(w * (n * 9 + 5) + w * shape[1] * 128,
-               10.0 * w * n + 40.0 * w * shape[1] * 4)
-    print(f"[smoke] K8a local_tables W={w} N={seq.points.shape[1]} "
+    g_dim, lanes = layout
+    bd = bound(w * (n * 9 + 5) + w * shape[1] * g_dim * lanes * 4,
+               10.0 * w * n + 40.0 * w * shape[1] * g_dim)
+    print(f"[smoke] {name} W={w} N={seq.points.shape[1]} "
           f"({shape[1]} rows; {bands} bands of {rows} rows, {w * bands} "
           f"blocks, {smem} B of shared memory each): bit-identical on a "
           f"second launch, under permutation and to K4 of K3; vs f32 "
           f"twin (2^-4 m points) max abs err "
-          f"{err4:.3e} (K4 rtol 1e-5), valid exact; vs f64 twin (2^-16 m) "
+          f"{err4:.3e} (K4 rtol 1e-5"
+          f"{'; bf16-pair lanes bit-equal' if compact else ''}), "
+          f"valid exact; vs f64 twin (2^-16 m) "
           f"valid exact, means within rtol 1e-5, icov max err "
           f"{float(ierr.max()):.3e} = {irel:.3e} of its max; kernel "
           f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
           f"({bd['bound_by']})")
-    return dict(max_abs_err=err4, ms=ms, plain_ms=plain, **bd)
+    row = dict(max_abs_err=err4, ms=ms, plain_ms=plain, **bd)
+    card_time(jobs, f"{name} W={w}", row, "card_ms", lambda: kernel(p4))
+    return row
 
 
 def check_k1_grouped(cfg3, seq, kf, seed, dev, b, jobs=None):
@@ -920,27 +1103,30 @@ def check_k1_grouped(cfg3, seq, kf, seed, dev, b, jobs=None):
             closure.local_grid_config(cfg3.loop), cfg3.match.d2,
             cfg3.match.exp_clip)
     g32 = group.to(dev, torch.int32)
-    out = kernels.ndt_terms(*args, group=g32)
-    ref = match.ndt_terms_ref(*args, group=g32)
+    compact = cfg3.match.compact_table
+    name = kernels.variant("K1 ndt_terms grouped",
+                           *kernels._layout(args[5], compact))
+    kern = lambda: kernels.ndt_terms(*args, group=g32, compact=compact)
+    twin = lambda: match.ndt_terms_ref(*args, compact=compact, group=g32)
+    out, ref = kern(), twin()
     torch.cuda.synchronize()
     err = (out - ref).abs()
     tol = 1e-3 * torch.clamp(ref.abs(), min=1.0)
-    require(bool(torch.isfinite(out).all()), "K1 grouped: non-finite sums")
+    require(bool(torch.isfinite(out).all()), f"{name}: non-finite sums")
     require(bool((err <= tol).all()),
-            f"K1 grouped: sums off by up to {float((err / tol).max()):.3g} x "
+            f"{name}: sums off by up to {float((err / tol).max()):.3g} x "
             f"tolerance")
     hit = float((ref[:, 1] > 0).float().mean())
-    ms = time_ms(lambda: kernels.ndt_terms(*args, group=g32))
-    plain = time_ms(lambda: match.ndt_terms_ref(*args, group=g32))
+    ms = time_ms(kern)
+    plain = time_ms(twin)
     bd = k1_bound(args, g32)
-    print(f"[smoke] K1 ndt_terms grouped B={b} N={seq.points.shape[1]} "
+    print(f"[smoke] {name} B={b} N={seq.points.shape[1]} "
           f"S={kf.capacity}: max abs err {float(err.max()):.3e} (tol 1e-3 x "
           f"max(1,|ref|)), {hit:.2f} of lanes see valid cells; kernel "
           f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
           f"({bd['bound_by']})")
     row = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain, **bd)
-    card_time(jobs, "K1 ndt_terms grouped", row, "card_ms",
-              lambda: kernels.ndt_terms(*args, group=g32), ["ndt_terms"])
+    card_time(jobs, name, row, "card_ms", kern, ["ndt_terms"])
     return row
 
 
@@ -1066,14 +1252,16 @@ def gated_verify_identity(cfg3, seq, kf, seed, dev, c: int):
                             closure._k_budget(loop))
     fused = lambda: match.match_batch_packed_gated(
         pts, msk, kf.tables, init, lgrid, mcfg, flat, gate)
+    layout = kernels._layout(lgrid, mcfg.compact_table)
+    grouped = kernels.variant("lm_ndt_grouped", *layout)
     kernels.reset_launches()
     one = fused()
     torch.cuda.synchronize()
-    require(kernels.LAUNCHES["lm_ndt_grouped"] == 1
-            and kernels.LAUNCHES["loop_gate_fused"] == 1
-            and sum(kernels.LAUNCHES.values()) == 2,
-            f"gated verify: launches {kernels.LAUNCHES}, expected one "
-            f"lm_ndt_grouped counted as loop_gate_fused")
+    require(kernels.LAUNCHES[grouped] == 1
+            and kernels.LAUNCHES[kernels.variant("loop_gate_fused", *layout)]
+            == 1 and sum(kernels.LAUNCHES.values()) == 2,
+            f"gated verify: launches {launches_nonzero(kernels.LAUNCHES)}, "
+            f"expected one {grouped} counted as its loop_gate_fused")
     two = fused()
     reg = match.match_batch_packed(pts, msk, kf.tables, init, lgrid, mcfg,
                                    group=flat)
@@ -1160,7 +1348,9 @@ def check_gated_verify(cfg3, seq, kf, seed, dev, c: int, jobs=None):
     lanes_n = k * c
     bd = bound(lb["n_bytes"] + lanes_n * 39 + k * 8,
                lb["n_flops"] + 800.0 * lanes_n)
-    print(f"[smoke] gated verify K=4 C={c}: one lm_ndt_grouped launch "
+    vname = kernels.variant("gated verify",
+                            *kernels._layout(lgrid, mcfg.compact_table))
+    print(f"[smoke] {vname} K=4 C={c}: one lm_ndt_grouped launch "
           f"counted as loop_gate_fused; registrations and gate bit-equal to "
           f"lm_ndt_grouped + standalone K8b and on a second call; no host "
           f"sync; {int(cands.mask.sum())} live lanes ({g['near']} masked "
@@ -1171,12 +1361,12 @@ def check_gated_verify(cfg3, seq, kf, seed, dev, c: int, jobs=None):
           f"{verify_ms:.4f} ms against {unfused_ms:.4f} ms unfused")
     row = dict(max_abs_err=g["err"], ms=ms, plain_ms=plain_ms, **bd,
                verify_ms=verify_ms, unfused_verify_ms=unfused_ms)
-    card_time(jobs, f"gated verify C={c}, the gated lm_ndt launch", row,
+    card_time(jobs, f"{vname} C={c}, the gated lm_ndt launch", row,
               "card_ms", fused, ["lm_ndt_kernel"])
-    card_time(jobs, f"gated verify C={c}, every kernel of the verify", row,
+    card_time(jobs, f"{vname} C={c}, every kernel of the verify", row,
               "verify_card_ms", verify)
-    card_time(jobs, f"unfused verify C={c}, every kernel of the verify", row,
-              "unfused_verify_card_ms", unfused)
+    card_time(jobs, f"unfused {vname} C={c}, every kernel of the verify",
+              row, "unfused_verify_card_ms", unfused)
     return row
 
 
@@ -1429,17 +1619,19 @@ def check_lm(label, args, cfg, jobs=None):
     the result row and ``(lanes with equal converged flags, lanes)``."""
     import torch
 
+    from ndtpu_torch import kernels
     from ndtpu_torch.ndt import match
 
     init, px, py, mask_f, table, grid, group = args
+    name = kernels.variant("lm_ndt", *table_layout(table, grid)) + f" {label}"
     run = lambda: match.lm_ndt(*args[:6], cfg, group)
     twin = lambda: match.lm_ndt_ref(*args[:6], cfg, group)
     composite = lambda: lm_composite(*args[:6], cfg, group)
     kres, cres, tres = run(), composite(), twin()
     torch.cuda.synchronize()
-    for name in ("pose", "hessian", "score"):
-        require(bool(torch.isfinite(getattr(kres, name)).all()),
-                f"lm_ndt {label}: non-finite {name}")
+    for field in ("pose", "hessian", "score"):
+        require(bool(torch.isfinite(getattr(kres, field)).all()),
+                f"{name}: non-finite {field}")
     tol = lambda ref: 1e-5 * ref.abs().clamp(min=1.0)
     hmax = cres.hessian.abs().amax((-2, -1), keepdim=True)
     same = ((kres.n_iter == cres.n_iter)
@@ -1452,12 +1644,12 @@ def check_lm(label, args, cfg, jobs=None):
     for lane in (~same).nonzero().flatten().tolist():
         tie = accept_tie(args, cfg, lane)
         require(tie is not None and tie[3] <= 1e-6,
-                f"lm_ndt {label}: lane {lane} differs from the composite "
+                f"{name}: lane {lane} differs from the composite "
                 f"route (n_iter {int(kres.n_iter[lane])} vs "
                 f"{int(cres.n_iter[lane])}, converged "
                 f"{bool(kres.converged[lane])} vs "
                 f"{bool(cres.converged[lane])}) and is no accept tie: {tie}")
-        print(f"[smoke] lm_ndt {label}: lane {lane} parts from the composite "
+        print(f"[smoke] {name}: lane {lane} parts from the composite "
               f"route at an accept tie: iteration {tie[0]}, f {tie[1]!r}, "
               f"f2 {tie[2]!r}, |f2 - f| / |f| = {tie[3]:.3e}")
         ties += 1
@@ -1467,7 +1659,7 @@ def check_lm(label, args, cfg, jobs=None):
     both = kres.converged & tres.converged
     terr = float((kres.pose - tres.pose)[both].abs().max()) \
         if bool(both.any()) else 0.0
-    require(terr <= 1e-3, f"lm_ndt {label}: poses {terr:.3e} off the f32 "
+    require(terr <= 1e-3, f"{name}: poses {terr:.3e} off the f32 "
             f"twin on lanes converged in both (tol 1e-3)")
     ms = time_ms(run)
     comp_ms = time_ms(composite)
@@ -1476,7 +1668,7 @@ def check_lm(label, args, cfg, jobs=None):
     bd = bound(lb["n_bytes"], lb["n_flops"])
     b, n = px.shape
     its = kres.n_iter.long()
-    print(f"[smoke] lm_ndt {label} B={b} N={n}: n_iter mean "
+    print(f"[smoke] {name} B={b} N={n}: n_iter mean "
           f"{float(its.float().mean()):.2f} max {int(its.max())}, "
           f"{int(kres.converged.sum())}/{b} converged; vs composite route "
           f"{int(same.sum())}/{b} lanes equal (n_iter, converged; pose rtol "
@@ -1489,7 +1681,7 @@ def check_lm(label, args, cfg, jobs=None):
     row = dict(max_abs_err=terr, ms=ms, plain_ms=plain, **bd,
                composite_ms=comp_ms, composite_max_abs_err=cerr,
                accept_ties=ties)
-    card_time(jobs, f"lm_ndt {label}", row, "card_ms", run, ["lm_ndt_kernel"])
+    card_time(jobs, name, row, "card_ms", run, ["lm_ndt_kernel"])
     return row, (conv_eq, b)
 
 
@@ -1501,15 +1693,16 @@ def lm_bound(args, kres) -> dict:
     steps)."""
     import torch
 
-    init, px, py, mask_f, _, grid, group = args
+    init, px, py, mask_f, table, grid, group = args
+    g, l = table_layout(table, grid)
     keys0, _ = lane_rows(init, px, py, mask_f, grid, group)
     keys1, beams = lane_rows(kres.pose, px, py, mask_f, grid, group)
     b, n = px.shape
     rows = torch.cat([keys0, keys1]).unique().numel()
     its = kres.n_iter.long()
-    return dict(n_bytes=b * 12 + b * n * 12 + rows * 128 + b * 57
+    return dict(n_bytes=b * 12 + b * n * 12 + rows * g * l * 4 + b * 57
                 + (0 if group is None else b * 4),
-                n_flops=float(((its + 1) * beams).sum()) * BEAM_FLOPS
+                n_flops=float(((its + 1) * beams).sum()) * beam_flops(g, l)
                 + float(its.sum()) * STEP_FLOPS)
 
 
@@ -1535,6 +1728,73 @@ def check_no_sync(args, cfg):
             "match_batch_packed: not one lm_ndt launch")
     print("[smoke] match_batch_packed on the card: one lm_ndt launch, no "
           "host sync (set_sync_debug_mode('error'))")
+
+
+def layout_cfg(cfg, grids: int, lanes: int):
+    """``cfg`` in the table layout ``(grids, lanes)``: ``grid.overlap`` and
+    ``loop.local_overlap`` = ``grids``, ``match.compact_table`` = ``lanes
+    == 4``; nothing else changes."""
+    import dataclasses
+
+    return dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, overlap=grids),
+        loop=dataclasses.replace(cfg.loop, local_overlap=grids),
+        match=dataclasses.replace(cfg.match, compact_table=lanes == 4))
+
+
+def check_layouts(cfg, cfg3, seq, stats, kf, seed, dev, jobs=None):
+    """Phase 3 in the other table layouts (``kernels.LAYOUTS``: overlap 1,
+    compact rows, both), each kernel against its plain version at the main
+    path's shapes: K3 at overlap 1 (window and rebuild shapes, +1 and +-1
+    weights; bit-equal to its fixed-point model, on a second launch and
+    under permutation), and per layout K4 at the config-2 and config-3 map
+    tables, K1 and ``lm_ndt`` at the config-2 window shape, K8a at a
+    window, K1 grouped, ``lm_ndt`` grouped and the gated verify at the
+    config-3 verify shape over a 1,024-slot cache in the layout. ``stats``
+    is the overlap-4 config-2 map, ``kf`` the published layout's store
+    (its scans and poses are reused). Returns the rows by launch counter."""
+    from ndtpu_torch import kernels
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    rows, eq, lanes_n = {}, 0, 0
+    c1 = layout_cfg(cfg, 1, 8)
+    stats1 = map_stats(seq, c1.grid, dev)
+    row = check_k3(c1, seq, stats1, seed, dev, cfg.window, jobs)
+    row.update(check_k3_rebuild(layout_cfg(cfg3, 1, 8), kf, dev))
+    rows[kernels.variant("halfcell_add", 1)] = row
+    for g, l in kernels.LAYOUTS[1:]:
+        c2, c3 = layout_cfg(cfg, g, l), layout_cfg(cfg3, g, l)
+        v = lambda k: kernels.variant(k, g, l)
+        st = stats1 if g == 1 else stats
+        table = ndt_grid.finalize_pack(st, c2.ndt, c2.grid, l == 4)
+        k4 = check_k4("config 2", c2.ndt, c2.grid, st, jobs, l == 4)
+        k4["shapes"] = {"config3": check_k4(
+            "config 3", c3.ndt, c3.grid, map_stats(seq, c3.grid, dev), jobs,
+            l == 4)}
+        rows[v("finalize_pack")] = k4
+        rows[v("ndt_terms")] = check_k1(c2, seq, table, seed, dev, c2.window,
+                                        jobs)
+        rows[v("lm_ndt")], (e, b) = check_lm(
+            "window", lm_window_args(c2, seq, table, seed, dev, c2.window),
+            c2.match, jobs)
+        eq, lanes_n = eq + e, lanes_n + b
+        rows[v("local_tables")] = check_k8a(c3, seq, seed, dev, c3.window,
+                                            jobs)
+        kf_l = box_store(c3, seq, dev)
+        k = c3.loop.max_detect_per_window * c3.loop.max_candidates
+        rows[v("ndt_terms_grouped")] = check_k1_grouped(c3, seq, kf_l, seed,
+                                                        dev, k, jobs)
+        rows[v("lm_ndt_grouped")], (e, b) = check_lm(
+            "verify", lm_verify_args(c3, seq, kf_l, seed, dev, k), c3.match,
+            jobs)
+        eq, lanes_n = eq + e, lanes_n + b
+        rows[v("loop_gate_fused")] = check_gated_verify(
+            c3, seq, kf_l, seed, dev, c3.loop.max_candidates, jobs)
+        del kf_l
+    require(eq >= 0.98 * lanes_n,
+            f"lm_ndt layouts: converged flags equal to the f32 twin's on "
+            f"{eq}/{lanes_n} lanes (>= 98% required)")
+    return rows
 
 
 def smoother_state(state, seed: int):
@@ -2943,12 +3203,13 @@ def check_marginal_10k(sg):
                 k6g_launches=n)
 
 
-def run_entry_point(dev, config, n_scans: int):
+def run_entry_point(dev, config, n_scans: int, label=None):
     """The CLI main path on ``config``, with fresh launch counters and
     counts of the loop-detection calls (``verify_candidates_cached_flat``),
     the smoother's takes (0 skip, 1 global, 2 local), its full solves and
     its PCG solves (``graph.solve.pcg_solve`` calls, one ``pcg_solve``
-    launch each). Returns ``(launches, counts)``."""
+    launch each); the run's scans/s, seconds, ATE, keyframes and loops ride
+    along in the counts. Returns ``(launches, counts)``."""
     import numpy as np
 
     from ndtpu_torch import kernels, run
@@ -2992,19 +3253,23 @@ def run_entry_point(dev, config, n_scans: int):
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     traj = res["traj"]
+    label = label or config.name
     require(traj.shape == (n_scans, 3) and bool(np.isfinite(traj).all()),
             "entry point: trajectory not finite or of the wrong shape")
     require(res["n_keyframes"] > 0, "entry point: no keyframes")
-    lm = launches["lm_ndt"] + launches["lm_ndt_grouped"]
-    require(lm == calls, f"entry point {config.name}: {lm} lm_ndt launches "
+    lm = sum(v for k, v in launches.items() if k.startswith("lm_ndt"))
+    require(lm == calls, f"entry point {label}: {lm} lm_ndt launches "
             f"for {calls} match_batch_packed calls (one each expected)")
     require(launches["pcg_solve"] == counts["pcg_solves"],
-            f"entry point {config.name}: {launches['pcg_solve']} pcg_solve "
+            f"entry point {label}: {launches['pcg_solve']} pcg_solve "
             f"launches for {counts['pcg_solves']} PCG solves (one each "
             f"expected)")
     codes = [int(t) for t in takes]
     counts["takes"] = {c: codes.count(c) for c in (0, 1, 2)}
-    print(f"[smoke] entry point {config.name}: {n_scans} scans, "
+    counts.update(scans_per_s=res["scans_per_s"], seconds=res["seconds"],
+                  ate_m=res["ate"], keyframes=res["n_keyframes"],
+                  loops=res["n_loops"], match_batch_packed=calls)
+    print(f"[smoke] entry point {label}: {n_scans} scans, "
           f"{res['scans_per_s']:.1f} scans/s ({res['seconds']:.2f} s), "
           f"keyframes={res['n_keyframes']}, loops={res['n_loops']}, ATE "
           f"{res['ate']:.4f} m, {calls} match_batch_packed calls, "
@@ -3012,22 +3277,59 @@ def run_entry_point(dev, config, n_scans: int):
           f"windows), {counts['detections']} loop-detection calls; smoother: "
           f"{len(codes)} updates, takes (0 skip, 1 global, 2 local) "
           f"{counts['takes']}, {counts['full_solves']} full solves, "
-          f"{counts['pcg_solves']} PCG solves; launches {launches}")
+          f"{counts['pcg_solves']} PCG solves; launches "
+          f"{launches_nonzero(launches)}")
     return launches, counts
 
 
-def ate_gate(dev, config, ref_file):
-    """Box-world draws 0-2 through ``run_slam_windowed`` vs the JAX
-    reference's ATE (and loop count, with loop closure on)."""
+def draw_gate(label, draws):
+    """The box-world gates on ``draws`` (per draw: the port's ``ate``, the
+    reference's ``jax_ate_m`` and ``dead_reckoning_ate_m``): each draw below
+    0.75 x dead reckoning, or, where the JAX package's own f32 run is not
+    (recorded as ``jax_fails_dead_reckoning``), within 2 x its ATE; the
+    median at most max(0.10 m, 2 x JAX's median). Returns the gate's
+    summary."""
+    failing = []
+    for d in draws:
+        dr = d["dead_reckoning_ate_m"]
+        if d["jax_ate_m"] >= 0.75 * dr:
+            failing.append(d["seed"])
+            require(d["ate"] <= 2.0 * d["jax_ate_m"],
+                    f"ATE gate {label}: draw {d['seed']} ATE {d['ate']:.4f} "
+                    f"m above 2 x JAX's {d['jax_ate_m']:.4f} m (JAX itself "
+                    f"fails 0.75 x dead reckoning {dr:.4f} m there)")
+        else:
+            require(d["ate"] < 0.75 * dr,
+                    f"ATE gate {label}: draw {d['seed']} ATE {d['ate']:.4f} "
+                    f"m is not below 0.75 x dead reckoning {dr:.4f} m")
+    med = statistics.median(d["ate"] for d in draws)
+    jmed = statistics.median(d["jax_ate_m"] for d in draws)
+    limit = max(0.10, 2.0 * jmed)
+    print(f"[smoke] ATE gate {label}: median {med:.4f} m vs limit "
+          f"{limit:.4f} m (max(0.10, 2 x JAX median {jmed:.4f}))"
+          + (f"; JAX fails 0.75 x dead reckoning on draws {failing}, gated "
+             f"against 2 x JAX there" if failing else ""))
+    require(med <= limit, f"ATE gate {label}: median ATE above the limit")
+    return dict(median_ate_m=med, limit_m=limit, jax_median_ate_m=jmed,
+                jax_fails_dead_reckoning=failing)
+
+
+def ate_gate(dev, config, ref, label=None):
+    """Box-world draws through ``run_slam_windowed`` vs the JAX reference
+    ``ref`` (a file, or its loaded dict): ATE by :func:`draw_gate`, and
+    with loop closure on a loop wherever JAX closes one. Returns the
+    per-draw results and the gate's summary."""
     import torch
 
     from ndtpu_torch.config import PipelineConfig
     from ndtpu_torch.eval.ate import ate_rmse
     from ndtpu_torch.slam import pipeline
 
-    ref = json.loads(ref_file.read_text())
+    if isinstance(ref, Path):
+        ref = json.loads(ref.read_text())
     cfg = PipelineConfig.from_json(str(config))
-    ates, jax_ates = [], []
+    label = label or config.name
+    draws = []
     for draw in ref["draws"]:
         seq = box_sequence(draw["seed"], cfg.n_beams,
                            n_scans=ref.get("n_scans", BOX["n_scans"]))
@@ -3044,28 +3346,166 @@ def ate_gate(dev, config, ref_file):
         require(bool(torch.isfinite(traj).all()), "ATE gate: non-finite")
         ate = float(ate_rmse(traj.cpu(), seq.gt_poses))
         loops = ""
+        row = dict(draw, ate=ate, scans_per_s=(p.shape[0] - 1) / dt)
+        row.pop("sha256")
         if cfg.use_loop_closure:
             n_loops = int(state.n_loops)
+            row["n_loops"] = n_loops
             loops = (f", loops {n_loops} (JAX {draw['jax_n_loops']})")
             require(n_loops > 0 or draw["jax_n_loops"] == 0,
-                    f"ATE gate: draw {draw['seed']} closed no loop where "
-                    f"JAX closed {draw['jax_n_loops']}")
-        print(f"[smoke] ATE gate {config.name} draw {draw['seed']}: "
+                    f"ATE gate {label}: draw {draw['seed']} closed no loop "
+                    f"where JAX closed {draw['jax_n_loops']}")
+        f64 = (f", JAX f64 {draw['jax_ate_f64_m']:.4f} m"
+               if "jax_ate_f64_m" in draw else "")
+        print(f"[smoke] ATE gate {label} draw {draw['seed']}: "
               f"{(p.shape[0] - 1) / dt:.1f} scans/s, ATE {ate:.4f} m, JAX "
-              f"ATE {draw['jax_ate_m']:.4f} m{loops}, dead reckoning "
+              f"ATE {draw['jax_ate_m']:.4f} m{f64}{loops}, dead reckoning "
               f"{dr:.4f} m (reference {draw['dead_reckoning_ate_m']:.4f} m), "
               f"inputs {'match' if same else 'DIFFER FROM'} the reference "
               f"hashes")
-        require(ate < 0.75 * draw["dead_reckoning_ate_m"],
-                f"ATE gate: draw {draw['seed']} ATE {ate:.4f} m is not below "
-                f"0.75 x dead reckoning {draw['dead_reckoning_ate_m']:.4f} m")
-        ates.append(ate)
-        jax_ates.append(draw["jax_ate_m"])
-    med, jmed = statistics.median(ates), statistics.median(jax_ates)
-    limit = max(0.10, 2.0 * jmed)
-    print(f"[smoke] ATE gate {config.name}: median {med:.4f} m vs limit "
-          f"{limit:.4f} m (max(0.10, 2 x JAX median {jmed:.4f}))")
-    require(med <= limit, "ATE gate: median ATE above the limit")
+        draws.append(row)
+    return dict(draws=draws, **draw_gate(label, draws))
+
+
+#: Every plain version the windowed path could reach (the layout runs and
+#: config 1 hold them all off CUDA tensors).
+PLAIN_WINDOWED = PLAIN_SERVING + (
+    ("ndtpu_torch.ndt.match", "ndt_terms_ref"),
+    ("ndtpu_torch.ndt.grid", "finalize_ref"),
+    ("ndtpu_torch.loop.closure", "_gate_and_pack"))
+
+
+def run_config1(dev):
+    """Config 1 (``configs/config1_odometry.json`` as published: 80 x 80 at
+    0.5 m, W = 8, two passes, 360 beams) through
+    ``run_odometry_windowed`` on box-world draws 0-2 (300 scans), every
+    plain version refusing CUDA tensors, the launch counters reset just
+    before the first draw and read just after the last: one ``lm_ndt``
+    launch per ``match_batch_packed`` call, K3 and K4 launched. Each draw's
+    scans/s (wall, synchronized) and ATE beside the JAX package's f32 and
+    f64 ATE (``tests/data/torch_config1_box300_ref.json``), gated by
+    :func:`draw_gate`. Returns ``(launches, summary)``."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.eval.ate import ate_rmse
+    from ndtpu_torch.ndt import match
+    from ndtpu_torch.slam.odometry import run_odometry_windowed
+
+    ref = json.loads(REF1_FILE.read_text())
+    cfg = PipelineConfig.from_json(str(CONFIG1))
+    draws = []
+    kernels.reset_launches()
+    match.CALLS["match_batch_packed"] = 0
+    with no_plain_on_card(PLAIN_WINDOWED):
+        for draw in ref["draws"]:
+            seq = box_sequence(draw["seed"], cfg.n_beams,
+                               n_scans=ref["n_scans"])
+            same = sequence_hashes(seq) == draw["sha256"]
+            p, m, o = (t.to(dev) for t in (seq.points, seq.mask, seq.odom))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_odometry_windowed(
+                p, m, o, cfg.grid, cfg.ndt, cfg.match, cfg.keyframe,
+                window=cfg.window, passes=cfg.window_passes,
+                odom_gate=cfg.odom_gate)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            require(bool(torch.isfinite(res.poses).all())
+                    and res.poses.shape == (p.shape[0], 3),
+                    "config 1: poses not finite or of the wrong shape")
+            ate = float(ate_rmse(res.poses.cpu(), seq.gt_poses))
+            row = dict(draw, ate=ate, scans_per_s=(p.shape[0] - 1) / dt,
+                       seconds=dt, keyframes=int(res.is_keyframe.sum()))
+            row.pop("sha256")
+            print(f"[smoke] config 1 draw {draw['seed']}: "
+                  f"{row['scans_per_s']:.1f} scans/s ({dt:.3f} s), ATE "
+                  f"{ate:.4f} m, JAX f32 {draw['jax_ate_m']:.4f} m, f64 "
+                  f"{draw['jax_ate_f64_m']:.4f} m, dead reckoning "
+                  f"{draw['dead_reckoning_ate_m']:.4f} m, "
+                  f"{row['keyframes']} keyframes, inputs "
+                  f"{'match' if same else 'DIFFER FROM'} the reference hashes")
+            draws.append(row)
+    launches = dict(kernels.LAUNCHES)
+    calls = match.CALLS["match_batch_packed"]
+    require(launches["lm_ndt"] == calls > 0
+            and sum(v for k, v in launches.items() if k.startswith("lm_ndt"))
+            == calls,
+            f"config 1: {launches['lm_ndt']} lm_ndt launches for {calls} "
+            f"match_batch_packed calls (one each expected)")
+    require(launches["halfcell_add"] > 0 and launches["finalize_pack"] > 0,
+            "config 1: K3 or K4 not launched")
+    gate = draw_gate("config 1", draws)
+    return launches, dict(draws=draws, match_batch_packed=calls,
+                          launches=launches_nonzero(launches), **gate)
+
+
+def layout_json(config, changes: dict) -> dict:
+    """The published JSON of ``config`` with only the fields of
+    ``changes`` (``{section: {field: value}}``) set."""
+    doc = json.loads(Path(config).read_text())
+    for section, fields in changes.items():
+        doc[section].update(fields)
+    return doc
+
+
+def layout_kernels(cfg) -> list:
+    """The launch counters a windowed run in ``cfg``'s layouts must raise:
+    ``lm_ndt``, K3 and K4 in the map's layout, and with loop closure the
+    grouped ``lm_ndt``, K8a and the gated verify in the local tables'."""
+    from ndtpu_torch import kernels
+
+    lanes = 4 if cfg.match.compact_table else 8
+    g = cfg.grid.overlap
+    need = [kernels.variant("lm_ndt", g, lanes),
+            kernels.variant("halfcell_add", g),
+            kernels.variant("finalize_pack", g, lanes)]
+    if cfg.use_loop_closure:
+        lg = (cfg.loop.local_overlap, lanes)
+        need += [kernels.variant(k, *lg) for k in
+                 ("lm_ndt_grouped", "local_tables", "loop_gate_fused")]
+    return need
+
+
+def run_layouts(dev):
+    """The windowed path in the other table layouts through its entry point
+    (:data:`LAYOUT_RUNS`: the published JSON with only the named fields
+    changed, written to a temporary file): ``ndtpu_torch.run.main`` with
+    the counters reset just before and read just after (each run must
+    launch its layout's ``lm_ndt``, K3, K4 and, with loop closure, K8a and
+    the gated verify, one gated verify per loop-detection call), every
+    plain version refusing CUDA tensors; then box-world draws 0-2 of the
+    same config through ``run_slam_windowed`` against the JAX package's f32
+    ATE and loops under the same flags
+    (``tests/data/torch_layouts_box300_ref.json``). Returns ``(launches by
+    run, results by run)``."""
+    from ndtpu_torch.config import PipelineConfig
+
+    ref = json.loads(REF_LAYOUTS_FILE.read_text())
+    launches_by, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="ndtpu_layouts_") as tmp:
+        for name, config, n_scans, changes in LAYOUT_RUNS:
+            path = Path(tmp) / f"{name}.json"
+            path.write_text(json.dumps(layout_json(ROOT / config, changes)))
+            cfg = PipelineConfig.from_json(str(path))
+            with no_plain_on_card(PLAIN_WINDOWED):
+                launches, counts = run_entry_point(dev, path, n_scans, name)
+                gate = ate_gate(dev, path, ref["runs"][name], name)
+            for k in layout_kernels(cfg):
+                require(launches[k] > 0,
+                        f"layout run {name}: {k} launched no time")
+            if cfg.use_loop_closure:
+                fused = layout_kernels(cfg)[-1]
+                require(launches[fused] == counts["detections"] > 0,
+                        f"layout run {name}: {launches[fused]} gated "
+                        f"verifies for {counts['detections']} loop-detection "
+                        f"calls (one each expected)")
+            launches_by[name] = launches
+            out[name] = dict(config=config, changes=changes,
+                             cli_scans=n_scans, cli=counts,
+                             launches=launches_nonzero(launches), **gate)
+    return launches_by, out
 
 
 def check_padded_sessions(dev):
@@ -5030,7 +5470,8 @@ def main(argv=None) -> int:
 
     require((ROOT / "ndtpu_torch").is_dir() and REF_FILE.is_file()
             and REF3_FILE.is_file() and REF4_FILE.is_file()
-            and REF_SERVING_FILE.is_file() and REF5_FILE.is_file(),
+            and REF_SERVING_FILE.is_file() and REF5_FILE.is_file()
+            and REF1_FILE.is_file() and REF_LAYOUTS_FILE.is_file(),
             f"run from a checkout of the repository ({ROOT} lacks "
             f"ndtpu_torch/ or the reference files in tests/data)")
     import torch
@@ -5080,7 +5521,8 @@ def main(argv=None) -> int:
     results = {**lm_rows,
                "ndt_terms": check_k1(cfg, seq, table, args.seed, dev, w,
                                      jobs),
-               "halfcell_add": check_k3(cfg, seq, stats, args.seed, dev, w),
+               "halfcell_add": check_k3(cfg, seq, stats, args.seed, dev, w,
+                                        jobs),
                "finalize_pack": check_k4_shapes(cfg, cfg3, seq, stats,
                                                 args.seed, dev, jobs)}
 
@@ -5093,7 +5535,7 @@ def main(argv=None) -> int:
     results["halfcell_add"].update(check_k3_rebuild(cfg3, kf, dev))
     check_k8a(cfg3, seq, args.seed, dev, 256)
     results["local_tables"] = check_k8a(cfg3, seq, args.seed, dev,
-                                        cfg3.window)
+                                        cfg3.window, jobs)
     results["ndt_terms_grouped"] = check_k1_grouped(
         cfg3, seq, kf, args.seed, dev,
         cfg3.loop.max_detect_per_window * cfg3.loop.max_candidates, jobs)
@@ -5113,6 +5555,10 @@ def main(argv=None) -> int:
     eq, lanes = conv2[0] + conv3[0], conv2[1] + conv3[1]
     require(eq >= 0.98 * lanes, f"lm_ndt: converged flags equal to the f32 "
             f"twin's on {eq}/{lanes} lanes (>= 98% required)")
+    # The same kernels in the other table layouts (overlap 1, compact rows,
+    # both), K3 at overlap 1.
+    results.update(check_layouts(cfg, cfg3, seq, stats, kf, args.seed, dev,
+                                 jobs))
     # The map build is the same on every run; what the whole pipeline does
     # run to run on the draws whose ATE flipped under float atomics.
     check_frontend_twice(cfg3, box_sequence(2, cfg3.n_beams), dev)
@@ -5146,6 +5592,10 @@ def main(argv=None) -> int:
     ate_gate(dev, CONFIG2, REF_FILE)
     launches3, counts3 = run_entry_point(dev, CONFIG3, 600)
     ate_gate(dev, CONFIG3, REF3_FILE)
+    # Config 1 (odometry alone), then the windowed path in the other table
+    # layouts through its entry point.
+    launches1, config1 = run_config1(dev)
+    launches_layouts, layouts = run_layouts(dev)
     detections = counts3["detections"]
     require(counts3["full_solves"] > 0, "config 3: no full solve ran")
     require(launches3["loop_gate_fused"] == detections > 0
@@ -5190,7 +5640,8 @@ def main(argv=None) -> int:
     launches15, slab15, rows15 = run_slab(dev, card, keep, args.seed, jobs)
     results.update(rows15)
     del keep
-    paths = {"config2": launches2, "config3": launches3, "config4": launches4,
+    paths = {"config1": launches1, **launches_layouts,
+             "config2": launches2, "config3": launches3, "config4": launches4,
              "config4_pcg": launches4p, "incremental_10k": launches10k,
              "serving": launches8, "config5": launches5,
              "config5_dist": launches5d, "slam_launch": launches14,
@@ -5216,6 +5667,7 @@ def main(argv=None) -> int:
                 "incremental_10k": incremental10k}
     config4.update(step=step4, ba_solve_ms_per_iter_10k=ba_split)
     print(json.dumps({"kernels": rows, "repeat_runs": repeats,
+                      "config1": config1, "layouts": layouts,
                       "smoother": smoother, "config4": config4,
                       "serving": serving,
                       "config5": {"merge": merge5, "distributed": dist5,

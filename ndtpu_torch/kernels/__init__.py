@@ -15,7 +15,8 @@ lm_ndt       ``csrc/lm_ndt.cu`` (K2 around   ``match._lm_run`` /
 ndt_terms    ``csrc/ndt_terms.cu`` (K1)      ``grid.lookup_quad`` (or
                                              ``lookup_quad_grouped``) +
                                              ``match.point_terms_quad``
-halfcell     ``csrc/halfcell_add.cu`` (K3)   ``grid._add_points_halfcell``
+halfcell     ``csrc/halfcell_add.cu`` (K3)   ``grid._add_points_halfcell``;
+                                             ``add_points`` at overlap 1
 halfcell_    ``csrc/halfcell_add.cu`` (K3s)  the same over S maps (the vmaps
 add_stacked                                  of ``add_points`` in
                                              ``dist/slam_dp.py``)
@@ -88,6 +89,16 @@ lanes and gates them (the gated verify, counted as ``lm_ndt_grouped`` and
 as ``loop_gate_fused``); ``loop_gate`` alone gates registrations made
 elsewhere.
 
+Table layouts (:data:`LAYOUTS`): the quad tables of K1, ``lm_ndt`` (and
+the gated verify), K4 and K8a come in four layouts, G overlap grids per
+row (4, or 1 at ``GridConfig.overlap = 1`` / ``LoopConfig.local_overlap =
+1``) of L lanes (8, or 4 bf16-pair lanes at ``MatchConfig.compact_table``);
+each layout is its own instantiation of the same device code, counted
+apart (:func:`variant`: ``lm_ndt[g1l8]``, ``finalize_pack[g4l4]``, ...).
+K3 takes both overlaps (``halfcell_add[g1]``). Stacked serving's K3s and
+K4s take the published layout only, and config 5's K12, K10a and K10c
+overlap 4 only (ROADMAP B8b, B7b): they raise on the others.
+
 K1's per-beam body and block reduction live in ``csrc/ndt_sums.cuh``;
 ``lm_ndt`` runs them once per LM iteration, so on the registration path K1
 is not launched on its own. K3 and K8a share the map build's arithmetic,
@@ -141,7 +152,30 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "schur_local_assemble", "ndt_sgh_unpacked", "slab_accumulate",
            "finalize_cells", "slab_sgh"]
 
-#: Launch counts per kernel since the last :func:`reset_launches`.
+#: The quad-table layouts ``(G, L)``: G overlap grids per row (4, or 1 at
+#: ``overlap = 1``) of L lanes each (8 full, or 4 compact bf16-pair lanes at
+#: ``compact_table = True``). The first is the published configs' layout.
+LAYOUTS = ((4, 8), (1, 8), (4, 4), (1, 4))
+
+
+def variant(name: str, grids: int, lanes: int | None = None) -> str:
+    """The launch counter of kernel ``name`` in a table layout: ``name`` for
+    the published layout (4 grids of 8 lanes), else ``name[g1l8]``,
+    ``name[g4l4]`` or ``name[g1l4]``; K3 (``lanes=None``) has grids only:
+    ``halfcell_add[g1]`` at overlap 1."""
+    if lanes is None:
+        return name if grids == 4 else f"{name}[g{grids}]"
+    return name if (grids, lanes) == (4, 8) else f"{name}[g{grids}l{lanes}]"
+
+
+#: The kernels that run in every table layout (K1, ``lm_ndt``, the gated
+#: verify, K4, K8a); K3 runs at both overlaps.
+_LAYOUT_KERNELS = ("lm_ndt", "lm_ndt_grouped", "ndt_terms",
+                   "ndt_terms_grouped", "finalize_pack", "local_tables",
+                   "loop_gate_fused")
+
+#: Launch counts per kernel since the last :func:`reset_launches`; the
+#: layout variants (:func:`variant`) count apart.
 LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "ndt_terms_grouped": 0, "halfcell_add": 0,
             "halfcell_add_stacked": 0, "finalize_pack": 0,
@@ -150,7 +184,10 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "pcg_solve_grid": 0, "pcg_solve_blocked": 0, "local_select": 0,
             "local_assemble": 0, "supernodal_assemble": 0, "schur_reduce": 0,
             "schur_local_assemble": 0, "ndt_sgh_unpacked": 0,
-            "slab_accumulate": 0, "finalize_cells": 0, "slab_sgh": 0}
+            "slab_accumulate": 0, "finalize_cells": 0, "slab_sgh": 0,
+            variant("halfcell_add", 1): 0,
+            **{variant(k, g, l): 0 for k in _LAYOUT_KERNELS
+               for g, l in LAYOUTS[1:]}}
 
 #: Shared memory one block can have on Hopper (227 KB), and what it gets
 #: without ``cudaFuncSetAttribute`` (48 KB).
@@ -173,14 +210,15 @@ _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
 _SIGNATURES = {
     "lm_ndt_launch": [_P] * 11 + [_I] * 7 + [_F] * 12 + [_P] * 6 + [_I]
-                     + [_F] * 3 + [_I, _I, _P],
+                     + [_F] * 3 + [_I, _I, _I, _I, _P],
     "ndt_terms_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _F, _F, _F, _P],
+                         _F, _F, _F, _F, _F, _I, _I, _P],
     "halfcell_add_launch": [_P, _P, _P, _F] + [_P] * 7 + [_I] * 4 + [_D] * 4
-                           + [_P],
-    "finalize_pack_launch": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_I, _P],
-    "local_tables_launch": [_P] * 5 + [_I] * 7 + [_D] * 4 + [_F] * 3
                            + [_I, _P],
+    "finalize_pack_launch": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_I] * 3
+                            + [_P],
+    "local_tables_launch": [_P] * 5 + [_I] * 7 + [_D] * 4 + [_F] * 3
+                           + [_I] * 3 + [_P],
     "loop_gate_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _F, _F, _F, _I, _P],
     "factor_linearize_launch": [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I, _F, _I]
@@ -320,46 +358,83 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _lattice(grid):
+    """The quad table's lattice ``(wh, hh)``: the ``(2nx+1) x (2ny+1)``
+    half cells at overlap 4, the ``nx x ny`` cells at overlap 1."""
+    if grid.overlap == 4:
+        return 2 * grid.nx + 1, 2 * grid.ny + 1
+    if grid.overlap == 1:
+        return grid.nx, grid.ny
+    raise ValueError(f"overlap must be 1 or 4, got {grid.overlap}")
+
+
+def _inv(grid) -> float:
+    """The matcher's binning factor: ``1 / lattice pitch``."""
+    return (2.0 if grid.overlap == 4 else 1.0) / grid.cell
+
+
+def _frame(grid) -> tuple:
+    """The map build's fixed-point frame ``(inv, h)``: half cells ``(2 /
+    cell, cell / 2)`` at overlap 4, cells ``(1 / cell, cell)`` at overlap
+    1 (``csrc/halfcell_fixed.cuh``, ``ndt.grid.halfcell_add_fixed_ref``)."""
+    return _inv(grid), grid.cell / 2.0 if grid.overlap == 4 else grid.cell
+
+
+def _layout(grid, compact: bool) -> tuple:
+    """``(G, L)`` of a quad table on ``grid`` (:data:`LAYOUTS`)."""
+    return grid.overlap, 4 if compact else 8
+
+
+def _stacked_layout(name: str, grid, compact: bool = False):
+    """The stacked serving kernels (K3s, K4s) take the published layout
+    only."""
     if grid.overlap != 4:
         raise NotImplementedError(
-            "the CUDA kernels take overlap=4 grids only; overlap=1 on the "
-            "card is ROADMAP Queue B (K1/K3/K4 overlap=1 tables)")
-    return 2 * grid.nx + 1, 2 * grid.ny + 1
+            f"{name} takes overlap=4 grids only; overlap=1 for stacked "
+            f"serving on the card is ROADMAP Queue B (B8b)")
+    if compact:
+        raise NotImplementedError(
+            f"{name} takes full-width rows only; compact_table for stacked "
+            f"serving on the card is ROADMAP Queue B (B7b)")
 
 
 def ndt_terms(poses, px, py, mask_f, table, grid, d2: float,
-              exp_clip: float, group=None) -> torch.Tensor:
+              exp_clip: float, group=None, compact: bool = False
+              ) -> torch.Tensor:
     """K1: the 11 NDT sums ``[B, 11]`` per lane (see ``csrc/ndt_terms.cu``).
 
-    ``table`` is one shared ``[R, 32]`` table, or with ``group`` (int32
-    ``[B]``) a stack ``[S, R, 32]`` of which lane ``b`` reads table
-    ``group[b]`` (the kernel clamps it into ``[0, S)``)."""
+    ``table`` is one shared ``[R, G*L]`` table, or with ``group`` (int32
+    ``[B]``) a stack ``[S, R, G*L]`` of which lane ``b`` reads table
+    ``group[b]`` (the kernel clamps it into ``[0, S)``); ``G = overlap``,
+    ``L = 4`` if ``compact`` else 8."""
     wh, hh = _lattice(grid)
+    gl = _layout(grid, compact)
     b, n = px.shape
     _check(poses, "poses", shape=(b, 3))
     _check(px, "px")
     _check(py, "py", shape=(b, n))
     _check(mask_f, "mask", shape=(b, n))
-    n_tables, g_ptr, grouped = _table_args(table, group, b, wh, hh)
-    counter = "ndt_terms_grouped" if grouped else "ndt_terms"
+    n_tables, g_ptr, grouped = _table_args(table, group, b, wh, hh, gl)
+    counter = variant("ndt_terms_grouped" if grouped else "ndt_terms", *gl)
     out = torch.empty((b, 11), dtype=torch.float32, device=px.device)
     if b == 0:
         return out.zero_()
     _call("ndt_terms_launch", counter, poses.data_ptr(), px.data_ptr(),
           py.data_ptr(), mask_f.data_ptr(), table.data_ptr(), g_ptr,
           out.data_ptr(), b, n, wh, hh, wh * hh, n_tables, grid.x0, grid.y0,
-          2.0 / grid.cell, d2, exp_clip, _stream(px))
+          _inv(grid), d2, exp_clip, *gl, _stream(px))
     return out
 
 
-def _table_args(table, group, b: int, wh: int, hh: int):
-    """Check a shared ``[R, 32]`` table, or a stack ``[S, R, 32]`` with an
-    int32 ``group [B]``; returns ``(n_tables, group pointer, grouped)``."""
+def _table_args(table, group, b: int, wh: int, hh: int, layout):
+    """Check a shared ``[R, G*L]`` table, or a stack ``[S, R, G*L]`` with an
+    int32 ``group [B]`` (rows read as 16-byte vectors); returns
+    ``(n_tables, group pointer, grouped)``."""
+    lanes = layout[0] * layout[1]
     if group is None:
-        _check(table, "table", shape=(wh * hh, 32), align=16)
+        _check(table, "table", shape=(wh * hh, lanes), align=16)
         return 1, None, False
     _check(group, "group", dtype=torch.int32, shape=(b,))
-    _check(table, "tables", shape=(table.shape[0], wh * hh, 32), align=16)
+    _check(table, "tables", shape=(table.shape[0], wh * hh, lanes), align=16)
     return table.shape[0], group.data_ptr(), True
 
 
@@ -411,7 +486,8 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None,
     n_iter [B] int32, converged [B] bool)``.
 
     ``cfg`` is a ``MatchConfig`` (read by attribute; ``max_iter`` is the
-    cap); ``table`` and ``group`` are as for :func:`ndt_terms`. With
+    cap, ``compact_table`` the table's lanes); ``table`` and ``group`` are
+    as for :func:`ndt_terms`. With
     ``gate`` (``K`` queries x ``C <= 128`` candidates, ``B = K * C``,
     ``group`` = the candidates' indices) the same launch also gates the
     lanes as :func:`loop_gate` does, bit for bit, and three more outputs
@@ -420,12 +496,13 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None,
     if gate is not None:
         _gate_width(gate.cand_mask.shape[-1])
     wh, hh = _lattice(grid)
+    gl = _layout(grid, cfg.compact_table)
     b, n = px.shape
     _check(init_poses, "init_poses", shape=(b, 3))
     _check(px, "px")
     _check(py, "py", shape=(b, n))
     _check(mask_f, "mask", shape=(b, n))
-    n_tables, g_ptr, grouped = _table_args(table, group, b, wh, hh)
+    n_tables, g_ptr, grouped = _table_args(table, group, b, wh, hh, gl)
     smem = 3 * n * 4
     if smem > SMEM_MAX - 1024:
         raise ValueError(f"lm_ndt: {n} beams need {smem} B of shared memory, "
@@ -457,17 +534,18 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None,
                      gate.score_gate, gate.innov_base, gate.innov_per_kf,
                      gate.k_budget]
     if b > 0:
-        _call("lm_ndt_launch", "lm_ndt_grouped" if grouped else "lm_ndt",
+        _call("lm_ndt_launch",
+              variant("lm_ndt_grouped" if grouped else "lm_ndt", *gl),
               init_poses.data_ptr(), px.data_ptr(), py.data_ptr(),
               mask_f.data_ptr(), table.data_ptr(), g_ptr, pose.data_ptr(),
               hess.data_ptr(), score.data_ptr(), n_iter.data_ptr(),
               conv.data_ptr(), b, n, wh, hh, wh * hh, n_tables,
-              int(cfg.max_iter), grid.x0, grid.y0, 2.0 / grid.cell, cfg.d2,
+              int(cfg.max_iter), grid.x0, grid.y0, _inv(grid), cfg.d2,
               cfg.exp_clip, cfg.tol, cfg.reject_tol, cfg.init_lambda,
               cfg.lambda_up, cfg.lambda_down, cfg.max_lambda, cfg.step_clip,
-              *gate_args, smem, _stream(px))
+              *gate_args, smem, *gl, _stream(px))
         if gate is not None:
-            LAUNCHES["loop_gate_fused"] += 1
+            LAUNCHES[variant("loop_gate_fused", *gl)] += 1
     return outs
 
 
@@ -487,39 +565,45 @@ def _halfcell_scratch(dev: torch.device, wh: int, hh: int,
 
 
 def halfcell_add(n, s, ss, points, mask, weight, grid):
-    """K3: ``(n, s, ss) + half-cell moments of points``, as new tensors.
+    """K3: ``(n, s, ss) + moments of points``, as new tensors: at overlap 4
+    the half-cell scatter and the 2x2 pool into the 4 grids (statistics
+    ``[4, C]``, ``[4, C, 2]``, ``[4, C, 2, 2]``), at overlap 1 the same
+    scatter on the cells of the one grid, binned as ``ndt.grid.cell_ids``
+    bins (statistics ``[1, C]``, ...; counted as ``halfcell_add[g1]``).
 
     ``weight`` is a Python float or an f32 ``[M]`` tensor. The moments are
     summed in 64-bit fixed point (``csrc/halfcell_fixed.cuh``), so the
     result is the same on every run and under any order of the points, and
     equals ``ndt.grid.halfcell_add_fixed_ref`` bit for bit. Each call is one
     ctypes call, which zeroes the kept lattice scratch, scatters and pools
-    on the current stream, and one ``LAUNCHES["halfcell_add"]``.
+    (or, at overlap 1, reconstructs each cell) on the current stream, and
+    one launch count.
     """
     wh, hh = _lattice(grid)
-    c = grid.n_cells
+    g, c = grid.overlap, grid.n_cells
     m = points.shape[0]
     _check(points, "points", shape=(m, 2), align=8)
     _check(mask, "mask", dtype=torch.bool, shape=(m,), align=1)
-    _check(n, "stats.n", shape=(4, c))
-    _check(s, "stats.s", shape=(4, c, 2))
-    _check(ss, "stats.ss", shape=(4, c, 2, 2))
+    _check(n, "stats.n", shape=(g, c))
+    _check(s, "stats.s", shape=(g, c, 2))
+    _check(ss, "stats.ss", shape=(g, c, 2, 2))
     if isinstance(weight, torch.Tensor):
         _check(weight, "weight", shape=(m,))
         w_ptr, w_scalar = weight.data_ptr(), 0.0
     else:
         w_ptr, w_scalar = None, float(weight)
     dev = points.device
-    out = torch.empty(28 * c, dtype=torch.float32, device=dev)
-    n2 = out[:4 * c].view(4, c)
-    s2 = out[4 * c:12 * c].view(4, c, 2)
-    ss2 = out[12 * c:].view(4, c, 2, 2)
-    _call("halfcell_add_launch", "halfcell_add", points.data_ptr(),
+    # ss first, then s and n: each part 16-byte aligned whatever C is.
+    out = torch.empty(7 * g * c, dtype=torch.float32, device=dev)
+    ss2 = out[:4 * g * c].view(g, c, 2, 2)
+    s2 = out[4 * g * c:6 * g * c].view(g, c, 2)
+    n2 = out[6 * g * c:].view(g, c)
+    _call("halfcell_add_launch", variant("halfcell_add", g), points.data_ptr(),
           mask.data_ptr(), w_ptr, w_scalar,
           _halfcell_scratch(dev, wh, hh).data_ptr(), n.data_ptr(),
           s.data_ptr(), ss.data_ptr(), n2.data_ptr(), s2.data_ptr(),
           ss2.data_ptr(), 1, m, grid.nx, grid.ny, grid.x0, grid.y0,
-          2.0 / grid.cell, grid.cell / 2.0, _stream(points))
+          *_frame(grid), g, _stream(points))
     return n2, s2, ss2
 
 
@@ -529,7 +613,8 @@ def halfcell_add_stacked(n, s, ss, points, mask, weight, grid):
     ``[S, M, 2]``, mask bool ``[S, M]``, weight a Python float or an f32
     ``[S, M]`` tensor. Map ``i`` gets exactly what :func:`halfcell_add` of
     its own points gives, bit for bit. One ``LAUNCHES
-    ["halfcell_add_stacked"]`` per call."""
+    ["halfcell_add_stacked"]`` per call. Overlap 4 only (ROADMAP B8b)."""
+    _stacked_layout("K3s halfcell_add_stacked", grid)
     wh, hh = _lattice(grid)
     c = grid.n_cells
     maps, m = mask.shape
@@ -555,72 +640,86 @@ def halfcell_add_stacked(n, s, ss, points, mask, weight, grid):
           _halfcell_scratch(dev, wh, hh, maps).data_ptr(), n.data_ptr(),
           s.data_ptr(), ss.data_ptr(), n2.data_ptr(), s2.data_ptr(),
           ss2.data_ptr(), maps, m, grid.nx, grid.ny, grid.x0, grid.y0,
-          2.0 / grid.cell, grid.cell / 2.0, _stream(points))
+          *_frame(grid), 4, _stream(points))
     return n2, s2, ss2
 
 
-def _finalize_smem(rows: int, nx: int) -> int:
+def _finalize_smem(rows: int, nx: int, lanes: int = 8) -> int:
     """K4's shared memory for a band of ``rows`` table rows: 4 grids x
-    ``grid_stride`` cells x 32 B (``csrc/finalize_pack.cu``)."""
+    ``grid_stride`` cells x ``4 * lanes`` B (``csrc/finalize_pack.cu``)."""
     cells = (rows // 2 + 1) * nx
-    return 4 * (((cells + 2) & ~3) + 1) * 32
+    return 4 * (((cells + 2) & ~3) + 1) * 4 * lanes
 
 
-def finalize_bands(grid, device=None) -> tuple:
-    """K4's launch shape on ``grid``: ``(band_rows, bands, threads, shared
-    bytes)``. Bands as thin as the card holds at once (``bands`` within 8
-    blocks per SM: one-row bands on an H100 at every published grid), each
-    band's ``band_rows // 2 + 1`` cell rows of each of the 4 grids (32 B
-    per cell) within the ``SMEM_BLOCK`` a block gets without an opt-in; one
-    thread per such cell (whole warps, at most 512). A lattice so wide
-    that one row needs more gets one-row bands and the opt-in (set once per
-    process), up to ``SMEM_MAX``; past that it raises. ``device=None``
-    checks the size only. Kept per (grid, device)."""
-    key = (grid, None if device is None else device.index)
+def finalize_bands(grid, device=None, compact: bool = False) -> tuple:
+    """K4's launch shape on an overlap-4 ``grid``: ``(band_rows, bands,
+    threads, shared bytes)``. Bands as thin as the card holds at once
+    (``bands`` within 8 blocks per SM: one-row bands on an H100 at every
+    published grid), each band's ``band_rows // 2 + 1`` cell rows of each
+    of the 4 grids (32 B per cell, 16 B with ``compact``) within the
+    ``SMEM_BLOCK`` a block gets without an opt-in; one thread per such cell
+    (whole warps, at most 512). A lattice so wide that one row needs more
+    gets one-row bands and the opt-in (set once per process), up to
+    ``SMEM_MAX``; past that it raises. ``device=None`` checks the size
+    only. Kept per (grid, device, layout). Overlap 1 needs no bands (one
+    thread per cell)."""
+    key = (grid, None if device is None else device.index, compact)
     shape = _FINALIZE_BANDS.get(key)
     if shape is not None:
         return shape
     wh, hh = _lattice(grid)
-    one = _finalize_smem(1, grid.nx)
+    lanes = 4 if compact else 8
+    one = _finalize_smem(1, grid.nx, lanes)
     if one > SMEM_MAX:
         raise ValueError(
             f"finalize_pack: a band of a {wh}-wide lattice needs {one} B of "
             f"shared memory, over the {SMEM_MAX} B a block can have")
     max_rows = 1
-    while max_rows < hh and _finalize_smem(max_rows + 1, grid.nx) \
+    while max_rows < hh and _finalize_smem(max_rows + 1, grid.nx, lanes) \
             <= SMEM_BLOCK:
         max_rows += 1
     resident = 1 if device is None else 8 * _sm_count(device)
     rows = min(max(1, -(-hh // resident)), max_rows)
     cells = 4 * (rows // 2 + 1) * grid.nx
     shape = (rows, -(-hh // rows), min(512, -(-cells // 32) * 32),
-             _finalize_smem(rows, grid.nx))
+             _finalize_smem(rows, grid.nx, lanes))
     _FINALIZE_BANDS[key] = shape
     return shape
 
 
-def finalize_pack(n, s, ss, ndt_cfg, grid) -> torch.Tensor:
-    """K4: finalize every cell and write the quad table ``[R, 32]``, one
-    block per band of table rows (:func:`finalize_bands`)."""
+def finalize_pack(n, s, ss, ndt_cfg, grid, compact: bool = False
+                  ) -> torch.Tensor:
+    """K4: finalize every cell and write the quad table ``[R, G*L]`` (``G =
+    overlap``, ``L = 4`` if ``compact`` else 8): at overlap 4 one block per
+    band of table rows (:func:`finalize_bands`), at overlap 1 one thread per
+    cell (row r is cell r). Compact lanes are bf16 pairs composed as 32-bit
+    words (``csrc/ndt_cell.cuh``)."""
     wh, hh = _lattice(grid)
+    g, lanes = _layout(grid, compact)
     c = grid.n_cells
-    _check(n, "stats.n", shape=(4, c))
-    _check(s, "stats.s", shape=(4, c, 2), align=8)
-    _check(ss, "stats.ss", shape=(4, c, 2, 2), align=16)
-    rows, bands, threads, smem = finalize_bands(grid, n.device)
-    table = torch.empty((hh * wh, 32), dtype=torch.float32, device=n.device)
-    _call("finalize_pack_launch", "finalize_pack", n.data_ptr(), s.data_ptr(),
-          ss.data_ptr(), table.data_ptr(), 1, grid.nx, grid.ny, rows, bands,
-          threads, float(ndt_cfg.min_pts), ndt_cfg.eig_ratio,
-          ndt_cfg.eig_abs_min, smem, _stream(n))
+    _check(n, "stats.n", shape=(g, c))
+    _check(s, "stats.s", shape=(g, c, 2), align=8)
+    _check(ss, "stats.ss", shape=(g, c, 2, 2), align=16)
+    bands = (finalize_bands(grid, n.device, compact) if g == 4
+             else (0, 0, 0, 0))
+    table = torch.empty((hh * wh, g * lanes), dtype=torch.float32,
+                        device=n.device)
+    _call("finalize_pack_launch", variant("finalize_pack", g, lanes),
+          n.data_ptr(), s.data_ptr(), ss.data_ptr(), table.data_ptr(), 1,
+          grid.nx, grid.ny, *bands[:3], float(ndt_cfg.min_pts),
+          ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min, bands[3], g, lanes,
+          _stream(n))
     return table
 
 
-def finalize_pack_stacked(n, s, ss, ndt_cfg, grid) -> torch.Tensor:
+def finalize_pack_stacked(n, s, ss, ndt_cfg, grid, compact: bool = False
+                          ) -> torch.Tensor:
     """K4s: :func:`finalize_pack` of S maps in one launch (statistics with a
     leading ``S`` axis), each map cut into K4's bands; returns the tables
     ``[S, R, 32]``, table ``i`` bit-equal to :func:`finalize_pack` of map
-    ``i``."""
+    ``i``. The published layout only: overlap 1 and ``compact`` raise
+    (ROADMAP B8b, B7b)."""
+    _stacked_layout("K4s finalize_pack_stacked", grid, compact)
     wh, hh = _lattice(grid)
     c = grid.n_cells
     maps = n.shape[0]
@@ -635,7 +734,7 @@ def finalize_pack_stacked(n, s, ss, ndt_cfg, grid) -> torch.Tensor:
     _call("finalize_pack_launch", "finalize_pack_stacked",
           n.data_ptr(), s.data_ptr(), ss.data_ptr(), table.data_ptr(), maps,
           grid.nx, grid.ny, rows, bands, threads, float(ndt_cfg.min_pts),
-          ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min, smem, _stream(n))
+          ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min, smem, 4, 8, _stream(n))
     return table
 
 
@@ -643,21 +742,23 @@ def local_bands(w: int, grid, device) -> tuple:
     """K8a's launch shape for ``w`` keyframes on ``grid``: ``(band_rows,
     bands, shared bytes)``. Bands as thin as the card can hold at once
     (``w x bands`` blocks of 256 threads within 8 per SM; one table row
-    each at a window's ``w``), each band's ``band_rows + 2`` lattice rows
-    of int64 sums (48 B per half-cell) within ``SMEM_BLOCK``; raises where
-    even one row does not fit. ``device=None`` checks the size only."""
+    each at a window's ``w``), each band's lattice rows of int64 sums (48 B
+    per bin: ``band_rows + 2`` half-cell rows at overlap 4, ``band_rows``
+    cell rows at overlap 1) within ``SMEM_BLOCK``; raises where even one
+    row does not fit. ``device=None`` checks the size only."""
     wh, hh = _lattice(grid)
+    halo = 2 if grid.overlap == 4 else 0
     row_bytes = wh * 6 * 8
-    max_rows = SMEM_BLOCK // row_bytes - 2
+    max_rows = SMEM_BLOCK // row_bytes - halo
     if max_rows < 1:
         raise ValueError(
             f"local_tables: a band of a {wh}-wide lattice needs at least "
-            f"{3 * row_bytes} B of shared memory, over the {SMEM_BLOCK} B a "
-            f"block gets without an opt-in; use a smaller "
+            f"{(1 + halo) * row_bytes} B of shared memory, over the "
+            f"{SMEM_BLOCK} B a block gets without an opt-in; use a smaller "
             f"LoopConfig.local_half_extent or a larger local_cell")
     resident = 1 if device is None else 8 * _sm_count(device)
     rows = min(max(1, -(-w * hh // resident)), max_rows)
-    return rows, -(-hh // rows), (rows + 2) * row_bytes
+    return rows, -(-hh // rows), (rows + halo) * row_bytes
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -668,29 +769,33 @@ def _sm_count(dev: torch.device) -> int:
     return _SM_COUNT[idx]
 
 
-def local_tables(tables, slot, ok, points, mask, grid, ndt_cfg):
+def local_tables(tables, slot, ok, points, mask, grid, ndt_cfg,
+                 compact: bool = False):
     """K8a: for every keyframe ``w`` with ``ok[w]``, build its local quad
-    table from ``points[w]`` (sensor frame) on ``grid`` and write it into
-    ``tables[slot[w]]`` in place (see ``csrc/local_tables.cu``). Returns
-    ``tables``. ``slot`` is int32; slots outside the cache are skipped.
-    Each table equals :func:`finalize_pack` of :func:`halfcell_add` of its
-    scan on empty statistics, bit for bit, on every run."""
+    table from ``points[w]`` (sensor frame) on ``grid`` (overlap 4 or 1)
+    and write it into ``tables[slot[w]]`` in place, full or ``compact``
+    rows (see ``csrc/local_tables.cu``). Returns ``tables``. ``slot`` is
+    int32; slots outside the cache are skipped. Each table equals
+    :func:`finalize_pack` of :func:`halfcell_add` of its scan on empty
+    statistics, bit for bit, on every run, in every layout."""
     wh, hh = _lattice(grid)
+    g, lanes = _layout(grid, compact)
     local_bands(0, grid, None)       # an oversized lattice raises first
     w, n = mask.shape
     _check(points, "points", shape=(w, n, 2), align=8)
     _check(mask, "mask", dtype=torch.bool, shape=(w, n), align=1)
     _check(slot, "slot", dtype=torch.int32, shape=(w,))
     _check(ok, "ok", dtype=torch.bool, shape=(w,), align=1)
-    _check(tables, "tables", shape=(tables.shape[0], wh * hh, 32), align=16)
+    _check(tables, "tables", shape=(tables.shape[0], wh * hh, g * lanes),
+           align=16)
     if w > 0:
         rows, bands, smem = local_bands(w, grid, points.device)
-        _call("local_tables_launch", "local_tables", points.data_ptr(),
-              mask.data_ptr(), slot.data_ptr(), ok.data_ptr(),
-              tables.data_ptr(), w, n, grid.nx, grid.ny, tables.shape[0],
-              rows, bands, grid.x0, grid.y0, 2.0 / grid.cell,
-              grid.cell / 2.0, float(ndt_cfg.min_pts), ndt_cfg.eig_ratio,
-              ndt_cfg.eig_abs_min, smem, _stream(points))
+        _call("local_tables_launch", variant("local_tables", g, lanes),
+              points.data_ptr(), mask.data_ptr(), slot.data_ptr(),
+              ok.data_ptr(), tables.data_ptr(), w, n, grid.nx, grid.ny,
+              tables.shape[0], rows, bands, grid.x0, grid.y0, *_frame(grid),
+              float(ndt_cfg.min_pts), ndt_cfg.eig_ratio,
+              ndt_cfg.eig_abs_min, smem, g, lanes, _stream(points))
     return tables
 
 
@@ -1156,8 +1261,8 @@ def ndt_sgh_unpacked(poses, points, mask_f, mean, icov, valid, grid,
     H [B, 3, 3], score [B])``, views of one ``[B, 14]`` allocation."""
     if grid.overlap != 4:
         raise NotImplementedError(
-            "K12 takes overlap=4 maps only; overlap=1 on the card is ROADMAP "
-            "Queue B (B8)")
+            "K12 takes overlap=4 maps only; overlap=1 for config 5 on the "
+            "card is ROADMAP Queue B (B8b)")
     c = grid.n_cells
     b, n = poses.shape[0], points.shape[0]
     _check(poses, "poses", shape=(b, 3))
@@ -1200,8 +1305,8 @@ def slab_accumulate(points, mask, grid, x_lo: int, width: int):
     ``LAUNCHES["slab_accumulate"]``."""
     if grid.overlap != 4:
         raise NotImplementedError(
-            "K10a takes overlap=4 grids only; overlap=1 on the card is "
-            "ROADMAP Queue B (B8)")
+            "K10a takes overlap=4 grids only; overlap=1 for config 5 on the "
+            "card is ROADMAP Queue B (B8b)")
     if width < 1:
         raise ValueError(f"slab_accumulate: width {width} < 1")
     m = points.shape[0]
@@ -1252,8 +1357,8 @@ def slab_sgh(poses, points, mask_f, mean, icov, valid, grid, x_lo: int,
     ``csrc/ndt_unpacked.cu``): ``[B, 15]``."""
     if grid.overlap != 4:
         raise NotImplementedError(
-            "K10c takes overlap=4 maps only; overlap=1 on the card is "
-            "ROADMAP Queue B (B8)")
+            "K10c takes overlap=4 maps only; overlap=1 for config 5 on the "
+            "card is ROADMAP Queue B (B8b)")
     nxl, ny = valid.shape[1], grid.ny
     b, n = poses.shape[0], points.shape[0]
     _check(poses, "poses", shape=(b, 3))

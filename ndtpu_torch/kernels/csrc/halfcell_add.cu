@@ -28,6 +28,15 @@
 //      statistics stay valid: the pipeline registers against a temporary
 //      map built on top of the window's committed one).
 //
+// Overlap 1 (kByCell, ndtpu/ndt/grid.py::add_points :120-160 with cell_ids
+// :89-108: one segment_sum of the moments onto the ny x nx cells of the one
+// grid): the same scatter at cell resolution, binned as cell_ids bins (a
+// division by the cell, halfcell_fixed.cuh's cell_bin; K10a bins the same
+// way) into the nx x ny lattice of fixed-point sums with h = cell; no
+// pooling: a per-cell pass reconstructs each cell's f64 moments, adds the
+// input statistics in f64 and rounds to f32 once into new output tensors,
+// as the pool does at overlap 4.
+//
 // K3s: the grid's y axis of the scatter and z axis of the pool is the map
 // (session) s, whose points, mask, weights, lattice slice [hh * wh, 6] and
 // statistics are each shifted by s whole maps; one memset zeroes all S
@@ -40,7 +49,9 @@
 // lattice) and the pool's stats traffic (28 floats per cell in and out).
 // Each lattice half-cell is read from L2 about once (the halo adds 1/8),
 // where the former pool read it up to 16 times. The host's part of a call
-// (one ctypes call, one output allocation) is the larger share.
+// (one ctypes call, one output allocation) is the larger share. At overlap
+// 1 the lattice is the nx x ny cells (about a quarter of the half-cell
+// lattice) and the statistics 7 floats per cell in and out.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,6 +68,7 @@ constexpr int kPoolThreads = 320;        // one thread per tile half-cell
 static_assert(kPoolThreads >= kSpan * kSpan && kPoolThreads >= kCells,
               "the pool reads its tile in one pass");
 
+template <bool kByCell>
 __global__ void __launch_bounds__(kThreads)
 halfcell_scatter_kernel(const float2* __restrict__ pts,
                         const uint8_t* __restrict__ mask,
@@ -75,7 +87,11 @@ halfcell_scatter_kernel(const float2* __restrict__ pts,
     const float2 p = pts[i];
     const float w = weight != nullptr ? weight[i] : wscalar;
     int hx, hy;
-    if (w != 0.f && ndtpu::halfcell_bin(p.x, p.y, g, &hx, &hy)) {
+    const bool in =
+        kByCell ? ndtpu::cell_bin(p.x, p.y, g.x0f, g.y0f, 0.f, 0.f, g.hf,
+                                  g.wh, g.hh, &hx, &hy)
+                : ndtpu::halfcell_bin(p.x, p.y, g, &hx, &hy);
+    if (w != 0.f && in) {
       ndtpu::halfcell_quantize(p.x, p.y, w, hx, hy, g, q);
       cell = hy * g.wh + hx;
     }
@@ -157,10 +173,38 @@ halfcell_pool_kernel(const long long* __restrict__ lattice,
   ss_out[4 * t + 3] = ndtpu::halfcell_out(ss_in[4 * t + 3], p[5]);
 }
 
+// Overlap 1: one thread per (cell, map); the cell is its own bin.
+__global__ void __launch_bounds__(kThreads)
+cell_moments_kernel(const long long* __restrict__ lattice,
+                    const float* __restrict__ n_in,
+                    const float* __restrict__ s_in,
+                    const float* __restrict__ ss_in,
+                    float* __restrict__ n_out, float* __restrict__ s_out,
+                    float* __restrict__ ss_out, ndtpu::HalfcellGrid g) {
+  const int cells = g.wh * g.hh;
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= cells) return;
+  const size_t i = (size_t)blockIdx.y * cells + t;   // K3s: the map
+  const longlong2* src = reinterpret_cast<const longlong2*>(lattice + 6 * i);
+  const longlong2 a01 = src[0], a23 = src[1], a45 = src[2];
+  const long long a[6] = {a01.x, a01.y, a23.x, a23.y, a45.x, a45.y};
+  const int iy = t / g.wh;
+  double m[6];
+  ndtpu::halfcell_moments(a, t - iy * g.wh, iy, g, m);
+  n_out[i] = ndtpu::halfcell_out(n_in[i], m[0]);
+  s_out[2 * i + 0] = ndtpu::halfcell_out(s_in[2 * i + 0], m[1]);
+  s_out[2 * i + 1] = ndtpu::halfcell_out(s_in[2 * i + 1], m[2]);
+  ss_out[4 * i + 0] = ndtpu::halfcell_out(ss_in[4 * i + 0], m[3]);
+  ss_out[4 * i + 1] = ndtpu::halfcell_out(ss_in[4 * i + 1], m[4]);
+  ss_out[4 * i + 2] = ndtpu::halfcell_out(ss_in[4 * i + 2], m[4]);
+  ss_out[4 * i + 3] = ndtpu::halfcell_out(ss_in[4 * i + 3], m[5]);
+}
+
 }  // namespace
 
 // `maps` maps (1 for K3, S for K3s) of `m` points each; every array is
-// [maps, ...].
+// [maps, ...]. overlap 4: inv = 2/cell, h = cell/2 (half cells, then the
+// pool); overlap 1: inv = 1/cell, h = cell (cells, then the moments).
 extern "C" int halfcell_add_launch(const void* pts, const void* mask,
                                    const void* weight, float wscalar,
                                    void* lattice, const void* n_in,
@@ -168,21 +212,35 @@ extern "C" int halfcell_add_launch(const void* pts, const void* mask,
                                    void* n_out, void* s_out, void* ss_out,
                                    int maps, int m, int nx, int ny, double x0,
                                    double y0, double inv, double h,
-                                   void* stream) {
+                                   int overlap, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  const bool cells = overlap == 1;
+  if (maps < 1 || (overlap != 1 && overlap != 4))
+    return (int)cudaErrorInvalidValue;
   const ndtpu::HalfcellGrid g =
-      ndtpu::make_halfcell_grid(x0, y0, inv, h, 2 * nx + 1, 2 * ny + 1);
-  if (maps < 1) return (int)cudaErrorInvalidValue;
+      cells ? ndtpu::make_halfcell_grid(x0, y0, inv, h, nx, ny)
+            : ndtpu::make_halfcell_grid(x0, y0, inv, h, 2 * nx + 1,
+                                        2 * ny + 1);
   cudaError_t err = cudaMemsetAsync(
       lattice, 0, (size_t)maps * g.wh * g.hh * 6 * sizeof(long long), st);
   if (err != cudaSuccess) return (int)err;
   if (m > 0) {
     const dim3 blocks((m + kThreads - 1) / kThreads, maps);
-    halfcell_scatter_kernel<<<blocks, kThreads, 0, st>>>(
+    auto* scatter = cells ? &halfcell_scatter_kernel<true>
+                          : &halfcell_scatter_kernel<false>;
+    scatter<<<blocks, kThreads, 0, st>>>(
         (const float2*)pts, (const uint8_t*)mask, (const float*)weight,
         wscalar, (unsigned long long*)lattice, m, g);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+  }
+  if (cells) {
+    const dim3 blocks((nx * ny + kThreads - 1) / kThreads, maps);
+    cell_moments_kernel<<<blocks, kThreads, 0, st>>>(
+        (const long long*)lattice, (const float*)n_in, (const float*)s_in,
+        (const float*)ss_in, (float*)n_out, (float*)s_out, (float*)ss_out,
+        g);
+    return (int)cudaGetLastError();
   }
   const dim3 tiles((nx + kTile - 1) / kTile, (ny + kTile - 1) / kTile, maps);
   halfcell_pool_kernel<<<tiles, kPoolThreads, 0, st>>>(

@@ -37,8 +37,11 @@
 // Layout: blockDim = K1's 128 threads over beams, so the sums at a pose are
 // bit-identical to K1's. The lane's px, py and mask are read from device
 // memory once into dynamic shared memory (12 B per beam) and reused by
-// every iteration. The table is [R, 32] shared by all lanes, or with group
-// (int32 [B], clamped into [0, S)) a stack [S, R, 32]. After each block
+// every iteration. The table is [R, G*L] shared by all lanes, or with group
+// (int32 [B], clamped into [0, S)) a stack [S, R, G*L]; the layout (G = 4 or 1
+// overlap grids, L = 8 full or 4 compact lanes per grid) is a template
+// parameter of K1's body, so each of the four layouts is its own instantiation
+// (and each again gated and ungated) with the same LM step. After each block
 // reduction threads 0-10 put the sums in shared memory; every thread then
 // computes the LM step from them redundantly (identical inputs, identical
 // result), so the loop condition is uniform and needs no broadcast. f32,
@@ -51,7 +54,11 @@
 // iterations x (gather latency + reduction). The design answers the real
 // cost it replaces: the composite route spent ~80 small torch launches and
 // a host sync every 4 iterations per LM iteration; this is one launch per
-// registration call and no host sync.
+// registration call and no host sync. The smaller layouts gather 64, 32 or
+// 16 bytes per beam instead of 128 and evaluate one grid instead of four
+// at overlap 1; the chain of dependent steps per iteration is the same, so
+// a simple kernel per layout is all this slice asks (tuning the layouts is
+// later work).
 //
 // The gated verify (kGate = true) also runs K8b's loop gate
 // (loop_gate.cuh) in the same launch, for the loop verify's K queries x C
@@ -106,7 +113,7 @@ struct GateArgs {
   ndtpu::GateParams p;
 };
 
-template <bool kGate>
+template <bool kGate, int kG, int kL>
 __global__ void __launch_bounds__(kNdtThreads)
 lm_ndt_kernel(const float* __restrict__ init_poses,
               const float* __restrict__ px, const float* __restrict__ py,
@@ -124,7 +131,7 @@ lm_ndt_kernel(const float* __restrict__ init_poses,
   const int n = p.n;
   if (group != nullptr) {
     const int g = min(max(group[b], 0), p.n_tables - 1);
-    table += (size_t)g * p.rows_per_table * 8;
+    table += (size_t)g * p.rows_per_table * ndtpu::row_float4<kG, kL>();
   }
   float* sx = beams;
   float* sy = beams + n;
@@ -139,7 +146,8 @@ lm_ndt_kernel(const float* __restrict__ init_poses,
 
   // Sums at (tx, ty, phi) into sums[], visible to every thread on return.
   auto evaluate = [&](float tx, float ty, float phi) {
-    const float v = ndtpu::ndt_lane_sums(tx, ty, phi, sx, sy, sm, n, table,
+    const float v = ndtpu::ndt_lane_sums<kG, kL>(tx, ty, phi, sx, sy, sm, n,
+                                                 table,
                                          p.wh, p.hh, p.x0, p.y0, p.inv, p.d2,
                                          p.exp_clip, part);
     if (threadIdx.x < kNdtSums) sums[threadIdx.x] = v;
@@ -271,11 +279,32 @@ lm_ndt_kernel(const float* __restrict__ init_poses,
 }
 
 // Raise the dynamic shared-memory limit of one instantiation (> 48 KB).
-template <bool kGate>
+template <bool kGate, int kG, int kL>
 cudaError_t opt_in(int smem_bytes) {
-  return cudaFuncSetAttribute(lm_ndt_kernel<kGate>,
+  return cudaFuncSetAttribute(lm_ndt_kernel<kGate, kG, kL>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem_bytes);
+}
+
+template <bool kGate, int kG, int kL>
+int launch(int b, int smem_bytes, cudaStream_t stream, const void* init_poses,
+           const void* px, const void* py, const void* mask,
+           const void* table, const void* group, void* pose_out,
+           void* hess_out, void* score_out, void* iter_out, void* conv_out,
+           const LmParams& p, const GateArgs& g) {
+  if (smem_bytes > 48 * 1024) {   // beyond the default: opt in (> 4,096 beams)
+    const cudaError_t err = opt_in<kGate, kG, kL>(smem_bytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();   // clear it, so the next launch's check is clean
+      return (int)err;
+    }
+  }
+  lm_ndt_kernel<kGate, kG, kL><<<b, kNdtThreads, smem_bytes, stream>>>(
+      (const float*)init_poses, (const float*)px, (const float*)py,
+      (const float*)mask, (const float4*)table, (const int*)group,
+      (float*)pose_out, (float*)hess_out, (float*)score_out, (int*)iter_out,
+      (unsigned char*)conv_out, p, g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -295,21 +324,14 @@ extern "C" int lm_ndt_launch(const void* init_poses, const void* px,
                              void* accept, void* innov_rej, void* sqrt_info,
                              void* arrive, int c_count, float score_gate,
                              float innov_base, float innov_per_kf,
-                             int k_budget, int smem_bytes, void* stream) {
+                             int k_budget, int smem_bytes, int grids,
+                             int lanes, void* stream) {
   // arrive != null: the gated verify, b = K * c_count lanes in a grouped
   // launch (group holds the candidate indices).
   const bool gated = arrive != nullptr;
   if (gated && (c_count < 1 || c_count > ndtpu::kGateMaxLanes ||
                 b % c_count != 0 || group == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (smem_bytes > 48 * 1024) {   // beyond the default: opt in (> 4,096 beams)
-    const cudaError_t err = gated ? opt_in<true>(smem_bytes)
-                                  : opt_in<false>(smem_bytes);
-    if (err != cudaSuccess) {
-      cudaGetLastError();   // clear it, so the next launch's check is clean
-      return (int)err;
-    }
-  }
   LmParams p{n, wh, hh, rows_per_table, n_tables, max_iter, x0, y0, inv, d2,
              exp_clip, tol, reject_tol, init_lambda, lambda_up, lambda_down,
              max_lambda, step_clip};
@@ -317,11 +339,11 @@ extern "C" int lm_ndt_launch(const void* init_poses, const void* px,
                    (uint8_t*)accept, (uint8_t*)innov_rej, (float*)sqrt_info,
                    (int*)arrive,
                    {c_count, score_gate, innov_base, innov_per_kf, k_budget}};
-  auto* kernel = gated ? lm_ndt_kernel<true> : lm_ndt_kernel<false>;
-  kernel<<<b, kNdtThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)init_poses, (const float*)px, (const float*)py,
-      (const float*)mask, (const float4*)table, (const int*)group,
-      (float*)pose_out, (float*)hess_out, (float*)score_out, (int*)iter_out,
-      (unsigned char*)conv_out, p, g);
-  return (int)cudaGetLastError();
+  return ndtpu::with_layout(grids, lanes, [&](auto kg, auto kl) {
+    constexpr int kG = decltype(kg)::value, kL = decltype(kl)::value;
+    auto* run = gated ? &launch<true, kG, kL> : &launch<false, kG, kL>;
+    return run(b, smem_bytes, (cudaStream_t)stream, init_poses, px, py, mask,
+               table, group, pose_out, hess_out, score_out, iter_out,
+               conv_out, p, g);
+  });
 }

@@ -1,14 +1,25 @@
-// Device code shared by K4 (finalize_pack.cu) and K8a (local_tables.cu):
-// finalize one NDT cell from its sums and write its 8 quad-row floats.
+// Device code shared by K4 (finalize_pack.cu), K8a (local_tables.cu) and
+// K10b (finalize_cells.cu): finalize one NDT cell from its sums and write
+// its quad-row lanes.
 //
 // Port of ndtpu/ndt/grid.py::finalize (:232-254, with _eig2x2_sym
-// :211-229) for one cell, followed by its slot of pack_quad (:336-391,
-// compact=False). The op order and the 1e-20 / 1e-30 guards of
-// _eig2x2_sym are kept as written; the file that includes this is built
-// with --fmad=false and without fast math.
+// :211-229) for one cell, followed by its slot of pack_quad (:336-391).
+// A slot is kL lanes of one overlap grid:
+//   kL = 8 (full rows):    [mu_x, mu_y, i00, i01, i11, valid, 0, 0]
+//   kL = 4 (compact rows): [mu_x, mu_y, pack(i00, i01), pack(i11, valid)]
+// where pack(a, b) is grid.py::_pack_bf16_pair (:317-323): a and b rounded
+// to bf16 (round to nearest even, as astype(bfloat16)), a in the low half
+// of the 32-bit lane, b in the high half. Such a lane is a bit pattern,
+// not a number: with b = 0 (an invalid cell, or i01 = 0) it reads as an
+// f32 denormal, so it is composed as a uint32 and moved only by loads and
+// stores, never through float arithmetic (which may flush it).
+// The op order and the 1e-20 / 1e-30 guards of _eig2x2_sym are kept as
+// written; the file that includes this is built with --fmad=false and
+// without fast math.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ndtpu {
@@ -28,13 +39,24 @@ __device__ __forceinline__ int quad_slot_cell(int t, int nx, int ny) {
   return (uy >> 1) * nx + (ux >> 1);
 }
 
+// A slot outside its grid (pack_quad's zero pad): kL / 4 zero float4.
+template <int kL = 8>
 __device__ __forceinline__ void store_zero_slot(float4* out) {
-  out[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-  out[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < kL / 4; ++k) out[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// _pack_bf16_pair(a, b): bf16(a) in the low 16 bits, bf16(b) in the high
+// 16 bits of one lane, composed as a uint32 (C-w2).
+__device__ __forceinline__ float pack_bf16_pair(float a, float b) {
+  const unsigned lo = __bfloat16_as_ushort(__float2bfloat16_rn(a));
+  const unsigned hi = __bfloat16_as_ushort(__float2bfloat16_rn(b));
+  return __uint_as_float((hi << 16) | lo);
 }
 
 // n, (sx, sy), (sxx, sxy, syy): the cell's count, first and second moment
-// sums. Writes [mu_x, mu_y, i00, i01, i11, valid, 0, 0] to out[0..1].
+// sums. Writes the cell's kL-lane slot to out[0 .. kL / 4).
+template <int kL = 8>
 __device__ __forceinline__ void finalize_pack_cell(
     float n, float sx, float sy, float sxx, float sxy, float syy,
     float min_pts, float eig_ratio, float eig_abs_min, float4* out) {
@@ -64,8 +86,14 @@ __device__ __forceinline__ void finalize_pack_cell(
   const float i01 = v1x * v1y / lmax + v2x * v2y / lmin;
   const float i11 = v1y * v1y / lmax + v2y * v2y / lmin;
   const float valid = n >= min_pts ? 1.f : 0.f;
-  out[0] = make_float4(mx, my, i00, i01);
-  out[1] = make_float4(i11, valid, 0.f, 0.f);
+  if constexpr (kL == 8) {
+    out[0] = make_float4(mx, my, i00, i01);
+    out[1] = make_float4(i11, valid, 0.f, 0.f);
+  } else {
+    static_assert(kL == 4, "a slot is 8 (full) or 4 (compact) lanes");
+    out[0] = make_float4(mx, my, pack_bf16_pair(i00, i01),
+                         pack_bf16_pair(i11, valid));
+  }
 }
 
 }  // namespace ndtpu

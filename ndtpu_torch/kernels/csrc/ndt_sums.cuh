@@ -13,12 +13,19 @@
 //
 // Per beam i (threads stride over beams):
 //   1. transform the sensor point by the pose (cosf/sinf, no fast math);
-//   2. half-cell index hx = floor((x - x0) * inv), hy likewise (multiply,
-//      no division: the twins' binning);
-//   3. load the 32-float quad row (8 x float4, 128 B) holding the Gaussians
-//      of all 4 overlap grids for that half-cell;
+//   2. lattice index hx = floor((x - x0) * inv), hy likewise (multiply,
+//      no division: the twins' binning; inv = 2/cell on the half-cell
+//      lattice of overlap 4, 1/cell on the cell grid of overlap 1);
+//   3. load the quad row holding the Gaussians of all kG overlap grids for
+//      that lattice slot: kG x kL floats (kG = 4 or 1 grids, kL = 8 full or
+//      4 compact lanes per grid; 128, 64, 32 or 16 B);
 //   4. for each grid, the Mahalanobis term, exp(-d2/2 * l2) and the 11
-//      weighted sums of point_terms_quad.
+//      weighted sums of point_terms_quad. A compact slot [mu_x, mu_y,
+//      pack(i00, i01), pack(i11, valid)] is unpacked as
+//      grid.py::unpack_bf16_pair does, on the lane's bits (__float_as_uint
+//      of the loaded word; the low half is a, the high half b): i00 =
+//      bits(u << 16), i01 = bits(u & 0xFFFF0000). The loaded word itself
+//      never meets float arithmetic (it may be a denormal pattern, C-w13).
 // Then warp shuffles + shared memory reduce the block's partial sums to
 // (wsum, w0sum, g0, g1, g2, h00, h01, h02, h11, h12, h22). One block per
 // lane keeps the reduction inside the block: no atomics, deterministic.
@@ -28,6 +35,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace ndtpu {
 
@@ -94,11 +103,45 @@ __device__ __forceinline__ float ndt_block_sums(const float* acc,
   return v;
 }
 
+// The two bf16 halves of a compact lane, as f32 (unpack_bf16_pair).
+__device__ __forceinline__ float bf16_low(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_high(unsigned u) {
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+
+// float4 per table row of the (kG grids, kL lanes) layout.
+template <int kG, int kL>
+__host__ __device__ constexpr int row_float4() {
+  static_assert((kG == 4 || kG == 1) && (kL == 8 || kL == 4),
+                "the quad tables are 4 or 1 grids of 8 or 4 lanes");
+  return kG * kL / 4;
+}
+
+// f(std::integral_constant<int, kG>, std::integral_constant<int, kL>) for
+// the runtime layout (grids, lanes); cudaErrorInvalidValue for one that no
+// kernel takes. The launchers instantiate their kernels through it.
+template <class F>
+inline int with_layout(int grids, int lanes, F&& f) {
+  using G4 = std::integral_constant<int, 4>;
+  using G1 = std::integral_constant<int, 1>;
+  using L8 = std::integral_constant<int, 8>;
+  using L4 = std::integral_constant<int, 4>;
+  if (grids == 4 && lanes == 8) return f(G4{}, L8{});
+  if (grids == 1 && lanes == 8) return f(G1{}, L8{});
+  if (grids == 4 && lanes == 4) return f(G4{}, L4{});
+  if (grids == 1 && lanes == 4) return f(G1{}, L4{});
+  return (int)cudaErrorInvalidValue;
+}
+
 // The lane's 11 sums at pose (tx, ty, phi). px, py, mask hold the lane's n
 // sensor-frame beams (device or shared memory); table is the lane's
-// [wh * hh, 32] quad table as 8 float4 per row. Every thread of the block
-// must call it. part is kNdtThreads / 32 x kNdtSums floats of shared
-// memory, free on entry. Thread k < kNdtSums gets sum k back, the others 0.
+// [wh * hh, kG * kL] quad table as row_float4<kG, kL>() float4 per row.
+// Every thread of the block must call it. part is kNdtThreads / 32 x
+// kNdtSums floats of shared memory, free on entry. Thread k < kNdtSums gets
+// sum k back, the others 0.
+template <int kG, int kL>
 __device__ __forceinline__ float ndt_lane_sums(
     float tx, float ty, float phi, const float* px, const float* py,
     const float* mask, int n, const float4* __restrict__ table, int wh,
@@ -122,17 +165,27 @@ __device__ __forceinline__ float ndt_lane_sums(
     const float hx = floorf((x - x0) * inv);
     const float hy = floorf((y - y0) * inv);
     if (!(hx >= 0.f && hx < (float)wh && hy >= 0.f && hy < (float)hh)) continue;
-    const float4* row = table + ((size_t)((int)hy * wh + (int)hx)) * 8;
+    const float4* row =
+        table + ((size_t)((int)hy * wh + (int)hx)) * row_float4<kG, kL>();
     const float dpx = -s * sx - c * sy;
     const float dpy = c * sx - s * sy;
     const float rx = x - tx;
     const float ry = y - ty;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const float4 p = __ldg(row + 2 * g);      // mu_x, mu_y, i00, i01
-      const float4 q = __ldg(row + 2 * g + 1);  // i11, valid, 0, 0
-      ndt_add_terms(acc, x, y, dpx, dpy, rx, ry, p.x, p.y, p.z, p.w, q.x,
-                    q.y * m, d2, nh, exp_clip);
+    for (int g = 0; g < kG; ++g) {
+      if constexpr (kL == 8) {
+        const float4 p = __ldg(row + 2 * g);      // mu_x, mu_y, i00, i01
+        const float4 q = __ldg(row + 2 * g + 1);  // i11, valid, 0, 0
+        ndt_add_terms(acc, x, y, dpx, dpy, rx, ry, p.x, p.y, p.z, p.w, q.x,
+                      q.y * m, d2, nh, exp_clip);
+      } else {
+        const float4 p = __ldg(row + g);  // mu_x, mu_y, (i00|i01), (i11|v)
+        const unsigned a = __float_as_uint(p.z);
+        const unsigned b = __float_as_uint(p.w);
+        ndt_add_terms(acc, x, y, dpx, dpy, rx, ry, p.x, p.y, bf16_low(a),
+                      bf16_high(a), bf16_low(b), bf16_high(b) * m, d2, nh,
+                      exp_clip);
+      }
     }
   }
   return ndt_block_sums(acc, part);

@@ -11,6 +11,9 @@
 // reduction are ndtpu::ndt_lane_sums (ndt_sums.cuh), which lm_ndt.cu runs
 // once per LM iteration, so the two kernels cannot drift apart. Output
 // out[b, 0..10] = (wsum, w0sum, g0, g1, g2, h00, h01, h02, h11, h12, h22).
+// One instantiation per table layout (kG grids x kL lanes: 4 x 8, the
+// overlap-4 full rows; 1 x 8, overlap 1; 4 x 4 and 1 x 4, their compact
+// bf16-pair rows, grid.py::pack_quad's compact=True).
 //
 // Grouped form (loop verification): with group != nullptr, lane b reads
 // table group[b] of a stack of n_tables tables of rows_per_table rows each,
@@ -36,6 +39,7 @@ namespace {
 using ndtpu::kNdtSums;
 using ndtpu::kNdtThreads;
 
+template <int kG, int kL>
 __global__ void __launch_bounds__(kNdtThreads)
 ndt_terms_kernel(const float* __restrict__ poses, const float* __restrict__ px,
                  const float* __restrict__ py, const float* __restrict__ mask,
@@ -47,10 +51,10 @@ ndt_terms_kernel(const float* __restrict__ poses, const float* __restrict__ px,
   const int b = blockIdx.x;
   if (group != nullptr) {
     const int g = min(max(group[b], 0), n_tables - 1);
-    table += (size_t)g * rows_per_table * 8;
+    table += (size_t)g * rows_per_table * ndtpu::row_float4<kG, kL>();
   }
   const size_t base = (size_t)b * n;
-  const float v = ndtpu::ndt_lane_sums(
+  const float v = ndtpu::ndt_lane_sums<kG, kL>(
       poses[3 * b + 0], poses[3 * b + 1], poses[3 * b + 2], px + base,
       py + base, mask + base, n, table, wh, hh, x0, y0, inv, d2, exp_clip,
       part);
@@ -65,13 +69,16 @@ extern "C" int ndt_terms_launch(const void* poses, const void* px,
                                 void* out, int b, int n, int wh, int hh,
                                 int rows_per_table, int n_tables, float x0,
                                 float y0, float inv, float d2, float exp_clip,
-                                void* stream) {
-  ndt_terms_kernel<<<b, kNdtThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)poses, (const float*)px, (const float*)py,
-      (const float*)mask, (const float4*)table, (const int*)group,
-      (float*)out, n, wh, hh, rows_per_table, n_tables, x0, y0, inv, d2,
-      exp_clip);
-  return (int)cudaGetLastError();
+                                int grids, int lanes, void* stream) {
+  return ndtpu::with_layout(grids, lanes, [&](auto kg, auto kl) {
+    ndt_terms_kernel<decltype(kg)::value, decltype(kl)::value>
+        <<<b, kNdtThreads, 0, (cudaStream_t)stream>>>(
+            (const float*)poses, (const float*)px, (const float*)py,
+            (const float*)mask, (const float4*)table, (const int*)group,
+            (float*)out, n, wh, hh, rows_per_table, n_tables, x0, y0, inv,
+            d2, exp_clip);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" const char* ndtpu_cuda_error_string(int err) {

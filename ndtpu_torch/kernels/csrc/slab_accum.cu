@@ -18,8 +18,9 @@
 //      wrapper allocates once per (device, width, ny) and keeps;
 //   2. the scatter, one thread per (grid, point) (grid = blockIdx.y): the
 //      cell as ndtpu/ndt/grid.py::cell_ids computes it in f32
-//      (floor(((x - x0) - off) / cell), the in-bounds test on the unclamped
-//      index, then the clamp), the weight mask & inb & (x_lo <= ix <
+//      (halfcell_fixed.cuh's cell_bin: floor(((x - x0) - off) / cell), the
+//      in-bounds test on the unclamped index, then the clamp; K3 at
+//      overlap 1 bins the same way), the weight mask & inb & (x_lo <= ix <
 //      x_lo + width), and for a point of weight 1 the six terms
 //      round({1, a, b, a*a, a*b, b*b} * 2^32), (a, b) its offset from the
 //      cell's lower corner over the cell size in f64, added with 64-bit
@@ -52,15 +53,10 @@ struct SlabArgs {
   int nx, ny, x_lo, width;
 };
 
-// Grid g's fixed-point frame: origin shifted by (g & 1, g >> 1) half cells,
-// cells of size `cell` (halfcell_fixed.cuh's h).
+// Grid g's fixed-point frame (halfcell_fixed.cuh's cell_frame).
 __device__ __forceinline__ ndtpu::HalfcellGrid grid_frame(const SlabArgs& a,
                                                           int g) {
-  const double h = 0.5 * a.cell;
-  const double x0 = a.x0 + ((g & 1) ? h : 0.0);
-  const double y0 = a.y0 + ((g & 2) ? h : 0.0);
-  return ndtpu::HalfcellGrid{x0, y0, a.inv, a.cell, (float)x0, (float)y0,
-                             (float)a.inv, 0, 0};
+  return ndtpu::cell_frame(a.x0, a.y0, a.cell, a.inv, g, a.nx, a.ny);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -72,13 +68,10 @@ slab_scatter_kernel(const float2* __restrict__ pts,
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= m || !mask[i]) return;
   const float2 p = pts[i];
-  const float ox = (g & 1) ? a.hf : 0.f;
-  const float oy = (g & 2) ? a.hf : 0.f;
-  const float fx = floorf(((p.x - a.x0f) - ox) / a.cellf);
-  const float fy = floorf(((p.y - a.y0f) - oy) / a.cellf);
-  if (!(fx >= 0.f && fx < (float)a.nx && fy >= 0.f && fy < (float)a.ny))
+  int ix, iy;
+  if (!ndtpu::cell_bin(p.x, p.y, a.x0f, a.y0f, (g & 1) ? a.hf : 0.f,
+                       (g & 2) ? a.hf : 0.f, a.cellf, a.nx, a.ny, &ix, &iy))
     return;
-  const int ix = (int)fx, iy = (int)fy;
   const int lx = ix - a.x_lo;
   if (lx < 0 || lx >= a.width) return;
   long long q[6];

@@ -85,11 +85,9 @@ def local_table_shape(loop_cfg: LoopConfig, compact: bool) -> tuple:
 
 def _local_table_plain(points, mask, lgrid: GridConfig,
                        ndt_cfg: NDTMapConfig, compact: bool):
-    stats = ndt_grid.empty_stats(lgrid, points.dtype, points.device)
-    if lgrid.overlap == 4:
-        stats = ndt_grid.halfcell_add_ref(stats, points, mask, 1.0, lgrid)
-    else:
-        stats = ndt_grid.add_points(stats, points, mask, lgrid)
+    stats = ndt_grid.halfcell_add_ref(
+        ndt_grid.empty_stats(lgrid, points.dtype, points.device), points,
+        mask, 1.0, lgrid)
     return ndt_grid.finalize_pack_ref(stats, ndt_cfg, lgrid, compact)
 
 
@@ -112,19 +110,16 @@ def write_local_tables(tables, slot, ok, points, mask, loop_cfg: LoopConfig,
                        ndt_cfg: NDTMapConfig, compact: bool = False):
     """K8a wrapper: the local tables of ``points [W, N, 2]`` written into
     the cache ``tables [K, R, L]`` at ``slot [W]`` where ``ok [W]``, in
-    place. CUDA tensors go to the kernel (f32, overlap 4, full-width rows),
-    CPU tensors to :func:`write_local_tables_ref`."""
+    place. CUDA tensors go to the kernel (f32, any layout: local overlap 4
+    or 1, full or ``compact`` rows), CPU tensors to
+    :func:`write_local_tables_ref`."""
     if not points.is_cuda:
         return write_local_tables_ref(tables, slot, ok, points, mask,
                                       loop_cfg, ndt_cfg, compact)
-    if compact:
-        raise NotImplementedError(
-            "compact_table on the card is ROADMAP Queue B (K4/K8a bf16-pair "
-            "rows)")
     return kernels.local_tables(tables, slot.to(torch.int32).contiguous(),
                                 ok.contiguous(), points.contiguous(),
                                 mask.contiguous(), local_grid_config(loop_cfg),
-                                ndt_cfg)
+                                ndt_cfg, compact)
 
 
 def build_local_table(points, mask, loop_cfg: LoopConfig,

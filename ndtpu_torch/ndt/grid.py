@@ -10,11 +10,14 @@ Three hot ops have hand-written CUDA kernels (``ndtpu_torch.kernels``), each
 with a plain twin of the same signature here:
 
 - :func:`halfcell_add` (K3) / :func:`halfcell_add_ref`: the overlap-4
-  half-cell moment scatter + 2x2 pooling (``_add_points_halfcell``); the
-  kernel sums in 64-bit fixed point, and :func:`halfcell_add_fixed_ref` is
-  the plain model of that arithmetic, which it equals bit for bit;
+  half-cell moment scatter + 2x2 pooling (``_add_points_halfcell``), and at
+  overlap 1 the same scatter on the cells of the one grid (``add_points``'
+  segment_sum); the kernel sums in 64-bit fixed point, and
+  :func:`halfcell_add_fixed_ref` is the plain model of that arithmetic at
+  both overlaps, which it equals bit for bit;
 - :func:`finalize_pack` (K4) / :func:`finalize_pack_ref`: ``finalize`` +
-  ``pack_quad`` in one pass;
+  ``pack_quad`` in one pass, in every table layout (overlap 4 or 1, full
+  or compact rows);
 - :func:`finalize` (K10b) / :func:`finalize_ref`: ``finalize`` alone, in
   the statistics' own layout (config 5's slab map, ``dist.gridmap``).
 
@@ -24,9 +27,18 @@ leading session axis and adds to them, and packs them, in one launch each:
 whose twins are the per-map functions looped over the maps.
 
 The public function sends CUDA tensors to the kernel and CPU tensors to the
-twin; nothing else selects between them. The binning op order
-``floor((x - x0) * inv)`` with ``inv = 2/cell`` (multiply, never divide) is
-the JAX package's, in the twins and in the kernels alike.
+twin; nothing else selects between them. The binning op orders are the JAX
+package's, in the twins and in the kernels alike: the half-cell lattice and
+the matcher's lookup multiply, ``floor((x - x0) * inv)`` with ``inv = 2 /
+cell`` (``1 / cell`` for the matcher at overlap 1); ``cell_ids``, and with
+it the overlap-1 map build, divides, ``floor(((x - x0) - off) / cell)``.
+The two agree at the published cells (0.5 and 1.0 m), not in general.
+
+A compact lane (``_pack_bf16_pair``) is a bit pattern: with its high half
+0 (an invalid cell, or ``i01 == 0``) it reads as an f32 denormal. Compare
+compact tables as ``view(torch.int32)``, and keep such lanes out of float
+arithmetic and dtype conversions other than the exact f32 -> f64 -> f32
+round trip of the f64 twins (ROADMAP C-w13).
 """
 
 from __future__ import annotations
@@ -107,24 +119,28 @@ def add_points(stats: NDTStats, points, mask, grid: GridConfig,
                weight=1.0) -> NDTStats:
     """Accumulate masked points ``[N, 2]`` into the statistics (a new
     ``NDTStats``; the input is not modified). ``weight`` is a scalar or a
-    per-point ``[N]`` tensor (``-1`` subtracts)."""
-    if grid.overlap == 4:
-        return halfcell_add(stats, points, mask, weight, grid)
-    if points.is_cuda:
-        raise NotImplementedError(
-            "overlap=1 map build on the card is ROADMAP Queue B (K3 "
-            "overlap=1 segment_sum path)")
+    per-point ``[N]`` tensor (``-1`` subtracts). K3 at either overlap
+    (:func:`halfcell_add`)."""
+    return halfcell_add(stats, points, mask, weight, grid)
+
+
+def _cell_add_ref(stats: NDTStats, points, mask, weight,
+                  grid: GridConfig) -> NDTStats:
+    """``add_points`` by ``cell_ids``: one ``index_add_`` of the moments
+    per overlap grid (the JAX package's overlap-1 route)."""
     g, c = grid.overlap, grid.n_cells
-    dt = points.dtype
+    dt, dev = points.dtype, points.device
     ids, inb = cell_ids(points, grid)                       # [G, N]
-    w = (mask[None, :] & inb).to(dt) * torch.as_tensor(weight, dtype=dt)
-    seg = (ids + torch.arange(g, device=ids.device)[:, None] * c).reshape(-1)
+    w = (mask[None, :] & inb).to(dt) * torch.as_tensor(weight, dtype=dt,
+                                                       device=dev)
+    seg = (ids + torch.arange(g, device=dev)[:, None] * c).reshape(-1)
     wp = (w[..., None] * points[None]).reshape(-1, 2)
     outer = points[:, :, None] * points[:, None, :]
     wpp = (w[..., None, None] * outer[None]).reshape(-1, 2, 2)
-    dn = torch.zeros(g * c, dtype=dt).index_add_(0, seg, w.reshape(-1))
-    ds = torch.zeros((g * c, 2), dtype=dt).index_add_(0, seg, wp)
-    dss = torch.zeros((g * c, 2, 2), dtype=dt).index_add_(0, seg, wpp)
+    kw = dict(dtype=dt, device=dev)
+    dn = torch.zeros(g * c, **kw).index_add_(0, seg, w.reshape(-1))
+    ds = torch.zeros((g * c, 2), **kw).index_add_(0, seg, wp)
+    dss = torch.zeros((g * c, 2, 2), **kw).index_add_(0, seg, wpp)
     return NDTStats(n=stats.n + dn.reshape(g, c),
                     s=stats.s + ds.reshape(g, c, 2),
                     ss=stats.ss + dss.reshape(g, c, 2, 2))
@@ -132,9 +148,13 @@ def add_points(stats: NDTStats, points, mask, grid: GridConfig,
 
 def halfcell_add_ref(stats: NDTStats, points, mask, weight,
                      grid: GridConfig) -> NDTStats:
-    """Plain twin of K3: one half-cell ``index_add_`` of six moments onto the
-    ``(2ny+1, 2nx+1)`` lattice, then a 2x2 sum-pool per shifted grid (a cell
-    of grid ``(gx, gy)`` is the lattice block at ``(2j+gy, 2i+gx)``)."""
+    """Plain twin of K3. Overlap 4: one half-cell ``index_add_`` of six
+    moments onto the ``(2ny+1, 2nx+1)`` lattice, then a 2x2 sum-pool per
+    shifted grid (a cell of grid ``(gx, gy)`` is the lattice block at
+    ``(2j+gy, 2i+gx)``). Overlap 1: the moments' ``index_add_`` onto the
+    cells ``cell_ids`` gives (``add_points``' segment_sum)."""
+    if grid.overlap == 1:
+        return _cell_add_ref(stats, points, mask, weight, grid)
     dt, dev = points.dtype, points.device
     wh, hh = 2 * grid.nx + 1, 2 * grid.ny + 1
     inv = 2.0 / grid.cell
@@ -167,23 +187,33 @@ def halfcell_add_fixed_ref(stats: NDTStats, points, mask, weight,
                            grid: GridConfig) -> NDTStats:
     """Plain model of K3's fixed-point arithmetic
     (``kernels/csrc/halfcell_fixed.cuh``), op for op, so that the kernel
-    equals it bit for bit.
+    equals it bit for bit, at both overlaps.
 
-    Each point of weight ``w`` in half-cell ``(hx, hy)`` (the twin's
-    binning, in the points' dtype) adds ``round(w * q * 2^32)`` as int64 for
-    ``q`` in ``(1, a, b, a*a, a*b, b*b)``, where ``(a, b)`` is its offset
-    from the half-cell's lower corner ``(x0 + hx*h, y0 + hy*h)`` over
-    ``h = cell/2``, in f64. Each half-cell's moments are then reconstructed
-    in f64, pooled 2x2 in K3's order, added to the statistics in f64 and
+    Each point of weight ``w`` in bin ``(hx, hy)`` of the frame (overlap 4:
+    the half cells of the twin's binning, ``h = cell/2``; overlap 1: the
+    cells ``cell_ids`` gives, ``h = cell``; in the points' dtype) adds
+    ``round(w * q * 2^32)`` as int64 for ``q`` in ``(1, a, b, a*a, a*b,
+    b*b)``, where ``(a, b)`` is its offset from the bin's lower corner
+    ``(x0 + hx*h, y0 + hy*h)`` over ``h``, in f64. Each bin's moments are
+    then reconstructed in f64, pooled 2x2 in K3's order (overlap 4; at
+    overlap 1 a cell is its own bin), added to the statistics in f64 and
     returned in the statistics' dtype. The int64 sums do not depend on the
     order of the points, and a ``-1`` copy of a point cancels its ``+1``
     copy exactly. Nothing on the main path calls this."""
     f64, dev = torch.float64, points.device
-    wh, hh = 2 * grid.nx + 1, 2 * grid.ny + 1
-    inv, h = 2.0 / grid.cell, grid.cell / 2.0
-    fx = torch.floor((points[:, 0] - grid.x0) * inv)
-    fy = torch.floor((points[:, 1] - grid.y0) * inv)
-    inb = (fx >= 0) & (fx < wh) & (fy >= 0) & (fy < hh)
+    if grid.overlap == 1:
+        wh, hh = grid.nx, grid.ny
+        inv, h = 1.0 / grid.cell, grid.cell
+        ids, inb = cell_ids(points, grid)
+        fid, inb = ids[0], inb[0]
+        fx, fy = (fid % wh).to(points.dtype), (fid // wh).to(points.dtype)
+    else:
+        wh, hh = 2 * grid.nx + 1, 2 * grid.ny + 1
+        inv, h = 2.0 / grid.cell, grid.cell / 2.0
+        fx = torch.floor((points[:, 0] - grid.x0) * inv)
+        fy = torch.floor((points[:, 1] - grid.y0) * inv)
+        inb = (fx >= 0) & (fx < wh) & (fy >= 0) & (fy < hh)
+        fid = (fy * wh + fx).long().clamp(0, wh * hh - 1)
     w = torch.as_tensor(weight, dtype=points.dtype, device=dev).to(f64)
     w = torch.broadcast_to(w, mask.shape)
     live = mask & inb & (w != 0)
@@ -192,7 +222,6 @@ def halfcell_add_fixed_ref(stats: NDTStats, points, mask, weight,
     q = torch.stack([torch.ones_like(a), a, b, a * a, a * b, b * b], -1)
     vals = torch.round((w[:, None] * q) * _FIX)
     vals = torch.where(live[:, None], vals, torch.zeros_like(vals))
-    fid = (fy * wh + fx).long().clamp(0, wh * hh - 1)
     acc = torch.zeros((wh * hh, 6), dtype=torch.int64, device=dev).index_add_(
         0, fid, vals.to(torch.int64))
     s_ = acc.to(f64).reshape(hh, wh, 6) * 2.0 ** -32
@@ -207,15 +236,19 @@ def halfcell_add_fixed_ref(stats: NDTStats, points, mask, weight,
         (h2 * auu + ((2.0 * xc) * h) * au) + (xc * xc) * n,
         ((h2 * auv + (xc * h) * av) + (yc * h) * au) + (xc * yc) * n,
         (h2 * avv + ((2.0 * yc) * h) * av) + (yc * yc) * n], -1)
-    pooled = []
-    for gx, gy in _SHIFTS:
-        blk = fine[gy: gy + 2 * grid.ny, gx: gx + 2 * grid.nx]
-        r0, r1 = blk[0::2], blk[1::2]
-        pooled.append((((r0[:, 0::2] + r0[:, 1::2]) + r1[:, 0::2])
-                       + r1[:, 1::2]).reshape(grid.n_cells, 6))
-    p = torch.stack(pooled)                                  # [4, C, 6]
+    if grid.overlap == 1:
+        p = fine.reshape(1, grid.n_cells, 6)
+    else:
+        pooled = []
+        for gx, gy in _SHIFTS:
+            blk = fine[gy: gy + 2 * grid.ny, gx: gx + 2 * grid.nx]
+            r0, r1 = blk[0::2], blk[1::2]
+            pooled.append((((r0[:, 0::2] + r0[:, 1::2]) + r1[:, 0::2])
+                           + r1[:, 1::2]).reshape(grid.n_cells, 6))
+        p = torch.stack(pooled)                              # [4, C, 6]
+    g = p.shape[0]
     dss = torch.stack([p[..., 3], p[..., 4], p[..., 4], p[..., 5]],
-                      -1).reshape(4, grid.n_cells, 2, 2)
+                      -1).reshape(g, grid.n_cells, 2, 2)
     out = lambda base, d: (base.to(f64) + d).to(base.dtype)
     return NDTStats(n=out(stats.n, p[..., 0]), s=out(stats.s, p[..., 1:3]),
                     ss=out(stats.ss, dss))
@@ -223,9 +256,9 @@ def halfcell_add_fixed_ref(stats: NDTStats, points, mask, weight,
 
 def halfcell_add(stats: NDTStats, points, mask, weight,
                  grid: GridConfig) -> NDTStats:
-    """K3 wrapper: CUDA tensors go to the kernel (f32 only; 64-bit
-    fixed-point sums, so the result is the same on every run and equals
-    :func:`halfcell_add_fixed_ref` bit for bit), CPU tensors to
+    """K3 wrapper, at overlap 4 or 1: CUDA tensors go to the kernel (f32
+    only; 64-bit fixed-point sums, so the result is the same on every run
+    and equals :func:`halfcell_add_fixed_ref` bit for bit), CPU tensors to
     :func:`halfcell_add_ref`."""
     if not points.is_cuda:
         return halfcell_add_ref(stats, points, mask, weight, grid)
@@ -404,16 +437,13 @@ def finalize_pack_ref(stats: NDTStats, ndt_cfg: NDTMapConfig,
 
 def finalize_pack(stats: NDTStats, ndt_cfg: NDTMapConfig, grid: GridConfig,
                   compact: bool = False):
-    """K4 wrapper: the matcher's quad table straight from the statistics.
-    CUDA tensors go to the kernel (f32, overlap 4, full-width rows), CPU
-    tensors to :func:`finalize_pack_ref`."""
+    """K4 wrapper: the matcher's quad table straight from the statistics,
+    in any layout (overlap 4 or 1, full or ``compact`` rows). CUDA tensors
+    go to the kernel (f32), CPU tensors to :func:`finalize_pack_ref`."""
     if not stats.n.is_cuda:
         return finalize_pack_ref(stats, ndt_cfg, grid, compact)
-    if compact:
-        raise NotImplementedError(
-            "compact_table on the card is ROADMAP Queue B (K1/K4 bf16-pair "
-            "rows)")
-    return kernels.finalize_pack(stats.n, stats.s, stats.ss, ndt_cfg, grid)
+    return kernels.finalize_pack(stats.n, stats.s, stats.ss, ndt_cfg, grid,
+                                 compact)
 
 
 def _map(stats8: NDTStats, i: int) -> NDTStats:
@@ -433,9 +463,12 @@ def add_points_stacked(stats8: NDTStats, points, mask, grid: GridConfig,
     """:func:`add_points` for S maps at once: statistics with a leading
     session axis, points ``[S, M, 2]``, mask ``[S, M]``, ``weight`` a scalar
     or ``[S, M]``. Overlap-4 grids go through :func:`halfcell_add_stacked`
-    (one K3s launch on the card)."""
+    (one K3s launch on the card); overlap 1 is plain torch on the CPU only
+    (K3s at overlap 1 is ROADMAP B8b)."""
     if grid.overlap == 4:
         return halfcell_add_stacked(stats8, points, mask, weight, grid)
+    if points.is_cuda:
+        kernels._stacked_layout("K3s halfcell_add_stacked", grid)
     return _stack_maps([add_points(_map(stats8, i), points[i], mask[i], grid,
                                    _weight_of(weight, i))
                         for i in range(points.shape[0])])
@@ -478,9 +511,5 @@ def finalize_pack_stacked(stats8: NDTStats, ndt_cfg: NDTMapConfig,
     :func:`finalize_pack_stacked_ref`."""
     if not stats8.n.is_cuda:
         return finalize_pack_stacked_ref(stats8, ndt_cfg, grid, compact)
-    if compact:
-        raise NotImplementedError(
-            "compact_table on the card is ROADMAP Queue B (K1/K4 bf16-pair "
-            "rows)")
     return kernels.finalize_pack_stacked(stats8.n, stats8.s, stats8.ss,
-                                         ndt_cfg, grid)
+                                         ndt_cfg, grid, compact)

@@ -251,18 +251,14 @@ def ndt_terms_ref(poses, px, py, mask_f, table, grid: GridConfig, d2: float,
 def ndt_terms(poses, px, py, mask_f, table, grid: GridConfig, d2: float,
               exp_clip: float, compact: bool = False, group=None):
     """K1 wrapper: the 11 NDT sums ``[B, 11]`` of every lane. CUDA tensors go
-    to the kernel (f32, full-width overlap-4 tables; ``group`` int32), CPU
-    tensors to :func:`ndt_terms_ref`."""
+    to the kernel (f32, any table layout: overlap 4 or 1, full or compact
+    rows; ``group`` int32), CPU tensors to :func:`ndt_terms_ref`."""
     if not px.is_cuda:
         return ndt_terms_ref(poses, px, py, mask_f, table, grid, d2, exp_clip,
                              compact, group)
-    if compact:
-        raise NotImplementedError(
-            "compact_table on the card is ROADMAP Queue B (K1 bf16-pair "
-            "rows)")
     return kernels.ndt_terms(poses.contiguous(), px.contiguous(),
                              py.contiguous(), mask_f.contiguous(), table, grid,
-                             d2, exp_clip, group)
+                             d2, exp_clip, group, compact)
 
 
 def solve3(a, b):
@@ -470,15 +466,12 @@ def lm_ndt_ref(init_poses, px, py, mask_f, table, grid: GridConfig,
 def lm_ndt(init_poses, px, py, mask_f, table, grid: GridConfig,
            cfg: MatchConfig, group=None) -> MatchResult:
     """Every lane's whole LM registration: one launch of the ``lm_ndt``
-    CUDA kernel for CUDA tensors (f32, full-width overlap-4 tables;
-    ``group`` int32), :func:`lm_ndt_ref` for CPU tensors. ``cfg.max_iter``
-    caps the iterations; ``phase2_width`` changes nothing on the card."""
+    CUDA kernel for CUDA tensors (f32, any table layout: ``grid.overlap``
+    4 or 1, ``cfg.compact_table`` full or compact rows; ``group`` int32),
+    :func:`lm_ndt_ref` for CPU tensors. ``cfg.max_iter`` caps the
+    iterations; ``phase2_width`` changes nothing on the card."""
     if not px.is_cuda:
         return lm_ndt_ref(init_poses, px, py, mask_f, table, grid, cfg, group)
-    if cfg.compact_table:
-        raise NotImplementedError(
-            "compact_table on the card is ROADMAP Queue B (K1 bf16-pair "
-            "rows)")
     return MatchResult(*kernels.lm_ndt(
         init_poses.contiguous(), px.contiguous(), py.contiguous(),
         mask_f.contiguous(), table, grid, cfg, group))
@@ -536,10 +529,6 @@ def match_batch_packed_gated(points, mask, tables, init_poses,
         raise ValueError("match_batch_packed_gated: expected CUDA tensors; "
                          "on the CPU use match_batch_packed and "
                          "loop.closure._gate_and_pack")
-    if cfg.compact_table:
-        raise NotImplementedError(
-            "compact_table on the card is ROADMAP Queue B (K1 bf16-pair "
-            "rows)")
     init, px, py, mask_f, group = _packed_args(points, mask, tables,
                                                init_poses, group)
     out = kernels.lm_ndt(init.contiguous(), px, py, mask_f.contiguous(),

@@ -70,18 +70,10 @@ class SlamStepOut(NamedTuple):
     local_take: torch.Tensor   # smoother path: 0 skip, 1 global, 2 local
 
 
-def _check_slice(cfg: PipelineConfig, device) -> None:
-    if cfg.match.compact_table and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            "compact_table=True on the card is ROADMAP Queue B (K1/K4 "
-            "bf16-pair rows)")
-
-
 def init_slam(cfg: PipelineConfig, first_points, first_mask,
               init_pose=None) -> SlamState:
     """Bootstrap: scan 0 becomes keyframe 0 / graph pose 0 with a prior.
     State lives on ``first_points``' device, in its dtype."""
-    _check_slice(cfg, first_points.device)
     dt, dev = first_points.dtype, first_points.device
     t0 = (torch.zeros(3, dtype=dt, device=dev) if init_pose is None
           else init_pose.to(dt))
@@ -417,7 +409,6 @@ def slam_window_step(state: SlamState, last_kf_reg, pts, msk, deltas,
     keyframe table cache (``state.kf.tables``): it writes the window's new
     tables into that tensor in place and hands it on in the new state. A
     caller that needs the input state afterwards clones its cache first."""
-    _check_slice(cfg, pts.device)
     poses, res, is_kf = _window_frontend(state, last_kf_reg, pts, msk, deltas,
                                          cfg, cfg.window_passes)
     state, last_kf_reg, kf_idx, rel, nl, nd, ni, take = _window_backend(

@@ -6,6 +6,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
     python3 profile_port.py [--config configs/config3_loop_closure.json]
                             [--seed 0] [--runs 3] [--out FILE.json]
     python3 profile_port.py --kernels [--seed 0] [--out FILE.json]
+    python3 profile_port.py --layouts [--seed 0] [--out FILE.json]
     python3 profile_port.py --serving [--sessions 8] [--max-scans 300]
                             [--runs 3] [--out FILE.json]
 
@@ -52,6 +53,11 @@ config-3 loop verify as the pipeline calls it). It uses only entry points
 that older checkouts of the port also have, so a copy of this script run
 from such a checkout's root times that checkout's kernels (a route it
 lacks reads null).
+
+``--layouts`` runs only :func:`layout_times` (event and card ms per call
+of K1, ``lm_ndt`` shared and grouped, the gated verify, K3, K4 and K8a in
+every table layout: overlap 1, compact rows, both, and the published
+one).
 
 Prints one line per section and, last, one JSON object with every number
 (also written to ``--out``). Fails without a card: no number here comes
@@ -196,6 +202,98 @@ def kernel_times(seed: int, dev) -> dict:
         out[key]["card_ms"] = card_ms(fn, names)
     for key, (fn, _) in calls.items():
         out[key]["ms_after_profiler"] = time_ms(fn)
+    return out
+
+
+def layout_times(seed: int, dev) -> dict:
+    """Event ms (median of 20 synchronized calls) and card ms (profiler,
+    mean of 20) per call of the windowed path's kernels in every table
+    layout (``kernels.LAYOUTS``), at the main path's shapes, on box-world
+    draw ``seed``: K3 at a window insert (8 scans) at both overlaps; per
+    layout K4 at the config-2 and config-3 map tables, K1 and ``lm_ndt`` at
+    the config-2 window (8 lanes x 360 beams), K8a at a window of 8
+    keyframes, ``lm_ndt`` grouped at the config-3 verify shape (64 lanes
+    over a 1,024-slot cache in the layout) and the gated verify
+    (:func:`loop_queries` x 16 candidates). In a process of its own: card
+    times read at the end of ``chip_smoke.py``'s long run are not
+    trustworthy (after its many phases the profiler there has read some
+    kernels at half and others at twice their time), while in a fresh
+    process repeated sessions of one call agree. Every event time is read
+    before the first profiler session."""
+    import torch
+
+    from chip_smoke import (box_sequence, box_store, layout_cfg,
+                            lm_verify_args, lm_window_args, map_stats, snap,
+                            time_ms)
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.loop import closure
+    from ndtpu_torch.ndt import grid as ndt_grid
+    from ndtpu_torch.ndt import match
+
+    cfg2 = PipelineConfig.from_json(str(ROOT / "configs"
+                                        / "config2_full_sequence.json"))
+    cfg3 = PipelineConfig.from_json(str(ROOT / "configs"
+                                        / "config3_loop_closure.json"))
+    seq = box_sequence(seed, cfg2.n_beams)
+    calls = {}     # key -> (fn, kernel names for the card time)
+    w = cfg2.window
+    pts = snap(seq.points[:w].to(dev).reshape(-1, 2), 16).contiguous()
+    msk = seq.mask[:w].to(dev).reshape(-1).contiguous()
+    for g, l in kernels.LAYOUTS:
+        cp = l == 4                      # bound into each timed call
+        c2, c3 = layout_cfg(cfg2, g, l), layout_cfg(cfg3, g, l)
+        v = lambda k: kernels.variant(k, g, l)
+        st2 = map_stats(seq, c2.grid, dev)
+        st3 = map_stats(seq, c3.grid, dev)
+        if l == 8:
+            calls[kernels.variant("halfcell_add", g)] = (
+                lambda st=st2, c=c2: kernels.halfcell_add(
+                    st.n, st.s, st.ss, pts, msk, 1.0, c.grid), None)
+        for label, c, st in (("config2", c2, st2), ("config3", c3, st3)):
+            calls[f"{v('finalize_pack')} {label}"] = (
+                lambda st=st, c=c, cp=cp: kernels.finalize_pack(
+                    st.n, st.s, st.ss, c.ndt, c.grid, cp), ["finalize_pack"])
+        table = ndt_grid.finalize_pack(st2, c2.ndt, c2.grid, cp)
+        a2 = lm_window_args(c2, seq, table, seed, dev, w)
+        calls[v("ndt_terms")] = (
+            lambda a=a2, c=c2, cp=cp: kernels.ndt_terms(
+                *a[:6], c.match.d2, c.match.exp_clip, compact=cp),
+            ["ndt_terms"])
+        calls[v("lm_ndt")] = (lambda a=a2, c=c2: match.lm_ndt(
+            *a[:6], c.match), ["lm_ndt_kernel"])
+        lgrid = closure.local_grid_config(c3.loop)
+        cache = torch.zeros((w,) + closure.local_table_shape(c3.loop, cp),
+                            device=dev)
+        slot = torch.arange(w, dtype=torch.int32, device=dev)
+        ok = torch.ones(w, dtype=torch.bool, device=dev)
+        kp = seq.points[:w].to(dev).contiguous()
+        km = seq.mask[:w].to(dev).contiguous()
+        calls[v("local_tables")] = (
+            lambda cache=cache, lgrid=lgrid, c=c3, cp=cp:
+            kernels.local_tables(cache, slot, ok, kp, km, lgrid, c.ndt, cp),
+            None)
+        kf = box_store(c3, seq, dev)
+        k = c3.loop.max_detect_per_window * c3.loop.max_candidates
+        a3 = lm_verify_args(c3, seq, kf, seed, dev, k)
+        calls[v("lm_ndt_grouped")] = (lambda a=a3, c=c3: match.lm_ndt(
+            *a[:6], c.match, a[6]), ["lm_ndt_kernel"])
+        loop, (qpts, qmsk, qpose), qidx, cands = loop_queries(
+            c3, seq, kf, seed, dev, c3.loop.max_candidates)
+        pts_l, msk_l, init, lg, mcfg, flat = closure._verify_lanes(
+            kf, qpts, qmsk, qpose, cands, loop, c3.match)
+        gate = kernels.LoopGate(cands.mask.contiguous(), qidx.contiguous(),
+                                loop.score_gate, loop.max_innovation_base,
+                                loop.max_innovation_per_kf,
+                                closure._k_budget(loop))
+        calls[v("loop_gate_fused")] = (
+            lambda kf=kf, a=(pts_l, msk_l, init, lg, mcfg, flat, gate):
+            match.match_batch_packed_gated(a[0], a[1], kf.tables, a[2],
+                                           a[3], a[4], a[5], a[6]),
+            ["lm_ndt_kernel"])
+    out = {key: dict(ms=time_ms(fn)) for key, (fn, _) in calls.items()}
+    for key, (fn, names) in calls.items():
+        out[key]["card_ms"] = card_ms(fn, names)
     return out
 
 
@@ -751,6 +849,9 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels", action="store_true",
                         help="time K4, K8b and the loop verify alone "
                         "(kernel_times) and nothing else")
+    parser.add_argument("--layouts", action="store_true",
+                        help="time the windowed path's kernels in every "
+                        "table layout (layout_times) and nothing else")
     parser.add_argument("--serving", action="store_true",
                         help="profile stacked serving (serving_profile) "
                         "and nothing else")
@@ -779,6 +880,12 @@ def main(argv=None) -> int:
         kernels.build()
         result = dict(card=smi, kernels=kernel_times(args.seed, dev))
         for key, row in result["kernels"].items():
+            print(f"[profile] {key}: {row}")
+        return _emit(result, smi, args.out)
+    if args.layouts:
+        kernels.build()
+        result = dict(card=smi, layouts=layout_times(args.seed, dev))
+        for key, row in result["layouts"].items():
             print(f"[profile] {key}: {row}")
         return _emit(result, smi, args.out)
     if args.serving:

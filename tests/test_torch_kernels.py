@@ -496,15 +496,29 @@ def test_lm_ndt_one_launch_per_call_and_two_phases_bit_equal(lm_shapes,
 
 
 def test_lm_ndt_refuses_f64_and_compact(lm_shapes):
+    """f64 is refused; a compact table is no longer refused: it launches the
+    compact instantiation (``lm_ndt[g4l4]``), once, and a full-row table
+    under ``compact_table`` is refused by its shape."""
+    import chip_smoke as cs
+
     (init, px, py, mask_f, table, grid, _), cfg = lm_shapes["window"]
     points = torch.stack([px, py], -1)
     with pytest.raises(TypeError, match="float32"):
         tmatch.match_batch_packed(points.double(), mask_f > 0,
                                   table.double(), init.double(), grid, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmatch.match_batch_packed(points, mask_f > 0, table, init, grid,
-                                  dataclasses.replace(cfg,
-                                                      compact_table=True))
+    ccfg = dataclasses.replace(cfg, compact_table=True)
+    stats = cs.map_stats(cs.box_sequence(0, px.shape[1]), grid, px.device)
+    compact = tgrid.finalize_pack(stats, NDT, grid, compact=True)
+    assert compact.shape == (table.shape[0], 16)
+    kernels.reset_launches()
+    res = tmatch.match_batch_packed(points, mask_f > 0, compact, init, grid,
+                                    ccfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["lm_ndt[g4l4]"] == 1
+    assert sum(kernels.LAUNCHES.values()) == 1
+    assert bool(torch.isfinite(res.pose).all()) and bool(res.converged.any())
+    with pytest.raises(ValueError, match="expected shape"):
+        tmatch.match_batch_packed(points, mask_f > 0, table, init, grid, ccfg)
 
 
 def test_match_batch_packed_makes_no_host_sync(lm_shapes, loop_store):
@@ -1123,3 +1137,114 @@ def test_slab_kernels_refuse_cpu_tensors():
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             call()
+
+
+# -- The other table layouts (overlap 1, compact rows, both) ------------------
+
+LAYOUT_IDS = ["g1l8", "g4l4", "g1l4"]
+
+
+@pytest.fixture(scope="module")
+def layout_inputs():
+    """Config 2 and 3, box-world draw 0, its config-2 map and the published
+    layout's keyframe store (as ``chip_smoke.main`` builds them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import chip_smoke as cs
+    from ndtpu_torch.config import PipelineConfig
+
+    dev = torch.device("cuda")
+    cfg2 = PipelineConfig.from_json(str(cs.CONFIG2))
+    cfg3 = PipelineConfig.from_json(str(cs.CONFIG3))
+    seq = cs.box_sequence(0, cfg2.n_beams)
+    return dict(cfg2=cfg2, cfg3=cfg3, seq=seq, dev=dev,
+                stats=cs.map_stats(seq, cfg2.grid, dev))
+
+
+def test_layout_halfcell_add_overlap1(layout_inputs):
+    """K3 at overlap 1 against the f64 twin (+1 and +-1 weights), bit-equal
+    to its fixed-point model, on a second launch and under permutation, at
+    the window and rebuild shapes (chip_smoke.check_k3 /
+    check_k3_rebuild)."""
+    import chip_smoke as cs
+
+    li = layout_inputs
+    c2 = cs.layout_cfg(li["cfg2"], 1, 8)
+    c3 = cs.layout_cfg(li["cfg3"], 1, 8)
+    row = cs.check_k3(c2, li["seq"], cs.map_stats(li["seq"], c2.grid,
+                                                  li["dev"]),
+                      0, li["dev"], c2.window)
+    assert row["tol_units"] <= 1.0
+    kf = cs.box_store(li["cfg3"], li["seq"], li["dev"])
+    cs.check_k3_rebuild(c3, kf, li["dev"])
+
+
+@pytest.mark.parametrize("layout", kernels.LAYOUTS[1:], ids=LAYOUT_IDS)
+def test_layout_finalize_pack(layout_inputs, layout):
+    """K4 in the layout against its plain version on the same f32
+    statistics (compact bf16-pair lanes bit-equal as int32), bit-identical
+    on a second launch, at the config-2 and config-3 maps."""
+    import chip_smoke as cs
+
+    li = layout_inputs
+    for cfg in (li["cfg2"], li["cfg3"]):
+        c = cs.layout_cfg(cfg, *layout)
+        row = cs.check_k4("layout", c.ndt, c.grid,
+                          cs.map_stats(li["seq"], c.grid, li["dev"]),
+                          compact=layout[1] == 4)
+        assert row["max_abs_err"] >= 0.0
+
+
+@pytest.mark.parametrize("layout", kernels.LAYOUTS[1:], ids=LAYOUT_IDS)
+def test_layout_local_tables(layout_inputs, layout):
+    """K8a in the layout: bit-identical on a second launch, under
+    permutation and to K4 of K3; against its twin on the card and in f64
+    (chip_smoke.check_k8a)."""
+    import chip_smoke as cs
+
+    li = layout_inputs
+    c3 = cs.layout_cfg(li["cfg3"], *layout)
+    cs.check_k8a(c3, li["seq"], 0, li["dev"], c3.window)
+
+
+@pytest.mark.parametrize("layout", kernels.LAYOUTS[1:], ids=LAYOUT_IDS)
+def test_layout_ndt_terms_and_lm_ndt(layout_inputs, layout):
+    """K1 and ``lm_ndt`` in the layout at the config-2 window shape, against
+    their f32 twins (and ``lm_ndt`` against the composite route;
+    chip_smoke.check_k1 / check_lm)."""
+    import chip_smoke as cs
+
+    li = layout_inputs
+    c2 = cs.layout_cfg(li["cfg2"], *layout)
+    stats = (cs.map_stats(li["seq"], c2.grid, li["dev"])
+             if layout[0] == 1 else li["stats"])
+    table = tgrid.finalize_pack(stats, c2.ndt, c2.grid, layout[1] == 4)
+    cs.check_k1(c2, li["seq"], table, 0, li["dev"], c2.window)
+    kernels.reset_launches()
+    row, (eq, b) = cs.check_lm(
+        "window", cs.lm_window_args(c2, li["seq"], table, 0, li["dev"],
+                                    c2.window), c2.match)
+    assert kernels.LAUNCHES[kernels.variant("lm_ndt", *layout)] >= 1
+    assert eq >= b - 1 and row["max_abs_err"] <= 1e-3
+
+
+@pytest.mark.parametrize("layout", kernels.LAYOUTS[1:], ids=LAYOUT_IDS)
+def test_layout_grouped_and_gated_verify(layout_inputs, layout):
+    """K1 grouped, ``lm_ndt`` grouped and the gated verify in the layout at
+    the config-3 verify shape over a 1,024-slot cache of that layout: the
+    gated launch bit-equal to ``lm_ndt_grouped`` + the standalone K8b
+    (chip_smoke.check_k1_grouped / check_lm /
+    check_gated_verify)."""
+    import chip_smoke as cs
+
+    li = layout_inputs
+    c3 = cs.layout_cfg(li["cfg3"], *layout)
+    kf = cs.box_store(c3, li["seq"], li["dev"])
+    k = c3.loop.max_detect_per_window * c3.loop.max_candidates
+    cs.check_k1_grouped(c3, li["seq"], kf, 0, li["dev"], k)
+    row, (eq, b) = cs.check_lm(
+        "verify", cs.lm_verify_args(c3, li["seq"], kf, 0, li["dev"], k),
+        c3.match)
+    assert eq >= 0.95 * b
+    cs.check_gated_verify(c3, li["seq"], kf, 0, li["dev"],
+                          c3.loop.max_candidates)

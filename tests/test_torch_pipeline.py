@@ -141,12 +141,44 @@ def test_convert_round_trip_and_resume_from_jax_state(seq, jax_default):
 
 
 def test_unported_options_raise(seq):
-    """Loop closure runs now; compact tables on the card do not (the check
-    needs no card: it looks at the device the state would live on)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B"):
-        tpipe._check_slice(_cfg(match=MatchConfig(compact_table=True)),
-                           "cuda")
-    tpipe._check_slice(_cfg(use_loop_closure=True), "cuda")
+    """The windowed path takes every table layout on the card now
+    (``init_slam`` builds a compact, overlap-1 state with loop closure
+    without refusing it); what still refuses a layout on the card, before
+    it touches a tensor: stacked serving's K3s and K4s at overlap 1 or with
+    compact rows (ROADMAP B8b / B7b), and config 5's K12, K10a and K10c at
+    overlap 1 (B8b)."""
+    from ndtpu_torch import kernels
+    from ndtpu_torch.ndt import grid as tgrid
+
+    g1 = GridConfig(x0=-16.0, y0=-16.0, cell=1.0, nx=32, ny=32, overlap=1)
+    cfg = _cfg(grid=g1, use_loop_closure=True,
+               match=MatchConfig(compact_table=True),
+               loop=LoopConfig(local_overlap=1, local_half_extent=4.0))
+    state = tpipe.init_slam(cfg, seq.points[0], seq.mask[0])
+    assert state.stats.n.shape == (1, g1.n_cells)
+    assert state.kf.tables.shape[1:] == (64, 4)
+    st = tgrid.empty_stats(g1, torch.float32)
+    stacked = [t[None] for t in st]
+    pts = torch.zeros((1, 5, 2))
+    msk = torch.ones((1, 5), dtype=torch.bool)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B8b\)"):
+        kernels.halfcell_add_stacked(*stacked, pts, msk, 1.0, g1)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B8b\)"):
+        kernels.finalize_pack_stacked(*stacked, cfg.ndt, g1)
+    g4 = _cfg().grid
+    st4 = [t[None] for t in tgrid.empty_stats(g4, torch.float32)]
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B7b\)"):
+        kernels.finalize_pack_stacked(*st4, cfg.ndt, g4, compact=True)
+    mean, icov = torch.zeros((1, g1.n_cells, 2)), torch.zeros(
+        (1, g1.n_cells, 2, 2))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B8b\)"):
+        kernels.ndt_sgh_unpacked(torch.zeros((2, 3)), pts[0], msk[0].float(),
+                                 mean, icov, st.n, g1, 0.5, 40.0)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B8b\)"):
+        kernels.slab_accumulate(pts[0], msk[0], g1, 0, 16)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B8b\)"):
+        kernels.slab_sgh(torch.zeros((2, 3)), pts[0], msk[0].float(),
+                         mean, icov, st.n, g1, 0, 0.5, 40.0)
 
 
 def _loop_cfg():
