@@ -77,7 +77,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    plain route (within 2 x the f32 plain route's error), and the bench's
    ``ba_solve_ms_per_iter_10k`` (one K5 linearize + ``supernodal_delta``,
    the median of 10 host-fenced calls after a warm-up) with the step's
-   card-time split;
+   card-time split; then the input preparation: K11 ``raycast`` in f64 at
+   the CLI's corridor run (600 poses x 360 beams x 36 segments) and at
+   serving's 8 x 300 box-world poses (hits identical, within 1e-9 m of
+   the f64 plain version), in f32 at the corridor against the f32 plain
+   version, and K13 ``voxel_downsample`` on the CLI's 600 x 360 corridor
+   scans at 0.05 / 0.1 / 0.5 m (masks bit-equal), each bit-identical on a
+   second launch;
 4. config 2 through its entry point: ``ndtpu_torch.run.main`` on
    ``configs/config2_full_sequence.json``, 300 scans, ``--device cuda``,
    with every launch counter (and the counts of ``match_batch_packed``
@@ -181,14 +187,39 @@ Phases (any failure exits non-zero, and no result line is printed):
     map (K3) and f64 sums, the in-process ``lm_loop`` on K12 and
     ``match_batch``; then K10a, K10b and K10c against their plain versions
     at the ranks' shapes;
-16. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
+16. the per-scan path and the inputs (:func:`run_scan_phase`), every
+    plain version (``pack_quad`` included) refusing CUDA tensors:
+    ``ndtpu_torch.run.main --mode scan`` on config 2 (300 scans) and config
+    3 (600), counters reset just before and read just after (one K11
+    launch for the input, one ``lm_ndt`` and one K4 per scan, on config 3
+    one K8a and one gated verify per keyframe); the card-made corridor
+    sequence against the CPU-made one; box-world draws 0-2 of both configs
+    through ``run_slam`` on card-made sequences (each against the CPU-made
+    one: equal hashes, or every differing element printed and at most 10
+    of one f32 ulp), gated by config 2's rule against the JAX package's
+    per-scan run (``tests/data/torch_scan_box300_ref.json``, a loop
+    wherever JAX closes one); ``detect_loops`` (the fresh-map verify: one
+    K3s, one K4s, one gated ``lm_ndt``) at the end-of-lap query of config
+    3's draw 0 against its plain route; the step's host syncs (one per
+    scan, at most two more on a keyframe besides the smoother's);
+    ``--dataset`` in both modes at
+    config 3 on a CARMEN log written from the CLI's corridor sequence (the
+    native parser equal to the Python one; within 0.5 m ATE of the written
+    sequence),
+    ``serve --datasets`` on two written logs; config 2 with
+    ``downsample_voxel = 0.1`` through the CLI (one K13 launch, the kept
+    count equal to the plain version's); ``--checkpoint-dir`` with
+    ``--resume`` in both modes at config 3 (600 corridor scans, resumed at
+    scan 512: the final state bit-equal to the uninterrupted run's);
+17. every kernel launched in its entry-point phase (``lm_ndt``, K3, K4 in
     phases 4 and 7b; each layout variant, ``lm_ndt[g1l8]`` and the like, in the
     phase-7c runs of its layout; also ``lm_ndt_grouped``, K8a and the gated
     verify ``loop_gate_fused`` in phase 6; K3s, K4s, K5, K6b, K8a and the gated
     verify in phase 10; ``lm_ndt``, K12, K3 and the gated verify in phase 12;
     K9c and K5 in phase 13's ranks; K10a, K10b and K10c in phase 15's ranks;
-    K6g in phases 8b, 8c and 12), exactly one ``lm_ndt*`` launch per
-    ``match_batch_packed`` call, and in phase 6 one gated verify per
+    K6g in phases 8b, 8c and 12; K11 in phases 4, 6, 10 and 16, K13 in
+    phase 16), exactly one ``lm_ndt*`` launch per ``match_batch_packed``
+    call (phases 4, 6 and 16), and in phase 6 one gated verify per
     loop-detection call and no standalone K8b launch; K5, K7a and K7b launched
     in phases 4 and 6, K6 in phase 6 (config 2 may never take the global path),
     one ``pcg_solve`` launch per PCG solve, and a full solve in phase 6; K5,
@@ -197,7 +228,7 @@ Phases (any failure exits non-zero, and no result line is printed):
     their twins in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches (phases
-4, 6, 7b, 7c, 8, 8b, 8c, 10 and 12-15 together), errors, times and bounds,
+4, 6, 7b, 7c, 8, 8b, 8c, 10 and 12-16 together), errors, times and bounds,
 config 1's and the layout runs' results (``config1``, ``layouts``), the
 repeated runs' ATEs, the smoother's counts and bench.py §5's three 10k cells,
 config 4's runs (supernodal and PCG) and step timing, the serving run's
@@ -258,11 +289,16 @@ LAYOUT_RUNS = (
      {"grid": {"overlap": 1}, "loop": {"local_overlap": 1}}),
 )
 REF_LAYOUTS_FILE = ROOT / "tests" / "data" / "torch_layouts_box300_ref.json"
+#: The JAX package's per-scan ``run_slam`` on box-world draws 0-2 at
+#: configs 2 and 3 (phase 16's gates).
+REF_SCAN_FILE = ROOT / "tests" / "data" / "torch_scan_box300_ref.json"
 
 #: One H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): HBM
 #: bytes/s and f32 FLOP/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+#: ... and its f64 FLOP/s outside the tensor cores (K11 runs in f64).
+F64_FLOP_S = 34e12
 def beam_flops(grids: int = 4, lanes: int = 8) -> int:
     """Operations per in-bounds beam per evaluation of the 11 sums in a table
     layout, counted from ``csrc/ndt_sums.cuh``: 20 f32 for the transform,
@@ -367,6 +403,14 @@ KERNELS = [
          replaces="ndtpu/ndt/grid.py:232", paths=("config5_slab",)),
     dict(name="slab_sgh", source=_CSRC + "ndt_unpacked.cu",
          replaces="ndtpu/dist/gridmap.py:189", paths=("config5_slab",)),
+    # K11: every synthetic sequence made on the card (the CLI's in both
+    # modes, serving's sessions); K13: the CLI with downsample_voxel > 0.
+    dict(name="raycast", source=_CSRC + "raycast.cu",
+         replaces="ndtpu/data/synth.py:124",
+         paths=("config2", "config3", "serving", "scan_config2",
+                "scan_config3")),
+    dict(name="voxel_downsample", source=_CSRC + "voxel_downsample.cu",
+         replaces="ndtpu/data/preprocess.py:24", paths=("downsample",)),
     # K3 at overlap 1, in the layout runs whose map has one grid.
     dict(name="halfcell_add[g1]", source=_CSRC + "halfcell_add.cu",
          replaces="ndtpu/ndt/grid.py:120",
@@ -483,6 +527,33 @@ def dead_reckoning(odom):
     return torch.stack(poses)
 
 
+def sequence_log(seq, max_range: float):
+    """A CARMEN log (``ndtpu_torch.data.carmen.CarmenLog``) of a synthetic
+    sequence, for ``write_carmen(..., style="robotlaser")``: each valid
+    beam's range (``|point|``), ``max_range`` elsewhere; robot and laser at
+    the dead-reckoned odometry poses (no extrinsics); the metadata of
+    ``synth.beam_angles`` (start -pi, sweep 2 pi (N - 1) / N), so
+    ``to_sequence`` gives the sequence's points back to the log's print
+    precision."""
+    import math
+
+    import numpy as np
+
+    from ndtpu_torch.data import carmen
+
+    pts = seq.points.double().cpu().numpy()
+    msk = seq.mask.cpu().numpy()
+    t, n = msk.shape
+    ranges = np.where(msk, np.hypot(pts[..., 0], pts[..., 1]),
+                      max_range).astype(np.float32)
+    odo = dead_reckoning(seq.odom.double()).cpu().numpy()
+    return carmen.CarmenLog(
+        ranges=ranges, n_beams=np.full(t, n, np.int32), laser_pose=odo,
+        odom_pose=odo.copy(), timestamps=np.arange(t, dtype=np.float64),
+        start_angle=-math.pi, fov=2.0 * math.pi * (n - 1) / n,
+        log_max_range=float(max_range))
+
+
 def map_stats(seq, grid, device):
     """Map statistics of every scan inserted at its true pose."""
     from ndtpu_torch.lie import se2
@@ -562,14 +633,15 @@ def valid_slots(table, layout=(4, 8)) -> int:
     return int(hi.view(torch.float32).sum())
 
 
-def bound(n_bytes: float, n_flops: float) -> dict:
+def bound(n_bytes: float, n_flops: float, flop_s: float = F32_FLOP_S
+          ) -> dict:
     """The least time the card could take for work that must move
     ``n_bytes`` (each input read once, each output written once) and do
-    ``n_flops`` f32 operations: the larger of the two times at the H100's
-    peaks. No single PyTorch call computes any of these kernels' functions,
-    so ``library_ms`` is null for every row."""
+    ``n_flops`` operations at ``flop_s`` (f32 unless given): the larger of
+    the two times at the H100's peaks. No single PyTorch call computes any
+    of these kernels' functions, so ``library_ms`` is null for every row."""
     tb = n_bytes / HBM_BYTES_S * 1e3
-    tf = n_flops / F32_FLOP_S * 1e3
+    tf = n_flops / flop_s * 1e3
     return dict(bound_ms=max(tb, tf),
                 bound_by="bytes" if tb >= tf else "operations",
                 library_ms=None)
@@ -2276,7 +2348,8 @@ PLAIN_SERVING = PLAIN_SMOOTHER + (
     ("ndtpu_torch.ndt.grid", "finalize_pack_ref"),
     ("ndtpu_torch.ndt.grid", "finalize_pack_stacked_ref"),
     ("ndtpu_torch.ndt.match", "lm_ndt_ref"),
-    ("ndtpu_torch.loop.closure", "write_local_tables_ref"))
+    ("ndtpu_torch.loop.closure", "write_local_tables_ref"),
+    ("ndtpu_torch.data.synth", "raycast_ref"))
 #: ... and every plain version config 5's merge and in-process solves could
 #: reach.
 PLAIN_CONFIG5 = PLAIN_SERVING + (
@@ -4001,6 +4074,614 @@ def check_k4s(state8, cfg, jobs=None):
 
 
 # --------------------------------------------------------------------------
+# Input preparation (K11, K13; phase 3) and the per-scan path (phase 16).
+
+#: K11's tolerances: f64 ranges against the f64 plain version (m); f32
+#: ranges against the f32 plain version (m), and the share of beams that
+#: may exceed it (a beam grazing a segment's end may pick the wall behind
+#: when its f32 sin/cos differ in the last bit).
+K11_F64_TOL = 1e-9
+K11_F32_TOL = 1e-3
+K11_F32_OUTLIERS = 1e-4
+#: Operations per (pose, beam, segment) of K11 (``csrc/raycast.cu``): the
+#: denominator (3), the two numerators (6), two divisions, the four tests,
+#: the select and the min.
+K11_FLOPS = 18
+#: f32 operations per point of K13's quantize and pack; the id comparisons
+#: run from shared memory and are not counted (the bound is by bytes).
+K13_POINT_FLOPS = 12
+#: The CLI's synthetic corridor (``run._build_inputs``).
+CORRIDOR_SCANS = 600
+
+
+def cli_inputs(config, n_scans: int, device):
+    """The CLI's synthetic inputs on ``device`` (``run._build_inputs``: the
+    corridor world, simulated there) as a ``Sequence2D``."""
+    import argparse as ap
+
+    from ndtpu_torch import run
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.data import synth
+
+    cfg = PipelineConfig.from_json(str(config))
+    p, m, o, gt = run._build_inputs(ap.Namespace(dataset=None,
+                                                 max_scans=n_scans), cfg,
+                                    device)
+    return synth.Sequence2D(points=p, mask=m, odom=o, gt_poses=gt,
+                            angles=None)
+
+
+def k11_inputs(kind: str, dtype, dev):
+    """``(world, poses, angles)`` on ``dev`` in ``dtype``: the CLI's corridor
+    run (600 poses x 360 beams x 36 segments) or serving's 8 sessions x 300
+    box-world poses (x 17 segments)."""
+    import torch
+
+    from ndtpu_torch.data import synth
+
+    if kind == "corridor":
+        world = synth.corridor_loop_world(outer=18.0, width=5.0)
+        poses = synth.rectangle_trajectory(CORRIDOR_SCANS, half=15.0,
+                                           step=0.25)
+    else:
+        world = synth.box_world(half=11.0)
+        poses = torch.stack([synth.rectangle_trajectory(
+            300, half=6.0 + 0.2 * k, step=0.2) for k in range(8)])
+    ang = synth.beam_angles(360, dtype=torch.float64)
+    return (synth.World(world.segments.to(dev, dtype)),
+            poses.to(dev, dtype), ang.to(dev, dtype))
+
+
+def k11_bound(poses, angles, segments) -> dict:
+    """Poses, angles and segments read, ranges written; K11_FLOPS per (pose,
+    beam, segment) at the f64 (or f32) peak."""
+    import torch
+
+    p, n, s = poses.numel() // 3, angles.numel(), segments.shape[0]
+    b = poses.element_size()
+    f64 = poses.dtype == torch.float64
+    return bound(b * (3 * p + n + 4 * s + p * n), K11_FLOPS * p * n * s,
+                 F64_FLOP_S if f64 else F32_FLOP_S)
+
+
+def check_k11(dev, jobs=None):
+    """K11 ``raycast`` (``synth.raycast`` on CUDA tensors) against its plain
+    version on the CPU: in f64 at the CLI's corridor run and at serving's 8
+    x 300 box-world poses (hits identical, within K11_F64_TOL), in f32 at
+    the corridor (hits and K11_F32_TOL but for K11_F32_OUTLIERS of the
+    beams); bit-identical on a second launch. Returns the row."""
+    import torch
+
+    from ndtpu_torch.data import synth
+
+    row = {}
+    for kind, dt in (("corridor", torch.float64), ("serving", torch.float64),
+                     ("corridor_f32", torch.float32)):
+        world, poses, ang = k11_inputs(kind.split("_")[0], dt, dev)
+        run = lambda: synth.raycast(world, poses, ang, 20.0)
+        out, again = run(), run()
+        ref = synth.raycast_ref(synth.World(world.segments.cpu()),
+                                poses.cpu(), ang.cpu(), 20.0)
+        torch.cuda.synchronize()
+        require(bits_equal(out, again), f"K11 {kind}: two launches differ")
+        o = out.cpu()
+        hits = int(((o < 20.0) != (ref < 20.0)).sum())
+        d = (o - ref).abs()
+        err = float(d.max())
+        if dt == torch.float64:
+            require(hits == 0 and err <= K11_F64_TOL,
+                    f"K11 {kind}: {hits} hit flags differ, max abs err "
+                    f"{err:.3e} m (<= {K11_F64_TOL:g} required)")
+            over = 0
+        else:
+            over = int((d > K11_F32_TOL).sum())
+            require(over <= K11_F32_OUTLIERS * d.numel(),
+                    f"K11 {kind}: {over} of {d.numel()} beams off by more "
+                    f"than {K11_F32_TOL:g} m ({hits} hit flags differ)")
+        bd = k11_bound(poses, ang, world.segments)
+        ms = time_ms(run)
+        plain_ms = time_ms(lambda: synth.raycast_ref(world, poses, ang,
+                                                     20.0))
+        print(f"[smoke] K11 raycast {kind} {tuple(out.shape)} x "
+              f"{world.segments.shape[0]} segments: vs {dt} plain (CPU) max "
+              f"abs err {err:.3e} m, {hits} hit flags differ, {over} beams "
+              f"past {K11_F32_TOL:g} m; bit-identical on a second launch; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+        case = dict(max_abs_err=err, hit_flags_differ=hits, ms=ms,
+                    plain_ms=plain_ms, **bd)
+        if kind == "corridor":
+            row.update(case)
+            card_time(jobs, "K11 raycast corridor f64", row, "card_ms", run,
+                      ["raycast"])
+        else:
+            row[kind] = case
+    return row
+
+
+def check_k13(dev, jobs=None):
+    """K13 ``voxel_downsample`` on the CLI's 600 x 360 corridor scans at
+    0.05 / 0.1 / 0.5 m: masks bit-equal to its plain version's (CPU) and on
+    a second launch. Returns the row (times at 0.1 m)."""
+    import torch
+
+    from ndtpu_torch.data import preprocess
+
+    seq = cli_inputs(CONFIG3, CORRIDOR_SCANS, dev)
+    p, m = seq.points, seq.mask
+    row = dict(max_abs_err=0.0, kept={})
+    for voxel in (0.05, 0.1, 0.5):
+        run = lambda: preprocess.voxel_downsample(p, m, voxel)
+        out, again = run(), run()
+        ref = preprocess.voxel_downsample_ref(p.cpu(), m.cpu(), voxel)
+        torch.cuda.synchronize()
+        require(torch.equal(out, again), f"K13 {voxel} m: two launches "
+                f"differ")
+        n_diff = int((out.cpu() != ref).sum())
+        require(n_diff == 0, f"K13 {voxel} m: {n_diff} mask entries differ "
+                f"from the plain version's")
+        row["kept"][str(voxel)] = int(ref.sum())
+        if voxel == 0.1:
+            row["ms"] = time_ms(run)
+            row["plain_ms"] = time_ms(
+                lambda: preprocess.voxel_downsample_ref(p, m, voxel))
+            n = m.numel()
+            row.update(bound(10 * n, K13_POINT_FLOPS * n))
+            card_time(jobs, "K13 voxel_downsample 0.1 m", row, "card_ms",
+                      run, ["voxel_downsample"])
+    print(f"[smoke] K13 voxel_downsample {tuple(m.shape)} "
+          f"({int(m.sum())} valid): kept {row['kept']} (0.05 / 0.1 / 0.5 m), "
+          f"masks bit-equal to the plain version's and on a second launch; "
+          f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    return row
+
+
+#: Every plain version the per-scan path, the CLI's inputs and the stacked
+#: sessions of logs could reach, ``pack_quad`` (the plain table pack)
+#: included.
+PLAIN_SCAN = PLAIN_WINDOWED + (
+    ("ndtpu_torch.data.preprocess", "voxel_downsample_ref"),
+    ("ndtpu_torch.ndt.grid", "pack_quad"))
+
+
+def card_vs_cpu(label, card_seq, cpu_seq) -> int:
+    """A card-made sequence against the CPU-made one: equal hashes, or else
+    every differing element printed, and each one at most one f32 ulp off
+    (no mask flag), at most 10 per sequence. Returns the count."""
+    import torch
+
+    if sequence_hashes(card_seq) == sequence_hashes(cpu_seq):
+        return 0
+    n_diff, worst = 0, 0
+    for key in ("points", "mask", "odom"):
+        a, b = getattr(card_seq, key).cpu(), getattr(cpu_seq, key).cpu()
+        idx = (a != b).nonzero().tolist()
+        n_diff += len(idx)
+        for i in idx:
+            x, y = a[tuple(i)], b[tuple(i)]
+            ulp = (int(x.view(torch.int32)) - int(y.view(torch.int32))
+                   if key != "mask" else 1 << 30)
+            worst = max(worst, abs(ulp))
+            print(f"[smoke] {label}: {key}{i} card {x.item()!r} CPU "
+                  f"{y.item()!r} ({abs(ulp)} ulp)")
+    require(worst <= 1 and n_diff <= 10,
+            f"{label}: the card-made sequence differs from the CPU-made one "
+            f"in {n_diff} elements, up to {worst} ulp (at most 10 elements "
+            f"of one ulp allowed)")
+    return n_diff
+
+
+def run_scan_cli(dev, config, n_scans: int):
+    """``run.main --mode scan`` on ``config`` (the CLI's corridor on the
+    card), every launch counter reset just before and read just after, no
+    plain version reachable on CUDA tensors. Requires one K11 launch (the
+    input), one ``lm_ndt`` and one K4 per scan, one ``lm_ndt*`` per
+    ``match_batch_packed`` call, K3 and K5; with loop closure, one K8a and
+    one gated verify per keyframe (``detect_loops_cached``) and no
+    standalone K8b. Returns ``(launches, summary)``."""
+    import numpy as np
+
+    from ndtpu_torch import kernels, run
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.loop import closure
+    from ndtpu_torch.ndt import match
+
+    cfg = PipelineConfig.from_json(str(config))
+    real = closure.verify_candidates_cached
+    detections = []
+
+    def counted(*a, **k):
+        detections.append(1)
+        return real(*a, **k)
+
+    closure.verify_candidates_cached = counted
+    try:
+        with no_plain_on_card(PLAIN_SCAN):
+            kernels.reset_launches()
+            match.CALLS["match_batch_packed"] = 0
+            res = run.main(["--config", str(config), "--max-scans",
+                            str(n_scans), "--mode", "scan", "--device",
+                            str(dev)])
+            launches = dict(kernels.LAUNCHES)
+            calls = match.CALLS["match_batch_packed"]
+    finally:
+        closure.verify_candidates_cached = real
+    label = f"per-scan CLI {config.name}"
+    traj, kf = res["traj"], res["n_keyframes"]
+    require(traj.shape == (n_scans, 3) and bool(np.isfinite(traj).all()),
+            f"{label}: trajectory not finite or of the wrong shape")
+    lm = sum(v for k, v in launches.items() if k.startswith("lm_ndt"))
+    steps = n_scans - 1
+    require(launches["raycast"] == 1, f"{label}: {launches['raycast']} K11 "
+            f"launches for the input (1 expected)")
+    require(lm == calls and launches["lm_ndt"] == steps
+            and launches["finalize_pack"] == steps,
+            f"{label}: {launches['lm_ndt']} lm_ndt and "
+            f"{launches['finalize_pack']} K4 launches for {steps} scans, {lm} "
+            f"lm_ndt* for {calls} match_batch_packed calls")
+    require(launches["halfcell_add"] > 0 and launches["factor_linearize"] > 0,
+            f"{label}: K3 or K5 never launched")
+    if cfg.use_loop_closure:
+        require(launches["loop_gate_fused"] == len(detections) == kf - 1
+                and launches["local_tables"] == kf
+                and launches["loop_gate"] == 0,
+                f"{label}: {launches['loop_gate_fused']} gated verifies and "
+                f"{launches['local_tables']} K8a launches for {kf} keyframes "
+                f"({len(detections)} detections)")
+    summary = dict(scans_per_s=res["scans_per_s"], seconds=res["seconds"],
+                   ate_m=res["ate"], keyframes=kf, loops=res["n_loops"],
+                   match_batch_packed=calls)
+    print(f"[smoke] {label}: {n_scans} scans, {res['scans_per_s']:.1f} "
+          f"scans/s ({res['seconds']:.2f} s), keyframes={kf}, "
+          f"loops={res['n_loops']}, ATE {res['ate']:.4f} m; launches "
+          f"{launches_nonzero(launches)}")
+    return launches, summary
+
+
+def scan_ate_gate(dev, name: str, config, ref, keep=None):
+    """Box-world draws through the per-scan ``run_slam`` on the card, on
+    card-made sequences (each against the CPU-made one, :func:`card_vs_cpu`;
+    the CPU-made ones against the reference's hashes) vs the JAX package's
+    per-scan run (``ref["runs"][name]``): ATE by :func:`draw_gate`, a loop
+    wherever JAX closes one. Appends ``(state, seq)`` of draw 0 to ``keep``.
+    Returns the per-draw results, the gate's summary and the differing
+    element counts."""
+    import torch
+
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.eval.ate import ate_rmse
+    from ndtpu_torch.slam import pipeline
+
+    cfg = PipelineConfig.from_json(str(config))
+    runref = ref["runs"][name]
+    label = f"per-scan {name}"
+    draws, diffs = [], {}
+    for draw in runref["draws"]:
+        seed = draw["seed"]
+        cpu_seq = box_sequence(seed, cfg.n_beams, n_scans=runref["n_scans"])
+        require(sequence_hashes(cpu_seq) == draw["sha256"],
+                f"{label} draw {seed}: the CPU-made inputs differ from the "
+                f"reference's hashes")
+        seq = box_sequence(seed, cfg.n_beams, device=dev,
+                           n_scans=runref["n_scans"])
+        diffs[seed] = card_vs_cpu(f"{label} draw {seed}", seq, cpu_seq)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with no_plain_on_card(PLAIN_SCAN):
+            state, outs = pipeline.run_slam(seq.points, seq.mask, seq.odom,
+                                            cfg)
+            traj = pipeline.recover_trajectory(state, outs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        require(bool(torch.isfinite(traj).all()), f"{label}: non-finite")
+        ate = float(ate_rmse(traj.cpu(), seq.gt_poses.cpu()))
+        n_loops = int(state.n_loops)
+        require(n_loops > 0 or draw["jax_n_loops"] == 0,
+                f"{label} draw {seed}: closed no loop where JAX closed "
+                f"{draw['jax_n_loops']}")
+        sps = (seq.points.shape[0] - 1) / dt
+        print(f"[smoke] {label} draw {seed}: {sps:.1f} scans/s, ATE "
+              f"{ate:.4f} m, JAX f32 {draw['jax_ate_m']:.4f} m / f64 "
+              f"{draw['jax_ate_f64_m']:.4f} m, loops {n_loops} (JAX "
+              f"{draw['jax_n_loops']} / {draw['jax_n_loops_f64']}), "
+              f"keyframes {int(state.kf.n)}, card-made inputs "
+              f"{'equal to' if diffs[seed] == 0 else 'ulp off'} the "
+              f"CPU-made ones")
+        row = dict(draw, ate=ate, n_loops=n_loops, scans_per_s=sps)
+        row.pop("sha256")
+        draws.append(row)
+        if keep is not None and seed == 0:
+            keep.append((state, seq))
+    return dict(draws=draws, sequence_diffs=diffs, **draw_gate(label, draws))
+
+
+def check_scan_syncs(dev, config=CONFIG3, seed: int = 0,
+                     n_scans: int = BOX["n_scans"]) -> dict:
+    """The per-scan step's host syncs (``set_sync_debug_mode("warn")``) on
+    box-world draw ``seed``: one on a scan that is no keyframe (the
+    keyframe test), and on a keyframe at most two besides the smoother's
+    own (the keyframe test and, with loop closure, "a loop landed"): K8a,
+    the verify, the appends and the map take none. Returns the counts."""
+    import warnings
+
+    import torch
+
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.graph import incremental as inc
+    from ndtpu_torch.slam import pipeline
+
+    cfg = PipelineConfig.from_json(str(config))
+    seq = box_sequence(seed, cfg.n_beams, device=dev, n_scans=n_scans)
+    state = pipeline.init_slam(cfg, seq.points[0], seq.mask[0])
+    real = inc.incremental_update
+    steps, flags = [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        syncs = lambda: sum("synchroniz" in str(w.message) for w in caught)
+        smoother = [0]
+
+        def counted(*a, **k):
+            n0 = syncs()
+            out = real(*a, **k)
+            smoother[0] += syncs() - n0
+            return out
+
+        inc.incremental_update = counted
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for t in range(1, n_scans):
+                n0, s0 = syncs(), smoother[0]
+                state, out = pipeline.slam_step(state, seq.points[t],
+                                                seq.mask[t], seq.odom[t], cfg)
+                steps.append(syncs() - n0 - (smoother[0] - s0))
+                flags.append(out.is_keyframe)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            inc.incremental_update = real
+    is_kf = torch.stack(flags).tolist()
+    plain = [n for n, k in zip(steps, is_kf) if not k]
+    keyf = [n for n, k in zip(steps, is_kf) if k]
+    require(set(plain) == {1} and max(keyf) <= 2,
+            f"per-scan host syncs: {sorted(set(plain))} on scans without a "
+            f"keyframe (1 expected), up to {max(keyf)} on keyframes besides "
+            f"the smoother's (2 at most)")
+    row = dict(scans=n_scans - 1, keyframes=len(keyf),
+               syncs_outside_smoother=sum(steps), smoother_syncs=smoother[0],
+               syncs_per_scan=(sum(steps) + smoother[0]) / (n_scans - 1))
+    print(f"[smoke] per-scan host syncs ({config.name}, draw {seed}): 1 on "
+          f"each of {len(plain)} scans without a keyframe, {sum(keyf)} on "
+          f"{len(keyf)} keyframes outside the smoother, {smoother[0]} in the "
+          f"smoother ({row['syncs_per_scan']:.2f} per scan in all)")
+    return row
+
+
+def check_fresh_detect(state, seq, cfg3, dev):
+    """``detect_loops`` (the fresh-map verify) at the end-of-lap query of a
+    per-scan run (its last scan at its pose, against the run's keyframes)
+    on the card: one K3s, one K4s and one gated ``lm_ndt`` launch, against
+    its plain route on the CPU copies (f32): the same candidates, the same
+    accept flags but on lanes within 1e-3 of the score gate, accepted
+    measurements within 1e-3. Returns the row."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.loop import closure
+
+    kf = state.kf
+    q = (kf, seq.points[-1], seq.mask[-1], state.pose, kf.n)
+    run = lambda: closure.detect_loops(*q, cfg3.loop, cfg3.ndt, cfg3.match)
+    kernels.reset_launches()
+    with no_plain_on_card(PLAIN_SCAN):
+        out = run()
+    launches = dict(kernels.LAUNCHES)
+    kf_cpu = type(kf)(*(None if t is None else t.cpu() for t in kf))
+    ref = closure.detect_loops(kf_cpu, *(t.cpu() for t in q[1:]), cfg3.loop,
+                               cfg3.ndt, cfg3.match)
+    require(launches["halfcell_add_stacked"] == 1
+            and launches["finalize_pack_stacked"] == 1
+            and launches["loop_gate_fused"] == 1,
+            f"fresh detect_loops: launches {launches_nonzero(launches)} (one "
+            f"K3s, one K4s, one gated lm_ndt expected)")
+    require(torch.equal(out.j.cpu(), ref.j), "fresh detect_loops: "
+            "candidates differ from the plain route's")
+    near = (ref.score - cfg3.loop.score_gate).abs() < 1e-3
+    flags = (out.accept.cpu() != ref.accept) & ~near
+    require(not bool(flags.any()) and bool(ref.accept.any()),
+            f"fresh detect_loops: accept flags {out.accept.tolist()} vs the "
+            f"plain route's {ref.accept.tolist()}")
+    both = out.accept.cpu() & ref.accept
+    err = float((out.z.cpu() - ref.z)[both].abs().amax()) if both.any() \
+        else 0.0
+    require(err <= 1e-3, f"fresh detect_loops: accepted measurements off by "
+            f"{err:.3e}")
+    ms = time_ms(run)
+    print(f"[smoke] fresh detect_loops (end-of-lap query, "
+          f"{int(kf.n)} keyframes, C={cfg3.loop.max_candidates}): "
+          f"{int(ref.accept.sum())} accepted as the plain route, accepted "
+          f"measurements within {err:.3e}; one K3s, one K4s, one gated "
+          f"lm_ndt; {ms:.4f} ms per call (events)")
+    return dict(accepted=int(ref.accept.sum()), max_abs_err=err, ms=ms)
+
+
+def run_dataset_phase(dev, tmp: Path):
+    """``--dataset`` in both modes on a log written (``write_carmen``,
+    ROBOTLASER1) from the CLI's 600-scan corridor sequence at config 3 (a
+    lap and a half; without loop closure the per-scan path drifts along
+    the corridor, 1.6 m ATE at config 2 in both packages): the native
+    parser builds and parses it as the Python parser does; each run's
+    trajectory is finite and within 0.5 m ATE of the sequence's ground
+    truth. Then ``serve --datasets`` on logs of two serving sessions.
+    Returns ``(launches of the runs, summary)``."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch import kernels, native, run, serve
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.data import carmen
+    from ndtpu_torch.eval.ate import ate_rmse
+
+    cfg = PipelineConfig.from_json(str(CONFIG3))
+    seq = cli_inputs(CONFIG3, CORRIDOR_SCANS, "cpu")
+    path = tmp / "corridor.clf"
+    carmen.write_carmen(str(path), sequence_log(seq, cfg.max_range),
+                        style="robotlaser")
+    require(native.ndtpu_native_available(),
+            f"the native CARMEN parser did not build: {native._build_error}")
+    py, cc = carmen.read_carmen(str(path)), native.parse_carmen_native(
+        str(path))
+    for f in ("ranges", "n_beams", "laser_pose", "odom_pose", "timestamps"):
+        require(np.array_equal(getattr(py, f), getattr(cc, f)),
+                f"native parser: {f} differ from the Python parser's")
+    out, launches = dict(), {}
+    for mode in ("windowed", "scan"):
+        with no_plain_on_card(PLAIN_SCAN):
+            kernels.reset_launches()
+            res = run.main(["--config", str(CONFIG3), "--dataset", str(path),
+                            "--mode", mode, "--device", str(dev)])
+            launches[mode] = dict(kernels.LAUNCHES)
+        traj = torch.as_tensor(res["traj"])
+        require(traj.shape == (CORRIDOR_SCANS, 3)
+                and bool(torch.isfinite(traj).all()),
+                f"--dataset {mode}: trajectory not finite")
+        ate = float(ate_rmse(traj.double(), seq.gt_poses.double()))
+        require(ate <= 0.5, f"--dataset {mode}: ATE {ate:.4f} m > 0.5 m")
+        out[mode] = dict(ate_m=ate, scans_per_s=res["scans_per_s"],
+                         keyframes=res["n_keyframes"], loops=res["n_loops"])
+        print(f"[smoke] --dataset {mode} (config 3, a {CORRIDOR_SCANS}-scan "
+              f"corridor log): {res['scans_per_s']:.1f} scans/s, ATE "
+              f"{ate:.4f} m vs the written sequence, keyframes "
+              f"{res['n_keyframes']}, loops {res['n_loops']}")
+    scfg = PipelineConfig.from_json(str(SERVING))
+    sessions = serve.synthetic_sessions(scfg, 2, 300)
+    logs = []
+    for k, s in enumerate(sessions):
+        logs.append(str(tmp / f"session{k}.clf"))
+        carmen.write_carmen(logs[-1], sequence_log(s, scfg.max_range),
+                            style="robotlaser")
+    with no_plain_on_card(PLAIN_SERVING):
+        res = serve.main(["--config", str(SERVING), "--datasets", *logs,
+                          "--device", str(dev)])
+    ates = [float(ate_rmse(torch.as_tensor(res["traj"][k]).double(),
+                           s.gt_poses.double()))
+            for k, s in enumerate(sessions)]
+    require(res["sessions"] == 2 and bool(np.isfinite(res["traj"]).all())
+            and all(r["keyframes"] > 1 for r in res["per_session"])
+            and max(ates) <= 0.5,
+            f"serve --datasets: {res['per_session']}, ATE {ates}")
+    out["serve_datasets"] = dict(
+        aggregate_scans_per_s=res["aggregate_scans_per_s"], ate_m=ates)
+    print(f"[smoke] serve --datasets (2 logs of serving sessions): "
+          f"{res['aggregate_scans_per_s']:.1f} aggregate scans/s, ATE "
+          f"{', '.join(f'{a:.4f}' for a in ates)} m")
+    return launches, out
+
+
+def run_downsample(dev, tmp: Path):
+    """Config 2 with ``downsample_voxel = 0.1`` through the CLI (300 scans,
+    windowed): one K13 launch, and the kept count equal to the plain
+    version's on the same (card-made) inputs. Returns ``(launches,
+    summary)``."""
+    import numpy as np
+
+    from ndtpu_torch import kernels, run
+    from ndtpu_torch.data import preprocess
+
+    doc = json.loads(CONFIG2.read_text())
+    doc["downsample_voxel"] = 0.1
+    path = tmp / "config2_downsample.json"
+    path.write_text(json.dumps(doc))
+    seq = cli_inputs(path, 300, dev)
+    kept = int(preprocess.voxel_downsample_ref(seq.points.cpu(),
+                                               seq.mask.cpu(), 0.1).sum())
+    with no_plain_on_card(PLAIN_SCAN):
+        kernels.reset_launches()
+        res = run.main(["--config", str(path), "--max-scans", "300",
+                        "--device", str(dev)])
+        launches = dict(kernels.LAUNCHES)
+    require(launches["voxel_downsample"] == 1 and res["n_kept"] == kept,
+            f"downsample: {launches['voxel_downsample']} K13 launches, "
+            f"{res['n_kept']} points kept against the plain version's "
+            f"{kept}")
+    require(bool(np.isfinite(res["traj"]).all()), "downsample: non-finite")
+    print(f"[smoke] config 2 with downsample_voxel 0.1 (CLI, 300 scans): "
+          f"{res['n_kept']} of {int(seq.mask.sum())} points kept, as the "
+          f"plain version; {res['scans_per_s']:.1f} scans/s, ATE "
+          f"{res['ate']:.4f} m")
+    return launches, dict(kept=kept, valid=int(seq.mask.sum()),
+                          scans_per_s=res["scans_per_s"], ate_m=res["ate"])
+
+
+def run_resume(dev, tmp: Path, n_scans: int = CORRIDOR_SCANS,
+               every: int = 256):
+    """``--checkpoint-dir`` with ``--resume`` in both modes at config 3 on
+    the CLI's corridor: a run that checkpoints every ``every`` scans, then
+    a run resumed from its newest checkpoint (scan 512: the rest of the
+    run closes the lap's loops), whose final state must equal the first's
+    bit for bit. Returns the scans each resumed run ran and its loops."""
+    from ndtpu_torch import run
+    from ndtpu_torch.utils.checkpoint import leaves
+
+    out = {}
+    for mode in ("windowed", "scan"):
+        args = ["--config", str(CONFIG3), "--max-scans", str(n_scans),
+                "--mode", mode, "--device", str(dev), "--checkpoint-dir",
+                str(tmp / f"ck_{mode}"), "--checkpoint-every", str(every)]
+        with no_plain_on_card(PLAIN_SCAN):
+            full = run.main(args)
+            resumed = run.main(args + ["--resume"])
+        ran = resumed["traj"].shape[0] - 1
+        require(0 < ran < n_scans - 1 and resumed["n_loops"] > 0,
+                f"--resume {mode}: ran {ran} of {n_scans - 1} scans, "
+                f"{resumed['n_loops']} loops in all")
+        require(bits_equal(leaves(full["state"]), leaves(resumed["state"])),
+                f"--resume {mode}: the final state differs from the "
+                f"uninterrupted run's")
+        out[mode] = dict(resumed_scans=ran, loops=resumed["n_loops"])
+        print(f"[smoke] --checkpoint-dir / --resume {mode} (config 3, "
+              f"{n_scans} scans, every {every}): resumed for the last {ran} "
+              f"scans, final state bit-equal to the uninterrupted run's")
+    return out
+
+
+def run_scan_phase(dev, jobs):
+    """Phase 16: the per-scan path and the inputs through their entry
+    points. Returns ``(paths' launches, summary)``."""
+    from ndtpu_torch.config import PipelineConfig
+
+    ref = json.loads(REF_SCAN_FILE.read_text())
+    paths, out = {}, {}
+    paths["scan_config2"], out["cli_config2"] = run_scan_cli(dev, CONFIG2,
+                                                            300)
+    paths["scan_config3"], out["cli_config3"] = run_scan_cli(
+        dev, CONFIG3, CORRIDOR_SCANS)
+    card = cli_inputs(CONFIG3, CORRIDOR_SCANS, dev)
+    cpu = cli_inputs(CONFIG3, CORRIDOR_SCANS, "cpu")
+    out["cli_sequence_diffs"] = card_vs_cpu("CLI corridor 600", card, cpu)
+    keep = []
+    out["box_config2"] = scan_ate_gate(dev, "config2", CONFIG2, ref)
+    out["box_config3"] = scan_ate_gate(dev, "config3", CONFIG3, ref, keep)
+    cfg3 = PipelineConfig.from_json(str(CONFIG3))
+    out["fresh_detect"] = check_fresh_detect(*keep[0], cfg3, dev)
+    out["host_syncs"] = check_scan_syncs(dev)
+    del keep
+    with tempfile.TemporaryDirectory(prefix="ndtpu_smoke_") as tmp:
+        tmp = Path(tmp)
+        paths["dataset"], out["dataset"] = run_dataset_phase(dev, tmp)
+        paths["downsample"], out["downsample"] = run_downsample(dev, tmp)
+        out["resume"] = run_resume(dev, tmp)
+    paths["dataset_scan"] = paths["dataset"].pop("scan")
+    paths["dataset"] = paths["dataset"].pop("windowed")
+    diffs = (out["cli_sequence_diffs"]
+             + sum(out["box_config2"]["sequence_diffs"].values())
+             + sum(out["box_config3"]["sequence_diffs"].values()))
+    print(f"[smoke] phase 16: card-made sequences differ from the CPU-made "
+          f"ones in {diffs} elements in all (7 sequences)")
+    return paths, out
+
+
+
+# --------------------------------------------------------------------------
 # Config 5: the two-session merge (phase 12) and the distributed solve
 # (phase 13).
 
@@ -5471,7 +6152,8 @@ def main(argv=None) -> int:
     require((ROOT / "ndtpu_torch").is_dir() and REF_FILE.is_file()
             and REF3_FILE.is_file() and REF4_FILE.is_file()
             and REF_SERVING_FILE.is_file() and REF5_FILE.is_file()
-            and REF1_FILE.is_file() and REF_LAYOUTS_FILE.is_file(),
+            and REF1_FILE.is_file() and REF_LAYOUTS_FILE.is_file()
+            and REF_SCAN_FILE.is_file(),
             f"run from a checkout of the repository ({ROOT} lacks "
             f"ndtpu_torch/ or the reference files in tests/data)")
     import torch
@@ -5559,6 +6241,10 @@ def main(argv=None) -> int:
     # both), K3 at overlap 1.
     results.update(check_layouts(cfg, cfg3, seq, stats, kf, args.seed, dev,
                                  jobs))
+    # Input preparation: K11 (the synthetic raycast) and K13 (the voxel
+    # downsample) at the CLI's and serving's shapes.
+    results["raycast"] = check_k11(dev, jobs)
+    results["voxel_downsample"] = check_k13(dev, jobs)
     # The map build is the same on every run; what the whole pipeline does
     # run to run on the draws whose ATE flipped under float atomics.
     check_frontend_twice(cfg3, box_sequence(2, cfg3.n_beams), dev)
@@ -5640,7 +6326,11 @@ def main(argv=None) -> int:
     launches15, slab15, rows15 = run_slab(dev, card, keep, args.seed, jobs)
     results.update(rows15)
     del keep
-    paths = {"config1": launches1, **launches_layouts,
+    # The per-scan path (phase 16): the CLI's scan mode at configs 2 and 3,
+    # box-world draws through run_slam, the fresh-map verify, CARMEN input,
+    # the voxel downsample and checkpoint resume.
+    launches16, scan16 = run_scan_phase(dev, jobs)
+    paths = {"config1": launches1, **launches_layouts, **launches16,
              "config2": launches2, "config3": launches3, "config4": launches4,
              "config4_pcg": launches4p, "incremental_10k": launches10k,
              "serving": launches8, "config5": launches5,
@@ -5671,7 +6361,8 @@ def main(argv=None) -> int:
                       "smoother": smoother, "config4": config4,
                       "serving": serving,
                       "config5": {"merge": merge5, "distributed": dist5,
-                                  "slam_launch": slam14, "slab": slab15}}))
+                                  "slam_launch": slam14, "slab": slab15},
+                      "per_scan": scan16}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,8 @@ Rules of the port:
   as ``NamedTuple``s with the JAX package's field names.
 - Plain functions follow their input dtype (f64 in the CPU tests, f32 on the
   card). The hand-written CUDA kernels (``ndtpu_torch.kernels``) take f32
-  only; each has a plain twin that CPU tensors go to.
+  (K11 ``raycast`` also f64, in which ``make_sequence`` simulates); each
+  has a plain twin that CPU tensors go to.
 - Every entry point takes an explicit ``device``.
 """
 

@@ -8,9 +8,12 @@ package draws it with ``jax.random``; here it comes from
 ``np.random.default_rng(seed)``, in this order: range noise ``[T, N]``, then
 odometry translation noise ``[T-1, 2]``, then rotation noise ``[T-1, 1]``.
 
-:func:`make_sequence` simulates in f64 on the CPU and casts to the pose
-dtype at the end, so a seed gives the same arrays on any machine; the
-result is then moved to ``device``.
+:func:`make_sequence` simulates in f64 on ``device`` and casts to the pose
+dtype at the end: on the CPU through :func:`raycast_ref`, on a CUDA device
+on the card through K11 (``csrc/raycast.cu``), with the noise drawn on the
+host in the same order and moved there. The two agree in f64 but for the
+last bits of the libraries' sin/cos, so a seed gives the same f32 arrays on
+either (``chip_smoke.py`` hashes both).
 """
 
 from __future__ import annotations
@@ -20,10 +23,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ndtpu_torch import kernels
 from ndtpu_torch.lie import se2
 
 __all__ = ["World", "box_world", "corridor_loop_world",
-           "rectangle_trajectory", "raycast", "simulate_scans",
+           "rectangle_trajectory", "raycast", "raycast_ref", "simulate_scans",
            "noisy_odometry", "polar_to_xy", "beam_angles", "Sequence2D",
            "make_sequence"]
 
@@ -99,8 +103,11 @@ def beam_angles(n_beams: int, fov: float = 2.0 * np.pi, dtype=torch.float32,
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def raycast(world: World, poses, angles, max_range: float, eps: float = 1e-9):
-    """Ranges ``[..., N]`` of beams from ``poses [..., 3]`` at ``angles [N]``."""
+def raycast_ref(world: World, poses, angles, max_range: float,
+                eps: float = 1e-9):
+    """Plain twin of K11: ranges ``[..., N]`` of beams from ``poses [...,
+    3]`` at ``angles [N]``, the broadcasted ray/segment intersection over
+    ``[..., N, S]`` and its min over the segments."""
     a = world.segments[:, 0]                                  # [S, 2]
     ab = world.segments[:, 1] - a                             # [S, 2]
     th = poses[..., 2:3] + angles                             # [..., N]
@@ -116,6 +123,24 @@ def raycast(world: World, poses, angles, max_range: float, eps: float = 1e-9):
     hit = (torch.abs(denom) >= eps) & (t > 1e-4) & (u >= 0.0) & (u <= 1.0)
     t = torch.where(hit, t, torch.full_like(t, max_range))
     return torch.amin(t, dim=-1)
+
+
+def raycast(world: World, poses, angles, max_range: float, eps: float = 1e-9):
+    """K11 wrapper: ranges ``[..., N]`` of beams from ``poses [..., 3]`` at
+    ``angles [N]``. CUDA tensors go to the kernel (f64 or f32; poses,
+    angles and segments of one dtype), CPU tensors to :func:`raycast_ref`."""
+    if not poses.is_cuda:
+        return raycast_ref(world, poses, angles, max_range, eps)
+    seg = world.segments
+    if seg.dtype != poses.dtype or angles.dtype != poses.dtype:
+        raise TypeError(f"raycast on the card takes poses, angles and "
+                        f"segments of one dtype, got {poses.dtype}, "
+                        f"{angles.dtype}, {seg.dtype}")
+    lead = poses.shape[:-1]
+    out = kernels.raycast(poses.reshape(-1, 3).contiguous(),
+                          angles.contiguous(), seg.contiguous(), max_range,
+                          eps)
+    return out.reshape(lead + angles.shape)
 
 
 def simulate_scans(world: World, poses, angles, max_range: float,
@@ -161,12 +186,13 @@ def make_sequence(world: World, poses, n_beams: int, max_range: float,
                   min_range: float, seed: int = 0, range_noise: float = 0.01,
                   odom_trans_std: float = 0.02, odom_rot_std: float = 0.005,
                   device="cpu") -> Sequence2D:
-    """Simulate scans + noisy odometry + ground truth from ``seed``."""
+    """Simulate scans + noisy odometry + ground truth from ``seed``, in f64
+    on ``device`` (K11 on a CUDA device), cast to ``poses``' dtype."""
     rng = np.random.default_rng(seed)
     dt = poses.dtype
-    w64 = World(world.segments.detach().to("cpu", torch.float64))
-    p64 = poses.detach().to("cpu", torch.float64)
-    ang = beam_angles(n_beams, dtype=torch.float64)
+    w64 = World(world.segments.detach().to(device, torch.float64))
+    p64 = poses.detach().to(device, torch.float64)
+    ang = beam_angles(n_beams, dtype=torch.float64, device=device)
     ranges = simulate_scans(w64, p64, ang, max_range, range_noise, rng)
     points, mask = polar_to_xy(ranges, ang, min_range, max_range)
     odom = noisy_odometry(p64, rng, odom_trans_std, odom_rot_std)

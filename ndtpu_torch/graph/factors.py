@@ -67,24 +67,33 @@ def empty_graph(max_poses: int, max_priors: int, max_between: int,
 
 
 def _masked_set(arr, slot, value, ok):
-    """``arr[slot] = value`` only when ``ok`` (a new tensor)."""
-    out = arr.clone()
-    out[slot] = torch.where(ok, torch.as_tensor(value, dtype=arr.dtype,
-                                                device=arr.device), arr[slot])
-    return out
+    """``arr[slot] = value`` only when ``ok`` (a new tensor). ``slot`` is a
+    0-d tensor, used as a one-element index: indexing with a 0-d tensor
+    would read it back to the host."""
+    idx = slot.reshape(1)
+    cur = arr.index_select(0, idx)
+    return arr.index_copy(0, idx, torch.where(
+        ok, torch.as_tensor(value, dtype=arr.dtype, device=arr.device), cur))
 
 
 def _set_flag(mask, slot, ok):
-    out = mask.clone()
-    out[slot] = ok | mask[slot]
-    return out
+    idx = slot.reshape(1)
+    return mask.index_copy(0, idx, ok | mask.index_select(0, idx))
+
+
+def _append_ok(count, cap: int, enabled):
+    """``enabled & (count < cap)``; a Python ``enabled`` is never copied to
+    the device (a copy from the host waits for the card)."""
+    ok = count < cap
+    if isinstance(enabled, bool):
+        return ok if enabled else torch.zeros_like(ok)
+    return ok & enabled
 
 
 def add_pose(g: PoseGraph, pose, enabled=True) -> PoseGraph:
     """Masked append of a pose variable (index = the pre-append n_poses)."""
     slot = torch.clamp(g.n_poses, max=g.capacity - 1)
-    ok = torch.as_tensor(enabled, device=g.n_poses.device) & (
-        g.n_poses < g.capacity)
+    ok = _append_ok(g.n_poses, g.capacity, enabled)
     return g._replace(poses=_masked_set(g.poses, slot, pose, ok),
                       pose_mask=_set_flag(g.pose_mask, slot, ok),
                       n_poses=g.n_poses + ok.to(torch.long))
@@ -93,8 +102,7 @@ def add_pose(g: PoseGraph, pose, enabled=True) -> PoseGraph:
 def add_prior(g: PoseGraph, idx, z, sqrt_info, enabled=True) -> PoseGraph:
     cap = g.prior_mask.shape[0]
     slot = torch.clamp(g.n_priors, max=cap - 1)
-    ok = torch.as_tensor(enabled, device=g.n_priors.device) & (
-        g.n_priors < cap)
+    ok = _append_ok(g.n_priors, cap, enabled)
     return g._replace(
         prior_idx=_masked_set(g.prior_idx, slot, idx, ok),
         prior_z=_masked_set(g.prior_z, slot, z, ok),
@@ -106,8 +114,7 @@ def add_prior(g: PoseGraph, idx, z, sqrt_info, enabled=True) -> PoseGraph:
 def add_between(g: PoseGraph, i, j, z, sqrt_info, enabled=True) -> PoseGraph:
     cap = g.bet_mask.shape[0]
     slot = torch.clamp(g.n_between, max=cap - 1)
-    ok = torch.as_tensor(enabled, device=g.n_between.device) & (
-        g.n_between < cap)
+    ok = _append_ok(g.n_between, cap, enabled)
     return g._replace(
         bet_i=_masked_set(g.bet_i, slot, i, ok),
         bet_j=_masked_set(g.bet_j, slot, j, ok),

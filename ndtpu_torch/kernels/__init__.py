@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Twenty-one kernels carry the windowed pipeline with loop closure, the
-pose-graph smoother, the large-graph supernodal and PCG solves, stacked
-multi-session serving, config 5's merge and distributed solve, and its
-slab-sharded map (ROADMAP Queue B):
+Twenty-three kernels carry the windowed and per-scan pipelines with loop
+closure, the pose-graph smoother, the large-graph supernodal and PCG
+solves, stacked multi-session serving, config 5's merge and distributed
+solve, its slab-sharded map, and the input preparation (ROADMAP Queue B):
 
 ============ =============================== =================================
 name         source                          replaces (JAX, lowered by XLA)
@@ -67,6 +67,11 @@ finalize_    ``csrc/finalize_cells.cu``      ``grid.finalize`` on any layout
 cells        (K10b)                          (``finalize_slab``)
 slab_sgh     ``csrc/ndt_unpacked.cu`` (K10c) ``match_slab``'s per-rank terms
                                              (the 15 sums before its psum)
+raycast      ``csrc/raycast.cu`` (K11)       ``synth.raycast``: the nearest
+                                             ray/segment hit per (pose,
+                                             beam), f64 and f32
+voxel_       ``csrc/voxel_downsample.cu``    ``preprocess.voxel_downsample``:
+downsample   (K13)                           one valid point per voxel
 ============ =============================== =================================
 
 K5, K6, K6g and K7b share the pose graph's arithmetic,
@@ -150,7 +155,7 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "pcg_solve", "pcg_solve_grid", "pcg_solve_blocked", "local_select",
            "local_assemble", "supernodal_assemble", "schur_reduce",
            "schur_local_assemble", "ndt_sgh_unpacked", "slab_accumulate",
-           "finalize_cells", "slab_sgh"]
+           "finalize_cells", "slab_sgh", "raycast", "voxel_downsample"]
 
 #: The quad-table layouts ``(G, L)``: G overlap grids per row (4, or 1 at
 #: ``overlap = 1``) of L lanes each (8 full, or 4 compact bf16-pair lanes at
@@ -185,6 +190,7 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "local_assemble": 0, "supernodal_assemble": 0, "schur_reduce": 0,
             "schur_local_assemble": 0, "ndt_sgh_unpacked": 0,
             "slab_accumulate": 0, "finalize_cells": 0, "slab_sgh": 0,
+            "raycast": 0, "voxel_downsample": 0,
             variant("halfcell_add", 1): 0,
             **{variant(k, g, l): 0 for k in _LAYOUT_KERNELS
                for g, l in LAYOUTS[1:]}}
@@ -244,6 +250,8 @@ _SIGNATURES = {
     "finalize_cells_launch": [_P] * 6 + [ctypes.c_longlong] + [_F] * 3
                              + [_P],
     "slab_sgh_launch": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_P],
+    "raycast_launch": [_P] * 4 + [_I] * 3 + [_D, _D, _I, _P],
+    "voxel_downsample_launch": [_P] * 3 + [_I, _I, _F, _I, _P],
 }
 
 
@@ -1375,3 +1383,47 @@ def slab_sgh(poses, points, mask_f, mean, icov, valid, grid, x_lo: int,
               grid.nx, ny, x_lo, nxl, grid.x0, grid.y0, grid.cell, d2,
               exp_clip, _stream(poses))
     return out
+
+
+def raycast(poses, angles, segments, max_range: float, eps: float
+            ) -> torch.Tensor:
+    """K11: ranges ``[P, N]`` of the beams ``angles [N]`` from ``poses [P,
+    3]`` against the wall segments ``segments [S, 2, 2]`` (all f64 or all
+    f32), one thread per (pose, beam) (see ``csrc/raycast.cu``). Raises
+    ``ValueError`` when the S segments do not fit 48 KB of shared memory
+    (1,536 segments in f64)."""
+    dt = poses.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"raycast takes float32 or float64, got {dt}")
+    p, n, s = poses.shape[0], angles.shape[0], segments.shape[0]
+    _check(poses, "poses", dtype=dt, shape=(p, 3))
+    _check(angles, "angles", dtype=dt, shape=(n,))
+    _check(segments, "segments", dtype=dt, shape=(s, 2, 2))
+    out = torch.empty((p, n), dtype=dt, device=poses.device)
+    if p * n > 0:
+        _call("raycast_launch", "raycast", poses.data_ptr(),
+              angles.data_ptr(), segments.data_ptr(), out.data_ptr(), p, n, s,
+              float(max_range), float(eps), int(dt == torch.float64),
+              _stream(poses),
+              too_big=f"{s} segments do not fit a block's 48 KB of shared "
+                      f"memory")
+    return out
+
+
+def voxel_downsample(points, mask, voxel: float) -> torch.Tensor:
+    """K13: the thinned mask ``[T, N]`` of scans ``points [T, N, 2]`` (f32)
+    with ``mask [T, N]`` (bool): per scan the lowest-index valid point of
+    each ``voxel`` cell, one block per scan (see
+    ``csrc/voxel_downsample.cu``). Raises ``ValueError`` when a scan's N
+    int32 ids do not fit a block's shared memory (N > 58,112)."""
+    t, n = mask.shape
+    _check(points, "points", shape=(t, n, 2), align=8)
+    _check(mask, "mask", dtype=torch.bool, shape=(t, n), align=1)
+    keep = torch.empty((t, n), dtype=torch.bool, device=points.device)
+    if t * n > 0:
+        _call("voxel_downsample_launch", "voxel_downsample",
+              points.data_ptr(), mask.data_ptr(), keep.data_ptr(), t, n,
+              float(voxel), SMEM_MAX, _stream(points),
+              too_big=f"{n} points per scan do not fit a block's "
+                      f"{SMEM_MAX} bytes of shared memory (4 B each)")
+    return keep

@@ -1,11 +1,18 @@
 """Loop-closure detection: proximity candidates + batched NDT verification
 against cached per-keyframe local tables.
 
-Port of the windowed pipeline's path through ``ndtpu/loop/closure.py``:
-candidates are the nearest live keyframes within ``radius`` and an index
-gap; every (query, candidate) pair of a window registers the query scan
-against the candidate's cached local table in ONE batched LM call, and the
-gate turns the registrations into loop factors.
+Port of ``ndtpu/loop/closure.py``: candidates are the nearest live
+keyframes within ``radius`` and an index gap; every (query, candidate)
+pair registers the query scan against a local map of the candidate in ONE
+batched LM call, and the gate turns the registrations into loop factors.
+Three verifies share that shape: the windowed pipeline's flat one (``K``
+queries of a window against the cached tables,
+:func:`verify_candidates_cached_flat`), the per-scan pipeline's per-query
+one (:func:`verify_candidates_cached`, the same at ``K = 1`` without the
+serving knobs ``verify_max_iter`` / ``verify_beam_stride``, as the JAX
+package), and the fresh-map one (:func:`verify_candidates`: C local maps
+built from each candidate's ``+-window`` keyframes, K3s then K4s on the
+card, then one grouped registration with ``group`` = lane).
 
 Two kernels carry it, each with a plain twin of the same signature here:
 
@@ -42,8 +49,9 @@ from ndtpu_torch.slam.keyframes import KeyframeStore
 __all__ = ["LoopCandidates", "LoopResult", "local_grid_config",
            "local_table_shape", "build_local_table", "write_local_tables",
            "write_local_tables_ref", "find_candidates", "gate_and_pack",
-           "verify_registrations", "verify_candidates_cached_flat",
-           "detect_loops_cached_flat"]
+           "verify_registrations", "verify_candidates",
+           "verify_candidates_cached", "verify_candidates_cached_flat",
+           "detect_loops", "detect_loops_cached", "detect_loops_cached_flat"]
 
 
 class LoopCandidates(NamedTuple):
@@ -219,17 +227,17 @@ def gate_and_pack(res: ndt_match.MatchResult, cands: LoopCandidates,
 
 def _verify_lanes(kf: KeyframeStore, query_points, query_mask,
                   query_poses, cands: LoopCandidates, loop_cfg: LoopConfig,
-                  match_cfg: MatchConfig):
+                  match_cfg: MatchConfig, knobs: bool = True):
     """The verify's ``K*C`` flat lanes: ``(points, mask, init, grid,
     match_cfg, group)`` for a grouped call over the whole cache, with
-    ``verify_max_iter`` and ``verify_beam_stride`` applied."""
+    ``verify_max_iter`` and ``verify_beam_stride`` applied if ``knobs``."""
     if kf.tables is None:
         raise ValueError("KeyframeStore built without tables")
     lgrid = local_grid_config(loop_cfg)
-    if loop_cfg.verify_max_iter > 0:
+    if knobs and loop_cfg.verify_max_iter > 0:
         match_cfg = dataclasses.replace(match_cfg,
                                         max_iter=loop_cfg.verify_max_iter)
-    stride = max(1, loop_cfg.verify_beam_stride)
+    stride = max(1, loop_cfg.verify_beam_stride) if knobs else 1
     if stride > 1:
         query_points = query_points[:, ::stride]
         query_mask = query_mask[:, ::stride]
@@ -245,18 +253,56 @@ def _verify_lanes(kf: KeyframeStore, query_points, query_mask,
 
 def verify_registrations(kf: KeyframeStore, query_points, query_mask,
                          query_poses, cands: LoopCandidates,
-                         loop_cfg: LoopConfig, match_cfg: MatchConfig):
-    """The registrations of :func:`verify_candidates_cached_flat`, before
-    the gate: ``(MatchResult [K, C], init [K, C, 3])``."""
+                         loop_cfg: LoopConfig, match_cfg: MatchConfig,
+                         knobs: bool = True):
+    """The registrations of :func:`verify_candidates_cached_flat` (or, with
+    ``knobs=False``, of the per-query verify), before the gate:
+    ``(MatchResult [K, C], init [K, C, 3])``."""
     pts, msk, init, lgrid, mcfg, flat_idx = _verify_lanes(
         kf, query_points, query_mask, query_poses, cands, loop_cfg,
-        match_cfg)
+        match_cfg, knobs)
     res = ndt_match.match_batch_packed(pts, msk, kf.tables, init, lgrid,
                                        mcfg, group=flat_idx)
     k, c = cands.idx.shape
     return (ndt_match.MatchResult(*(a.reshape((k, c) + a.shape[1:])
                                     for a in res)),
             init.reshape(k, c, 3))
+
+
+def _gated_verify(points, mask, tables, init, lgrid: GridConfig,
+                  match_cfg: MatchConfig, group, cands: LoopCandidates,
+                  loop_cfg: LoopConfig, query_index) -> LoopResult:
+    """The card's verify of ``K x C`` lanes (``cands [K, C]``,
+    ``query_index [K]``): ONE gated ``lm_ndt`` launch that registers lane
+    ``b`` against ``tables[group[b]]`` and gates, no host sync."""
+    gate = kernels.LoopGate(
+        cands.mask.contiguous(),
+        torch.as_tensor(query_index, dtype=torch.int64,
+                        device=points.device).contiguous(),
+        loop_cfg.score_gate, loop_cfg.max_innovation_base,
+        loop_cfg.max_innovation_per_kf, _k_budget(loop_cfg))
+    res, (acc, rej, sqrt_info) = ndt_match.match_batch_packed_gated(
+        points, mask, tables, init, lgrid, match_cfg, group, gate)
+    k, c = cands.idx.shape
+    return LoopResult(j=cands.idx, z=res.pose.reshape(k, c, 3),
+                      sqrt_info=sqrt_info, score=res.score.reshape(k, c),
+                      accept=acc, innov_rej=rej)
+
+
+def _verify_cached(kf: KeyframeStore, query_points, query_mask, query_poses,
+                   cands: LoopCandidates, loop_cfg: LoopConfig,
+                   match_cfg: MatchConfig, query_index, knobs: bool
+                   ) -> LoopResult:
+    if not query_points.is_cuda:
+        res, init = verify_registrations(kf, query_points, query_mask,
+                                         query_poses, cands, loop_cfg,
+                                         match_cfg, knobs)
+        return _gate_and_pack(res, cands, loop_cfg, init, query_index)
+    pts, msk, init, lgrid, mcfg, flat_idx = _verify_lanes(
+        kf, query_points, query_mask, query_poses, cands, loop_cfg,
+        match_cfg, knobs)
+    return _gated_verify(pts, msk, kf.tables, init, lgrid, mcfg, flat_idx,
+                         cands, loop_cfg, query_index)
 
 
 def verify_candidates_cached_flat(kf: KeyframeStore, query_points,
@@ -275,26 +321,86 @@ def verify_candidates_cached_flat(kf: KeyframeStore, query_points,
     (``match_batch_packed_gated``), bit-equal to ``match_batch_packed``
     followed by :func:`gate_and_pack`, with no host sync; on the CPU,
     :func:`verify_registrations` and :func:`_gate_and_pack`."""
+    return _verify_cached(kf, query_points, query_mask, query_poses, cands,
+                          loop_cfg, match_cfg, query_index, knobs=True)
+
+
+def verify_candidates_cached(kf: KeyframeStore, query_points, query_mask,
+                             query_pose, cands: LoopCandidates,
+                             loop_cfg: LoopConfig, match_cfg: MatchConfig,
+                             query_index=None) -> LoopResult:
+    """Verify one query (``query_points [N, 2]``, ``query_pose [3]``)
+    against its ``C`` candidates' cached tables (``cands [C]``): the flat
+    verify at ``K = 1``, one gated launch on the card, but with the match
+    config as given (the JAX package's per-query route applies neither
+    ``verify_max_iter`` nor ``verify_beam_stride``). ``query_index``
+    defaults to ``kf.n``. Returns a ``[C]`` ``LoopResult``."""
+    if query_index is None:
+        query_index = kf.n
+    qi = torch.as_tensor(query_index, device=query_points.device)[None]
+    out = _verify_cached(kf, query_points[None], query_mask[None],
+                         query_pose[None],
+                         LoopCandidates(*(x[None] for x in cands)),
+                         loop_cfg, match_cfg, qi, knobs=False)
+    return LoopResult(*(x[0] for x in out))
+
+
+def _local_points(kf: KeyframeStore, j, window: int):
+    """Points of keyframes ``j-window .. j+window`` in ``j``'s frame, for
+    candidates ``j [C]``: ``(pts [C, (2w+1) N, 2], msk [C, (2w+1) N])``;
+    indices past the store are clipped and masked."""
+    offs = torch.arange(-window, window + 1, device=j.device)
+    nbr = j[:, None] + offs                                       # [C, W]
+    nb = torch.clamp(nbr, 0, kf.capacity - 1)
+    in_range = (nbr >= 0) & (nbr < kf.capacity)
+    msk = kf.masks[nb] & kf.live[nb][..., None] & in_range[..., None]
+    world = se2.transform(kf.poses[nb], kf.points[nb])        # [C, W, N, 2]
+    c = j.shape[0]
+    local = se2.transform_inv(kf.poses[j], world.reshape(c, -1, 2))
+    return local, msk.reshape(c, -1)
+
+
+def verify_candidates(kf: KeyframeStore, query_points, query_mask,
+                      query_pose, cands: LoopCandidates,
+                      loop_cfg: LoopConfig, ndt_cfg: NDTMapConfig,
+                      match_cfg: MatchConfig, window: int = 1,
+                      query_index=None) -> LoopResult:
+    """Verify one query against ``C`` fresh local maps (``cands [C]``):
+    each candidate's map holds its ``+-window`` keyframes in its frame
+    (:func:`_local_points`), built from scratch (``add_points_stacked``:
+    one K3s launch on the card) and packed (``finalize_pack_stacked``: one
+    K4s launch); lane ``c`` registers the query against table ``c`` (one
+    gated ``lm_ndt`` launch on the card, ``group`` = lane), then the gate.
+    The match config is used as given. On the card the local maps take the
+    published layout only (K3s and K4s raise on ``local_overlap = 1`` and
+    ``compact_table``: ROADMAP B8b, B7b). Returns a ``[C]``
+    ``LoopResult``."""
+    if query_index is None:
+        query_index = kf.n
+    lgrid = local_grid_config(loop_cfg)
+    dt, dev = query_points.dtype, query_points.device
+    c, n = cands.idx.shape[0], query_points.shape[0]
+    local, lmsk = _local_points(kf, cands.idx, window)
+    empty = ndt_grid.empty_stats(lgrid, dt, dev)
+    stats = ndt_grid.add_points_stacked(
+        ndt_grid.NDTStats(*(x.expand((c,) + x.shape).contiguous()
+                            for x in empty)), local, lmsk, lgrid)
+    tables = ndt_grid.finalize_pack_stacked(stats, ndt_cfg, lgrid,
+                                            match_cfg.compact_table)
+    init = se2.between(kf.poses[cands.idx], query_pose[None, :])  # [C, 3]
+    pts = query_points[None].expand(c, n, 2)
+    msk = query_mask[None].expand(c, n)
+    lanes = torch.arange(c, device=dev)
     if not query_points.is_cuda:
-        res, init = verify_registrations(kf, query_points, query_mask,
-                                         query_poses, cands, loop_cfg,
-                                         match_cfg)
+        res = ndt_match.match_batch_packed(pts, msk, tables, init, lgrid,
+                                           match_cfg, group=lanes)
         return _gate_and_pack(res, cands, loop_cfg, init, query_index)
-    pts, msk, init, lgrid, mcfg, flat_idx = _verify_lanes(
-        kf, query_points, query_mask, query_poses, cands, loop_cfg,
-        match_cfg)
-    gate = kernels.LoopGate(
-        cands.mask.contiguous(),
-        torch.as_tensor(query_index, dtype=torch.int64,
-                        device=query_points.device).contiguous(),
-        loop_cfg.score_gate, loop_cfg.max_innovation_base,
-        loop_cfg.max_innovation_per_kf, _k_budget(loop_cfg))
-    res, (acc, rej, sqrt_info) = ndt_match.match_batch_packed_gated(
-        pts, msk, kf.tables, init, lgrid, mcfg, flat_idx, gate)
-    k, c = cands.idx.shape
-    return LoopResult(j=cands.idx, z=res.pose.reshape(k, c, 3),
-                      sqrt_info=sqrt_info, score=res.score.reshape(k, c),
-                      accept=acc, innov_rej=rej)
+    qi = torch.as_tensor(query_index, device=dev)[None]
+    out = _gated_verify(pts.contiguous(), msk.contiguous(), tables, init,
+                        lgrid, match_cfg, lanes,
+                        LoopCandidates(*(x[None] for x in cands)), loop_cfg,
+                        qi)
+    return LoopResult(*(x[0] for x in out))
 
 
 def detect_loops_cached_flat(kf: KeyframeStore, query_points, query_mask,
@@ -306,3 +412,25 @@ def detect_loops_cached_flat(kf: KeyframeStore, query_points, query_mask,
     return verify_candidates_cached_flat(kf, query_points, query_mask,
                                          query_poses, cands, loop_cfg,
                                          match_cfg, query_index)
+
+
+def detect_loops(kf: KeyframeStore, query_points, query_mask, query_pose,
+                 query_index, loop_cfg: LoopConfig, ndt_cfg: NDTMapConfig,
+                 match_cfg: MatchConfig, window: int = 1) -> LoopResult:
+    """Candidate search + the fresh-map verify (:func:`verify_candidates`)
+    for one query."""
+    cands = find_candidates(kf, query_pose, query_index, loop_cfg)
+    return verify_candidates(kf, query_points, query_mask, query_pose, cands,
+                             loop_cfg, ndt_cfg, match_cfg, window,
+                             query_index=query_index)
+
+
+def detect_loops_cached(kf: KeyframeStore, query_points, query_mask,
+                        query_pose, query_index, loop_cfg: LoopConfig,
+                        match_cfg: MatchConfig) -> LoopResult:
+    """Candidate search + the per-query cached verify
+    (:func:`verify_candidates_cached`): the per-scan pipeline's path."""
+    cands = find_candidates(kf, query_pose, query_index, loop_cfg)
+    return verify_candidates_cached(kf, query_points, query_mask, query_pose,
+                                    cands, loop_cfg, match_cfg,
+                                    query_index=query_index)

@@ -6,14 +6,17 @@ Usage::
         --sessions 8 --max-scans 300 [--capacity 0] [--out-dir out/] \\
         [--device cuda]
 
-Port of ``ndtpu/serve.py``'s synthetic-session path: S box-world sessions
-(one rectangle lap each, a size and a seed per session) run through
+Port of ``ndtpu/serve.py``: S sessions, one per CARMEN log of
+``--datasets`` (``data.carmen``, cut to ``--max-scans``) or S synthetic
+box-world sessions (one rectangle lap each, a size and a seed per
+session, simulated on the run's device: K11 on the card), run through
 :func:`ndtpu_torch.dist.slam_dp.run_sessions_stacked` under
 :func:`~ndtpu_torch.dist.slam_dp.serving_config`, one stacked window step at
 a time. It prints one JSON summary (aggregate scans/s, and per session the
 keyframes, loops, capacity drops, innovation rejections and ATE) and, with
 ``--out-dir``, writes ``traj_<k>.txt`` per session and
-``serve_metrics.json``. ``--capacity 0`` sizes the keyframe and graph
+``serve_metrics.json`` (ATE only where there is ground truth: not for
+logs). ``--capacity 0`` sizes the keyframe and graph
 stores from the session length, as the JAX package does (160 at 300
 scans); ``n_dropped`` is reported, so an undersized store shows.
 
@@ -23,8 +26,7 @@ ended by a device synchronize, each on the inputs moved by a fresh 1e-6 m
 offset (as the JAX package does; the offsets come from ``cfg.seed``, so
 two invocations run the same inputs). The reported state is the last
 run's. ``--device cuda`` (the default) fails without a card; ``--device
-cpu`` runs the plain twins. ``--datasets`` (CARMEN logs) raises: CARMEN
-input is ROADMAP A7.
+cpu`` runs the plain twins.
 """
 
 from __future__ import annotations
@@ -40,12 +42,12 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["synthetic_sessions", "pad_sessions", "auto_capacity",
-           "trajectories", "main"]
+__all__ = ["synthetic_sessions", "dataset_sessions", "pad_sessions",
+           "auto_capacity", "trajectories", "main"]
 
 
-def synthetic_sessions(cfg, sessions: int, n_scans: int):
-    """The serving workload's sessions (CPU tensors): session ``k`` laps a
+def synthetic_sessions(cfg, sessions: int, n_scans: int, device="cpu"):
+    """The serving workload's sessions on ``device``: session ``k`` laps a
     rectangle of half-size ``6 + 0.2 (k mod 10)`` m at 0.2 m steps in the
     11 m box world, seed ``cfg.seed + 20 + k``, odometry noise 0.04 m /
     0.01 rad."""
@@ -59,7 +61,27 @@ def synthetic_sessions(cfg, sessions: int, n_scans: int):
         seqs.append(synth.make_sequence(
             world, traj, n_beams=cfg.n_beams, max_range=cfg.max_range,
             min_range=cfg.min_range, seed=cfg.seed + 20 + k,
-            odom_trans_std=0.04, odom_rot_std=0.01))
+            odom_trans_std=0.04, odom_rot_std=0.01, device=device))
+    return seqs
+
+
+def dataset_sessions(cfg, paths, max_scans, device="cpu"):
+    """One session per CARMEN log (``data.carmen.read_log`` and
+    ``to_sequence`` at the config's ranges, cut to ``max_scans``), on
+    ``device``, without ground truth."""
+    from ndtpu_torch.data import carmen, synth
+
+    seqs = []
+    for path in paths:
+        pts, mask, odom = carmen.to_sequence(carmen.read_log(path),
+                                             max_range=cfg.max_range,
+                                             min_range=cfg.min_range)
+        t = pts.shape[0] if max_scans is None else min(pts.shape[0],
+                                                       max_scans)
+        pts, mask, odom = (torch.as_tensor(a[:t], device=device)
+                           for a in (pts, mask, odom))
+        seqs.append(synth.Sequence2D(points=pts, mask=mask, odom=odom,
+                                     gt_poses=None, angles=None))
     return seqs
 
 
@@ -113,8 +135,7 @@ def main(argv=None):
         description="Stacked multi-session SLAM serving on one card")
     parser.add_argument("--config", required=True)
     parser.add_argument("--datasets", nargs="*", default=None,
-                        help="CARMEN logs, one session each (not in this "
-                             "port yet)")
+                        help="CARMEN logs, one session each")
     parser.add_argument("--sessions", type=int, default=8,
                         help="synthetic session count")
     parser.add_argument("--max-scans", type=int, default=None)
@@ -124,8 +145,6 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="cuda (kernels) or cpu (plain twins)")
     args = parser.parse_args(argv)
-    if args.datasets:
-        raise NotImplementedError("--datasets (CARMEN input) is ROADMAP A7")
 
     from ndtpu_torch.config import PipelineConfig
     from ndtpu_torch.dist import slam_dp
@@ -134,10 +153,11 @@ def main(argv=None):
 
     cfg = PipelineConfig.from_json(args.config)
     device = _device(args.device)
-    seqs = synthetic_sessions(cfg, args.sessions, args.max_scans or 300)
-    points, mask, odom, lengths = (
-        x.to(device) if isinstance(x, torch.Tensor) else x
-        for x in pad_sessions(seqs))
+    seqs = (dataset_sessions(cfg, args.datasets, args.max_scans, device)
+            if args.datasets else
+            synthetic_sessions(cfg, args.sessions, args.max_scans or 300,
+                               device))
+    points, mask, odom, lengths = pad_sessions(seqs)
     s, t_max = points.shape[:2]
     cap = args.capacity if args.capacity > 0 else auto_capacity(cfg, t_max)
     scfg = slam_dp.serving_config(cfg)
@@ -175,9 +195,10 @@ def main(argv=None):
                "keyframes": int(state.kf.n[k]),
                "loops": int(state.n_loops[k]),
                "dropped": int(outs.n_dropped[k].sum()),
-               "innov_rejected": int(outs.n_innov_rej[k].sum()),
-               "ate_m": float(ate_rmse(traj[k, :t_k],
-                                       seqs[k].gt_poses.to(traj.dtype)))}
+               "innov_rejected": int(outs.n_innov_rej[k].sum())}
+        if seqs[k].gt_poses is not None:
+            rec["ate_m"] = float(ate_rmse(traj[k, :t_k],
+                                          seqs[k].gt_poses.to(traj)))
         summary["per_session"].append(rec)
         if args.out_dir:
             os.makedirs(args.out_dir, exist_ok=True)

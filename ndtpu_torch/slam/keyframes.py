@@ -46,19 +46,21 @@ def empty_store(capacity: int, n_beams: int, dtype=torch.float32,
 def add_keyframe(kf: KeyframeStore, pose, points, mask, enabled=True,
                  table=None) -> KeyframeStore:
     """Masked append (a new store); dropped when the store is full."""
-    enabled = torch.as_tensor(enabled, device=kf.n.device)
-    slot = torch.clamp(kf.n, max=kf.capacity - 1)
-    ok = enabled & (kf.n < kf.capacity)
+    # A one-element index tensor: a 0-d one would be read back to the host;
+    # a Python ``enabled`` stays on the host (a copy would wait for the card).
+    slot = torch.clamp(kf.n, max=kf.capacity - 1).reshape(1)
+    ok = kf.n < kf.capacity
+    if isinstance(enabled, bool):
+        ok = ok if enabled else torch.zeros_like(ok)
+    else:
+        ok = ok & enabled
 
     def put(arr, val):
-        out = arr.clone()
-        out[slot] = torch.where(ok, torch.as_tensor(val, dtype=arr.dtype,
-                                                    device=arr.device),
-                                arr[slot])
-        return out
+        return arr.index_copy(0, slot, torch.where(
+            ok, torch.as_tensor(val, dtype=arr.dtype, device=arr.device),
+            arr.index_select(0, slot)))
 
-    live = kf.live.clone()
-    live[slot] = ok | kf.live[slot]
+    live = kf.live.index_copy(0, slot, ok | kf.live.index_select(0, slot))
     return KeyframeStore(poses=put(kf.poses, pose),
                          points=put(kf.points, points),
                          masks=put(kf.masks, mask), live=live,

@@ -1,10 +1,10 @@
-"""NDT odometry helpers and the window-batched odometry front end.
+"""NDT odometry: the per-scan and the window-batched front ends.
 
-Port of ``ndtpu/slam/odometry.py`` (``gate_poses``, ``chain_deltas``,
-``kf_select``, ``_pad_to_windows``, ``run_odometry_windowed``). The scan
-loop over windows is a Python loop; the map insert and the quad table go
-through the K3 / K4 kernels on the card (``ndt.grid``), registration
-through K1 (``ndt.match``).
+Port of ``ndtpu/slam/odometry.py`` (``run_odometry``, ``gate_poses``,
+``chain_deltas``, ``kf_select``, ``_pad_to_windows``,
+``run_odometry_windowed``). The loops over scans and windows are Python
+loops; the map insert and the quad table go through the K3 / K4 kernels on
+the card (``ndt.grid``), registration through ``lm_ndt`` (``ndt.match``).
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ from ndtpu_torch.lie import se2
 from ndtpu_torch.ndt import grid as ndt_grid
 from ndtpu_torch.ndt import match as ndt_match
 
-__all__ = ["OdometryResult", "gate_poses", "chain_deltas", "kf_select",
-           "run_odometry_windowed"]
+__all__ = ["OdometryResult", "run_odometry", "gate_poses", "chain_deltas",
+           "kf_select", "run_odometry_windowed"]
 
 
 class OdometryResult(NamedTuple):
@@ -30,6 +30,49 @@ class OdometryResult(NamedTuple):
     converged: torch.Tensor    # [T] bool
     is_keyframe: torch.Tensor  # [T] bool
     stats: ndt_grid.NDTStats
+
+
+def run_odometry(points, mask, odom, grid: GridConfig, ndt_cfg: NDTMapConfig,
+                 match_cfg: MatchConfig, kf_cfg: KeyframeConfig,
+                 init_pose=None) -> OdometryResult:
+    """Scan-to-map NDT odometry, one scan at a time: each scan registers
+    (one ``lm_ndt`` lane) against the K4 table of the map so far from its
+    odometry prediction, and a keyframe (distance or angle from the last
+    one over its threshold) is inserted into the map (K3, masked: no host
+    sync). points ``[T, N, 2]``, mask ``[T, N]``, odom ``[T, 3]`` relative
+    deltas (``odom[0]`` ignored); scan 0 is the first keyframe."""
+    dt, dev = points.dtype, points.device
+    t0 = (torch.zeros(3, dtype=dt, device=dev) if init_pose is None
+          else init_pose.to(dt))
+    stats = ndt_grid.add_points(ndt_grid.empty_stats(grid, dt, dev),
+                                se2.transform(t0, points[0]), mask[0], grid)
+    pose, last_kf, outs = t0, t0, []
+    for t in range(1, points.shape[0]):
+        init = se2.compose(pose, odom[t])
+        table = ndt_grid.finalize_pack(stats, ndt_cfg, grid,
+                                       match_cfg.compact_table)
+        res = ndt_match.match_batch_packed(points[t][None], mask[t][None],
+                                           table, init[None], grid, match_cfg)
+        pose = res.pose[0]
+        diff = se2.between(last_kf, pose)
+        is_kf = ((torch.sqrt(diff[0] ** 2 + diff[1] ** 2)
+                  > kf_cfg.dist_thresh)
+                 | (torch.abs(diff[2]) > kf_cfg.angle_thresh))
+        stats = ndt_grid.add_points(stats, se2.transform(pose, points[t]),
+                                    mask[t] & is_kf, grid)
+        last_kf = torch.where(is_kf, pose, last_kf)
+        outs.append((pose, res.score[0], res.n_iter[0], res.converged[0],
+                     is_kf))
+    one_true = torch.ones(1, dtype=torch.bool, device=dev)
+    st = lambda i: torch.stack([o[i] for o in outs])
+    return OdometryResult(
+        poses=torch.cat([t0[None], st(0)]),
+        scores=torch.cat([torch.ones(1, dtype=dt, device=dev), st(1)]),
+        n_iters=torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                           st(2).to(torch.int32)]),
+        converged=torch.cat([one_true, st(3)]),
+        is_keyframe=torch.cat([one_true, st(4)]),
+        stats=stats)
 
 
 def gate_poses(res_pose, converged, inits, gate: float):

@@ -1,7 +1,8 @@
-"""Windowed SLAM pipeline: NDT odometry + keyframing + smoothing + map.
+"""SLAM pipeline: NDT odometry + keyframing + smoothing + map, per window
+of W scans or per scan.
 
-Port of the windowed path of ``ndtpu/slam/pipeline.py`` (configs 1-3).
-One window of W scans runs:
+Port of ``ndtpu/slam/pipeline.py`` (configs 1-3). One window of W scans
+runs:
 
 1. ``_window_frontend``: K4 finalize+pack of the map, W-lane LM
    registration through K1, K3 insert of the window's provisional
@@ -17,10 +18,20 @@ One window of W scans runs:
 4. ``_wb_maps``: the K3 insert of the window's keyframes (or the rebuild /
    top-M refresh the config selects; a landed loop factor triggers it).
 
+The per-scan path (:func:`slam_step`, :func:`run_slam`) registers each
+scan against the map's K4 table (one ``lm_ndt`` lane), and on a keyframe
+(:func:`_keyframe_branch`) appends the pose and odometry factor, writes
+the keyframe's local table into the cache (K8a, in place), runs the
+per-query cached loop verify (one gated ``lm_ndt`` launch), appends the
+accepted loop factors, runs ``incremental_update`` and keeps the map by
+the legacy policy: a K3 rebuild from every keyframe when a loop landed,
+else a K3 insert of the scan.
+
 JAX's ``.at[idx].set(..., mode="drop")`` with the ``1 << 30`` sentinel
 becomes a write of only the rows its mask keeps (torch raises on
 out-of-range indices); each ``lax.cond`` becomes a Python ``if`` on a 0-d
-tensor. Keyframe store index == pose-graph variable index.
+tensor, so the per-scan step syncs the host once per scan on its keyframe
+test. Keyframe store index == pose-graph variable index.
 """
 
 from __future__ import annotations
@@ -41,8 +52,8 @@ from ndtpu_torch.slam import keyframes as kfs
 from ndtpu_torch.slam.odometry import (_pad_to_windows, chain_deltas,
                                        gate_poses, kf_select)
 
-__all__ = ["SlamState", "SlamStepOut", "init_slam", "slam_window_step",
-           "run_slam_windowed", "recover_trajectory"]
+__all__ = ["SlamState", "SlamStepOut", "init_slam", "slam_step", "run_slam",
+           "slam_window_step", "run_slam_windowed", "recover_trajectory"]
 
 
 class SlamState(NamedTuple):
@@ -165,6 +176,141 @@ def _refresh_points(kf: kfs.KeyframeStore, mkp, cfg: PipelineConfig,
                      torch.ones(new_w.shape[0], dtype=both.dtype,
                                 device=both.device)])
     return both, torch.cat([smsk, smsk]), wts, sel, do
+
+
+def _row(arr, idx):
+    """``arr[idx]`` for a 0-d index tensor, clamped to the rows (JAX's
+    gather), without reading the index back to the host."""
+    return arr.index_select(0, torch.clamp(idx, max=arr.shape[0] - 1)
+                            .reshape(1))[0]
+
+
+def _keyframe_branch(state: SlamState, pts, msk, pose, hessian,
+                     cfg: PipelineConfig):
+    """Everything that happens when a scan becomes a keyframe. Returns
+    ``(state, n_new, n_drop, n_innov, take)``. With loop closure on, the
+    keyframe's local table is written into ``state.kf.tables`` in place."""
+    cap = state.graph.capacity
+    new_idx = state.graph.n_poses
+
+    # 1. New pose variable and odometry factor (noise from the Hessian).
+    graph = fct.add_pose(state.graph, pose)
+    z_odo = se2.between(_row(state.graph.poses, state.last_kf_idx), pose)
+    graph = fct.add_between(graph, state.last_kf_idx, new_idx, z_odo,
+                            _odom_info_sqrt(hessian))
+
+    # 2. Keyframe store append (before detection: the query is no candidate
+    #    of itself by the index-gap test); K8a writes its table in place.
+    kf = kfs.add_keyframe(state.kf, pose, pts, msk)
+    zero = torch.zeros((), dtype=torch.int32, device=pose.device)
+    n_new = n_innov = zero
+    if cfg.use_loop_closure:
+        slot = torch.clamp(state.kf.n, max=kf.capacity - 1)[None]
+        closure.write_local_tables(kf.tables, slot,
+                                   (state.kf.n < kf.capacity)[None],
+                                   pts[None], msk[None], cfg.loop, cfg.ndt,
+                                   cfg.match.compact_table)
+        # 3. Loop detection and the masked loop-factor appends.
+        loops = closure.detect_loops_cached(kf, pts, msk, pose, new_idx,
+                                            cfg.loop, cfg.match)
+        for i in range(loops.j.shape[-1]):
+            graph = fct.add_between(graph, loops.j[i], new_idx, loops.z[i],
+                                    loops.sqrt_info[i],
+                                    enabled=loops.accept[i])
+        n_new = loops.accept.sum(dtype=torch.int32)
+        n_innov = loops.innov_rej.sum(dtype=torch.int32)
+
+    # Appends above are masked; count what the capacity dropped.
+    n_drop = ((1 - (graph.n_poses - state.graph.n_poses))
+              + (1 - (kf.n - state.kf.n))
+              + (1 + n_new - (graph.n_between - state.graph.n_between))
+              ).to(torch.int32)
+
+    # 4. Incremental smoothing.
+    sm = inc.SmootherState(graph=graph, lam=state.sm_lam,
+                           last_max_delta=state.sm_last_delta,
+                           step=state.sm_step)
+    sm, take = inc.incremental_update(sm, cfg.solver,
+                                      huber_delta=cfg.solver.huber_delta,
+                                      fresh_since=state.graph.n_between,
+                                      return_take=True)
+    graph = sm.graph
+
+    # 5. Keyframe poses from the graph; the current pose is the newest.
+    kf = kf._replace(poses=graph.poses[: kf.capacity])
+    pose_out = _row(graph.poses, new_idx)
+
+    # 6. The map: rebuilt from every keyframe at its smoothed pose when a
+    #    loop landed, else extended by this scan.
+    mkp = fct._masked_set(state.map_kf_poses,
+                          torch.clamp(new_idx, max=cap - 1), pose_out,
+                          new_idx < state.map_kf_poses.shape[0])
+    if cfg.use_loop_closure and bool(n_new > 0):
+        world = se2.transform(kf.poses, kf.points)
+        m = kf.masks & kf.live[:, None]
+        stats = ndt_grid.build_stats(world.reshape(-1, 2), m.reshape(-1),
+                                     cfg.grid)
+        mkp = kf.poses
+    else:
+        stats = ndt_grid.add_points(state.stats, se2.transform(pose_out, pts),
+                                    msk, cfg.grid)
+    return SlamState(
+        stats=stats, kf=kf, graph=graph, sm_lam=sm.lam,
+        sm_last_delta=sm.last_max_delta, sm_step=sm.step, pose=pose_out,
+        last_kf_idx=new_idx, n_loops=state.n_loops + n_new,
+        map_kf_poses=mkp), n_new, n_drop, n_innov, take
+
+
+def slam_step(state: SlamState, pts, msk, odom_delta, cfg: PipelineConfig):
+    """Process one scan (``pts [N, 2]``, ``msk [N]``, ``odom_delta [3]``);
+    returns ``(new_state, SlamStepOut)`` of 0-d / ``[3]`` tensors.
+
+    Registration is one ``match_batch_packed`` lane against the map's K4
+    table; the keyframe test is the step's one host sync. With loop closure
+    on, a keyframe step takes ownership of the input state's table cache
+    (K8a writes into it in place): a caller that needs the input state
+    afterwards clones ``state.kf.tables`` first."""
+    init = se2.compose(state.pose, odom_delta)
+    res = ndt_match.match_batch_packed(pts[None], msk[None],
+                                       _map_table(state.stats, cfg),
+                                       init[None], cfg.grid, cfg.match)
+    res = ndt_match.MatchResult(*(a[0] for a in res))
+    pose, _ = gate_poses(res.pose, res.converged, init, cfg.odom_gate)
+    diff = se2.between(_row(state.graph.poses, state.last_kf_idx), pose)
+    is_kf = ((torch.linalg.norm(diff[:2]) > cfg.keyframe.dist_thresh)
+             | (torch.abs(diff[2]) > cfg.keyframe.angle_thresh))
+    if bool(is_kf):
+        state, n_new, n_drop, n_innov, take = _keyframe_branch(
+            state, pts, msk, pose, res.hessian, cfg)
+    else:
+        state = state._replace(pose=pose)
+        n_new = n_drop = n_innov = take = torch.zeros(
+            (), dtype=torch.int32, device=pose.device)
+    anchor = _row(state.graph.poses, state.last_kf_idx)
+    out = SlamStepOut(pose=state.pose, kf_idx=state.last_kf_idx,
+                      rel=se2.between(anchor, state.pose), score=res.score,
+                      is_keyframe=is_kf, n_loops_new=n_new, n_dropped=n_drop,
+                      n_innov_rej=n_innov, local_take=take)
+    return state, out
+
+
+def stack_scan_outs(outs) -> SlamStepOut:
+    """Per-scan outputs stacked over the scans."""
+    return SlamStepOut(*(torch.stack(f) for f in zip(*outs)))
+
+
+def run_slam(points, mask, odom, cfg: PipelineConfig, init_pose=None):
+    """Full-sequence SLAM, one :func:`slam_step` per scan (configs 2-3).
+
+    points ``[T, N, 2]``, mask ``[T, N]``, odom ``[T, 3]`` on the device the
+    run should use. Returns ``(final SlamState, SlamStepOut stacked over
+    T-1 scans)``."""
+    state = init_slam(cfg, points[0], mask[0], init_pose)
+    outs = []
+    for t in range(1, points.shape[0]):
+        state, out = slam_step(state, points[t], mask[t], odom[t], cfg)
+        outs.append(out)
+    return state, stack_scan_outs(outs)
 
 
 def _window_frontend(state: SlamState, last_kf_reg, pts, msk, deltas,
@@ -456,7 +602,8 @@ def run_slam_windowed(points, mask, odom, cfg: PipelineConfig,
 def recover_trajectory(state: SlamState, outs: SlamStepOut, init_pose=None):
     """Per-scan trajectory ``[T, 3]``: each scan re-anchored on its
     keyframe's smoothed pose."""
-    anchors = state.graph.poses[outs.kf_idx]
+    anchors = state.graph.poses[torch.clamp(outs.kf_idx,
+                                            max=state.graph.capacity - 1)]
     poses = se2.compose(anchors, outs.rel)
     p0 = state.graph.poses[0] if init_pose is None else init_pose
     return torch.cat([p0[None].to(poses.dtype), poses], 0)

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's windowed pipeline, on the card.
+"""Where the time goes in the port's windowed and per-scan pipelines, on
+the card.
 
 Run from the root of a checkout, on a machine with one CUDA card::
 
     python3 profile_port.py [--config configs/config3_loop_closure.json]
                             [--seed 0] [--runs 3] [--out FILE.json]
+    python3 profile_port.py --scan [--config ...] [--seed 0] [--runs 3]
+                            [--out FILE.json]
     python3 profile_port.py --kernels [--seed 0] [--out FILE.json]
     python3 profile_port.py --layouts [--seed 0] [--out FILE.json]
     python3 profile_port.py --serving [--sessions 8] [--max-scans 300]
@@ -53,6 +56,9 @@ config-3 loop verify as the pipeline calls it). It uses only entry points
 that older checkouts of the port also have, so a copy of this script run
 from such a checkout's root times that checkout's kernels (a route it
 lacks reads null).
+
+``--scan`` runs only :func:`scan_profile`: the per-scan path
+(``run_slam``) on the same draw, and its input preparation (K11, K13).
 
 ``--layouts`` runs only :func:`layout_times` (event and card ms per call
 of K1, ``lm_ndt`` shared and grouped, the gated verify, K3, K4 and K8a in
@@ -855,6 +861,9 @@ def main(argv=None) -> int:
     parser.add_argument("--serving", action="store_true",
                         help="profile stacked serving (serving_profile) "
                         "and nothing else")
+    parser.add_argument("--scan", action="store_true",
+                        help="profile the per-scan path and its inputs "
+                        "(scan_profile) and nothing else")
     parser.add_argument("--sessions", type=int, default=8)
     parser.add_argument("--max-scans", type=int, default=300)
     args = parser.parse_args(argv)
@@ -887,6 +896,11 @@ def main(argv=None) -> int:
         result = dict(card=smi, layouts=layout_times(args.seed, dev))
         for key, row in result["layouts"].items():
             print(f"[profile] {key}: {row}")
+        return _emit(result, smi, args.out)
+    if args.scan:
+        kernels.build()
+        result = dict(card=smi, scan=scan_profile(dev, args.config,
+                                                  args.seed, args.runs))
         return _emit(result, smi, args.out)
     if args.serving:
         kernels.build()
@@ -979,6 +993,156 @@ def main(argv=None) -> int:
                   smoother_syncs=syncs, profiler=prof,
                   wall_after_profiler_s=wall_after, shadow=shadow)
     return _emit(result, smi, args.out)
+
+
+#: The per-scan path's stages, timed synchronized at their edges (nested
+#: stages are also inside their parents).
+SCAN_STAGES = (("ndtpu_torch.slam.pipeline", "_map_table", "K4 map table"),
+               ("ndtpu_torch.ndt.match", "match_batch_packed",
+                "registration"),
+               ("ndtpu_torch.slam.pipeline", "_keyframe_branch",
+                "keyframe branch"),
+               ("ndtpu_torch.loop.closure", "write_local_tables",
+                "K8a table"),
+               ("ndtpu_torch.loop.closure", "detect_loops_cached",
+                "loop detection"),
+               ("ndtpu_torch.graph.incremental", "incremental_update",
+                "smoother"),
+               ("ndtpu_torch.ndt.grid", "build_stats", "map rebuild"))
+
+
+def scan_profile(dev, config: str, seed: int, runs: int) -> dict:
+    """The per-scan path on box-world draw ``seed`` at ``config``: event ms
+    per call of its input preparation (K11 ``raycast`` at the CLI's
+    corridor run in f64, K13 ``voxel_downsample`` at 0.1 m on those scans)
+    and of its verifies (the per-query cached verify at the end-of-lap
+    query, the fresh-map verify); wall time of ``runs`` ``run_slam`` runs
+    after a warm-up; one run with every stage (:data:`SCAN_STAGES`)
+    synchronized at its edges; one run under ``set_sync_debug_mode("warn")``
+    (host syncs per scan and where); then, under ``torch.profiler``, the
+    card ms per call of K11, K13 and the verifies and one profiled run
+    (device busy share, device events per scan, the largest kernels)."""
+    import importlib
+    import warnings
+
+    import torch
+
+    from chip_smoke import (box_sequence, cli_inputs, k11_inputs, time_ms)
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.data import preprocess, synth
+    from ndtpu_torch.eval.ate import ate_rmse
+    from ndtpu_torch.loop import closure
+    from ndtpu_torch.slam import pipeline
+
+    cfg = PipelineConfig.from_json(config)
+    cfg3 = PipelineConfig.from_json(str(ROOT / "configs"
+                                        / "config3_loop_closure.json"))
+    world, poses, ang = k11_inputs("corridor", torch.float64, dev)
+    cli = cli_inputs(ROOT / "configs" / "config3_loop_closure.json", 600,
+                     dev)
+    seq = box_sequence(seed, cfg.n_beams, device=dev)
+    inputs = (seq.points, seq.mask, seq.odom)
+    n = seq.points.shape[0]
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, outs = pipeline.run_slam(*inputs, cfg)
+        traj = pipeline.recover_trajectory(state, outs)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, state, traj
+
+    run()
+    walls = []
+    for _ in range(runs):
+        wall, state, traj = run()
+        walls.append(wall)
+    ate = float(ate_rmse(traj.cpu(), seq.gt_poses.cpu()))
+    # The end-of-lap query of a config-3 per-scan run (its last scan).
+    st3, _ = pipeline.run_slam(*inputs, cfg3)
+    q = (st3.kf, seq.points[-1], seq.mask[-1], st3.pose, st3.kf.n)
+    calls = {
+        "raycast corridor f64": (lambda: synth.raycast(world, poses, ang,
+                                                       20.0), ["raycast"]),
+        "voxel_downsample 0.1 m": (lambda: preprocess.voxel_downsample(
+            cli.points, cli.mask, 0.1), ["voxel_downsample"]),
+        "verify K=1 C=16 (per query)": (lambda: closure.detect_loops_cached(
+            *q, cfg3.loop, cfg3.match), None),
+        "fresh verify C=16": (lambda: closure.detect_loops(
+            *q, cfg3.loop, cfg3.ndt, cfg3.match), None)}
+    kernels_out = {k: dict(ms=time_ms(fn)) for k, (fn, _) in calls.items()}
+
+    spent = defaultdict(float)
+    saved = []
+    for m, name, label in SCAN_STAGES:
+        mod = importlib.import_module(m)
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def timed(*a, _fn=fn, _label=label, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[_label] += time.perf_counter() - t0
+            return out
+        setattr(mod, name, timed)
+    try:
+        wall_p, state_p, _ = run()
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    keyframes = int(state_p.kf.n) - 1
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    where = defaultdict(int)
+    for w in syncs:
+        where[f"{Path(w.filename).name}:{w.lineno}"] += 1
+
+    for key, (fn, names) in calls.items():
+        kernels_out[key]["card_ms"] = card_ms(fn, names)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof, _, _ = run()
+    events, by_name, busy = device_events(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    out = dict(
+        config=Path(config).name, seed=seed, scans=n, wall_s=walls,
+        scans_per_s=[(n - 1) / w for w in walls], ate_m=ate,
+        keyframe_steps=keyframes, inputs_and_verifies=kernels_out,
+        phase_wall_s=wall_p, phase_s=dict(spent),
+        phase_share={k: v / wall_p for k, v in spent.items()},
+        host_syncs=len(syncs), host_syncs_per_scan=len(syncs) / (n - 1),
+        sync_sites=dict(sorted(where.items(), key=lambda kv: -kv[1])[:12]),
+        profiled_wall_s=wall_prof, device_events=len(events),
+        device_events_per_scan=len(events) / (n - 1),
+        device_busy_ms=busy / 1e3,
+        device_busy_share=busy / 1e6 / wall_prof,
+        top=[dict(name=k, count=c, ms=ms) for k, (c, ms) in top])
+    print(f"[profile] per-scan {out['config']} draw {seed}: "
+          + ", ".join(f"{(n - 1) / w:.1f}" for w in walls)
+          + f" scans/s, ATE {ate:.4f} m, {keyframes} keyframe steps")
+    print("[profile] stages (" + f"{wall_p:.4f} s): " + ", ".join(
+        f"{k} {v:.4f} s ({v / wall_p:.1%})" for k, v in spent.items()))
+    print(f"[profile] host syncs: {len(syncs)} ({len(syncs) / (n - 1):.2f} "
+          f"per scan); sites {out['sync_sites']}")
+    print(f"[profile] device: {len(events)} events "
+          f"({out['device_events_per_scan']:.1f} per scan), busy "
+          f"{busy / 1e3:.2f} ms of {wall_prof:.4f} s "
+          f"({out['device_busy_share']:.1%})")
+    for key, row in kernels_out.items():
+        print(f"[profile] {key}: {row}")
+    return out
 
 
 def _emit(result: dict, smi: str, out) -> int:

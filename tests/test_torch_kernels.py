@@ -11,8 +11,9 @@ step, and stacked serving's K6b pcg_solve_blocked, K3s halfcell_add_stacked
 and K4s finalize_pack_stacked, and config 5's K12 ndt_sgh_unpacked and
 K9c schur_local_assemble, also through a one-rank optimize_schur, and the
 slab map's K10a slab_accumulate, K10b finalize_cells and K10c slab_sgh,
-also through a one-rank match_slab) against their plain twins, on the
-card; K10a also against the plain model of its fixed-point arithmetic, bit
+also through a one-rank match_slab, and the inputs' K11 raycast and K13
+voxel_downsample, also through make_sequence and the CLI's scan mode)
+against their plain twins, on the card; K10a also against the plain model of its fixed-point arithmetic, bit
 for bit; K3 also against the plain model of its
 fixed-point arithmetic, bit for bit, K3, K4 and K8a for the same result on
 every launch (K3 and K8a also under any order of the points), and the
@@ -1248,3 +1249,65 @@ def test_layout_grouped_and_gated_verify(layout_inputs, layout):
     assert eq >= 0.95 * b
     cs.check_gated_verify(c3, li["seq"], kf, 0, li["dev"],
                           c3.loop.max_candidates)
+
+
+def test_raycast_matches_plain(dev):
+    """K11 in f64 (hits identical, within 1e-9 m) and f32 against its plain
+    version, at the CLI's corridor and serving's box-world poses
+    (``chip_smoke.check_k11``)."""
+    import chip_smoke as cs
+
+    row = cs.check_k11(dev)
+    assert row["max_abs_err"] <= cs.K11_F64_TOL
+    assert kernels.LAUNCHES["raycast"] > 0
+
+
+def test_voxel_downsample_matches_plain(dev):
+    """K13 bit-equal to its plain version on the CLI's 600 x 360 scans at
+    three voxel sizes (``chip_smoke.check_k13``)."""
+    import chip_smoke as cs
+
+    row = cs.check_k13(dev)
+    assert row["kept"]["0.5"] < row["kept"]["0.05"]
+
+
+def test_make_sequence_on_the_card_equals_the_cpu(dev):
+    """A box-world draw simulated on the card (K11 in f64) against the
+    CPU-made one: equal, or at most 10 elements one f32 ulp apart."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    card = cs.box_sequence(0, 360, device=dev)
+    assert kernels.LAUNCHES["raycast"] == 1
+    assert cs.card_vs_cpu("box draw 0", card, cs.box_sequence(0, 360)) <= 10
+
+
+def test_scan_cli_on_the_card(dev):
+    """``run --mode scan`` on config 3 (120 scans): one lm_ndt and one K4
+    per scan, one K8a and one gated verify per keyframe, no plain version
+    on CUDA tensors (``chip_smoke.run_scan_cli``)."""
+    import chip_smoke as cs
+
+    launches, out = cs.run_scan_cli(dev, cs.CONFIG3, 120)
+    assert launches["lm_ndt"] == 119 and out["keyframes"] > 1
+
+
+def test_scan_step_syncs_the_host_once_per_scan(dev):
+    """``slam_step`` on the card: one host sync per scan (the keyframe
+    test), at most two on a keyframe besides the smoother's
+    (``chip_smoke.check_scan_syncs``)."""
+    import chip_smoke as cs
+
+    row = cs.check_scan_syncs(dev, n_scans=120)
+    assert row["keyframes"] > 0
+
+
+def test_input_kernels_refuse_cpu_tensors():
+    poses = torch.zeros(2, 3, dtype=torch.float64)
+    ang = torch.zeros(4, dtype=torch.float64)
+    seg = torch.zeros(3, 2, 2, dtype=torch.float64)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        kernels.raycast(poses, ang, seg, 20.0, 1e-9)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        kernels.voxel_downsample(torch.zeros(2, 4, 2),
+                                 torch.ones(2, 4, dtype=torch.bool), 0.1)

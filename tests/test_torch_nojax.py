@@ -20,6 +20,10 @@ import ndtpu_torch.slam.pipeline, ndtpu_torch.utils.metrics
 import ndtpu_torch.loop, ndtpu_torch.loop.closure
 import ndtpu_torch.solve_g2o, ndtpu_torch.graph.supernodal
 import ndtpu_torch.data.g2o, ndtpu_torch.native
+import ndtpu_torch.data.carmen, ndtpu_torch.data.preprocess
+import ndtpu_torch.utils.checkpoint
+from ndtpu_torch.native import (amd_order, ndtpu_native_available,
+                                parse_carmen_native, rcm_order)
 import ndtpu_torch.slam.merge, ndtpu_torch.dist.schur, ndtpu_torch.dist.mesh
 import ndtpu_torch.dist.launch, ndtpu_torch.dist.gridmap
 import ndtpu_torch.dist.registration, ndtpu_torch.dist.slam_dp

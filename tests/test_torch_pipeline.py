@@ -314,16 +314,6 @@ def test_cli_runs_config3_on_cpu(tmp_path, capsys):
     assert out["n_loops"] > 0 and np.isfinite(out["traj"]).all()
 
 
-@pytest.mark.parametrize("extra", [["--dataset", "x.clf"], ["--mode", "scan"],
-                                   ["--checkpoint-dir", "ck"]])
-def test_cli_unported_options_raise(tmp_path, extra):
-    from ndtpu_torch import run
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run.main(["--config", str(_write_cfg(tmp_path)), "--device", "cpu",
-                  *extra])
-
-
 def test_cli_cuda_without_card_raises(tmp_path):
     from ndtpu_torch import run
 
