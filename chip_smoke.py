@@ -144,12 +144,29 @@ Phases (any failure exits non-zero, and no result line is printed):
     drop; then each session's gates against the JAX package's run of the
     same sessions (``tests/data/torch_serving8_box300_ref.json``,
     :func:`serving_gates`);
+10b. stacked serving in the other table layouts (:func:`run_serving_layouts`,
+    :data:`SERVING_LAYOUT_RUNS`): the serving config with only
+    ``grid.overlap`` and ``loop.local_overlap`` at 1, with
+    ``match.compact_table``, and with both, one invocation of
+    ``ndtpu_torch.serve.main`` each (8 x 300), counters reset just before
+    and read just after, every plain version refusing CUDA tensors: per
+    window the layout's front-end ``lm_ndt_grouped`` per pass, K3s and K4s
+    once per use, the gated verify; each session's median ATE over the
+    invocation's four runs gated by :func:`serving_gates`' rule against the
+    JAX package's run under the same flags
+    (``tests/data/torch_serving8_layouts_box300_ref.json``); the aggregate
+    scans/s printed beside phase 10's;
 11. K6b ``pcg_solve_blocked`` (against its plain version in f32 and f64,
     rtol 1e-4 per session, an idle session at 0), K3s
     ``halfcell_add_stacked`` at the window and refresh shapes and K4s
     ``finalize_pack_stacked`` (each bit-equal to 8 single K3 / K4
     launches), all bit-identical on a second launch, on the state the
     serving run left, each timed beside the single launches it replaces;
+    then in the other layouts (:func:`check_stacked_layouts`): K3s at
+    overlap 1 at the rebuild, window and refresh shapes (bit-equal to 8
+    single K3[g1] launches and to the fixed-point model), K4s in g1l8,
+    g4l4 and g1l4 (bit-equal as int32 to 8 single K4 launches of the
+    layout);
 12. config 5's merge in process (:func:`run_merge`), at
     ``configs/config5_multisession.json``: two corridor sessions
     (:func:`config5_sessions`) through ``run_slam_windowed``, then, with the
@@ -161,6 +178,16 @@ Phases (any failure exits non-zero, and no result line is printed):
     per ``pcg`` call), gated against the JAX package's run of the same pair
     (``tests/data/torch_config5_merge_ref.json``); K12 against its plain
     version at the alignment's two shapes;
+12b. config 5's merge at overlap 1 (:func:`run_merge` with
+    :data:`CONFIG5_OVERLAP1`): the same pair and merge on the config with
+    only ``grid.overlap`` and ``loop.local_overlap`` at 1, counters in the
+    layout (two ``ndt_sgh_unpacked[g1]`` over the 4,624 hypotheses and
+    the refinement, two ``lm_ndt[g1l8]``, one gated verify, one K3[g1]),
+    gated against the JAX package's overlap-1 merge
+    (``tests/data/torch_config5_overlap1_ref.json``): the alignment within
+    max(0.1 m / 0.02 rad, 2 x JAX f32's error), a loop wherever JAX closes
+    one, B's placement as phase 12's; K12[g1] against its plain versions
+    at the alignment's two shapes;
 13. the distributed solve (:func:`run_distributed`): ``python -m
     ndtpu_torch.dist.launch`` as two ranks on the card over gloo
     (``launch_local``), on phase 12's merged graph, gated on chi^2 and
@@ -187,6 +214,13 @@ Phases (any failure exits non-zero, and no result line is printed):
     map (K3) and f64 sums, the in-process ``lm_loop`` on K12 and
     ``match_batch``; then K10a, K10b and K10c against their plain versions
     at the ranks' shapes;
+15b. the slab map at overlap 1 (:func:`run_slab` with
+    :data:`CONFIG5_OVERLAP1`) on phase 12b's sessions and merged map: the
+    same builds, exchange, finalize and registrations in two ranks
+    (``slab_accumulate[g1]``, ``finalize_cells``, ``slab_sgh[g1]``), the
+    same gates against 12b's K3[g1] map, and K10a[g1], K10b and K10c[g1]
+    against their plain versions (K10a then at G = 4 on the same slab
+    shape: its kept scratch is keyed by the grid count);
 16. the per-scan path and the inputs (:func:`run_scan_phase`), every
     plain version (``pack_quad`` included) refusing CUDA tensors:
     ``ndtpu_torch.run.main --mode scan`` on config 2 (300 scans) and config
@@ -200,7 +234,9 @@ Phases (any failure exits non-zero, and no result line is printed):
     per-scan run (``tests/data/torch_scan_box300_ref.json``, a loop
     wherever JAX closes one); ``detect_loops`` (the fresh-map verify: one
     K3s, one K4s, one gated ``lm_ndt``) at the end-of-lap query of config
-    3's draw 0 against its plain route; the step's host syncs (one per
+    3's draw 0 against its plain route, in every table layout of its local
+    maps (``loop.local_overlap``, ``match.compact_table``), with the plain
+    route's time on the host's CPU; the step's host syncs (one per
     scan, at most two more on a keyframe besides the smoother's);
     ``--dataset`` in both modes at
     config 3 on a CARMEN log written from the CLI's corridor sequence (the
@@ -215,8 +251,12 @@ Phases (any failure exits non-zero, and no result line is printed):
     phases 4 and 7b; each layout variant, ``lm_ndt[g1l8]`` and the like, in the
     phase-7c runs of its layout; also ``lm_ndt_grouped``, K8a and the gated
     verify ``loop_gate_fused`` in phase 6; K3s, K4s, K5, K6b, K8a and the gated
-    verify in phase 10; ``lm_ndt``, K12, K3 and the gated verify in phase 12;
-    K9c and K5 in phase 13's ranks; K10a, K10b and K10c in phase 15's ranks;
+    verify in phase 10; each layout's K3s and K4s (``halfcell_add_stacked
+    [g1]``, ``finalize_pack_stacked[g4l4]``, ...), grouped ``lm_ndt``, K8a
+    and gated verify in its phase-10b run; ``lm_ndt``, K12, K3 and the gated
+    verify in phase 12, ``ndt_sgh_unpacked[g1]`` and K3[g1] in 12b;
+    K9c and K5 in phase 13's ranks; K10a, K10b and K10c in phase 15's ranks,
+    ``slab_accumulate[g1]``, K10b and ``slab_sgh[g1]`` in 15b's;
     K6g in phases 8b, 8c and 12; K11 in phases 4, 6, 10 and 16, K13 in
     phase 16), exactly one ``lm_ndt*`` launch per ``match_batch_packed``
     call (phases 4, 6 and 16), and in phase 6 one gated verify per
@@ -228,13 +268,15 @@ Phases (any failure exits non-zero, and no result line is printed):
     their twins in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches (phases
-4, 6, 7b, 7c, 8, 8b, 8c, 10 and 12-16 together), errors, times and bounds,
+4, 6, 7b, 7c, 8, 8b, 8c, 10, 10b, 12, 12b and 13-16, 15b together), errors,
+times and bounds,
 config 1's and the layout runs' results (``config1``, ``layouts``), the
 repeated runs' ATEs, the smoother's counts and bench.py §5's three 10k cells,
 config 4's runs (supernodal and PCG) and step timing, the serving run's
 aggregate scans/s and per-session results, and config 5's merge, distributed
-solve, SLAM rehearsal and slab map; the last line is ``{"ok": true,
-"device": {...}}``.
+solve, SLAM rehearsal and slab map (and the overlap-1 merge and slab
+map), and each phase's seconds (``phase_s``); the last line is ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -270,6 +312,20 @@ SERVING = ROOT / "configs" / "config_serving.json"
 SERVING_ARGS = ["--config", str(SERVING), "--sessions", "8", "--max-scans",
                 "300"]
 REF_SERVING_FILE = ROOT / "tests" / "data" / "torch_serving8_box300_ref.json"
+#: Stacked serving in the other table layouts (phase 10b): ``(name, the
+#: fields changed)`` on ``configs/config_serving.json``, and the JAX
+#: package's per-session results on the same 8 sessions under the same
+#: flags.
+SERVING_LAYOUT_RUNS = (
+    ("serving_overlap1", {"grid": {"overlap": 1},
+                          "loop": {"local_overlap": 1}}),
+    ("serving_compact", {"match": {"compact_table": True}}),
+    ("serving_overlap1_compact", {"grid": {"overlap": 1},
+                                  "loop": {"local_overlap": 1},
+                                  "match": {"compact_table": True}}),
+)
+REF_SERVING_LAYOUTS_FILE = (ROOT / "tests" / "data"
+                            / "torch_serving8_layouts_box300_ref.json")
 #: Config 1, the windowed odometry front end, and the JAX package's results
 #: on box-world draws 0-2 at its widths.
 CONFIG1 = ROOT / "configs" / "config1_odometry.json"
@@ -329,6 +385,12 @@ CONFIG5_PAIR = dict(outer=20.0, width=4.0, half=18.0, step=0.3, n_a=480,
                     n_b=300, shift=20, seeds=(0, 1), odom_trans_std=0.03,
                     odom_rot_std=0.008)
 REF5_FILE = ROOT / "tests" / "data" / "torch_config5_merge_ref.json"
+#: Config 5 at overlap 1 (phases 12b and 15b): the fields changed on
+#: ``configs/config5_multisession.json``, and the JAX package's overlap-1
+#: merge of the same pair.
+CONFIG5_OVERLAP1 = {"grid": {"overlap": 1}, "loop": {"local_overlap": 1}}
+REF5_OVERLAP1_FILE = (ROOT / "tests" / "data"
+                      / "torch_config5_overlap1_ref.json")
 
 _CSRC = "ndtpu_torch/kernels/csrc/"
 #: Every kernel, with the entry-point runs that must launch it (``paths``:
@@ -400,7 +462,8 @@ KERNELS = [
     dict(name="slab_accumulate", source=_CSRC + "slab_accum.cu",
          replaces="ndtpu/dist/gridmap.py:66", paths=("config5_slab",)),
     dict(name="finalize_cells", source=_CSRC + "finalize_cells.cu",
-         replaces="ndtpu/ndt/grid.py:232", paths=("config5_slab",)),
+         replaces="ndtpu/ndt/grid.py:232",
+         paths=("config5_slab", "config5_slab_overlap1")),
     dict(name="slab_sgh", source=_CSRC + "ndt_unpacked.cu",
          replaces="ndtpu/dist/gridmap.py:189", paths=("config5_slab",)),
     # K11: every synthetic sequence made on the card (the CLI's in both
@@ -415,7 +478,32 @@ KERNELS = [
     dict(name="halfcell_add[g1]", source=_CSRC + "halfcell_add.cu",
          replaces="ndtpu/ndt/grid.py:120",
          paths=("config2_overlap1", "config3_overlap1",
-                "config3_overlap1_compact")),
+                "config3_overlap1_compact", "config5_overlap1")),
+    # Stacked serving in the other layouts (phase 10b): K3s at overlap 1,
+    # K4s in the three other layouts.
+    dict(name="halfcell_add_stacked[g1]", source=_CSRC + "halfcell_add.cu",
+         replaces="ndtpu/dist/slam_dp.py:317",
+         paths=("serving_overlap1", "serving_overlap1_compact")),
+    dict(name="finalize_pack_stacked[g1l8]",
+         source=_CSRC + "finalize_pack.cu",
+         replaces="ndtpu/dist/slam_dp.py:300", paths=("serving_overlap1",)),
+    dict(name="finalize_pack_stacked[g4l4]",
+         source=_CSRC + "finalize_pack.cu",
+         replaces="ndtpu/dist/slam_dp.py:300", paths=("serving_compact",)),
+    dict(name="finalize_pack_stacked[g1l4]",
+         source=_CSRC + "finalize_pack.cu",
+         replaces="ndtpu/dist/slam_dp.py:300",
+         paths=("serving_overlap1_compact",)),
+    # Config 5 at overlap 1: K12 in the merge (phase 12b), K10a and K10c in
+    # the slab map's ranks (phase 15b).
+    dict(name="ndt_sgh_unpacked[g1]", source=_CSRC + "ndt_unpacked.cu",
+         replaces="ndtpu/ndt/match.py:108", paths=("config5_overlap1",)),
+    dict(name="slab_accumulate[g1]", source=_CSRC + "slab_accum.cu",
+         replaces="ndtpu/dist/gridmap.py:66",
+         paths=("config5_slab_overlap1",)),
+    dict(name="slab_sgh[g1]", source=_CSRC + "ndt_unpacked.cu",
+         replaces="ndtpu/dist/gridmap.py:189",
+         paths=("config5_slab_overlap1",)),
 ]
 
 
@@ -443,11 +531,12 @@ def _layout_variants(grids: int, lanes: int, map_runs, local_runs) -> list:
 
 
 KERNELS += (_layout_variants(1, 8, ("config2_overlap1", "config3_overlap1"),
-                             ("config3_overlap1",))
+                             ("config3_overlap1", "serving_overlap1"))
             + _layout_variants(4, 4, ("config3_compact",),
-                               ("config3_compact",))
+                               ("config3_compact", "serving_compact"))
             + _layout_variants(1, 4, ("config3_overlap1_compact",),
-                               ("config3_overlap1_compact",)))
+                               ("config3_overlap1_compact",
+                                "serving_overlap1_compact")))
 
 
 class SmokeFailure(RuntimeError):
@@ -878,15 +967,17 @@ def check_k3(cfg, seq, base, seed, dev, k, jobs=None):
     return row
 
 
-def k3_bound(m: int, grid) -> dict:
-    """K3's bound with unit weights: points (8 B) and mask (1 B) read, the
-    7 floats of (n, s, ss) per cell of each of the G grids read and
-    written; ~10 operations per point to bin and weigh it, 35 per (grid,
-    cell) to pool 7 moments (the overlap-4 pool; 7 at overlap 1) and add
-    them. The lattice scratch is not the function's."""
+def k3_bound(m: int, grid, maps: int = 1, per_point: bool = False) -> dict:
+    """K3's bound (K3s: ``maps`` maps of ``m`` points each): points (8 B)
+    and mask (1 B) read, with ``per_point`` weights 4 B more, the 7 floats
+    of (n, s, ss) per cell of each of the G grids read and written; ~10
+    operations per point to bin and weigh it, 35 per (grid, cell) to pool 7
+    moments (the overlap-4 pool; 7 at overlap 1) and add them. The lattice
+    scratch is not the function's."""
     c, g = grid.n_cells, grid.overlap
     per_cell = 35.0 if g == 4 else 7.0
-    return bound(m * 9 + 2 * 7 * 4 * g * c, 10.0 * m + per_cell * g * c)
+    return bound(maps * (m * (13 if per_point else 9) + 2 * 7 * 4 * g * c),
+                 maps * (10.0 * m + per_cell * g * c))
 
 
 def check_k3_rebuild(cfg3, kf, dev):
@@ -923,13 +1014,14 @@ def check_k3_rebuild(cfg3, kf, dev):
 def k4_bound(grid, compact: bool = False) -> dict:
     """K4's bound: (n, s, ss) read (7 floats per cell of each grid), the
     [R, G*L] table written; ~40 operations to finalize each of the G x C
-    cells."""
+    cells. The row also keeps the two counts (``bytes``, ``operations``)."""
     from ndtpu_torch import kernels
 
     c, g = grid.n_cells, grid.overlap
     wh, hh = kernels._lattice(grid)
     lanes = 4 if compact else 8
-    return bound(28 * g * c + wh * hh * g * lanes * 4, 40.0 * g * c)
+    n_bytes, ops = 28 * g * c + wh * hh * g * lanes * 4, 40.0 * g * c
+    return dict(bound(n_bytes, ops), bytes=n_bytes, operations=ops)
 
 
 def check_k4(label, ndt_cfg, grid, stats, jobs=None, compact: bool = False):
@@ -3519,7 +3611,7 @@ def layout_json(config, changes: dict) -> dict:
     ``changes`` (``{section: {field: value}}``) set."""
     doc = json.loads(Path(config).read_text())
     for section, fields in changes.items():
-        doc[section].update(fields)
+        doc.setdefault(section, {}).update(fields)
     return doc
 
 
@@ -3680,30 +3772,41 @@ def check_padded_sessions(dev):
     return dev_m
 
 
-def run_serving(dev, card):
-    """Stacked serving through its entry point, twice: ``ndtpu_torch.serve
-    .main`` with ``SERVING_ARGS`` (8 sessions x 300 scans of
-    ``configs/config_serving.json``, 360 beams, capacity 160), every launch
-    counter reset just before the first invocation and read just after it,
-    with no plain twin reachable on CUDA tensors. Each invocation is one
-    first run and 3 timed runs. Requires, per stacked window: one
-    ``lm_ndt_grouped`` launch per front-end pass for all 8 sessions (the
-    gated verifies, one per session per window, apart), one K3s launch per
-    use (pass-2 maps, extend, and refresh where one fires) and two K4s,
-    never a per-map K3 or K4 (K3 runs only in each session's
+def run_serving(dev, card, config=SERVING, label="serving",
+                twice: bool = True):
+    """Stacked serving through its entry point: ``ndtpu_torch.serve.main``
+    with ``SERVING_ARGS`` (8 sessions x 300 scans of ``config``,
+    ``configs/config_serving.json`` or a table layout of it; 360 beams,
+    capacity 160), every launch counter reset just before the first
+    invocation and read just after it, with no plain twin reachable on CUDA
+    tensors. Each invocation is one first run and 3 timed runs. Requires,
+    per stacked window, in the config's table layout (``kernels.variant``'s
+    counters): one ``lm_ndt_grouped`` launch per front-end pass for all 8
+    sessions (the gated verifies, one per session per window, apart), one
+    K3s launch per use (pass-2 maps, extend, and refresh where one fires)
+    and two K4s, never a per-map K3 or K4 (K3 runs only in each session's
     ``init_slam``); at most ``inc_iters`` K6b launches (exactly that per
-    smoother call) and no K6; no drop; the two invocations' trajectories
-    and final states bit-equal. Returns ``(launches, summary, state)``, the
-    state of the last run."""
-    import dataclasses
-
+    smoother call) and no K6; no drop; with ``twice``, a second invocation
+    whose trajectories and final states are bit-equal to the first's.
+    Returns ``(launches, summary, state)``, the state of the last run; the
+    summary also holds ``run_ate_m``, each session's ATE in each of the
+    first invocation's runs (the last one's is the CLI's own)."""
     import torch
 
     from ndtpu_torch import kernels, serve
     from ndtpu_torch.config import PipelineConfig
     from ndtpu_torch.dist import slam_dp
 
-    cfg = slam_dp.serving_config(PipelineConfig.from_json(str(SERVING)))
+    cfg = slam_dp.serving_config(PipelineConfig.from_json(str(config)))
+    args = ["--config", str(config)] + SERVING_ARGS[2:]
+    g = cfg.grid.overlap
+    gl = (g, 4 if cfg.match.compact_table else 8)
+    local = (cfg.loop.local_overlap, gl[1])
+    k3s = kernels.variant("halfcell_add_stacked", g)
+    k4s = kernels.variant("finalize_pack_stacked", *gl)
+    front = kernels.variant("lm_ndt_grouped", *gl)
+    gated = kernels.variant("loop_gate_fused", *local)
+    grouped_verify = kernels.variant("lm_ndt_grouped", *local)
     counts = dict(windows=0, refreshes=0, smooths=0, runs=0)
     finals = []
     saved = [(name, getattr(slam_dp, name)) for name in
@@ -3725,10 +3828,10 @@ def run_serving(dev, card):
     try:
         with no_plain_on_card(PLAIN_SERVING):
             kernels.reset_launches()
-            res = serve.main(SERVING_ARGS)
+            res = serve.main(args)
             launches = dict(kernels.LAUNCHES)
             first = dict(counts)
-            res2 = serve.main(SERVING_ARGS)
+            res2 = serve.main(args) if twice else None
     finally:
         for name, fn in saved:
             setattr(slam_dp, name, fn)
@@ -3736,75 +3839,99 @@ def run_serving(dev, card):
     n_s, runs, w = res["sessions"], first["runs"], first["windows"]
     passes = cfg.window_passes
     require(res["device"] == torch.cuda.get_device_name(0),
-            f"serving ran on {res['device']}")
+            f"{label} ran on {res['device']}")
     n_scans = int(SERVING_ARGS[SERVING_ARGS.index("--max-scans") + 1])
     require(runs == 4 and w == runs * -(-(n_scans - 1) // cfg.window),
-            f"serving: {runs} runs of {w} windows in all")
-    verify = launches["loop_gate_fused"]
-    require(launches["lm_ndt_grouped"] - verify == passes * w
-            and launches["lm_ndt"] == 0,
-            f"serving: {launches['lm_ndt_grouped'] - verify} front-end "
-            f"lm_ndt_grouped launches for {w} windows x {passes} passes (one "
-            f"each for all {n_s} sessions expected) and "
-            f"{launches['lm_ndt']} shared-table launches")
-    require(launches["halfcell_add_stacked"]
-            == (passes - 1) * w + w + first["refreshes"]
-            and launches["halfcell_add"] == n_s * runs,
-            f"serving: {launches['halfcell_add_stacked']} K3s launches for "
-            f"{w} windows and {first['refreshes']} refreshes, "
-            f"{launches['halfcell_add']} per-map K3 launches ({n_s} per run "
-            f"expected, in init_slam)")
-    require(launches["finalize_pack_stacked"] == passes * w
-            and launches["finalize_pack"] == 0,
-            f"serving: {launches['finalize_pack_stacked']} K4s and "
-            f"{launches['finalize_pack']} K4 launches for {w} windows")
+            f"{label}: {runs} runs of {w} windows in all")
+    verify = launches[gated]
+    require(verify > 0 and launches[grouped_verify] >= verify,
+            f"{label}: {verify} gated verifies ({gated})")
+    front_n = launches[front] - (verify if front == grouped_verify else 0)
+    require(front_n == passes * w
+            and launches[kernels.variant("lm_ndt", *gl)] == 0,
+            f"{label}: {front_n} front-end {front} launches for {w} windows "
+            f"x {passes} passes (one each for all {n_s} sessions expected) "
+            f"and {launches[kernels.variant('lm_ndt', *gl)]} shared-table "
+            f"launches")
+    k3 = kernels.variant("halfcell_add", g)
+    require(launches[k3s] == (passes - 1) * w + w + first["refreshes"]
+            and launches[k3] == n_s * runs,
+            f"{label}: {launches[k3s]} {k3s} launches for {w} windows and "
+            f"{first['refreshes']} refreshes, {launches[k3]} per-map {k3} "
+            f"launches ({n_s} per run expected, in init_slam)")
+    k4 = kernels.variant("finalize_pack", *gl)
+    require(launches[k4s] == passes * w and launches[k4] == 0,
+            f"{label}: {launches[k4s]} {k4s} and {launches[k4]} {k4} "
+            f"launches for {w} windows")
     k6b = launches["pcg_solve_blocked"]
     require(k6b == cfg.solver.inc_iters * first["smooths"] > 0
             and k6b <= cfg.solver.inc_iters * w
             and launches["pcg_solve"] == 0,
-            f"serving: {k6b} K6b launches for {first['smooths']} smoother "
+            f"{label}: {k6b} K6b launches for {first['smooths']} smoother "
             f"calls in {w} windows (inc_iters {cfg.solver.inc_iters}), "
             f"{launches['pcg_solve']} K6 launches")
     dropped = sum(r["dropped"] for r in res["per_session"])
-    require(dropped == 0, f"serving: {dropped} keyframes/factors dropped")
-    st1, st2 = finals[runs - 1][0], finals[-1][0]
-    require(bits_equal(torch.as_tensor(res["traj"]),
-                       torch.as_tensor(res2["traj"]))
-            and bits_equal(st1.graph.poses, st2.graph.poses)
-            and bits_equal(tuple(st1.stats), tuple(st2.stats)),
-            "serving: two invocations differ")
+    require(dropped == 0, f"{label}: {dropped} keyframes/factors dropped")
+    from ndtpu_torch.eval.ate import ate_rmse
+
+    seqs = serve.synthetic_sessions(cfg, n_s, n_scans, device=dev)
+    res["run_ate_m"] = [
+        [float(ate_rmse(traj[k], seqs[k].gt_poses.to(traj)))
+         for k in range(n_s)]
+        for traj in (serve.trajectories(*fin).cpu() for fin in finals[:runs])]
+    require(res["run_ate_m"][-1] == [r["ate_m"] for r in res["per_session"]],
+            f"{label}: the last run's ATE differs from the CLI's")
+    st2 = finals[-1][0]
+    if twice:
+        st1 = finals[runs - 1][0]
+        require(bits_equal(torch.as_tensor(res["traj"]),
+                           torch.as_tensor(res2["traj"]))
+                and bits_equal(st1.graph.poses, st2.graph.poses)
+                and bits_equal(tuple(st1.stats), tuple(st2.stats)),
+                f"{label}: two invocations differ")
     per_w = {k: v / w for k, v in launches.items() if v}
-    print(f"[smoke] serving entry point (serve {' '.join(SERVING_ARGS[2:])}, "
+    print(f"[smoke] {label} entry point (serve {' '.join(args[1:])}, "
           f"{card}): aggregate_scans_per_s {res['aggregate_scans_per_s']:.1f}"
           f" (median of {len(res['run_s'])} runs "
           f"{', '.join(f'{t:.4f}' for t in res['run_s'])} s; first run "
           f"{res['first_run_s']:.3f} s), capacity {res['capacity']}, "
           f"{w // runs} windows per run, {first['smooths']} smoother calls "
-          f"and {first['refreshes']} refreshes in {runs} runs; bit-equal "
-          f"across two invocations; launches per window "
+          f"and {first['refreshes']} refreshes in {runs} runs"
+          + ("; bit-equal across two invocations" if twice else "")
+          + "; launches per window "
           + ", ".join(f"{k} {v:.2f}" for k, v in per_w.items()))
     return launches, res, st2
 
 
-def serving_gates(res):
+def serving_gates(res, ref=None, label="serving", median_of_runs=False):
     """Per-session gates against the JAX package's run of the same 8
-    sessions (``tests/data/torch_serving8_box300_ref.json``): ATE <=
+    sessions (``ref``, its sessions' records; by default those of
+    ``tests/data/torch_serving8_box300_ref.json``); with
+    ``median_of_runs``, each session's ATE is the median over the
+    invocation's runs (``res["run_ate_m"]``: the first run and the three
+    on inputs moved by 1e-6 m offsets), not the last run's alone: ATE <=
     max(0.15 m, 2 x JAX's f32 ATE of that session); ATE below 0.75 x the
     session's dead reckoning wherever JAX's f32 run is (session 4 of this
     workload drifts to ~6.6 m in JAX, at f32 and f64: the gate cannot hold
     there for a faithful port, so it is reported, not applied); a loop
     wherever JAX closes one. Prints every session's ATE, loops and the JAX
     f32 and f64 ATEs beside it (f32 basins, ROADMAP C-w1b)."""
-    ref = json.loads(REF_SERVING_FILE.read_text())["sessions"]
+    if ref is None:
+        ref = json.loads(REF_SERVING_FILE.read_text())["sessions"]
     require(len(ref) == len(res["per_session"]),
-            "serving gates: session counts differ")
+            f"{label} gates: session counts differ")
     rows = []
     for rec, r in zip(res["per_session"], ref):
         k, ate, loops = rec["session"], rec["ate_m"], rec["loops"]
+        runs = [a[k] for a in res["run_ate_m"]] if median_of_runs else [ate]
+        ate = statistics.median(runs)
         j32, j64, dr = r["jax_f32"], r["jax_f64"], r["dead_reckoning_ate_m"]
         limit = max(0.15, 2.0 * j32["ate_m"])
         dr_gate = j32["ate_m"] < 0.75 * dr
-        print(f"[smoke] serving session {k}: ATE {ate:.4f} m (limit "
+        print(f"[smoke] {label} session {k}: ATE {ate:.4f} m"
+              + (f" (median of runs "
+                 f"{', '.join(f'{a:.4f}' for a in runs)})"
+                 if median_of_runs else "") + " (limit "
               f"{limit:.4f}; JAX f32 {j32['ate_m']:.4f}, f64 "
               f"{j64['ate_m']:.4f}), dead reckoning {dr:.4f} m ("
               + ("gate 0.75 x" if dr_gate else
@@ -3812,18 +3939,56 @@ def serving_gates(res):
               + f"), loops {loops} (JAX f32 {j32['loops']}, f64 "
               f"{j64['loops']}), keyframes {rec['keyframes']} (JAX f32 "
               f"{j32['keyframes']})")
-        require(ate <= limit, f"serving session {k}: ATE {ate:.4f} m over "
+        require(ate <= limit, f"{label} session {k}: ATE {ate:.4f} m over "
                 f"{limit:.4f}")
         require(not dr_gate or ate < 0.75 * dr,
-                f"serving session {k}: ATE {ate:.4f} m not below 0.75 x "
+                f"{label} session {k}: ATE {ate:.4f} m not below 0.75 x "
                 f"dead reckoning {dr:.4f} m")
         require(loops > 0 or j32["loops"] == 0,
-                f"serving session {k}: no loop where JAX closed "
+                f"{label} session {k}: no loop where JAX closed "
                 f"{j32['loops']}")
         rows.append(dict(session=k, ate_m=ate, loops=loops,
+                         **({"run_ate_m": runs} if median_of_runs else {}),
                          jax_f32_ate_m=j32["ate_m"],
                          jax_f64_ate_m=j64["ate_m"], dr_gated=dr_gate))
     return rows
+
+
+def run_serving_layouts(dev, card):
+    """Phase 10b: stacked serving in the other table layouts through its
+    entry point (:data:`SERVING_LAYOUT_RUNS`: ``configs/config_serving.json``
+    with only the named fields changed, written to a temporary JSON), one
+    invocation each (:func:`run_serving` with ``twice=False``: the layout's
+    K3s, K4s, front-end ``lm_ndt_grouped`` and gated verify counted per
+    window, no plain version on CUDA tensors, no drop), then each session
+    against the JAX package's run of the same sessions under the same flags
+    (``tests/data/torch_serving8_layouts_box300_ref.json``) by
+    :func:`serving_gates`' rule on the median of the invocation's four
+    runs: at overlap 1 sessions 4 and 7 are bistable in f32 (a run on
+    inputs moved by a 1e-6-scale offset can end metres off while the
+    card's window steps agree with the plain f32 steps from the same
+    states, ``profile_port.py --serving-steps``; ROADMAP C-w1b), so one
+    run's ATE is a draw from two basins. Returns ``(launches by run,
+    results by run)``."""
+    ref = json.loads(REF_SERVING_LAYOUTS_FILE.read_text())["runs"]
+    launches_by, out = {}, {}
+    with tempfile.TemporaryDirectory(prefix="ndtpu_serving_") as tmp:
+        for name, changes in SERVING_LAYOUT_RUNS:
+            t0 = time.perf_counter()
+            path = Path(tmp) / f"{name}.json"
+            path.write_text(json.dumps(layout_json(SERVING, changes)))
+            launches, res, _ = run_serving(dev, card, path, name,
+                                           twice=False)
+            launches_by[name] = launches
+            out[name] = dict(
+                changes=changes,
+                aggregate_scans_per_s=res["aggregate_scans_per_s"],
+                run_s=res["run_s"], first_run_s=res["first_run_s"],
+                sessions=serving_gates(res, ref[name]["sessions"], name,
+                                       median_of_runs=True),
+                launches=launches_nonzero(launches),
+                phase_s=time.perf_counter() - t0)
+    return launches_by, out
 
 
 def _moved_graph8(graph8, seed: int):
@@ -3941,8 +4106,10 @@ def check_k6b(state8, cfg, seed: int, jobs=None):
 
 
 def _k3s_case(label, stats8, pts, msk, wt, grid, jobs):
-    """One K3s shape: bit-equal to S single K3 launches and on a second
-    launch; event, card, single-launch and plain times; the bound."""
+    """One K3s shape, at the grid's overlap: bit-equal to S single K3
+    launches, to the plain model of its fixed-point arithmetic per map
+    (``halfcell_add_fixed_ref``) and on a second launch; event, card,
+    single-launch and plain times; the bound."""
     import torch
 
     from ndtpu_torch import kernels
@@ -3950,6 +4117,7 @@ def _k3s_case(label, stats8, pts, msk, wt, grid, jobs):
     from ndtpu_torch.ndt import grid as ndt_grid
 
     s, m = msk.shape
+    name = kernels.variant("K3s halfcell_add_stacked", grid.overlap)
     per_point = isinstance(wt, torch.Tensor)
     run = lambda: kernels.halfcell_add_stacked(stats8.n, stats8.s, stats8.ss,
                                                pts, msk, wt, grid)
@@ -3961,29 +4129,34 @@ def _k3s_case(label, stats8, pts, msk, wt, grid, jobs):
 
     out, again = run(), run()
     ones = tuple(torch.stack(f) for f in zip(*single()))
+    model = tuple(torch.stack(f) for f in zip(*(
+        ndt_grid.halfcell_add_fixed_ref(_take(stats8, i), pts[i], msk[i],
+                                        wt[i] if per_point else wt, grid)
+        for i in range(s))))
     torch.cuda.synchronize()
-    require(bits_equal(out, again), f"K3s {label}: two launches differ")
+    require(bits_equal(out, again), f"{name} {label}: two launches differ")
     require(bits_equal(out, ones),
-            f"K3s {label}: not bit-equal to {s} single K3 launches")
+            f"{name} {label}: not bit-equal to {s} single K3 launches")
+    require(bits_equal(out, model),
+            f"{name} {label}: not bit-equal to the fixed-point model")
     ms = time_ms(run)
     plain = time_ms(lambda: ndt_grid.halfcell_add_stacked_ref(
         stats8, pts, msk, wt, grid))
     single_ms = time_ms(single)
     one = k3_bound(m, grid)
-    bd = bound(s * (m * 9 + 2 * 28 * 4 * grid.n_cells
-                    + (4 * m if per_point else 0)),
-               s * (10.0 * m + 140.0 * grid.n_cells))
-    print(f"[smoke] K3s halfcell_add_stacked {label} S={s} x M={m}: "
-          f"bit-equal to {s} single K3 launches and on a second launch; "
+    bd = k3_bound(m, grid, maps=s, per_point=per_point)
+    print(f"[smoke] {name} {label} S={s} x M={m}: bit-equal to {s} single "
+          f"K3 launches, to the fixed-point model and on a second launch; "
           f"kernel {ms:.4f} ms, {s} single K3 {single_ms:.4f} ms, plain "
           f"{plain:.4f} ms, bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}; "
           f"one map's {one['bound_ms']:.6f})")
     row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                single_launches_ms=single_ms, m=m, **bd)
-    card_time(jobs, f"K3s halfcell_add_stacked {label}", row, "card_ms", run,
-              ["halfcell", "Memset"])
-    card_time(jobs, f"{s} single K3 {label}", row, "single_launches_card_ms",
-              single, ["halfcell", "Memset"])
+    card_time(jobs, f"{name} {label}", row, "card_ms", run,
+              ["halfcell", "cell_moments", "Memset"])
+    card_time(jobs, f"{s} single K3 {label} (G={grid.overlap})", row,
+              "single_launches_card_ms", single,
+              ["halfcell", "cell_moments", "Memset"])
     return row
 
 
@@ -4021,55 +4194,103 @@ def check_k3s(state8, cfg, jobs=None):
     return row
 
 
-def check_k4s(state8, cfg, jobs=None):
-    """K4s on the serving run's 8 maps (57 x 57 lattice, 3,249 rows each):
-    bit-equal to 8 single K4 launches and on a second launch; valid flags
-    exact and the rest within K4's rtol 1e-5 of the plain twin; timed
-    beside the single launches and the twin."""
+def check_k4s(state8, cfg, jobs=None, stats8=None, grid=None,
+              compact: bool = False):
+    """K4s on 8 maps (the serving run's, 57 x 57 lattice, 3,249 rows each;
+    or ``stats8`` on ``grid``) in the layout (``grid.overlap``,
+    ``compact``): bit-equal to 8 single K4 launches of the layout (compact
+    lanes compared as int32) and on a second launch; valid flags exact
+    (compact bf16-pair lanes bit-equal) and the rest within K4's rtol 1e-5
+    of the plain twin; timed beside the single launches and the twin."""
     import torch
 
     from ndtpu_torch import kernels
     from ndtpu_torch.dist.slam_dp import _take
     from ndtpu_torch.ndt import grid as ndt_grid
 
-    grid, stats8 = cfg.grid, state8.stats
+    grid = grid or cfg.grid
+    stats8 = state8.stats if stats8 is None else stats8
+    layout = kernels._layout(grid, compact)
+    name = kernels.variant("K4s finalize_pack_stacked", *layout)
     s = stats8.n.shape[0]
     run = lambda: kernels.finalize_pack_stacked(stats8.n, stats8.s,
-                                                stats8.ss, cfg.ndt, grid)
+                                                stats8.ss, cfg.ndt, grid,
+                                                compact)
 
     def single():
-        return [kernels.finalize_pack(*_take(stats8, i), cfg.ndt, grid)
-                for i in range(s)]
+        return [kernels.finalize_pack(*_take(stats8, i), cfg.ndt, grid,
+                                      compact) for i in range(s)]
 
     out, again = run(), run()
     ones = torch.stack(single())
-    ref = ndt_grid.finalize_pack_stacked_ref(stats8, cfg.ndt, grid)
+    ref = ndt_grid.finalize_pack_stacked_ref(stats8, cfg.ndt, grid, compact)
     torch.cuda.synchronize()
-    require(bits_equal(out, again), "K4s: two launches differ")
-    require(bits_equal(out, ones), f"K4s: not bit-equal to {s} single K4 "
-            f"launches")
-    err = max(_table_check(f"K4s map {i}", out[i], ref[i]) for i in range(s))
+    as_int = lambda t: t.view(torch.int32)
+    require(bits_equal(as_int(out), as_int(again)),
+            f"{name}: two launches differ")
+    require(bits_equal(as_int(out), as_int(ones)),
+            f"{name}: not bit-equal to {s} single K4 launches (int32)")
+    err = max(_table_check(f"{name} map {i}", out[i], ref[i], layout)
+              for i in range(s))
     ms = time_ms(run)
     plain = time_ms(lambda: ndt_grid.finalize_pack_stacked_ref(
-        stats8, cfg.ndt, grid))
+        stats8, cfg.ndt, grid, compact))
     single_ms = time_ms(single)
-    one = k4_bound(grid)
-    rows = (2 * grid.nx + 1) * (2 * grid.ny + 1)
-    bd = bound(s * (28 * 4 * grid.n_cells + rows * 128),
-               s * 160.0 * grid.n_cells)
-    print(f"[smoke] K4s finalize_pack_stacked S={s} x R={rows}: bit-equal to "
-          f"{s} single K4 launches and on a second launch, vs the twin max "
-          f"abs err {err:.3e} (valid exact, rtol 1e-5); kernel {ms:.4f} ms, "
-          f"{s} single K4 {single_ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}; one map's "
-          f"{one['bound_ms']:.6f})")
+    one = k4_bound(grid, compact)
+    rows = out.shape[1]
+    bd = bound(s * one["bytes"], s * one["operations"])
+    print(f"[smoke] {name} S={s} x R={rows} x {out.shape[2]} lanes: "
+          f"bit-equal (int32) to {s} single K4 launches and on a second "
+          f"launch, vs the twin max abs err {err:.3e} (valid exact"
+          f"{', bf16-pair lanes bit-equal' if compact else ''}, rtol 1e-5); "
+          f"kernel {ms:.4f} ms, {s} single K4 {single_ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {bd['bound_ms']:.6f} ms ({bd['bound_by']}; "
+          f"one map's {one['bound_ms']:.6f})")
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                single_launches_ms=single_ms, **bd)
-    card_time(jobs, "K4s finalize_pack_stacked", row, "card_ms", run,
-              ["finalize_pack_kernel"])
-    card_time(jobs, f"{s} single K4", row, "single_launches_card_ms", single,
-              ["finalize_pack_kernel"])
+    card_time(jobs, name, row, "card_ms", run, ["finalize_pack"])
+    card_time(jobs, f"{s} single K4 ({name})", row,
+              "single_launches_card_ms", single, ["finalize_pack"])
     return row
+
+
+def check_stacked_layouts(state8, cfg, jobs=None):
+    """K3s and K4s in the other table layouts, on the serving run's 8
+    sessions (phase 11): each session's live keyframe points put onto an
+    empty overlap-1 map by K3s[g1] (the rebuild shape; bit-equal to 8
+    single K3[g1] launches and to the fixed-point model), then K3s[g1] at
+    the window and refresh shapes on those maps (:func:`check_k3s`), and
+    K4s in g1l8 and g1l4 on them and in g4l4 on the run's own overlap-4
+    maps (:func:`check_k4s`). Returns the rows by counter name."""
+    import dataclasses
+
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.lie import se2
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    kf = state8.kf
+    s = kf.poses.shape[0]
+    g1 = dataclasses.replace(cfg.grid, overlap=1)
+    empty = ndt_grid.NDTStats(*(x.expand((s,) + x.shape).contiguous() for x in
+                                ndt_grid.empty_stats(g1, torch.float32,
+                                                     kf.poses.device)))
+    world = se2.transform(kf.poses, kf.points).reshape(s, -1, 2)
+    live = (kf.masks & kf.live[..., None]).reshape(s, -1)
+    rows = {}
+    k3s = kernels.variant("halfcell_add_stacked", 1)
+    rebuild = _k3s_case("rebuild", empty, world.contiguous(),
+                        live.contiguous(), 1.0, g1, jobs)
+    stats1 = ndt_grid.halfcell_add_stacked(empty, world, live, 1.0, g1)
+    cfg1 = dataclasses.replace(cfg, grid=g1)
+    rows[k3s] = check_k3s(state8._replace(stats=stats1), cfg1, jobs)
+    rows[k3s]["rebuild"] = rebuild
+    for g, lanes in kernels.LAYOUTS[1:]:
+        grid, st = (g1, stats1) if g == 1 else (cfg.grid, state8.stats)
+        rows[kernels.variant("finalize_pack_stacked", g, lanes)] = check_k4s(
+            state8, cfg, jobs, stats8=st, grid=grid, compact=lanes == 4)
+    return rows
 
 
 
@@ -4456,18 +4677,28 @@ def check_scan_syncs(dev, config=CONFIG3, seed: int = 0,
     return row
 
 
-def check_fresh_detect(state, seq, cfg3, dev):
+def check_fresh_detect(state, seq, cfg3, dev, layout=(4, 8)):
     """``detect_loops`` (the fresh-map verify) at the end-of-lap query of a
     per-scan run (its last scan at its pose, against the run's keyframes)
-    on the card: one K3s, one K4s and one gated ``lm_ndt`` launch, against
-    its plain route on the CPU copies (f32): the same candidates, the same
-    accept flags but on lanes within 1e-3 of the score gate, accepted
-    measurements within 1e-3. Returns the row."""
+    on the card, its local maps in the table ``layout`` (``(G, L)``: the
+    config with ``loop.local_overlap = G`` and ``match.compact_table`` at
+    L = 4): one K3s, one K4s and one gated ``lm_ndt`` launch of the layout,
+    against its plain route on the CPU copies (f32): the same candidates,
+    the same accept flags but on lanes within 1e-3 of the score gate,
+    accepted measurements within 1e-3. Returns the row."""
+    import dataclasses
+
     import torch
 
     from ndtpu_torch import kernels
     from ndtpu_torch.loop import closure
 
+    g, lanes = layout
+    cfg3 = dataclasses.replace(
+        cfg3, loop=dataclasses.replace(cfg3.loop, local_overlap=g),
+        match=dataclasses.replace(cfg3.match, compact_table=lanes == 4))
+    tag = "fresh detect_loops" + ("" if layout == (4, 8)
+                                  else f" [g{g}l{lanes}]")
     kf = state.kf
     q = (kf, seq.points[-1], seq.mask[-1], state.pose, kf.n)
     run = lambda: closure.detect_loops(*q, cfg3.loop, cfg3.ndt, cfg3.match)
@@ -4478,30 +4709,39 @@ def check_fresh_detect(state, seq, cfg3, dev):
     kf_cpu = type(kf)(*(None if t is None else t.cpu() for t in kf))
     ref = closure.detect_loops(kf_cpu, *(t.cpu() for t in q[1:]), cfg3.loop,
                                cfg3.ndt, cfg3.match)
-    require(launches["halfcell_add_stacked"] == 1
-            and launches["finalize_pack_stacked"] == 1
-            and launches["loop_gate_fused"] == 1,
-            f"fresh detect_loops: launches {launches_nonzero(launches)} (one "
-            f"K3s, one K4s, one gated lm_ndt expected)")
-    require(torch.equal(out.j.cpu(), ref.j), "fresh detect_loops: "
-            "candidates differ from the plain route's")
+    require(launches[kernels.variant("halfcell_add_stacked", g)] == 1
+            and launches[kernels.variant("finalize_pack_stacked", g,
+                                         lanes)] == 1
+            and launches[kernels.variant("loop_gate_fused", g, lanes)] == 1,
+            f"{tag}: launches {launches_nonzero(launches)} (one K3s, one "
+            f"K4s, one gated lm_ndt of the layout expected)")
+    require(torch.equal(out.j.cpu(), ref.j), f"{tag}: candidates differ "
+            f"from the plain route's")
     near = (ref.score - cfg3.loop.score_gate).abs() < 1e-3
     flags = (out.accept.cpu() != ref.accept) & ~near
     require(not bool(flags.any()) and bool(ref.accept.any()),
-            f"fresh detect_loops: accept flags {out.accept.tolist()} vs the "
-            f"plain route's {ref.accept.tolist()}")
+            f"{tag}: accept flags {out.accept.tolist()} vs the plain "
+            f"route's {ref.accept.tolist()}")
     both = out.accept.cpu() & ref.accept
     err = float((out.z.cpu() - ref.z)[both].abs().amax()) if both.any() \
         else 0.0
-    require(err <= 1e-3, f"fresh detect_loops: accepted measurements off by "
-            f"{err:.3e}")
+    require(err <= 1e-3, f"{tag}: accepted measurements off by {err:.3e}")
     ms = time_ms(run)
-    print(f"[smoke] fresh detect_loops (end-of-lap query, "
+    plain_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        closure.detect_loops(kf_cpu, *(t.cpu() for t in q[1:]), cfg3.loop,
+                             cfg3.ndt, cfg3.match)
+        plain_s.append(time.perf_counter() - t0)
+    plain_ms = 1e3 * statistics.median(plain_s)
+    print(f"[smoke] {tag} (end-of-lap query, "
           f"{int(kf.n)} keyframes, C={cfg3.loop.max_candidates}): "
           f"{int(ref.accept.sum())} accepted as the plain route, accepted "
           f"measurements within {err:.3e}; one K3s, one K4s, one gated "
-          f"lm_ndt; {ms:.4f} ms per call (events)")
-    return dict(accepted=int(ref.accept.sum()), max_abs_err=err, ms=ms)
+          f"lm_ndt; {ms:.4f} ms per call (events), the plain route on the "
+          f"host's CPU {plain_ms:.4f} ms (median of 5)")
+    return dict(accepted=int(ref.accept.sum()), max_abs_err=err, ms=ms,
+                plain_ms=plain_ms)
 
 
 def run_dataset_phase(dev, tmp: Path):
@@ -4646,7 +4886,9 @@ def run_resume(dev, tmp: Path, n_scans: int = CORRIDOR_SCANS,
 
 def run_scan_phase(dev, jobs):
     """Phase 16: the per-scan path and the inputs through their entry
-    points. Returns ``(paths' launches, summary)``."""
+    points (the fresh-map verify in every table layout). Returns ``(paths'
+    launches, summary)``."""
+    from ndtpu_torch import kernels
     from ndtpu_torch.config import PipelineConfig
 
     ref = json.loads(REF_SCAN_FILE.read_text())
@@ -4663,6 +4905,9 @@ def run_scan_phase(dev, jobs):
     out["box_config3"] = scan_ate_gate(dev, "config3", CONFIG3, ref, keep)
     cfg3 = PipelineConfig.from_json(str(CONFIG3))
     out["fresh_detect"] = check_fresh_detect(*keep[0], cfg3, dev)
+    for g, lanes in kernels.LAYOUTS[1:]:
+        out["fresh_detect"][kernels.variant("layout", g, lanes)] = \
+            check_fresh_detect(*keep[0], cfg3, dev, (g, lanes))
     out["host_syncs"] = check_scan_syncs(dev)
     del keep
     with tempfile.TemporaryDirectory(prefix="ndtpu_smoke_") as tmp:
@@ -4719,7 +4964,7 @@ def k12_bound(poses, points, mask, ndt_map, grid) -> dict:
         valid_terms += int((hit & v).sum())
         touched[(ids + g * grid.n_cells)[hit]] = True
     n_bytes = b * 12 + n * 12 + int(touched.sum()) * 28 + b * 14 * 4
-    flops = (b * live * (K12_BEAM_FLOPS + 4 * K12_BIN_FLOPS)
+    flops = (b * live * (K12_BEAM_FLOPS + grid.overlap * K12_BIN_FLOPS)
              + valid_terms * K12_CELL_FLOPS)
     return bound(n_bytes, flops)
 
@@ -4797,6 +5042,8 @@ def check_k12(label, poses, points, mask, ndt_map, grid, mcfg, jobs=None):
     from ndtpu_torch.ndt import grid as ndt_grid
     from ndtpu_torch.ndt import match as ndt_match
 
+    from ndtpu_torch import kernels
+
     args = (poses, points, mask, ndt_map, grid, mcfg)
     run = lambda: ndt_match.score_grad_hess_batch(*args)
     out, again = run(), run()
@@ -4820,8 +5067,9 @@ def check_k12(label, poses, points, mask, ndt_map, grid, mcfg, jobs=None):
     plain = time_ms(lambda: ndt_match.score_grad_hess_batch_ref(*args))
     bd = k12_bound(poses, points, mask, ndt_map, grid)
     n_triples = poses.shape[0] * grid.overlap * int(mask.sum())
-    print(f"[smoke] K12 ndt_sgh_unpacked {label} B={poses.shape[0]} "
-          f"N={points.shape[0]} G=4 x {grid.n_cells} cells: vs f32 plain max "
+    name = kernels.variant("K12 ndt_sgh_unpacked", grid.overlap)
+    print(f"[smoke] {name} {label} B={poses.shape[0]} N={points.shape[0]} "
+          f"G={grid.overlap} x {grid.n_cells} cells: vs f32 plain max "
           f"abs err {err:.3e} (rtol 1e-5 of each output's max); bit-identical "
           f"on a second launch; {n_flip} of {n_triples} live (pose, grid, "
           f"beam) triples change cell between f32 and f64, each within "
@@ -4833,7 +5081,7 @@ def check_k12(label, poses, points, mask, ndt_map, grid, mcfg, jobs=None):
     row = dict(max_abs_err=err, max_abs_err_f64=err64,
                max_abs_err_f64_own_cells=err64_own, flipped_triples=n_flip,
                flip_edge_m=edge_max, ms=ms, plain_ms=plain, **bd)
-    card_time(jobs, f"K12 ndt_sgh_unpacked {label}", row, "card_ms", run,
+    card_time(jobs, f"{name} {label}", row, "card_ms", run,
               ["ndt_sgh_unpacked"])
     return row
 
@@ -4947,7 +5195,7 @@ def b_placement_err(graph_poses, sa, sb, t_true) -> float:
     return float(torch.hypot(d[:, 0], d[:, 1]).mean())
 
 
-def run_merge(dev, card, npz_path, jobs, keep=None):
+def run_merge(dev, card, npz_path, jobs, keep=None, changes=None):
     """Phase 12: config 5's merge on the card at
     ``configs/config5_multisession.json``. The two sessions
     (:func:`config5_sessions`) run through ``run_slam_windowed``; then,
@@ -4977,7 +5225,18 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
     iterations. Returns ``(launches, summary, that graph, its chi2 at 10
     iterations, K12's row)``; puts the sessions' inputs (``seqs``), final
     states (``sa``, ``sb``), ``t_bad`` (``t_ab``) and the merged statistics
-    (``stats``) into ``keep``, for phase 15."""
+    (``stats``) into ``keep``, for phase 15.
+
+    Phase 12b (``changes``, :data:`CONFIG5_OVERLAP1`): the same on the
+    published JSON with only those fields changed (written to a temporary
+    file), every counter in the layout (``ndt_sgh_unpacked[g1]``,
+    ``lm_ndt[g1l8]``, the gated verify and K3 at overlap 1), gated against
+    the JAX package's merge under the same flags
+    (``tests/data/torch_config5_overlap1_ref.json``): the alignment within
+    max(0.1 m / 0.02 rad, 2 x JAX f32's error) of the truth and of JAX
+    f32's transform, an inter-session loop wherever JAX closes one, and B's
+    placement as above; no graph is written and no supernodal solve runs
+    (``npz_path`` None)."""
     import dataclasses
 
     import torch
@@ -4993,9 +5252,21 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
     from ndtpu_torch.ndt import match
     from ndtpu_torch.slam import merge, pipeline
 
-    ref = json.loads(REF5_FILE.read_text())
+    ref = json.loads((REF5_OVERLAP1_FILE if changes else REF5_FILE)
+                     .read_text())
     j32 = ref["f32"]
-    cfg = PipelineConfig.from_json(str(CONFIG5))
+    with tempfile.TemporaryDirectory(prefix="ndtpu_config5_") as tmp:
+        path = Path(tmp) / "config5.json"
+        path.write_text(json.dumps(layout_json(CONFIG5, changes or {})))
+        cfg = PipelineConfig.from_json(str(path))
+    tag = "config 5" + (f" {json.dumps(changes)}" if changes else "")
+    g, g_loc = cfg.grid.overlap, cfg.loop.local_overlap
+    lanes = 4 if cfg.match.compact_table else 8
+    k12 = kernels.variant("ndt_sgh_unpacked", g)
+    lm, k3 = kernels.variant("lm_ndt", g, lanes), kernels.variant(
+        "halfcell_add", g)
+    gated = kernels.variant("loop_gate_fused", g_loc, lanes)
+    grouped = kernels.variant("lm_ndt_grouped", g_loc, lanes)
     seqs, t_true, _ = config5_sessions(dev)
     t_true = t_true.to(dev)
     t0 = time.perf_counter()
@@ -5044,28 +5315,30 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
 
     err = se2.between(transform, t_true.cpu())
     err_j = se2.between(transform, torch.tensor(j32["transform"]))
-    require(bool(res.converged), "config 5: the alignment did not converge")
+    require(bool(res.converged), f"{tag}: the alignment did not converge")
+    je = j32["transform_err"]
+    lim_xy = max(0.1, 2 * float(torch.hypot(*torch.tensor(je[:2]))))
+    lim_th = max(0.02, 2 * abs(je[2]))
     for name, e in (("the truth", err), ("JAX f32's transform", err_j)):
-        require(float(torch.hypot(e[0], e[1])) <= 0.1
-                and abs(float(e[2])) <= 0.02,
-                f"config 5: alignment {transform.tolist()} off {name} by "
-                f"{e.tolist()} (0.1 m / 0.02 rad allowed)")
-    require(launches["ndt_sgh_unpacked"] == 2 and launches["lm_ndt"] == 2
-            == calls - verifies,
-            f"config 5: {launches['ndt_sgh_unpacked']} K12 and "
-            f"{launches['lm_ndt']} lm_ndt launches in the alignment (two "
-            f"each expected: one per pass)")
-    require(verifies == 1 and launches["loop_gate_fused"] == 1
-            and launches["lm_ndt_grouped"] == 1
-            and launches["loop_gate"] == 0,
-            f"config 5: {launches['loop_gate_fused']} gated verifies for "
+        require(float(torch.hypot(e[0], e[1])) <= lim_xy
+                and abs(float(e[2])) <= lim_th,
+                f"{tag}: alignment {transform.tolist()} off {name} by "
+                f"{e.tolist()} ({lim_xy:g} m / {lim_th:g} rad allowed)")
+    require(launches[k12] == 2 and launches[lm] == 2 == calls - verifies,
+            f"{tag}: {launches[k12]} {k12} and {launches[lm]} {lm} "
+            f"launches in the alignment (two each expected: one per pass)")
+    require(verifies == 1 and launches[gated] == 1
+            and launches[grouped] == 1 and launches["loop_gate"] == 0,
+            f"{tag}: {launches[gated]} gated verifies ({gated}) for "
             f"{verifies} loop searches (one expected)")
-    require(launches["halfcell_add"] == 1,
-            f"config 5: {launches['halfcell_add']} K3 launches in "
-            f"merged_map_stats (one expected)")
-    require(n_loops >= 1 and n_loops >= 0.5 * j32["inter_loops"],
-            f"config 5: {n_loops} inter-session loops, JAX f32 "
-            f"{j32['inter_loops']} (at least half and one expected)")
+    require(launches[k3] == 1,
+            f"{tag}: {launches[k3]} {k3} launches in merged_map_stats (one "
+            f"expected)")
+    least = (min(1, j32["inter_loops"]) if changes
+             else max(1, 0.5 * j32["inter_loops"]))
+    require(n_loops >= least,
+            f"{tag}: {n_loops} inter-session loops, JAX f32 "
+            f"{j32['inter_loops']} (at least {least} expected)")
     # The merged map: K3's counts equal its plain version's exactly.
     wa = se2.transform(sa.kf.poses, sa.kf.points).reshape(-1, 2)
     wb = se2.transform(se2.compose(t_bad.expand_as(sb.kf.poses),
@@ -5077,14 +5350,14 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
         ndt_grid.empty_stats(cfg.grid, torch.float32, dev), pts, msk, 1.0,
         cfg.grid)
     require(torch.equal(stats.n, plain.n),
-            "config 5: merged_map_stats' counts differ from K3's plain "
-            "version")
+            f"{tag}: merged_map_stats' counts differ from K3's plain "
+            f"version")
     # Both merges solved in process by PCG, as the reference does
     # (bench.py:642-649), with the launch counters reset just before and
     # the pcg calls counted: one K6g launch each; B's placement.
     require(kernels.pcg_route(g_auto.poses.shape[0], g_auto.bet_i.shape[0],
                               g_auto.prior_idx.shape[0]) == "grid",
-            "config 5: the merged graph fits K6's one block")
+            f"{tag}: the merged graph fits K6's one block")
     counts, restore = _counting(slv, "pcg")
     t1 = time.perf_counter()
     try:
@@ -5100,7 +5373,7 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
     stage["solves_s"] = time.perf_counter() - t1
     require(solve_launches["pcg_solve_grid"] == counts["n"] > 0
             and solve_launches["pcg_solve"] == 0,
-            f"config 5: {solve_launches['pcg_solve_grid']} K6g and "
+            f"{tag}: {solve_launches['pcg_solve_grid']} K6g and "
             f"{solve_launches['pcg_solve']} K6 launches for {counts['n']} "
             f"pcg calls in the merge solves (one K6g each, no K6 expected)")
     launches = {k: v + solve_launches[k] for k, v in launches.items()}
@@ -5109,7 +5382,7 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
                  < 0.6 * j32["b_placement_err_anchor_m"])
     require(errs[1] <= max(0.15, 2 * j32["b_placement_err_auto_m"])
             and (errs[1] < 0.6 * errs[0] or not jax_ratio),
-            f"config 5: B placement error {errs[1]:.4f} m (auto) vs "
+            f"{tag}: B placement error {errs[1]:.4f} m (auto) vs "
             f"{errs[0]:.4f} m (anchor only); needs <= max(0.15, 2 x JAX "
             f"f32's {j32['b_placement_err_auto_m']:.4f})"
             + (" and < 0.6 x anchor" if jax_ratio else ""))
@@ -5124,9 +5397,11 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
             ndt_cfg=cfg.ndt)
         g_dist = merge.merge_graphs(sa.graph, sb.graph, res.transform,
                                     loops_al)
-        launch.save_graph_npz(str(npz_path), g_dist)
-        sol = sn.optimize_supernodal(g_dist, SolverConfig(max_iter=10))
-    chi10 = float(sol.chi2)
+        if npz_path is not None:
+            launch.save_graph_npz(str(npz_path), g_dist)
+            sol = sn.optimize_supernodal(g_dist, SolverConfig(max_iter=10))
+    chi10 = float(sol.chi2) if npz_path is not None else None
+    sol_iters = int(sol.n_iter) if npz_path is not None else None
     summary = dict(
         sessions_s=sessions_s, keyframes=[int(sa.kf.n), int(sb.kf.n)],
         in_session_loops=[int(sa.n_loops), int(sb.n_loops)],
@@ -5145,9 +5420,12 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
         jax_f32_aligned_inter_loops=j32["aligned_inter_loops"],
         merged_poses=int(g_dist.poses.shape[0]),
         merged_factor_slots=int(g_dist.bet_i.shape[0]),
-        supernodal_chi2_10=chi10, supernodal_iters_10=int(sol.n_iter),
-        **stage)
-    print(f"[smoke] config 5 merge ({card}): sessions {sessions_s:.2f} s "
+        supernodal_chi2_10=chi10, supernodal_iters_10=sol_iters,
+        **({"changes": changes} if changes else {}), **stage)
+    chi_txt = (f"chi2 after 10 supernodal iterations {chi10:.6e} (JAX f32 "
+               f"schur {j32['schur_chi2_after']:.6e})" if chi10 is not None
+               else "not solved here")
+    print(f"[smoke] {tag} merge ({card}): sessions {sessions_s:.2f} s "
           f"(keyframes {summary['keyframes']}, loops "
           f"{summary['in_session_loops']}); alignment {transform.tolist()} "
           f"(truth {t_true.tolist()}, JAX f32 {j32['transform']}) in "
@@ -5164,9 +5442,7 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
           f"graph {summary['merged_poses']} poses, "
           f"{summary['merged_factor_slots']} factor slots; the aligned "
           f"merge ({summary['aligned_inter_loops']} inter-session loops, JAX "
-          f"f32 {j32['aligned_inter_loops']}): chi2 after 10 supernodal "
-          f"iterations {chi10:.6e} (JAX f32 schur "
-          f"{j32['schur_chi2_after']:.6e}); launches "
+          f"f32 {j32['aligned_inter_loops']}): {chi_txt}; launches "
           f"{ {k: v for k, v in launches.items() if v} }")
     # K12 at the shapes the alignment gives it: the coarse results of all
     # 4,624 hypotheses, then the 64 refined (global_align's passes, again).
@@ -5189,7 +5465,7 @@ def run_merge(dev, card, npz_path, jobs, keep=None):
                               cfg.grid, mcfg, jobs)
     if keep is not None:
         keep.update(seqs=seqs, sa=sa, sb=sb, t_ab=t_bad, stats=stats)
-    return launches, summary, g_dist, chi10, dict(ndt_sgh_unpacked=row)
+    return launches, summary, g_dist, chi10, {k12: row}
 
 
 def free_port() -> int:
@@ -5328,8 +5604,9 @@ def k10a_bound(m: int, live: int, width: int, grid) -> dict:
     """Bytes: the points (8 B) and mask (1 B) read once, the f32 slab (28 B
     a cell) written once; operations: binning per (grid, point), the six
     terms per live (grid, point), the moments per cell."""
-    cells = 4 * width * grid.ny
-    return bound(9 * m + 28 * cells, 4 * m * 8 + live * K10A_POINT_FLOPS
+    cells = grid.overlap * width * grid.ny
+    return bound(9 * m + 28 * cells,
+                 grid.overlap * m * 8 + live * K10A_POINT_FLOPS
                  + cells * K10A_CELL_FLOPS)
 
 
@@ -5344,8 +5621,10 @@ def check_k10a(label, points, mask, grid, x_lo: int, width: int,
     ``index_add_``. Returns the row."""
     import torch
 
+    from ndtpu_torch import kernels
     from ndtpu_torch.dist import gridmap
 
+    name = kernels.variant("K10a slab_accumulate", grid.overlap)
     run = lambda: gridmap.slab_accumulate(points, mask, grid, x_lo, width)
     out, again = run(), run()
     perm = torch.randperm(points.shape[0], device=points.device,
@@ -5358,12 +5637,12 @@ def check_k10a(label, points, mask, grid, x_lo: int, width: int,
     plain = gridmap.slab_accumulate_ref(points, mask, grid, x_lo, width)
     torch.cuda.synchronize()
     require(bits_equal(out, again) and bits_equal(out, shuffled),
-            f"K10a {label}: launches differ (again or permuted)")
+            f"{name} {label}: launches differ (again or permuted)")
     require(bits_equal(out, model),
-            f"K10a {label}: differs from its fixed-point model")
-    err = _rel_check(f"K10a {label} vs f32 plain", out, plain)
+            f"{name} {label}: differs from its fixed-point model")
+    err = _rel_check(f"{name} {label} vs f32 plain", out, plain)
     ref64 = slab_f64(points, mask, grid, x_lo, width)
-    err64 = slab_close(f"K10a {label} vs f64", out, *ref64, K10A_RTOL)
+    err64 = slab_close(f"{name} {label} vs f64", out, *ref64, K10A_RTOL)
     ms = time_ms(run)
     plain_ms = time_ms(lambda: gridmap.slab_accumulate_ref(
         points, mask, grid, x_lo, width))
@@ -5372,9 +5651,10 @@ def check_k10a(label, points, mask, grid, x_lo: int, width: int,
     lib = time_ms(lambda: gridmap._accum_local(points, w, lx, iy, width,
                                                grid))
     bd = k10a_bound(points.shape[0], int(live.sum()), width, grid)
-    print(f"[smoke] K10a slab_accumulate {label} M={points.shape[0]} "
-          f"({int(live.sum())} live (grid, point) pairs) into 4 x {width} x "
-          f"{grid.ny} cells: bit-equal to its fixed-point model, on a second "
+    print(f"[smoke] {name} {label} M={points.shape[0]} "
+          f"({int(live.sum())} live (grid, point) pairs) into "
+          f"{grid.overlap} x {width} x {grid.ny} cells: bit-equal to its "
+          f"fixed-point model, on a second "
           f"launch and permuted; vs f32 plain max abs err {err:.3e}; vs f64 "
           f"sums on the same cells {err64:.3e} (rtol {K10A_RTOL:.3g}); "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (three "
@@ -5385,7 +5665,7 @@ def check_k10a(label, points, mask, grid, x_lo: int, width: int,
     row.update(library_ms=lib, library="three torch.Tensor.index_add_ "
                "(n, w p, w p p^T) of the plain version, its bins and "
                "weights made beforehand")
-    card_time(jobs, f"K10a slab_accumulate {label}", row, "card_ms", run,
+    card_time(jobs, f"{name} {label}", row, "card_ms", run,
               ["slab_scatter", "slab_moments", "Memset"])
     return row
 
@@ -5482,7 +5762,8 @@ def k10c_bound(poses, points, mask, slab_map, grid, x_lo: int) -> dict:
     v = slab_map.valid[g, lx, iy] > 0
     cell = (g * nxl + lx) * grid.ny + iy
     n_cells = int(cell[hit].unique().numel())
-    flops = (b * int(mask.sum()) * (K12_BEAM_FLOPS + 4 * K12_BIN_FLOPS)
+    flops = (b * int(mask.sum()) * (K12_BEAM_FLOPS
+                                    + grid.overlap * K12_BIN_FLOPS)
              + int((hit & v).sum()) * K12_CELL_FLOPS)
     return bound(b * 12 + n * 12 + n_cells * 28 + b * 60, flops)
 
@@ -5494,8 +5775,10 @@ def check_k10c(label, poses, points, mask, slab_map, grid, x_lo: int, mcfg,
     another order), bit-identical on a second launch. Returns the row."""
     import torch
 
+    from ndtpu_torch import kernels
     from ndtpu_torch.dist import gridmap
 
+    name = kernels.variant("K10c slab_sgh", grid.overlap)
     mask_f = mask.float()
     run = lambda: gridmap.slab_sgh(poses, points, mask_f, slab_map, grid,
                                    x_lo, mcfg)
@@ -5503,23 +5786,23 @@ def check_k10c(label, poses, points, mask, slab_map, grid, x_lo: int, mcfg,
     ref = gridmap.slab_sgh_ref(poses, points, mask_f, slab_map, grid, x_lo,
                                mcfg)
     torch.cuda.synchronize()
-    require(bits_equal(out, again), f"K10c {label}: two launches differ")
-    err = _rel_check(f"K10c {label} vs f32 plain",
+    require(bits_equal(out, again), f"{name} {label}: two launches differ")
+    err = _rel_check(f"{name} {label} vs f32 plain",
                      [out[:, :3], out[:, 3:6], out[:, 6:]],
                      [ref[:, :3], ref[:, 3:6], ref[:, 6:]])
     ms = time_ms(run)
     plain_ms = time_ms(lambda: gridmap.slab_sgh_ref(
         poses, points, mask_f, slab_map, grid, x_lo, mcfg))
     bd = k10c_bound(poses, points, mask, slab_map, grid, x_lo)
-    print(f"[smoke] K10c slab_sgh {label} B={poses.shape[0]} "
-          f"N={points.shape[0]} on 4 x {slab_map.valid.shape[1]} x {grid.ny} "
-          f"cells: vs f32 plain max abs err {err:.3e} (rtol 1e-5 of each "
+    print(f"[smoke] {name} {label} B={poses.shape[0]} "
+          f"N={points.shape[0]} on {grid.overlap} x "
+          f"{slab_map.valid.shape[1]} x {grid.ny} cells: vs f32 plain max "
+          f"abs err {err:.3e} (rtol 1e-5 of each "
           f"output's max); bit-identical on a second launch; kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bd)
-    card_time(jobs, f"K10c slab_sgh {label}", row, "card_ms", run,
-              ["slab_sgh"])
+    card_time(jobs, f"{name} {label}", row, "card_ms", run, ["slab_sgh"])
     return row
 
 
@@ -5664,8 +5947,11 @@ def slab_worker(rank: int, world: int, port: int, npz: str, out: str,
                 device: str = "cuda"):
     """One rank of phase 15 (``chip_smoke.py --slab-worker``): joins the
     gloo group, runs its session through ``run_sessions_sharded`` (one per
-    rank; A on rank 0, B on rank 1), builds the merged map's slab from its
-    own session's live keyframe points (B's moved by ``t_ab``) with
+    rank; A on rank 0, B on rank 1; in phase 15b, whose inputs carry the
+    config's path and the split of ``all_pts`` between the sessions, it
+    takes its session's points from phase 12b instead), builds the merged
+    map's slab from its own session's live keyframe points (B's moved by
+    ``t_ab``) with
     ``build_slab_stats_psharded`` and from both sessions' points with
     ``build_slab_stats``, finalizes both, registers B's scans with
     ``match_slab`` on each and with ``match_batch_sharded`` (against phase
@@ -5683,12 +5969,13 @@ def slab_worker(rank: int, world: int, port: int, npz: str, out: str,
     from ndtpu_torch.ndt import grid as ndt_grid
 
     launch.initialize(f"localhost:{port}", world, rank)
-    cfg = PipelineConfig.from_json(str(CONFIG5))
+    z = np.load(npz)
+    cfg = PipelineConfig.from_json(str(z["config"]) if "config" in z.files
+                                   else str(CONFIG5))
     bmesh, smesh = dmesh.batch_mesh(device), dmesh.space_mesh(device)
     dev = bmesh.device
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    z = np.load(npz)
     t = lambda k: torch.as_tensor(z[k]).to(dev)
     res = {}
 
@@ -5706,17 +5993,22 @@ def slab_worker(rank: int, world: int, port: int, npz: str, out: str,
         return val
 
     with no_plain_on_card(PLAIN_SLAB):
-        st, _ = stage("sessions", lambda: slam_dp.run_sessions_sharded(
-            bmesh, [t("points_a"), t("points_b")], [t("mask_a"), t("mask_b")],
-            [t("odom_a"), t("odom_b")], cfg))
-        mine = slam_dp._take(st, 0)
-        res["digest"] = launch.state_sha256(mine)
-        poses = mine.kf.poses
-        if rank == 1:
-            t_ab = t("t_ab")
-            poses = se2.compose(t_ab.expand_as(poses), poses)
-        pts = se2.transform(poses, mine.kf.points).reshape(-1, 2)
-        msk = (mine.kf.masks & mine.kf.live[:, None]).reshape(-1)
+        if "split" in z.files:      # phase 15b: the rank's points as given
+            na = int(z["split"])
+            own = slice(0, na) if rank == 0 else slice(na, None)
+            pts, msk = t("all_pts")[own], t("all_msk")[own]
+        else:
+            st, _ = stage("sessions", lambda: slam_dp.run_sessions_sharded(
+                bmesh, [t("points_a"), t("points_b")],
+                [t("mask_a"), t("mask_b")], [t("odom_a"), t("odom_b")], cfg))
+            mine = slam_dp._take(st, 0)
+            res["digest"] = launch.state_sha256(mine)
+            poses = mine.kf.poses
+            if rank == 1:
+                t_ab = t("t_ab")
+                poses = se2.compose(t_ab.expand_as(poses), poses)
+            pts = se2.transform(poses, mine.kf.points).reshape(-1, 2)
+            msk = (mine.kf.masks & mine.kf.live[:, None]).reshape(-1)
         halo = int(z["halo"])
         ps = stage("psharded", lambda: gridmap.build_slab_stats_psharded(
             smesh, pts, msk, cfg.grid, halo=halo))
@@ -5885,7 +6177,7 @@ def _final(trace) -> int:
     return max([0] + [j + 1 for j, t in enumerate(trace["taken"]) if t])
 
 
-def run_slab(dev, card, keep, seed: int, jobs):
+def run_slab(dev, card, keep, seed: int, jobs, changes=None):
     """Phase 15: config 5's sharded map at its published widths (256 x 256
     at 0.5 m, overlap 4; two ranks, 128 columns each) over two gloo ranks
     on the card (:func:`slab_worker`, started as ``chip_smoke.py
@@ -5904,7 +6196,15 @@ def run_slab(dev, card, keep, seed: int, jobs):
     ``match_batch_sharded`` bit-equal per lane to the in-process
     ``match_batch``; K10a, K10b and K10c launched there. Then K10a, K10b
     and K10c against their plain versions at the ranks' shapes. Returns
-    ``(launches, record, kernel rows)``."""
+    ``(launches, record, kernel rows)``.
+
+    Phase 15b (``changes``, :data:`CONFIG5_OVERLAP1`): the same on phase
+    12b's overlap-1 merge (``keep``): the ranks take their sessions' points
+    from it (no sessions run), the map has one grid, K10a[g1] and K10c[g1]
+    carry it, and a G = 4 K10a call of rank 0's slab shape after them
+    equals its fixed-point model (the scratch is keyed by grid count)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -5914,13 +6214,19 @@ def run_slab(dev, card, keep, seed: int, jobs):
     from ndtpu_torch.ndt import grid as ndt_grid
     from ndtpu_torch.ndt import match as ndt_match
 
-    cfg = PipelineConfig.from_json(str(CONFIG5))
-    grid = cfg.grid
-    inputs = slab_inputs(dev, seed, keep, cfg)
-    kf_b = keep["sb"].kf
-    inputs.update(kf_points_b=kf_b.points.cpu().numpy(),
-                  kf_masks_b=kf_b.masks.cpu().numpy())
+    tag = "config 5 slab" + (f" {json.dumps(changes)}" if changes else "")
     with tempfile.TemporaryDirectory(prefix="ndtpu_smoke_slab_") as tmp:
+        cfg_path = Path(tmp) / "config5.json"
+        cfg_path.write_text(json.dumps(layout_json(CONFIG5, changes or {})))
+        cfg = PipelineConfig.from_json(str(cfg_path))
+        grid = cfg.grid
+        inputs = slab_inputs(dev, seed, keep, cfg)
+        kf_b = keep["sb"].kf
+        inputs.update(kf_points_b=kf_b.points.cpu().numpy(),
+                      kf_masks_b=kf_b.masks.cpu().numpy())
+        na = keep["sa"].kf.masks.numel()      # A's points lead all_pts
+        if changes:
+            inputs.update(config=str(cfg_path), split=na)
         npz, out = str(Path(tmp) / "in.npz"), str(Path(tmp) / "out")
         np.savez(npz, **inputs)
         port = free_port()
@@ -5939,14 +6245,16 @@ def run_slab(dev, card, keep, seed: int, jobs):
                     p.communicate()
         wall = time.perf_counter() - t0
         for p, (so, se) in zip(procs, outs):
-            require(p.returncode == 0, f"slab worker {p.args[3]} failed "
+            require(p.returncode == 0, f"{tag}: worker {p.args[3]} failed "
                     f"rc={p.returncode}\n{so[-2000:]}\n{se[-4000:]}")
         ranks = [dict(np.load(f"{out}.{r}.npz")) for r in range(2)]
     halo, nxl = int(inputs["halo"]), grid.nx // 2
-    # Sessions: bit-equal to phase 12's.
-    for r, k in enumerate("ab"):
+    k10a = kernels.variant("slab_accumulate", grid.overlap)
+    k10c = kernels.variant("slab_sgh", grid.overlap)
+    # Sessions: bit-equal to phase 12's (phase 15b takes 12b's).
+    for r, k in enumerate("ab" if not changes else ""):
         require(str(ranks[r]["digest"]) == inputs[f"digest_{k}"],
-                f"config 5 slab: rank {r}'s session {k.upper()} differs from "
+                f"{tag}: rank {r}'s session {k.upper()} differs from "
                 f"phase 12's in-process run")
     # The map: the two builds, the merged statistics, f64.
     gather = lambda key: torch.cat([torch.as_tensor(x[key]) for x in ranks],
@@ -5956,16 +6264,16 @@ def run_slab(dev, card, keep, seed: int, jobs):
     all_pts = torch.as_tensor(inputs["all_pts"]).to(dev)
     all_msk = torch.as_tensor(inputs["all_msk"]).to(dev)
     ref64, mag64 = slab_f64(all_pts, all_msk, grid, 0, grid.nx)
-    build_err = slab_close("config 5 slab: point-sharded vs replicated", ps,
+    build_err = slab_close(f"{tag}: point-sharded vs replicated", ps,
                            gridmap.SlabStats(*(x.double() for x in rep)),
                            mag64, SLAB_RTOL)
     k3 = gridmap.dense_to_slab(ndt_grid.NDTStats(*(torch.as_tensor(
         inputs[f"stats_{k}"]) for k in ("n", "s", "ss"))), grid)
     require(torch.equal(ps.n, k3.n) and torch.equal(rep.n, k3.n),
-            "config 5 slab: counts differ from phase 12's merged map (K3)")
-    err64 = slab_close("config 5 slab: point-sharded vs f64", ps, ref64,
+            f"{tag}: counts differ from phase 12's merged map (K3)")
+    err64 = slab_close(f"{tag}: point-sharded vs f64", ps, ref64,
                        mag64, SLAB_RTOL)
-    err64_rep = slab_close("config 5 slab: replicated vs f64", rep, ref64,
+    err64_rep = slab_close(f"{tag}: replicated vs f64", rep, ref64,
                            mag64, K10A_RTOL)
     smap = gridmap.SlabMap(*(gather(f"map_{k}") for k in
                              ("mean", "icov", "valid")))
@@ -5976,7 +6284,7 @@ def run_slab(dev, card, keep, seed: int, jobs):
                                cfg.ndt)
     require(torch.equal(smap.valid,
                         gridmap.dense_to_slab(k3_map, grid).valid.cpu()),
-            "config 5 slab: valid flags differ from the merged map's")
+            f"{tag}: valid flags differ from the merged map's")
     # match_slab on both builds' maps: the same bits on both ranks. On the
     # replicated build's map against the in-process LM on K12 over phase
     # 12's K3 map, an independent dense build (test_dist.py:98's check);
@@ -5987,7 +6295,7 @@ def run_slab(dev, card, keep, seed: int, jobs):
         for key in ("pose", "hess", "iter", "conv"):
             require(ranks[0][f"{pre}_{key}"].tobytes()
                     == ranks[1][f"{pre}_{key}"].tobytes(),
-                    f"config 5 slab: {pre}_{key} differs between the ranks")
+                    f"{tag}: {pre}_{key} differs between the ranks")
     ps_dense = gridmap.slab_to_dense(ps, grid)
     dense_map = ndt_grid.NDTMap(*(x.to(dev) for x in
                                   gridmap.slab_to_dense(smap, grid)))
@@ -6004,12 +6312,12 @@ def run_slab(dev, card, keep, seed: int, jobs):
     got = torch.as_tensor(ranks[0]["slab_pose"])
     slab_err = float((got - ref_poses).abs().max())
     require(slab_err <= SLAB_POSE_TOL,
-            f"config 5 slab: match_slab off the in-process lm_loop by "
+            f"{tag}: match_slab off the in-process lm_loop by "
             f"{slab_err:.3e} (> {SLAB_POSE_TOL:g})")
     rep_err = float((torch.as_tensor(ranks[0]["slab_rep_pose"])
                      - ref_k3).abs().max())
     require(rep_err <= SLAB_POSE_TOL,
-            f"config 5 slab: match_slab on the replicated build's map off "
+            f"{tag}: match_slab on the replicated build's map off "
             f"the in-process lm_loop on phase 12's K3 map by {rep_err:.3e} "
             f"(> {SLAB_POSE_TOL:g})")
     with no_plain_on_card(PLAIN_SLAB):
@@ -6027,7 +6335,7 @@ def run_slab(dev, card, keep, seed: int, jobs):
         for key, ref in (("mb_pose", mb.pose), ("mb_iter", mb.n_iter),
                          ("mb_conv", mb.converged)):
             require(ranks[r][key].tobytes() == ref[lanes].cpu().numpy()
-                    .tobytes(), f"config 5 slab: rank {r}'s {key} differs "
+                    .tobytes(), f"{tag}: rank {r}'s {key} differs "
                     f"from the in-process match_batch")
     # Launches: each rank's map and registration stages.
     launches = {k: 0 for k in kernels.LAUNCHES}
@@ -6044,10 +6352,10 @@ def run_slab(dev, card, keep, seed: int, jobs):
                        ("slab_rep", "match_slab_replicated")):
         n_it = int(ranks[0][f"{pre}_iter"].sum())
         for r, x in enumerate(ranks):
-            n_sgh = per_stage[stage][r].get("slab_sgh", 0)
+            n_sgh = per_stage[stage][r].get(k10c, 0)
             n_sum = json.loads(str(x[f"{stage}_collectives"]))["all_reduce"]
             require(n_sgh == n_it + SLAB_SCANS == n_sum,
-                    f"config 5 slab: {stage} on rank {r}: {n_sgh} K10c "
+                    f"{tag}: {stage} on rank {r}: {n_sgh} K10c "
                     f"launches and {n_sum} sums for {n_it} iterations of "
                     f"{SLAB_SCANS} registrations (one each per evaluation)")
     iters = int(ranks[0]["slab_iter"].sum())
@@ -6055,7 +6363,8 @@ def run_slab(dev, card, keep, seed: int, jobs):
     exch = [json.loads(str(x["psharded_collectives"])) for x in ranks]
     record = dict(
         halo=halo, nx_local=nxl, points=int(inputs["all_msk"].sum()),
-        sessions_s=[float(x["sessions_s"]) for x in ranks],
+        sessions_s=[float(x["sessions_s"]) for x in ranks
+                    if "sessions_s" in x],
         psharded_s=[float(x["psharded_s"]) for x in ranks],
         replicated_s=[float(x["replicated_s"]) for x in ranks],
         finalize_s=[float(x["finalize_s"]) for x in ranks],
@@ -6077,7 +6386,8 @@ def run_slab(dev, card, keep, seed: int, jobs):
         match_batch_s=[float(x["match_batch_s"]) for x in ranks],
         build_err=build_err, f64_err=err64, f64_err_replicated=err64_rep,
         launches_per_stage=per_stage, workers_s=wall)
-    print(f"[smoke] config 5 slab ({card}): 2 ranks, 4 x {nxl} x {grid.ny} "
+    print(f"[smoke] {tag} ({card}): 2 ranks, {grid.overlap} x {nxl} x "
+          f"{grid.ny} "
           f"cells each, halo {halo} columns (the smallest that drops no "
           f"point); sessions bit-equal to phase 12's "
           f"({record['sessions_s']} s); point-sharded build "
@@ -6096,7 +6406,7 @@ def run_slab(dev, card, keep, seed: int, jobs):
           f"{record['match_slab_sum_share']} of it); match_batch_sharded "
           f"{BATCH_SCANS} lanes bit-equal; workers {wall:.1f} s; launches "
           f"{per_stage}")
-    print(f"[smoke] config 5 slab vs phase 12's K3 map: "
+    print(f"[smoke] {tag} vs phase 12's K3 map: "
           f"{vs_k3['cells_differing']} cells whose s/ss differ (cells both "
           f"ranks' points reach: two rounded partials summed), inverse "
           f"covariances up to {vs_k3['cells_icov_gap_max']:.3e} apart, the "
@@ -6107,16 +6417,27 @@ def run_slab(dev, card, keep, seed: int, jobs):
           f"{json.dumps(vs_k3['flips'])}")
     # The kernels at the ranks' shapes: K10a at rank 0's halo-extended
     # slab of A's points, K10b on its slab, K10c at B = 1.
-    na = keep["sa"].kf.masks.numel()      # A's points lead all_pts
-    rows = {"slab_accumulate": check_k10a(
+    k10b = "finalize_cells" + ("[g1]" if changes else "")
+    rows = {k10a: check_k10a(
         "rank 0 halo-extended", all_pts[:na].contiguous(),
         all_msk[:na].contiguous(), grid, -halo, nxl + 2 * halo, jobs)}
-    rows["slab_accumulate"]["replicated"] = check_k10a(
+    rows[k10a]["replicated"] = check_k10a(
         "rank 1 replicated", all_pts, all_msk, grid, nxl, nxl, jobs)
+    if changes:
+        # K10a's kept scratch is keyed by the grid count too: a G = 4 call
+        # of the same slab shape after the G = 1 calls is its own model's.
+        g4 = dataclasses.replace(grid, overlap=4)
+        p0, m0 = all_pts[:na].contiguous(), all_msk[:na].contiguous()
+        require(bits_equal(
+            gridmap.slab_accumulate(p0, m0, g4, -halo, nxl + 2 * halo),
+            gridmap.slab_accumulate_fixed_ref(p0, m0, g4, -halo,
+                                              nxl + 2 * halo)),
+            f"{tag}: a G = 4 K10a call after G = 1 ones of the same slab "
+            f"shape differs from its fixed-point model")
     st0 = tuple(torch.as_tensor(ranks[0][f"ps_{k}"]).to(dev)
                 for k in ("n", "s", "ss"))
-    rows["finalize_cells"] = check_k10b("rank 0 slab", st0, cfg.ndt, jobs)
-    rows["finalize_cells"]["dense"] = check_k10b(
+    rows[k10b] = check_k10b("rank 0 slab", st0, cfg.ndt, jobs)
+    rows[k10b]["dense"] = check_k10b(
         "dense merged map", tuple(torch.as_tensor(inputs[f"stats_{k}"]).to(
             dev) for k in ("n", "s", "ss")), cfg.ndt, jobs)
     # K10c at B = 1 (match_slab's shape) on each rank's slab, at the first
@@ -6127,9 +6448,9 @@ def run_slab(dev, card, keep, seed: int, jobs):
         row = check_k10c(f"rank {r}", got[:1].to(dev), kp[sidx[0]],
                          km[sidx[0]], smap_r, grid, r * nxl, cfg.match, jobs)
         if r == 0:
-            rows["slab_sgh"] = row
+            rows[k10c] = row
         else:
-            rows["slab_sgh"]["rank1"] = row
+            rows[k10c]["rank1"] = row
     return launches, record, rows
 
 
@@ -6152,6 +6473,8 @@ def main(argv=None) -> int:
     require((ROOT / "ndtpu_torch").is_dir() and REF_FILE.is_file()
             and REF3_FILE.is_file() and REF4_FILE.is_file()
             and REF_SERVING_FILE.is_file() and REF5_FILE.is_file()
+            and REF_SERVING_LAYOUTS_FILE.is_file()
+            and REF5_OVERLAP1_FILE.is_file()
             and REF1_FILE.is_file() and REF_LAYOUTS_FILE.is_file()
             and REF_SCAN_FILE.is_file(),
             f"run from a checkout of the repository ({ROOT} lacks "
@@ -6294,22 +6617,40 @@ def main(argv=None) -> int:
     launches4, config4 = run_config4(dev, card)
     launches4p, config4["pcg"] = run_config4_pcg(dev, card)
     launches10k, incremental10k = run_incremental_10k(c4, card, args.seed)
-    # Stacked serving through its entry point, then K6b, K3s and K4s on the
-    # state its last run left (8 sessions' graphs, maps and keyframes).
+    # Stacked serving through its entry point (phase 10), in the other
+    # table layouts (phase 10b), then K6b, K3s and K4s on the state its
+    # last run left (8 sessions' graphs, maps and keyframes; phase 11),
+    # K3s and K4s also in the other layouts.
+    phase_s = {}
+    t_phase = time.perf_counter()
     check_padded_sessions(dev)
     launches8, served, state8 = run_serving(dev, card)
     serving = dict(aggregate_scans_per_s=served["aggregate_scans_per_s"],
                    run_s=served["run_s"], first_run_s=served["first_run_s"],
                    sessions=serving_gates(served))
+    phase_s["9-10"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    launches_sl, serving["layouts"] = run_serving_layouts(dev, card)
+    phase_s["10b"] = time.perf_counter() - t_phase
+    print(f"[smoke] serving aggregate scans/s ({card}): published layout "
+          f"{served['aggregate_scans_per_s']:.1f}; "
+          + "; ".join(f"{name} {r['aggregate_scans_per_s']:.1f}"
+                      for name, r in serving["layouts"].items())
+          + f" (phase 10b {phase_s['10b']:.1f} s)")
     from ndtpu_torch.dist import slam_dp
 
+    t_phase = time.perf_counter()
     cfg8 = slam_dp.serving_config(PipelineConfig.from_json(str(SERVING)))
     results["pcg_solve_blocked"] = check_k6b(state8, cfg8, args.seed, jobs)
     results["halfcell_add_stacked"] = check_k3s(state8, cfg8, jobs)
     results["finalize_pack_stacked"] = check_k4s(state8, cfg8, jobs)
+    results.update(check_stacked_layouts(state8, cfg8, jobs))
     del state8
+    phase_s["11"] = time.perf_counter() - t_phase
     # Config 5: the merge in process (phase 12), then the distributed solve
-    # of its merged graph in two ranks (phase 13), and K9c on their rows.
+    # of its merged graph in two ranks (phase 13), and K9c on their rows;
+    # the merge at overlap 1 (phase 12b).
+    t_phase = time.perf_counter()
     keep = {}
     with tempfile.TemporaryDirectory(prefix="ndtpu_smoke_") as tmp:
         npz = Path(tmp) / "config5_merged.npz"
@@ -6319,23 +6660,49 @@ def main(argv=None) -> int:
         launches5d, dist5 = run_distributed(dev, card, npz, chi10)
     results["schur_local_assemble"] = check_k9c(g5, 2, 1e-3, jobs)
     del g5
+    phase_s["12-13"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    keep1 = {}
+    launches5o1, merge5o1, _, _, rows5o1 = run_merge(
+        dev, card, None, jobs, keep1, changes=CONFIG5_OVERLAP1)
+    results.update(rows5o1)
+    phase_s["12b"] = time.perf_counter() - t_phase
     # The reference's multi-process SLAM rehearsal through ``launch --task
     # slam`` (phase 14), then config 5's slab-sharded map, sessions and
-    # registrations across two ranks (phase 15) and K10a-c at its shapes.
+    # registrations across two ranks (phase 15) and K10a-c at its shapes,
+    # and the slab map at overlap 1 on phase 12b's sessions (phase 15b).
+    t_phase = time.perf_counter()
     launches14, slam14 = run_slam_launch(dev, card)
+    phase_s["14"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
     launches15, slab15, rows15 = run_slab(dev, card, keep, args.seed, jobs)
     results.update(rows15)
     del keep
+    phase_s["15"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    launches15o1, slab15o1, rows15o1 = run_slab(
+        dev, card, keep1, args.seed, jobs, changes=CONFIG5_OVERLAP1)
+    results.update({k: v for k, v in rows15o1.items()
+                    if k != "finalize_cells[g1]"})
+    results["finalize_cells"]["overlap1"] = rows15o1["finalize_cells[g1]"]
+    del keep1
+    phase_s["15b"] = time.perf_counter() - t_phase
     # The per-scan path (phase 16): the CLI's scan mode at configs 2 and 3,
     # box-world draws through run_slam, the fresh-map verify, CARMEN input,
     # the voxel downsample and checkpoint resume.
+    t_phase = time.perf_counter()
     launches16, scan16 = run_scan_phase(dev, jobs)
+    phase_s["16"] = time.perf_counter() - t_phase
+    print(f"[smoke] phase seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
     paths = {"config1": launches1, **launches_layouts, **launches16,
              "config2": launches2, "config3": launches3, "config4": launches4,
              "config4_pcg": launches4p, "incremental_10k": launches10k,
-             "serving": launches8, "config5": launches5,
+             "serving": launches8, **launches_sl, "config5": launches5,
+             "config5_overlap1": launches5o1,
              "config5_dist": launches5d, "slam_launch": launches14,
-             "config5_slab": launches15}
+             "config5_slab": launches15,
+             "config5_slab_overlap1": launches15o1}
     for k in KERNELS:
         for path in k.get("paths", ()):  # K1, K8b run inside lm_ndt there
             require(paths[path][k["name"]] > 0,
@@ -6361,8 +6728,10 @@ def main(argv=None) -> int:
                       "smoother": smoother, "config4": config4,
                       "serving": serving,
                       "config5": {"merge": merge5, "distributed": dist5,
-                                  "slam_launch": slam14, "slab": slab15},
-                      "per_scan": scan16}))
+                                  "slam_launch": slam14, "slab": slab15,
+                                  "merge_overlap1": merge5o1,
+                                  "slab_overlap1": slab15o1},
+                      "per_scan": scan16, "phase_s": phase_s}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

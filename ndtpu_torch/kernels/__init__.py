@@ -100,9 +100,12 @@ row (4, or 1 at ``GridConfig.overlap = 1`` / ``LoopConfig.local_overlap =
 1``) of L lanes (8, or 4 bf16-pair lanes at ``MatchConfig.compact_table``);
 each layout is its own instantiation of the same device code, counted
 apart (:func:`variant`: ``lm_ndt[g1l8]``, ``finalize_pack[g4l4]``, ...).
-K3 takes both overlaps (``halfcell_add[g1]``). Stacked serving's K3s and
-K4s take the published layout only, and config 5's K12, K10a and K10c
-overlap 4 only (ROADMAP B8b, B7b): they raise on the others.
+Stacked serving's K4s takes every layout too (``finalize_pack_stacked
+[g1l4]``, ...). The kernels on the statistics or an unpacked map take
+both overlaps, counted apart at overlap 1: K3 and K3s
+(``halfcell_add[g1]``, ``halfcell_add_stacked[g1]``), and config 5's K12,
+K10a and K10c (``ndt_sgh_unpacked[g1]``, ``slab_accumulate[g1]``,
+``slab_sgh[g1]``).
 
 K1's per-beam body and block reduction live in ``csrc/ndt_sums.cuh``;
 ``lm_ndt`` runs them once per LM iteration, so on the registration path K1
@@ -174,10 +177,14 @@ def variant(name: str, grids: int, lanes: int | None = None) -> str:
 
 
 #: The kernels that run in every table layout (K1, ``lm_ndt``, the gated
-#: verify, K4, K8a); K3 runs at both overlaps.
+#: verify, K4, K4s, K8a).
 _LAYOUT_KERNELS = ("lm_ndt", "lm_ndt_grouped", "ndt_terms",
-                   "ndt_terms_grouped", "finalize_pack", "local_tables",
-                   "loop_gate_fused")
+                   "ndt_terms_grouped", "finalize_pack",
+                   "finalize_pack_stacked", "local_tables", "loop_gate_fused")
+#: The kernels that run at both overlaps, on statistics or an unpacked map
+#: (K3, K3s, K12, K10a, K10c).
+_GRID_KERNELS = ("halfcell_add", "halfcell_add_stacked", "ndt_sgh_unpacked",
+                 "slab_accumulate", "slab_sgh")
 
 #: Launch counts per kernel since the last :func:`reset_launches`; the
 #: layout variants (:func:`variant`) count apart.
@@ -191,7 +198,7 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "schur_local_assemble": 0, "ndt_sgh_unpacked": 0,
             "slab_accumulate": 0, "finalize_cells": 0, "slab_sgh": 0,
             "raycast": 0, "voxel_downsample": 0,
-            variant("halfcell_add", 1): 0,
+            **{variant(k, 1): 0 for k in _GRID_KERNELS},
             **{variant(k, g, l): 0 for k in _LAYOUT_KERNELS
                for g, l in LAYOUTS[1:]}}
 
@@ -210,7 +217,7 @@ _HALFCELL_SCRATCH: dict = {}     # (device index, maps, wh, hh) -> lattices
 _GATE_ARRIVE: dict = {}          # (device index, K) -> int32 counters
 _FINALIZE_BANDS: dict = {}       # (grid, device index) -> K4 launch shape
 _SM_COUNT: dict = {}             # device index -> multiprocessors
-_SLAB_SCRATCH: dict = {}         # (device index, width, ny) -> int64 sums
+_SLAB_SCRATCH: dict = {}         # (device index, G, width, ny) -> int64 sums
 
 _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
@@ -245,11 +252,11 @@ _SIGNATURES = {
     "schur_reduce_launch": [_P] * 9 + [_F, _I, _I, _P, _P, _P],
     "schur_local_assemble_launch": [_P] * 5 + [_I] + [_P] * 7
                                    + [_F, _I, _I] + [_P] * 6,
-    "ndt_sgh_unpacked_launch": [_P] * 7 + [_I] * 4 + [_F] * 5 + [_P],
-    "slab_accum_launch": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_P],
+    "ndt_sgh_unpacked_launch": [_P] * 7 + [_I] * 4 + [_F] * 5 + [_I, _P],
+    "slab_accum_launch": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_I, _P],
     "finalize_cells_launch": [_P] * 6 + [ctypes.c_longlong] + [_F] * 3
                              + [_P],
-    "slab_sgh_launch": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_P],
+    "slab_sgh_launch": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_I, _P],
     "raycast_launch": [_P] * 4 + [_I] * 3 + [_D, _D, _I, _P],
     "voxel_downsample_launch": [_P] * 3 + [_I, _I, _F, _I, _P],
 }
@@ -390,19 +397,6 @@ def _frame(grid) -> tuple:
 def _layout(grid, compact: bool) -> tuple:
     """``(G, L)`` of a quad table on ``grid`` (:data:`LAYOUTS`)."""
     return grid.overlap, 4 if compact else 8
-
-
-def _stacked_layout(name: str, grid, compact: bool = False):
-    """The stacked serving kernels (K3s, K4s) take the published layout
-    only."""
-    if grid.overlap != 4:
-        raise NotImplementedError(
-            f"{name} takes overlap=4 grids only; overlap=1 for stacked "
-            f"serving on the card is ROADMAP Queue B (B8b)")
-    if compact:
-        raise NotImplementedError(
-            f"{name} takes full-width rows only; compact_table for stacked "
-            f"serving on the card is ROADMAP Queue B (B7b)")
 
 
 def ndt_terms(poses, px, py, mask_f, table, grid, d2: float,
@@ -616,39 +610,42 @@ def halfcell_add(n, s, ss, points, mask, weight, grid):
 
 
 def halfcell_add_stacked(n, s, ss, points, mask, weight, grid):
-    """K3s: :func:`halfcell_add` for S maps in one ctypes call: statistics
-    ``n [S, 4, C]``, ``s [S, 4, C, 2]``, ``ss [S, 4, C, 2, 2]``, points
-    ``[S, M, 2]``, mask bool ``[S, M]``, weight a Python float or an f32
-    ``[S, M]`` tensor. Map ``i`` gets exactly what :func:`halfcell_add` of
-    its own points gives, bit for bit. One ``LAUNCHES
-    ["halfcell_add_stacked"]`` per call. Overlap 4 only (ROADMAP B8b)."""
-    _stacked_layout("K3s halfcell_add_stacked", grid)
+    """K3s: :func:`halfcell_add` for S maps in one ctypes call, at overlap 4
+    or 1 (``G = overlap``): statistics ``n [S, G, C]``, ``s [S, G, C, 2]``,
+    ``ss [S, G, C, 2, 2]``, points ``[S, M, 2]``, mask bool ``[S, M]``,
+    weight a Python float or an f32 ``[S, M]`` tensor. Map ``i`` gets
+    exactly what :func:`halfcell_add` of its own points gives, bit for bit.
+    One ``LAUNCHES["halfcell_add_stacked"]`` (``[g1]`` at overlap 1) per
+    call."""
     wh, hh = _lattice(grid)
-    c = grid.n_cells
+    g, c = grid.overlap, grid.n_cells
     maps, m = mask.shape
     _check(points, "points", shape=(maps, m, 2), align=8)
     _check(mask, "mask", dtype=torch.bool, shape=(maps, m), align=1)
-    _check(n, "stats.n", shape=(maps, 4, c))
-    _check(s, "stats.s", shape=(maps, 4, c, 2))
-    _check(ss, "stats.ss", shape=(maps, 4, c, 2, 2))
+    _check(n, "stats.n", shape=(maps, g, c))
+    _check(s, "stats.s", shape=(maps, g, c, 2))
+    _check(ss, "stats.ss", shape=(maps, g, c, 2, 2))
     if isinstance(weight, torch.Tensor):
         _check(weight, "weight", shape=(maps, m))
         w_ptr, w_scalar = weight.data_ptr(), 0.0
     else:
         w_ptr, w_scalar = None, float(weight)
     dev = points.device
-    out = torch.empty(maps * 28 * c, dtype=torch.float32, device=dev)
-    n2 = out[:maps * 4 * c].view(maps, 4, c)
-    s2 = out[maps * 4 * c:maps * 12 * c].view(maps, 4, c, 2)
-    ss2 = out[maps * 12 * c:].view(maps, 4, c, 2, 2)
+    # ss first, then s and n, as in halfcell_add: ss 16-byte aligned (K4s
+    # reads it in 16-byte vectors) whatever S x G x C is.
+    gc = maps * g * c
+    out = torch.empty(7 * gc, dtype=torch.float32, device=dev)
+    ss2 = out[:4 * gc].view(maps, g, c, 2, 2)
+    s2 = out[4 * gc:6 * gc].view(maps, g, c, 2)
+    n2 = out[6 * gc:].view(maps, g, c)
     if maps == 0:
         return n2, s2, ss2
-    _call("halfcell_add_launch", "halfcell_add_stacked",
+    _call("halfcell_add_launch", variant("halfcell_add_stacked", g),
           points.data_ptr(), mask.data_ptr(), w_ptr, w_scalar,
           _halfcell_scratch(dev, wh, hh, maps).data_ptr(), n.data_ptr(),
           s.data_ptr(), ss.data_ptr(), n2.data_ptr(), s2.data_ptr(),
           ss2.data_ptr(), maps, m, grid.nx, grid.ny, grid.x0, grid.y0,
-          *_frame(grid), 4, _stream(points))
+          *_frame(grid), g, _stream(points))
     return n2, s2, ss2
 
 
@@ -723,26 +720,27 @@ def finalize_pack(n, s, ss, ndt_cfg, grid, compact: bool = False
 def finalize_pack_stacked(n, s, ss, ndt_cfg, grid, compact: bool = False
                           ) -> torch.Tensor:
     """K4s: :func:`finalize_pack` of S maps in one launch (statistics with a
-    leading ``S`` axis), each map cut into K4's bands; returns the tables
-    ``[S, R, 32]``, table ``i`` bit-equal to :func:`finalize_pack` of map
-    ``i``. The published layout only: overlap 1 and ``compact`` raise
-    (ROADMAP B8b, B7b)."""
-    _stacked_layout("K4s finalize_pack_stacked", grid, compact)
+    leading ``S`` axis), in any layout; returns the tables ``[S, R, G*L]``,
+    table ``i`` bit-equal to :func:`finalize_pack` of map ``i``: each map
+    cut into K4's bands at overlap 4, one thread per cell at overlap 1."""
     wh, hh = _lattice(grid)
+    g, lanes = _layout(grid, compact)
     c = grid.n_cells
     maps = n.shape[0]
-    _check(n, "stats.n", shape=(maps, 4, c))
-    _check(s, "stats.s", shape=(maps, 4, c, 2), align=8)
-    _check(ss, "stats.ss", shape=(maps, 4, c, 2, 2), align=16)
-    table = torch.empty((maps, hh * wh, 32), dtype=torch.float32,
+    _check(n, "stats.n", shape=(maps, g, c))
+    _check(s, "stats.s", shape=(maps, g, c, 2), align=8)
+    _check(ss, "stats.ss", shape=(maps, g, c, 2, 2), align=16)
+    table = torch.empty((maps, hh * wh, g * lanes), dtype=torch.float32,
                         device=n.device)
     if maps == 0:
         return table
-    rows, bands, threads, smem = finalize_bands(grid, n.device)
-    _call("finalize_pack_launch", "finalize_pack_stacked",
+    bands = (finalize_bands(grid, n.device, compact) if g == 4
+             else (0, 0, 0, 0))
+    _call("finalize_pack_launch", variant("finalize_pack_stacked", g, lanes),
           n.data_ptr(), s.data_ptr(), ss.data_ptr(), table.data_ptr(), maps,
-          grid.nx, grid.ny, rows, bands, threads, float(ndt_cfg.min_pts),
-          ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min, smem, 4, 8, _stream(n))
+          grid.nx, grid.ny, *bands[:3], float(ndt_cfg.min_pts),
+          ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min, bands[3], g, lanes,
+          _stream(n))
     return table
 
 
@@ -1263,73 +1261,72 @@ def schur_local_assemble(ai, aj, r, ap, rp, row_ptr, tgt_col, tgt_ptr, code,
 def ndt_sgh_unpacked(poses, points, mask_f, mean, icov, valid, grid,
                      d2: float, exp_clip: float):
     """K12: the NDT terms of one scan ``points [N, 2]`` (``mask_f [N]``
-    f32) at every pose of ``poses [B, 3]`` on an unpacked overlap-4 map
-    (``mean [4, C, 2]``, ``icov [4, C, 2, 2]``, ``valid [4, C]``), one block
-    per pose (see ``csrc/ndt_unpacked.cu``). Returns ``(f [B], g [B, 3],
+    f32) at every pose of ``poses [B, 3]`` on an unpacked map of ``G =
+    overlap`` grids (``mean [G, C, 2]``, ``icov [G, C, 2, 2]``, ``valid [G,
+    C]``), one block per pose (see ``csrc/ndt_unpacked.cu``; counted as
+    ``ndt_sgh_unpacked[g1]`` at overlap 1). Returns ``(f [B], g [B, 3],
     H [B, 3, 3], score [B])``, views of one ``[B, 14]`` allocation."""
-    if grid.overlap != 4:
-        raise NotImplementedError(
-            "K12 takes overlap=4 maps only; overlap=1 for config 5 on the "
-            "card is ROADMAP Queue B (B8b)")
-    c = grid.n_cells
+    g, c = grid.overlap, grid.n_cells
     b, n = poses.shape[0], points.shape[0]
     _check(poses, "poses", shape=(b, 3))
     _check(points, "points", shape=(n, 2), align=8)
     _check(mask_f, "mask", shape=(n,))
-    _check(mean, "mean", shape=(4, c, 2), align=8)
-    _check(icov, "icov", shape=(4, c, 2, 2), align=16)
-    _check(valid, "valid", shape=(4, c))
+    _check(mean, "mean", shape=(g, c, 2), align=8)
+    _check(icov, "icov", shape=(g, c, 2, 2), align=16)
+    _check(valid, "valid", shape=(g, c))
     out = torch.empty((b, 14), dtype=torch.float32, device=poses.device)
     if b > 0:
-        _call("ndt_sgh_unpacked_launch", "ndt_sgh_unpacked",
+        _call("ndt_sgh_unpacked_launch", variant("ndt_sgh_unpacked", g),
               poses.data_ptr(), points.data_ptr(), mask_f.data_ptr(),
               mean.data_ptr(), icov.data_ptr(), valid.data_ptr(),
               out.data_ptr(), b, n, grid.nx, grid.ny, grid.x0, grid.y0,
-              grid.cell, d2, exp_clip, _stream(poses))
+              grid.cell, d2, exp_clip, g, _stream(poses))
     return out[:, 0], out[:, 1:4], out[:, 4:13].view(b, 3, 3), out[:, 13]
 
 
-def _slab_scratch(dev: torch.device, width: int, ny: int) -> torch.Tensor:
-    """K10a's int64 ``[4, width, ny, 6]`` sums, allocated once per (device,
-    slab shape) and kept: every call zeroes them on its own stream first,
-    so two calls on one stream never overlap on them (two streams would:
-    ROADMAP C-w6)."""
-    key = (dev.index, width, ny)
+def _slab_scratch(dev: torch.device, grids: int, width: int,
+                  ny: int) -> torch.Tensor:
+    """K10a's int64 ``[G, width, ny, 6]`` sums, allocated once per (device,
+    grid count, slab shape) and kept: every call zeroes them on its own
+    stream first, so two calls on one stream never overlap on them (two
+    streams would: ROADMAP C-w6)."""
+    key = (dev.index, grids, width, ny)
     buf = _SLAB_SCRATCH.get(key)
     if buf is None:
-        buf = torch.empty(4 * width * ny * 6, dtype=torch.int64, device=dev)
+        buf = torch.empty(grids * width * ny * 6, dtype=torch.int64,
+                          device=dev)
         _SLAB_SCRATCH[key] = buf
     return buf
 
 
 def slab_accumulate(points, mask, grid, x_lo: int, width: int):
-    """K10a: the slab statistics ``(n [4, width, ny], s [.., 2], ss [.., 2,
-    2])`` of grid columns ``[x_lo, x_lo + width)`` from ``points [M, 2]``
-    (f32) and ``mask [M]`` (bool), each point counted in the cell of each
-    overlap grid that ``ndt.grid.cell_ids`` gives it, if that cell is in
-    the map and in the slab (see ``csrc/slab_accum.cu``). Summed in 64-bit
-    fixed point: the same result on every run and under any order of the
-    points. One ctypes call (zero the kept scratch, scatter, moments), one
-    ``LAUNCHES["slab_accumulate"]``."""
-    if grid.overlap != 4:
-        raise NotImplementedError(
-            "K10a takes overlap=4 grids only; overlap=1 for config 5 on the "
-            "card is ROADMAP Queue B (B8b)")
+    """K10a: the slab statistics ``(n [G, width, ny], s [.., 2], ss [.., 2,
+    2])`` (``G = overlap``) of grid columns ``[x_lo, x_lo + width)`` from
+    ``points [M, 2]`` (f32) and ``mask [M]`` (bool), each point counted in
+    the cell of each overlap grid that ``ndt.grid.cell_ids`` gives it, if
+    that cell is in the map and in the slab (see ``csrc/slab_accum.cu``).
+    Summed in 64-bit fixed point: the same result on every run and under
+    any order of the points. One ctypes call (zero the kept scratch,
+    scatter, moments), one ``LAUNCHES["slab_accumulate"]`` (``[g1]`` at
+    overlap 1)."""
     if width < 1:
         raise ValueError(f"slab_accumulate: width {width} < 1")
     m = points.shape[0]
     _check(points, "points", shape=(m, 2), align=8)
     _check(mask, "mask", dtype=torch.bool, shape=(m,), align=1)
-    dev, ny = points.device, grid.ny
-    c = 4 * width * ny
+    dev, g, ny = points.device, grid.overlap, grid.ny
+    # ss first, then s and n: the kernel stores ss as float4 and s as
+    # float2, aligned whatever G x width x ny is.
+    c = g * width * ny
     out = torch.empty(7 * c, dtype=torch.float32, device=dev)
-    n = out[:c].view(4, width, ny)
-    s = out[c:3 * c].view(4, width, ny, 2)
-    ss = out[3 * c:].view(4, width, ny, 2, 2)
-    _call("slab_accum_launch", "slab_accumulate", points.data_ptr(),
-          mask.data_ptr(), _slab_scratch(dev, width, ny).data_ptr(),
-          n.data_ptr(), s.data_ptr(), ss.data_ptr(), m, grid.nx, ny, x_lo,
-          width, grid.x0, grid.y0, grid.cell, _stream(points))
+    ss = out[:4 * c].view(g, width, ny, 2, 2)
+    s = out[4 * c:6 * c].view(g, width, ny, 2)
+    n = out[6 * c:].view(g, width, ny)
+    _call("slab_accum_launch", variant("slab_accumulate", g),
+          points.data_ptr(), mask.data_ptr(),
+          _slab_scratch(dev, g, width, ny).data_ptr(), n.data_ptr(),
+          s.data_ptr(), ss.data_ptr(), m, grid.nx, ny, x_lo, width, grid.x0,
+          grid.y0, grid.cell, g, _stream(points))
     return n, s, ss
 
 
@@ -1359,29 +1356,27 @@ def slab_sgh(poses, points, mask_f, mean, icov, valid, grid, x_lo: int,
              d2: float, exp_clip: float) -> torch.Tensor:
     """K10c: the 15 raw NDT sums ``(f, wsum, w0sum, g [3], H [9])`` of one
     scan ``points [N, 2]`` (``mask_f [N]`` f32) at each pose of ``poses [B,
-    3]`` over one rank's slab of an overlap-4 map (``mean [4, nx_local, ny,
-    2]``, ``icov [.., 2, 2]``, ``valid [4, nx_local, ny]``, ix-major, grid
-    columns ``[x_lo, x_lo + nx_local)``), one block per pose (see
-    ``csrc/ndt_unpacked.cu``): ``[B, 15]``."""
-    if grid.overlap != 4:
-        raise NotImplementedError(
-            "K10c takes overlap=4 maps only; overlap=1 for config 5 on the "
-            "card is ROADMAP Queue B (B8b)")
-    nxl, ny = valid.shape[1], grid.ny
+    3]`` over one rank's slab of a map of ``G = overlap`` grids (``mean [G,
+    nx_local, ny, 2]``, ``icov [.., 2, 2]``, ``valid [G, nx_local, ny]``,
+    ix-major, grid columns ``[x_lo, x_lo + nx_local)``), one block per pose
+    (see ``csrc/ndt_unpacked.cu``; counted as ``slab_sgh[g1]`` at overlap
+    1): ``[B, 15]``."""
+    g, ny = grid.overlap, grid.ny
+    nxl = valid.shape[1]
     b, n = poses.shape[0], points.shape[0]
     _check(poses, "poses", shape=(b, 3))
     _check(points, "points", shape=(n, 2), align=8)
     _check(mask_f, "mask", shape=(n,))
-    _check(valid, "valid", shape=(4, nxl, ny))
-    _check(mean, "mean", shape=(4, nxl, ny, 2), align=8)
-    _check(icov, "icov", shape=(4, nxl, ny, 2, 2), align=16)
+    _check(valid, "valid", shape=(g, nxl, ny))
+    _check(mean, "mean", shape=(g, nxl, ny, 2), align=8)
+    _check(icov, "icov", shape=(g, nxl, ny, 2, 2), align=16)
     out = torch.empty((b, 15), dtype=torch.float32, device=poses.device)
     if b > 0:
-        _call("slab_sgh_launch", "slab_sgh", poses.data_ptr(),
+        _call("slab_sgh_launch", variant("slab_sgh", g), poses.data_ptr(),
               points.data_ptr(), mask_f.data_ptr(), mean.data_ptr(),
               icov.data_ptr(), valid.data_ptr(), out.data_ptr(), b, n,
               grid.nx, ny, x_lo, nxl, grid.x0, grid.y0, grid.cell, d2,
-              exp_clip, _stream(poses))
+              exp_clip, g, _stream(poses))
     return out
 
 

@@ -9,9 +9,11 @@
 //
 // One block per pose b, threads over the N beams of the one scan (read once
 // per block from L2: no [B, N] copy). Per beam: the transform, then for
-// each of the 4 overlap grids the cell index exactly as cell_ids computes
-// it (((x - x0) - shift) / cell, floor, in-bounds test; the per-grid
-// shift, unlike the quad lattice's shared half-cell index), a gather of the
+// each of the kG overlap grids (4, or 1 at overlap 1; the shifts of
+// ndtpu/ndt/grid.py::_grid_offsets :78-86, (0, 0) alone at overlap 1) the
+// cell index exactly as cell_ids computes it (((x - x0) - shift) / cell,
+// floor, in-bounds test; the per-grid shift, unlike the quad lattice's
+// shared half-cell index), a gather of the
 // cell's mean (float2), inverse covariance (float4, its three unique
 // entries used) and valid flag, and the 11 sums of ndt_sums.cuh's
 // ndt_add_terms. A beam that is masked, out of a grid or in an invalid
@@ -33,11 +35,16 @@
 // the same on every launch. match_slab launches it once per LM evaluation
 // with B = 1.
 //
+// Both kernels are templates on kG, the grid count of the map ([kG, C,
+// ...] for K12, [kG, nx_local, ny, ...] ix-major for K10c); each is its own
+// instantiation, counted apart by the wrappers (ndt_sgh_unpacked[g1],
+// slab_sgh[g1]). The block reduction is the same at either kG.
+//
 // What bounds it on Hopper: the operations, ~300 f32 flops per in-map
-// beam (the map, 7 MB at config 5's 4 x 65,536 cells, stays in the 50 MB
-// L2); the cell gathers are dependent loads, so latency-bound below a few
-// thousand poses. Built with --fmad=false like the plain version's
-// separate elementwise ops.
+// beam at kG = 4, ~90 at kG = 1 (the map, 7 MB at config 5's 4 x 65,536
+// cells, stays in the 50 MB L2); the cell gathers are dependent loads, so
+// latency-bound below a few thousand poses. Built with --fmad=false like
+// the plain version's separate elementwise ops.
 
 #include <cuda_runtime.h>
 
@@ -65,6 +72,7 @@ __device__ __forceinline__ void write_fgh(float* o, const float* sums,
   o[10] = h02; o[11] = h12; o[12] = h22;
 }
 
+template <int kG>
 __global__ void __launch_bounds__(kNdtThreads)
 ndt_sgh_unpacked_kernel(const float* __restrict__ poses,
                         const float2* __restrict__ pts,
@@ -102,7 +110,7 @@ ndt_sgh_unpacked_kernel(const float* __restrict__ poses,
     const float rx = x - tx;
     const float ry = y - ty;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
+    for (int g = 0; g < kG; ++g) {
       const float ox = (g & 1) ? h : 0.f;
       const float oy = (g & 2) ? h : 0.f;
       const float fx = floorf(((x - x0) - ox) / cell);
@@ -128,8 +136,9 @@ ndt_sgh_unpacked_kernel(const float* __restrict__ poses,
   }
 }
 
-// K10c: the rank's raw sums over its slab [G, nx_local, ny] (ix-major),
+// K10c: the rank's raw sums over its slab [kG, nx_local, ny] (ix-major),
 // grid columns [x_lo, x_lo + nx_local).
+template <int kG>
 __global__ void __launch_bounds__(kNdtThreads)
 slab_sgh_kernel(const float* __restrict__ poses,
                 const float2* __restrict__ pts,
@@ -166,7 +175,7 @@ slab_sgh_kernel(const float* __restrict__ poses,
     const float rx = x - tx;
     const float ry = y - ty;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
+    for (int g = 0; g < kG; ++g) {
       const float ox = (g & 1) ? h : 0.f;
       const float oy = (g & 2) ? h : 0.f;
       const float fx = floorf(((x - x0) - ox) / cell);
@@ -201,15 +210,19 @@ slab_sgh_kernel(const float* __restrict__ poses,
 
 }  // namespace
 
+// `grids` = 4 or 1: the map's overlap grids ([grids, C, ...]).
 extern "C" int ndt_sgh_unpacked_launch(const void* poses, const void* pts,
                                        const void* mask, const void* mean,
                                        const void* icov, const void* valid,
                                        void* out, int b, int n, int nx,
                                        int ny, float x0, float y0,
                                        float cell, float d2, float exp_clip,
-                                       void* stream) {
-  if (b < 1 || n < 0 || nx < 1 || ny < 1) return (int)cudaErrorInvalidValue;
-  ndt_sgh_unpacked_kernel<<<b, kNdtThreads, 0, (cudaStream_t)stream>>>(
+                                       int grids, void* stream) {
+  if (b < 1 || n < 0 || nx < 1 || ny < 1 || (grids != 4 && grids != 1))
+    return (int)cudaErrorInvalidValue;
+  auto* kernel = grids == 4 ? &ndt_sgh_unpacked_kernel<4>
+                            : &ndt_sgh_unpacked_kernel<1>;
+  kernel<<<b, kNdtThreads, 0, (cudaStream_t)stream>>>(
       (const float*)poses, (const float2*)pts, (const float*)mask,
       (const float2*)mean, (const float4*)icov, (const float*)valid,
       (float*)out, n, nx, ny, x0, y0, cell, d2, exp_clip);
@@ -221,10 +234,13 @@ extern "C" int slab_sgh_launch(const void* poses, const void* pts,
                                const void* icov, const void* valid, void* out,
                                int b, int n, int nx, int ny, int x_lo,
                                int nx_local, float x0, float y0, float cell,
-                               float d2, float exp_clip, void* stream) {
-  if (b < 1 || n < 0 || nx < 1 || ny < 1 || nx_local < 1)
+                               float d2, float exp_clip, int grids,
+                               void* stream) {
+  if (b < 1 || n < 0 || nx < 1 || ny < 1 || nx_local < 1 ||
+      (grids != 4 && grids != 1))
     return (int)cudaErrorInvalidValue;
-  slab_sgh_kernel<<<b, kNdtThreads, 0, (cudaStream_t)stream>>>(
+  auto* kernel = grids == 4 ? &slab_sgh_kernel<4> : &slab_sgh_kernel<1>;
+  kernel<<<b, kNdtThreads, 0, (cudaStream_t)stream>>>(
       (const float*)poses, (const float2*)pts, (const float*)mask,
       (const float2*)mean, (const float4*)icov, (const float*)valid,
       (float*)out, n, nx, ny, x_lo, nx_local, x0, y0, cell, d2, exp_clip);

@@ -1,5 +1,6 @@
 // K10a slab_accumulate: the moment sums of masked points in the cells of
-// an x-slab of every overlap grid, in 64-bit fixed point relative to each
+// an x-slab of every overlap grid (4, or 1 at overlap 1), in 64-bit fixed
+// point relative to each
 // cell (halfcell_fixed.cuh's arithmetic on full cells), so the slab map is
 // the same on every run and under any order of the points.
 //
@@ -15,8 +16,11 @@
 // and last rank); its local flat cell id is (g * width + ix - x_lo) * ny +
 // iy. One C call (slab_accum_launch) enqueues on the caller's stream:
 //   1. cudaMemsetAsync of the int64 [G, width, ny, 6] scratch, which the
-//      wrapper allocates once per (device, width, ny) and keeps;
-//   2. the scatter, one thread per (grid, point) (grid = blockIdx.y): the
+//      wrapper allocates once per (device, G, width, ny) and keeps;
+//   2. the scatter, one thread per (grid, point) (grid = blockIdx.y < G;
+//      grid g's shift is (g & 1, g >> 1) half cells, so at G = 1 the one
+//      grid is grid 0, unshifted, as ndtpu/ndt/grid.py::_grid_offsets
+//      :78-86 has it): the
 //      cell as ndtpu/ndt/grid.py::cell_ids computes it in f32
 //      (halfcell_fixed.cuh's cell_bin: floor(((x - x0) - off) / cell), the
 //      in-bounds test on the unclamped index, then the clamp; K3 at
@@ -105,23 +109,25 @@ slab_moments_kernel(const long long* __restrict__ acc,
 
 }  // namespace
 
-// points [m, 2] f32, mask [m] bool; acc the int64 [4, width, ny, 6]
-// scratch; n_out [4, width, ny], s_out [.., 2], ss_out [.., 2, 2] f32.
+// points [m, 2] f32, mask [m] bool; `grids` = 4 or 1 overlap grids; acc
+// the int64 [grids, width, ny, 6] scratch; n_out [grids, width, ny], s_out
+// [.., 2], ss_out [.., 2, 2] f32.
 extern "C" int slab_accum_launch(const void* pts, const void* mask, void* acc,
                                  void* n_out, void* s_out, void* ss_out,
                                  int m, int nx, int ny, int x_lo, int width,
                                  double x0, double y0, double cell,
-                                 void* stream) {
+                                 int grids, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (m < 0 || nx < 1 || ny < 1 || width < 1) return (int)cudaErrorInvalidValue;
+  if (m < 0 || nx < 1 || ny < 1 || width < 1 || (grids != 4 && grids != 1))
+    return (int)cudaErrorInvalidValue;
   const SlabArgs a{(float)x0, (float)y0, (float)cell, (float)(cell / 2.0),
                    x0, y0, cell, 1.0 / cell, nx, ny, x_lo, width};
-  const int cells = 4 * width * ny;
+  const int cells = grids * width * ny;
   cudaError_t err =
       cudaMemsetAsync(acc, 0, (size_t)cells * 6 * sizeof(long long), st);
   if (err != cudaSuccess) return (int)err;
   if (m > 0) {
-    const dim3 blocks((m + kThreads - 1) / kThreads, 4);
+    const dim3 blocks((m + kThreads - 1) / kThreads, grids);
     slab_scatter_kernel<<<blocks, kThreads, 0, st>>>(
         (const float2*)pts, (const uint8_t*)mask, (unsigned long long*)acc, m,
         a);

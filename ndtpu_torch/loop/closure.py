@@ -371,10 +371,9 @@ def verify_candidates(kf: KeyframeStore, query_points, query_mask,
     one K3s launch on the card) and packed (``finalize_pack_stacked``: one
     K4s launch); lane ``c`` registers the query against table ``c`` (one
     gated ``lm_ndt`` launch on the card, ``group`` = lane), then the gate.
-    The match config is used as given. On the card the local maps take the
-    published layout only (K3s and K4s raise on ``local_overlap = 1`` and
-    ``compact_table``: ROADMAP B8b, B7b). Returns a ``[C]``
-    ``LoopResult``."""
+    The match config is used as given; every table layout
+    (``local_overlap``, ``compact_table``) runs on the card. Returns a
+    ``[C]`` ``LoopResult``."""
     if query_index is None:
         query_index = kf.n
     lgrid = local_grid_config(loop_cfg)

@@ -462,21 +462,15 @@ def add_points_stacked(stats8: NDTStats, points, mask, grid: GridConfig,
                        weight=1.0) -> NDTStats:
     """:func:`add_points` for S maps at once: statistics with a leading
     session axis, points ``[S, M, 2]``, mask ``[S, M]``, ``weight`` a scalar
-    or ``[S, M]``. Overlap-4 grids go through :func:`halfcell_add_stacked`
-    (one K3s launch on the card); overlap 1 is plain torch on the CPU only
-    (K3s at overlap 1 is ROADMAP B8b)."""
-    if grid.overlap == 4:
-        return halfcell_add_stacked(stats8, points, mask, weight, grid)
-    if points.is_cuda:
-        kernels._stacked_layout("K3s halfcell_add_stacked", grid)
-    return _stack_maps([add_points(_map(stats8, i), points[i], mask[i], grid,
-                                   _weight_of(weight, i))
-                        for i in range(points.shape[0])])
+    or ``[S, M]``, at either overlap: :func:`halfcell_add_stacked` (one K3s
+    launch on the card)."""
+    return halfcell_add_stacked(stats8, points, mask, weight, grid)
 
 
 def halfcell_add_stacked_ref(stats8: NDTStats, points, mask, weight,
                              grid: GridConfig) -> NDTStats:
-    """Plain twin of K3s: :func:`halfcell_add_ref` per map."""
+    """Plain twin of K3s: :func:`halfcell_add_ref` per map (at overlap 1
+    ``add_points``' segment sum, the JAX package's route)."""
     return _stack_maps([halfcell_add_ref(_map(stats8, i), points[i], mask[i],
                                          _weight_of(weight, i), grid)
                         for i in range(points.shape[0])])

@@ -12,6 +12,10 @@ Run from the root of a checkout, on a machine with one CUDA card::
     python3 profile_port.py --layouts [--seed 0] [--out FILE.json]
     python3 profile_port.py --serving [--sessions 8] [--max-scans 300]
                             [--runs 3] [--out FILE.json]
+    python3 profile_port.py --serving-layouts [--sessions 8]
+                            [--max-scans 300] [--seed 0] [--out FILE.json]
+    python3 profile_port.py --serving-steps serving_overlap1 [--sessions 8]
+                            [--max-scans 300] [--out FILE.json]
 
 On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
 300 scans, 360 beams), after two warm-up runs of ``run_slam_windowed``:
@@ -65,6 +69,14 @@ of K1, ``lm_ndt`` shared and grouped, the gated verify, K3, K4 and K8a in
 every table layout: overlap 1, compact rows, both, and the published
 one).
 
+``--serving-steps LAYOUT`` runs only :func:`serving_steps` (the serve's
+runs in a table layout, and each stacked window step on the card against
+the plain f32 step from the same state).
+
+``--serving-layouts`` runs only :func:`serving_layout_times` (event and
+card ms per call of K3s and K4s in every table layout at the serving
+path's shapes, and of K12, K10a and K10c at both overlaps at config 5's).
+
 Prints one line per section and, last, one JSON object with every number
 (also written to ``--out``). Fails without a card: no number here comes
 from the CPU.
@@ -86,22 +98,26 @@ def card_ms(fn, names=None, reps: int = 20):
     """Card time per call of ``fn`` (ms): the device time of the kernels
     (and memsets, copies) whose names contain one of ``names``, or of all of
     them for None, summed over ``reps`` calls under ``torch.profiler`` after
-    a warm-up and divided by ``reps``; None when the profiler records no
-    such device time."""
+    a warm-up and divided by ``reps``; None when three sessions in a row
+    record no such device time (late in a long process, with many sessions
+    before it, a session sometimes records no device event at all)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and (names is None or any(n in e.name for n in names)))
-    return us / 1e3 / reps if us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and (names is None or any(n in e.name for n in names)))
+        if us > 0:
+            return us / 1e3 / reps
+    return None
 
 
 def seeded_stats(grid, seed: int, dev, n_points: int = 400_000):
@@ -301,6 +317,218 @@ def layout_times(seed: int, dev) -> dict:
     for key, (fn, names) in calls.items():
         out[key]["card_ms"] = card_ms(fn, names)
     return out
+
+
+def serving_layout_times(seed: int, dev, sessions: int, n_scans: int
+                         ) -> dict:
+    """Event ms (median of 20 synchronized calls) and card ms (profiler,
+    mean of 20) per call of the kernels that stacked serving and config 5
+    run in every table layout, in a process of its own (see
+    :func:`layout_times`): K3s at both overlaps at the serving path's
+    window and refresh shapes (and the overlap-1 rebuild of each session's
+    keyframes) and K4s in each layout of ``kernels.LAYOUTS``, on the state
+    of one stacked run of ``sessions`` x ``n_scans`` of
+    ``configs/config_serving.json``; K12 at config 5's 4,624 hypotheses,
+    K10a at a halo-extended slab of 368,640 points and K10c at one pose,
+    each at both overlaps on a map of ``configs/config5_multisession.json``
+    from ``seed``. Every event time is read before the first profiler
+    session."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import CONFIG5, box_sequence, time_ms
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.dist import gridmap
+    from ndtpu_torch.lie import se2
+    from ndtpu_torch.ndt import grid as ndt_grid
+    from ndtpu_torch.slam import merge
+
+    inputs, cfg, _ = serving_inputs(dev, sessions, n_scans)
+    state8, _ = serving_once(inputs, cfg)[1]
+    kf, s = state8.kf, sessions
+    w, m_top = cfg.window, cfg.refresh_top_m
+    win = se2.transform(kf.poses[:, :w], kf.points[:, :w]).reshape(s, -1, 2)
+    win_m = kf.masks[:, :w].reshape(s, -1).contiguous()
+    old = se2.transform(kf.poses[:, :m_top], kf.points[:, :m_top])
+    new = se2.transform(kf.poses[:, :m_top] + torch.tensor(
+        [0.02, -0.01, 0.003], device=dev), kf.points[:, :m_top])
+    ref_pts = torch.cat([old.reshape(s, -1, 2), new.reshape(s, -1, 2)],
+                        1).contiguous()
+    ref_m = kf.masks[:, :m_top].reshape(s, -1).repeat(1, 2).contiguous()
+    half = ref_pts.shape[1] // 2
+    wts = torch.cat([-torch.ones(s, half, device=dev),
+                     torch.ones(s, half, device=dev)], 1).contiguous()
+    world = se2.transform(kf.poses, kf.points).reshape(s, -1, 2).contiguous()
+    live = (kf.masks & kf.live[..., None]).reshape(s, -1).contiguous()
+    g1 = dataclasses.replace(cfg.grid, overlap=1)
+    empty1 = ndt_grid.NDTStats(*(x.expand((s,) + x.shape).contiguous()
+                                 for x in ndt_grid.empty_stats(
+                                     g1, torch.float32, dev)))
+    stats = {4: state8.stats,
+             1: ndt_grid.halfcell_add_stacked(empty1, world, live, 1.0, g1)}
+    grids = {4: cfg.grid, 1: g1}
+    calls = {}
+    for g in (4, 1):
+        st, gr = stats[g], grids[g]
+        k3s = kernels.variant("halfcell_add_stacked", g)
+        for label, p, m, wt in (("window", win.contiguous(), win_m, 1.0),
+                                ("refresh", ref_pts, ref_m, wts)):
+            calls[f"{k3s} {label}"] = (
+                lambda st=st, gr=gr, p=p, m=m, wt=wt:
+                kernels.halfcell_add_stacked(st.n, st.s, st.ss, p, m, wt, gr),
+                ["halfcell", "cell_moments", "Memset"])
+    calls[kernels.variant("halfcell_add_stacked", 1) + " rebuild"] = (
+        lambda: kernels.halfcell_add_stacked(*empty1, world, live, 1.0, g1),
+        ["halfcell", "cell_moments", "Memset"])
+    for g, lanes in kernels.LAYOUTS:
+        st, gr = stats[g], grids[g]
+        calls[kernels.variant("finalize_pack_stacked", g, lanes)] = (
+            lambda st=st, gr=gr, cp=lanes == 4: kernels.finalize_pack_stacked(
+                st.n, st.s, st.ss, cfg.ndt, gr, cp), ["finalize_pack"])
+    # Config 5's kernels on a seeded map of its grid, at both overlaps.
+    cfg5 = PipelineConfig.from_json(str(CONFIG5))
+    seq = box_sequence(seed, cfg5.n_beams)
+    probe = seq.points[0].to(dev).contiguous()
+    probe_m = seq.mask[0].to(dev).contiguous()
+    hyp = merge._hypothesis_grid(8.0, 1.0, 16, torch.float32, dev)
+    rng = np.random.default_rng(seed + 14)
+    lo = np.array([cfg5.grid.x0, cfg5.grid.y0])
+    span = np.array([cfg5.grid.nx, cfg5.grid.ny]) * cfg5.grid.cell
+    centers = lo + rng.uniform(0.3, 0.7, (2000, 2)) * span
+    pts5 = torch.as_tensor(centers[rng.integers(0, 2000, 368_640)]
+                           + rng.normal(0.0, 0.6, (368_640, 2)),
+                           dtype=torch.float32, device=dev).contiguous()
+    msk5 = torch.ones(368_640, dtype=torch.bool, device=dev)
+    nxl, halo = cfg5.grid.nx // 2, 44
+    pose1 = torch.zeros((1, 3), device=dev)
+    for g in (4, 1):
+        gr = dataclasses.replace(cfg5.grid, overlap=g)
+        m5 = ndt_grid.finalize(seeded_stats(gr, seed, dev), cfg5.ndt)
+        slab = gridmap.SlabMap(*(x[:, :nxl].contiguous() for x in
+                                 gridmap.dense_to_slab(m5, gr)))
+        calls[kernels.variant("ndt_sgh_unpacked", g) + " coarse"] = (
+            lambda m5=m5, gr=gr: kernels.ndt_sgh_unpacked(
+                hyp, probe, probe_m.float(), *m5, gr, cfg5.match.d2,
+                cfg5.match.exp_clip), ["ndt_sgh_unpacked"])
+        calls[kernels.variant("slab_accumulate", g) + " halo-extended"] = (
+            lambda gr=gr: kernels.slab_accumulate(pts5, msk5, gr, -halo,
+                                                  nxl + 2 * halo),
+            ["slab_scatter", "slab_moments", "Memset"])
+        calls[kernels.variant("slab_sgh", g) + " B=1"] = (
+            lambda slab=slab, gr=gr: kernels.slab_sgh(
+                pose1, probe, probe_m.float(), *slab, gr, 0, cfg5.match.d2,
+                cfg5.match.exp_clip), ["slab_sgh"])
+    out = {key: dict(ms=time_ms(fn)) for key, (fn, _) in calls.items()}
+    for key, (fn, names) in calls.items():
+        out[key]["card_ms"] = card_ms(fn, names)
+    return out
+
+
+def serving_steps(dev, layout: str, sessions: int, n_scans: int) -> dict:
+    """Stacked serving in a table layout of ``chip_smoke.SERVING_LAYOUT_RUNS``
+    (or ``published``): each session's ATE and loops in the runs ``python
+    -m ndtpu_torch.serve`` makes (the inputs as given, then moved by its
+    three 1e-6 m offsets), and, on the last run's inputs, every stacked
+    window step on the card against the plain f32 step on the host from a
+    copy of the same state: the largest pose and graph difference per
+    window and session, whether the keyframe and loop decisions differ,
+    and the card's per-scan pose error against the truth in the session's
+    start frame (the drift). A kernel fault shows as a window far apart;
+    roundoff near an LM or gate tie as small differences (ROADMAP
+    C-w1b)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import SERVING, SERVING_LAYOUT_RUNS, layout_json
+    from ndtpu_torch import serve
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.dist import slam_dp
+    from ndtpu_torch.eval.ate import ate_rmse
+    from ndtpu_torch.lie import se2
+    from ndtpu_torch.slam import pipeline
+
+    changes = dict(SERVING_LAYOUT_RUNS).get(layout, {})
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "config.json"
+        path.write_text(json.dumps(layout_json(SERVING, changes)))
+        cfg = PipelineConfig.from_json(str(path))
+    scfg = slam_dp.serving_config(cfg)
+    scfg = dataclasses.replace(scfg, keyframe=dataclasses.replace(
+        scfg.keyframe, capacity=serve.auto_capacity(cfg, n_scans)))
+    seqs = serve.synthetic_sessions(cfg, sessions, n_scans, device=dev)
+    points, mask, odom, _ = serve.pad_sessions(seqs)
+    rng = np.random.default_rng(cfg.seed)
+    shifts = [0.0] + [float(rng.normal(0.0, 1e-6)) for _ in range(3)]
+    runs = []
+    for sh in shifts:
+        st, outs = slam_dp.run_sessions_stacked(points + sh, mask, odom,
+                                                scfg)
+        traj = serve.trajectories(st, outs).cpu()
+        runs.append(dict(shift_m=sh, loops=st.n_loops.tolist(), ate_m=[
+            float(ate_rmse(traj[k], seqs[k].gt_poses.to(traj)))
+            for k in range(sessions)]))
+        print(f"[profile] serving {layout} shift {sh:+.3e} m: ATE "
+              + " ".join(f"{a:.4f}" for a in runs[-1]["ate_m"])
+              + f"; loops {runs[-1]['loops']}", flush=True)
+
+    def to_cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().clone()
+        if isinstance(x, tuple):
+            items = [to_cpu(y) for y in x]
+            return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+        return x
+
+    pts = points + shifts[-1]
+    state = slam_dp.init_sessions(pts[:, 0], mask[:, 0], scfg)
+    wins = [pipeline.window_inputs(pts[i], mask[i], odom[i], scfg.window)
+            for i in range(sessions)]
+    pts_w, msk_w, odo_w = (torch.stack(f, 1).contiguous()
+                           for f in list(zip(*wins))[:3])
+    gt = torch.stack([q.gt_poses for q in seqs]).to(dev)
+    truth = se2.between(gt[:, :1].expand_as(gt), gt)   # the start frame
+    carry, windows = (state, state.pose), []
+    for k in range(pts_w.shape[0]):
+        cpu_state, cpu_lkr = to_cpu(carry[0]), to_cpu(carry[1])
+        card, out_c = slam_dp._stacked_window_step(
+            carry[0], carry[1], pts_w[k], msk_w[k], odo_w[k], scfg)
+        plain, out_p = slam_dp._stacked_window_step(
+            cpu_state, cpu_lkr, pts_w[k].cpu(), msk_w[k].cpu(),
+            odo_w[k].cpu(), scfg)
+        d = out_c.pose.cpu() - out_p.pose
+        d[..., 2] = torch.remainder(d[..., 2] + np.pi, 2 * np.pi) - np.pi
+        gd = card[0].graph.poses.cpu() - plain[0].graph.poses
+        w = scfg.window
+        ref = truth[:, 1 + k * w:1 + (k + 1) * w, :2]
+        drift = (out_c.pose[:, :ref.shape[1], :2] - ref).norm(dim=-1)
+        windows.append(dict(
+            drift_m=drift.amax(1).tolist(),
+            pose_diff=d.abs().amax(dim=(1, 2)).tolist(),
+            graph_diff=gd.abs().amax(dim=(1, 2)).tolist(),
+            keyframes_differ=(out_c.is_keyframe.cpu()
+                              != out_p.is_keyframe).any(1).tolist(),
+            loops_card=out_c.n_loops_new.sum(1).tolist(),
+            loops_plain=out_p.n_loops_new.sum(1).tolist()))
+        carry = card
+    worst = max(max(w["pose_diff"]) for w in windows)
+    print(f"[profile] serving {layout}: drift per window (m, session by "
+          f"session): " + "; ".join(
+              f"{k} " + " ".join(f"{x:.3f}" for x in w["drift_m"])
+              for k, w in enumerate(windows)))
+    print(f"[profile] serving {layout}: card window steps vs the plain f32 "
+          f"steps from the same states, largest pose difference {worst:.3e} "
+          f"m; windows over 1e-3 m: "
+          + str([(k, [round(x, 5) for x in w["pose_diff"]])
+                 for k, w in enumerate(windows)
+                 if max(w["pose_diff"]) > 1e-3]))
+    return dict(layout=layout, runs=runs, windows=windows,
+                max_window_pose_diff_m=worst)
 
 
 def shadow_run(inputs, cfg):
@@ -861,6 +1089,15 @@ def main(argv=None) -> int:
     parser.add_argument("--serving", action="store_true",
                         help="profile stacked serving (serving_profile) "
                         "and nothing else")
+    parser.add_argument("--serving-steps", default=None, metavar="LAYOUT",
+                        help="serving in a layout of chip_smoke."
+                        "SERVING_LAYOUT_RUNS (or 'published'): the serve's "
+                        "runs and each window step against the plain f32 "
+                        "step (serving_steps), and nothing else")
+    parser.add_argument("--serving-layouts", action="store_true",
+                        help="time K3s/K4s and config 5's K12, K10a, K10c "
+                        "in every layout (serving_layout_times) and nothing "
+                        "else")
     parser.add_argument("--scan", action="store_true",
                         help="profile the per-scan path and its inputs "
                         "(scan_profile) and nothing else")
@@ -901,6 +1138,18 @@ def main(argv=None) -> int:
         kernels.build()
         result = dict(card=smi, scan=scan_profile(dev, args.config,
                                                   args.seed, args.runs))
+        return _emit(result, smi, args.out)
+    if args.serving_steps:
+        kernels.build()
+        result = dict(card=smi, serving_steps=serving_steps(
+            dev, args.serving_steps, args.sessions, args.max_scans))
+        return _emit(result, smi, args.out)
+    if args.serving_layouts:
+        kernels.build()
+        result = dict(card=smi, serving_layouts=serving_layout_times(
+            args.seed, dev, args.sessions, args.max_scans))
+        for key, row in result["serving_layouts"].items():
+            print(f"[profile] {key}: {row}")
         return _emit(result, smi, args.out)
     if args.serving:
         kernels.build()

@@ -218,12 +218,11 @@ def test_wrappers_take_the_twin_on_cpu_and_kernels_refuse_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.halfcell_add(st.n, st.s, st.ss, _t(pts).float(), _t(mask),
                              1.0, G4)
-    # Every table layout has a kernel now (overlap 1 too): it refuses the
-    # CPU tensor, not the layout. The stacked serving kernels still take the
-    # published layout only.
+    # Every table layout has a kernel now (overlap 1 too), the stacked
+    # serving kernels included: each refuses the CPU tensor, not the layout.
     st1 = tgrid.empty_stats(G1, torch.float32)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.finalize_pack(st1.n, st1.s, st1.ss, NDT, G1)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue B"):
+    with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.finalize_pack_stacked(st1.n[None], st1.s[None],
                                       st1.ss[None], NDT, G1)

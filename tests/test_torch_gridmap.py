@@ -51,6 +51,10 @@ F64 = torch.float64
 
 GRID = GridConfig(x0=-8.0, y0=-8.0, cell=1.0, nx=16, ny=16, overlap=4)
 JGRID = JGridConfig(x0=-8.0, y0=-8.0, cell=1.0, nx=16, ny=16, overlap=4)
+#: The same grids at overlap 1 (one grid, unshifted).
+GRID1 = GridConfig(x0=-8.0, y0=-8.0, cell=1.0, nx=16, ny=16, overlap=1)
+JGRID1 = JGridConfig(x0=-8.0, y0=-8.0, cell=1.0, nx=16, ny=16, overlap=1)
+GRIDS = {4: (GRID, JGRID), 1: (GRID1, JGRID1)}
 
 
 def _cpu_mesh(rank, d):
@@ -70,12 +74,14 @@ def cloud():
 @pytest.fixture(scope="module")
 def jslabs(cloud):
     """The reference's ``build_slab_stats`` of the cloud on ``space_mesh(d)``
-    for d = 2 and 4 (numpy leaves), and ``finalize_slab`` of d = 2's."""
+    for d = 2 and 4 (numpy leaves; at overlap 1 keyed ``(d, 1)``), and
+    ``finalize_slab`` of d = 2's."""
     pts, mask = cloud
-    out = {d: jax.jit(lambda p, m, mesh=jdist.space_mesh(d):
-                      jdist.build_slab_stats(mesh, p, m, JGRID))(
-                          jnp.asarray(pts), jnp.asarray(mask))
-           for d in (2, 4)}
+    out = {(d if o == 4 else (d, 1)): jax.jit(
+        lambda p, m, mesh=jdist.space_mesh(d), g=GRIDS[o][1]:
+        jdist.build_slab_stats(mesh, p, m, g))(jnp.asarray(pts),
+                                               jnp.asarray(mask))
+        for d in (2, 4) for o in (4, 1)}
     out["map2"] = jdist.finalize_slab(out[2], JNDTMapConfig())
     return {k: type(v)(*(np.asarray(x) for x in v)) for k, v in out.items()}
 
@@ -105,12 +111,14 @@ def _close(got, ref, rtol=RTOL, atol=1e-12):
                                atol=atol)
 
 
-def test_accum_local_matches_jax(cloud):
+@pytest.mark.parametrize("overlap", [4, 1])
+def test_accum_local_matches_jax(cloud, overlap):
     """The reference's ``_accum_local`` (three segment sums into a local
     ix-major slab) and K10a's plain version (the binning, the slab mask
     and those sums) against the JAX package, on an off-centre slab with a
-    halo that runs off the map."""
+    halo that runs off the map, at both overlaps."""
     pts, mask = cloud
+    GRID, JGRID = GRIDS[overlap]
     x_lo, width = -3, 10
     ix, iy, inb = jgridmap._cell_xy(jnp.asarray(pts), JGRID)
     lx = ix - x_lo
@@ -122,9 +130,9 @@ def test_accum_local_matches_jax(cloud):
         width, GRID)
     plain = tgridmap.slab_accumulate_ref(_t(pts), _t(mask), GRID, x_lo,
                                          width)
-    assert float(plain.n.sum()) > 100
+    assert float(plain.n.sum()) > 100 / (4 // overlap)
     for a, b, r in zip(got, plain, ref):
-        assert a.shape == tuple(r.shape)
+        assert a.shape == tuple(r.shape) and a.shape[0] == overlap
         _close(a, r)
         _close(b, r)
 
@@ -148,12 +156,15 @@ def test_fixed_model_is_order_free_and_close_to_plain(cloud):
     _close(f32.n, fixed.n, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("overlap", [4, 1])
 @pytest.mark.parametrize("d", [2, 4])
-def test_build_slab_stats_matches_jax_per_rank(cloud, jslabs, d):
+def test_build_slab_stats_matches_jax_per_rank(cloud, jslabs, d, overlap):
     """Each rank's ``build_slab_stats`` (no collective: in process) against
-    the reference's sharded output on ``space_mesh(d)``, sliced by rank."""
+    the reference's sharded output on ``space_mesh(d)``, sliced by rank,
+    at both overlaps."""
     pts, mask = cloud
-    ref = jslabs[d]
+    GRID = GRIDS[overlap][0]
+    ref = jslabs[d if overlap == 4 else (d, 1)]
     nxl = GRID.nx // d
     for rank in range(d):
         got = tgridmap.build_slab_stats(_cpu_mesh(rank, d), _t(pts),
@@ -207,12 +218,15 @@ def test_finalize_slab_matches_jax(jslabs):
         _close(a, r, atol=1e-10)
 
 
+@pytest.mark.parametrize("overlap", [4, 1])
 @pytest.mark.parametrize("d", [2, 4])
-def test_rank_terms_sum_to_the_dense_objective(room, d):
+def test_rank_terms_sum_to_the_dense_objective(room, d, overlap):
     """K10c's plain version (the reference's per-rank ``sgh`` before its
     psum), summed over the ranks, against ``ndtpu.ndt.match.
-    score_grad_hess`` on the dense map, at several poses."""
+    score_grad_hess`` on the dense map, at several poses, at both
+    overlaps."""
     map_pts, map_msk, scan_pts, scan_msk, true_pose = room
+    GRID, JGRID = GRIDS[overlap]
     jmap = jgrid.finalize(jgrid.build_stats(jnp.asarray(map_pts),
                                             jnp.asarray(map_msk), JGRID),
                           JNDTMapConfig())

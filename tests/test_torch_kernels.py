@@ -8,10 +8,12 @@ incremental_update, K6g pcg_solve_grid (the PCG past one block) at config
 incremental updates, and config 4's K9a
 supernodal_assemble and K9b schur_reduce, also through one supernodal
 step, and stacked serving's K6b pcg_solve_blocked, K3s halfcell_add_stacked
-and K4s finalize_pack_stacked, and config 5's K12 ndt_sgh_unpacked and
+and K4s finalize_pack_stacked (also in the other table layouts: K3s at
+overlap 1, K4s in g1l8, g4l4 and g1l4), and config 5's K12
+ndt_sgh_unpacked (also at overlap 1) and
 K9c schur_local_assemble, also through a one-rank optimize_schur, and the
 slab map's K10a slab_accumulate, K10b finalize_cells and K10c slab_sgh,
-also through a one-rank match_slab, and the inputs' K11 raycast and K13
+also through a one-rank match_slab (K10a and K10c also at overlap 1), and the inputs' K11 raycast and K13
 voxel_downsample, also through make_sequence and the CLI's scan mode)
 against their plain twins, on the card; K10a also against the plain model of its fixed-point arithmetic, bit
 for bit; K3 also against the plain model of its
@@ -905,6 +907,22 @@ def test_finalize_pack_stacked_bit_equal_to_single_launches(serving):
     assert kernels.LAUNCHES["finalize_pack_stacked"] > 2
 
 
+def test_stacked_layouts_bit_equal_to_single_launches(serving):
+    """K3s at overlap 1 (the rebuild, window and refresh shapes) bit-equal
+    to 8 single K3[g1] launches, to the fixed-point model and on a second
+    launch; K4s in g1l8, g4l4 and g1l4 bit-equal (int32) to 8 single K4
+    launches of the layout, on a second launch, and to the plain twin's
+    rule (see chip_smoke.check_stacked_layouts)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    rows = cs.check_stacked_layouts(*serving, jobs=[])
+    assert kernels.LAUNCHES[kernels.variant("halfcell_add_stacked", 1)] > 6
+    for g, lanes in kernels.LAYOUTS[1:]:
+        name = kernels.variant("finalize_pack_stacked", g, lanes)
+        assert kernels.LAUNCHES[name] > 2 and name in rows
+
+
 def test_padded_sessions_on_the_card(dev):
     """Sessions of different lengths, padded as the serving CLI pads them:
     all-masked lanes end at 0 iterations, K3s leaves an all-masked map as
@@ -963,6 +981,41 @@ def test_ndt_sgh_unpacked_matches_plain_and_repeats(dev):
                                                       GRID, MatchConfig())
         for x in (f, g, h, score):
             assert bool((x == 0).all())
+
+
+GRID1 = dataclasses.replace(GRID, overlap=1)
+
+
+def _stats1(dev, seed=0, n=40000):
+    pts, mask = _points(seed, n, dev)
+    return tgrid.halfcell_add_ref(tgrid.empty_stats(GRID1, torch.float32,
+                                                    dev), pts, mask, 1.0,
+                                  GRID1)
+
+
+def test_ndt_sgh_unpacked_overlap1_matches_plain_and_repeats(dev):
+    """K12 at overlap 1 (``ndt_sgh_unpacked[g1]``) under the rules of the
+    overlap-4 test above (``chip_smoke.check_k12``), at 1,024 poses over a
+    seeded one-grid map; zero terms off the map."""
+    import chip_smoke as cs
+    from ndtpu_torch.config import MatchConfig
+
+    ndt_map = tgrid.finalize(_stats1(dev), NDT)
+    pts, mask = _points(3, 360, dev)
+    rng = np.random.default_rng(4)
+    poses = torch.as_tensor(np.stack([rng.uniform(-2, 2, 1024),
+                                      rng.uniform(-2, 2, 1024),
+                                      rng.uniform(-np.pi, np.pi, 1024)], -1),
+                            dtype=torch.float32, device=dev)
+    kernels.reset_launches()
+    cs.check_k12("test g1", poses, pts, mask, ndt_map, GRID1, MatchConfig(),
+                 jobs=[])
+    assert kernels.LAUNCHES[kernels.variant("ndt_sgh_unpacked", 1)] >= 2
+    assert kernels.LAUNCHES["ndt_sgh_unpacked"] == 0
+    off = poses[:8] + torch.tensor([500.0, 0.0, 0.0], device=dev)
+    for x in tmatch.score_grad_hess_batch(off, pts, mask, ndt_map, GRID1,
+                                          MatchConfig()):
+        assert bool((x == 0).all())
 
 
 def test_schur_local_assemble_matches_plain_and_repeats(dev):
@@ -1054,6 +1107,36 @@ def test_slab_accumulate_matches_model_and_plain(dev, x_lo, width):
     assert kernels.LAUNCHES["slab_accumulate"] >= 3
 
 
+@pytest.mark.parametrize("x_lo,width", [(0, 24), (-5, 34)])
+def test_slab_accumulate_overlap1_matches_model_and_plain(dev, x_lo, width):
+    """K10a at overlap 1 (``slab_accumulate[g1]``) under the rules of the
+    overlap-4 test above (``chip_smoke.check_k10a``)."""
+    import chip_smoke as cs
+
+    pts, mask = _points(5, 30000, dev)
+    kernels.reset_launches()
+    cs.check_k10a("test g1", pts, mask, GRID1, x_lo, width, jobs=[])
+    assert kernels.LAUNCHES[kernels.variant("slab_accumulate", 1)] >= 3
+    assert kernels.LAUNCHES["slab_accumulate"] == 0
+
+
+def test_slab_accumulate_scratch_per_grid_count(dev):
+    """K10a's kept scratch is keyed by the grid count: a G = 1 call and then
+    a G = 4 call of the same slab shape give the G = 4 result bit for bit
+    (its fixed-point model; a scratch sized for one grid would be written
+    past its end)."""
+    from ndtpu_torch.dist import gridmap
+
+    pts, mask = _points(6, 30000, dev)
+    for grid in (GRID1, GRID, GRID1):
+        out = gridmap.slab_accumulate(pts, mask, grid, -3, 30)
+        torch.cuda.synchronize()
+        model = gridmap.slab_accumulate_fixed_ref(pts, mask, grid, -3, 30)
+        for a, b in zip(out, model):
+            assert a.shape[0] == grid.overlap
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_finalize_cells_matches_plain(dev):
     """K10b (``ndt.grid.finalize`` on CUDA tensors) in the dense and the
     slab layout against its f32 plain version: valid flags exact, the rest
@@ -1120,6 +1203,42 @@ def test_slab_sgh_matches_plain_and_match_slab_one_rank(dev):
                                              p[None], pts, mask, ndt_map,
                                              GRID, cfg)), poses[0], cfg)
     assert float((res.pose - ref.pose).abs().max()) <= 5e-4
+
+
+def test_slab_sgh_overlap1_matches_plain(dev):
+    """K10c at overlap 1 (``slab_sgh[g1]``) on each half of a seeded
+    one-grid map against its f32 plain version (``chip_smoke.check_k10c``)
+    at B = 1 and B = 64; the halves' sums add up to K12[g1]'s terms on the
+    whole map (within 1e-4 of each output's max)."""
+    import chip_smoke as cs
+    from ndtpu_torch.config import MatchConfig
+    from ndtpu_torch.dist import gridmap
+
+    ndt_map = tgrid.finalize(_stats1(dev), NDT)
+    smap = gridmap.dense_to_slab(ndt_map, GRID1)
+    halves = [gridmap.SlabMap(*(x[:, 24 * r:24 * r + 24].contiguous()
+                                for x in smap)) for r in range(2)]
+    pts, mask = _points(3, 360, dev)
+    rng = np.random.default_rng(6)
+    poses = torch.as_tensor(np.stack([rng.uniform(-1, 1, 64),
+                                      rng.uniform(-1, 1, 64),
+                                      rng.uniform(-0.5, 0.5, 64)], -1),
+                            dtype=torch.float32, device=dev)
+    kernels.reset_launches()
+    for r in range(2):
+        for b in (1, 64):
+            cs.check_k10c(f"test g1 half {r}", poses[:b], pts, mask,
+                          halves[r], GRID1, 24 * r, MatchConfig(), jobs=[])
+    assert kernels.LAUNCHES[kernels.variant("slab_sgh", 1)] >= 8
+    cfg = MatchConfig()
+    total = sum(gridmap.slab_sgh(poses, pts, mask, halves[r], GRID1, 24 * r,
+                                 cfg) for r in range(2))
+    f, g, h, _ = tmatch.score_grad_hess_batch(poses, pts, mask, ndt_map,
+                                              GRID1, cfg)
+    for got, ref in ((total[:, 0], f), (total[:, 3:6], g),
+                     (total[:, 6:], h.reshape(-1, 9))):
+        assert float((got - ref).abs().max()) <= 1e-4 * max(
+            float(ref.abs().max()), 1.0)
 
 
 def test_slab_kernels_refuse_cpu_tensors():

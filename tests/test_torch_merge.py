@@ -21,6 +21,7 @@ merge (``configs/config5_multisession.json`` as it is) on the pair
 import json
 import pickle
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -52,6 +53,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
 REF5 = ROOT / "tests" / "data" / "torch_config5_merge_ref.json"
+REF5_OVERLAP1 = ROOT / "tests" / "data" / "torch_config5_overlap1_ref.json"
 
 #: f64 tolerance of the NDT terms against the JAX package's: the same sums
 #: in another order.
@@ -149,15 +151,39 @@ def _close(a, b, what, rtol=RTOL, atol=1e-12):
                                err_msg=what)
 
 
-def _probe(chain, n_poses=300, seed=0):
+def _grid1(c=None):
+    """``_cfg``'s grid at overlap 1."""
+    import dataclasses
+
+    return dataclasses.replace(_cfg(c).grid, overlap=1)
+
+
+def _map_a(chain, overlap: int = 4):
+    """The JAX package's map of session A: its statistics as the session
+    left them (overlap 4), or at overlap 1 rebuilt from its live keyframe
+    points at their poses (``build_stats`` on the overlap-1 grid)."""
+    sa = chain["sa"]
+    if overlap == 4:
+        stats = jgrid.NDTStats(*sa.stats)
+    else:
+        kf = sa.kf
+        pts = jse2.transform(jnp.asarray(kf.poses),
+                             jnp.asarray(kf.points))
+        msk = jnp.asarray(kf.masks) & jnp.asarray(kf.live)[:, None]
+        stats = jgrid.build_stats(pts.reshape(-1, 2), msk.reshape(-1),
+                                  _grid1())
+    return jgrid.finalize(stats, _cfg().ndt)
+
+
+def _probe(chain, n_poses=300, seed=0, overlap: int = 4):
     """Poses on and off session A's map (some wholly off), probe B's first
-    keyframe scan, and the JAX package's map of session A in both packages
-    (the same arrays)."""
+    keyframe scan, and the JAX package's map of session A (at the
+    overlap) in both packages (the same arrays)."""
     rng = np.random.default_rng(seed)
     poses = np.stack([rng.uniform(-14, 14, n_poses),
                       rng.uniform(-14, 14, n_poses),
                       rng.uniform(-np.pi, np.pi, n_poses)], -1)
-    jmap = jgrid.finalize(jgrid.NDTStats(*chain["sa"].stats), _cfg().ndt)
+    jmap = _map_a(chain, overlap)
     tmap = _port(_np(jmap))
     return poses, chain["sb"].kf.points[0], chain["sb"].kf.masks[0], jmap, \
         tmap
@@ -195,17 +221,20 @@ def test_lookup_and_point_terms_match_jax(chain):
             _close(a, b, name)
 
 
-def test_score_grad_hess_batch_matches_jax_vmap(chain):
+@pytest.mark.parametrize("overlap", [4, 1])
+def test_score_grad_hess_batch_matches_jax_vmap(chain, overlap):
     """K12's plain version (and its CPU dispatch) against ``jax.vmap``
     of ``score_grad_hess`` over 600 poses, on and off the map, one shared
-    scan (two chunks of the plain version)."""
+    scan (two chunks of the plain version), on maps of 4 and 1 grids."""
     cfg, tcfg = _cfg(), _cfg(tconfig)
-    poses, pts, msk, jmap, tmap = _probe(chain, 600, seed=1)
-    ref = jax.vmap(lambda p: jmatch.score_grad_hess(p, pts, msk, jmap,
-                                                    cfg.grid, cfg.match))(
-        jnp.asarray(poses))
+    grid, tgrid_ = ((cfg.grid, tcfg.grid) if overlap == 4
+                    else (_grid1(), _grid1(tconfig)))
+    poses, pts, msk, jmap, tmap = _probe(chain, 600, seed=1, overlap=overlap)
+    assert tmap.valid.shape[0] == overlap
+    ref = jax.jit(jax.vmap(lambda p: jmatch.score_grad_hess(
+        p, pts, msk, jmap, grid, cfg.match)))(jnp.asarray(poses))
     args = (torch.as_tensor(poses), torch.as_tensor(pts),
-            torch.as_tensor(msk), tmap, tcfg.grid, tcfg.match)
+            torch.as_tensor(msk), tmap, tgrid_, tcfg.match)
     for out in (tmatch.score_grad_hess_batch_ref(*args),
                 tmatch.score_grad_hess_batch(*args)):
         for a, b, name in zip(out, ref, ("f", "g", "h", "score")):
@@ -254,6 +283,34 @@ def test_global_align_matches_jax(chain):
            atol=1e-9)
     np.testing.assert_array_equal(
         tmerge._descending(res.grid_scores, 64).numpy(), chain["top64"])
+    _close(res.transform, ref.transform, "transform", rtol=0, atol=1e-8)
+    _close(res.score, ref.score, "score", rtol=1e-8)
+    assert bool(res.converged) == bool(ref.converged)
+    err = np.abs(np.asarray(jse2.between(ref.transform, chain["t_true"])))
+    assert err[0] < 0.3 and err[1] < 0.3 and err[2] < 0.15, err
+
+
+def test_global_align_overlap1_matches_jax(chain):
+    """``global_align`` on session A's overlap-1 map (the merge of config 5
+    at ``grid.overlap = 1``) against the JAX package's, jitted, with the
+    tolerances of the overlap-4 test above: coarse masses rtol 1e-7, the
+    same top-64 ranking, the refined transform within 1e-8."""
+    tcfg = _cfg(tconfig)
+    jmap = _map_a(chain, 1)
+    tmap = _port(_np(jmap))
+    sb = chain["sb"]
+    pts, msk = sb.kf.points[0], sb.kf.masks[0]
+    ref = jax.jit(lambda m, p, k: jmerge.global_align(m, _grid1(), p, k))(
+        jmap, jnp.asarray(pts), jnp.asarray(msk))
+    res = tmerge.global_align(tmap, _grid1(tconfig),
+                              torch.as_tensor(pts.copy()),
+                              torch.as_tensor(msk.copy()))
+    assert tmap.valid.shape[0] == 1 and tcfg.grid.overlap == 4
+    _close(res.grid_scores, ref.grid_scores, "grid_scores", rtol=1e-7,
+           atol=1e-9)
+    np.testing.assert_array_equal(
+        tmerge._descending(res.grid_scores, 64).numpy(),
+        np.asarray(jax.lax.top_k(ref.grid_scores, 64)[1]))
     _close(res.transform, ref.transform, "transform", rtol=0, atol=1e-8)
     _close(res.score, ref.score, "score", rtol=1e-8)
     assert bool(res.converged) == bool(ref.converged)
@@ -402,9 +459,11 @@ def test_merge_end_to_end_matches_jax(chain):
 # The config-5 reference file (``python tests/test_torch_merge.py``).
 
 
-def regenerate_config5_reference(path=REF5):
+def regenerate_config5_reference(path=REF5, changes=None):
     """The JAX package (CPU) on ``chip_smoke.config5_sessions``'s pair at
-    ``configs/config5_multisession.json``, in f32 and f64: the alignment,
+    ``configs/config5_multisession.json`` (with only the fields of
+    ``changes`` set, as ``chip_smoke.layout_json`` sets them), in f32 and
+    f64: the alignment,
     its coarse top-64, the inter-session loops (with each accepted
     factor's translation error against the sessions' poses placed by the
     true transform), the perturbed merges solved as the e2e test solves
@@ -418,13 +477,19 @@ def regenerate_config5_reference(path=REF5):
     from ndtpu.dist import mesh as jmesh
     from ndtpu.dist import schur as jschur
 
-    cfg5 = PipelineConfig.from_json(str(chip_smoke.CONFIG5))
+    doc5 = chip_smoke.layout_json(chip_smoke.CONFIG5, changes or {})
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = Path(tmp) / "config5.json"
+        cfg_path.write_text(json.dumps(doc5))
+        cfg5 = PipelineConfig.from_json(str(cfg_path))
     seqs, t_true, scenario = chip_smoke.config5_sessions("cpu")
     doc = dict(scenario=scenario, config="configs/config5_multisession.json",
+               **({"changes": changes} if changes else {}),
                t_true=[float(x) for x in t_true],
                reference="ndtpu.slam.merge on ndtpu.slam.pipeline."
                          "run_slam_windowed sessions, on the CPU; regenerate "
-                         "with python tests/test_torch_merge.py",
+                         "with python tests/test_torch_merge.py"
+                         + (" overlap1" if changes else ""),
                perturb=PERTURB)
     for name, x64 in (("f32", False), ("f64", True)):
         jax.config.update("jax_enable_x64", x64)
@@ -494,4 +559,10 @@ def regenerate_config5_reference(path=REF5):
 
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
-    regenerate_config5_reference()
+    if sys.argv[1:] in ([], ["merge"]):
+        regenerate_config5_reference()
+    if sys.argv[1:] in ([], ["overlap1"]):
+        sys.path.insert(0, str(ROOT))
+        import chip_smoke
+        regenerate_config5_reference(REF5_OVERLAP1,
+                                     chip_smoke.CONFIG5_OVERLAP1)

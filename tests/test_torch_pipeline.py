@@ -141,12 +141,14 @@ def test_convert_round_trip_and_resume_from_jax_state(seq, jax_default):
 
 
 def test_unported_options_raise(seq):
-    """The windowed path takes every table layout on the card now
-    (``init_slam`` builds a compact, overlap-1 state with loop closure
-    without refusing it); what still refuses a layout on the card, before
-    it touches a tensor: stacked serving's K3s and K4s at overlap 1 or with
-    compact rows (ROADMAP B8b / B7b), and config 5's K12, K10a and K10c at
-    overlap 1 (B8b)."""
+    """Every table layout is ported: the windowed path takes them
+    (``init_slam`` builds a compact, overlap-1 state with loop closure),
+    and no kernel wrapper refuses a layout any more (no ``Queue B``
+    refusal left in ``ndtpu_torch.kernels``). What the wrappers still
+    refuse, in every layout, before they touch a tensor: a CPU tensor
+    (``_check``; the public functions send those to the plain versions)."""
+    import inspect
+
     from ndtpu_torch import kernels
     from ndtpu_torch.ndt import grid as tgrid
 
@@ -157,28 +159,42 @@ def test_unported_options_raise(seq):
     state = tpipe.init_slam(cfg, seq.points[0], seq.mask[0])
     assert state.stats.n.shape == (1, g1.n_cells)
     assert state.kf.tables.shape[1:] == (64, 4)
-    st = tgrid.empty_stats(g1, torch.float32)
-    stacked = [t[None] for t in st]
+    source = inspect.getsource(kernels)
+    for item in ("B8b", "B7b", "NotImplementedError", "_stacked_layout"):
+        assert item not in source, item
+    cpu = r"expected a CUDA tensor, got cpu"
     pts = torch.zeros((1, 5, 2))
     msk = torch.ones((1, 5), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B8b\)"):
-        kernels.halfcell_add_stacked(*stacked, pts, msk, 1.0, g1)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B8b\)"):
-        kernels.finalize_pack_stacked(*stacked, cfg.ndt, g1)
-    g4 = _cfg().grid
-    st4 = [t[None] for t in tgrid.empty_stats(g4, torch.float32)]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B7b\)"):
-        kernels.finalize_pack_stacked(*st4, cfg.ndt, g4, compact=True)
-    mean, icov = torch.zeros((1, g1.n_cells, 2)), torch.zeros(
-        (1, g1.n_cells, 2, 2))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B8b\)"):
-        kernels.ndt_sgh_unpacked(torch.zeros((2, 3)), pts[0], msk[0].float(),
-                                 mean, icov, st.n, g1, 0.5, 40.0)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B8b\)"):
-        kernels.slab_accumulate(pts[0], msk[0], g1, 0, 16)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue B \(B8b\)"):
-        kernels.slab_sgh(torch.zeros((2, 3)), pts[0], msk[0].float(),
-                         mean, icov, st.n, g1, 0, 0.5, 40.0)
+    for grid in (g1, _cfg().grid):
+        g, c = grid.overlap, grid.n_cells
+        stacked = [t[None] for t in tgrid.empty_stats(grid, torch.float32)]
+        with pytest.raises(ValueError, match=cpu):
+            kernels.halfcell_add_stacked(*stacked, pts, msk, 1.0, grid)
+        for compact in (False, True):
+            with pytest.raises(ValueError, match=cpu):
+                kernels.finalize_pack_stacked(*stacked, cfg.ndt, grid,
+                                              compact=compact)
+        mean, icov = torch.zeros((g, c, 2)), torch.zeros((g, c, 2, 2))
+        with pytest.raises(ValueError, match=cpu):
+            kernels.ndt_sgh_unpacked(torch.zeros((2, 3)), pts[0],
+                                     msk[0].float(), mean, icov,
+                                     stacked[0][0], grid, 0.5, 40.0)
+        with pytest.raises(ValueError, match=cpu):
+            kernels.slab_accumulate(pts[0], msk[0], grid, 0, 16)
+        nxl = grid.nx // 2
+        with pytest.raises(ValueError, match=cpu):
+            kernels.slab_sgh(torch.zeros((2, 3)), pts[0], msk[0].float(),
+                             torch.zeros((g, nxl, grid.ny, 2)),
+                             torch.zeros((g, nxl, grid.ny, 2, 2)),
+                             torch.zeros((g, nxl, grid.ny)), grid, 0, 0.5,
+                             40.0)
+    # Each layout's launches count apart (kernels.variant).
+    for name in ("halfcell_add_stacked", "ndt_sgh_unpacked",
+                 "slab_accumulate", "slab_sgh"):
+        assert kernels.variant(name, 1) in kernels.LAUNCHES
+    for g, lanes in kernels.LAYOUTS[1:]:
+        assert kernels.variant("finalize_pack_stacked", g,
+                               lanes) in kernels.LAUNCHES
 
 
 def _loop_cfg():

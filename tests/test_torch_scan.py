@@ -331,6 +331,57 @@ def test_detect_loops_matches_jax(loop_cases, case, route, over):
                                    atol=1e-8, err_msg=f)
 
 
+def _f32_case(kf, jkf, qpts, qpose):
+    """A loop case's float leaves in f32 (compact rows are held in f32,
+    ROADMAP C-w13)."""
+    f32 = lambda t: t.float() if t.is_floating_point() else t
+    kf = type(kf)(*(f32(t) for t in kf))
+    jkf = type(jkf)(*(x.astype(jnp.float32)
+                      if jnp.issubdtype(x.dtype, jnp.floating) else x
+                      for x in jkf))
+    return kf, jkf, qpts.float(), qpose.float()
+
+
+@pytest.mark.parametrize("case", ["line", "maint"])
+@pytest.mark.parametrize("overlap,compact", [(1, False), (4, True),
+                                             (1, True)],
+                         ids=["g1l8", "g4l4", "g1l4"])
+def test_fresh_verify_in_layouts_matches_jax(loop_cases, case, overlap,
+                                             compact):
+    """The fresh-map verify (``detect_loops``: ``find_candidates``, then
+    ``verify_candidates`` with its K3s maps, K4s tables and gated grouped
+    registration) against the JAX package's in the other table layouts
+    (``local_overlap = 1``, compact rows, both): full rows in f64 (as the
+    published layout's test: candidates, accept and rejection flags equal,
+    z, scores and information within 1e-8), compact rows in f32
+    (candidates and flags equal, z within 1e-4 m / rad, scores within
+    1e-3 of their value, information within 1e-3 of its largest entry:
+    bf16 table entries)."""
+    kf, jkf, qpts, qmsk, qpose, qidx = loop_cases[case]
+    if compact:
+        kf, jkf, qpts, qpose = _f32_case(kf, jkf, qpts, qpose)
+    loop = dataclasses.replace(_CASES[case][1], local_overlap=overlap)
+    ncfg, mcfg = NDTMapConfig(), MatchConfig(compact_table=compact)
+    jq = (jkf, _jax(qpts), _jax(qmsk), _jax(qpose),
+          jnp.asarray(qidx, jnp.int32))
+    ref = jax.jit(lambda *a: jclosure.detect_loops(*a, loop, ncfg, mcfg,
+                                                   window=1))(*jq)
+    got = tclosure.detect_loops(kf, qpts, qmsk, qpose, torch.tensor(qidx),
+                                loop, ncfg, mcfg, window=1)
+    for f in ("j", "accept", "innov_rej"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      _np(getattr(ref, f)), err_msg=f)
+    assert got.accept.any()
+    big = float(np.abs(_np(ref.sqrt_info)).max())
+    tol = dict(z=(0, 1e-4), score=(1e-3, 0), sqrt_info=(0, 1e-3 * big)) \
+        if compact else dict(z=(1e-8, 1e-8), score=(1e-8, 1e-8),
+                             sqrt_info=(1e-8, 1e-8))
+    for f, (rtol, atol) in tol.items():
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   _np(getattr(ref, f)), rtol=rtol,
+                                   atol=atol, err_msg=f)
+
+
 def test_per_query_verify_is_the_flat_verify_without_knobs(loop_cases):
     """The per-query cached verify equals the flat verify at K = 1 when no
     serving knob is set, and ignores the knobs where the flat one applies

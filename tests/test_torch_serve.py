@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from ndtpu.config import (GridConfig, KeyframeConfig, LoopConfig,
-                          SolverConfig)
+                          MatchConfig, SolverConfig)
 from ndtpu.config import PipelineConfig as JPipelineConfig
 from ndtpu.dist import slam_dp as jdp
 from ndtpu.graph import factors as jfct
@@ -43,6 +43,8 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 SERVING = ROOT / "configs" / "config_serving.json"
 REF = Path(__file__).parent / "data" / "torch_serving8_box300_ref.json"
+REF_LAYOUTS = (Path(__file__).parent / "data"
+               / "torch_serving8_layouts_box300_ref.json")
 
 
 def _jax(a):
@@ -64,15 +66,24 @@ def _np_recover(g_poses, kf_idx, rel):
 
 
 
-def session_cfg(**over):
-    """The JAX package's serving test config (180 beams, capacity 256)."""
+#: The quad-table layouts ``(overlap, compact)``: the published one, then
+#: overlap-1 grids, compact bf16-pair rows, and both (``kernels.LAYOUTS``).
+LAYOUTS = [(4, False), (1, False), (4, True), (1, True)]
+LAYOUT_IDS = ["g4l8", "g1l8", "g4l4", "g1l4"]
+
+
+def session_cfg(overlap: int = 4, compact: bool = False, **over):
+    """The JAX package's serving test config (180 beams, capacity 256), in
+    a table layout: ``overlap`` for the map and the local tables,
+    ``compact`` rows."""
     base = dict(
         grid=GridConfig(x0=-14.0, y0=-14.0, cell=0.5, nx=56, ny=56,
-                        overlap=4),
+                        overlap=overlap),
         keyframe=KeyframeConfig(dist_thresh=0.5, angle_thresh=0.3,
                                 capacity=256),
         loop=LoopConfig(radius=3.0, min_index_gap=10, max_candidates=4,
-                        local_half_extent=8.0),
+                        local_half_extent=8.0, local_overlap=overlap),
+        match=MatchConfig(compact_table=compact),
         solver=SolverConfig(inc_iters=2, pcg_max_iter=40),
         n_beams=180, max_range=20.0, window=8, window_passes=2,
         use_loop_closure=True)
@@ -151,6 +162,49 @@ def test_run_sessions_stacked_matches_jax(stacked_run):
         # The padded tail of the short session registers nothing new.
         t = stacked_run["lengths"][1]
         assert not bool(tout.is_keyframe[1, t - 1:].any())
+
+
+@pytest.mark.parametrize("overlap,compact", LAYOUTS[1:], ids=LAYOUT_IDS[1:])
+def test_run_sessions_stacked_layouts_match_jax(overlap, compact):
+    """Two 33-scan sessions (four stacked windows) through
+    ``run_sessions_stacked`` against the JAX package's in the other table
+    layouts: full rows in f64 by :func:`check_runs`; compact rows in f32
+    (C-w13): keyframe flags and counts equal, graph poses and per-scan
+    poses within 5 cm and 20 mrad, each session's ATE within 1 cm of
+    JAX's (as ``test_torch_layouts`` holds the windowed odometry: the two
+    packages' f32 finalize round in another order, which moves a bf16
+    entry of the tables now and then, and the registrations follow)."""
+    cfg = jdp.serving_config(session_cfg(
+        overlap, compact, keyframe=KeyframeConfig(
+            dist_thresh=0.5, angle_thresh=0.3, capacity=64)))
+    seqs = box_sessions((33, 33))
+    points, mask, odom, _ = serve.pad_sessions(seqs)
+    if compact:
+        points, odom = points.float(), odom.float()
+    jst, jout = jax_stacked(points, mask, odom, cfg)
+    tst, tout = tdp.run_sessions_stacked(points, mask, odom, cfg)
+    assert tst.stats.n.shape[1] == overlap
+    assert tst.kf.tables.shape[-1] == overlap * (4 if compact else 8)
+    assert int(tout.n_dropped.sum()) == 0 and int(tst.kf.n.min()) > 4
+    if not compact:
+        check_runs(tst, tout, jst, jout)
+        return
+    np.testing.assert_array_equal(tst.kf.n.numpy(), np.asarray(jst.kf.n))
+    np.testing.assert_array_equal(tout.is_keyframe.numpy(),
+                                  np.asarray(jout.is_keyframe))
+    from test_torch_layouts import _pose_diff
+
+    for a, b in ((tst.graph.poses, jst.graph.poses), (tout.pose, jout.pose)):
+        d = _pose_diff(a.numpy(), np.asarray(b))
+        assert d[..., :2].max() <= 5e-2 and d[..., 2].max() <= 2e-2, d.max()
+    traj = serve.trajectories(tst, tout).numpy()
+    jtraj = _np_recover(np.asarray(jst.graph.poses), np.asarray(jout.kf_idx),
+                        np.asarray(jout.rel))
+    for k, seq in enumerate(seqs):
+        gt = seq.gt_poses
+        ate = [float(ate_rmse(torch.as_tensor(np.asarray(x[k], np.float64)),
+                              gt)) for x in (traj, jtraj)]
+        assert abs(ate[0] - ate[1]) <= 1e-2, (k, ate)
 
 
 def test_trajectories_match_jax_serve_recovery(stacked_run):
@@ -280,17 +334,28 @@ def test_flat_graph_matches_jax():
     assert abs(float(tfct.chi2(tflat)) - float(jfct.chi2(jflat))) < 1e-9
 
 
-@pytest.fixture(scope="module")
-def two_sessions():
-    """Two 10-scan sessions and both packages' stacked initial states; the
-    port's is the JAX state carried across with ``convert.from_numpy``."""
-    cfg = jdp.serving_config(session_cfg())
+def _two_sessions(overlap: int = 4, compact: bool = False):
+    """Two 10-scan sessions and both packages' stacked initial states in a
+    table layout; the port's is the JAX state carried across with
+    ``convert.from_numpy``. Compact rows are held in f32 (ROADMAP C-w13:
+    the JAX package's x64 ``pack_quad`` flushes a compact lane's
+    denormals), full rows in f64."""
+    cfg = jdp.serving_config(session_cfg(overlap, compact))
     seqs = box_sessions((10, 10), base_seed=80)
     points, mask, odom, _ = serve.pad_sessions(seqs)
-    jstate = jax.vmap(lambda p, m: jpipe.init_slam(cfg, p, m))(
-        _jax(points[:, 0]), _jax(mask[:, 0]))
+    if compact:
+        points, odom = points.float(), odom.float()
+    init = jax.vmap(lambda p, m: jpipe.init_slam(cfg, p, m))
+    if compact:             # an eager compact pack_quad can abort (C-w13)
+        init = jax.jit(init)
+    jstate = init(_jax(points[:, 0]), _jax(mask[:, 0]))
     tstate = convert.from_numpy(jstate)
     return cfg, points, mask, odom, jstate, tstate
+
+
+@pytest.fixture(scope="module")
+def two_sessions():
+    return _two_sessions()
 
 
 def test_convert_carries_stacked_states(two_sessions):
@@ -312,17 +377,31 @@ def test_convert_carries_stacked_states(two_sessions):
     assert tstate.kf.tables[0].data_ptr() != tstate.kf.tables[1].data_ptr()
 
 
-def test_frontend_stacked_matches_jax(two_sessions):
-    cfg, points, mask, odom, jstate, tstate = two_sessions
+@pytest.mark.parametrize("overlap,compact", LAYOUTS, ids=LAYOUT_IDS)
+def test_frontend_stacked_matches_jax(two_sessions, overlap, compact):
+    """The stacked front end (both passes: K4s' tables, the grouped
+    registration, K3s' pass-2 maps, the keyframe flags) against the JAX
+    package's from the same state, in each table layout: full rows in f64
+    (poses atol 1e-9, Hessians rtol 1e-9), compact rows in f32 (keyframe
+    flags equal, poses within 1e-4 m / rad: each package's f32 finalize
+    rounds in its own order, which moves a bf16 entry now and then)."""
+    cfg, points, mask, odom, jstate, tstate = (
+        two_sessions if (overlap, compact) == (4, False)
+        else _two_sessions(overlap, compact))
     w = cfg.window
     p, m, o = points[:, 1:1 + w], mask[:, 1:1 + w], odom[:, 1:1 + w]
     jposes, jres, jkf = jax.jit(jdp._frontend_stacked, static_argnames="cfg")(
         jstate, jstate.pose, _jax(p), _jax(m), _jax(o), cfg=cfg)
     tposes, tres, tkf = tdp._frontend_stacked(tstate, tstate.pose, p, m, o,
                                               cfg)
+    np.testing.assert_array_equal(tkf.numpy(), np.asarray(jkf))
+    if compact:
+        assert tposes.dtype == torch.float32
+        np.testing.assert_allclose(tposes.numpy(), np.asarray(jposes),
+                                   rtol=0, atol=1e-4)
+        return
     np.testing.assert_allclose(tposes.numpy(), np.asarray(jposes), rtol=0,
                                atol=1e-9)
-    np.testing.assert_array_equal(tkf.numpy(), np.asarray(jkf))
     np.testing.assert_allclose(tres.hessian.numpy(),
                                np.asarray(jres.hessian), rtol=1e-9, atol=1e-6)
     np.testing.assert_array_equal(tres.converged.numpy(),
@@ -370,13 +449,17 @@ def test_kf_flags8_matches_kf_select():
         assert torch.equal(flags[i], ref)
 
 
+@pytest.mark.parametrize("overlap,compact", LAYOUTS, ids=LAYOUT_IDS)
 @pytest.mark.parametrize("weights", ["scalar", "per_point"])
-def test_stacked_map_ops_match_jax_vmap(weights):
+def test_stacked_map_ops_match_jax_vmap(weights, overlap, compact):
     """K3s' and K4s' plain twins (the per-map functions over S maps)
     against the JAX package's vmapped ``add_points`` and ``finalize`` +
-    ``pack_quad`` over stacked statistics."""
+    ``pack_quad`` over stacked statistics, in each table layout: the
+    statistics in f64 (rtol 1e-12), full-row tables in f64 (1e-9), compact
+    tables in f32 (``test_torch_layouts._compact_close``, C-w13); each
+    stacked table equals its map's own K4 plain table bit for bit."""
     rng = np.random.default_rng(11)
-    cfg = session_cfg()
+    cfg = session_cfg(overlap, compact)
     grid = cfg.grid
     s, n = 3, 500
     pts = rng.uniform(-12, 12, (s, n, 2))
@@ -399,16 +482,32 @@ def test_stacked_map_ops_match_jax_vmap(weights):
     tout = tgrid.add_points_stacked(tstats, torch.as_tensor(pts),
                                     torch.as_tensor(msk), grid, weight=tw)
     for a, b in zip(tout, jout):
+        assert a.shape == np.asarray(b).shape == (s, overlap) + a.shape[2:]
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12,
                                    atol=1e-9)
-    jtab = jax.vmap(lambda st: jgrid.pack_quad(jgrid.finalize(st, cfg.ndt),
-                                               grid))(jout)
-    ttab = tgrid.finalize_pack_stacked(tout, cfg.ndt, grid)
-    np.testing.assert_allclose(ttab.numpy(), np.asarray(jtab), rtol=1e-9,
-                               atol=1e-9)
+    if compact:
+        from test_torch_layouts import _compact_close
+
+        tout = tgrid.NDTStats(*(t.float() for t in tout))
+        jout = jgrid.NDTStats(*(_jax(t) for t in tout))
+    jtab = jax.jit(jax.vmap(lambda st: jgrid.pack_quad(
+        jgrid.finalize(st, cfg.ndt), grid, compact=compact)))(jout)
+    ttab = tgrid.finalize_pack_stacked(tout, cfg.ndt, grid, compact)
+    lanes = 4 if compact else 8
+    assert ttab.shape == np.asarray(jtab).shape == (
+        s, int(np.prod(tgrid._quad_lattice(grid))), overlap * lanes)
+    if compact:
+        for i in range(s):
+            _compact_close(ttab[i], np.asarray(jtab[i]))
+    else:
+        np.testing.assert_allclose(ttab.numpy(), np.asarray(jtab), rtol=1e-9,
+                                   atol=1e-9)
     for i in range(s):
-        assert torch.equal(ttab[i], tgrid.finalize_pack(
-            tgrid.NDTStats(*(t[i] for t in tout)), cfg.ndt, grid))
+        one = tgrid.finalize_pack(tgrid.NDTStats(*(t[i] for t in tout)),
+                                  cfg.ndt, grid, compact)
+        assert torch.equal(ttab[i].view(torch.int32 if compact
+                                        else torch.int64),
+                           one.view(torch.int32 if compact else torch.int64))
 
 
 @pytest.mark.parametrize("enable", [True, False])
@@ -511,16 +610,16 @@ def test_serve_unported_and_missing_card():
                         "--max-scans", "9"])
 
 
-def regenerate_serving_reference(path=REF, sessions: int = 8,
-                                 n_scans: int = 300):
-    """Run the JAX package (CPU; f32, then f64) on the port's serving
-    sessions and write the per-session reference file."""
+def _serving_runs(config, sessions: int, n_scans: int):
+    """The JAX package (CPU; f32, then f64) on the port's serving sessions
+    at ``config`` (a JSON path) under ``serving_config``: ``(per-session
+    records, capacity)``."""
     from ndtpu.eval.ate import ate_rmse as jate
 
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
-    tcfg = PipelineConfig.from_json(str(SERVING))
+    tcfg = PipelineConfig.from_json(str(config))
     seqs = serve.synthetic_sessions(tcfg, sessions, n_scans)
     points, mask, odom, lengths = serve.pad_sessions(seqs)
     cap = serve.auto_capacity(tcfg, points.shape[1])
@@ -528,7 +627,7 @@ def regenerate_serving_reference(path=REF, sessions: int = 8,
     for name, x64 in (("f32", False), ("f64", True)):
         jax.config.update("jax_enable_x64", x64)
         dt = np.float64 if x64 else np.float32
-        cfg = jdp.serving_config(JPipelineConfig.from_json(str(SERVING)))
+        cfg = jdp.serving_config(JPipelineConfig.from_json(str(config)))
         cfg = dataclasses.replace(
             cfg, keyframe=dataclasses.replace(cfg.keyframe, capacity=cap))
         run = jax.jit(lambda p, m, o: jdp.run_sessions_stacked(p, m, o, cfg))
@@ -544,26 +643,37 @@ def regenerate_serving_reference(path=REF, sessions: int = 8,
             loops=np.asarray(st.n_loops).tolist(),
             keyframes=np.asarray(st.kf.n).tolist(),
             dropped=np.asarray(outs.n_dropped).sum(1).tolist())
+        print(config, name, runs[name], file=sys.stderr, flush=True)
+    jax.config.update("jax_enable_x64", True)
     per = []
     for k, s in enumerate(seqs):
         dr = chip_smoke.dead_reckoning(s.odom.double())
         per.append(dict(
             session=k, sha256=chip_smoke.sequence_hashes(s),
-            jax_f32=dict(ate_m=runs["f32"]["ate"][k],
-                         loops=runs["f32"]["loops"][k],
-                         keyframes=runs["f32"]["keyframes"][k],
-                         dropped=runs["f32"]["dropped"][k]),
-            jax_f64=dict(ate_m=runs["f64"]["ate"][k],
-                         loops=runs["f64"]["loops"][k],
-                         keyframes=runs["f64"]["keyframes"][k],
-                         dropped=runs["f64"]["dropped"][k]),
+            **{f"jax_{name}": dict(ate_m=runs[name]["ate"][k],
+                                   loops=runs[name]["loops"][k],
+                                   keyframes=runs[name]["keyframes"][k],
+                                   dropped=runs[name]["dropped"][k])
+               for name in ("f32", "f64")},
             dead_reckoning_ate_m=float(ate_rmse(dr, s.gt_poses.double()))))
+    return per, cap
+
+
+def _serving_scenario(sessions: int, n_scans: int) -> str:
+    return (f"{sessions} sessions x {n_scans} scans from "
+            "ndtpu_torch.serve.synthetic_sessions (box_world(11), "
+            "rectangle laps of half 6 + 0.2 k m at 0.2 m steps, seed "
+            "cfg.seed + 20 + k, 360 beams, odometry noise 0.04 m / "
+            "0.01 rad)")
+
+
+def regenerate_serving_reference(path=REF, sessions: int = 8,
+                                 n_scans: int = 300):
+    """Run the JAX package (CPU; f32, then f64) on the port's serving
+    sessions and write the per-session reference file."""
+    per, cap = _serving_runs(SERVING, sessions, n_scans)
     doc = dict(
-        scenario=f"{sessions} sessions x {n_scans} scans from "
-                 "ndtpu_torch.serve.synthetic_sessions (box_world(11), "
-                 "rectangle laps of half 6 + 0.2 k m at 0.2 m steps, seed "
-                 "cfg.seed + 20 + k, 360 beams, odometry noise 0.04 m / "
-                 "0.01 rad)",
+        scenario=_serving_scenario(sessions, n_scans),
         config="configs/config_serving.json under serving_config(), "
                f"keyframe capacity {cap}",
         reference="ndtpu.dist.slam_dp.run_sessions_stacked under jax.jit "
@@ -574,6 +684,41 @@ def regenerate_serving_reference(path=REF, sessions: int = 8,
     Path(path).write_text(json.dumps(doc, indent=1) + "\n")
 
 
+def regenerate_serving_layouts_reference(path=REF_LAYOUTS,
+                                         sessions: int = 8,
+                                         n_scans: int = 300):
+    """The same, per run of ``chip_smoke.SERVING_LAYOUT_RUNS``: the serving
+    config with only the run's fields changed (written to a temporary
+    JSON, as the smoke writes it), which ``chip_smoke.py`` phase 10b gates
+    the card's runs against session by session."""
+    import tempfile
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, changes in chip_smoke.SERVING_LAYOUT_RUNS:
+            cfg_path = Path(tmp) / f"{name}.json"
+            cfg_path.write_text(json.dumps(chip_smoke.layout_json(SERVING,
+                                                                  changes)))
+            per, cap = _serving_runs(cfg_path, sessions, n_scans)
+            runs[name] = dict(changes=changes, capacity=cap, sessions=per)
+    doc = dict(
+        scenario=_serving_scenario(sessions, n_scans),
+        config="configs/config_serving.json under serving_config() with "
+               "only each run's `changes` set",
+        reference="ndtpu.dist.slam_dp.run_sessions_stacked under jax.jit "
+                  "on the CPU at f32 and at f64, trajectories by "
+                  "ndtpu/serve.py's recovery; regenerate with python "
+                  "tests/test_torch_serve.py layouts",
+        runs=runs)
+    Path(path).write_text(json.dumps(doc, indent=1) + "\n")
+
+
 if __name__ == "__main__":
     jax.config.update("jax_platforms", "cpu")
-    regenerate_serving_reference()
+    if sys.argv[1:] in ([], ["serving"]):
+        regenerate_serving_reference()
+    if sys.argv[1:] in ([], ["layouts"]):
+        regenerate_serving_layouts_reference()
