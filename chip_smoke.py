@@ -18,7 +18,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    config-2 window shape (8 lanes x 360 beams, the 100 x 100 table) and
    the config-3 verify shape (64 lanes grouped over the 1,024-slot cache),
    against the composite route (the LM step in torch around K1, the old
-   path, timed beside it) and its f32 twin ``lm_ndt_ref``;
+   path, timed beside it) and its f32 twin ``lm_ndt_ref``; its H and score
+   bit-equal to K1's sums at its output poses, and all its outputs on a
+   relaunch and at R = 1 (K1's 128 threads per lane), shared, grouped and
+   gated at 360, 720 and 1,100 beams; and at bench.py §1's headline shape
+   (4,096 lanes x 720 beams, one 128 x 128 table), timed;
    K1 ``ndt_terms`` (512 lanes, then the window's 8 lanes, x 360 beams
    against a config-2 table built from a 300-scan map), K3
    ``halfcell_add`` (1,024, then 8, scans of 360 points, against the twin in
@@ -56,8 +60,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``factor_linearize`` (whole graph, gathered rows, chi^2, the fresh
    window) and K7b ``local_assemble`` against their f32 plain versions at
    rtol 1e-5, K6 ``pcg_solve`` against the f32 and f64 plain solves (also
-   its 0-iteration mode, one launch and no host sync per ``pcg`` call, and
-   the dense library solve timed beside it), K7a ``local_select`` bit for
+   its 0-iteration mode, timed, one launch and no host sync per ``pcg``
+   call, and the dense library solve timed beside it; then on the graph
+   scattered through its slots in six orders, and on a 1,200-pose graph
+   whose loop runs through the device scratch), K7a ``local_select`` bit for
    bit, each bit-identical on a second launch, and K6g ``pcg_solve_grid``
    on the same graph beside K6 (the same gates); and ``incremental_update``
    through the kernels (no plain version reached) against the plain route
@@ -87,8 +93,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 4. config 2 through its entry point: ``ndtpu_torch.run.main`` on
    ``configs/config2_full_sequence.json``, 300 scans, ``--device cuda``,
    with every launch counter (and the counts of ``match_batch_packed``
-   and loop-detection calls, the smoother's takes, full solves and PCG
-   solves) reset just before and read just after;
+   and loop-detection calls, the smoother's takes, full solves, and K6's
+   settled checks and solves) reset just before and read just after;
 5. the config-2 ATE gate: box-world draws 0-2 through
    ``run_slam_windowed``, against the JAX reference's ATE on the same
    sequences (``tests/data/torch_config2_box300_ref.json``) and dead
@@ -157,7 +163,8 @@ Phases (any failure exits non-zero, and no result line is printed):
     (``tests/data/torch_serving8_layouts_box300_ref.json``); the aggregate
     scans/s printed beside phase 10's;
 11. K6b ``pcg_solve_blocked`` (against its plain version in f32 and f64,
-    rtol 1e-4 per session, an idle session at 0), K3s
+    rtol 1e-4 per session, an idle session at 0, each session bit-equal
+    to its own K6 launch), K3s
     ``halfcell_add_stacked`` at the window and refresh shapes and K4s
     ``finalize_pack_stacked`` (each bit-equal to 8 single K3 / K4
     launches), all bit-identical on a second launch, on the state the
@@ -1894,6 +1901,192 @@ def check_no_sync(args, cfg):
           "host sync (set_sync_debug_mode('error'))")
 
 
+#: bench.py §1's headline registration shape (bench.py:181-207): B lanes of
+#: N beams against one table of a 128 x 128 grid at 0.5 m, overlap 4,
+#: ``MatchConfig(phase2_width=128, phase1_iters=16)``.
+HEADLINE = dict(batch=4096, n_beams=720, phase2_width=128, phase1_iters=16,
+                grid=dict(x0=-32.0, y0=-32.0, cell=0.5, nx=128, ny=128,
+                          overlap=4))
+
+
+def headline_args(seed: int, dev):
+    """bench.py §1's scene (bench.py:181-207) with the port's synth, in f64
+    on the card (K11) from numpy seed ``seed`` (JAX's PRNG keys have no
+    port): the box world of half 28; the map from 64 scans along a
+    rectangle of half 18 m at 1.5 m steps, its table finalized and packed
+    (K3, K4); :data:`HEADLINE`'s 4,096 scans of 720 beams along a
+    rectangle of half 17 m at 1.1 m steps, 40 m range, 0.01 m range noise,
+    points in (0.1, 40) m; initial poses the truth + (0.2, -0.15, 0.04).
+    Returns ``((init, px, py, mask_f, table, grid, None), MatchConfig)``
+    in f32."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch.config import GridConfig, MatchConfig, NDTMapConfig
+    from ndtpu_torch.data import synth
+    from ndtpu_torch.lie import se2
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    h = HEADLINE
+    f64 = dict(dtype=torch.float64, device=dev)
+    grid = GridConfig(**h["grid"])
+    mcfg = MatchConfig(phase2_width=h["phase2_width"],
+                       phase1_iters=h["phase1_iters"])
+    rng = np.random.default_rng(seed)
+    world = synth.World(synth.box_world(half=28.0).segments.to(**f64))
+    ang = synth.beam_angles(h["n_beams"], **f64)
+    map_poses = synth.rectangle_trajectory(64, half=18.0, step=1.5, **f64)
+    mpts, mmsk = synth.polar_to_xy(
+        synth.simulate_scans(world, map_poses, ang, 40.0, 0.01, rng), ang,
+        0.1, 40.0)
+    wpts = se2.transform(map_poses, mpts).float().reshape(-1, 2)
+    stats = ndt_grid.build_stats(wpts.contiguous(), mmsk.reshape(-1), grid)
+    table = ndt_grid.finalize_pack(stats, NDTMapConfig(), grid)
+    poses = synth.rectangle_trajectory(h["batch"], half=17.0, step=1.1,
+                                       **f64)
+    spts, smsk = synth.polar_to_xy(
+        synth.simulate_scans(world, poses, ang, 40.0, 0.01, rng), ang, 0.1,
+        40.0)
+    init = poses + torch.tensor([0.2, -0.15, 0.04], **f64)
+    spts = spts.float()
+    return ((init.float().contiguous(), spts[..., 0].contiguous(),
+             spts[..., 1].contiguous(), smsk.float().contiguous(), table,
+             grid, None), mcfg)
+
+
+def lm_vs_k1(name, args, cfg, gate=None) -> int:
+    """``lm_ndt`` (gated with ``gate``) against K1 at its own output poses:
+    its H (d2 x S5..10) and score (S0 / max(S1, 1)) bit-equal to those of
+    K1's sums there (``kernels.ndt_terms``), all its outputs bit-identical
+    on a relaunch and on a launch at R = 1 (K1's 128 threads per lane,
+    ``kernels.lm_spread`` held at 1). Returns the launch's R."""
+    import torch
+
+    from ndtpu_torch import kernels
+
+    init, px, py, mask_f, table, grid, group = args
+    run = lambda: kernels.lm_ndt(init, px, py, mask_f, table, grid, cfg,
+                                 group, gate=gate)
+    out, again = run(), run()
+    saved = kernels.lm_spread
+    kernels.lm_spread = lambda *a: 1
+    try:
+        one = run()
+    finally:
+        kernels.lm_spread = saved
+    s = kernels.ndt_terms(out[0], px, py, mask_f, table, grid, cfg.d2,
+                          cfg.exp_clip, group, cfg.compact_table)
+    d2 = torch.tensor(cfg.d2, dtype=torch.float32, device=s.device)
+    hess = (d2 * s[:, [5, 6, 7, 6, 8, 9, 7, 9, 10]]).reshape(-1, 3, 3)
+    score = s[:, 0] / torch.clamp(s[:, 1], min=1.0)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out[1]).all()), f"{name}: non-finite H")
+    require(bits_equal(out, again), f"{name}: a relaunch differs")
+    require(bits_equal(out, one), f"{name}: the launch at R = 1 differs")
+    require(bits_equal(out[1], hess) and bits_equal(out[2], score),
+            f"{name}: H or score differs from K1's sums at the output "
+            f"poses (H {int((out[1] != hess).sum())}, score "
+            f"{int((out[2] != score).sum())} entries)")
+    b, n = px.shape
+    return kernels.lm_spread(b, n, table_layout(table, grid)[0],
+                             kernels._sm_count(px.device))
+
+
+def check_lm_sums(cfg, cfg3, seed, dev, layouts=None,
+                  beams=(360, 720, 1100)) -> dict:
+    """:func:`lm_vs_k1` for each table layout (``kernels.LAYOUTS`` by
+    default) and beam count (1,100 takes the chunks past 1,024 beams) at
+    the three launches of the main path: shared (the config-2 window),
+    grouped (the config-3 verify, K x C lanes over a 1,024-slot cache of
+    the layout) and gated (the same lanes and the loop gate). The maps and
+    caches are built from box-world draw ``seed`` at 360 beams; the scans
+    at ``n`` beams are the same draw's. Returns each case's R."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.loop import closure
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    seq0 = box_sequence(seed, cfg.n_beams)
+    seqs = {n: seq0 if n == cfg.n_beams else box_sequence(seed, n)
+            for n in beams}
+    spreads = {}
+    for g, l in layouts or kernels.LAYOUTS:
+        c2, c3 = layout_cfg(cfg, g, l), layout_cfg(cfg3, g, l)
+        table = ndt_grid.finalize_pack(map_stats(seq0, c2.grid, dev), c2.ndt,
+                                       c2.grid, l == 4)
+        kf = box_store(c3, seq0, dev)
+        k, c = c3.loop.max_detect_per_window, c3.loop.max_candidates
+        loop = c3.loop
+        gate = kernels.LoopGate(
+            torch.ones((k, c), dtype=torch.bool, device=dev),
+            torch.arange(200, 200 + 40 * k, 40, device=dev),
+            loop.score_gate, loop.max_innovation_base,
+            loop.max_innovation_per_kf, closure._k_budget(loop))
+        for n, seq in seqs.items():
+            v = kernels.variant("lm_ndt", g, l) + f" N={n}"
+            a2 = lm_window_args(c2, seq, table, seed, dev, c2.window)
+            a3 = lm_verify_args(c3, seq, kf, seed, dev, k * c)
+            spreads[v] = dict(
+                shared=lm_vs_k1(f"{v} shared", a2, c2.match),
+                grouped=lm_vs_k1(f"{v} grouped", a3, c3.match),
+                gated=lm_vs_k1(f"{v} gated", a3, c3.match, gate))
+        del kf
+    print(f"[smoke] lm_ndt vs K1: H and score bit-equal to K1's sums at the "
+          f"output poses, bit-identical on a relaunch and at R = 1, for "
+          f"every case (R per case: {spreads})")
+    return spreads
+
+
+def check_lm_headline(seed, dev, jobs=None) -> dict:
+    """``lm_ndt`` at bench.py §1's headline shape (:func:`headline_args`:
+    4,096 lanes x 720 beams, one 128 x 128 table): finite, bit-identical on
+    a relaunch, H and score bit-equal to K1's sums at its output poses
+    (:func:`lm_vs_k1`), and against its f32 twin on the first 64 lanes
+    (converged flags equal on >= 95% of them, poses within the LM's
+    ``reject_tol`` where both converged: a lane stops at a rejected step
+    shorter than that, and two sum orders may stop that far apart at 720
+    beams); event and card ms and the bound, on a line of its own."""
+    import torch
+
+    from ndtpu_torch.ndt import match
+
+    args, mcfg = headline_args(seed, dev)
+    b, n = args[1].shape
+    spread = lm_vs_k1("lm_ndt headline", args, mcfg)
+    run = lambda: match.lm_ndt(*args[:6], mcfg)
+    kres = run()
+    sub = tuple(a[:64] for a in args[:4]) + args[4:6]
+    tres = match.lm_ndt_ref(*sub, mcfg)
+    torch.cuda.synchronize()
+    conv_eq = int((kres.converged[:64] == tres.converged).sum())
+    both = kres.converged[:64] & tres.converged
+    terr = float((kres.pose[:64] - tres.pose)[both].abs().max()) \
+        if bool(both.any()) else 0.0
+    require(conv_eq >= 0.95 * 64 and terr <= mcfg.reject_tol,
+            f"lm_ndt headline: converged equal to the f32 twin on "
+            f"{conv_eq}/64 lanes, poses {terr:.3e} off where both converged")
+    ms = time_ms(run)
+    lb = lm_bound(args, kres)
+    bd = bound(lb["n_bytes"], lb["n_flops"])
+    its = kres.n_iter.long()
+    print(f"[smoke] lm_ndt headline (bench.py §1: B={b} x {n} beams, a 128 "
+          f"x 128 table at overlap 4; R={spread}): n_iter mean "
+          f"{float(its.float().mean()):.2f} max {int(its.max())}, "
+          f"{int(kres.converged.sum())}/{b} converged; H and score "
+          f"bit-equal to K1's sums at the output poses, bit-identical on a "
+          f"relaunch and at R = 1; vs the f32 twin on 64 lanes converged "
+          f"equal on {conv_eq}, pose max abs err {terr:.3e} (tol "
+          f"{mcfg.reject_tol:g}); kernel "
+          f"{ms:.4f} ms ({b / ms * 1e3:.0f} registrations/s), bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    row = dict(batch=b, n_beams=n, spread=spread, ms=ms, max_abs_err=terr,
+               converged=int(kres.converged.sum()),
+               n_iter_mean=float(its.float().mean()), **bd)
+    card_time(jobs, "lm_ndt headline", row, "card_ms", run, ["lm_ndt_kernel"])
+    return row
+
+
 def layout_cfg(cfg, grids: int, lanes: int):
     """``cfg`` in the table layout ``(grids, lanes)``: ``grid.overlap`` and
     ``loop.local_overlap`` = ``grids``, ``match.compact_table`` = ``lanes
@@ -2201,7 +2394,9 @@ def check_k6(sm, cfg3, jobs=None):
                               cfg.pcg_tol, 0.0)
     z0, z0p = check_settled_step("K6", slv.pcg_solve, g, lin, cfg.pcg_tol)
     check_one_launch("K6", "pcg_solve", g, lin, lam, cfg)
+    settled = lambda: slv.pcg_solve(g, lin, None, 0.0, 0, cfg.pcg_tol, 1e-8)
     ms = time_ms(run)
+    settled_ms = time_ms(settled)
     plain = time_ms(lambda: slv.pcg_solve_ref(g, lin, None, lam,
                                               cfg.pcg_max_iter, cfg.pcg_tol),
                     reps=5)
@@ -2226,16 +2421,22 @@ def check_k6(sm, cfg3, jobs=None):
           f"{row['plain_f32_err_vs_f64']:.3e}; max|x| "
           f"{row['max_abs_x']:.3e}); "
           f"bit-identical on a second launch; one launch per pcg call, no "
-          f"host sync; settled step {z0:.6e} vs {z0p:.6e}; "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (dense "
+          f"host sync; settled step {z0:.6e} vs {z0p:.6e}, kernel "
+          f"{settled_ms:.4f} ms; "
+          f"kernel {ms:.4f} ms ({ms * 1e3 / max(n_it, 1):.3f} us per "
+          f"iteration, the set-up included), plain {plain:.4f} ms, library "
+          f"(dense "
           f"cholesky_ex + cholesky_solve of the {3 * v} x {3 * v} damped "
           f"system: a direct solve) {lib:.4f} ms, bound {bd['bound_ms']:.6f} "
           f"ms ({bd['bound_by']})")
-    row.update(ms=ms, plain_ms=plain, **bd)
+    row.update(ms=ms, plain_ms=plain, **bd, settled_ms=settled_ms,
+               us_per_iteration=ms * 1e3 / max(n_it, 1))
     row.update(library_ms=lib, library="torch.linalg.cholesky_ex + "
                "torch.cholesky_solve of solve_dense's damped system: a "
                "direct solve, not the same algorithm")
     card_time(jobs, "K6 pcg_solve", row, "card_ms", run, ["pcg_solve"])
+    card_time(jobs, "K6 settled step (0 iterations)", row, "settled_card_ms",
+              settled, ["pcg_solve"])
     grid = lambda: kernels.pcg_solve_grid(
         g.bet_i, g.bet_j, g.bet_mask, g.prior_idx, g.prior_mask, g.pose_mask,
         lin, None, lam, cfg.pcg_max_iter, cfg.pcg_tol)
@@ -2251,7 +2452,166 @@ def check_k6(sm, cfg3, jobs=None):
     card_time(jobs, "K6g pcg_solve_grid on config 3's graph", row_g,
               "card_ms", grid, ["pcg_grid"])
     row["grid"] = row_g
+    row["scattered"] = check_k6_scattered(sm, cfg3)
+    row["scratch"] = check_k6_scratch(g.poses.device)
     return row
+
+
+def permuted_graph(g, seed: int):
+    """``g`` with its pose slots and its factor slots each in a random order
+    from ``seed`` (pose ``k`` to slot ``perm[k]``; the factors' and priors'
+    indices follow). Returns ``(graph, perm)``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    dev = g.poses.device
+    v, f = g.poses.shape[0], g.bet_i.shape[0]
+    pv = torch.as_tensor(rng.permutation(v), device=dev)
+    pf = torch.as_tensor(rng.permutation(f), device=dev)
+    inv_v, inv_f = torch.argsort(pv), torch.argsort(pf)
+    fac = lambda t: t[inv_f].contiguous()
+    return g._replace(
+        poses=g.poses[inv_v].contiguous(),
+        pose_mask=g.pose_mask[inv_v].contiguous(),
+        prior_idx=pv[g.prior_idx].to(g.prior_idx.dtype).contiguous(),
+        bet_i=fac(pv[g.bet_i].to(g.bet_i.dtype)),
+        bet_j=fac(pv[g.bet_j].to(g.bet_j.dtype)), bet_z=fac(g.bet_z),
+        bet_sqrt_info=fac(g.bet_sqrt_info), bet_mask=fac(g.bet_mask)), pv
+
+
+#: Slot orders of :func:`check_k6_scattered`: the graph scattered by
+#: ``permuted_graph(g, SCATTER_SEEDS[0])``, then that graph permuted by each
+#: of the others.
+SCATTER_SEEDS = (11, 12, 13, 14, 15, 16)
+
+
+def check_k6_scattered(sm, cfg3) -> dict:
+    """K6 on the graph of :func:`check_k6` with its live poses and factors
+    scattered through the slots (:func:`permuted_graph`), and on that graph
+    with its slots permuted five times more, each order held to
+    :func:`pcg_vs_plain`'s gates: bit-identical on a second launch, x
+    finite, iterations within 1 of the f32 plain version's, and K6's error
+    against f64 within 2 x the f32 plain version's + 1e-6 x max|x|. The
+    plain version runs on the CPU here (its sums are then in one order on
+    every run), and the error gate holds for the medians over the orders:
+    100 iterations stop short of the tolerance, so one solve's f32 error
+    scatters several-fold with the sums' order, for the plain version as
+    for K6 (and the card's plain version, whose ``index_add_`` sums are
+    atomic, changes from run to run). Also prints how far each order's
+    solution, back in the first order's slots, is from the first."""
+    import torch
+
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import solve as slv
+
+    cfg = cfg3.solver
+    lam = torch.tensor(cfg.init_lambda, dtype=torch.float32,
+                       device=sm.graph.poses.device)
+    ga, _ = permuted_graph(sm.graph, SCATTER_SEEDS[0])
+    orders = [(ga, None)] + [permuted_graph(ga, s) for s in SCATTER_SEEDS[1:]]
+    ek, ep, its, diffs, xmax = [], [], [], [], 0.0
+    for n, (g, perm) in enumerate(orders):
+        name = f"K6 scattered, order {n}"
+        lin = fct.factor_linearize_ref(*fct._graph_args(g), cfg.huber_delta)
+        run = lambda: slv.pcg_solve(g, lin, None, lam, cfg.pcg_max_iter,
+                                    cfg.pcg_tol)
+        (x, it, _), again = run(), run()
+        cpu = lambda dt: (graph_on(g, "cpu", dt), tuple(
+            tuple(t.cpu().to(dt) for t in part) for part in lin))
+        g32, lin32 = cpu(torch.float32)
+        g64, lin64 = cpu(torch.float64)
+        xp, itp, _ = slv.pcg_solve_ref(g32, lin32, None, lam.cpu(),
+                                       cfg.pcg_max_iter, cfg.pcg_tol)
+        x64, _, _ = slv.pcg_solve_ref(g64, lin64, None, lam.cpu().double(),
+                                      cfg.pcg_max_iter, cfg.pcg_tol)
+        torch.cuda.synchronize()
+        require(bits_equal((x, it), again[:2]), f"{name}: two launches differ")
+        require(bool(torch.isfinite(x).all()), f"{name}: x not finite")
+        require(abs(int(it) - int(itp)) <= 1, f"{name}: {int(it)} "
+                f"iterations, the f32 plain version {int(itp)}")
+        ek.append(float((x.cpu().double() - x64).abs().max()))
+        ep.append(float((xp.double() - x64).abs().max()))
+        its.append(int(it))
+        xmax = max(xmax, float(x64.abs().max()))
+        back = x if perm is None else x[perm]
+        if n == 0:
+            first = back
+        diffs.append(float((back - first).abs().max()))
+    med_k, med_p = statistics.median(ek), statistics.median(ep)
+    require(med_k <= 2.0 * med_p + 1e-6 * xmax,
+            f"K6 scattered: the median error over {len(orders)} slot orders "
+            f"{med_k:.3e} off f64, over 2 x the f32 plain version's "
+            f"{med_p:.3e} + 1e-6 x {xmax:.3e}")
+    print(f"[smoke] K6 on the graph with its live poses and factors "
+          f"scattered through the slots, in {len(orders)} slot orders: "
+          f"iterations {its}; vs f64 max abs err {[f'{e:.2e}' for e in ek]} "
+          f"(f32 plain on the CPU {[f'{e:.2e}' for e in ep]}; median "
+          f"{med_k:.3e} vs {med_p:.3e}); "
+          f"each order's x from the first's, in its slots: "
+          f"{[f'{d:.2e}' for d in diffs]}")
+    return dict(iterations=its, max_abs_err=ek, plain_f32_err_vs_f64=ep,
+                diff_from_first=diffs)
+
+
+#: A graph whose live data K6 cannot keep in the shared memory its layout
+#: leaves (16 B per list place and 76 B per live factor: ~130 KB here,
+#: where ~75 KB are left), so its loop reads through L1 and the device
+#: scratch: config 4's Manhattan generator at this many poses, every slot
+#: live.
+K6_SCRATCH_POSES = 1200
+
+
+def check_k6_scratch(dev) -> dict:
+    """K6 on :data:`K6_SCRATCH_POSES` poses of config 4's Manhattan graph
+    (its route says K6), at K6g's 10k settings (lam 1e-3, 250 iterations,
+    tol 1e-5): :func:`pcg_vs_plain` (iterations within max(1, 2%), as K6g
+    is held)."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import solve as slv
+
+    g = config4_graph(dev, torch.float32, 0, K6_SCRATCH_POSES)
+    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
+    require(kernels.pcg_route(v, f, p) == "block",
+            f"K6 scratch: the route sends {v} poses to K6g")
+    lin = fct.linearize(g)
+    lam = torch.tensor(K6G_10K["lam"], dtype=torch.float32, device=dev)
+    mi, tol = K6G_10K["max_iter"], K6G_10K["tol"]
+    before = kernels.LAUNCHES["pcg_solve"]
+    row, _, it = pcg_vs_plain("K6 through the scratch",
+                              lambda: slv.pcg_solve(g, lin, None, lam, mi,
+                                                    tol), g, lin, lam, mi,
+                              tol, 0.02)
+    require(kernels.LAUNCHES["pcg_solve"] == before + 2,
+            "K6 scratch: not K6's launches")
+    print(f"[smoke] K6 on a {v}-pose graph, every slot live ({f} factors; "
+          f"its loop through L1 and the device scratch): {int(it)} "
+          f"iterations (f32 plain {row['plain_f32_iterations']}), vs f64 "
+          f"max abs err {row['max_abs_err']:.3e} (f32 plain "
+          f"{row['plain_f32_err_vs_f64']:.3e}); bit-identical on a second "
+          f"launch")
+    return row
+
+
+def finish_k6(row) -> None:
+    """K6's card time per iteration, once the card times are read: the
+    solve's less the 0-iteration step's (the set-up), over its
+    iterations."""
+    if row.get("card_ms") is None or row.get("settled_card_ms") is None:
+        row["card_us_per_iteration"] = None
+    else:
+        row["card_us_per_iteration"] = ((row["card_ms"]
+                                         - row["settled_card_ms"]) * 1e3
+                                        / max(row["iterations"], 1))
+    print(f"[smoke] K6 card time: {_fmt(row.get('card_ms'))} per "
+          f"{row['iterations']}-iteration solve, settled step "
+          f"{_fmt(row.get('settled_card_ms'))}, "
+          + ("per iteration not measured"
+             if row["card_us_per_iteration"] is None else
+             f"{row['card_us_per_iteration']:.3f} us per iteration"))
 
 
 #: K6g on bench.py §4's 10k-pose graph: its damping, PCG cap and tolerance
@@ -3372,8 +3732,9 @@ def run_entry_point(dev, config, n_scans: int, label=None):
     """The CLI main path on ``config``, with fresh launch counters and
     counts of the loop-detection calls (``verify_candidates_cached_flat``),
     the smoother's takes (0 skip, 1 global, 2 local), its full solves and
-    its PCG solves (``graph.solve.pcg_solve`` calls, one ``pcg_solve``
-    launch each); the run's scans/s, seconds, ATE, keyframes and loops ride
+    its PCG calls (``graph.solve.pcg_solve``, one ``pcg_solve`` launch
+    each), split into the settled checks (0 iterations) and the solves; the
+    run's scans/s, seconds, ATE, keyframes and loops ride
     along in the counts. Returns ``(launches, counts)``."""
     import numpy as np
 
@@ -3389,7 +3750,8 @@ def run_entry_point(dev, config, n_scans: int, label=None):
              (inc, "incremental_update"), (slv, "optimize"),
              (slv, "pcg_solve")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
-    counts = dict(detections=0, full_solves=0, pcg_solves=0)
+    counts = dict(detections=0, full_solves=0, pcg_solves=0,
+                  pcg_settled_checks=0)
     takes = []
 
     def counted(fn, key):
@@ -3397,6 +3759,12 @@ def run_entry_point(dev, config, n_scans: int, label=None):
             counts[key] += 1
             return fn(*a, **k)
         return inner
+
+    def pcg_counted(*a, **k):
+        # The settled check is the 0-iteration solve; the rest iterate.
+        max_iter = a[4] if len(a) > 4 else k["max_iter"]
+        counts["pcg_settled_checks" if max_iter == 0 else "pcg_solves"] += 1
+        return saved[3][2](*a, **k)
 
     def recorded(*a, **k):
         out = saved[1][2](*a, **k)
@@ -3406,7 +3774,7 @@ def run_entry_point(dev, config, n_scans: int, label=None):
     closure.verify_candidates_cached_flat = counted(saved[0][2], "detections")
     inc.incremental_update = recorded
     slv.optimize = counted(saved[2][2], "full_solves")
-    slv.pcg_solve = counted(saved[3][2], "pcg_solves")
+    slv.pcg_solve = pcg_counted
     try:
         kernels.reset_launches()
         match.CALLS["match_batch_packed"] = 0
@@ -3425,10 +3793,11 @@ def run_entry_point(dev, config, n_scans: int, label=None):
     lm = sum(v for k, v in launches.items() if k.startswith("lm_ndt"))
     require(lm == calls, f"entry point {label}: {lm} lm_ndt launches "
             f"for {calls} match_batch_packed calls (one each expected)")
-    require(launches["pcg_solve"] == counts["pcg_solves"],
+    pcg_calls = counts["pcg_solves"] + counts["pcg_settled_checks"]
+    require(launches["pcg_solve"] == pcg_calls,
             f"entry point {label}: {launches['pcg_solve']} pcg_solve "
-            f"launches for {counts['pcg_solves']} PCG solves (one each "
-            f"expected)")
+            f"launches for {pcg_calls} PCG solves and settled checks (one "
+            f"each expected)")
     codes = [int(t) for t in takes]
     counts["takes"] = {c: codes.count(c) for c in (0, 1, 2)}
     counts.update(scans_per_s=res["scans_per_s"], seconds=res["seconds"],
@@ -3441,8 +3810,9 @@ def run_entry_point(dev, config, n_scans: int, label=None):
           f"{lm / windows:.2f} lm_ndt launches per window ({windows} "
           f"windows), {counts['detections']} loop-detection calls; smoother: "
           f"{len(codes)} updates, takes (0 skip, 1 global, 2 local) "
-          f"{counts['takes']}, {counts['full_solves']} full solves, "
-          f"{counts['pcg_solves']} PCG solves; launches "
+          f"{counts['takes']}, {counts['full_solves']} full solves; K6 "
+          f"{counts['pcg_settled_checks']} settled checks (0 iterations) "
+          f"and {counts['pcg_solves']} solves; launches "
           f"{launches_nonzero(launches)}")
     return launches, counts
 
@@ -4015,9 +4385,10 @@ def check_k6b(state8, cfg, seed: int, jobs=None):
     8 sessions (1,280 pose and 2,560 factor slots; each session's newest
     poses moved): within rtol 1e-4 of each reference's max, session by
     session; bit-identical on a second launch; a session with a zero
-    right-hand side (its factors masked off) stays at x = 0 with no NaN.
-    Timed beside the 8 single-session K6 launches it replaces (tol = 0,
-    the same iteration count)."""
+    right-hand side (its factors masked off) stays at x = 0 with no NaN;
+    each session bit-equal to the single-session K6 launch it replaces
+    (tol = 0, the same iteration count), and timed beside those 8
+    launches."""
     import torch
 
     from ndtpu_torch import kernels
@@ -4070,13 +4441,16 @@ def check_k6b(state8, cfg, seed: int, jobs=None):
                for i, g in enumerate(singles)]
 
     def single():
-        for g, lg, lam in singles:
-            kernels.pcg_solve(g.bet_i, g.bet_j, g.bet_mask, g.prior_idx,
-                              g.prior_mask, g.pose_mask, lg, None, lam, it,
-                              0.0)
+        return [kernels.pcg_solve(g.bet_i, g.bet_j, g.bet_mask, g.prior_idx,
+                                  g.prior_mask, g.pose_mask, lg, None, lam,
+                                  it, 0.0)[0]
+                for g, lg, lam in singles]
 
-    single()
+    xs = single()
     torch.cuda.synchronize()
+    for i, xi_ in enumerate(xs):
+        require(bits_equal(xi_, x[i * v:(i + 1) * v]),
+                f"K6b session {i}: not bit-equal to its own K6 launch")
     ms = time_ms(run)
     plain = time_ms(lambda: slv.pcg_solve_blocked_ref(flat, lin, None, lam8,
                                                       s, it), reps=5)
@@ -4091,7 +4465,8 @@ def check_k6b(state8, cfg, seed: int, jobs=None):
     print(f"[smoke] K6b pcg_solve_blocked S={s} x V={v} ({live_v} live) F="
           f"{f} ({live} live), {it} iterations: vs f64 plain max abs err "
           f"{err64:.3e}, vs f32 plain {err32:.3e} (rtol 1e-4 of each "
-          f"session's max); bit-identical on a second launch; an idle "
+          f"session's max); bit-identical on a second launch and, session "
+          f"by session, to its own K6 launch; an idle "
           f"session stays at 0; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
           f"{s} single K6 launches {single_ms:.4f} ms, bound "
           f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
@@ -6520,6 +6895,10 @@ def main(argv=None) -> int:
     jobs = []     # card times, read after the entry-point phases
     lm_rows = {}
     lm_rows["lm_ndt"], conv2 = check_lm("window", lm2, cfg.match, jobs)
+    lm_rows["lm_ndt"]["vs_k1_spreads"] = check_lm_sums(
+        cfg, PipelineConfig.from_json(str(CONFIG3)), args.seed, dev,
+        layouts=[(4, 8)])
+    lm_rows["lm_ndt"]["headline"] = check_lm_headline(args.seed, dev, jobs)
     check_k1(cfg, seq, table, args.seed, dev, 512, jobs)
     check_k3(cfg, seq, stats, args.seed, dev, 1024)
     cfg3 = PipelineConfig.from_json(str(CONFIG3))
@@ -6709,6 +7088,7 @@ def main(argv=None) -> int:
                     f"{k['name']}: the {path} path launched it no time")
     launches = {k: sum(p[k] for p in paths.values()) for k in launches2}
     read_card_times(jobs)
+    finish_k6(results["pcg_solve"])
     finish_split(ba_split)
     del kf, jobs
 

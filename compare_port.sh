@@ -1,28 +1,36 @@
 #!/bin/bash
 # Time an older checkout of the port against this one on the card, in turns
-# (older, this, this, older): profile_port.py on configs 3 and 2 (the
-# box-world scenario, two kernel-route runs each after two warm-ups), and
-# the CLI main path (ndtpu_torch.run's main on each config's own scene,
-# config 3 at 600 scans and config 2 at 300: one warm-up run and two timed
-# runs in one process).
+# (older, this, this, older): profile_port.py --hot (lm_ndt and K6 / K6b at
+# the main path's shapes and bench.py's headline shape, with output hashes
+# and configs 1-2's box-world trajectories); then, unless WHAT is "hot",
+# profile_port.py on configs 3 and 2 (the box-world scenario, two
+# kernel-route runs each after two warm-ups), and the CLI main path
+# (ndtpu_torch.run's main on each config's own scene, config 3 at 600 scans
+# and config 2 at 300: one warm-up run and two timed runs in one process).
 #
-#   bash compare_port.sh OLDER_CHECKOUT OUT_DIR
+#   bash compare_port.sh OLDER_CHECKOUT OUT_DIR [all|hot]
 #
-# OLDER_CHECKOUT holds `git archive` of the older commit with this
-# checkout's profile_port.py copied in (it uses only entry points that
-# older ports have). Run from the root of this checkout; each result goes
-# to OUT_DIR (profile JSON and logs, one line "CLI [scans/s] [ATE]
-# [loops]" per CLI run).
+# OLDER_CHECKOUT holds `git archive` of the older commit; this checkout's
+# profile_port.py and chip_smoke.py are copied into it first (they use only
+# entry points that older ports have). Run from the root of this checkout;
+# each result goes to OUT_DIR (profile JSON and logs, one line "CLI
+# [scans/s] [ATE] [loops]" per CLI run).
 set -u
 older=$(cd "$1" && pwd)
 out=$(mkdir -p "$2" && cd "$2" && pwd)
+what=${3:-all}
 here=$(pwd)
+cp profile_port.py chip_smoke.py "$older/"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \
   | tee "$out/card.txt"
 i=0
 for who in p c c p; do
   i=$((i + 1))
   if [ "$who" = p ]; then dir=$older; else dir=$here; fi
+  (cd "$dir" && timeout 300 python3 profile_port.py --hot \
+    --out "$out/hot_${i}_${who}.json" > "$out/hot_${i}_${who}.log" 2>&1)
+  echo "hot $i $who rc=$?"
+  [ "$what" = hot ] && continue
   for cfg in config3_loop_closure config2_full_sequence; do
     (cd "$dir" && timeout 240 python3 profile_port.py \
       --config "configs/$cfg.json" --runs 2 \

@@ -223,7 +223,7 @@ _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
 _SIGNATURES = {
     "lm_ndt_launch": [_P] * 11 + [_I] * 7 + [_F] * 12 + [_P] * 6 + [_I]
-                     + [_F] * 3 + [_I, _I, _I, _I, _P],
+                     + [_F] * 3 + [_I] * 5 + [_P],
     "ndt_terms_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _I, _I, _P],
     "halfcell_add_launch": [_P, _P, _P, _F] + [_P] * 7 + [_I] * 4 + [_D] * 4
@@ -237,12 +237,12 @@ _SIGNATURES = {
     "factor_linearize_launch": [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I, _F, _I]
                                + [_P] * 7,
     "pcg_solve_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I] + [_P] * 7
-                        + [_F, _F, _I, _F] + [_P] * 3 + [_I, _P],
+                        + [_F, _F, _I, _F] + [_P] * 5,
     "pcg_grid_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I] + [_P] * 7
                        + [_F, _F, _I, _F] + [_P] * 5 + [_I, _P],
     "pcg_grid_plan": [_I, _I, _I, ctypes.POINTER(ctypes.c_longlong)],
     "pcg_solve_blocked_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I]
-                                + [_P] * 7 + [_I, _P, _I, _I, _P],
+                                + [_P] * 7 + [_I, _P, _P, _I, _P],
     "local_select_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P]
                            + [_I] * 7 + [_P] * 3,
     "local_assemble_launch": [_P, _P, _P, _I, _P, _P, _I] + [_P] * 8
@@ -481,6 +481,33 @@ def _gate_arrive(dev: torch.device, k: int) -> torch.Tensor:
     return buf
 
 
+#: ``lm_ndt``'s threads per lane are 128 R, one beam each; R is at most
+#: this (1,024 threads).
+LM_MAX_SPREAD = 8
+
+
+def lm_smem(n: int, grids: int, spread: int) -> int:
+    """``lm_ndt``'s dynamic shared memory for ``n`` beams at ``G = grids``
+    and ``R = spread``: 12 B per beam (its x, y and mask) and, for each of
+    the ``128 (R - 1)`` beams a chunk stores, its ``11 x G`` terms (in 52
+    floats at G = 4, 12 at G = 1) and a flag byte (``wide_terms_bytes`` of
+    ``csrc/ndt_sums.cuh``)."""
+    return 12 * n + (spread - 1) * 128 * ((208 if grids == 4 else 48) + 1)
+
+
+def lm_spread(b: int, n: int, grids: int, sms: int) -> int:
+    """``R`` for ``b`` lanes of ``n`` beams on a card of ``sms``
+    multiprocessors: one beam per thread, ``min(ceil(n / 128), 8)``, while
+    the lanes' threads (``128 R`` each) stay within ``1,024 x sms``, down
+    to 1 (K1's 128 threads) where the lanes fill the card alone; then the
+    largest that fits the shared memory (:func:`lm_smem`). No result
+    depends on it: the sums are K1's, bit for bit, at every R."""
+    r = max(1, min(-(-n // 128), LM_MAX_SPREAD, 8 * sms // max(b, 1)))
+    while r > 1 and lm_smem(n, grids, r) > SMEM_MAX - 1024:
+        r -= 1
+    return r
+
+
 def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None,
            gate: LoopGate | None = None):
     """K2 around K1: every lane's whole LM registration in one launch (see
@@ -505,11 +532,12 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None,
     _check(py, "py", shape=(b, n))
     _check(mask_f, "mask", shape=(b, n))
     n_tables, g_ptr, grouped = _table_args(table, group, b, wh, hh, gl)
-    smem = 3 * n * 4
-    if smem > SMEM_MAX - 1024:
-        raise ValueError(f"lm_ndt: {n} beams need {smem} B of shared memory, "
-                         f"over what a block can have")
     dev = px.device
+    spread = lm_spread(b, n, gl[0], _sm_count(dev)) if b > 0 else 1
+    smem = lm_smem(n, gl[0], spread)
+    if smem > SMEM_MAX - 1024:
+        raise ValueError(f"lm_ndt: {n} beams need {smem} B of shared memory "
+                         f"(12 B per beam), over what a block can have")
     pose = torch.empty((b, 3), dtype=torch.float32, device=dev)
     hess = torch.empty((b, 3, 3), dtype=torch.float32, device=dev)
     score = torch.empty((b,), dtype=torch.float32, device=dev)
@@ -545,7 +573,7 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None,
               int(cfg.max_iter), grid.x0, grid.y0, _inv(grid), cfg.d2,
               cfg.exp_clip, cfg.tol, cfg.reject_tol, cfg.init_lambda,
               cfg.lambda_up, cfg.lambda_down, cfg.max_lambda, cfg.step_clip,
-              *gate_args, smem, *gl, _stream(px))
+              *gate_args, smem, *gl, spread, _stream(px))
         if gate is not None:
             LAUNCHES[variant("loop_gate_fused", *gl)] += 1
     return outs
@@ -1011,20 +1039,30 @@ def _pcg_args(bet_i, bet_j, bet_mask, prior_idx, prior_mask, pose_mask, lin,
     return (v, f, p), args, out
 
 
+def _pcg_scratch(f: int, p: int, blocks: int, dev) -> torch.Tensor:
+    """K6's and K6b's device scratch: per block, 12 floats for each of the
+    ``2 f + p`` list places (a factor side's terms of the diagonal block
+    and gradient in the set-up, its ``A^T y`` in the loop)."""
+    return torch.empty(max(blocks * (2 * f + p) * 12, 4),
+                       dtype=torch.float32, device=dev)
+
+
 def pcg_solve(bet_i, bet_j, bet_mask, prior_idx, prior_mask, pose_mask, lin,
               rhs, lam, max_iter: int, tol: float, damp_abs: float = 0.0):
     """K6: the whole PCG solve of ``(H + damping) x = rhs`` in one launch
-    of one block (see ``csrc/pcg_solve.cu``). ``lin`` is K5's ``((ai, aj,
-    r), (ap, rp))``; ``rhs`` f32 ``[V, 3]`` or None for ``-gradient``;
+    of one block of 256 threads over the live factors and active poses
+    (see ``csrc/pcg_solve.cu``). ``lin`` is K5's ``((ai, aj, r), (ap,
+    rp))``; ``rhs`` f32 ``[V, 3]`` or None for ``-gradient``;
     ``lam`` an f32 ``[]`` tensor (read on the card) or a Python float.
     Returns ``(x [V, 3], iterations [] int32, max |M^-1 rhs| [])``. Raises
     above the graph size one block's shared memory holds (the launcher
     sizes it; :func:`pcg_route` says ``"grid"`` there)."""
-    (v, f, _), args, out = _pcg_args(bet_i, bet_j, bet_mask, prior_idx,
+    (v, f, p), args, out = _pcg_args(bet_i, bet_j, bet_mask, prior_idx,
                                      prior_mask, pose_mask, lin, rhs, lam,
                                      max_iter, tol, damp_abs)
-    _call("pcg_solve_launch", "pcg_solve", *args,
-          min(1024, -(-v // 32) * 32), _stream(out[0]),
+    scratch = _pcg_scratch(f, p, 1, out[0].device)
+    _call("pcg_solve_launch", "pcg_solve", *args, scratch.data_ptr(),
+          _stream(out[0]),
           too_big=f"a graph of {v} poses and {f} factors is over the shared "
                   f"memory one block can have; K6g (pcg_solve_grid) solves "
                   f"it, and graph.solve.pcg_solve routes it there "
@@ -1081,13 +1119,14 @@ def pcg_solve_blocked(bet_i, bet_j, bet_mask, prior_idx, prior_mask,
         _check(rhs, "rhs", shape=(v, 3))
     vb, fb, pb = v // n_blocks, f // n_blocks, p // n_blocks
     x = torch.empty((v, 3), dtype=torch.float32, device=pose_mask.device)
+    scratch = _pcg_scratch(fb, pb, n_blocks, x.device)
     _call("pcg_solve_blocked_launch", "pcg_solve_blocked", bet_i.data_ptr(),
           bet_j.data_ptr(), bet_mask.data_ptr(), fb, prior_idx.data_ptr(),
           prior_mask.data_ptr(), pb, pose_mask.data_ptr(), vb, ai.data_ptr(),
           aj.data_ptr(), r.data_ptr(), ap.data_ptr(), rp.data_ptr(),
           None if rhs is None else rhs.data_ptr(), lam.data_ptr(),
-          int(max_iter), x.data_ptr(), n_blocks,
-          min(1024, -(-vb // 32) * 32), _stream(x),
+          int(max_iter), x.data_ptr(), scratch.data_ptr(), n_blocks,
+          _stream(x),
           too_big=f"a session of {vb} poses and {fb} factors is over the "
                   f"shared memory one block can have")
     return x

@@ -11,9 +11,9 @@
 // beams alone. So here each lane (one block) runs to its own stop, and the
 // per-lane results are those of the lockstep loop.
 //
-// Per lane b, with the 11 sums S(pose) of ndtpu::ndt_lane_sums (K1's body,
-// ndt_sums.cuh), f = -S0, g = d2 * S2..4, H = d2 * S5..10 and
-// score = S0 / max(S1, 1):
+// Per lane b, with the 11 sums S(pose) of ndtpu::ndt_lane_sums_wide
+// (ndt_sums.cuh; bit for bit K1's ndt_lane_sums), f = -S0, g = d2 *
+// S2..4, H = d2 * S5..10 and score = S0 / max(S1, 1):
 //   init  pose = init_poses[b]; (f, g, H, score) at it; lam = init_lambda;
 //         it = 0; done = (|g0| + |g1| + |g2| == 0); conv = false
 //   while it < max_iter && !done:
@@ -34,31 +34,44 @@
 // the composite route (the same LM step in torch around K1) agree bit for
 // bit; JAX divides, which is one f32 rounding away.
 //
-// Layout: blockDim = K1's 128 threads over beams, so the sums at a pose are
-// bit-identical to K1's. The lane's px, py and mask are read from device
-// memory once into dynamic shared memory (12 B per beam) and reused by
-// every iteration. The table is [R, G*L] shared by all lanes, or with group
-// (int32 [B], clamped into [0, S)) a stack [S, R, G*L]; the layout (G = 4 or 1
-// overlap grids, L = 8 full or 4 compact lanes per grid) is a template
-// parameter of K1's body, so each of the four layouts is its own instantiation
-// (and each again gated and ungated) with the same LM step. After each block
-// reduction threads 0-10 put the sums in shared memory; every thread then
-// computes the LM step from them redundantly (identical inputs, identical
-// result), so the loop condition is uniform and needs no broadcast. f32,
-// built with --fmad=false and no fast math; no atomics, deterministic.
+// Layout: one block per lane, 128 R threads, one beam per thread (ndtpu::
+// ndt_lane_sums_wide, ndt_sums.cuh): all of an evaluation's row gathers are
+// in flight at once, and the sums at a pose stay bit-identical to K1's
+// (the same summing threads fold the same beams in the same order). R =
+// min(ceil(n / 128), 8) while the lanes leave the card room, down to 1
+// where B x 128 threads already fill it (the wrapper chooses R; no result
+// depends on it). Past 128 R beams the block takes them in chunks of 128
+// R. The lane's px, py and mask are read from device memory once into
+// dynamic shared memory (12 B per beam) and reused by every iteration;
+// before them the stored terms (wide_terms_bytes). The table is [R, G*L]
+// shared by all lanes, or with group (int32 [B], clamped into [0, S)) a
+// stack [S, R, G*L]; the layout (G = 4 or 1 overlap grids, L = 8 full or
+// 4 compact lanes per grid) is a template parameter of K1's body, so each
+// of the four layouts is its own instantiation (and each again gated and
+// ungated, and for R = 1, R <= 4 and R <= 8, which set the launch bounds
+// and so the registers a thread may have) with the same LM step. Each
+// evaluation ends with every thread holding all 11 sums (the warps'
+// partials summed by each thread in warp order, the partials in one of two
+// buffers taken in turn, so no evaluation's partials overwrite those
+// another thread still reads); every thread then computes the LM step from
+// them redundantly (identical inputs, identical result), so the loop
+// condition is uniform and needs no broadcast. f32, built with
+// --fmad=false and no fast math; no atomics, deterministic.
 //
 // What bounds it on Hopper: by its roofline, nothing (B = 8, N = 360: about
-// 0.4 MB and 10 MFLOP, under 0.2 us); by its dependent chain, every
-// iteration is one round of 128-byte L2 gathers (3 beams per thread, in
-// series) plus a block reduction and two barriers, so a lane's time is
-// iterations x (gather latency + reduction). The design answers the real
-// cost it replaces: the composite route spent ~80 small torch launches and
-// a host sync every 4 iterations per LM iteration; this is one launch per
-// registration call and no host sync. The smaller layouts gather 64, 32 or
-// 16 bytes per beam instead of 128 and evaluate one grid instead of four
-// at overlap 1; the chain of dependent steps per iteration is the same, so
-// a simple kernel per layout is all this slice asks (tuning the layouts is
-// later work).
+// 0.4 MB and 10 MFLOP, under 0.2 us). At the main path's small batches (B
+// = 8 windows, 64 verify lanes) a few SMs run one lane each, so a lane's
+// time is its iterations x (the latency of one evaluation), and one
+// evaluation is one dependent chain: transform, row gather (128 B from L2
+// at overlap 4), expf and the terms, then the fold and two barriers. With
+// one beam per thread an evaluation waits on one gather, not on the three
+// (at 360 beams) or six (720) that K1's 128 threads take in series, at the
+// cost of 44 x G B of shared memory per stored beam and (R - 1) x 11 x G
+// shared-memory loads and adds for each summing thread. At large B (bench
+// .py's B = 4,096 x 720 beams) the lanes alone fill the card, the time is
+// throughput, not latency, and R = 1 keeps K1's 128 threads and its
+// occupancy. Thread-block clusters, which would spread one lane over 2-4
+// SMs at B = 8, are untried.
 //
 // The gated verify (kGate = true) also runs K8b's loop gate
 // (loop_gate.cuh) in the same launch, for the loop verify's K queries x C
@@ -87,6 +100,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "loop_gate.cuh"
 #include "ndt_sums.cuh"
 
@@ -113,8 +128,8 @@ struct GateArgs {
   ndtpu::GateParams p;
 };
 
-template <bool kGate, int kG, int kL>
-__global__ void __launch_bounds__(kNdtThreads)
+template <bool kGate, int kG, int kL, int kMaxR>
+__global__ void __launch_bounds__(kNdtThreads * kMaxR)
 lm_ndt_kernel(const float* __restrict__ init_poses,
               const float* __restrict__ px, const float* __restrict__ py,
               const float* __restrict__ mask,
@@ -123,9 +138,9 @@ lm_ndt_kernel(const float* __restrict__ init_poses,
               float* __restrict__ hess_out, float* __restrict__ score_out,
               int* __restrict__ iter_out, unsigned char* __restrict__ conv_out,
               LmParams p, GateArgs gate) {
-  extern __shared__ float beams[];           // sx[n], sy[n], m[n]
-  __shared__ float part[kNdtThreads / 32][kNdtSums];
-  __shared__ float sums[kNdtSums];
+  // The stored terms, then sx[n], sy[n], m[n] and the terms' flags.
+  extern __shared__ float4 dyn[];
+  __shared__ float part[2][kNdtThreads / 32][kNdtSums];
 
   const int b = blockIdx.x;
   const int n = p.n;
@@ -133,25 +148,29 @@ lm_ndt_kernel(const float* __restrict__ init_poses,
     const int g = min(max(group[b], 0), p.n_tables - 1);
     table += (size_t)g * p.rows_per_table * ndtpu::row_float4<kG, kL>();
   }
-  float* sx = beams;
-  float* sy = beams + n;
-  float* sm = beams + 2 * n;
+  const int held = blockDim.x - kNdtThreads;
+  float4* terms = dyn;
+  float* sx = reinterpret_cast<float*>(
+      terms + (size_t)held * (ndtpu::wide_beam_floats(kG) / 4));
+  float* sy = sx + n;
+  float* sm = sy + n;
+  unsigned char* hit = reinterpret_cast<unsigned char*>(sm + n);
   const size_t base = (size_t)b * n;
-  for (int i = threadIdx.x; i < n; i += kNdtThreads) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     sx[i] = px[base + i];
     sy[i] = py[base + i];
     sm[i] = mask[base + i];
   }
   __syncthreads();
 
-  // Sums at (tx, ty, phi) into sums[], visible to every thread on return.
+  // Sums at (tx, ty, phi) into sums[], in every thread.
+  float sums[kNdtSums];
+  int parity = 0;
   auto evaluate = [&](float tx, float ty, float phi) {
-    const float v = ndtpu::ndt_lane_sums<kG, kL>(tx, ty, phi, sx, sy, sm, n,
-                                                 table,
-                                         p.wh, p.hh, p.x0, p.y0, p.inv, p.d2,
-                                         p.exp_clip, part);
-    if (threadIdx.x < kNdtSums) sums[threadIdx.x] = v;
-    __syncthreads();
+    ndtpu::ndt_lane_sums_wide<kG, kL, kMaxR>(
+        tx, ty, phi, sx, sy, sm, n, table, p.wh, p.hh, p.x0, p.y0, p.inv,
+        p.d2, p.exp_clip, terms, hit, part[parity], sums);
+    parity ^= 1;
   };
 
   const float d2 = p.d2;
@@ -279,31 +298,32 @@ lm_ndt_kernel(const float* __restrict__ init_poses,
 }
 
 // Raise the dynamic shared-memory limit of one instantiation (> 48 KB).
-template <bool kGate, int kG, int kL>
+template <bool kGate, int kG, int kL, int kMaxR>
 cudaError_t opt_in(int smem_bytes) {
-  return cudaFuncSetAttribute(lm_ndt_kernel<kGate, kG, kL>,
+  return cudaFuncSetAttribute(lm_ndt_kernel<kGate, kG, kL, kMaxR>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem_bytes);
 }
 
-template <bool kGate, int kG, int kL>
-int launch(int b, int smem_bytes, cudaStream_t stream, const void* init_poses,
-           const void* px, const void* py, const void* mask,
-           const void* table, const void* group, void* pose_out,
-           void* hess_out, void* score_out, void* iter_out, void* conv_out,
-           const LmParams& p, const GateArgs& g) {
-  if (smem_bytes > 48 * 1024) {   // beyond the default: opt in (> 4,096 beams)
-    const cudaError_t err = opt_in<kGate, kG, kL>(smem_bytes);
+template <bool kGate, int kG, int kL, int kMaxR>
+int launch(int b, int spread, int smem_bytes, cudaStream_t stream,
+           const void* init_poses, const void* px, const void* py,
+           const void* mask, const void* table, const void* group,
+           void* pose_out, void* hess_out, void* score_out, void* iter_out,
+           void* conv_out, const LmParams& p, const GateArgs& g) {
+  if (smem_bytes > 48 * 1024) {   // beyond the default: opt in
+    const cudaError_t err = opt_in<kGate, kG, kL, kMaxR>(smem_bytes);
     if (err != cudaSuccess) {
       cudaGetLastError();   // clear it, so the next launch's check is clean
       return (int)err;
     }
   }
-  lm_ndt_kernel<kGate, kG, kL><<<b, kNdtThreads, smem_bytes, stream>>>(
-      (const float*)init_poses, (const float*)px, (const float*)py,
-      (const float*)mask, (const float4*)table, (const int*)group,
-      (float*)pose_out, (float*)hess_out, (float*)score_out, (int*)iter_out,
-      (unsigned char*)conv_out, p, g);
+  lm_ndt_kernel<kGate, kG, kL, kMaxR>
+      <<<b, kNdtThreads * spread, smem_bytes, stream>>>(
+          (const float*)init_poses, (const float*)px, (const float*)py,
+          (const float*)mask, (const float4*)table, (const int*)group,
+          (float*)pose_out, (float*)hess_out, (float*)score_out,
+          (int*)iter_out, (unsigned char*)conv_out, p, g);
   return (int)cudaGetLastError();
 }
 
@@ -325,10 +345,15 @@ extern "C" int lm_ndt_launch(const void* init_poses, const void* px,
                              void* arrive, int c_count, float score_gate,
                              float innov_base, float innov_per_kf,
                              int k_budget, int smem_bytes, int grids,
-                             int lanes, void* stream) {
+                             int lanes, int spread, void* stream) {
   // arrive != null: the gated verify, b = K * c_count lanes in a grouped
   // launch (group holds the candidate indices).
+  // spread = R: 128 R threads per lane (1 <= R <= 8), smem_bytes = 12 n +
+  // wide_terms_bytes(grids, R).
   const bool gated = arrive != nullptr;
+  if (spread < 1 || spread > 8 ||
+      smem_bytes < 12 * n + ndtpu::wide_terms_bytes(grids, spread))
+    return (int)cudaErrorInvalidValue;
   if (gated && (c_count < 1 || c_count > ndtpu::kGateMaxLanes ||
                 b % c_count != 0 || group == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -341,9 +366,16 @@ extern "C" int lm_ndt_launch(const void* init_poses, const void* px,
                    {c_count, score_gate, innov_base, innov_per_kf, k_budget}};
   return ndtpu::with_layout(grids, lanes, [&](auto kg, auto kl) {
     constexpr int kG = decltype(kg)::value, kL = decltype(kl)::value;
-    auto* run = gated ? &launch<true, kG, kL> : &launch<false, kG, kL>;
-    return run(b, smem_bytes, (cudaStream_t)stream, init_poses, px, py, mask,
-               table, group, pose_out, hess_out, score_out, iter_out,
-               conv_out, p, g);
+    auto pick = [&](auto wide) {
+      constexpr int kMaxR = decltype(wide)::value;
+      return gated ? &launch<true, kG, kL, kMaxR>
+                   : &launch<false, kG, kL, kMaxR>;
+    };
+    auto* run = spread == 1   ? pick(std::integral_constant<int, 1>{})
+                : spread <= 4 ? pick(std::integral_constant<int, 4>{})
+                              : pick(std::integral_constant<int, 8>{});
+    return run(b, spread, smem_bytes, (cudaStream_t)stream, init_poses, px,
+               py, mask, table, group, pose_out, hess_out, score_out,
+               iter_out, conv_out, p, g);
   });
 }

@@ -9,6 +9,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
     python3 profile_port.py --scan [--config ...] [--seed 0] [--runs 3]
                             [--out FILE.json]
     python3 profile_port.py --kernels [--seed 0] [--out FILE.json]
+    python3 profile_port.py --hot [--seed 0] [--out FILE.json]
     python3 profile_port.py --layouts [--seed 0] [--out FILE.json]
     python3 profile_port.py --serving [--sessions 8] [--max-scans 300]
                             [--runs 3] [--out FILE.json]
@@ -63,6 +64,11 @@ lacks reads null).
 
 ``--scan`` runs only :func:`scan_profile`: the per-scan path
 (``run_slam``) on the same draw, and its input preparation (K11, K13).
+
+``--hot`` runs only :func:`hot_times` (event and card ms per call of
+``lm_ndt`` at the window, verify and gated-verify shapes and at bench.py's
+headline shape, and of K6 and K6b, with hashes of their outputs and of
+configs 1-2's box-world trajectories, for comparing two commits).
 
 ``--layouts`` runs only :func:`layout_times` (event and card ms per call
 of K1, ``lm_ndt`` shared and grouped, the gated verify, K3, K4 and K8a in
@@ -316,6 +322,159 @@ def layout_times(seed: int, dev) -> dict:
     out = {key: dict(ms=time_ms(fn)) for key, (fn, _) in calls.items()}
     for key, (fn, names) in calls.items():
         out[key]["card_ms"] = card_ms(fn, names)
+    return out
+
+
+def hot_times(seed: int, dev) -> dict:
+    """Event ms (median of 20 synchronized calls) and card ms (profiler,
+    mean of 20) per call of the two kernels the main path spends the most
+    card time in, at its shapes, in a process of its own: ``lm_ndt`` at the
+    config-2 window (8 lanes x 360 beams), grouped at the config-3 verify
+    (64 lanes over a 1,024-slot cache), gated (:func:`loop_queries` x 16
+    candidates, as the pipeline calls it) and at bench.py §1's headline
+    shape (``chip_smoke.headline_args``: 4,096 lanes x 720 beams); K6 on
+    ``chip_smoke``'s config-3 graph (box-world draw 2 through
+    ``run_slam_windowed``, ``smoother_state``), its full solve and its
+    0-iteration settled step; K6b on 8 served sessions of 300 scans (the
+    smoke's phase 11). Beside them each launch's outputs' sha256 and, for
+    configs 1 and 2 on box-world draws 0-2, the ATE and the trajectory's
+    sha256 (``run_odometry_windowed``, ``run_slam_windowed``); where the
+    port chooses ``lm_ndt``'s threads per lane (``kernels.lm_spread``),
+    also the window's and verify's card ms at R = 1-4. It uses only
+    entry points older checkouts of the port also have, and
+    ``chip_smoke.py``'s helpers (``compare_port.sh`` copies both scripts
+    into the older checkout), so two commits compare in one call. Every
+    event time is read before the first profiler session."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from chip_smoke import (CONFIG1, CONFIG2, CONFIG3, SERVING, _moved_graph8,
+                            box_sequence, box_store, headline_args,
+                            lm_verify_args, lm_window_args, map_stats,
+                            smoother_state, time_ms)
+    from ndtpu_torch import kernels, serve
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.dist import slam_dp
+    from ndtpu_torch.eval.ate import ate_rmse
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import solve as slv
+    from ndtpu_torch.loop import closure
+    from ndtpu_torch.ndt import grid as ndt_grid
+    from ndtpu_torch.ndt import match
+    from ndtpu_torch.slam import pipeline
+    from ndtpu_torch.slam.odometry import run_odometry_windowed
+
+    def tensors(x):
+        if isinstance(x, torch.Tensor):
+            yield x
+        elif isinstance(x, dict):
+            for v in x.values():
+                yield from tensors(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                yield from tensors(v)
+
+    def sha(x) -> str:
+        h = hashlib.sha256()
+        for t in tensors(x):
+            h.update(t.detach().contiguous().cpu().reshape(-1).view(
+                torch.uint8).numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out = {}
+    cfg2 = PipelineConfig.from_json(str(CONFIG2))
+    cfg3 = PipelineConfig.from_json(str(CONFIG3))
+    seq = box_sequence(seed, cfg2.n_beams)
+    calls = {}    # key -> (fn, kernel names for the card time)
+    table = ndt_grid.finalize_pack(map_stats(seq, cfg2.grid, dev), cfg2.ndt,
+                                   cfg2.grid)
+    a2 = lm_window_args(cfg2, seq, table, seed, dev, cfg2.window)
+    calls["lm_ndt window B=8"] = (lambda: match.lm_ndt(*a2[:6], cfg2.match),
+                                  ["lm_ndt_kernel"])
+    kf = box_store(cfg3, seq, dev)
+    k = cfg3.loop.max_detect_per_window * cfg3.loop.max_candidates
+    a3 = lm_verify_args(cfg3, seq, kf, seed, dev, k)
+    calls[f"lm_ndt grouped B={k}"] = (
+        lambda: match.lm_ndt(*a3[:6], cfg3.match, a3[6]), ["lm_ndt_kernel"])
+    loop, (qpts, qmsk, qpose), qidx, cands = loop_queries(
+        cfg3, seq, kf, seed, dev, cfg3.loop.max_candidates)
+    calls[f"gated verify K=4 C={cfg3.loop.max_candidates}"] = (
+        lambda: closure.verify_candidates_cached_flat(
+            kf, qpts, qmsk, qpose, cands, loop, cfg3.match, qidx),
+        ["lm_ndt_kernel"])
+    ah, mh = headline_args(seed, dev)
+    calls[f"lm_ndt headline B={ah[1].shape[0]} N={ah[1].shape[1]}"] = (
+        lambda: match.lm_ndt(*ah[:6], mh), ["lm_ndt_kernel"])
+    s3 = box_sequence(2, cfg3.n_beams)
+    state, _ = pipeline.run_slam_windowed(s3.points.to(dev), s3.mask.to(dev),
+                                          s3.odom.to(dev), cfg3)
+    sm = smoother_state(state, seed)
+    g, scfg = sm.graph, cfg3.solver
+    lin = fct.factor_linearize_ref(*fct._graph_args(g), scfg.huber_delta)
+    lam = torch.tensor(scfg.init_lambda, dtype=torch.float32, device=dev)
+    calls["K6 solve"] = (lambda: slv.pcg_solve(g, lin, None, lam,
+                                               scfg.pcg_max_iter,
+                                               scfg.pcg_tol), ["pcg_solve"])
+    calls["K6 settled step"] = (lambda: slv.pcg_solve(
+        g, lin, None, 0.0, 0, scfg.pcg_tol, 1e-8), ["pcg_solve"])
+    cfg8 = slam_dp.serving_config(PipelineConfig.from_json(str(SERVING)))
+    cfg8 = dataclasses.replace(cfg8, keyframe=dataclasses.replace(
+        cfg8.keyframe, capacity=serve.auto_capacity(cfg8, 300)))
+    pts8, msk8, odo8, _ = serve.pad_sessions(
+        serve.synthetic_sessions(cfg8, 8, 300))
+    state8, _ = slam_dp.run_sessions_stacked(pts8.to(dev), msk8.to(dev),
+                                             odo8.to(dev), cfg8)
+    graph8 = _moved_graph8(state8.graph, seed)
+    flat = slam_dp._flat_graph(graph8)
+    lin8 = fct.linearize(flat, cfg8.solver.huber_delta)
+    lam8 = state8.sm_lam.contiguous()
+    n8 = graph8.poses.shape[0]
+    calls[f"K6b S={n8}"] = (lambda: slv.pcg_solve_blocked(
+        flat, lin8, None, lam8, n8, cfg8.solver.pcg_max_iter),
+        ["pcg_solve"])
+    for key, (fn, _) in calls.items():
+        res = fn()
+        torch.cuda.synchronize()
+        out[key] = dict(sha256=sha(res))
+    out["K6 solve"]["iterations"] = int(calls["K6 solve"][0]()[1])
+    out["K6 solve"].update(slots=list(g.poses.shape[:1]) + [g.bet_i.shape[0]],
+                           live=[int(g.pose_mask.sum()),
+                                 int(g.bet_mask.sum())])
+    for key, (fn, _) in calls.items():
+        out[key]["ms"] = time_ms(fn)
+    traj = {}
+    for name, config in (("config1", CONFIG1), ("config2", CONFIG2)):
+        cfg = PipelineConfig.from_json(str(config))
+        for draw in (0, 1, 2):
+            sq = box_sequence(draw, cfg.n_beams)
+            p, m, o = (t.to(dev) for t in (sq.points, sq.mask, sq.odom))
+            if name == "config1":
+                poses = run_odometry_windowed(
+                    p, m, o, cfg.grid, cfg.ndt, cfg.match, cfg.keyframe,
+                    window=cfg.window, passes=cfg.window_passes,
+                    odom_gate=cfg.odom_gate).poses
+            else:
+                st, outs = pipeline.run_slam_windowed(p, m, o, cfg)
+                poses = pipeline.recover_trajectory(st, outs)
+            traj[f"{name} draw {draw}"] = dict(
+                ate=float(ate_rmse(poses.cpu(), sq.gt_poses)),
+                sha256=sha(poses))
+    out["trajectories"] = traj
+    for key, (fn, names) in calls.items():
+        out[key]["card_ms"] = card_ms(fn, names)
+    if hasattr(kernels, "lm_spread"):      # lm_ndt's threads per lane
+        saved, spreads = kernels.lm_spread, {}
+        try:
+            for r in range(1, 5):
+                kernels.lm_spread = lambda *a, r=r: r
+                spreads[r] = {k: card_ms(calls[k][0], ["lm_ndt_kernel"])
+                              for k in ("lm_ndt window B=8",
+                                        f"lm_ndt grouped B={k}")}
+        finally:
+            kernels.lm_spread = saved
+        out["lm_ndt card ms at R"] = spreads
     return out
 
 
@@ -1101,6 +1260,11 @@ def main(argv=None) -> int:
     parser.add_argument("--scan", action="store_true",
                         help="profile the per-scan path and its inputs "
                         "(scan_profile) and nothing else")
+    parser.add_argument("--hot", action="store_true",
+                        help="time lm_ndt and K6 / K6b at the main path's "
+                        "shapes and bench.py's headline shape, with output "
+                        "hashes and config 1-2 trajectories (hot_times), "
+                        "and nothing else")
     parser.add_argument("--sessions", type=int, default=8)
     parser.add_argument("--max-scans", type=int, default=300)
     args = parser.parse_args(argv)
@@ -1126,6 +1290,12 @@ def main(argv=None) -> int:
         kernels.build()
         result = dict(card=smi, kernels=kernel_times(args.seed, dev))
         for key, row in result["kernels"].items():
+            print(f"[profile] {key}: {row}")
+        return _emit(result, smi, args.out)
+    if args.hot:
+        kernels.build()
+        result = dict(card=smi, hot=hot_times(args.seed, dev))
+        for key, row in result["hot"].items():
             print(f"[profile] {key}: {row}")
         return _emit(result, smi, args.out)
     if args.layouts:

@@ -608,6 +608,31 @@ def test_pcg_solve_matches_f32_and_f64_plain(smoother):
     assert row["iterations"] > 0
 
 
+def test_pcg_solve_scattered_slots_match_permuted(smoother):
+    """K6 with the live poses and factors scattered through the slots, and
+    with those slots permuted again, in six orders: each within
+    pcg_vs_plain's gates against the f32 plain version on the CPU (the
+    error gate on the medians over the orders; see
+    chip_smoke.check_k6_scattered)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    row = cs.check_k6_scattered(*smoother)
+    assert len(row["iterations"]) == 6 and min(row["iterations"]) > 0
+    assert kernels.LAUNCHES["pcg_solve"] == 12
+
+
+def test_pcg_solve_through_the_scratch(dev):
+    """K6 on a 1,200-pose graph with every slot live, whose live data does
+    not fit the shared memory K6's layout leaves (its loop reads through
+    L1 and the device scratch), within pcg_vs_plain's gates (see
+    chip_smoke.check_k6_scratch)."""
+    import chip_smoke as cs
+
+    row = cs.check_k6_scratch(dev)
+    assert row["iterations"] > 0
+
+
 def test_local_select_bit_equal_to_plain(smoother):
     """K7a equals the plain selection bit for bit and repeats (see
     chip_smoke.check_k7a)."""
@@ -1368,6 +1393,33 @@ def test_layout_grouped_and_gated_verify(layout_inputs, layout):
     assert eq >= 0.95 * b
     cs.check_gated_verify(c3, li["seq"], kf, 0, li["dev"],
                           c3.loop.max_candidates)
+
+
+@pytest.mark.parametrize("layout", kernels.LAYOUTS,
+                         ids=["g4l8"] + LAYOUT_IDS)
+def test_lm_ndt_sums_bit_equal_to_k1(layout_inputs, layout):
+    """lm_ndt (one beam per thread) in the layout, shared, grouped and
+    gated, at 360, 720 and 1,100 beams (the last in chunks past 1,024): H
+    and score at its output poses bit-equal to d2 x K1's sums there, and
+    every output bit-identical on a relaunch and at R = 1 (see
+    chip_smoke.check_lm_sums)."""
+    import chip_smoke as cs
+
+    li = layout_inputs
+    spreads = cs.check_lm_sums(li["cfg2"], li["cfg3"], 0, li["dev"],
+                               layouts=[layout])
+    assert len(spreads) == 3
+    assert max(r["shared"] for r in spreads.values()) == 8
+
+
+def test_lm_ndt_at_the_headline_shape(dev):
+    """lm_ndt at bench.py's headline shape (4,096 lanes x 720 beams): H
+    bit-equal to K1's sums, a relaunch bit-identical, and against its f32
+    twin on 64 lanes (see chip_smoke.check_lm_headline)."""
+    import chip_smoke as cs
+
+    row = cs.check_lm_headline(0, dev)
+    assert row["batch"] == 4096 and row["converged"] > 0
 
 
 def test_raycast_matches_plain(dev):
