@@ -58,7 +58,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    then the smoother's kernels on the graph of that config-3 run (1,024
    pose and 2,048 factor slots, its newest poses moved): K5
    ``factor_linearize`` (whole graph, gathered rows, chi^2, the fresh
-   window) and K7b ``local_assemble`` against their f32 plain versions at
+   window; one launch per call in each of its five modes, by the launch
+   counter and the profiler's device operations) and K7b
+   ``local_assemble`` against their f32 plain versions at
    rtol 1e-5, K6 ``pcg_solve`` against the f32 and f64 plain solves (also
    its 0-iteration mode, timed, one launch and no host sync per ``pcg``
    call, and the dense library solve timed beside it; then on the graph
@@ -75,10 +77,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    there and through tests/test_robust.py's IRLS chain on the card, K6g
    ``pcg_solve_grid`` (the PCG past one block, one cooperative launch)
    against the f32 and f64 plain solves at lam 1e-3, 250 iterations (also
-   its 0-iteration mode, one launch and no host sync per ``pcg`` call, the
-   dense library solve timed beside it), K9a ``supernodal_assemble`` and
-   K9b ``schur_reduce`` against their plain versions in f32 on the card and
-   in f64 on the CPU (rtol 1e-5 of each target's max; bit-identical on a
+   its 0-iteration mode, the set-up, timed, its time per iteration past it
+   beside the four-sync design's, one launch and no host sync per ``pcg``
+   call, the dense library solve timed beside it), K9a
+   ``supernodal_assemble`` and K9b ``schur_reduce`` against their plain
+   versions in f32 on the card and in f64 on the CPU (rtol 1e-5 of each
+   target's max; bit-identical on a
    second launch), one ``supernodal_delta`` on the card against the f64
    plain route (within 2 x the f32 plain route's error), and the bench's
    ``ba_solve_ms_per_iter_10k`` (one K5 linearize + ``supernodal_delta``,
@@ -138,6 +142,14 @@ Phases (any failure exits non-zero, and no result line is printed):
     K7b), each with its take code, its kernels and one call's poses
     against the f64 plain route; ``marginal_covariance_pcg`` at 10k against
     its f64 plain version;
+8d. K7a past one block's shared memory (:func:`check_k7a_past_block`): on
+    25,000 poses of config 4's Manhattan graph with four new poses chained
+    (25,064 pose slots), its scratch route bit-equal to the plain
+    selection and on a second launch, timed; then the path, one
+    ``incremental_update`` through the kernels, counters reset just before
+    and read just after (the local take through ``local_select[scratch]``
+    and K7b), against the f32 and f64 plain routes; and K6g on the
+    25,000-pose graph against the f32 and f64 plain solves;
 9. sessions of different lengths (:func:`check_padded_sessions`): the
    padding the serving CLI adds is inert on the card (all-masked
    ``lm_ndt`` lanes, K3s, K4s, the gated verify) and in a stacked run;
@@ -264,7 +276,8 @@ Phases (any failure exits non-zero, and no result line is printed):
     verify in phase 12, ``ndt_sgh_unpacked[g1]`` and K3[g1] in 12b;
     K9c and K5 in phase 13's ranks; K10a, K10b and K10c in phase 15's ranks,
     ``slab_accumulate[g1]``, K10b and ``slab_sgh[g1]`` in 15b's;
-    K6g in phases 8b, 8c and 12; K11 in phases 4, 6, 10 and 16, K13 in
+    K6g in phases 8b, 8c and 12; ``local_select[scratch]`` (K7a past one
+    block) in phase 8d's update; K11 in phases 4, 6, 10 and 16, K13 in
     phase 16), exactly one ``lm_ndt*`` launch per ``match_batch_packed``
     call (phases 4, 6 and 16), and in phase 6 one gated verify per
     loop-detection call and no standalone K8b launch; K5, K7a and K7b launched
@@ -275,7 +288,8 @@ Phases (any failure exits non-zero, and no result line is printed):
     their twins in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches (phases
-4, 6, 7b, 7c, 8, 8b, 8c, 10, 10b, 12, 12b and 13-16, 15b together), errors,
+4, 6, 7b, 7c, 8, 8b, 8c, 8d, 10, 10b, 12, 12b and 13-16, 15b together),
+errors,
 times and bounds,
 config 1's and the layout runs' results (``config1``, ``layouts``), the
 repeated runs' ATEs, the smoother's counts and bench.py §5's three 10k cells,
@@ -450,6 +464,11 @@ KERNELS = [
     dict(name="local_select", source=_CSRC + "local_system.cu",
          replaces="ndtpu/graph/incremental.py:120",
          paths=("config2", "config3")),
+    # K7a past one block's shared memory: a local-path update on a graph of
+    # 25,064 pose slots (phase 8d).
+    dict(name="local_select[scratch]", source=_CSRC + "local_system.cu",
+         replaces="ndtpu/graph/incremental.py:173",
+         paths=("select_past_block",)),
     dict(name="local_assemble", source=_CSRC + "local_system.cu",
          replaces="ndtpu/dist/schur.py:318", paths=("config2", "config3")),
     # The supernodal step runs on config 4's path only.
@@ -822,28 +841,41 @@ def check_k1(cfg, seq, table, seed, dev, b, jobs=None):
     return row
 
 
-def card_time(jobs, label, row, key, fn, names=None):
-    """``fn``'s card time (``profile_port.card_ms``) into ``row[key]``: at
-    once when ``jobs`` is None, else queued in ``jobs`` for
+def card_time(jobs, label, row, key, fn, names=None, measure=None,
+              per_call=None):
+    """``fn``'s card time (``profile_port.card_ms``, with ``per_call`` the
+    design's launches of ``names`` per call where it is known; or
+    ``measure(fn, names)``, another reading under ``torch.profiler``) into
+    ``row[key]``: at once when ``jobs`` is None, else queued in ``jobs`` for
     :func:`read_card_times`. A ``torch.profiler`` session leaves the later
     CUDA launches of the process slower, so the smoke reads card times after
     its event-timed and entry-point phases."""
     if jobs is None:
         from profile_port import card_ms
 
-        row[key] = card_ms(fn, names)
+        row[key] = (measure(fn, names) if measure
+                    else card_ms(fn, names, per_call=per_call))
     else:
-        jobs.append((label, row, key, fn, names))
+        jobs.append((label, row, key, fn, names, measure, per_call))
 
 
 def read_card_times(jobs):
-    """Run the queued card timings, one line each."""
+    """Run the queued card timings (and other profiler readings), one line
+    each."""
     from profile_port import card_ms
 
-    for label, row, key, fn, names in jobs:
-        row[key] = card_ms(fn, names)
-        print(f"[smoke] card time {label}: {_fmt(row[key])} per call "
-              f"(torch.profiler, mean of 20)")
+    for label, row, key, fn, names, measure, per_call in jobs:
+        if measure is None:
+            row[key] = card_ms(fn, names, per_call=per_call)
+            print(f"[smoke] card time {label}: {_fmt(row[key])} per call "
+                  f"(torch.profiler, mean of 20; operations per session "
+                  f"{card_ms.counts})")
+            if row[key] is None:
+                print(f"[smoke]   last session: {card_ms.detail}"[:600])
+        else:
+            row[key] = measure(fn, names)
+            print(f"[smoke] {label}: "
+                  f"{'not measured' if row[key] is None else row[key]}")
 
 
 def _fmt(ms) -> str:
@@ -970,7 +1002,7 @@ def check_k3(cfg, seq, base, seed, dev, k, jobs=None):
                tol_units=max(w1, w2), f32_twin_tol_units=max(f1, f2))
     card_time(jobs, f"{name} M={m}", row, "card_ms",
               lambda: kernels.halfcell_add(base.n, base.s, base.ss, pts, msk,
-                                           1.0, cfg.grid))
+                                           1.0, cfg.grid), per_call=3)
     return row
 
 
@@ -2216,11 +2248,92 @@ def _flat(lin):
     return [*lin[0], *lin[1]]
 
 
+def k5_calls(sm, cfg3) -> dict:
+    """K5's calls on the smoother's path, by mode, on ``sm``'s graph: the
+    whole graph (an LM step's linearization), its chi^2, the local path's
+    gathered rows and their chi^2 (the selection with the newest factor
+    fresh), and the fresh window's max."""
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import incremental as inc
+
+    g, huber = sm.graph, cfg3.solver.huber_delta
+    sel = inc.local_select(g, cfg3.solver, g.n_between - 1)
+    return {"whole graph": lambda: fct.linearize(g, huber),
+            "chi2": lambda: fct.chi2(g, huber),
+            "gathered": lambda: inc._local_lin(g, g.poses, sel, huber),
+            "gathered chi2": lambda: inc._local_lin(g, g.poses, sel, huber,
+                                                    chi_only=True),
+            "fresh window": lambda: inc.fresh_residual_max(g)}
+
+
+def device_kernels(fn, names=None, reps: int = 3):
+    """The device operations (kernels, memsets, copies) ``fn`` makes per
+    call, by name, read under ``torch.profiler`` over ``reps`` calls after a
+    warm-up; None when five sessions record none. A session sometimes
+    records only part of the calls' device events, so with ``names`` (one
+    launch per call expected, a kernel's name fragments) sessions are
+    retried until one records ``reps`` operations; None (not measured)
+    when none of five does, else the check is that no session records
+    more and that every one recorded is one kernel, named so (the
+    two-launch design shows two names)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA]
+        if ev:
+            seen.append(ev)
+            if names is None or len(ev) >= reps:
+                break
+    counts = [len(ev) for ev in seen]
+    if not seen or (names is not None and max(counts) < reps):
+        return None
+    distinct = sorted({e for ev in seen for e in ev})
+    if names is not None:
+        require(len(distinct) == 1 and any(n in distinct[0] for n in names)
+                and max(counts) == reps,
+                f"{names}: device operations {distinct}, {counts} per "
+                f"session of {reps} calls (one launch per call expected)")
+    return distinct
+
+
+def check_k5_one_launch(sm, cfg3, jobs=None) -> dict:
+    """One K5 launch per call in every mode (:func:`k5_calls`):
+    ``LAUNCHES["factor_linearize"]`` grows by one per call, and the
+    profiler sees at most one device operation per call, all of them one
+    kernel, K5's (:func:`device_kernels`; read at once without ``jobs``,
+    else queued with the card times). Returns, per mode, the launches per
+    call and (once read) the kernel's name."""
+    from ndtpu_torch import kernels
+
+    row = {}
+    for mode, fn in k5_calls(sm, cfg3).items():
+        before = kernels.LAUNCHES["factor_linearize"]
+        fn()
+        n = kernels.LAUNCHES["factor_linearize"] - before
+        require(n == 1, f"K5 {mode}: {n} launches per call (one expected)")
+        row[mode] = dict(launches_per_call=n)
+        card_time(jobs, f"K5 {mode}: device operations per call", row[mode],
+                  "device_kernels", fn, ["linearize"],
+                  measure=device_kernels)
+    return row
+
+
 def check_k5(sm, cfg3, jobs=None):
     """K5 against ``factor_linearize_ref`` (f32, on the card) on a real
     graph: the whole graph, the local path's gathered rows, chi^2 only and
     the fresh window; each array within rtol 1e-5 of its max, chi^2 and
-    the window's max within rtol 1e-5; bit-identical on a second launch."""
+    the window's max within rtol 1e-5; bit-identical on a second launch;
+    one launch per call in every mode (:func:`check_k5_one_launch`)."""
     import torch
 
     from ndtpu_torch.graph import factors as fct
@@ -2250,6 +2363,7 @@ def check_k5(sm, cfg3, jobs=None):
     err = max(err, _rel_check("K5 gathered", _flat(loc), _flat(loc_ref)))
     win, win_ref = inc.fresh_residual_max(g), inc.fresh_residual_max_ref(g)
     _rel_check("K5 fresh window", [win[None]], [win_ref[None]])
+    one = check_k5_one_launch(sm, cfg3, jobs)
     ms = time_ms(run)
     plain = time_ms(lambda: fct.factor_linearize_ref(*args, huber))
     f, p = g.bet_i.shape[0], g.prior_idx.shape[0]
@@ -2264,11 +2378,13 @@ def check_k5(sm, cfg3, jobs=None):
           f"array's max; also the gathered K={sel['fid'].shape[0]} rows), "
           f"chi2 {float(chi):.6e} vs {float(chi_ref):.6e}, fresh-window max "
           f"{float(win):.6e} vs {float(win_ref):.6e}; bit-identical on a "
-          f"second launch; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"second launch; one launch per call in each of its five modes; "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
           f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain, **bd)
+    row["one_launch"] = one
     card_time(jobs, "K5 factor_linearize", row, "card_ms", run,
-              ["linearize_"])
+              ["linearize_"], per_call=1)
     return row
 
 
@@ -2286,14 +2402,18 @@ def k6_bound(g, n_it: int) -> dict:
 
 
 def k6g_traffic_ms(g, n_it: int) -> float:
-    """What K6g's design moves through memory, at HBM rate: each iteration
-    the live factors' Ai, Aj (72 B) and y (12 B), the incidence entries (4
-    B), and each live pose's M^-1 (36 B), damping, x, r, z, p and q (12 B
-    each), beside the bound's one read of the inputs. Not the bound (the
-    state stays in L2); the cost of keeping the graph in global memory."""
+    """What K6g's design moves through memory, at HBM rate: each iteration,
+    for each of a live factor's two list places, its Ai and Aj (72 B), the
+    other endpoint's z and p_old (24 B) and the place's key and other
+    endpoint (8 B); a prior's Ap and place (44 B); each live pose's list
+    offsets (8 B), M^-1 (36 B), z and p_old read, p, q, x, r and z written,
+    damping, q, x and r read (12 B each). Beside the bound's one read of
+    the inputs; not the bound (the state stays in L2), the cost of keeping
+    the graph in global memory."""
     live, live_v = int(g.bet_mask.sum()), int(g.pose_mask.sum())
-    ent = 2 * live + int(g.prior_mask.sum())
-    return n_it * (live * 84 + 4 * ent + live_v * 108) / HBM_BYTES_S * 1e3
+    pri = int(g.prior_mask.sum())
+    return n_it * (live * 2 * 104 + pri * 44 + live_v * 176) / HBM_BYTES_S \
+        * 1e3
 
 
 def pcg_vs_plain(name, run, g, lin, lam, max_iter: int, tol: float,
@@ -2434,9 +2554,10 @@ def check_k6(sm, cfg3, jobs=None):
     row.update(library_ms=lib, library="torch.linalg.cholesky_ex + "
                "torch.cholesky_solve of solve_dense's damped system: a "
                "direct solve, not the same algorithm")
-    card_time(jobs, "K6 pcg_solve", row, "card_ms", run, ["pcg_solve"])
+    card_time(jobs, "K6 pcg_solve", row, "card_ms", run, ["pcg_solve"],
+              per_call=1)
     card_time(jobs, "K6 settled step (0 iterations)", row, "settled_card_ms",
-              settled, ["pcg_solve"])
+              settled, ["pcg_solve"], per_call=1)
     grid = lambda: kernels.pcg_solve_grid(
         g.bet_i, g.bet_j, g.bet_mask, g.prior_idx, g.prior_mask, g.pose_mask,
         lin, None, lam, cfg.pcg_max_iter, cfg.pcg_tol)
@@ -2450,7 +2571,7 @@ def check_k6(sm, cfg3, jobs=None):
           f"{row_g['max_abs_err']:.3e}; bit-identical on a second launch; "
           f"kernel {ms_g:.4f} ms beside K6's {ms:.4f} ms")
     card_time(jobs, "K6g pcg_solve_grid on config 3's graph", row_g,
-              "card_ms", grid, ["pcg_grid"])
+              "card_ms", grid, ["pcg_grid"], per_call=1)
     row["grid"] = row_g
     row["scattered"] = check_k6_scattered(sm, cfg3)
     row["scratch"] = check_k6_scratch(g.poses.device)
@@ -2596,19 +2717,18 @@ def check_k6_scratch(dev) -> dict:
     return row
 
 
-def finish_k6(row) -> None:
-    """K6's card time per iteration, once the card times are read: the
-    solve's less the 0-iteration step's (the set-up), over its
-    iterations."""
-    if row.get("card_ms") is None or row.get("settled_card_ms") is None:
-        row["card_us_per_iteration"] = None
-    else:
-        row["card_us_per_iteration"] = ((row["card_ms"]
-                                         - row["settled_card_ms"]) * 1e3
-                                        / max(row["iterations"], 1))
-    print(f"[smoke] K6 card time: {_fmt(row.get('card_ms'))} per "
-          f"{row['iterations']}-iteration solve, settled step "
-          f"{_fmt(row.get('settled_card_ms'))}, "
+def finish_per_iteration(row, label) -> None:
+    """A PCG kernel's card time per iteration, once the card times are
+    read: the solve's less the 0-iteration launch's (the set-up), over its
+    iterations; not measured unless both readings were taken and the
+    solve's is the longer."""
+    ms, setup = row.get("card_ms"), row.get("settled_card_ms")
+    row["card_us_per_iteration"] = (
+        None if ms is None or setup is None or ms <= setup
+        else (ms - setup) * 1e3 / max(row["iterations"], 1))
+    print(f"[smoke] {label} card time: {_fmt(ms)} per "
+          f"{row['iterations']}-iteration solve, its set-up "
+          f"{_fmt(setup)}, "
           + ("per iteration not measured"
              if row["card_us_per_iteration"] is None else
              f"{row['card_us_per_iteration']:.3f} us per iteration"))
@@ -2617,6 +2737,10 @@ def finish_k6(row) -> None:
 #: K6g on bench.py §4's 10k-pose graph: its damping, PCG cap and tolerance
 #: (bench.py's BA step and solve_g2o's PCG).
 K6G_10K = dict(lam=1e-3, max_iter=250, tol=1e-5)
+#: The four-sync K6g's event time per iteration there, us (PERF.md §6, on
+#: an H100 80GB HBM3 at 700 W), beside which the smoke prints the two-sync
+#: design's.
+K6G_FOUR_SYNC_US = (11.83, 12.44)
 
 
 def check_k6g(c4, jobs=None):
@@ -2647,7 +2771,9 @@ def check_k6g(c4, jobs=None):
     z0, z0p = check_settled_step("K6g", slv.pcg_solve, g, lin, tol)
     check_one_launch("K6g", "pcg_solve_grid", g, lin, lam,
                      SolverConfig(pcg_max_iter=mi, pcg_tol=tol))
+    settled = lambda: slv.pcg_solve(g, lin, None, 0.0, 0, tol, 1e-8)
     ms = time_ms(run)
+    settled_ms = time_ms(settled)
     plain = time_ms(lambda: slv.pcg_solve_ref(g, lin, None, lam, mi, tol),
                     reps=5)
     h, b = slv.normal_equations(g, lin)
@@ -2667,7 +2793,9 @@ def check_k6g(c4, jobs=None):
     blocks = kernels.pcg_grid_plan(v, f, p)[0]
     bd = k6_bound(g, n_it)
     traffic = k6g_traffic_ms(g, n_it)
+    us_it = (ms - settled_ms) * 1e3 / max(n_it, 1)
     row.update(ms=ms, ms_per_iter=ms / max(n_it, 1), plain_ms=plain,
+               settled_ms=settled_ms, us_per_iteration=us_it,
                grid_blocks=blocks, traffic_ms=traffic, **bd)
     row.update(library_ms=lib, library="torch.linalg.cholesky_ex + "
                "torch.cholesky_solve of solve_dense's damped 30,000 x 30,000 "
@@ -2680,14 +2808,18 @@ def check_k6g(c4, jobs=None):
           f"{row['plain_f32_err_vs_f64']:.3e}; max|x| "
           f"{row['max_abs_x']:.3e}); bit-identical on a second launch; one "
           f"launch per pcg call, no host sync; settled step {z0:.6e} vs "
-          f"{z0p:.6e}; kernel {ms:.4f} ms ({ms / max(n_it, 1) * 1e3:.2f} us "
-          f"per iteration), plain {plain:.4f} ms, library (dense "
+          f"{z0p:.6e}, its set-up alone {settled_ms:.4f} ms; kernel "
+          f"{ms:.4f} ms ({us_it:.2f} us per iteration past the set-up; the "
+          f"four-sync design {K6G_FOUR_SYNC_US[0]}-{K6G_FOUR_SYNC_US[1]} us "
+          f"with it, PERF.md), plain {plain:.4f} ms, library (dense "
           f"cholesky_ex + cholesky_solve of the {3 * v} x {3 * v} damped "
           f"system: a direct solve) {lib:.4f} ms, bound "
           f"{bd['bound_ms']:.6f} ms ({bd['bound_by']}), K6g's own traffic "
           f"at HBM rate {traffic:.4f} ms")
     card_time(jobs, "K6g pcg_solve_grid 10k", row, "card_ms", run,
-              ["pcg_grid"])
+              ["pcg_grid"], per_call=1)
+    card_time(jobs, "K6g 10k settled step (0 iterations: the set-up)", row,
+              "settled_card_ms", settled, ["pcg_grid"], per_call=1)
     return row
 
 
@@ -2738,7 +2870,7 @@ def check_k7a(sm, cfg3, jobs=None):
           f"({bd['bound_by']})")
     row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, **bd)
     card_time(jobs, "K7a local_select", row, "card_ms", run,
-              ["local_select"])
+              ["local_select"], per_call=1)
     return row
 
 
@@ -3499,11 +3631,12 @@ def _fenced_median_ms(fn, reps: int, fence):
     return statistics.median(ts), ts
 
 
-def local_graph_10k(sg):
-    """bench.py §5b's graph: the settled 10k graph ``sg`` in a graph of
-    10,064 pose and F + 64 factor slots, then four new poses chained to the
-    last by 1 m odometry (sqrt-info 10 I). Returns ``(graph, since)``,
-    ``since`` the factor count before the new factors."""
+def local_graph(sg, slots: int = INC_10K["slots"]):
+    """bench.py §5b's graph: the graph ``sg`` (the settled 10k graph there)
+    in a graph of ``slots`` pose slots (10,064 there) and F + 64 factor
+    slots, then four new poses chained to the last by 1 m odometry
+    (sqrt-info 10 I). Returns ``(graph, since)``, ``since`` the factor
+    count before the new factors."""
     import torch
 
     from ndtpu_torch.graph import factors as fct
@@ -3511,8 +3644,7 @@ def local_graph_10k(sg):
 
     dev, dt = sg.poses.device, sg.poses.dtype
     f0 = sg.bet_mask.shape[0]
-    big = fct.empty_graph(INC_10K["slots"], 4, f0 + INC_10K["extra_factors"],
-                          dt, dev)
+    big = fct.empty_graph(slots, 4, f0 + INC_10K["extra_factors"], dt, dev)
 
     def put(dst, src):
         out = dst.clone()
@@ -3659,7 +3791,7 @@ def run_incremental_10k(c4, card, seed: int):
                           settle_iters=int(sol.n_iter),
                           settle_chi2=float(sol.chi2))
     # The local update on §5b's graph.
-    big, since = local_graph_10k(sg)
+    big, since = local_graph(sg)
     take3, launches["local"], ek3, ep3 = update_vs_plain(
         "incremental local 10k", state(big, float("inf")), icfg, since)
     ll = launches["local"]
@@ -3695,6 +3827,131 @@ def run_incremental_10k(c4, card, seed: int):
           f"f64, f32 plain {ep3:.3e}; chained x{INC_10K['chain']}, median "
           f"of 6; launches {rec['local']['launches']})")
     return la, rec
+
+
+#: Config 4's Manhattan graph at this many poses (phase 8b's ``auto`` run)
+#: is past K7a's shared memory: its local graph (:func:`local_graph`,
+#: 25,064 pose and 26,005 factor slots, F ~ V) needs ~253 KB of the 227 KB
+#: one block can have (``kernels.select_smem``).
+SELECT_PAST_POSES = 25000
+
+
+def check_k7a_past_block(dev, seed: int, jobs=None):
+    """K7a past one block's shared memory (its scratch route): on
+    :data:`SELECT_PAST_POSES` poses of config 4's Manhattan graph with
+    four new poses chained to it (:func:`local_graph`, ``kernels.
+    select_route`` must say scratch), bit-equal to ``local_select_ref``
+    (on the card) with ``since`` = the new factors', none, and 40 factors
+    back, and on a second launch, each a ``local_select[scratch]`` launch
+    and no shared-route one; timed as the local path calls it. Then the
+    path: one ``incremental_update`` through the kernels (bench.py §5's
+    solver, no plain version reached; launches counted from 0) against the
+    f32 and f64 plain routes (:func:`update_vs_plain`: take 2, the local
+    take, through K7a's scratch route and K7b). Returns ``(the update's
+    launches, row)``."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import SolverConfig
+    from ndtpu_torch.graph import incremental as inc
+
+    icfg = SolverConfig(**ICFG_10K)
+    g, since = local_graph(config4_graph(dev, torch.float32, seed,
+                                         SELECT_PAST_POSES),
+                           SELECT_PAST_POSES + 64)
+    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
+    require(kernels.select_route(v, f) == "scratch",
+            f"K7a scratch: the route keeps {v} poses, {f} factors in shared "
+            f"memory ({kernels.select_smem(v, f)} B)")
+    oks = []
+    for sn in (since, None, since - 40):
+        before = dict(kernels.LAUNCHES)
+        one, two = (inc.local_select(g, icfg, sn) for _ in range(2))
+        ref = inc.local_select_ref(g, icfg, sn)
+        torch.cuda.synchronize()
+        require(kernels.LAUNCHES["local_select[scratch]"]
+                == before["local_select[scratch]"] + 2
+                and kernels.LAUNCHES["local_select"]
+                == before["local_select"],
+                "K7a scratch: not two scratch-route launches")
+        for key in SELECT_KEYS:
+            require(bits_equal(one[key], ref[key].to(one[key].dtype)),
+                    f"K7a scratch: {key} differs from the plain selection")
+            require(bits_equal(one[key], two[key]),
+                    f"K7a scratch: {key} differs on a second launch")
+        oks.append(bool(one["ok"]))
+    run = lambda: inc.local_select(g, icfg, since)
+    ms = time_ms(run)
+    plain = time_ms(lambda: inc.local_select_ref(g, icfg, since))
+    sel = run()
+    p_loc, f_loc = sel["p_loc"], sel["fid"].shape[0]
+    # As check_k7a's bound.
+    bd = bound(f * 17 + v + p * 9 + 16 + (1 + p_loc + f_loc + p)
+               + 8 * (p_loc + 5 * f_loc + 2 * p),
+               8.0 * f * (icfg.local_hops + 2) + 8.0 * v)
+    lam = torch.tensor(INC_10K["lam"], dtype=torch.float32, device=dev)
+    st = inc.SmootherState(g, lam, torch.tensor(float("inf"), device=dev),
+                           torch.zeros((), dtype=torch.long, device=dev))
+    take, launches, ek, ep = update_vs_plain(
+        f"incremental local {v} poses", st, icfg, since)
+    require(take == 2 and launches["local_select[scratch]"] > 0
+            and launches["local_select"] == 0
+            and launches["local_assemble"] > 0,
+            f"incremental local {v} poses: take {take}, launches "
+            f"{launches_nonzero(launches)} (take 2 through K7a's scratch "
+            f"route and K7b expected)")
+    print(f"[smoke] K7a local_select past one block (V={v}, F={f}: "
+          f"{kernels.select_smem(v, f)} B of shared memory, over "
+          f"{kernels.SMEM_MAX}): bit-equal to the plain selection and on a "
+          f"second launch (since = the new factors', none, 40 back: ok "
+          f"{oks}); {int(sel['in_set'].sum())} active poses, "
+          f"{int(sel['f_sel'].sum())} touched factors; kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
+          f"({bd['bound_by']}); incremental_update take {take}, poses "
+          f"{ek:.3e} off f64 (f32 plain {ep:.3e}); launches "
+          f"{launches_nonzero(launches)}")
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, **bd, pose_slots=v,
+               factor_slots=f, select_smem=kernels.select_smem(v, f),
+               update=dict(take=take, err_vs_f64=ek,
+                           plain_f32_err_vs_f64=ep))
+    card_time(jobs, "K7a local_select[scratch]", row, "card_ms", run,
+              ["local_select"], per_call=1)
+    return launches, row
+
+
+def check_k6g_past(dev, seed: int, n_poses: int = SELECT_PAST_POSES):
+    """K6g on ``n_poses`` poses of config 4's Manhattan graph (K5's
+    linearization) at its 10k settings (lam 1e-3, 250 iterations, tol
+    1e-5): :func:`pcg_vs_plain`, iterations within max(1, 2%); event
+    times of the solve and of its 0-iteration set-up."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import solve as slv
+
+    g = config4_graph(dev, torch.float32, seed, n_poses)
+    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
+    require(kernels.pcg_route(v, f, p) == "grid",
+            f"K6g {v}: the route keeps it on K6")
+    lin = fct.linearize(g)
+    lam = torch.tensor(K6G_10K["lam"], dtype=torch.float32, device=dev)
+    mi, tol = K6G_10K["max_iter"], K6G_10K["tol"]
+    run = lambda: slv.pcg_solve(g, lin, None, lam, mi, tol)
+    row, _, it = pcg_vs_plain(f"K6g {v}", run, g, lin, lam, mi, tol, 0.02)
+    ms = time_ms(run)
+    settled_ms = time_ms(lambda: slv.pcg_solve(g, lin, None, 0.0, 0, tol,
+                                               1e-8))
+    row.update(ms=ms, settled_ms=settled_ms,
+               us_per_iteration=(ms - settled_ms) * 1e3 / max(int(it), 1))
+    print(f"[smoke] K6g on {v} poses ({f} factors, "
+          f"{kernels.pcg_grid_plan(v, f, p)[0]} blocks): {int(it)} "
+          f"iterations (f32 plain {row['plain_f32_iterations']}), vs f64 max "
+          f"abs err {row['max_abs_err']:.3e} (f32 plain "
+          f"{row['plain_f32_err_vs_f64']:.3e}); bit-identical on a second "
+          f"launch; kernel {ms:.4f} ms, its set-up alone {settled_ms:.4f} "
+          f"ms ({row['us_per_iteration']:.2f} us per iteration past it)")
+    return row
 
 
 def check_marginal_10k(sg):
@@ -4474,9 +4731,9 @@ def check_k6b(state8, cfg, seed: int, jobs=None):
                plain_ms=plain, single_launches_ms=single_ms, sessions=s,
                iterations=it, **bd)
     card_time(jobs, "K6b pcg_solve_blocked", row, "card_ms", run,
-              ["pcg_solve"])
+              ["pcg_solve"], per_call=1)
     card_time(jobs, f"{s} single K6 launches", row,
-              "single_launches_card_ms", single, ["pcg_solve"])
+              "single_launches_card_ms", single, ["pcg_solve"], per_call=s)
     return row
 
 
@@ -4528,10 +4785,10 @@ def _k3s_case(label, stats8, pts, msk, wt, grid, jobs):
     row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
                single_launches_ms=single_ms, m=m, **bd)
     card_time(jobs, f"{name} {label}", row, "card_ms", run,
-              ["halfcell", "cell_moments", "Memset"])
+              ["halfcell", "cell_moments", "Memset"], per_call=3)
     card_time(jobs, f"{s} single K3 {label} (G={grid.overlap})", row,
               "single_launches_card_ms", single,
-              ["halfcell", "cell_moments", "Memset"])
+              ["halfcell", "cell_moments", "Memset"], per_call=3 * s)
     return row
 
 
@@ -4623,9 +4880,11 @@ def check_k4s(state8, cfg, jobs=None, stats8=None, grid=None,
           f"one map's {one['bound_ms']:.6f})")
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                single_launches_ms=single_ms, **bd)
-    card_time(jobs, name, row, "card_ms", run, ["finalize_pack"])
+    card_time(jobs, name, row, "card_ms", run, ["finalize_pack"],
+              per_call=1)
     card_time(jobs, f"{s} single K4 ({name})", row,
-              "single_launches_card_ms", single, ["finalize_pack"])
+              "single_launches_card_ms", single, ["finalize_pack"],
+              per_call=s)
     return row
 
 
@@ -6996,6 +7255,11 @@ def main(argv=None) -> int:
     launches4, config4 = run_config4(dev, card)
     launches4p, config4["pcg"] = run_config4_pcg(dev, card)
     launches10k, incremental10k = run_incremental_10k(c4, card, args.seed)
+    # K7a past one block's shared memory, and a local-path update at that
+    # size (phase 8d); K6g at that size.
+    launches_sel, results["local_select[scratch]"] = check_k7a_past_block(
+        dev, args.seed, jobs)
+    results["pcg_solve_grid"]["past_25k"] = check_k6g_past(dev, args.seed)
     # Stacked serving through its entry point (phase 10), in the other
     # table layouts (phase 10b), then K6b, K3s and K4s on the state its
     # last run left (8 sessions' graphs, maps and keyframes; phase 11),
@@ -7077,6 +7341,7 @@ def main(argv=None) -> int:
     paths = {"config1": launches1, **launches_layouts, **launches16,
              "config2": launches2, "config3": launches3, "config4": launches4,
              "config4_pcg": launches4p, "incremental_10k": launches10k,
+             "select_past_block": launches_sel,
              "serving": launches8, **launches_sl, "config5": launches5,
              "config5_overlap1": launches5o1,
              "config5_dist": launches5d, "slam_launch": launches14,
@@ -7088,7 +7353,8 @@ def main(argv=None) -> int:
                     f"{k['name']}: the {path} path launched it no time")
     launches = {k: sum(p[k] for p in paths.values()) for k in launches2}
     read_card_times(jobs)
-    finish_k6(results["pcg_solve"])
+    finish_per_iteration(results["pcg_solve"], "K6")
+    finish_per_iteration(results["pcg_solve_grid"], "K6g 10k")
     finish_split(ba_split)
     del kf, jobs
 

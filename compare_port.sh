@@ -1,8 +1,9 @@
 #!/bin/bash
 # Time an older checkout of the port against this one on the card, in turns
-# (older, this, this, older): profile_port.py --hot (lm_ndt and K6 / K6b at
-# the main path's shapes and bench.py's headline shape, with output hashes
-# and configs 1-2's box-world trajectories); then, unless WHAT is "hot",
+# (older, this, this, older): profile_port.py --hot (lm_ndt, K6 / K6b, K5,
+# K6g and K7a at the main path's shapes, bench.py's headline shape and
+# config 4's 10k graph, with output hashes, configs 1-3's box-world
+# trajectories and bench.py §5's smoother cells); then, unless WHAT is "hot",
 # profile_port.py on configs 3 and 2 (the box-world scenario, two
 # kernel-route runs each after two warm-ups), and the CLI main path
 # (ndtpu_torch.run's main on each config's own scene, config 3 at 600 scans
@@ -27,7 +28,7 @@ i=0
 for who in p c c p; do
   i=$((i + 1))
   if [ "$who" = p ]; then dir=$older; else dir=$here; fi
-  (cd "$dir" && timeout 300 python3 profile_port.py --hot \
+  (cd "$dir" && timeout 600 python3 profile_port.py --hot \
     --out "$out/hot_${i}_${who}.json" > "$out/hot_${i}_${who}.log" 2>&1)
   echo "hot $i $who rc=$?"
   [ "$what" = hot ] && continue

@@ -31,7 +31,8 @@ linearize    (K5, with the robust kinds      (``robust_weight``: huber,
              K5r)                            cauchy, tukey, geman),
                                              ``incremental.fresh_residual_max``
                                              and the local path's gathered
-                                             linearization and ``chi_local``
+                                             linearization and
+                                             ``chi_local``: one launch
 pcg_solve    ``csrc/pcg_solve.cu`` (K6)      ``solve.pcg_rhs`` (matvec,
                                              gradient, block diagonal,
                                              ``_inv3``, the loop): one launch
@@ -43,7 +44,11 @@ grid                                         cooperative launch across many
 pcg_solve_   ``csrc/pcg_solve.cu`` (K6b)     ``solve.pcg_rhs_blocked``: S
 blocked                                      sessions' PCGs, one block each
 local_select ``csrc/local_system.cu`` (K7a)  ``incremental._active_probe`` +
-                                             ``_local_select``
+                                             ``_local_select``: one block,
+                                             its working arrays in shared
+                                             memory or, past it, in a
+                                             device scratch (counted as
+                                             ``local_select[scratch]``)
 local_       ``csrc/local_system.cu`` (K7b)  ``schur.assemble_local_parts``
 assemble                                     (``h_ii``, ``b_i`` only)
 supernodal_  ``csrc/supernodal.cu`` (K9a)    ``supernodal._assemble_parts``
@@ -155,10 +160,11 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "finalize_pack_stacked", "local_bands", "local_tables",
            "loop_gate", "ROBUST_KINDS", "robust_code", "factor_linearize",
            "fresh_residual_max", "pcg_smem", "pcg_route", "pcg_grid_plan",
-           "pcg_solve", "pcg_solve_grid", "pcg_solve_blocked", "local_select",
-           "local_assemble", "supernodal_assemble", "schur_reduce",
-           "schur_local_assemble", "ndt_sgh_unpacked", "slab_accumulate",
-           "finalize_cells", "slab_sgh", "raycast", "voxel_downsample"]
+           "pcg_solve", "pcg_solve_grid", "pcg_solve_blocked", "select_smem",
+           "select_route", "local_select", "local_assemble",
+           "supernodal_assemble", "schur_reduce", "schur_local_assemble",
+           "ndt_sgh_unpacked", "slab_accumulate", "finalize_cells",
+           "slab_sgh", "raycast", "voxel_downsample"]
 
 #: The quad-table layouts ``(G, L)``: G overlap grids per row (4, or 1 at
 #: ``overlap = 1``) of L lanes each (8 full, or 4 compact bf16-pair lanes at
@@ -194,7 +200,8 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "finalize_pack_stacked": 0, "local_tables": 0, "loop_gate": 0,
             "loop_gate_fused": 0, "factor_linearize": 0, "pcg_solve": 0,
             "pcg_solve_grid": 0, "pcg_solve_blocked": 0, "local_select": 0,
-            "local_assemble": 0, "supernodal_assemble": 0, "schur_reduce": 0,
+            "local_select[scratch]": 0, "local_assemble": 0,
+            "supernodal_assemble": 0, "schur_reduce": 0,
             "schur_local_assemble": 0, "ndt_sgh_unpacked": 0,
             "slab_accumulate": 0, "finalize_cells": 0, "slab_sgh": 0,
             "raycast": 0, "voxel_downsample": 0,
@@ -218,6 +225,7 @@ _GATE_ARRIVE: dict = {}          # (device index, K) -> int32 counters
 _FINALIZE_BANDS: dict = {}       # (grid, device index) -> K4 launch shape
 _SM_COUNT: dict = {}             # device index -> multiprocessors
 _SLAB_SCRATCH: dict = {}         # (device index, G, width, ny) -> int64 sums
+_LIN_ARRIVE: dict = {}           # (device index, stream) -> K5's int32 ticket
 
 _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
@@ -235,7 +243,7 @@ _SIGNATURES = {
     "loop_gate_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _F, _F, _F, _I, _P],
     "factor_linearize_launch": [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I, _F, _I]
-                               + [_P] * 7,
+                               + [_P] * 8,
     "pcg_solve_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I] + [_P] * 7
                         + [_F, _F, _I, _F] + [_P] * 5,
     "pcg_grid_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I] + [_P] * 7
@@ -244,7 +252,7 @@ _SIGNATURES = {
     "pcg_solve_blocked_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I]
                                 + [_P] * 7 + [_I, _P, _P, _I, _P],
     "local_select_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P]
-                           + [_I] * 7 + [_P] * 3,
+                           + [_I] * 7 + [_P] * 4,
     "local_assemble_launch": [_P, _P, _P, _I, _P, _P, _I] + [_P] * 8
                              + [_I, _P, _P, _P],
     "supernodal_assemble_launch": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 4
@@ -891,10 +899,24 @@ def robust_code(kind: str) -> int:
     return ROBUST_KINDS.index(kind)
 
 
+def _lin_arrive(dev: torch.device, stream: int) -> torch.Tensor:
+    """K5's int32 ticket counter on ``stream``, allocated (and zeroed) once
+    per (device, stream) and kept: every launch leaves it at 0 (its last
+    block resets it, ``csrc/factor_linearize.cu``), and launches on one
+    stream never overlap."""
+    key = (dev.index, stream)
+    buf = _LIN_ARRIVE.get(key)
+    if buf is None:
+        buf = torch.zeros((), dtype=torch.int32, device=dev)
+        _LIN_ARRIVE[key] = buf
+    return buf
+
+
 def _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask, fid,
               n_between, rows, window, prior_idx, prior_z, prior_sqrt_info,
               prior_mask, delta, kind, jac):
-    """One K5 call: ``(scalars [2 + 2 * blocks], f32 outputs or None)``."""
+    """One K5 launch: ``(scalars [3 + 2 * row blocks], f32 outputs or
+    None)``; the scalars start with chi^2 and the fresh window's max."""
     v, f, p = poses.shape[0], bet_i.shape[0], prior_idx.shape[0]
     _check(poses, "poses", shape=(v, 3))
     _check(bet_i, "bet_i", dtype=torch.int64, shape=(f,))
@@ -907,7 +929,8 @@ def _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask, fid,
     _check(prior_mask, "prior_mask", dtype=torch.bool, shape=(p,), align=1)
     dev = poses.device
     blocks = -(-rows // 256)
-    scal = torch.empty(2 + 2 * blocks, dtype=torch.float32, device=dev)
+    scal = torch.empty(3 + 2 * blocks, dtype=torch.float32, device=dev)
+    stream = _stream(poses)
     out = ptrs = None
     if jac:
         out = torch.empty(21 * rows + 12 * p, dtype=torch.float32, device=dev)
@@ -921,7 +944,7 @@ def _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask, fid,
           f, prior_idx.data_ptr(), prior_z.data_ptr(),
           prior_sqrt_info.data_ptr(), prior_mask.data_ptr(), p,
           float(delta), kind, *(ptrs or [None] * 5), scal.data_ptr(),
-          _stream(poses))
+          _lin_arrive(dev, stream).data_ptr(), stream)
     return scal, out
 
 
@@ -1132,13 +1155,32 @@ def pcg_solve_blocked(bet_i, bet_j, bet_mask, prior_idx, prior_mask,
     return x
 
 
+def select_smem(v: int, f: int) -> int:
+    """K7a's shared memory on its shared route for ``v`` pose and ``f``
+    factor slots, in bytes: ``select_smem`` of ``csrc/local_system.cu``
+    (the active set and the local index map, 4 B per pose each, the scan's
+    and the interval's 40 ints, and two flag bytes per factor)."""
+    return 4 * (2 * v + 40) + 2 * f
+
+
+def select_route(v: int, f: int) -> str:
+    """Where K7a keeps its working arrays for a graph of these slot counts:
+    ``"shared"`` where :func:`select_smem` fits the shared memory one block
+    can opt in to on Hopper (:data:`SMEM_MAX`), else ``"scratch"`` (a
+    device scratch of ``8 v + 2 f`` bytes, allocated per call). The same
+    code and the same result on both; shapes only, never a timing."""
+    return "shared" if select_smem(v, f) <= SMEM_MAX else "scratch"
+
+
 def local_select(bet_i, bet_j, bet_mask, pose_mask, prior_idx, prior_mask,
                  n_between, since, cfg) -> dict:
     """K7a: the k-hop active set, the fits test and the local selection in
-    one launch (see ``csrc/local_system.cu``). ``cfg`` is a
-    ``SolverConfig``; ``n_between`` and ``since`` (or None) int64 ``[]``
-    are read on the card. Returns the selection dict of
-    ``graph.incremental.local_select``: only what the local path reads."""
+    one launch of one block (see ``csrc/local_system.cu``), its working
+    arrays where :func:`select_route` says (counted as ``local_select`` or
+    ``local_select[scratch]``). ``cfg`` is a ``SolverConfig``;
+    ``n_between`` and ``since`` (or None) int64 ``[]`` are read on the
+    card. Returns the selection dict of ``graph.incremental.local_select``:
+    only what the local path reads."""
     f, p = _check_graph(bet_i, bet_j, bet_mask, prior_idx, prior_mask)
     v = pose_mask.shape[0]
     _check(pose_mask, "pose_mask", dtype=torch.bool, shape=(v,), align=1)
@@ -1150,13 +1192,19 @@ def local_select(bet_i, bet_j, bet_mask, pose_mask, prior_idx, prior_mask,
     flags = torch.empty(1 + p_loc + f_loc + p, dtype=torch.bool, device=dev)
     ints = torch.empty(p_loc + 5 * f_loc + 2 * p, dtype=torch.int64,
                        device=dev)
-    _call("local_select_launch", "local_select", bet_i.data_ptr(),
+    scratch, counter = None, "local_select"
+    if select_route(v, f) == "scratch":
+        scratch = torch.empty(2 * v + -(-2 * f // 4), dtype=torch.int32,
+                              device=dev)
+        counter = "local_select[scratch]"
+    _call("local_select_launch", counter, bet_i.data_ptr(),
           bet_j.data_ptr(), bet_mask.data_ptr(), f, pose_mask.data_ptr(), v,
           prior_idx.data_ptr(), prior_mask.data_ptr(), p,
           n_between.data_ptr(), None if since is None else since.data_ptr(),
           min(cfg.local_fresh_k, f), cfg.local_span_gap, cfg.local_hops,
           cfg.local_poses, cfg.local_factors, p_loc, f_loc, flags.data_ptr(),
-          ints.data_ptr(), _stream(flags),
+          ints.data_ptr(), None if scratch is None else scratch.data_ptr(),
+          _stream(flags),
           too_big=f"a graph of {v} poses and {f} factors is over the shared "
                   f"memory one block can have")
     fl = torch.split(flags, [1, p_loc, f_loc, p])

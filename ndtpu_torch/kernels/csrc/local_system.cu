@@ -19,9 +19,17 @@
 //     lax.top_k and the plain _top_flags return; then in_set, f_sel, the
 //     endpoints' roles and local slots, and the priors'.
 // It writes only what the local path reads: the active set, the touched
-// flags and the local index map stay in shared memory (the plain version
+// flags and the local index map are working arrays (the plain version
 // returns them too, and the CPU tests hold them against the JAX package).
-// Integers only, so it equals the plain selection bit for bit.
+// Integers only, so it equals the plain selection bit for bit. Its two
+// routes (kernels.select_route, a function of the slot counts) run the
+// same code on working arrays in two places: in the block's shared memory
+// where select_smem(V, F) fits what a block can opt in to (227 KB on
+// Hopper, up to ~19,357 pose slots at F = 2V), else in a device scratch
+// of 8 V + 2 F bytes the wrapper allocates per call (the block scan's and
+// the interval's 40 ints stay in shared memory). One block sees its own
+// global writes after each barrier, so the scratch route needs no other
+// care; its sweeps' scattered reads of act go through L1.
 //
 // K7b local_assemble replaces the segment-sum assembly of
 // ndtpu/dist/schur.py::assemble_local_parts (:318) as _local_system (:207)
@@ -37,7 +45,8 @@
 // every launch.
 //
 // What bounds them on Hopper: K7a is integer work on ~3 K values and one
-// block's barriers (a few us); K7b's bound is writing h_ii (2.36 MB at n =
+// block's barriers (a few us; past one block's shared memory, ~50 K values
+// through L1 and L2); K7b's bound is writing h_ii (2.36 MB at n =
 // 256, ~0.7 us at HBM rate), while its time is each block's scan over the
 // 1,024 gathered slots and its handful of 3 x 3 products.
 
@@ -70,6 +79,7 @@ struct SelArgs {
   int max_factors;             // local_factors
   int p_loc;                   // min(local_poses, V)
   int f_loc;                   // min(local_factors, F)
+  int* scratch;                // the scratch route's act, loc, fa, touch
   // uint8 outputs
   uint8_t* ok;                 // []
   uint8_t* in_set;             // [p_loc]
@@ -86,21 +96,25 @@ struct SelArgs {
   long long* lp;
 };
 
-// Shared-memory bytes of K7a.
+// Shared-memory bytes of K7a on the shared route (select_smem(0, 0) on
+// the scratch route).
 inline size_t select_smem(int v, int f) {
   return 4 * (size_t)(2 * v + 40) + 2 * (size_t)f;
 }
 
+// kScratch: act, loc, fa and touch in a.scratch (device memory), not in
+// shared memory.
+template <bool kScratch>
 __global__ void __launch_bounds__(kSelThreads)
 local_select_kernel(SelArgs a) {
   extern __shared__ int smem_i[];
   const int V = a.n_pose, F = a.n_fac, T = blockDim.x, tid = threadIdx.x;
-  int* act = smem_i;                  // [V] 0/1
-  int* loc = act + V;                 // [V]
-  int* scr = loc + V;                 // [36]
-  int* lohi = scr + 36;               // [2]
-  uint8_t* fa = reinterpret_cast<uint8_t*>(lohi + 4);   // [F]
-  uint8_t* touch = fa + F;                               // [F]
+  int* act = kScratch ? a.scratch : smem_i;             // [V] 0/1
+  int* loc = act + V;                                   // [V]
+  int* scr = kScratch ? smem_i : loc + V;               // [36]
+  int* lohi = scr + 36;                                 // [4]
+  uint8_t* fa = reinterpret_cast<uint8_t*>(kScratch ? loc + V : lohi + 4);
+  uint8_t* touch = fa + F;                              // [F]
 
   const long long nb = *a.n_between;
   const int k = a.fresh_k;
@@ -354,20 +368,26 @@ size_t g_assemble_opt_in = 48 * 1024;
 
 }  // namespace
 
+// scratch: null for the shared route; else the scratch route's 8 V + 2 F
+// bytes, 4-byte aligned.
 extern "C" int local_select_launch(
     const void* bet_i, const void* bet_j, const void* bet_mask, int n_fac,
     const void* pose_mask, int n_pose, const void* prior_idx,
     const void* prior_mask, int n_pri, const void* n_between,
     const void* since, int fresh_k, int span_gap, int hops, int max_poses,
     int max_factors, int p_loc, int f_loc, void* flags, void* ints,
-    void* stream) {
+    void* scratch, void* stream) {
   if (n_pose < 1 || n_fac < 1 || fresh_k < 0 || fresh_k > n_fac ||
       p_loc > n_pose || f_loc > n_fac || p_loc < 0 || f_loc < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = select_smem(n_pose, n_fac);
-  const int err = ndtpu::pg::smem_opt_in(local_select_kernel, smem,
-                                         &g_select_opt_in);
-  if (err != 0) return err;
+  const bool global = scratch != nullptr;
+  const size_t smem = global ? select_smem(0, 0)
+                             : select_smem(n_pose, n_fac);
+  if (!global) {
+    const int err = ndtpu::pg::smem_opt_in(local_select_kernel<false>, smem,
+                                           &g_select_opt_in);
+    if (err != 0) return err;
+  }
   // flags (uint8): ok, in_set [p_loc], f_sel [f_loc], p_act [P]; ints
   // (int64): pid [p_loc], fid, ri, rj, li, lj [f_loc], rp, lp [P].
   uint8_t* fl = (uint8_t*)flags;
@@ -403,7 +423,13 @@ extern "C" int local_select_launch(
   a.lj = a.li + f_loc;
   a.rp = a.lj + f_loc;
   a.lp = a.rp + n_pri;
-  local_select_kernel<<<1, kSelThreads, smem, (cudaStream_t)stream>>>(a);
+  a.scratch = (int*)scratch;
+  if (global)
+    local_select_kernel<true><<<1, kSelThreads, smem,
+                                (cudaStream_t)stream>>>(a);
+  else
+    local_select_kernel<false><<<1, kSelThreads, smem,
+                                 (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

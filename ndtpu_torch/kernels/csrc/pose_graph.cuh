@@ -174,8 +174,9 @@ __device__ __forceinline__ void inv3(const float* a, float out[9]) {
 
 // ---- Block-wide collectives (blockDim.x a multiple of 32, <= 1024). ----
 // Each combines the threads' values in one fixed order (a shuffle tree
-// within each warp, then the warps' results in warp order), so the result
-// is the same on every launch. `red` is shared scratch of >= 66 floats.
+// within each warp, then the warps' results in warp order: block_tree_w0
+// and block_tree2_w0, the one tree they all use), so the result is the
+// same on every launch. `red` is shared scratch of >= 66 floats.
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -190,65 +191,78 @@ __device__ __forceinline__ float warp_nanmax(float v) {
   return v;
 }
 
-// Sum over the block, returned to every thread.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < warps ? red[lane] : 0.f;
-    w = warp_sum(w);
-    if (lane == 0) red[32] = w;
-  }
-  __syncthreads();
-  const float out = red[32];
-  __syncthreads();
-  return out;
+// warp_sum, or with kMax warp_nanmax.
+template <bool kMax>
+__device__ __forceinline__ float warp_reduce(float v) {
+  return kMax ? warp_nanmax(v) : warp_sum(v);
 }
 
-// Two sums at once (one round of barriers).
-__device__ __forceinline__ void block_sum2(float* a, float* b, float* red) {
+// The block's sum (with kMax its NaN-keeping max) of v: each warp's tree,
+// then warp 0's tree of the warps' results. The result is in warp 0 only,
+// after one barrier; the other warps return while warp 0 may still read
+// red, so no thread writes red again before the next barrier.
+template <bool kMax>
+__device__ __forceinline__ float block_tree_w0(float v, float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  const float va = warp_sum(*a), vb = warp_sum(*b);
+  v = warp_reduce<kMax>(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float w = 0.f;
+  if (warp == 0) w = warp_reduce<kMax>(lane < warps ? red[lane] : 0.f);
+  return w;
+}
+
+// Two such reductions at once (*a by kMaxA, *b by kMaxB), each in
+// block_tree_w0's order; results in warp 0 only, after one barrier.
+template <bool kMaxA, bool kMaxB>
+__device__ __forceinline__ void block_tree2_w0(float* a, float* b,
+                                               float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const float va = warp_reduce<kMaxA>(*a), vb = warp_reduce<kMaxB>(*b);
   if (lane == 0) {
     red[warp] = va;
     red[32 + warp] = vb;
   }
   __syncthreads();
   if (warp == 0) {
-    float wa = lane < warps ? red[lane] : 0.f;
-    float wb = lane < warps ? red[32 + lane] : 0.f;
-    wa = warp_sum(wa);
-    wb = warp_sum(wb);
-    if (lane == 0) {
-      red[64] = wa;
-      red[65] = wb;
-    }
+    *a = warp_reduce<kMaxA>(lane < warps ? red[lane] : 0.f);
+    *b = warp_reduce<kMaxB>(lane < warps ? red[32 + lane] : 0.f);
+  }
+}
+
+// block_tree_w0's result, returned to every thread.
+template <bool kMax>
+__device__ __forceinline__ float block_reduce(float v, float* red) {
+  v = block_tree_w0<kMax>(v, red);
+  if (threadIdx.x == 0) red[32] = v;
+  __syncthreads();
+  const float out = red[32];
+  __syncthreads();
+  return out;
+}
+
+// Sum over the block, returned to every thread.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  return block_reduce<false>(v, red);
+}
+
+__device__ __forceinline__ float block_nanmax(float v, float* red) {
+  return block_reduce<true>(v, red);
+}
+
+// Two sums at once (one round of barriers), returned to every thread.
+__device__ __forceinline__ void block_sum2(float* a, float* b, float* red) {
+  block_tree2_w0<false, false>(a, b, red);
+  if (threadIdx.x == 0) {
+    red[64] = *a;
+    red[65] = *b;
   }
   __syncthreads();
   *a = red[64];
   *b = red[65];
   __syncthreads();
-}
-
-__device__ __forceinline__ float block_nanmax(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  v = warp_nanmax(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < warps ? red[lane] : 0.f;
-    w = warp_nanmax(w);
-    if (lane == 0) red[32] = w;
-  }
-  __syncthreads();
-  const float out = red[32];
-  __syncthreads();
-  return out;
 }
 
 // Exclusive prefix sum of one int per thread, in thread order; `total`

@@ -67,8 +67,10 @@ lacks reads null).
 
 ``--hot`` runs only :func:`hot_times` (event and card ms per call of
 ``lm_ndt`` at the window, verify and gated-verify shapes and at bench.py's
-headline shape, and of K6 and K6b, with hashes of their outputs and of
-configs 1-2's box-world trajectories, for comparing two commits).
+headline shape, of K6, K6b, K5, K6g and K7a, and of the 10k smoother
+update, with hashes of their outputs and of configs 1-3's box-world
+trajectories and the served sessions, and bench.py §5's smoother cells,
+for comparing two commits).
 
 ``--layouts`` runs only :func:`layout_times` (event and card ms per call
 of K1, ``lm_ndt`` shared and grouped, the gated verify, K3, K4 and K8a in
@@ -100,28 +102,47 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 
-def card_ms(fn, names=None, reps: int = 20):
+def card_ms(fn, names=None, reps: int = 20, per_call=None):
     """Card time per call of ``fn`` (ms): the device time of the kernels
     (and memsets, copies) whose names contain one of ``names``, or of all of
     them for None, summed over ``reps`` calls under ``torch.profiler`` after
-    a warm-up and divided by ``reps``; None when three sessions in a row
-    record no such device time (late in a long process, with many sessions
-    before it, a session sometimes records no device event at all)."""
+    a warm-up and divided by ``reps``. A session often records only part of
+    the calls' device events (on the H100, in a long process of the port's
+    kernels), so a session counts only when it records ``per_call`` such
+    operations per call, where the caller knows the design's launches;
+    else (an older design's launches may differ, a library's are unknown)
+    the most that any session recorded, once a second session has recorded
+    as many. That cannot tell a count that every session falls short of
+    from a whole one: give ``per_call`` where it is known. Up to ten
+    sessions; None when none counts. ``card_ms.counts`` keeps the
+    operations each session of the last call recorded, ``card_ms.detail``
+    the last session's by name."""
+    import collections
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    counts = card_ms.counts = []
+    for _ in range(10):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and (names is None or any(n in e.name for n in names)))
-        if us > 0:
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and (names is None or any(n in e.name for n in names))]
+        n = len(ev)
+        if per_call is not None:
+            whole = n == per_call * reps
+        else:
+            whole = n > 0 and n in counts and n >= max(counts)
+        counts.append(n)
+        card_ms.detail = sorted(collections.Counter(e.name[:40]
+                                                    for e in ev).items())
+        if whole:
+            us = sum(e.time_range.end - e.time_range.start for e in ev)
             return us / 1e3 / reps
     return None
 
@@ -336,29 +357,42 @@ def hot_times(seed: int, dev) -> dict:
     ``chip_smoke``'s config-3 graph (box-world draw 2 through
     ``run_slam_windowed``, ``smoother_state``), its full solve and its
     0-iteration settled step; K6b on 8 served sessions of 300 scans (the
-    smoke's phase 11). Beside them each launch's outputs' sha256 and, for
-    configs 1 and 2 on box-world draws 0-2, the ATE and the trajectory's
-    sha256 (``run_odometry_windowed``, ``run_slam_windowed``); where the
-    port chooses ``lm_ndt``'s threads per lane (``kernels.lm_spread``),
-    also the window's and verify's card ms at R = 1-4. It uses only
-    entry points older checkouts of the port also have, and
-    ``chip_smoke.py``'s helpers (``compare_port.sh`` copies both scripts
-    into the older checkout), so two commits compare in one call. Every
-    event time is read before the first profiler session."""
+    smoke's phase 11); K5 on that config-3 graph (whole graph, gathered
+    rows, fresh window: ``chip_smoke.k5_calls``) and at config 4's 10,305
+    rows; K6g on config 4's 10k graph (lam 1e-3, 250 iterations, tol 1e-5)
+    and its 0-iteration set-up; bench.py §5's active 10k
+    ``incremental_update``; K7a on the config-3 graph and past one block's
+    shared memory (``chip_smoke.check_k7a_past_block``'s 25,064-slot graph;
+    ``"raises"`` where an older K7a refuses it). Beside them each launch's
+    outputs' sha256 and, for configs 1, 2 and 3 on box-world draws 0-2,
+    the ATE and the trajectory's sha256 (``run_odometry_windowed``,
+    ``run_slam_windowed``), and the served sessions' poses' sha256; then
+    bench.py §5's three 10k smoother cells and config 4's ms per LM
+    iteration by PCG (``chip_smoke.run_incremental_10k``,
+    ``run_config4_pcg``); where the port chooses ``lm_ndt``'s threads per
+    lane (``kernels.lm_spread``), also the window's and verify's card ms
+    at R = 1-4. It uses only entry points older checkouts of the port
+    also have, and ``chip_smoke.py``'s helpers (``compare_port.sh`` copies
+    both scripts into the older checkout), so two commits compare in one
+    call. Every event time is read before the first profiler session."""
     import dataclasses
     import hashlib
 
     import torch
 
-    from chip_smoke import (CONFIG1, CONFIG2, CONFIG3, SERVING, _moved_graph8,
-                            box_sequence, box_store, headline_args,
-                            lm_verify_args, lm_window_args, map_stats,
+    from chip_smoke import (CONFIG1, CONFIG2, CONFIG3, CONFIG4, ICFG_10K,
+                            K6G_10K, SELECT_PAST_POSES, SERVING,
+                            _moved_graph8, box_sequence, box_store,
+                            config4_graph, headline_args, k5_calls,
+                            lm_verify_args, lm_window_args, local_graph,
+                            map_stats, run_config4_pcg, run_incremental_10k,
                             smoother_state, time_ms)
     from ndtpu_torch import kernels, serve
-    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.config import PipelineConfig, SolverConfig
     from ndtpu_torch.dist import slam_dp
     from ndtpu_torch.eval.ate import ate_rmse
     from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import incremental as inc
     from ndtpu_torch.graph import solve as slv
     from ndtpu_torch.loop import closure
     from ndtpu_torch.ndt import grid as ndt_grid
@@ -434,18 +468,53 @@ def hot_times(seed: int, dev) -> dict:
     calls[f"K6b S={n8}"] = (lambda: slv.pcg_solve_blocked(
         flat, lin8, None, lam8, n8, cfg8.solver.pcg_max_iter),
         ["pcg_solve"])
-    for key, (fn, _) in calls.items():
-        res = fn()
+    # K5 on config 3's graph by mode and at config 4's 10,305 rows; K6g at
+    # 10k, its solve and its 0-iteration set-up; bench.py §5's active 10k
+    # update; K7a on config 3's graph and past one block's shared memory.
+    k5 = k5_calls(sm, cfg3)
+    for mode in ("whole graph", "gathered", "fresh window"):
+        calls[f"K5 {mode}"] = (k5[mode], ["linearize"])
+    g4 = config4_graph(dev, torch.float32, 0, CONFIG4["n_poses"])
+    calls["K5 config 4"] = (lambda: fct.linearize(g4), ["linearize"])
+    lin4 = fct.linearize(g4)
+    lam4 = torch.tensor(K6G_10K["lam"], dtype=torch.float32, device=dev)
+    mi, tol = K6G_10K["max_iter"], K6G_10K["tol"]
+    calls["K6g 10k solve"] = (lambda: slv.pcg_solve(g4, lin4, None, lam4, mi,
+                                                    tol), ["pcg_grid"])
+    calls["K6g 10k set-up"] = (lambda: slv.pcg_solve(
+        g4, lin4, None, 0.0, 0, tol, 1e-8), ["pcg_grid"])
+    icfg = SolverConfig(**ICFG_10K)
+    st10 = inc.SmootherState(
+        g4, lam4, torch.tensor(float("inf"), device=dev),
+        torch.zeros((), dtype=torch.long, device=dev))
+    calls["incremental_update 10k active"] = (
+        lambda: inc.incremental_update(st10, icfg), None)
+    calls["K7a config 3"] = (lambda: inc.local_select(
+        g, scfg, g.n_between - 1), ["local_select"])
+    gp, sp = local_graph(config4_graph(dev, torch.float32, 0,
+                                       SELECT_PAST_POSES),
+                         SELECT_PAST_POSES + 64)
+    calls["K7a past one block"] = (lambda: inc.local_select(gp, icfg, sp),
+                                   ["local_select"])
+    for key, (fn, _) in list(calls.items()):
+        try:
+            res = fn()
+        except ValueError as exc:       # an older K7a past one block
+            out[key] = dict(sha256="raises", error=str(exc))
+            del calls[key]
+            continue
         torch.cuda.synchronize()
         out[key] = dict(sha256=sha(res))
     out["K6 solve"]["iterations"] = int(calls["K6 solve"][0]()[1])
+    out["K6g 10k solve"]["iterations"] = int(calls["K6g 10k solve"][0]()[1])
     out["K6 solve"].update(slots=list(g.poses.shape[:1]) + [g.bet_i.shape[0]],
                            live=[int(g.pose_mask.sum()),
                                  int(g.bet_mask.sum())])
     for key, (fn, _) in calls.items():
         out[key]["ms"] = time_ms(fn)
     traj = {}
-    for name, config in (("config1", CONFIG1), ("config2", CONFIG2)):
+    for name, config in (("config1", CONFIG1), ("config2", CONFIG2),
+                         ("config3", CONFIG3)):
         cfg = PipelineConfig.from_json(str(config))
         for draw in (0, 1, 2):
             sq = box_sequence(draw, cfg.n_beams)
@@ -461,7 +530,22 @@ def hot_times(seed: int, dev) -> dict:
             traj[f"{name} draw {draw}"] = dict(
                 ate=float(ate_rmse(poses.cpu(), sq.gt_poses)),
                 sha256=sha(poses))
+    traj["serving 8 x 300"] = dict(sha256=sha((state8.graph.poses,
+                                               state8.kf.poses)))
     out["trajectories"] = traj
+    # bench.py §5's three 10k smoother cells and config 4 by PCG, through
+    # the smoke's phases 8c and 8b (host clock, before any profiler
+    # session).
+    _, inc10k = run_incremental_10k(dict(g=g4), "", seed)
+    _, pcg4 = run_config4_pcg(dev, "")
+    out["smoother cells"] = dict(
+        incremental_update_ms_10k=inc10k["incremental_update_ms_10k"],
+        incremental_settled_ms_10k=inc10k["incremental_settled_ms_10k"],
+        incremental_local_ms_10k=inc10k["incremental_local_ms_10k"],
+        config4_pcg_ms_per_lm_iteration=pcg4["seconds"] * 1e3
+        / max(pcg4["n_iter"], 1),
+        config4_pcg_n_iter=pcg4["n_iter"],
+        config4_pcg_chi2_final=pcg4["chi2_final"])
     for key, (fn, names) in calls.items():
         out[key]["card_ms"] = card_ms(fn, names)
     if hasattr(kernels, "lm_spread"):      # lm_ndt's threads per lane
@@ -945,12 +1029,13 @@ def map_build_calls(events, k3_calls, k8a_calls, cfg):
 
 def smoother_calls(events, roles) -> dict:
     """Card-only ms per call of the smoother's kernels by role, from their
-    device events in stream order: K5 (a rows kernel and a finish kernel
-    per call; roles ``full``, ``full_chi2``, ``gathered``,
-    ``gathered_chi2``, ``window``), K6 (``solve``, ``settled_step``), K7a
-    and K7b."""
+    device events in stream order: K5 (one kernel per call; in older
+    checkouts a rows kernel and a finish kernel; roles ``full``,
+    ``full_chi2``, ``gathered``, ``gathered_chi2``, ``window``), K6
+    (``solve``, ``settled_step``), K7a and K7b."""
     out = {}
-    for name, ev_names in (("factor_linearize", ("linearize_finish",)),
+    for name, ev_names in (("factor_linearize", ("linearize_finish",
+                                                 "factor_linearize_kernel")),
                            ("pcg_solve", ("pcg_solve_kernel",)),
                            ("local_select", ("local_select_kernel",)),
                            ("local_assemble", ("local_assemble_kernel",))):

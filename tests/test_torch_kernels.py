@@ -643,6 +643,36 @@ def test_local_select_bit_equal_to_plain(smoother):
     assert kernels.LAUNCHES["local_select"] >= 6
 
 
+def test_local_select_past_one_block_bit_equal_to_plain(dev):
+    """K7a past one block's shared memory (its scratch route, counted as
+    ``local_select[scratch]``) on a 25,064-slot graph equals the plain
+    selection bit for bit and repeats, and a local-path incremental_update
+    at that size runs through it within the plain route's gates (see
+    chip_smoke.check_k7a_past_block)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    launches, row = cs.check_k7a_past_block(dev, 0, jobs=[])
+    assert row["update"]["take"] == 2 and launches["local_select"] == 0
+    assert launches["local_select[scratch]"] > 0
+
+
+def test_factor_linearize_one_launch_per_mode(smoother):
+    """K5 makes one launch per call in each mode (whole graph, chi^2,
+    gathered rows and their chi^2, the fresh window), by the launch counter
+    and by the profiler's device operations, and is bit-identical on a
+    second launch in each (see chip_smoke.check_k5_one_launch)."""
+    import chip_smoke as cs
+
+    row = cs.check_k5_one_launch(*smoother)
+    assert set(row) == set(cs.k5_calls(*smoother))
+    for mode, fn in cs.k5_calls(*smoother).items():
+        assert row[mode]["launches_per_call"] == 1, mode
+        one, two = fn(), fn()
+        torch.cuda.synchronize()
+        assert cs.bits_equal(one, two), mode
+
+
 def test_local_assemble_matches_plain_and_repeats(smoother):
     """K7b against its f32 plain version at rtol 1e-5, bit-identical on a
     second launch (see chip_smoke.check_k7b)."""
@@ -775,6 +805,31 @@ def test_pcg_solve_grid_at_10k_matches_f32_and_f64_plain(graph10k):
 
     row = cs.check_k6g(graph10k, jobs=[])
     assert row["iterations"] > 0 and row["grid_blocks"] >= 1
+
+
+def test_pcg_solve_grid_at_25k_matches_f32_and_f64_plain(dev):
+    """K6g on 25,000 poses of config 4's Manhattan graph against the f32
+    and f64 plain solves (within 2 x the f32 error against f64, iterations
+    within max(1, 2%)), bit-identical on a second launch (see
+    chip_smoke.check_k6g_past)."""
+    import chip_smoke as cs
+
+    row = cs.check_k6g_past(dev, 0)
+    assert row["iterations"] > 0
+
+
+def test_pcg_solve_grid_past_one_pose_per_thread(dev):
+    """K6g on a Manhattan graph of more poses than its co-resident threads
+    (so each owns two, and its loop keeps no pose's state in registers)
+    against the f32 and f64 plain solves, bit-identical on a second launch
+    (see chip_smoke.check_k6g_past)."""
+    import chip_smoke as cs
+
+    cap = kernels.pcg_grid_plan(10 ** 7, 10 ** 7, 1)[0]
+    n = 256 * cap + 1000
+    assert kernels.pcg_grid_plan(n, n, 1)[0] * 256 < n
+    row = cs.check_k6g_past(dev, 0, n)
+    assert row["iterations"] > 0
 
 
 def test_solve_g2o_pcg_through_k6g(dev):

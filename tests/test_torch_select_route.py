@@ -1,0 +1,172 @@
+"""K7a's route past one block's shared memory, and the card-only size
+limits of other kernels' host-side checks, on the CPU.
+
+- ``kernels.select_smem`` against the expression of
+  ``csrc/local_system.cu``'s ``select_smem``, read from the source (as
+  ``tests/test_torch_lm_spread.py`` reads ``lm_smem``'s), and
+  ``kernels.select_route`` on both sides of the limit: the working arrays
+  in shared memory while they fit what one block can have, else in a
+  device scratch. Both routes run the same code, so no result depends on
+  the route; the card tests hold the scratch route bit-equal to the plain
+  selection.
+- The plain selection ``local_select_ref`` (the CPU route of
+  ``graph.incremental.local_select``) against the JAX package's
+  ``_active_probe`` + ``_local_select``, jitted in x64, on a graph past the
+  limit (20,000 pose and 40,000 factor slots): integers, bit-equal.
+- K4's and K8a's host-side band checks (``kernels.finalize_bands``,
+  ``kernels.local_bands``) refuse exactly past the lattice widths the
+  README names.
+"""
+
+import functools
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ndtpu.config import SolverConfig as JSolverConfig
+from ndtpu.graph import factors as jfct
+from ndtpu.graph import incremental as jinc
+from ndtpu_torch import convert, kernels
+from ndtpu_torch.config import GridConfig, SolverConfig
+from ndtpu_torch.graph import incremental as tinc
+
+
+def _c_select_smem():
+    """``select_smem(v, f)`` of ``csrc/local_system.cu``, as Python."""
+    src = (Path(kernels.__file__).parent / "csrc"
+           / "local_system.cu").read_text()
+    expr = re.search(r"inline size_t select_smem\(int v, int f\) \{\s*"
+                     r"return (.*?);", src, re.S).group(1)
+    expr = " ".join(expr.split()).replace("(size_t)", "")
+    return lambda v, f: eval(expr, {}, dict(v=v, f=f))
+
+
+@pytest.mark.parametrize("v,f", [(1, 1), (1024, 2048), (10064, 10369),
+                                 (19357, 38714), (25064, 26005)])
+def test_select_smem_matches_the_kernels_layout(v, f):
+    """8 B per pose slot (the active set, the local index map), 2 B per
+    factor slot (the sweep's and the touched flags), the scan's and the
+    interval's 40 ints; the scratch route keeps only those 40 ints in
+    shared memory (``select_smem(0, 0)``)."""
+    c_smem = _c_select_smem()
+    assert kernels.select_smem(v, f) == c_smem(v, f)
+    assert c_smem(0, 0) == 160
+
+
+@pytest.mark.parametrize("v,f,route", [
+    (1024, 2048, "shared"),           # configs 2-3 capacity
+    (10064, 10369, "shared"),         # bench.py §5b's local graph
+    (19357, 2 * 19357, "shared"),     # the last pose count at F = 2V
+    (19358, 2 * 19358, "scratch"),
+    (23228, 23228, "shared"),         # the last pose count at F = V
+    (23229, 23229, "scratch"),
+    (25064, 26005, "scratch"),        # the smoke's phase 8d graph
+    (100000, 200000, "scratch"),
+])
+def test_select_route(v, f, route):
+    assert kernels.select_route(v, f) == route
+    assert (kernels.select_smem(v, f) <= kernels.SMEM_MAX) == (route
+                                                              == "shared")
+
+
+V, F, P = 20000, 40000, 4    # past the limit: select_smem ~ 320 KB
+N = 19990                    # live poses
+
+
+def _graph(extra):
+    """A JAX-package graph of V pose and F factor slots: a chain of N
+    poses, 300 seeded loop factors, then ``extra`` (the newest factors);
+    one dead pose in the middle, one prior. Only the topology matters to
+    the selection."""
+    rng = np.random.default_rng(16)
+    lo = rng.integers(0, N - 60, 300)
+    loops = [(int(i), int(i + rng.integers(50, N - i))) for i in lo]
+    pairs = [(i, i + 1) for i in range(N - 1)] + loops + list(extra)
+    bi, bj = np.zeros(F, np.int32), np.zeros(F, np.int32)
+    bi[:len(pairs)], bj[:len(pairs)] = np.array(pairs).T
+    bm = np.zeros(F, bool)
+    bm[:len(pairs)] = True
+    bm[5] = False                                 # a dead factor slot
+    pose_mask = np.zeros(V, bool)
+    pose_mask[:N] = True
+    pose_mask[N // 2] = False
+    pm = np.zeros(P, bool)
+    pm[0] = True
+    g = jfct.PoseGraph(
+        poses=jnp.zeros((V, 3)), pose_mask=jnp.asarray(pose_mask),
+        prior_idx=jnp.asarray([0, 0, N - 1, 7], jnp.int32),
+        prior_z=jnp.zeros((P, 3)), prior_sqrt_info=jnp.zeros((P, 3, 3)),
+        prior_mask=jnp.asarray(pm), bet_i=jnp.asarray(bi),
+        bet_j=jnp.asarray(bj), bet_z=jnp.zeros((F, 3)),
+        bet_sqrt_info=jnp.zeros((F, 3, 3)), bet_mask=jnp.asarray(bm),
+        n_poses=jnp.asarray(N, jnp.int32), n_priors=jnp.asarray(1, jnp.int32),
+        n_between=jnp.asarray(len(pairs), jnp.int32))
+    return g, convert.from_numpy(g), len(pairs)
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def _jax_select(g, cfg, since):
+    probe = jinc._active_probe(g, cfg, since)
+    return jinc._local_select(g, cfg, since, probe)
+
+
+#: name: (newest factors, since as an offset from n_between or None, ok)
+CASES = {
+    "local": ([(N - 3, N - 2), (N - 2, N - 1)], -2, True),
+    # since None: the newest 32 slots, loop factors among them.
+    "fresh_window": ([(N - 3, N - 1)], None, False),
+    "long_loop": ([(120, N - 1)], -1, False),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_local_select_ref_matches_jax_past_one_block(case):
+    extra, off, ok = CASES[case]
+    gj, gt, nb = _graph(extra)
+    assert kernels.select_route(V, F) == "scratch"
+    s = None if off is None else nb + off
+    sj = None if s is None else jnp.asarray(s, jnp.int32)
+    st = None if s is None else torch.tensor(s)
+    ref = _jax_select(gj, JSolverConfig(), sj)
+    sel = tinc.local_select(gt, SolverConfig(), st)
+    exact = lambda a, b: np.testing.assert_array_equal(np.asarray(a),
+                                                       np.asarray(b))
+    for key in ("ok", "pid", "in_set", "fid", "f_sel", "ri", "rj", "rp",
+                "p_act"):
+        exact(sel[key], ref[key])
+    exact(sel["li"], ref["loc_of"][ref["bi"]])
+    exact(sel["lj"], ref["loc_of"][ref["bj"]])
+    exact(sel["lp"], ref["loc_of"][gj.prior_idx])
+    assert bool(sel["ok"]) == ok
+    assert sel["p_loc"] == 256 and sel["fid"].shape[0] == 1024
+
+
+@pytest.mark.parametrize("compact,nx", [(False, 1814), (True, 3630)])
+def test_finalize_bands_refuse_past_one_band_row(compact, nx):
+    """K4 at overlap 4 holds one band row in shared memory: nx 1,813
+    (3,629 with compact rows) is the widest grid it takes."""
+    grid = lambda n: GridConfig(x0=0.0, y0=0.0, cell=0.5, nx=n, ny=10)
+    rows, _, _, smem = kernels.finalize_bands(grid(nx - 1), None, compact)
+    assert rows == 1 and smem <= kernels.SMEM_MAX
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.finalize_bands(grid(nx), None, compact)
+
+
+@pytest.mark.parametrize("overlap,nx,lattice", [(4, 171, 343),
+                                                (1, 1025, 1025)])
+def test_local_bands_refuse_past_48_kb(overlap, nx, lattice):
+    """K8a holds a band's int64 sums (48 B per lattice bin, with a two-row
+    halo at overlap 4) within 48 KB: a local lattice at most 341 bins wide
+    at overlap 4 (nx 170), 1,024 at overlap 1."""
+    grid = lambda n: GridConfig(x0=0.0, y0=0.0, cell=0.5, nx=n, ny=10,
+                                overlap=overlap)
+    assert kernels._lattice(grid(nx))[0] == lattice
+    rows, _, smem = kernels.local_bands(8, grid(nx - 1), None)
+    assert rows >= 1 and smem <= kernels.SMEM_BLOCK
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.local_bands(8, grid(nx), None)
