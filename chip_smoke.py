@@ -60,7 +60,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``factor_linearize`` (whole graph, gathered rows, chi^2, the fresh
    window; one launch per call in each of its five modes, by the launch
    counter and the profiler's device operations) and K7b
-   ``local_assemble`` against their f32 plain versions at
+   ``local_assemble`` (also at 8,192 seeded gathered slots, past the
+   first design's limit) against their f32 plain versions at
    rtol 1e-5, K6 ``pcg_solve`` against the f32 and f64 plain solves (also
    its 0-iteration mode, timed, one launch and no host sync per ``pcg``
    call, and the dense library solve timed beside it; then on the graph
@@ -88,10 +89,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``ba_solve_ms_per_iter_10k`` (one K5 linearize + ``supernodal_delta``,
    the median of 10 host-fenced calls after a warm-up) with the step's
    card-time split; then the input preparation: K11 ``raycast`` in f64 at
-   the CLI's corridor run (600 poses x 360 beams x 36 segments) and at
-   serving's 8 x 300 box-world poses (hits identical, within 1e-9 m of
-   the f64 plain version), in f32 at the corridor against the f32 plain
-   version, and K13 ``voxel_downsample`` on the CLI's 600 x 360 corridor
+   the CLI's corridor run (600 poses x 360 beams x 36 segments), at
+   serving's 8 x 300 box-world poses (17 segments) and among 4,004
+   segments (past the first design's 48 KB; hits identical, within 1e-9 m
+   of the f64 plain version), in f32 at the same three against the f32
+   plain version, and K13 ``voxel_downsample`` on the CLI's 600 x 360 corridor
    scans at 0.05 / 0.1 / 0.5 m (masks bit-equal), each bit-identical on a
    second launch;
 4. config 2 through its entry point: ``ndtpu_torch.run.main`` on
@@ -122,6 +124,14 @@ Phases (any failure exits non-zero, and no result line is printed):
     each run must launch its layout's variants; then the box-world ATE
     gates of each against the JAX package under the same flags
     (``tests/data/torch_layouts_box300_ref.json``);
+7d. bench.py §3b's multilap at full size (:func:`run_multilap`: 1,000
+    scans, 3.5 laps of the box world, 360 beams, seed 7; the sequence made
+    by K11), ``run_slam_windowed`` with every plain version refusing CUDA
+    tensors, counters reset just before and read just after: ATE within
+    max(0.15 m, 2 x the JAX package's f32 run on the same sequence,
+    ``tests/data/torch_multilap1000_ref.json``), loops > 0, one K11
+    launch, K7b launched ``inc_iters`` times per local take; it prints
+    the loops, keyframes, take fractions and innovation-rejected count;
 8. config 4 through its entry point: ``ndtpu_torch.solve_g2o.main``
    with ``--manhattan 10000 --shards 64`` on the card (supernodal by
    ``auto``), counters reset just before and read just after: one K9a and
@@ -277,9 +287,9 @@ Phases (any failure exits non-zero, and no result line is printed):
     K9c and K5 in phase 13's ranks; K10a, K10b and K10c in phase 15's ranks,
     ``slab_accumulate[g1]``, K10b and ``slab_sgh[g1]`` in 15b's;
     K6g in phases 8b, 8c and 12; ``local_select[scratch]`` (K7a past one
-    block) in phase 8d's update; K11 in phases 4, 6, 10 and 16, K13 in
-    phase 16), exactly one ``lm_ndt*`` launch per ``match_batch_packed``
-    call (phases 4, 6 and 16), and in phase 6 one gated verify per
+    block) in phase 8d's update; K11 in phases 4, 6, 7d, 10 and 16, K7a
+    and K7b also in 7d, K13 in phase 16), exactly one ``lm_ndt*`` launch
+    per ``match_batch_packed`` call (phases 4, 6 and 16), and in phase 6 one gated verify per
     loop-detection call and no standalone K8b launch; K5, K7a and K7b launched
     in phases 4 and 6, K6 in phase 6 (config 2 may never take the global path),
     one ``pcg_solve`` launch per PCG solve, and a full solve in phase 6; K5,
@@ -288,11 +298,12 @@ Phases (any failure exits non-zero, and no result line is printed):
     their twins in phase 3.
 
 The second-to-last line is one JSON object with the kernels' launches (phases
-4, 6, 7b, 7c, 8, 8b, 8c, 8d, 10, 10b, 12, 12b and 13-16, 15b together),
+4, 6, 7b, 7c, 7d, 8, 8b, 8c, 8d, 10, 10b, 12, 12b and 13-16, 15b together),
 errors,
 times and bounds,
 config 1's and the layout runs' results (``config1``, ``layouts``), the
 repeated runs' ATEs, the smoother's counts and bench.py §5's three 10k cells,
+the multilap's results (``multilap``),
 config 4's runs (supernodal and PCG) and step timing, the serving run's
 aggregate scans/s and per-session results, and config 5's merge, distributed
 solve, SLAM rehearsal and slab map (and the overlap-1 merge and slab
@@ -463,14 +474,15 @@ KERNELS = [
          replaces="ndtpu/graph/solve.py:215", paths=("serving",)),
     dict(name="local_select", source=_CSRC + "local_system.cu",
          replaces="ndtpu/graph/incremental.py:120",
-         paths=("config2", "config3")),
+         paths=("config2", "config3", "multilap")),
     # K7a past one block's shared memory: a local-path update on a graph of
     # 25,064 pose slots (phase 8d).
     dict(name="local_select[scratch]", source=_CSRC + "local_system.cu",
          replaces="ndtpu/graph/incremental.py:173",
          paths=("select_past_block",)),
     dict(name="local_assemble", source=_CSRC + "local_system.cu",
-         replaces="ndtpu/dist/schur.py:318", paths=("config2", "config3")),
+         replaces="ndtpu/dist/schur.py:318",
+         paths=("config2", "config3", "multilap")),
     # The supernodal step runs on config 4's path only.
     dict(name="supernodal_assemble", source=_CSRC + "supernodal.cu",
          replaces="ndtpu/graph/supernodal.py:158", paths=("config4",)),
@@ -493,11 +505,12 @@ KERNELS = [
     dict(name="slab_sgh", source=_CSRC + "ndt_unpacked.cu",
          replaces="ndtpu/dist/gridmap.py:189", paths=("config5_slab",)),
     # K11: every synthetic sequence made on the card (the CLI's in both
-    # modes, serving's sessions); K13: the CLI with downsample_voxel > 0.
+    # modes, serving's sessions, the multilap's); K13: the CLI with
+    # downsample_voxel > 0.
     dict(name="raycast", source=_CSRC + "raycast.cu",
          replaces="ndtpu/data/synth.py:124",
          paths=("config2", "config3", "serving", "scan_config2",
-                "scan_config3")),
+                "scan_config3", "multilap")),
     dict(name="voxel_downsample", source=_CSRC + "voxel_downsample.cu",
          replaces="ndtpu/data/preprocess.py:24", paths=("downsample",)),
     # K3 at overlap 1, in the layout runs whose map has one grid.
@@ -2874,47 +2887,105 @@ def check_k7a(sm, cfg3, jobs=None):
     return row
 
 
-def check_k7b(sm, cfg3, jobs=None):
-    """K7b against ``assemble_local_ref`` (f32, on the card) on a real
-    local selection (the newest factor fresh): h_ii and b_i within rtol
-    1e-5 of their max, bit-identical on a second launch."""
-    import torch
-
-    from ndtpu_torch.dist import schur
+def k7b_args(sm, cfg3):
+    """K7b's arguments on a real local selection of ``sm``'s graph (the
+    newest factor fresh): ``(n, ai, aj, r, ap, rp, f_sel, ri, li, rj, lj,
+    p_act, p_role, lp)``, and the selection."""
     from ndtpu_torch.graph import incremental as inc
 
     g, cfg = sm.graph, cfg3.solver
     sel = inc.local_select(g, cfg, g.n_between - 1)
     (ai, aj, r), (ap, rp) = inc._local_lin(g, g.poses, sel, cfg.huber_delta)
-    args = (sel["p_loc"], ai, aj, r, ap, rp, sel["f_sel"], sel["ri"],
+    return (sel["p_loc"], ai, aj, r, ap, rp, sel["f_sel"], sel["ri"],
             sel["li"], sel["rj"], sel["lj"], sel["p_act"], sel["rp"],
-            sel["lp"])
+            sel["lp"]), sel
+
+
+#: K7b past the old kernel's shared-memory limit (~7,258 gathered slots):
+#: 8,192 slots, 256 local poses, 16 priors.
+K7B_PAST = dict(k=8192, n=256, p=16)
+
+
+def k7b_random_args(dev, k: int, n: int, p: int, seed: int = 0):
+    """K7b's arguments on seeded random rows (numpy): ``k`` gathered slots,
+    3 in 4 selected, each endpoint interior with probability 0.8 at a
+    uniform local slot in [0, n) (so ~2.2 k / n contributions per row:
+    buckets past one warp's 32 places at k >> n, repeated pairs), ``p``
+    priors, half active, interior with probability 0.8; blocks of f32
+    standard normals."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=dev)
+    f32 = torch.float32
+    ai, aj = (t(rng.standard_normal((k, 3, 3)), f32) for _ in range(2))
+    r = t(rng.standard_normal((k, 3)), f32)
+    ap, rp = t(rng.standard_normal((p, 3, 3)), f32), t(
+        rng.standard_normal((p, 3)), f32)
+    f_sel = t(rng.random(k) < 0.75)
+    role = lambda m: t((rng.random(m) >= 0.8).astype(np.int64))
+    loc = lambda m: t(rng.integers(0, n, m))
+    ri, li, rj, lj = role(k), loc(k), role(k), loc(k)
+    p_act, p_role, lp = t(rng.random(p) < 0.5), role(p), loc(p)
+    return (n, ai, aj, r, ap, rp, f_sel, ri, li, rj, lj, p_act, p_role, lp)
+
+
+def k7b_bound(args) -> dict:
+    """Blocks and selection read (117 B per row, 65 per prior), h_ii and b_i
+    written; 54 operations per 3 x 3 contribution (own and cross), 18 per
+    A^T r."""
+    n, ai, _, _, ap, _, fs, ri, _, rj, _, pa, pr, _ = args
+    k, p = ai.shape[0], ap.shape[0]
+    ii, jj = fs & (ri == 0), fs & (rj == 0)
+    own = int(ii.sum()) + int(jj.sum()) + int((pa & (pr == 0)).sum())
+    both = int((ii & jj).sum())
+    return bound(k * 117 + p * 65 + 36 * n * n + 12 * n,
+                 54.0 * (own + 2 * both) + 18.0 * own)
+
+
+def k7b_case(label, args, jobs=None, card_key=None):
+    """One K7b case against ``assemble_local_ref`` (f32, on the card): h_ii
+    and b_i within rtol 1e-5 of their max, bit-identical on a second
+    launch; timed. Returns the row."""
+    import torch
+
+    from ndtpu_torch.dist import schur
+
     run = lambda: schur.assemble_local(*args)
     out, again = run(), run()
     ref = schur.assemble_local_ref(*args)
     torch.cuda.synchronize()
-    require(bool(sel["ok"]), "K7b: the selection does not fit")
-    require(bits_equal(out, again), "K7b: two launches differ")
-    err = _rel_check("K7b", out, ref)
+    require(bits_equal(out, again), f"K7b {label}: two launches differ")
+    err = _rel_check(f"K7b {label}", out, ref)
     ms = time_ms(run)
     plain = time_ms(lambda: schur.assemble_local_ref(*args))
-    n, k, p = sel["p_loc"], ai.shape[0], ap.shape[0]
-    fs = sel["f_sel"]
-    ii, jj = fs & (sel["ri"] == 0), fs & (sel["rj"] == 0)
-    own, both = int(ii.sum()) + int(jj.sum()), int((ii & jj).sum())
-    # Blocks and selection read (117 B per row, 65 per prior), h_ii and b_i
-    # written; 54 operations per 3 x 3 contribution (own and cross), 18 per
-    # A^T r.
-    bd = bound(k * 117 + p * 65 + 36 * n * n + 12 * n,
-               54.0 * (own + 2 * both) + 18.0 * own)
-    print(f"[smoke] K7b local_assemble n={n} K={k} ({int(fs.sum())} "
-          f"selected, {int(sel['in_set'].sum())} interior poses): vs f32 "
-          f"plain max abs err {err:.3e} (rtol 1e-5 of the max); "
-          f"bit-identical on a second launch; kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    bd = k7b_bound(args)
+    n, k = args[0], args[1].shape[0]
+    print(f"[smoke] K7b local_assemble {label} n={n} K={k} "
+          f"({int(args[6].sum())} selected): vs f32 plain max abs err "
+          f"{err:.3e} (rtol 1e-5 of the max); bit-identical on a second "
+          f"launch; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
     row = dict(max_abs_err=err, ms=ms, plain_ms=plain, **bd)
-    card_time(jobs, "K7b local_assemble", row, "card_ms", run,
-              ["local_assemble"])
+    if card_key:
+        card_time(jobs, card_key, row, "card_ms", run, ["local_assemble"],
+                  per_call=1)
+    return row
+
+
+def check_k7b(sm, cfg3, jobs=None):
+    """K7b against ``assemble_local_ref`` (f32, on the card) on a real
+    local selection (the newest factor fresh) and past the old kernel's
+    limit (:data:`K7B_PAST`, seeded rows): h_ii and b_i within rtol 1e-5
+    of their max, bit-identical on a second launch."""
+    args, sel = k7b_args(sm, cfg3)
+    require(bool(sel["ok"]), "K7b: the selection does not fit")
+    row = k7b_case(f"({int(sel['in_set'].sum())} interior poses)", args,
+                   jobs, "K7b local_assemble")
+    row["past_8k"] = k7b_case("past the old limit",
+                              k7b_random_args(args[1].device, **K7B_PAST),
+                              jobs, "K7b local_assemble K=8192")
     return row
 
 
@@ -4106,6 +4177,127 @@ def draw_gate(label, draws):
                 jax_fails_dead_reckoning=failing)
 
 
+#: bench.py §3b's multilap (bench.py:332-364): 1,000 scans (3.5 laps of
+#: the box world) at 360 beams, seed 7, bench.py's odometry noise.
+MULTILAP = dict(half=11.0, n_scans=1000, traj_half=7.0, step=0.2,
+                n_beams=360, max_range=20.0, min_range=0.1, seed=7,
+                odom_trans_std=0.04, odom_rot_std=0.01)
+REF_MULTILAP_FILE = ROOT / "tests" / "data" / "torch_multilap1000_ref.json"
+
+
+def multilap_config(c):
+    """bench.py §3b's ``PipelineConfig`` (``pcfg_base``, bench.py:260-269,
+    with loop closure, :336) from the config module ``c``: the port's
+    ``ndtpu_torch.config`` here, the JAX package's in the CPU tests."""
+    return c.PipelineConfig(
+        grid=c.GridConfig(x0=-14.0, y0=-14.0, cell=0.5, nx=56, ny=56,
+                          overlap=4),
+        keyframe=c.KeyframeConfig(dist_thresh=0.5, angle_thresh=0.3,
+                                  capacity=512),
+        loop=c.LoopConfig(radius=3.0, min_index_gap=10, max_candidates=8,
+                          local_half_extent=8.0),
+        solver=c.SolverConfig(inc_iters=2, pcg_max_iter=60),
+        n_beams=360, max_range=20.0, window=8, window_passes=2,
+        use_loop_closure=True)
+
+
+def multilap_sequence(device="cpu"):
+    """bench.py §3b's sequence from the port's synth (K11 on a CUDA
+    ``device``; the noise from numpy)."""
+    from ndtpu_torch.data import synth
+
+    m = MULTILAP
+    world = synth.box_world(m["half"])
+    traj = synth.rectangle_trajectory(m["n_scans"], half=m["traj_half"],
+                                      step=m["step"])
+    return synth.make_sequence(world, traj, n_beams=m["n_beams"],
+                               max_range=m["max_range"],
+                               min_range=m["min_range"], seed=m["seed"],
+                               odom_trans_std=m["odom_trans_std"],
+                               odom_rot_std=m["odom_rot_std"], device=device)
+
+
+def multilap_summary(ate_m: float, n_loops: int, n_keyframes: int, takes,
+                     n_innov_rej: int) -> dict:
+    """bench.py §3b's numbers of one run: ATE (m), loops, keyframes, the
+    smoother's takes per window (``takes``: one code per window, 0 skip, 1
+    global, 2 local) as counts and fractions, innovation-rejected loop
+    candidates."""
+    takes = [int(t) for t in takes]
+    n = max(len(takes), 1)
+    counts = {c: takes.count(c) for c in (0, 1, 2)}
+    return dict(ate_m=ate_m, loops=n_loops, keyframes=n_keyframes,
+                takes=counts,
+                take_frac={name: counts[c] / n for c, name in
+                           ((0, "skip"), (1, "global"), (2, "local"))},
+                innov_rejected=n_innov_rej)
+
+
+def run_multilap(dev):
+    """Phase 7d: bench.py §3b's multilap at full size on the card: the
+    sequence made by K11, ``run_slam_windowed`` through the kernels (every
+    plain version refusing CUDA tensors), counters reset just before and
+    read just after. Gates: ATE <= max(0.15 m, 2 x the JAX package's f32
+    run on the same sequence, ``tests/data/torch_multilap1000_ref.json``),
+    loops > 0, one K11 launch, and K7b launched ``inc_iters`` times per
+    local take. Returns ``(launches, result)``."""
+    import torch
+
+    from ndtpu_torch import config as tconfig
+    from ndtpu_torch import kernels
+    from ndtpu_torch.eval.ate import ate_rmse
+    from ndtpu_torch.slam import pipeline
+
+    ref = json.loads(REF_MULTILAP_FILE.read_text())
+    cfg = multilap_config(tconfig)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with no_plain_on_card(PLAIN_WINDOWED):
+        seq = multilap_sequence(dev)
+        st, outs = pipeline.run_slam_windowed(seq.points, seq.mask,
+                                              seq.odom, cfg)
+        traj = pipeline.recover_trajectory(st, outs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(bool(torch.isfinite(traj).all()), "multilap: poses not finite")
+    res = multilap_summary(
+        float(ate_rmse(traj.cpu(), seq.gt_poses.cpu())), int(st.n_loops),
+        int(st.kf.n), outs.local_take.cpu()[::cfg.window],
+        int(outs.n_innov_rej.sum()))
+    same_seq = sequence_hashes(seq) == ref["sequence_sha256"]
+    res.update(seconds=seconds, sequence_equals_cpu=same_seq,
+               launches={k: launches[k] for k in
+                         ("raycast", "local_select", "local_assemble")})
+    jf32, jf64 = ref["jax"]["float32"], ref["jax"]["float64"]
+    print(f"[smoke] multilap (bench.py §3b, 1,000 scans, 3.5 laps) on the "
+          f"card: ATE {res['ate_m']:.4f} m (JAX f32 {jf32['ate_m']:.4f}, "
+          f"f64 {jf64['ate_m']:.4f}), loops {res['loops']} (JAX "
+          f"{jf32['loops']} / {jf64['loops']}), keyframes "
+          f"{res['keyframes']}, takes skip / global / local "
+          f"{res['takes'][0]} / {res['takes'][1]} / {res['takes'][2]} "
+          f"(fractions {res['take_frac']['skip']:.3f} / "
+          f"{res['take_frac']['global']:.3f} / "
+          f"{res['take_frac']['local']:.3f}; JAX f32 "
+          f"{jf32['takes']}), innovation-rejected {res['innov_rejected']}; "
+          f"K11 / K7a / K7b launches {launches['raycast']} / "
+          f"{launches['local_select']} / {launches['local_assemble']}; "
+          f"sequence equal to the CPU-made one: {same_seq}; "
+          f"{seconds:.1f} s")
+    limit = max(0.15, 2.0 * jf32["ate_m"])
+    require(res["ate_m"] <= limit, f"multilap: ATE {res['ate_m']:.4f} m "
+            f"over {limit:.4f} m (max(0.15, 2 x JAX f32's))")
+    require(res["loops"] > 0, "multilap: no loop closed")
+    require(launches["raycast"] == 1, f"multilap: {launches['raycast']} "
+            f"K11 launches for one sequence")
+    want = cfg.solver.inc_iters * res["takes"][2]
+    require(launches["local_assemble"] == want,
+            f"multilap: {launches['local_assemble']} K7b launches for "
+            f"{res['takes'][2]} local takes x inc_iters "
+            f"{cfg.solver.inc_iters} = {want}")
+    return launches, res
+
+
 def ate_gate(dev, config, ref, label=None):
     """Box-world draws through ``run_slam_windowed`` vs the JAX reference
     ``ref`` (a file, or its loaded dict): ATE by :func:`draw_gate`, and
@@ -4966,10 +5158,36 @@ def cli_inputs(config, n_scans: int, device):
                             angles=None)
 
 
+#: K11 past the old 48 KB limit (1,536 segments in f64): the box world of
+#: half 40 m and 1,000 square pillars (4,004 segments), 64 poses.
+K11_MANY = dict(half=40.0, pillars=1000, seed=3, poses=64)
+
+
+def pillar_segments(half: float, pillars: int, seed: int):
+    """``[4 + 4 pillars, 2, 2]`` f64 numpy segments: the box world's four
+    walls and ``pillars`` axis-aligned squares (sides 0.2-0.6 m) centred
+    uniformly within it, from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h = half
+    box = [[[-h, -h], [h, -h]], [[h, -h], [h, h]], [[h, h], [-h, h]],
+           [[-h, h], [-h, -h]]]
+    c = rng.uniform(-h + 1.0, h - 1.0, (pillars, 2))
+    e = rng.uniform(0.1, 0.3, (pillars, 1))
+    corners = [c + e * np.array(d) for d in ((-1, -1), (1, -1), (1, 1),
+                                             (-1, 1))]
+    sides = [np.stack([corners[i], corners[(i + 1) % 4]], 1)
+             for i in range(4)]
+    pil = np.stack(sides, 1).reshape(-1, 2, 2)
+    return np.concatenate([np.asarray(box, np.float64), pil])
+
+
 def k11_inputs(kind: str, dtype, dev):
     """``(world, poses, angles)`` on ``dev`` in ``dtype``: the CLI's corridor
-    run (600 poses x 360 beams x 36 segments) or serving's 8 sessions x 300
-    box-world poses (x 17 segments)."""
+    run (600 poses x 360 beams x 36 segments), serving's 8 sessions x 300
+    box-world poses (x 17 segments), or :data:`K11_MANY`'s pillars (64
+    poses of a box lap x 360 beams x 4,004 segments)."""
     import torch
 
     from ndtpu_torch.data import synth
@@ -4978,10 +5196,15 @@ def k11_inputs(kind: str, dtype, dev):
         world = synth.corridor_loop_world(outer=18.0, width=5.0)
         poses = synth.rectangle_trajectory(CORRIDOR_SCANS, half=15.0,
                                            step=0.25)
-    else:
+    elif kind == "serving":
         world = synth.box_world(half=11.0)
         poses = torch.stack([synth.rectangle_trajectory(
             300, half=6.0 + 0.2 * k, step=0.2) for k in range(8)])
+    else:
+        m = K11_MANY
+        world = synth.World(torch.as_tensor(pillar_segments(
+            m["half"], m["pillars"], m["seed"])))
+        poses = synth.rectangle_trajectory(m["poses"], half=7.0, step=0.85)
     ang = synth.beam_angles(360, dtype=torch.float64)
     return (synth.World(world.segments.to(dev, dtype)),
             poses.to(dev, dtype), ang.to(dev, dtype))
@@ -4999,45 +5222,71 @@ def k11_bound(poses, angles, segments) -> dict:
                  F64_FLOP_S if f64 else F32_FLOP_S)
 
 
+def raycast_cpu(world, poses, ang, max_range: float, chunk: int = 8):
+    """K11's plain version on the CPU, ``chunk`` poses at a time (its [...,
+    N, S] intermediates stay small at thousands of segments)."""
+    import torch
+
+    from ndtpu_torch.data import synth
+
+    w = synth.World(world.segments.cpu())
+    p, a = poses.cpu(), ang.cpu()
+    flat = p.reshape(-1, 3)
+    out = torch.cat([synth.raycast_ref(w, flat[i:i + chunk], a, max_range)
+                     for i in range(0, flat.shape[0], chunk)])
+    return out.reshape(p.shape[:-1] + a.shape)
+
+
+#: K11's cases: (name, inputs, dtype). f64 is make_sequence's type; f32 at
+#: 36, 17 and 4,004 segments.
+K11_CASES = (("corridor", "corridor", "float64"),
+             ("serving", "serving", "float64"),
+             ("corridor_f32", "corridor", "float32"),
+             ("serving_f32", "serving", "float32"),
+             ("pillars", "pillars", "float64"),
+             ("pillars_f32", "pillars", "float32"))
+
+
 def check_k11(dev, jobs=None):
     """K11 ``raycast`` (``synth.raycast`` on CUDA tensors) against its plain
-    version on the CPU: in f64 at the CLI's corridor run and at serving's 8
-    x 300 box-world poses (hits identical, within K11_F64_TOL), in f32 at
-    the corridor (hits and K11_F32_TOL but for K11_F32_OUTLIERS of the
-    beams); bit-identical on a second launch. Returns the row."""
+    version on the CPU, for each of :data:`K11_CASES`: in f64 hits
+    identical and within K11_F64_TOL, in f32 hits and K11_F32_TOL but for
+    K11_F32_OUTLIERS of the beams; bit-identical on a second launch.
+    Returns the row (the corridor's f64 case; the others under their
+    names)."""
     import torch
 
     from ndtpu_torch.data import synth
 
     row = {}
-    for kind, dt in (("corridor", torch.float64), ("serving", torch.float64),
-                     ("corridor_f32", torch.float32)):
-        world, poses, ang = k11_inputs(kind.split("_")[0], dt, dev)
-        run = lambda: synth.raycast(world, poses, ang, 20.0)
+    for name, kind, dt in K11_CASES:
+        dt = getattr(torch, dt)
+        world, poses, ang = k11_inputs(kind, dt, dev)
+        # Bound now: the corridor's card time is read after the loop.
+        run = lambda w=world, p=poses, a=ang: synth.raycast(w, p, a, 20.0)
         out, again = run(), run()
-        ref = synth.raycast_ref(synth.World(world.segments.cpu()),
-                                poses.cpu(), ang.cpu(), 20.0)
+        ref = raycast_cpu(world, poses, ang, 20.0)
         torch.cuda.synchronize()
-        require(bits_equal(out, again), f"K11 {kind}: two launches differ")
+        require(bits_equal(out, again), f"K11 {name}: two launches differ")
         o = out.cpu()
         hits = int(((o < 20.0) != (ref < 20.0)).sum())
         d = (o - ref).abs()
         err = float(d.max())
         if dt == torch.float64:
             require(hits == 0 and err <= K11_F64_TOL,
-                    f"K11 {kind}: {hits} hit flags differ, max abs err "
+                    f"K11 {name}: {hits} hit flags differ, max abs err "
                     f"{err:.3e} m (<= {K11_F64_TOL:g} required)")
             over = 0
         else:
             over = int((d > K11_F32_TOL).sum())
             require(over <= K11_F32_OUTLIERS * d.numel(),
-                    f"K11 {kind}: {over} of {d.numel()} beams off by more "
+                    f"K11 {name}: {over} of {d.numel()} beams off by more "
                     f"than {K11_F32_TOL:g} m ({hits} hit flags differ)")
         bd = k11_bound(poses, ang, world.segments)
         ms = time_ms(run)
         plain_ms = time_ms(lambda: synth.raycast_ref(world, poses, ang,
                                                      20.0))
-        print(f"[smoke] K11 raycast {kind} {tuple(out.shape)} x "
+        print(f"[smoke] K11 raycast {name} {tuple(out.shape)} x "
               f"{world.segments.shape[0]} segments: vs {dt} plain (CPU) max "
               f"abs err {err:.3e} m, {hits} hit flags differ, {over} beams "
               f"past {K11_F32_TOL:g} m; bit-identical on a second launch; "
@@ -5045,12 +5294,12 @@ def check_k11(dev, jobs=None):
               f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
         case = dict(max_abs_err=err, hit_flags_differ=hits, ms=ms,
                     plain_ms=plain_ms, **bd)
-        if kind == "corridor":
+        if name == "corridor":
             row.update(case)
             card_time(jobs, "K11 raycast corridor f64", row, "card_ms", run,
-                      ["raycast"])
+                      ["raycast"], per_call=1)
         else:
-            row[kind] = case
+            row[name] = case
     return row
 
 
@@ -5066,7 +5315,8 @@ def check_k13(dev, jobs=None):
     p, m = seq.points, seq.mask
     row = dict(max_abs_err=0.0, kept={})
     for voxel in (0.05, 0.1, 0.5):
-        run = lambda: preprocess.voxel_downsample(p, m, voxel)
+        # Bound now: the card time at 0.1 m is read after the loop.
+        run = lambda v=voxel: preprocess.voxel_downsample(p, m, v)
         out, again = run(), run()
         ref = preprocess.voxel_downsample_ref(p.cpu(), m.cpu(), voxel)
         torch.cuda.synchronize()
@@ -5759,7 +6009,9 @@ def check_k9c(graph, n_ranks: int, lam: float, jobs=None):
                                                                 rank))
         lin = schur._linearize_shard(graph.poses, *loc)
         masks = (loc[4], loc[8])
-        run = lambda: schur.schur_local_assemble(t, lam, *lin, *masks)
+        # Bound now: each rank's card time is read after the loop.
+        run = lambda t=t, lin=lin, masks=masks: schur.schur_local_assemble(
+            t, lam, *lin, *masks)
         out, again = run(), run()
         ref = schur.schur_local_assemble_ref(t, lam, *lin, *masks)
         ref64 = schur.schur_local_assemble_ref(
@@ -7110,7 +7362,7 @@ def main(argv=None) -> int:
             and REF_SERVING_LAYOUTS_FILE.is_file()
             and REF5_OVERLAP1_FILE.is_file()
             and REF1_FILE.is_file() and REF_LAYOUTS_FILE.is_file()
-            and REF_SCAN_FILE.is_file(),
+            and REF_SCAN_FILE.is_file() and REF_MULTILAP_FILE.is_file(),
             f"run from a checkout of the repository ({ROOT} lacks "
             f"ndtpu_torch/ or the reference files in tests/data)")
     import torch
@@ -7243,6 +7495,9 @@ def main(argv=None) -> int:
     # layouts through its entry point.
     launches1, config1 = run_config1(dev)
     launches_layouts, layouts = run_layouts(dev)
+    # bench.py §3b's multilap at full size (phase 7d): the smoother's local
+    # path, K7a and K7b, under loop load.
+    launches_ml, multilap = run_multilap(dev)
     detections = counts3["detections"]
     require(counts3["full_solves"] > 0, "config 3: no full solve ran")
     require(launches3["loop_gate_fused"] == detections > 0
@@ -7341,6 +7596,7 @@ def main(argv=None) -> int:
     paths = {"config1": launches1, **launches_layouts, **launches16,
              "config2": launches2, "config3": launches3, "config4": launches4,
              "config4_pcg": launches4p, "incremental_10k": launches10k,
+             "multilap": launches_ml,
              "select_past_block": launches_sel,
              "serving": launches8, **launches_sl, "config5": launches5,
              "config5_overlap1": launches5o1,
@@ -7371,7 +7627,8 @@ def main(argv=None) -> int:
     config4.update(step=step4, ba_solve_ms_per_iter_10k=ba_split)
     print(json.dumps({"kernels": rows, "repeat_runs": repeats,
                       "config1": config1, "layouts": layouts,
-                      "smoother": smoother, "config4": config4,
+                      "smoother": smoother, "multilap": multilap,
+                      "config4": config4,
                       "serving": serving,
                       "config5": {"merge": merge5, "distributed": dist5,
                                   "slam_launch": slam14, "slab": slab15,

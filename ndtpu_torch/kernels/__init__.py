@@ -161,7 +161,8 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "loop_gate", "ROBUST_KINDS", "robust_code", "factor_linearize",
            "fresh_residual_max", "pcg_smem", "pcg_route", "pcg_grid_plan",
            "pcg_solve", "pcg_solve_grid", "pcg_solve_blocked", "select_smem",
-           "select_route", "local_select", "local_assemble",
+           "select_route", "local_select", "assemble_scratch",
+           "local_assemble",
            "supernodal_assemble", "schur_reduce", "schur_local_assemble",
            "ndt_sgh_unpacked", "slab_accumulate", "finalize_cells",
            "slab_sgh", "raycast", "voxel_downsample"]
@@ -226,6 +227,7 @@ _FINALIZE_BANDS: dict = {}       # (grid, device index) -> K4 launch shape
 _SM_COUNT: dict = {}             # device index -> multiprocessors
 _SLAB_SCRATCH: dict = {}         # (device index, G, width, ny) -> int64 sums
 _LIN_ARRIVE: dict = {}           # (device index, stream) -> K5's int32 ticket
+_ASM_CTL: dict = {}              # (device index, stream) -> K7b's 4 int32
 
 _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
@@ -254,7 +256,7 @@ _SIGNATURES = {
     "local_select_launch": [_P, _P, _P, _I, _P, _I, _P, _P, _I, _P, _P]
                            + [_I] * 7 + [_P] * 4,
     "local_assemble_launch": [_P, _P, _P, _I, _P, _P, _I] + [_P] * 8
-                             + [_I, _P, _P, _P],
+                             + [_I] + [_P] * 5,
     "supernodal_assemble_launch": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 4
                                   + [_P] * 6,
     "schur_reduce_launch": [_P] * 9 + [_F, _I, _I, _P, _P, _P],
@@ -1214,11 +1216,35 @@ def local_select(bet_i, bet_j, bet_mask, pose_mask, prior_idx, prior_mask,
                 li=it[4], lj=it[5], rp=it[6], lp=it[7])
 
 
+def assemble_scratch(k: int, p: int, n: int) -> int:
+    """int32 words of K7b's per-call device scratch for ``k`` gathered
+    slots, ``p`` prior slots and ``n`` local poses: ``assemble_scratch`` of
+    ``csrc/local_system.cu`` (the bucketed and the sorted contribution
+    lists, two words for each of at most ``4 k + p`` contributions, and
+    the ``n + 1`` bucket offsets)."""
+    return 4 * (4 * k + p) + n + 1
+
+
+def _asm_ctl(dev: torch.device, stream: int) -> torch.Tensor:
+    """K7b's four int32 counters on ``stream`` (ticket, finished blocks,
+    the build's mode, zeroed workers), allocated (and zeroed) once per
+    (device, stream) and kept: every launch's last block resets them to 0,
+    and launches on one stream never overlap."""
+    key = (dev.index, stream)
+    buf = _ASM_CTL.get(key)
+    if buf is None:
+        buf = torch.zeros(4, dtype=torch.int32, device=dev)
+        _ASM_CTL[key] = buf
+    return buf
+
+
 def local_assemble(n: int, ai, aj, r, ap, rp, f_sel, ri, li, rj, lj, p_act,
                    p_role, lp):
     """K7b: the local normal equations ``(h_ii [3n, 3n], b_i [3n])`` from
     K5's gathered rows and the priors, routed by role (0 = interior) and
-    local slot (see ``csrc/local_system.cu``)."""
+    local slot (see ``csrc/local_system.cu``): one launch; past 256
+    contributions its lists go to a per-call scratch of
+    :func:`assemble_scratch` words, so any number of gathered rows."""
     k, p = ai.shape[0], ap.shape[0]
     _check(ai, "ai", shape=(k, 3, 3))
     _check(aj, "aj", shape=(k, 3, 3))
@@ -1234,13 +1260,17 @@ def local_assemble(n: int, ai, aj, r, ap, rp, f_sel, ri, li, rj, lj, p_act,
     dev = ai.device
     h = torch.empty((3 * n, 3 * n), dtype=torch.float32, device=dev)
     b = torch.empty(3 * n, dtype=torch.float32, device=dev)
+    scratch = torch.empty(assemble_scratch(k, p, n), dtype=torch.int32,
+                          device=dev)
+    stream = _stream(h)
     _call("local_assemble_launch", "local_assemble", ai.data_ptr(),
           aj.data_ptr(), r.data_ptr(), k, ap.data_ptr(), rp.data_ptr(), p,
           f_sel.data_ptr(), ri.data_ptr(), li.data_ptr(), rj.data_ptr(),
           lj.data_ptr(), p_act.data_ptr(), p_role.data_ptr(), lp.data_ptr(),
-          n, h.data_ptr(), b.data_ptr(), _stream(h),
-          too_big=f"{k} gathered factors are over the shared memory one "
-                  f"block can have")
+          n, h.data_ptr(), b.data_ptr(), scratch.data_ptr(),
+          _asm_ctl(dev, stream).data_ptr(), stream,
+          too_big=f"{n} local poses' counts are over the shared memory one "
+                  f"block can have (h_ii alone would be {36 * n * n} bytes)")
     return h, b
 
 
@@ -1471,9 +1501,9 @@ def raycast(poses, angles, segments, max_range: float, eps: float
             ) -> torch.Tensor:
     """K11: ranges ``[P, N]`` of the beams ``angles [N]`` from ``poses [P,
     3]`` against the wall segments ``segments [S, 2, 2]`` (all f64 or all
-    f32), one thread per (pose, beam) (see ``csrc/raycast.cu``). Raises
-    ``ValueError`` when the S segments do not fit 48 KB of shared memory
-    (1,536 segments in f64)."""
+    f32), one block per pose and chunk of at most 256 beams, the segments
+    in shared-memory tiles (any S), dividing only where a hit can win (see
+    ``csrc/raycast.cu``)."""
     dt = poses.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"raycast takes float32 or float64, got {dt}")
@@ -1486,9 +1516,7 @@ def raycast(poses, angles, segments, max_range: float, eps: float
         _call("raycast_launch", "raycast", poses.data_ptr(),
               angles.data_ptr(), segments.data_ptr(), out.data_ptr(), p, n, s,
               float(max_range), float(eps), int(dt == torch.float64),
-              _stream(poses),
-              too_big=f"{s} segments do not fit a block's 48 KB of shared "
-                      f"memory")
+              _stream(poses))
     return out
 
 

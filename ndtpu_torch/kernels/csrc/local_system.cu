@@ -36,19 +36,32 @@
 // calls it with one separator: it writes only what the local path reads,
 // h_ii [3n, 3n] and b_i [3n], from the gathered factors' whitened,
 // Huber-weighted blocks (K5's gathered rows) and the active priors. One
-// block per local pose a owns rows 3a..3a+2 of h_ii and b_i: it writes
-// them whole (zeros where no factor lands), collects the contributions to
-// its rows in slot order (a block scan; within a slot side i before side
-// j, its own block before the cross block; the priors last), and for each
-// target column block sums them in that order. No float atomics: two
-// factors between one pair add in slot order, so h_ii is the same on
-// every launch.
+// launch. Its first block to start builds every row's contribution list
+// once (CSR by local row: integer counts, their exclusive scan, each
+// contribution into its row's bucket); the other blocks own 8 rows each,
+// one warp per row, and zero their rows of h_ii at once (16-byte stores).
+// Each row's column blocks are summed in code order: the order of the
+// slots, within a slot side i before side j and the own block before the
+// cross block, the priors last, which is the order of the plain kernel
+// before it (whose block rescanned every slot for its row): a bucket
+// sorted by (column block, code) puts each column block's run in that
+// order. Each sum starts at 0 and adds in that order, so h_ii and b_i are
+// that kernel's bits; no float atomics, so every launch gives the same
+// bits. Up to kSmallE contributions (the small mode: small active sets,
+// where one block's chain is shorter than the rows' round trips) the
+// build block keeps the buckets in shared memory and sums them itself
+// once the rows are zeroed; past it the buckets go to a per-call device
+// scratch and each worker warp sorts and sums its row.
+// Nothing of K lives in shared memory past kSmallE: any K.
 //
 // What bounds them on Hopper: K7a is integer work on ~3 K values and one
 // block's barriers (a few us; past one block's shared memory, ~50 K values
 // through L1 and L2); K7b's bound is writing h_ii (2.36 MB at n =
-// 256, ~0.7 us at HBM rate), while its time is each block's scan over the
-// 1,024 gathered slots and its handful of 3 x 3 products.
+// 256, ~0.7 us at HBM rate). Its time is the build block's chain: the
+// slots read once, shared-memory counts and cursors, one round trip for
+// the factor blocks, the sums; the zeroing runs beside it on the workers.
+// Past kSmallE the rows add their chain of L2 round trips (offsets,
+// bucket, sorted bucket, blocks) after the build.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -236,13 +249,54 @@ struct AsmArgs {
   const long long* p_role;
   const long long* lp;
   int n;                       // local poses
+  int2* list;                  // [4K + P] (col, code), bucketed by row
+  int2* sorted;                // [4K + P] each row's bucket in key order
+  int* off;                    // [n + 1] the buckets' offsets
+  int* ctl;                    // [4] ticket, finished blocks, the build's
+                               // mode (1 lists, 2 summed), zeroed workers
   float* h;                    // [3n, 3n]
   float* b;                    // [3n]
 };
 
-// Shared-memory bytes of K7b.
-inline size_t assemble_smem(int k, int p) {
-  return 8 * (size_t)(4 * k + p) + 4 * 40;
+constexpr int kAsmRows = kAsmThreads / 32;   // rows per worker block
+// Up to this many contributions the build block sums them itself.
+constexpr int kSmallE = 256;
+
+// Dynamic shared-memory bytes of K7b (every block gets the same): the
+// build's per-row counts (n) and offsets (n + 1), its scan's 40 ints, and
+// for kSmallE contributions their (column, code), 12 sums' terms, sorted
+// place and row.
+inline size_t assemble_smem(int n) {
+  return 4 * (2 * (size_t)n + 41) + 64 * (size_t)kSmallE;
+}
+
+// The build block's shared memory.
+struct AsmSmem {
+  int2* list;                  // [kSmallE] (col, code), bucketed by row
+  float* vals;                 // [kSmallE, 12] G_a^T G_b, then G_a^T r
+  int* order;                  // [kSmallE] the sorted places' entries
+  int* rowof;                  // [kSmallE]
+  int* cnt;                    // [n] counts, then cursors
+  int* base;                   // [n + 1] offsets
+  int* scr;                    // [40]
+};
+
+__device__ __forceinline__ AsmSmem carve(int* raw, int n) {
+  AsmSmem m;
+  m.list = reinterpret_cast<int2*>(raw);
+  m.vals = reinterpret_cast<float*>(m.list + kSmallE);
+  m.order = reinterpret_cast<int*>(m.vals + 12 * kSmallE);
+  m.rowof = m.order + kSmallE;
+  m.cnt = m.rowof + kSmallE;
+  m.base = m.cnt + n;
+  m.scr = m.base + n + 1;
+  return m;
+}
+
+// Ints of K7b's per-call device scratch: list and sorted (two ints per
+// contribution, at most 4K + P contributions) and off (n + 1).
+inline size_t assemble_scratch(int k, int p, int n) {
+  return 4 * (4 * (size_t)k + p) + n + 1;
 }
 
 // Contribution kinds: G_a^T G_b with (G_a, G_b) = (Ai, Ai), (Ai, Aj),
@@ -266,99 +320,448 @@ __device__ __forceinline__ void contribution(const AsmArgs& a, int code,
   *res = a.r + 3 * (size_t)s;
 }
 
+// A gathered slot's sides: each lands in its local row when the slot is
+// selected and that endpoint is interior with a local slot in [0, n).
+struct Sides {
+  int li, lj;
+  bool ii, jj;
+};
+
+__device__ __forceinline__ Sides sides(const AsmArgs& a, int s) {
+  const bool sel = a.f_sel[s];
+  const long long ri = a.ri[s], li = a.li[s], rj = a.rj[s], lj = a.lj[s];
+  Sides d;
+  d.ii = sel && ri == 0 && li >= 0 && li < a.n;
+  d.jj = sel && rj == 0 && lj >= 0 && lj < a.n;
+  d.li = (int)li;
+  d.lj = (int)lj;
+  return d;
+}
+
+__device__ __forceinline__ bool prior_in(const AsmArgs& a, int q) {
+  const bool act = a.p_act[q];
+  const long long role = a.p_role[q], l = a.lp[q];
+  return act && role == 0 && l >= 0 && l < a.n;
+}
+
+// Ask L1 for a contribution's blocks (its G_a, G_b rows and residual),
+// which the small mode reads after the count.
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" :: "l"(p));
+}
+
+__device__ __forceinline__ void prefetch_slot(const AsmArgs& a, int s) {
+  prefetch_l1(a.ai + 9 * (size_t)s);
+  prefetch_l1(a.ai + 9 * (size_t)s + 8);
+  prefetch_l1(a.aj + 9 * (size_t)s);
+  prefetch_l1(a.aj + 9 * (size_t)s + 8);
+  prefetch_l1(a.r + 3 * (size_t)s);
+}
+
+__device__ __forceinline__ unsigned long long entry_key(int2 e) {
+  return ((unsigned long long)(unsigned)e.x << 32) | (unsigned)e.y;
+}
+
+__device__ __forceinline__ void release_u32(int* p, int v) {
+  asm volatile("st.release.gpu.global.u32 [%0], %1;" :: "l"(p), "r"(v)
+               : "memory");
+}
+
+// Polls *p (relaxed, trapping after 2^24 polls instead of hanging the
+// card) until done(value). With `block`, thread 0 polls, then an acquire
+// fence, and the barrier gives the whole block the other blocks' writes
+// before their release; without, the calling thread only polls.
+template <typename Done>
+__device__ __forceinline__ unsigned wait_u32(const int* p, Done done,
+                                             bool block = true) {
+  __shared__ unsigned seen;
+  if (!block || threadIdx.x == 0) {
+    unsigned v, polls = 0;
+    do {
+      asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+                   : "=r"(v) : "l"(p) : "memory");
+      if (++polls == (1u << 24)) __trap();
+    } while (!done(v));
+    if (!block) return v;
+    asm volatile("fence.acq_rel.gpu;" ::: "memory");
+    seen = v;
+  }
+  __syncthreads();
+  return seen;
+}
+
+__device__ __forceinline__ bool own_block(int code, int k4) {
+  return code >= k4 || !(code & 1);
+}
+
+// The build block: every row's contributions in one pass over the slots
+// and priors: counts, their exclusive scan, then each contribution into
+// its row's bucket by a shared-memory cursor (within a bucket the order
+// is the cursors'; the sums sort by key). The first round's slots (kU T
+// of them) and the first T priors are read once, before any count, and
+// kept in registers for the placement; their blocks are asked of L1 as
+// soon as the selection is known. Up to kSmallE contributions (the
+// small mode) the buckets stay in shared memory and this block sums them:
+// each contribution's G_a^T G_b and G_a^T r once (kU contributions a
+// thread, their blocks read together), its place in its row sorted by
+// (column block, code), then one thread per column block adds its run in
+// that order, once every worker has zeroed its rows. Past kSmallE the
+// buckets and offsets go to the device scratch for the workers.
+constexpr int kU = 4;                  // slots (or contributions) a round
+
+__device__ __forceinline__ void load_round(const AsmArgs& a, int base,
+                                           Sides d[kU]) {
+  const int T = blockDim.x, K = a.n_rows;
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const int s = base + u * T + threadIdx.x;
+    d[u] = s < K ? sides(a, s) : Sides{0, 0, false, false};
+  }
+}
+
+__device__ void build_and_sum(const AsmArgs& a, AsmSmem m) {
+  const int n = a.n, K = a.n_rows, T = blockDim.x, tid = threadIdx.x;
+  const bool one_round = K <= kU * T;
+  Sides d[kU];
+  load_round(a, 0, d);
+  bool p0 = false;
+  int l0 = 0;
+  if (tid < a.n_pri) {
+    p0 = prior_in(a, tid);
+    l0 = (int)a.lp[tid];
+  }
+  for (int i = tid; i < n; i += T) m.cnt[i] = 0;
+  __syncthreads();
+  for (int base = 0; base < K; base += kU * T) {
+    if (base > 0) load_round(a, base, d);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (d[u].ii) atomicAdd(m.cnt + d[u].li, 1 + d[u].jj);
+      if (d[u].jj) atomicAdd(m.cnt + d[u].lj, 1 + d[u].ii);
+      if (one_round && (d[u].ii || d[u].jj)) prefetch_slot(a, u * T + tid);
+    }
+  }
+  if (p0) {
+    atomicAdd(m.cnt + l0, 1);
+    prefetch_l1(a.ap + 9 * (size_t)tid);
+    prefetch_l1(a.ap + 9 * (size_t)tid + 8);
+    prefetch_l1(a.rp + 3 * (size_t)tid);
+  }
+  for (int q = tid + T; q < a.n_pri; q += T)
+    if (prior_in(a, q)) atomicAdd(m.cnt + a.lp[q], 1);
+  __syncthreads();
+  int total;
+  {
+    const int chunk = (n + T - 1) / T;
+    const int r0 = min(tid * chunk, n), r1 = min(r0 + chunk, n);
+    int mine = 0;
+    for (int r = r0; r < r1; ++r) mine += m.cnt[r];
+    int at = ndtpu::pg::block_exclusive_scan(mine, &total, m.scr);
+    for (int r = r0; r < r1; ++r) {
+      const int c = m.cnt[r];
+      m.base[r] = at;
+      m.cnt[r] = at;                                   // the cursor
+      at += c;
+    }
+    if (tid == 0) m.base[n] = total;
+  }
+  const bool small = total <= kSmallE;
+  // The workers read nothing in the small mode: they may go at once.
+  if (small && tid == 0)
+    asm volatile("st.relaxed.gpu.global.u32 [%0], %1;" :: "l"(a.ctl + 2),
+                 "r"(2) : "memory");
+  int2* list = small ? m.list : a.list;
+  __syncthreads();
+  if (!small)
+    for (int r = tid; r <= n; r += T) a.off[r] = m.base[r];
+  for (int base = 0; base < K; base += kU * T) {
+    if (!one_round) load_round(a, base, d);
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int s = base + u * T + tid;
+      if (d[u].ii) {
+        const int at = atomicAdd(m.cnt + d[u].li, 1 + d[u].jj);
+        list[at] = make_int2(d[u].li, 4 * s);
+        if (d[u].jj) list[at + 1] = make_int2(d[u].lj, 4 * s + 1);
+        if (small) m.rowof[at] = m.rowof[at + d[u].jj] = d[u].li;
+      }
+      if (d[u].jj) {
+        const int at = atomicAdd(m.cnt + d[u].lj, 1 + d[u].ii);
+        list[at] = make_int2(d[u].lj, 4 * s + 2);
+        if (d[u].ii) list[at + 1] = make_int2(d[u].li, 4 * s + 3);
+        if (small) m.rowof[at] = m.rowof[at + d[u].ii] = d[u].lj;
+      }
+    }
+  }
+  for (int q = tid; q < a.n_pri; q += T) {
+    const bool in = q == tid ? p0 : prior_in(a, q);
+    if (!in) continue;
+    const int l = q == tid ? l0 : (int)a.lp[q];
+    const int at = atomicAdd(m.cnt + l, 1);
+    list[at] = make_int2(l, 4 * K + q);
+    if (small) m.rowof[at] = l;
+  }
+  __syncthreads();                     // every bucket and offset stored
+  if (!small) {
+    if (tid == 0) release_u32(a.ctl + 2, 1);
+    return;
+  }
+
+  // The small mode. The workers' count, read early and checked after the
+  // terms; each contribution's terms and its place in its row.
+  unsigned zeroed = 0;
+  if (tid == 0)
+    asm volatile("ld.relaxed.gpu.global.u32 %0, [%1];"
+                 : "=r"(zeroed) : "l"(a.ctl + 3) : "memory");
+  const int k4 = 4 * K;
+  for (int e0 = 0; e0 < total; e0 += kU * T) {
+    float g[kU][9], h[kU][9], v[kU][3];
+    int2 me[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = e0 + u * T + tid;
+      me[u] = e < total ? m.list[e] : make_int2(0, -1);
+      if (me[u].y < 0) continue;
+      const float *ga, *gb, *res;
+      contribution(a, me[u].y, &ga, &gb, &res);
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        g[u][k] = ga[k];
+        h[u][k] = gb[k];
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) v[u][k] = res[k];
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (me[u].y < 0) continue;
+      const int e = e0 + u * T + tid;
+      float* out = m.vals + 12 * e;
+      ndtpu::pg::mtm3(g[u], h[u], out);
+      if (own_block(me[u].y, k4)) ndtpu::pg::mtv3(g[u], v[u], out + 9);
+      const int r = m.rowof[e];
+      const unsigned long long key = entry_key(me[u]);
+      int rank = 0;
+      for (int k = m.base[r]; k < m.base[r + 1]; ++k)
+        rank += entry_key(m.list[k]) < key;
+      m.order[m.base[r] + rank] = e;
+    }
+  }
+  // Zeros of b for the empty rows; h_ii's rows are the workers' to zero.
+  for (int r = tid; r < n; r += T)
+    if (m.base[r + 1] == m.base[r])
+#pragma unroll
+      for (int k = 0; k < 3; ++k) a.b[3 * r + k] = 0.f;
+  if (tid == 0 && zeroed != gridDim.x - 1u)
+    wait_u32(a.ctl + 3, [&](unsigned c) { return c == gridDim.x - 1u; },
+             false);
+  if (tid == 0) asm volatile("fence.acq_rel.gpu;" ::: "memory");
+  __syncthreads();
+  const int n3 = 3 * n;
+  for (int p = tid; p < total; p += T) {
+    const int e = m.order[p];
+    const int r = m.rowof[e], col = m.list[e].x;
+    if (p != m.base[r] && m.list[m.order[p - 1]].x == col) continue;
+    float acc[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float acc3[3] = {0.f, 0.f, 0.f};
+    for (int k = p; k < m.base[r + 1]; ++k) {
+      const int ek = m.order[k];
+      const int2 c = m.list[ek];
+      if (c.x != col) break;
+      const float* t = m.vals + 12 * ek;
+#pragma unroll
+      for (int j = 0; j < 9; ++j) acc[j] = acc[j] + t[j];
+      if (own_block(c.y, k4))
+#pragma unroll
+        for (int j = 0; j < 3; ++j) acc3[j] = acc3[j] + t[9 + j];
+    }
+    float* hb = a.h + (size_t)3 * r * n3 + 3 * (size_t)col;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) hb[(size_t)i * n3 + j] = acc[3 * i + j];
+    if (col == r)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) a.b[3 * r + j] = acc3[j];
+  }
+}
+
+// One warp: the bucket at [o, o + m) sorted by key = (column block, code), so
+// each column block's contributions are adjacent and in code order, i.e.
+// in the order of the slots, side i before side j, the own block before
+// the cross block, the priors last. Each rank counts the smaller keys
+// (the codes are distinct).
+__device__ void sort_row(const AsmArgs& a, int o, int m) {
+  const int lane = threadIdx.x & 31;
+  const int2* in = a.list + o;
+  for (int e0 = 0; e0 < m; e0 += 32) {
+    const int e = e0 + lane;
+    const int2 mine = e < m ? __ldcg(in + e) : make_int2(-1, -1);
+    const unsigned long long key = e < m ? entry_key(mine) : ~0ull;
+    int rank = 0;
+    for (int d0 = 0; d0 < m; d0 += 32) {
+      const unsigned long long kd =
+          d0 == e0 ? key
+                   : (d0 + lane < m ? entry_key(__ldcg(in + d0 + lane))
+                                    : ~0ull);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        rank += __shfl_sync(0xffffffffu, kd, j) < key;
+    }
+    if (e < m) a.sorted[o + rank] = mine;
+  }
+  __syncwarp();
+}
+
+// One warp: row `row`'s column blocks and b rows from its sorted bucket,
+// 32 places at a time. A group (one column block) starts where the column
+// changes; its head lane sums the group's lanes in order, carrying a group
+// that runs on into the next 32 places. Each sum starts at 0 and adds in
+// the plain kernel's order, own blocks' A^T r only into b.
+__device__ void sum_row(const AsmArgs& a, int row, int o, int m) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, n3 = 3 * a.n, k4 = 4 * a.n_rows;
+  float c9[9], c3[3];
+  int carry_col = -1;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) c9[k] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) c3[k] = 0.f;
+  for (int k0 = 0; k0 < m; k0 += 32) {
+    const bool valid = k0 + lane < m;
+    const int2 e = valid ? __ldcg(a.sorted + o + k0 + lane)
+                         : make_int2(-1, -1);
+    const int col = e.x;
+    const bool own = valid && own_block(e.y, k4);
+    float v9[9], v3[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < 9; ++k) v9[k] = 0.f;
+    if (valid) {
+      const float *ga, *gb, *res;
+      contribution(a, e.y, &ga, &gb, &res);
+      ndtpu::pg::mtm3(ga, gb, v9);
+      if (own) ndtpu::pg::mtv3(ga, res, v3);
+    }
+    int prev = __shfl_up_sync(full, col, 1);
+    if (lane == 0) prev = carry_col;
+    const bool start = valid && col != prev;
+    const bool head = valid && (start || lane == 0);
+    const unsigned bounds = __ballot_sync(full, start || !valid);
+    const unsigned later = lane == 31 ? 0u : bounds & (~0u << (lane + 1));
+    const int len = later ? __ffs(later) - 1 - lane : 32 - lane;
+    float acc[9], acc3[3];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) acc[k] = (start ? 0.f : c9[k]) + v9[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      acc3[k] = start ? 0.f : c3[k];
+      if (own) acc3[k] = acc3[k] + v3[k];
+    }
+    const int longest = __reduce_max_sync(full, head ? len : 0);
+    for (int j = 1; j < longest; ++j) {
+      const bool take = head && j < len;
+      const bool take3 = __shfl_down_sync(full, (int)own, j) && take;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) {
+        const float x = __shfl_down_sync(full, v9[k], j);
+        if (take) acc[k] = acc[k] + x;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float x = __shfl_down_sync(full, v3[k], j);
+        if (take3) acc3[k] = acc3[k] + x;
+      }
+    }
+    // The group reaching place k0 + 31 runs on when place k0 + 32 has its
+    // column: carry it to the next round instead of writing it.
+    const int next_col = k0 + 32 < m ? __ldcg(a.sorted + o + k0 + 32).x : -1;
+    const bool cont = head && lane + len == 32 && next_col == col;
+    const unsigned cm = __ballot_sync(full, cont);
+    if (head && !cont) {
+      float* hb = a.h + (size_t)3 * row * n3 + 3 * (size_t)col;
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int q = 0; q < 3; ++q) hb[(size_t)p * n3 + q] = acc[3 * p + q];
+      if (col == row)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) a.b[3 * row + k] = acc3[k];
+    }
+    carry_col = -1;
+    if (cm) {
+      const int src = __ffs(cm) - 1;
+#pragma unroll
+      for (int k = 0; k < 9; ++k) c9[k] = __shfl_sync(full, acc[k], src);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) c3[k] = __shfl_sync(full, acc3[k], src);
+      carry_col = __shfl_sync(full, col, src);
+    }
+  }
+}
+
+// Zero a warp's 3 rows of h_ii ([9n] floats from `z`) in 16-byte stores
+// where aligned.
+__device__ void zero_rows(float* z, int len) {
+  const int lane = threadIdx.x & 31;
+  int head = (int)(((16 - ((uintptr_t)z & 15)) & 15) / 4);
+  head = min(head, len);
+  if (lane < head) z[lane] = 0.f;
+  float4* z4 = reinterpret_cast<float4*>(z + head);
+  const int n4 = (len - head) / 4;
+  for (int i = lane; i < n4; i += 32) z4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = head + 4 * n4 + lane; i < len; i += 32) z[i] = 0.f;
+}
+
+// One launch of 1 + ceil(n / kAsmRows) blocks. Each block takes a ticket
+// on entry: the first (ticket 0) is the build block; the others own
+// kAsmRows rows each, one warp per row. A worker zeroes its rows of h_ii
+// (16-byte stores) and counts itself done, then waits for the build
+// block's release (the build block is running: it took its ticket
+// first). In the small mode that is all: the build block, after every
+// worker has counted itself done, writes the column blocks and b. Past
+// it each worker's warps sort their buckets and write their column blocks
+// and b. The last block to finish resets the kept counters to 0 for the
+// next launch.
 __global__ void __launch_bounds__(kAsmThreads)
 local_assemble_kernel(AsmArgs a) {
   extern __shared__ int smem_a[];
-  const int K = a.n_rows, T = blockDim.x, tid = threadIdx.x;
-  const int row = blockIdx.x, n3 = 3 * a.n;
-  int* ccol = smem_a;                 // [4K + P]
-  int* ccode = ccol + 4 * K + a.n_pri;
-  int* scr = ccode + 4 * K + a.n_pri; // [36]
-  int* cnt = scr + 36;                // [1]
-
-  float* hrow = a.h + (size_t)3 * row * n3;
-  for (int i = tid; i < 3 * n3; i += T) hrow[i] = 0.f;
-
-  // Contributions to this block's rows, in slot order.
-  const int chunk = (K + T - 1) / T;
-  const int s0 = min(tid * chunk, K), s1 = min(s0 + chunk, K);
-  int mine = 0;
-  for (int s = s0; s < s1; ++s) {
-    if (!a.f_sel[s]) continue;
-    const bool ii = a.ri[s] == 0, jj = a.rj[s] == 0;
-    if (ii && a.li[s] == row) mine += 1 + jj;
-    if (jj && a.lj[s] == row) mine += 1 + ii;
-  }
-  int total;
-  int at = ndtpu::pg::block_exclusive_scan(mine, &total, scr);
-  for (int s = s0; s < s1; ++s) {
-    if (!a.f_sel[s]) continue;
-    const bool ii = a.ri[s] == 0, jj = a.rj[s] == 0;
-    if (ii && a.li[s] == row) {
-      ccol[at] = row;
-      ccode[at++] = 4 * s;
-      if (jj) {
-        ccol[at] = (int)a.lj[s];
-        ccode[at++] = 4 * s + 1;
+  __shared__ int ticket;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  if (tid == 0) ticket = atomicAdd(a.ctl, 1);
+  __syncthreads();
+  if (ticket == 0) {
+    build_and_sum(a, carve(smem_a, a.n));
+  } else {
+    const int row = (ticket - 1) * kAsmRows + warp;
+    if (row < a.n)
+      zero_rows(a.h + (size_t)9 * a.n * row, 9 * a.n);
+    __syncthreads();
+    if (tid == 0) {
+      __threadfence();                 // the zeros, then the count
+      atomicAdd(a.ctl + 3, 1);
+    }
+    const unsigned mode = wait_u32(a.ctl + 2, [](unsigned v) {
+      return v != 0u;
+    });
+    if (mode == 1 && row < a.n) {
+      const int o = __ldcg(a.off + row), m = __ldcg(a.off + row + 1) - o;
+      if (m == 0) {
+        if ((tid & 31) < 3) a.b[3 * row + (tid & 31)] = 0.f;
+      } else {
+        sort_row(a, o, m);
+        sum_row(a, row, o, m);
       }
     }
-    if (jj && a.lj[s] == row) {
-      ccol[at] = row;
-      ccode[at++] = 4 * s + 2;
-      if (ii) {
-        ccol[at] = (int)a.li[s];
-        ccode[at++] = 4 * s + 3;
-      }
-    }
-  }
-  if (tid == 0) {
-    int m = total;
-    for (int q = 0; q < a.n_pri; ++q) {
-      if (a.p_act[q] && a.p_role[q] == 0 && a.lp[q] == row) {
-        ccol[m] = row;
-        ccode[m++] = 4 * K + q;
-      }
-    }
-    cnt[0] = m;
   }
   __syncthreads();
-  const int m_all = cnt[0];
-
-  // b_i: the own-block contributions' A^T r, in order.
-  if (tid < 3) {
-    float acc = 0.f;
-    for (int m = 0; m < m_all; ++m) {
-      const int code = ccode[m];
-      if (code < 4 * K && (code & 1)) continue;      // cross blocks
-      const float *ga, *gb, *res;
-      contribution(a, code, &ga, &gb, &res);
-      float t3[3];
-      ndtpu::pg::mtv3(ga, res, t3);
-      acc = acc + t3[tid];
+  if (tid == 0) {
+    __threadfence();
+    if (atomicAdd(a.ctl + 1, 1) == (int)gridDim.x - 1) {
+      a.ctl[0] = 0;
+      a.ctl[1] = 0;
+      a.ctl[2] = 0;
+      a.ctl[3] = 0;
     }
-    a.b[3 * row + tid] = acc;
-  }
-  // h_ii: one thread per distinct target column block, summing in order.
-  for (int m = tid; m < m_all; m += T) {
-    const int col = ccol[m];
-    bool first = true;
-    for (int u = 0; u < m && first; ++u) first = ccol[u] != col;
-    if (!first) continue;
-    float acc[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int u = m; u < m_all; ++u) {
-      if (ccol[u] != col) continue;
-      const float *ga, *gb, *res;
-      contribution(a, ccode[u], &ga, &gb, &res);
-      float t9[9];
-      ndtpu::pg::mtm3(ga, gb, t9);
-#pragma unroll
-      for (int k = 0; k < 9; ++k) acc[k] = acc[k] + t9[k];
-    }
-#pragma unroll
-    for (int p = 0; p < 3; ++p)
-#pragma unroll
-      for (int q = 0; q < 3; ++q)
-        hrow[(size_t)p * n3 + 3 * col + q] = acc[3 * p + q];
   }
 }
 
@@ -433,24 +836,34 @@ extern "C" int local_select_launch(
   return (int)cudaGetLastError();
 }
 
+// scratch: assemble_scratch(n_rows, n_pri, n) int32 (list, sorted, off),
+// allocated per call; ctl: four int32 kept at 0 between launches on one
+// stream (every launch's last block resets them).
 extern "C" int local_assemble_launch(
     const void* ai, const void* aj, const void* r, int n_rows,
     const void* ap, const void* rp, int n_pri, const void* f_sel,
     const void* ri, const void* li, const void* rj, const void* lj,
     const void* p_act, const void* p_role, const void* lp, int n, void* h,
-    void* b, void* stream) {
-  if (n < 1 || n_rows < 0 || n_pri < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = assemble_smem(n_rows, n_pri);
+    void* b, void* scratch, void* ctl, void* stream) {
+  if (n < 1 || n_rows < 0 || n_pri < 0 || scratch == nullptr ||
+      ctl == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = assemble_smem(n);
   const int err = ndtpu::pg::smem_opt_in(local_assemble_kernel, smem,
                                          &g_assemble_opt_in);
   if (err != 0) return err;
-  const AsmArgs a{(const float*)ai, (const float*)aj, (const float*)r,
-                  n_rows, (const float*)ap, (const float*)rp, n_pri,
-                  (const uint8_t*)f_sel, (const long long*)ri,
-                  (const long long*)li, (const long long*)rj,
-                  (const long long*)lj, (const uint8_t*)p_act,
-                  (const long long*)p_role, (const long long*)lp, n,
-                  (float*)h, (float*)b};
-  local_assemble_kernel<<<n, kAsmThreads, smem, (cudaStream_t)stream>>>(a);
+  const size_t cap = 4 * (size_t)n_rows + n_pri;
+  int* sc = (int*)scratch;
+  AsmArgs a{(const float*)ai, (const float*)aj, (const float*)r,
+            n_rows, (const float*)ap, (const float*)rp, n_pri,
+            (const uint8_t*)f_sel, (const long long*)ri,
+            (const long long*)li, (const long long*)rj,
+            (const long long*)lj, (const uint8_t*)p_act,
+            (const long long*)p_role, (const long long*)lp, n,
+            (int2*)sc, (int2*)(sc + 2 * cap), sc + 4 * cap, (int*)ctl,
+            (float*)h, (float*)b};
+  const int blocks = 1 + (n + kAsmRows - 1) / kAsmRows;
+  local_assemble_kernel<<<blocks, kAsmThreads, smem,
+                          (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
                             [--out FILE.json]
     python3 profile_port.py --kernels [--seed 0] [--out FILE.json]
     python3 profile_port.py --hot [--seed 0] [--out FILE.json]
+    python3 profile_port.py --raycast-sweep [--out FILE.json]
     python3 profile_port.py --layouts [--seed 0] [--out FILE.json]
     python3 profile_port.py --serving [--sessions 8] [--max-scans 300]
                             [--runs 3] [--out FILE.json]
@@ -67,10 +68,15 @@ lacks reads null).
 
 ``--hot`` runs only :func:`hot_times` (event and card ms per call of
 ``lm_ndt`` at the window, verify and gated-verify shapes and at bench.py's
-headline shape, of K6, K6b, K5, K6g and K7a, and of the 10k smoother
-update, with hashes of their outputs and of configs 1-3's box-world
-trajectories and the served sessions, and bench.py §5's smoother cells,
-for comparing two commits).
+headline shape, of K6, K6b, K5, K6g, K7a, K7b and K11, and of the 10k
+smoother update, with hashes of their outputs and of configs 1-3's
+box-world trajectories and the served sessions, and bench.py §5's smoother
+cells, for comparing two commits).
+
+``--raycast-sweep`` runs only :func:`raycast_sweep` (K11's card ms per
+call at the CLI corridor's 600 poses x 360 beams, f64, for 1 to 144
+segments: the cost per segment and the fixed cost apart; a copy run from
+an older checkout times its K11 the same way).
 
 ``--layouts`` runs only :func:`layout_times` (event and card ms per call
 of K1, ``lm_ndt`` shared and grouped, the gated verify, K3, K4 and K8a in
@@ -248,7 +254,7 @@ def kernel_times(seed: int, dev) -> dict:
     for key, (fn, _) in calls.items():
         out[key]["ms"] = time_ms(fn)
     for key, (fn, names) in calls.items():
-        out[key]["card_ms"] = card_ms(fn, names)
+        out[key]["card_ms"] = card_ms(fn, names, per_call=per_call.get(key))
     for key, (fn, _) in calls.items():
         out[key]["ms_after_profiler"] = time_ms(fn)
     return out
@@ -363,10 +369,16 @@ def hot_times(seed: int, dev) -> dict:
     and its 0-iteration set-up; bench.py §5's active 10k
     ``incremental_update``; K7a on the config-3 graph and past one block's
     shared memory (``chip_smoke.check_k7a_past_block``'s 25,064-slot graph;
-    ``"raises"`` where an older K7a refuses it). Beside them each launch's
-    outputs' sha256 and, for configs 1, 2 and 3 on box-world draws 0-2,
-    the ATE and the trajectory's sha256 (``run_odometry_windowed``,
-    ``run_slam_windowed``), and the served sessions' poses' sha256; then
+    ``"raises"`` where an older K7a refuses it); K7b on that graph's local
+    selection (``chip_smoke.k7b_args``), on the last call of the config-3
+    run above (the pipeline's shape) and at 8,192 seeded gathered slots
+    (``chip_smoke.K7B_PAST``); K11 at ``chip_smoke.K11_CASES``' corridor
+    (f64, f32), serving (f64) and 4,004-segment (f64) inputs (each
+    ``"raises"`` where an older kernel refuses it). Beside them each
+    launch's outputs' sha256 and, for configs 1, 2 and 3 on box-world
+    draws 0-2, the ATE and the trajectory's sha256
+    (``run_odometry_windowed``, ``run_slam_windowed``), and the served
+    sessions' poses' sha256; then
     bench.py §5's three 10k smoother cells and config 4's ms per LM
     iteration by PCG (``chip_smoke.run_incremental_10k``,
     ``run_config4_pcg``); where the port chooses ``lm_ndt``'s threads per
@@ -381,15 +393,17 @@ def hot_times(seed: int, dev) -> dict:
     import torch
 
     from chip_smoke import (CONFIG1, CONFIG2, CONFIG3, CONFIG4, ICFG_10K,
-                            K6G_10K, SELECT_PAST_POSES, SERVING,
-                            _moved_graph8, box_sequence, box_store,
-                            config4_graph, headline_args, k5_calls,
-                            lm_verify_args, lm_window_args, local_graph,
-                            map_stats, run_config4_pcg, run_incremental_10k,
+                            K6G_10K, K7B_PAST, K11_CASES, SELECT_PAST_POSES,
+                            SERVING, _moved_graph8, box_sequence, box_store,
+                            config4_graph, headline_args, k5_calls, k7b_args,
+                            k7b_random_args, k11_inputs, lm_verify_args,
+                            lm_window_args, local_graph, map_stats,
+                            run_config4_pcg, run_incremental_10k,
                             smoother_state, time_ms)
     from ndtpu_torch import kernels, serve
     from ndtpu_torch.config import PipelineConfig, SolverConfig
-    from ndtpu_torch.dist import slam_dp
+    from ndtpu_torch.data import synth
+    from ndtpu_torch.dist import schur, slam_dp
     from ndtpu_torch.eval.ate import ate_rmse
     from ndtpu_torch.graph import factors as fct
     from ndtpu_torch.graph import incremental as inc
@@ -422,6 +436,7 @@ def hot_times(seed: int, dev) -> dict:
     cfg3 = PipelineConfig.from_json(str(CONFIG3))
     seq = box_sequence(seed, cfg2.n_beams)
     calls = {}    # key -> (fn, kernel names for the card time)
+    per_call = {}   # key -> launches per call, where the design's is known
     table = ndt_grid.finalize_pack(map_stats(seq, cfg2.grid, dev), cfg2.ndt,
                                    cfg2.grid)
     a2 = lm_window_args(cfg2, seq, table, seed, dev, cfg2.window)
@@ -442,8 +457,21 @@ def hot_times(seed: int, dev) -> dict:
     calls[f"lm_ndt headline B={ah[1].shape[0]} N={ah[1].shape[1]}"] = (
         lambda: match.lm_ndt(*ah[:6], mh), ["lm_ndt_kernel"])
     s3 = box_sequence(2, cfg3.n_beams)
-    state, _ = pipeline.run_slam_windowed(s3.points.to(dev), s3.mask.to(dev),
-                                          s3.odom.to(dev), cfg3)
+    # K7b's calls in this run: the last one is the pipeline-shaped case.
+    k7b_seen = []
+    assemble = schur.assemble_local
+
+    def assemble_kept(*a):
+        k7b_seen[:] = [tuple(x.clone() if isinstance(x, torch.Tensor) else x
+                             for x in a)]
+        return assemble(*a)
+
+    schur.assemble_local = assemble_kept
+    try:
+        state, _ = pipeline.run_slam_windowed(
+            s3.points.to(dev), s3.mask.to(dev), s3.odom.to(dev), cfg3)
+    finally:
+        schur.assemble_local = assemble
     sm = smoother_state(state, seed)
     g, scfg = sm.graph, cfg3.solver
     lin = fct.factor_linearize_ref(*fct._graph_args(g), scfg.huber_delta)
@@ -496,10 +524,34 @@ def hot_times(seed: int, dev) -> dict:
                          SELECT_PAST_POSES + 64)
     calls["K7a past one block"] = (lambda: inc.local_select(gp, icfg, sp),
                                    ["local_select"])
+    # K11 at the corridor (f64, f32) and serving shapes, and past the first
+    # design's 48 KB (4,004 segments); K7b on the config-3 graph's local
+    # selection (the smoke's), the pipeline's own last call and past the
+    # first design's shared memory (8,192 gathered slots).
+    for name, kind, dt in K11_CASES:
+        if name in ("serving_f32", "pillars_f32"):
+            continue
+        world, poses, ang = k11_inputs(kind, getattr(torch, dt), dev)
+        calls[f"K11 {name}"] = (
+            lambda w=world, p=poses, a=ang: synth.raycast(w, p, a, 20.0),
+            ["raycast"])
+        per_call[f"K11 {name}"] = 1
+    ka, _ = k7b_args(sm, cfg3)
+    calls["K7b config 3"] = (lambda: schur.assemble_local(*ka),
+                             ["local_assemble"])
+    if k7b_seen:
+        kp = k7b_seen[0]
+        calls["K7b pipeline"] = (lambda: schur.assemble_local(*kp),
+                                 ["local_assemble"])
+    kb = k7b_random_args(dev, **K7B_PAST)
+    calls["K7b K=8192"] = (lambda: schur.assemble_local(*kb),
+                           ["local_assemble"])
+    for key in ("K7b config 3", "K7b pipeline", "K7b K=8192"):
+        per_call[key] = 1
     for key, (fn, _) in list(calls.items()):
         try:
             res = fn()
-        except ValueError as exc:       # an older K7a past one block
+        except ValueError as exc:   # an older K7a, K7b or K11 past its limit
             out[key] = dict(sha256="raises", error=str(exc))
             del calls[key]
             continue
@@ -559,6 +611,29 @@ def hot_times(seed: int, dev) -> dict:
         finally:
             kernels.lm_spread = saved
         out["lm_ndt card ms at R"] = spreads
+    return out
+
+
+def raycast_sweep(dev) -> dict:
+    """K11's card ms per call (profiler, ``per_call=1``) at the CLI
+    corridor's 600 poses x 360 beams in f64 (``chip_smoke.k11_inputs``)
+    against the first 1, 4, 9, 17, 36, 72 and 144 segments of the
+    corridor's 36, repeated: the slope is the cost per segment, the
+    intercept the fixed cost (launch, sin/cos, staging, stores)."""
+    import torch
+
+    from chip_smoke import k11_inputs
+    from ndtpu_torch.data import synth
+
+    world, poses, ang = k11_inputs("corridor", torch.float64, dev)
+    seg = world.segments
+    out = {}
+    for s in (1, 4, 9, 17, 36, 72, 144):
+        reps = -(-s // seg.shape[0])
+        w = synth.World(torch.cat([seg] * reps)[:s].contiguous())
+        out[f"S={s}"] = card_ms(lambda w=w: synth.raycast(w, poses, ang,
+                                                          20.0),
+                                ["raycast"], per_call=1)
     return out
 
 
@@ -1345,6 +1420,9 @@ def main(argv=None) -> int:
     parser.add_argument("--scan", action="store_true",
                         help="profile the per-scan path and its inputs "
                         "(scan_profile) and nothing else")
+    parser.add_argument("--raycast-sweep", action="store_true",
+                        help="K11's card ms against the segment count "
+                        "(raycast_sweep) and nothing else")
     parser.add_argument("--hot", action="store_true",
                         help="time lm_ndt and K6 / K6b at the main path's "
                         "shapes and bench.py's headline shape, with output "
@@ -1376,6 +1454,11 @@ def main(argv=None) -> int:
         result = dict(card=smi, kernels=kernel_times(args.seed, dev))
         for key, row in result["kernels"].items():
             print(f"[profile] {key}: {row}")
+        return _emit(result, smi, args.out)
+    if args.raycast_sweep:
+        kernels.build()
+        result = dict(card=smi, raycast_sweep=raycast_sweep(dev))
+        print(f"[profile] raycast sweep: {result['raycast_sweep']}")
         return _emit(result, smi, args.out)
     if args.hot:
         kernels.build()

@@ -1,9 +1,10 @@
 """The port's inputs against the JAX package: K13's plain version
-(``voxel_downsample_ref``), K11's (``raycast_ref``) in f64 and f32, the
-CARMEN reader and writer (logs written by each package, read by both), the
-native parser against the Python one, and the native orderings. The CUDA
-wrappers take their plain versions on CPU tensors and the kernels refuse
-CPU tensors."""
+(``voxel_downsample_ref``), K11's (``raycast_ref``) in f64 and f32 (also
+past the segment count the first K11 refused), a numpy model of K11's
+rejection test against the plain version bit for bit, the CARMEN reader
+and writer (logs written by each package, read by both), the native parser
+against the Python one, and the native orderings. The CUDA wrappers take
+their plain versions on CPU tensors and the kernels refuse CPU tensors."""
 
 import math
 
@@ -104,6 +105,102 @@ def test_raycast_ref_matches_jax(dtype, world):
     assert got.dtype == np.dtype(dtype)
     np.testing.assert_array_equal(got < 20.0, ref < 20.0)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12 if x64 else 1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_raycast_ref_matches_jax_past_the_old_limit(dtype):
+    """At 4,004 segments (``chip_smoke.K11_MANY``'s pillars; the first K11
+    held at most 1,536 in f64): K11's plain version against
+    ``ndtpu.data.synth.raycast``, as above."""
+    m = chip_smoke.K11_MANY
+    seg = chip_smoke.pillar_segments(m["half"], m["pillars"], m["seed"])
+    traj = np.asarray(jsynth.rectangle_trajectory(6, 7.0, 4.0))
+    ang = np.linspace(-np.pi, np.pi, 180, endpoint=False)
+    assert seg.shape == (4004, 2, 2)
+    x64 = dtype == "float64"
+    jax.config.update("jax_enable_x64", x64)
+    try:
+        seg, traj, ang = (a.astype(dtype) for a in (seg, traj, ang))
+        ref = np.asarray(jax.jit(jsynth.raycast, static_argnums=3)(
+            jsynth.World(jnp.asarray(seg)), jnp.asarray(traj),
+            jnp.asarray(ang), 20.0))
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    got = tsynth.raycast_ref(tsynth.World(torch.as_tensor(seg)),
+                             torch.as_tensor(traj), torch.as_tensor(ang),
+                             20.0).numpy()
+    assert 0.5 < float((got < 20.0).mean()) < 1.0
+    np.testing.assert_array_equal(got < 20.0, ref < 20.0)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12 if x64 else 1e-4)
+
+
+def _raycast_model(seg, poses, ang, max_range, eps=1e-9):
+    """``csrc/raycast.cu``'s per-segment arithmetic in numpy, in the inputs'
+    dtype (the beams' cos/sin from torch, as the plain version's): the
+    rejection test before any division (segment 0 too, where the bound is
+    still +inf; t's sign from its bits), the miss update for a rejected
+    segment, the plain version's divisions and tests for the others.
+    Returns the ranges and the segments that took the divisions."""
+    dt = seg.dtype.type
+    th = torch.as_tensor(poses[:, 2:3]) + torch.as_tensor(ang)[None]
+    dx, dy = torch.cos(th).numpy(), torch.sin(th).numpy()
+    m = dt(2.0 ** -40 if dt == np.float64 else 2.0 ** -16)
+    tiny, inf, grow = dt(2.0 ** -60), dt(np.inf), dt(1) + m
+    eps, mr, zero, one, small = dt(eps), dt(max_range), dt(0), dt(1), dt(
+        1e-4)
+    lo = max(eps, tiny)
+    best = np.full(dx.shape, mr, dt)
+    bm = np.full(dx.shape, inf, dt)
+    px, py = poses[:, 0:1], poses[:, 1:2]
+    divided = 0
+    with np.errstate(all="ignore"):
+        for s in range(seg.shape[0]):
+            ax, ay = seg[s, 0, 0], seg[s, 0, 1]
+            abx, aby = seg[s, 1, 0] - ax, seg[s, 1, 1] - ay
+            aox, aoy = ax - px, ay - py
+            tn = aox * aby - aoy * abx
+            denom = dx * aby - dy * abx
+            ad = np.abs(denom)
+            un = aox * dy - aoy * dx
+            neg = np.signbit(denom)
+            tq, uq = np.where(neg, -tn, tn), np.where(neg, -un, un)
+            dm = ad * m
+            pos = (tq.view(np.int64) >> 32 if dt == np.float64
+                   else tq.view(np.int32)) > 0
+            passes = pos & (tq < ad * bm) & (uq >= -dm) & (uq <= ad + dm)
+            exact = np.where(ad >= lo, passes, ad >= eps)
+            divided += int(exact.sum())
+            ok = ad >= eps
+            den = np.where(ok, denom, one)
+            t, u = tn / den, un / den
+            v = np.where(ok & (t > small) & (u >= zero) & (u <= one), t, mr)
+            hit = exact & ((s == 0) | (v < best))
+            miss = ~exact & ((s == 0) | (mr < best))
+            best = np.where(hit, v, np.where(miss, mr, best))
+            bm = np.where(hit | miss, np.where(
+                (best >= tiny) & (best <= mr), best * grow, inf), bm)
+    return best, divided
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("kind", ["corridor", "serving", "pillars"])
+def test_raycast_rejection_model_is_bit_equal_to_plain(kind, dtype):
+    """K11's test before dividing rejects only segments that cannot change
+    the running minimum (see ``csrc/raycast.cu``): its numpy model gives the
+    plain version's ranges bit for bit on the smoke's inputs (the corridor,
+    serving's box world, 4,004 pillar segments; every 10th / 40th / 8th
+    pose), dividing on a few segments per beam."""
+    world, poses, ang = chip_smoke.k11_inputs(kind, getattr(torch, dtype),
+                                              "cpu")
+    poses = poses.reshape(-1, 3)[::{"corridor": 10, "serving": 40,
+                                    "pillars": 8}[kind]]
+    ref = tsynth.raycast_ref(world, poses, ang, 20.0).numpy()
+    got, divided = _raycast_model(world.segments.numpy(), poses.numpy(),
+                                  ang.numpy(), 20.0)
+    assert got.dtype == ref.dtype
+    assert np.array_equal(got.view(f"u{got.itemsize}"),
+                          ref.view(f"u{ref.itemsize}"))
+    assert divided / got.size < 3.0
 
 
 def test_wrappers_take_the_plain_versions_on_cpu_and_kernels_refuse_cpu():

@@ -14,7 +14,8 @@ ndt_sgh_unpacked (also at overlap 1) and
 K9c schur_local_assemble, also through a one-rank optimize_schur, and the
 slab map's K10a slab_accumulate, K10b finalize_cells and K10c slab_sgh,
 also through a one-rank match_slab (K10a and K10c also at overlap 1), and the inputs' K11 raycast and K13
-voxel_downsample, also through make_sequence and the CLI's scan mode)
+voxel_downsample, also through make_sequence and the CLI's scan mode; K7b
+and K11 also past the sizes their first designs refused)
 against their plain twins, on the card; K10a also against the plain model of its fixed-point arithmetic, bit
 for bit; K3 also against the plain model of its
 fixed-point arithmetic, bit for bit, K3, K4 and K8a for the same result on
@@ -681,6 +682,77 @@ def test_local_assemble_matches_plain_and_repeats(smoother):
     kernels.reset_launches()
     cs.check_k7b(*smoother, jobs=[])
     assert kernels.LAUNCHES["local_assemble"] >= 2
+
+
+@pytest.mark.parametrize("k,n", [(8192, 256), (12000, 64)])
+def test_local_assemble_past_the_old_slot_limit(dev, k, n):
+    """K7b at 8,192 and 12,000 gathered slots (the first design held at
+    most ~7,258 in shared memory) on seeded rows (``chip_smoke
+    .k7b_random_args``: buckets of ~70 / ~400 places, repeated pairs)
+    against its f32 plain version at rtol 1e-5, bit-identical on a second
+    launch, one launch per call (see chip_smoke.k7b_case)."""
+    import chip_smoke as cs
+
+    kernels.reset_launches()
+    row = cs.k7b_case(f"K={k}", cs.k7b_random_args(dev, k, n, 16))
+    assert np.isfinite(row["max_abs_err"])
+    assert kernels.LAUNCHES["local_assemble"] >= 2
+
+
+def _mtm3(a, b):
+    """``csrc/pose_graph.cuh``'s A^T B, each product and sum rounded in f32
+    in its order."""
+    f = np.float32
+    out = np.zeros(9, f)
+    for p in range(3):
+        for q in range(3):
+            out[3 * p + q] = (f(f(a[p] * b[q]) + f(a[3 + p] * b[3 + q]))
+                              + f(a[6 + p] * b[6 + q]))
+    return out
+
+
+def _mtv3(a, v):
+    f = np.float32
+    return np.array([f(f(a[q] * v[0]) + f(a[3 + q] * v[1])) + f(a[6 + q]
+                     * v[2]) for q in range(3)], f)
+
+
+def test_local_assemble_empty_rows_and_one_row(dev):
+    """K7b with no selected slot and no active prior: h_ii and b_i all
+    zeros. With one slot whose two sides are interior at the same local
+    row: its four blocks land in one column block, summed from 0 in code
+    order (i-side own, i-side cross, j-side own, j-side cross), and b from
+    the two own blocks' A^T r in that order, bit for bit (numpy in f32, one
+    rounding per operation); nothing else is written."""
+    import chip_smoke as cs
+    from ndtpu_torch.dist import schur
+
+    args = list(cs.k7b_random_args(dev, 64, 12, 2, seed=5))
+    args[6] = torch.zeros_like(args[6])
+    args[11] = torch.zeros_like(args[11])
+    h, b = schur.assemble_local(*args)
+    torch.cuda.synchronize()
+    assert not bool(h.any()) and not bool(b.any())
+    args[6][3] = True
+    for t in (7, 9):
+        args[t] = torch.zeros_like(args[t])       # both sides interior
+    for t in (8, 10):
+        args[t] = torch.full_like(args[t], 4)     # ... at local row 4
+    h, b = schur.assemble_local(*args)
+    torch.cuda.synchronize()
+    ai, aj = (args[k][3].reshape(9).cpu().numpy() for k in (1, 2))
+    r = args[3][3].cpu().numpy()
+    acc = np.zeros(9, np.float32)
+    for ga, gb in ((ai, ai), (ai, aj), (aj, aj), (aj, ai)):
+        acc = acc + _mtm3(ga, gb)
+    acc3 = (np.zeros(3, np.float32) + _mtv3(ai, r)) + _mtv3(aj, r)
+    want_h = torch.zeros_like(h)
+    want_h[12:15, 12:15] = torch.as_tensor(acc.reshape(3, 3))
+    want_b = torch.zeros_like(b)
+    want_b[12:15] = torch.as_tensor(acc3)
+    assert cs.bits_equal((h, b), (want_h, want_b))
+    hr, br = schur.assemble_local_ref(*args)
+    cs._rel_check("K7b one row", (h, b), (hr, br))
 
 
 def test_incremental_update_through_the_kernels(smoother):
@@ -1486,6 +1558,34 @@ def test_raycast_matches_plain(dev):
     row = cs.check_k11(dev)
     assert row["max_abs_err"] <= cs.K11_F64_TOL
     assert kernels.LAUNCHES["raycast"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_raycast_past_the_old_segment_limit(dev, dtype):
+    """K11 at 4,004 segments (``chip_smoke.K11_MANY``'s pillars; the first
+    design held at most 1,536 in f64 in 48 KB): f64 hits identical and
+    within K11_F64_TOL of the plain version, f32 within K11_F32_TOL but for
+    K11_F32_OUTLIERS of the beams; bit-identical on a second launch."""
+    import chip_smoke as cs
+    from ndtpu_torch.data import synth
+
+    dt = getattr(torch, dtype)
+    world, poses, ang = cs.k11_inputs("pillars", dt, dev)
+    assert world.segments.shape[0] > 4000
+    kernels.reset_launches()
+    out = synth.raycast(world, poses, ang, 20.0)
+    again = synth.raycast(world, poses, ang, 20.0)
+    ref = cs.raycast_cpu(world, poses, ang, 20.0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["raycast"] == 2
+    assert torch.equal(out, again)
+    d = (out.cpu() - ref).abs()
+    if dt == torch.float64:
+        assert torch.equal(out.cpu() < 20.0, ref < 20.0)
+        assert float(d.max()) <= cs.K11_F64_TOL
+    else:
+        assert int((d > cs.K11_F32_TOL).sum()) <= (cs.K11_F32_OUTLIERS
+                                                   * d.numel())
 
 
 def test_voxel_downsample_matches_plain(dev):

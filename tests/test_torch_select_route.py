@@ -16,10 +16,16 @@ limits of other kernels' host-side checks, on the CPU.
 - K4's and K8a's host-side band checks (``kernels.finalize_bands``,
   ``kernels.local_bands``) refuse exactly past the lattice widths the
   README names.
+- K7b's per-call scratch: ``kernels.assemble_scratch`` against
+  ``csrc/local_system.cu``'s ``assemble_scratch``, read from the source;
+  and its plain version ``assemble_local_ref`` against the JAX package's
+  ``assemble_local_parts`` at 8,192 gathered slots, past the ~7,258 the
+  first K7b held in shared memory.
 """
 
 import functools
 import re
+import sys
 from pathlib import Path
 
 import jax
@@ -29,10 +35,12 @@ import pytest
 import torch
 
 from ndtpu.config import SolverConfig as JSolverConfig
+from ndtpu.dist import schur as jschur
 from ndtpu.graph import factors as jfct
 from ndtpu.graph import incremental as jinc
 from ndtpu_torch import convert, kernels
 from ndtpu_torch.config import GridConfig, SolverConfig
+from ndtpu_torch.dist import schur as tschur
 from ndtpu_torch.graph import incremental as tinc
 
 
@@ -170,3 +178,58 @@ def test_local_bands_refuse_past_48_kb(overlap, nx, lattice):
     assert rows >= 1 and smem <= kernels.SMEM_BLOCK
     with pytest.raises(ValueError, match="shared memory"):
         kernels.local_bands(8, grid(nx), None)
+
+
+def _c_assemble_scratch():
+    """``assemble_scratch(k, p, n)`` of ``csrc/local_system.cu``, as
+    Python."""
+    src = (Path(kernels.__file__).parent / "csrc"
+           / "local_system.cu").read_text()
+    expr = re.search(r"inline size_t assemble_scratch\(int k, int p, int n\)"
+                     r" \{\s*return (.*?);", src, re.S).group(1)
+    expr = " ".join(expr.split()).replace("(size_t)", "")
+    return lambda k, p, n: eval(expr, {}, dict(k=k, p=p, n=n))
+
+
+@pytest.mark.parametrize("k,p,n", [(0, 0, 1), (32, 4, 12), (1024, 1, 256),
+                                   (8192, 16, 256), (40000, 64, 4096)])
+def test_assemble_scratch_matches_the_kernels_layout(k, p, n):
+    """Two int32 words (column block, code) per contribution in the
+    bucketed and in the sorted list, at most 4 k + p contributions (each
+    slot's own and cross blocks on both sides, one per prior), and the n +
+    1 bucket offsets."""
+    assert kernels.assemble_scratch(k, p, n) == _c_assemble_scratch()(k, p,
+                                                                      n)
+    assert kernels.assemble_scratch(k, p, n) == 4 * (4 * k + p) + n + 1
+
+
+def _chip_smoke():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+@functools.partial(jax.jit, static_argnums=(0, 1))
+def _jax_parts(ni, ns, *parts):
+    return jschur.assemble_local_parts(ni, ns, *parts, jnp.float64)
+
+
+def test_assemble_local_ref_matches_jax_past_the_old_limit():
+    """K7b's plain version against ``assemble_local_parts``' h_ii and b_i in
+    f64 on ``chip_smoke.k7b_random_args`` at 8,192 gathered slots, 256
+    local poses and 16 priors (separator endpoints at separator slots
+    < 256): the same sums in another order, to 1e-12 of their max."""
+    cs = _chip_smoke()
+    args = cs.k7b_random_args("cpu", **cs.K7B_PAST)
+    n = args[0]
+    parts = [a.double() if a.is_floating_point() else a for a in args[1:]]
+    h_ii, b_i = tschur.assemble_local_ref(n, *parts)
+    jp = _jax_parts(n, n, *(jnp.asarray(a.numpy()) for a in parts))
+    assert parts[0].shape[0] == 8192 > 7258
+    for got, ref in ((h_ii, jp[0]), (b_i, jp[3])):
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape and got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-12 * np.abs(ref).max())
+    assert int((h_ii != 0).any(1).sum()) == 3 * n
+
