@@ -67,7 +67,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    call, and the dense library solve timed beside it; then on the graph
    scattered through its slots in six orders, and on a 1,200-pose graph
    whose loop runs through the device scratch), K7a ``local_select`` bit for
-   bit, each bit-identical on a second launch, and K6g ``pcg_solve_grid``
+   bit (also on bench.py §5b's 10,064-slot local graph), each
+   bit-identical on a second launch, and K6g ``pcg_solve_grid``
    on the same graph beside K6 (the same gates); and ``incremental_update``
    through the kernels (no plain version reached) against the plain route
    in f32 and f64 for the local and global takes, the settled check and
@@ -152,12 +153,15 @@ Phases (any failure exits non-zero, and no result line is printed):
     K7b), each with its take code, its kernels and one call's poses
     against the f64 plain route; ``marginal_covariance_pcg`` at 10k against
     its f64 plain version;
-8d. K7a past one block's shared memory (:func:`check_k7a_past_block`): on
-    25,000 poses of config 4's Manhattan graph with four new poses chained
-    (25,064 pose slots), its scratch route bit-equal to the plain
-    selection and on a second launch, timed; then the path, one
-    ``incremental_update`` through the kernels, counters reset just before
-    and read just after (the local take through ``local_select[scratch]``
+8d. K7a past the first design's shared memory
+    (:func:`check_k7a_past_block`): 25,000 poses of config 4's Manhattan
+    graph with four new poses chained, in 25,064 pose slots (the shared
+    route, staged) and in 70,064 (the scratch route), and the 10k graph in
+    60,000 factor slots (the shared route, the endpoints read from the
+    graph), each bit-equal to the plain selection and on a second launch,
+    timed; then the path on the first two, one ``incremental_update``
+    through the kernels, counters reset just before and read just after
+    (the local take through ``local_select`` or ``local_select[scratch]``
     and K7b), against the f32 and f64 plain routes; and K6g on the
     25,000-pose graph against the f32 and f64 plain solves;
 9. sessions of different lengths (:func:`check_padded_sessions`): the
@@ -286,8 +290,8 @@ Phases (any failure exits non-zero, and no result line is printed):
     verify in phase 12, ``ndt_sgh_unpacked[g1]`` and K3[g1] in 12b;
     K9c and K5 in phase 13's ranks; K10a, K10b and K10c in phase 15's ranks,
     ``slab_accumulate[g1]``, K10b and ``slab_sgh[g1]`` in 15b's;
-    K6g in phases 8b, 8c and 12; ``local_select[scratch]`` (K7a past one
-    block) in phase 8d's update; K11 in phases 4, 6, 7d, 10 and 16, K7a
+    K6g in phases 8b, 8c and 12; ``local_select[scratch]`` (K7a past the
+    shared route) in phase 8d's update; K11 in phases 4, 6, 7d, 10 and 16, K7a
     and K7b also in 7d, K13 in phase 16), exactly one ``lm_ndt*`` launch
     per ``match_batch_packed`` call (phases 4, 6 and 16), and in phase 6 one gated verify per
     loop-detection call and no standalone K8b launch; K5, K7a and K7b launched
@@ -475,8 +479,8 @@ KERNELS = [
     dict(name="local_select", source=_CSRC + "local_system.cu",
          replaces="ndtpu/graph/incremental.py:120",
          paths=("config2", "config3", "multilap")),
-    # K7a past one block's shared memory: a local-path update on a graph of
-    # 25,064 pose slots (phase 8d).
+    # K7a's scratch route: a local-path update on a graph of 70,064 pose
+    # slots, past the shared route (phase 8d).
     dict(name="local_select[scratch]", source=_CSRC + "local_system.cu",
          replaces="ndtpu/graph/incremental.py:173",
          paths=("select_past_block",)),
@@ -2841,49 +2845,89 @@ SELECT_KEYS = ("ok", "pid", "in_set", "fid", "f_sel", "ri", "rj", "li", "lj",
                "rp", "lp", "p_act")
 
 
-def check_k7a(sm, cfg3, jobs=None):
-    """K7a bit-equal to ``local_select_ref`` (on the card) with ``since`` =
-    the newest factor, none, and 40 factors back, and on a second launch;
-    timed with the newest factor fresh."""
+def k7a_bound(g, cfg, sel) -> dict:
+    """K7a's bound on graph ``g``: indices and masks read (17 B per factor,
+    1 per pose, 9 per prior), the flags and int64 outputs written; ~8
+    integer operations per factor per pass (the sweeps and two more) and
+    per pose, at the f32 rate."""
+    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
+    p_loc, f_loc = sel["p_loc"], sel["fid"].shape[0]
+    return bound(f * 17 + v + p * 9 + 16 + (1 + p_loc + f_loc + p)
+                 + 8 * (p_loc + 5 * f_loc + 2 * p),
+                 8.0 * f * (cfg.local_hops + 2) + 8.0 * v)
+
+
+def k7a_case(label, g, cfg, since, jobs=None):
+    """K7a on graph ``g`` bit-equal to ``local_select_ref`` (on the card)
+    with ``since`` = the given factor index, none, and 40 factors back, and
+    on a second launch, each a launch of the route ``kernels.select_route``
+    names and no other; timed at ``since`` (event ms, the plain version's,
+    the bound; card ms queued in ``jobs``). Returns the row."""
     import torch
 
+    from ndtpu_torch import kernels
     from ndtpu_torch.graph import incremental as inc
 
-    g, cfg = sm.graph, cfg3.solver
+    v, f = g.poses.shape[0], g.bet_i.shape[0]
+    route = kernels.select_route(v, f)
+    counter = "local_select" if route == "shared" else "local_select[scratch]"
+    other = ({"local_select", "local_select[scratch]"} - {counter}).pop()
     oks = []
-    for since in (g.n_between - 1, None, g.n_between - 40):
-        one, two = (inc.local_select(g, cfg, since) for _ in range(2))
-        ref = inc.local_select_ref(g, cfg, since)
+    for sn in (since, None, since - 40):
+        before = dict(kernels.LAUNCHES)
+        one, two = (inc.local_select(g, cfg, sn) for _ in range(2))
+        ref = inc.local_select_ref(g, cfg, sn)
         torch.cuda.synchronize()
+        require(kernels.LAUNCHES[counter] == before[counter] + 2
+                and kernels.LAUNCHES[other] == before[other],
+                f"K7a {label}: not two {counter} launches")
         for key in SELECT_KEYS:
             require(bits_equal(one[key], ref[key].to(one[key].dtype)),
-                    f"K7a: {key} differs from the plain selection")
+                    f"K7a {label}: {key} differs from the plain selection")
             require(bits_equal(one[key], two[key]),
-                    f"K7a: {key} differs on a second launch")
+                    f"K7a {label}: {key} differs on a second launch")
         oks.append(bool(one["ok"]))
-    since = g.n_between - 1
     run = lambda: inc.local_select(g, cfg, since)
     ms = time_ms(run)
     plain = time_ms(lambda: inc.local_select_ref(g, cfg, since))
-    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
     sel = run()
-    p_loc, f_loc = sel["p_loc"], sel["fid"].shape[0]
-    # Indices and masks read (17 B per factor, 1 per pose, 9 per prior),
-    # the flags and int64 outputs written; ~8 integer operations per factor
-    # per pass (the sweeps and two more) and per pose, at the f32 rate.
-    bd = bound(f * 17 + v + p * 9 + 16 + (1 + p_loc + f_loc + p)
-               + 8 * (p_loc + 5 * f_loc + 2 * p),
-               8.0 * f * (cfg.local_hops + 2) + 8.0 * v)
-    print(f"[smoke] K7a local_select V={v} F={f}: bit-equal to the plain "
-          f"selection and on a second launch (since = the newest factor, "
-          f"none, 40 back: ok {oks}); {int(sel['in_set'].sum())} active "
-          f"poses and {int(sel['f_sel'].sum())} touched factors selected; "
-          f"kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
-          f"({bd['bound_by']})")
-    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, **bd)
-    card_time(jobs, "K7a local_select", row, "card_ms", run,
+    bd = k7a_bound(g, cfg, sel)
+    smem = kernels.select_smem(v, f)
+    layout = ("a device scratch" if route == "scratch"
+              else f"staged in {smem} B of shared memory"
+              if smem <= kernels.SMEM_MAX
+              else f"{kernels.select_smem(v, f, 0)} B of shared memory, "
+                   f"the endpoints read from the graph")
+    print(f"[smoke] K7a local_select {label} (V={v}, F={f}; {layout}): "
+          f"bit-equal to the plain selection and on a second launch "
+          f"(since = {int(since)}, none, 40 back: ok {oks}); "
+          f"{int(sel['in_set'].sum())} active poses and "
+          f"{int(sel['f_sel'].sum())} touched factors selected; kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {bd['bound_ms']:.6f} "
+          f"ms ({bd['bound_by']})")
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, **bd, pose_slots=v,
+               factor_slots=f, select_smem=smem)
+    card_time(jobs, f"K7a {counter} {label}", row, "card_ms", run,
               ["local_select"], per_call=1)
+    return row
+
+
+def check_k7a(sm, cfg3, jobs=None):
+    """K7a (:func:`k7a_case`) on the config-3 graph of ``sm`` (1,024 pose
+    slots) and on bench.py §5b's local graph (:func:`local_graph` of config
+    4's 10k Manhattan graph: 10,064 pose slots), each timed with the newest
+    factor fresh (config 3) or the four new ones (§5b). Returns the
+    config-3 row, with §5b's under ``local_10k``."""
+    import torch
+
+    from ndtpu_torch.config import SolverConfig
+
+    g = sm.graph
+    row = k7a_case("config 3", g, cfg3.solver, g.n_between - 1, jobs)
+    g10, s10 = local_graph(config4_graph(g.poses.device, torch.float32, 0,
+                                         CONFIG4["n_poses"]))
+    row["local_10k"] = k7a_case("bench §5b local graph", g10,
+                                SolverConfig(**ICFG_10K), s10, jobs)
     return row
 
 
@@ -3702,12 +3746,13 @@ def _fenced_median_ms(fn, reps: int, fence):
     return statistics.median(ts), ts
 
 
-def local_graph(sg, slots: int = INC_10K["slots"]):
+def local_graph(sg, slots: int = INC_10K["slots"],
+                extra_factors: int = INC_10K["extra_factors"]):
     """bench.py §5b's graph: the graph ``sg`` (the settled 10k graph there)
-    in a graph of ``slots`` pose slots (10,064 there) and F + 64 factor
-    slots, then four new poses chained to the last by 1 m odometry
-    (sqrt-info 10 I). Returns ``(graph, since)``, ``since`` the factor
-    count before the new factors."""
+    in a graph of ``slots`` pose slots (10,064 there) and F +
+    ``extra_factors`` factor slots (64 there), then four new poses chained
+    to the last by 1 m odometry (sqrt-info 10 I). Returns ``(graph,
+    since)``, ``since`` the factor count before the new factors."""
     import torch
 
     from ndtpu_torch.graph import factors as fct
@@ -3715,7 +3760,7 @@ def local_graph(sg, slots: int = INC_10K["slots"]):
 
     dev, dt = sg.poses.device, sg.poses.dtype
     f0 = sg.bet_mask.shape[0]
-    big = fct.empty_graph(slots, 4, f0 + INC_10K["extra_factors"], dt, dev)
+    big = fct.empty_graph(slots, 4, f0 + extra_factors, dt, dev)
 
     def put(dst, src):
         out = dst.clone()
@@ -3900,26 +3945,37 @@ def run_incremental_10k(c4, card, seed: int):
     return la, rec
 
 
-#: Config 4's Manhattan graph at this many poses (phase 8b's ``auto`` run)
-#: is past K7a's shared memory: its local graph (:func:`local_graph`,
-#: 25,064 pose and 26,005 factor slots, F ~ V) needs ~253 KB of the 227 KB
-#: one block can have (``kernels.select_smem``).
+#: Config 4's Manhattan graph at this many poses (phase 8b's ``auto``
+#: run). Its local graph (:func:`local_graph`, 25,064 pose and 26,005
+#: factor slots) was past the first K7a's shared memory (~253 KB of the
+#: 227 KB one block can have); staged, it takes ~180 KB.
 SELECT_PAST_POSES = 25000
+#: Pose slots past K7a's shared route (65,535, ``kernels.select_route``):
+#: the same 25,000 poses in a graph of 70,064 slots take the scratch route.
+SELECT_SCRATCH_SLOTS = 70064
+#: Factor slots beside 10,064 pose slots past K7a's staged layout
+#: (``kernels.select_smem`` over the limit): the shared route reads the
+#: endpoints from the graph.
+SELECT_WIDE_FACTORS = 60000
 
 
 def check_k7a_past_block(dev, seed: int, jobs=None):
-    """K7a past one block's shared memory (its scratch route): on
-    :data:`SELECT_PAST_POSES` poses of config 4's Manhattan graph with
-    four new poses chained to it (:func:`local_graph`, ``kernels.
-    select_route`` must say scratch), bit-equal to ``local_select_ref``
-    (on the card) with ``since`` = the new factors', none, and 40 factors
-    back, and on a second launch, each a ``local_select[scratch]`` launch
-    and no shared-route one; timed as the local path calls it. Then the
-    path: one ``incremental_update`` through the kernels (bench.py §5's
+    """K7a past the first design's shared memory, on
+    :data:`SELECT_PAST_POSES` poses of config 4's Manhattan graph with four
+    new poses chained to it (:func:`local_graph`), each case bit-equal to
+    ``local_select_ref`` (on the card) with ``since`` = the new factors',
+    none, and 40 factors back, and on a second launch (:func:`k7a_case`),
+    and timed as the local path calls it: in 25,064 pose slots (the shared
+    route, staged), in :data:`SELECT_SCRATCH_SLOTS` (the scratch route,
+    ``local_select[scratch]``), and config 4's 10k graph in 10,064 pose
+    slots and :data:`SELECT_WIDE_FACTORS` factor slots (the shared route
+    with the endpoints read from the graph). Then the path on the first
+    two: one ``incremental_update`` through the kernels (bench.py §5's
     solver, no plain version reached; launches counted from 0) against the
     f32 and f64 plain routes (:func:`update_vs_plain`: take 2, the local
-    take, through K7a's scratch route and K7b). Returns ``(the update's
-    launches, row)``."""
+    take, through K7a's route and K7b). Returns ``(the scratch update's
+    launches, the scratch row, the shared row)``, the shared row holding
+    the wide one under ``endpoints_in_graph``."""
     import torch
 
     from ndtpu_torch import kernels
@@ -3927,67 +3983,53 @@ def check_k7a_past_block(dev, seed: int, jobs=None):
     from ndtpu_torch.graph import incremental as inc
 
     icfg = SolverConfig(**ICFG_10K)
-    g, since = local_graph(config4_graph(dev, torch.float32, seed,
-                                         SELECT_PAST_POSES),
-                           SELECT_PAST_POSES + 64)
-    v, f, p = g.poses.shape[0], g.bet_i.shape[0], g.prior_idx.shape[0]
-    require(kernels.select_route(v, f) == "scratch",
-            f"K7a scratch: the route keeps {v} poses, {f} factors in shared "
-            f"memory ({kernels.select_smem(v, f)} B)")
-    oks = []
-    for sn in (since, None, since - 40):
-        before = dict(kernels.LAUNCHES)
-        one, two = (inc.local_select(g, icfg, sn) for _ in range(2))
-        ref = inc.local_select_ref(g, icfg, sn)
-        torch.cuda.synchronize()
-        require(kernels.LAUNCHES["local_select[scratch]"]
-                == before["local_select[scratch]"] + 2
-                and kernels.LAUNCHES["local_select"]
-                == before["local_select"],
-                "K7a scratch: not two scratch-route launches")
-        for key in SELECT_KEYS:
-            require(bits_equal(one[key], ref[key].to(one[key].dtype)),
-                    f"K7a scratch: {key} differs from the plain selection")
-            require(bits_equal(one[key], two[key]),
-                    f"K7a scratch: {key} differs on a second launch")
-        oks.append(bool(one["ok"]))
-    run = lambda: inc.local_select(g, icfg, since)
-    ms = time_ms(run)
-    plain = time_ms(lambda: inc.local_select_ref(g, icfg, since))
-    sel = run()
-    p_loc, f_loc = sel["p_loc"], sel["fid"].shape[0]
-    # As check_k7a's bound.
-    bd = bound(f * 17 + v + p * 9 + 16 + (1 + p_loc + f_loc + p)
-               + 8 * (p_loc + 5 * f_loc + 2 * p),
-               8.0 * f * (icfg.local_hops + 2) + 8.0 * v)
-    lam = torch.tensor(INC_10K["lam"], dtype=torch.float32, device=dev)
-    st = inc.SmootherState(g, lam, torch.tensor(float("inf"), device=dev),
-                           torch.zeros((), dtype=torch.long, device=dev))
-    take, launches, ek, ep = update_vs_plain(
-        f"incremental local {v} poses", st, icfg, since)
-    require(take == 2 and launches["local_select[scratch]"] > 0
-            and launches["local_select"] == 0
-            and launches["local_assemble"] > 0,
-            f"incremental local {v} poses: take {take}, launches "
-            f"{launches_nonzero(launches)} (take 2 through K7a's scratch "
-            f"route and K7b expected)")
-    print(f"[smoke] K7a local_select past one block (V={v}, F={f}: "
-          f"{kernels.select_smem(v, f)} B of shared memory, over "
-          f"{kernels.SMEM_MAX}): bit-equal to the plain selection and on a "
-          f"second launch (since = the new factors', none, 40 back: ok "
-          f"{oks}); {int(sel['in_set'].sum())} active poses, "
-          f"{int(sel['f_sel'].sum())} touched factors; kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, bound {bd['bound_ms']:.6f} ms "
-          f"({bd['bound_by']}); incremental_update take {take}, poses "
-          f"{ek:.3e} off f64 (f32 plain {ep:.3e}); launches "
-          f"{launches_nonzero(launches)}")
-    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, **bd, pose_slots=v,
-               factor_slots=f, select_smem=kernels.select_smem(v, f),
-               update=dict(take=take, err_vs_f64=ek,
-                           plain_f32_err_vs_f64=ep))
-    card_time(jobs, "K7a local_select[scratch]", row, "card_ms", run,
-              ["local_select"], per_call=1)
-    return launches, row
+    sg = config4_graph(dev, torch.float32, seed, SELECT_PAST_POSES)
+    cases = {"staged": (SELECT_PAST_POSES + 64, INC_10K["extra_factors"]),
+             "scratch": (SELECT_SCRATCH_SLOTS, INC_10K["extra_factors"])}
+    rows, launches = {}, {}
+    for name, (slots, extra) in cases.items():
+        g, since = local_graph(sg, slots, extra)
+        v, f = g.poses.shape[0], g.bet_i.shape[0]
+        want = "scratch" if name == "scratch" else "shared"
+        require(kernels.select_route(v, f) == want
+                and (name != "staged"
+                     or kernels.select_smem(v, f) <= kernels.SMEM_MAX),
+                f"K7a {name}: {v} poses, {f} factors route "
+                f"{kernels.select_route(v, f)} ({kernels.select_smem(v, f)} "
+                f"B staged)")
+        row = k7a_case(f"{name} past the first design's block", g, icfg,
+                       since, jobs)
+        lam = torch.tensor(INC_10K["lam"], dtype=torch.float32, device=dev)
+        st = inc.SmootherState(g, lam,
+                               torch.tensor(float("inf"), device=dev),
+                               torch.zeros((), dtype=torch.long, device=dev))
+        take, la, ek, ep = update_vs_plain(
+            f"incremental local {v} poses", st, icfg, since)
+        counter = ("local_select[scratch]" if name == "scratch"
+                   else "local_select")
+        other = ({"local_select", "local_select[scratch]"} - {counter}).pop()
+        require(take == 2 and la[counter] > 0 and la[other] == 0
+                and la["local_assemble"] > 0,
+                f"incremental local {v} poses: take {take}, launches "
+                f"{launches_nonzero(la)} (take 2 through {counter} and K7b "
+                f"expected)")
+        print(f"[smoke] incremental_update on {v} pose slots: take {take}, "
+              f"poses {ek:.3e} off f64 (f32 plain {ep:.3e}); launches "
+              f"{launches_nonzero(la)}")
+        row["update"] = dict(take=take, err_vs_f64=ek,
+                             plain_f32_err_vs_f64=ep)
+        rows[name], launches[name] = row, la
+    g10 = config4_graph(dev, torch.float32, seed, CONFIG4["n_poses"])
+    g, since = local_graph(g10, INC_10K["slots"],
+                           SELECT_WIDE_FACTORS - g10.bet_i.shape[0])
+    v, f = g.poses.shape[0], g.bet_i.shape[0]
+    require(kernels.select_route(v, f) == "shared"
+            and kernels.select_smem(v, f) > kernels.SMEM_MAX,
+            f"K7a endpoints in the graph: {v} poses, {f} factors are "
+            f"staged or off the shared route")
+    rows["staged"]["endpoints_in_graph"] = k7a_case(
+        "endpoints in the graph", g, icfg, since, jobs)
+    return launches["scratch"], rows["scratch"], rows["staged"]
 
 
 def check_k6g_past(dev, seed: int, n_poses: int = SELECT_PAST_POSES):
@@ -7510,9 +7552,10 @@ def main(argv=None) -> int:
     launches4, config4 = run_config4(dev, card)
     launches4p, config4["pcg"] = run_config4_pcg(dev, card)
     launches10k, incremental10k = run_incremental_10k(c4, card, args.seed)
-    # K7a past one block's shared memory, and a local-path update at that
-    # size (phase 8d); K6g at that size.
-    launches_sel, results["local_select[scratch]"] = check_k7a_past_block(
+    # K7a past the first design's shared memory and past the shared route,
+    # each with a local-path update (phase 8d); K6g at 25,000 poses.
+    (launches_sel, results["local_select[scratch]"],
+     results["local_select"]["past_first_block"]) = check_k7a_past_block(
         dev, args.seed, jobs)
     results["pcg_solve_grid"]["past_25k"] = check_k6g_past(dev, args.seed)
     # Stacked serving through its entry point (phase 10), in the other

@@ -45,9 +45,9 @@ pcg_solve_   ``csrc/pcg_solve.cu`` (K6b)     ``solve.pcg_rhs_blocked``: S
 blocked                                      sessions' PCGs, one block each
 local_select ``csrc/local_system.cu`` (K7a)  ``incremental._active_probe`` +
                                              ``_local_select``: one block,
-                                             its working arrays in shared
-                                             memory or, past it, in a
-                                             device scratch (counted as
+                                             the graph staged once in
+                                             shared memory or, past it, in
+                                             a device scratch (counted as
                                              ``local_select[scratch]``)
 local_       ``csrc/local_system.cu`` (K7b)  ``schur.assemble_local_parts``
 assemble                                     (``h_ii``, ``b_i`` only)
@@ -165,7 +165,7 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "local_assemble",
            "supernodal_assemble", "schur_reduce", "schur_local_assemble",
            "ndt_sgh_unpacked", "slab_accumulate", "finalize_cells",
-           "slab_sgh", "raycast", "voxel_downsample"]
+           "slab_spread", "slab_sgh", "raycast", "voxel_downsample"]
 
 #: The quad-table layouts ``(G, L)``: G overlap grids per row (4, or 1 at
 #: ``overlap = 1``) of L lanes each (8 full, or 4 compact bf16-pair lanes at
@@ -266,7 +266,7 @@ _SIGNATURES = {
     "slab_accum_launch": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_I, _P],
     "finalize_cells_launch": [_P] * 6 + [ctypes.c_longlong] + [_F] * 3
                              + [_P],
-    "slab_sgh_launch": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_I, _P],
+    "slab_sgh_launch": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
     "raycast_launch": [_P] * 4 + [_I] * 3 + [_D, _D, _I, _P],
     "voxel_downsample_launch": [_P] * 3 + [_I, _I, _F, _I, _P],
 }
@@ -496,13 +496,20 @@ def _gate_arrive(dev: torch.device, k: int) -> torch.Tensor:
 LM_MAX_SPREAD = 8
 
 
+def wide_terms_bytes(grids: int, spread: int) -> int:
+    """Shared memory of the stored terms of a block of ``128 R`` threads
+    (``R = spread``) at ``G = grids``: for each of the ``128 (R - 1)``
+    beams a chunk stores, its ``11 x G`` terms (in 52 floats at G = 4, 12
+    at G = 1) and a flag byte (``wide_terms_bytes`` of
+    ``csrc/ndt_sums.cuh``; ``lm_ndt`` and K10c ``slab_sgh``)."""
+    return (spread - 1) * 128 * ((208 if grids == 4 else 48) + 1)
+
+
 def lm_smem(n: int, grids: int, spread: int) -> int:
     """``lm_ndt``'s dynamic shared memory for ``n`` beams at ``G = grids``
-    and ``R = spread``: 12 B per beam (its x, y and mask) and, for each of
-    the ``128 (R - 1)`` beams a chunk stores, its ``11 x G`` terms (in 52
-    floats at G = 4, 12 at G = 1) and a flag byte (``wide_terms_bytes`` of
-    ``csrc/ndt_sums.cuh``)."""
-    return 12 * n + (spread - 1) * 128 * ((208 if grids == 4 else 48) + 1)
+    and ``R = spread``: 12 B per beam (its x, y and mask) and the stored
+    terms (:func:`wide_terms_bytes`)."""
+    return 12 * n + wide_terms_bytes(grids, spread)
 
 
 def lm_spread(b: int, n: int, grids: int, sms: int) -> int:
@@ -1157,21 +1164,35 @@ def pcg_solve_blocked(bet_i, bet_j, bet_mask, prior_idx, prior_mask,
     return x
 
 
-def select_smem(v: int, f: int) -> int:
+#: K7a's shared route: up to this many pose slots (16-bit endpoints and
+#: local slots) and :data:`SELECT_MAX_CHUNK` factors per thread of its
+#: 1,024-thread block (each thread's flags in four 32-bit registers).
+SELECT_MAX_POSES = 65535
+SELECT_MAX_CHUNK = 128
+
+
+def select_smem(v: int, f: int, staged: int = 1) -> int:
     """K7a's shared memory on its shared route for ``v`` pose and ``f``
     factor slots, in bytes: ``select_smem`` of ``csrc/local_system.cu``
-    (the active set and the local index map, 4 B per pose each, the scan's
-    and the interval's 40 ints, and two flag bytes per factor)."""
-    return 4 * (2 * v + 40) + 2 * f
+    (the pair scan's and the interval's 40 slots of 8 B, the factor mask
+    as bits in 4-byte words, 3 B per pose for its local slot and its byte
+    of mask and level, and with ``staged`` 4 B per factor for its packed
+    endpoints). The route stages the endpoints where that fits
+    :data:`SMEM_MAX`, else it keeps them in the graph (``staged=0``)."""
+    return 320 + 4 * ((f + 31) // 32) + 3 * v + 4 * f * staged
 
 
 def select_route(v: int, f: int) -> str:
     """Where K7a keeps its working arrays for a graph of these slot counts:
-    ``"shared"`` where :func:`select_smem` fits the shared memory one block
-    can opt in to on Hopper (:data:`SMEM_MAX`), else ``"scratch"`` (a
-    device scratch of ``8 v + 2 f`` bytes, allocated per call). The same
-    code and the same result on both; shapes only, never a timing."""
-    return "shared" if select_smem(v, f) <= SMEM_MAX else "scratch"
+    ``"shared"`` up to :data:`SELECT_MAX_POSES` pose slots and ``128 x
+    1,024`` factor slots (staged whole where :func:`select_smem` fits
+    :data:`SMEM_MAX`, else the endpoints read from the graph, within
+    ``select_smem(v, f, 0)``), else ``"scratch"`` (a device scratch of
+    ``8 v + 2 f`` bytes, allocated per call). Both give the plain
+    selection's bits; shapes only, never a timing."""
+    if v <= SELECT_MAX_POSES and f <= SELECT_MAX_CHUNK * 1024:
+        return "shared"
+    return "scratch"
 
 
 def local_select(bet_i, bet_j, bet_mask, pose_mask, prior_idx, prior_mask,
@@ -1469,15 +1490,24 @@ def finalize_cells(n, s, ss, ndt_cfg):
     return mean, icov, valid
 
 
+def slab_spread(n: int) -> int:
+    """K10c's ``R`` for a scan of ``n`` beams: ``128 R`` threads per pose,
+    one beam each, ``min(ceil(n / 128), 8)`` (at least 1); past ``128 x
+    8`` beams the block takes them in chunks. No result depends on it: the
+    sums are the first design's bits at every R."""
+    return max(1, min(-(-n // 128), LM_MAX_SPREAD))
+
+
 def slab_sgh(poses, points, mask_f, mean, icov, valid, grid, x_lo: int,
              d2: float, exp_clip: float) -> torch.Tensor:
     """K10c: the 15 raw NDT sums ``(f, wsum, w0sum, g [3], H [9])`` of one
     scan ``points [N, 2]`` (``mask_f [N]`` f32) at each pose of ``poses [B,
     3]`` over one rank's slab of a map of ``G = overlap`` grids (``mean [G,
     nx_local, ny, 2]``, ``icov [.., 2, 2]``, ``valid [G, nx_local, ny]``,
-    ix-major, grid columns ``[x_lo, x_lo + nx_local)``), one block per pose
-    (see ``csrc/ndt_unpacked.cu``; counted as ``slab_sgh[g1]`` at overlap
-    1): ``[B, 15]``."""
+    ix-major, grid columns ``[x_lo, x_lo + nx_local)``), one block of ``128
+    R`` threads per pose, one beam per thread (:func:`slab_spread`; see
+    ``csrc/ndt_unpacked.cu``; counted as ``slab_sgh[g1]`` at overlap 1):
+    ``[B, 15]``."""
     g, ny = grid.overlap, grid.ny
     nxl = valid.shape[1]
     b, n = poses.shape[0], points.shape[0]
@@ -1488,12 +1518,14 @@ def slab_sgh(poses, points, mask_f, mean, icov, valid, grid, x_lo: int,
     _check(mean, "mean", shape=(g, nxl, ny, 2), align=8)
     _check(icov, "icov", shape=(g, nxl, ny, 2, 2), align=16)
     out = torch.empty((b, 15), dtype=torch.float32, device=poses.device)
+    spread = slab_spread(n)
     if b > 0:
         _call("slab_sgh_launch", variant("slab_sgh", g), poses.data_ptr(),
               points.data_ptr(), mask_f.data_ptr(), mean.data_ptr(),
               icov.data_ptr(), valid.data_ptr(), out.data_ptr(), b, n,
               grid.nx, ny, x_lo, nxl, grid.x0, grid.y0, grid.cell, d2,
-              exp_clip, g, _stream(poses))
+              exp_clip, g, spread, wide_terms_bytes(g, spread),
+              _stream(poses))
     return out
 
 

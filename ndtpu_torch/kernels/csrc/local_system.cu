@@ -8,13 +8,13 @@
 //     on the device) seeds the active set, and a fresh loop factor (index
 //     gap > local_span_gap) seeds the index interval of its cycle;
 //   - local_hops Jacobi sweeps: every factor's flag fa = mask & (act[i] |
-//     act[j]) from the pre-sweep set, a barrier, then the scatter of fa to
-//     both endpoints (0/1 stores of 1, so the order of the writes is free,
+//     act[j]) from the pre-sweep set, then the scatter of fa to both
+//     endpoints (stores of one value, so the order of the writes is free,
 //     as an integer atomicMax would be);
 //   - act &= pose_mask, the touched factors, the fits test ok (and the
 //     fresh-window overflow term n_between - since <= k);
 //   - the two top-k selections as stable compactions (a block scan over
-//     each thread's contiguous chunk): flagged indices first in index
+//     contiguous ranges of the indices): flagged indices first in index
 //     order, then the others in index order, which is exactly what
 //     lax.top_k and the plain _top_flags return; then in_set, f_sel, the
 //     endpoints' roles and local slots, and the priors'.
@@ -22,14 +22,33 @@
 // flags and the local index map are working arrays (the plain version
 // returns them too, and the CPU tests hold them against the JAX package).
 // Integers only, so it equals the plain selection bit for bit. Its two
-// routes (kernels.select_route, a function of the slot counts) run the
-// same code on working arrays in two places: in the block's shared memory
-// where select_smem(V, F) fits what a block can opt in to (227 KB on
-// Hopper, up to ~19,357 pose slots at F = 2V), else in a device scratch
-// of 8 V + 2 F bytes the wrapper allocates per call (the block scan's and
-// the interval's 40 ints stay in shared memory). One block sees its own
-// global writes after each barrier, so the scratch route needs no other
-// care; its sweeps' scattered reads of act go through L1.
+// routes (kernels.select_route, a function of the slot counts):
+//   - shared (up to 65,535 pose slots and 128 factors per thread of a
+//     1,024-thread block): the graph is staged once, in one coalesced
+//     pass, as each factor's endpoints packed into 16-bit pairs (dead
+//     factors' too: the compaction writes every kept position's roles and
+//     slots), the factor mask as bits (a warp ballot per 32 factors) and
+//     a byte per pose (its mask and the hop that reached it); every later
+//     pass (seeds, sweeps, touched flags, both compactions, priors) reads
+//     shared memory and registers only. A hop is one pass and one
+//     barrier: it flags from the levels below it and writes its own.
+//     Each warp walks its contiguous range of factors (and of poses) 32
+//     at a time, so its loads and the compactions' stores are coalesced;
+//     a thread's mask and touched flags are register bit masks (no flag
+//     arrays), and one block scan of a packed pair of counts gives both
+//     compactions' warp offsets (ballots the places within a warp). The
+//     first design's Jacobi sweeps took two barriers a hop and read the
+//     graph in every pass. Where the staged layout
+//     (select_smem(V, F, 1): 3 B per pose, 4 B and a bit per factor) is
+//     over what a block can opt in to (227 KB on Hopper: past ~20,600
+//     pose slots at F = 2V, ~32,500 at F = V), the same code reads the
+//     endpoints from the graph in each pass (select_smem(V, F, 0)).
+//   - scratch (past that): the first design's body with act, loc and its
+//     flag bytes in a device scratch of 8 V + 2 F bytes the wrapper
+//     allocates per call (the block scan's and the interval's 40 ints in
+//     shared memory). One block sees its own global writes after each
+//     barrier, so it needs no other care; its sweeps' scattered reads of
+//     act go through L1.
 //
 // K7b local_assemble replaces the segment-sum assembly of
 // ndtpu/dist/schur.py::assemble_local_parts (:318) as _local_system (:207)
@@ -55,8 +74,13 @@
 // Nothing of K lives in shared memory past kSmallE: any K.
 //
 // What bounds them on Hopper: K7a is integer work on ~3 K values and one
-// block's barriers (a few us; past one block's shared memory, ~50 K values
-// through L1 and L2); K7b's bound is writing h_ii (2.36 MB at n =
+// block's barriers (a few us): the first design read each factor's
+// endpoints and mask from the graph again in every pass, a dependent L2 or
+// L1 round trip before each pass's shared lookups, which the staged
+// layout removes, and its compaction's int64 stores strode by a thread's
+// chunk across the lanes. Staged, the one pass over the graph (17 B a
+// factor) is bound by one SM's bandwidth from L2 (past the shared route,
+// ~50 K values through L1 and L2). K7b's bound is writing h_ii (2.36 MB at n =
 // 256, ~0.7 us at HBM rate). Its time is the build block's chain: the
 // slots read once, shared-memory counts and cursors, one round trip for
 // the factor blocks, the sums; the zeroing runs beside it on the workers.
@@ -109,26 +133,335 @@ struct SelArgs {
   long long* lp;
 };
 
-// Shared-memory bytes of K7a on the shared route (select_smem(0, 0) on
-// the scratch route).
-inline size_t select_smem(int v, int f) {
-  return 4 * (size_t)(2 * v + 40) + 2 * (size_t)f;
+// K7a's shared route: graphs of up to kSelMaxPoses pose slots (local
+// slots and packed endpoints fit 16 bits) and kSelMaxChunk factors per
+// thread of the block (each thread's flags live in kSelWords registers).
+constexpr int kSelWords = 4;
+constexpr int kSelMaxChunk = 32 * kSelWords;
+constexpr int kSelMaxPoses = 65535;
+
+// Shared-memory bytes of K7a's shared route: the pair scan's 36 and the
+// interval's 4 slots of 8 bytes, the factor mask as bits (4 B per 32
+// factors), each pose's local slot (2 B) and level byte (1 B), and with
+// staged = 1 each factor's packed endpoints (4 B). Staged where that fits
+// what a block can opt in to; else the endpoints stay in the graph.
+inline size_t select_smem(int v, int f, int staged) {
+  return 320 + 4 * (((size_t)f + 31) / 32) + 3 * (size_t)v
+         + 4 * (size_t)f * staged;
 }
 
-// kScratch: act, loc, fa and touch in a.scratch (device memory), not in
-// shared memory.
-template <bool kScratch>
-__global__ void __launch_bounds__(kSelThreads)
-local_select_kernel(SelArgs a) {
-  extern __shared__ int smem_i[];
-  const int V = a.n_pose, F = a.n_fac, T = blockDim.x, tid = threadIdx.x;
-  int* act = kScratch ? a.scratch : smem_i;             // [V] 0/1
-  int* loc = act + V;                                   // [V]
-  int* scr = kScratch ? smem_i : loc + V;               // [36]
-  int* lohi = scr + 36;                                 // [4]
-  uint8_t* fa = reinterpret_cast<uint8_t*>(kScratch ? loc + V : lohi + 4);
-  uint8_t* touch = fa + F;                              // [F]
+// A pose's byte on the shared route: bit 7 its mask, bits 0-6 the hop that
+// reached it (0 the seeds, kUnreached none; hops past kMaxLevel are
+// recorded as kMaxLevel).
+constexpr int kMaskBit = 0x80, kUnreached = 0x7f, kMaxLevel = 0x7e;
 
+// Exclusive prefix sums of two ints per thread at once, in thread order,
+// with their block totals (a packed 64-bit sum: the low word's total, at
+// most the factor count, never carries). scr: >= 33 shared long longs,
+// read on return (a caller that writes scr again needs a barrier first).
+__device__ __forceinline__ void block_scan_pair(int a, int b, int* ra,
+                                                int* rb, int* ta, int* tb,
+                                                long long* scr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const long long v = ((long long)a << 32) | (unsigned)b;
+  long long inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long u = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += u;
+  }
+  if (lane == 31) scr[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const long long w = lane < warps ? scr[lane] : 0;
+    long long winc = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long u = __shfl_up_sync(0xffffffffu, winc, o);
+      if (lane >= o) winc += u;
+    }
+    if (lane < warps) scr[lane] = winc - w;
+    if (lane == 31) scr[32] = winc;
+  }
+  __syncthreads();
+  const long long ex = scr[warp] + inc - v, tot = scr[32];
+  *ra = (int)(ex >> 32);
+  *rb = (int)(ex & 0xffffffffll);
+  *ta = (int)(tot >> 32);
+  *tb = (int)(tot & 0xffffffffll);
+}
+
+// The shared route. Warp w owns the contiguous range of 32 c factors
+// from Fw = 32 c w (c = ceil(F / T)) and of 32 cv poses from Pw = 32 cv w
+// (c, cv <= kSelMaxChunk) and walks each 32 at a time: lane l's round r
+// is factor Fw + 32 r + l (pose Pw + 32 r + l), so every round's loads
+// and stores are coalesced, a ballot gives the lanes' places within it,
+// and factor f's flags (mask, touched) are bit r of the thread's kSelWords
+// registers. The staging runs in the same order, so the mask bits are the
+// staging's own (and one ballot word per 32 factors for the seeds).
+// Each pose's byte holds its mask (kMaskBit) and the hop that reached it:
+// hop h flags factor f from its endpoints' levels below h and writes
+// level h where it is higher, so the flags never see the hop's own writes
+// (racing threads store the same byte) and a hop is one pass and one
+// barrier; "active and live" is a byte in [kMaskBit, kMaskBit |
+// kMaxLevel]. Past kMaxLevel hops a hop splits into its flags, a barrier
+// and the scatter. With kStaged the endpoints are staged once as 16-bit
+// pairs (i | j << 16) and every pass reads shared memory only; without
+// it (graphs whose endpoints do not fit beside the pose arrays) each pass
+// reads them from the graph through L1.
+template <bool kStaged>
+__global__ void __launch_bounds__(kSelThreads)
+local_select_shared_kernel(SelArgs a) {
+  extern __shared__ long long smem_l[];
+  const int V = a.n_pose, F = a.n_fac, T = blockDim.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;            // lanes before mine
+  long long* scr = smem_l;                                  // [36]
+  int* lohi = reinterpret_cast<int*>(smem_l + 36);          // [8]
+  unsigned* mbits = reinterpret_cast<unsigned*>(smem_l + 40);
+  const int n_words = (F + 31) / 32;
+  uint32_t* ends = mbits + n_words;                         // [F] staged
+  uint16_t* loc = reinterpret_cast<uint16_t*>(ends + (kStaged ? F : 0));
+  uint8_t* act = reinterpret_cast<uint8_t*>(loc + V);
+  auto ends_of = [&](int f, int* i, int* j) {
+    if constexpr (kStaged) {
+      const uint32_t e = ends[f];
+      *i = (int)(e & 0xffffu);
+      *j = (int)(e >> 16);
+    } else {
+      *i = (int)a.bet_i[f];
+      *j = (int)a.bet_j[f];
+    }
+  };
+  auto live_active = [&](int v) {
+    const int b = act[v];
+    return b >= kMaskBit && b != (kMaskBit | kUnreached);
+  };
+  // Level lvl for pose v where its level is higher.
+  auto reach = [&](int v, int lvl) {
+    const int b = act[v];
+    if ((b & kUnreached) > lvl) act[v] = (uint8_t)((b & kMaskBit) | lvl);
+  };
+
+  const long long nb = *a.n_between;
+  const long long since = a.since == nullptr ? 0 : *a.since;
+  // The prior of slot tid, read now so that its loads overlap the staging.
+  const long long prior0 = tid < a.n_pri ? a.prior_idx[tid] : 0;
+  const bool prior0_on = tid < a.n_pri && a.prior_mask[tid];
+
+  // Stage, a factor and a pose a thread a round (one SM's bandwidth from
+  // L2 bounds this pass: more loads in flight a thread measured slower):
+  // the endpoints, the factor mask (my bits, and a ballot word per 32
+  // factors), each pose's byte (its mask, unreached).
+  const int c = (F + T - 1) / T, cv = (V + T - 1) / T;
+  const int Fw = 32 * c * warp, Pw = 32 * cv * warp;
+  auto fac = [&](int w, int b) { return Fw + 32 * (32 * w + b) + lane; };
+  unsigned msk[kSelWords];
+#pragma unroll
+  for (int w = 0; w < kSelWords; ++w) {
+    unsigned bits = 0;
+    for (int b = 0; b < 32 && 32 * w + b < max(c, cv); ++b) {
+      const int r = 32 * w + b, f = fac(w, b), v = Pw + 32 * r + lane;
+      bool on = false;
+      if (r < c && f < F) {
+        if constexpr (kStaged)
+          ends[f] = ((uint32_t)a.bet_i[f] & 0xffffu) |
+                    ((uint32_t)a.bet_j[f] << 16);
+        on = a.bet_mask[f] != 0;
+      }
+      if (r < cv && v < V)
+        act[v] = (uint8_t)((a.pose_mask[v] ? kMaskBit : 0) | kUnreached);
+      const unsigned word = __ballot_sync(0xffffffffu, on);
+      if (lane == 0 && r < c && f < F) mbits[f >> 5] = word;
+      bits |= (unsigned)on << b;
+    }
+    msk[w] = bits;
+  }
+  if (tid == 0) {
+    lohi[0] = V;
+    lohi[1] = -1;
+  }
+  __syncthreads();
+  const int k = a.fresh_k;
+  long long st = nb - k;
+  st = st < 0 ? 0 : st;
+  st = st > F - k ? F - k : st;
+
+  // Seeds (level 0): the fresh slice's endpoints; the loop factors'
+  // interval.
+  for (int t = tid; t < k; t += T) {
+    const long long s = st + t;
+    if (!(((mbits[s >> 5] >> (s & 31)) & 1u) && s < nb &&
+          (a.since == nullptr || s >= since)))
+      continue;
+    int fi, fj;
+    ends_of((int)s, &fi, &fj);
+    reach(fi, 0);
+    reach(fj, 0);
+    if (abs(fi - fj) > a.span_gap) {
+      atomicMin(lohi, min(fi, fj));
+      atomicMax(lohi + 1, max(fi, fj));
+    }
+  }
+  __syncthreads();
+  const int lo = lohi[0], hi = lohi[1];
+  if (lo <= hi) {                       // the same on every thread
+    for (int v = max(lo, 0) + tid; v <= min(hi, V - 1); v += T) reach(v, 0);
+    __syncthreads();
+  }
+
+  // Jacobi sweeps: hop h flags a live factor with an endpoint reached
+  // before it (level < h; past kMaxLevel any level but kUnreached) and
+  // gives its endpoints level h (at most kMaxLevel).
+  for (int h = 1; h <= a.hops; ++h) {
+    const bool split = h > kMaxLevel;   // the same on every thread
+    const int lvl = min(h, kMaxLevel), before = min(h, kUnreached);
+    unsigned fa[kSelWords];
+#pragma unroll
+    for (int w = 0; w < kSelWords; ++w) {
+      unsigned bits = msk[w], on = 0;
+      while (bits) {
+        const int b = __ffs(bits) - 1;
+        bits &= bits - 1;
+        int i, j;
+        ends_of(fac(w, b), &i, &j);
+        if ((act[i] & kUnreached) < before ||
+            (act[j] & kUnreached) < before) {
+          if (split) {
+            on |= 1u << b;
+          } else {
+            reach(i, lvl);
+            reach(j, lvl);
+          }
+        }
+      }
+      fa[w] = on;
+    }
+    if (split) {
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < kSelWords; ++w) {
+        unsigned bits = fa[w];
+        while (bits) {
+          const int b = __ffs(bits) - 1;
+          bits &= bits - 1;
+          int i, j;
+          ends_of(fac(w, b), &i, &j);
+          reach(i, lvl);
+          reach(j, lvl);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // The touched factors (an endpoint active and live), my poses' count.
+  unsigned tch[kSelWords];
+  int n_mine_f = 0;
+#pragma unroll
+  for (int w = 0; w < kSelWords; ++w) {
+    unsigned bits = msk[w], on = 0;
+    while (bits) {
+      const int b = __ffs(bits) - 1;
+      bits &= bits - 1;
+      int i, j;
+      ends_of(fac(w, b), &i, &j);
+      if (live_active(i) || live_active(j)) on |= 1u << b;
+    }
+    tch[w] = on;
+    n_mine_f += __popc(on);
+  }
+  int n_mine_v = 0;
+  for (int r = 0; r < cv; ++r) {
+    const int v = Pw + 32 * r + lane;
+    n_mine_v += v < V && live_active(v);
+  }
+  // The pair scan in thread order; lane 0's exclusive sums are the counts
+  // of the warps before mine, the rounds' order's offsets.
+  int run_v, run_f, n_act, n_touch;
+  block_scan_pair(n_mine_v, n_mine_f, &run_v, &run_f, &n_act, &n_touch,
+                  scr);
+  run_v = __shfl_sync(0xffffffffu, run_v, 0);
+  run_f = __shfl_sync(0xffffffffu, run_f, 0);
+
+  // Pose slots: stable compaction of the active set, round by round.
+  // Places past p_loc are not kept; past them (the places only grow) a
+  // warp only zeroes its local slots.
+  for (int r = 0; r < cv; ++r) {
+    const int v = Pw + 32 * r + lane, first = v - lane;
+    if (run_v >= a.p_loc && n_act + (first - run_v) >= a.p_loc) {
+      if (v < V) loc[v] = 0;            // the same test on every lane
+      continue;
+    }
+    const bool on = v < V && live_active(v);
+    const unsigned bal = __ballot_sync(0xffffffffu, on);
+    const int x = run_v + __popc(bal & below);          // active before v
+    const int pos = on ? x : n_act + (v - x);
+    run_v += __popc(bal);
+    if (v < V) {
+      const bool kept = pos < a.p_loc;
+      loc[v] = (uint16_t)(kept ? pos : 0);
+      if (kept) {
+        a.pid[pos] = v;
+        a.in_set[pos] = (uint8_t)on;
+      }
+    }
+  }
+  __syncthreads();      // loc complete
+
+  // Factor slots: stable compaction of the touched flags, round by round;
+  // a warp stops once both its next places are past f_loc.
+#pragma unroll
+  for (int w = 0; w < kSelWords; ++w) {
+    for (int b = 0; b < 32 && 32 * w + b < c; ++b) {
+      const int f = fac(w, b), first = f - lane;
+      if (run_f >= a.f_loc && n_touch + (first - run_f) >= a.f_loc)
+        break;                          // the same on every lane
+      const bool on = f < F && ((tch[w] >> b) & 1u);
+      const unsigned bal = __ballot_sync(0xffffffffu, on);
+      const int x = run_f + __popc(bal & below);        // touched before f
+      const int pos = on ? x : n_touch + (f - x);
+      run_f += __popc(bal);
+      if (f >= F || pos >= a.f_loc) continue;
+      int i, j;
+      ends_of(f, &i, &j);
+      a.fid[pos] = f;
+      a.f_sel[pos] = (uint8_t)on;
+      a.ri[pos] = live_active(i) ? 0 : 1;
+      a.rj[pos] = live_active(j) ? 0 : 1;
+      a.li[pos] = loc[i];
+      a.lj[pos] = loc[j];
+    }
+  }
+  if (tid == 0) {
+    bool ok = n_act <= a.max_poses && n_touch <= a.max_factors;
+    if (a.since != nullptr) ok = ok && (nb - since <= k);
+    a.ok[0] = ok;
+  }
+  for (int q = tid; q < a.n_pri; q += T) {
+    const long long i = q == tid ? prior0 : a.prior_idx[q];
+    const bool on = live_active((int)i);
+    a.rp[q] = on ? 0 : 1;
+    a.p_act[q] = on && (q == tid ? prior0_on : a.prior_mask[q] != 0);
+    a.lp[q] = loc[i];
+  }
+}
+
+// The scratch route (graphs past the shared route): the first design's
+// body, act, loc, fa and touch in a.scratch (8 V + 2 F bytes of device
+// memory), the graph's endpoints read in every pass. One block sees its
+// own global writes after each barrier; the sweeps' scattered reads of act
+// go through L1.
+__global__ void __launch_bounds__(kSelThreads)
+local_select_scratch_kernel(SelArgs a) {
+  __shared__ int scr[36];
+  __shared__ int lohi[4];
+  const int V = a.n_pose, F = a.n_fac, T = blockDim.x, tid = threadIdx.x;
+  int* act = a.scratch;                                 // [V] 0/1
+  int* loc = act + V;                                   // [V]
+  uint8_t* fa = reinterpret_cast<uint8_t*>(loc + V);    // [F]
+  uint8_t* touch = fa + F;                              // [F]
   const long long nb = *a.n_between;
   const int k = a.fresh_k;
   long long st = nb - k;
@@ -766,13 +1099,16 @@ local_assemble_kernel(AsmArgs a) {
 }
 
 // The kernels' shared-memory limits, raised once per larger size.
-size_t g_select_opt_in = 48 * 1024;
+size_t g_select_staged_opt_in = 48 * 1024;
+size_t g_select_unstaged_opt_in = 48 * 1024;
 size_t g_assemble_opt_in = 48 * 1024;
 
 }  // namespace
 
-// scratch: null for the shared route; else the scratch route's 8 V + 2 F
-// bytes, 4-byte aligned.
+// scratch: null for the shared route (n_pose <= kSelMaxPoses and
+// n_fac <= kSelMaxChunk x kSelThreads), else the scratch route's 8 V + 2 F
+// bytes, 4-byte aligned. Both run one block of kSelThreads (1,024 measured
+// fastest at 1,024, 10,064 and 25,064 pose slots against 256 and 512).
 extern "C" int local_select_launch(
     const void* bet_i, const void* bet_j, const void* bet_mask, int n_fac,
     const void* pose_mask, int n_pose, const void* prior_idx,
@@ -784,13 +1120,9 @@ extern "C" int local_select_launch(
       p_loc > n_pose || f_loc > n_fac || p_loc < 0 || f_loc < 0)
     return (int)cudaErrorInvalidValue;
   const bool global = scratch != nullptr;
-  const size_t smem = global ? select_smem(0, 0)
-                             : select_smem(n_pose, n_fac);
-  if (!global) {
-    const int err = ndtpu::pg::smem_opt_in(local_select_kernel<false>, smem,
-                                           &g_select_opt_in);
-    if (err != 0) return err;
-  }
+  if (!global && (n_pose > kSelMaxPoses ||
+                  n_fac > kSelMaxChunk * kSelThreads))
+    return (int)cudaErrorInvalidValue;
   // flags (uint8): ok, in_set [p_loc], f_sel [f_loc], p_act [P]; ints
   // (int64): pid [p_loc], fid, ri, rj, li, lj [f_loc], rp, lp [P].
   uint8_t* fl = (uint8_t*)flags;
@@ -827,12 +1159,27 @@ extern "C" int local_select_launch(
   a.rp = a.lj + f_loc;
   a.lp = a.rp + n_pri;
   a.scratch = (int*)scratch;
-  if (global)
-    local_select_kernel<true><<<1, kSelThreads, smem,
-                                (cudaStream_t)stream>>>(a);
-  else
-    local_select_kernel<false><<<1, kSelThreads, smem,
-                                 (cudaStream_t)stream>>>(a);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (global) {
+    local_select_scratch_kernel<<<1, kSelThreads, 0, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  // The staged layout where it fits a block, else the endpoints stay in
+  // the graph (select_smem(n_pose, n_fac, 0) fits any n_pose <=
+  // kSelMaxPoses at n_fac <= 1,024 kSelMaxChunk).
+  size_t smem = select_smem(n_pose, n_fac, 1);
+  int err = ndtpu::pg::smem_opt_in(local_select_shared_kernel<true>, smem,
+                                   &g_select_staged_opt_in);
+  if (err == 0) {
+    local_select_shared_kernel<true><<<1, kSelThreads, smem, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  if (err != ndtpu::pg::kSmemOver) return err;
+  smem = select_smem(n_pose, n_fac, 0);
+  err = ndtpu::pg::smem_opt_in(local_select_shared_kernel<false>, smem,
+                               &g_select_unstaged_opt_in);
+  if (err != 0) return err;
+  local_select_shared_kernel<false><<<1, kSelThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -45,6 +45,10 @@
 //     summed over the grids: K1 adds a beam's grids into the running sum
 //     one by one, and a sum over the grids first would round differently.
 //     Past 128 R beams the block takes them in chunks of 128 R.
+//   - K10c slab_sgh (ndt_unpacked.cu) runs the same scheme on a rank's
+//     slab with its own binning and a per-grid flag, through the stored
+//     terms' helpers and the reduction below (ndt_store_terms,
+//     ndt_add_stored, ndt_wide_block_sums).
 
 #pragma once
 
@@ -246,6 +250,58 @@ __host__ __device__ constexpr int wide_terms_bytes(int grids, int spread) {
   return (spread - 1) * kNdtThreads * (4 * wide_beam_floats(grids) + 1);
 }
 
+// A stored beam's grid g: its 11 terms u into three float4 (the last
+// float unused) at floats 12 g .. 12 g + 11 of the beam's terms.
+__device__ __forceinline__ void ndt_store_terms(float4* beam, int g,
+                                                const float* u) {
+  beam[3 * g] = make_float4(u[0], u[1], u[2], u[3]);
+  beam[3 * g + 1] = make_float4(u[4], u[5], u[6], u[7]);
+  beam[3 * g + 2] = make_float4(u[8], u[9], u[10], 0.f);
+}
+
+// acc += a stored beam's grid g, term by term (as ndt_add_terms adds).
+__device__ __forceinline__ void ndt_add_stored(float* acc,
+                                               const float4* beam, int g) {
+  const float4 u0 = beam[3 * g], u1 = beam[3 * g + 1], u2 = beam[3 * g + 2];
+  const float u[kNdtSums] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y,
+                             u1.z, u1.w, u2.x, u2.y, u2.z};
+#pragma unroll
+  for (int k = 0; k < kNdtSums; ++k) acc[k] += u[k];
+}
+
+// The wide evaluations' reduction: the block's first 128 threads' 11 sums
+// (acc; the other threads' are not read) over the block in
+// ndt_block_sums' order, returned to every thread in out: each of the 4
+// warps' shuffle tree, then lane k < 11 of every warp sums the partials of
+// sum k in warp order, as ndt_block_sums' thread k does, and hands it to
+// its warp. Every thread must call it; part as ndt_block_sums'.
+__device__ __forceinline__ void ndt_wide_block_sums(const float* acc,
+                                                    float (*part)[kNdtSums],
+                                                    float out[kNdtSums]) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (t < kNdtThreads) {
+#pragma unroll
+    for (int k = 0; k < kNdtSums; ++k) {
+      float v = acc[k];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      if (lane == 0) part[warp][k] = v;
+    }
+  }
+  __syncthreads();
+  float mine = 0.f;
+  if (lane < kNdtSums) {
+#pragma unroll
+    for (int w = 0; w < kNdtThreads / 32; ++w) mine += part[w][lane];
+  }
+#pragma unroll
+  for (int k = 0; k < kNdtSums; ++k)
+    out[k] = __shfl_sync(0xffffffffu, mine, k);
+}
+
 // lm_ndt's evaluation: ndt_lane_sums' 11 sums, bit for bit, with one beam
 // per thread. The block is 128 R threads (R = blockDim.x / 128 <= kMaxR),
 // and every thread must call it. terms (16-byte aligned, 128 (R - 1) x
@@ -288,9 +344,7 @@ __device__ __forceinline__ void ndt_lane_sums_wide(
     } else {
       float4* mine = terms + (size_t)(t - kNdtThreads) * kBeam4;
       auto store = [&](int g, const float* u) {
-        mine[3 * g] = make_float4(u[0], u[1], u[2], u[3]);
-        mine[3 * g + 1] = make_float4(u[4], u[5], u[6], u[7]);
-        mine[3 * g + 2] = make_float4(u[8], u[9], u[10], 0.f);
+        ndt_store_terms(mine, g, u);
       };
       bool on = false;
       if (i < n)
@@ -307,41 +361,13 @@ __device__ __forceinline__ void ndt_lane_sums_wide(
           if (!hit[j]) continue;
           const float4* b = terms + (size_t)j * kBeam4;
 #pragma unroll
-          for (int g = 0; g < kG; ++g) {
-            const float4 u0 = b[3 * g], u1 = b[3 * g + 1], u2 = b[3 * g + 2];
-            const float u[kNdtSums] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y,
-                                       u1.z, u1.w, u2.x, u2.y, u2.z};
-#pragma unroll
-            for (int k = 0; k < kNdtSums; ++k) acc[k] += u[k];
-          }
+          for (int g = 0; g < kG; ++g) ndt_add_stored(acc, b, g);
         }
       }
       if (c0 + width < n) __syncthreads();  // before the next chunk's stores
     }
   }
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  if (t < kNdtThreads) {
-#pragma unroll
-    for (int k = 0; k < kNdtSums; ++k) {
-      float v = acc[k];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) part[warp][k] = v;
-    }
-  }
-  __syncthreads();
-  // Lane k < 11 of every warp sums the partials of sum k in warp order, as
-  // ndt_block_sums' thread k does, and hands it to its warp.
-  float mine = 0.f;
-  if (lane < kNdtSums) {
-#pragma unroll
-    for (int w = 0; w < kNdtThreads / 32; ++w) mine += part[w][lane];
-  }
-#pragma unroll
-  for (int k = 0; k < kNdtSums; ++k)
-    out[k] = __shfl_sync(0xffffffffu, mine, k);
+  ndt_wide_block_sums(acc, part, out);
 }
 
 }  // namespace ndtpu

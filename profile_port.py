@@ -68,8 +68,8 @@ lacks reads null).
 
 ``--hot`` runs only :func:`hot_times` (event and card ms per call of
 ``lm_ndt`` at the window, verify and gated-verify shapes and at bench.py's
-headline shape, of K6, K6b, K5, K6g, K7a, K7b and K11, and of the 10k
-smoother update, with hashes of their outputs and of configs 1-3's
+headline shape, of K6, K6b, K5, K6g, K7a, K7b, K11, K10c and K12, and of
+the 10k smoother update, with hashes of their outputs and of configs 1-3's
 box-world trajectories and the served sessions, and bench.py §5's smoother
 cells, for comparing two commits).
 
@@ -367,9 +367,15 @@ def hot_times(seed: int, dev) -> dict:
     rows, fresh window: ``chip_smoke.k5_calls``) and at config 4's 10,305
     rows; K6g on config 4's 10k graph (lam 1e-3, 250 iterations, tol 1e-5)
     and its 0-iteration set-up; bench.py §5's active 10k
-    ``incremental_update``; K7a on the config-3 graph and past one block's
-    shared memory (``chip_smoke.check_k7a_past_block``'s 25,064-slot graph;
-    ``"raises"`` where an older K7a refuses it); K7b on that graph's local
+    ``incremental_update``; K7a on the config-3 graph, past the first
+    design's shared memory (``chip_smoke.check_k7a_past_block``'s
+    25,064-slot graph; ``"raises"`` where an older K7a refuses it), on
+    bench.py §5b's 10,064-slot local graph and on the scratch route (the
+    25,000 poses in ``chip_smoke.SELECT_SCRATCH_SLOTS``); K10c on both
+    ranks' slabs (two
+    ranks of 128 columns) and K12 at config 5's 4,624 hypotheses, each at
+    both overlaps, on config 5's grid holding the box-world scans at
+    their true poses; K7b on that graph's local
     selection (``chip_smoke.k7b_args``), on the last call of the config-3
     run above (the pipeline's shape) and at 8,192 seeded gathered slots
     (``chip_smoke.K7B_PAST``); K11 at ``chip_smoke.K11_CASES``' corridor
@@ -392,10 +398,12 @@ def hot_times(seed: int, dev) -> dict:
 
     import torch
 
-    from chip_smoke import (CONFIG1, CONFIG2, CONFIG3, CONFIG4, ICFG_10K,
-                            K6G_10K, K7B_PAST, K11_CASES, SELECT_PAST_POSES,
-                            SERVING, _moved_graph8, box_sequence, box_store,
-                            config4_graph, headline_args, k5_calls, k7b_args,
+    from chip_smoke import (CONFIG1, CONFIG2, CONFIG3, CONFIG4, CONFIG5,
+                            ICFG_10K, K6G_10K, K7B_PAST, K11_CASES,
+                            SELECT_PAST_POSES, SELECT_SCRATCH_SLOTS,
+                            SERVING, _moved_graph8,
+                            box_sequence, box_store, config4_graph,
+                            headline_args, k5_calls, k7b_args,
                             k7b_random_args, k11_inputs, lm_verify_args,
                             lm_window_args, local_graph, map_stats,
                             run_config4_pcg, run_incremental_10k,
@@ -403,7 +411,7 @@ def hot_times(seed: int, dev) -> dict:
     from ndtpu_torch import kernels, serve
     from ndtpu_torch.config import PipelineConfig, SolverConfig
     from ndtpu_torch.data import synth
-    from ndtpu_torch.dist import schur, slam_dp
+    from ndtpu_torch.dist import gridmap, schur, slam_dp
     from ndtpu_torch.eval.ate import ate_rmse
     from ndtpu_torch.graph import factors as fct
     from ndtpu_torch.graph import incremental as inc
@@ -411,7 +419,7 @@ def hot_times(seed: int, dev) -> dict:
     from ndtpu_torch.loop import closure
     from ndtpu_torch.ndt import grid as ndt_grid
     from ndtpu_torch.ndt import match
-    from ndtpu_torch.slam import pipeline
+    from ndtpu_torch.slam import merge, pipeline
     from ndtpu_torch.slam.odometry import run_odometry_windowed
 
     def tensors(x):
@@ -519,11 +527,49 @@ def hot_times(seed: int, dev) -> dict:
         lambda: inc.incremental_update(st10, icfg), None)
     calls["K7a config 3"] = (lambda: inc.local_select(
         g, scfg, g.n_between - 1), ["local_select"])
-    gp, sp = local_graph(config4_graph(dev, torch.float32, 0,
-                                       SELECT_PAST_POSES),
-                         SELECT_PAST_POSES + 64)
+    g25 = config4_graph(dev, torch.float32, 0, SELECT_PAST_POSES)
+    gp, sp = local_graph(g25, SELECT_PAST_POSES + 64)
     calls["K7a past one block"] = (lambda: inc.local_select(gp, icfg, sp),
                                    ["local_select"])
+    g10, s10 = local_graph(g4)
+    calls["K7a §5b local graph"] = (lambda: inc.local_select(g10, icfg, s10),
+                                    ["local_select"])
+    gs, ss = local_graph(g25, SELECT_SCRATCH_SLOTS)
+    calls["K7a scratch route"] = (lambda: inc.local_select(gs, icfg, ss),
+                                  ["local_select"])
+    for key in ("K7a config 3", "K7a past one block", "K7a §5b local graph",
+                "K7a scratch route"):
+        per_call[key] = 1
+    # K10c on both ranks' slabs (two ranks of 128 columns) and K12 over
+    # config 5's 4,624 hypotheses, at both overlaps, on config 5's grid
+    # holding the box-world scans at their true poses; the probe is the
+    # scan of largest true x (rank 1 owns most of its beams, as in the
+    # smoke's phase 15) at its true pose moved by (0.05, -0.03, 0.01).
+    cfg5 = PipelineConfig.from_json(str(CONFIG5))
+    s5 = box_sequence(seed, cfg5.n_beams)
+    k5 = int(s5.gt_poses[:, 0].argmax())
+    probe = s5.points[k5].to(dev).contiguous()
+    probe_m = s5.mask[k5].to(dev).float().contiguous()
+    pose5 = (s5.gt_poses[k5:k5 + 1].to(dev) + torch.tensor(
+        [0.05, -0.03, 0.01], device=dev)).contiguous()
+    hyp = merge._hypothesis_grid(8.0, 1.0, 16, torch.float32, dev)
+    nxl, m5 = cfg5.grid.nx // 2, cfg5.match
+    for gn in (4, 1):
+        gr = dataclasses.replace(cfg5.grid, overlap=gn)
+        dense = ndt_grid.finalize(map_stats(s5, gr, dev), cfg5.ndt)
+        slab = gridmap.dense_to_slab(dense, gr)
+        key = kernels.variant("K12 ndt_sgh_unpacked", gn) + " coarse"
+        calls[key] = (lambda d=dense, gr=gr: kernels.ndt_sgh_unpacked(
+            hyp, probe, probe_m, *d, gr, m5.d2, m5.exp_clip),
+            ["ndt_sgh_unpacked"])
+        per_call[key] = 1
+        for r in range(2):
+            half = [x[:, r * nxl:(r + 1) * nxl].contiguous() for x in slab]
+            key = kernels.variant("K10c slab_sgh", gn) + f" rank {r}"
+            calls[key] = (lambda h=half, gr=gr, r=r: kernels.slab_sgh(
+                pose5, probe, probe_m, *h, gr, r * nxl, m5.d2, m5.exp_clip),
+                ["slab_sgh"])
+            per_call[key] = 1
     # K11 at the corridor (f64, f32) and serving shapes, and past the first
     # design's 48 KB (4,004 segments); K7b on the config-3 graph's local
     # selection (the smoke's), the pipeline's own last call and past the

@@ -13,7 +13,8 @@ overlap 1, K4s in g1l8, g4l4 and g1l4), and config 5's K12
 ndt_sgh_unpacked (also at overlap 1) and
 K9c schur_local_assemble, also through a one-rank optimize_schur, and the
 slab map's K10a slab_accumulate, K10b finalize_cells and K10c slab_sgh,
-also through a one-rank match_slab (K10a and K10c also at overlap 1), and the inputs' K11 raycast and K13
+also through a one-rank match_slab (K10a and K10c also at overlap 1; K10c
+also past its 1,024 beams a block), and the inputs' K11 raycast and K13
 voxel_downsample, also through make_sequence and the CLI's scan mode; K7b
 and K11 also past the sizes their first designs refused)
 against their plain twins, on the card; K10a also against the plain model of its fixed-point arithmetic, bit
@@ -635,27 +636,59 @@ def test_pcg_solve_through_the_scratch(dev):
 
 
 def test_local_select_bit_equal_to_plain(smoother):
-    """K7a equals the plain selection bit for bit and repeats (see
+    """K7a equals the plain selection bit for bit and repeats, on the
+    config-3 graph (1,024 pose slots) and on bench.py §5b's local graph
+    (10,064), with ``since`` the newest factor, none and 40 back (see
     chip_smoke.check_k7a)."""
     import chip_smoke as cs
 
     kernels.reset_launches()
-    cs.check_k7a(*smoother, jobs=[])
-    assert kernels.LAUNCHES["local_select"] >= 6
+    row = cs.check_k7a(*smoother, jobs=[])
+    assert kernels.LAUNCHES["local_select"] >= 12
+    assert kernels.LAUNCHES["local_select[scratch]"] == 0
+    assert row["pose_slots"] == 1024
+    assert row["local_10k"]["pose_slots"] == 10064
 
 
 def test_local_select_past_one_block_bit_equal_to_plain(dev):
-    """K7a past one block's shared memory (its scratch route, counted as
-    ``local_select[scratch]``) on a 25,064-slot graph equals the plain
-    selection bit for bit and repeats, and a local-path incremental_update
-    at that size runs through it within the plain route's gates (see
-    chip_smoke.check_k7a_past_block)."""
+    """K7a past the first design's shared memory equals the plain selection
+    bit for bit and repeats: staged on the shared route at 25,064 pose
+    slots, on the scratch route (``local_select[scratch]``) at 70,064,
+    and with the endpoints read from the graph at 60,000 factor slots; a
+    local-path incremental_update on the first two runs through the route
+    within the plain route's gates (see chip_smoke.check_k7a_past_block)."""
     import chip_smoke as cs
 
     kernels.reset_launches()
-    launches, row = cs.check_k7a_past_block(dev, 0, jobs=[])
+    launches, row, shared = cs.check_k7a_past_block(dev, 0, jobs=[])
     assert row["update"]["take"] == 2 and launches["local_select"] == 0
     assert launches["local_select[scratch]"] > 0
+    assert row["pose_slots"] == cs.SELECT_SCRATCH_SLOTS
+    assert shared["update"]["take"] == 2 and shared["pose_slots"] == 25064
+    assert shared["select_smem"] <= kernels.SMEM_MAX
+    wide = shared["endpoints_in_graph"]
+    assert wide["factor_slots"] == cs.SELECT_WIDE_FACTORS
+    assert wide["select_smem"] > kernels.SMEM_MAX
+
+
+@pytest.mark.parametrize("hops", [1, 3, 130])
+def test_local_select_hops_bit_equal_to_plain(dev, hops):
+    """K7a at other ``local_hops``, past the 126 hops its pose bytes record
+    as levels too (a hop then splits into its flags, a barrier and the
+    scatter), on config 4's Manhattan graph of 1,000 poses in 1,024 pose
+    and 2,048 factor slots (see chip_smoke.k7a_case)."""
+    import dataclasses as dc
+
+    import chip_smoke as cs
+    from ndtpu_torch.config import SolverConfig
+
+    g0 = cs.config4_graph(dev, torch.float32, 0, 1000)
+    g, since = cs.local_graph(g0, 1024, 2048 - g0.bet_i.shape[0])
+    cfg = dc.replace(SolverConfig(**cs.ICFG_10K), local_hops=hops)
+    kernels.reset_launches()
+    row = cs.k7a_case(f"{hops} hops", g, cfg, since, jobs=[])
+    assert kernels.LAUNCHES["local_select"] >= 6
+    assert row["select_smem"] <= kernels.SMEM_MAX
 
 
 def test_factor_linearize_one_launch_per_mode(smoother):
@@ -1391,6 +1424,36 @@ def test_slab_sgh_overlap1_matches_plain(dev):
                      (total[:, 6:], h.reshape(-1, 9))):
         assert float((got - ref).abs().max()) <= 1e-4 * max(
             float(ref.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("grid", [GRID, GRID1], ids=["g4", "g1"])
+@pytest.mark.parametrize("n", [360, 4000])
+def test_slab_sgh_one_beam_per_thread_matches_plain(dev, grid, n):
+    """K10c at config 5's N = 360 (R = 3) and past the R cap (4,000 beams:
+    chunks of 1,024), at both overlaps, on each half of a seeded map and at
+    B = 1 and B = 64: within rtol 1e-5 of its f32 plain version and
+    bit-identical on a second launch (``chip_smoke.check_k10c``)."""
+    import chip_smoke as cs
+    from ndtpu_torch.config import MatchConfig
+    from ndtpu_torch.dist import gridmap
+
+    stats = _stats(dev) if grid.overlap == 4 else _stats1(dev)
+    smap = gridmap.dense_to_slab(tgrid.finalize(stats, NDT), grid)
+    halves = [gridmap.SlabMap(*(x[:, 24 * r:24 * r + 24].contiguous()
+                                for x in smap)) for r in range(2)]
+    pts, mask = _points(5, n, dev)
+    rng = np.random.default_rng(7)
+    poses = torch.as_tensor(np.stack([rng.uniform(-1, 1, 64),
+                                      rng.uniform(-1, 1, 64),
+                                      rng.uniform(-0.5, 0.5, 64)], -1),
+                            dtype=torch.float32, device=dev)
+    kernels.reset_launches()
+    for r in range(2):
+        for b in (1, 64):
+            cs.check_k10c(f"test N={n} half {r}", poses[:b], pts, mask,
+                          halves[r], grid, 24 * r, MatchConfig(), jobs=[])
+    assert kernels.LAUNCHES[kernels.variant("slab_sgh", grid.overlap)] >= 8
+    assert kernels.slab_spread(n) == (3 if n == 360 else 8)
 
 
 def test_slab_kernels_refuse_cpu_tensors():

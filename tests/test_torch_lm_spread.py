@@ -5,7 +5,13 @@ layout read from ``csrc/ndt_sums.cuh``. No result depends on R (the sums
 are K1's, bit for bit, at every R; the card tests hold that), so these
 pin only the shape: one beam per thread while the lanes leave the card
 room, K1's 128 threads once the lanes fill it, and never past the
-shared memory one block can have."""
+shared memory one block can have.
+
+K10c ``slab_sgh`` runs the same scheme at one pose: ``kernels.slab_spread``
+(128 R threads, one beam each, R = min(ceil(n / 128), 8)) and the stored
+terms of 128 (R - 1) beams with a grid-mask byte each
+(``kernels.wide_terms_bytes``), the bound its launcher in
+``csrc/ndt_unpacked.cu`` checks."""
 
 import re
 from pathlib import Path
@@ -73,3 +79,28 @@ def test_lm_spread_stays_within_shared_memory(grids):
         assert r == want or kernels.lm_smem(n, grids, r + 1) > limit
     assert kernels.lm_spread(8, limit // 12 + 1, grids, SMS) == 1
     assert kernels.lm_smem(limit // 12 + 1, grids, 1) > limit
+
+
+@pytest.mark.parametrize("n,spread", [(1, 1), (128, 1), (129, 2),
+                                      (360, 3), (1024, 8), (4000, 8)])
+def test_slab_spread(n, spread):
+    """One beam per thread up to 8 x 128 beams (config 5's 360: R = 3),
+    then chunks of 1,024; within a block's shared memory at both
+    overlaps."""
+    assert kernels.slab_spread(n) == spread
+    for grids in (4, 1):
+        assert kernels.wide_terms_bytes(grids, spread) <= kernels.SMEM_MAX
+
+
+@pytest.mark.parametrize("grids", [4, 1])
+@pytest.mark.parametrize("spread", range(1, kernels.LM_MAX_SPREAD + 1))
+def test_slab_smem_matches_the_kernels_layout(grids, spread):
+    """K10c's shared memory, the stored terms of 128 (R - 1) beams
+    (``wide_terms_bytes``), is the least the launcher of
+    ``csrc/ndt_unpacked.cu`` takes."""
+    assert kernels.wide_terms_bytes(grids, spread) == _c_wide_terms_bytes()(
+        grids, spread)
+    src = (Path(kernels.__file__).parent / "csrc"
+           / "ndt_unpacked.cu").read_text()
+    launcher = src[src.index('extern "C" int slab_sgh_launch'):]
+    assert "smem_bytes < ndtpu::wide_terms_bytes(grids, spread)" in launcher

@@ -1,18 +1,22 @@
-"""K7a's route past one block's shared memory, and the card-only size
-limits of other kernels' host-side checks, on the CPU.
+"""K7a's routes and shared-memory layout, and the card-only size limits of
+other kernels' host-side checks, on the CPU.
 
 - ``kernels.select_smem`` against the expression of
   ``csrc/local_system.cu``'s ``select_smem``, read from the source (as
   ``tests/test_torch_lm_spread.py`` reads ``lm_smem``'s), and
-  ``kernels.select_route`` on both sides of the limit: the working arrays
-  in shared memory while they fit what one block can have, else in a
-  device scratch. Both routes run the same code, so no result depends on
-  the route; the card tests hold the scratch route bit-equal to the plain
+  ``kernels.select_route`` on both sides of its limits: the shared route
+  up to 65,535 pose slots and 128 factors per thread of a 1,024-thread
+  block (the graph staged whole where ``select_smem`` fits what one block
+  can have, else its endpoints read from the graph), else a device
+  scratch; every graph the first design kept in shared memory stays on
+  the shared route, staged whole at F = V and F = 2V. No result depends
+  on the route; the card tests hold each route bit-equal to the plain
   selection.
 - The plain selection ``local_select_ref`` (the CPU route of
   ``graph.incremental.local_select``) against the JAX package's
   ``_active_probe`` + ``_local_select``, jitted in x64, on a graph past the
-  limit (20,000 pose and 40,000 factor slots): integers, bit-equal.
+  shared route (70,000 pose and 140,000 factor slots): integers,
+  bit-equal.
 - K4's and K8a's host-side band checks (``kernels.finalize_bands``,
   ``kernels.local_bands``) refuse exactly past the lattice widths the
   README names.
@@ -45,45 +49,87 @@ from ndtpu_torch.graph import incremental as tinc
 
 
 def _c_select_smem():
-    """``select_smem(v, f)`` of ``csrc/local_system.cu``, as Python."""
+    """``select_smem(v, f, staged)`` of ``csrc/local_system.cu``, as
+    Python (its integer division as ``//``)."""
     src = (Path(kernels.__file__).parent / "csrc"
            / "local_system.cu").read_text()
-    expr = re.search(r"inline size_t select_smem\(int v, int f\) \{\s*"
-                     r"return (.*?);", src, re.S).group(1)
-    expr = " ".join(expr.split()).replace("(size_t)", "")
-    return lambda v, f: eval(expr, {}, dict(v=v, f=f))
+    expr = re.search(r"inline size_t select_smem\(int v, int f, int staged\)"
+                     r" \{\s*return (.*?);", src, re.S).group(1)
+    expr = " ".join(expr.split()).replace("(size_t)", "").replace("/", "//")
+    return lambda v, f, staged: eval(expr, {}, dict(v=v, f=f, staged=staged))
 
 
 @pytest.mark.parametrize("v,f", [(1, 1), (1024, 2048), (10064, 10369),
-                                 (19357, 38714), (25064, 26005)])
+                                 (20633, 41266), (25064, 26005)])
 def test_select_smem_matches_the_kernels_layout(v, f):
-    """8 B per pose slot (the active set, the local index map), 2 B per
-    factor slot (the sweep's and the touched flags), the scan's and the
-    interval's 40 ints; the scratch route keeps only those 40 ints in
-    shared memory (``select_smem(0, 0)``)."""
+    """3 B per pose slot (its local slot, its byte of mask and level), a
+    bit per factor slot (its mask, in 4-byte words), the pair scan's and
+    the interval's 40 slots of 8 B; staged, 4 B more per factor slot (its
+    endpoints as a 16-bit pair)."""
     c_smem = _c_select_smem()
-    assert kernels.select_smem(v, f) == c_smem(v, f)
-    assert c_smem(0, 0) == 160
+    for staged in (1, 0):
+        assert kernels.select_smem(v, f, staged) == c_smem(v, f, staged)
+    assert kernels.select_smem(v, f) == c_smem(v, f, 1)
+    assert c_smem(0, 0, 1) == 320
+    assert c_smem(v, f, 1) - c_smem(v, f, 0) == 4 * f
+    assert c_smem(v, f, 0) == 320 + 3 * v + 4 * -(-f // 32)
 
 
-@pytest.mark.parametrize("v,f,route", [
-    (1024, 2048, "shared"),           # configs 2-3 capacity
-    (10064, 10369, "shared"),         # bench.py §5b's local graph
-    (19357, 2 * 19357, "shared"),     # the last pose count at F = 2V
-    (19358, 2 * 19358, "scratch"),
-    (23228, 23228, "shared"),         # the last pose count at F = V
-    (23229, 23229, "scratch"),
-    (25064, 26005, "scratch"),        # the smoke's phase 8d graph
-    (100000, 200000, "scratch"),
+@pytest.mark.parametrize("v,f,route,staged", [
+    (1024, 2048, "shared", True),            # configs 2-3 capacity
+    (10064, 10369, "shared", True),          # bench.py §5b's local graph
+    (20633, 2 * 20633, "shared", True),      # the last staged at F = 2V
+    (20634, 2 * 20634, "shared", False),
+    (32578, 32578, "shared", True),          # the last staged at F = V
+    (32579, 32579, "shared", False),
+    (25064, 26005, "shared", True),          # the smoke's phase 8d graph
+    (65535, 2 * 65535, "shared", False),     # the last pose count
+    (65536, 2 * 65536, "scratch", None),
+    (65535, 65535, "shared", False),
+    (65536, 65536, "scratch", None),
+    (1000, 128 * 1024, "shared", False),     # the last factor count
+    (1000, 128 * 1024 + 1, "scratch", None),
+    (100000, 200000, "scratch", None),
 ])
-def test_select_route(v, f, route):
+def test_select_route(v, f, route, staged):
     assert kernels.select_route(v, f) == route
-    assert (kernels.select_smem(v, f) <= kernels.SMEM_MAX) == (route
-                                                              == "shared")
+    if route == "shared":
+        assert (kernels.select_smem(v, f) <= kernels.SMEM_MAX) == staged
+        assert kernels.select_smem(v, f, 0) <= kernels.SMEM_MAX
+        assert -(-max(f, v) // 1024) <= kernels.SELECT_MAX_CHUNK
 
 
-V, F, P = 20000, 40000, 4    # past the limit: select_smem ~ 320 KB
-N = 19990                    # live poses
+def _parent_select_smem(v, f):
+    """The first design's shared route: 8 B per pose, 2 B per factor and
+    40 ints, up to what one block can have."""
+    return 4 * (2 * v + 40) + 2 * f
+
+
+@pytest.mark.parametrize("ratio", [1, 2])
+def test_select_route_keeps_every_graph_the_first_design_kept(ratio):
+    """Every (V, F = ratio x V) that the first design held in shared memory
+    is on the shared route, staged whole."""
+    for v in range(1, 40000, 37):
+        f = ratio * v
+        if _parent_select_smem(v, f) > kernels.SMEM_MAX:
+            continue
+        assert kernels.select_route(v, f) == "shared", (v, f)
+        assert kernels.select_smem(v, f) <= kernels.SMEM_MAX, (v, f)
+
+
+def test_select_route_takes_every_factor_count_the_first_design_took():
+    """At any F the first design held in shared memory beside V poses, up
+    to its ~116,000 factor slots, the shared route takes the graph."""
+    for v in range(1, 30000, 997):
+        f_max = (kernels.SMEM_MAX - 4 * (2 * v + 40)) // 2
+        for f in (1, f_max // 3, f_max):
+            if 1 <= f <= f_max:
+                assert kernels.select_route(v, f) == "shared", (v, f)
+                assert kernels.select_smem(v, f, 0) <= kernels.SMEM_MAX
+
+
+V, F, P = 70000, 140000, 4   # past the shared route's 65,535 poses
+N = 69990                    # live poses
 
 
 def _graph(extra):
