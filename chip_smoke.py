@@ -253,7 +253,7 @@ Phases (any failure exits non-zero, and no result line is printed):
     (``slab_accumulate[g1]``, ``finalize_cells``, ``slab_sgh[g1]``), the
     same gates against 12b's K3[g1] map, and K10a[g1], K10b and K10c[g1]
     against their plain versions (K10a then at G = 4 on the same slab
-    shape: its kept scratch is keyed by the grid count);
+    shape: its tile plan and work buffer follow the grid count);
 16. the per-scan path and the inputs (:func:`run_scan_phase`), every
     plain version (``pack_quad`` included) refusing CUDA tensors:
     ``ndtpu_torch.run.main --mode scan`` on config 2 (300 scans) and config
@@ -3406,6 +3406,8 @@ def check_k9a(c4, jobs=None):
     ms = time_ms(run)
     plain = time_ms(lambda: sn.supernodal_assemble_ref(plan,
                                                        *_flat(lin)))
+    lib_fn = k9a_library_call(plan, lin)
+    lib = time_ms(lib_fn)
     bd = k9a_bound(plan, lin)
     sp = plan.schur
     t = plan.routes.host
@@ -3414,13 +3416,62 @@ def check_k9a(c4, jobs=None):
           f"({t['tgt_col'].size} target blocks, {t['code'].size} pairs): vs "
           f"f32 plain max abs err {err:.3e}, vs f64 plain {err64:.3e} (rtol "
           f"1e-5 of each target's max); bit-identical on a second launch; "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (index_add_ "
+          f"of the routed blocks into the zeroed targets) {lib:.4f} ms, "
+          f"bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
     row = dict(max_abs_err=err, max_abs_err_f64=err64, ms=ms, plain_ms=plain,
                **bd)
+    row.update(library_ms=lib, library="torch.Tensor.index_add_ of the "
+               "routed 3x3 blocks (A^T B made beforehand) into the zeroed "
+               "h_ii, h_is and h_ss (flat): the same sums, without b_i, b_s")
     card_time(jobs, "K9a supernodal_assemble", row, "card_ms", run,
               ["supernodal_assemble"])
+    card_time(jobs, "K9a library call", row, "library_card_ms", lib_fn)
     return row, out
+
+
+def k9a_library_call(plan, lin):
+    """One ``index_add_`` computing K9a's three matrices: every routed
+    pair's ``A^T B`` (made beforehand, as the plain version makes them) into
+    the zeroed, flat ``h_ii``, ``h_is`` and ``h_ss`` by the plain version's
+    flat ids; K9a's yardstick (``library_ms``), not on any path."""
+    import torch
+
+    from ndtpu_torch.dist import schur
+    from ndtpu_torch.graph import supernodal as sn
+
+    t = sn.tables_on(plan, lin[0][0].device)
+    sp = plan.schur
+    ni, ns, nsl = sp.ni, sp.ns, plan.ns_loc
+    p_dim, fmax = sp.fac_idx.shape
+    (ai, aj, r), (ap, rp) = lin
+    flat = lambda x: x.reshape(-1)
+    (ra, la, rb, lb, vals, valid), _ = schur._local_blocks(
+        ai[t.fac_idx].reshape(-1, 3, 3), aj[t.fac_idx].reshape(-1, 3, 3),
+        r[t.fac_idx].reshape(-1, 3), ap[t.pri_idx].reshape(-1, 3, 3),
+        rp[t.pri_idx].reshape(-1, 3), flat(t.fac_mask), flat(t.i_role),
+        flat(t.i_loc), flat(t.j_role), flat(t.j_loc), flat(t.pri_mask),
+        flat(t.p_role), flat(t.p_loc))
+    shard = torch.arange(p_dim, device=ai.device)
+    sh_f = flat(shard[:, None].expand(p_dim, fmax))
+    sh_q = flat(shard[:, None].expand_as(t.pri_idx))
+    shards = torch.cat([sh_f, sh_f, sh_f, sh_f, sh_q])
+    lb_l = torch.cat([flat(x) for x in (t.i_loc_l, t.j_loc_l, t.i_loc_l,
+                                        t.j_loc_l, t.p_loc_l)])
+    irow = shards * ni + la
+    n_ii, n_is = p_dim * ni * ni * 9, p_dim * ni * nsl * 9
+    n_ss = ns * ns * 9
+    ids = torch.cat([
+        schur._block_ids(irow, lb, ni, (ra == 0) & (rb == 0) & valid),
+        schur._block_ids(irow, lb_l, nsl, (ra == 0) & (rb == 1) & valid)
+        + n_ii,
+        schur._block_ids(la, lb, ns, (ra == 1) & (rb == 1) & valid)
+        + n_ii + n_is])
+    vv = torch.cat([vals, vals, vals])
+    keep = ids < n_ii + n_is + n_ss
+    ids, vv = ids[keep], vv[keep]
+    return lambda: torch.zeros(n_ii + n_is + n_ss,
+                               device=vv.device).index_add_(0, ids, vv)
 
 
 def k9b_bound(plan) -> dict:
@@ -3456,11 +3507,14 @@ def check_k9b(c4, k9a_out, jobs=None):
     args = (s_part, rhs_part, h_ss, b_s, lam)
     run = lambda: sn.schur_reduce(plan, *args)
     out, again = run(), run()
+    model = sn.schur_reduce_model(plan, *args)
     ref = sn.schur_reduce_ref(plan, *args)
     ref64 = sn.schur_reduce_ref(plan, *_cpu64(args[:4]), lam)
     torch.cuda.synchronize()
     require(bool(torch.isfinite(s_part).all()), "K9b: Schur parts not finite")
     require(bits_equal(out, again), "K9b: two launches differ")
+    require(bits_equal(out, model), "K9b: differs from the plain model of "
+            "its sum order (schur_reduce_model)")
     err = _rel_check("K9b vs f32 plain", out, ref)
     err64 = _rel_check("K9b vs f64 plain", _cpu64(out), ref64)
     ms = time_ms(run)
@@ -3473,12 +3527,14 @@ def check_k9b(c4, k9a_out, jobs=None):
     keep = (t.gvalid[:, :, None] & t.gvalid[:, None, :]).reshape(-1)
     idx, src = pair[keep], s_part.reshape(-1)[keep]
     flat = h_ss.reshape(-1)
-    lib = time_ms(lambda: flat.clone().index_add_(0, idx, src, alpha=-1.0))
+    lib_fn = lambda: flat.clone().index_add_(0, idx, src, alpha=-1.0)
+    lib = time_ms(lib_fn)
     bd = k9b_bound(plan)
     print(f"[smoke] K9b schur_reduce ns={plan.schur.ns} "
           f"ns_loc={plan.ns_loc}: vs f32 plain max abs err {err:.3e}, vs f64 "
-          f"plain {err64:.3e} (rtol 1e-5 of each output's max); "
-          f"bit-identical on a second launch; kernel {ms:.4f} ms, plain "
+          f"plain {err64:.3e} (rtol 1e-5 of each output's max); bit-equal "
+          f"to the plain model of its sum order and on a second launch; "
+          f"kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, library (index_add_ of the routed parts into a "
           f"copy of h_ss, no damping) {lib:.4f} ms, bound "
           f"{bd['bound_ms']:.6f} ms ({bd['bound_by']})")
@@ -3488,7 +3544,8 @@ def check_k9b(c4, k9a_out, jobs=None):
                "of the routed Schur parts into a copy of h_ss: the same sum "
                "without the damping")
     card_time(jobs, "K9b schur_reduce", row, "card_ms", run,
-              ["schur_reduce"])
+              ["schur_reduce"], per_call=1)
+    card_time(jobs, "K9b library call", row, "library_card_ms", lib_fn)
     return row
 
 
@@ -6083,9 +6140,9 @@ def check_k9c(graph, n_ranks: int, lam: float, jobs=None):
         vv = torch.cat([vals, vals, vals])
         keep = ids < n_ii + n_is + n_ss
         ids, vv = ids[keep], vv[keep]
-        lib = time_ms(lambda: torch.zeros(n_ii + n_is + n_ss,
-                                          device=vv.device).index_add_(
-            0, ids, vv))
+        lib_fn = (lambda ids=ids, vv=vv, n=n_ii + n_is + n_ss:
+                  torch.zeros(n, device=vv.device).index_add_(0, ids, vv))
+        lib = time_ms(lib_fn)
         bd = k9c_bound(t, lin)
         print(f"[smoke] K9c schur_local_assemble rank {rank}/{n_ranks} "
               f"ni={ni} ns={ns} ({t.tgt_col.numel()} target blocks, "
@@ -6102,6 +6159,8 @@ def check_k9c(graph, n_ranks: int, lam: float, jobs=None):
                    "same sums without the damping")
         card_time(jobs, f"K9c schur_local_assemble rank {rank}", row,
                   "card_ms", run, ["supernodal_assemble_kernel<true>"])
+        card_time(jobs, f"K9c library call rank {rank}", row,
+                  "library_card_ms", lib_fn)
         rows.append(row)
     rows[0]["ranks"] = [dict(ni=r["ni"], ms=r["ms"]) for r in rows]
     return rows[0]
@@ -6576,8 +6635,8 @@ def check_k10a(label, points, mask, grid, x_lo: int, width: int,
         points, mask, grid, x_lo, width))
     _, lx, iy, live = gridmap._slab_cells(points, mask, grid, x_lo, width)
     w = live.float()
-    lib = time_ms(lambda: gridmap._accum_local(points, w, lx, iy, width,
-                                               grid))
+    lib_fn = lambda: gridmap._accum_local(points, w, lx, iy, width, grid)
+    lib = time_ms(lib_fn)
     bd = k10a_bound(points.shape[0], int(live.sum()), width, grid)
     print(f"[smoke] {name} {label} M={points.shape[0]} "
           f"({int(live.sum())} live (grid, point) pairs) into "
@@ -6593,8 +6652,10 @@ def check_k10a(label, points, mask, grid, x_lo: int, width: int,
     row.update(library_ms=lib, library="three torch.Tensor.index_add_ "
                "(n, w p, w p p^T) of the plain version, its bins and "
                "weights made beforehand")
-    card_time(jobs, f"{name} {label}", row, "card_ms", run,
-              ["slab_scatter", "slab_moments", "Memset"])
+    card_time(jobs, f"{name} {label}", row, "card_ms", run, ["slab_tile"],
+              per_call=3 if points.shape[0] else 1)
+    card_time(jobs, f"{name} {label} library call", row, "library_card_ms",
+              lib_fn)
     return row
 
 
@@ -7130,7 +7191,8 @@ def run_slab(dev, card, keep, seed: int, jobs, changes=None):
     12b's overlap-1 merge (``keep``): the ranks take their sessions' points
     from it (no sessions run), the map has one grid, K10a[g1] and K10c[g1]
     carry it, and a G = 4 K10a call of rank 0's slab shape after them
-    equals its fixed-point model (the scratch is keyed by grid count)."""
+    equals its fixed-point model (its tiles and work buffer follow the
+    grid count)."""
     import dataclasses
 
     import numpy as np
@@ -7352,8 +7414,9 @@ def run_slab(dev, card, keep, seed: int, jobs, changes=None):
     rows[k10a]["replicated"] = check_k10a(
         "rank 1 replicated", all_pts, all_msk, grid, nxl, nxl, jobs)
     if changes:
-        # K10a's kept scratch is keyed by the grid count too: a G = 4 call
-        # of the same slab shape after the G = 1 calls is its own model's.
+        # K10a's tile plan and work buffer follow the grid count: a G = 4
+        # call of the same slab shape after the G = 1 calls is its own
+        # model's.
         g4 = dataclasses.replace(grid, overlap=4)
         p0, m0 = all_pts[:na].contiguous(), all_msk[:na].contiguous()
         require(bits_equal(

@@ -8,6 +8,8 @@
 # kernel-route runs each after two warm-ups), and the CLI main path
 # (ndtpu_torch.run's main on each config's own scene, config 3 at 600 scans
 # and config 2 at 300: one warm-up run and two timed runs in one process).
+# Last, one line per hot key: each run's event and card ms, and whether the
+# outputs' hashes agree across runs.
 #
 #   bash compare_port.sh OLDER_CHECKOUT OUT_DIR [all|hot]
 #
@@ -55,3 +57,17 @@ print('CLI', [x['scans_per_s'] for x in r], [x['ate'] for x in r],
     grep CLI "$out/cli_${i}_${who}_$1.log"
   done
 done
+# Hot's keys side by side: each run's event ms and card ms, and whether
+# every run's outputs hash alike (SAME) or not (DIFF).
+python3 - "$out" <<'PY'
+import glob, json, sys
+runs = [(f.split("_")[-1][0], json.load(open(f))["hot"])
+        for f in sorted(glob.glob(sys.argv[1] + "/hot_*.json"))]
+for key, row in (runs[0][1] if runs else {}).items():
+    if not isinstance(row, dict) or "sha256" not in row:
+        continue
+    shas = {r.get(key, {}).get("sha256") for _, r in runs}
+    cells = [f"{who} {r.get(key, {}).get('ms')} {r.get(key, {}).get('card_ms')}"
+             for who, r in runs]
+    print(f"{key}: {'SAME' if len(shas) == 1 else 'DIFF'} " + " | ".join(cells))
+PY

@@ -20,11 +20,16 @@ The kernels route by tables the plan builds on the host
 (``dist.schur.build_routes``, which the distributed solve's K9c shares):
 for every target 3x3 block (and 3-vector) of step 1 the ordered endpoint
 pairs that land there, in pair order; for every separator row of step 3
-the shards whose local sets hold it. One owner sums each target in that
-fixed order with no float atomics, so a step is the same on every launch.
-The plain versions (:func:`supernodal_assemble_ref`,
-:func:`schur_reduce_ref`: the reference's segment sums) take CPU tensors
-and are the kernels' oracle; CUDA tensors go to the kernels or raise.
+the shards whose local sets hold it, and the columns some such shard
+holds (:func:`touch_table`, which the plan adds to those tables: K9b sums
+those entries and copies ``h_ss`` elsewhere). One owner
+sums each target in that fixed order with no float atomics, so a step is
+the same on every launch. The plain versions
+(:func:`supernodal_assemble_ref`, :func:`schur_reduce_ref`: the
+reference's segment sums) take CPU tensors and are the kernels' oracle;
+CUDA tensors go to the kernels or raise. :func:`schur_reduce_model` is
+the plain model of K9b's sum order, which the kernel equals bit for
+bit.
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ from ndtpu_torch.graph import solve as slv
 
 __all__ = ["SupernodalPlan", "tables_on", "plan_supernodal",
            "supernodal_assemble", "supernodal_assemble_ref", "schur_reduce",
-           "schur_reduce_ref", "interior_parts", "separator_solve",
+           "schur_reduce_ref", "schur_reduce_model", "touch_table",
+           "interior_parts", "separator_solve",
            "back_substitute", "supernodal_delta", "optimize_supernodal"]
 
 
@@ -73,6 +79,22 @@ def tables_on(plan: "SupernodalPlan", device) -> SimpleNamespace:
             k: torch.as_tensor(np.ascontiguousarray(v), device=device)
             for k, v in src.items()})
     return cache[key]
+
+
+def touch_table(ls_global, ls_mask, ns: int):
+    """K9b's held columns: ``(touch_ptr [ns+1], touch_col)``, for each
+    separator row the ascending union of the local separator sets of the
+    shards that hold it, and the row itself (so its diagonal is always
+    among them). :func:`plan_supernodal` adds both to its routes' tables
+    (``Routes.host``)."""
+    pairs = [np.arange(ns, dtype=np.int64) * (ns + 1)]
+    for g, m in zip(ls_global, ls_mask):
+        held = g[m].astype(np.int64)
+        pairs.append((held[:, None] * ns + held[None, :]).reshape(-1))
+    keys = np.unique(np.concatenate(pairs))
+    ptr = np.zeros(ns + 1, np.int64)
+    np.cumsum(np.bincount(keys // ns, minlength=ns), out=ptr[1:])
+    return ptr, keys % ns
 
 
 class SupernodalPlan(NamedTuple):
@@ -168,6 +190,9 @@ def plan_supernodal(graph: fct.PoseGraph, n_shards: int,
                          sep_global=perm[plan.sep_global].astype(np.int32))
     routes = build_routes(plan, ns_loc, ls_global, ls_mask, i_loc_l, j_loc_l,
                      p_loc_l, bet_i.shape[0], graph.prior_idx.shape[0])
+    touch_ptr, touch_col = touch_table(ls_global, ls_mask, ns)
+    routes.host.update(touch_ptr=touch_ptr.astype(np.int32),
+                       touch_col=touch_col.astype(np.int32))
     return SupernodalPlan(schur=plan, perm=np.asarray(perm),
                           n_shards=n_shards, ns_loc=ns_loc,
                           ls_global=ls_global, ls_mask=ls_mask,
@@ -262,16 +287,71 @@ def schur_reduce_ref(plan: SupernodalPlan, s_part, rhs_part, h_ss, b_s, lam):
     return s_tot + torch.diag(damp_s), rhs_tot
 
 
+def schur_reduce_model(plan: SupernodalPlan, s_part, rhs_part, h_ss, b_s,
+                       lam):
+    """Plain model of K9b's sum order, op for op, which the kernel equals
+    bit for bit on the card: ``s_tot`` is ``h_ss`` but at the held entries
+    (the columns ``touch_col`` of each separator row), where ``acc`` starts
+    at +0 and adds the part of each of the row's holders in shard order
+    that also holds the column, then ``h_ss - acc``, on the diagonal plus
+    ``lam * max(|h_ss|, 1e-8) + (1 - live)``; ``rhs_tot = b_s - acc`` with
+    ``acc`` over the holders in the same order. A holder that does not hold
+    the column adds +0, which leaves an ``acc`` from +0 unchanged. Nothing
+    on the main path calls this."""
+    t = tables_on(plan, s_part.device)
+    sp = plan.schur
+    ns, ns3, nsl3 = sp.ns, 3 * sp.ns, 3 * plan.ns_loc
+    dev = s_part.device
+    hold_ptr = t.hold_ptr.long()
+    n_hold = hold_ptr[1:] - hold_ptr[:-1]                       # [ns]
+    depth = int(n_hold.max()) if ns else 0
+    # The held entries, row-major within each separator's 3 x 3 blocks.
+    touch_ptr = t.touch_ptr.long()
+    g1 = torch.repeat_interleave(torch.arange(ns, device=dev),
+                                 touch_ptr[1:] - touch_ptr[:-1])
+    e, comp = g1.shape[0], torch.arange(3, device=dev)
+    per_entry = lambda x: x.expand(e, 3, 3).reshape(-1)
+    rr, cb = per_entry(comp[:, None]), per_entry(comp)
+    g1e = per_entry(g1[:, None, None])
+    g2e = per_entry(t.touch_col.long()[:, None, None])
+    rows, cols = 3 * g1e + rr, 3 * g2e + cb
+    s_flat, r_flat = s_part.reshape(-1), rhs_part.reshape(-1)
+    acc = torch.zeros(rows.shape[0], dtype=s_part.dtype, device=dev)
+    racc = torch.zeros((ns, 3), dtype=s_part.dtype, device=dev)
+    zero = torch.zeros((), dtype=s_part.dtype, device=dev)
+    for j in range(depth):
+        has = n_hold > j
+        h = torch.where(has, hold_ptr[:-1] + j, torch.zeros_like(hold_ptr[:-1]))
+        p, k1 = t.hold_shard.long()[h], t.hold_loc.long()[h]     # [ns]
+        pe, k1e = p[g1e], k1[g1e]
+        k2 = t.loc_of.long()[pe, g2e]
+        use = has[g1e] & (k2 >= 0)
+        at = ((pe * nsl3 + 3 * k1e + rr) * nsl3 + 3 * k2.clamp(min=0) + cb)
+        acc = acc + torch.where(use, s_flat[at], zero)
+        rat = (p[:, None] * nsl3 + 3 * k1[:, None] + comp[None, :])
+        racc = racc + torch.where(has[:, None], r_flat[rat], zero)
+    at = rows * ns3 + cols
+    hv = h_ss.reshape(-1)[at]
+    v = hv - acc
+    live = t.sep_mask.to(s_part.dtype)[g1e]
+    damp = lam * torch.clamp(torch.abs(hv), min=1e-8) + (1.0 - live)
+    v = torch.where(rows == cols, v + damp, v)
+    s_tot = h_ss.clone().reshape(-1)
+    s_tot[at] = v
+    return s_tot.reshape(ns3, ns3), b_s - racc.reshape(-1)
+
+
 def schur_reduce(plan: SupernodalPlan, s_part, rhs_part, h_ss, b_s, lam):
     """K9b wrapper: CUDA tensors go to the kernel (one launch, no float
-    atomics), CPU tensors to :func:`schur_reduce_ref`. ``lam`` is a Python
-    float."""
+    atomics; :func:`schur_reduce_model`'s bits), CPU tensors to
+    :func:`schur_reduce_ref`. ``lam`` is a Python float."""
     if not s_part.is_cuda:
         return schur_reduce_ref(plan, s_part, rhs_part, h_ss, b_s, lam)
     t = tables_on(plan, s_part.device)
     return kernels.schur_reduce(s_part, rhs_part, h_ss, b_s, t.hold_ptr,
                                 t.hold_shard, t.hold_loc, t.loc_of,
-                                t.sep_mask, lam, plan.ns_loc)
+                                t.touch_ptr, t.touch_col, t.sep_mask, lam,
+                                plan.ns_loc)
 
 
 def interior_parts(plan: SupernodalPlan, h_ii, h_is, b_i, lam):

@@ -55,7 +55,8 @@ supernodal_  ``csrc/supernodal.cu`` (K9a)    ``supernodal._assemble_parts``
 assemble
 schur_reduce ``csrc/supernodal.cu`` (K9b)    ``supernodal.supernodal_delta``'s
                                              separator segment sums and
-                                             damping
+                                             damping: ``h_ss`` streamed,
+                                             the held entries summed
 schur_local_ ``csrc/supernodal.cu`` (K9c)    ``dist/schur.py::
 assemble                                     _schur_delta_local``'s
                                              ``assemble_local_parts`` and
@@ -67,7 +68,10 @@ unpacked                                     over poses (``grid.lookup`` +
                                              its hypotheses
 slab_        ``csrc/slab_accum.cu`` (K10a)   ``dist/gridmap.py::_accum_local``
 accumulate                                   with ``_cell_xy`` and the slab
-                                             masks of its two callers
+                                             masks of its two callers: the
+                                             pairs binned by tile, each
+                                             tile summed in a cluster's
+                                             shared memory
 finalize_    ``csrc/finalize_cells.cu``      ``grid.finalize`` on any layout
 cells        (K10b)                          (``finalize_slab``)
 slab_sgh     ``csrc/ndt_unpacked.cu`` (K10c) ``match_slab``'s per-rank terms
@@ -164,7 +168,8 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "select_route", "local_select", "assemble_scratch",
            "local_assemble",
            "supernodal_assemble", "schur_reduce", "schur_local_assemble",
-           "ndt_sgh_unpacked", "slab_accumulate", "finalize_cells",
+           "ndt_sgh_unpacked", "slab_tiles", "slab_work", "slab_accumulate",
+           "finalize_cells",
            "slab_spread", "slab_sgh", "raycast", "voxel_downsample"]
 
 #: The quad-table layouts ``(G, L)``: G overlap grids per row (4, or 1 at
@@ -225,7 +230,6 @@ _HALFCELL_SCRATCH: dict = {}     # (device index, maps, wh, hh) -> lattices
 _GATE_ARRIVE: dict = {}          # (device index, K) -> int32 counters
 _FINALIZE_BANDS: dict = {}       # (grid, device index) -> K4 launch shape
 _SM_COUNT: dict = {}             # device index -> multiprocessors
-_SLAB_SCRATCH: dict = {}         # (device index, G, width, ny) -> int64 sums
 _LIN_ARRIVE: dict = {}           # (device index, stream) -> K5's int32 ticket
 _ASM_CTL: dict = {}              # (device index, stream) -> K7b's 4 int32
 
@@ -259,11 +263,11 @@ _SIGNATURES = {
                              + [_I] + [_P] * 5,
     "supernodal_assemble_launch": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 4
                                   + [_P] * 6,
-    "schur_reduce_launch": [_P] * 9 + [_F, _I, _I, _P, _P, _P],
+    "schur_reduce_launch": [_P] * 11 + [_F, _I, _I, _P, _P, _P],
     "schur_local_assemble_launch": [_P] * 5 + [_I] + [_P] * 7
                                    + [_F, _I, _I] + [_P] * 6,
     "ndt_sgh_unpacked_launch": [_P] * 7 + [_I] * 4 + [_F] * 5 + [_I, _P],
-    "slab_accum_launch": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_I, _P],
+    "slab_accum_launch": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_I] * 4 + [_P],
     "finalize_cells_launch": [_P] * 6 + [ctypes.c_longlong] + [_F] * 3
                              + [_P],
     "slab_sgh_launch": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
@@ -1332,11 +1336,15 @@ def supernodal_assemble(ai, aj, r, ap, rp, row_ptr, tgt_col, tgt_ptr, code,
 
 
 def schur_reduce(s_part, rhs_part, h_ss, b_s, hold_ptr, hold_shard, hold_loc,
-                 loc_of, sep_mask, lam, nsl: int):
+                 loc_of, touch_ptr, touch_col, sep_mask, lam, nsl: int):
     """K9b: ``(s_tot [3ns, 3ns], rhs_tot [3ns])``, the shards' Schur parts
     ``s_part [P, 3nsl, 3nsl]``, ``rhs_part [P, 3nsl]`` routed into the
     separator system ``h_ss``, ``b_s`` and damped by ``lam`` (a Python
-    float; see ``csrc/supernodal.cu``)."""
+    float): ``h_ss`` streamed into ``s_tot``, then the entries of the held
+    columns ``touch_ptr`` / ``touch_col`` summed (see
+    ``csrc/supernodal.cu``). ``s_tot`` and ``rhs_tot`` are views of one
+    allocation, ``s_tot`` placed at the alignment of ``h_ss`` mod 16 bytes
+    (the kernel copies in 16-byte vectors)."""
     p = s_part.shape[0]
     ns = loc_of.shape[1]
     _check(s_part, "s_part", shape=(p, 3 * nsl, 3 * nsl))
@@ -1348,15 +1356,21 @@ def schur_reduce(s_part, rhs_part, h_ss, b_s, hold_ptr, hold_shard, hold_loc,
     _check(hold_shard, "hold_shard", dtype=torch.int32, shape=(n_hold,))
     _check(hold_loc, "hold_loc", dtype=torch.int32, shape=(n_hold,))
     _check(loc_of, "loc_of", dtype=torch.int32, shape=(p, ns))
+    _check(touch_ptr, "touch_ptr", dtype=torch.int32, shape=(ns + 1,))
+    _check(touch_col, "touch_col", dtype=torch.int32,
+           shape=(touch_col.shape[0],))
     _check(sep_mask, "sep_mask", dtype=torch.bool, shape=(ns,), align=1)
-    s_tot = torch.empty((3 * ns, 3 * ns), dtype=torch.float32,
-                        device=s_part.device)
-    rhs_tot = torch.empty(3 * ns, dtype=torch.float32, device=s_part.device)
+    off = h_ss.data_ptr() % 16 // 4
+    out = torch.empty(off + 9 * ns * ns + 3 * ns, dtype=torch.float32,
+                      device=s_part.device)
+    s_tot = out[off:off + 9 * ns * ns].view(3 * ns, 3 * ns)
+    rhs_tot = out[off + 9 * ns * ns:]
     _call("schur_reduce_launch", "schur_reduce", s_part.data_ptr(),
           rhs_part.data_ptr(), h_ss.data_ptr(), b_s.data_ptr(),
           hold_ptr.data_ptr(), hold_shard.data_ptr(), hold_loc.data_ptr(),
-          loc_of.data_ptr(), sep_mask.data_ptr(), float(lam), nsl, ns,
-          s_tot.data_ptr(), rhs_tot.data_ptr(), _stream(s_part))
+          loc_of.data_ptr(), touch_ptr.data_ptr(), touch_col.data_ptr(),
+          sep_mask.data_ptr(), float(lam), nsl, ns, s_tot.data_ptr(),
+          rhs_tot.data_ptr(), _stream(s_part))
     return s_tot, rhs_tot
 
 
@@ -1422,19 +1436,50 @@ def ndt_sgh_unpacked(poses, points, mask_f, mean, icov, valid, grid,
     return out[:, 0], out[:, 1:4], out[:, 4:13].view(b, 3, 3), out[:, 13]
 
 
-def _slab_scratch(dev: torch.device, grids: int, width: int,
-                  ny: int) -> torch.Tensor:
-    """K10a's int64 ``[G, width, ny, 6]`` sums, allocated once per (device,
-    grid count, slab shape) and kept: every call zeroes them on its own
-    stream first, so two calls on one stream never overlap on them (two
-    streams would: ROADMAP C-w6)."""
-    key = (dev.index, grids, width, ny)
-    buf = _SLAB_SCRATCH.get(key)
-    if buf is None:
-        buf = torch.empty(grids * width * ny * 6, dtype=torch.int64,
-                          device=dev)
-        _SLAB_SCRATCH[key] = buf
-    return buf
+#: K10a's tiles (``csrc/slab_accum.cu``): ``SLAB_TILE_CELLS`` cells of one
+#: grid (their six int64 sums take 12 KB of a block's shared memory), at
+#: most ``SLAB_TILE_ROWS`` rows; points per bin block. Up to
+#: ``SLAB_MAX_TILES`` tiles (~6 M cells) the bin blocks keep their two int32
+#: counters per tile in shared memory, past it in the work buffer.
+SLAB_TILE_CELLS = 256
+SLAB_TILE_ROWS = 16
+SLAB_BIN_CHUNK = 2048
+SLAB_MAX_TILES = (SMEM_MAX - 20 * SLAB_BIN_CHUNK - 256) // 8
+
+
+class SlabTiles(NamedTuple):
+    tw: int      # columns per tile (the last may have fewer)
+    th: int      # rows per tile (the last may have fewer)
+    nxt: int     # tiles across the slab's width
+    nyt: int     # tiles across ny
+    tiles: int   # grids * nxt * nyt
+
+
+def slab_tiles(grids: int, width: int, ny: int) -> SlabTiles:
+    """K10a's tile plan for a slab of ``grids x width x ny`` cells:
+    ``slab_tile_plan`` of ``csrc/slab_accum.cu``. Tiles of ``th = min(16,
+    ny rounded up to a power of two)`` rows by ``tw = 256 / th`` columns, ``nyt = ceil(ny / th)`` bands by ``nxt = ceil(width / tw)``
+    strips; tile ``(g x nxt + tx) x nyt + ty`` holds columns ``[tx tw,
+    (tx + 1) tw)`` and rows ``[ty th, (ty + 1) th)`` of grid ``g``, cut at
+    the slab's edge. Every ``(width, ny)`` is tiled; shapes only, never a
+    timing."""
+    th = 1
+    while th < ny and th < SLAB_TILE_ROWS:
+        th *= 2
+    tw = SLAB_TILE_CELLS // th
+    nxt, nyt = -(-width // tw), -(-ny // th)
+    return SlabTiles(tw, th, nxt, nyt, grids * nxt * nyt)
+
+
+def slab_work(grids: int, m: int, tiles: int) -> int:
+    """K10a's per-call int32 work buffer for ``m`` points in ``B =
+    ceil(m / 2,048)`` bin blocks: each block's count per tile with the
+    tile's total after them (``[tiles, B + 1]``), each block's first slot
+    per tile (``[tiles, B]``), and each block's region
+    of ``grids x 2,048`` slots for its pairs sorted by tile (the point's
+    index) with, beside them, each pair's cell in its tile (one byte)."""
+    b = -(-m // SLAB_BIN_CHUNK)
+    return 2 * tiles * b + tiles + b * grids * SLAB_BIN_CHUNK * 5 // 4
 
 
 def slab_accumulate(points, mask, grid, x_lo: int, width: int):
@@ -1443,16 +1488,22 @@ def slab_accumulate(points, mask, grid, x_lo: int, width: int):
     ``points [M, 2]`` (f32) and ``mask [M]`` (bool), each point counted in
     the cell of each overlap grid that ``ndt.grid.cell_ids`` gives it, if
     that cell is in the map and in the slab (see ``csrc/slab_accum.cu``).
-    Summed in 64-bit fixed point: the same result on every run and under
-    any order of the points. One ctypes call (zero the kept scratch,
-    scatter, moments), one ``LAUNCHES["slab_accumulate"]`` (``[g1]`` at
-    overlap 1)."""
+    Summed in 64-bit fixed point in the shared memory of the clusters that
+    own each tile (:func:`slab_tiles`): the same result on every run and
+    under any order of the points. One ctypes call (bin the pairs by tile,
+    scan, sum; three kernels, one at ``M = 0``) into a per-call work
+    buffer (:func:`slab_work`), one ``LAUNCHES["slab_accumulate"]``
+    (``[g1]`` at overlap 1). Every slab shape and point count is taken:
+    past :data:`SLAB_MAX_TILES` tiles, or past the bin blocks whose
+    segment offsets fit the sum's shared memory (~56 M points), the
+    kernels keep those in the work buffer instead."""
     if width < 1:
         raise ValueError(f"slab_accumulate: width {width} < 1")
     m = points.shape[0]
     _check(points, "points", shape=(m, 2), align=8)
     _check(mask, "mask", dtype=torch.bool, shape=(m,), align=1)
     dev, g, ny = points.device, grid.overlap, grid.ny
+    tp = slab_tiles(g, width, ny)
     # ss first, then s and n: the kernel stores ss as float4 and s as
     # float2, aligned whatever G x width x ny is.
     c = g * width * ny
@@ -1460,11 +1511,12 @@ def slab_accumulate(points, mask, grid, x_lo: int, width: int):
     ss = out[:4 * c].view(g, width, ny, 2, 2)
     s = out[4 * c:6 * c].view(g, width, ny, 2)
     n = out[6 * c:].view(g, width, ny)
+    work = torch.empty(slab_work(g, m, tp.tiles), dtype=torch.int32,
+                       device=dev)
     _call("slab_accum_launch", variant("slab_accumulate", g),
-          points.data_ptr(), mask.data_ptr(),
-          _slab_scratch(dev, g, width, ny).data_ptr(), n.data_ptr(),
+          points.data_ptr(), mask.data_ptr(), work.data_ptr(), n.data_ptr(),
           s.data_ptr(), ss.data_ptr(), m, grid.nx, ny, x_lo, width, grid.x0,
-          grid.y0, grid.cell, g, _stream(points))
+          grid.y0, grid.cell, g, tp.tw, tp.th, tp.tiles, _stream(points))
     return n, s, ss
 
 

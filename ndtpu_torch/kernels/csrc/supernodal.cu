@@ -20,11 +20,23 @@
 // (:338-353) and the subtraction and damping after them (:355-361):
 // s_tot = h_ss - sum_p s_part[p] + diag(lam * max(|diag h_ss|, 1e-8) + (1
 // - live)), rhs_tot = b_s - sum_p rhs_part[p], each shard's part routed by
-// its local separator set. One block per separator row: each entry sums
-// the parts of the shards that hold both its row and its column (the
-// row's holders in shard order, the column's local slot from a [P, ns]
-// map), then subtracts from h_ss. Bound: bytes (h_ss and the parts read,
-// s_tot written, ~28 MB at 10k poses).
+// its local separator set. Bound: bytes, h_ss read and s_tot written (2 x
+// 11.2 MB at 10k poses, P = 64, ns = 558), beside which the held parts
+// (~0.6 MB) and the tables are small. Almost every entry of s_tot is a
+// copy: a separator row's entries that some shard holds are those whose
+// column is in the union of the row's holders' local separator sets, ~5%
+// at 10k poses. So one block per separator row first streams its three
+// contiguous scalar rows of h_ss into s_tot with 16-byte loads and stores
+// (the wrapper gives s_tot the alignment of h_ss mod 16; a scalar head and
+// tail take the rest), then, after a barrier, writes each held entry's
+// final value: the row's holders in shard order, the column's local slot
+// from a [P, ns] map, acc from +0.f, v = h_ss - acc, and on the diagonal v
+// + the damping. The held columns come from a host table (touch_ptr /
+// touch_col, graph/supernodal.py::touch_table: the union above, and the
+// row's own separator so that its diagonal is always written there). A copied
+// entry is h_ss - 0.f, which is h_ss bit for bit: every output is the
+// bits of the first design (one thread per entry running the holder loop
+// for all 3 x 3ns entries of the row).
 //
 // K9c schur_local_assemble is K9a's body for one rank of the distributed
 // Schur solve (ndtpu/dist/schur.py::_schur_delta_local, :386, with
@@ -182,22 +194,54 @@ struct SchurArgs {
   const int* hold_shard;  // [H]
   const int* hold_loc;    // [H]
   const int* loc_of;      // [P, ns], -1 where not held
+  const int* touch_ptr;   // [ns + 1]
+  const int* touch_col;   // [T] held separator columns of each row
   const uint8_t* sep_mask;  // [ns]
   float lam;
   int nsl, ns;
-  float* s_tot;
+  float* s_tot;           // the alignment of h_ss mod 16
   float* rhs_tot;
 };
+
+constexpr int kCopyUnroll = 4;   // 16-byte loads in flight per thread
+
+// dst[0, n) = src[0, n) where src and dst are equally aligned mod 16.
+__device__ __forceinline__ void stream_copy(const float* __restrict__ src,
+                                            float* __restrict__ dst,
+                                            int n) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int head = min(n, (int)(((16 - ((uintptr_t)src & 15)) & 15) >> 2));
+  if (tid < head) dst[tid] = src[tid];
+  const int n4 = (n - head) >> 2;
+  const float4* s4 = reinterpret_cast<const float4*>(src + head);
+  float4* d4 = reinterpret_cast<float4*>(dst + head);
+  for (int i = tid; i < n4; i += kCopyUnroll * T) {
+    float4 v[kCopyUnroll];
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u)
+      if (i + u * T < n4) v[u] = __ldg(s4 + i + u * T);
+#pragma unroll
+    for (int u = 0; u < kCopyUnroll; ++u)
+      if (i + u * T < n4) d4[i + u * T] = v[u];
+  }
+  const int done = head + 4 * n4;
+  if (tid < n - done) dst[done + tid] = src[done + tid];
+}
 
 __global__ void __launch_bounds__(kSchurThreads)
 schur_reduce_kernel(SchurArgs a) {
   const int g1 = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
   const int ns3 = 3 * a.ns, nsl3 = 3 * a.nsl;
+  const size_t row0 = (size_t)3 * g1 * ns3;
+  stream_copy(a.h_ss + row0, a.s_tot + row0, 3 * ns3);
+  __syncthreads();   // each held entry's store below is its last
   const int h0 = a.hold_ptr[g1], h1 = a.hold_ptr[g1 + 1];
   const float dead = 1.f - (a.sep_mask[g1] ? 1.f : 0.f);
-  for (int e = tid; e < 3 * ns3; e += T) {
-    const int rr = e / ns3, col = e - rr * ns3;
-    const int g2 = col / 3, cb = col - 3 * g2;
+  const int t0 = a.touch_ptr[g1], nt = a.touch_ptr[g1 + 1] - t0;
+  for (int e = tid; e < 9 * nt; e += T) {
+    const int k = e / 9, q = e - 9 * k;
+    const int rr = q / 3, cb = q - 3 * rr;
+    const int g2 = a.touch_col[t0 + k], col = 3 * g2 + cb;
     float acc = 0.f;
     for (int h = h0; h < h1; ++h) {
       const int p = a.hold_shard[h];
@@ -206,7 +250,7 @@ schur_reduce_kernel(SchurArgs a) {
       acc = acc + a.s_part[((size_t)p * nsl3 + 3 * a.hold_loc[h] + rr) * nsl3
                            + 3 * k2 + cb];
     }
-    const size_t at = (size_t)(3 * g1 + rr) * ns3 + col;
+    const size_t at = row0 + (size_t)rr * ns3 + col;
     const float hv = a.h_ss[at];
     float v = hv - acc;
     if (col == 3 * g1 + rr)
@@ -267,14 +311,16 @@ extern "C" int schur_local_assemble_launch(
 extern "C" int schur_reduce_launch(
     const void* s_part, const void* rhs_part, const void* h_ss,
     const void* b_s, const void* hold_ptr, const void* hold_shard,
-    const void* hold_loc, const void* loc_of, const void* sep_mask,
-    float lam, int nsl, int ns, void* s_tot,
-    void* rhs_tot, void* stream) {
-  if (nsl < 1 || ns < 1) return (int)cudaErrorInvalidValue;
+    const void* hold_loc, const void* loc_of, const void* touch_ptr,
+    const void* touch_col, const void* sep_mask, float lam, int nsl, int ns,
+    void* s_tot, void* rhs_tot, void* stream) {
+  if (nsl < 1 || ns < 1 || ((uintptr_t)h_ss & 15) != ((uintptr_t)s_tot & 15))
+    return (int)cudaErrorInvalidValue;
   const SchurArgs a{(const float*)s_part, (const float*)rhs_part,
                     (const float*)h_ss, (const float*)b_s,
                     (const int*)hold_ptr, (const int*)hold_shard,
                     (const int*)hold_loc, (const int*)loc_of,
+                    (const int*)touch_ptr, (const int*)touch_col,
                     (const uint8_t*)sep_mask, lam, nsl, ns, (float*)s_tot,
                     (float*)rhs_tot};
   schur_reduce_kernel<<<ns, kSchurThreads, 0, (cudaStream_t)stream>>>(a);

@@ -121,8 +121,9 @@ def card_ms(fn, names=None, reps: int = 20, per_call=None):
     as many. That cannot tell a count that every session falls short of
     from a whole one: give ``per_call`` where it is known. Up to ten
     sessions; None when none counts. ``card_ms.counts`` keeps the
-    operations each session of the last call recorded, ``card_ms.detail``
-    the last session's by name."""
+    operations each session of the last call recorded, ``card_ms.taken``
+    the operations per call of the session whose time it returned (None
+    where none counted), ``card_ms.detail`` the last session's by name."""
     import collections
 
     import torch
@@ -132,6 +133,7 @@ def card_ms(fn, names=None, reps: int = 20, per_call=None):
     fn()
     torch.cuda.synchronize()
     counts = card_ms.counts = []
+    card_ms.taken = None
     for _ in range(10):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -148,6 +150,7 @@ def card_ms(fn, names=None, reps: int = 20, per_call=None):
         card_ms.detail = sorted(collections.Counter(e.name[:40]
                                                     for e in ev).items())
         if whole:
+            card_ms.taken = n / reps
             us = sum(e.time_range.end - e.time_range.start for e in ev)
             return us / 1e3 / reps
     return None
@@ -171,6 +174,45 @@ def seeded_stats(grid, seed: int, dev, n_points: int = 400_000):
     return ndt_grid.halfcell_add(
         ndt_grid.empty_stats(grid, torch.float32, dev), pts.contiguous(),
         torch.ones(n_points, dtype=torch.bool, device=dev), 1.0, grid)
+
+
+#: K10a's inputs' slab on config 5's grid: rank 0's halo-extended slab of
+#: two ranks of 128 columns with a 44-column halo (x_lo = -44, 216
+#: columns).
+K10A_HALO = 44
+#: K10a's kernels per call in the card time: the tiled design's bin, scan
+#: and sum, or an older design's memset, scatter and moments (three each).
+K10A_NAMES = ["slab_tile", "slab_scatter", "slab_moments", "Memset"]
+
+
+def k10a_random_points(grid, seed: int, dev, n: int = 368_640):
+    """``n`` points around 2,000 centres drawn from ``seed`` in the middle
+    40% of ``grid`` (N(0, 0.6 m) about each), all masked: K10a's
+    random-order input."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 14)
+    lo = np.array([grid.x0, grid.y0])
+    span = np.array([grid.nx, grid.ny]) * grid.cell
+    centers = lo + rng.uniform(0.3, 0.7, (2000, 2)) * span
+    pts = torch.as_tensor(centers[rng.integers(0, 2000, n)]
+                          + rng.normal(0.0, 0.6, (n, 2)),
+                          dtype=torch.float32, device=dev).contiguous()
+    return pts, torch.ones(n, dtype=torch.bool, device=dev)
+
+
+def k10a_scan_points(seed: int, dev, n_beams: int, n_scans: int = 1024):
+    """Box-world draw ``seed`` of ``n_scans`` scans of ``n_beams`` beams at
+    their true poses, in scan order (``1,024 x 360 = 368,640`` points, the
+    box's walls crowded into few cells): K10a's scan-ordered input."""
+    from chip_smoke import box_sequence
+    from ndtpu_torch.lie import se2
+
+    seq = box_sequence(seed, n_beams, n_scans=n_scans)
+    pts = se2.transform(seq.gt_poses, seq.points).reshape(-1, 2)
+    return (pts.to(dev).contiguous(),
+            seq.mask.reshape(-1).to(dev).contiguous())
 
 
 def loop_queries(cfg3, seq, kf, seed: int, dev, c: int):
@@ -380,7 +422,12 @@ def hot_times(seed: int, dev) -> dict:
     run above (the pipeline's shape) and at 8,192 seeded gathered slots
     (``chip_smoke.K7B_PAST``); K11 at ``chip_smoke.K11_CASES``' corridor
     (f64, f32), serving (f64) and 4,004-segment (f64) inputs (each
-    ``"raises"`` where an older kernel refuses it). Beside them each
+    ``"raises"`` where an older kernel refuses it); K10a at rank 0's
+    halo-extended slab of config 5's grid (:data:`K10A_HALO`), at both
+    overlaps, on the box-world scans at their true poses in scan order
+    (:func:`k10a_scan_points`) and on seeded random-order points
+    (:func:`k10a_random_points`); K9a and K9b on config 4's 10k graph (P =
+    64, lam 1e-3: ``chip_smoke.check_k9b``'s inputs). Beside them each
     launch's outputs' sha256 and, for configs 1, 2 and 3 on box-world
     draws 0-2, the ATE and the trajectory's sha256
     (``run_odometry_windowed``, ``run_slam_windowed``), and the served
@@ -389,8 +436,10 @@ def hot_times(seed: int, dev) -> dict:
     iteration by PCG (``chip_smoke.run_incremental_10k``,
     ``run_config4_pcg``); where the port chooses ``lm_ndt``'s threads per
     lane (``kernels.lm_spread``), also the window's and verify's card ms
-    at R = 1-4. It uses only entry points older checkouts of the port
-    also have, and ``chip_smoke.py``'s helpers (``compare_port.sh`` copies
+    at R = 1-4; for each key the device operations per call in the
+    profiler session whose time was taken (``launches_per_call``; None
+    with the card ms). It uses only entry
+    points older checkouts of the port also have, and ``chip_smoke.py``'s helpers (``compare_port.sh`` copies
     both scripts into the older checkout), so two commits compare in one
     call. Every event time is read before the first profiler session."""
     import dataclasses
@@ -416,6 +465,7 @@ def hot_times(seed: int, dev) -> dict:
     from ndtpu_torch.graph import factors as fct
     from ndtpu_torch.graph import incremental as inc
     from ndtpu_torch.graph import solve as slv
+    from ndtpu_torch.graph import supernodal as sn
     from ndtpu_torch.loop import closure
     from ndtpu_torch.ndt import grid as ndt_grid
     from ndtpu_torch.ndt import match
@@ -570,6 +620,36 @@ def hot_times(seed: int, dev) -> dict:
                 pose5, probe, probe_m, *h, gr, r * nxl, m5.d2, m5.exp_clip),
                 ["slab_sgh"])
             per_call[key] = 1
+    # K10a at rank 0's halo-extended slab on config 5's grid, at both
+    # overlaps: the box-world scans at their true poses in scan order and
+    # the seeded random-order points.
+    k10a_inputs = {"scan-ordered": k10a_scan_points(seed, dev, cfg5.n_beams),
+                   "random-order": k10a_random_points(cfg5.grid, seed, dev)}
+    for gn in (4, 1):
+        gr = dataclasses.replace(cfg5.grid, overlap=gn)
+        for label, (p10, m10) in k10a_inputs.items():
+            key = kernels.variant("K10a slab_accumulate", gn) + f" {label}"
+            calls[key] = (lambda p10=p10, m10=m10, gr=gr:
+                          kernels.slab_accumulate(
+                              p10, m10, gr, -K10A_HALO,
+                              nxl + 2 * K10A_HALO), K10A_NAMES)
+            per_call[key] = 3
+    # K9a and K9b on config 4's 10k graph (P = 64), on the inputs
+    # chip_smoke.check_k9b builds: K9a's outputs and the interior
+    # elimination at lam 1e-3.
+    plan4 = sn.plan_supernodal(g4, CONFIG4["shards"])
+    lin4f = [*lin4[0], *lin4[1]]
+    calls["K9a supernodal_assemble 10k"] = (
+        lambda: sn.supernodal_assemble(plan4, *lin4f),
+        ["supernodal_assemble"])
+    h_ii4, h_is4, h_ss4, b_i4, b_s4 = sn.supernodal_assemble(plan4, *lin4f)
+    _, _, s_part4, rhs_part4 = sn.interior_parts(
+        plan4, h_ii4.clone(), h_is4, b_i4, CONFIG4["lam"])
+    calls["K9b schur_reduce 10k"] = (
+        lambda: sn.schur_reduce(plan4, s_part4, rhs_part4, h_ss4, b_s4,
+                                CONFIG4["lam"]), ["schur_reduce"])
+    per_call["K9a supernodal_assemble 10k"] = 1
+    per_call["K9b schur_reduce 10k"] = 1
     # K11 at the corridor (f64, f32) and serving shapes, and past the first
     # design's 48 KB (4,004 segments); K7b on the config-3 graph's local
     # selection (the smoke's), the pipeline's own last call and past the
@@ -645,7 +725,8 @@ def hot_times(seed: int, dev) -> dict:
         config4_pcg_n_iter=pcg4["n_iter"],
         config4_pcg_chi2_final=pcg4["chi2_final"])
     for key, (fn, names) in calls.items():
-        out[key]["card_ms"] = card_ms(fn, names)
+        out[key]["card_ms"] = card_ms(fn, names, per_call=per_call.get(key))
+        out[key]["launches_per_call"] = card_ms.taken
     if hasattr(kernels, "lm_spread"):      # lm_ndt's threads per lane
         saved, spreads = kernels.lm_spread, {}
         try:
@@ -758,15 +839,8 @@ def serving_layout_times(seed: int, dev, sessions: int, n_scans: int
     probe = seq.points[0].to(dev).contiguous()
     probe_m = seq.mask[0].to(dev).contiguous()
     hyp = merge._hypothesis_grid(8.0, 1.0, 16, torch.float32, dev)
-    rng = np.random.default_rng(seed + 14)
-    lo = np.array([cfg5.grid.x0, cfg5.grid.y0])
-    span = np.array([cfg5.grid.nx, cfg5.grid.ny]) * cfg5.grid.cell
-    centers = lo + rng.uniform(0.3, 0.7, (2000, 2)) * span
-    pts5 = torch.as_tensor(centers[rng.integers(0, 2000, 368_640)]
-                           + rng.normal(0.0, 0.6, (368_640, 2)),
-                           dtype=torch.float32, device=dev).contiguous()
-    msk5 = torch.ones(368_640, dtype=torch.bool, device=dev)
-    nxl, halo = cfg5.grid.nx // 2, 44
+    pts5, msk5 = k10a_random_points(cfg5.grid, seed, dev)
+    nxl, halo = cfg5.grid.nx // 2, K10A_HALO
     pose1 = torch.zeros((1, 3), device=dev)
     for g in (4, 1):
         gr = dataclasses.replace(cfg5.grid, overlap=g)
@@ -780,7 +854,7 @@ def serving_layout_times(seed: int, dev, sessions: int, n_scans: int
         calls[kernels.variant("slab_accumulate", g) + " halo-extended"] = (
             lambda gr=gr: kernels.slab_accumulate(pts5, msk5, gr, -halo,
                                                   nxl + 2 * halo),
-            ["slab_scatter", "slab_moments", "Memset"])
+            K10A_NAMES)
         calls[kernels.variant("slab_sgh", g) + " B=1"] = (
             lambda slab=slab, gr=gr: kernels.slab_sgh(
                 pose1, probe, probe_m.float(), *slab, gr, 0, cfg5.match.d2,

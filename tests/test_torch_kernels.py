@@ -17,8 +17,12 @@ also through a one-rank match_slab (K10a and K10c also at overlap 1; K10c
 also past its 1,024 beams a block), and the inputs' K11 raycast and K13
 voxel_downsample, also through make_sequence and the CLI's scan mode; K7b
 and K11 also past the sizes their first designs refused)
-against their plain twins, on the card; K10a also against the plain model of its fixed-point arithmetic, bit
-for bit; K3 also against the plain model of its
+against their plain twins, on the card; K9b also bit for bit against the
+plain model of its sum order (schur_reduce_model); K10a also against the
+plain model of its fixed-point arithmetic, bit for bit, also on slabs of
+several tiles in x and y, with every point in one cell, every point
+masked out and no points, on a slab past the tiles its bin blocks count in
+shared memory and on 60 M points; K3 also against the plain model of its
 fixed-point arithmetic, bit for bit, K3, K4 and K8a for the same result on
 every launch (K3 and K8a also under any order of the points), and the
 gated verify bit for bit against lm_ndt_grouped followed by the
@@ -996,6 +1000,26 @@ def test_schur_reduce_matches_plain_and_repeats(config4):
     assert kernels.LAUNCHES["schur_reduce"] >= 2
 
 
+def test_schur_reduce_equals_ordered_model_bit_for_bit(config4):
+    """K9b (``h_ss`` streamed, the held entries summed) equals
+    ``schur_reduce_model``, the plain model of its sum order run on the
+    card, bit for bit, on the Schur parts of the card's own step."""
+    from ndtpu_torch.graph import supernodal as tsn
+
+    plan, lam = config4["plan"], config4["lam"]
+    (ai, aj, r), (ap, rp) = config4["lin"]
+    h_ii, h_is, h_ss, b_i, b_s = tsn.supernodal_assemble(plan, ai, aj, r,
+                                                         ap, rp)
+    _, _, s_part, rhs_part = tsn.interior_parts(plan, h_ii, h_is, b_i, lam)
+    kernels.reset_launches()
+    out = tsn.schur_reduce(plan, s_part, rhs_part, h_ss, b_s, lam)
+    model = tsn.schur_reduce_model(plan, s_part, rhs_part, h_ss, b_s, lam)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["schur_reduce"] == 1
+    for a, b in zip(out, model):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_supernodal_step_on_the_card(config4):
     """One supernodal_delta through K5, K9a and K9b against the f64 plain
     route (within 2 x the f32 plain route's error + 1e-6 x max|delta|)."""
@@ -1028,8 +1052,8 @@ def test_supernodal_kernels_refuse_cpu_tensors():
             sp.ns),
         lambda: kernels.schur_reduce(
             torch.zeros(3, nsl3, nsl3), torch.zeros(3, nsl3), h[2], h[4],
-            t.hold_ptr, t.hold_shard, t.hold_loc, t.loc_of, t.sep_mask,
-            1e-3, plan.ns_loc),
+            t.hold_ptr, t.hold_shard, t.hold_loc, t.loc_of, t.touch_ptr,
+            t.touch_col, t.sep_mask, 1e-3, plan.ns_loc),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
@@ -1306,10 +1330,10 @@ def test_slab_accumulate_overlap1_matches_model_and_plain(dev, x_lo, width):
 
 
 def test_slab_accumulate_scratch_per_grid_count(dev):
-    """K10a's kept scratch is keyed by the grid count: a G = 1 call and then
-    a G = 4 call of the same slab shape give the G = 4 result bit for bit
-    (its fixed-point model; a scratch sized for one grid would be written
-    past its end)."""
+    """K10a's per-call work buffer and tile plan follow the grid count: a G
+    = 1 call and then a G = 4 call of the same slab shape give the G = 4
+    result bit for bit (its fixed-point model; buffers sized for one grid
+    would be written past their end)."""
     from ndtpu_torch.dist import gridmap
 
     pts, mask = _points(6, 30000, dev)
@@ -1320,6 +1344,115 @@ def test_slab_accumulate_scratch_per_grid_count(dev):
         for a, b in zip(out, model):
             assert a.shape[0] == grid.overlap
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+#: A grid past one tile in both x and y (``kernels.slab_tiles``: 5 bands of
+#: 16 rows, strips of 16 columns: 7 across the owned width of 100, 4
+#: across the halo slab of 64).
+GRID_TILED = GridConfig(x0=-20.0, y0=-20.0, cell=0.5, nx=100, ny=80,
+                        overlap=4)
+
+
+def _slab_cases(dev):
+    """K10a's edge inputs on :data:`GRID_TILED`: seeded points over the
+    whole map, every one in one cell, every one masked out, and none."""
+    pts, mask = _points(8, 30000, dev)
+    pts = pts * 1.6
+    one = torch.full((5000, 2), 3.3, device=dev)
+    return {"spread": (pts, mask),
+            "one cell": (one, torch.ones(5000, dtype=torch.bool, device=dev)),
+            "all masked out": (pts, torch.zeros_like(mask)),
+            "no points": (pts[:0], mask[:0])}
+
+
+@pytest.mark.parametrize("overlap", [4, 1])
+@pytest.mark.parametrize("case", ["spread", "one cell", "all masked out",
+                                  "no points"])
+def test_slab_accumulate_tiles_edge_cases(dev, overlap, case):
+    """K10a on a slab cut into tiles in x and y (``kernels.slab_tiles``),
+    owned columns and a halo past the map's low edge, on its edge inputs:
+    bit for bit its fixed-point model."""
+    from ndtpu_torch.dist import gridmap
+
+    grid = dataclasses.replace(GRID_TILED, overlap=overlap)
+    pts, mask = _slab_cases(dev)[case]
+    for x_lo, width in ((0, 100), (-7, 64)):
+        tp = kernels.slab_tiles(overlap, width, grid.ny)
+        assert tp.nxt > 1 and tp.nyt > 1
+        out = gridmap.slab_accumulate(pts, mask, grid, x_lo, width)
+        model = gridmap.slab_accumulate_fixed_ref(pts, mask, grid, x_lo,
+                                                  width)
+        torch.cuda.synchronize()
+        for a, b in zip(out, model):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        if case == "one cell":
+            assert int(out[0].sum()) == 5000 * overlap
+
+
+#: A G = 4 map of 2,048 x 1,024 cells: its whole-width slab has 32,768
+#: tiles, past the ``kernels.SLAB_MAX_TILES`` whose counters K10a's bin
+#: blocks keep in shared memory.
+GRID_WIDE = GridConfig(x0=-51.2, y0=-25.6, cell=0.05, nx=2048, ny=1024,
+                       overlap=4)
+
+
+def test_slab_accumulate_past_shared_counters(dev):
+    """K10a on a slab of more tiles than its bin blocks' shared memory
+    counts (they count in the work buffer instead), at both overlaps: bit
+    for bit its fixed-point model, with the points permuted too. The model
+    runs on the CPU: at this cell (0.05 m, not a power of two) PyTorch on
+    the card divides by the Python float cell as a multiply by its
+    reciprocal, which bins a few points unlike the kernel's (and the CPU's)
+    IEEE division."""
+    from ndtpu_torch.dist import gridmap
+
+    rng = np.random.default_rng(21)
+    n = 300_000
+    centers = rng.uniform((-50, -25), (50, 25), (400, 2))
+    p = centers[rng.integers(0, 400, n)] + rng.normal(0, 0.3, (n, 2))
+    p = np.round(p * 65536.0) / 65536.0
+    pts = torch.as_tensor(p, dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(rng.random(n) > 0.05, device=dev)
+    perm = torch.as_tensor(rng.permutation(n), device=dev)
+    for overlap in (4, 1):
+        grid = dataclasses.replace(GRID_WIDE, overlap=overlap)
+        for x_lo, width in ((0, 2048), (-3, 2000)):
+            tp = kernels.slab_tiles(overlap, width, grid.ny)
+            assert tp.tiles > kernels.SLAB_MAX_TILES or overlap == 1
+            model = gridmap.slab_accumulate_fixed_ref(pts.cpu(), mask.cpu(),
+                                                      grid, x_lo, width)
+            for q, k in ((pts, mask), (pts[perm], mask[perm])):
+                out = gridmap.slab_accumulate(q, k, grid, x_lo, width)
+                for a, b in zip(out, model):
+                    assert torch.equal(a.cpu().view(torch.int32),
+                                       b.view(torch.int32))
+            assert int(model[0].sum()) > 0.8 * overlap * n
+
+
+def test_slab_accumulate_many_points(dev):
+    """K10a on 60 M points, more bin blocks than the sum's shared memory
+    holds the segment offsets of (it reads them from the work buffer),
+    ~100 k of them masked in: bit for bit its fixed-point model of the
+    masked points alone, at both overlaps."""
+    from ndtpu_torch.dist import gridmap
+
+    m = 60_000_000
+    blocks = -(-m // kernels.SLAB_BIN_CHUNK)
+    assert 48 * kernels.SLAB_TILE_CELLS + 4 * (2 * blocks + 1) \
+        > kernels.SMEM_MAX
+    gen = torch.Generator(device=dev).manual_seed(22)
+    pts = torch.rand((m, 2), generator=gen, device=dev) * 26.0 - 13.0
+    pts = torch.round(pts * 65536.0) / 65536.0
+    mask = torch.rand(m, generator=gen, device=dev) < 100_000 / m
+    for grid in (GRID, GRID1):
+        for x_lo, width in ((0, 48), (-5, 34)):
+            out = gridmap.slab_accumulate(pts, mask, grid, x_lo, width)
+            model = gridmap.slab_accumulate_fixed_ref(
+                pts[mask], mask[mask], grid, x_lo, width)
+            torch.cuda.synchronize()
+            for a, b in zip(out, model):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+            assert int(model[0].sum()) > 10_000 * grid.overlap
 
 
 def test_finalize_cells_matches_plain(dev):
