@@ -3397,10 +3397,14 @@ def check_k9a(c4, jobs=None):
     plan, lin = c4["plan"], c4["lin"]
     run = lambda: sn.supernodal_assemble(plan, *_flat(lin))
     out, again = run(), run()
+    model = sn.supernodal_assemble_model(plan, *_flat(lin))
     ref = sn.supernodal_assemble_ref(plan, *_flat(lin))
     ref64 = sn.supernodal_assemble_ref(plan, *_cpu64(_flat(lin)))
     torch.cuda.synchronize()
     require(bits_equal(out, again), "K9a: two launches differ")
+    require(bits_equal(out, model), "K9a: differs from the plain model of "
+            "its sum order (supernodal_assemble_model)")
+    del model
     err = _rel_check("K9a vs f32 plain", out, ref)
     err64 = _rel_check("K9a vs f64 plain", _cpu64(out), ref64)
     ms = time_ms(run)
@@ -3415,7 +3419,8 @@ def check_k9a(c4, jobs=None):
           f"ni={sp.ni} ns={sp.ns} ns_loc={plan.ns_loc} "
           f"({t['tgt_col'].size} target blocks, {t['code'].size} pairs): vs "
           f"f32 plain max abs err {err:.3e}, vs f64 plain {err64:.3e} (rtol "
-          f"1e-5 of each target's max); bit-identical on a second launch; "
+          f"1e-5 of each target's max); bit-equal to the plain model of its "
+          f"sum order and on a second launch; "
           f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (index_add_ "
           f"of the routed blocks into the zeroed targets) {lib:.4f} ms, "
           f"bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
@@ -3425,7 +3430,7 @@ def check_k9a(c4, jobs=None):
                "routed 3x3 blocks (A^T B made beforehand) into the zeroed "
                "h_ii, h_is and h_ss (flat): the same sums, without b_i, b_s")
     card_time(jobs, "K9a supernodal_assemble", row, "card_ms", run,
-              ["supernodal_assemble"])
+              ["supernodal_assemble"], per_call=1)
     card_time(jobs, "K9a library call", row, "library_card_ms", lib_fn)
     return row, out
 
@@ -6084,71 +6089,100 @@ def k9c_bound(t, lin) -> dict:
                  + 4.0 * 3 * ni)
 
 
-def check_k9c(graph, n_ranks: int, lam: float, jobs=None):
-    """K9c ``schur_local_assemble`` on each rank's rows of ``graph`` split
-    into ``n_ranks`` shards (phase 13's layout), against its plain version
-    in f32 on the card and in f64 on the CPU (each part within rtol 1e-5 of
-    its max |.|), bit-identical on a second launch; the plain segment sums'
-    ``index_add_`` of the routed blocks (the library call, without the
-    damping) timed beside it. Returns the row of the rank with the most
-    interior slots (rank 0), with each rank's size and time."""
-    import torch
-
+def k9c_ranks(graph, n_ranks: int) -> tuple:
+    """``graph`` split into ``n_ranks`` shards (phase 13's layout): the plan
+    and, per rank, its tables on the graph's device, its K5 rows and its
+    factor and prior masks."""
     from ndtpu_torch.dist import schur
 
     plan = schur.plan_partition(
         graph.bet_i.cpu().numpy(), graph.bet_j.cpu().numpy(),
         graph.bet_mask.cpu().numpy(), graph.prior_idx.cpu().numpy(),
         graph.prior_mask.cpu().numpy(), graph.poses.shape[0], n_ranks)
-    rows = []
+    ranks = []
     for rank in range(n_ranks):
         t = schur.rank_tables(plan, rank, graph.poses.device)
-        t64 = schur.rank_tables(plan, rank, "cpu")
         loc = tuple(x[0] for x in schur.shard_factor_data_local(graph, plan,
                                                                 rank))
-        lin = schur._linearize_shard(graph.poses, *loc)
-        masks = (loc[4], loc[8])
+        ranks.append((t, schur._linearize_shard(graph.poses, *loc),
+                      (loc[4], loc[8])))
+    return plan, ranks
+
+
+def k9c_library_call(t, lin, masks):
+    """One ``index_add_`` computing K9c's three matrices: the plain
+    version's segment sums as one ``index_add_`` of the routed blocks
+    (``A^T B`` made beforehand) into the zeroed, flat ``h_ii``, ``h_is`` and
+    ``h_ss``, without the damping; K9c's yardstick (``library_ms``), not on
+    any path."""
+    import torch
+
+    from ndtpu_torch.dist import schur
+
+    (ra, la, rb, lb, vals, valid), _ = schur._local_blocks(
+        *lin, masks[0], t.i_role, t.i_loc, t.j_role, t.j_loc, masks[1],
+        t.p_role, t.p_loc)
+    ni, ns = t.ni, t.ns
+    n_ii, n_is, n_ss = 9 * ni * ni, 9 * ni * ns, 9 * ns * ns
+    ii = (ra == 0) & (rb == 0) & valid
+    is_ = (ra == 0) & (rb == 1) & valid
+    ss = (ra == 1) & (rb == 1) & valid
+    ids = torch.cat([schur._block_ids(la, lb, ni, ii),
+                     schur._block_ids(la, lb, ns, is_) + n_ii,
+                     schur._block_ids(la, lb, ns, ss) + n_ii + n_is])
+    vv = torch.cat([vals, vals, vals])
+    keep = ids < n_ii + n_is + n_ss
+    ids, vv = ids[keep], vv[keep]
+    return lambda: torch.zeros(n_ii + n_is + n_ss,
+                               device=vv.device).index_add_(0, ids, vv)
+
+
+def check_k9c(graph, n_ranks: int, lam: float, jobs=None):
+    """K9c ``schur_local_assemble`` on each rank's rows of ``graph`` split
+    into ``n_ranks`` shards (phase 13's layout), against its plain version
+    in f32 on the card and in f64 on the CPU (each part within rtol 1e-5 of
+    its max |.|), bit-equal to the plain model of its sum order
+    (``schur_local_assemble_model``) and on a second launch; the plain
+    segment sums' ``index_add_`` of the routed blocks (the library call,
+    without the damping) timed beside it. Returns the row of the rank with
+    the most interior slots (rank 0), with each rank's size and time."""
+    import torch
+
+    from ndtpu_torch.dist import schur
+
+    plan, ranks = k9c_ranks(graph, n_ranks)
+    rows = []
+    for rank, (t, lin, masks) in enumerate(ranks):
+        t64 = schur.rank_tables(plan, rank, "cpu")
         # Bound now: each rank's card time is read after the loop.
         run = lambda t=t, lin=lin, masks=masks: schur.schur_local_assemble(
             t, lam, *lin, *masks)
         out, again = run(), run()
+        model = schur.schur_local_assemble_model(plan, rank, lam, *lin)
         ref = schur.schur_local_assemble_ref(t, lam, *lin, *masks)
         ref64 = schur.schur_local_assemble_ref(
             t64, lam, *_cpu64(lin), *(m.cpu() for m in masks))
         torch.cuda.synchronize()
         require(bits_equal(out, again), f"K9c rank {rank}: two launches "
                 f"differ")
+        require(bits_equal(out, model), f"K9c rank {rank}: differs from the "
+                f"plain model of its sum order (schur_local_assemble_model)")
         err = _rel_check(f"K9c rank {rank} vs f32 plain", out, ref)
         err64 = _rel_check(f"K9c rank {rank} vs f64 plain", _cpu64(out),
                            ref64)
         ms = time_ms(run)
         plain = time_ms(lambda: schur.schur_local_assemble_ref(t, lam, *lin,
                                                                *masks))
-        # The library call: the plain version's segment sums as one
-        # index_add_ of the routed blocks into the three matrices, flat.
-        (ra, la, rb, lb, vals, valid), _ = schur._local_blocks(
-            *lin, masks[0], t.i_role, t.i_loc, t.j_role, t.j_loc, masks[1],
-            t.p_role, t.p_loc)
-        ni, ns = t.ni, t.ns
-        n_ii, n_is, n_ss = 9 * ni * ni, 9 * ni * ns, 9 * ns * ns
-        ii = (ra == 0) & (rb == 0) & valid
-        is_ = (ra == 0) & (rb == 1) & valid
-        ss = (ra == 1) & (rb == 1) & valid
-        ids = torch.cat([schur._block_ids(la, lb, ni, ii),
-                         schur._block_ids(la, lb, ns, is_) + n_ii,
-                         schur._block_ids(la, lb, ns, ss) + n_ii + n_is])
-        vv = torch.cat([vals, vals, vals])
-        keep = ids < n_ii + n_is + n_ss
-        ids, vv = ids[keep], vv[keep]
-        lib_fn = (lambda ids=ids, vv=vv, n=n_ii + n_is + n_ss:
-                  torch.zeros(n, device=vv.device).index_add_(0, ids, vv))
+        lib_fn = k9c_library_call(t, lin, masks)
         lib = time_ms(lib_fn)
         bd = k9c_bound(t, lin)
+        ni, ns = t.ni, t.ns
         print(f"[smoke] K9c schur_local_assemble rank {rank}/{n_ranks} "
               f"ni={ni} ns={ns} ({t.tgt_col.numel()} target blocks, "
               f"{t.code.numel()} pairs): vs f32 plain max abs err {err:.3e}, "
               f"vs f64 plain {err64:.3e} (rtol 1e-5 of each part's max); "
-              f"bit-identical on a second launch; kernel {ms:.4f} ms, plain "
+              f"bit-equal to the plain model of its sum order and on a "
+              f"second launch; kernel {ms:.4f} ms, plain "
               f"{plain:.4f} ms, library (index_add_ of the routed blocks, no "
               f"damping) {lib:.4f} ms, bound {bd['bound_ms']:.6f} ms "
               f"({bd['bound_by']})")
@@ -6158,7 +6192,8 @@ def check_k9c(graph, n_ranks: int, lam: float, jobs=None):
                    "routed 3x3 blocks into h_ii, h_is and h_ss (flat): the "
                    "same sums without the damping")
         card_time(jobs, f"K9c schur_local_assemble rank {rank}", row,
-                  "card_ms", run, ["supernodal_assemble_kernel<true>"])
+                  "card_ms", run, ["supernodal_assemble_kernel<true>"],
+                  per_call=1)
         card_time(jobs, f"K9c library call rank {rank}", row,
                   "library_card_ms", lib_fn)
         rows.append(row)

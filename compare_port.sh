@@ -1,8 +1,9 @@
 #!/bin/bash
 # Time an older checkout of the port against this one on the card, in turns
 # (older, this, this, older): profile_port.py --hot (lm_ndt, K6 / K6b, K5,
-# K6g and K7a at the main path's shapes, bench.py's headline shape and
-# config 4's 10k graph, with output hashes, configs 1-3's box-world
+# K6g, K7a and the rest at the main path's shapes, bench.py's headline
+# shape and config 4's 10k graph, K9a's and K9c's library calls beside
+# them, with output hashes, configs 1-3's box-world
 # trajectories and bench.py §5's smoother cells); then, unless WHAT is "hot",
 # profile_port.py on configs 3 and 2 (the box-world scenario, two
 # kernel-route runs each after two warm-ups), and the CLI main path
@@ -58,16 +59,21 @@ print('CLI', [x['scans_per_s'] for x in r], [x['ate'] for x in r],
   done
 done
 # Hot's keys side by side: each run's event ms and card ms, and whether
-# every run's outputs hash alike (SAME) or not (DIFF).
+# every run's outputs hash alike (SAME) or not (DIFF); a library call's
+# outputs (float atomics) are not hashed ("library").
 python3 - "$out" <<'PY'
 import glob, json, sys
 runs = [(f.split("_")[-1][0], json.load(open(f))["hot"])
         for f in sorted(glob.glob(sys.argv[1] + "/hot_*.json"))]
-for key, row in (runs[0][1] if runs else {}).items():
-    if not isinstance(row, dict) or "sha256" not in row:
-        continue
+keys = {}
+for _, r in runs:
+    keys.update({k: v for k, v in r.items()
+                 if isinstance(v, dict) and ("sha256" in v or "card_ms" in v)})
+for key, row in keys.items():
     shas = {r.get(key, {}).get("sha256") for _, r in runs}
     cells = [f"{who} {r.get(key, {}).get('ms')} {r.get(key, {}).get('card_ms')}"
              for who, r in runs]
-    print(f"{key}: {'SAME' if len(shas) == 1 else 'DIFF'} " + " | ".join(cells))
+    same = ("library" if "sha256" not in row
+            else "SAME" if len(shas) == 1 else "DIFF")
+    print(f"{key}: {same} " + " | ".join(cells))
 PY

@@ -54,7 +54,8 @@ __all__ = ["INTERIOR", "SEPARATOR", "SchurPlan", "ShardData", "Routes",
            "plan_partition", "build_routes", "shard_factor_data", "shard_factor_data_local",
            "assemble_local_parts", "assemble_local", "assemble_local_ref",
            "rank_routes", "rank_tables", "schur_local_assemble",
-           "schur_local_assemble_ref", "schur_delta", "optimize_schur"]
+           "schur_local_assemble_ref", "schur_local_assemble_model",
+           "schur_delta", "optimize_schur"]
 
 INTERIOR, SEPARATOR = 0, 1
 
@@ -488,6 +489,108 @@ def schur_local_assemble_ref(t: SimpleNamespace, lam: float, ai, aj, r, ap,
     live_i = t.int_mask.to(ai.dtype).repeat_interleave(3)
     damp_i = lam * torch.clamp(torch.abs(torch.diagonal(h_ii)), min=1e-8)
     return h_ii + torch.diag(damp_i + (1.0 - live_i)), h_is, h_ss, b_i, b_s
+
+
+def _assemble_model(tab, n_shards: int, ni: int, nsl: int, ns: int, ai, aj,
+                    r, ap, rp, lam=None, int_mask=None):
+    """Plain model of K9a's (and, with ``lam`` and ``int_mask``, K9c's)
+    sums, op for op: ``(h_ii [P, 3ni, 3ni], h_is [P, 3ni, 3nsl], h_ss [3ns,
+    3ns], b_i [P, 3ni], b_s [3ns])`` from the routing tables ``tab``
+    (``row_ptr``, ``tgt_col``, ``tgt_ptr``, ``code``, ``vec_ptr``,
+    ``vcode``; see :class:`Routes`). Each target entry ``(p, q)`` starts at
+    +0 and adds, over the target's pairs in ``tgt_ptr`` order, ``(A[0, p]
+    B[0, q] + A[1, p] B[1, q]) + A[2, p] B[2, q]`` (``mtm3``'s entry);
+    each ``b`` entry over the row's endpoints in ``vec_ptr`` order ``(G[0,
+    q] r_0 + G[1, q] r_1) + G[2, q] r_2`` (``mtv3``); every other entry is
+    +0. With ``lam``, each interior row's three diagonal entries ``h``
+    become ``h + (lam * max(|h|, 1e-8) + (1 - live))``, ``live`` from
+    ``int_mask [P * ni]``. Each torch op rounds on its own, as the kernels
+    (built with ``--fmad=false``) do."""
+    dev, dt = ai.device, ai.dtype
+    f = ai.shape[0]
+    row_ptr, tgt_col, tgt_ptr, code, vec_ptr, vcode = (
+        torch.as_tensor(tab[k], device=dev).long()
+        for k in ("row_ptr", "tgt_col", "tgt_ptr", "code", "vec_ptr",
+                  "vcode"))
+    n_int = n_shards * ni
+    rows = torch.arange(n_int + ns, device=dev)
+    blocks = torch.cat([ai, aj, ap])                 # [2F + Q, 3, 3]
+
+    def ordered_sums(ptr, take, shape):
+        """Each segment of ``ptr`` summed in order from +0 into ``[len(ptr)
+        - 1, *shape]``, ``take(k)`` the terms of entries ``k`` of its code
+        table."""
+        n = ptr[1:] - ptr[:-1]
+        acc = torch.zeros((n.shape[0], *shape), dtype=dt, device=dev)
+        for j in range(int(n.max()) if n.numel() else 0):
+            has = (n > j).view(-1, *[1] * len(shape))
+            term = take(torch.where(n > j, ptr[:-1] + j, torch.zeros_like(n)))
+            acc = torch.where(has, acc + term, acc)
+        return acc
+
+    def pair_terms(k):
+        c = code[k]
+        pri = c >= 4 * f
+        fc, kind = c >> 2, c & 3
+        ia = torch.where(pri, c - 2 * f, torch.where(kind < 2, fc, f + fc))
+        ib = torch.where(pri, c - 2 * f,
+                         torch.where((kind & 1) == 1, f + fc, fc))
+        ga, gb = blocks[ia], blocks[ib]
+        return (ga[:, 0, :, None] * gb[:, 0, None, :]
+                + ga[:, 1, :, None] * gb[:, 1, None, :]) \
+            + ga[:, 2, :, None] * gb[:, 2, None, :]
+
+    def vec_terms(k):
+        c = vcode[k]
+        pri = c >= 2 * f
+        fc = c >> 1
+        ig = torch.where(pri, c, torch.where((c & 1) == 1, f + fc, fc))
+        ir = torch.where(pri, c - 2 * f, fc)
+        g = blocks[ig]
+        res = torch.cat([r, rp])[torch.where(pri, f + ir, ir)]
+        return (g[:, 0] * res[:, 0, None] + g[:, 1] * res[:, 1, None]) \
+            + g[:, 2] * res[:, 2, None]
+
+    vals = ordered_sums(tgt_ptr, pair_terms, (3, 3))
+    t_row = torch.repeat_interleave(rows, row_ptr[1:] - row_ptr[:-1])
+    comp = torch.arange(3, device=dev)
+    pp, qq = comp[:, None], comp[None, :]
+    interior, col = (t_row < n_int)[:, None, None], tgt_col[:, None, None]
+    row3 = (3 * t_row)[:, None, None] + pp
+    n_ii, n_is = 9 * n_int * ni, 9 * n_int * nsl
+    at = torch.where(
+        interior & (col < ni), row3 * 3 * ni + 3 * col + qq,
+        torch.where(interior, n_ii + row3 * 3 * nsl + 3 * (col - ni) + qq,
+                    n_ii + n_is + (row3 - 3 * n_int) * 3 * ns + 3 * col
+                    + qq))
+    h = torch.zeros(n_ii + n_is + 9 * ns * ns, dtype=dt, device=dev)
+    h[at.reshape(-1)] = vals.reshape(-1)
+    b = ordered_sums(vec_ptr, vec_terms, (3,))
+    if lam is not None:
+        slot = torch.arange(n_int, device=dev)[:, None]
+        d = (3 * slot + comp) * 3 * ni + 3 * (slot % ni) + comp
+        hv = h[d]
+        dead = 1.0 - int_mask.to(dt)[:, None]
+        h[d] = hv + (lam * torch.clamp(torch.abs(hv), min=1e-8) + dead)
+    h_ii, h_is, h_ss = torch.split(h, [n_ii, n_is, 9 * ns * ns])
+    b = b.reshape(-1)
+    return (h_ii.view(n_shards, 3 * ni, 3 * ni),
+            h_is.view(n_shards, 3 * ni, 3 * nsl), h_ss.view(3 * ns, 3 * ns),
+            b[:3 * n_int].view(n_shards, 3 * ni), b[3 * n_int:])
+
+
+def schur_local_assemble_model(plan: SchurPlan, shard: int, lam: float, ai,
+                               aj, r, ap, rp):
+    """Plain model of K9c's sum order, op for op (:func:`_assemble_model`
+    on :func:`rank_routes`' tables, with the interior damping), which the
+    kernel equals bit for bit on the card: ``(h_ii, h_is, h_ss, b_i,
+    b_s)`` of rank ``shard``'s K5 rows (masked, as K5 writes them). Nothing
+    on the main path calls this."""
+    h_ii, h_is, h_ss, b_i, b_s = _assemble_model(
+        rank_routes(plan, shard), 1, plan.ni, plan.ns, plan.ns, ai, aj, r, ap,
+        rp, lam, torch.as_tensor(np.asarray(plan.int_mask[shard]),
+                                 device=ai.device))
+    return h_ii[0], h_is[0], h_ss, b_i[0], b_s
 
 
 def schur_local_assemble(t: SimpleNamespace, lam: float, ai, aj, r, ap, rp,

@@ -27,9 +27,9 @@ sums each target in that fixed order with no float atomics, so a step is
 the same on every launch. The plain versions
 (:func:`supernodal_assemble_ref`, :func:`schur_reduce_ref`: the
 reference's segment sums) take CPU tensors and are the kernels' oracle;
-CUDA tensors go to the kernels or raise. :func:`schur_reduce_model` is
-the plain model of K9b's sum order, which the kernel equals bit for
-bit.
+CUDA tensors go to the kernels or raise. :func:`supernodal_assemble_model`
+and :func:`schur_reduce_model` are the plain models of K9a's and K9b's sum
+orders, which the kernels equal bit for bit.
 """
 
 from __future__ import annotations
@@ -43,13 +43,15 @@ import torch
 from ndtpu_torch import kernels
 from ndtpu_torch.config import SolverConfig
 from ndtpu_torch.dist.schur import (INTERIOR, SEPARATOR, Routes, SchurPlan,
-                                    _block_ids, _local_blocks, _seg_sum,
-                                    _vec_ids, build_routes, plan_partition)
+                                    _assemble_model, _block_ids,
+                                    _local_blocks, _seg_sum, _vec_ids,
+                                    build_routes, plan_partition)
 from ndtpu_torch.graph import factors as fct
 from ndtpu_torch.graph import solve as slv
 
 __all__ = ["SupernodalPlan", "tables_on", "plan_supernodal",
-           "supernodal_assemble", "supernodal_assemble_ref", "schur_reduce",
+           "supernodal_assemble", "supernodal_assemble_ref",
+           "supernodal_assemble_model", "schur_reduce",
            "schur_reduce_ref", "schur_reduce_model", "touch_table",
            "interior_parts", "separator_solve",
            "back_substitute", "supernodal_delta", "optimize_supernodal"]
@@ -260,6 +262,18 @@ def supernodal_assemble(plan: SupernodalPlan, ai, aj, r, ap, rp):
     return kernels.supernodal_assemble(
         ai, aj, r, ap, rp, t.row_ptr, t.tgt_col, t.tgt_ptr, t.code,
         t.vec_ptr, t.vcode, sp.fac_idx.shape[0], sp.ni, plan.ns_loc, sp.ns)
+
+
+def supernodal_assemble_model(plan: SupernodalPlan, ai, aj, r, ap, rp):
+    """Plain model of K9a's sum order, op for op, which the kernel equals
+    bit for bit on the card (``dist.schur._assemble_model`` on the plan's
+    routing tables): every target entry summed over its pairs in
+    ``tgt_ptr`` order from +0 as ``mtm3`` writes it, ``b`` as ``mtv3``,
+    zeros elsewhere. Returns ``(h_ii, h_is, h_ss, b_i, b_s)``. Nothing on
+    the main path calls this."""
+    sp = plan.schur
+    return _assemble_model(plan.routes.host, sp.fac_idx.shape[0], sp.ni,
+                           plan.ns_loc, sp.ns, ai, aj, r, ap, rp)
 
 
 def schur_reduce_ref(plan: SupernodalPlan, s_part, rhs_part, h_ss, b_s, lam):

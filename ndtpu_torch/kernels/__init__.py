@@ -167,7 +167,8 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "pcg_solve", "pcg_solve_grid", "pcg_solve_blocked", "select_smem",
            "select_route", "local_select", "assemble_scratch",
            "local_assemble",
-           "supernodal_assemble", "schur_reduce", "schur_local_assemble",
+           "supernodal_assemble", "supernodal_assemble_shape",
+           "schur_reduce", "schur_local_assemble",
            "ndt_sgh_unpacked", "slab_tiles", "slab_work", "slab_accumulate",
            "finalize_cells",
            "slab_spread", "slab_sgh", "raycast", "voxel_downsample"]
@@ -263,6 +264,7 @@ _SIGNATURES = {
                              + [_I] + [_P] * 5,
     "supernodal_assemble_launch": [_P] * 5 + [_I] + [_P] * 6 + [_I] * 4
                                   + [_P] * 6,
+    "supernodal_assemble_shape": [_I, _I, _I],
     "schur_reduce_launch": [_P] * 11 + [_F, _I, _I, _P, _P, _P],
     "schur_local_assemble_launch": [_P] * 5 + [_I] + [_P] * 7
                                    + [_F, _I, _I] + [_P] * 6,
@@ -1305,7 +1307,8 @@ def supernodal_assemble(ai, aj, r, ap, rp, row_ptr, tgt_col, tgt_ptr, code,
     """K9a: the partitioned normal equations ``(h_ii [P, 3ni, 3ni], h_is
     [P, 3ni, 3nsl], h_ss [3ns, 3ns], b_i [P, 3ni], b_s [3ns])`` from K5's
     blocks, routed by the plan's int32 tables (see ``csrc/supernodal.cu``
-    and ``dist.schur.Routes``). One allocation holds all five."""
+    and ``dist.schur.Routes``). One allocation holds all five; the kernel
+    writes every float of it once (zeros included)."""
     f, q = ai.shape[0], ap.shape[0]
     rows = n_shards * ni + ns
     _check(ai, "ai", shape=(f, 3, 3))
@@ -1333,6 +1336,23 @@ def supernodal_assemble(ai, aj, r, ap, rp, row_ptr, tgt_col, tgt_ptr, code,
     return (h_ii.view(n_shards, 3 * ni, 3 * ni),
             h_is.view(n_shards, 3 * ni, 3 * nsl), h_ss.view(3 * ns, 3 * ns),
             b_i.view(n_shards, 3 * ni), b_s)
+
+
+def supernodal_assemble_shape(threads: int = 0, chunk: int = 0,
+                              blocks_per_sm: int = 0) -> None:
+    """Set K9a's and K9c's launch shape for this process: threads per
+    block (32-256, a multiple of 32), floats of the chunk each block stages
+    per unit of work (a multiple of 4, at most 12,288), and blocks per SM of
+    a persistent grid (0: one block per unit); all three 0 restores each
+    kernel's default (``csrc/supernodal.cu``). The outputs' bits do not
+    depend on it. For ``profile_port.py --assemble-sweep``; nothing on a
+    path calls it."""
+    if _lib is None:
+        build()
+    if _lib.supernodal_assemble_shape(threads, chunk, blocks_per_sm):
+        raise ValueError(f"supernodal_assemble_shape: no such shape "
+                         f"(threads {threads}, chunk {chunk}, blocks per SM "
+                         f"{blocks_per_sm})")
 
 
 def schur_reduce(s_part, rhs_part, h_ss, b_s, hold_ptr, hold_shard, hold_loc,

@@ -7,14 +7,28 @@
 // block of h_ii [P, 3ni, 3ni], h_is [P, 3ni, 3nsl] or h_ss [3ns, 3ns] by
 // the roles of its endpoints, and every endpoint adds A^T r to b_i or b_s.
 // The reference routes ~4F pairs by flat segment ids (a scatter-add, float
-// atomics on this card). Here one block owns one block row of the targets
-// (three scalar rows: an interior slot's rows of h_ii and h_is and its
-// b_i, or a separator's rows of h_ss and its b_s): it zero-fills them,
-// then one thread per non-zero target block sums that block's pairs in the
-// host's order (pair order), and three threads sum the row's A^T r. No
-// float atomics: the result is the same on every launch. Bound: the
-// targets' zero fill, ~85 MB at 10k poses (P = 64) against ~1.5 MB of
-// factor blocks read, so bytes (~25 us at 3.35 TB/s).
+// atomics on this card). Bound: the targets' store stream, ~86 MB at 10k
+// poses (P = 64) against ~1.5 MB of factor blocks and tables read, so
+// bytes (~26 us at 3.35 TB/s); a few hundred thousand of the ~21 M floats
+// are not zero. So every output float is written once, in one pass, in
+// 16-byte stores, as a fill would write them: the targets are three flat
+// streams (h_ii, h_is, h_ss; a block row's three scalar rows are
+// contiguous in each) cut into chunks on 16-byte line boundaries, and one
+// unit of work is one chunk. A block zeroes a staged chunk in shared
+// memory once; per unit, one thread per (target, entry) of the rows the
+// chunk touches sums that entry's pairs in the host's order from +0.f
+// (pose_graph.cuh's mtm3, entry by entry) into the stage where it lands,
+// the chunk holding a row's first float sums its A^T r (one thread per
+// entry), then after a barrier the block streams the chunk out (scalar
+// stores only at a stream's two ends) and restores the staged zeros. The
+// stores carry the streaming hint (.cs), so the outputs do not push the
+// tables and blocks out of L2. Many blocks per SM keep one chunk's
+// gathers (row_ptr -> tgt_col -> tgt_ptr -> code -> blocks) behind
+// another's stores; the launch shape (threads, chunk, a persistent grid)
+// was chosen by profile_port.py --assemble-sweep. No float atomics, no
+// fill before the launch: the result is the same on every launch and the
+// first design's bits (one thread per target block summing its nine
+// entries in the same order).
 //
 // K9b schur_reduce replaces the two segment_sums of supernodal_delta
 // (:338-353) and the subtraction and damping after them (:355-361):
@@ -44,10 +58,11 @@
 // one shard (P = 1) whose h_is spans all ns separators (every rank holds
 // the whole separator set), the rank's own K5 rows in its local factor
 // slots, routed by the one-shard tables of ndtpu_torch/dist/schur.py::
-// rank_routes. Under kDamp each interior row's owner then adds lam *
-// max(|h_ii[d, d]|, 1e-8) + (1 - live) to its three diagonal entries, as
-// the reference damps h_ii before the interior Cholesky. Bound: bytes, the
-// zero fill of h_ii [3ni, 3ni] (37.7 MB at ni = 1,024) and h_is.
+// rank_routes. Under kDamp the thread that sums an interior diagonal
+// entry h stages h + (lam * max(|h|, 1e-8) + (1 - live)), and a row
+// without entries (a dead slot) gets it from h = 0, as the reference damps
+// h_ii before the interior Cholesky: no second pass or read-back. Bound:
+// bytes, the stores of h_ii [3ni, 3ni] (33 MB at ni = 960) and h_is.
 //
 // Arithmetic as the plain versions write it (pose_graph.cuh's mtm3/mtv3;
 // --fmad=false), sums in a fixed order.
@@ -55,11 +70,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "pose_graph.cuh"
 
 namespace {
 
-constexpr int kAsmThreads = 128;
 constexpr int kSchurThreads = 256;
 
 struct AssembleArgs {
@@ -116,73 +132,242 @@ __device__ __forceinline__ void endpoint(const AssembleArgs& a, int c,
   *res = a.r + 3 * (size_t)f;
 }
 
+// The targets as three flat streams of floats: h_ii (interior rows, scalar
+// rows of w = 3ni), h_is (interior rows, w = 3nsl) and h_ss (separator
+// rows, w = 3ns). Block row r of a stream is its floats [3wr, 3w(r + 1)),
+// and a target of block row `first + r` belongs to the stream when its
+// column is in [col0, col0 + n_cols), at column col - col0. A stream is
+// cut into chunks of `chunk` floats whose boundaries are 16-byte line
+// boundaries in memory: chunk c covers stream floats [c chunk - off,
+// (c + 1) chunk - off), off = the stream's first float's offset in its
+// line.
+struct Stream {
+  float* base;     // the stream's float 0
+  int w, n_rows, first, col0, n_cols, off, chunks;
+};
+
+struct Streams {
+  Stream s[3];
+  int chunk;       // floats per chunk, a multiple of 4
+  int rows_max;    // block rows a chunk can touch (the rows' table)
+};
+
+inline Stream make_stream(float* base, int w, int n_rows, int first,
+                          int col0, int n_cols, int chunk) {
+  const int off = (int)(((uintptr_t)base >> 2) & 3);
+  const long long n = 3LL * w * n_rows;
+  return Stream{base, w, n_rows, first, col0, n_cols, off,
+                (int)((n + off + chunk - 1) / chunk)};
+}
+
+// One target entry (p, q) over its pairs [k0, k1), in the host's order
+// from +0.f; four pairs at a time, their codes and then their blocks'
+// entries loaded together, so a long list costs two load latencies per
+// four pairs.
+__device__ __forceinline__ float target_entry(const AssembleArgs& a, int k0,
+                                              int k1, int p, int q) {
+  float acc = 0.f;
+  for (int k = k0; k < k1; k += 4) {
+    float x[4][6];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (k + u < k1) {
+        const float *ga, *gb;
+        pair_blocks(a, __ldg(a.code + k + u), &ga, &gb);
+        x[u][0] = __ldg(ga + p);     x[u][1] = __ldg(gb + q);
+        x[u][2] = __ldg(ga + 3 + p); x[u][3] = __ldg(gb + 3 + q);
+        x[u][4] = __ldg(ga + 6 + p); x[u][5] = __ldg(gb + 6 + q);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (k + u < k1)   // mtm3's entry (p, q), then the running sum
+        acc = acc + (x[u][0] * x[u][1] + x[u][2] * x[u][3]
+                     + x[u][4] * x[u][5]);
+  }
+  return acc;
+}
+
+// One entry c of a row's b over its endpoints [k0, k1), in order from
+// +0.f (mtv3's entry c), four at a time as target_entry.
+__device__ __forceinline__ float vector_entry(const AssembleArgs& a, int k0,
+                                              int k1, int c) {
+  float acc = 0.f;
+  for (int k = k0; k < k1; k += 4) {
+    float x[4][6];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (k + u < k1) {
+        const float *g, *res;
+        endpoint(a, __ldg(a.vcode + k + u), &g, &res);
+        x[u][0] = __ldg(g + c);     x[u][1] = __ldg(res);
+        x[u][2] = __ldg(g + 3 + c); x[u][3] = __ldg(res + 1);
+        x[u][4] = __ldg(g + 6 + c); x[u][5] = __ldg(res + 2);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (k + u < k1)
+        acc = acc + (x[u][0] * x[u][1] + x[u][2] * x[u][3]
+                     + x[u][4] * x[u][5]);
+  }
+  return acc;
+}
+
+// The launch's shape: threads per block, floats of the staged chunk (a
+// multiple of 4), blocks per SM of a persistent grid (0: one block per
+// chunk). Each kernel's default is the fastest of profile_port.py
+// --assemble-sweep on the H100 (K9a at config 4's 10k graph, K9c on a
+// 2,048-pose graph's two ranks); supernodal_assemble_shape overrides both
+// for the sweep.
+struct AsmShape {
+  int threads, chunk, blocks_per_sm;
+};
+constexpr int kAsmThreadsMax = 256;
+constexpr int kAsmChunkMax = 12288;
+constexpr AsmShape kAsmShape[2] = {{128, 2048, 0},    // K9a
+                                   {128, 4096, 16}};  // K9c
+AsmShape g_asm_shape[2] = {kAsmShape[0], kAsmShape[1]};
+
+// One unit of work is one chunk of one stream: h_ii's chunks, then
+// h_is's, then h_ss's. Outputs are stored with the streaming hint (.cs),
+// so that the ~86 MB of them do not push the tables and blocks out of L2.
 template <bool kDamp>
-__global__ void __launch_bounds__(kAsmThreads)
-supernodal_assemble_kernel(AssembleArgs a) {
-  const int row = blockIdx.x, tid = threadIdx.x, T = blockDim.x;
+__global__ void __launch_bounds__(kAsmThreadsMax)
+supernodal_assemble_kernel(AssembleArgs a, Streams ss) {
+  extern __shared__ float4 stage4[];   // the chunk, zero between units;
+  float* stage = reinterpret_cast<float*>(stage4);
+  int* s_ptr = reinterpret_cast<int*>(stage + ss.chunk);   // rows' row_ptr
+  float* s_dead = reinterpret_cast<float*>(s_ptr + ss.rows_max + 1);
+  const int tid = threadIdx.x, T = blockDim.x, chunk = ss.chunk;
+  const int n_units = ss.s[0].chunks + ss.s[1].chunks + ss.s[2].chunks;
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int j = tid; j < chunk / 4; j += T) stage4[j] = zero4;
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int which = u < ss.s[0].chunks ? 0
+                      : u < ss.s[0].chunks + ss.s[1].chunks ? 1 : 2;
+    // (field by field: a runtime index into the parameter would copy the
+    // streams to local memory)
+    const Stream st = which == 0 ? ss.s[0] : which == 1 ? ss.s[1] : ss.s[2];
+    const int c = u - (which > 0 ? ss.s[0].chunks : 0)
+                  - (which > 1 ? ss.s[1].chunks : 0);
+    const int pitch = 3 * st.w, n = pitch * st.n_rows;
+    const int at = c * chunk - st.off;   // stream float of stage[0]
+    const int lo = max(at, 0), hi = min(at + chunk, n);
+    const int r0 = lo / pitch, n_rows = (hi - 1) / pitch - r0 + 1;
+    for (int j = tid; j <= n_rows; j += T) {
+      s_ptr[j] = a.row_ptr[st.first + r0 + j];
+      if (kDamp && which == 0 && j < n_rows)   // 1 - live, for the damping
+        s_dead[j] = 1.f - (a.int_mask[r0 + j] ? 1.f : 0.f);
+    }
+    __syncthreads();   // also: the last unit's stream has read the stage
+
+    // Gather: one thread per (target, entry) of the chunk's rows, the
+    // target's pairs in the host's order from +0.f, into the stage where
+    // it lands in the chunk. Under kDamp an interior diagonal entry h is
+    // staged as h + (lam max(|h|, 1e-8) + (1 - live)); a row without
+    // entries (a dead slot) from h = 0.
+    const bool damp = kDamp && which == 0;   // n_shards is 1 under kDamp
+    const int t0 = s_ptr[0], n9 = 9 * (s_ptr[n_rows] - t0);
+    for (int e = tid; e < n9; e += T) {
+      const int t = t0 + e / 9, pq = e % 9, p = pq / 3, q = pq - 3 * p;
+      const int col = __ldg(a.tgt_col + t) - st.col0;
+      const int k0 = __ldg(a.tgt_ptr + t), k1 = __ldg(a.tgt_ptr + t + 1);
+      if (col < 0 || col >= st.n_cols) continue;
+      int j = 0, j1 = n_rows - 1;   // the target's row: s_ptr[j] <= t
+      while (j < j1) {
+        const int mid = (j + j1 + 1) >> 1;
+        if (s_ptr[mid] <= t) j = mid; else j1 = mid - 1;
+      }
+      const int m = (r0 + j) * pitch + p * st.w + 3 * col + q;
+      if (m < lo || m >= hi) continue;
+      float h = target_entry(a, k0, k1, p, q);
+      if (damp && p == q && col == r0 + j)
+        h = h + (a.lam * ndtpu::pg::nanmax(fabsf(h), 1e-8f) + s_dead[j]);
+      stage[m - at] = h;
+    }
+    const int d0 = damp ? lo / st.w : 0, d1 = damp ? (hi - 1) / st.w : -1;
+    for (int i = d0 + tid; i <= d1; i += T) {   // scalar row i's diagonal
+      const int m = i * (st.w + 1), j = i / 3 - r0;
+      if (m < lo || m >= hi || s_ptr[j + 1] > s_ptr[j]) continue;
+      const float h = 0.f;
+      stage[m - at] = h + (a.lam * ndtpu::pg::nanmax(fabsf(h), 1e-8f)
+                           + s_dead[j]);
+    }
+    // Each block row's b with the chunk of h_ii or h_ss holding its first
+    // float: one thread per entry, the row's endpoints in order, four at a
+    // time (beside the gather: its latency is not added to the chunk's).
+    if (which != 1) {
+      const int rb = (lo + pitch - 1) / pitch, nb = (hi + pitch - 1) / pitch
+                                                    - rb;
+      float* b = which == 0 ? a.b_i : a.b_s;
+      for (int i = T - 1 - tid; i < 3 * nb; i += T) {   // the last threads
+        const int r = rb + i / 3, cc = i % 3, row = st.first + r;
+        b[3 * r + cc] = vector_entry(a, a.vec_ptr[row], a.vec_ptr[row + 1],
+                                     cc);
+      }
+    }
+    __syncthreads();
+
+    // Stream the chunk out: 16-byte stores (scalar only at the stream's
+    // two ends), the staged zeros restored for the next unit.
+    float* dst = st.base + at;   // 16-byte aligned
+    for (int i = tid; i < chunk / 4; i += T) {
+      const int m = at + 4 * i;
+      if (m >= hi) break;
+      const float4 x = stage4[i];
+      stage4[i] = zero4;
+      if (m >= lo && m + 4 <= hi) {
+        __stcs(reinterpret_cast<float4*>(dst) + i, x);
+      } else {
+        const float xv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int l = 0; l < 4; ++l)
+          if (m + l >= lo && m + l < hi) __stcs(dst + 4 * i + l, xv[l]);
+      }
+    }
+  }
+}
+
+// The streams and the grid of a launch at the current shape.
+template <bool kDamp>
+cudaError_t launch_assemble(const AssembleArgs& a, cudaStream_t st) {
+  const AsmShape shape = g_asm_shape[kDamp ? 1 : 0];
+  const int threads = shape.threads, chunk = shape.chunk;
   const int n_int = a.n_shards * a.ni;
-  const bool interior = row < n_int;
-  const int w_main = interior ? 3 * a.ni : 3 * a.ns;
-  const int w_side = 3 * a.nsl;
-  float* main_rows =
-      interior ? a.h_ii + (size_t)3 * row * w_main
-               : a.h_ss + (size_t)3 * (row - n_int) * w_main;
-  float* side_rows =
-      interior ? a.h_is + (size_t)3 * row * w_side : nullptr;
-  float* b = interior ? a.b_i + 3 * (size_t)row
-                      : a.b_s + 3 * (size_t)(row - n_int);
-
-  // The block row's three scalar rows are contiguous in each target.
-  for (int i = tid; i < 3 * w_main; i += T) main_rows[i] = 0.f;
-  if (interior)
-    for (int i = tid; i < 3 * w_side; i += T) side_rows[i] = 0.f;
-  __syncthreads();
-
-  if (tid < 3) {
-    float acc = 0.f;
-    for (int k = a.vec_ptr[row]; k < a.vec_ptr[row + 1]; ++k) {
-      const float *g, *res;
-      endpoint(a, a.vcode[k], &g, &res);
-      float t3[3];
-      ndtpu::pg::mtv3(g, res, t3);
-      acc = acc + t3[tid];
-    }
-    b[tid] = acc;
+  Streams ss;
+  ss.chunk = chunk;
+  ss.s[0] = make_stream(a.h_ii, 3 * a.ni, n_int, 0, 0, a.ni, chunk);
+  ss.s[1] = make_stream(a.h_is, 3 * a.nsl, n_int, 0, a.ni, a.nsl, chunk);
+  ss.s[2] = make_stream(a.h_ss, 3 * a.ns, a.ns, n_int, 0, a.ns, chunk);
+  const int w_min = 3 * std::min(std::min(a.ni, a.nsl), a.ns);
+  ss.rows_max = chunk / (3 * w_min) + 2;
+  const long long units = (long long)ss.s[0].chunks + ss.s[1].chunks
+                          + ss.s[2].chunks;
+  if (units > 0x7fffffffLL
+      || 9LL * a.ns * a.ns >= 0x7fffffffLL - chunk
+      || 9LL * n_int * std::max(a.ni, a.nsl) >= 0x7fffffffLL - chunk)
+    return cudaErrorInvalidConfiguration;
+  long long grid = units;
+  if (shape.blocks_per_sm > 0) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const long long cap = (long long)shape.blocks_per_sm * sms;
+    grid = grid < cap ? grid : cap;
   }
-  for (int t = a.row_ptr[row] + tid; t < a.row_ptr[row + 1]; t += T) {
-    float acc[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int k = a.tgt_ptr[t]; k < a.tgt_ptr[t + 1]; ++k) {
-      const float *ga, *gb;
-      pair_blocks(a, a.code[k], &ga, &gb);
-      float t9[9];
-      ndtpu::pg::mtm3(ga, gb, t9);
-#pragma unroll
-      for (int e = 0; e < 9; ++e) acc[e] = acc[e] + t9[e];
-    }
-    const int col = a.tgt_col[t];
-    float* dst;
-    int width;
-    if (interior && col >= a.ni) {
-      dst = side_rows + 3 * (col - a.ni);
-      width = w_side;
-    } else {
-      dst = main_rows + 3 * col;
-      width = w_main;
-    }
-#pragma unroll
-    for (int p = 0; p < 3; ++p)
-#pragma unroll
-      for (int q = 0; q < 3; ++q) dst[(size_t)p * width + q] = acc[3 * p + q];
+  const int smem = (chunk + 2 * ss.rows_max + 1) * (int)sizeof(float);
+  if (smem > 48 * 1024) {   // opt in past the default
+    const cudaError_t err = cudaFuncSetAttribute(
+        supernodal_assemble_kernel<kDamp>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
   }
-  if (kDamp && interior) {
-    __syncthreads();   // the diagonal block's owner has written it
-    if (tid < 3) {
-      float* d = main_rows + (size_t)tid * w_main + 3 * (row % a.ni) + tid;
-      const float hv = *d;
-      const float dead = 1.f - (a.int_mask[row] ? 1.f : 0.f);
-      *d = hv + (a.lam * ndtpu::pg::nanmax(fabsf(hv), 1e-8f) + dead);
-    }
-  }
+  supernodal_assemble_kernel<kDamp>
+      <<<(unsigned)grid, threads, smem, st>>>(a, ss);
+  return cudaGetLastError();
 }
 
 struct SchurArgs {
@@ -283,9 +468,24 @@ extern "C" int supernodal_assemble_launch(
                        (const int*)vec_ptr, (const int*)vcode, n_shards, ni,
                        nsl, ns, nullptr, 0.f, (float*)h_ii, (float*)h_is,
                        (float*)h_ss, (float*)b_i, (float*)b_s};
-  supernodal_assemble_kernel<false><<<n_shards * ni + ns, kAsmThreads, 0,
-                                      (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return (int)launch_assemble<false>(a, (cudaStream_t)stream);
+}
+
+// K9a's and K9c's launch shape (threads per block, staged floats per
+// unit, blocks per SM of a persistent grid or 0 for one block per unit);
+// all 0 restores each kernel's default. For a sweep of the sizes only.
+extern "C" int supernodal_assemble_shape(int threads, int chunk,
+                                         int blocks_per_sm) {
+  if (threads == 0 && chunk == 0 && blocks_per_sm == 0) {
+    g_asm_shape[0] = kAsmShape[0];
+    g_asm_shape[1] = kAsmShape[1];
+    return 0;
+  }
+  if (threads < 32 || threads > kAsmThreadsMax || threads % 32 || chunk < 4
+      || chunk > kAsmChunkMax || chunk % 4 || blocks_per_sm < 0)
+    return (int)cudaErrorInvalidValue;
+  g_asm_shape[0] = g_asm_shape[1] = AsmShape{threads, chunk, blocks_per_sm};
+  return 0;
 }
 
 extern "C" int schur_local_assemble_launch(
@@ -303,9 +503,7 @@ extern "C" int schur_local_assemble_launch(
                        (const int*)vec_ptr, (const int*)vcode, 1, ni, ns, ns,
                        (const uint8_t*)int_mask, lam, (float*)h_ii,
                        (float*)h_is, (float*)h_ss, (float*)b_i, (float*)b_s};
-  supernodal_assemble_kernel<true><<<ni + ns, kAsmThreads, 0,
-                                     (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return (int)launch_assemble<true>(a, (cudaStream_t)stream);
 }
 
 extern "C" int schur_reduce_launch(

@@ -95,11 +95,15 @@ def _grid_offsets(grid: GridConfig, dtype, device):
 
 def cell_ids(points, grid: GridConfig):
     """Flat cell index ``[..., G, N]`` (clipped) and in-bounds mask for each
-    point ``[..., N, 2]`` in each overlap grid."""
+    point ``[..., N, 2]`` in each overlap grid. The divisor is a tensor on
+    the points' device: PyTorch on the card divides by a Python float as a
+    multiply by its reciprocal, which off a power-of-two cell bins a point
+    unlike the CPU, the JAX package and the kernels (IEEE division)."""
     dt, dev = points.dtype, points.device
     offs = _grid_offsets(grid, dt, dev)
-    origin = torch.tensor([grid.x0, grid.y0], dtype=dt, device=dev)
-    rel = (points[..., None, :, :] - origin - offs[:, None, :]) / grid.cell
+    frame = torch.tensor([grid.x0, grid.y0, grid.cell], dtype=dt, device=dev)
+    origin, cell = frame[:2], frame[2]
+    rel = (points[..., None, :, :] - origin - offs[:, None, :]) / cell
     ix = torch.floor(rel[..., 0]).long()
     iy = torch.floor(rel[..., 1]).long()
     inb = (ix >= 0) & (ix < grid.nx) & (iy >= 0) & (iy < grid.ny)

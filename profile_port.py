@@ -427,7 +427,10 @@ def hot_times(seed: int, dev) -> dict:
     overlaps, on the box-world scans at their true poses in scan order
     (:func:`k10a_scan_points`) and on seeded random-order points
     (:func:`k10a_random_points`); K9a and K9b on config 4's 10k graph (P =
-    64, lam 1e-3: ``chip_smoke.check_k9b``'s inputs). Beside them each
+    64, lam 1e-3: ``chip_smoke.check_k9b``'s inputs); K9c on both ranks of
+    :func:`k9c_graph` split in two (``chip_smoke.k9c_ranks``); K9a's and
+    K9c's library calls (``chip_smoke.k9a_library_call``,
+    ``k9c_library_call``; card ms, no hash: float atomics). Beside them each
     launch's outputs' sha256 and, for configs 1, 2 and 3 on box-world
     draws 0-2, the ATE and the trajectory's sha256
     (``run_odometry_windowed``, ``run_slam_windowed``), and the served
@@ -453,9 +456,10 @@ def hot_times(seed: int, dev) -> dict:
                             SERVING, _moved_graph8,
                             box_sequence, box_store, config4_graph,
                             headline_args, k5_calls, k7b_args,
-                            k7b_random_args, k11_inputs, lm_verify_args,
-                            lm_window_args, local_graph, map_stats,
-                            run_config4_pcg, run_incremental_10k,
+                            k7b_random_args, k9a_library_call,
+                            k9c_library_call, k9c_ranks, k11_inputs,
+                            lm_verify_args, lm_window_args, local_graph,
+                            map_stats, run_config4_pcg, run_incremental_10k,
                             smoother_state, time_ms)
     from ndtpu_torch import kernels, serve
     from ndtpu_torch.config import PipelineConfig, SolverConfig
@@ -495,6 +499,7 @@ def hot_times(seed: int, dev) -> dict:
     seq = box_sequence(seed, cfg2.n_beams)
     calls = {}    # key -> (fn, kernel names for the card time)
     per_call = {}   # key -> launches per call, where the design's is known
+    no_hash = set()   # keys whose outputs are not deterministic
     table = ndt_grid.finalize_pack(map_stats(seq, cfg2.grid, dev), cfg2.ndt,
                                    cfg2.grid)
     a2 = lm_window_args(cfg2, seq, table, seed, dev, cfg2.window)
@@ -650,6 +655,21 @@ def hot_times(seed: int, dev) -> dict:
                                 CONFIG4["lam"]), ["schur_reduce"])
     per_call["K9a supernodal_assemble 10k"] = 1
     per_call["K9b schur_reduce 10k"] = 1
+    # K9c on both ranks of K9C_GRAPH split in two, and K9a's and K9c's
+    # library calls (their outputs come from float atomics: no hash).
+    calls["K9a library call 10k"] = (k9a_library_call(plan4, lin4), None)
+    no_hash.add("K9a library call 10k")
+    for rank, (t9, lin9, masks9) in enumerate(k9c_ranks(
+            k9c_graph(dev), 2)[1]):
+        key = f"K9c schur_local_assemble rank {rank}"
+        calls[key] = (lambda t9=t9, lin9=lin9, masks9=masks9:
+                      schur.schur_local_assemble(t9, K9C_LAM, *lin9,
+                                                 *masks9),
+                      ["supernodal_assemble_kernel<true>"])
+        per_call[key] = 1
+        calls[f"K9c library call rank {rank}"] = (
+            k9c_library_call(t9, lin9, masks9), None)
+        no_hash.add(f"K9c library call rank {rank}")
     # K11 at the corridor (f64, f32) and serving shapes, and past the first
     # design's 48 KB (4,004 segments); K7b on the config-3 graph's local
     # selection (the smoke's), the pipeline's own last call and past the
@@ -682,7 +702,7 @@ def hot_times(seed: int, dev) -> dict:
             del calls[key]
             continue
         torch.cuda.synchronize()
-        out[key] = dict(sha256=sha(res))
+        out[key] = {} if key in no_hash else dict(sha256=sha(res))
     out["K6 solve"]["iterations"] = int(calls["K6 solve"][0]()[1])
     out["K6g 10k solve"]["iterations"] = int(calls["K6g 10k solve"][0]()[1])
     out["K6 solve"].update(slots=list(g.poses.shape[:1]) + [g.bet_i.shape[0]],
@@ -738,6 +758,96 @@ def hot_times(seed: int, dev) -> dict:
         finally:
             kernels.lm_spread = saved
         out["lm_ndt card ms at R"] = spreads
+    return out
+
+
+#: K9c's --hot graph: a seeded 2,048-pose Manhattan world (config 5's
+#: merged graph is about as large), split over two ranks, at lam 1e-3.
+K9C_POSES, K9C_SEED, K9C_LAM = 2048, 5, 1e-3
+
+
+def k9c_graph(dev):
+    """:data:`K9C_POSES` poses of ``manhattan_world`` from :data:`K9C_SEED`
+    (loop_prob 0.1, poses jittered by N(0, 0.05) from the same seed), f32 on
+    ``dev``."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch.data import g2o
+
+    data = g2o.manhattan_world(K9C_POSES, seed=K9C_SEED, loop_prob=0.1)
+    data = data._replace(poses=data.poses + np.random.default_rng(
+        K9C_SEED).normal(0, 0.05, data.poses.shape))
+    return g2o.to_graph(data, torch.float32, device=dev)
+
+
+#: --assemble-sweep's launch shapes: (threads per block, staged floats per
+#: unit, blocks per SM of a persistent grid or 0 for one block per unit).
+ASSEMBLE_SHAPES = [(t, c, b) for t in (64, 128, 256)
+                   for c in (1024, 2048, 4096, 8192, 12288)
+                   for b in (0, min(32, 2048 // t))]
+
+
+def assemble_sweep(dev) -> dict:
+    """K9a's and K9c's card ms per call (profiler, ``per_call=1``) at each
+    launch shape of :data:`ASSEMBLE_SHAPES` (``kernels.
+    supernodal_assemble_shape``): K9a on config 4's 10k graph (P = 64), K9c
+    on both ranks of :func:`k9c_graph` split in two; each output's sha256
+    must be the same at every shape. The default shape's row is marked.
+    Beside them, one ``zero_`` of as many floats as each call writes (the
+    store stream alone)."""
+    import hashlib
+
+    import torch
+
+    from chip_smoke import CONFIG4, config4_graph, k9c_ranks
+    from ndtpu_torch import kernels
+    from ndtpu_torch.dist import schur
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import supernodal as sn
+
+    g4 = config4_graph(dev, torch.float32, 0, CONFIG4["n_poses"])
+    plan4 = sn.plan_supernodal(g4, CONFIG4["shards"])
+    (ai, aj, r), (ap, rp) = fct.linearize(g4)
+    calls = {"K9a 10k": (lambda: sn.supernodal_assemble(plan4, ai, aj, r, ap,
+                                                        rp),
+                         ["supernodal_assemble"])}
+    for rank, (t, lin, masks) in enumerate(k9c_ranks(k9c_graph(dev), 2)[1]):
+        calls[f"K9c rank {rank}"] = (
+            lambda t=t, lin=lin, masks=masks: schur.schur_local_assemble(
+                t, K9C_LAM, *lin, *masks),
+            ["supernodal_assemble_kernel<true>"])
+
+    def sha(res) -> str:
+        h = hashlib.sha256()
+        for x in res:
+            h.update(x.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out, want = {}, {}
+    try:
+        for shape in [(0, 0, 0)] + ASSEMBLE_SHAPES:
+            kernels.supernodal_assemble_shape(*shape)
+            row = {}
+            for key, (fn, names) in calls.items():
+                h = sha(fn())
+                if want.setdefault(key, h) != h:
+                    raise RuntimeError(f"{key}: shape {shape} changes the "
+                                       f"output's bits")
+                row[key] = card_ms(fn, names, per_call=1)
+            out["default" if shape == (0, 0, 0) else str(shape)] = row
+            print(f"[profile] assemble shape {shape}: {row}", flush=True)
+    finally:
+        kernels.supernodal_assemble_shape()
+    out["sha256"] = want
+    # The store stream alone: one fill of each call's outputs (no kernel of
+    # the port; the floor a single write of those bytes reaches).
+    for key, (fn, _) in calls.items():
+        n = sum(x.numel() for x in fn())
+        buf = torch.empty(n, device=dev)
+        out.setdefault("fill", {})[key] = card_ms(lambda buf=buf: buf.zero_(),
+                                                  None, per_call=1)
+    print(f"[profile] fill of the outputs: {out['fill']}", flush=True)
     return out
 
 
@@ -1543,6 +1653,9 @@ def main(argv=None) -> int:
     parser.add_argument("--raycast-sweep", action="store_true",
                         help="K11's card ms against the segment count "
                         "(raycast_sweep) and nothing else")
+    parser.add_argument("--assemble-sweep", action="store_true",
+                        help="K9a's and K9c's card ms at each launch shape "
+                        "(assemble_sweep) and nothing else")
     parser.add_argument("--hot", action="store_true",
                         help="time lm_ndt and K6 / K6b at the main path's "
                         "shapes and bench.py's headline shape, with output "
@@ -1579,6 +1692,10 @@ def main(argv=None) -> int:
         kernels.build()
         result = dict(card=smi, raycast_sweep=raycast_sweep(dev))
         print(f"[profile] raycast sweep: {result['raycast_sweep']}")
+        return _emit(result, smi, args.out)
+    if args.assemble_sweep:
+        kernels.build()
+        result = dict(card=smi, assemble_sweep=assemble_sweep(dev))
         return _emit(result, smi, args.out)
     if args.hot:
         kernels.build()

@@ -7,11 +7,14 @@ incremental_update, K6g pcg_solve_grid (the PCG past one block) at config
 4's 10k poses, also through solve_g2o --method pcg and bench.py §5's
 incremental updates, and config 4's K9a
 supernodal_assemble and K9b schur_reduce, also through one supernodal
-step, and stacked serving's K6b pcg_solve_blocked, K3s halfcell_add_stacked
-and K4s finalize_pack_stacked (also in the other table layouts: K3s at
+step (K9a also bit for bit against the plain model of its sum order,
+supernodal_assemble_model, where the rows start at every offset of a
+16-byte line and at several launch shapes), and stacked serving's K6b
+pcg_solve_blocked, K3s halfcell_add_stacked and K4s finalize_pack_stacked (also in the other table layouts: K3s at
 overlap 1, K4s in g1l8, g4l4 and g1l4), and config 5's K12
 ndt_sgh_unpacked (also at overlap 1) and
-K9c schur_local_assemble, also through a one-rank optimize_schur, and the
+K9c schur_local_assemble, also through a one-rank optimize_schur (and bit
+for bit against schur_local_assemble_model, dead interior slots too), the
 slab map's K10a slab_accumulate, K10b finalize_cells and K10c slab_sgh,
 also through a one-rank match_slab (K10a and K10c also at overlap 1; K10c
 also past its 1,024 beams a block), and the inputs' K11 raycast and K13
@@ -1020,6 +1023,101 @@ def test_schur_reduce_equals_ordered_model_bit_for_bit(config4):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def test_supernodal_assemble_equals_ordered_model_bit_for_bit(config4):
+    """K9a (every target float written once, in 16-byte stores where a
+    line lies in one span) equals ``supernodal_assemble_model``, the plain
+    model of its sum order run on the card, bit for bit, in one launch."""
+    from ndtpu_torch.graph import supernodal as tsn
+
+    plan = config4["plan"]
+    (ai, aj, r), (ap, rp) = config4["lin"]
+    kernels.reset_launches()
+    out = tsn.supernodal_assemble(plan, ai, aj, r, ap, rp)
+    model = tsn.supernodal_assemble_model(plan, ai, aj, r, ap, rp)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["supernodal_assemble"] == 1
+    for a, b in zip(out, model):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+#: (poses, shards) of small Manhattan plans whose (ni, nsl, ns) are all odd
+#: (65, 3, 5: every span's rows start at each 4-byte offset of a 16-byte
+#: line), all even (36, 4, 8) and mixed (7, 4, 15; 58, 5, 11).
+ASSEMBLE_PARITY = {"odd": (200, 3), "even": (150, 4), "mixed": (60, 8),
+                   "mixed 2": (240, 4)}
+
+
+@pytest.mark.parametrize("case", list(ASSEMBLE_PARITY))
+def test_supernodal_assemble_at_every_row_offset(dev, case):
+    """K9a bit for bit its model where the block rows' spans start at any
+    offset mod 16 bytes (``ni``, ``nsl`` and ``ns`` odd and even), at the
+    default launch shape and at shapes that split rows over many units
+    (a 4-float chunk, 32 threads, a persistent grid); bit-identical
+    across shapes."""
+    from ndtpu_torch.data import g2o
+    from ndtpu_torch.graph import factors as tfct
+    from ndtpu_torch.graph import supernodal as tsn
+
+    n, shards = ASSEMBLE_PARITY[case]
+    g = g2o.to_graph(g2o.manhattan_world(n, seed=1, loop_prob=0.2),
+                     torch.float32, device=dev)
+    plan = tsn.plan_supernodal(g, shards)
+    (ai, aj, r), (ap, rp) = tfct.linearize(g)
+    model = tsn.supernodal_assemble_model(plan, ai, aj, r, ap, rp)
+    sp = plan.schur
+    if case == "odd":   # rows of 9n floats: each span's rows start at
+        # every offset mod 4 floats
+        assert sp.ni % 2 == plan.ns_loc % 2 == sp.ns % 2 == 1
+    try:
+        for shape in ((0, 0, 0), (32, 4, 0), (256, 12288, 0), (64, 36, 2)):
+            kernels.supernodal_assemble_shape(*shape)
+            out = tsn.supernodal_assemble(plan, ai, aj, r, ap, rp)
+            torch.cuda.synchronize()
+            for a, b in zip(out, model):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    finally:
+        kernels.supernodal_assemble_shape()
+
+
+@pytest.mark.parametrize("n,ranks", [(60, 3), (150, 3), (200, 3), (120, 2)])
+def test_schur_local_assemble_equals_ordered_model_bit_for_bit(dev, n, ranks):
+    """K9c on every rank equals ``schur_local_assemble_model`` run on the
+    card, bit for bit, in one launch, ``ni`` and ``ns`` odd and even; a
+    dead interior slot (60 and 150 poses over 3 ranks have them) has 1 on
+    its diagonal and 0 elsewhere in its rows."""
+    from ndtpu_torch.data import g2o
+    from ndtpu_torch.dist import schur as tschur
+
+    g = g2o.to_graph(g2o.manhattan_world(n, seed=1, loop_prob=0.2),
+                     torch.float32, device=dev)
+    plan = tschur.plan_partition(
+        g.bet_i.cpu().numpy(), g.bet_j.cpu().numpy(),
+        g.bet_mask.cpu().numpy(), g.prior_idx.cpu().numpy(),
+        g.prior_mask.cpu().numpy(), n, ranks)
+    dead_seen = 0
+    for rank in range(ranks):
+        t = tschur.rank_tables(plan, rank, dev)
+        loc = tuple(x[0] for x in tschur.shard_factor_data_local(g, plan,
+                                                                 rank))
+        lin = tschur._linearize_shard(g.poses, *loc)
+        kernels.reset_launches()
+        out = tschur.schur_local_assemble(t, 1e-3, *lin, loc[4], loc[8])
+        model = tschur.schur_local_assemble_model(plan, rank, 1e-3, *lin)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["schur_local_assemble"] == 1
+        for a, b in zip(out, model):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        h_ii = out[0].cpu()
+        for slot in np.nonzero(~np.asarray(plan.int_mask[rank]))[0]:
+            rows = h_ii[3 * slot:3 * slot + 3]
+            assert torch.equal(rows[:, 3 * slot:3 * slot + 3], torch.eye(3))
+            assert int(torch.count_nonzero(rows)) == 3
+            assert int(torch.count_nonzero(out[1][3 * slot:3 * slot + 3])) \
+                == 0
+            dead_seen += 1
+    assert dead_seen > 0 or n in (200, 120)
+
+
 def test_supernodal_step_on_the_card(config4):
     """One supernodal_delta through K5, K9a and K9b against the f64 plain
     route (within 2 x the f32 plain route's error + 1e-6 x max|delta|)."""
@@ -1396,14 +1494,28 @@ GRID_WIDE = GridConfig(x0=-51.2, y0=-25.6, cell=0.05, nx=2048, ny=1024,
                        overlap=4)
 
 
+def test_cell_ids_on_the_card_equal_the_cpu(dev):
+    """``ndt.grid.cell_ids`` bins seeded points at 0.05 m (not a power of
+    two) on the card as on the CPU, in f32 and f64, at both overlaps."""
+    rng = np.random.default_rng(16)
+    p = rng.uniform((-52.0, -26.0), (52.0, 26.0), (400_000, 2))
+    for overlap in (4, 1):
+        grid = dataclasses.replace(GRID_WIDE, overlap=overlap)
+        for dt in (torch.float32, torch.float64):
+            pts = torch.as_tensor(p, dtype=dt)
+            ids, inb = tgrid.cell_ids(pts, grid)
+            ids_c, inb_c = tgrid.cell_ids(pts.to(dev), grid)
+            assert torch.equal(ids_c.cpu(), ids)
+            assert torch.equal(inb_c.cpu(), inb)
+
+
 def test_slab_accumulate_past_shared_counters(dev):
     """K10a on a slab of more tiles than its bin blocks' shared memory
     counts (they count in the work buffer instead), at both overlaps: bit
     for bit its fixed-point model, with the points permuted too. The model
-    runs on the CPU: at this cell (0.05 m, not a power of two) PyTorch on
-    the card divides by the Python float cell as a multiply by its
-    reciprocal, which bins a few points unlike the kernel's (and the CPU's)
-    IEEE division."""
+    runs on the card, at a cell (0.05 m) that is not a power of two:
+    ``ndt.grid.cell_ids`` divides by a tensor of the cell, so the card's
+    plain binning is the kernel's (and the CPU's) IEEE division."""
     from ndtpu_torch.dist import gridmap
 
     rng = np.random.default_rng(21)
@@ -1419,12 +1531,12 @@ def test_slab_accumulate_past_shared_counters(dev):
         for x_lo, width in ((0, 2048), (-3, 2000)):
             tp = kernels.slab_tiles(overlap, width, grid.ny)
             assert tp.tiles > kernels.SLAB_MAX_TILES or overlap == 1
-            model = gridmap.slab_accumulate_fixed_ref(pts.cpu(), mask.cpu(),
-                                                      grid, x_lo, width)
+            model = gridmap.slab_accumulate_fixed_ref(pts, mask, grid,
+                                                      x_lo, width)
             for q, k in ((pts, mask), (pts[perm], mask[perm])):
                 out = gridmap.slab_accumulate(q, k, grid, x_lo, width)
                 for a, b in zip(out, model):
-                    assert torch.equal(a.cpu().view(torch.int32),
+                    assert torch.equal(a.view(torch.int32),
                                        b.view(torch.int32))
             assert int(model[0].sum()) > 0.8 * overlap * n
 
