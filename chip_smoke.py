@@ -95,8 +95,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    segments (past the first design's 48 KB; hits identical, within 1e-9 m
    of the f64 plain version), in f32 at the same three against the f32
    plain version, and K13 ``voxel_downsample`` on the CLI's 600 x 360 corridor
-   scans at 0.05 / 0.1 / 0.5 m (masks bit-equal), each bit-identical on a
-   second launch;
+   scans at 0.05 / 0.1 / 0.5 m (masks bit-equal; the table route) and on 8
+   seeded scans of 20,000 points past its table (the scan route,
+   ``voxel_downsample[scan]``, through the entry point), each
+   bit-identical on a second launch;
 4. config 2 through its entry point: ``ndtpu_torch.run.main`` on
    ``configs/config2_full_sequence.json``, 300 scans, ``--device cuda``,
    with every launch counter (and the counts of ``match_batch_packed``
@@ -517,6 +519,10 @@ KERNELS = [
                 "scan_config3", "multilap")),
     dict(name="voxel_downsample", source=_CSRC + "voxel_downsample.cu",
          replaces="ndtpu/data/preprocess.py:24", paths=("downsample",)),
+    # K13's scan route: scans past its table's shared memory (phase 3).
+    dict(name="voxel_downsample[scan]", source=_CSRC + "voxel_downsample.cu",
+         replaces="ndtpu/data/preprocess.py:24",
+         paths=("downsample_past_table",)),
     # K3 at overlap 1, in the layout runs whose map has one grid.
     dict(name="halfcell_add[g1]", source=_CSRC + "halfcell_add.cu",
          replaces="ndtpu/ndt/grid.py:120",
@@ -904,7 +910,8 @@ def bits_equal(a, b) -> bool:
     import torch
 
     if isinstance(a, torch.Tensor):
-        raw = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
+        raw = lambda t: t.clone(memory_format=torch.contiguous_format
+                                ).reshape(-1).view(torch.uint8)
         return (a.shape == b.shape and a.dtype == b.dtype
                 and torch.equal(raw(a), raw(b)))
     return all(bits_equal(x, y) for x, y in zip(a, b))
@@ -5238,9 +5245,13 @@ K11_F32_OUTLIERS = 1e-4
 #: denominator (3), the two numerators (6), two divisions, the four tests,
 #: the select and the min.
 K11_FLOPS = 18
-#: f32 operations per point of K13's quantize and pack; the id comparisons
-#: run from shared memory and are not counted (the bound is by bytes).
+#: f32 operations per point of K13's quantize and pack; the hash table's
+#: probes and the id comparisons run from shared memory and are not
+#: counted (the bound is by bytes).
 K13_POINT_FLOPS = 12
+#: K13 past its table route (``kernels.voxel_route``): seeded scans of this
+#: many points (+-15 m, 10% masked out), 0.1 m.
+K13_PAST = dict(scans=8, points=20_000, voxel=0.1)
 #: The CLI's synthetic corridor (``run._build_inputs``).
 CORRIDOR_SCANS = 600
 
@@ -5444,6 +5455,49 @@ def check_k13(dev, jobs=None):
           f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
           f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
     return row
+
+
+def check_k13_scan(dev, jobs=None):
+    """K13's scan route on :data:`K13_PAST`'s scans, past the table route's
+    shared memory, through ``preprocess.voxel_downsample`` with the launch
+    counts reset: bit-equal to its plain version (CPU) and on a second
+    launch. Returns ``(launches, row)``."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.data import preprocess
+
+    t, n, voxel = K13_PAST["scans"], K13_PAST["points"], K13_PAST["voxel"]
+    require(kernels.voxel_route(n) == "scan",
+            f"K13: {n} points take the table route, not the scan route")
+    rng = np.random.default_rng(n)
+    p = torch.as_tensor(rng.uniform(-15.0, 15.0, (t, n, 2)),
+                        dtype=torch.float32, device=dev)
+    m = torch.as_tensor(rng.random((t, n)) > 0.1, device=dev)
+    run = lambda: preprocess.voxel_downsample(p, m, voxel)
+    kernels.reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    again = run()
+    ref = preprocess.voxel_downsample_ref(p.cpu(), m.cpu(), voxel)
+    require(torch.equal(out, again), "K13 scan route: two launches differ")
+    n_diff = int((out.cpu() != ref).sum())
+    require(n_diff == 0, f"K13 scan route: {n_diff} mask entries differ from "
+            f"the plain version's")
+    row = dict(max_abs_err=0.0, kept=int(ref.sum()), ms=time_ms(run),
+               plain_ms=time_ms(lambda: preprocess.voxel_downsample_ref(
+                   p, m, voxel)),
+               **bound(10 * t * n, K13_POINT_FLOPS * t * n))
+    card_time(jobs, "K13 voxel_downsample[scan]", row, "card_ms", run,
+              ["voxel_downsample"], per_call=1)
+    print(f"[smoke] K13 voxel_downsample[scan] {tuple(m.shape)} at {voxel} "
+          f"m: kept {row['kept']}, mask bit-equal to the plain version's and "
+          f"on a second launch; kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+          f"({row['bound_by']})")
+    return launches, row
 
 
 #: Every plain version the per-scan path, the CLI's inputs and the stacked
@@ -5921,7 +5975,7 @@ def run_scan_phase(dev, jobs):
 #: f32 operations of K12 per masked beam (transform, phi-derivative,
 #: offsets) and per (beam, grid) (binning 6, counted from
 #: ``csrc/ndt_unpacked.cu``) and per (beam, grid) in a valid in-map cell
-#: (the 71 of ``csrc/ndt_sums.cuh``'s ``ndt_add_terms``).
+#: (the 71 of ``csrc/ndt_sums.cuh``'s ``ndt_gauss_terms`` and their sum).
 K12_BEAM_FLOPS, K12_BIN_FLOPS, K12_CELL_FLOPS = 14, 6, 71
 
 
@@ -6192,7 +6246,7 @@ def check_k9c(graph, n_ranks: int, lam: float, jobs=None):
                    "routed 3x3 blocks into h_ii, h_is and h_ss (flat): the "
                    "same sums without the damping")
         card_time(jobs, f"K9c schur_local_assemble rank {rank}", row,
-                  "card_ms", run, ["supernodal_assemble_kernel<true>"],
+                  "card_ms", run, ["supernodal_assemble_kernel<true"],
                   per_call=1)
         card_time(jobs, f"K9c library call rank {rank}", row,
                   "library_card_ms", lib_fn)
@@ -7598,6 +7652,8 @@ def main(argv=None) -> int:
     # downsample) at the CLI's and serving's shapes.
     results["raycast"] = check_k11(dev, jobs)
     results["voxel_downsample"] = check_k13(dev, jobs)
+    launches_vscan, results["voxel_downsample[scan]"] = check_k13_scan(dev,
+                                                                      jobs)
     # The map build is the same on every run; what the whole pipeline does
     # run to run on the draws whose ATE flipped under float atomics.
     check_frontend_twice(cfg3, box_sequence(2, cfg3.n_beams), dev)
@@ -7739,6 +7795,7 @@ def main(argv=None) -> int:
              "config4_pcg": launches4p, "incremental_10k": launches10k,
              "multilap": launches_ml,
              "select_past_block": launches_sel,
+             "downsample_past_table": launches_vscan,
              "serving": launches8, **launches_sl, "config5": launches5,
              "config5_overlap1": launches5o1,
              "config5_dist": launches5d, "slam_launch": launches14,

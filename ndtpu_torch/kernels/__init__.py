@@ -65,7 +65,9 @@ ndt_sgh_     ``csrc/ndt_unpacked.cu`` (K12)  ``vmap(match.score_grad_hess)``
 unpacked                                     over poses (``grid.lookup`` +
                                              ``match.point_terms``), as
                                              ``merge.global_align`` ranks
-                                             its hypotheses
+                                             its hypotheses: one beam per
+                                             thread, a beam's cells loaded
+                                             before any test
 slab_        ``csrc/slab_accum.cu`` (K10a)   ``dist/gridmap.py::_accum_local``
 accumulate                                   with ``_cell_xy`` and the slab
                                              masks of its two callers: the
@@ -80,7 +82,11 @@ raycast      ``csrc/raycast.cu`` (K11)       ``synth.raycast``: the nearest
                                              ray/segment hit per (pose,
                                              beam), f64 and f32
 voxel_       ``csrc/voxel_downsample.cu``    ``preprocess.voxel_downsample``:
-downsample   (K13)                           one valid point per voxel
+downsample   (K13)                           one valid point per voxel, by
+                                             a hash table in shared memory
+                                             (past it by comparing ids,
+                                             counted as
+                                             ``voxel_downsample[scan]``)
 ============ =============================== =================================
 
 K5, K6, K6g and K7b share the pose graph's arithmetic,
@@ -171,7 +177,8 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "schur_reduce", "schur_local_assemble",
            "ndt_sgh_unpacked", "slab_tiles", "slab_work", "slab_accumulate",
            "finalize_cells",
-           "slab_spread", "slab_sgh", "raycast", "voxel_downsample"]
+           "slab_spread", "slab_sgh", "raycast", "sgh_spread", "voxel_smem",
+           "voxel_route", "voxel_downsample"]
 
 #: The quad-table layouts ``(G, L)``: G overlap grids per row (4, or 1 at
 #: ``overlap = 1``) of L lanes each (8 full, or 4 compact bf16-pair lanes at
@@ -212,6 +219,7 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "schur_local_assemble": 0, "ndt_sgh_unpacked": 0,
             "slab_accumulate": 0, "finalize_cells": 0, "slab_sgh": 0,
             "raycast": 0, "voxel_downsample": 0,
+            "voxel_downsample[scan]": 0,
             **{variant(k, 1): 0 for k in _GRID_KERNELS},
             **{variant(k, g, l): 0 for k in _LAYOUT_KERNELS
                for g, l in LAYOUTS[1:]}}
@@ -268,13 +276,14 @@ _SIGNATURES = {
     "schur_reduce_launch": [_P] * 11 + [_F, _I, _I, _P, _P, _P],
     "schur_local_assemble_launch": [_P] * 5 + [_I] + [_P] * 7
                                    + [_F, _I, _I] + [_P] * 6,
-    "ndt_sgh_unpacked_launch": [_P] * 7 + [_I] * 4 + [_F] * 5 + [_I, _P],
+    "ndt_sgh_unpacked_launch": [_P] * 7 + [_I] * 4 + [_F] * 5
+                               + [_I, _I, _P],
     "slab_accum_launch": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_I] * 4 + [_P],
     "finalize_cells_launch": [_P] * 6 + [ctypes.c_longlong] + [_F] * 3
                              + [_P],
     "slab_sgh_launch": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
     "raycast_launch": [_P] * 4 + [_I] * 3 + [_D, _D, _I, _P],
-    "voxel_downsample_launch": [_P] * 3 + [_I, _I, _F, _I, _P],
+    "voxel_downsample_launch": [_P] * 3 + [_I, _I, _F, _I, _I, _P],
 }
 
 
@@ -1430,12 +1439,25 @@ def schur_local_assemble(ai, aj, r, ap, rp, row_ptr, tgt_col, tgt_ptr, code,
             h_ss.view(3 * ns, 3 * ns), b_i, b_s)
 
 
+def sgh_spread(b: int, n: int, sms: int) -> int:
+    """K12's ``R`` for ``b`` poses of one scan of ``n`` beams on a card of
+    ``sms`` multiprocessors: ``128 R`` threads per pose, one beam each,
+    ``min(ceil(n / 128), 8)`` while the poses' threads (``128 R`` each) stay
+    within ``1,024 x sms``, down to 1 (128 threads, beams ``t, t + 128,
+    ...`` each) where the poses fill the card alone (``lm_ndt``'s rule,
+    :func:`lm_spread`; ``profile_port.py --sgh-sweep`` measured every R
+    at config 5's coarse and refine calls). No result depends on it: the
+    sums are the first design's bits at every R."""
+    return max(1, min(-(-n // 128), LM_MAX_SPREAD, 8 * sms // max(b, 1)))
+
+
 def ndt_sgh_unpacked(poses, points, mask_f, mean, icov, valid, grid,
                      d2: float, exp_clip: float):
     """K12: the NDT terms of one scan ``points [N, 2]`` (``mask_f [N]``
     f32) at every pose of ``poses [B, 3]`` on an unpacked map of ``G =
     overlap`` grids (``mean [G, C, 2]``, ``icov [G, C, 2, 2]``, ``valid [G,
-    C]``), one block per pose (see ``csrc/ndt_unpacked.cu``; counted as
+    C]``), one block of ``128 R`` threads per pose, one beam per thread
+    (:func:`sgh_spread`; see ``csrc/ndt_unpacked.cu``; counted as
     ``ndt_sgh_unpacked[g1]`` at overlap 1). Returns ``(f [B], g [B, 3],
     H [B, 3, 3], score [B])``, views of one ``[B, 14]`` allocation."""
     g, c = grid.overlap, grid.n_cells
@@ -1452,7 +1474,8 @@ def ndt_sgh_unpacked(poses, points, mask_f, mean, icov, valid, grid,
               poses.data_ptr(), points.data_ptr(), mask_f.data_ptr(),
               mean.data_ptr(), icov.data_ptr(), valid.data_ptr(),
               out.data_ptr(), b, n, grid.nx, grid.ny, grid.x0, grid.y0,
-              grid.cell, d2, exp_clip, g, _stream(poses))
+              grid.cell, d2, exp_clip, g,
+              sgh_spread(b, n, _sm_count(poses.device)), _stream(poses))
     return out[:, 0], out[:, 1:4], out[:, 4:13].view(b, 3, 3), out[:, 13]
 
 
@@ -1624,20 +1647,40 @@ def raycast(poses, angles, segments, max_range: float, eps: float
     return out
 
 
+def voxel_smem(n: int, route: str = "table") -> int:
+    """K13's shared memory per block for a scan of ``n`` points, in bytes
+    (``voxel_smem`` of ``csrc/voxel_downsample.cu``): on the table route 4
+    B of id and two 4-byte table slots a point, on the scan route 4 B of
+    id a point."""
+    return 12 * n if route == "table" else 4 * n
+
+
+def voxel_route(n: int) -> str:
+    """K13's route for scans of ``n`` points, one block of 256 threads a
+    scan on either: ``"table"`` where the scan's ids and table fit
+    :data:`SMEM_MAX` (n <= 19,370), else ``"scan"`` (n <= 58,112; the
+    wrapper raises past it). Both give the plain mask's bits."""
+    return "scan" if voxel_smem(n) > SMEM_MAX else "table"
+
+
 def voxel_downsample(points, mask, voxel: float) -> torch.Tensor:
     """K13: the thinned mask ``[T, N]`` of scans ``points [T, N, 2]`` (f32)
     with ``mask [T, N]`` (bool): per scan the lowest-index valid point of
-    each ``voxel`` cell, one block per scan (see
-    ``csrc/voxel_downsample.cu``). Raises ``ValueError`` when a scan's N
+    each ``voxel`` cell, on the route of :func:`voxel_route` (see
+    ``csrc/voxel_downsample.cu``; the scan route counted as
+    ``voxel_downsample[scan]``). Raises ``ValueError`` when a scan's N
     int32 ids do not fit a block's shared memory (N > 58,112)."""
     t, n = mask.shape
     _check(points, "points", shape=(t, n, 2), align=8)
     _check(mask, "mask", dtype=torch.bool, shape=(t, n), align=1)
     keep = torch.empty((t, n), dtype=torch.bool, device=points.device)
     if t * n > 0:
-        _call("voxel_downsample_launch", "voxel_downsample",
+        route = voxel_route(n)
+        _call("voxel_downsample_launch",
+              "voxel_downsample" if route == "table"
+              else "voxel_downsample[scan]",
               points.data_ptr(), mask.data_ptr(), keep.data_ptr(), t, n,
-              float(voxel), SMEM_MAX, _stream(points),
+              float(voxel), int(route == "scan"), SMEM_MAX, _stream(points),
               too_big=f"{n} points per scan do not fit a block's "
                       f"{SMEM_MAX} bytes of shared memory (4 B each)")
     return keep

@@ -45,10 +45,11 @@
 //     summed over the grids: K1 adds a beam's grids into the running sum
 //     one by one, and a sum over the grids first would round differently.
 //     Past 128 R beams the block takes them in chunks of 128 R.
-//   - K10c slab_sgh (ndt_unpacked.cu) runs the same scheme on a rank's
-//     slab with its own binning and a per-grid flag, through the stored
-//     terms' helpers and the reduction below (ndt_store_terms,
-//     ndt_add_stored, ndt_wide_block_sums).
+//   - K10c slab_sgh and K12 ndt_sgh_unpacked (ndt_unpacked.cu) run the
+//     same scheme on a rank's slab or an unpacked map with their own
+//     binning and a per-grid flag, through the stored terms' helpers and
+//     the reduction below (ndt_store_terms, ndt_add_stored,
+//     ndt_wide_block_sums).
 
 #pragma once
 
@@ -92,19 +93,6 @@ __device__ __forceinline__ void ndt_gauss_terms(
   t[8] = w * (i11 - d2 * qy * qy);
   t[9] = w * (ldy - d2 * qy * a3);
   t[10] = w * (j33 + hpp - d2 * a3 * a3);
-}
-
-// acc += one Gaussian's terms (ndt_gauss_terms). Shared by the quad-row
-// gather below and K12's unpacked-map gather (ndt_unpacked.cu).
-__device__ __forceinline__ void ndt_add_terms(
-    float* acc, float x, float y, float dpx, float dpy, float rx, float ry,
-    float mx, float my, float i00, float i01, float i11, float w0, float d2,
-    float nh, float exp_clip) {
-  float t[kNdtSums];
-  ndt_gauss_terms(t, x, y, dpx, dpy, rx, ry, mx, my, i00, i01, i11, w0, d2,
-                  nh, exp_clip);
-#pragma unroll
-  for (int k = 0; k < kNdtSums; ++k) acc[k] += t[k];
 }
 
 // Each thread's 11 sums reduced over the block (kNdtThreads threads) in a
@@ -259,7 +247,8 @@ __device__ __forceinline__ void ndt_store_terms(float4* beam, int g,
   beam[3 * g + 2] = make_float4(u[8], u[9], u[10], 0.f);
 }
 
-// acc += a stored beam's grid g, term by term (as ndt_add_terms adds).
+// acc += a stored beam's grid g, term by term, as a thread adds the
+// terms its own beam emits.
 __device__ __forceinline__ void ndt_add_stored(float* acc,
                                                const float4* beam, int g) {
   const float4 u0 = beam[3 * g], u1 = beam[3 * g + 1], u2 = beam[3 * g + 2];

@@ -71,6 +71,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "pose_graph.cuh"
 
@@ -140,11 +141,22 @@ __device__ __forceinline__ void endpoint(const AssembleArgs& a, int c,
 // cut into chunks of `chunk` floats whose boundaries are 16-byte line
 // boundaries in memory: chunk c covers stream floats [c chunk - off,
 // (c + 1) chunk - off), off = the stream's first float's offset in its
-// line.
+// line. Stream offsets are int, or long long (kWide) where a stream
+// reaches 2^31 floats (h_ss at 15,447 separators, a rank's h_ii at 15,447
+// interior poses): the launcher picks by stream_wide. 64-bit offsets
+// everywhere measured slower for K9a at 10k poses (more registers, 64-bit
+// divisions), so the 32-bit instantiation stays for every smaller graph.
 struct Stream {
   float* base;     // the stream's float 0
   int w, n_rows, first, col0, n_cols, off, chunks;
 };
+
+// Whether a stream of n floats in block rows of pitch floats needs 64-bit
+// offsets: a chunk's first float, its end and a row's end past it must all
+// stay in int's range.
+inline bool stream_wide(long long n, int pitch, int chunk) {
+  return n + chunk + pitch >= 0x7fffffffLL;
+}
 
 struct Streams {
   Stream s[3];
@@ -232,9 +244,10 @@ AsmShape g_asm_shape[2] = {kAsmShape[0], kAsmShape[1]};
 // One unit of work is one chunk of one stream: h_ii's chunks, then
 // h_is's, then h_ss's. Outputs are stored with the streaming hint (.cs),
 // so that the ~86 MB of them do not push the tables and blocks out of L2.
-template <bool kDamp>
+template <bool kDamp, bool kWide>
 __global__ void __launch_bounds__(kAsmThreadsMax)
 supernodal_assemble_kernel(AssembleArgs a, Streams ss) {
+  using Off = typename std::conditional<kWide, long long, int>::type;
   extern __shared__ float4 stage4[];   // the chunk, zero between units;
   float* stage = reinterpret_cast<float*>(stage4);
   int* s_ptr = reinterpret_cast<int*>(stage + ss.chunk);   // rows' row_ptr
@@ -251,10 +264,12 @@ supernodal_assemble_kernel(AssembleArgs a, Streams ss) {
     const Stream st = which == 0 ? ss.s[0] : which == 1 ? ss.s[1] : ss.s[2];
     const int c = u - (which > 0 ? ss.s[0].chunks : 0)
                   - (which > 1 ? ss.s[1].chunks : 0);
-    const int pitch = 3 * st.w, n = pitch * st.n_rows;
-    const int at = c * chunk - st.off;   // stream float of stage[0]
-    const int lo = max(at, 0), hi = min(at + chunk, n);
-    const int r0 = lo / pitch, n_rows = (hi - 1) / pitch - r0 + 1;
+    const int pitch = 3 * st.w;
+    const Off n = (Off)pitch * st.n_rows;
+    const Off at = (Off)c * chunk - st.off;   // stream float of stage[0]
+    const Off lo = max(at, (Off)0), hi = min(at + chunk, n);
+    const int r0 = (int)(lo / pitch);
+    const int n_rows = (int)((hi - 1) / pitch) - r0 + 1;
     for (int j = tid; j <= n_rows; j += T) {
       s_ptr[j] = a.row_ptr[st.first + r0 + j];
       if (kDamp && which == 0 && j < n_rows)   // 1 - live, for the damping
@@ -279,16 +294,17 @@ supernodal_assemble_kernel(AssembleArgs a, Streams ss) {
         const int mid = (j + j1 + 1) >> 1;
         if (s_ptr[mid] <= t) j = mid; else j1 = mid - 1;
       }
-      const int m = (r0 + j) * pitch + p * st.w + 3 * col + q;
+      const Off m = (Off)(r0 + j) * pitch + p * st.w + 3 * col + q;
       if (m < lo || m >= hi) continue;
       float h = target_entry(a, k0, k1, p, q);
       if (damp && p == q && col == r0 + j)
         h = h + (a.lam * ndtpu::pg::nanmax(fabsf(h), 1e-8f) + s_dead[j]);
       stage[m - at] = h;
     }
-    const int d0 = damp ? lo / st.w : 0, d1 = damp ? (hi - 1) / st.w : -1;
-    for (int i = d0 + tid; i <= d1; i += T) {   // scalar row i's diagonal
-      const int m = i * (st.w + 1), j = i / 3 - r0;
+    const Off d0 = damp ? lo / st.w : 0, d1 = damp ? (hi - 1) / st.w : -1;
+    for (Off i = d0 + tid; i <= d1; i += T) {   // scalar row i's diagonal
+      const Off m = i * (st.w + 1);
+      const int j = (int)(i / 3) - r0;
       if (m < lo || m >= hi || s_ptr[j + 1] > s_ptr[j]) continue;
       const float h = 0.f;
       stage[m - at] = h + (a.lam * ndtpu::pg::nanmax(fabsf(h), 1e-8f)
@@ -298,8 +314,8 @@ supernodal_assemble_kernel(AssembleArgs a, Streams ss) {
     // float: one thread per entry, the row's endpoints in order, four at a
     // time (beside the gather: its latency is not added to the chunk's).
     if (which != 1) {
-      const int rb = (lo + pitch - 1) / pitch, nb = (hi + pitch - 1) / pitch
-                                                    - rb;
+      const int rb = (int)((lo + pitch - 1) / pitch);
+      const int nb = (int)((hi + pitch - 1) / pitch) - rb;
       float* b = which == 0 ? a.b_i : a.b_s;
       for (int i = T - 1 - tid; i < 3 * nb; i += T) {   // the last threads
         const int r = rb + i / 3, cc = i % 3, row = st.first + r;
@@ -313,7 +329,7 @@ supernodal_assemble_kernel(AssembleArgs a, Streams ss) {
     // two ends), the staged zeros restored for the next unit.
     float* dst = st.base + at;   // 16-byte aligned
     for (int i = tid; i < chunk / 4; i += T) {
-      const int m = at + 4 * i;
+      const Off m = at + 4 * i;
       if (m >= hi) break;
       const float4 x = stage4[i];
       stage4[i] = zero4;
@@ -344,10 +360,7 @@ cudaError_t launch_assemble(const AssembleArgs& a, cudaStream_t st) {
   ss.rows_max = chunk / (3 * w_min) + 2;
   const long long units = (long long)ss.s[0].chunks + ss.s[1].chunks
                           + ss.s[2].chunks;
-  if (units > 0x7fffffffLL
-      || 9LL * a.ns * a.ns >= 0x7fffffffLL - chunk
-      || 9LL * n_int * std::max(a.ni, a.nsl) >= 0x7fffffffLL - chunk)
-    return cudaErrorInvalidConfiguration;
+  if (units > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   long long grid = units;
   if (shape.blocks_per_sm > 0) {
     int dev = 0, sms = 0;
@@ -358,15 +371,18 @@ cudaError_t launch_assemble(const AssembleArgs& a, cudaStream_t st) {
     const long long cap = (long long)shape.blocks_per_sm * sms;
     grid = grid < cap ? grid : cap;
   }
+  bool wide = false;
+  for (const Stream& s : ss.s)
+    wide = wide || stream_wide(3LL * s.w * s.n_rows, 3 * s.w, chunk);
+  auto* kernel = wide ? supernodal_assemble_kernel<kDamp, true>
+                      : supernodal_assemble_kernel<kDamp, false>;
   const int smem = (chunk + 2 * ss.rows_max + 1) * (int)sizeof(float);
   if (smem > 48 * 1024) {   // opt in past the default
     const cudaError_t err = cudaFuncSetAttribute(
-        supernodal_assemble_kernel<kDamp>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  supernodal_assemble_kernel<kDamp>
-      <<<(unsigned)grid, threads, smem, st>>>(a, ss);
+  kernel<<<(unsigned)grid, threads, smem, st>>>(a, ss);
   return cudaGetLastError();
 }
 

@@ -415,9 +415,10 @@ def hot_times(seed: int, dev) -> dict:
     bench.py §5b's 10,064-slot local graph and on the scratch route (the
     25,000 poses in ``chip_smoke.SELECT_SCRATCH_SLOTS``); K10c on both
     ranks' slabs (two
-    ranks of 128 columns) and K12 at config 5's 4,624 hypotheses, each at
-    both overlaps, on config 5's grid holding the box-world scans at
-    their true poses; K7b on that graph's local
+    ranks of 128 columns) and K12 at config 5's 4,624 hypotheses and 64
+    refine poses (:func:`k12_inputs`), each at both overlaps, on config 5's
+    grid holding the box-world scans at their true poses; K13 at 0.1 m on
+    the CLI's 600 corridor scans of 360 beams; K7b on that graph's local
     selection (``chip_smoke.k7b_args``), on the last call of the config-3
     run above (the pipeline's shape) and at 8,192 seeded gathered slots
     (``chip_smoke.K7B_PAST``); K11 at ``chip_smoke.K11_CASES``' corridor
@@ -451,7 +452,8 @@ def hot_times(seed: int, dev) -> dict:
     import torch
 
     from chip_smoke import (CONFIG1, CONFIG2, CONFIG3, CONFIG4, CONFIG5,
-                            ICFG_10K, K6G_10K, K7B_PAST, K11_CASES,
+                            CORRIDOR_SCANS, ICFG_10K, K6G_10K, K7B_PAST,
+                            K11_CASES, cli_inputs,
                             SELECT_PAST_POSES, SELECT_SCRATCH_SLOTS,
                             SERVING, _moved_graph8,
                             box_sequence, box_store, config4_graph,
@@ -463,7 +465,7 @@ def hot_times(seed: int, dev) -> dict:
                             smoother_state, time_ms)
     from ndtpu_torch import kernels, serve
     from ndtpu_torch.config import PipelineConfig, SolverConfig
-    from ndtpu_torch.data import synth
+    from ndtpu_torch.data import preprocess, synth
     from ndtpu_torch.dist import gridmap, schur, slam_dp
     from ndtpu_torch.eval.ate import ate_rmse
     from ndtpu_torch.graph import factors as fct
@@ -473,7 +475,7 @@ def hot_times(seed: int, dev) -> dict:
     from ndtpu_torch.loop import closure
     from ndtpu_torch.ndt import grid as ndt_grid
     from ndtpu_torch.ndt import match
-    from ndtpu_torch.slam import merge, pipeline
+    from ndtpu_torch.slam import pipeline
     from ndtpu_torch.slam.odometry import run_odometry_windowed
 
     def tensors(x):
@@ -601,23 +603,15 @@ def hot_times(seed: int, dev) -> dict:
     # scan of largest true x (rank 1 owns most of its beams, as in the
     # smoke's phase 15) at its true pose moved by (0.05, -0.03, 0.01).
     cfg5 = PipelineConfig.from_json(str(CONFIG5))
-    s5 = box_sequence(seed, cfg5.n_beams)
-    k5 = int(s5.gt_poses[:, 0].argmax())
-    probe = s5.points[k5].to(dev).contiguous()
-    probe_m = s5.mask[k5].to(dev).float().contiguous()
-    pose5 = (s5.gt_poses[k5:k5 + 1].to(dev) + torch.tensor(
-        [0.05, -0.03, 0.01], device=dev)).contiguous()
-    hyp = merge._hypothesis_grid(8.0, 1.0, 16, torch.float32, dev)
+    s5, probe, probe_m, pose5, k12 = k12_inputs(seed, dev)
     nxl, m5 = cfg5.grid.nx // 2, cfg5.match
+    for key, fn in k12.items():
+        calls[key] = (fn, ["ndt_sgh_unpacked"])
+        per_call[key] = 1
     for gn in (4, 1):
         gr = dataclasses.replace(cfg5.grid, overlap=gn)
         dense = ndt_grid.finalize(map_stats(s5, gr, dev), cfg5.ndt)
         slab = gridmap.dense_to_slab(dense, gr)
-        key = kernels.variant("K12 ndt_sgh_unpacked", gn) + " coarse"
-        calls[key] = (lambda d=dense, gr=gr: kernels.ndt_sgh_unpacked(
-            hyp, probe, probe_m, *d, gr, m5.d2, m5.exp_clip),
-            ["ndt_sgh_unpacked"])
-        per_call[key] = 1
         for r in range(2):
             half = [x[:, r * nxl:(r + 1) * nxl].contiguous() for x in slab]
             key = kernels.variant("K10c slab_sgh", gn) + f" rank {r}"
@@ -665,7 +659,7 @@ def hot_times(seed: int, dev) -> dict:
         calls[key] = (lambda t9=t9, lin9=lin9, masks9=masks9:
                       schur.schur_local_assemble(t9, K9C_LAM, *lin9,
                                                  *masks9),
-                      ["supernodal_assemble_kernel<true>"])
+                      ["supernodal_assemble_kernel<true"])
         per_call[key] = 1
         calls[f"K9c library call rank {rank}"] = (
             k9c_library_call(t9, lin9, masks9), None)
@@ -682,6 +676,12 @@ def hot_times(seed: int, dev) -> dict:
             lambda w=world, p=poses, a=ang: synth.raycast(w, p, a, 20.0),
             ["raycast"])
         per_call[f"K11 {name}"] = 1
+    # K13 at 0.1 m on the CLI's 600 corridor scans of 360 beams.
+    cli = cli_inputs(CONFIG3, CORRIDOR_SCANS, dev)
+    calls["K13 voxel_downsample 0.1 m"] = (
+        lambda: preprocess.voxel_downsample(cli.points, cli.mask, 0.1),
+        ["voxel_downsample"])
+    per_call["K13 voxel_downsample 0.1 m"] = 1
     ka, _ = k7b_args(sm, cfg3)
     calls["K7b config 3"] = (lambda: schur.assemble_local(*ka),
                              ["local_assemble"])
@@ -761,6 +761,95 @@ def hot_times(seed: int, dev) -> dict:
     return out
 
 
+#: K12's refine poses: the probe's true pose moved by seeded uniform
+#: jitter of up to these (m, m, rad), as the merge's refine stage sees its
+#: top 64 hypotheses.
+K12_REFINE = dict(poses=64, jitter=(0.3, 0.3, 0.05))
+
+
+def k12_inputs(seed: int, dev):
+    """K12 at config 5's calls, at both overlaps, on config 5's grid holding
+    the box-world scans of draw ``seed`` at their true poses: the probe is
+    the scan of largest true x, the coarse call its 4,624 hypotheses
+    (``merge._hypothesis_grid``), the refine call :data:`K12_REFINE`'s 64
+    poses around its true pose. Returns ``(seq, probe, probe_mask, pose5,
+    calls)``: ``pose5`` the probe's true pose moved by (0.05, -0.03, 0.01)
+    (K10c's pose), ``calls`` the four launches by their ``--hot`` key."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from chip_smoke import CONFIG5, box_sequence, map_stats
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.ndt import grid as ndt_grid
+    from ndtpu_torch.slam import merge
+
+    cfg5 = PipelineConfig.from_json(str(CONFIG5))
+    s5 = box_sequence(seed, cfg5.n_beams)
+    k5 = int(s5.gt_poses[:, 0].argmax())
+    probe = s5.points[k5].to(dev).contiguous()
+    probe_m = s5.mask[k5].to(dev).float().contiguous()
+    true5 = s5.gt_poses[k5:k5 + 1].to(dev)
+    pose5 = (true5 + torch.tensor([0.05, -0.03, 0.01],
+                                  device=dev)).contiguous()
+    jit = np.random.default_rng(seed).uniform(
+        -1.0, 1.0, (K12_REFINE["poses"], 3)) * K12_REFINE["jitter"]
+    refine = (true5 + torch.as_tensor(jit, dtype=torch.float32,
+                                      device=dev)).contiguous()
+    hyp = merge._hypothesis_grid(8.0, 1.0, 16, torch.float32, dev)
+    m5, calls = cfg5.match, {}
+    for gn in (4, 1):
+        gr = dataclasses.replace(cfg5.grid, overlap=gn)
+        dense = ndt_grid.finalize(map_stats(s5, gr, dev), cfg5.ndt)
+        for stage, poses in (("coarse", hyp), ("refine", refine)):
+            key = kernels.variant("K12 ndt_sgh_unpacked", gn) + f" {stage}"
+            calls[key] = (lambda d=dense, gr=gr, p=poses:
+                          kernels.ndt_sgh_unpacked(p, probe, probe_m, *d, gr,
+                                                   m5.d2, m5.exp_clip))
+    return s5, probe, probe_m, pose5, calls
+
+
+def sgh_sweep(seed: int, dev) -> dict:
+    """K12's card ms per call (profiler, ``per_call=1``) at each R = 1..8
+    (``kernels.sgh_spread`` held) at :func:`k12_inputs`' coarse and refine
+    calls, both overlaps. Each output's sha256 must be the same at every
+    R; the wrapper's own choice is the row "default"."""
+    import hashlib
+
+    import torch
+
+    from ndtpu_torch import kernels
+
+    def sha(res) -> str:
+        h = hashlib.sha256()
+        for x in res:
+            h.update(x.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    _, _, _, _, calls = k12_inputs(seed, dev)
+    rows, want = {}, {}
+    saved = kernels.sgh_spread
+    try:
+        for r in [None] + list(range(1, 9)):
+            if r is not None:
+                kernels.sgh_spread = lambda *a, r=r: r
+            row = {}
+            for key, fn in calls.items():
+                h = sha(fn())
+                if want.setdefault(key, h) != h:
+                    raise RuntimeError(f"{key}: R = {r} changes the output's "
+                                       f"bits")
+                row[key] = card_ms(fn, ["ndt_sgh_unpacked"], per_call=1)
+            rows["default" if r is None else str(r)] = row
+            print(f"[profile] sgh_spread {r}: {row}", flush=True)
+    finally:
+        kernels.sgh_spread = saved
+    rows["sha256"] = want
+    return rows
+
+
 #: K9c's --hot graph: a seeded 2,048-pose Manhattan world (config 5's
 #: merged graph is about as large), split over two ranks, at lam 1e-3.
 K9C_POSES, K9C_SEED, K9C_LAM = 2048, 5, 1e-3
@@ -816,7 +905,7 @@ def assemble_sweep(dev) -> dict:
         calls[f"K9c rank {rank}"] = (
             lambda t=t, lin=lin, masks=masks: schur.schur_local_assemble(
                 t, K9C_LAM, *lin, *masks),
-            ["supernodal_assemble_kernel<true>"])
+            ["supernodal_assemble_kernel<true"])
 
     def sha(res) -> str:
         h = hashlib.sha256()
@@ -1656,6 +1745,9 @@ def main(argv=None) -> int:
     parser.add_argument("--assemble-sweep", action="store_true",
                         help="K9a's and K9c's card ms at each launch shape "
                         "(assemble_sweep) and nothing else")
+    parser.add_argument("--sgh-sweep", action="store_true",
+                        help="K12's card ms at each R (sgh_sweep) and "
+                        "nothing else")
     parser.add_argument("--hot", action="store_true",
                         help="time lm_ndt and K6 / K6b at the main path's "
                         "shapes and bench.py's headline shape, with output "
@@ -1696,6 +1788,10 @@ def main(argv=None) -> int:
     if args.assemble_sweep:
         kernels.build()
         result = dict(card=smi, assemble_sweep=assemble_sweep(dev))
+        return _emit(result, smi, args.out)
+    if args.sgh_sweep:
+        kernels.build()
+        result = dict(card=smi, sgh_sweep=sgh_sweep(args.seed, dev))
         return _emit(result, smi, args.out)
     if args.hot:
         kernels.build()

@@ -1325,6 +1325,96 @@ def test_ndt_sgh_unpacked_overlap1_matches_plain_and_repeats(dev):
         assert bool((x == 0).all())
 
 
+#: K12's launch cases: poses (the last the merge's coarse call) and beams
+#: (past 128 x 8 = 1,024 the block takes chunks); the grids at both
+#: overlaps, and one whose cell (0.3 m) is no power of two, so that its
+#: quotients round.
+K12_POSES = (1, 63, 64, 4624)
+K12_BEAMS = (1, 127, 128, 129, 360, 1100)
+K12_GRIDS = {"g4": GRID, "g1": GRID1,
+             "g4 0.3 m": dataclasses.replace(GRID, cell=0.3, nx=80, ny=80)}
+
+
+@pytest.mark.parametrize("grid", list(K12_GRIDS))
+@pytest.mark.parametrize("n", K12_BEAMS)
+def test_ndt_sgh_unpacked_one_beam_per_thread(dev, grid, n, monkeypatch):
+    """K12 at 1, 63, 64 and 4,624 poses of a scan of ``n`` beams, the first
+    pose throwing most beams off the map: within rtol 1e-5 of each output's
+    max of its f32 plain version (``chip_smoke.check_k12``'s tolerance),
+    bit-identical on a second launch, one launch a call, and bit-equal at
+    every R = 1..8 (``kernels.sgh_spread`` held): the sums' order does not
+    depend on the launch shape."""
+    import chip_smoke as cs
+    from ndtpu_torch.config import MatchConfig
+
+    grid = K12_GRIDS[grid]
+    pts0, mask0 = _points(0, 40000, dev)
+    ndt_map = tgrid.finalize(tgrid.halfcell_add_ref(
+        tgrid.empty_stats(grid, torch.float32, dev), pts0, mask0, 1.0, grid),
+        NDT)
+    pts, mask = _points(11, n, dev)
+    rng = np.random.default_rng(12)
+    b = max(K12_POSES)
+    poses = np.stack([rng.uniform(-2, 2, b), rng.uniform(-2, 2, b),
+                      rng.uniform(-np.pi, np.pi, b)], -1)
+    poses[0] = (20.0, 5.0, 0.3)          # most beams past x = 12 m
+    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
+    cfg = MatchConfig()
+    name = kernels.variant("ndt_sgh_unpacked", grid.overlap)
+    run = lambda p: tmatch.score_grad_hess_batch(p, pts, mask, ndt_map,
+                                                 grid, cfg)
+    for b in K12_POSES:
+        p = poses[:b].contiguous()
+        kernels.reset_launches()
+        out, again = run(p), run(p)
+        ref = tmatch.score_grad_hess_batch_ref(p, pts, mask, ndt_map, grid,
+                                               cfg)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == 2
+        assert cs.bits_equal(out, again)
+        cs._rel_check(f"K12 B={b} N={n}", out, ref)
+        if b in (64, 4624):
+            for r in range(1, kernels.LM_MAX_SPREAD + 1):
+                monkeypatch.setattr(kernels, "sgh_spread",
+                                    lambda *a, r=r: r)
+                assert cs.bits_equal(run(p), out), f"R = {r}"
+            monkeypatch.undo()
+
+
+def test_schur_local_assemble_past_2_31_floats(dev):
+    """K9c on a rank whose ``h_ii`` stream passes 2^31 floats: a
+    32,000-pose Manhattan world (loop_prob 0.02) over two ranks gives ni =
+    15,982 interior poses a rank, ``h_ii`` 9 ni^2 = 2.30e9 floats (9.2 GB).
+    Rank 0's parts equal ``schur_local_assemble_model`` on the card bit for
+    bit, the held entries and the zeros, down to the stream's far end (the
+    last interior row's damped diagonal block), in one launch."""
+    from ndtpu_torch.data import g2o
+    from ndtpu_torch.dist import schur as tschur
+
+    n = 32_000
+    g = g2o.to_graph(g2o.manhattan_world(n, seed=1, loop_prob=0.02),
+                     torch.float32, device=dev)
+    plan = tschur.plan_partition(
+        g.bet_i.cpu().numpy(), g.bet_j.cpu().numpy(),
+        g.bet_mask.cpu().numpy(), g.prior_idx.cpu().numpy(),
+        g.prior_mask.cpu().numpy(), n, 2)
+    assert 9 * plan.ni ** 2 >= 2 ** 31
+    t = tschur.rank_tables(plan, 0, dev)
+    loc = tuple(x[0] for x in tschur.shard_factor_data_local(g, plan, 0))
+    lin = tschur._linearize_shard(g.poses, *loc)
+    kernels.reset_launches()
+    out = tschur.schur_local_assemble(t, 1e-3, *lin, loc[4], loc[8])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["schur_local_assemble"] == 1
+    far = out[0][-3:, -3:].clone()
+    assert int(torch.count_nonzero(torch.diagonal(far))) == 3
+    model = tschur.schur_local_assemble_model(plan, 0, 1e-3, *lin)
+    assert torch.equal(far.view(torch.int32),
+                       model[0][-3:, -3:].view(torch.int32))
+    for a, b in zip(out, model):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def test_schur_local_assemble_matches_plain_and_repeats(dev):
     """K9c on both ranks' rows of a 600-pose Manhattan graph split in two
     against its plain version in f32 on the card and in f64 on the CPU,
@@ -1903,6 +1993,43 @@ def test_voxel_downsample_matches_plain(dev):
 
     row = cs.check_k13(dev)
     assert row["kept"]["0.5"] < row["kept"]["0.05"]
+
+
+#: K13's cases: points per scan (19,370 the last the table route takes at
+#: one scan a block, 58,112 the most the scan route takes) and scans.
+VOXEL_CASES = {1: 9, 255: 9, 256: 9, 257: 9, 360: 600, 4096: 17,
+               19370: 3, 19371: 3, 58112: 1}
+
+
+@pytest.mark.parametrize("voxel", [0.001, 0.1, 5.0])
+@pytest.mark.parametrize("n", list(VOXEL_CASES))
+def test_voxel_downsample_routes_match_plain(dev, n, voxel):
+    """K13 on ``VOXEL_CASES[n]`` seeded scans of ``n`` points (+-15 m, 10%
+    masked out) at 0.001 m (nearly all ids distinct), 0.1 m and 5 m (heavy
+    duplicates), on the route ``kernels.voxel_route`` gives (the table up to
+    19,370 points, comparisons past it), bit-equal to
+    ``voxel_downsample_ref`` built on the CPU, one launch a call counted
+    under the route's name; a scan with every point invalid keeps none."""
+    from ndtpu_torch.data import preprocess
+
+    t = VOXEL_CASES[n]
+    rng = np.random.default_rng(n)
+    pts = rng.uniform(-15.0, 15.0, (t, n, 2)).astype(np.float32)
+    mask = rng.random((t, n)) > 0.1
+    mask[0] = False
+    p = torch.as_tensor(pts, device=dev)
+    m = torch.as_tensor(mask, device=dev)
+    route = kernels.voxel_route(n)
+    assert route == ("table" if n <= 19370 else "scan")
+    name = "voxel_downsample" + ("" if route == "table" else "[scan]")
+    kernels.reset_launches()
+    out = preprocess.voxel_downsample(p, m, voxel)
+    ref = preprocess.voxel_downsample_ref(p.cpu(), m.cpu(), voxel)
+    assert kernels.LAUNCHES[name] == 1
+    assert torch.equal(out.cpu(), ref)
+    assert not bool(out[0].any())
+    if voxel == 0.001:
+        assert int(out.sum()) >= 0.999 * int(m.sum())
 
 
 def test_make_sequence_on_the_card_equals_the_cpu(dev):
