@@ -103,7 +103,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``configs/config2_full_sequence.json``, 300 scans, ``--device cuda``,
    with every launch counter (and the counts of ``match_batch_packed``
    and loop-detection calls, the smoother's takes, full solves, and K6's
-   settled checks and solves) reset just before and read just after;
+   settled checks and solves) reset just before and read just after; the
+   run's final map (K10b on the card) rasterized by
+   ``eval.render.rasterize_map`` on the host (lit pixels counted; no PNG);
 5. the config-2 ATE gate: box-world draws 0-2 through
    ``run_slam_windowed``, against the JAX reference's ATE on the same
    sequences (``tests/data/torch_config2_box300_ref.json``) and dead
@@ -242,13 +244,14 @@ Phases (any failure exits non-zero, and no result line is printed):
     to phase 12's), builds its slab of the merged map from its own
     session's keyframe points (K10a ``slab_accumulate`` and the halo
     exchange, the smallest halo that drops no point) and from both
-    sessions' (replicated), finalizes it (K10b ``finalize_cells``),
+    sessions' (replicated), finalizes it (K10b ``finalize_cells``, on
+    the exchange's records in place for the point-sharded build),
     registers 16 of B's keyframe scans with ``match_slab`` (K10c
     ``slab_sgh`` and one SUM per evaluation) and 64 with
     ``match_batch_sharded``; gated against each other, phase 12's merged
     map (K3) and f64 sums, the in-process ``lm_loop`` on K12 and
-    ``match_batch``; then K10a, K10b and K10c against their plain versions
-    at the ranks' shapes;
+    ``match_batch``; then K10a, K10b (as three arrays and as records)
+    and K10c against their plain versions at the ranks' shapes;
 15b. the slab map at overlap 1 (:func:`run_slab` with
     :data:`CONFIG5_OVERLAP1`) on phase 12b's sessions and merged map: the
     same builds, exchange, finalize and registrations in two ranks
@@ -4167,14 +4170,52 @@ def check_marginal_10k(sg):
                 k6g_launches=n)
 
 
-def run_entry_point(dev, config, n_scans: int, label=None):
+def render_final_map(label, state, cfg) -> dict:
+    """The run's final map (K10b on the card from K3's statistics) through
+    ``eval.render.rasterize_map`` (host numpy, no PNG, no PIL): an image of
+    the grid's shape, finite, in [0, 1], with lit pixels; its valid cells
+    those of the plain ``finalize_ref`` on the same statistics. Returns the
+    counts."""
+    import numpy as np
+
+    from ndtpu_torch.eval import render
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    m = ndt_grid.finalize(state.stats, cfg.ndt)
+    ref = ndt_grid.finalize_ref(ndt_grid.NDTStats(*(x.cpu()
+                                                    for x in state.stats)),
+                                cfg.ndt)
+    valid = int(m.valid.sum())
+    require(valid == int(ref.valid.sum()) > 0,
+            f"{label}: {valid} valid cells on the card, "
+            f"{int(ref.valid.sum())} in the plain finalize")
+    t0 = time.perf_counter()
+    img = render.rasterize_map(m, cfg.grid)
+    secs = time.perf_counter() - t0
+    g = cfg.grid
+    require(img.shape == (4 * g.ny, 4 * g.nx) and bool(np.isfinite(img).all())
+            and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+            f"{label}: the rendered map is not a finite [0, 1] image of "
+            f"{(4 * g.ny, 4 * g.nx)} pixels")
+    lit = int((img > 0.0).sum())
+    bright = int((img > 0.5).sum())
+    require(bright > 0, f"{label}: the rendered map has no lit pixel")
+    print(f"[smoke] {label}: final map rendered ({img.shape[1]} x "
+          f"{img.shape[0]} px, upscale 4, {secs:.2f} s on the host): {lit} "
+          f"lit pixels, {bright} above 0.5, from {valid} valid cells")
+    return dict(render_lit_pixels=lit, render_pixels_above_half=bright,
+                render_valid_cells=valid)
+
+
+def run_entry_point(dev, config, n_scans: int, label=None, render=False):
     """The CLI main path on ``config``, with fresh launch counters and
     counts of the loop-detection calls (``verify_candidates_cached_flat``),
     the smoother's takes (0 skip, 1 global, 2 local), its full solves and
     its PCG calls (``graph.solve.pcg_solve``, one ``pcg_solve`` launch
     each), split into the settled checks (0 iterations) and the solves; the
     run's scans/s, seconds, ATE, keyframes and loops ride
-    along in the counts. Returns ``(launches, counts)``."""
+    along in the counts (with ``render``, :func:`render_final_map`'s
+    too). Returns ``(launches, counts)``."""
     import numpy as np
 
     from ndtpu_torch import kernels, run
@@ -4232,6 +4273,10 @@ def run_entry_point(dev, config, n_scans: int, label=None):
     lm = sum(v for k, v in launches.items() if k.startswith("lm_ndt"))
     require(lm == calls, f"entry point {label}: {lm} lm_ndt launches "
             f"for {calls} match_batch_packed calls (one each expected)")
+    if render:
+        counts.update(render_final_map(f"entry point {label}",
+                                       res["state"],
+                                       PipelineConfig.from_json(str(config))))
     pcg_calls = counts["pcg_solves"] + counts["pcg_settled_checks"]
     require(launches["pcg_solve"] == pcg_calls,
             f"entry point {label}: {launches['pcg_solve']} pcg_solve "
@@ -6782,39 +6827,71 @@ def slab_close(name, out, ref, mag, rtol: float) -> float:
     return worst
 
 
-def check_k10b(label, stats, ndt_cfg, jobs=None):
-    """K10b ``finalize_cells`` (``ndt.grid.finalize`` on CUDA tensors) on
-    ``stats`` in their layout: valid flags equal to its f32 plain version's,
-    mean and icov within rtol 1e-5 of each output's max, bit-identical on a
-    second launch. Returns the row."""
+def k10b_records(stats):
+    """``stats`` as the slab map's halo exchange hands them on
+    (``dist.gridmap._exchange``): views of one contiguous ``[..., 7]``
+    tensor of records ``[n, sx, sy, sxx, sxy, syx, syy]``, which K10b reads
+    in place."""
     import torch
 
     from ndtpu_torch.ndt import grid as ndt_grid
 
-    st = ndt_grid.NDTStats(*stats)
+    n, s, ss = stats
+    lead = tuple(n.shape)
+    rec = torch.cat([n[..., None], s, ss.reshape(lead + (4,))], -1)
+    return ndt_grid.NDTStats(rec[..., 0], rec[..., 1:3],
+                             rec[..., 3:].view(lead + (2, 2)))
+
+
+def check_k10b(label, stats, ndt_cfg, jobs=None):
+    """K10b ``finalize_cells`` (``ndt.grid.finalize`` on CUDA tensors) on
+    ``stats`` as three arrays and as the slab exchange's records
+    (:func:`k10b_records`, read in place): valid flags equal to its f32
+    plain version's, mean and icov within rtol 1e-5 of each output's max,
+    bit-identical on a second launch and across the two layouts. Returns
+    the row (the three arrays' times; the records' as ``records_ms`` and
+    ``records_card_ms``)."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    st = ndt_grid.NDTStats(*(x.contiguous() for x in stats))
+    rec = k10b_records(st)
+    require(kernels.finalize_inputs(*st)[0] == "arrays"
+            and kernels.finalize_inputs(*rec)[0] == "records",
+            f"K10b {label}: the wrapper does not read the three arrays and "
+            f"the records in place")
     run = lambda: ndt_grid.finalize(st, ndt_cfg)
-    out, again = run(), run()
+    run_rec = lambda: ndt_grid.finalize(rec, ndt_cfg)
+    out, again, out_rec = run(), run(), run_rec()
     ref = ndt_grid.finalize_ref(st, ndt_cfg)
     torch.cuda.synchronize()
     require(bits_equal(out, again), f"K10b {label}: two launches differ")
+    require(bits_equal(out_rec, out), f"K10b {label}: the records' outputs "
+            f"differ from the three arrays'")
     require(torch.equal(out.valid, ref.valid),
             f"K10b {label}: valid flags differ from the plain version's")
     err = _rel_check(f"K10b {label} vs f32 plain", out, ref)
     same = bits_equal(out, ref)
     ms = time_ms(run)
+    rec_ms = time_ms(run_rec)
     plain_ms = time_ms(lambda: ndt_grid.finalize_ref(st, ndt_cfg))
     cells = st.n.numel()
     bd = bound(56 * cells, K10B_CELL_FLOPS * cells)
     print(f"[smoke] K10b finalize_cells {label} {tuple(st.n.shape)} "
           f"({int(out.valid.sum())} valid): vs f32 plain max abs err "
           f"{err:.3e}{' (bit-equal)' if same else ''}, valid exact; "
-          f"bit-identical on a second launch; kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.6f} ms "
-          f"({bd['bound_by']})")
+          f"bit-identical on a second launch and on the records; kernel "
+          f"{ms:.4f} ms (records {rec_ms:.4f}), plain {plain_ms:.4f} ms, "
+          f"bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
     row = dict(max_abs_err=err, bit_equal_to_plain=same, ms=ms,
+               records_ms=rec_ms, records_bit_equal=True,
                plain_ms=plain_ms, **bd)
     card_time(jobs, f"K10b finalize_cells {label}", row, "card_ms", run,
-              ["finalize_cells"])
+              ["finalize_cells"], per_call=1)
+    card_time(jobs, f"K10b finalize_cells {label} records", row,
+              "records_card_ms", run_rec, ["finalize_cells"], per_call=1)
     return row
 
 
@@ -7090,6 +7167,7 @@ def slab_worker(rank: int, world: int, port: int, npz: str, out: str,
         halo = int(z["halo"])
         ps = stage("psharded", lambda: gridmap.build_slab_stats_psharded(
             smesh, pts, msk, cfg.grid, halo=halo))
+        res["ps_layout"] = kernels.finalize_inputs(*ps)[0]
         rep = stage("replicated", lambda: gridmap.build_slab_stats(
             smesh, t("all_pts"), t("all_msk"), cfg.grid))
         smap = stage("finalize", lambda: gridmap.finalize_slab(ps, cfg.ndt))
@@ -7364,6 +7442,16 @@ def run_slab(dev, card, keep, seed: int, jobs, changes=None):
     require(torch.equal(smap.valid,
                         gridmap.dense_to_slab(k3_map, grid).valid.cpu()),
             f"{tag}: valid flags differ from the merged map's")
+    # K10b read each rank's exchanged records in place; the same cells as
+    # three arrays here give the same bits.
+    require(all(str(x["ps_layout"]) == "records" for x in ranks),
+            f"{tag}: K10b did not read the exchange's records in place "
+            f"({[str(x['ps_layout']) for x in ranks]})")
+    require(bits_equal(gridmap.finalize_slab(gridmap.SlabStats(
+        *(x.to(dev) for x in ps)), cfg.ndt), gridmap.SlabMap(
+            *(x.to(dev) for x in smap))),
+            f"{tag}: the ranks' maps (K10b on the records) differ from K10b "
+            f"on the same statistics as three arrays")
     # match_slab on both builds' maps: the same bits on both ranks. On the
     # replicated build's map against the in-process LM on K12 over phase
     # 12's K3 map, an independent dense build (test_dist.py:98's check);
@@ -7683,7 +7771,7 @@ def main(argv=None) -> int:
     step4 = check_supernodal_step(c4)
     ba_split = ba_step_timing(c4, card, jobs)
 
-    launches2, counts2 = run_entry_point(dev, CONFIG2, 300)
+    launches2, counts2 = run_entry_point(dev, CONFIG2, 300, render=True)
     ate_gate(dev, CONFIG2, REF_FILE)
     launches3, counts3 = run_entry_point(dev, CONFIG3, 600)
     ate_gate(dev, CONFIG3, REF3_FILE)

@@ -264,7 +264,9 @@ def _exchange(mesh, ext: SlabStats, hw: int, nxl: int):
     low ``hw`` columns of the extended slab go to the left neighbour's
     high interior, the high ones to the right neighbour's low interior, and
     are added there (low first, as ``core.at[:, :hw].add`` then
-    ``core.at[:, -hw:].add``)."""
+    ``core.at[:, -hw:].add``). The statistics come back as views of the
+    packed ``core [G, nx_local, ny, 7]`` (records ``[n, sx, sy, sxx, sxy,
+    syx, syy]``), which K10b reads in place (``finalize_slab``)."""
     g, _, ny = ext.n.shape
     pk = torch.cat([ext.n[..., None], ext.s, ext.ss.reshape(g, -1, ny, 4)],
                    -1)                                       # [G, W, ny, 7]
@@ -275,9 +277,8 @@ def _exchange(mesh, ext: SlabStats, hw: int, nxl: int):
             "space")
         core[:, :hw] += from_left
         core[:, nxl - hw:] += from_right
-    return SlabStats(n=core[..., 0].contiguous(),
-                     s=core[..., 1:3].contiguous(),
-                     ss=core[..., 3:].reshape(g, nxl, ny, 2, 2).contiguous())
+    return SlabStats(n=core[..., 0], s=core[..., 1:3],
+                     ss=core[..., 3:].view(g, nxl, ny, 2, 2))
 
 
 def build_slab_stats_psharded(mesh: dmesh.RankMesh, points, mask,
@@ -302,7 +303,8 @@ def build_slab_stats_psharded(mesh: dmesh.RankMesh, points, mask,
 
 def finalize_slab(stats: SlabStats, cfg: NDTMapConfig) -> SlabMap:
     """Elementwise Gaussian finalization in the slab layout
-    (``ndt.grid.finalize``: K10b on the card)."""
+    (``ndt.grid.finalize``: K10b on the card, on the exchange's records
+    where ``stats`` are :func:`build_slab_stats_psharded`'s)."""
     m = ndt_grid.finalize(ndt_grid.NDTStats(*stats), cfg)
     return SlabMap(*m)
 

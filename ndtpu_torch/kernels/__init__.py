@@ -75,7 +75,10 @@ accumulate                                   with ``_cell_xy`` and the slab
                                              tile summed in a cluster's
                                              shared memory
 finalize_    ``csrc/finalize_cells.cu``      ``grid.finalize`` on any layout
-cells        (K10b)                          (``finalize_slab``)
+cells        (K10b)                          (``finalize_slab``): three
+                                             arrays, or the slab
+                                             exchange's 7-float records
+                                             read in place
 slab_sgh     ``csrc/ndt_unpacked.cu`` (K10c) ``match_slab``'s per-rank terms
                                              (the 15 sums before its psum)
 raycast      ``csrc/raycast.cu`` (K11)       ``synth.raycast``: the nearest
@@ -176,6 +179,7 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "supernodal_assemble", "supernodal_assemble_shape",
            "schur_reduce", "schur_local_assemble",
            "ndt_sgh_unpacked", "slab_tiles", "slab_work", "slab_accumulate",
+           "FINALIZE_THREADS", "finalize_cells_threads", "finalize_inputs",
            "finalize_cells",
            "slab_spread", "slab_sgh", "raycast", "sgh_spread", "voxel_smem",
            "voxel_route", "voxel_downsample"]
@@ -279,8 +283,8 @@ _SIGNATURES = {
     "ndt_sgh_unpacked_launch": [_P] * 7 + [_I] * 4 + [_F] * 5
                                + [_I, _I, _P],
     "slab_accum_launch": [_P] * 6 + [_I] * 5 + [_D] * 3 + [_I] * 4 + [_P],
-    "finalize_cells_launch": [_P] * 6 + [ctypes.c_longlong] + [_F] * 3
-                             + [_P],
+    "finalize_cells_launch": [_P] * 7 + [ctypes.c_longlong] + [_F] * 3
+                             + [_I] * 2 + [_P],
     "slab_sgh_launch": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
     "raycast_launch": [_P] * 4 + [_I] * 3 + [_D, _D, _I, _P],
     "voxel_downsample_launch": [_P] * 3 + [_I, _I, _F, _I, _I, _P],
@@ -1563,15 +1567,83 @@ def slab_accumulate(points, mask, grid, x_lo: int, width: int):
     return n, s, ss
 
 
+#: K10b's threads per block (32, 64, 128, 256 or 512: each its own
+#: instantiation); see ``profile_port.py --finalize-sweep``.
+FINALIZE_THREADS = 256
+_finalize_threads = FINALIZE_THREADS
+
+
+def finalize_cells_threads(threads: int = 0) -> None:
+    """Set K10b's threads per block for this process (0 restores
+    :data:`FINALIZE_THREADS`). The outputs' bits do not depend on it. For
+    ``profile_port.py --finalize-sweep``; nothing on a path calls it."""
+    global _finalize_threads
+    if threads not in (0, 32, 64, 128, 256, 512):
+        raise ValueError(f"finalize_cells_threads: {threads} threads a "
+                         f"block (32, 64, 128, 256 or 512)")
+    _finalize_threads = threads or FINALIZE_THREADS
+
+
+def _strides_match(t: torch.Tensor, want: tuple) -> bool:
+    """``t``'s strides are ``want`` on every dimension longer than 1."""
+    return all(size == 1 or got == w
+               for size, got, w in zip(t.shape, t.stride(), want))
+
+
+def _aligned(t: torch.Tensor, align: int) -> torch.Tensor:
+    """``t`` where it is contiguous and aligned to ``align`` bytes, else a
+    contiguous copy (a fresh allocation, aligned to far more)."""
+    if t.is_contiguous() and t.data_ptr() % align == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def finalize_inputs(n, s, ss):
+    """K10b's input layout for statistics ``n [...]``, ``s [..., 2]``,
+    ``ss [..., 2, 2]``: ``("records", n, s, ss)`` where the three are views
+    of one contiguous ``[..., 7]`` tensor of records ``[n, sx, sy, sxx,
+    sxy, syx, syy]`` (``dist.gridmap._exchange``'s), which K10b reads in
+    place (in f32); else ``("arrays", n, s, ss)``, each the tensor given
+    where it is contiguous and aligned to its f32 vector (4, 8 and 16
+    bytes), else a contiguous copy of it. Host code, any device and dtype:
+    no launch."""
+    lead = tuple(n.shape)
+    unit = tuple(7 * x for x in torch.empty(lead, device="meta").stride())
+    p, e = n.data_ptr(), n.element_size()
+    if (tuple(s.shape) == lead + (2,) and tuple(ss.shape) == lead + (2, 2)
+            and n.numel() > 0
+            and all(t.dtype == n.dtype and t.device == n.device
+                    for t in (s, ss))
+            and s.untyped_storage().data_ptr()
+            == ss.untyped_storage().data_ptr()
+            == n.untyped_storage().data_ptr()
+            and s.data_ptr() == p + e and ss.data_ptr() == p + 3 * e
+            and _strides_match(n, unit) and _strides_match(s, unit + (1,))
+            and _strides_match(ss, unit + (2, 1))):
+        return "records", n, s, ss
+    return "arrays", _aligned(n, 4), _aligned(s, 8), _aligned(ss, 16)
+
+
 def finalize_cells(n, s, ss, ndt_cfg):
     """K10b: ``ndt.grid.finalize`` of statistics of any leading shape
-    (``n [...]``, ``s [..., 2]``, ``ss [..., 2, 2]``, f32), one thread per
-    cell: ``(mean [..., 2], icov [..., 2, 2], valid [...])``, views of one
-    allocation. One ``LAUNCHES["finalize_cells"]`` per call with cells."""
+    (``n [...]``, ``s [..., 2]``, ``ss [..., 2, 2]``, f32), in the layout
+    :func:`finalize_inputs` finds (the slab exchange's records read in
+    place, or three arrays), one thread per cell: ``(mean [..., 2], icov
+    [..., 2, 2], valid [...])``, views of one allocation. One
+    ``LAUNCHES["finalize_cells"]`` per call with cells."""
+    for t, what in ((n, "stats.n"), (s, "stats.s"), (ss, "stats.ss")):
+        if not t.is_cuda:
+            raise ValueError(f"{what}: expected a CUDA tensor, got "
+                             f"{t.device}")
+    layout, n, s, ss = finalize_inputs(n, s, ss)
     lead = tuple(n.shape)
-    _check(n, "stats.n")
-    _check(s, "stats.s", shape=lead + (2,), align=8)
-    _check(ss, "stats.ss", shape=lead + (2, 2), align=16)
+    if layout == "records" and n.dtype != torch.float32:
+        raise TypeError(f"stats: the kernel takes {torch.float32}, got "
+                        f"{n.dtype}")
+    if layout == "arrays":
+        _check(n, "stats.n")
+        _check(s, "stats.s", shape=lead + (2,), align=8)
+        _check(ss, "stats.ss", shape=lead + (2, 2), align=16)
     c = n.numel()
     out = torch.empty(7 * c, dtype=torch.float32, device=n.device)
     icov = out[:4 * c].view(lead + (2, 2))
@@ -1579,9 +1651,10 @@ def finalize_cells(n, s, ss, ndt_cfg):
     valid = out[6 * c:].view(lead)
     if c > 0:
         _call("finalize_cells_launch", "finalize_cells", n.data_ptr(),
-              s.data_ptr(), ss.data_ptr(), mean.data_ptr(), icov.data_ptr(),
-              valid.data_ptr(), c, float(ndt_cfg.min_pts),
-              ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min, _stream(n))
+              s.data_ptr(), ss.data_ptr(), n.data_ptr(), mean.data_ptr(),
+              icov.data_ptr(), valid.data_ptr(), c, float(ndt_cfg.min_pts),
+              ndt_cfg.eig_ratio, ndt_cfg.eig_abs_min,
+              int(layout == "records"), _finalize_threads, _stream(n))
     return mean, icov, valid
 
 

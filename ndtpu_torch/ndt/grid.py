@@ -1,10 +1,11 @@
 """NDT grid-map construction: sufficient statistics, finalize, quad table.
 
-Port of ``ndtpu/ndt/grid.py`` (the main-path subset). The map is a dense
-SoA over all ``G x C`` cells (``G`` overlap grids, ``C = nx*ny``);
-``add_points`` accumulates ``(n, sum p, sum p p^T)``, ``finalize`` derives
-the regularized Gaussians, and ``pack_quad`` lays them out as the half-cell
-quad table the matcher gathers one row per point from.
+Port of ``ndtpu/ndt/grid.py``. The map is a dense SoA over all ``G x C``
+cells (``G`` overlap grids, ``C = nx*ny``); ``add_points`` accumulates
+``(n, sum p, sum p p^T)``, ``finalize`` derives the regularized Gaussians,
+and ``pack_quad`` lays them out as the half-cell quad table the matcher
+gathers one row per point from (``pack_map`` / ``lookup_packed``, a row per
+cell, are the JAX package's unused alternative, kept for parity).
 
 Three hot ops have hand-written CUDA kernels (``ndtpu_torch.kernels``), each
 with a plain twin of the same signature here:
@@ -52,6 +53,7 @@ from ndtpu_torch.config import GridConfig, NDTMapConfig
 
 __all__ = ["NDTStats", "NDTMap", "cell_ids", "empty_stats", "add_points",
            "build_stats", "finalize", "finalize_ref", "pack_quad", "lookup",
+           "pack_map", "lookup_packed",
            "lookup_quad", "lookup_quad_multi", "lookup_quad_grouped", "unpack_bf16_pair",
            "halfcell_add", "halfcell_add_ref", "halfcell_add_fixed_ref",
            "finalize_pack", "finalize_pack_ref", "add_points_stacked",
@@ -299,13 +301,13 @@ def finalize(stats: NDTStats, cfg: NDTMapConfig) -> NDTMap:
     """Mean, eigenvalue-floored inverse covariance and validity per cell,
     elementwise over any leading shape (the dense ``[G, C]`` and the slab
     ``[G, nx_local, ny]`` layouts alike). K10b wrapper: CUDA tensors go to
-    the kernel (``csrc/finalize_cells.cu``, f32, one thread per cell), CPU
-    tensors to :func:`finalize_ref`."""
+    the kernel (``csrc/finalize_cells.cu``, f32), which reads three arrays
+    or, where ``n``, ``s`` and ``ss`` are views of one tensor of 7-float
+    records (``dist.gridmap``'s slab exchange), the records in place
+    (``kernels.finalize_inputs``); CPU tensors to :func:`finalize_ref`."""
     if not stats.n.is_cuda:
         return finalize_ref(stats, cfg)
-    return NDTMap(*kernels.finalize_cells(
-        stats.n.contiguous(), stats.s.contiguous(), stats.ss.contiguous(),
-        cfg))
+    return NDTMap(*kernels.finalize_cells(stats.n, stats.s, stats.ss, cfg))
 
 
 def finalize_ref(stats: NDTStats, cfg: NDTMapConfig) -> NDTMap:
@@ -337,6 +339,31 @@ def lookup(ndt_map: NDTMap, points, grid: GridConfig):
     mean = ndt_map.mean[g, ids]
     icov = ndt_map.icov[g, ids]
     return mean, icov, ndt_map.valid[g, ids] * inb.to(points.dtype)
+
+
+def pack_map(ndt_map: NDTMap):
+    """The Gaussian view as one table ``[G, C, 8]`` (any leading shape), a
+    row per cell: ``[mu_x, mu_y, i00, i01, i11, valid, 0, 0]`` (``icov`` is
+    symmetric: 3 entries). Plain torch on either device; port of
+    ``ndtpu/ndt/grid.py::pack_map``, which nothing on a path calls."""
+    mean, icov, valid = ndt_map.mean, ndt_map.icov, ndt_map.valid
+    zeros = torch.zeros_like(valid)
+    return torch.stack([mean[..., 0], mean[..., 1], icov[..., 0, 0],
+                        icov[..., 0, 1], icov[..., 1, 1], valid, zeros,
+                        zeros], -1)
+
+
+def lookup_packed(packed, points, grid: GridConfig):
+    """:func:`lookup` from a :func:`pack_map` table ``[G, C, 8]``: the same
+    ``(mean [G, N, 2], icov [G, N, 2, 2], w [G, N])`` for world points ``[N,
+    2]``. Plain torch on either device; port of
+    ``ndtpu/ndt/grid.py::lookup_packed``."""
+    ids, inb = cell_ids(points, grid)                       # [G, N]
+    g = torch.arange(grid.overlap, device=ids.device)[:, None]
+    rows = packed[g, ids]                                   # [G, N, 8]
+    icov = torch.stack([torch.stack([rows[..., 2], rows[..., 3]], -1),
+                        torch.stack([rows[..., 3], rows[..., 4]], -1)], -2)
+    return rows[..., 0:2], icov, rows[..., 5] * inb.to(points.dtype)
 
 
 def _quad_lattice(grid: GridConfig):

@@ -11,6 +11,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
     python3 profile_port.py --kernels [--seed 0] [--out FILE.json]
     python3 profile_port.py --hot [--seed 0] [--out FILE.json]
     python3 profile_port.py --raycast-sweep [--out FILE.json]
+    python3 profile_port.py --finalize-sweep [--seed 0] [--out FILE.json]
     python3 profile_port.py --layouts [--seed 0] [--out FILE.json]
     python3 profile_port.py --serving [--sessions 8] [--max-scans 300]
                             [--runs 3] [--out FILE.json]
@@ -68,10 +69,15 @@ lacks reads null).
 
 ``--hot`` runs only :func:`hot_times` (event and card ms per call of
 ``lm_ndt`` at the window, verify and gated-verify shapes and at bench.py's
-headline shape, of K6, K6b, K5, K6g, K7a, K7b, K11, K10c and K12, and of
-the 10k smoother update, with hashes of their outputs and of configs 1-3's
-box-world trajectories and the served sessions, and bench.py §5's smoother
-cells, for comparing two commits).
+headline shape, of K6, K6b, K5, K6g, K7a, K7b, K11, K10a-c, K12, K13,
+K9a-c, the slab map's exchange and finalize together, two floors (an
+empty kernel, a copy) and the 10k smoother update, with hashes of their
+outputs and of configs 1-3's box-world trajectories and the served
+sessions, and bench.py §5's smoother cells, for comparing two commits).
+
+``--finalize-sweep`` runs only :func:`finalize_sweep` (K10b's card ms
+per call at each block size, on the slab's records and arrays and the
+dense map).
 
 ``--raycast-sweep`` runs only :func:`raycast_sweep` (K11's card ms per
 call at the CLI corridor's 600 poses x 360 beams, f64, for 1 to 144
@@ -429,7 +435,9 @@ def hot_times(seed: int, dev) -> dict:
     (:func:`k10a_scan_points`) and on seeded random-order points
     (:func:`k10a_random_points`); K9a and K9b on config 4's 10k graph (P =
     64, lam 1e-3: ``chip_smoke.check_k9b``'s inputs); K9c on both ranks of
-    :func:`k9c_graph` split in two (``chip_smoke.k9c_ranks``); K9a's and
+    :func:`k9c_graph` split in two (``chip_smoke.k9c_ranks``); K10b and
+    the slab map's exchange and finalize together, with an empty kernel and
+    a copy beside them (:func:`k10b_calls`); K9a's and
     K9c's library calls (``chip_smoke.k9a_library_call``,
     ``k9c_library_call``; card ms, no hash: float atomics). Beside them each
     launch's outputs' sha256 and, for configs 1, 2 and 3 on box-world
@@ -633,6 +641,18 @@ def hot_times(seed: int, dev) -> dict:
                               p10, m10, gr, -K10A_HALO,
                               nxl + 2 * K10A_HALO), K10A_NAMES)
             per_call[key] = 3
+    # K10b on rank 0's slab (4 x 128 x 256) and on the dense 4 x 65,536
+    # map as three arrays (seeded statistics, K3's layout); the slab's
+    # finalize as the point-sharded build calls it (the halo exchange at
+    # halo 0, then finalize_slab: every device kernel of the two); and
+    # beside them the card's floor at these sizes: an empty kernel and a
+    # copy of 56 B per cell.
+    for key, fn, names, calls_per in k10b_calls(cfg5, seed, dev):
+        calls[key] = (fn, names)
+        if calls_per is not None:
+            per_call[key] = calls_per
+        if key.startswith("floor"):
+            no_hash.add(key)
     # K9a and K9b on config 4's 10k graph (P = 64), on the inputs
     # chip_smoke.check_k9b builds: K9a's outputs and the interior
     # elimination at lam 1e-3.
@@ -848,6 +868,105 @@ def sgh_sweep(seed: int, dev) -> dict:
         kernels.sgh_spread = saved
     rows["sha256"] = want
     return rows
+
+
+def k10b_calls(cfg5, seed: int, dev):
+    """K10b's ``--hot`` calls on config 5's grid, ``(key, fn, kernel
+    names, device operations per call or None)``: ``finalize_cells`` as
+    three arrays on rank 0's slab of two (4 x 128 x 256, from
+    :func:`seeded_stats` in the slab layout, each array contiguous) and on
+    the dense 4 x 65,536 map (:func:`seeded_stats` itself); ``slab_finalize``
+    (``gridmap._exchange(None, ext, 0, 128)`` then ``finalize_slab``,
+    every device kernel, on rank 0's statistics of
+    :func:`k10a_random_points`); the floors: an empty kernel
+    (``torch.cuda._sleep(0)``) and a ``copy_`` of 28 B per cell each way
+    on the slab's and the map's cells. It uses only entry points older
+    checkouts of the port also have."""
+    import torch
+
+    from ndtpu_torch.dist import gridmap
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    grid, ndt = cfg5.grid, cfg5.ndt
+    nxl = grid.nx // 2
+    dense = seeded_stats(grid, seed, dev)
+    slab = ndt_grid.NDTStats(*(x[:, :nxl].contiguous() for x in
+                               gridmap.dense_to_slab(dense, grid)))
+    pts, msk = k10a_random_points(grid, seed, dev)
+    ext = gridmap.slab_accumulate(pts, msk, grid, 0, nxl)
+    out = [("K10b finalize_cells slab", lambda: ndt_grid.finalize(slab, ndt),
+            ["finalize_cells"], 1),
+           ("K10b finalize_cells dense",
+            lambda: ndt_grid.finalize(dense, ndt), ["finalize_cells"], 1),
+           ("slab_finalize", lambda: gridmap.finalize_slab(
+               gridmap._exchange(None, ext, 0, nxl), ndt), None, None),
+           ("floor empty kernel", lambda: torch.cuda._sleep(0), None, 1)]
+    for label, st in (("slab", slab), ("dense", dense)):
+        src = torch.rand(7 * st.n.numel(), device=dev)
+        dst = torch.empty_like(src)
+        out.append((f"floor copy_ 56 B a cell {label}",
+                    lambda src=src, dst=dst: dst.copy_(src), None, 1))
+    return out
+
+
+#: --finalize-sweep's threads per block (``kernels.finalize_cells_threads``).
+FINALIZE_THREADS = (32, 64, 128, 256, 512)
+
+
+def finalize_sweep(seed: int, dev) -> dict:
+    """K10b's card ms per call (profiler, ``per_call=1``) at each block
+    size of :data:`FINALIZE_THREADS` on config 5's grid: rank 0's slab as
+    the exchange's records (``_exchange`` of :func:`k10a_random_points`'
+    statistics, the main path's layout) and as three arrays, and the dense
+    4 x 65,536 map (:func:`seeded_stats`). Each output's sha256 must be the
+    same at every size; the default's row is marked."""
+    import hashlib
+
+    import torch
+
+    from chip_smoke import CONFIG5
+    from ndtpu_torch import kernels
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.dist import gridmap
+    from ndtpu_torch.ndt import grid as ndt_grid
+
+    cfg5 = PipelineConfig.from_json(str(CONFIG5))
+    grid, ndt = cfg5.grid, cfg5.ndt
+    nxl = grid.nx // 2
+    pts, msk = k10a_random_points(grid, seed, dev)
+    rec = gridmap._exchange(None, gridmap.slab_accumulate(pts, msk, grid, 0,
+                                                          nxl), 0, nxl)
+    arrays = ndt_grid.NDTStats(*(x.contiguous() for x in rec))
+    dense = seeded_stats(grid, seed, dev)
+    calls = {"slab records": rec, "slab arrays": arrays, "dense": dense}
+    assert kernels.finalize_inputs(*rec)[0] == "records"
+
+    def sha(res) -> str:
+        h = hashlib.sha256()
+        for x in res:
+            h.update(x.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    out, want = {}, {}
+    try:
+        for threads in (0,) + FINALIZE_THREADS:
+            kernels.finalize_cells_threads(threads)
+            row = {}
+            for key, st in calls.items():
+                fn = lambda st=st: ndt_grid.finalize(st, ndt)
+                h = sha(fn())
+                if want.setdefault(key, h) != h:
+                    raise RuntimeError(f"{key}: {threads} threads change "
+                                       f"the output's bits")
+                row[key] = card_ms(fn, ["finalize_cells"], per_call=1)
+            name = (f"default {kernels.FINALIZE_THREADS}" if threads == 0
+                    else str(threads))
+            out[name] = row
+            print(f"[profile] finalize threads {name}: {row}", flush=True)
+    finally:
+        kernels.finalize_cells_threads()
+    out["sha256"] = want
+    return out
 
 
 #: K9c's --hot graph: a seeded 2,048-pose Manhattan world (config 5's
@@ -1748,6 +1867,9 @@ def main(argv=None) -> int:
     parser.add_argument("--sgh-sweep", action="store_true",
                         help="K12's card ms at each R (sgh_sweep) and "
                         "nothing else")
+    parser.add_argument("--finalize-sweep", action="store_true",
+                        help="K10b's card ms at each block size "
+                        "(finalize_sweep) and nothing else")
     parser.add_argument("--hot", action="store_true",
                         help="time lm_ndt and K6 / K6b at the main path's "
                         "shapes and bench.py's headline shape, with output "
@@ -1792,6 +1914,11 @@ def main(argv=None) -> int:
     if args.sgh_sweep:
         kernels.build()
         result = dict(card=smi, sgh_sweep=sgh_sweep(args.seed, dev))
+        return _emit(result, smi, args.out)
+    if args.finalize_sweep:
+        kernels.build()
+        result = dict(card=smi, finalize_sweep=finalize_sweep(args.seed,
+                                                              dev))
         return _emit(result, smi, args.out)
     if args.hot:
         kernels.build()

@@ -226,3 +226,90 @@ def test_wrappers_take_the_twin_on_cpu_and_kernels_refuse_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.finalize_pack_stacked(st1.n[None], st1.s[None],
                                       st1.ss[None], NDT, G1)
+
+
+# -- K10b's input layouts (``kernels.finalize_inputs``, host code) ---------
+
+def _records(lead, seed=0, offset=0):
+    """Seeded 7-float records ``[*lead, 7]`` (``[n, sx, sy, sxx, sxy,
+    syx, syy]``) starting ``offset`` floats into a fresh buffer, and the
+    three views of them."""
+    c = int(np.prod(lead))
+    buf = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=7 * c + offset), dtype=torch.float32)
+    rec = buf[offset:].view(tuple(lead) + (7,))
+    return rec, (rec[..., 0], rec[..., 1:3], rec[..., 3:].view(
+        tuple(lead) + (2, 2)))
+
+
+def _k3_layout(lead):
+    """K3's and K10a's outputs: ``ss``, then ``s``, then ``n`` in one
+    allocation, each contiguous."""
+    c = int(np.prod(lead))
+    out = torch.arange(7 * c, dtype=torch.float32)
+    return (out[6 * c:].view(lead), out[4 * c:6 * c].view(lead + (2,)),
+            out[:4 * c].view(lead + (2, 2)))
+
+
+_LAYOUTS = {
+    # name: (stats, expected layout, which of n, s, ss are read in place)
+    "slab_records": lambda: (_records((4, 8, 6))[1], "records",
+                             (True,) * 3),
+    "dense_records": lambda: (_records((4, 96))[1], "records", (True,) * 3),
+    "one_cell_record": lambda: (_records((1,))[1], "records", (True,) * 3),
+    "records_4k_plus_3": lambda: (_records((43,))[1], "records",
+                                  (True,) * 3),
+    "three_arrays": lambda: (tuple(x.contiguous() for x in _records(
+        (4, 8, 6))[1]), "arrays", (True,) * 3),
+    "k3_layout": lambda: (_k3_layout((4, 48)), "arrays", (True,) * 3),
+    "k3_layout_odd_cells": lambda: (_k3_layout((1, 45)), "arrays",
+                                    (True,) * 3),
+    "records_at_any_offset": lambda: (_records((4, 8, 6), offset=7)[1],
+                                      "records", (True,) * 3),
+    "records_sliced_columns": lambda: (tuple(
+        x[:, 2:6] for x in _records((4, 8, 6))[1]), "arrays", (False,) * 3),
+    "records_of_another_order": lambda: ((lambda r: (
+        r[..., 6], r[..., 4:6], r[..., :4].view(4, 8, 6, 2, 2)))(
+            _records((4, 8, 6))[0]), "arrays", (False,) * 3),
+    "mixed_storages": lambda: ((lambda v: (v[0].contiguous(), v[1], v[2]))(
+        _records((4, 8, 6))[1]), "arrays", (True, False, False)),
+    "transposed_arrays": lambda: (tuple(
+        x.transpose(1, 2) for x in _k3_layout((4, 8, 6))), "arrays",
+        (False,) * 3),
+}
+
+
+@pytest.mark.parametrize("name", list(_LAYOUTS))
+def test_finalize_inputs_layout(name):
+    """Which statistics K10b reads in place (the slab exchange's records,
+    or three contiguous aligned arrays) and which the wrapper copies first
+    (any other layout): the layout chosen, each tensor passed on or a
+    contiguous copy of it, equal in value; and on the CPU the wrapper's
+    plain version gives the same bits whichever layout holds the cells."""
+    stats, layout, kept = _LAYOUTS[name]()
+    got = kernels.finalize_inputs(*stats)
+    assert got[0] == layout
+    for a, b, same in zip(got[1:], stats, kept):
+        assert (a.data_ptr() == b.data_ptr()) == same
+        assert same or a.is_contiguous()
+        assert torch.equal(a, b)
+    if layout == "arrays":
+        assert got[1].is_contiguous() and got[2].data_ptr() % 8 == 0
+        assert got[3].is_contiguous() and got[3].data_ptr() % 16 == 0
+    st = tgrid.NDTStats(n=stats[0].abs() * 10.0, s=stats[1], ss=stats[2])
+    ref = tgrid.finalize(tgrid.NDTStats(*(x.contiguous() for x in st)), NDT)
+    for a, b in zip(tgrid.finalize(st, NDT), ref):
+        assert torch.equal(a, b)
+
+
+def test_finalize_cells_threads_is_checked():
+    """K10b's threads per block: the default is restored by 0, and counts
+    the kernel cannot launch are refused before any build."""
+    kernels.finalize_cells_threads(64)
+    assert kernels._finalize_threads == 64
+    kernels.finalize_cells_threads()
+    assert kernels._finalize_threads == kernels.FINALIZE_THREADS == 256
+    for bad in (16, 96, 100, 1024, -32):
+        with pytest.raises(ValueError, match="threads a block"):
+            kernels.finalize_cells_threads(bad)
+    assert kernels._finalize_threads == kernels.FINALIZE_THREADS

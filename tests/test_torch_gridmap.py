@@ -210,12 +210,57 @@ def test_finalize_slab_matches_jax(jslabs):
     plain version on the CPU) against the reference on the same slab
     statistics; the valid flags exactly."""
     ref = jslabs["map2"]
-    got = tgridmap.finalize_slab(convert.from_numpy(jslabs[2]),
-                                 NDTMapConfig())
+    stats = convert.from_numpy(jslabs[2])
+    got = tgridmap.finalize_slab(stats, NDTMapConfig())
     assert float(got.valid.sum()) > 50
     np.testing.assert_array_equal(got.valid.numpy(), np.asarray(ref.valid))
     for a, r in zip(got, ref):
         _close(a, r, atol=1e-10)
+    # The same statistics as the halo exchange hands them on (views of its
+    # 7-float records, K10b's in-place layout) give the same map.
+    recs = tgridmap._exchange(None, stats, 0, stats.n.shape[1])
+    assert tgrid.kernels.finalize_inputs(*recs)[0] == "records"
+    for a, b in zip(tgridmap.finalize_slab(recs, NDTMapConfig()), got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("overlap", [4, 1])
+@pytest.mark.parametrize("hw", [0, 2])
+def test_exchange_returns_views_of_its_records(cloud, hw, overlap,
+                                               monkeypatch):
+    """``_exchange`` hands back ``n``, ``s`` and ``ss`` as views of its
+    packed core (K10b's record layout, which it reads in place), equal to
+    the statistics summed as before: the interior columns plus, with a
+    halo, what the ring exchange (here a stand-in: 2 x the far halo from
+    the left, the near halo + 1 from the right) brings. On the CPU
+    ``finalize_slab`` of the views is that of their contiguous copies."""
+    pts, mask = cloud
+    grid = GRIDS[overlap][0]
+    nxl = 8
+    ext = tgridmap.slab_accumulate(_t(pts), _t(mask), grid, 4 - hw,
+                                   nxl + 2 * hw)
+    calls = []
+
+    def ring(mesh, lo, hi, axis):
+        calls.append(axis)
+        return 2.0 * hi, lo + 1.0
+
+    monkeypatch.setattr(tgridmap.dmesh, "ring_exchange", ring)
+    got = tgridmap._exchange(None, ext, hw, nxl)
+    assert calls == (["space"] if hw else [])
+    assert tgrid.kernels.finalize_inputs(*got)[0] == "records"
+    base = got.n.untyped_storage().data_ptr()
+    assert all(x.untyped_storage().data_ptr() == base for x in got)
+    for x, e in zip(got, ext):
+        want = e[:, hw:hw + nxl].clone()
+        if hw:
+            want[:, :hw] += 2.0 * e[:, nxl + hw:]
+            want[:, nxl - hw:] += e[:, :hw] + 1.0
+        assert torch.equal(x, want)
+    copies = tgridmap.SlabStats(*(x.contiguous() for x in got))
+    for a, b in zip(tgridmap.finalize_slab(got, NDTMapConfig()),
+                    tgridmap.finalize_slab(copies, NDTMapConfig())):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("overlap", [4, 1])

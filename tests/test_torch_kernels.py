@@ -15,7 +15,9 @@ overlap 1, K4s in g1l8, g4l4 and g1l4), and config 5's K12
 ndt_sgh_unpacked (also at overlap 1) and
 K9c schur_local_assemble, also through a one-rank optimize_schur (and bit
 for bit against schur_local_assemble_model, dead interior slots too), the
-slab map's K10a slab_accumulate, K10b finalize_cells and K10c slab_sgh,
+slab map's K10a slab_accumulate, K10b finalize_cells (also on the slab
+exchange's records, bit-equal to three arrays at every block size) and
+K10c slab_sgh,
 also through a one-rank match_slab (K10a and K10c also at overlap 1; K10c
 also past its 1,024 beams a block), and the inputs' K11 raycast and K13
 voxel_downsample, also through make_sequence and the CLI's scan mode; K7b
@@ -1675,6 +1677,82 @@ def test_finalize_cells_matches_plain(dev):
     b = gridmap.finalize_slab(slab, NDT)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+def _k10b_stats(dev, lead, seed=0):
+    """Seeded statistics of ``lead`` cells: 0-11 points a cell about a
+    mean in [-20, 20]^2 with a random covariance (some thin, some
+    degenerate), three contiguous f32 arrays on ``dev``."""
+    rng = np.random.default_rng(seed)
+    c = int(np.prod(lead))
+    n = rng.integers(0, 12, c).astype(np.float64)
+    mu = rng.uniform(-20, 20, (c, 2))
+    a = rng.normal(0, 0.3, (c, 2, 2))
+    a[::7, 1] = 0.0                      # rank one: the eigen floor
+    cov = a @ a.transpose(0, 2, 1)
+    s = n[:, None] * mu
+    ss = n[:, None, None] * (cov + mu[:, :, None] * mu[:, None, :])
+    f = lambda x, tail: torch.as_tensor(x.reshape(lead + tail),
+                                        dtype=torch.float32, device=dev)
+    return tgrid.NDTStats(f(n, ()), f(s, (2,)), f(ss, (2, 2)))
+
+
+@pytest.mark.parametrize("overlap", [4, 1])
+@pytest.mark.parametrize("cells", [1, 4 * 1000 + 3, 131_072])
+def test_finalize_cells_records_match_arrays(dev, overlap, cells):
+    """K10b on the slab exchange's records (read in place) is bit-equal to
+    its launch on the same cells as three arrays, and within
+    ``chip_smoke.check_k10b``'s gate of the f32 plain version, at ``cells``
+    cells a grid (a record run not a multiple of 4 cells, and the slab's
+    4 x 128 x 256 at overlap 4), at 32 to 512 threads a block
+    (``kernels.finalize_cells_threads``)."""
+    import chip_smoke as cs
+
+    st = _k10b_stats(dev, (overlap, cells), seed=cells + overlap)
+    rec = cs.k10b_records(st)
+    assert kernels.finalize_inputs(*rec)[0] == "records"
+    assert kernels.finalize_inputs(*st)[0] == "arrays"
+    kernels.reset_launches()
+    want = tgrid.finalize(st, NDT)
+    got = tgrid.finalize(rec, NDT)
+    assert kernels.LAUNCHES["finalize_cells"] == 2
+    assert cs.bits_equal(got, want)
+    ref = tgrid.finalize_ref(st, NDT)
+    assert torch.equal(want.valid, ref.valid)
+    assert 0 < int(want.valid.sum()) < want.valid.numel() or cells == 1
+    cs._rel_check("K10b records vs f32 plain", got, ref)
+    try:
+        for threads in (32, 64, 128, 512):
+            kernels.finalize_cells_threads(threads)
+            for stats in (rec, st):
+                assert cs.bits_equal(tgrid.finalize(stats, NDT),
+                                     want), threads
+    finally:
+        kernels.finalize_cells_threads()
+
+
+def test_finalize_slab_reads_the_exchanged_records(dev):
+    """On one rank (no halo, no collective) ``build_slab_stats_psharded``
+    hands ``finalize_slab`` the exchange's records: K10b reads them in
+    place, one launch, the same bits as on copies of them as three
+    arrays; and ``convert.to_numpy`` of the views is their values."""
+    from ndtpu_torch import convert
+    from ndtpu_torch.dist import gridmap
+    from ndtpu_torch.dist import mesh as tmesh
+
+    pts, mask = _points(5, 20000, dev)
+    mesh = tmesh.RankMesh(0, 1, dev, ("space",))
+    ps = gridmap.build_slab_stats_psharded(mesh, pts, mask, GRID, halo=0)
+    assert kernels.finalize_inputs(*ps)[0] == "records"
+    kernels.reset_launches()
+    m = gridmap.finalize_slab(ps, NDT)
+    assert kernels.LAUNCHES["finalize_cells"] == 1
+    copies = gridmap.SlabStats(*(x.contiguous() for x in ps))
+    for a, b in zip(m, gridmap.finalize_slab(copies, NDT)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip(convert.to_numpy(ps), copies):
+        np.testing.assert_array_equal(a, b.cpu().numpy())
+    assert int(m.valid.sum()) > 100
 
 
 def test_slab_sgh_matches_plain_and_match_slab_one_rank(dev):
