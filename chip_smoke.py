@@ -98,7 +98,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    scans at 0.05 / 0.1 / 0.5 m (masks bit-equal; the table route) and on 8
    seeded scans of 20,000 points past its table (the scan route,
    ``voxel_downsample[scan]``, through the entry point), each
-   bit-identical on a second launch;
+   bit-identical on a second launch; then K14 ``window_append``
+   (:func:`check_k14`) against ``window_append_ref`` on the same f32 card
+   inputs at configs 2 and 3 (one session, 1,024 slots), serving (8 x 512)
+   and full capacities (indices, masks, counters and copied rows bit-equal,
+   the computed values within :data:`K14_RTOL`, and on a second launch),
+   its loop entry against ``loop_append_ref`` and its row entry against
+   ``set_rows_ref`` (bit-equal), each timed beside its plain version;
 4. config 2 through its entry point: ``ndtpu_torch.run.main`` on
    ``configs/config2_full_sequence.json``, 300 scans, ``--device cuda``,
    with every launch counter (and the counts of ``match_batch_packed``
@@ -111,7 +117,15 @@ Phases (any failure exits non-zero, and no result line is printed):
    sequences (``tests/data/torch_config2_box300_ref.json``) and dead
    reckoning;
 6. config 3 (loop closure) through the entry point, 600 scans (the
-   corridor's 120 m lap takes 480), counters reset and read as in phase 4;
+   corridor's 120 m lap takes 480), counters reset and read as in phase 4
+   (in both, one K14 launch a window, and one of its loop entry a window
+   with loop closure);
+6b. the windowed path's host syncs (:func:`check_window_syncs`): box-world
+    draw 0 at configs 2 and 3 through ``run_slam_windowed`` with
+    ``set_sync_debug_mode("warn")`` inside each ``_window_backend`` call:
+    every sync of a window printed (a parent checkout counts the same way)
+    and at most :data:`WINDOW_SYNC_BUDGET` a window outside the loop
+    verify's own routing;
 7. the config-3 ATE gate against ``tests/data/torch_config3_box300_ref.json``
    (also: the port closes a loop on every draw where JAX does);
 7b. config 1 (:func:`run_config1`): ``run_odometry_windowed`` at
@@ -177,7 +191,8 @@ Phases (any failure exits non-zero, and no result line is printed):
     first and read just after it: per window one ``lm_ndt_grouped`` launch
     per front-end pass, K3s and K4s once per use and never per map, K6b
     ``inc_iters`` times per smoother call, no twin on CUDA tensors, no
-    drop; then each session's gates against the JAX package's run of the
+    drop, one K14 append and one loop-entry launch a window and one row
+    launch a refresh; then each session's gates against the JAX package's run of the
     same sessions (``tests/data/torch_serving8_box300_ref.json``,
     :func:`serving_gates`);
 10b. stacked serving in the other table layouts (:func:`run_serving_layouts`,
@@ -297,7 +312,8 @@ Phases (any failure exits non-zero, and no result line is printed):
     ``slab_accumulate[g1]``, K10b and ``slab_sgh[g1]`` in 15b's;
     K6g in phases 8b, 8c and 12; ``local_select[scratch]`` (K7a past the
     shared route) in phase 8d's update; K11 in phases 4, 6, 7d, 10 and 16, K7a
-    and K7b also in 7d, K13 in phase 16), exactly one ``lm_ndt*`` launch
+    and K7b also in 7d, K13 in phase 16; K14 in phases 4, 6, 7d and 10, its
+    loop entry in 6, 7d and 10, its row entry in 10), exactly one ``lm_ndt*`` launch
     per ``match_batch_packed`` call (phases 4, 6 and 16), and in phase 6 one gated verify per
     loop-detection call and no standalone K8b launch; K5, K7a and K7b launched
     in phases 4 and 6, K6 in phase 6 (config 2 may never take the global path),
@@ -526,6 +542,17 @@ KERNELS = [
     dict(name="voxel_downsample[scan]", source=_CSRC + "voxel_downsample.cu",
          replaces="ndtpu/data/preprocess.py:24",
          paths=("downsample_past_table",)),
+    # K14: the window's masked appends (one launch a window on the windowed
+    # path, one a stacked pass in serving), its loop entry (a window with
+    # loop closure on) and its row write (serving's refresh).
+    dict(name="window_append", source=_CSRC + "window_append.cu",
+         replaces="ndtpu/slam/pipeline.py:419",
+         paths=("config2", "config3", "serving", "multilap")),
+    dict(name="window_append[loops]", source=_CSRC + "window_append.cu",
+         replaces="ndtpu/slam/pipeline.py:484",
+         paths=("config3", "serving", "multilap")),
+    dict(name="window_append[rows]", source=_CSRC + "window_append.cu",
+         replaces="ndtpu/slam/pipeline.py:161", paths=("serving",)),
     # K3 at overlap 1, in the layout runs whose map has one grid.
     dict(name="halfcell_add[g1]", source=_CSRC + "halfcell_add.cu",
          replaces="ndtpu/ndt/grid.py:120",
@@ -3058,7 +3085,10 @@ PLAIN_SERVING = PLAIN_SMOOTHER + (
     ("ndtpu_torch.ndt.grid", "finalize_pack_stacked_ref"),
     ("ndtpu_torch.ndt.match", "lm_ndt_ref"),
     ("ndtpu_torch.loop.closure", "write_local_tables_ref"),
-    ("ndtpu_torch.data.synth", "raycast_ref"))
+    ("ndtpu_torch.data.synth", "raycast_ref"),
+    ("ndtpu_torch.slam.appends", "window_append_ref"),
+    ("ndtpu_torch.slam.appends", "loop_append_ref"),
+    ("ndtpu_torch.slam.appends", "set_rows_ref"))
 #: ... and every plain version config 5's merge and in-process solves could
 #: reach.
 PLAIN_CONFIG5 = PLAIN_SERVING + (
@@ -4224,14 +4254,15 @@ def run_entry_point(dev, config, n_scans: int, label=None, render=False):
     from ndtpu_torch.graph import solve as slv
     from ndtpu_torch.loop import closure
     from ndtpu_torch.ndt import match
+    from ndtpu_torch.slam import pipeline
 
     windows = -(-n_scans // PipelineConfig.from_json(str(config)).window)
     saved = [(closure, "verify_candidates_cached_flat"),
              (inc, "incremental_update"), (slv, "optimize"),
-             (slv, "pcg_solve")]
+             (slv, "pcg_solve"), (pipeline, "_window_backend")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
     counts = dict(detections=0, full_solves=0, pcg_solves=0,
-                  pcg_settled_checks=0)
+                  pcg_settled_checks=0, windows=0)
     takes = []
 
     def counted(fn, key):
@@ -4255,6 +4286,7 @@ def run_entry_point(dev, config, n_scans: int, label=None, render=False):
     inc.incremental_update = recorded
     slv.optimize = counted(saved[2][2], "full_solves")
     slv.pcg_solve = pcg_counted
+    pipeline._window_backend = counted(saved[4][2], "windows")
     try:
         kernels.reset_launches()
         match.CALLS["match_batch_packed"] = 0
@@ -4277,6 +4309,14 @@ def run_entry_point(dev, config, n_scans: int, label=None, render=False):
         counts.update(render_final_map(f"entry point {label}",
                                        res["state"],
                                        PipelineConfig.from_json(str(config))))
+    loops = PipelineConfig.from_json(str(config)).use_loop_closure
+    require(launches["window_append"] == counts["windows"] > 0
+            and launches["window_append[loops]"]
+            == (counts["windows"] if loops else 0),
+            f"entry point {label}: K14 {launches['window_append']} append and "
+            f"{launches['window_append[loops]']} loop launches for "
+            f"{counts['windows']} windows (one append each, and one loop "
+            f"append each with loop closure, expected)")
     pcg_calls = counts["pcg_solves"] + counts["pcg_settled_checks"]
     require(launches["pcg_solve"] == pcg_calls,
             f"entry point {label}: {launches['pcg_solve']} pcg_solve "
@@ -4486,7 +4526,9 @@ def ate_gate(dev, config, ref, label=None):
         require(bool(torch.isfinite(traj).all()), "ATE gate: non-finite")
         ate = float(ate_rmse(traj.cpu(), seq.gt_poses))
         loops = ""
-        row = dict(draw, ate=ate, scans_per_s=(p.shape[0] - 1) / dt)
+        takes = window_takes(outs, cfg.window)
+        row = dict(draw, ate=ate, scans_per_s=(p.shape[0] - 1) / dt,
+                   takes=takes)
         row.pop("sha256")
         if cfg.use_loop_closure:
             n_loops = int(state.n_loops)
@@ -4502,9 +4544,16 @@ def ate_gate(dev, config, ref, label=None):
               f"ATE {draw['jax_ate_m']:.4f} m{f64}{loops}, dead reckoning "
               f"{dr:.4f} m (reference {draw['dead_reckoning_ate_m']:.4f} m), "
               f"inputs {'match' if same else 'DIFFER FROM'} the reference "
-              f"hashes")
+              f"hashes; take codes {takes}")
         draws.append(row)
     return dict(draws=draws, **draw_gate(label, draws))
+
+
+def window_takes(outs, window: int) -> str:
+    """The smoother's take code of each window (0 skip, 1 global, 2 local)
+    as one string, the form ``profile_port.py --takes`` prints for any
+    checkout."""
+    return "".join(str(c) for c in outs.local_take[::window].tolist())
 
 
 #: Every plain version the windowed path could reach (the layout runs and
@@ -4845,6 +4894,13 @@ def run_serving(dev, card, config=SERVING, label="serving",
             f"{label}: {k6b} K6b launches for {first['smooths']} smoother "
             f"calls in {w} windows (inc_iters {cfg.solver.inc_iters}), "
             f"{launches['pcg_solve']} K6 launches")
+    require(launches["window_append"] == w
+            and launches["window_append[loops]"] == w
+            and launches["window_append[rows]"] == first["refreshes"],
+            f"{label}: K14 {launches['window_append']} append, "
+            f"{launches['window_append[loops]']} loop and "
+            f"{launches['window_append[rows]']} row launches for {w} windows "
+            f"and {first['refreshes']} refreshes (one each expected)")
     dropped = sum(r["dropped"] for r in res["per_session"])
     require(dropped == 0, f"{label}: {dropped} keyframes/factors dropped")
     from ndtpu_torch.eval.ate import ate_rmse
@@ -5543,6 +5599,310 @@ def check_k13_scan(dev, jobs=None):
           f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
           f"({row['bound_by']})")
     return launches, row
+
+
+#: K14's cases on the card: (label, sessions, capacity, the loop entry's
+#: queries x candidates or None, counters near the capacities). Configs 2
+#: and 3 run one session at the published capacity, serving 8 of
+#: ``config_serving.json``'s; the last fills the pose, factor and loop
+#: capacities.
+K14_CASES = (("config2", 1, 1024, None, False),
+             ("config3", 1, 1024, (4, 16), False),
+             ("serving", 8, 512, (4, 4), False),
+             ("overflow", 3, 1024, (4, 16), True))
+#: K14's tolerance on the values it computes (node values, odometry
+#: measurements and sqrt-information, relative poses): |kernel - plain| <=
+#: K14_RTOL x max(1, |plain|), both in f32 on the card. Indices, masks,
+#: counters and copied rows must be bit-equal.
+K14_RTOL = 1e-5
+K14_OUTS = ("graph.poses", "graph.pose_mask", "graph.bet_i", "graph.bet_j",
+            "graph.bet_z", "graph.bet_sqrt_info", "graph.bet_mask",
+            "graph.n_poses", "graph.n_between", "kf.poses", "kf.points",
+            "kf.masks", "kf.live", "kf.n", "map_kf_poses", "slot", "ok",
+            "cum", "kslot", "node_vals", "last_idx", "lkr", "any_kf",
+            "kf_idx_out", "rel_out", "nd_out")
+K14_COMPUTED = ("graph.poses", "graph.bet_z", "graph.bet_sqrt_info",
+                "kf.poses", "node_vals", "rel_out")
+K14_LOOP_OUTS = ("bet_i", "bet_j", "bet_z", "bet_sqrt_info", "bet_mask",
+                 "n_between", "nl", "ld", "ni")
+#: The refresh's rows a session (``serving_config``'s ``refresh_top_m``).
+K14_REFRESH_ROWS = 12
+
+
+def k14_inputs(seed: int, dev, sessions: int, cap: int, full: bool,
+               n_beams: int = 360, w: int = 8) -> tuple:
+    """Seeded stacked state and window for K14 (f32 on ``dev``): ``cap``
+    pose and keyframe slots, ``2 cap`` factor slots, counters a quarter to
+    a half full (or a few slots short of full with ``full``), poses over an
+    80 m square, registration Hessians of NDT scale. The 22 arguments of
+    ``kernels.window_append``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    s, v, f = sessions, cap, 2 * cap
+    if full:
+        n0 = v - rng.integers(1, 5, s)
+        nb0 = f - rng.integers(1, 6, s)
+    else:
+        n0 = rng.integers(cap // 4, cap // 2, s)
+        nb0 = 2 * n0 - rng.integers(0, 3, s)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=dev)
+    b8 = lambda a: torch.as_tensor(np.asarray(a, bool), device=dev)
+
+    def poses(shape):
+        p = rng.uniform(-40.0, 40.0, shape + (3,))
+        p[..., 2] = rng.uniform(-math.pi, math.pi, shape)
+        return p
+
+    a = rng.normal(0.0, 30.0, (s, w, 3, 3))
+    hess = a @ np.swapaxes(a, -1, -2) + 10.0 * np.eye(3)
+    return (f32(poses((s, v))), b8(np.arange(v) < n0[:, None]),
+            i64(rng.integers(0, v, (s, f))), i64(rng.integers(0, v, (s, f))),
+            f32(rng.normal(0.0, 1.0, (s, f, 3))),
+            f32(rng.normal(0.0, 5.0, (s, f, 3, 3))),
+            b8(np.arange(f) < nb0[:, None]), i64(n0), i64(nb0),
+            f32(poses((s, v))), f32(rng.normal(0.0, 8.0, (s, v, n_beams, 2))),
+            b8(rng.random((s, v, n_beams)) < 0.9),
+            b8(np.arange(v) < n0[:, None]), i64(n0), f32(poses((s, v))),
+            i64(n0 - 1), f32(poses((s,))), f32(poses((s, w))), f32(hess),
+            f32(rng.normal(0.0, 8.0, (s, w, n_beams, 2))),
+            b8(rng.random((s, w, n_beams)) < 0.9),
+            b8(rng.random((s, w)) < (0.9 if full else 0.4)))
+
+
+def k14_loop_inputs(seed: int, out, lanes, w: int = 8) -> tuple:
+    """The loop entry's arguments on K14's output ``out``: ``lanes = (K,
+    C)`` seeded lanes (60% accepted), queries at seeded scans."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    s, v = out[0].shape[:2]
+    kq, c = lanes
+    dev = out[0].device
+    t = lambda a, dt=None: torch.as_tensor(np.asarray(a, dt), device=dev)
+    acc = rng.random((s, kq, c)) < 0.6
+    return (out[2], out[3], out[4], out[5], out[6], out[8], t(acc),
+            t(rng.integers(0, v, (s, kq, c)), np.int64),
+            t(rng.normal(0.0, 1.0, (s, kq, c, 3)), np.float32),
+            t(rng.normal(0.0, 5.0, (s, kq, c, 3, 3)), np.float32),
+            t(~acc & (rng.random((s, kq, c)) < 0.5)),
+            t(rng.integers(0, v, (s, kq)), np.int64),
+            t(rng.integers(0, w, (s, kq)), np.int64),
+            t(rng.random((s, kq)) < 0.8))
+
+
+def k14_compare(label, out, ref, names, computed=()) -> tuple:
+    """K14's outputs against the plain version's on the same card inputs:
+    ``computed`` fields within :data:`K14_RTOL`, every other one bit-equal.
+    Returns ``(max abs error, all bit-equal)``."""
+    import torch
+
+    err, bit = 0.0, True
+    for name, a, b in zip(names, out, ref):
+        require(a.shape == b.shape and a.dtype == b.dtype,
+                f"K14 {label}: {name} {tuple(a.shape)} {a.dtype} against "
+                f"{tuple(b.shape)} {b.dtype}")
+        same = bits_equal(a, b)
+        if name in computed:
+            d = (a - b).abs()
+            require(bool(torch.isfinite(a).all())
+                    and bool((d <= K14_RTOL * b.abs().clamp(min=1.0)).all()),
+                    f"K14 {label}: {name} off the plain version by "
+                    f"{float(d.max()):.3g}")
+            err = max(err, float(d.max()))
+            bit &= same
+        else:
+            require(same, f"K14 {label}: {name} not bit-equal to the plain "
+                    f"version")
+    return err, bit
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_k14(seed: int, dev, jobs=None) -> dict:
+    """K14 ``window_append`` against ``window_append_ref`` on the card at
+    :data:`K14_CASES` (the same f32 inputs; :func:`k14_compare`), also
+    bit-identical on a second launch; its loop entry against
+    ``loop_append_ref`` where the case has lanes, and its row entry against
+    ``set_rows_ref`` at serving's refresh shape. Each timed beside its
+    plain version (events), with its card time and bytes bound. Returns the
+    three rows (config 3's shapes for the appends and the loop entry, the
+    other cases under ``cases``)."""
+    import numpy as np
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.slam import appends
+
+    rows = {"window_append": {}, "window_append[loops]": {},
+            "window_append[rows]": {}}
+    for i, (label, s, cap, lanes, full) in enumerate(K14_CASES):
+        args = k14_inputs(seed + i, dev, s, cap, full)
+        run = lambda a=args: kernels.window_append(*a)
+        out, again = run(), run()
+        ref = appends.window_append_ref(*args)
+        torch.cuda.synchronize()
+        require(bits_equal(out, again), f"K14 {label}: two launches differ")
+        err, bit = k14_compare(label, out, ref, K14_OUTS, K14_COMPUTED)
+        row = dict(max_abs_err=err, bit_equal=bit, sessions=s, capacity=cap,
+                   kept=int(out[16].sum()), dropped=int(out[25].sum()),
+                   ms=time_ms(run),
+                   plain_ms=time_ms(lambda a=args:
+                                    appends.window_append_ref(*a)),
+                   **bound(_nbytes(args) + _nbytes(out), 0))
+        card_time(jobs, f"K14 window_append {label}", row, "card_ms", run,
+                  ["window_append_kernel"], per_call=1)
+        rows["window_append"][label] = row
+        line = (f"[smoke] K14 window_append {label} (S={s}, {cap} slots): "
+                f"{row['kept']} kept, {row['dropped']} dropped, values "
+                f"within {err:.3g} of the plain version "
+                f"({'bit-equal' if bit else f'rtol {K14_RTOL}'}), the rest "
+                f"bit-equal, and on a second launch; kernel "
+                f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+        if lanes:
+            largs = k14_loop_inputs(seed + i, out, lanes)
+            lrun = lambda a=largs: kernels.loop_append(*a, 8)
+            lout, lagain = lrun(), lrun()
+            lref = appends.loop_append_ref(*largs, 8)
+            torch.cuda.synchronize()
+            require(bits_equal(lout, lagain),
+                    f"K14 loops {label}: two launches differ")
+            k14_compare(f"loops {label}", lout, lref, K14_LOOP_OUTS)
+            lrow = dict(max_abs_err=0.0, bit_equal=True,
+                        appended=int((lout[5] - largs[5]).sum()),
+                        dropped=int(lout[7].sum()), ms=time_ms(lrun),
+                        plain_ms=time_ms(lambda a=largs:
+                                         appends.loop_append_ref(*a, 8)),
+                        **bound(_nbytes(largs) + _nbytes(lout), 0))
+            card_time(jobs, f"K14 loop_append {label}", lrow, "card_ms",
+                      lrun, ["loop_append_kernel"], per_call=1)
+            rows["window_append[loops]"][label] = lrow
+            line += (f"; loop entry {lanes[0]} x {lanes[1]} lanes: "
+                     f"{lrow['appended']} appended, {lrow['dropped']} "
+                     f"dropped, bit-equal, kernel {lrow['ms']:.4f} ms, plain "
+                     f"{lrow['plain_ms']:.4f} ms")
+        if label == "serving":
+            rng = np.random.default_rng(seed)
+            m = K14_REFRESH_ROWS
+            mkp = out[14]
+            sel = torch.as_tensor(np.stack([rng.permutation(cap)[:m]
+                                            for _ in range(s)]), device=dev)
+            do = torch.as_tensor(rng.random((s, m)) < 0.7, device=dev)
+            src = torch.gather(out[9], 1, sel[..., None].expand(-1, -1, 3))
+            rrun = lambda: kernels.rows_set(mkp, sel, do, src)
+            rout = rrun()
+            rref = appends.set_rows_ref(mkp, sel, do, src)
+            torch.cuda.synchronize()
+            require(bits_equal(rout, rrun()) and bits_equal(rout, rref),
+                    "K14 rows: not bit-equal to the plain version or on a "
+                    "second launch")
+            rrow = dict(max_abs_err=0.0, bit_equal=True, rows=m,
+                        ms=time_ms(rrun),
+                        plain_ms=time_ms(lambda: appends.set_rows_ref(
+                            mkp, sel, do, src)),
+                        **bound(_nbytes((mkp, sel, do, src, rout)), 0))
+            card_time(jobs, "K14 rows_set serving", rrow, "card_ms", rrun,
+                      ["rows_set_kernel"], per_call=1)
+            rows["window_append[rows]"][label] = rrow
+            line += (f"; row entry ({m} rows a session) bit-equal, kernel "
+                     f"{rrow['ms']:.4f} ms, plain {rrow['plain_ms']:.4f} ms")
+        print(line)
+    main = {"window_append": "config3", "window_append[loops]": "config3",
+            "window_append[rows]": "serving"}
+    out = {}
+    for name, label in main.items():
+        # The row itself (its card time is filled in later), the other
+        # cases under it.
+        out[name] = rows[name].pop(label)
+        out[name]["cases"] = rows[name]
+    return out
+
+
+#: The most host syncs a window's backend may make outside the loop
+#: verify's own routing (the branch decisions once, then where they run the
+#: slow settled check, the local probe and the full solve's early exit).
+WINDOW_SYNC_BUDGET = 3
+
+
+def check_window_syncs(dev, config, seed: int = 0) -> dict:
+    """The windowed path's host syncs on box-world draw ``seed`` at
+    ``config`` (``set_sync_debug_mode("warn")`` inside each
+    ``_window_backend`` call): all of a window's, which a parent checkout
+    counts the same way (``profile_port.py``'s sync run), and of them those
+    inside the loop verify (``detect_loops_cached_flat``). Fails where a
+    window makes more than :data:`WINDOW_SYNC_BUDGET` outside the verify.
+    Returns the counts."""
+    import warnings
+
+    import torch
+
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.loop import closure
+    from ndtpu_torch.slam import pipeline
+
+    cfg = PipelineConfig.from_json(str(config))
+    seq = box_sequence(seed, cfg.n_beams, device=dev)
+    backend, verify = pipeline._window_backend, closure.detect_loops_cached_flat
+    per_window, in_verify = [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        syncs = lambda: sum("synchroniz" in str(w.message) for w in caught)
+
+        def counted_verify(*a, **k):
+            n0 = syncs()
+            out = verify(*a, **k)
+            in_verify[-1] += syncs() - n0
+            return out
+
+        def counted(*a, **k):
+            in_verify.append(0)
+            n0 = syncs()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return backend(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                per_window.append(syncs() - n0)
+
+        pipeline._window_backend = counted
+        closure.detect_loops_cached_flat = counted_verify
+        try:
+            pipeline.run_slam_windowed(seq.points, seq.mask, seq.odom, cfg)
+            torch.cuda.synchronize()
+        finally:
+            pipeline._window_backend = backend
+            closure.detect_loops_cached_flat = verify
+    outside = [n - v for n, v in zip(per_window, in_verify)]
+    n_win = len(per_window)
+    row = dict(windows=n_win, all_per_window=sum(per_window) / n_win,
+               all_max=max(per_window),
+               verify_per_window=sum(in_verify) / n_win,
+               outside_per_window=sum(outside) / n_win,
+               outside_max=max(outside),
+               outside_counts={c: outside.count(c) for c in sorted(
+                   set(outside))})
+    print(f"[smoke] window host syncs ({config.name}, draw {seed}; the "
+          f"parent-comparable count, every sync inside _window_backend): "
+          f"{row['all_per_window']:.2f} per window, at most {row['all_max']}")
+    require(row["outside_max"] <= WINDOW_SYNC_BUDGET,
+            f"window host syncs ({config.name}): up to {row['outside_max']} "
+            f"a window outside the loop verify (budget "
+            f"{WINDOW_SYNC_BUDGET}); counts {row['outside_counts']}")
+    print(f"[smoke] window host syncs ({config.name}): "
+          f"{row['outside_per_window']:.2f} per window outside the loop "
+          f"verify, at most {row['outside_max']} (budget "
+          f"{WINDOW_SYNC_BUDGET}; windows by count "
+          f"{row['outside_counts']}), {row['verify_per_window']:.2f} inside "
+          f"it, over {n_win} windows")
+    return row
 
 
 #: Every plain version the per-scan path, the CLI's inputs and the stacked
@@ -7742,6 +8102,9 @@ def main(argv=None) -> int:
     results["voxel_downsample"] = check_k13(dev, jobs)
     launches_vscan, results["voxel_downsample[scan]"] = check_k13_scan(dev,
                                                                       jobs)
+    # K14: the window's appends at configs 2 and 3 and serving's shapes
+    # (and past the capacities), its loop entry and its row write.
+    results.update(check_k14(args.seed, dev, jobs))
     # The map build is the same on every run; what the whole pipeline does
     # run to run on the draws whose ATE flipped under float atomics.
     check_frontend_twice(cfg3, box_sequence(2, cfg3.n_beams), dev)
@@ -7775,6 +8138,9 @@ def main(argv=None) -> int:
     ate_gate(dev, CONFIG2, REF_FILE)
     launches3, counts3 = run_entry_point(dev, CONFIG3, 600)
     ate_gate(dev, CONFIG3, REF3_FILE)
+    # The windowed path's host syncs per window at configs 2 and 3.
+    window_syncs = {"config2": check_window_syncs(dev, CONFIG2),
+                    "config3": check_window_syncs(dev, CONFIG3)}
     # Config 1 (odometry alone), then the windowed path in the other table
     # layouts through its entry point.
     launches1, config1 = run_config1(dev)
@@ -7907,7 +8273,7 @@ def main(argv=None) -> int:
             for k in KERNELS]
     print(f"[smoke] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
-    smoother = {"takes_checked": takes,
+    smoother = {"takes_checked": takes, "window_syncs": window_syncs,
                 "config2": counts2, "config3": counts3,
                 "incremental_10k": incremental10k}
     config4.update(step=step4, ba_solve_ms_per_iter_10k=ba_split)

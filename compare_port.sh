@@ -10,9 +10,11 @@
 # (ndtpu_torch.run's main on each config's own scene, config 3 at 600 scans
 # and config 2 at 300: one warm-up run and two timed runs in one process).
 # Last, one line per hot key: each run's event and card ms, and whether the
-# outputs' hashes agree across runs.
+# outputs' hashes agree across runs. WHAT "window" runs only the window
+# profiles: profile_port.py on configs 3 and 2 and with --serving (stacked
+# serving, 8 x 300), two runs each, in the same turns.
 #
-#   bash compare_port.sh OLDER_CHECKOUT OUT_DIR [all|hot]
+#   bash compare_port.sh OLDER_CHECKOUT OUT_DIR [all|hot|window]
 #
 # OLDER_CHECKOUT holds `git archive` of the older commit; this checkout's
 # profile_port.py and chip_smoke.py are copied into it first (they use only
@@ -31,9 +33,11 @@ i=0
 for who in p c c p; do
   i=$((i + 1))
   if [ "$who" = p ]; then dir=$older; else dir=$here; fi
-  (cd "$dir" && timeout 600 python3 profile_port.py --hot \
-    --out "$out/hot_${i}_${who}.json" > "$out/hot_${i}_${who}.log" 2>&1)
-  echo "hot $i $who rc=$?"
+  if [ "$what" != window ]; then
+    (cd "$dir" && timeout 600 python3 profile_port.py --hot \
+      --out "$out/hot_${i}_${who}.json" > "$out/hot_${i}_${who}.log" 2>&1)
+    echo "hot $i $who rc=$?"
+  fi
   [ "$what" = hot ] && continue
   for cfg in config3_loop_closure config2_full_sequence; do
     (cd "$dir" && timeout 240 python3 profile_port.py \
@@ -42,6 +46,13 @@ for who in p c c p; do
       > "$out/prof_${i}_${who}_${cfg}.log" 2>&1)
     echo "profile $i $who $cfg rc=$?"
   done
+  if [ "$what" = window ]; then
+    (cd "$dir" && timeout 300 python3 profile_port.py --serving --runs 2 \
+      --out "$out/prof_${i}_${who}_serving.json" \
+      > "$out/prof_${i}_${who}_serving.log" 2>&1)
+    echo "profile $i $who serving rc=$?"
+    continue
+  fi
   for spec in "config3_loop_closure 600" "config2_full_sequence 300"; do
     set -- $spec
     (cd "$dir" && timeout 150 python3 -c "

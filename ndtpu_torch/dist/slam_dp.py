@@ -10,9 +10,10 @@ semantics as ``pipeline.run_slam_windowed`` under a :func:`serving_config`:
   ``lm_ndt`` launch (``group`` = session) against the S map tables, which
   K4s packs in one launch, and builds the S pass-2 temporary maps with one
   K3s launch;
-- the appends and the loop verification run per session with the
-  single-session ``pipeline._wb_appends`` (S gated verify launches and S
-  sets of host syncs per window; the fused form is a ROADMAP item);
+- the appends of all S sessions are one K14 launch (``slam.appends``) on
+  the stacked arrays, and the accepted loop factors one launch of its loop
+  entry; K8a and the loop verify run per session (S gated verify launches
+  per window; the fused verify is a ROADMAP item);
 - the smoother runs all sessions on one block-diagonal flat graph: K5
   linearizes it, and K6b solves S independent PCGs (per-session Krylov
   scalars, damping, accept and step) in one launch;
@@ -20,9 +21,10 @@ semantics as ``pipeline.run_slam_windowed`` under a :func:`serving_config`:
 
 JAX hoists the smoother's and the refresh's ``lax.cond`` to batch level
 (``jnp.any`` of the per-session predicates) and masks the update per
-session. The port branches on the host there: one sync per window for
-each, and most serving windows then skip the work, while a taken branch
-runs the same masked form, so the states equal the reference's either way.
+session. The port branches on the host there: both predicates come to the
+host in one transfer a window, and most serving windows then skip the
+work, while a taken branch runs the same masked form, so the states equal
+the reference's either way.
 
 The window step takes ownership of the stacked keyframe table cache
 (``state8.kf.tables``, ``[S, K, R, L]``): each session's K8a writes land in
@@ -43,9 +45,10 @@ from ndtpu_torch.graph import factors as fct
 from ndtpu_torch.graph import incremental as inc
 from ndtpu_torch.graph import solve as slv
 from ndtpu_torch.lie import se2
+from ndtpu_torch.loop import closure
 from ndtpu_torch.ndt import grid as ndt_grid
 from ndtpu_torch.ndt import match as ndt_match
-from ndtpu_torch.slam import pipeline
+from ndtpu_torch.slam import appends, pipeline
 from ndtpu_torch.slam.odometry import chain_deltas, gate_poses
 
 __all__ = ["run_sessions", "run_sessions_sharded", "run_sessions_stacked",
@@ -303,24 +306,13 @@ def _frontend_stacked(state8, lkr8, pts8, msk8, deltas8,
     return poses8, res8, _kf_flags8(lkr8, poses8, cfg)
 
 
-def _set_rows8(arr8, slots8, ok8, vals8):
-    """``pipeline._set_rows`` of every session in one write: rows
-    ``slots8 [S, W]`` of ``arr8 [S, K, ...]`` where ``ok8``."""
-    s, k = arr8.shape[:2]
-    off = torch.arange(s, device=arr8.device)[:, None] * k
-    out = pipeline._set_rows(arr8.reshape((s * k,) + arr8.shape[2:]),
-                             (slots8 + off).reshape(-1), ok8.reshape(-1),
-                             vals8.reshape((-1,) + vals8.shape[2:]))
-    return out.reshape(arr8.shape)
-
-
-def _extend_stacked(state8, poses8, pts8, msk8, is_kf8, kslot8, kslot_ok8,
+def _extend_stacked(state8, mkp8, poses8, pts8, msk8, is_kf8,
                     cfg: PipelineConfig):
     """``pipeline._wb_extend`` of every session: the window's keyframe
-    scans inserted at their registration-time poses in one K3s launch.
-    Returns ``(stats8, mkp8)``."""
+    scans inserted at their registration-time poses in one K3s launch
+    (``mkp8`` is ``map_kf_poses`` with the window's rows, which K14 wrote
+    with the appends). Returns ``(stats8, mkp8)``."""
     s = pts8.shape[0]
-    mkp8 = _set_rows8(state8.map_kf_poses, kslot8, kslot_ok8, poses8)
     stats8 = ndt_grid.add_points_stacked(
         state8.stats, se2.transform(poses8, pts8).reshape(s, -1, 2),
         (msk8 & is_kf8[..., None]).reshape(s, -1), cfg.grid)
@@ -329,8 +321,8 @@ def _extend_stacked(state8, poses8, pts8, msk8, is_kf8, kslot8, kslot_ok8,
 
 def _refresh_stacked(stats8, kf8, mkp8, cfg: PipelineConfig, enable8):
     """``pipeline._refresh_map(..., enable=)`` of every session: each
-    session's top-M selection, then one weighted K3s launch. Returns
-    ``(stats8, mkp8)``."""
+    session's top-M selection, then one weighted K3s launch and one K14 row
+    write. Returns ``(stats8, mkp8)``."""
     parts = [pipeline._refresh_points(_take(kf8, i), mkp8[i], cfg,
                                       enable8[i])
              for i in range(mkp8.shape[0])]
@@ -338,29 +330,42 @@ def _refresh_stacked(stats8, kf8, mkp8, cfg: PipelineConfig, enable8):
     stats8 = ndt_grid.add_points_stacked(stats8, both8, bmsk8, cfg.grid,
                                          weight=wts8)
     poses_sel = torch.gather(kf8.poses, 1, sel8[..., None].expand(-1, -1, 3))
-    return stats8, _set_rows8(mkp8, sel8, do8, poses_sel)
+    return stats8, appends.set_rows(mkp8, sel8, do8, poses_sel)
 
 
 def _appends_stacked(state8, lkr8, poses8, hessians8, pts8, msk8, is_kf8,
                      cfg: PipelineConfig):
-    """``pipeline._wb_appends`` per session, on views of the stacked state.
-    Each session's K8a writes go to its own slice of the stacked table
-    cache, which the result keeps (no copy). Returns ``(graph8, kf8,
-    aux8)``."""
-    outs = [pipeline._wb_appends(_take(state8, i), lkr8[i], poses8[i],
-                                 hessians8[i], pts8[i], msk8[i], is_kf8[i],
-                                 cfg)
-            for i in range(pts8.shape[0])]
-    tables8 = state8.kf.tables
-    if tables8 is not None:
-        for i, (_, kf, _) in enumerate(outs):
-            if kf.tables.data_ptr() != tables8[i].data_ptr():
-                raise RuntimeError("a session's table cache left the stack")
-    kf8 = _stack([kf._replace(tables=None) for _, kf, _ in outs])
-    aux8 = {key: torch.stack([aux[key] for _, _, aux in outs])
-            for key in outs[0][2]}
-    return (_stack([g for g, _, _ in outs]), kf8._replace(tables=tables8),
-            aux8)
+    """``pipeline._wb_appends`` of every session: the appends of all S
+    sessions in one K14 launch on the stacked arrays (with ``map_kf_poses``'
+    rows), then per session its K8a writes (in place, into its own slice of
+    the stacked table cache) and its loop verify, then the accepted loop
+    factors of all sessions in one launch of K14's loop entry. Returns
+    ``(graph8, kf8, aux8)``."""
+    s, w = is_kf8.shape
+    app = appends.append_window(state8.graph, state8.kf,
+                                state8.map_kf_poses, state8.last_kf_idx,
+                                lkr8, poses8, hessians8, pts8, msk8, is_kf8)
+    graph8, kf8 = app.graph, app.kf
+    zeros = torch.zeros((s, w), dtype=torch.int32, device=pts8.device)
+    nl8, ld8, ni8 = zeros, zeros, zeros
+    if cfg.use_loop_closure:
+        lanes = []
+        for i in range(s):
+            closure.write_local_tables(kf8.tables[i], app.kslot[i],
+                                       app.ok[i], pts8[i], msk8[i], cfg.loop,
+                                       cfg.ndt, cfg.match.compact_table)
+            lanes.append(pipeline._loop_lanes(
+                _take(kf8, i), pts8[i], msk8[i], app.node_vals[i],
+                app.slot[i], app.cum[i], app.ok[i], cfg))
+        graph8, nl8, ld8, ni8 = pipeline._append_loops(
+            graph8, pipeline.LoopLanes(*(torch.stack(f)
+                                         for f in zip(*lanes))), w)
+    aux8 = dict(kslot=app.kslot, kslot_ok=app.ok, last_idx=app.last_idx,
+                lkr=app.lkr, any_kf=app.any_kf, n_loops_new=nl8.sum(1),
+                kf_idx_out=app.kf_idx_out, rel_out=app.rel_out, nl_out=nl8,
+                nd_out=app.nd_out + ld8, ni_out=ni8,
+                map_kf_poses=app.map_kf_poses)
+    return graph8, kf8, aux8
 
 
 def _stacked_window_step(state8, lkr8, pts8, msk8, deltas8,
@@ -374,28 +379,30 @@ def _stacked_window_step(state8, lkr8, pts8, msk8, deltas8,
                                          pts8, msk8, is_kf8, cfg)
     any_kf8 = aux8["any_kf"]
 
-    # The smoother: need = not the tier-1 skip test, per session. The host
-    # branch costs one sync; the skip is exactly what the masked update
-    # gives when no session needs it.
+    # The smoother: need = not the tier-1 skip test, per session. The skip
+    # is exactly what the masked update gives when no session needs it.
     thr = cfg.solver.relin_threshold
     settled8 = state8.sm_last_delta < thr
     fresh8 = torch.stack([inc.fresh_residual_max(_take(graph8, i))
                           for i in range(s)])
     need8 = any_kf8 & ~(settled8 & (fresh8 < thr))
-    if bool(need8.any()):
+    # The map's refresh trigger ("a loop landed"); both branches' decisions
+    # come to the host in one transfer.
+    trig8 = (torch.ones_like(any_kf8) if cfg.refresh_always
+             else aux8["n_loops_new"] > 0)
+    need_any, trig_any = torch.stack([need8.any(), trig8.any()]).tolist()
+    if need_any:
         sm8, take8 = _smooth_stacked(state8, graph8, any_kf8, need8, cfg)
     else:
         sm8, take8 = _skip_stacked(state8, graph8, any_kf8)
     graph8 = sm8.graph
     kf8 = kf8._replace(poses=graph8.poses[:, :kf8.poses.shape[1]])
 
-    # Map maintenance: extend always; refresh where a loop landed (one host
-    # branch; ``enable`` masks the sessions whose trigger is false).
-    stats8, mkp8 = _extend_stacked(state8, poses8, pts8, msk8, is_kf8,
-                                   aux8["kslot"], aux8["kslot_ok"], cfg)
-    trig8 = (torch.ones_like(any_kf8) if cfg.refresh_always
-             else aux8["n_loops_new"] > 0)
-    if bool(trig8.any()):
+    # Map maintenance: extend always; refresh where a loop landed
+    # (``enable`` masks the sessions whose trigger is false).
+    stats8, mkp8 = _extend_stacked(state8, aux8["map_kf_poses"], poses8,
+                                   pts8, msk8, is_kf8, cfg)
+    if trig_any:
         stats8, mkp8 = _refresh_stacked(stats8, kf8, mkp8, cfg, trig8)
 
     last_idx8, lkr8n = aux8["last_idx"], aux8["lkr"]

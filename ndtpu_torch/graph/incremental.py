@@ -5,8 +5,11 @@ settled-estimate skip, the k-hop local update with its static capacities,
 the periodic full solve, and the marginal covariances (three PCG solves
 against unit vectors, or the dense inverse).
 
-Each ``lax.cond`` of the JAX version is a Python ``if`` on a 0-d tensor:
-one host sync, and only the taken branch runs, as in ``cond``. On the card
+Each ``lax.cond`` of the JAX version is a Python ``if`` on a host bool, and
+only the taken branch runs, as in ``cond``: the predicates that read only
+the input state (:func:`gate_flags`) come to the host in one transfer, and
+the slow settled check and the local probe each read their result where
+they run. On the card
 the factors are linearized by K5, the PCG solves run in K6 (graphs that fit
 one block) or K6g (larger ones, such as bench.py's 10k poses), and the local
 path selects (K7a: ``lax.top_k`` over 0/1 flags as stable compactions, ties
@@ -26,7 +29,8 @@ from ndtpu_torch.config import SolverConfig
 from ndtpu_torch.graph import factors as fct
 from ndtpu_torch.graph import solve as slv
 
-__all__ = ["SmootherState", "init_smoother", "incremental_update",
+__all__ = ["SmootherState", "Gates", "gate_flags", "init_smoother",
+           "incremental_update",
            "local_update", "local_select", "local_select_ref",
            "fresh_residual_max", "fresh_residual_max_ref", "full_solve",
            "marginal_covariance_pcg", "marginal_covariance"]
@@ -37,6 +41,29 @@ class SmootherState(NamedTuple):
     lam: torch.Tensor             # [] LM damping carried across updates
     last_max_delta: torch.Tensor  # [] inf-norm of the last accepted step
     step: torch.Tensor            # [] int64 update counter
+
+
+class Gates(NamedTuple):
+    """:func:`incremental_update`'s decisions that depend only on its input
+    state, as host bools (:func:`gate_flags`, read with one transfer)."""
+    settled: bool      # the last update moved nothing past the threshold
+    fresh_small: bool  # the newest factors' residuals are below it too
+    full_solve: bool   # this update is a ``full_solve_every``-th one
+
+
+def gate_flags(state: SmootherState, cfg: SolverConfig) -> torch.Tensor:
+    """``[settled, fresh_small, full_solve]`` (bool) on the state's device,
+    without a host sync: the predicates of the JAX version's ``lax.cond``s
+    that read only the input state (``fresh_residual_max`` runs always, as
+    there)."""
+    thr = cfg.relin_threshold
+    settled = state.last_max_delta < thr
+    fresh_small = fresh_residual_max(state.graph) < thr
+    if cfg.full_solve_every > 0:
+        full = (state.step + 1) % cfg.full_solve_every == 0
+    else:
+        full = torch.zeros_like(settled)
+    return torch.stack([settled, fresh_small, full])
 
 
 def init_smoother(graph: fct.PoseGraph) -> SmootherState:
@@ -248,7 +275,7 @@ def local_update(g: fct.PoseGraph, lam, cfg: SolverConfig,
 
 def incremental_update(state: SmootherState, cfg: SolverConfig,
                        huber_delta: float = 0.0, fresh_since=None,
-                       return_take: bool = False):
+                       return_take: bool = False, gates: Gates = None):
     """Bounded-cost refinement after new factors were appended.
 
     Skips when the last update moved nothing beyond ``relin_threshold`` and
@@ -257,6 +284,11 @@ def incremental_update(state: SmootherState, cfg: SolverConfig,
     ``inc_iters`` warm-started global LM-PCG steps. Every
     ``full_solve_every``-th update adds a full PCG optimization. The take
     code is 0 = skip, 1 = global, 2 = local.
+
+    ``gates`` are :func:`gate_flags` read by the caller (the window step
+    reads them with its other decisions); None reads them here, with one
+    transfer. Besides, the slow settled check and the local probe read their
+    kernels' results mid-branch (one host sync each where they run).
     """
     g = state.graph
     dt, dev = g.poses.dtype, g.poses.device
@@ -294,16 +326,17 @@ def incremental_update(state: SmootherState, cfg: SolverConfig,
             return skip(g, lam)
         return do_update(g, lam)
 
-    settled = bool(state.last_max_delta < cfg.relin_threshold)
-    if settled and bool(fresh_residual_max(g) < cfg.relin_threshold):
+    if gates is None:
+        gates = Gates(*gate_flags(state, cfg).tolist())
+    if gates.settled and gates.fresh_small:
         graph, lam, md, take = skip(g, state.lam)
-    elif settled:
+    elif gates.settled:
         graph, lam, md, take = slow_check(g, state.lam)
     else:
         graph, lam, md, take = do_update(g, state.lam)
 
     step = state.step + 1
-    if cfg.full_solve_every > 0 and int(step) % cfg.full_solve_every == 0:
+    if gates.full_solve:
         graph = slv.optimize(graph, cfg, method="pcg",
                              huber_delta=huber_delta).graph
         lam = torch.full((), cfg.init_lambda, dtype=dt, device=dev)

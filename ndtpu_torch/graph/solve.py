@@ -309,7 +309,9 @@ def optimize(g: fct.PoseGraph, cfg: SolverConfig, method: str = "dense",
     done = torch.zeros((), dtype=torch.bool, device=dev)
     graph = g
     for k in range(cfg.max_iter):
-        if k % _SYNC_EVERY == 0 and bool(done):
+        # At k = 0 nothing is done yet: the first check reads after
+        # _SYNC_EVERY iterations.
+        if k and k % _SYNC_EVERY == 0 and bool(done):
             break
         active = ~done
         lin = fct.linearize(graph, huber_delta)

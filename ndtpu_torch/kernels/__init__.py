@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Twenty-three kernels carry the windowed and per-scan pipelines with loop
-closure, the pose-graph smoother, the large-graph supernodal and PCG
-solves, stacked multi-session serving, config 5's merge and distributed
-solve, its slab-sharded map, and the input preparation (ROADMAP Queue B):
+Twenty-four kernels carry the windowed and per-scan pipelines with loop
+closure, the window's appends, the pose-graph smoother, the large-graph
+supernodal and PCG solves, stacked multi-session serving, config 5's merge
+and distributed solve, its slab-sharded map, and the input preparation
+(ROADMAP Queue B):
 
 ============ =============================== =================================
 name         source                          replaces (JAX, lowered by XLA)
@@ -90,6 +91,17 @@ downsample   (K13)                           one valid point per voxel, by
                                              (past it by comparing ids,
                                              counted as
                                              ``voxel_downsample[scan]``)
+window_      ``csrc/window_append.cu`` (K14) ``pipeline._wb_appends``' masked
+append                                       scatters (slots, anchors, node
+                                             values, odometry factors and
+                                             sqrt-information) with
+                                             ``_wb_extend``'s map-pose rows,
+                                             for S sessions; entry points
+                                             for the loop factors
+                                             (``window_append[loops]``) and
+                                             ``_refresh_map``'s rows
+                                             (``window_append[rows]``): new
+                                             arrays, one launch each
 ============ =============================== =================================
 
 K5, K6, K6g and K7b share the pose graph's arithmetic,
@@ -102,7 +114,8 @@ the graph fits one block and K6g otherwise. The graph wrappers
 ``graph.solve.pcg_solve``, ``graph.incremental.local_select`` and
 ``fresh_residual_max``, ``dist.schur.assemble_local``,
 ``graph.supernodal.supernodal_assemble`` and ``schur_reduce``) send CPU
-tensors to their plain versions and CUDA tensors here. K9a and K9b (and
+tensors to their plain versions and CUDA tensors here, as do K14's
+(``slam.appends.window_append``, ``loop_append``, ``set_rows``). K9a and K9b (and
 K5 at config 4's 10k poses) carry the supernodal step; they route by tables
 the host builds once per topology and sum each target in a fixed order.
 
@@ -182,7 +195,8 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "FINALIZE_THREADS", "finalize_cells_threads", "finalize_inputs",
            "finalize_cells",
            "slab_spread", "slab_sgh", "raycast", "sgh_spread", "voxel_smem",
-           "voxel_route", "voxel_downsample"]
+           "voxel_route", "voxel_downsample", "WINDOW_MAX", "window_append",
+           "loop_append", "rows_set"]
 
 #: The quad-table layouts ``(G, L)``: G overlap grids per row (4, or 1 at
 #: ``overlap = 1``) of L lanes each (8 full, or 4 compact bf16-pair lanes at
@@ -223,7 +237,8 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "schur_local_assemble": 0, "ndt_sgh_unpacked": 0,
             "slab_accumulate": 0, "finalize_cells": 0, "slab_sgh": 0,
             "raycast": 0, "voxel_downsample": 0,
-            "voxel_downsample[scan]": 0,
+            "voxel_downsample[scan]": 0, "window_append": 0,
+            "window_append[loops]": 0, "window_append[rows]": 0,
             **{variant(k, 1): 0 for k in _GRID_KERNELS},
             **{variant(k, g, l): 0 for k in _LAYOUT_KERNELS
                for g, l in LAYOUTS[1:]}}
@@ -288,6 +303,9 @@ _SIGNATURES = {
     "slab_sgh_launch": [_P] * 7 + [_I] * 6 + [_F] * 5 + [_I] * 3 + [_P],
     "raycast_launch": [_P] * 4 + [_I] * 3 + [_D, _D, _I, _P],
     "voxel_downsample_launch": [_P] * 3 + [_I, _I, _F, _I, _I, _P],
+    "window_append_launch": [_P] + [_I] * 7 + [_P],
+    "loop_append_launch": [_P] + [_I] * 5 + [_P],
+    "rows_set_launch": [_P] * 5 + [_I] * 4 + [_P],
 }
 
 
@@ -1757,3 +1775,145 @@ def voxel_downsample(points, mask, voxel: float) -> torch.Tensor:
               too_big=f"{n} points per scan do not fit a block's "
                       f"{SMEM_MAX} bytes of shared memory (4 B each)")
     return keep
+
+
+#: K14's longest window: one warp computes a window's slots by ballots.
+WINDOW_MAX = 32
+
+
+def _addresses(tensors) -> ctypes.Array:
+    """The tensors' device addresses as a host array of 64-bit words (the
+    launcher copies them into its argument struct, in this order)."""
+    return (ctypes.c_longlong * len(tensors))(*(t.data_ptr()
+                                                for t in tensors))
+
+
+def window_append(g_poses, pose_mask, bet_i, bet_j, bet_z, bet_sqrt_info,
+                  bet_mask, n_poses, n_between, kf_poses, kf_points,
+                  kf_masks, kf_live, kf_n, map_kf_poses, last_kf_idx,
+                  last_kf_reg, poses, hessians, pts, msk, is_kf) -> tuple:
+    """K14: the masked appends of one window of ``W`` scans for each of ``S``
+    sessions (leading axis of every argument), one launch (see
+    ``csrc/window_append.cu``). Graph ``g_poses [S, V, 3]``, ``pose_mask
+    [S, V]``, ``bet_i``/``bet_j [S, F]`` (int64), ``bet_z [S, F, 3]``,
+    ``bet_sqrt_info [S, F, 3, 3]``, ``bet_mask [S, F]``, counters ``n_poses``
+    / ``n_between [S]`` (int64); keyframe store ``kf_poses [S, K, 3]``,
+    ``kf_points [S, K, N, 2]``, ``kf_masks [S, K, N]``, ``kf_live [S, K]``,
+    ``kf_n [S]``; ``map_kf_poses [S, M, 3]``; ``last_kf_idx [S]`` (int64),
+    ``last_kf_reg [S, 3]``; the window's ``poses [S, W, 3]``, ``hessians
+    [S, W, 3, 3]``, ``pts [S, W, N, 2]``, ``msk [S, W, N]``, ``is_kf [S,
+    W]``. f32 values, bool masks, W <= :data:`WINDOW_MAX`. Returns new
+    tensors (the inputs are not written): the 15 arrays and counters with
+    the window's rows, then ``slot``, ``ok``, ``cum``, ``kslot`` ``[S, W]``,
+    ``node_vals [S, W, 3]``, ``last_idx [S]``, ``lkr [S, 3]``, ``any_kf
+    [S]``, ``kf_idx_out [S, W]``, ``rel_out [S, W, 3]``, ``nd_out [S, W]``
+    (int32): :func:`ndtpu_torch.slam.appends.window_append_ref`'s order."""
+    s, w = is_kf.shape
+    v, f = g_poses.shape[1], bet_i.shape[1]
+    k, n = kf_points.shape[1], kf_points.shape[2]
+    m = map_kf_poses.shape[1]
+    if not 1 <= w <= WINDOW_MAX:
+        raise ValueError(f"window_append: a window of {w} scans (1 to "
+                         f"{WINDOW_MAX} taken)")
+    i64, b8 = torch.int64, torch.bool
+    spec = ((g_poses, "graph.poses", None, (s, v, 3), 4),
+            (pose_mask, "graph.pose_mask", b8, (s, v), 1),
+            (bet_i, "graph.bet_i", i64, (s, f), 8),
+            (bet_j, "graph.bet_j", i64, (s, f), 8),
+            (bet_z, "graph.bet_z", None, (s, f, 3), 4),
+            (bet_sqrt_info, "graph.bet_sqrt_info", None, (s, f, 3, 3), 4),
+            (bet_mask, "graph.bet_mask", b8, (s, f), 1),
+            (n_poses, "graph.n_poses", i64, (s,), 8),
+            (n_between, "graph.n_between", i64, (s,), 8),
+            (kf_poses, "kf.poses", None, (s, k, 3), 4),
+            (kf_points, "kf.points", None, (s, k, n, 2), 8),
+            (kf_masks, "kf.masks", b8, (s, k, n), 1),
+            (kf_live, "kf.live", b8, (s, k), 1),
+            (kf_n, "kf.n", i64, (s,), 8),
+            (map_kf_poses, "map_kf_poses", None, (s, m, 3), 4),
+            (last_kf_idx, "last_kf_idx", i64, (s,), 8),
+            (last_kf_reg, "last_kf_reg", None, (s, 3), 4),
+            (poses, "poses", None, (s, w, 3), 4),
+            (hessians, "hessians", None, (s, w, 3, 3), 4),
+            (pts, "pts", None, (s, w, n, 2), 8),
+            (msk, "msk", b8, (s, w, n), 1),
+            (is_kf, "is_kf", b8, (s, w), 1))
+    for t, what, dt, shape, align in spec:
+        _check(t, what, dtype=dt or torch.float32, shape=shape, align=align)
+    ins = [t for t, *_ in spec]
+    outs = [torch.empty_like(t) for t in ins[:15]]
+    dev = g_poses.device
+    new = lambda shape, dt=i64: torch.empty(shape, dtype=dt, device=dev)
+    aux = [new((s, w)), new((s, w), b8), new((s, w)), new((s, w)),
+           new((s, w, 3), torch.float32), new((s,)),
+           new((s, 3), torch.float32), new((s,), b8), new((s, w)),
+           new((s, w, 3), torch.float32), new((s, w), torch.int32)]
+    _call("window_append_launch", "window_append",
+          _addresses(ins + outs + aux), s, w, v, f, k, n, m, _stream(g_poses))
+    return tuple(outs + aux)
+
+
+def loop_append(bet_i, bet_j, bet_z, bet_sqrt_info, bet_mask, n_between,
+                accept, loop_j, loop_z, loop_sqrt_info, innov, slot_k, sel,
+                has, w: int) -> tuple:
+    """K14's loop entry (counted as ``window_append[loops]``): the accepted
+    loop lanes of a window's ``K`` queries x ``C`` candidates appended as
+    between factors, for ``S`` sessions, one launch. Factors ``bet_i`` /
+    ``bet_j [S, F]`` (int64), ``bet_z [S, F, 3]``, ``bet_sqrt_info [S, F,
+    3, 3]``, ``bet_mask [S, F]``, ``n_between [S]``; lanes ``accept [S, K,
+    C]`` (masked by the detect cadence), ``loop_j [S, K, C]`` (int64),
+    ``loop_z [S, K, C, 3]``, ``loop_sqrt_info [S, K, C, 3, 3]``, ``innov [S,
+    K, C]`` (innovation-rejected, masked likewise); per query ``slot_k``,
+    ``sel [S, K]`` (int64: graph slot, scan) and ``has [S, K]``. Returns new
+    tensors: the factor arrays and ``n_between``, then per scan ``nl``,
+    ``ld``, ``ni [S, w]`` (int32: loops appended, dropped at capacity,
+    innovation-rejected)."""
+    s, kq, c = accept.shape
+    f = bet_i.shape[1]
+    if kq * c > 12288:
+        raise ValueError(f"loop_append: {kq} x {c} lanes a session (12,288 "
+                         f"taken)")
+    i64, b8 = torch.int64, torch.bool
+    spec = ((bet_i, "bet_i", i64, (s, f), 8), (bet_j, "bet_j", i64, (s, f), 8),
+            (bet_z, "bet_z", None, (s, f, 3), 4),
+            (bet_sqrt_info, "bet_sqrt_info", None, (s, f, 3, 3), 4),
+            (bet_mask, "bet_mask", b8, (s, f), 1),
+            (n_between, "n_between", i64, (s,), 8),
+            (accept, "accept", b8, (s, kq, c), 1),
+            (loop_j, "loops.j", i64, (s, kq, c), 8),
+            (loop_z, "loops.z", None, (s, kq, c, 3), 4),
+            (loop_sqrt_info, "loops.sqrt_info", None, (s, kq, c, 3, 3), 4),
+            (innov, "innov", b8, (s, kq, c), 1),
+            (slot_k, "slot_k", i64, (s, kq), 8), (sel, "sel", i64, (s, kq), 8),
+            (has, "has", b8, (s, kq), 1))
+    for t, what, dt, shape, align in spec:
+        _check(t, what, dtype=dt or torch.float32, shape=shape, align=align)
+    ins = [t for t, *_ in spec]
+    outs = [torch.empty_like(t) for t in ins[:6]]
+    counts = [torch.empty((s, w), dtype=torch.int32, device=bet_i.device)
+              for _ in range(3)]
+    _call("loop_append_launch", "window_append[loops]",
+          _addresses(ins + outs + counts), s, f, kq, c, w, _stream(bet_i))
+    return tuple(outs + counts)
+
+
+def rows_set(dst, idx, ok, src) -> torch.Tensor:
+    """K14's row entry (counted as ``window_append[rows]``): a new ``[S, R,
+    C]`` f32 tensor, ``dst`` with row ``idx[s, m]`` replaced by ``src[s,
+    m]`` where ``ok[s, m]`` (the last such ``m`` where indices repeat; an
+    index outside ``[0, R)`` writes nothing), ``idx [S, M]`` int64, ``ok
+    [S, M]`` bool, ``src [S, M, C]``; one launch, ``M`` <= 6,144."""
+    s, r, c = dst.shape
+    m = idx.shape[1]
+    if m > 6144:
+        raise ValueError(f"rows_set: {m} rows a session (6,144 taken)")
+    _check(dst, "dst", shape=(s, r, c))
+    _check(idx, "idx", dtype=torch.int64, shape=(s, m), align=8)
+    _check(ok, "ok", dtype=torch.bool, shape=(s, m), align=1)
+    _check(src, "src", shape=(s, m, c))
+    out = torch.empty_like(dst)
+    if dst.numel() > 0:
+        _call("rows_set_launch", "window_append[rows]", dst.data_ptr(),
+              idx.data_ptr(), ok.data_ptr(), src.data_ptr(), out.data_ptr(),
+              s, r, c, m, _stream(dst))
+    return out

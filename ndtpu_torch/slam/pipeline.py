@@ -9,13 +9,17 @@ runs:
    keyframes into a temporary map, K4 again, and a second registration
    pass; then ``kf_select``.
 2. ``_wb_appends``: all of the window's keyframes and odometry factors are
-   appended with one masked write per graph array. With loop closure on,
-   K8a writes the new keyframes' local tables into the cache, and one flat
-   detection over the window's first ``max_detect_per_window`` keyframes
-   (``K*C`` lanes through grouped K1, then the K8b gate) appends the
-   accepted loop factors.
-3. ``_wb_smooth``: ``incremental_update`` when a keyframe landed.
-4. ``_wb_maps``: the K3 insert of the window's keyframes (or the rebuild /
+   appended, with the map's keyframe poses, in one K14 launch
+   (``slam.appends``: one masked write per graph, keyframe and map-pose
+   array). With loop closure on, K8a writes the new keyframes' local
+   tables into the cache, and one flat detection over the window's first
+   ``max_detect_per_window`` keyframes (``K*C`` lanes through grouped K1,
+   then the K8b gate) yields the loop factors, which K14's loop entry
+   appends in one more launch.
+3. ``_window_flags``: every branch decision of the window, computed on the
+   device and read with one transfer.
+4. ``_wb_smooth``: ``incremental_update`` when a keyframe landed.
+5. ``_wb_maps``: the K3 insert of the window's keyframes (or the rebuild /
    top-M refresh the config selects; a landed loop factor triggers it).
 
 The per-scan path (:func:`slam_step`, :func:`run_slam`) registers each
@@ -28,10 +32,12 @@ the legacy policy: a K3 rebuild from every keyframe when a loop landed,
 else a K3 insert of the scan.
 
 JAX's ``.at[idx].set(..., mode="drop")`` with the ``1 << 30`` sentinel
-becomes a write of only the rows its mask keeps (torch raises on
-out-of-range indices); each ``lax.cond`` becomes a Python ``if`` on a 0-d
-tensor, so the per-scan step syncs the host once per scan on its keyframe
-test. Keyframe store index == pose-graph variable index.
+becomes K14 on the windowed path (new arrays, the kept rows substituted;
+no host sync) and a one-row ``index_copy`` per scan; each ``lax.cond``
+becomes a Python ``if`` on a host bool: the window reads its decisions in
+one transfer and the smoother at most two more mid-branch (and its full
+solve one), the per-scan step once per scan on its keyframe test.
+Keyframe store index == pose-graph variable index.
 """
 
 from __future__ import annotations
@@ -48,7 +54,9 @@ from ndtpu_torch.lie import se2
 from ndtpu_torch.loop import closure
 from ndtpu_torch.ndt import grid as ndt_grid
 from ndtpu_torch.ndt import match as ndt_match
+from ndtpu_torch.slam import appends
 from ndtpu_torch.slam import keyframes as kfs
+from ndtpu_torch.slam.appends import _odom_info_sqrt
 from ndtpu_torch.slam.odometry import (_pad_to_windows, chain_deltas,
                                        gate_poses, kf_select)
 
@@ -116,25 +124,6 @@ def init_slam(cfg: PipelineConfig, first_points, first_mask,
         map_kf_poses=kf.poses)
 
 
-def _odom_info_sqrt(hessian):
-    """Between-factor sqrt information from registration Hessians
-    ``[..., 3, 3]``."""
-    eye = torch.eye(3, dtype=hessian.dtype, device=hessian.device)
-    h = 0.5 * (hessian + hessian.transpose(-1, -2)) + 1e-3 * eye
-    return fct.info_to_sqrt_info(h)
-
-
-def _set_rows(arr, slots, ok, vals):
-    """``arr.at[where(ok, slots, big)].set(vals, mode="drop")`` as a new
-    tensor: only the rows ``ok`` keeps are written."""
-    out = arr.clone()
-    keep = ok.nonzero().squeeze(-1)
-    if isinstance(vals, torch.Tensor) and vals.dim() > 0:
-        vals = vals[keep]
-    out[slots[keep]] = vals
-    return out
-
-
 def _map_table(stats, cfg: PipelineConfig):
     return ndt_grid.finalize_pack(stats, cfg.ndt, cfg.grid,
                                   cfg.match.compact_table)
@@ -149,7 +138,8 @@ def _refresh_map(stats, kf: kfs.KeyframeStore, mkp, cfg: PipelineConfig,
     sessions whose trigger is false. Returns ``(stats, mkp)``."""
     both, bmsk, wts, sel, do = _refresh_points(kf, mkp, cfg, enable)
     stats = ndt_grid.add_points(stats, both, bmsk, cfg.grid, weight=wts)
-    return stats, _set_rows(mkp, sel, do, kf.poses[sel])
+    return stats, appends.set_rows(mkp[None], sel[None], do[None],
+                                   kf.poses[sel][None])[0]
 
 
 def _refresh_points(kf: kfs.KeyframeStore, mkp, cfg: PipelineConfig,
@@ -347,98 +337,81 @@ def _window_frontend(state: SlamState, last_kf_reg, pts, msk, deltas,
     return poses, res, is_kf
 
 
+def _retuple(like, items):
+    return type(like)(*items) if hasattr(like, "_fields") else tuple(items)
+
+
+def _lead(tree):
+    """A (nested) NamedTuple of tensors with a leading session axis of 1
+    (views)."""
+    if tree is None or isinstance(tree, (bool, int, float)):
+        return tree
+    if isinstance(tree, tuple):
+        return _retuple(tree, [_lead(x) for x in tree])
+    return tree[None]
+
+
+def _first(tree):
+    """Session 0 of a (nested) NamedTuple of tensors (views)."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return _retuple(tree, [_first(x) for x in tree])
+    return tree[0]
+
+
 def _wb_appends(state: SlamState, last_kf_reg, poses, hessians, pts, msk,
                 is_kf, cfg: PipelineConfig):
-    """Window backend stage 1: keyframe/factor appends (one masked write per
-    array; slots are a cumsum over the keyframe flags). Returns ``(graph,
-    kf, aux)``; ``kf`` is not yet pose-synced."""
+    """Window backend stage 1: keyframe/factor appends (K14, one launch on
+    the card, with ``_wb_extend``'s ``map_kf_poses`` rows), the new
+    keyframes' local tables (K8a, in place) and the loop factors
+    (:func:`_wb_loops`). Returns ``(graph, kf, aux)``; ``kf`` is not yet
+    pose-synced. No host sync."""
     w = poses.shape[0]
-    dev = poses.device
-    graph, kf = state.graph, state.kf
-    cap_v = graph.capacity
-    cap_f = graph.bet_mask.shape[0]
-
-    cum = torch.cumsum(is_kf.to(torch.long), 0)
-    slot = graph.n_poses + cum - 1                               # [W]
-    ok = is_kf & (slot < cap_v)
-    k_new = ok.sum()
-
-    idx = torch.arange(w, device=dev)
-    gov = torch.cummax(torch.where(ok, idx, torch.full_like(idx, -1)), 0).values
-    anchor_reg = torch.where((gov >= 0)[:, None],
-                             poses[torch.clamp(gov, min=0)], last_kf_reg)
-    prev_gov = torch.cat([torch.full((1,), -1, device=dev), gov[:-1]])
-    parent_reg = torch.where((prev_gov >= 0)[:, None],
-                             poses[torch.clamp(prev_gov, min=0)], last_kf_reg)
-    parent_idx = torch.where(cum > 1, graph.n_poses + cum - 2,
-                             state.last_kf_idx)
-
-    anchor_node = graph.poses[state.last_kf_idx]
-    node_vals = se2.compose(anchor_node[None, :],
-                            se2.between(last_kf_reg[None, :], poses))
-    z_odo = se2.between(parent_reg, poses)
-    sqrt_infos = _odom_info_sqrt(hessians)
-
-    graph = graph._replace(
-        poses=_set_rows(graph.poses, slot, ok, node_vals),
-        pose_mask=_set_rows(graph.pose_mask, slot, ok, True),
-        n_poses=graph.n_poses + k_new)
-    fslot = graph.n_between + cum - 1
-    fok = ok & (fslot < cap_f)
-    graph = graph._replace(
-        bet_i=_set_rows(graph.bet_i, fslot, fok, parent_idx),
-        bet_j=_set_rows(graph.bet_j, fslot, fok, slot),
-        bet_z=_set_rows(graph.bet_z, fslot, fok, z_odo),
-        bet_sqrt_info=_set_rows(graph.bet_sqrt_info, fslot, fok, sqrt_infos),
-        bet_mask=_set_rows(graph.bet_mask, fslot, fok, True),
-        n_between=graph.n_between + fok.sum())
-    kslot = kf.n + cum - 1
-    kf = kf._replace(
-        poses=_set_rows(kf.poses, kslot, ok, node_vals),
-        points=_set_rows(kf.points, kslot, ok, pts),
-        masks=_set_rows(kf.masks, kslot, ok, msk),
-        live=_set_rows(kf.live, kslot, ok, True),
-        n=kf.n + k_new)
-    last_idx = torch.where(k_new > 0, graph.n_poses - 1, state.last_kf_idx)
-    lkr = anchor_reg[-1]
-
-    zeros_w = torch.zeros(w, dtype=torch.int32, device=dev)
+    app = _first(appends.append_window(
+        _lead(state.graph), _lead(state.kf), state.map_kf_poses[None],
+        state.last_kf_idx[None], last_kf_reg[None], poses[None],
+        hessians[None], pts[None], msk[None], is_kf[None]))
+    graph, kf = app.graph, app.kf
+    zeros_w = torch.zeros(w, dtype=torch.int32, device=poses.device)
     nl_out, ld_out, ni_out = zeros_w, zeros_w, zeros_w
     if cfg.use_loop_closure:
         # The new keyframes' local tables, written into the cache in place
         # (the cache is ~315 MB at config 3; a copy per window would move
         # it twice).
-        closure.write_local_tables(kf.tables, kslot, ok, pts, msk, cfg.loop,
-                                   cfg.ndt, cfg.match.compact_table)
+        closure.write_local_tables(kf.tables, app.kslot, app.ok, pts, msk,
+                                   cfg.loop, cfg.ndt, cfg.match.compact_table)
         graph, nl_out, ld_out, ni_out = _wb_loops(graph, kf, pts, msk,
-                                                  node_vals, slot, cum, ok,
-                                                  cfg)
-
-    nd_out = ((is_kf & ~ok).to(torch.int32) + (ok & ~fok).to(torch.int32)
-              + ld_out)
-    cum_ok = torch.cumsum(ok.to(torch.long), 0)
-    kf_idx_out = torch.where(cum_ok > 0, state.graph.n_poses + cum_ok - 1,
-                             state.last_kf_idx)
-    rel_out = se2.between(anchor_reg, poses)
-    aux = dict(kslot=kslot, kslot_ok=ok, last_idx=last_idx, lkr=lkr,
-               any_kf=is_kf.any(), n_loops_new=nl_out.sum(),
-               kf_idx_out=kf_idx_out, rel_out=rel_out, nl_out=nl_out,
-               nd_out=nd_out, ni_out=ni_out)
+                                                  app.node_vals, app.slot,
+                                                  app.cum, app.ok, cfg)
+    aux = dict(kslot=app.kslot, kslot_ok=app.ok, last_idx=app.last_idx,
+               lkr=app.lkr, any_kf=app.any_kf, n_loops_new=nl_out.sum(),
+               kf_idx_out=app.kf_idx_out, rel_out=app.rel_out, nl_out=nl_out,
+               nd_out=app.nd_out + ld_out, ni_out=ni_out,
+               map_kf_poses=app.map_kf_poses)
     return graph, kf, aux
 
 
-def _wb_loops(graph, kf, pts, msk, node_vals, slot, cum, ok,
-              cfg: PipelineConfig):
+class LoopLanes(NamedTuple):
+    """A window's loop lanes, K queries x C candidates (K14's loop
+    entry's input)."""
+    accept: torch.Tensor     # [K, C] accepted, masked by the detect cadence
+    j: torch.Tensor          # [K, C] candidate keyframe
+    z: torch.Tensor          # [K, C, 3]
+    sqrt_info: torch.Tensor  # [K, C, 3, 3]
+    innov: torch.Tensor      # [K, C] innovation-rejected, masked likewise
+    slot_k: torch.Tensor     # [K] the query's graph slot
+    sel: torch.Tensor        # [K] the query's scan in the window
+    has: torch.Tensor        # [K] the window has a K-th keyframe
+
+
+def _loop_lanes(kf, pts, msk, node_vals, slot, cum, ok,
+                cfg: PipelineConfig) -> LoopLanes:
     """Loop detection for the window's first ``max_detect_per_window``
-    keyframes as ONE flat ``K*C``-lane verification, and the masked append
-    of the accepted loop factors. Returns ``(graph, nl [W], ld [W], ni
-    [W])``: loops appended, loops dropped at factor capacity, and
-    innovation-budget rejections, at each query's scan."""
+    keyframes as ONE flat ``K*C``-lane verification."""
     w = pts.shape[0]
-    dev = pts.device
-    cap_f = graph.bet_mask.shape[0]
     kmax = min(cfg.loop.max_detect_per_window or w, w)
-    ranks = torch.arange(kmax, device=dev)
+    ranks = torch.arange(kmax, device=pts.device)
     # sel[r] = scan index of the window's r-th keyframe (0 if absent).
     hit = (cum[None, :] - 1 == ranks[:, None]) & ok[None, :]      # [K, W]
     sel = torch.argmax(hit.to(torch.uint8), 1)
@@ -448,59 +421,96 @@ def _wb_loops(graph, kf, pts, msk, node_vals, slot, cum, ok,
     loops = closure.detect_loops_cached_flat(kf, pts[sel], msk[sel],
                                              node_vals[sel], slot_k,
                                              cfg.loop, cfg.match)
-    accept = loops.accept & do[:, None]                           # [K, C]
-    acc_flat = accept.reshape(-1)
-    lslot = graph.n_between + torch.cumsum(acc_flat.to(torch.long), 0) - 1
-    lok = acc_flat & (lslot < cap_f)
-    iflat = slot_k[:, None].expand(accept.shape).reshape(-1)
-    graph = graph._replace(
-        bet_i=_set_rows(graph.bet_i, lslot, lok, loops.j.reshape(-1)),
-        bet_j=_set_rows(graph.bet_j, lslot, lok, iflat),
-        bet_z=_set_rows(graph.bet_z, lslot, lok, loops.z.reshape(-1, 3)),
-        bet_sqrt_info=_set_rows(graph.bet_sqrt_info, lslot, lok,
-                                loops.sqrt_info.reshape(-1, 3, 3)),
-        bet_mask=_set_rows(graph.bet_mask, lslot, lok, True),
-        n_between=graph.n_between + lok.sum())
-
-    def per_scan(flags):                 # [K, C] -> count at each scan [W]
-        n = torch.where(has, flags.sum(1), torch.zeros_like(has,
-                                                            dtype=torch.long))
-        return torch.zeros(w, dtype=torch.int32, device=dev).index_add_(
-            0, sel, n.to(torch.int32))
-
-    return (graph, per_scan(lok.reshape(accept.shape)),
-            per_scan((acc_flat & ~lok).reshape(accept.shape)),
-            per_scan(loops.innov_rej & do[:, None]))
+    return LoopLanes(loops.accept & do[:, None], loops.j, loops.z,
+                     loops.sqrt_info, loops.innov_rej & do[:, None], slot_k,
+                     sel, has)
 
 
-def _wb_smooth(state: SlamState, graph, any_kf, cfg: PipelineConfig):
-    """Window backend stage 2: one smoothing pass per window with a new
-    keyframe. Returns ``(SmootherState, take_code)``."""
+def _append_loops(graph: fct.PoseGraph, lanes: LoopLanes, w: int):
+    """K14's loop entry on stacked sessions (every field with a leading
+    session axis): ``(graph, nl [S, W], ld [S, W], ni [S, W])``, loops
+    appended, dropped at factor capacity and innovation-rejected at each
+    query's scan."""
+    out = appends.loop_append(graph.bet_i, graph.bet_j, graph.bet_z,
+                              graph.bet_sqrt_info, graph.bet_mask,
+                              graph.n_between, *lanes, w)
+    return (graph._replace(bet_i=out[0], bet_j=out[1], bet_z=out[2],
+                           bet_sqrt_info=out[3], bet_mask=out[4],
+                           n_between=out[5]), out[6], out[7], out[8])
+
+
+def _wb_loops(graph, kf, pts, msk, node_vals, slot, cum, ok,
+              cfg: PipelineConfig):
+    """Loop detection (:func:`_loop_lanes`) and the masked append of the
+    accepted loop factors (K14's loop entry). Returns ``(graph, nl [W], ld
+    [W], ni [W])``: loops appended, loops dropped at factor capacity, and
+    innovation-budget rejections, at each query's scan."""
+    lanes = _loop_lanes(kf, pts, msk, node_vals, slot, cum, ok, cfg)
+    return _first(_append_loops(_lead(graph), _lead(lanes), pts.shape[0]))
+
+
+class WindowFlags(NamedTuple):
+    """The window's branch decisions, as host bools."""
+    any_kf: bool            # a keyframe landed: the smoother runs
+    loop_landed: bool       # a loop factor landed: refresh or rebuild
+    rebuild: bool           # the periodic full rebuild is due
+    gates: inc.Gates        # the smoother's settled / fresh / full-solve
+
+
+def _window_flags(state: SlamState, graph, aux,
+                  cfg: PipelineConfig) -> WindowFlags:
+    """Every branch decision of the window (JAX's ``lax.cond`` predicates:
+    ``_wb_smooth``'s, ``_wb_maps``' triggers, ``incremental_update``'s
+    settled and fresh tests and its full-solve cadence), computed on the
+    device and read with ONE transfer."""
+    any_kf = aux["any_kf"]
     sm = inc.SmootherState(graph=graph, lam=state.sm_lam,
                            last_max_delta=state.sm_last_delta,
                            step=state.sm_step)
-    if bool(any_kf):
+    gates = inc.gate_flags(sm, cfg.solver)
+    fre = cfg.full_rebuild_every
+    if cfg.refresh_top_m > 0 and fre > 0:
+        # The smoother's step after this window: +1 where it runs.
+        step = state.sm_step + any_kf.to(state.sm_step.dtype)
+        rebuild = (step % fre == fre - 1) & any_kf
+    else:
+        rebuild = torch.zeros_like(any_kf)
+    vals = torch.cat([torch.stack([any_kf, aux["n_loops_new"] > 0, rebuild]),
+                      gates]).tolist()
+    return WindowFlags(*vals[:3], inc.Gates(*vals[3:]))
+
+
+def _wb_smooth(state: SlamState, graph, any_kf: bool, gates: inc.Gates,
+               cfg: PipelineConfig):
+    """Window backend stage 2: one smoothing pass per window with a new
+    keyframe (``any_kf`` and the smoother's ``gates``, host bools from
+    :func:`_window_flags`). Returns ``(SmootherState, take_code)``."""
+    sm = inc.SmootherState(graph=graph, lam=state.sm_lam,
+                           last_max_delta=state.sm_last_delta,
+                           step=state.sm_step)
+    if any_kf:
         return inc.incremental_update(
             sm, cfg.solver, huber_delta=cfg.solver.huber_delta,
-            fresh_since=state.graph.n_between, return_take=True)
+            fresh_since=state.graph.n_between, return_take=True, gates=gates)
     return sm, torch.zeros((), dtype=torch.int32, device=graph.poses.device)
 
 
-def _wb_extend(state: SlamState, poses, pts, msk, is_kf, kslot, kslot_ok,
+def _wb_extend(state: SlamState, mkp, poses, pts, msk, is_kf,
                cfg: PipelineConfig):
     """Insert this window's keyframe scans at their registration-time poses
-    (K3). Returns ``(stats, mkp)``."""
-    mkp = _set_rows(state.map_kf_poses, kslot, kslot_ok, poses)
+    (K3). ``mkp`` is ``map_kf_poses`` with the window's rows, which K14
+    wrote with the appends. Returns ``(stats, mkp)``."""
     wpts = se2.transform(poses, pts)
     stats = ndt_grid.add_points(state.stats, wpts.reshape(-1, 2),
                                 (msk & is_kf[:, None]).reshape(-1), cfg.grid)
     return stats, mkp
 
 
-def _wb_maps(state: SlamState, kf, poses, pts, msk, is_kf, kslot, kslot_ok,
-             n_loops_new, sm_step, any_kf, cfg: PipelineConfig):
+def _wb_maps(state: SlamState, kf, poses, pts, msk, is_kf, mkp,
+             loop_landed: bool, rebuild_due: bool, cfg: PipelineConfig):
     """Window backend stage 3: map maintenance (extend; then the top-M
-    refresh, or the legacy rebuild when a loop factor landed)."""
+    refresh, or the legacy rebuild when a loop factor landed). The triggers
+    are host bools (:func:`_window_flags`)."""
 
     def rebuild():
         world = se2.transform(kf.poses, kf.points)
@@ -509,34 +519,36 @@ def _wb_maps(state: SlamState, kf, poses, pts, msk, is_kf, kslot, kslot_ok,
                                      cfg.grid), kf.poses)
 
     if cfg.refresh_top_m > 0:
-        stats, mkp = _wb_extend(state, poses, pts, msk, is_kf, kslot,
-                                kslot_ok, cfg)
-        if cfg.refresh_always or bool(n_loops_new > 0):
+        stats, mkp = _wb_extend(state, mkp, poses, pts, msk, is_kf, cfg)
+        if cfg.refresh_always or loop_landed:
             stats, mkp = _refresh_map(stats, kf, mkp, cfg)
-        if cfg.full_rebuild_every > 0 and bool(
-                (sm_step % cfg.full_rebuild_every
-                 == cfg.full_rebuild_every - 1) & any_kf):
+        if rebuild_due:
             stats, mkp = rebuild()
         return stats, mkp
-    if bool(n_loops_new > 0):
+    if loop_landed:
         return rebuild()
-    return _wb_extend(state, poses, pts, msk, is_kf, kslot, kslot_ok, cfg)
+    return _wb_extend(state, mkp, poses, pts, msk, is_kf, cfg)
 
 
 def _window_backend(state: SlamState, last_kf_reg, poses, hessians, pts, msk,
                     is_kf, cfg: PipelineConfig):
     """Appends, smoothing and map maintenance for one registered window.
-    Returns ``(state, last_kf_reg, kf_idx, rel, nl, nd, ni, take)``."""
+    Its branch decisions are read with one transfer (:func:`_window_flags`);
+    the smoother reads at most two more mid-branch (the slow settled check,
+    the local probe) and the periodic full solve one. Returns ``(state,
+    last_kf_reg, kf_idx, rel, nl, nd, ni, take)``."""
     graph, kf, aux = _wb_appends(state, last_kf_reg, poses, hessians, pts,
                                  msk, is_kf, cfg)
-    sm, take = _wb_smooth(state, graph, aux["any_kf"], cfg)
+    flags = _window_flags(state, graph, aux, cfg)
+    sm, take = _wb_smooth(state, graph, flags.any_kf, flags.gates, cfg)
     graph = sm.graph
     kf = kf._replace(poses=graph.poses[: kf.capacity])
-    stats, mkp = _wb_maps(state, kf, poses, pts, msk, is_kf, aux["kslot"],
-                          aux["kslot_ok"], aux["n_loops_new"], sm.step,
-                          aux["any_kf"], cfg)
+    stats, mkp = _wb_maps(state, kf, poses, pts, msk, is_kf,
+                          aux["map_kf_poses"], flags.loop_landed,
+                          flags.rebuild, cfg)
     last_idx, lkr = aux["last_idx"], aux["lkr"]
-    pose_out = se2.compose(graph.poses[last_idx], se2.between(lkr, poses[-1]))
+    pose_out = se2.compose(_row(graph.poses, last_idx),
+                           se2.between(lkr, poses[-1]))
     new_state = SlamState(
         stats=stats, kf=kf, graph=graph, sm_lam=sm.lam,
         sm_last_delta=sm.last_max_delta, sm_step=sm.step, pose=pose_out,
@@ -554,7 +566,11 @@ def slam_window_step(state: SlamState, last_kf_reg, pts, msk, deltas,
     With loop closure on, the step takes ownership of the input state's
     keyframe table cache (``state.kf.tables``): it writes the window's new
     tables into that tensor in place and hands it on in the new state. A
-    caller that needs the input state afterwards clones its cache first."""
+    caller that needs the input state afterwards clones its cache first.
+    Every other array of the input state stays as it was: the appends (K14)
+    write new graph, keyframe and map-pose arrays, and nothing else writes
+    in place, so the new state may share unchanged arrays with the input
+    state but never changes them."""
     poses, res, is_kf = _window_frontend(state, last_kf_reg, pts, msk, deltas,
                                          cfg, cfg.window_passes)
     state, last_kf_reg, kf_idx, rel, nl, nd, ni, take = _window_backend(

@@ -19,6 +19,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
                             [--max-scans 300] [--seed 0] [--out FILE.json]
     python3 profile_port.py --serving-steps serving_overlap1 [--sessions 8]
                             [--max-scans 300] [--out FILE.json]
+    python3 profile_port.py --takes [--out FILE.json]
 
 On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
 300 scans, 360 beams), after two warm-up runs of ``run_slam_windowed``:
@@ -36,8 +37,9 @@ On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
    the probe and selection (K7a), the local assembly and Cholesky (K7b,
    ``cholesky_ex``), the linearizations (K5) and the PCG solves (K6), the
    rest being host glue) and the map maintenance (``_wb_maps``); then one
-   run with ``set_sync_debug_mode("warn")`` inside each ``_wb_smooth``
-   call: its host syncs per call, and where they are;
+   run with ``set_sync_debug_mode("warn")`` inside each ``_window_backend``
+   call: its host syncs per window (and of them the smoother's and the
+   loop verify's), and where they are;
 3. one run of the kernel route under ``torch.profiler`` (and one more
    without it after, ``wall_after_profiler_s``: a profiler session leaves
    the later launches of the process slower): device kernels
@@ -66,6 +68,11 @@ lacks reads null).
 
 ``--scan`` runs only :func:`scan_profile`: the per-scan path
 (``run_slam``) on the same draw, and its input preparation (K11, K13).
+
+``--takes`` runs only :func:`take_codes` (box-world draws 0-2 at configs
+2 and 3 through ``run_slam_windowed``, as ``chip_smoke.py``'s ATE gates
+run them: each window's take code, loops and ATE, to compare two
+checkouts).
 
 ``--hot`` runs only :func:`hot_times` (event and card ms per call of
 ``lm_ndt`` at the window, verify and gated-verify shapes and at bench.py's
@@ -1359,6 +1366,35 @@ def run_once(inputs, cfg):
     return time.perf_counter() - t0, state, traj
 
 
+def take_codes(dev) -> dict:
+    """Box-world draws 0-2 (made on the CPU, as ``chip_smoke.ate_gate``
+    makes them) at configs 2 and 3 through ``run_slam_windowed`` on the
+    card: per draw the smoother's take code of each window
+    (``chip_smoke.window_takes``), the loops and the ATE."""
+    import torch
+
+    from chip_smoke import CONFIG2, CONFIG3, box_sequence, window_takes
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.eval.ate import ate_rmse
+    from ndtpu_torch.slam import pipeline
+
+    out = {}
+    for config in (CONFIG2, CONFIG3):
+        cfg = PipelineConfig.from_json(str(config))
+        for seed in (0, 1, 2):
+            seq = box_sequence(seed, cfg.n_beams)
+            p, m, o = (t.to(dev) for t in (seq.points, seq.mask, seq.odom))
+            state, outs = pipeline.run_slam_windowed(p, m, o, cfg)
+            traj = pipeline.recover_trajectory(state, outs)
+            torch.cuda.synchronize()
+            row = dict(takes=window_takes(outs, cfg.window),
+                       loops=int(state.n_loops),
+                       ate_m=float(ate_rmse(traj.cpu(), seq.gt_poses)))
+            out[f"{config.stem} draw {seed}"] = row
+            print(f"[profile] takes {config.stem} draw {seed}: {row}")
+    return out
+
+
 #: The smoother's parts (``_wb_smooth``), each timed exclusive of the parts
 #: nested in it; what is left of ``_wb_smooth`` is the host glue. Functions
 #: an older checkout lacks are skipped, and its own names (the last four)
@@ -1447,42 +1483,62 @@ def phase_run(inputs, cfg):
 
 def sync_run(inputs, cfg):
     """One run with ``torch.cuda.set_sync_debug_mode("warn")`` inside each
-    ``_wb_smooth`` call: the host syncs per smoother call (the calls with a
-    new keyframe run ``incremental_update``) and where they are."""
+    ``_window_backend`` call: the host syncs per window (every one inside
+    the backend; of them those inside ``incremental_update``, which a
+    window with a new keyframe runs, and inside the loop verify,
+    ``detect_loops_cached_flat``) and where they are. The wrappers take any
+    arguments, so an older checkout is counted the same way."""
     import warnings
 
     import torch
 
+    from ndtpu_torch.graph import incremental as inc
+    from ndtpu_torch.loop import closure
     from ndtpu_torch.slam import pipeline
 
-    smooth = pipeline._wb_smooth
-    calls = []
-
-    def counted(state, graph, any_kf, c):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = smooth(state, graph, any_kf, c)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        syncs = [w for w in caught if "synchroniz" in str(w.message)]
-        calls.append((len(syncs), [f"{Path(w.filename).name}:{w.lineno}"
-                                   for w in syncs]))
-        return out
-
-    pipeline._wb_smooth = counted
-    try:
-        run_once(inputs, cfg)
-    finally:
-        pipeline._wb_smooth = smooth
-    updates = [n for n, _ in calls if n > 1]     # bool(any_kf) + the update
+    names = (("_window_backend", pipeline), ("incremental_update", inc),
+             ("detect_loops_cached_flat", closure))
+    saved = {name: (mod, getattr(mod, name)) for name, mod in names}
+    calls = {name: [] for name, _ in names}
     where = defaultdict(int)
-    for _, lines in calls:
-        for line in lines:
-            where[line] += 1
-    return dict(smooth_calls=len(calls), updates=len(updates),
-                syncs=sum(n for n, _ in calls),
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        syncs = lambda: [w for w in caught if "synchroniz" in str(w.message)]
+
+        def counted(name, fn):
+            def inner(*a, **k):
+                n0 = len(syncs())
+                top = name == "_window_backend"
+                if top:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*a, **k)
+                finally:
+                    if top:
+                        torch.cuda.set_sync_debug_mode(0)
+                    calls[name].append(len(syncs()) - n0)
+            return inner
+
+        for name, (mod, fn) in saved.items():
+            setattr(mod, name, counted(name, fn))
+        try:
+            run_once(inputs, cfg)
+        finally:
+            for name, (mod, fn) in saved.items():
+                setattr(mod, name, fn)
+        for w in syncs():
+            where[f"{Path(w.filename).name}:{w.lineno}"] += 1
+    win, updates = calls["_window_backend"], calls["incremental_update"]
+    verify = calls["detect_loops_cached_flat"]
+    n_win = max(len(win), 1)
+    # One verify a window with loop closure on, none without.
+    outside = [a - b for a, b in zip(
+        win, verify if len(verify) == len(win) else [0] * len(win))]
+    return dict(windows=len(win), syncs_per_window=sum(win) / n_win,
+                max_per_window=max(win, default=0),
+                verify_syncs_per_window=sum(verify) / n_win,
+                outside_verify_max=max(outside, default=0),
+                updates=len(updates), syncs=sum(updates),
                 syncs_per_update=(sum(updates) / len(updates)
                                   if updates else None),
                 sync_sites=dict(sorted(where.items(), key=lambda kv: -kv[1])))
@@ -1583,18 +1639,18 @@ def profiled_run(inputs, cfg, n_scans: int):
         kernels.finalize_pack
     frontend = pipeline._window_frontend
 
-    def k3_logged(n, s, ss, points, *a):
+    def k3_logged(n, s, ss, points, *a, **k):
         k3_calls.append(points.shape[0])
-        return k3(n, s, ss, points, *a)
+        return k3(n, s, ss, points, *a, **k)
 
-    def k8a_logged(tables, slot, *a):
+    def k8a_logged(tables, slot, *a, **k):
         k8a_calls.append(slot.shape[0])
-        return k8a(tables, slot, *a)
+        return k8a(tables, slot, *a, **k)
 
-    def k4_logged(*a):
+    def k4_logged(*a, **k):
         k4_roles.append("pass2" if k4_roles and k4_roles[-1] != "window"
                         else "map")
-        return k4(*a)
+        return k4(*a, **k)
 
     def frontend_logged(*a, **k):
         k4_roles.append("window")       # dropped below
@@ -1605,11 +1661,12 @@ def profiled_run(inputs, cfg, n_scans: int):
                 ("factor_linearize", "fresh_residual_max", "pcg_solve",
                  "local_select", "local_assemble") if hasattr(kernels, name)}
 
-    def lin_logged(*a, fid=None, chi_only=False):
+    def lin_logged(*a, fid=None, chi_only=False, **k):
         sm_roles["factor_linearize"].append(
             ("gathered" if fid is not None else "full")
             + ("_chi2" if chi_only else ""))
-        return sm_saved["factor_linearize"](*a, fid=fid, chi_only=chi_only)
+        return sm_saved["factor_linearize"](*a, fid=fid, chi_only=chi_only,
+                                            **k)
 
     def window_logged(*a, **k):
         sm_roles["factor_linearize"].append("window")
@@ -1671,11 +1728,13 @@ def profiled_run(inputs, cfg, n_scans: int):
 
 
 #: The stacked window's stages (``dist/slam_dp.py``), each synchronized at
-#: its edges; ``_wb_loops`` and ``write_local_tables`` run inside the
-#: appends, ``fresh_residual_max`` is the smoother's need test.
+#: its edges; the loop verify (``_loop_lanes``, or ``_wb_loops`` before
+#: K14) and ``write_local_tables`` run inside the appends,
+#: ``fresh_residual_max`` is the smoother's need test.
 SERVING_STAGES = (("ndtpu_torch.dist.slam_dp", "_frontend_stacked"),
                   ("ndtpu_torch.dist.slam_dp", "_appends_stacked"),
                   ("ndtpu_torch.slam.pipeline", "_wb_loops"),
+                  ("ndtpu_torch.slam.pipeline", "_loop_lanes"),
                   ("ndtpu_torch.loop.closure", "write_local_tables"),
                   ("ndtpu_torch.graph.incremental", "fresh_residual_max"),
                   ("ndtpu_torch.dist.slam_dp", "_smooth_stacked"),
@@ -1753,7 +1812,9 @@ def serving_profile(dev, sessions: int, n_scans: int, runs: int) -> dict:
     spent = defaultdict(float)
     saved = [(importlib.import_module(m), name) for m, name in
              SERVING_STAGES]
-    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    # A stage an older (or newer) checkout lacks is skipped.
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved
+             if hasattr(mod, name)]
 
     def timed(name, fn):
         def wrapper(*a, **k):
@@ -1875,6 +1936,10 @@ def main(argv=None) -> int:
                         "shapes and bench.py's headline shape, with output "
                         "hashes and config 1-2 trajectories (hot_times), "
                         "and nothing else")
+    parser.add_argument("--takes", action="store_true",
+                        help="the take codes, loops and ATE of box-world "
+                        "draws 0-2 at configs 2 and 3 (take_codes), and "
+                        "nothing else")
     parser.add_argument("--sessions", type=int, default=8)
     parser.add_argument("--max-scans", type=int, default=300)
     args = parser.parse_args(argv)
@@ -1919,6 +1984,10 @@ def main(argv=None) -> int:
         kernels.build()
         result = dict(card=smi, finalize_sweep=finalize_sweep(args.seed,
                                                               dev))
+        return _emit(result, smi, args.out)
+    if args.takes:
+        kernels.build()
+        result = dict(card=smi, takes=take_codes(dev))
         return _emit(result, smi, args.out)
     if args.hot:
         kernels.build()
@@ -1995,10 +2064,13 @@ def main(argv=None) -> int:
         f"{k} {v:.4f} s ({v / wall_p:.1%} of the run)"
         for k, v in parts.items()))
     syncs = sync_run(inputs, cfg)
-    print(f"[profile] host syncs in _wb_smooth: {syncs['syncs']} over "
-          f"{syncs['smooth_calls']} calls; {syncs['updates']} calls with an "
-          f"update, {syncs['syncs_per_update']} syncs each (bool(any_kf) "
-          f"included); sites {syncs['sync_sites']}")
+    print(f"[profile] host syncs in _window_backend: "
+          f"{syncs['syncs_per_window']:.2f} per window (at most "
+          f"{syncs['max_per_window']}) over {syncs['windows']} windows, "
+          f"{syncs['verify_syncs_per_window']:.2f} of them in the loop "
+          f"verify; in incremental_update {syncs['syncs']} over "
+          f"{syncs['updates']} calls ({syncs['syncs_per_update']} each); "
+          f"sites {syncs['sync_sites']}")
     prof = profiled_run(inputs, cfg, n)
     wall_after, _, _ = run_once(inputs, cfg)
     print(f"[profile] one more run after the profiler: {wall_after:.4f} s "

@@ -2150,3 +2150,105 @@ def test_input_kernels_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         kernels.voxel_downsample(torch.zeros(2, 4, 2),
                                  torch.ones(2, 4, dtype=torch.bool), 0.1)
+
+
+#: K14's cases (``chip_smoke.K14_CASES``' labels).
+K14_LABELS = ("config2", "config3", "serving", "overflow")
+
+
+@pytest.mark.parametrize("label", K14_LABELS)
+def test_window_append_matches_plain(dev, label):
+    """K14 against ``window_append_ref`` on the same f32 card inputs at
+    configs 2 and 3, serving and full capacities: indices, masks, counters
+    and copied rows bit-equal, the computed values within
+    ``chip_smoke.K14_RTOL``; one launch a call; its loop entry likewise
+    where the case has loop lanes (bit-equal)."""
+    import chip_smoke as cs
+    from ndtpu_torch.slam import appends
+
+    i = K14_LABELS.index(label)
+    _, s, cap, lanes, full = cs.K14_CASES[i]
+    args = cs.k14_inputs(i, dev, s, cap, full)
+    kernels.reset_launches()
+    out = appends.window_append(*args)
+    assert kernels.LAUNCHES["window_append"] == 1
+    ref = appends.window_append_ref(*args)
+    cs.k14_compare(label, out, ref, cs.K14_OUTS, cs.K14_COMPUTED)
+    if full:
+        assert int(out[25].sum()) > 0
+    if lanes:
+        largs = cs.k14_loop_inputs(i, out, lanes)
+        lout = appends.loop_append(*largs, 8)
+        assert kernels.LAUNCHES["window_append[loops]"] == 1
+        cs.k14_compare(label, lout, appends.loop_append_ref(*largs, 8),
+                       cs.K14_LOOP_OUTS)
+        if full:
+            assert int(lout[7].sum()) > 0
+
+
+def test_window_append_single_scan_and_no_keyframe(dev):
+    """K14 at W = 1 and W = 32 (its longest window), with no keyframe and
+    with every scan one: bit-equal to the plain version on the integers and
+    masks, the values within the tolerance."""
+    import chip_smoke as cs
+    from ndtpu_torch.slam import appends
+
+    for w in (1, 32):
+        for flag in (False, True):
+            args = list(cs.k14_inputs(w, dev, 2, 64, False, n_beams=40,
+                                      w=w))
+            args[-1] = torch.full_like(args[-1], flag)
+            out = appends.window_append(*args)
+            ref = appends.window_append_ref(*args)
+            cs.k14_compare(f"W={w}", out, ref, cs.K14_OUTS,
+                           cs.K14_COMPUTED)
+            assert int(out[16].sum()) == (2 * w if flag else 0)
+
+
+def test_window_append_refuses_past_its_window(dev):
+    import chip_smoke as cs
+
+    args = cs.k14_inputs(0, dev, 1, 64, False, n_beams=8, w=33)
+    with pytest.raises(ValueError, match="window of 33"):
+        kernels.window_append(*args)
+
+
+def test_rows_set_last_write_wins_and_drops_outside(dev):
+    """K14's row entry: a repeated row takes the last kept write, an index
+    outside the rows and a masked one write nothing."""
+    rng = np.random.default_rng(0)
+    dst = torch.as_tensor(rng.normal(0, 1, (2, 10, 3)), dtype=torch.float32,
+                          device=dev)
+    idx = torch.tensor([[3, 3, 11, -1, 5], [0, 9, 9, 2, 2]], device=dev)
+    ok = torch.tensor([[True, True, True, True, False],
+                       [True, True, False, False, True]], device=dev)
+    src = torch.as_tensor(rng.normal(0, 1, (2, 5, 3)), dtype=torch.float32,
+                          device=dev)
+    out = kernels.rows_set(dst, idx, ok, src).cpu()
+    ref = dst.cpu().clone()
+    for s in range(2):
+        for m in range(5):
+            if ok[s, m] and 0 <= int(idx[s, m]) < 10:
+                ref[s, int(idx[s, m])] = src[s, m].cpu()
+    assert torch.equal(out, ref)
+
+
+def test_windowed_run_launches_k14_once_a_window(dev):
+    """``run_slam_windowed`` at config 3's shapes on a short box-world draw:
+    one K14 append and one loop-entry launch a window, no plain version on
+    CUDA tensors, and at most ``chip_smoke.WINDOW_SYNC_BUDGET`` host syncs
+    a window outside the loop verify."""
+    import chip_smoke as cs
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.slam import pipeline
+
+    cfg = PipelineConfig.from_json(str(cs.CONFIG3))
+    seq = cs.box_sequence(0, cfg.n_beams, device=dev, n_scans=121)
+    kernels.reset_launches()
+    with cs.no_plain_on_card(cs.PLAIN_SERVING):
+        _, outs = pipeline.run_slam_windowed(seq.points, seq.mask, seq.odom,
+                                             cfg)
+    assert kernels.LAUNCHES["window_append"] == 15
+    assert kernels.LAUNCHES["window_append[loops]"] == 15
+    row = cs.check_window_syncs(dev, cs.CONFIG3)
+    assert row["outside_max"] <= cs.WINDOW_SYNC_BUDGET
