@@ -553,6 +553,14 @@ KERNELS = [
          paths=("config3", "serving", "multilap")),
     dict(name="window_append[rows]", source=_CSRC + "window_append.cu",
          replaces="ndtpu/slam/pipeline.py:161", paths=("serving",)),
+    # K15: the loop verify's set-up, one launch a detection (config 3's
+    # windows, serving's stacked windows for all sessions, the per-scan
+    # path's keyframes, the multilap); the merge's loop search (the
+    # candidates given).
+    dict(name="loop_lanes", source=_CSRC + "loop_lanes.cu",
+         replaces="ndtpu/loop/closure.py:101",
+         paths=("config3", "serving", "scan_config3", "multilap", "config5",
+                "config3_overlap1", "serving_overlap1")),
     # K3 at overlap 1, in the layout runs whose map has one grid.
     dict(name="halfcell_add[g1]", source=_CSRC + "halfcell_add.cu",
          replaces="ndtpu/ndt/grid.py:120",
@@ -1389,13 +1397,14 @@ def check_k1_grouped(cfg3, seq, kf, seed, dev, b, jobs=None):
 
 def loop_queries(cfg3, seq, kf, seed, dev, c: int):
     """``profile_port.loop_queries`` (4 queries at the end of the box-world
-    lap x ``c`` candidates) and its lanes as ``closure._verify_lanes`` gives
-    them: ``(loop, query, query indices, candidates, lanes)``."""
-    from ndtpu_torch.loop import closure
+    lap x ``c`` candidates) and its lanes as ``profile_port.gated_lanes``
+    gives them (K15 on the candidates): ``(loop, query, query indices,
+    candidates, lanes)``."""
+    from profile_port import gated_lanes
     from profile_port import loop_queries as queries
 
     loop, query, qidx, cands = queries(cfg3, seq, kf, seed, dev, c)
-    lanes = closure._verify_lanes(kf, *query, cands, loop, cfg3.match)
+    lanes = gated_lanes(kf, *query, cands, loop, cfg3.match)
     return loop, query, qidx, cands, lanes
 
 
@@ -1669,7 +1678,7 @@ def fingerprint(obj):
 
 
 #: The window step's stages, in the order they finish within a window.
-STAGES = ("_window_frontend", "_wb_loops", "_wb_appends", "_wb_smooth",
+STAGES = ("_window_frontend", "_loop_lanes", "_wb_appends", "_wb_smooth",
           "_wb_maps")
 
 
@@ -3085,6 +3094,7 @@ PLAIN_SERVING = PLAIN_SMOOTHER + (
     ("ndtpu_torch.ndt.grid", "finalize_pack_stacked_ref"),
     ("ndtpu_torch.ndt.match", "lm_ndt_ref"),
     ("ndtpu_torch.loop.closure", "write_local_tables_ref"),
+    ("ndtpu_torch.loop.closure", "loop_lanes_ref"),
     ("ndtpu_torch.data.synth", "raycast_ref"),
     ("ndtpu_torch.slam.appends", "window_append_ref"),
     ("ndtpu_torch.slam.appends", "loop_append_ref"),
@@ -4239,7 +4249,8 @@ def render_final_map(label, state, cfg) -> dict:
 
 def run_entry_point(dev, config, n_scans: int, label=None, render=False):
     """The CLI main path on ``config``, with fresh launch counters and
-    counts of the loop-detection calls (``verify_candidates_cached_flat``),
+    counts of the loop-detection calls (``detect_loops_stacked``, one K15
+    launch each),
     the smoother's takes (0 skip, 1 global, 2 local), its full solves and
     its PCG calls (``graph.solve.pcg_solve``, one ``pcg_solve`` launch
     each), split into the settled checks (0 iterations) and the solves; the
@@ -4257,7 +4268,7 @@ def run_entry_point(dev, config, n_scans: int, label=None, render=False):
     from ndtpu_torch.slam import pipeline
 
     windows = -(-n_scans // PipelineConfig.from_json(str(config)).window)
-    saved = [(closure, "verify_candidates_cached_flat"),
+    saved = [(closure, "detect_loops_stacked"),
              (inc, "incremental_update"), (slv, "optimize"),
              (slv, "pcg_solve"), (pipeline, "_window_backend")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
@@ -4282,7 +4293,7 @@ def run_entry_point(dev, config, n_scans: int, label=None, render=False):
         takes.append(out[1])
         return out
 
-    closure.verify_candidates_cached_flat = counted(saved[0][2], "detections")
+    closure.detect_loops_stacked = counted(saved[0][2], "detections")
     inc.incremental_update = recorded
     slv.optimize = counted(saved[2][2], "full_solves")
     slv.pcg_solve = pcg_counted
@@ -4317,6 +4328,12 @@ def run_entry_point(dev, config, n_scans: int, label=None, render=False):
             f"{launches['window_append[loops]']} loop launches for "
             f"{counts['windows']} windows (one append each, and one loop "
             f"append each with loop closure, expected)")
+    require(launches["loop_lanes"] == counts["detections"]
+            == (counts["windows"] if loops else 0),
+            f"entry point {label}: {launches['loop_lanes']} K15 launches for "
+            f"{counts['detections']} loop-detection calls in "
+            f"{counts['windows']} windows (one each with loop closure "
+            f"expected)")
     pcg_calls = counts["pcg_solves"] + counts["pcg_settled_checks"]
     require(launches["pcg_solve"] == pcg_calls,
             f"entry point {label}: {launches['pcg_solve']} pcg_solve "
@@ -4806,7 +4823,8 @@ def run_serving(dev, card, config=SERVING, label="serving",
     tensors. Each invocation is one first run and 3 timed runs. Requires,
     per stacked window, in the config's table layout (``kernels.variant``'s
     counters): one ``lm_ndt_grouped`` launch per front-end pass for all 8
-    sessions (the gated verifies, one per session per window, apart), one
+    sessions, one K8a, one K15 and one gated verify per window for all 8
+    sessions (K8a also once a session in ``init_slam``), one
     K3s launch per use (pass-2 maps, extend, and refresh where one fires)
     and two K4s, never a per-map K3 or K4 (K3 runs only in each session's
     ``init_slam``); at most ``inc_iters`` K6b launches (exactly that per
@@ -4868,8 +4886,14 @@ def run_serving(dev, card, config=SERVING, label="serving",
     require(runs == 4 and w == runs * -(-(n_scans - 1) // cfg.window),
             f"{label}: {runs} runs of {w} windows in all")
     verify = launches[gated]
-    require(verify > 0 and launches[grouped_verify] >= verify,
-            f"{label}: {verify} gated verifies ({gated})")
+    k8a = kernels.variant("local_tables", *local)
+    require(verify == w and launches[grouped_verify] >= verify
+            and launches["loop_lanes"] == w
+            and launches[k8a] == w + n_s * runs,
+            f"{label}: {verify} gated verifies ({gated}), "
+            f"{launches['loop_lanes']} K15 and {launches[k8a]} {k8a} "
+            f"launches for {w} windows (one each a window for all {n_s} "
+            f"sessions, and K8a once a session in each run's init_slam)")
     front_n = launches[front] - (verify if front == grouped_verify else 0)
     require(front_n == passes * w
             and launches[kernels.variant("lm_ndt", *gl)] == 0,
@@ -5826,6 +5850,152 @@ def check_k14(seed: int, dev, jobs=None) -> dict:
     return out
 
 
+#: K15's cases: (label, sessions S, queries K a session, candidates C,
+#: store slots, beams, beam stride, radius m, index gap, duplicate poses,
+#: every slot live). Config 3's window (its loop config, 1,024 slots) is the
+#: row; serving's stacked window (``serving_config``: stride 2, 512
+#: slots); equal distances; a full store.
+K15_CASES = (("config3", 1, 4, 16, 1024, 360, 1, 5.0, 25, False, False),
+             ("serving", 8, 4, 4, 512, 360, 2, 3.0, 10, False, False),
+             ("ties", 2, 4, 16, 1024, 360, 1, 5.0, 25, True, False),
+             ("full", 1, 4, 16, 1024, 360, 1, 5.0, 25, False, True))
+#: K15's outputs, in ``kernels.loop_lanes``' order.
+K15_OUTS = ("idx", "mask", "dist", "init", "group", "query_idx", "px", "py",
+            "mask_f")
+
+
+def k15_inputs(seed: int, dev, sessions: int, k: int, c: int, cap: int,
+               n_beams: int, stride: int, radius: float, gap: int,
+               ties: bool, full: bool, w: int = 8) -> tuple:
+    """Seeded stores and windows for K15 (f32 on ``dev``): each session a
+    quarter to three quarters full (every slot with ``full``), keyframes
+    spread so that ~2 C of them lie within ``radius`` of a query, a quarter
+    of them on another's position with ``ties``; ``k`` queries a session at
+    seeded rows of a ``w``-scan window, each near a live keyframe, indexed
+    past the store's fill. The arguments of ``kernels.loop_lanes``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    s = sessions
+    fill = (np.full(s, cap) if full
+            else rng.integers(cap // 4, 3 * cap // 4, s))
+    poses = np.zeros((s, cap, 3))
+    for i in range(s):
+        side = math.sqrt(math.pi * radius ** 2 * fill[i] / (2.0 * c))
+        poses[i, :, :2] = rng.uniform(0.0, side, (cap, 2))
+        if ties:
+            dup = rng.permutation(fill[i])[:fill[i] // 4]
+            poses[i, dup, :2] = poses[i, rng.integers(0, fill[i],
+                                                      dup.size), :2]
+    poses[..., 2] = rng.uniform(-math.pi, math.pi, (s, cap))
+    live = np.arange(cap) < fill[:, None]
+    sel = np.stack([rng.permutation(w)[:k] for _ in range(s)])
+    wposes = rng.normal(0.0, 5.0, (s, w, 3))
+    for i in range(s):
+        near = poses[i, rng.integers(0, fill[i], k)]
+        wposes[i, sel[i]] = near + rng.normal(0.0, [0.5, 0.5, 0.1], (k, 3))
+    qidx = fill[:, None] + np.arange(k)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return (f32(poses), torch.as_tensor(live, device=dev),
+            f32(rng.normal(0.0, 8.0, (s, w, n_beams, 2))),
+            torch.as_tensor(rng.random((s, w, n_beams)) < 0.9, device=dev),
+            f32(wposes), torch.as_tensor(sel, device=dev),
+            torch.as_tensor(qidx, dtype=torch.int64, device=dev),
+            radius, gap, c, stride)
+
+
+def k15_bound(args) -> dict:
+    """Bytes: each store (12 B a pose, 1 B a live flag), the queries' rows
+    and indices, poses and strided scans (9 B a beam) read once; the
+    candidates (13 B each), the lanes' initial poses and groups (16 B) and
+    scans (12 B a beam), the queries' offset indices written once.
+    Operations: 6 a (query, slot) distance test."""
+    poses, live, points, _, _, sel, _, _, _, c, stride = args
+    s, cap = live.shape
+    k, n = sel.shape[1], points.shape[2]
+    q, n_out = s * k, -(-n // stride)
+    n_bytes = (s * cap * 13 + q * (16 + 12 + 9 * n_out)
+               + q * c * (13 + 16 + 12 * n_out) + q * 8)
+    return bound(n_bytes, 6.0 * q * cap)
+
+
+def check_k15(dev, seed: int, jobs=None) -> dict:
+    """K15 ``loop_lanes`` against ``closure.loop_lanes_ref`` on the card at
+    :data:`K15_CASES`: all nine outputs bit-equal, and on a second launch;
+    with the candidates given (the merge's and the fresh-map verify's
+    route) the lanes bit-equal to the search's. Each case timed beside its
+    plain version (events), with its card time, its bound and the library
+    call ``torch.topk(d_masked, C, largest=False)`` on the twin's masked
+    distances (events and card; its order among equal distances is not
+    guaranteed, so it is no oracle). Returns config 3's row, the other
+    cases under ``cases``."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.loop import closure
+
+    rows = {}
+    for i, case in enumerate(K15_CASES):
+        label, s, k, c, cap, n, stride, radius, gap, ties, full = case
+        args = k15_inputs(seed + i, dev, s, k, c, cap, n, stride, radius,
+                          gap, ties, full)
+        run = lambda a=args: kernels.loop_lanes(*a)
+        twin = lambda a=args: closure.loop_lanes_ref(*a)
+        out, again, ref = run(), run(), twin()
+        given = kernels.loop_lanes(*args, cand_idx=out[0], cand_mask=out[1])
+        torch.cuda.synchronize()
+        require(bits_equal(out, again), f"K15 {label}: two launches differ")
+        for name, a, b in zip(K15_OUTS, out, ref):
+            require(bits_equal(a, b), f"K15 {label}: {name} not bit-equal "
+                    f"to the plain version")
+        require(given[2] is None and bits_equal(given[3:], out[3:]),
+                f"K15 {label}: the lanes of given candidates differ from "
+                f"the search's")
+        mask, dist = out[1], out[2]
+        masked = int((~mask).sum())
+        tied = int(((dist[..., 1:] == dist[..., :-1]) & mask[..., 1:]).sum())
+        require(int(mask.sum()) > 0, f"K15 {label}: no candidate found")
+        require(not ties or tied > 0, f"K15 {label}: no equal distances")
+        # The twin's masked distances: topk's input.
+        poses, live, _, _, wposes, sel = args[:6]
+        qp = torch.gather(wposes, 1, sel[..., None].expand(-1, -1, 3))
+        dx = poses[:, None, :, 0] - qp[..., 0, None]
+        dy = poses[:, None, :, 1] - qp[..., 1, None]
+        d = torch.sqrt(dx * dx + dy * dy)
+        slots = torch.arange(cap, device=dev)
+        ok = (live[:, None] & (d <= radius)
+              & (args[6][..., None] - slots >= gap))
+        dm = torch.where(ok, d, torch.full_like(d, float("inf"))).reshape(
+            s * k, cap)
+        lib = lambda dm=dm, c=c: torch.topk(dm, c, dim=-1, largest=False)
+        row = dict(max_abs_err=0.0, bit_equal=True, sessions=s, queries=k,
+                   candidates=c, capacity=cap, stride=stride, masked=masked,
+                   tied=tied, ms=time_ms(run), plain_ms=time_ms(twin),
+                   **k15_bound(args))
+        row.update(library_ms=time_ms(lib), library=(
+            "torch.topk(d_masked, C, largest=False) on the plain version's "
+            "masked distances: the search alone, its order among equal "
+            "distances not guaranteed"))
+        card_time(jobs, f"K15 loop_lanes {label}", row, "card_ms", run,
+                  ["loop_lanes_kernel"], per_call=1)
+        card_time(jobs, f"K15 library call {label}", row, "library_card_ms",
+                  lib)
+        rows[label] = row
+        print(f"[smoke] K15 loop_lanes {label} (S={s} x K={k} queries, C={c}"
+              f", {cap} slots, stride {stride}): all outputs bit-equal to "
+              f"the plain version and on a second launch, given candidates "
+              f"the same lanes; {masked} masked lanes, {tied} tied; kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+              f"(topk) {row['library_ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    out = rows.pop("config3")
+    out["cases"] = rows
+    return out
+
+
 #: The most host syncs a window's backend may make outside the loop
 #: verify's own routing (the branch decisions once, then where they run the
 #: slow settled check, the local probe and the full solve's early exit).
@@ -5837,7 +6007,7 @@ def check_window_syncs(dev, config, seed: int = 0) -> dict:
     ``config`` (``set_sync_debug_mode("warn")`` inside each
     ``_window_backend`` call): all of a window's, which a parent checkout
     counts the same way (``profile_port.py``'s sync run), and of them those
-    inside the loop verify (``detect_loops_cached_flat``). Fails where a
+    inside the loop verify (``detect_loops_stacked``). Fails where a
     window makes more than :data:`WINDOW_SYNC_BUDGET` outside the verify.
     Returns the counts."""
     import warnings
@@ -5850,7 +6020,7 @@ def check_window_syncs(dev, config, seed: int = 0) -> dict:
 
     cfg = PipelineConfig.from_json(str(config))
     seq = box_sequence(seed, cfg.n_beams, device=dev)
-    backend, verify = pipeline._window_backend, closure.detect_loops_cached_flat
+    backend, verify = pipeline._window_backend, closure.detect_loops_stacked
     per_window, in_verify = [], []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -5873,13 +6043,13 @@ def check_window_syncs(dev, config, seed: int = 0) -> dict:
                 per_window.append(syncs() - n0)
 
         pipeline._window_backend = counted
-        closure.detect_loops_cached_flat = counted_verify
+        closure.detect_loops_stacked = counted_verify
         try:
             pipeline.run_slam_windowed(seq.points, seq.mask, seq.odom, cfg)
             torch.cuda.synchronize()
         finally:
             pipeline._window_backend = backend
-            closure.detect_loops_cached_flat = verify
+            closure.detect_loops_stacked = verify
     outside = [n - v for n, v in zip(per_window, in_verify)]
     n_win = len(per_window)
     row = dict(windows=n_win, all_per_window=sum(per_window) / n_win,
@@ -5946,8 +6116,8 @@ def run_scan_cli(dev, config, n_scans: int):
     plain version reachable on CUDA tensors. Requires one K11 launch (the
     input), one ``lm_ndt`` and one K4 per scan, one ``lm_ndt*`` per
     ``match_batch_packed`` call, K3 and K5; with loop closure, one K8a and
-    one gated verify per keyframe (``detect_loops_cached``) and no
-    standalone K8b. Returns ``(launches, summary)``."""
+    one K15 and one gated verify per keyframe (``detect_loops_cached``)
+    and no standalone K8b. Returns ``(launches, summary)``."""
     import numpy as np
 
     from ndtpu_torch import kernels, run
@@ -5956,14 +6126,14 @@ def run_scan_cli(dev, config, n_scans: int):
     from ndtpu_torch.ndt import match
 
     cfg = PipelineConfig.from_json(str(config))
-    real = closure.verify_candidates_cached
+    real = closure.detect_loops_cached
     detections = []
 
     def counted(*a, **k):
         detections.append(1)
         return real(*a, **k)
 
-    closure.verify_candidates_cached = counted
+    closure.detect_loops_cached = counted
     try:
         with no_plain_on_card(PLAIN_SCAN):
             kernels.reset_launches()
@@ -5974,7 +6144,7 @@ def run_scan_cli(dev, config, n_scans: int):
             launches = dict(kernels.LAUNCHES)
             calls = match.CALLS["match_batch_packed"]
     finally:
-        closure.verify_candidates_cached = real
+        closure.detect_loops_cached = real
     label = f"per-scan CLI {config.name}"
     traj, kf = res["traj"], res["n_keyframes"]
     require(traj.shape == (n_scans, 3) and bool(np.isfinite(traj).all()),
@@ -5992,9 +6162,11 @@ def run_scan_cli(dev, config, n_scans: int):
             f"{label}: K3 or K5 never launched")
     if cfg.use_loop_closure:
         require(launches["loop_gate_fused"] == len(detections) == kf - 1
+                and launches["loop_lanes"] == len(detections)
                 and launches["local_tables"] == kf
                 and launches["loop_gate"] == 0,
-                f"{label}: {launches['loop_gate_fused']} gated verifies and "
+                f"{label}: {launches['loop_gate_fused']} gated verifies, "
+                f"{launches['loop_lanes']} K15 and "
                 f"{launches['local_tables']} K8a launches for {kf} keyframes "
                 f"({len(detections)} detections)")
     summary = dict(scans_per_s=res["scans_per_s"], seconds=res["seconds"],
@@ -6129,15 +6301,18 @@ def check_fresh_detect(state, seq, cfg3, dev, layout=(4, 8)):
     per-scan run (its last scan at its pose, against the run's keyframes)
     on the card, its local maps in the table ``layout`` (``(G, L)``: the
     config with ``loop.local_overlap = G`` and ``match.compact_table`` at
-    L = 4): one K3s, one K4s and one gated ``lm_ndt`` launch of the layout,
-    against its plain route on the CPU copies (f32): the same candidates,
-    the same accept flags but on lanes within 1e-3 of the score gate,
-    accepted measurements within 1e-3. Returns the row."""
+    L = 4): one K3s, one K4s and one gated ``lm_ndt`` launch of the layout
+    and two K15 (the search, the lanes), against its plain route on the CPU
+    copies (f32): the same candidates, the same accept flags and innovation
+    rejections but on lanes within 1e-3 of the score gate or of the
+    innovation budget, accepted measurements within 1e-3. Returns the
+    row."""
     import dataclasses
 
     import torch
 
     from ndtpu_torch import kernels
+    from ndtpu_torch.lie import se2
     from ndtpu_torch.loop import closure
 
     g, lanes = layout
@@ -6159,16 +6334,29 @@ def check_fresh_detect(state, seq, cfg3, dev, layout=(4, 8)):
     require(launches[kernels.variant("halfcell_add_stacked", g)] == 1
             and launches[kernels.variant("finalize_pack_stacked", g,
                                          lanes)] == 1
-            and launches[kernels.variant("loop_gate_fused", g, lanes)] == 1,
+            and launches[kernels.variant("loop_gate_fused", g, lanes)] == 1
+            and launches["loop_lanes"] == 2,
             f"{tag}: launches {launches_nonzero(launches)} (one K3s, one "
-            f"K4s, one gated lm_ndt of the layout expected)")
+            f"K4s, one gated lm_ndt of the layout, two K15 (the search, "
+            f"the lanes) expected)")
     require(torch.equal(out.j.cpu(), ref.j), f"{tag}: candidates differ "
             f"from the plain route's")
-    near = (ref.score - cfg3.loop.score_gate).abs() < 1e-3
-    flags = (out.accept.cpu() != ref.accept) & ~near
+    # The gates: score, and the innovation budget over the candidates'
+    # index gaps (the lanes' rows are the fresh tables', not the
+    # candidates'); lanes within 1e-3 of either may fall either way in f32.
+    loop = cfg3.loop
+    init = se2.between(kf_cpu.poses[ref.j], q[3].cpu()[None])
+    innov = torch.linalg.norm(ref.z[:, :2] - init[:, :2], dim=-1)
+    budget = (loop.max_innovation_base + loop.max_innovation_per_kf
+              * (kf_cpu.n - ref.j).abs().to(innov.dtype))
+    near = (((ref.score - loop.score_gate).abs() < 1e-3)
+            | ((innov - budget).abs() < 1e-3))
+    flags = (((out.accept.cpu() != ref.accept)
+              | (out.innov_rej.cpu() != ref.innov_rej)) & ~near)
     require(not bool(flags.any()) and bool(ref.accept.any()),
-            f"{tag}: accept flags {out.accept.tolist()} vs the plain "
-            f"route's {ref.accept.tolist()}")
+            f"{tag}: accept flags {out.accept.tolist()} and innovation "
+            f"rejections {out.innov_rej.tolist()} vs the plain route's "
+            f"{ref.accept.tolist()}, {ref.innov_rej.tolist()}")
     both = out.accept.cpu() & ref.accept
     err = float((out.z.cpu() - ref.z)[both].abs().amax()) if both.any() \
         else 0.0
@@ -6809,9 +6997,11 @@ def run_merge(dev, card, npz_path, jobs, keep=None, changes=None):
             f"{tag}: {launches[k12]} {k12} and {launches[lm]} {lm} "
             f"launches in the alignment (two each expected: one per pass)")
     require(verifies == 1 and launches[gated] == 1
-            and launches[grouped] == 1 and launches["loop_gate"] == 0,
-            f"{tag}: {launches[gated]} gated verifies ({gated}) for "
-            f"{verifies} loop searches (one expected)")
+            and launches[grouped] == 1 and launches["loop_gate"] == 0
+            and launches["loop_lanes"] == 1,
+            f"{tag}: {launches[gated]} gated verifies ({gated}) and "
+            f"{launches['loop_lanes']} K15 launches for {verifies} loop "
+            f"searches (one each expected)")
     require(launches[k3] == 1,
             f"{tag}: {launches[k3]} {k3} launches in merged_map_stats (one "
             f"expected)")
@@ -8105,6 +8295,9 @@ def main(argv=None) -> int:
     # K14: the window's appends at configs 2 and 3 and serving's shapes
     # (and past the capacities), its loop entry and its row write.
     results.update(check_k14(args.seed, dev, jobs))
+    # K15: the loop verify's set-up at config 3's and serving's shapes,
+    # with equal distances and with a full store.
+    results["loop_lanes"] = check_k15(dev, args.seed, jobs)
     # The map build is the same on every run; what the whole pipeline does
     # run to run on the draws whose ATE flipped under float atomics.
     check_frontend_twice(cfg3, box_sequence(2, cfg3.n_beams), dev)

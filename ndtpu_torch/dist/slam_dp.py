@@ -45,7 +45,6 @@ from ndtpu_torch.graph import factors as fct
 from ndtpu_torch.graph import incremental as inc
 from ndtpu_torch.graph import solve as slv
 from ndtpu_torch.lie import se2
-from ndtpu_torch.loop import closure
 from ndtpu_torch.ndt import grid as ndt_grid
 from ndtpu_torch.ndt import match as ndt_match
 from ndtpu_torch.slam import appends, pipeline
@@ -335,37 +334,13 @@ def _refresh_stacked(stats8, kf8, mkp8, cfg: PipelineConfig, enable8):
 
 def _appends_stacked(state8, lkr8, poses8, hessians8, pts8, msk8, is_kf8,
                      cfg: PipelineConfig):
-    """``pipeline._wb_appends`` of every session: the appends of all S
-    sessions in one K14 launch on the stacked arrays (with ``map_kf_poses``'
-    rows), then per session its K8a writes (in place, into its own slice of
-    the stacked table cache) and its loop verify, then the accepted loop
-    factors of all sessions in one launch of K14's loop entry. Returns
-    ``(graph8, kf8, aux8)``."""
-    s, w = is_kf8.shape
-    app = appends.append_window(state8.graph, state8.kf,
-                                state8.map_kf_poses, state8.last_kf_idx,
-                                lkr8, poses8, hessians8, pts8, msk8, is_kf8)
-    graph8, kf8 = app.graph, app.kf
-    zeros = torch.zeros((s, w), dtype=torch.int32, device=pts8.device)
-    nl8, ld8, ni8 = zeros, zeros, zeros
-    if cfg.use_loop_closure:
-        lanes = []
-        for i in range(s):
-            closure.write_local_tables(kf8.tables[i], app.kslot[i],
-                                       app.ok[i], pts8[i], msk8[i], cfg.loop,
-                                       cfg.ndt, cfg.match.compact_table)
-            lanes.append(pipeline._loop_lanes(
-                _take(kf8, i), pts8[i], msk8[i], app.node_vals[i],
-                app.slot[i], app.cum[i], app.ok[i], cfg))
-        graph8, nl8, ld8, ni8 = pipeline._append_loops(
-            graph8, pipeline.LoopLanes(*(torch.stack(f)
-                                         for f in zip(*lanes))), w)
-    aux8 = dict(kslot=app.kslot, kslot_ok=app.ok, last_idx=app.last_idx,
-                lkr=app.lkr, any_kf=app.any_kf, n_loops_new=nl8.sum(1),
-                kf_idx_out=app.kf_idx_out, rel_out=app.rel_out, nl_out=nl8,
-                nd_out=app.nd_out + ld8, ni_out=ni8,
-                map_kf_poses=app.map_kf_poses)
-    return graph8, kf8, aux8
+    """``pipeline._wb_appends`` of every session
+    (``pipeline.appends_stacked``: one K14 launch, one K8a launch, one K15
+    and one gated ``lm_ndt`` launch, one launch of K14's loop entry, for
+    all S sessions). Returns ``(graph8, kf8, aux8)``."""
+    return pipeline.appends_stacked(
+        state8.graph, state8.kf, state8.map_kf_poses, state8.last_kf_idx,
+        lkr8, poses8, hessians8, pts8, msk8, is_kf8, cfg)
 
 
 def _stacked_window_step(state8, lkr8, pts8, msk8, deltas8,

@@ -1,10 +1,10 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Twenty-four kernels carry the windowed and per-scan pipelines with loop
-closure, the window's appends, the pose-graph smoother, the large-graph
-supernodal and PCG solves, stacked multi-session serving, config 5's merge
-and distributed solve, its slab-sharded map, and the input preparation
-(ROADMAP Queue B):
+Twenty-five kernels carry the windowed and per-scan pipelines with loop
+closure, the loop verify's set-up, the window's appends, the pose-graph
+smoother, the large-graph supernodal and PCG solves, stacked
+multi-session serving, config 5's merge and distributed solve, its
+slab-sharded map, and the input preparation (ROADMAP Queue B):
 
 ============ =============================== =================================
 name         source                          replaces (JAX, lowered by XLA)
@@ -102,6 +102,13 @@ append                                       scatters (slots, anchors, node
                                              ``_refresh_map``'s rows
                                              (``window_append[rows]``): new
                                              arrays, one launch each
+loop_lanes   ``csrc/loop_lanes.cu`` (K15)    ``closure.find_candidates`` and
+                                             the lane set-up of
+                                             ``verify_candidates_cached_
+                                             flat`` for S x K queries: a
+                                             sort of 64-bit (distance,
+                                             index) keys per query, then
+                                             the gated ``lm_ndt``'s lanes
 ============ =============================== =================================
 
 K5, K6, K6g and K7b share the pose graph's arithmetic,
@@ -196,7 +203,8 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "finalize_cells",
            "slab_spread", "slab_sgh", "raycast", "sgh_spread", "voxel_smem",
            "voxel_route", "voxel_downsample", "WINDOW_MAX", "window_append",
-           "loop_append", "rows_set"]
+           "loop_append", "rows_set", "LOOP_LANES_MAX_CAP", "loop_lanes_smem",
+           "loop_lanes_check", "loop_lanes"]
 
 #: The quad-table layouts ``(G, L)``: G overlap grids per row (4, or 1 at
 #: ``overlap = 1``) of L lanes each (8 full, or 4 compact bf16-pair lanes at
@@ -239,6 +247,7 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "raycast": 0, "voxel_downsample": 0,
             "voxel_downsample[scan]": 0, "window_append": 0,
             "window_append[loops]": 0, "window_append[rows]": 0,
+            "loop_lanes": 0,
             **{variant(k, 1): 0 for k in _GRID_KERNELS},
             **{variant(k, g, l): 0 for k in _LAYOUT_KERNELS
                for g, l in LAYOUTS[1:]}}
@@ -264,7 +273,7 @@ _ASM_CTL: dict = {}              # (device index, stream) -> K7b's 4 int32
 _P, _I, _F, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                   ctypes.c_double)
 _SIGNATURES = {
-    "lm_ndt_launch": [_P] * 11 + [_I] * 7 + [_F] * 12 + [_P] * 6 + [_I]
+    "lm_ndt_launch": [_P] * 11 + [_I] * 7 + [_F] * 12 + [_P] * 7 + [_I]
                      + [_F] * 3 + [_I] * 5 + [_P],
     "ndt_terms_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          _F, _F, _F, _F, _F, _I, _I, _P],
@@ -306,6 +315,7 @@ _SIGNATURES = {
     "window_append_launch": [_P] + [_I] * 7 + [_P],
     "loop_append_launch": [_P] + [_I] * 5 + [_P],
     "rows_set_launch": [_P] * 5 + [_I] * 4 + [_P],
+    "loop_lanes_launch": [_P] + [_I] * 9 + [_F, ctypes.c_longlong, _P],
 }
 
 
@@ -491,7 +501,10 @@ class LoopGate(NamedTuple):
     """The loop gate's inputs beside a verify's registrations, for the
     gated :func:`lm_ndt`: ``cand_mask`` bool ``[K, C]`` (candidate slot is
     real), ``query_idx`` int64 ``[K]``; ``innov_per_kf <= 0`` and
-    ``k_budget = 0`` switch those gates off (see ``csrc/loop_gate.cuh``)."""
+    ``k_budget = 0`` switch those gates off (see ``csrc/loop_gate.cuh``).
+    The innovation gap is ``|query_idx - candidate|``, the candidate the
+    lane's ``group`` row, or ``cand_idx`` (int64 ``[K, C]``) where given
+    (lanes whose rows are not the candidates', as the fresh-map verify's)."""
 
     cand_mask: torch.Tensor
     query_idx: torch.Tensor
@@ -499,6 +512,7 @@ class LoopGate(NamedTuple):
     innov_base: float
     innov_per_kf: float
     k_budget: int
+    cand_idx: torch.Tensor | None = None
 
 
 #: The most candidates per query the gate takes: one thread per candidate
@@ -598,7 +612,7 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None,
     n_iter = torch.empty((b,), dtype=torch.int32, device=dev)
     conv = torch.empty((b,), dtype=torch.bool, device=dev)
     outs = (pose, hess, score, n_iter, conv)
-    gate_args = [None] * 6 + [0, 0.0, 0.0, 0.0, 0]
+    gate_args = [None] * 7 + [0, 0.0, 0.0, 0.0, 0]
     if gate is not None:
         k, c = gate.cand_mask.shape
         if not grouped or k * c != b:
@@ -608,12 +622,16 @@ def lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group=None,
         _check(gate.cand_mask, "cand_mask", dtype=torch.bool, shape=(k, c),
                align=1)
         _check(gate.query_idx, "query_idx", dtype=torch.int64, shape=(k,))
+        if gate.cand_idx is not None:
+            _check(gate.cand_idx, "cand_idx", dtype=torch.int64,
+                   shape=(k, c))
         accept = torch.empty((k, c), dtype=torch.bool, device=dev)
         innov_rej = torch.empty((k, c), dtype=torch.bool, device=dev)
         sqrt_info = torch.empty((k, c, 3, 3), dtype=torch.float32, device=dev)
         outs += (accept, innov_rej, sqrt_info)
         gate_args = [gate.cand_mask.data_ptr(), gate.query_idx.data_ptr(),
-                     accept.data_ptr(), innov_rej.data_ptr(),
+                     None if gate.cand_idx is None
+                     else gate.cand_idx.data_ptr(), accept.data_ptr(), innov_rej.data_ptr(),
                      sqrt_info.data_ptr(), _gate_arrive(dev, k).data_ptr(), c,
                      gate.score_gate, gate.innov_base, gate.innov_per_kf,
                      gate.k_budget]
@@ -1917,3 +1935,97 @@ def rows_set(dst, idx, ok, src) -> torch.Tensor:
               idx.data_ptr(), ok.data_ptr(), src.data_ptr(), out.data_ptr(),
               s, r, c, m, _stream(dst))
     return out
+
+
+#: The most keyframe slots a store may have for K15's candidate search: the
+#: sort keeps 8 B a slot, the store rounded up to a power of two, in one
+#: block's shared memory (``kMaxSlots`` of ``csrc/loop_lanes.cu``: 128 KB of
+#: the 227 KB a block can opt in to).
+LOOP_LANES_MAX_CAP = 16384
+
+
+def loop_lanes_smem(cap: int) -> int:
+    """K15's dynamic shared memory for the search over a store of ``cap``
+    slots: 8 B a slot, rounded up to a power of two."""
+    return 8 * (1 << max(0, (cap - 1).bit_length()))
+
+
+def loop_lanes_check(cap: int, c: int) -> None:
+    """Raise where K15 cannot take ``c`` candidates a query over stores of
+    ``cap`` slots (``c`` <= :data:`GATE_MAX_LANES` and ``cap``; ``cap`` <=
+    :data:`LOOP_LANES_MAX_CAP`)."""
+    _gate_width(c)
+    if c > cap:
+        raise ValueError(f"loop_lanes: {c} candidates from a store of {cap} "
+                         f"slots")
+    if cap > LOOP_LANES_MAX_CAP:
+        raise ValueError(
+            f"loop_lanes: a keyframe store of {cap} slots; the candidate "
+            f"search sorts 8 B a slot (rounded up to a power of two) in one "
+            f"block's shared memory, up to {LOOP_LANES_MAX_CAP} slots "
+            f"(KeyframeConfig.capacity <= {LOOP_LANES_MAX_CAP})")
+
+
+def loop_lanes(kf_poses, kf_live, points, mask, poses, sel, query_index,
+               radius: float, min_gap: int, c: int, stride: int = 1,
+               lanes: bool = True, cand_idx=None, cand_mask=None) -> tuple:
+    """K15: the loop verify's set-up for ``S x K`` queries in one launch (see
+    ``csrc/loop_lanes.cu``). Stores ``kf_poses [S, cap, 3]`` (f32),
+    ``kf_live [S, cap]``; windows ``points [S, W, N, 2]``, ``mask [S, W,
+    N]``, ``poses [S, W, 3]``; per query its row in the window ``sel [S,
+    K]`` and its index ``query_index [S, K]`` (int64). Without
+    ``cand_idx`` / ``cand_mask`` (int64 / bool ``[S, K, C]``) it searches:
+    the ``c`` nearest live keyframes within ``radius`` and ``min_gap`` below
+    the query's index, equal distances in index order, the lowest-index
+    others masked off where fewer qualify. With ``lanes`` it also writes
+    the ``S K c`` lanes of the gated ``lm_ndt``: ``init [S K c, 3]``,
+    ``group [S K c]`` (int32, ``s cap + idx``), ``query_idx [S K]``
+    (int64, ``query_index + s cap``) and the query's scan at every
+    ``stride``-th beam, ``px``, ``py``, ``mask_f [S K c, ceil(N /
+    stride)]`` (``points`` and ``mask`` may be None without ``lanes``).
+    Returns ``(idx, mask, dist, init, group, query_idx, px, py,
+    mask_f)``: the given candidates (``dist`` None) where given, None for
+    the lanes without ``lanes``."""
+    s, cap = kf_live.shape
+    loop_lanes_check(cap, c)
+    w, k = poses.shape[1], sel.shape[1]
+    n = mask.shape[2] if lanes else 1
+    i64, b8, f32 = torch.int64, torch.bool, torch.float32
+    spec = [(kf_poses, "kf.poses", f32, (s, cap, 3), 4),
+            (kf_live, "kf.live", b8, (s, cap), 1),
+            (poses, "poses", f32, (s, w, 3), 4),
+            (sel, "sel", i64, (s, k), 8),
+            (query_index, "query_index", i64, (s, k), 8)]
+    if lanes:
+        spec += [(points, "points", f32, (s, w, n, 2), 8),
+                 (mask, "mask", b8, (s, w, n), 1)]
+    given = cand_idx is not None
+    if given:
+        spec += [(cand_idx, "cand_idx", i64, (s, k, c), 8),
+                 (cand_mask, "cand_mask", b8, (s, k, c), 1)]
+    for t, what, dt, shape, align in spec:
+        _check(t, what, dtype=dt, shape=shape, align=align)
+    if stride < 1:
+        raise ValueError(f"loop_lanes: beam stride {stride}")
+    dev = kf_poses.device
+    new = lambda shape, dt=f32: torch.empty(shape, dtype=dt, device=dev)
+    cands = ((cand_idx, cand_mask, None) if given
+             else (new((s, k, c), i64), new((s, k, c), b8), new((s, k, c))))
+    n_out = -(-n // stride)
+    b = s * k * c
+    out = ((new((b, 3)), new((b,), torch.int32), new((s * k,), i64),
+            new((b, n_out)), new((b, n_out)), new((b, n_out))) if lanes
+           else (None,) * 6)
+    if b > 0:
+        ptrs = [0 if t is None else t.data_ptr()
+                for t in [kf_poses, kf_live, points if lanes else None,
+                          mask if lanes else None, poses, sel, query_index,
+                          cand_idx, cand_mask]
+                + ([None] * 3 if given else list(cands)) + list(out)]
+        _call("loop_lanes_launch", "loop_lanes",
+              (ctypes.c_longlong * len(ptrs))(*ptrs), s * k, k, c, w, n, cap,
+              loop_lanes_smem(cap) // 8, stride, n_out, radius, int(min_gap),
+              _stream(kf_poses),
+              too_big=f"{loop_lanes_smem(cap)} B of shared memory for a "
+                      f"store of {cap} slots")
+    return cands + out

@@ -121,6 +121,7 @@ struct LmParams {
 struct GateArgs {
   const uint8_t* cand_mask;      // [K * C] bool
   const long long* query_idx;    // [K]
+  const long long* cand_idx;     // [K * C], or null: the lane's group
   uint8_t* accept;               // [K * C]
   uint8_t* innov_rej;            // [K * C]
   float* sqrt_info;              // [K * C, 3, 3]
@@ -285,7 +286,10 @@ lm_ndt_kernel(const float* __restrict__ init_poses,
       in.py = __ldcg(pose_out + 3 * lane + 1);
       in.ix = init_poses[3 * lane + 0];
       in.iy = init_poses[3 * lane + 1];
-      in.cand_idx = group[lane];   // the candidate's index, not clamped
+      // The candidate's index, not clamped: the lane's table row, unless
+      // the rows are not the candidates' (the fresh-map verify's).
+      in.cand_idx = gate.cand_idx != nullptr ? gate.cand_idx[lane]
+                                             : (long long)group[lane];
       in.query_idx = gate.query_idx[q];
 #pragma unroll
       for (int k = 0; k < 9; ++k) in.h[k] = __ldcg(hess_out + 9 * lane + k);
@@ -341,13 +345,13 @@ extern "C" int lm_ndt_launch(const void* init_poses, const void* px,
                              float lambda_up, float lambda_down,
                              float max_lambda, float step_clip,
                              const void* cand_mask, const void* query_idx,
-                             void* accept, void* innov_rej, void* sqrt_info,
+                             const void* cand_idx, void* accept, void* innov_rej, void* sqrt_info,
                              void* arrive, int c_count, float score_gate,
                              float innov_base, float innov_per_kf,
                              int k_budget, int smem_bytes, int grids,
                              int lanes, int spread, void* stream) {
   // arrive != null: the gated verify, b = K * c_count lanes in a grouped
-  // launch (group holds the candidate indices).
+  // launch (group holds the candidate indices, or cand_idx where given).
   // spread = R: 128 R threads per lane (1 <= R <= 8), smem_bytes = 12 n +
   // wide_terms_bytes(grids, R).
   const bool gated = arrive != nullptr;
@@ -361,7 +365,7 @@ extern "C" int lm_ndt_launch(const void* init_poses, const void* px,
              exp_clip, tol, reject_tol, init_lambda, lambda_up, lambda_down,
              max_lambda, step_clip};
   const GateArgs g{(const uint8_t*)cand_mask, (const long long*)query_idx,
-                   (uint8_t*)accept, (uint8_t*)innov_rej, (float*)sqrt_info,
+                   (const long long*)cand_idx, (uint8_t*)accept, (uint8_t*)innov_rej, (float*)sqrt_info,
                    (int*)arrive,
                    {c_count, score_gate, innov_base, innov_per_kf, k_budget}};
   return ndtpu::with_layout(grids, lanes, [&](auto kg, auto kl) {

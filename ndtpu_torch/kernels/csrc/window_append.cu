@@ -28,9 +28,7 @@
 // ballots give cum, the kept flags and the governing keyframes), into
 // shared memory; then the blocks of a session stride over its arrays' output
 // elements. The se2 arithmetic is the plain version's, op for op, as
-// PyTorch runs it on the card (each product and sum rounded on its own
-// under --fmad=false; a division by a host scalar is a product with its
-// float reciprocal, as PyTorch computes it), so its values are the plain
+// PyTorch runs it on the card (se2.cuh), so its values are the plain
 // version's bits there.
 //
 // What bounds it on Hopper: bytes. The keyframe scans dominate (8 B of
@@ -39,39 +37,14 @@
 
 #include <cuda_runtime.h>
 
+#include "se2.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxWindow = 32;
-// PyTorch's f32 view of math.pi and 2 * math.pi, and the reciprocal it
-// multiplies by for `/ (2.0 * math.pi)`.
-constexpr float kPi = 3.14159265358979323846f;
-constexpr float kTwoPi = 6.28318530717958647692f;
-constexpr float kInvTwoPi = 1.0f / kTwoPi;
-
-// lie/se2.py::wrap.
-__device__ __forceinline__ float wrap(float t) {
-  return t - kTwoPi * floorf((t + kPi) * kInvTwoPi);
-}
-
-// se2.between(a, b) = a^{-1} b.
-__device__ __forceinline__ void between(const float* a, const float* b,
-                                        float* out) {
-  const float ca = cosf(a[2]), sa = sinf(a[2]);
-  const float dx = b[0] - a[0], dy = b[1] - a[1];
-  out[0] = ca * dx + sa * dy;
-  out[1] = -sa * dx + ca * dy;
-  out[2] = wrap(b[2] - a[2]);
-}
-
-// se2.compose(a, b) = a b.
-__device__ __forceinline__ void compose(const float* a, const float* b,
-                                        float* out) {
-  const float ca = cosf(a[2]), sa = sinf(a[2]);
-  out[0] = a[0] + ca * b[0] - sa * b[1];
-  out[1] = a[1] + sa * b[0] + ca * b[1];
-  out[2] = wrap(a[2] + b[2]);
-}
+using ndtpu::se2::between;
+using ndtpu::se2::compose;
 
 // torch.clamp(x, min=lo): NaN stays NaN.
 __device__ __forceinline__ float clamp_min(float x, float lo) {

@@ -5,29 +5,33 @@ Port of ``ndtpu/loop/closure.py``: candidates are the nearest live
 keyframes within ``radius`` and an index gap; every (query, candidate)
 pair registers the query scan against a local map of the candidate in ONE
 batched LM call, and the gate turns the registrations into loop factors.
-Three verifies share that shape: the windowed pipeline's flat one (``K``
-queries of a window against the cached tables,
-:func:`verify_candidates_cached_flat`), the per-scan pipeline's per-query
-one (:func:`verify_candidates_cached`, the same at ``K = 1`` without the
-serving knobs ``verify_max_iter`` / ``verify_beam_stride``, as the JAX
-package), and the fresh-map one (:func:`verify_candidates`: C local maps
-built from each candidate's ``+-window`` keyframes, K3s then K4s on the
-card, then one grouped registration with ``group`` = lane).
+The cached verify of ``K`` queries in each of ``S`` sessions is
+:func:`detect_loops_stacked` (the windowed pipeline's at ``S = 1``,
+stacked serving's for all sessions, the per-scan pipeline's at ``K = 1``
+without the serving knobs ``verify_max_iter`` / ``verify_beam_stride``, as
+the JAX package); :func:`verify_candidates_cached_flat` and
+:func:`verify_candidates_cached` verify given candidates; the fresh-map
+verify (:func:`verify_candidates`) builds C local maps from each
+candidate's ``+-window`` keyframes (K3s then K4s on the card) and
+registers lane ``c`` against map ``c``.
 
-Two kernels carry it, each with a plain twin of the same signature here:
+Three kernels carry it, each with a plain twin of the same signature here:
 
 - :func:`write_local_tables` (K8a) / :func:`write_local_tables_ref`: the
   local tables of a window's keyframes, written into the cache in place;
+- :func:`verify_lanes` (K15 ``kernels.loop_lanes``) /
+  :func:`loop_lanes_ref`: the candidate search (``lax.top_k`` over masked
+  distances: equal distances in index order) and every lane the gated
+  ``lm_ndt`` takes, ``S x K`` queries in one launch;
 - :func:`gate_and_pack` (K8b) / :func:`_gate_and_pack`: the acceptance
   gate and the factors' sqrt information.
 
-The verification itself registers against the whole cache with ``group`` =
-candidate index (K1's grouped row offset). On the card it is one launch
-that also gates the lanes (``ndt.match.match_batch_packed_gated``, K8b's
-device code inside ``lm_ndt``); on the CPU it is ``match_batch_packed``
-followed by :func:`_gate_and_pack`. ``lax.top_k`` over masked distances
-becomes a stable ascending sort, which orders equal distances by index as
-``top_k`` does.
+The verification registers against the whole cache (the flat ``[S cap, R,
+L]`` view of a stacked one) with ``group`` = ``s cap`` + candidate index
+(K1's grouped row offset). On the card it is one launch that also gates
+the lanes (``ndt.match.match_lanes`` with a gate, K8b's device code inside
+``lm_ndt``); on the CPU ``lm_ndt``'s twin followed by
+:func:`_gate_and_pack`.
 """
 
 from __future__ import annotations
@@ -46,12 +50,14 @@ from ndtpu_torch.ndt import grid as ndt_grid
 from ndtpu_torch.ndt import match as ndt_match
 from ndtpu_torch.slam.keyframes import KeyframeStore
 
-__all__ = ["LoopCandidates", "LoopResult", "local_grid_config",
+__all__ = ["LoopCandidates", "LoopResult", "VerifyLanes", "local_grid_config",
            "local_table_shape", "build_local_table", "write_local_tables",
-           "write_local_tables_ref", "find_candidates", "gate_and_pack",
-           "verify_registrations", "verify_candidates",
-           "verify_candidates_cached", "verify_candidates_cached_flat",
-           "detect_loops", "detect_loops_cached", "detect_loops_cached_flat"]
+           "write_local_tables_ref", "loop_lanes_ref", "verify_lanes",
+           "find_candidates", "gate_and_pack", "verify_registrations",
+           "verify_candidates", "verify_candidates_cached",
+           "verify_candidates_cached_flat", "detect_loops",
+           "detect_loops_cached", "detect_loops_cached_flat",
+           "detect_loops_stacked"]
 
 
 class LoopCandidates(NamedTuple):
@@ -144,23 +150,141 @@ def build_local_table(points, mask, loop_cfg: LoopConfig,
                               compact)[0]
 
 
+
+class VerifyLanes(NamedTuple):
+    """The loop verify's set-up for ``S x K`` queries of ``C`` candidates
+    (K15's outputs, :func:`verify_lanes`): the candidates, then the gated
+    ``lm_ndt``'s ``S K C`` lanes."""
+
+    idx: torch.Tensor        # [S, K, C] int64 candidate keyframe (per session)
+    mask: torch.Tensor       # [S, K, C] bool — candidate slot is real
+    dist: torch.Tensor       # [S, K, C] distance (None for given candidates)
+    init: torch.Tensor       # [S K C, 3] the query in the candidate's frame
+    group: torch.Tensor      # [S K C] int32 s cap + idx: the flat cache's row
+    query_idx: torch.Tensor  # [S K] int64 the query's index + s cap
+    px: torch.Tensor         # [S K C, N'] the query's scan, every stride-th
+    py: torch.Tensor         #   beam
+    mask_f: torch.Tensor     # [S K C, N'] its mask as 0 / 1
+
+
+def loop_lanes_ref(kf_poses, kf_live, points, mask, poses, sel, query_index,
+                   radius: float, min_gap: int, c: int, stride: int = 1,
+                   lanes: bool = True, cand_idx=None, cand_mask=None
+                   ) -> tuple:
+    """Plain twin of K15 (``kernels.loop_lanes``: the same arguments and
+    outputs) in the kernel's op order, so that on the card the kernel
+    equals it bit for bit. Per query ``(s, k)`` (its pose ``poses[s,
+    sel[s, k]]``): ``d = sqrt(dx dx + dy dy)`` to every slot of store
+    ``s``, the slots that are live, within ``radius`` and at least
+    ``min_gap`` below ``query_index[s, k]`` first, nearest first, in index
+    order among equal distances and among the others (a stable sort, as
+    ``lax.top_k``), the first ``c`` kept; then the lanes (``init =
+    se2.between(kf_poses[s, idx], pose)``, ``group = s cap + idx``,
+    ``query_idx = query_index + s cap``, the query's scan at every
+    ``stride``-th beam). ``points`` and ``mask`` may be None without
+    ``lanes``."""
+    s, cap = kf_live.shape
+    k = sel.shape[1]
+    dev = kf_poses.device
+    qpose = torch.gather(poses, 1, sel[..., None].expand(s, k, 3))
+    if cand_idx is None:
+        dx = kf_poses[:, None, :, 0] - qpose[..., 0, None]        # [S, K, cap]
+        dy = kf_poses[:, None, :, 1] - qpose[..., 1, None]
+        d = torch.sqrt(dx * dx + dy * dy)
+        slots = torch.arange(cap, device=dev)
+        ok = (kf_live[:, None, :] & (d <= radius)
+              & (query_index[..., None] - slots >= min_gap))
+        d_masked = torch.where(ok, d, torch.full_like(d, float("inf")))
+        dist, idx = torch.sort(d_masked, dim=-1, stable=True)
+        cands = (idx[..., :c], torch.isfinite(dist[..., :c]), dist[..., :c])
+    else:
+        cands = (cand_idx, cand_mask, None)
+    if not lanes:
+        return cands + (None,) * 6
+    off = torch.arange(s, device=dev)[:, None, None] * cap
+    row = torch.clamp(cands[0], 0, cap - 1) + off
+    init = se2.between(kf_poses.reshape(-1, 3)[row.reshape(-1)],
+                       qpose[:, :, None].expand(s, k, c, 3).reshape(-1, 3))
+    n = mask.shape[-1]
+    rows = torch.gather(points, 1, sel[..., None, None].expand(s, k, n, 2))
+    rmsk = torch.gather(mask, 1, sel[..., None].expand(s, k, n))
+    rows, rmsk = rows[:, :, ::stride], rmsk[:, :, ::stride]
+
+    def lane(x):
+        return x[:, :, None].expand((s, k, c) + x.shape[2:]).reshape(
+            (s * k * c,) + x.shape[2:]).contiguous()
+
+    return cands + (init, (cands[0] + off).reshape(-1).to(torch.int32),
+                    (query_index + off[:, :, 0]).reshape(-1),
+                    lane(rows[..., 0]), lane(rows[..., 1]),
+                    lane(rmsk.to(points.dtype)))
+
+
+def _knobs(loop_cfg: LoopConfig, match_cfg: MatchConfig, knobs: bool):
+    """The match config of a verify: ``verify_max_iter`` applied if
+    ``knobs``."""
+    if knobs and loop_cfg.verify_max_iter > 0:
+        return dataclasses.replace(match_cfg,
+                                   max_iter=loop_cfg.verify_max_iter)
+    return match_cfg
+
+
+def verify_lanes(kf8: KeyframeStore, points, mask, poses, sel, query_index,
+                 loop_cfg: LoopConfig, knobs: bool = True,
+                 cands: LoopCandidates | None = None,
+                 lanes: bool = True) -> VerifyLanes:
+    """The verify's set-up for ``K`` queries in each of ``S`` sessions:
+    stores ``kf8`` (every field with a leading session axis), windows
+    ``points [S, W, N, 2]``, ``mask [S, W, N]``, ``poses [S, W, 3]``, the
+    queries' rows ``sel [S, K]`` and indices ``query_index [S, K]``. The
+    candidate search (:func:`loop_lanes_ref`; or the given ``cands [S, K,
+    C]``), then, with ``lanes``, the lanes (the beam stride applied if
+    ``knobs``). CUDA tensors go to K15, one launch; CPU tensors to
+    :func:`loop_lanes_ref`."""
+    stride = max(1, loop_cfg.verify_beam_stride) if knobs else 1
+    args = [kf8.poses, kf8.live, points, mask, poses, sel,
+            query_index.to(torch.int64)]
+    if kf8.poses.is_cuda:
+        args = [None if t is None else t.contiguous() for t in args]
+        fn = kernels.loop_lanes
+    else:
+        fn = loop_lanes_ref
+    c = loop_cfg.max_candidates if cands is None else cands.idx.shape[-1]
+    given = (() if cands is None
+             else (cands.idx.to(torch.int64).contiguous(),
+                   cands.mask.contiguous()))
+    return VerifyLanes(*fn(*args, loop_cfg.radius, loop_cfg.min_index_gap, c,
+                           stride, lanes, *given))
+
+
+def _one(kf: KeyframeStore) -> KeyframeStore:
+    """A store with a leading session axis of 1 (views)."""
+    return KeyframeStore(*(None if t is None else t[None] for t in kf))
+
+
+def _queries(query_index, shape, dev) -> torch.Tensor:
+    """``query_index`` (a number or a tensor that broadcasts to ``shape``)
+    as one session's queries: int64 ``[1, prod(shape)]``."""
+    return torch.as_tensor(query_index, device=dev).to(torch.int64).expand(
+        shape).reshape(1, -1)
+
+
 def find_candidates(kf: KeyframeStore, query_pose, query_index,
                     cfg: LoopConfig) -> LoopCandidates:
     """The ``max_candidates`` nearest live keyframes within ``radius`` and
     at least ``min_index_gap`` below ``query_index``, for queries
     ``query_pose [..., 3]`` / ``query_index [...]``; equal distances in
-    index order."""
-    d = torch.linalg.norm(kf.poses[:, :2] - query_pose[..., None, :2],
-                          dim=-1)                                 # [..., K]
-    idx_all = torch.arange(kf.capacity, device=d.device)
-    ok = (kf.live & (d <= cfg.radius)
-          & (torch.as_tensor(query_index, device=d.device)[..., None]
-             - idx_all >= cfg.min_index_gap))
-    d_masked = torch.where(ok, d, torch.full_like(d, float("inf")))
-    dist, idx = torch.sort(d_masked, dim=-1, stable=True)
-    c = cfg.max_candidates
-    return LoopCandidates(idx=idx[..., :c], mask=torch.isfinite(dist[..., :c]),
-                          dist=dist[..., :c])
+    index order, then the lowest-index others (``mask`` false) where fewer
+    qualify: K15's search alone on the card (one launch), its twin on the
+    CPU."""
+    lead = query_pose.shape[:-1]
+    qp = query_pose.reshape(1, -1, 3)
+    out = verify_lanes(_one(kf), None, None, qp,
+                       torch.arange(qp.shape[1], device=qp.device)[None],
+                       _queries(query_index, lead, qp.device), cfg,
+                       lanes=False)
+    return LoopCandidates(*(x.reshape(lead + x.shape[2:])
+                            for x in out[:3]))
 
 
 def _gate_and_pack(res: ndt_match.MatchResult, cands: LoopCandidates,
@@ -225,30 +349,94 @@ def gate_and_pack(res: ndt_match.MatchResult, cands: LoopCandidates,
                       score=res.score, accept=acc, innov_rej=rej)
 
 
-def _verify_lanes(kf: KeyframeStore, query_points, query_mask,
-                  query_poses, cands: LoopCandidates, loop_cfg: LoopConfig,
-                  match_cfg: MatchConfig, knobs: bool = True):
-    """The verify's ``K*C`` flat lanes: ``(points, mask, init, grid,
-    match_cfg, group)`` for a grouped call over the whole cache, with
-    ``verify_max_iter`` and ``verify_beam_stride`` applied if ``knobs``."""
-    if kf.tables is None:
+
+
+def _verify(lanes: VerifyLanes, query_index, tables, loop_cfg: LoopConfig,
+            match_cfg: MatchConfig, knobs: bool, group=None,
+            gate: bool = True) -> LoopResult:
+    """Register ``S x K x C`` lanes (:func:`verify_lanes`) against
+    ``tables`` (the flat ``[S cap, R, L]`` view of the stacked cache, lane
+    ``b`` reading row ``lanes.group[b]``; or with ``group`` its own rows)
+    and gate them: on the card ONE gated ``lm_ndt`` launch (no host sync),
+    on the CPU ``lm_ndt``'s twin and :func:`_gate_and_pack`. Returns ``[S,
+    K, C]`` fields, ``j`` the candidates' per-session indices; with
+    ``gate=False`` the registrations ``(MatchResult, init)`` instead (the
+    CPU route, any device)."""
+    mcfg = _knobs(loop_cfg, match_cfg, knobs)
+    s, k, c = lanes.idx.shape
+    q = s * k
+    cands = LoopCandidates(lanes.idx.reshape(q, c), lanes.mask.reshape(q, c),
+                           None)
+    args = (lanes.init, lanes.px, lanes.py, lanes.mask_f,
+            lanes.group if group is None else group, tables,
+            local_grid_config(loop_cfg), mcfg)
+    split = lambda x: x.reshape((s, k, c) + x.shape[2:])
+    if not (gate and lanes.px.is_cuda):
+        res = ndt_match.MatchResult(*(a.reshape((q, c) + a.shape[1:])
+                                      for a in ndt_match.match_lanes(*args)))
+        init = lanes.init.reshape(q, c, 3)
+        if not gate:
+            return (ndt_match.MatchResult(*map(split, res)), split(init))
+        out = _gate_and_pack(res, cands, loop_cfg, init,
+                             query_index.reshape(q))
+        return LoopResult(*map(split, out))
+    # The gate's innovation gap is |query_idx - candidate|: the lanes'
+    # session offsets, or the candidates themselves where the rows are
+    # another table's (``group``).
+    g = kernels.LoopGate(
+        cands.mask, lanes.query_idx if group is None
+        else query_index.reshape(q).to(torch.int64).contiguous(),
+        loop_cfg.score_gate, loop_cfg.max_innovation_base,
+        loop_cfg.max_innovation_per_kf, _k_budget(loop_cfg),
+        None if group is None else cands.idx.contiguous())
+    res, (acc, rej, sqrt_info) = ndt_match.match_lanes(*args, gate=g)
+    return LoopResult(*map(split, (cands.idx, res.pose.reshape(q, c, 3),
+                                   sqrt_info, res.score.reshape(q, c), acc,
+                                   rej)))
+
+
+def _flat_tables(kf8: KeyframeStore):
+    """The stacked cache ``[S, cap, R, L]`` as one ``[S cap, R, L]`` view."""
+    if kf8.tables is None:
         raise ValueError("KeyframeStore built without tables")
-    lgrid = local_grid_config(loop_cfg)
-    if knobs and loop_cfg.verify_max_iter > 0:
-        match_cfg = dataclasses.replace(match_cfg,
-                                        max_iter=loop_cfg.verify_max_iter)
-    stride = max(1, loop_cfg.verify_beam_stride) if knobs else 1
-    if stride > 1:
-        query_points = query_points[:, ::stride]
-        query_mask = query_mask[:, ::stride]
-    k, c = cands.idx.shape
-    n = query_points.shape[-2]
-    flat_idx = cands.idx.reshape(-1)                              # [K*C]
-    qp = query_poses[:, None, :].expand(k, c, 3).reshape(-1, 3)
-    init = se2.between(kf.poses[flat_idx], qp)                    # [K*C, 3]
-    pts = query_points[:, None].expand(k, c, n, 2).reshape(k * c, n, 2)
-    msk = query_mask[:, None].expand(k, c, n).reshape(k * c, n)
-    return pts, msk, init, lgrid, match_cfg, flat_idx
+    return kf8.tables.view((-1,) + kf8.tables.shape[2:])
+
+
+def detect_loops_stacked(kf8: KeyframeStore, points, mask, poses, sel,
+                         query_index, loop_cfg: LoopConfig,
+                         match_cfg: MatchConfig, knobs: bool = True
+                         ) -> LoopResult:
+    """Candidate search and cached verify of ``K`` queries in each of ``S``
+    sessions as ONE ``S K C``-lane registration (the JAX package's
+    ``detect_loops_cached_flat`` vmapped over sessions): stores ``kf8``
+    (leading session axis), windows ``points [S, W, N, 2]``, ``mask [S, W,
+    N]``, ``poses [S, W, 3]``, queries at rows ``sel [S, K]`` with indices
+    ``query_index [S, K]``. Lane ``(s, k, c)`` registers query ``(s, k)``'s
+    scan against its candidate's cached table from the estimate-predicted
+    relative pose, then the gate; ``verify_max_iter`` and
+    ``verify_beam_stride`` apply if ``knobs``; every lane runs, masked
+    ones included. On the card: one K15 launch and one gated ``lm_ndt``
+    launch over the flat cache, no host sync. Returns ``[S, K, C]``
+    fields."""
+    lanes = verify_lanes(kf8, points, mask, poses, sel, query_index,
+                         loop_cfg, knobs)
+    return _verify(lanes, query_index, _flat_tables(kf8), loop_cfg,
+                   match_cfg, knobs)
+
+
+def _given(kf: KeyframeStore, query_points, query_mask, query_poses,
+           cands: LoopCandidates, loop_cfg: LoopConfig, query_index,
+           knobs: bool):
+    """``(lanes, query_index [1, K])`` of one session's ``K`` queries
+    against given candidates ``cands [K, C]``."""
+    k = query_poses.shape[0]
+    qi = _queries(query_index, (k,), query_poses.device)
+    sel = torch.arange(k, device=query_poses.device)[None]
+    lanes = verify_lanes(_one(kf), query_points[None], query_mask[None],
+                         query_poses[None], sel, qi, loop_cfg, knobs,
+                         LoopCandidates(*(None if x is None else x[None]
+                                          for x in cands)))
+    return lanes, qi
 
 
 def verify_registrations(kf: KeyframeStore, query_points, query_mask,
@@ -258,51 +446,11 @@ def verify_registrations(kf: KeyframeStore, query_points, query_mask,
     """The registrations of :func:`verify_candidates_cached_flat` (or, with
     ``knobs=False``, of the per-query verify), before the gate:
     ``(MatchResult [K, C], init [K, C, 3])``."""
-    pts, msk, init, lgrid, mcfg, flat_idx = _verify_lanes(
-        kf, query_points, query_mask, query_poses, cands, loop_cfg,
-        match_cfg, knobs)
-    res = ndt_match.match_batch_packed(pts, msk, kf.tables, init, lgrid,
-                                       mcfg, group=flat_idx)
-    k, c = cands.idx.shape
-    return (ndt_match.MatchResult(*(a.reshape((k, c) + a.shape[1:])
-                                    for a in res)),
-            init.reshape(k, c, 3))
-
-
-def _gated_verify(points, mask, tables, init, lgrid: GridConfig,
-                  match_cfg: MatchConfig, group, cands: LoopCandidates,
-                  loop_cfg: LoopConfig, query_index) -> LoopResult:
-    """The card's verify of ``K x C`` lanes (``cands [K, C]``,
-    ``query_index [K]``): ONE gated ``lm_ndt`` launch that registers lane
-    ``b`` against ``tables[group[b]]`` and gates, no host sync."""
-    gate = kernels.LoopGate(
-        cands.mask.contiguous(),
-        torch.as_tensor(query_index, dtype=torch.int64,
-                        device=points.device).contiguous(),
-        loop_cfg.score_gate, loop_cfg.max_innovation_base,
-        loop_cfg.max_innovation_per_kf, _k_budget(loop_cfg))
-    res, (acc, rej, sqrt_info) = ndt_match.match_batch_packed_gated(
-        points, mask, tables, init, lgrid, match_cfg, group, gate)
-    k, c = cands.idx.shape
-    return LoopResult(j=cands.idx, z=res.pose.reshape(k, c, 3),
-                      sqrt_info=sqrt_info, score=res.score.reshape(k, c),
-                      accept=acc, innov_rej=rej)
-
-
-def _verify_cached(kf: KeyframeStore, query_points, query_mask, query_poses,
-                   cands: LoopCandidates, loop_cfg: LoopConfig,
-                   match_cfg: MatchConfig, query_index, knobs: bool
-                   ) -> LoopResult:
-    if not query_points.is_cuda:
-        res, init = verify_registrations(kf, query_points, query_mask,
-                                         query_poses, cands, loop_cfg,
-                                         match_cfg, knobs)
-        return _gate_and_pack(res, cands, loop_cfg, init, query_index)
-    pts, msk, init, lgrid, mcfg, flat_idx = _verify_lanes(
-        kf, query_points, query_mask, query_poses, cands, loop_cfg,
-        match_cfg, knobs)
-    return _gated_verify(pts, msk, kf.tables, init, lgrid, mcfg, flat_idx,
-                         cands, loop_cfg, query_index)
+    lanes, qi = _given(kf, query_points, query_mask, query_poses, cands,
+                       loop_cfg, 0, knobs)
+    res, init = _verify(lanes, qi, _flat_tables(_one(kf)), loop_cfg,
+                        match_cfg, knobs, gate=False)
+    return ndt_match.MatchResult(*(a[0] for a in res)), init[0]
 
 
 def verify_candidates_cached_flat(kf: KeyframeStore, query_points,
@@ -311,18 +459,21 @@ def verify_candidates_cached_flat(kf: KeyframeStore, query_points,
                                   loop_cfg: LoopConfig,
                                   match_cfg: MatchConfig,
                                   query_index) -> LoopResult:
-    """Verify ``K`` queries x ``C`` candidates (``cands [K, C]``) as ONE
-    ``K*C``-lane registration against the cached tables: lane ``(k, c)``
-    registers ``query_points[k] [N, 2]`` against ``kf.tables[idx[k, c]]``
-    (the whole cache with ``group`` = candidate index) from the
-    estimate-predicted relative pose, then the gate. ``verify_max_iter``
-    and ``verify_beam_stride`` apply. Every lane runs, masked ones
-    included. On the card registration and gate are one launch
-    (``match_batch_packed_gated``), bit-equal to ``match_batch_packed``
-    followed by :func:`gate_and_pack`, with no host sync; on the CPU,
+    """Verify ``K`` queries x ``C`` given candidates (``cands [K, C]``) as
+    ONE ``K*C``-lane registration against the cached tables: lane ``(k,
+    c)`` registers ``query_points[k] [N, 2]`` against
+    ``kf.tables[idx[k, c]]`` (the whole cache with ``group`` = candidate
+    index) from the estimate-predicted relative pose, then the gate.
+    ``verify_max_iter`` and ``verify_beam_stride`` apply. Every lane runs,
+    masked ones included. On the card: K15 (the lanes, no search) and ONE
+    gated ``lm_ndt`` launch, bit-equal to ``match_batch_packed`` followed
+    by :func:`gate_and_pack`, with no host sync; on the CPU,
     :func:`verify_registrations` and :func:`_gate_and_pack`."""
-    return _verify_cached(kf, query_points, query_mask, query_poses, cands,
-                          loop_cfg, match_cfg, query_index, knobs=True)
+    lanes, qi = _given(kf, query_points, query_mask, query_poses, cands,
+                       loop_cfg, query_index, True)
+    out = _verify(lanes, qi, _flat_tables(_one(kf)), loop_cfg, match_cfg,
+                  True)
+    return LoopResult(*(x[0] for x in out))
 
 
 def verify_candidates_cached(kf: KeyframeStore, query_points, query_mask,
@@ -337,12 +488,14 @@ def verify_candidates_cached(kf: KeyframeStore, query_points, query_mask,
     defaults to ``kf.n``. Returns a ``[C]`` ``LoopResult``."""
     if query_index is None:
         query_index = kf.n
-    qi = torch.as_tensor(query_index, device=query_points.device)[None]
-    out = _verify_cached(kf, query_points[None], query_mask[None],
-                         query_pose[None],
-                         LoopCandidates(*(x[None] for x in cands)),
-                         loop_cfg, match_cfg, qi, knobs=False)
-    return LoopResult(*(x[0] for x in out))
+    lanes, qi = _given(kf, query_points[None], query_mask[None],
+                       query_pose[None],
+                       LoopCandidates(*(None if x is None else x[None]
+                                        for x in cands)),
+                       loop_cfg, query_index, False)
+    out = _verify(lanes, qi, _flat_tables(_one(kf)), loop_cfg, match_cfg,
+                  False)
+    return LoopResult(*(x[0, 0] for x in out))
 
 
 def _local_points(kf: KeyframeStore, j, window: int):
@@ -360,6 +513,8 @@ def _local_points(kf: KeyframeStore, j, window: int):
     return local, msk.reshape(c, -1)
 
 
+
+
 def verify_candidates(kf: KeyframeStore, query_points, query_mask,
                       query_pose, cands: LoopCandidates,
                       loop_cfg: LoopConfig, ndt_cfg: NDTMapConfig,
@@ -369,16 +524,17 @@ def verify_candidates(kf: KeyframeStore, query_points, query_mask,
     each candidate's map holds its ``+-window`` keyframes in its frame
     (:func:`_local_points`), built from scratch (``add_points_stacked``:
     one K3s launch on the card) and packed (``finalize_pack_stacked``: one
-    K4s launch); lane ``c`` registers the query against table ``c`` (one
-    gated ``lm_ndt`` launch on the card, ``group`` = lane), then the gate.
-    The match config is used as given; every table layout
-    (``local_overlap``, ``compact_table``) runs on the card. Returns a
-    ``[C]`` ``LoopResult``."""
+    K4s launch); the lanes from K15 (given candidates, no search); lane
+    ``c`` registers the query against table ``c`` and the gate takes the
+    candidates' indices (one gated ``lm_ndt`` launch on the card). The
+    match config is used as given; every table layout (``local_overlap``,
+    ``compact_table``) runs on the card. Returns a ``[C]``
+    ``LoopResult``."""
     if query_index is None:
         query_index = kf.n
     lgrid = local_grid_config(loop_cfg)
     dt, dev = query_points.dtype, query_points.device
-    c, n = cands.idx.shape[0], query_points.shape[0]
+    c = cands.idx.shape[0]
     local, lmsk = _local_points(kf, cands.idx, window)
     empty = ndt_grid.empty_stats(lgrid, dt, dev)
     stats = ndt_grid.add_points_stacked(
@@ -386,31 +542,30 @@ def verify_candidates(kf: KeyframeStore, query_points, query_mask,
                             for x in empty)), local, lmsk, lgrid)
     tables = ndt_grid.finalize_pack_stacked(stats, ndt_cfg, lgrid,
                                             match_cfg.compact_table)
-    init = se2.between(kf.poses[cands.idx], query_pose[None, :])  # [C, 3]
-    pts = query_points[None].expand(c, n, 2)
-    msk = query_mask[None].expand(c, n)
-    lanes = torch.arange(c, device=dev)
-    if not query_points.is_cuda:
-        res = ndt_match.match_batch_packed(pts, msk, tables, init, lgrid,
-                                           match_cfg, group=lanes)
-        return _gate_and_pack(res, cands, loop_cfg, init, query_index)
-    qi = torch.as_tensor(query_index, device=dev)[None]
-    out = _gated_verify(pts.contiguous(), msk.contiguous(), tables, init,
-                        lgrid, match_cfg, lanes,
-                        LoopCandidates(*(x[None] for x in cands)), loop_cfg,
-                        qi)
-    return LoopResult(*(x[0] for x in out))
+    lanes, qi = _given(kf, query_points[None], query_mask[None],
+                       query_pose[None],
+                       LoopCandidates(*(None if x is None else x[None]
+                                        for x in cands)),
+                       loop_cfg, query_index, False)
+    out = _verify(lanes, qi, tables, loop_cfg, match_cfg, False,
+                  group=torch.arange(c, dtype=torch.int32, device=dev))
+    return LoopResult(*(x[0, 0] for x in out))
 
 
 def detect_loops_cached_flat(kf: KeyframeStore, query_points, query_mask,
                              query_poses, query_index, loop_cfg: LoopConfig,
                              match_cfg: MatchConfig) -> LoopResult:
-    """Candidate search + flat cached verification for ``K`` queries (the
-    windowed pipeline's path)."""
-    cands = find_candidates(kf, query_poses, query_index, loop_cfg)
-    return verify_candidates_cached_flat(kf, query_points, query_mask,
-                                         query_poses, cands, loop_cfg,
-                                         match_cfg, query_index)
+    """Candidate search + flat cached verification for ``K`` queries
+    (``query_points [K, N, 2]``, ``query_poses [K, 3]``, ``query_index
+    [K]``): :func:`detect_loops_stacked` of one session, one K15 and one
+    gated ``lm_ndt`` launch on the card. Returns ``[K, C]`` fields."""
+    k = query_poses.shape[0]
+    dev = query_poses.device
+    out = detect_loops_stacked(
+        _one(kf), query_points[None], query_mask[None], query_poses[None],
+        torch.arange(k, device=dev)[None], _queries(query_index, (k,), dev),
+        loop_cfg, match_cfg)
+    return LoopResult(*(x[0] for x in out))
 
 
 def detect_loops(kf: KeyframeStore, query_points, query_mask, query_pose,
@@ -427,9 +582,14 @@ def detect_loops(kf: KeyframeStore, query_points, query_mask, query_pose,
 def detect_loops_cached(kf: KeyframeStore, query_points, query_mask,
                         query_pose, query_index, loop_cfg: LoopConfig,
                         match_cfg: MatchConfig) -> LoopResult:
-    """Candidate search + the per-query cached verify
-    (:func:`verify_candidates_cached`): the per-scan pipeline's path."""
-    cands = find_candidates(kf, query_pose, query_index, loop_cfg)
-    return verify_candidates_cached(kf, query_points, query_mask, query_pose,
-                                    cands, loop_cfg, match_cfg,
-                                    query_index=query_index)
+    """Candidate search + the per-query cached verify: the per-scan
+    pipeline's path, :func:`detect_loops_stacked` at ``S = K = 1`` without
+    the serving knobs (one K15 and one gated ``lm_ndt`` launch on the
+    card). Returns a ``[C]`` ``LoopResult``."""
+    dev = query_pose.device
+    out = detect_loops_stacked(
+        _one(kf), query_points[None, None], query_mask[None, None],
+        query_pose[None, None], torch.zeros((1, 1), dtype=torch.int64,
+                                            device=dev),
+        _queries(query_index, (1,), dev), loop_cfg, match_cfg, knobs=False)
+    return LoopResult(*(x[0, 0] for x in out))

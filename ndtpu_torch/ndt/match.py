@@ -48,14 +48,16 @@ __all__ = ["MatchResult", "transform_terms", "point_terms", "score_grad_hess",
            "score_grad_hess_batch", "score_grad_hess_batch_ref",
            "point_terms_quad", "solve3", "lm_loop",
            "lm_loop_batch", "match", "match_batch", "match_batch_packed",
-           "match_batch_packed_gated", "ndt_terms", "ndt_terms_ref",
+           "match_batch_packed_gated", "match_lanes", "ndt_terms",
+           "ndt_terms_ref",
            "terms_sgh", "lm_ndt", "lm_ndt_ref", "CALLS"]
 
 _SYNC_EVERY = 4
 
-#: Calls of :func:`match_batch_packed` (CPU and card) and of
-#: :func:`match_batch_packed_gated` since the caller last zeroed it; on the
-#: card each call with lanes launches ``lm_ndt`` once.
+#: Calls of :func:`match_batch_packed` (CPU and card), of
+#: :func:`match_batch_packed_gated` and of :func:`match_lanes` since the
+#: caller last zeroed it; on the card each call with lanes launches
+#: ``lm_ndt`` once.
 CALLS = {"match_batch_packed": 0}
 
 
@@ -491,10 +493,30 @@ def match_batch_packed(points, mask, table, init_poses, grid: GridConfig,
     ``cfg.phase1_iters`` are compacted into ``phase2_width``-wide rounds;
     per-lane results equal the one-phase loop's.
     """
+    return match_lanes(*_packed_args(points, mask, table, init_poses, group),
+                       table, grid, cfg)
+
+
+def match_lanes(init_poses, px, py, mask_f, group, table,
+                grid: GridConfig, cfg: MatchConfig,
+                gate: kernels.LoopGate | None = None):
+    """:func:`match_batch_packed` on lanes already split as ``lm_ndt`` takes
+    them (``px``, ``py``, ``mask_f [B, N]``, ``group`` int32 or None), as
+    the loop verify's set-up (K15) writes them; counted as a
+    ``match_batch_packed`` call. With ``gate``: CUDA tensors only, one
+    gated ``lm_ndt`` launch, ``(MatchResult, (accept, innov_rej,
+    sqrt_info))``."""
     CALLS["match_batch_packed"] += 1
-    init, px, py, mask_f, group = _packed_args(points, mask, table,
-                                               init_poses, group)
-    return lm_ndt(init, px, py, mask_f, table, grid, cfg, group)
+    if gate is None:
+        return lm_ndt(init_poses, px, py, mask_f, table, grid, cfg, group)
+    if not px.is_cuda:
+        raise ValueError("the gated verify takes CUDA tensors; on the CPU "
+                         "use match_batch_packed and "
+                         "loop.closure._gate_and_pack")
+    out = kernels.lm_ndt(init_poses.contiguous(), px.contiguous(),
+                         py.contiguous(), mask_f.contiguous(), table, grid,
+                         cfg, group, gate)
+    return MatchResult(*out[:5]), out[5:]
 
 
 def _packed_args(points, mask, table, init_poses, group):
@@ -524,16 +546,8 @@ def match_batch_packed_gated(points, mask, tables, init_poses,
     ``(MatchResult [K*C], (accept, innov_rej [K, C] bool, sqrt_info [K, C,
     3, 3]))``. On the CPU the loop verify runs :func:`match_batch_packed`
     and the gate's twin instead."""
-    CALLS["match_batch_packed"] += 1
-    if not points.is_cuda:
-        raise ValueError("match_batch_packed_gated: expected CUDA tensors; "
-                         "on the CPU use match_batch_packed and "
-                         "loop.closure._gate_and_pack")
-    init, px, py, mask_f, group = _packed_args(points, mask, tables,
-                                               init_poses, group)
-    out = kernels.lm_ndt(init.contiguous(), px, py, mask_f.contiguous(),
-                         tables, grid, cfg, group, gate)
-    return MatchResult(*out[:5]), out[5:]
+    return match_lanes(*_packed_args(points, mask, tables, init_poses,
+                                     group), tables, grid, cfg, gate)
 
 
 def match_batch(points, mask, ndt_map: ndt_grid.NDTMap, init_poses,

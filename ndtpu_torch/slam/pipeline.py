@@ -352,9 +352,11 @@ def _lead(tree):
 
 
 def _first(tree):
-    """Session 0 of a (nested) NamedTuple of tensors (views)."""
+    """Session 0 of a (nested) NamedTuple or dict of tensors (views)."""
     if tree is None:
         return None
+    if isinstance(tree, dict):
+        return {k: _first(v) for k, v in tree.items()}
     if isinstance(tree, tuple):
         return _retuple(tree, [_first(x) for x in tree])
     return tree[0]
@@ -362,68 +364,87 @@ def _first(tree):
 
 def _wb_appends(state: SlamState, last_kf_reg, poses, hessians, pts, msk,
                 is_kf, cfg: PipelineConfig):
-    """Window backend stage 1: keyframe/factor appends (K14, one launch on
-    the card, with ``_wb_extend``'s ``map_kf_poses`` rows), the new
-    keyframes' local tables (K8a, in place) and the loop factors
-    (:func:`_wb_loops`). Returns ``(graph, kf, aux)``; ``kf`` is not yet
-    pose-synced. No host sync."""
-    w = poses.shape[0]
-    app = _first(appends.append_window(
+    """Window backend stage 1: :func:`appends_stacked` of one session (a
+    leading session axis of 1). Returns ``(graph, kf, aux)``; ``kf`` is not
+    yet pose-synced. No host sync."""
+    return _first(appends_stacked(
         _lead(state.graph), _lead(state.kf), state.map_kf_poses[None],
         state.last_kf_idx[None], last_kf_reg[None], poses[None],
-        hessians[None], pts[None], msk[None], is_kf[None]))
-    graph, kf = app.graph, app.kf
-    zeros_w = torch.zeros(w, dtype=torch.int32, device=poses.device)
-    nl_out, ld_out, ni_out = zeros_w, zeros_w, zeros_w
+        hessians[None], pts[None], msk[None], is_kf[None], cfg))
+
+
+def appends_stacked(graph8, kf8, mkp8, last_kf_idx8, lkr8, poses8,
+                    hessians8, pts8, msk8, is_kf8, cfg: PipelineConfig):
+    """The window's appends for ``S`` sessions (every argument with a
+    leading session axis; ``pipeline._wb_appends`` of the JAX package,
+    vmapped over sessions in serving): the keyframe and factor appends
+    with ``map_kf_poses``' rows (K14, one launch on the card), the new
+    keyframes' local tables (K8a, one launch into the flat view of the
+    stacked cache, in place), the loop verify (:func:`_loop_lanes`: one
+    K15 and one gated ``lm_ndt`` launch for all sessions) and the accepted
+    loop factors (K14's loop entry, one launch). Returns ``(graph8, kf8,
+    aux8)``; ``kf8`` is not yet pose-synced. No host sync."""
+    s, w = is_kf8.shape
+    app = appends.append_window(graph8, kf8, mkp8, last_kf_idx8, lkr8,
+                                poses8, hessians8, pts8, msk8, is_kf8)
+    graph8, kf8 = app.graph, app.kf
+    zeros = torch.zeros((s, w), dtype=torch.int32, device=pts8.device)
+    nl8, ld8, ni8 = zeros, zeros, zeros
     if cfg.use_loop_closure:
-        # The new keyframes' local tables, written into the cache in place
-        # (the cache is ~315 MB at config 3; a copy per window would move
-        # it twice).
-        closure.write_local_tables(kf.tables, app.kslot, app.ok, pts, msk,
-                                   cfg.loop, cfg.ndt, cfg.match.compact_table)
-        graph, nl_out, ld_out, ni_out = _wb_loops(graph, kf, pts, msk,
-                                                  app.node_vals, app.slot,
-                                                  app.cum, app.ok, cfg)
-    aux = dict(kslot=app.kslot, kslot_ok=app.ok, last_idx=app.last_idx,
-               lkr=app.lkr, any_kf=app.any_kf, n_loops_new=nl_out.sum(),
-               kf_idx_out=app.kf_idx_out, rel_out=app.rel_out, nl_out=nl_out,
-               nd_out=app.nd_out + ld_out, ni_out=ni_out,
-               map_kf_poses=app.map_kf_poses)
-    return graph, kf, aux
+        # Session s's slot k is row s cap + k of the flat cache; a slot at
+        # or past cap is dropped, never written into session s + 1. The
+        # cache is ~315 MB at config 3: written in place, not copied.
+        cap = kf8.tables.shape[1]
+        keep = app.ok & (app.kslot >= 0) & (app.kslot < cap)
+        rows = torch.where(keep, app.kslot + cap * torch.arange(
+            s, device=pts8.device)[:, None], torch.full_like(app.kslot, -1))
+        closure.write_local_tables(
+            kf8.tables.view((s * cap,) + kf8.tables.shape[2:]),
+            rows.reshape(-1), keep.reshape(-1), pts8.reshape(
+                (s * w,) + pts8.shape[2:]), msk8.reshape(s * w, -1),
+            cfg.loop, cfg.ndt, cfg.match.compact_table)
+        lanes = _loop_lanes(kf8, pts8, msk8, app.node_vals, app.slot,
+                            app.cum, app.ok, cfg)
+        graph8, nl8, ld8, ni8 = _append_loops(graph8, lanes, w)
+    aux8 = dict(kslot=app.kslot, kslot_ok=app.ok, last_idx=app.last_idx,
+                lkr=app.lkr, any_kf=app.any_kf, n_loops_new=nl8.sum(1),
+                kf_idx_out=app.kf_idx_out, rel_out=app.rel_out, nl_out=nl8,
+                nd_out=app.nd_out + ld8, ni_out=ni8,
+                map_kf_poses=app.map_kf_poses)
+    return graph8, kf8, aux8
 
 
 class LoopLanes(NamedTuple):
-    """A window's loop lanes, K queries x C candidates (K14's loop
-    entry's input)."""
-    accept: torch.Tensor     # [K, C] accepted, masked by the detect cadence
-    j: torch.Tensor          # [K, C] candidate keyframe
-    z: torch.Tensor          # [K, C, 3]
-    sqrt_info: torch.Tensor  # [K, C, 3, 3]
-    innov: torch.Tensor      # [K, C] innovation-rejected, masked likewise
-    slot_k: torch.Tensor     # [K] the query's graph slot
-    sel: torch.Tensor        # [K] the query's scan in the window
-    has: torch.Tensor        # [K] the window has a K-th keyframe
+    """A window's loop lanes, S sessions x K queries x C candidates (K14's
+    loop entry's input)."""
+    accept: torch.Tensor     # [S, K, C] accepted, masked by the cadence
+    j: torch.Tensor          # [S, K, C] candidate keyframe
+    z: torch.Tensor          # [S, K, C, 3]
+    sqrt_info: torch.Tensor  # [S, K, C, 3, 3]
+    innov: torch.Tensor      # [S, K, C] innovation-rejected, masked likewise
+    slot_k: torch.Tensor     # [S, K] the query's graph slot
+    sel: torch.Tensor        # [S, K] the query's scan in the window
+    has: torch.Tensor        # [S, K] the window has a K-th keyframe
 
 
-def _loop_lanes(kf, pts, msk, node_vals, slot, cum, ok,
+def _loop_lanes(kf8, pts8, msk8, node_vals8, slot8, cum8, ok8,
                 cfg: PipelineConfig) -> LoopLanes:
-    """Loop detection for the window's first ``max_detect_per_window``
-    keyframes as ONE flat ``K*C``-lane verification."""
-    w = pts.shape[0]
+    """Loop detection for each session's first ``max_detect_per_window``
+    keyframes of the window as ONE ``S K C``-lane verification
+    (``closure.detect_loops_stacked``)."""
+    w = pts8.shape[1]
     kmax = min(cfg.loop.max_detect_per_window or w, w)
-    ranks = torch.arange(kmax, device=pts.device)
-    # sel[r] = scan index of the window's r-th keyframe (0 if absent).
-    hit = (cum[None, :] - 1 == ranks[:, None]) & ok[None, :]      # [K, W]
-    sel = torch.argmax(hit.to(torch.uint8), 1)
-    has = hit.any(1)
-    slot_k = slot[sel]
-    do = has & (slot_k % cfg.loop.detect_every == 0)
-    loops = closure.detect_loops_cached_flat(kf, pts[sel], msk[sel],
-                                             node_vals[sel], slot_k,
-                                             cfg.loop, cfg.match)
-    return LoopLanes(loops.accept & do[:, None], loops.j, loops.z,
-                     loops.sqrt_info, loops.innov_rej & do[:, None], slot_k,
-                     sel, has)
+    ranks = torch.arange(kmax, device=pts8.device)
+    # sel[s, r] = scan index of session s's r-th keyframe (0 if absent).
+    hit = (cum8[:, None, :] - 1 == ranks[:, None]) & ok8[:, None, :]
+    sel = torch.argmax(hit.to(torch.uint8), 2)                    # [S, K]
+    has = hit.any(2)
+    slot_k = torch.gather(slot8, 1, sel)
+    do = (has & (slot_k % cfg.loop.detect_every == 0))[..., None]
+    loops = closure.detect_loops_stacked(kf8, pts8, msk8, node_vals8, sel,
+                                         slot_k, cfg.loop, cfg.match)
+    return LoopLanes(loops.accept & do, loops.j, loops.z, loops.sqrt_info,
+                     loops.innov_rej & do, slot_k, sel, has)
 
 
 def _append_loops(graph: fct.PoseGraph, lanes: LoopLanes, w: int):
@@ -437,16 +458,6 @@ def _append_loops(graph: fct.PoseGraph, lanes: LoopLanes, w: int):
     return (graph._replace(bet_i=out[0], bet_j=out[1], bet_z=out[2],
                            bet_sqrt_info=out[3], bet_mask=out[4],
                            n_between=out[5]), out[6], out[7], out[8])
-
-
-def _wb_loops(graph, kf, pts, msk, node_vals, slot, cum, ok,
-              cfg: PipelineConfig):
-    """Loop detection (:func:`_loop_lanes`) and the masked append of the
-    accepted loop factors (K14's loop entry). Returns ``(graph, nl [W], ld
-    [W], ni [W])``: loops appended, loops dropped at factor capacity, and
-    innovation-budget rejections, at each query's scan."""
-    lanes = _loop_lanes(kf, pts, msk, node_vals, slot, cum, ok, cfg)
-    return _first(_append_loops(_lead(graph), _lead(lanes), pts.shape[0]))
 
 
 class WindowFlags(NamedTuple):

@@ -32,7 +32,9 @@ On box-world draw ``--seed`` (the scenario of ``chip_smoke.py``'s ATE gates,
 2. one run of the kernel route with every phase synchronized at its
    edges: the front end (``_window_frontend``), the appends
    (``_wb_appends``) and inside them the K8a table writes and the loop
-   detection (``_wb_loops``, of it the ``K*C``-lane registrations), the
+   detection (``_loop_lanes``: its set-up ``verify_lanes``, K15, and its
+   registration and gate ``_verify``; ``_wb_loops`` in checkouts before
+   K15) and the loop factors' append (``_append_loops``), the
    smoother (``_wb_smooth``; and inside it, each exclusive of the others,
    the probe and selection (K7a), the local assembly and Cholesky (K7b,
    ``cholesky_ex``), the linearizations (K5) and the PCG solves (K6), the
@@ -390,7 +392,7 @@ def layout_times(seed: int, dev) -> dict:
             *a[:6], c.match, a[6]), ["lm_ndt_kernel"])
         loop, (qpts, qmsk, qpose), qidx, cands = loop_queries(
             c3, seq, kf, seed, dev, c3.loop.max_candidates)
-        pts_l, msk_l, init, lg, mcfg, flat = closure._verify_lanes(
+        pts_l, msk_l, init, lg, mcfg, flat = gated_lanes(
             kf, qpts, qmsk, qpose, cands, loop, c3.match)
         gate = kernels.LoopGate(cands.mask.contiguous(), qidx.contiguous(),
                                 loop.score_gate, loop.max_innovation_base,
@@ -1432,10 +1434,14 @@ def phase_run(inputs, cfg):
     parts = defaultdict(float)
     stack = []
     patched = [(pipeline, "_window_frontend"), (pipeline, "_wb_appends"),
-               (pipeline, "_wb_loops"), (pipeline, "_wb_smooth"),
+               (pipeline, "_wb_loops"), (pipeline, "_loop_lanes"),
+               (pipeline, "_append_loops"), (pipeline, "_wb_smooth"),
                (pipeline, "_wb_maps"), (closure, "write_local_tables"),
+               (closure, "verify_lanes"), (closure, "_verify"),
                (closure, "verify_registrations")]
-    saved = [(mod, name, getattr(mod, name)) for mod, name in patched]
+    # A stage an older (or newer) checkout lacks is skipped.
+    saved = [(mod, name, getattr(mod, name)) for mod, name in patched
+             if hasattr(mod, name)]
     part_saved = [(importlib.import_module(m), name, label)
                   for m, name, label in SMOOTHER_PARTS]
     part_saved = [(mod, name, label, getattr(mod, name))
@@ -1481,12 +1487,45 @@ def phase_run(inputs, cfg):
     return wall, dict(spent), dict(parts)
 
 
+def verify_entry(closure) -> str:
+    """The windowed pipeline's loop-verify call in ``closure``:
+    ``detect_loops_stacked`` (every session's queries in one K15 and one
+    gated launch), or ``detect_loops_cached_flat`` in checkouts before
+    it."""
+    return ("detect_loops_stacked" if hasattr(closure, "detect_loops_stacked")
+            else "detect_loops_cached_flat")
+
+
+def gated_lanes(kf, qpts, qmsk, qpose, cands, loop, mcfg):
+    """The gated verify's lanes of ``K`` queries x their candidates as
+    ``match.match_batch_packed_gated`` takes them: ``(points, mask, init,
+    grid, match_cfg, group)``; from K15 (``closure.verify_lanes``, the
+    candidates given) where the checkout has it, else from the older
+    ``closure._verify_lanes``."""
+    import torch
+
+    from ndtpu_torch.loop import closure
+
+    if not hasattr(closure, "verify_lanes"):
+        return closure._verify_lanes(kf, qpts, qmsk, qpose, cands, loop,
+                                     mcfg)
+    k, dev = qpose.shape[0], qpose.device
+    lanes = closure.verify_lanes(
+        closure._one(kf), qpts[None], qmsk[None], qpose[None],
+        torch.arange(k, device=dev)[None],
+        torch.zeros((1, k), dtype=torch.long, device=dev), loop,
+        cands=closure.LoopCandidates(cands.idx[None], cands.mask[None], None))
+    return (torch.stack([lanes.px, lanes.py], -1), lanes.mask_f > 0,
+            lanes.init, closure.local_grid_config(loop),
+            closure._knobs(loop, mcfg, True), lanes.group)
+
+
 def sync_run(inputs, cfg):
     """One run with ``torch.cuda.set_sync_debug_mode("warn")`` inside each
     ``_window_backend`` call: the host syncs per window (every one inside
     the backend; of them those inside ``incremental_update``, which a
     window with a new keyframe runs, and inside the loop verify,
-    ``detect_loops_cached_flat``) and where they are. The wrappers take any
+    :func:`verify_entry`) and where they are. The wrappers take any
     arguments, so an older checkout is counted the same way."""
     import warnings
 
@@ -1497,7 +1536,7 @@ def sync_run(inputs, cfg):
     from ndtpu_torch.slam import pipeline
 
     names = (("_window_backend", pipeline), ("incremental_update", inc),
-             ("detect_loops_cached_flat", closure))
+             (verify_entry(closure), closure))
     saved = {name: (mod, getattr(mod, name)) for name, mod in names}
     calls = {name: [] for name, _ in names}
     where = defaultdict(int)
@@ -1529,7 +1568,7 @@ def sync_run(inputs, cfg):
         for w in syncs():
             where[f"{Path(w.filename).name}:{w.lineno}"] += 1
     win, updates = calls["_window_backend"], calls["incremental_update"]
-    verify = calls["detect_loops_cached_flat"]
+    verify = calls[verify_entry(closure)]
     n_win = max(len(win), 1)
     # One verify a window with loop closure on, none without.
     outside = [a - b for a, b in zip(
@@ -1728,13 +1767,17 @@ def profiled_run(inputs, cfg, n_scans: int):
 
 
 #: The stacked window's stages (``dist/slam_dp.py``), each synchronized at
-#: its edges; the loop verify (``_loop_lanes``, or ``_wb_loops`` before
-#: K14) and ``write_local_tables`` run inside the appends,
-#: ``fresh_residual_max`` is the smoother's need test.
+#: its edges; the loop verify (``_loop_lanes``: since K15 one call for all
+#: sessions, its set-up ``verify_lanes`` and its gated launch ``_verify``;
+#: before, one ``_loop_lanes`` a session, or ``_wb_loops`` before K14) and
+#: ``write_local_tables`` run inside the appends, ``fresh_residual_max`` is
+#: the smoother's need test.
 SERVING_STAGES = (("ndtpu_torch.dist.slam_dp", "_frontend_stacked"),
                   ("ndtpu_torch.dist.slam_dp", "_appends_stacked"),
                   ("ndtpu_torch.slam.pipeline", "_wb_loops"),
                   ("ndtpu_torch.slam.pipeline", "_loop_lanes"),
+                  ("ndtpu_torch.loop.closure", "verify_lanes"),
+                  ("ndtpu_torch.loop.closure", "_verify"),
                   ("ndtpu_torch.loop.closure", "write_local_tables"),
                   ("ndtpu_torch.graph.incremental", "fresh_residual_max"),
                   ("ndtpu_torch.dist.slam_dp", "_smooth_stacked"),

@@ -2252,3 +2252,94 @@ def test_windowed_run_launches_k14_once_a_window(dev):
     assert kernels.LAUNCHES["window_append[loops]"] == 15
     row = cs.check_window_syncs(dev, cs.CONFIG3)
     assert row["outside_max"] <= cs.WINDOW_SYNC_BUDGET
+
+
+K15_LABELS = ("config3", "serving", "ties", "full")
+
+
+@pytest.mark.parametrize("label", K15_LABELS)
+def test_loop_lanes_bit_equal_to_plain(dev, label):
+    """K15 against ``closure.loop_lanes_ref`` on the same f32 card inputs at
+    ``chip_smoke.K15_CASES`` (config 3's and serving's shapes, equal
+    distances, a full store): every output bit-equal, one launch a call;
+    with the candidates given, the same lanes; the search alone, the same
+    candidates."""
+    import chip_smoke as cs
+
+    i = K15_LABELS.index(label)
+    args = cs.k15_inputs(i, dev, *cs.K15_CASES[i][1:])
+    kernels.reset_launches()
+    out = kernels.loop_lanes(*args)
+    assert kernels.LAUNCHES["loop_lanes"] == 1
+    ref = closure.loop_lanes_ref(*args)
+    for name, a, b in zip(cs.K15_OUTS, out, ref):
+        assert cs.bits_equal(a, b), name
+    given = kernels.loop_lanes(*args, cand_idx=out[0], cand_mask=out[1])
+    assert given[2] is None and cs.bits_equal(given[3:], out[3:])
+    alone = kernels.loop_lanes(*args[:-1], lanes=False)
+    assert all(x is None for x in alone[3:])
+    assert cs.bits_equal(alone[:3], out[:3])
+    assert bool(out[1].any()) and (label != "full" or bool(out[1].all()))
+
+
+def test_loop_lanes_at_its_largest_store_and_past_it(dev):
+    """K15 at ``LOOP_LANES_MAX_CAP`` slots (its sort in 128 KB of shared
+    memory, past the 48 KB a block gets without opting in) bit-equal to
+    the plain version; one slot more raises before any launch."""
+    import chip_smoke as cs
+
+    cap = kernels.LOOP_LANES_MAX_CAP
+    args = cs.k15_inputs(7, dev, 1, 2, 8, cap, 40, 1, 5.0, 25, True, False)
+    out = kernels.loop_lanes(*args)
+    for name, a, b in zip(cs.K15_OUTS, out, closure.loop_lanes_ref(*args)):
+        assert cs.bits_equal(a, b), name
+    big = cs.k15_inputs(7, dev, 1, 2, 8, cap + 1, 8, 1, 5.0, 25, False,
+                        False)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="slots"):
+        kernels.loop_lanes(*big)
+    assert kernels.LAUNCHES["loop_lanes"] == 0
+
+
+def test_fused_verify_equals_per_session_launches(dev):
+    """Serving's verify of 8 sessions x 4 queries x 4 candidates (its loop
+    config, 512-slot stores, beam stride 2) as one K15 and one gated
+    ``lm_ndt`` launch over the flat cache, against one such call per
+    session: every output bit for bit (LM lanes are independent, and the
+    threads per lane change no bit)."""
+    import chip_smoke as cs
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.dist import slam_dp
+    from ndtpu_torch.slam.keyframes import KeyframeStore
+
+    cfg = slam_dp.serving_config(PipelineConfig.from_json(str(cs.SERVING)))
+    loop = cfg.loop
+    s, k, cap = 8, cfg.loop.max_detect_per_window, 512
+    args = cs.k15_inputs(3, dev, s, k, loop.max_candidates, cap, 360,
+                         loop.verify_beam_stride, loop.radius,
+                         loop.min_index_gap, False, False)
+    poses, live, pts, msk, wposes, sel, qidx = args[:7]
+    seq = cs.box_sequence(0, 360, device=dev)
+    shape = closure.local_table_shape(loop, False)
+    rows = torch.arange(s * cap, device=dev)
+    scan = rows % seq.points.shape[0]
+    tables = torch.zeros((s * cap,) + shape, device=dev)
+    closure.write_local_tables(tables, rows, torch.ones_like(rows, dtype=bool),
+                               seq.points[scan].contiguous(),
+                               seq.mask[scan].contiguous(), loop, cfg.ndt)
+    tables = tables.view((s, cap) + shape)
+    store = lambda i, j: KeyframeStore(poses[i:j], None, None, live[i:j],
+                                       None, tables[i:j])
+    kernels.reset_launches()
+    fused = closure.detect_loops_stacked(store(0, s), pts, msk, wposes, sel,
+                                         qidx, loop, cfg.match)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["loop_lanes"] == 1
+    assert kernels.LAUNCHES["loop_gate_fused"] == 1
+    for i in range(s):
+        one = closure.detect_loops_stacked(
+            store(i, i + 1), pts[i:i + 1], msk[i:i + 1], wposes[i:i + 1],
+            sel[i:i + 1], qidx[i:i + 1], loop, cfg.match)
+        for name, a, b in zip(one._fields, fused, one):
+            assert cs.bits_equal(a[i], b[0]), (i, name)
+    assert kernels.LAUNCHES["loop_lanes"] == 1 + s

@@ -225,9 +225,13 @@ def test_loop_overflow_matches_jax(monkeypatch):
     monkeypatch.setattr(jclosure, "detect_loops_cached_flat",
                         lambda *a, **k: _fake_loops(
                             np.random.default_rng(5), kq, c, CAP, True))
-    monkeypatch.setattr(tclosure, "detect_loops_cached_flat",
-                        lambda *a, **k: _fake_loops(
-                            np.random.default_rng(5), kq, c, CAP, False))
+    # The port verifies its sessions' queries in one stacked call (one
+    # session here): the same results with a leading session axis.
+    monkeypatch.setattr(tclosure, "detect_loops_stacked",
+                        lambda *a, **k: tclosure.LoopResult(*(
+                            x[None] for x in _fake_loops(
+                                np.random.default_rng(5), kq, c, CAP,
+                                False))))
     appends_jit = jax.jit(jpipe._wb_appends, static_argnames="cfg")
     js = _jax_state(st)
     args = [jnp.asarray(win[k].numpy()) for k in
@@ -333,7 +337,7 @@ PLAIN_TWINS = (("ndtpu_torch.graph.solve", "pcg_solve_ref"),
                ("ndtpu_torch.ndt.grid", "finalize_pack_ref"),
                ("ndtpu_torch.ndt.match", "lm_ndt_ref"),
                ("ndtpu_torch.loop.closure", "write_local_tables_ref"))
-VERIFY = ("ndtpu_torch.loop.closure", "detect_loops_cached_flat")
+VERIFY = ("ndtpu_torch.loop.closure", "detect_loops_stacked")
 
 
 class SyncCounter:
