@@ -104,7 +104,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    and full capacities (indices, masks, counters and copied rows bit-equal,
    the computed values within :data:`K14_RTOL`, and on a second launch),
    its loop entry against ``loop_append_ref`` and its row entry against
-   ``set_rows_ref`` (bit-equal), each timed beside its plain version;
+   ``set_rows_ref`` (bit-equal), each timed beside its plain version; K15
+   ``loop_lanes`` (:func:`check_k15`); K16 ``refresh_points``
+   (:func:`check_k16`) against ``pipeline.refresh_points_ref`` at
+   serving's 8 x 512 slots and the smoke's 160 (M = 12, 360 beams), with
+   equal staleness across the M-th place, a full store and every session
+   off: all outputs bit-equal, timed beside its plain version and
+   ``torch.topk``;
 4. config 2 through its entry point: ``ndtpu_torch.run.main`` on
    ``configs/config2_full_sequence.json``, 300 scans, ``--device cuda``,
    with every launch counter (and the counts of ``match_batch_packed``
@@ -192,7 +198,10 @@ Phases (any failure exits non-zero, and no result line is printed):
     per front-end pass, K3s and K4s once per use and never per map, K6b
     ``inc_iters`` times per smoother call, no twin on CUDA tensors, no
     drop, one K14 append and one loop-entry launch a window and one row
-    launch a refresh; then each session's gates against the JAX package's run of the
+    launch a refresh, one K5 fresh-window launch a window (the need test
+    of every session) and one K16 launch a refresh (every session's
+    selection and points); the gated verify of all sessions' 128 lanes
+    timed alone on a window's inputs; then each session's gates against the JAX package's run of the
     same sessions (``tests/data/torch_serving8_box300_ref.json``,
     :func:`serving_gates`);
 10b. stacked serving in the other table layouts (:func:`run_serving_layouts`,
@@ -212,8 +221,10 @@ Phases (any failure exits non-zero, and no result line is printed):
     to its own K6 launch), K3s
     ``halfcell_add_stacked`` at the window and refresh shapes and K4s
     ``finalize_pack_stacked`` (each bit-equal to 8 single K3 / K4
-    launches), all bit-identical on a second launch, on the state the
-    serving run left, each timed beside the single launches it replaces;
+    launches), all bit-identical on a second launch, and K5's fresh window
+    of 8 sessions (bit-equal to 8 single-session launches), on the state
+    the serving run left, each timed beside the single launches it
+    replaces;
     then in the other layouts (:func:`check_stacked_layouts`): K3s at
     overlap 1 at the rebuild, window and refresh shapes (bit-equal to 8
     single K3[g1] launches and to the fixed-point model), K4s in g1l8,
@@ -313,7 +324,7 @@ Phases (any failure exits non-zero, and no result line is printed):
     K6g in phases 8b, 8c and 12; ``local_select[scratch]`` (K7a past the
     shared route) in phase 8d's update; K11 in phases 4, 6, 7d, 10 and 16, K7a
     and K7b also in 7d, K13 in phase 16; K14 in phases 4, 6, 7d and 10, its
-    loop entry in 6, 7d and 10, its row entry in 10), exactly one ``lm_ndt*`` launch
+    loop entry in 6, 7d and 10, its row entry and K16 in 10), exactly one ``lm_ndt*`` launch
     per ``match_batch_packed`` call (phases 4, 6 and 16), and in phase 6 one gated verify per
     loop-detection call and no standalone K8b launch; K5, K7a and K7b launched
     in phases 4 and 6, K6 in phase 6 (config 2 may never take the global path),
@@ -561,6 +572,10 @@ KERNELS = [
          replaces="ndtpu/loop/closure.py:101",
          paths=("config3", "serving", "scan_config3", "multilap", "config5",
                 "config3_overlap1", "serving_overlap1")),
+    # K16: serving's top-M map refresh, one launch a refresh for all
+    # sessions.
+    dict(name="refresh_points", source=_CSRC + "refresh_points.cu",
+         replaces="ndtpu/slam/pipeline.py:146", paths=("serving",)),
     # K3 at overlap 1, in the layout runs whose map has one grid.
     dict(name="halfcell_add[g1]", source=_CSRC + "halfcell_add.cu",
          replaces="ndtpu/ndt/grid.py:120",
@@ -3098,7 +3113,9 @@ PLAIN_SERVING = PLAIN_SMOOTHER + (
     ("ndtpu_torch.data.synth", "raycast_ref"),
     ("ndtpu_torch.slam.appends", "window_append_ref"),
     ("ndtpu_torch.slam.appends", "loop_append_ref"),
-    ("ndtpu_torch.slam.appends", "set_rows_ref"))
+    ("ndtpu_torch.slam.appends", "set_rows_ref"),
+    ("ndtpu_torch.slam.pipeline", "refresh_points_ref"),
+    ("ndtpu_torch.graph.incremental", "fresh_residual_max_stacked_ref"))
 #: ... and every plain version config 5's merge and in-process solves could
 #: reach.
 PLAIN_CONFIG5 = PLAIN_SERVING + (
@@ -4814,7 +4831,7 @@ def check_padded_sessions(dev):
 
 
 def run_serving(dev, card, config=SERVING, label="serving",
-                twice: bool = True):
+                twice: bool = True, jobs=None):
     """Stacked serving through its entry point: ``ndtpu_torch.serve.main``
     with ``SERVING_ARGS`` (8 sessions x 300 scans of ``config``,
     ``configs/config_serving.json`` or a table layout of it; 360 beams,
@@ -4827,17 +4844,27 @@ def run_serving(dev, card, config=SERVING, label="serving",
     sessions (K8a also once a session in ``init_slam``), one
     K3s launch per use (pass-2 maps, extend, and refresh where one fires)
     and two K4s, never a per-map K3 or K4 (K3 runs only in each session's
-    ``init_slam``); at most ``inc_iters`` K6b launches (exactly that per
-    smoother call) and no K6; no drop; with ``twice``, a second invocation
-    whose trajectories and final states are bit-equal to the first's.
-    Returns ``(launches, summary, state)``, the state of the last run; the
-    summary also holds ``run_ate_m``, each session's ATE in each of the
-    first invocation's runs (the last one's is the CLI's own)."""
+    ``init_slam``); one K5 fresh-window launch a window for all sessions
+    (the need test: K5 launches = windows + 2 ``inc_iters`` a smoother
+    call) and no single-session fresh window; where a refresh fires one
+    K16, one ``_refresh_points`` call for all sessions and one K14 row
+    write; at most ``inc_iters`` K6b launches (exactly that per smoother
+    call) and no K6; no drop; with ``twice``, a second invocation whose
+    trajectories and final states are bit-equal to the first's. With
+    ``jobs``, the window's gated verify over all sessions' S K C lanes is
+    timed alone on the first such launch's inputs (``gated_verify`` in the
+    summary; its card time queued in ``jobs``). Returns ``(launches,
+    summary, state)``, the state of the last run; the summary also holds
+    ``run_ate_m``, each session's ATE in each of the first invocation's
+    runs (the last one's is the CLI's own)."""
     import torch
 
     from ndtpu_torch import kernels, serve
     from ndtpu_torch.config import PipelineConfig
     from ndtpu_torch.dist import slam_dp
+    from ndtpu_torch.graph import incremental as inc
+    from ndtpu_torch.ndt import match
+    from ndtpu_torch.slam import pipeline
 
     cfg = slam_dp.serving_config(PipelineConfig.from_json(str(config)))
     args = ["--config", str(config)] + SERVING_ARGS[2:]
@@ -4849,11 +4876,28 @@ def run_serving(dev, card, config=SERVING, label="serving",
     front = kernels.variant("lm_ndt_grouped", *gl)
     gated = kernels.variant("loop_gate_fused", *local)
     grouped_verify = kernels.variant("lm_ndt_grouped", *local)
-    counts = dict(windows=0, refreshes=0, smooths=0, runs=0)
+    counts = dict(windows=0, refreshes=0, smooths=0, runs=0,
+                  refresh_points=0, fresh_stacked=0, fresh_single=0)
     finals = []
-    saved = [(name, getattr(slam_dp, name)) for name in
+    saved = [(slam_dp, name, getattr(slam_dp, name)) for name in
              ("_stacked_window_step", "_refresh_stacked", "_smooth_stacked",
               "run_sessions_stacked")]
+    saved += [(pipeline, "_refresh_points", pipeline._refresh_points),
+              (inc, "fresh_residual_max_stacked",
+               inc.fresh_residual_max_stacked),
+              (inc, "fresh_residual_max", inc.fresh_residual_max),
+              (match, "match_lanes", match.match_lanes)]
+    lanes = cfg.loop.max_detect_per_window * cfg.loop.max_candidates
+    verify_args = []
+
+    def record_verify(*a, **k):
+        gate = k.get("gate")
+        if (jobs is not None and gate is not None and not verify_args
+                and a[0].shape[0] == n_sessions * lanes):
+            keep = lambda x: x.clone() if isinstance(x, torch.Tensor) else x
+            verify_args.append(([keep(x) for x in a],
+                                type(gate)(*map(keep, gate))))
+        return saved[-1][2](*a, **k)
 
     def counted(fn, key):
         def inner(*a, **k):
@@ -4864,9 +4908,12 @@ def run_serving(dev, card, config=SERVING, label="serving",
             return out
         return inner
 
-    for (name, fn), key in zip(saved, ("windows", "refreshes", "smooths",
-                                       "runs")):
-        setattr(slam_dp, name, counted(fn, key))
+    n_sessions = int(SERVING_ARGS[SERVING_ARGS.index("--sessions") + 1])
+    for (mod, name, fn), key in zip(saved, (
+            "windows", "refreshes", "smooths", "runs", "refresh_points",
+            "fresh_stacked", "fresh_single")):
+        setattr(mod, name, counted(fn, key))
+    match.match_lanes = record_verify
     try:
         with no_plain_on_card(PLAIN_SERVING):
             kernels.reset_launches()
@@ -4875,8 +4922,8 @@ def run_serving(dev, card, config=SERVING, label="serving",
             first = dict(counts)
             res2 = serve.main(args) if twice else None
     finally:
-        for name, fn in saved:
-            setattr(slam_dp, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     torch.cuda.synchronize()
     n_s, runs, w = res["sessions"], first["runs"], first["windows"]
     passes = cfg.window_passes
@@ -4918,6 +4965,20 @@ def run_serving(dev, card, config=SERVING, label="serving",
             f"{label}: {k6b} K6b launches for {first['smooths']} smoother "
             f"calls in {w} windows (inc_iters {cfg.solver.inc_iters}), "
             f"{launches['pcg_solve']} K6 launches")
+    k5 = launches["factor_linearize"]
+    require(first["fresh_stacked"] == w and first["fresh_single"] == 0
+            and k5 == w + 2 * cfg.solver.inc_iters * first["smooths"],
+            f"{label}: {first['fresh_stacked']} stacked and "
+            f"{first['fresh_single']} single-session need tests, {k5} K5 "
+            f"launches for {w} windows and {first['smooths']} smoother calls "
+            f"(one fresh-window launch a window for all {n_s} sessions, two "
+            f"a smoother iteration)")
+    require(launches["refresh_points"] == first["refreshes"]
+            == first["refresh_points"] > 0,
+            f"{label}: {launches['refresh_points']} K16 launches and "
+            f"{first['refresh_points']} _refresh_points calls for "
+            f"{first['refreshes']} refreshes (one each for all {n_s} "
+            f"sessions expected)")
     require(launches["window_append"] == w
             and launches["window_append[loops]"] == w
             and launches["window_append[rows]"] == first["refreshes"],
@@ -4955,6 +5016,21 @@ def run_serving(dev, card, config=SERVING, label="serving",
           + ("; bit-equal across two invocations" if twice else "")
           + "; launches per window "
           + ", ".join(f"{k} {v:.2f}" for k, v in per_w.items()))
+    if jobs is not None:
+        require(len(verify_args) == 1, f"{label}: no gated verify of all "
+                f"{n_s} sessions' {n_s * lanes} lanes ran")
+        (vargs, gate), = verify_args
+        fused = lambda: match.match_lanes(*vargs, gate=gate)
+        row = dict(sessions=n_s, lanes=int(vargs[0].shape[0]),
+                   ms=time_ms(fused))
+        card_time(jobs, f"{label} gated verify, {row['lanes']} lanes of "
+                  f"{n_s} sessions", row, "card_ms", fused,
+                  ["lm_ndt_kernel"])
+        res["gated_verify"] = row
+        print(f"[smoke] {label} gated verify alone (one launch, {n_s} "
+              f"sessions x {cfg.loop.max_detect_per_window} queries x "
+              f"{cfg.loop.max_candidates} candidates = {row['lanes']} "
+              f"lanes, a window's inputs): {row['ms']:.4f} ms")
     return launches, res, st2
 
 
@@ -5994,6 +6070,192 @@ def check_k15(dev, seed: int, jobs=None) -> dict:
     out = rows.pop("config3")
     out["cases"] = rows
     return out
+
+
+#: K16's cases: (label, sessions, slots, M, beams, ties, full, enable,
+#: eps): serving's 8 x 512 slots (its published capacity, M = 12), the
+#: smoke's serving run (160 slots, every other session on, eps above 0),
+#: equal staleness across the M-th place, every slot live, every session
+#: off.
+K16_CASES = (("serving", 8, 512, 12, 360, False, False, "all", 0.0),
+             ("smoke", 8, 160, 12, 360, False, False, "some", 0.05),
+             ("ties", 8, 512, 12, 360, True, False, "all", 0.0),
+             ("full", 8, 512, 12, 360, False, True, "all", 0.0),
+             ("off", 8, 512, 12, 360, False, False, "none", 0.0))
+#: K16's outputs, in ``kernels.refresh_points``' order.
+K16_OUTS = ("both", "bmsk", "wts", "sel", "do", "rows")
+
+
+def k16_inputs(seed: int, dev, sessions: int, cap: int, m: int,
+               n_beams: int, ties: bool, full: bool, enable: str,
+               eps: float) -> tuple:
+    """Seeded stores for K16 (f32 on ``dev``): each session a quarter to
+    three quarters full (every slot with ``full``), keyframe poses on a
+    0.25 m lattice within 8 m, a third of the slots (dead ones too) seen by
+    their map a seeded 0-0.3 m / 0-0.2 rad away, the rest where they are
+    (staleness 0); with ``ties`` the moved slots moved by 0.25 or 0.5 m
+    along one axis (exact in f32), so equal staleness spans the M-th
+    place. ``enable``: "all" (None), "some" (every other session) or
+    "none". The arguments of ``kernels.refresh_points``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    s = sessions
+    fill = (np.full(s, cap) if full
+            else rng.integers(cap // 4, 3 * cap // 4, s))
+    poses = np.zeros((s, cap, 3))
+    poses[..., :2] = rng.integers(-32, 33, (s, cap, 2)) * 0.25
+    poses[..., 2] = rng.integers(-12, 13, (s, cap)) * 0.25
+    mkp = poses.copy()
+    moved = rng.random((s, cap)) < 1.0 / 3.0
+    if ties:
+        step = rng.integers(1, 3, (s, cap)) * 0.25
+        axis = rng.integers(0, 2, (s, cap))
+        for a in (0, 1):
+            mkp[..., a] -= np.where(moved & (axis == a), step, 0.0)
+    else:
+        mkp -= np.where(moved[..., None],
+                        rng.uniform(-1.0, 1.0, (s, cap, 3))
+                        * [0.3, 0.3, 0.2], 0.0)
+    live = np.arange(cap) < fill[:, None]
+    on = {"all": None, "some": np.arange(s) % 2 == 0,
+          "none": np.zeros(s, bool)}[enable]
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return (f32(poses), torch.as_tensor(live, device=dev),
+            f32(rng.normal(0.0, 8.0, (s, cap, n_beams, 2))),
+            torch.as_tensor(rng.random((s, cap, n_beams)) < 0.9, device=dev),
+            f32(mkp), None if on is None else torch.as_tensor(on,
+                                                                device=dev),
+            m, eps)
+
+
+def k16_bound(args) -> dict:
+    """Bytes: each store's poses, map poses and live flags (25 B a slot)
+    and the selected scans (9 B a beam) read once; the 2 M N points, masks
+    and weights (13 B each) and per selected keyframe its slot, flag and
+    row (21 B) written once. Operations: ~14 a slot's staleness, 12 a
+    point's two transforms."""
+    poses, live, points, _, _, _, m, _ = args
+    s, cap, n = points.shape[:3]
+    n_bytes = (s * cap * 25 + s * m * n * 9 + s + s * 2 * m * n * 13
+               + s * m * 21)
+    return bound(n_bytes, 14.0 * s * cap + 12.0 * s * m * n)
+
+
+def check_k16(dev, seed: int, jobs=None) -> dict:
+    """K16 ``refresh_points`` against ``pipeline.refresh_points_ref`` on
+    the card at :data:`K16_CASES`: all six outputs bit-equal, and on a
+    second launch, one launch a call. Each case timed beside its plain
+    version (events), with its card time, its bound and the library call
+    ``torch.topk(stale, M, dim=1)`` on the twin's staleness (events and
+    card; the selection alone, its order among equal values not
+    guaranteed, so no oracle). Returns serving's row, the other cases
+    under ``cases``."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.slam import pipeline
+
+    rows = {}
+    for i, case in enumerate(K16_CASES):
+        label, s, cap, m, n, ties, full, enable, eps = case
+        args = k16_inputs(seed + i, dev, s, cap, m, n, ties, full, enable,
+                          eps)
+        run = lambda a=args: kernels.refresh_points(*a)
+        twin = lambda a=args: pipeline.refresh_points_ref(*a)
+        kernels.reset_launches()
+        out, again = run(), run()
+        require(kernels.LAUNCHES["refresh_points"] == 2,
+                f"K16 {label}: {kernels.LAUNCHES['refresh_points']} "
+                f"launches for two calls")
+        ref = twin()
+        torch.cuda.synchronize()
+        require(bits_equal(out, again), f"K16 {label}: two launches differ")
+        for name, a, b in zip(K16_OUTS, out, ref):
+            require(bits_equal(a, b), f"K16 {label}: {name} not bit-equal "
+                    f"to the plain version")
+        stale = pipeline.refresh_staleness(args[0], args[1], args[4])
+        top = torch.sort(stale, dim=1, descending=True).values
+        tied = int((top[:, m - 1] == top[:, m]).logical_and(
+            top[:, m] > 0).sum())
+        on = int(out[4].sum())
+        require(not ties or tied > 0,
+                f"K16 {label}: no equal staleness across the M-th place")
+        require((on == 0) == (enable == "none"),
+                f"K16 {label}: {on} selected keyframes re-placed")
+        lib = lambda st=stale, m=m: torch.topk(st, m, dim=1)
+        row = dict(max_abs_err=0.0, bit_equal=True, sessions=s,
+                   capacity=cap, m=m, beams=n, enabled=on, tied=tied,
+                   ms=time_ms(run), plain_ms=time_ms(twin), **k16_bound(args))
+        row.update(library_ms=time_ms(lib), library=(
+            "torch.topk(stale, M, dim=1) on the plain version's staleness: "
+            "the selection alone, its order among equal values not "
+            "guaranteed"))
+        card_time(jobs, f"K16 refresh_points {label}", row, "card_ms", run,
+                  ["refresh_points"], per_call=1)
+        card_time(jobs, f"K16 library call {label}", row, "library_card_ms",
+                  lib)
+        rows[label] = row
+        print(f"[smoke] K16 refresh_points {label} (S={s} x {cap} slots, "
+              f"M={m}, N={n}, eps {eps}, enable {enable}): all outputs "
+              f"bit-equal to the plain version and on a second launch; "
+              f"{on} keyframes re-placed, {tied} sessions tied at the M-th "
+              f"place; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library (topk) "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']})")
+    out = rows.pop("serving")
+    out["cases"] = rows
+    return out
+
+
+def check_k5_stacked(state8, jobs=None) -> dict:
+    """K5's fresh window of S sessions on the serving run's 8 graphs (each
+    session's newest poses moved, so the residuals are not 0): bit-equal
+    to one single-session K5 launch a session, within rtol 1e-5 of the f32
+    plain version, one launch a call; timed beside the S single launches
+    and the plain version."""
+    import torch
+
+    from ndtpu_torch import kernels
+    from ndtpu_torch.dist import slam_dp
+    from ndtpu_torch.graph import incremental as inc
+
+    g8 = _moved_graph8(state8.graph, 5)
+    s = g8.poses.shape[0]
+    run = lambda: inc.fresh_residual_max_stacked(g8)
+    singles = lambda: torch.stack([
+        inc.fresh_residual_max(slam_dp._take(g8, i)) for i in range(s)])
+    kernels.reset_launches()
+    out = run()
+    require(kernels.LAUNCHES["factor_linearize"] == 1,
+            f"K5 fresh window of {s} sessions: "
+            f"{kernels.LAUNCHES['factor_linearize']} launches")
+    one, ref = singles(), inc.fresh_residual_max_stacked_ref(g8)
+    torch.cuda.synchronize()
+    require(bits_equal(out, one), "K5 fresh window of S sessions: not "
+            "bit-equal to the single-session launches")
+    err = _rel_check("K5 fresh window of S sessions", [out], [ref])
+    require(bool((out > 0).all()), "K5 fresh window: a session's max is 0")
+    k = min(64, g8.bet_mask.shape[1])
+    # Per slot its mask, indices, z and sqrt-info (61 B) and two poses
+    # (24 B) read; S floats written.
+    bd = bound(s * k * 85 + s * 12, s * k * K5_ROW_FLOPS)
+    row = dict(sessions=s, window=k, max_abs_err=err, bit_equal_singles=True,
+               ms=time_ms(run), singles_ms=time_ms(singles),
+               plain_ms=time_ms(lambda: inc.fresh_residual_max_stacked_ref(
+                   g8)), **bd)
+    card_time(jobs, f"K5 fresh window of {s} sessions", row, "card_ms", run,
+              ["linearize_"], per_call=1)
+    card_time(jobs, f"K5 fresh window, {s} single launches", row,
+              "singles_card_ms", singles, ["linearize_"], per_call=s)
+    print(f"[smoke] K5 fresh window of {s} sessions ({k} slots each): "
+          f"bit-equal to {s} single launches, max abs err vs f32 plain "
+          f"{err:.3e}; one launch {row['ms']:.4f} ms against "
+          f"{row['singles_ms']:.4f} ms for {s}, plain {row['plain_ms']:.4f} "
+          f"ms, bound {bd['bound_ms']:.6f} ms ({bd['bound_by']})")
+    return row
 
 
 #: The most host syncs a window's backend may make outside the loop
@@ -8298,6 +8560,9 @@ def main(argv=None) -> int:
     # K15: the loop verify's set-up at config 3's and serving's shapes,
     # with equal distances and with a full store.
     results["loop_lanes"] = check_k15(dev, args.seed, jobs)
+    # K16: serving's refresh at its published capacity and the smoke's,
+    # with equal staleness across the M-th place, a full store, all off.
+    results["refresh_points"] = check_k16(dev, args.seed, jobs)
     # The map build is the same on every run; what the whole pipeline does
     # run to run on the draws whose ATE flipped under float atomics.
     check_frontend_twice(cfg3, box_sequence(2, cfg3.n_beams), dev)
@@ -8366,7 +8631,8 @@ def main(argv=None) -> int:
     phase_s = {}
     t_phase = time.perf_counter()
     check_padded_sessions(dev)
-    launches8, served, state8 = run_serving(dev, card)
+    launches8, served, state8 = run_serving(dev, card, jobs=jobs)
+    results["loop_gate_fused"]["serving"] = served.pop("gated_verify")
     serving = dict(aggregate_scans_per_s=served["aggregate_scans_per_s"],
                    run_s=served["run_s"], first_run_s=served["first_run_s"],
                    sessions=serving_gates(served))
@@ -8384,6 +8650,8 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     cfg8 = slam_dp.serving_config(PipelineConfig.from_json(str(SERVING)))
     results["pcg_solve_blocked"] = check_k6b(state8, cfg8, args.seed, jobs)
+    results["factor_linearize"]["fresh_stacked"] = check_k5_stacked(state8,
+                                                                    jobs)
     results["halfcell_add_stacked"] = check_k3s(state8, cfg8, jobs)
     results["finalize_pack_stacked"] = check_k4s(state8, cfg8, jobs)
     results.update(check_stacked_layouts(state8, cfg8, jobs))

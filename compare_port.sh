@@ -12,7 +12,11 @@
 # Last, one line per hot key: each run's event and card ms, and whether the
 # outputs' hashes agree across runs. WHAT "window" runs only the window
 # profiles: profile_port.py on configs 3 and 2 and with --serving (stacked
-# serving, 8 x 300), two runs each, in the same turns.
+# serving, 8 x 300), two runs each, and --takes (configs 2 and 3, box-world
+# draws 0-2), in the same turns; last, one line per run: serving's
+# aggregate scans/s, its stages' shares of a window, device events and
+# host syncs a window, and the hashes of its trajectories and final state
+# and of each draw's.
 #
 #   bash compare_port.sh OLDER_CHECKOUT OUT_DIR [all|hot|window]
 #
@@ -51,6 +55,9 @@ for who in p c c p; do
       --out "$out/prof_${i}_${who}_serving.json" \
       > "$out/prof_${i}_${who}_serving.log" 2>&1)
     echo "profile $i $who serving rc=$?"
+    (cd "$dir" && timeout 300 python3 profile_port.py --takes \
+      --out "$out/takes_${i}_${who}.json" > "$out/takes_${i}_${who}.log" 2>&1)
+    echo "takes $i $who rc=$?"
     continue
   fi
   for spec in "config3_loop_closure 600" "config2_full_sequence 300"; do
@@ -69,6 +76,24 @@ print('CLI', [x['scans_per_s'] for x in r], [x['ate'] for x in r],
     grep CLI "$out/cli_${i}_${who}_$1.log"
   done
 done
+if [ "$what" = window ]; then
+  python3 - "$out" <<'PY'
+import glob, json, sys
+for f in sorted(glob.glob(sys.argv[1] + "/prof_*_serving.json")):
+    r = json.load(open(f))["serving"]
+    wall = r["stage_wall_s"]
+    share = {k: round(100 * v / wall, 1) for k, v in r["stage_s"].items()}
+    print(f.split("/")[-1], "scans/s", [round(x, 1) for x in
+                                        r["aggregate_scans_per_s"]],
+          "stage %", share, "events/window",
+          round(r["device_events_per_window"], 1), "syncs/window",
+          round(r["host_syncs"]["per_window"], 2), "sha", r.get("sha256"))
+for f in sorted(glob.glob(sys.argv[1] + "/takes_*.json")):
+    t = json.load(open(f))["takes"]
+    print(f.split("/")[-1], {k: (v["loops"], v["ate_m"], v.get("traj_sha"),
+                                 v.get("state_sha")) for k, v in t.items()})
+PY
+fi
 # Hot's keys side by side: each run's event ms and card ms, and whether
 # every run's outputs hash alike (SAME) or not (DIFF); a library call's
 # outputs (float atomics) are not hashed ("library").

@@ -11,13 +11,19 @@ semantics as ``pipeline.run_slam_windowed`` under a :func:`serving_config`:
   K4s packs in one launch, and builds the S pass-2 temporary maps with one
   K3s launch;
 - the appends of all S sessions are one K14 launch (``slam.appends``) on
-  the stacked arrays, and the accepted loop factors one launch of its loop
-  entry; K8a and the loop verify run per session (S gated verify launches
-  per window; the fused verify is a ROADMAP item);
-- the smoother runs all sessions on one block-diagonal flat graph: K5
-  linearizes it, and K6b solves S independent PCGs (per-session Krylov
-  scalars, damping, accept and step) in one launch;
-- the map extend and the top-M refresh are one K3s launch each.
+  the stacked arrays, the new keyframes' local tables one K8a launch into
+  the flat view of the stacked cache, the loop verify one K15 and one
+  gated ``lm_ndt`` launch over every session's lanes, and the accepted
+  loop factors one launch of K14's loop entry;
+- the smoother's need test is one K5 fresh-window launch for all
+  sessions; the smoother runs all sessions on one block-diagonal flat
+  graph: K5 linearizes it, and K6b solves S independent PCGs
+  (per-session Krylov scalars, damping, accept and step) in one launch;
+- the map extend is one K3s launch; the top-M refresh one K16 launch
+  (every session's selection and weighted points), one K3s and one K14
+  row write.
+
+No step of a window loops over the sessions.
 
 JAX hoists the smoother's and the refresh's ``lax.cond`` to batch level
 (``jnp.any`` of the per-session predicates) and masks the update per
@@ -277,8 +283,7 @@ def _frontend_stacked(state8, lkr8, pts8, msk8, deltas8,
         return ndt_grid.finalize_pack_stacked(stats8, cfg.ndt, cfg.grid,
                                               cfg.match.compact_table)
 
-    inits = torch.stack([chain_deltas(state8.pose[i], deltas8[i])
-                         for i in range(s)])                   # [S, W, 3]
+    inits = chain_deltas(state8.pose, deltas8)                  # [S, W, 3]
     res = ndt_match.match_batch_packed(
         flat(mpts8), flat(mmsk8), pack8(state8.stats), flat(inits), cfg.grid,
         cfg.match, group=group)
@@ -319,17 +324,15 @@ def _extend_stacked(state8, mkp8, poses8, pts8, msk8, is_kf8,
 
 
 def _refresh_stacked(stats8, kf8, mkp8, cfg: PipelineConfig, enable8):
-    """``pipeline._refresh_map(..., enable=)`` of every session: each
-    session's top-M selection, then one weighted K3s launch and one K14 row
-    write. Returns ``(stats8, mkp8)``."""
-    parts = [pipeline._refresh_points(_take(kf8, i), mkp8[i], cfg,
-                                      enable8[i])
-             for i in range(mkp8.shape[0])]
-    both8, bmsk8, wts8, sel8, do8 = (torch.stack(f) for f in zip(*parts))
+    """``pipeline._refresh_map(..., enable=)`` of every session: one K16
+    launch (``pipeline._refresh_points``: each session's top-M selection
+    and weighted points), one weighted K3s launch and one K14 row write.
+    Returns ``(stats8, mkp8)``."""
+    both8, bmsk8, wts8, sel8, do8, rows8 = pipeline._refresh_points(
+        kf8, mkp8, cfg, enable8)
     stats8 = ndt_grid.add_points_stacked(stats8, both8, bmsk8, cfg.grid,
                                          weight=wts8)
-    poses_sel = torch.gather(kf8.poses, 1, sel8[..., None].expand(-1, -1, 3))
-    return stats8, appends.set_rows(mkp8, sel8, do8, poses_sel)
+    return stats8, appends.set_rows(mkp8, sel8, do8, rows8)
 
 
 def _appends_stacked(state8, lkr8, poses8, hessians8, pts8, msk8, is_kf8,
@@ -358,8 +361,7 @@ def _stacked_window_step(state8, lkr8, pts8, msk8, deltas8,
     # is exactly what the masked update gives when no session needs it.
     thr = cfg.solver.relin_threshold
     settled8 = state8.sm_last_delta < thr
-    fresh8 = torch.stack([inc.fresh_residual_max(_take(graph8, i))
-                          for i in range(s)])
+    fresh8 = inc.fresh_residual_max_stacked(graph8)
     need8 = any_kf8 & ~(settled8 & (fresh8 < thr))
     # The map's refresh trigger ("a loop landed"); both branches' decisions
     # come to the host in one transfer.

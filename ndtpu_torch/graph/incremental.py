@@ -32,7 +32,9 @@ from ndtpu_torch.graph import solve as slv
 __all__ = ["SmootherState", "Gates", "gate_flags", "init_smoother",
            "incremental_update",
            "local_update", "local_select", "local_select_ref",
-           "fresh_residual_max", "fresh_residual_max_ref", "full_solve",
+           "fresh_residual_max", "fresh_residual_max_ref",
+           "fresh_residual_max_stacked", "fresh_residual_max_stacked_ref",
+           "full_solve",
            "marginal_covariance_pcg", "marginal_covariance"]
 
 
@@ -123,6 +125,38 @@ def fresh_residual_max_ref(g: fct.PoseGraph, k: int = 64):
     wr = (g.bet_sqrt_info[sl] * r[:, None, :]).sum(-1)
     return torch.max(torch.where(g.bet_mask[sl][:, None], torch.abs(wr),
                                  torch.zeros_like(wr)))
+
+
+def fresh_residual_max_stacked(g8: fct.PoseGraph, k: int = 64):
+    """:func:`fresh_residual_max` of ``S`` sessions (every field of ``g8``
+    with a leading session axis): ``[S]``. CUDA tensors go to one K5 launch
+    (its fresh window of S sessions, each value the bits of its own
+    launch), CPU tensors to :func:`fresh_residual_max_stacked_ref`."""
+    if not g8.poses.is_cuda:
+        return fresh_residual_max_stacked_ref(g8, k)
+    return kernels.fresh_residual_max_stacked(
+        g8.poses.contiguous(), g8.bet_i.contiguous(), g8.bet_j.contiguous(),
+        g8.bet_z.contiguous(), g8.bet_sqrt_info.contiguous(),
+        g8.bet_mask.contiguous(), g8.n_between.contiguous(), k)
+
+
+def fresh_residual_max_stacked_ref(g8: fct.PoseGraph, k: int = 64):
+    """The plain version of K5's fresh window of S sessions: the vmap of
+    :func:`fresh_residual_max_ref` as one batched gather over ``[S, k]``
+    slots."""
+    f_cap = g8.bet_mask.shape[1]
+    k = min(k, f_cap)
+    start = torch.clamp(g8.n_between - k, 0, f_cap - k)
+    sl = start[:, None] + torch.arange(k, device=start.device)   # [S, k]
+    rows = lambda a: torch.gather(
+        a, 1, sl.reshape(sl.shape + (1,) * (a.dim() - 2)).expand(
+            sl.shape + a.shape[2:]))
+    ends = lambda idx: torch.gather(
+        g8.poses, 1, rows(idx)[..., None].expand(-1, -1, 3))
+    r = fct.between_error(ends(g8.bet_i), ends(g8.bet_j), rows(g8.bet_z))
+    wr = (rows(g8.bet_sqrt_info) * r[..., None, :]).sum(-1)
+    return torch.where(rows(g8.bet_mask)[..., None], torch.abs(wr),
+                       torch.zeros_like(wr)).amax((1, 2))
 
 
 def _fresh_slice(g: fct.PoseGraph, k: int, since=None):

@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``): build, bind, launch.
 
-Twenty-five kernels carry the windowed and per-scan pipelines with loop
-closure, the loop verify's set-up, the window's appends, the pose-graph
+Twenty-six kernels carry the windowed and per-scan pipelines with loop
+closure, the loop verify's set-up, the window's appends, serving's map
+refresh, the pose-graph
 smoother, the large-graph supernodal and PCG solves, stacked
 multi-session serving, config 5's merge and distributed solve, its
 slab-sharded map, and the input preparation (ROADMAP Queue B):
@@ -109,6 +110,12 @@ loop_lanes   ``csrc/loop_lanes.cu`` (K15)    ``closure.find_candidates`` and
                                              sort of 64-bit (distance,
                                              index) keys per query, then
                                              the gated ``lm_ndt``'s lanes
+refresh_     ``csrc/refresh_points.cu``      ``pipeline._refresh_map``'s
+points       (K16)                           staleness, ``lax.top_k`` and
+                                             weighted old / new points for
+                                             S sessions: ranks counted in
+                                             shared memory, one block a
+                                             session
 ============ =============================== =================================
 
 K5, K6, K6g and K7b share the pose graph's arithmetic,
@@ -204,7 +211,9 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "slab_spread", "slab_sgh", "raycast", "sgh_spread", "voxel_smem",
            "voxel_route", "voxel_downsample", "WINDOW_MAX", "window_append",
            "loop_append", "rows_set", "LOOP_LANES_MAX_CAP", "loop_lanes_smem",
-           "loop_lanes_check", "loop_lanes"]
+           "loop_lanes_check", "loop_lanes", "refresh_smem",
+           "refresh_max_cap", "refresh_check",
+           "refresh_points", "FRESH_MAX_WINDOW", "fresh_residual_max_stacked"]
 
 #: The quad-table layouts ``(G, L)``: G overlap grids per row (4, or 1 at
 #: ``overlap = 1``) of L lanes each (8 full, or 4 compact bf16-pair lanes at
@@ -247,7 +256,7 @@ LAUNCHES = {"lm_ndt": 0, "lm_ndt_grouped": 0, "ndt_terms": 0,
             "raycast": 0, "voxel_downsample": 0,
             "voxel_downsample[scan]": 0, "window_append": 0,
             "window_append[loops]": 0, "window_append[rows]": 0,
-            "loop_lanes": 0,
+            "loop_lanes": 0, "refresh_points": 0,
             **{variant(k, 1): 0 for k in _GRID_KERNELS},
             **{variant(k, g, l): 0 for k in _LAYOUT_KERNELS
                for g, l in LAYOUTS[1:]}}
@@ -285,7 +294,7 @@ _SIGNATURES = {
                            + [_I] * 3 + [_P],
     "loop_gate_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                          _F, _F, _F, _I, _P],
-    "factor_linearize_launch": [_P] * 8 + [_I] * 3 + [_P] * 4 + [_I, _F, _I]
+    "factor_linearize_launch": [_P] * 8 + [_I] * 5 + [_P] * 4 + [_I, _F, _I]
                                + [_P] * 8,
     "pcg_solve_launch": [_P, _P, _P, _I, _P, _P, _I, _P, _I] + [_P] * 7
                         + [_F, _F, _I, _F] + [_P] * 5,
@@ -316,6 +325,7 @@ _SIGNATURES = {
     "loop_append_launch": [_P] + [_I] * 5 + [_P],
     "rows_set_launch": [_P] * 5 + [_I] * 4 + [_P],
     "loop_lanes_launch": [_P] + [_I] * 9 + [_F, ctypes.c_longlong, _P],
+    "refresh_points_launch": [_P] + [_I] * 4 + [_F, _I, _P],
 }
 
 
@@ -1005,7 +1015,7 @@ def _lin_call(poses, bet_i, bet_j, bet_z, bet_sqrt_info, row_mask, fid,
           bet_sqrt_info.data_ptr(), row_mask.data_ptr(),
           None if fid is None else fid.data_ptr(),
           None if n_between is None else n_between.data_ptr(), rows, window,
-          f, prior_idx.data_ptr(), prior_z.data_ptr(),
+          f, 0, 0, prior_idx.data_ptr(), prior_z.data_ptr(),
           prior_sqrt_info.data_ptr(), prior_mask.data_ptr(), p,
           float(delta), kind, *(ptrs or [None] * 5), scal.data_ptr(),
           _lin_arrive(dev, stream).data_ptr(), stream)
@@ -1059,6 +1069,46 @@ def fresh_residual_max(poses, bet_i, bet_j, bet_z, bet_sqrt_info, bet_mask,
                         None, n_between, k, k, prior_idx, prior_z,
                         prior_sqrt_info, prior_mask, 0.0, 0, False)
     return scal[1]
+
+
+#: The longest fresh window K5 takes for S sessions in one launch: one row
+#: block of 256 threads a session.
+FRESH_MAX_WINDOW = 256
+
+
+def fresh_residual_max_stacked(poses, bet_i, bet_j, bet_z, bet_sqrt_info,
+                               bet_mask, n_between, k: int):
+    """K5's fresh window for ``S`` sessions in one launch: ``poses [S, V,
+    3]``, ``bet_i`` / ``bet_j [S, F]`` (int64, session-local),
+    ``bet_z [S, F, 3]``, ``bet_sqrt_info [S, F, 3, 3]``, ``bet_mask [S,
+    F]``, ``n_between [S]`` (int64, read on the card). Row block ``s``
+    takes session ``s``'s ``k`` slots (at most :data:`FRESH_MAX_WINDOW`)
+    from ``clamp(n_between[s] - k, 0, F - k)``. Returns ``[S]``, each
+    session's value the bits of its own :func:`fresh_residual_max`."""
+    s, v = poses.shape[:2]
+    f = bet_i.shape[1]
+    k = min(k, f)
+    if not 1 <= k <= FRESH_MAX_WINDOW:
+        raise ValueError(f"fresh_residual_max_stacked: a window of {k} "
+                         f"slots (1 to {FRESH_MAX_WINDOW} taken)")
+    i64 = torch.int64
+    _check(poses, "poses", shape=(s, v, 3))
+    _check(bet_i, "bet_i", dtype=i64, shape=(s, f))
+    _check(bet_j, "bet_j", dtype=i64, shape=(s, f))
+    _check(bet_z, "bet_z", shape=(s, f, 3))
+    _check(bet_sqrt_info, "bet_sqrt_info", shape=(s, f, 3, 3))
+    _check(bet_mask, "bet_mask", dtype=torch.bool, shape=(s, f), align=1)
+    _check(n_between, "n_between", dtype=i64, shape=(s,))
+    dev = poses.device
+    scal = torch.empty(3 + 2 * s, dtype=torch.float32, device=dev)
+    stream = _stream(poses)
+    _call("factor_linearize_launch", "factor_linearize", poses.data_ptr(),
+          bet_i.data_ptr(), bet_j.data_ptr(), bet_z.data_ptr(),
+          bet_sqrt_info.data_ptr(), bet_mask.data_ptr(), None,
+          n_between.data_ptr(), k, k, f, s, v, None, None, None, None, 0,
+          0.0, 0, None, None, None, None, None, scal.data_ptr(),
+          _lin_arrive(dev, stream).data_ptr(), stream)
+    return scal[3:3 + 2 * s:2]
 
 
 def pcg_smem(v: int, f: int, p: int) -> int:
@@ -2029,3 +2079,91 @@ def loop_lanes(kf_poses, kf_live, points, mask, poses, sel, query_index,
               too_big=f"{loop_lanes_smem(cap)} B of shared memory for a "
                       f"store of {cap} slots")
     return cands + out
+
+
+def refresh_smem(cap: int, m: int) -> int:
+    """K16's dynamic shared memory for stores of ``cap`` slots and ``m``
+    selected keyframes a session: 8 B a candidate (at most ``min(m, 32)``
+    of each 32 slots; ``max_candidates`` of ``csrc/refresh_points.cu``) and
+    41 B a selected keyframe (its slot, staleness, both poses' cos, sin, x
+    and y, its mask), rounded up to 16 B."""
+    cand = min(cap, -(-cap // 32) * min(m, 32))
+    return -(-(8 * cand + 41 * m) // 16) * 16
+
+
+def refresh_max_cap(m: int) -> int:
+    """The largest store K16 takes with ``m`` selected keyframes a session
+    (:func:`refresh_smem` within :data:`SMEM_MAX`), or 0 where none."""
+    lo, hi = 0, 1 << 24
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if mid >= m and refresh_smem(mid, m) <= SMEM_MAX:
+            lo = mid
+        elif mid < m:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo if lo >= m else 0
+
+
+def refresh_check(cap: int, m: int, n: int) -> None:
+    """Raise where K16 cannot select ``m`` of ``cap`` slots a session with
+    scans of ``n`` beams: ``1 <= m <= cap``, ``m n < 2^30``, and
+    :func:`refresh_smem` within one block's shared memory
+    (:data:`SMEM_MAX`; :func:`refresh_max_cap` slots)."""
+    if not 1 <= m <= cap:
+        raise ValueError(f"refresh_points: {m} keyframes from a store of "
+                         f"{cap} slots")
+    if m * n >= 1 << 30:
+        raise ValueError(f"refresh_points: {m} x {n} points a session")
+    if refresh_smem(cap, m) > SMEM_MAX:
+        raise ValueError(
+            f"refresh_points: a keyframe store of {cap} slots with "
+            f"refresh_top_m = {m} needs {refresh_smem(cap, m)} B of one "
+            f"block's shared memory (8 B a candidate slot + 41 B a selected "
+            f"keyframe; {SMEM_MAX} B taken: at most {refresh_max_cap(m)} "
+            f"slots)")
+
+
+def refresh_points(kf_poses, kf_live, kf_points, kf_masks, mkp, enable,
+                   m: int, eps: float) -> tuple:
+    """K16: ``pipeline._refresh_map``'s points for ``S`` sessions in one
+    launch (see ``csrc/refresh_points.cu``). Stores ``kf_poses [S, cap,
+    3]`` (f32), ``kf_live [S, cap]``, ``kf_points [S, cap, N, 2]``,
+    ``kf_masks [S, cap, N]``, the poses the maps saw ``mkp [S, cap, 3]``,
+    ``enable [S]`` bool or None (every session). Selects each session's
+    ``m`` stalest keyframes (``lax.top_k``: equal staleness in index
+    order). Returns ``(both [S, 2 m N, 2], bmsk [S, 2 m N], wts [S, 2 m N],
+    sel [S, m] int64, do [S, m] bool, rows [S, m, 3])``: the selected scans
+    at their old poses, then at their smoothed poses, their masks (``masks
+    & live & do``) and weights (-1, then +1), ``do = stale > eps &
+    enable``, and ``kf_poses[sel]``. :func:`refresh_check` raises past its
+    limits before any device check."""
+    s, cap, n = kf_masks.shape
+    refresh_check(cap, m, n)
+    f32, b8 = torch.float32, torch.bool
+    spec = [(kf_poses, "kf.poses", f32, (s, cap, 3), 4),
+            (kf_live, "kf.live", b8, (s, cap), 1),
+            (kf_points, "kf.points", f32, (s, cap, n, 2), 8),
+            (kf_masks, "kf.masks", b8, (s, cap, n), 1),
+            (mkp, "map_kf_poses", f32, (s, cap, 3), 4)]
+    if enable is not None:
+        spec.append((enable, "enable", b8, (s,), 1))
+    for t, what, dt, shape, align in spec:
+        _check(t, what, dtype=dt, shape=shape, align=align)
+    dev = kf_poses.device
+    out = (torch.empty((s, 2 * m * n, 2), dtype=f32, device=dev),
+           torch.empty((s, 2 * m * n), dtype=b8, device=dev),
+           torch.empty((s, 2 * m * n), dtype=f32, device=dev),
+           torch.empty((s, m), dtype=torch.int64, device=dev),
+           torch.empty((s, m), dtype=b8, device=dev),
+           torch.empty((s, m, 3), dtype=f32, device=dev))
+    ptrs = [0 if t is None else t.data_ptr()
+            for t in (kf_poses, kf_live, kf_points, kf_masks, mkp, enable)
+            + out]
+    smem = refresh_smem(cap, m)
+    _call("refresh_points_launch", "refresh_points",
+          (ctypes.c_longlong * len(ptrs))(*ptrs), s, cap, m, n, float(eps),
+          smem, _stream(kf_poses),
+          too_big=f"{smem} B of shared memory for a store of {cap} slots")
+    return out

@@ -16,9 +16,16 @@
 // gathered list, the local path, with its own mask, or slot start + t of
 // the fresh window, start = clamp(n_between - window, 0, F - window) read
 // on the device); block R takes the priors, one thread each in turns of
-// 256. A row block stages its rows' Ai, Aj and r in shared memory and
-// writes each block's span of the three outputs in coalesced 16-byte
-// vectors (the row-per-thread layout is a 36-byte stride), and writes its
+// 256. The fresh window of S sessions (a block-diagonal graph stored
+// session by session: F factor and V pose slots each, the factors'
+// endpoints session-local) is one launch too: row block s takes session
+// s's window, up to 256 slots from clamp(n_between[s] - window, 0, F -
+// window), its endpoints offset by s V, and its max is that session's
+// value, the same bits as the session's own launch (the last block's
+// NaN-keeping max of one partial is the partial). A row block stages its
+// rows' Ai, Aj and r in shared memory and writes each block's span of the
+// three outputs in coalesced 16-byte vectors (the row-per-thread layout is
+// a 36-byte stride), and writes its
 // chi^2 partial (a shuffle tree within each warp, then one over the warps'
 // sums: pose_graph.cuh's block tree, block_sum's order) and its largest
 // raw residual. The prior block linearizes the priors and sums their
@@ -59,6 +66,8 @@ struct LinArgs {
   int rows;
   int window;                // > 0: the fresh-window mode
   int f_cap;
+  int sessions;              // > 0: the fresh window of S sessions
+  int pose_stride;           // V: session s's poses from s V
   const long long* prior_idx;
   const float* prior_z;
   const float* prior_sqi;
@@ -101,23 +110,25 @@ factor_linearize_kernel(LinArgs a) {
   __shared__ bool last;
   const int b = blockIdx.x, tid = threadIdx.x, R = a.row_blocks;
   if (b < R) {
-    const int t0 = b * kRowThreads, t = t0 + tid;
+    const int t0 = a.sessions > 0 ? 0 : b * kRowThreads, t = t0 + tid;
     float chi = 0.f, mx = 0.f;
     if (t < a.rows) {
-      long long f;
+      long long f, po = 0;
       float m;
       if (a.window > 0) {
-        long long st = *a.n_between - a.window;
+        const int sb = a.sessions > 0 ? b : 0;
+        long long st = a.n_between[sb] - a.window;
         st = st < 0 ? 0 : st;
         st = st > a.f_cap - a.window ? a.f_cap - a.window : st;
-        f = st + t;
+        f = (long long)sb * a.f_cap + st + t;
+        po = (long long)sb * a.pose_stride;
         m = a.row_mask[f] ? 1.f : 0.f;
       } else {
         f = a.fid != nullptr ? a.fid[t] : t;
         m = a.row_mask[t] ? 1.f : 0.f;
       }
-      const float* pi = a.poses + 3 * a.bet_i[f];
-      const float* pj = a.poses + 3 * a.bet_j[f];
+      const float* pi = a.poses + 3 * (po + a.bet_i[f]);
+      const float* pj = a.poses + 3 * (po + a.bet_j[f]);
       float ai[9], aj[9], r[3], raw;
       ndtpu::pg::linearize_between(pi, pj, a.bet_z + 3 * f,
                                    a.bet_sqi + 9 * f, a.delta, a.kind, m, ai,
@@ -218,20 +229,24 @@ extern "C" int factor_linearize_launch(
     const void* poses, const void* bet_i, const void* bet_j,
     const void* bet_z, const void* bet_sqi, const void* row_mask,
     const void* fid, const void* n_between, int rows, int window, int f_cap,
-    const void* prior_idx, const void* prior_z, const void* prior_sqi,
+    int sessions, int pose_stride, const void* prior_idx, const void* prior_z, const void* prior_sqi,
     const void* prior_mask, int n_priors, float delta, int kind, void* ai,
     void* aj, void* r, void* ap, void* rp, void* out, void* arrive,
     void* stream) {
   if (rows < 0 || n_priors < 0 || kind < 0 || kind > 3 ||
       arrive == nullptr ||
-      (window > 0 && (window > f_cap || rows != window)))
+      (window > 0 && (window > f_cap || rows != window)) ||
+      (sessions > 0 && (window < 1 || window > kRowThreads ||
+                        pose_stride < 0)))
     return (int)cudaErrorInvalidValue;
-  const int blocks = (rows + kRowThreads - 1) / kRowThreads;
+  const int blocks = sessions > 0 ? sessions
+                                  : (rows + kRowThreads - 1) / kRowThreads;
   const LinArgs a{(const float*)poses, (const long long*)bet_i,
                   (const long long*)bet_j, (const float*)bet_z,
                   (const float*)bet_sqi, (const uint8_t*)row_mask,
                   (const long long*)fid, (const long long*)n_between, rows,
-                  window, f_cap, (const long long*)prior_idx,
+                  window, f_cap, sessions, pose_stride,
+                  (const long long*)prior_idx,
                   (const float*)prior_z, (const float*)prior_sqi,
                   (const uint8_t*)prior_mask, n_priors, delta, kind,
                   (float*)ai, (float*)aj, (float*)r, (float*)ap, (float*)rp,

@@ -85,16 +85,29 @@ def gate_poses(res_pose, converged, inits, gate: float):
     return torch.where(ok[..., None], res_pose, inits), ok
 
 
+def _window_cumsum(x):
+    """Prefix sums along the last (window) axis. With leading axes each row
+    is summed as a column of the ``[W, ...]`` transpose: PyTorch's scan
+    over an outer dimension adds each column left to right, as its scan of
+    one ``[W]`` row adds on the H100 at windows of up to 16 scans (serving's
+    is 8), while its scan of many rows along the innermost dimension adds
+    in a tree order, to other bits."""
+    return torch.cumsum(x.movedim(-1, 0), 0).movedim(0, -1)
+
+
 def chain_deltas(pose0, deltas):
-    """Dead-reckoned poses ``[W, 3]``: pose_i = pose0 . delta_1 ... delta_i
-    (the JAX package's closed form: two prefix sums)."""
-    th = pose0[2] + torch.cumsum(deltas[:, 2], 0)
-    th_prev = torch.cat([pose0[2][None], th[:-1]])
+    """Dead-reckoned poses ``[..., W, 3]``: pose_i = pose0 . delta_1 ...
+    delta_i (the JAX package's closed form: two prefix sums), for
+    ``pose0 [..., 3]`` and ``deltas [..., W, 3]``: one call for every
+    session of a stacked window (the JAX package's ``jax.vmap``)."""
+    th0 = pose0[..., 2:3]
+    th = th0 + _window_cumsum(deltas[..., 2])
+    th_prev = torch.cat([th0, th[..., :-1]], -1)
     c, s = torch.cos(th_prev), torch.sin(th_prev)
-    dx = c * deltas[:, 0] - s * deltas[:, 1]
-    dy = s * deltas[:, 0] + c * deltas[:, 1]
-    x = pose0[0] + torch.cumsum(dx, 0)
-    y = pose0[1] + torch.cumsum(dy, 0)
+    dx = c * deltas[..., 0] - s * deltas[..., 1]
+    dy = s * deltas[..., 0] + c * deltas[..., 1]
+    x = pose0[..., 0:1] + _window_cumsum(dx)
+    y = pose0[..., 1:2] + _window_cumsum(dy)
     return torch.stack([x, y, se2.wrap(th)], -1)
 
 

@@ -47,6 +47,7 @@ from typing import NamedTuple
 
 import torch
 
+from ndtpu_torch import kernels
 from ndtpu_torch.config import PipelineConfig
 from ndtpu_torch.graph import factors as fct
 from ndtpu_torch.graph import incremental as inc
@@ -135,37 +136,82 @@ def _refresh_map(stats, kf: kfs.KeyframeStore, mkp, cfg: PipelineConfig,
     the pose the map saw it at, add it at its smoothed pose (one weighted
     K3 call). ``enable`` (a bool or a 0-d bool tensor) masks the whole
     refresh to a no-op, as the stacked multi-session path runs it for the
-    sessions whose trigger is false. Returns ``(stats, mkp)``."""
-    both, bmsk, wts, sel, do = _refresh_points(kf, mkp, cfg, enable)
-    stats = ndt_grid.add_points(stats, both, bmsk, cfg.grid, weight=wts)
-    return stats, appends.set_rows(mkp[None], sel[None], do[None],
-                                   kf.poses[sel][None])[0]
+    sessions whose trigger is false. The points are
+    :func:`_refresh_points` at one session (K16 on the card). Returns
+    ``(stats, mkp)``."""
+    if isinstance(enable, torch.Tensor):
+        enable = enable.reshape(1)
+    both, bmsk, wts, sel, do, rows = _refresh_points(
+        _lead(kf), mkp[None], cfg, enable)
+    stats = ndt_grid.add_points(stats, both[0], bmsk[0], cfg.grid,
+                                weight=wts[0])
+    return stats, appends.set_rows(mkp[None], sel, do, rows)[0]
 
 
-def _refresh_points(kf: kfs.KeyframeStore, mkp, cfg: PipelineConfig,
-                    enable=True):
-    """The refresh's weighted points: ``(points [2 M N, 2], mask, weights,
-    sel [M], do [M])``, the M stalest keyframes at their old poses
-    (weight -1) then at their smoothed poses (+1)."""
-    m_top = min(cfg.refresh_top_m, kf.capacity)
-    d_xy = torch.linalg.norm(kf.poses[:, :2] - mkp[:, :2], dim=-1)
-    d_th = torch.abs(se2.wrap(kf.poses[:, 2:] - mkp[:, 2:]))[:, 0]
-    stale = torch.where(kf.live, torch.maximum(d_xy, d_th),
-                        torch.zeros_like(d_xy))
-    val, sel = torch.topk(stale, m_top)
-    do = val > cfg.refresh_eps
-    if enable is not True:
-        do = do & enable
-    smsk = (kf.masks[sel] & kf.live[sel][:, None] & do[:, None]).reshape(-1)
-    spts = kf.points[sel]
-    old_w = se2.transform(mkp[sel], spts).reshape(-1, 2)
-    new_w = se2.transform(kf.poses[sel], spts).reshape(-1, 2)
-    both = torch.cat([old_w, new_w], 0)
-    wts = torch.cat([torch.full((old_w.shape[0],), -1.0, dtype=both.dtype,
-                                device=both.device),
-                     torch.ones(new_w.shape[0], dtype=both.dtype,
-                                device=both.device)])
-    return both, torch.cat([smsk, smsk]), wts, sel, do
+def _refresh_points(kf8: kfs.KeyframeStore, mkp8, cfg: PipelineConfig,
+                    enable8=True):
+    """The refresh's weighted points for ``S`` sessions (``kf8`` and
+    ``mkp8 [S, cap, 3]`` with a leading session axis; ``enable8`` a bool
+    or ``[S]`` bool): :func:`refresh_points_ref`'s outputs, from K16
+    ``refresh_points`` (one launch) on CUDA tensors, from
+    :func:`refresh_points_ref` on CPU tensors."""
+    m_top = min(cfg.refresh_top_m, kf8.poses.shape[1])
+    if enable8 is True:
+        enable8 = None
+    elif enable8 is False:
+        enable8 = torch.zeros(mkp8.shape[0], dtype=torch.bool,
+                              device=mkp8.device)
+    args = (kf8.poses.contiguous(), kf8.live.contiguous(),
+            kf8.points.contiguous(), kf8.masks.contiguous(),
+            mkp8.contiguous(), enable8, m_top, cfg.refresh_eps)
+    if mkp8.is_cuda:
+        return kernels.refresh_points(*args)
+    return refresh_points_ref(*args)
+
+
+def refresh_staleness(kf_poses, kf_live, mkp):
+    """How far each keyframe moved since the map saw it: ``max(sqrt(dx dx +
+    dy dy), |wrap(dth)|)`` of ``kf_poses`` against ``mkp`` where live, else
+    0 (``[..., cap]``; K16 computes it in this order)."""
+    dx = kf_poses[..., 0] - mkp[..., 0]
+    dy = kf_poses[..., 1] - mkp[..., 1]
+    d_xy = torch.sqrt(dx * dx + dy * dy)
+    d_th = torch.abs(se2.wrap(kf_poses[..., 2] - mkp[..., 2]))
+    return torch.where(kf_live, torch.maximum(d_xy, d_th),
+                       torch.zeros_like(d_xy))
+
+
+def refresh_points_ref(kf_poses, kf_live, kf_points, kf_masks, mkp, enable,
+                       m: int, eps: float) -> tuple:
+    """The plain version of K16 (``kernels.refresh_points``): for each of
+    ``S`` sessions the ``m`` stalest keyframes (staleness ``max(|dxy|,
+    |wrap(dth)|)`` of ``kf_poses`` against ``mkp`` where live, else 0;
+    ``lax.top_k`` as a stable descending sort, equal staleness in index
+    order) at their old poses (weight -1) then at their smoothed poses
+    (+1). Returns ``(both [S, 2 m N, 2], bmsk [S, 2 m N], wts [S, 2 m N],
+    sel [S, m], do [S, m], rows [S, m, 3])``, ``do = stale > eps &
+    enable`` (``enable [S]`` or None) and ``rows = kf_poses[sel]``."""
+    s, _, n = kf_masks.shape
+    stale = refresh_staleness(kf_poses, kf_live, mkp)
+    val, order = torch.sort(stale, dim=1, descending=True, stable=True)
+    val, sel = val[:, :m], order[:, :m]
+    do = val > eps
+    if enable is not None:
+        do = do & enable[:, None]
+    take = lambda a: torch.gather(
+        a, 1, sel.reshape((s, m) + (1,) * (a.dim() - 2)).expand(
+            (s, m) + a.shape[2:]))
+    rows = take(kf_poses)
+    smsk = (take(kf_masks) & take(kf_live)[..., None]
+            & do[..., None]).reshape(s, m * n)
+    spts = take(kf_points)
+    old_w = se2.transform(take(mkp), spts).reshape(s, m * n, 2)
+    new_w = se2.transform(rows, spts).reshape(s, m * n, 2)
+    dt, dev = kf_points.dtype, kf_points.device
+    wts = torch.cat([torch.full((s, m * n), -1.0, dtype=dt, device=dev),
+                     torch.ones((s, m * n), dtype=dt, device=dev)], 1)
+    return (torch.cat([old_w, new_w], 1), torch.cat([smsk, smsk], 1), wts,
+            sel, do, rows)
 
 
 def _row(arr, idx):

@@ -464,7 +464,6 @@ def hot_times(seed: int, dev) -> dict:
     both scripts into the older checkout), so two commits compare in one
     call. Every event time is read before the first profiler session."""
     import dataclasses
-    import hashlib
 
     import torch
 
@@ -495,23 +494,7 @@ def hot_times(seed: int, dev) -> dict:
     from ndtpu_torch.slam import pipeline
     from ndtpu_torch.slam.odometry import run_odometry_windowed
 
-    def tensors(x):
-        if isinstance(x, torch.Tensor):
-            yield x
-        elif isinstance(x, dict):
-            for v in x.values():
-                yield from tensors(v)
-        elif isinstance(x, (tuple, list)):
-            for v in x:
-                yield from tensors(v)
-
-    def sha(x) -> str:
-        h = hashlib.sha256()
-        for t in tensors(x):
-            h.update(t.detach().contiguous().cpu().reshape(-1).view(
-                torch.uint8).numpy().tobytes())
-        return h.hexdigest()[:16]
-
+    sha = bits_sha
     out = {}
     cfg2 = PipelineConfig.from_json(str(CONFIG2))
     cfg3 = PipelineConfig.from_json(str(CONFIG3))
@@ -1368,11 +1351,37 @@ def run_once(inputs, cfg):
     return time.perf_counter() - t0, state, traj
 
 
+def bits_sha(x) -> str:
+    """The first 16 hex digits of the sha256 of every tensor in ``x`` (a
+    tensor, or nested tuples, lists and dicts of them), their bytes in
+    order: equal digests mean equal bits."""
+    import hashlib
+
+    import torch
+
+    def tensors(y):
+        if isinstance(y, torch.Tensor):
+            yield y
+        elif isinstance(y, dict):
+            for v in y.values():
+                yield from tensors(v)
+        elif isinstance(y, (tuple, list)):
+            for v in y:
+                yield from tensors(v)
+
+    h = hashlib.sha256()
+    for t in tensors(x):
+        h.update(t.detach().contiguous().cpu().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def take_codes(dev) -> dict:
     """Box-world draws 0-2 (made on the CPU, as ``chip_smoke.ate_gate``
     makes them) at configs 2 and 3 through ``run_slam_windowed`` on the
     card: per draw the smoother's take code of each window
-    (``chip_smoke.window_takes``), the loops and the ATE."""
+    (``chip_smoke.window_takes``), the loops, the ATE and the
+    :func:`bits_sha` of the trajectory and of the final state."""
     import torch
 
     from chip_smoke import CONFIG2, CONFIG3, box_sequence, window_takes
@@ -1391,7 +1400,8 @@ def take_codes(dev) -> dict:
             torch.cuda.synchronize()
             row = dict(takes=window_takes(outs, cfg.window),
                        loops=int(state.n_loops),
-                       ate_m=float(ate_rmse(traj.cpu(), seq.gt_poses)))
+                       ate_m=float(ate_rmse(traj.cpu(), seq.gt_poses)),
+                       traj_sha=bits_sha(traj), state_sha=bits_sha(state))
             out[f"{config.stem} draw {seed}"] = row
             print(f"[profile] takes {config.stem} draw {seed}: {row}")
     return out
@@ -1767,22 +1777,32 @@ def profiled_run(inputs, cfg, n_scans: int):
 
 
 #: The stacked window's stages (``dist/slam_dp.py``), each synchronized at
-#: its edges; the loop verify (``_loop_lanes``: since K15 one call for all
-#: sessions, its set-up ``verify_lanes`` and its gated launch ``_verify``;
-#: before, one ``_loop_lanes`` a session, or ``_wb_loops`` before K14) and
-#: ``write_local_tables`` run inside the appends, ``fresh_residual_max`` is
-#: the smoother's need test.
-SERVING_STAGES = (("ndtpu_torch.dist.slam_dp", "_frontend_stacked"),
-                  ("ndtpu_torch.dist.slam_dp", "_appends_stacked"),
-                  ("ndtpu_torch.slam.pipeline", "_wb_loops"),
-                  ("ndtpu_torch.slam.pipeline", "_loop_lanes"),
-                  ("ndtpu_torch.loop.closure", "verify_lanes"),
-                  ("ndtpu_torch.loop.closure", "_verify"),
-                  ("ndtpu_torch.loop.closure", "write_local_tables"),
-                  ("ndtpu_torch.graph.incremental", "fresh_residual_max"),
-                  ("ndtpu_torch.dist.slam_dp", "_smooth_stacked"),
-                  ("ndtpu_torch.dist.slam_dp", "_extend_stacked"),
-                  ("ndtpu_torch.dist.slam_dp", "_refresh_stacked"))
+#: its edges, as ``(module, function, label)``: the loop verify
+#: (``_loop_lanes``: since K15 one call for all sessions, its set-up
+#: ``verify_lanes`` and its gated launch ``_verify``; before, one
+#: ``_loop_lanes`` a session, or ``_wb_loops`` before K14) and
+#: ``write_local_tables`` run inside the appends; ``need_test`` is the
+#: smoother's need test (one ``fresh_residual_max_stacked`` call for all
+#: sessions, or in older checkouts one ``fresh_residual_max`` a session);
+#: ``refresh_points`` is the refresh's selection and points inside
+#: ``_refresh_stacked`` (one ``_refresh_points`` call for all sessions
+#: since K16, one a session before it).
+SERVING_STAGES = (
+    ("ndtpu_torch.dist.slam_dp", "_frontend_stacked", "_frontend_stacked"),
+    ("ndtpu_torch.dist.slam_dp", "_appends_stacked", "_appends_stacked"),
+    ("ndtpu_torch.slam.pipeline", "_wb_loops", "_wb_loops"),
+    ("ndtpu_torch.slam.pipeline", "_loop_lanes", "_loop_lanes"),
+    ("ndtpu_torch.loop.closure", "verify_lanes", "verify_lanes"),
+    ("ndtpu_torch.loop.closure", "_verify", "_verify"),
+    ("ndtpu_torch.loop.closure", "write_local_tables",
+     "write_local_tables"),
+    ("ndtpu_torch.graph.incremental", "fresh_residual_max", "need_test"),
+    ("ndtpu_torch.graph.incremental", "fresh_residual_max_stacked",
+     "need_test"),
+    ("ndtpu_torch.dist.slam_dp", "_smooth_stacked", "_smooth_stacked"),
+    ("ndtpu_torch.dist.slam_dp", "_extend_stacked", "_extend_stacked"),
+    ("ndtpu_torch.dist.slam_dp", "_refresh_stacked", "_refresh_stacked"),
+    ("ndtpu_torch.slam.pipeline", "_refresh_points", "refresh_points"))
 
 
 def serving_inputs(dev, sessions: int, n_scans: int):
@@ -1848,16 +1868,19 @@ def serving_profile(dev, sessions: int, n_scans: int, runs: int) -> dict:
     traj = trajectories(state, outs).cpu()
     ates = [float(ate_rmse(traj[k], seqs[k].gt_poses))
             for k in range(sessions)]
+    shas = dict(traj=bits_sha(traj), state=bits_sha(state),
+                outs=bits_sha(outs))
     print(f"[profile] serving {sessions} x {n_scans} scans: "
           + ", ".join(f"{w:.4f} s ({scans / w:.1f} scans/s)" for w in walls)
-          + f"; ATE per session " + " ".join(f"{a:.4f}" for a in ates))
+          + f"; ATE per session " + " ".join(f"{a:.4f}" for a in ates)
+          + f"; sha256 {shas}")
 
     spent = defaultdict(float)
-    saved = [(importlib.import_module(m), name) for m, name in
-             SERVING_STAGES]
+    saved = [(importlib.import_module(m), name, label)
+             for m, name, label in SERVING_STAGES]
     # A stage an older (or newer) checkout lacks is skipped.
-    saved = [(mod, name, getattr(mod, name)) for mod, name in saved
-             if hasattr(mod, name)]
+    saved = [(mod, name, label, getattr(mod, name))
+             for mod, name, label in saved if hasattr(mod, name)]
 
     def timed(name, fn):
         def wrapper(*a, **k):
@@ -1869,12 +1892,12 @@ def serving_profile(dev, sessions: int, n_scans: int, runs: int) -> dict:
             return out
         return wrapper
 
-    for mod, name, fn in saved:
-        setattr(mod, name, timed(name, fn))
+    for mod, name, label, fn in saved:
+        setattr(mod, name, timed(label, fn))
     try:
         wall_p, _ = serving_once(inputs, cfg)
     finally:
-        for mod, name, fn in saved:
+        for mod, name, _, fn in saved:
             setattr(mod, name, fn)
     print(f"[profile] serving stages ({wall_p:.4f} s): " + ", ".join(
         f"{k} {v:.4f} s ({v / wall_p:.1%})" for k, v in spent.items()))
@@ -1920,7 +1943,8 @@ def serving_profile(dev, sessions: int, n_scans: int, runs: int) -> dict:
         print(f"[profile]   {ms:9.3f} ms {n:6d} x {name[:80]}")
     return dict(sessions=sessions, scans=scans, windows=windows,
                 wall_s=walls, aggregate_scans_per_s=[scans / w for w in walls],
-                ate_m=ates, stage_wall_s=wall_p, stage_s=dict(spent),
+                ate_m=ates, sha256=shas, stage_wall_s=wall_p,
+                stage_s=dict(spent),
                 launches_per_window={k: v / windows
                                      for k, v in launches.items() if v},
                 host_syncs=syncs, profiled_wall_s=wall_prof,

@@ -2343,3 +2343,124 @@ def test_fused_verify_equals_per_session_launches(dev):
         for name, a, b in zip(one._fields, fused, one):
             assert cs.bits_equal(a[i], b[0]), (i, name)
     assert kernels.LAUNCHES["loop_lanes"] == 1 + s
+
+
+K16_LABELS = ("serving", "smoke", "ties", "full", "off")
+
+
+@pytest.mark.parametrize("label", K16_LABELS)
+def test_refresh_points_bit_equal_to_plain(dev, label):
+    """K16 against ``pipeline.refresh_points_ref`` on the same f32 card
+    inputs at ``chip_smoke.K16_CASES`` (serving's 8 x 512 slots and the
+    smoke's 160, M = 12, 360 beams; equal staleness across the M-th place,
+    a full store, every session off): every output bit-equal, one launch a
+    call."""
+    import chip_smoke as cs
+    from ndtpu_torch.slam import pipeline
+
+    i = K16_LABELS.index(label)
+    args = cs.k16_inputs(i, dev, *cs.K16_CASES[i][1:])
+    kernels.reset_launches()
+    out = kernels.refresh_points(*args)
+    assert kernels.LAUNCHES["refresh_points"] == 1
+    ref = pipeline.refresh_points_ref(*args)
+    for name, a, b in zip(cs.K16_OUTS, out, ref):
+        assert cs.bits_equal(a, b), name
+    on = int(out[4].sum())
+    assert (on == 0) == (label == "off")
+
+
+def test_refresh_points_at_its_largest_store_and_past_it(dev):
+    """K16 at the largest store its shared memory takes at M = 12 (past the
+    48 KB a block gets without opting in) bit-equal to the plain version;
+    one slot more raises before any launch."""
+    import chip_smoke as cs
+    from ndtpu_torch.slam import pipeline
+
+    m = 12
+    cap = kernels.refresh_max_cap(m)
+    args = cs.k16_inputs(7, dev, 2, cap, m, 8, True, False, "all", 0.0)
+    out = kernels.refresh_points(*args)
+    for name, a, b in zip(cs.K16_OUTS, out,
+                          pipeline.refresh_points_ref(*args)):
+        assert cs.bits_equal(a, b), name
+    big = cs.k16_inputs(7, dev, 1, cap + 1, m, 8, False, False, "all", 0.0)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.refresh_points(*big)
+    assert kernels.LAUNCHES["refresh_points"] == 0
+
+
+def test_refresh_stacked_equals_single_session_refreshes(dev):
+    """Serving's refresh of 8 sessions (one K16, one K3s, one K14 row
+    write) against one single-session ``_refresh_map`` a session (K16 at
+    S = 1, K3, the row write), bit for bit, with one session's refresh
+    off."""
+    import chip_smoke as cs
+    from ndtpu_torch.config import PipelineConfig
+    from ndtpu_torch.dist import slam_dp
+    from ndtpu_torch.slam import pipeline
+    from ndtpu_torch.slam.keyframes import KeyframeStore
+
+    cfg = slam_dp.serving_config(PipelineConfig.from_json(str(cs.SERVING)))
+    poses, live, pts, msk, mkp, _, m, _ = cs.k16_inputs(
+        11, dev, 8, 160, cfg.refresh_top_m, 360, False, False, "all", 0.0)
+    s = poses.shape[0]
+    kf8 = KeyframeStore(poses, pts, msk, live, live.sum(1), None)
+    one = tgrid.empty_stats(cfg.grid, torch.float32, dev)
+    stats8 = tgrid.NDTStats(*(torch.stack([f] * s).contiguous()
+                              for f in one))
+    enable = torch.arange(s, device=dev) != 3
+    kernels.reset_launches()
+    st8, mk8 = slam_dp._refresh_stacked(stats8, kf8, mkp, cfg, enable)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["refresh_points"] == 1
+    assert kernels.LAUNCHES["halfcell_add_stacked"] == 1
+    for i in range(s):
+        st, mk = pipeline._refresh_map(
+            tgrid.NDTStats(*(f[i] for f in stats8)), slam_dp._take(kf8, i),
+            mkp[i], cfg, enable=enable[i])
+        assert cs.bits_equal(mk8[i], mk), i
+        assert cs.bits_equal(tuple(f[i] for f in st8), tuple(st)), i
+    assert kernels.LAUNCHES["refresh_points"] == 1 + s
+    assert cs.bits_equal(mk8[3], mkp[3])
+
+
+def test_fresh_residual_max_stacked_equals_single_launches(dev):
+    """K5's fresh window of 8 sessions (one launch; windows clamped at
+    slot 0, inside, and at F - k) against one single-session launch a
+    session, bit for bit, and within rtol 1e-5 of the f32 plain version."""
+    from ndtpu_torch.dist import slam_dp
+    from ndtpu_torch.graph import factors as fct
+    from ndtpu_torch.graph import incremental as inc
+
+    rng = np.random.default_rng(4)
+    s, v, f = 8, 160, 320
+    nb = np.array([5, 64, 100, 200, 250, 300, 319, 320])
+    a = np.triu(rng.normal(0.0, 2.0, (s, f, 3, 3))) + 5 * np.eye(3)
+    t = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt, device=dev)
+    g8 = fct.PoseGraph(
+        poses=t(rng.normal(0.0, 3.0, (s, v, 3))),
+        pose_mask=t(np.ones((s, v), bool), torch.bool),
+        prior_idx=t(np.zeros((s, 4)), torch.int64),
+        prior_z=t(np.zeros((s, 4, 3))),
+        prior_sqrt_info=t(np.broadcast_to(np.eye(3), (s, 4, 3, 3)).copy()),
+        prior_mask=t(np.zeros((s, 4), bool), torch.bool),
+        bet_i=t(rng.integers(0, v, (s, f)), torch.int64),
+        bet_j=t(rng.integers(0, v, (s, f)), torch.int64),
+        bet_z=t(rng.normal(0.0, 1.0, (s, f, 3))), bet_sqrt_info=t(a),
+        bet_mask=t((np.arange(f) < nb[:, None])
+                   & (rng.random((s, f)) < 0.9), torch.bool),
+        n_poses=t(np.full(s, v), torch.int64),
+        n_priors=t(np.zeros(s), torch.int64),
+        n_between=t(nb, torch.int64))
+    kernels.reset_launches()
+    out = inc.fresh_residual_max_stacked(g8)
+    assert kernels.LAUNCHES["factor_linearize"] == 1
+    for i in range(s):
+        one = inc.fresh_residual_max(slam_dp._take(g8, i))
+        assert torch.equal(out[i].view(torch.int32),
+                           one.view(torch.int32)), i
+    ref = inc.fresh_residual_max_stacked_ref(g8)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=0)
+    assert bool((out > 0).all())
