@@ -5796,6 +5796,24 @@ def k14_loop_inputs(seed: int, out, lanes, w: int = 8) -> tuple:
             t(rng.random((s, kq)) < 0.8))
 
 
+def k14_rows_inputs(seed: int, out) -> tuple:
+    """The row entry's arguments on K14's output ``out`` at serving's
+    refresh shape: ``map_kf_poses`` with :data:`K14_REFRESH_ROWS` distinct
+    seeded rows a session (70% kept) set to their ``kf.poses`` rows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    mkp, kf_poses = out[14], out[9]
+    s, cap = mkp.shape[:2]
+    m, dev = K14_REFRESH_ROWS, mkp.device
+    sel = torch.as_tensor(np.stack([rng.permutation(cap)[:m]
+                                    for _ in range(s)]), device=dev)
+    do = torch.as_tensor(rng.random((s, m)) < 0.7, device=dev)
+    src = torch.gather(kf_poses, 1, sel[..., None].expand(-1, -1, 3))
+    return mkp, sel, do, src
+
+
 def k14_compare(label, out, ref, names, computed=()) -> tuple:
     """K14's outputs against the plain version's on the same card inputs:
     ``computed`` fields within :data:`K14_RTOL`, every other one bit-equal.
@@ -5835,7 +5853,6 @@ def check_k14(seed: int, dev, jobs=None) -> dict:
     plain version (events), with its card time and bytes bound. Returns the
     three rows (config 3's shapes for the appends and the loop entry, the
     other cases under ``cases``)."""
-    import numpy as np
     import torch
 
     from ndtpu_torch import kernels
@@ -5890,13 +5907,8 @@ def check_k14(seed: int, dev, jobs=None) -> dict:
                      f"dropped, bit-equal, kernel {lrow['ms']:.4f} ms, plain "
                      f"{lrow['plain_ms']:.4f} ms")
         if label == "serving":
-            rng = np.random.default_rng(seed)
             m = K14_REFRESH_ROWS
-            mkp = out[14]
-            sel = torch.as_tensor(np.stack([rng.permutation(cap)[:m]
-                                            for _ in range(s)]), device=dev)
-            do = torch.as_tensor(rng.random((s, m)) < 0.7, device=dev)
-            src = torch.gather(out[9], 1, sel[..., None].expand(-1, -1, 3))
+            mkp, sel, do, src = k14_rows_inputs(seed, out)
             rrun = lambda: kernels.rows_set(mkp, sel, do, src)
             rout = rrun()
             rref = appends.set_rows_ref(mkp, sel, do, src)
@@ -5998,6 +6010,26 @@ def k15_bound(args) -> dict:
     return bound(n_bytes, 6.0 * q * cap)
 
 
+def k15_library_call(args):
+    """K15's library call on :func:`k15_inputs`' ``args``: ``torch.topk(
+    d_masked, C, largest=False)`` over the plain version's masked distances
+    (computed here, outside the call): the search alone, its order among
+    equal distances not guaranteed."""
+    import torch
+
+    poses, live, _, _, wposes, sel, qidx, radius, gap, c = args[:10]
+    s, cap = live.shape
+    qp = torch.gather(wposes, 1, sel[..., None].expand(-1, -1, 3))
+    dx = poses[:, None, :, 0] - qp[..., 0, None]
+    dy = poses[:, None, :, 1] - qp[..., 1, None]
+    d = torch.sqrt(dx * dx + dy * dy)
+    slots = torch.arange(cap, device=poses.device)
+    ok = live[:, None] & (d <= radius) & (qidx[..., None] - slots >= gap)
+    dm = torch.where(ok, d, torch.full_like(d, float("inf"))).reshape(
+        -1, cap)
+    return lambda: torch.topk(dm, c, dim=-1, largest=False)
+
+
 def check_k15(dev, seed: int, jobs=None) -> dict:
     """K15 ``loop_lanes`` against ``closure.loop_lanes_ref`` on the card at
     :data:`K15_CASES`: all nine outputs bit-equal, and on a second launch;
@@ -6035,18 +6067,7 @@ def check_k15(dev, seed: int, jobs=None) -> dict:
         tied = int(((dist[..., 1:] == dist[..., :-1]) & mask[..., 1:]).sum())
         require(int(mask.sum()) > 0, f"K15 {label}: no candidate found")
         require(not ties or tied > 0, f"K15 {label}: no equal distances")
-        # The twin's masked distances: topk's input.
-        poses, live, _, _, wposes, sel = args[:6]
-        qp = torch.gather(wposes, 1, sel[..., None].expand(-1, -1, 3))
-        dx = poses[:, None, :, 0] - qp[..., 0, None]
-        dy = poses[:, None, :, 1] - qp[..., 1, None]
-        d = torch.sqrt(dx * dx + dy * dy)
-        slots = torch.arange(cap, device=dev)
-        ok = (live[:, None] & (d <= radius)
-              & (args[6][..., None] - slots >= gap))
-        dm = torch.where(ok, d, torch.full_like(d, float("inf"))).reshape(
-            s * k, cap)
-        lib = lambda dm=dm, c=c: torch.topk(dm, c, dim=-1, largest=False)
+        lib = k15_library_call(args)
         row = dict(max_abs_err=0.0, bit_equal=True, sessions=s, queries=k,
                    candidates=c, capacity=cap, stride=stride, masked=masked,
                    tied=tied, ms=time_ms(run), plain_ms=time_ms(twin),

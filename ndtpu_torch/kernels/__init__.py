@@ -106,10 +106,12 @@ append                                       scatters (slots, anchors, node
 loop_lanes   ``csrc/loop_lanes.cu`` (K15)    ``closure.find_candidates`` and
                                              the lane set-up of
                                              ``verify_candidates_cached_
-                                             flat`` for S x K queries: a
-                                             sort of 64-bit (distance,
-                                             index) keys per query, then
-                                             the gated ``lm_ndt``'s lanes
+                                             flat`` for S x K queries:
+                                             each warp's running top C of
+                                             64-bit (distance, index) keys,
+                                             ranked over the warps' lists,
+                                             then the gated ``lm_ndt``'s
+                                             lanes
 refresh_     ``csrc/refresh_points.cu``      ``pipeline._refresh_map``'s
 points       (K16)                           staleness, ``lax.top_k`` and
                                              weighted old / new points for
@@ -210,7 +212,7 @@ __all__ = ["LAUNCHES", "reset_launches", "build", "lm_ndt", "LoopGate",
            "finalize_cells",
            "slab_spread", "slab_sgh", "raycast", "sgh_spread", "voxel_smem",
            "voxel_route", "voxel_downsample", "WINDOW_MAX", "window_append",
-           "loop_append", "rows_set", "LOOP_LANES_MAX_CAP", "loop_lanes_smem",
+           "loop_append", "rows_set", "LOOP_LANES_MAX_CAP",
            "loop_lanes_check", "loop_lanes", "refresh_smem",
            "refresh_max_cap", "refresh_check",
            "refresh_points", "FRESH_MAX_WINDOW", "fresh_residual_max_stacked"]
@@ -324,7 +326,7 @@ _SIGNATURES = {
     "window_append_launch": [_P] + [_I] * 7 + [_P],
     "loop_append_launch": [_P] + [_I] * 5 + [_P],
     "rows_set_launch": [_P] * 5 + [_I] * 4 + [_P],
-    "loop_lanes_launch": [_P] + [_I] * 9 + [_F, ctypes.c_longlong, _P],
+    "loop_lanes_launch": [_P] + [_I] * 8 + [_F, ctypes.c_longlong, _P],
     "refresh_points_launch": [_P] + [_I] * 4 + [_F, _I, _P],
 }
 
@@ -1970,11 +1972,9 @@ def rows_set(dst, idx, ok, src) -> torch.Tensor:
     C]`` f32 tensor, ``dst`` with row ``idx[s, m]`` replaced by ``src[s,
     m]`` where ``ok[s, m]`` (the last such ``m`` where indices repeat; an
     index outside ``[0, R)`` writes nothing), ``idx [S, M]`` int64, ``ok
-    [S, M]`` bool, ``src [S, M, C]``; one launch, ``M`` <= 6,144."""
+    [S, M]`` bool, ``src [S, M, C]``; one launch."""
     s, r, c = dst.shape
     m = idx.shape[1]
-    if m > 6144:
-        raise ValueError(f"rows_set: {m} rows a session (6,144 taken)")
     _check(dst, "dst", shape=(s, r, c))
     _check(idx, "idx", dtype=torch.int64, shape=(s, m), align=8)
     _check(ok, "ok", dtype=torch.bool, shape=(s, m), align=1)
@@ -1987,17 +1987,13 @@ def rows_set(dst, idx, ok, src) -> torch.Tensor:
     return out
 
 
-#: The most keyframe slots a store may have for K15's candidate search: the
-#: sort keeps 8 B a slot, the store rounded up to a power of two, in one
-#: block's shared memory (``kMaxSlots`` of ``csrc/loop_lanes.cu``: 128 KB of
-#: the 227 KB a block can opt in to).
+#: The most keyframe slots a store may have for K15's candidate search
+#: (``kMaxSlots`` of ``csrc/loop_lanes.cu``). The search streams the store
+#: through each warp's running top C, so its shared memory (two lists of C
+#: keys for each of 8 warps, 16 KB at C = 128) does not grow with the
+#: store; the limit is the largest store the card tests hold bit-equal to
+#: the plain version.
 LOOP_LANES_MAX_CAP = 16384
-
-
-def loop_lanes_smem(cap: int) -> int:
-    """K15's dynamic shared memory for the search over a store of ``cap``
-    slots: 8 B a slot, rounded up to a power of two."""
-    return 8 * (1 << max(0, (cap - 1).bit_length()))
 
 
 def loop_lanes_check(cap: int, c: int) -> None:
@@ -2011,8 +2007,7 @@ def loop_lanes_check(cap: int, c: int) -> None:
     if cap > LOOP_LANES_MAX_CAP:
         raise ValueError(
             f"loop_lanes: a keyframe store of {cap} slots; the candidate "
-            f"search sorts 8 B a slot (rounded up to a power of two) in one "
-            f"block's shared memory, up to {LOOP_LANES_MAX_CAP} slots "
+            f"search takes up to {LOOP_LANES_MAX_CAP} slots "
             f"(KeyframeConfig.capacity <= {LOOP_LANES_MAX_CAP})")
 
 
@@ -2074,10 +2069,7 @@ def loop_lanes(kf_poses, kf_live, points, mask, poses, sel, query_index,
                 + ([None] * 3 if given else list(cands)) + list(out)]
         _call("loop_lanes_launch", "loop_lanes",
               (ctypes.c_longlong * len(ptrs))(*ptrs), s * k, k, c, w, n, cap,
-              loop_lanes_smem(cap) // 8, stride, n_out, radius, int(min_gap),
-              _stream(kf_poses),
-              too_big=f"{loop_lanes_smem(cap)} B of shared memory for a "
-                      f"store of {cap} slots")
+              stride, n_out, radius, int(min_gap), _stream(kf_poses))
     return cands + out
 
 

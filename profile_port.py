@@ -79,8 +79,10 @@ checkouts).
 ``--hot`` runs only :func:`hot_times` (event and card ms per call of
 ``lm_ndt`` at the window, verify and gated-verify shapes and at bench.py's
 headline shape, of K6, K6b, K5, K6g, K7a, K7b, K11, K10a-c, K12, K13,
-K9a-c, the slab map's exchange and finalize together, two floors (an
-empty kernel, a copy) and the 10k smoother update, with hashes of their
+K9a-c, K14's three entries and K15 (:func:`k14_k15_calls`, with
+``torch.topk`` and copy floors beside them), the slab map's exchange and
+finalize together, two floors (an empty kernel, a copy) and the 10k
+smoother update, with hashes of their
 outputs and of configs 1-3's box-world trajectories and the served
 sessions, and bench.py §5's smoother cells, for comparing two commits).
 
@@ -446,7 +448,10 @@ def hot_times(seed: int, dev) -> dict:
     64, lam 1e-3: ``chip_smoke.check_k9b``'s inputs); K9c on both ranks of
     :func:`k9c_graph` split in two (``chip_smoke.k9c_ranks``); K10b and
     the slab map's exchange and finalize together, with an empty kernel and
-    a copy beside them (:func:`k10b_calls`); K9a's and
+    a copy beside them (:func:`k10b_calls`); K15 and K14's three entries
+    at ``chip_smoke``'s config-2, config-3 and serving cases, with
+    ``torch.topk`` and copy floors beside them (:func:`k14_k15_calls`);
+    K9a's and
     K9c's library calls (``chip_smoke.k9a_library_call``,
     ``k9c_library_call``; card ms, no hash: float atomics). Beside them each
     launch's outputs' sha256 and, for configs 1, 2 and 3 on box-world
@@ -644,6 +649,15 @@ def hot_times(seed: int, dev) -> dict:
         if calls_per is not None:
             per_call[key] = calls_per
         if key.startswith("floor"):
+            no_hash.add(key)
+    # K15 at config 3's and serving's shapes (the search with its lanes and
+    # alone, torch.topk beside them) and K14's three entries at configs 2
+    # and 3 and serving, a copy_ of the bytes each writes beside them.
+    for key, fn, names, calls_per, hashed in k14_k15_calls(seed, dev):
+        calls[key] = (fn, names)
+        if calls_per is not None:
+            per_call[key] = calls_per
+        if not hashed:
             no_hash.add(key)
     # K9a and K9b on config 4's 10k graph (P = 64), on the inputs
     # chip_smoke.check_k9b builds: K9a's outputs and the interior
@@ -898,6 +912,75 @@ def k10b_calls(cfg5, seed: int, dev):
         dst = torch.empty_like(src)
         out.append((f"floor copy_ 56 B a cell {label}",
                     lambda src=src, dst=dst: dst.copy_(src), None, 1))
+    return out
+
+
+def k14_k15_calls(seed: int, dev):
+    """K15's and K14's ``--hot`` calls, ``(key, fn, kernel names, device
+    operations per call or None, hashed)``: K15 ``loop_lanes`` at
+    ``chip_smoke.K15_CASES``' config-3 and serving cases, the search with
+    its lanes and the search alone, each with its library call beside it
+    (``chip_smoke.k15_library_call``: ``torch.topk`` of the masked
+    distances; its order among equal distances is not guaranteed, so not
+    hashed); K14's append, loop and row entries at ``K14_CASES``' config-2,
+    config-3 and serving cases (the loop entry where the case has lanes,
+    the row entry at serving's refresh shape: ``chip_smoke.check_k14``'s
+    inputs), each with a ``copy_`` of the bytes its outputs hold beside it
+    (the copy floor, L2-warm). It uses only entry points older checkouts of
+    the port also have."""
+    import torch
+
+    from chip_smoke import (K14_CASES, K15_CASES, k14_inputs,
+                            k14_loop_inputs, k14_rows_inputs,
+                            k15_inputs, k15_library_call)
+    from ndtpu_torch import kernels
+
+    out = []
+    for i, case in enumerate(K15_CASES):
+        label, s, k, c, cap, n, stride, radius, gap, ties, full = case
+        if label not in ("config3", "serving"):
+            continue
+        a = k15_inputs(seed + i, dev, s, k, c, cap, n, stride, radius, gap,
+                       ties, full)
+        out += [(f"K15 loop_lanes {label}", lambda a=a: kernels.loop_lanes(
+                    *a), ["loop_lanes_kernel"], 1, True),
+                (f"K15 loop_lanes search alone {label}",
+                 lambda a=a: kernels.loop_lanes(*a[:-1], lanes=False),
+                 ["loop_lanes_kernel"], 1, True),
+                (f"K15 library call {label}", k15_library_call(a), None,
+                 None, False)]
+
+    def floor(tensors):
+        n = sum(t.numel() * t.element_size() for t in tensors) // 4
+        src = torch.rand(n, device=dev)
+        dst = torch.empty_like(src)
+        return lambda: dst.copy_(src)
+
+    for i, (label, s, cap, lanes, _) in enumerate(K14_CASES):
+        if label == "overflow":
+            continue
+        a = k14_inputs(seed + i, dev, s, cap, False)
+        res = kernels.window_append(*a)
+        out += [(f"K14 window_append {label}",
+                 lambda a=a: kernels.window_append(*a),
+                 ["window_append_kernel"], 1, True),
+                (f"floor copy_ K14 window_append {label}", floor(res[:15]),
+                 None, 1, False)]
+        if lanes:
+            la = k14_loop_inputs(seed + i, res, lanes)
+            lres = kernels.loop_append(*la, 8)
+            out += [(f"K14 loop_append {label}",
+                     lambda la=la: kernels.loop_append(*la, 8),
+                     ["loop_append_kernel"], 1, True),
+                    (f"floor copy_ K14 loop_append {label}",
+                     floor(lres[:6]), None, 1, False)]
+        if label == "serving":
+            ra = k14_rows_inputs(seed + i, res)
+            out += [("K14 rows_set serving",
+                     lambda ra=ra: kernels.rows_set(*ra),
+                     ["rows_set_kernel"], 1, True),
+                    ("floor copy_ K14 rows_set serving", floor(ra[:1]), None,
+                     1, False)]
     return out
 
 

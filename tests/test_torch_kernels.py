@@ -2233,6 +2233,54 @@ def test_rows_set_last_write_wins_and_drops_outside(dev):
     assert torch.equal(out, ref)
 
 
+def test_rows_set_past_one_block_and_many_indices(dev):
+    """K14's row entry over rows that span several blocks (1,000 rows of 3,
+    341 a block) and 8,000 indices a session (repeats, out of range,
+    masked): each row the last kept write that names it, as a numpy model,
+    and bit-equal on a second launch."""
+    rng = np.random.default_rng(1)
+    s, r, c, m = 3, 1000, 3, 8000
+    dst = rng.normal(0, 1, (s, r, c)).astype(np.float32)
+    idx = rng.integers(-20, r + 20, (s, m))
+    ok = rng.random((s, m)) < 0.3
+    src = rng.normal(0, 1, (s, m, c)).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    out = kernels.rows_set(t(dst), t(idx), t(ok), t(src))
+    again = kernels.rows_set(t(dst), t(idx), t(ok), t(src))
+    ref = dst.copy()
+    for i in range(s):
+        for q in range(m):
+            if ok[i, q] and 0 <= idx[i, q] < r:
+                ref[i, idx[i, q]] = src[i, q]
+    assert np.array_equal(out.cpu().numpy().view(np.int32),
+                          ref.view(np.int32))
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+
+
+def test_window_append_at_capacity_with_32_scans(dev):
+    """K14 at its longest window (W = 32) on full capacities: the appended
+    ranges of the graph, the factors and the keyframe store run into their
+    capacities (slots dropped), and the loop entry's 16 x 128 lanes (past
+    one ballot round of its block, and past the factor capacity) likewise:
+    bit-equal to the plain version on the integers, masks and copies, the
+    values within ``chip_smoke.K14_RTOL``."""
+    import chip_smoke as cs
+    from ndtpu_torch.slam import appends
+
+    args = cs.k14_inputs(11, dev, 2, 1024, True, w=32)
+    out = appends.window_append(*args)
+    cs.k14_compare("W=32 full", out, appends.window_append_ref(*args),
+                   cs.K14_OUTS, cs.K14_COMPUTED)
+    assert int(out[25].sum()) > 0
+    assert bool((out[7] == 1024).all())
+    largs = cs.k14_loop_inputs(11, out, (16, 128), w=32)
+    lout = appends.loop_append(*largs, 32)
+    cs.k14_compare("loops 16 x 128", lout,
+                   appends.loop_append_ref(*largs, 32), cs.K14_LOOP_OUTS)
+    assert int(lout[7].sum()) > 0
+    assert bool((lout[5] == 2048).all())
+
+
 def test_windowed_run_launches_k14_once_a_window(dev):
     """``run_slam_windowed`` at config 3's shapes on a short box-world draw:
     one K14 append and one loop-entry launch a window, no plain version on
@@ -2283,9 +2331,9 @@ def test_loop_lanes_bit_equal_to_plain(dev, label):
 
 
 def test_loop_lanes_at_its_largest_store_and_past_it(dev):
-    """K15 at ``LOOP_LANES_MAX_CAP`` slots (its sort in 128 KB of shared
-    memory, past the 48 KB a block gets without opting in) bit-equal to
-    the plain version; one slot more raises before any launch."""
+    """K15 at ``LOOP_LANES_MAX_CAP`` slots (each warp streaming 2,048
+    slots through its running top C) bit-equal to the plain version; one
+    slot more raises before any launch."""
     import chip_smoke as cs
 
     cap = kernels.LOOP_LANES_MAX_CAP
@@ -2299,6 +2347,35 @@ def test_loop_lanes_at_its_largest_store_and_past_it(dev):
     with pytest.raises(ValueError, match="slots"):
         kernels.loop_lanes(*big)
     assert kernels.LAUNCHES["loop_lanes"] == 0
+
+
+@pytest.mark.parametrize("radius", [5.0, 0.6])
+def test_loop_lanes_128_candidates_on_its_largest_store(dev, radius):
+    """K15 at C = 128 on stores of ``LOOP_LANES_MAX_CAP`` slots (each warp
+    streaming 2,048 slots into a running top 128), with ~2 C keyframes in
+    the radius and with fewer than C (radius 0.6 m: the masked lanes the
+    lowest-index others): the search with its lanes, the search alone and
+    the lanes of given candidates, each bit-equal to the plain version."""
+    import chip_smoke as cs
+
+    cap = kernels.LOOP_LANES_MAX_CAP
+    args = list(cs.k15_inputs(5, dev, 2, 2, 128, cap, 360, 2, 5.0, 25,
+                              True, False))
+    args[7] = radius
+    out = kernels.loop_lanes(*args)
+    ref = closure.loop_lanes_ref(*args)
+    for name, a, b in zip(cs.K15_OUTS, out, ref):
+        assert cs.bits_equal(a, b), name
+    alone = kernels.loop_lanes(*args[:-1], lanes=False)
+    assert cs.bits_equal(alone[:3], out[:3])
+    given = kernels.loop_lanes(*args, cand_idx=out[0], cand_mask=out[1])
+    assert cs.bits_equal(given[3:], out[3:])
+    n_in = out[1].sum(-1)
+    assert bool((n_in > 0).any())
+    if radius < 1.0:
+        assert bool((n_in < 128).all())
+    else:
+        assert bool((n_in == 128).any())
 
 
 def test_fused_verify_equals_per_session_launches(dev):

@@ -213,6 +213,120 @@ def test_loop_lanes_ref_search_alone_and_given_candidates():
         assert torch.equal(a, b)
 
 
+#: K15's search block: its warps (``kThreads / 32`` of
+#: ``csrc/loop_lanes.cu``), each streaming its share of the store.
+_SRC = (Path(kernels.__file__).parent / "csrc" / "loop_lanes.cu").read_text()
+K15_WARPS = int(re.search(r"kThreads = (\d+);", _SRC).group(1)) // 32
+_NONE = np.uint64(2 ** 64 - 1)
+
+
+def _f32_dist(poses, qpose) -> np.ndarray:
+    """``sqrt(dx dx + dy dy)`` in f32 as the plain version computes it on
+    this device (torch: its CPU ``sqrt`` may differ from numpy's in the last
+    bit; on the card both it and the kernel's ``sqrtf`` round correctly)."""
+    p = torch.as_tensor(poses[:, :2], dtype=torch.float32)
+    q = torch.as_tensor(qpose[:2], dtype=torch.float32)
+    dx, dy = p[:, 0] - q[0], p[:, 1] - q[1]
+    return torch.sqrt(dx * dx + dy * dy).numpy()
+
+
+def _k15_model(poses, live, qpose, qidx, radius, gap, c):
+    """K15's search for one query, as the kernel runs it (numpy, f32): the
+    keys (distance bits << 32 | slot; :func:`_f32_dist`), each warp's
+    running top ``c`` over rounds of 32 slots (slot ``i`` in warp ``(i //
+    32) % warps``; a round's keys below the list's c-th merged in), then
+    each warp-list candidate's rank as the count of smaller keys in every
+    list (binary searches), the candidates ranked below ``c`` at their
+    rank. Returns ``(idx, mask, dist)``."""
+    f32 = np.float32
+    cap = poses.shape[0]
+    slots = np.arange(cap)
+    d = _f32_dist(poses, qpose)
+    ok = live & (d <= f32(radius)) & (qidx - slots >= gap)
+    dm = np.where(ok, d, f32(np.inf)).astype(f32)
+    keys = (dm.view(np.uint32).astype(np.uint64) << np.uint64(32)) | \
+        slots.astype(np.uint64)
+    span = 32 * K15_WARPS
+    rounds = -(-cap // span)
+    keys = np.concatenate([keys, np.full(rounds * span - cap, _NONE)])
+    lists = np.full((K15_WARPS, c), _NONE)
+    for new in keys.reshape(rounds, K15_WARPS, 32):
+        enter = np.where(new < lists[:, -1:], new, _NONE)
+        lists = np.sort(np.concatenate([lists, enter], 1), axis=1)[:, :c]
+    cand = lists.reshape(-1)
+    rank = sum(np.searchsorted(lst, cand, "left") for lst in lists)
+    out = np.full(c, _NONE)
+    keep = (cand != _NONE) & (rank < c)
+    out[rank[keep]] = cand[keep]
+    assert not (out == _NONE).any()
+    dist = (out >> np.uint64(32)).astype(np.uint32).view(f32)
+    return (out & np.uint64(0xffffffff)).astype(np.int64), \
+        np.isfinite(dist), dist
+
+
+def _model_store(kind: str, cap: int, c: int, rng):
+    """A store for the model: ``random`` (a quarter to three quarters
+    live, ~2 c keyframes within the radius of a query), ``ties`` (poses on
+    a 0.5 m lattice, so most distances repeat), ``full`` (every slot live)
+    or ``masked`` (no slot live: the lowest-index slots, masked). Three
+    queries near live keyframes, indexed past the fill; radius 5 m, gap
+    25."""
+    fill = cap if kind == "full" else int(rng.integers(cap // 4,
+                                                        3 * cap // 4))
+    side = float(np.sqrt(np.pi * 25.0 * fill / (2.0 * c)))
+    poses = np.zeros((cap, 3))
+    poses[:, :2] = rng.uniform(0.0, side, (cap, 2))
+    if kind == "ties":
+        poses[:, :2] = np.round(poses[:, :2] * 2.0) / 2.0
+    poses[:, 2] = rng.uniform(-np.pi, np.pi, cap)
+    live = np.arange(cap) < fill
+    if kind == "masked":
+        live[:] = False
+    qp = poses[rng.integers(0, fill, 3)] + rng.normal(0.0, [0.5, 0.5, 0.1],
+                                                      (3, 3))
+    if kind == "ties":
+        qp[:, :2] = np.round(qp[:, :2] * 2.0) / 2.0
+    return poses, live, qp, fill + np.arange(3)
+
+
+@pytest.mark.parametrize("c", [1, 16, 64, 128])
+@pytest.mark.parametrize("kind,cap", [("random", 1024), ("ties", 4096),
+                                      ("full", 16384), ("masked", 512)])
+def test_k15_selection_model_matches_plain_and_stable_sort(kind, cap, c):
+    """The kernel's selection (per-warp running top C, then each candidate's
+    rank among all warps' candidates), modelled in numpy, against
+    ``loop_lanes_ref`` (torch, f32) and a stable sort of the masked
+    distances: the same slots in the same order, the same masks and
+    distance bits, over seeded stores from 512 to 16,384 slots (random,
+    tie-heavy, full, every slot masked off) at C = 1, 16, 64 and 128."""
+    rng = np.random.default_rng(cap + c)
+    poses, live, qp, qidx = _model_store(kind, cap, c, rng)
+    radius, gap = 5.0, 25
+    t = lambda a, dt=None: torch.as_tensor(np.asarray(a, dt))
+    ref = tclosure.loop_lanes_ref(
+        t(poses[None], np.float32), t(live[None]), None, None,
+        t(qp[None], np.float32), t(np.arange(3)[None]), t(qidx[None]),
+        radius, gap, c, lanes=False)
+    n_in = 0
+    for q in range(3):
+        idx, mask, dist = _k15_model(poses, live, qp[q], qidx[q], radius,
+                                     gap, c)
+        assert np.array_equal(idx, ref[0][0, q].numpy())
+        assert np.array_equal(mask, ref[1][0, q].numpy())
+        assert np.array_equal(dist.view(np.uint32),
+                              ref[2][0, q].numpy().view(np.uint32))
+        d = _f32_dist(poses, qp[q])
+        ok = live & (d <= np.float32(radius)) & (qidx[q] - np.arange(cap)
+                                                 >= gap)
+        order = np.argsort(np.where(ok, d, np.inf), kind="stable")[:c]
+        assert np.array_equal(idx, order)
+        n_in += int(mask.sum())
+    if kind == "masked":
+        assert n_in == 0
+    else:
+        assert n_in > 0
+
+
 def _cfg(capacity: int = 64):
     return TP(grid=TG(x0=-16.0, y0=-16.0, cell=1.0, nx=32, ny=32, overlap=4),
               keyframe=TK(dist_thresh=0.5, angle_thresh=0.3,
@@ -323,19 +437,17 @@ def test_stacked_k8a_drops_a_slot_at_capacity(windows):
 
 def test_loop_lanes_size_checks_raise_before_the_card():
     """K15's limits raise on CPU-built shapes, before any device check:
-    a store past the sort's shared memory, more candidates than the gate's
-    128 threads or than the store has; ``LOOP_LANES_MAX_CAP`` and the gate
-    width are the source's, and the sort fits a block's shared memory."""
-    src = (Path(kernels.__file__).parent / "csrc"
-           / "loop_lanes.cu").read_text()
-    slots = int(re.search(r"kMaxSlots = (\d+);", src).group(1))
-    lanes = int(re.search(r"kMaxLanes = (\d+);", src).group(1))
+    a store past ``LOOP_LANES_MAX_CAP``, more candidates than the gate's
+    128 threads or than the store has; the limit and the gate width are
+    the source's, and the search's shared memory (two lists of C 8-byte
+    keys a warp, a round's entering keys, each list's place and fill) fits
+    what a block can opt in to, at any store."""
+    slots = int(re.search(r"kMaxSlots = (\d+);", _SRC).group(1))
+    lanes = int(re.search(r"kMaxLanes = (\d+);", _SRC).group(1))
     assert slots == kernels.LOOP_LANES_MAX_CAP
     assert lanes == kernels.GATE_MAX_LANES
-    assert kernels.loop_lanes_smem(slots) == 8 * slots <= kernels.SMEM_MAX
-    assert kernels.loop_lanes_smem(1000) == 8 * 1024
-    assert kernels.loop_lanes_smem(1024) == 8 * 1024
-    assert kernels.loop_lanes_smem(1025) == 8 * 2048
+    smem = 2 * K15_WARPS * lanes * 8 + K15_WARPS * 32 * 8 + K15_WARPS * 8
+    assert smem <= kernels.SMEM_MAX
 
     def call(cap, c):
         z = torch.zeros
